@@ -1,0 +1,59 @@
+"""Architecture config registry and reduced smoke variants.
+
+Counterpart of ``repro.configs``.  ``get_config(arch_id)`` returns the
+exact configuration for the architectures the port runs (``smollm-135m``)
+and raises ``NotImplementedError`` for the ones the reference supports but
+the port does not yet; ``reduced(cfg)`` returns the same small same-family
+variant as the reference.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["ARCH_IDS", "PORTED", "get_config", "reduced"]
+
+#: every architecture of the reference registry
+ARCH_IDS = ("jamba-v0.1-52b", "qwen3-0.6b", "chameleon-34b", "yi-9b",
+            "gemma2-9b", "deepseek-moe-16b", "whisper-small",
+            "granite-moe-3b-a800m", "mamba2-1.3b", "smollm-135m")
+
+#: the architectures this package runs, and their modules
+PORTED = {"smollm-135m": "smollm_135m"}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCH_IDS)}")
+    if arch_id not in PORTED:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not yet ported to repro_torch; ported: "
+            f"{sorted(PORTED)}")
+    return importlib.import_module(
+        f"repro_torch.configs.{PORTED[arch_id]}").CONFIG
+
+
+def reduced(cfg: ModelConfig, d_model: int = 256) -> ModelConfig:
+    """Small same-family variant: <=2 periods, d_model<=512, <=4 experts
+    (the reference's rule, restricted to the fields the port's
+    architectures use)."""
+    n_heads = min(cfg.n_heads, 4) if cfg.n_heads else 0
+    n_kv = min(cfg.n_kv_heads, max(1, n_heads // 2)) if cfg.n_kv_heads else 0
+    return dataclasses.replace(
+        cfg,
+        arch_id=cfg.arch_id + "-smoke",
+        d_model=d_model,
+        vocab_size=min(cfg.vocab_size, 1024),
+        n_periods=min(cfg.n_periods, 2),
+        n_heads=n_heads,
+        n_kv_heads=n_kv,
+        head_dim=64 if cfg.head_dim else None,
+        d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
+        dense_d_ff=min(cfg.dense_d_ff, 512) if cfg.dense_d_ff else 0,
+        sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window
+        else None,
+        long_context_window=(min(cfg.long_context_window, 128)
+                             if cfg.long_context_window else None),
+    )

@@ -1,0 +1,46 @@
+"""Layout helpers and device-dispatching entry points of the int8 wire.
+
+Port of ``repro.kernels.ops`` for the packed int8 main path.  Dispatch is
+by device, not by flag: a CPU tensor takes the plain PyTorch version and a
+CUDA tensor launches the hand-written kernel (or raises).  Unlike the TPU
+grid, the CUDA kernels take any row range, so there is no tile-alignment
+fallback.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .dequant_combine import dequant_combine_payload
+from .quantize import (BLOCK, SCALE_BYTES, TILE_N, pack_payload,
+                       quantize_payload, unpack_payload)
+
+__all__ = ["BLOCK", "TILE_N", "SCALE_BYTES", "padded_block_rows", "blockify",
+           "unblockify", "payload_width", "pack_payload", "unpack_payload",
+           "quantize_payload", "dequant_combine_payload"]
+
+
+def padded_block_rows(n_elements: int, block: int = BLOCK,
+                      tile_n: int = TILE_N) -> int:
+    """Rows of ``block`` elements holding ``n_elements``, padded to a
+    ``tile_n`` multiple."""
+    rows = math.ceil(max(n_elements, 1) / block)
+    return int(math.ceil(rows / tile_n) * tile_n)
+
+
+def blockify(flat: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
+    """1-D -> (n_rows, block) zero-padded, rows padded to TILE_N."""
+    n = flat.shape[0]
+    rows = padded_block_rows(n, block)
+    return F.pad(flat, (0, rows * block - n)).reshape(rows, block)
+
+
+def unblockify(blocks: torch.Tensor, n: int) -> torch.Tensor:
+    return blocks.reshape(-1)[:n]
+
+
+def payload_width(block: int = BLOCK) -> int:
+    """Bytes per payload row: ``block`` int8 codes + one fp32 scale."""
+    return block + SCALE_BYTES

@@ -1,0 +1,149 @@
+"""Quantize-to-wire: the int8 payload encoder of the ADC-DGD exchange.
+
+Port of ``repro.kernels.quantize`` (``quantize_payload_pallas``).  One call
+turns ``(n, BLOCK)`` float32/bf16 rows into the ``(n, BLOCK + 4)`` uint8
+wire payload: 512 int8 codes followed by the row's fp32 scale, least
+significant byte first.
+
+``quantize_payload`` dispatches on the device of its input: a CPU tensor
+takes the plain PyTorch version (``quantize_payload_plain``), a CUDA tensor
+launches the hand-written kernel ``csrc/quantize_payload.cu`` or raises.
+``quantize_payload.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+import torch
+
+from . import _build, ref
+
+__all__ = ["BLOCK", "TILE_N", "SCALE_BYTES", "pack_payload",
+           "unpack_payload", "chunk_view", "chunk_rows",
+           "quantize_payload_plain", "quantize_payload"]
+
+TILE_N = 32      # row multiple of every packed buffer's height
+BLOCK = 512      # quantization block = payload row width in codes
+SCALE_BYTES = 4  # one fp32 scale per row, appended to the wire payload
+
+
+def pack_payload(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(rows, B) int8 codes + (rows, 1) f32 scales -> (rows, B+4) uint8.
+
+    The scale bytes are the fp32 image least-significant byte first (the
+    reference's XLA bitcast order, pinned by ``test_payload_byte_order``)."""
+    rows = codes.shape[0]
+    su = scales.to(torch.float32).contiguous().view(torch.uint8)
+    return torch.cat([codes.view(torch.uint8),
+                      su.reshape(rows, SCALE_BYTES)], dim=1)
+
+
+def unpack_payload(payload: torch.Tensor, block: int = BLOCK):
+    """(rows, B+4) uint8 -> (codes int8 (rows, B), scales f32 (rows, 1))."""
+    if payload.shape[-1] != block + SCALE_BYTES:
+        raise ValueError(f"payload width {payload.shape[-1]} != "
+                         f"{block + SCALE_BYTES}")
+    codes = payload[:, :block].contiguous().view(torch.int8)
+    scales = payload[:, block:].contiguous().view(torch.float32)
+    return codes, scales
+
+
+def chunk_view(n_full: int, n_rows: int | None, row_offset: int) -> int:
+    """Height of the static chunk view ``[row_offset, row_offset + n)`` of
+    full-height ``(n_full, ...)`` operands.  Any row range is allowed: the
+    CUDA kernels have no tile grid to align to."""
+    n = n_full if n_rows is None else int(n_rows)
+    if n < 0 or row_offset < 0 or row_offset + n > n_full:
+        raise ValueError(f"chunk [{row_offset}, {row_offset + n}) outside "
+                         f"{n_full} rows")
+    return n
+
+
+def chunk_rows(a: torch.Tensor, row_offset: int, n: int) -> torch.Tensor:
+    """The chunk's rows of an operand: chunk-height operands pass through,
+    full-height ones are viewed at ``row_offset`` (a view, never a copy)."""
+    if a.shape[0] == n:
+        return a
+    return a[row_offset:row_offset + n]
+
+
+def _check_rows(name: str, a: torch.Tensor, width: int, n: int,
+                n_full: int, dtypes) -> None:
+    if a.dim() != 2 or a.shape[1] != width:
+        raise ValueError(f"{name} must be (rows, {width}), got "
+                         f"{tuple(a.shape)}")
+    if a.shape[0] not in (n, n_full):
+        raise ValueError(f"{name} has {a.shape[0]} rows; the chunk view "
+                         f"needs {n} or {n_full}")
+    if a.dtype not in dtypes:
+        raise TypeError(f"{name} dtype {a.dtype} not in {dtypes}")
+
+
+def quantize_payload_plain(y: torch.Tensor, noise: torch.Tensor,
+                           fixed_step: float | None = None,
+                           row_offset: int = 0,
+                           n_rows: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version: ``pack_payload(quantize_blocks_ref(...))`` on
+    the chunk's rows.  Runs on any device."""
+    n = chunk_view(y.shape[0], n_rows, row_offset)
+    codes, scales = ref.quantize_blocks_ref(
+        chunk_rows(y, row_offset, n), chunk_rows(noise, row_offset, n),
+        fixed_step=fixed_step)
+    return pack_payload(codes, scales)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The C entry point of csrc/quantize_payload.cu (built at first
+    use)."""
+    fn = _build.load("quantize_payload").quantize_payload_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def quantize_payload(y: torch.Tensor, noise: torch.Tensor,
+                     fixed_step: float | None = None, row_offset: int = 0,
+                     n_rows: int | None = None) -> torch.Tensor:
+    """Fused quantize-to-wire: ``(n_full, BLOCK)`` f32/bf16 differential +
+    ``(n_full or n, BLOCK)`` f32 uniform noise -> ``(n, BLOCK + 4)`` uint8.
+
+    Static ``row_offset``/``n_rows`` select a chunk of full-height
+    operands, read in place.  ``fixed_step`` (a float) is every row's
+    scale; ``None`` picks the adaptive per-row scale."""
+    n_full = y.shape[0]
+    n = chunk_view(n_full, n_rows, row_offset)
+    _check_rows("y", y, BLOCK, n, n_full, (torch.float32, torch.bfloat16))
+    _check_rows("noise", noise, BLOCK, n, n_full, (torch.float32,))
+    if y.device.type == "cpu" and noise.device.type == "cpu":
+        return quantize_payload_plain(y, noise, fixed_step, row_offset,
+                                      n_rows)
+    if y.device.type != "cuda" or noise.device != y.device:
+        raise ValueError(f"quantize_payload: y on {y.device}, noise on "
+                         f"{noise.device}; both must be on one CUDA device "
+                         "(or both on the CPU)")
+    if not (y.is_contiguous() and noise.is_contiguous()):
+        raise ValueError("quantize_payload: CUDA operands must be "
+                         "contiguous")
+    u0 = 0 if noise.shape[0] == n else row_offset
+    out = torch.empty((n, BLOCK + SCALE_BYTES), dtype=torch.uint8,
+                      device=y.device)
+    step = 0.0 if fixed_step is None else float(np.float32(fixed_step))
+    err = _kernel()(
+        y.data_ptr() + row_offset * y.stride(0) * y.element_size(),
+        int(y.dtype == torch.bfloat16),
+        noise.data_ptr() + u0 * noise.stride(0) * noise.element_size(),
+        out.data_ptr(), n, int(fixed_step is not None), step,
+        torch.cuda.current_stream(y.device).cuda_stream)
+    quantize_payload.launches += 1
+    if err != 0:
+        raise RuntimeError(f"quantize_payload kernel launch failed: CUDA "
+                           f"error {err}")
+    return out
+
+
+quantize_payload.launches = 0

@@ -1,0 +1,217 @@
+"""Decentralized training on one device: consensus nodes on a stacked axis.
+
+Counterpart of ``repro.launch.train``.  One training step k does, for the
+``N`` consensus nodes held as a leading axis of every parameter:
+
+    per node i: loss_i, grad_i = forward/backward of ``Transformer`` on
+                node i's shard of the global batch
+    x_half     = optimizer step on every node (lr = schedule(k))
+    x_next     = ConsensusRuntime.exchange(params, x_half, ...)  (ADC-DGD)
+
+The reference runs each node on its own device inside ``shard_map``; a
+ring over several cards is a later slice.
+
+CLI (runs on ``cuda`` unless ``--device cpu``)::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+        --algorithm adc_dgd --nodes 4 --batch 16 --seq 512 --steps 5
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import tree as T
+from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
+from repro_torch.models import transformer as TF
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.params import init_params
+from repro_torch.optim import by_name as opt_by_name
+from repro_torch.optim.schedules import (constant_schedule,
+                                         cosine_warmup_schedule,
+                                         inverse_power_schedule)
+
+__all__ = ["TrainSetup", "build_train_setup", "init_train_state",
+           "train_step", "main"]
+
+
+@dataclasses.dataclass
+class TrainSetup:
+    cfg: ModelConfig
+    defs: TF.ModelDefs
+    consensus: ConsensusRuntime
+    optimizer: Any
+    schedule: Any
+    n_nodes: int
+    device: torch.device
+    seed: int = 0            # consensus quantization-noise seed
+
+
+def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
+                      algorithm: str = "adc_dgd", gamma: float = 1.0,
+                      quant_mode: str = "fixed", fixed_step0: float = 1e-3,
+                      optimizer: str = "sgd", schedule: str = "constant",
+                      lr: float = 1e-2, eta: float = 0.5, warmup: int = 100,
+                      total_steps: int = 1000,
+                      track_consensus_error: bool = False, seed: int = 0,
+                      device=None) -> TrainSetup:
+    """Everything static about a run.  ``device`` defaults to ``cuda``
+    (raising when there is none); pass ``device="cpu"`` for the plain
+    PyTorch path."""
+    dev = resolve_device(device)
+    ccfg = ConsensusConfig(algorithm=algorithm, gamma=gamma,
+                           quant_mode=quant_mode, fixed_step0=fixed_step0,
+                           track_consensus_error=track_consensus_error)
+    if schedule == "constant":
+        sched = constant_schedule(lr)
+    elif schedule == "inverse_power":
+        sched = inverse_power_schedule(lr, eta)
+    elif schedule == "cosine":
+        sched = cosine_warmup_schedule(lr, warmup, total_steps)
+    else:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    return TrainSetup(cfg=cfg, defs=TF.build_defs(cfg),
+                      consensus=ConsensusRuntime(ccfg, consensus_nodes),
+                      optimizer=opt_by_name(optimizer), schedule=sched,
+                      n_nodes=consensus_nodes, device=dev, seed=seed)
+
+
+def init_train_state(setup: TrainSetup, seed: int = 0,
+                     params: Any = None) -> dict:
+    """A fresh train state: every node starts from the same random x0
+    (drawn from ``seed``), or from ``params`` (a stacked tree, e.g. from
+    ``models.params.params_from_jax``) when given, which must lie on
+    ``setup.device``."""
+    if params is None:
+        params = init_params(setup.defs.storage, seed, setup.device,
+                             n_nodes=setup.n_nodes)
+    wrong = {str(a.device) for a in T.tree_leaves(params)
+             if a.device.type != setup.device.type}
+    if wrong:
+        raise ValueError(f"params lie on {sorted(wrong)}, the setup runs on "
+                         f"{setup.device}")
+    return {"params": params,
+            "opt": setup.optimizer.init(params),
+            "consensus": setup.consensus.init_state(params),
+            "step": 0}
+
+
+def _node_grads(setup: TrainSetup, params: Any, batch: dict):
+    """Per-node forward/backward: (losses (N,), stacked gradient tree).
+
+    Node i's ``Transformer`` shares its parameters' storage with slice i
+    of the stacked tree, and only one node's activations are alive at a
+    time."""
+    n = setup.n_nodes
+    b = batch["tokens"].shape[0]
+    if b % n:
+        raise ValueError(f"global batch {b} does not split over {n} nodes")
+    bn = b // n
+    grads = T.tree_map(torch.empty_like, params)
+    g_leaves = T.tree_leaves(grads)
+    losses = []
+    for i in range(n):
+        model = TF.Transformer(setup.defs,
+                               T.tree_map(lambda a: a[i], params))
+        node_batch = {k: torch.as_tensor(v[i * bn:(i + 1) * bn],
+                                         device=setup.device)
+                      for k, v in batch.items()}
+        loss, _ = model(node_batch)
+        gs = torch.autograd.grad(loss, T.tree_leaves(model.tree()))
+        for dst, g in zip(g_leaves, gs):
+            dst[i].copy_(g)
+        losses.append(loss.detach())
+    return torch.stack(losses), grads
+
+
+def train_step(setup: TrainSetup, state: dict, batch: dict,
+               noise: torch.Tensor | None = None) -> tuple[dict, dict]:
+    """One decentralized step.  ``batch`` holds the global batch (numpy or
+    tensors), split across nodes in order; ``noise`` optionally injects
+    the exchange's quantization noise.  Returns (new state, metrics)."""
+    k = state["step"] + 1
+    losses, grads = _node_grads(setup, state["params"], batch)
+    lr_k = setup.schedule(k)
+    x_half, opt_state = setup.optimizer.step(state["opt"], state["params"],
+                                             grads, lr_k)
+    del grads
+    x_next, cons, cmetrics = setup.consensus.exchange(
+        state["params"], x_half, state["consensus"], k, seed=setup.seed,
+        noise=noise)
+    metrics = {"loss": float(losses.mean()), "node_loss": losses, "lr": lr_k}
+    for name, v in cmetrics.items():
+        metrics[name] = float(v.mean()) if torch.is_tensor(v) else float(v)
+    return ({"params": x_next, "opt": opt_state, "consensus": cons,
+             "step": k}, metrics)
+
+
+def main(argv=None) -> list[dict]:
+    """CLI driver; returns the per-step metrics."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import SyntheticLMDataset
+
+    ap = argparse.ArgumentParser(description="decentralized LM training "
+                                 "(PyTorch port, one device)")
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--reduced", action="store_true", help="smoke-size model")
+    ap.add_argument("--algorithm", default="adc_dgd",
+                    choices=["adc_dgd", "dgd", "allreduce", "none"])
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--nodes", type=int, default=1)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="global batch, split evenly over the nodes")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-2)
+    ap.add_argument("--gamma", type=float, default=1.0)
+    ap.add_argument("--quant-mode", default="fixed",
+                    choices=["fixed", "adaptive"])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="run seed: parameter init AND the consensus "
+                         "quantization-noise stream")
+    ap.add_argument("--optimizer", default="sgd")
+    ap.add_argument("--schedule", default="constant",
+                    choices=["constant", "inverse_power", "cosine"])
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    # float32 products in full float32 (the reference's precision), never
+    # TF32: PyTorch's default, stated here because the parity rests on it
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    setup = build_train_setup(
+        cfg, consensus_nodes=args.nodes, algorithm=args.algorithm,
+        gamma=args.gamma, quant_mode=args.quant_mode,
+        optimizer=args.optimizer, schedule=args.schedule, lr=args.lr,
+        total_steps=args.steps, seed=args.seed, device=args.device,
+        track_consensus_error=(args.algorithm != "allreduce"))
+    state = init_train_state(setup, args.seed)
+    ds = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
+                            n_shards=args.nodes)
+    history = []
+    t0 = time.time()
+    for step in range(args.steps):
+        batch = ds.global_batch_arrays(step)
+        ts = time.perf_counter()
+        state, metrics = train_step(setup, state, batch)
+        if setup.device.type == "cuda":
+            torch.cuda.synchronize(setup.device)
+        metrics["step_s"] = time.perf_counter() - ts
+        history.append(metrics)
+        shown = " ".join(f"{k}={v:.4g}" for k, v in metrics.items()
+                         if k not in ("loss", "node_loss"))
+        print(f"step {step:5d} loss={metrics['loss']:.4f} {shown}",
+              flush=True)
+    print(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
+    return history
+
+
+if __name__ == "__main__":
+    main()

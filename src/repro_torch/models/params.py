@@ -1,0 +1,88 @@
+"""Parameter declarations, initialisation and the weight carry from JAX.
+
+Counterpart of ``repro.models.params`` on one device: a :class:`ParamDef`
+declares one tensor's logical per-node shape and initialiser.  There is no
+tensor or FSDP parallelism here, so the reference's ``tp_dim``/``fsdp_dim``
+have no counterpart; consensus nodes are a leading axis instead.  Every
+parameter is float32, the reference's storage type for the ported
+configuration.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import tree as T
+
+__all__ = ["ParamDef", "init_params", "params_from_jax", "meta_params"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    """Declaration of one parameter tensor (logical, per node)."""
+
+    shape: tuple[int, ...]
+    init: str = "normal"            # normal | zeros
+
+
+def _init_tensor(d: ParamDef, gen: torch.Generator, device) -> torch.Tensor:
+    if d.init == "zeros":
+        return torch.zeros(d.shape, device=device)
+    fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+    x = torch.randn(d.shape, generator=gen, device=device)
+    return x * (1.0 / math.sqrt(max(fan_in, 1)))
+
+
+def init_params(defs: Any, seed: int, device,
+                n_nodes: int | None = None) -> Any:
+    """Random parameters from ``defs`` (normal(0, 1/sqrt(fan_in)),
+    zeros for norms), drawn from one ``torch.Generator`` on ``device``
+    seeded with ``seed``, leaves in JAX order.  With ``n_nodes`` every leaf
+    gets a leading node axis holding identical replicas: all consensus
+    nodes start from the same x0, as in the reference."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    leaves, treedef = T.tree_flatten(defs)
+    out = []
+    for d in leaves:
+        x = _init_tensor(d, gen, device)
+        if n_nodes is not None:
+            x = x.unsqueeze(0).repeat((n_nodes,) + (1,) * x.dim())
+        out.append(x)
+    return T.tree_unflatten(treedef, out)
+
+
+def meta_params(defs: Any) -> Any:
+    """Shape-only (``meta`` device) parameters: layouts without memory."""
+    return T.tree_map(lambda d: torch.empty(d.shape, device="meta"), defs)
+
+
+def params_from_jax(tree_of_numpy: Any, defs: Any, device=None,
+                    n_nodes: int | None = None) -> Any:
+    """The weight carry: the JAX package's single-node logical parameter
+    tree (its arrays converted to numpy) -> the port's tree of tensors on
+    ``device`` (``cuda`` unless ``device="cpu"``).
+
+    Both packages flatten in the same order and use the same layouts, so
+    the carry is a checked leaf-for-leaf copy; with ``n_nodes`` the leaves
+    are replicated along a leading node axis."""
+    device = resolve_device(device)
+    arrays, treedef = T.tree_flatten(tree_of_numpy)
+    dleaves, dtreedef = T.tree_flatten(defs)
+    if treedef != dtreedef:
+        raise ValueError("JAX parameter tree does not match the port's "
+                         "ParamDef tree")
+    out = []
+    for a, d in zip(arrays, dleaves):
+        if tuple(a.shape) != tuple(d.shape):
+            raise ValueError(f"JAX leaf shape {a.shape} != {d.shape}")
+        x = torch.from_numpy(np.array(a, np.float32)).to(device)
+        if n_nodes is not None:
+            x = x.unsqueeze(0).repeat((n_nodes,) + (1,) * x.dim())
+        out.append(x)
+    return T.tree_unflatten(treedef, out)

@@ -1,0 +1,257 @@
+"""The port's ADC-DGD exchange held to the JAX ``ConsensusRuntime``.
+
+One subprocess with 4 host devices runs the reference's exchange under
+``shard_map`` (one consensus node per device, the quantization noise passed
+in as a ``P("data")``-sharded input) and the port's stacked-node exchange on
+the same inputs, for 5 steps of a 4-node ring over the reduced smollm-135m
+parameter tree, in fixed and adaptive mode.  Inputs are numpy draws.
+
+Contract checked:
+  * every step, started from the reference's state, the wire payload
+    bytes are exact, and ``x_tilde``, ``m_agg`` and ``x_next`` agree within
+    ``STATE_ULPS`` ulps of each buffer's largest magnitude: XLA contracts
+    the decode products into the sums as FMAs where PyTorch rounds each one
+    (hazard 2 of the reference);
+  * left to run on its own for 5 steps, the port's ``x_tilde`` differs from
+    the reference's by at most one quantization grid step, in a tiny
+    fraction of elements: a last-bit difference in the differential moves
+    a stochastic rounding across its threshold now and then;
+  * overflow fraction equal, residual norm to float32 summation order,
+    ``wire_bytes_per_step`` and ``collectives_per_step`` equal;
+  * the ``dgd``, ``allreduce`` and ``none`` baselines and the
+    consensus-error metric agree with the reference on one step.
+"""
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+STEPS = 5
+STATE_ULPS = 2
+FREE_FRAC_OFF = 1e-4
+
+BODY = r"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import json
+import jax, jax.numpy as jnp, numpy as np, torch
+from jax.sharding import Mesh, PartitionSpec as P
+from repro.configs import get_config as jget_config, reduced as jreduced
+from repro.core import wire as jwire
+from repro.core.distributed import ConsensusConfig as JCfg
+from repro.core.distributed import ConsensusRuntime as JRt
+from repro.kernels import ops as jops
+from repro.models import transformer as JT
+from repro.models.sharding import ParallelContext, local_context
+from repro.models.sharding import shard_map_compat
+from repro_torch.core import tree as T
+from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
+
+N, STEPS = 4, __STEPS__
+mesh = Mesh(np.array(jax.devices()[:N]), ("data",))
+ctx = ParallelContext(tp=1, data_size=N, n_nodes=N, in_shard_map=True)
+
+defs = JT.build_defs(jreduced(jget_config("smollm-135m")), local_context())
+tmpl = JT.init_params(defs, jax.random.PRNGKey(0))   # structure only
+rng = np.random.default_rng(0)
+x0 = jax.tree.map(lambda a: np.broadcast_to(
+    (rng.standard_normal(a.shape) * 0.05).astype(np.float32),
+    (N,) + a.shape).copy(), tmpl)
+
+def delta(k):
+    r = np.random.default_rng([1, k])
+    def one(a):
+        d = (r.standard_normal((N,) + a.shape) * 2e-3).astype(np.float32)
+        d.reshape(-1)[::997] *= 300.0      # a few clip the fixed grid
+        return d
+    return jax.tree.map(one, tmpl)
+
+layout = jwire.WireLayout.for_tree(jax.tree.map(lambda a: a[0], x0))
+
+def noise(k):
+    return np.random.default_rng([2, k]).random(
+        (N, layout.n_rows, 512), dtype=np.float32)
+
+def inputs():
+    x_prev = x0
+    for k in range(1, STEPS + 1):
+        x_half = jax.tree.map(np.add, x_prev, delta(k))
+        yield k, x_prev, x_half, noise(k)
+        x_prev = x_half
+
+def ulps(a, b):
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return float(np.max(np.abs(a - b)) / np.spacing(np.max(np.abs(b))))
+
+out = {}
+for mode in ("fixed", "adaptive"):
+    jrt = JRt(JCfg(quant_mode=mode), ctx)
+    pspec = jax.tree.map(lambda a: P("data"), x0)
+    cspec = {"x_tilde": P("data", None, None), "m_agg": P("data", None, None)}
+    init_f = jax.jit(shard_map_compat(
+        lambda p: jax.tree.map(lambda a: a[None], jrt.init_state(p)), mesh,
+        in_specs=(pspec,), out_specs=cspec, check=False))
+    mspec = {"overflow_frac": P("data"), "residual_norm": P("data")}
+    def jstep(xp, xh, s, k, nz):
+        s = jax.tree.map(lambda a: a[0], s)
+        xn, s2, m = jrt.exchange(xp, xh, s, k, jax.random.PRNGKey(7),
+                                 noise=nz[0])
+        return (xn, jax.tree.map(lambda a: a[None], s2),
+                {k2: m[k2][None] for k2 in mspec})
+    step_f = jax.jit(shard_map_compat(
+        jstep, mesh, in_specs=(pspec, pspec, cspec, P(), P("data")),
+        out_specs=(pspec, cspec, mspec), check=False))
+    js = init_f(x0)
+
+    rt = ConsensusRuntime(ConsensusConfig(quant_mode=mode), N)
+    tt = lambda tree: T.tree_map(torch.from_numpy, tree)
+    free = rt.init_state(tt(x0))
+    res = {"payload_equal": [], "xt_ulps": [], "m_ulps": [], "x_ulps": [],
+           "overflow": [], "residual": []}
+    grid = 0.0
+    for k, xp, xh, nz in inputs():
+        # one step from the reference's own state: every step's payload
+        # and outputs are held to the reference's
+        synced = {key: torch.from_numpy(np.array(v))
+                  for key, v in js.items()}
+        step_k = jrt._step_k(jnp.asarray(k, jnp.int32))
+        y_j = [layout.pack(jax.tree.map(lambda a: a[i], xh))
+               - js["x_tilde"][i] for i in range(N)]
+        want = [np.asarray(jops.quantize_payload(
+            y_j[i], jnp.asarray(nz[i]), fixed_step=step_k))
+            for i in range(N)]
+        grid = max(grid, max(float(np.max(np.asarray(
+            jops.unpack_payload(jnp.asarray(w))[1]))) for w in want))
+        y = rt.state_layout(tt(xh)).pack(tt(xh)) - synced["x_tilde"]
+        got = rt.encode(y, torch.from_numpy(nz), k)
+        res["payload_equal"].append(all(
+            np.array_equal(g.numpy(), w) for g, w in zip(got, want)))
+        jxn, js, jm = step_f(xp, xh, js, jnp.asarray(k, jnp.int32), nz)
+        txn, ts, tm = rt.exchange(tt(xp), tt(xh), synced, k,
+                                  noise=torch.from_numpy(nz))
+        res["xt_ulps"].append(ulps(ts["x_tilde"], js["x_tilde"]))
+        res["m_ulps"].append(ulps(ts["m_agg"], js["m_agg"]))
+        res["x_ulps"].append(max(ulps(a, b) for a, b in zip(
+            T.tree_leaves(txn), jax.tree_util.tree_leaves(jxn))))
+        res["overflow"].append([tm["overflow_frac"].tolist(),
+                                np.asarray(jm["overflow_frac"]).tolist()])
+        res["residual"].append([tm["residual_norm"].tolist(),
+                                np.asarray(jm["residual_norm"]).tolist()])
+        # and the port's own trajectory, never re-synced
+        _, free, _ = rt.exchange(tt(xp), tt(xh), free, k,
+                                 noise=torch.from_numpy(nz))
+    d = np.abs(free["x_tilde"].numpy() - np.asarray(js["x_tilde"]))
+    res["free_max_grid"] = float(d.max()) / grid
+    res["free_frac_off"] = float(np.mean(d > 1e-6))
+    res["wire"] = [tm["wire_bytes_per_step"],
+                   jrt.wire_bytes_per_step(layout.n_elements, layout=layout)]
+    res["collectives"] = [tm["collectives_per_step"],
+                          jrt.collectives_per_step(layout.n_leaves,
+                                                   n_chunks=1)]
+    out[mode] = res
+
+# the uncompressed baselines and the consensus-error metric, one step each
+for alg in ("dgd", "allreduce", "none"):
+    jrt = JRt(JCfg(algorithm=alg, track_consensus_error=True), ctx)
+    def bstep(xp, xh):
+        xn, _, m = jrt.exchange(xp, xh, {}, jnp.asarray(1, jnp.int32),
+                                jax.random.PRNGKey(7))
+        return xn, m["consensus_err"]
+    pspec = jax.tree.map(lambda a: P("data"), x0)
+    bf = jax.jit(shard_map_compat(bstep, mesh, in_specs=(pspec, pspec),
+                                  out_specs=(pspec, P()), check=False))
+    _, xp, xh, _ = next(inputs())
+    xp = jax.tree.map(np.add, xh, delta(7))      # nodes disagree
+    jxn, jerr = bf(xp, xh)
+    rt = ConsensusRuntime(ConsensusConfig(algorithm=alg,
+                                          track_consensus_error=True), N)
+    tt = lambda tree: T.tree_map(torch.from_numpy, tree)
+    txn, _, tm = rt.exchange(tt(xp), tt(xh), {}, 1)
+    out[alg] = {
+        "x_ulps": max(ulps(a, b) for a, b in zip(
+            T.tree_leaves(txn), jax.tree_util.tree_leaves(jxn))),
+        "err": [float(tm["consensus_err"]), float(jerr)],
+        "wire": [tm["wire_bytes_per_step"], jrt.wire_bytes_per_step(
+            layout.n_elements, layout=layout)],
+        "collectives": [tm["collectives_per_step"],
+                        jrt.collectives_per_step(layout.n_leaves,
+                                                 n_chunks=1)]}
+print("RESULT " + json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def result():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", BODY.replace("__STEPS__", str(STEPS))],
+        capture_output=True, text=True, timeout=600, env=env, cwd=REPO)
+    if proc.returncode != 0:
+        raise AssertionError(f"subprocess failed:\n{proc.stderr[-4000:]}")
+    for line in reversed(proc.stdout.splitlines()):
+        if line.startswith("RESULT "):
+            return json.loads(line[len("RESULT "):])
+    raise AssertionError(f"no RESULT line:\n{proc.stdout[-2000:]}")
+
+
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_payload_bytes_exact_every_step(result, mode):
+    assert result[mode]["payload_equal"] == [True] * STEPS
+
+
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_state_within_ulps_every_step(result, mode):
+    r = result[mode]
+    for key in ("xt_ulps", "m_ulps", "x_ulps"):
+        assert max(r[key]) <= STATE_ULPS, (key, r[key])
+
+
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_free_running_within_one_grid_step(result, mode):
+    r = result[mode]
+    assert r["free_max_grid"] <= 1.0
+    assert r["free_frac_off"] <= FREE_FRAC_OFF
+
+
+@pytest.mark.parametrize("mode", ["fixed", "adaptive"])
+def test_metrics_match(result, mode):
+    r = result[mode]
+    for got, want in r["overflow"]:
+        assert got == want
+    if mode == "fixed":
+        assert any(x > 0 for got, _ in r["overflow"] for x in got)
+    for got, want in r["residual"]:
+        assert got == pytest.approx(want, rel=1e-5)
+    assert r["wire"][0] == r["wire"][1] > 0
+    assert r["collectives"] == [2.0, 2.0]
+
+
+@pytest.mark.parametrize("alg", ["dgd", "allreduce", "none"])
+def test_baselines_match(result, alg):
+    r = result[alg]
+    assert r["x_ulps"] <= STATE_ULPS
+    assert r["err"][0] == pytest.approx(r["err"][1], rel=1e-5)
+    assert r["wire"][0] == r["wire"][1]
+    assert r["collectives"][0] == r["collectives"][1]
+
+
+def test_noise_is_distinct_per_node_and_step():
+    from repro_torch.core import wire
+    from repro_torch.core.distributed import (ConsensusConfig,
+                                              ConsensusRuntime, noise_seed)
+    seeds = {noise_seed(s, k, i) for s in (0, 1) for k in (1, 2)
+             for i in range(4)}
+    assert len(seeds) == 16
+    rt = ConsensusRuntime(ConsensusConfig(), 4)
+    layout = wire.WireLayout.for_tree({"w": torch.zeros(40, 40)})
+    a = rt.make_noise(layout, step=3, seed=0, device="cpu")
+    b = rt.make_noise(layout, step=3, seed=0, device="cpu")
+    assert a.shape == (4, layout.n_rows, 512) and torch.equal(a, b)
+    assert not torch.equal(a[0], a[1])
+    assert not torch.equal(a, rt.make_noise(layout, 4, 0, "cpu"))
+    assert float(a.min()) >= 0.0 and float(a.max()) < 1.0

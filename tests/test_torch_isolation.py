@@ -1,0 +1,135 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points default to CUDA and refuse to run silently on the CPU, and
+its kernel modules import where there is no CUDA toolkit."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import tree as T
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "src", "repro_torch")
+
+
+def _py_files():
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+
+
+def test_no_source_file_imports_jax_or_repro():
+    bad = []
+    for path in _py_files():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{os.path.relpath(path, REPO)}: {name}")
+    assert not bad, bad
+
+
+def test_fresh_import_pulls_in_no_jax():
+    """Import every port module in a fresh interpreter: neither ``jax``
+    nor ``repro`` may appear in ``sys.modules`` afterwards."""
+    mods = []
+    for path in _py_files():
+        rel = os.path.relpath(path, os.path.join(REPO, "src"))[:-3]
+        mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for m in {mods!r}:
+            importlib.import_module(m)
+        leaked = sorted(k for k in sys.modules
+                        if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LEAKED", leaked)
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_kernel_modules_import_without_nvcc():
+    """Nothing is built at import: the CUDA sources compile at the first
+    launch on a card.  With PATH stripped of every compiler the kernel
+    modules still import and their CPU paths still run."""
+    code = textwrap.dedent("""
+        import torch
+        from repro_torch.kernels import _build, ops
+        y = torch.zeros((32, 512)); u = torch.rand((32, 512))
+        p = ops.quantize_payload(y, u, None)
+        ops.dequant_combine_payload(p, p, p, y, y, 0.5, 0.25, 1.0)
+        print("OK", _build.load.cache_info().currsize)
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               PATH="/nonexistent")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "OK 0" in out.stdout
+
+
+def test_entry_points_default_to_cuda():
+    from repro_torch import resolve_device
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train
+    from repro_torch.models.params import meta_params, params_from_jax
+    assert resolve_device("cpu") == torch.device("cpu")
+    cfg = reduced(get_config("smollm-135m"))
+    tree = T.tree_map(lambda a: np.zeros(a.shape, np.float32), meta_params(
+        train.build_train_setup(cfg, device="cpu").defs.storage))
+    if torch.cuda.is_available():
+        assert resolve_device() == torch.device("cuda")
+        assert train.build_train_setup(cfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.build_train_setup(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_jax(tree, train.build_train_setup(
+            cfg, device="cpu").defs.storage)
+    assert train.build_train_setup(cfg, device="cpu").device.type == "cpu"
+
+
+def test_train_state_refuses_params_on_another_device():
+    """Given parameters must already lie where the setup runs: a tree on
+    another device would leave the optimizer and consensus state there."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train
+    from repro_torch.models.params import meta_params
+    setup = train.build_train_setup(reduced(get_config("smollm-135m")),
+                                    device="cpu")
+    params = T.tree_map(lambda a: a.expand((setup.n_nodes,) + a.shape),
+                        meta_params(setup.defs.storage))
+    with pytest.raises(ValueError, match="the setup runs on cpu"):
+        train.init_train_state(setup, params=params)
+
+
+def test_unported_architectures_say_so():
+    from repro.configs import ARCH_IDS as REFERENCE_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS, PORTED, get_config
+    assert ARCH_IDS == REFERENCE_ARCH_IDS
+    assert set(PORTED) == {"smollm-135m"}
+    for arch in ARCH_IDS:
+        if arch not in PORTED:
+            with pytest.raises(NotImplementedError, match="not yet ported"):
+                get_config(arch)
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
