@@ -1,6 +1,7 @@
 """ADC-DGD consensus runtime over consensus nodes stacked on one device.
 
-Port of ``repro.core.distributed`` for the packed int8 main path.  The
+Port of ``repro.core.distributed`` for the packed exchange with a uniform
+wire codec (``int8``, ``int4``, ``int2`` or ``topk[:k=<int>]``).  The
 reference runs one consensus node per device inside ``shard_map`` and moves
 the wire payload with ``ppermute``; here the ``N`` nodes are a leading axis
 of every tensor, and a ring transfer is an index: ``ppermute(+1)`` hands
@@ -13,9 +14,9 @@ Per step k of ``adc_dgd`` (paper Algorithm 2, amplification folded into
 the quantizer grid), for every node i:
 
     y_i    = pack(x_half_i) - x_tilde_i
-    pay_i  = quantize_payload(y_i, noise_i, step_k)      (kernel A)
-    x_tilde_i, m_agg_i, comb_i = dequant_combine_payload(
-                 pay_i, pay_{i-1}, pay_{i+1}, x_tilde_i, m_agg_i)  (kernel B)
+    pay_i  = codec.encode_payload(y_i, noise_i, step_k)     (encode kernel)
+    x_tilde_i, m_agg_i, comb_i = codec.decode_combine(
+                 pay_i, pay_{i-1}, pay_{i+1}, x_tilde_i, m_agg_i)  (combine)
     x_next_i = comb_i + (x_half_i - x_prev_i)           (per leaf)
 
 ``step_k = fixed_step0 / k**gamma`` in fixed mode, the per-row absmax grid
@@ -48,6 +49,8 @@ class ConsensusConfig:
     quant_mode: str = "fixed"      # fixed (paper-faithful) | adaptive
     fixed_step0: float = 1e-3      # Delta_0; effective step = Delta_0 / k^gamma
     track_consensus_error: bool = False
+    wire_codec: str = "int8"       # a core.codec name (no mixed plans yet)
+    byte_budget: float | None = None   # bytes/step target (the controller)
 
     def __post_init__(self):
         if self.algorithm not in ALGORITHMS:
@@ -59,6 +62,18 @@ class ConsensusConfig:
         if not 0.0 < self.self_weight <= 1.0:
             raise ValueError(f"self_weight must be in (0, 1], got "
                              f"{self.self_weight}")
+        if self.wire_codec.startswith("mixed:"):
+            raise NotImplementedError(
+                f"wire_codec={self.wire_codec!r}: mixed wire plans are not "
+                "yet ported")
+        try:
+            wire_codec.by_name(self.wire_codec)
+        except (KeyError, ValueError) as e:
+            raise ValueError(f"wire_codec={self.wire_codec!r}: "
+                             f"{e.args[0]}") from None
+        if self.byte_budget is not None and self.byte_budget <= 0:
+            raise ValueError(f"byte_budget must be positive, got "
+                             f"{self.byte_budget}")
 
     @property
     def side_weight(self) -> float:
@@ -103,7 +118,7 @@ class ConsensusRuntime:
             raise ValueError(f"n_nodes must be >= 1, got {n_nodes}")
         self.cfg = config
         self.n_nodes = n_nodes
-        self.codec = wire_codec.by_name("int8")
+        self.codec = wire_codec.by_name(config.wire_codec)
 
     # -- state ---------------------------------------------------------
     def state_layout(self, params: Any) -> wire.WireLayout:
@@ -156,9 +171,11 @@ class ConsensusRuntime:
 
     def make_noise(self, layout: wire.WireLayout, step: int, seed: int,
                    device) -> torch.Tensor:
-        """``(N, n_rows, BLOCK)`` uniform noise, one ``torch.Generator`` on
+        """``(N, n_rows, codec.noise_cols())`` uniform noise (``BLOCK``
+        columns; ``2 * BLOCK`` for top-k), one ``torch.Generator`` on
         ``device`` per node seeded from (seed, step, node)."""
-        noise = torch.empty((self.n_nodes, layout.n_rows, layout.block),
+        noise = torch.empty((self.n_nodes, layout.n_rows,
+                             self.codec.noise_cols(layout.block)),
                             dtype=torch.float32, device=device)
         for i in range(self.n_nodes):
             g = torch.Generator(device=device)
@@ -171,9 +188,10 @@ class ConsensusRuntime:
                  seed: int = 0, noise: torch.Tensor | None = None):
         """x_prev: params at step k; x_half: after the local optimizer step.
 
-        ``noise``: optional ``(N, n_rows, BLOCK)`` uniform buffer consumed
-        row for row by the quantizer (tests inject the reference's);
-        without it each node draws its own from ``(seed, step, node)``.
+        ``noise``: optional ``(N, n_rows, >= codec.noise_cols())`` uniform
+        buffer consumed row for row by the encoder (tests inject the
+        reference's; int8 takes exactly ``BLOCK`` columns); without it
+        each node draws its own from ``(seed, step, node)``.
         Returns (x_next, new_state, metrics)."""
         alg = self.cfg.algorithm
         layout = self.state_layout(x_half)
@@ -197,8 +215,8 @@ class ConsensusRuntime:
 
     def encode(self, y: torch.Tensor, noise: torch.Tensor,
                step: int) -> list[torch.Tensor]:
-        """Each node's wire payload ``(n_rows, BLOCK + 4)`` uint8 for the
-        packed differentials ``y`` ``(N, n_rows, BLOCK)``: one quantize
+        """Each node's wire payload ``(n_rows, payload_width)`` uint8 for
+        the packed differentials ``y`` ``(N, n_rows, BLOCK)``: one encode
         launch per node."""
         step_k = self._step_k(step)
         return [self.codec.encode_payload(y[i], noise[i], fixed_step=step_k)
@@ -221,17 +239,22 @@ class ConsensusRuntime:
         xt_new, m_new, comb = (torch.stack([o[j] for o in outs])
                                for j in range(3))
         del outs
-        # per-code averages as the reference evaluates them: XLA turns the
-        # division by a constant into a product with its float32 reciprocal
+        # averages as the reference evaluates them: XLA turns the division
+        # by a constant into a product with its float32 reciprocal
         inv_codes = float(np.float32(1.0) / np.float32(
-            layout.n_rows * self.codec.codes_per_row()))
+            layout.n_rows * self.codec.codes_per_row(layout.block)))
+        inv_elems = float(np.float32(1.0) / np.float32(
+            layout.n_rows * layout.block))
+        step_k = self._step_k(step)
         if cfg.quant_mode == "fixed":
-            # overflow monitoring (paper §IV-D): codes at the clip boundary
-            overflow = torch.stack([self.codec.count_clipped(p)
-                                    for p in pays]) * inv_codes
+            # overflow monitoring (paper §IV-D): values beyond the grid
+            overflow = torch.stack([
+                self.codec.count_saturated(y[i], step_k, pays[i],
+                                           layout.block)
+                for i in range(n)]) * inv_codes
         else:
             overflow = torch.zeros(n, dtype=torch.float32, device=y.device)
-        residual = torch.sqrt((y * y).sum(dim=(1, 2)) * inv_codes)
+        residual = torch.sqrt((y * y).sum(dim=(1, 2)) * inv_elems)
         del y, pays
         # gradient step applied per leaf while unpacking
         x_next = T.tree_map(

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library, loaded with ``ctypes`` (no PyTorch headers, so
-a build takes seconds).  Libraries land in ``kernels/build/`` (listed in
-``.gitignore``) at first use; a library newer than its source is reused.
+a build takes seconds).  The ``csrc/*.cuh`` headers hold the arithmetic the
+sources share.  Libraries land in ``kernels/build/`` (listed in
+``.gitignore``) at first use; a library newer than its source and every
+header is reused.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
 """
 from __future__ import annotations
@@ -20,7 +22,8 @@ __all__ = ["SOURCES", "CSRC_DIR", "BUILD_DIR", "nvcc_command", "build",
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-SOURCES = ("quantize_payload", "dequant_combine_payload")
+SOURCES = ("quantize_payload", "dequant_combine_payload", "subbyte_encode",
+           "subbyte_combine", "topk_encode", "topk_combine")
 
 #: ``-fmad=false`` keeps nvcc from contracting a*b+c into FMA anywhere the
 #: kernels do not already spell each rounding with an intrinsic: the
@@ -55,8 +58,10 @@ def nvcc_command(name: str, out: str) -> list[str]:
 
 def _fresh(name: str) -> bool:
     src, lib = _paths(name)
-    return (os.path.exists(lib)
-            and os.path.getmtime(lib) >= os.path.getmtime(src))
+    headers = [os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+               if f.endswith(".cuh")]
+    return (os.path.exists(lib) and os.path.getmtime(lib)
+            >= max(os.path.getmtime(f) for f in [src, *headers]))
 
 
 def build_all(names=SOURCES) -> dict[str, dict]:

@@ -19,7 +19,8 @@
 // neighbouring addresses, so every access is coalesced.  No shared memory.
 //
 // Bit-exactness with the plain PyTorch version: every product and sum is a
-// _rn intrinsic in the reference's order (no FMA contraction).
+// _rn intrinsic in the reference's order (no FMA contraction); the combine
+// arithmetic is the one every codec shares, in combine.cuh.
 //
 // Chunk view: payload and shadow base pointers arrive already offset to the
 // chunk's first row (chunk-height operands at row 0, full-height ones at
@@ -27,6 +28,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "combine.cuh"
 
 namespace {
 
@@ -62,27 +65,15 @@ dequant_combine_payload_kernel(
   const float sr = __uint_as_float(
       *reinterpret_cast<const uint32_t*>(p_right + pb + kBlock));
 
-  const long long e = row * kBlock + col;
-  const float4 xt4 = *reinterpret_cast<const float4*>(x_tilde + e);
-  const float4 m4 = *reinterpret_cast<const float4*>(m_agg + e);
-  const float xt[4] = {xt4.x, xt4.y, xt4.z, xt4.w};
-  const float mm[4] = {m4.x, m4.y, m4.z, m4.w};
-  float xo[4], mo[4], co[4];
+  float d_s[4], d_l[4], d_r[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const float d_s = __fmul_rn(code_at(cs, j), ss);
-    const float d_l = __fmul_rn(code_at(cl, j), sl);
-    const float d_r = __fmul_rn(code_at(cr, j), sr);
-    xo[j] = __fadd_rn(xt[j], __fmul_rn(deamp, d_s));
-    mo[j] = __fadd_rn(mm[j], __fmul_rn(w_side_deamp, __fadd_rn(d_l, d_r)));
-    co[j] = __fadd_rn(__fmul_rn(w_self, xo[j]), mo[j]);
+    d_s[j] = __fmul_rn(code_at(cs, j), ss);
+    d_l[j] = __fmul_rn(code_at(cl, j), sl);
+    d_r[j] = __fmul_rn(code_at(cr, j), sr);
   }
-  *reinterpret_cast<float4*>(xt_out + e) =
-      make_float4(xo[0], xo[1], xo[2], xo[3]);
-  *reinterpret_cast<float4*>(m_out + e) =
-      make_float4(mo[0], mo[1], mo[2], mo[3]);
-  *reinterpret_cast<float4*>(comb_out + e) =
-      make_float4(co[0], co[1], co[2], co[3]);
+  wire::combine_quad(d_s, d_l, d_r, x_tilde, m_agg, xt_out, m_out, comb_out,
+                     row * kBlock + col, w_self, w_side_deamp, deamp);
 }
 
 }  // namespace

@@ -1,10 +1,11 @@
-"""Layout helpers and device-dispatching entry points of the int8 wire.
+"""Layout helpers and device-dispatching entry points of the wire codecs.
 
-Port of ``repro.kernels.ops`` for the packed int8 main path.  Dispatch is
-by device, not by flag: a CPU tensor takes the plain PyTorch version and a
-CUDA tensor launches the hand-written kernel (or raises).  Unlike the TPU
-grid, the CUDA kernels take any row range, so there is no tile-alignment
-fallback.
+Port of ``repro.kernels.ops`` for the packed exchange: the int8 payload
+and the sub-byte (int4/int2) and top-k payloads of ``kernels.bitpack``.
+Dispatch is by device, not by flag: a CPU tensor takes the plain PyTorch
+version and a CUDA tensor launches the hand-written kernel (or raises).
+Unlike the TPU grid, the CUDA kernels take any row range, so there is no
+tile-alignment fallback.
 """
 from __future__ import annotations
 
@@ -13,13 +14,17 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .bitpack import (subbyte_decode_combine, subbyte_encode_payload,
+                      topk_decode_combine, topk_encode_payload)
 from .dequant_combine import dequant_combine_payload
 from .quantize import (BLOCK, SCALE_BYTES, TILE_N, pack_payload,
                        quantize_payload, unpack_payload)
 
 __all__ = ["BLOCK", "TILE_N", "SCALE_BYTES", "padded_block_rows", "blockify",
            "unblockify", "payload_width", "pack_payload", "unpack_payload",
-           "quantize_payload", "dequant_combine_payload"]
+           "quantize_payload", "dequant_combine_payload",
+           "subbyte_encode_payload", "subbyte_decode_combine",
+           "topk_encode_payload", "topk_decode_combine"]
 
 
 def padded_block_rows(n_elements: int, block: int = BLOCK,

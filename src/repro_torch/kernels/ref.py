@@ -10,7 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["quantize_blocks_ref", "dequant_combine_ref", "INV_127"]
+__all__ = ["quantize_blocks_ref", "dequant_combine_ref", "combine_core",
+           "INV_127"]
 
 #: float32(1/127), the adaptive-scale multiplier.  The reference multiplies
 #: by this reciprocal rather than dividing by 127; its bit pattern is
@@ -43,13 +44,12 @@ def quantize_blocks_ref(y: torch.Tensor, noise: torch.Tensor,
     return codes, scales
 
 
-def dequant_combine_ref(codes_self, scale_self, codes_left, scale_left,
-                        codes_right, scale_right, x_tilde, m_agg,
-                        w_self: float, w_side: float, deamp: float):
-    """Fused de-amplify + x_tilde integration + ring combine::
+def combine_core(d_self, d_l, d_r, x_tilde, m_agg, w_self: float,
+                 w_side: float, deamp: float):
+    """The receive-side update every codec shares, on decoded values::
 
-        x_tilde' = x_tilde + deamp * codes_self * scale_self
-        m_agg'   = m_agg + (w_side * deamp) * (dec(left) + dec(right))
+        x_tilde' = x_tilde + deamp * d_self
+        m_agg'   = m_agg + (w_side * deamp) * (d_l + d_r)
         combined = w_self * x_tilde' + m_agg'
 
     The scalar weights are rounded to float32 first and ``w_side * deamp``
@@ -58,10 +58,18 @@ def dequant_combine_ref(codes_self, scale_self, codes_left, scale_left,
     w_self32 = float(np.float32(w_self))
     deamp32 = float(np.float32(deamp))
     side = float(np.float32(w_side) * np.float32(deamp))
-    d_self = codes_self.to(torch.float32) * scale_self
-    d_l = codes_left.to(torch.float32) * scale_left
-    d_r = codes_right.to(torch.float32) * scale_right
     x_t = x_tilde + deamp32 * d_self
     m = m_agg + side * (d_l + d_r)
     combined = w_self32 * x_t + m
     return x_t, m, combined
+
+
+def dequant_combine_ref(codes_self, scale_self, codes_left, scale_left,
+                        codes_right, scale_right, x_tilde, m_agg,
+                        w_self: float, w_side: float, deamp: float):
+    """Fused de-amplify + x_tilde integration + ring combine of int8 codes
+    and their scales: ``combine_core`` on ``codes * scale``."""
+    return combine_core(codes_self.to(torch.float32) * scale_self,
+                        codes_left.to(torch.float32) * scale_left,
+                        codes_right.to(torch.float32) * scale_right,
+                        x_tilde, m_agg, w_self, w_side, deamp)

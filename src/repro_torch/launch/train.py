@@ -11,10 +11,17 @@ Counterpart of ``repro.launch.train``.  One training step k does, for the
 The reference runs each node on its own device inside ``shard_map``; a
 ring over several cards is a later slice.
 
+The wire codec is ``--wire-codec int8|int4|int2|topk|topk:k=<int>``, or
+``adaptive``: then an ``AdaptiveBitController`` re-selects it every
+``--codec-period`` steps from the epoch's mean residual, overflow and
+consensus error, and the runtime's codec is swapped while the train state
+(fp32 shadows, which no codec changes) is kept.
+
 CLI (runs on ``cuda`` unless ``--device cpu``)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
-        --algorithm adc_dgd --nodes 4 --batch 16 --seq 512 --steps 5
+        --algorithm adc_dgd --nodes 4 --batch 16 --seq 512 --steps 5 \\
+        --wire-codec int4
 """
 from __future__ import annotations
 
@@ -23,9 +30,11 @@ import dataclasses
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import codec as wcodec
 from repro_torch.core import tree as T
 from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
 from repro_torch.models import transformer as TF
@@ -36,8 +45,8 @@ from repro_torch.optim.schedules import (constant_schedule,
                                          cosine_warmup_schedule,
                                          inverse_power_schedule)
 
-__all__ = ["TrainSetup", "build_train_setup", "init_train_state",
-           "train_step", "main"]
+__all__ = ["TrainSetup", "build_train_setup", "with_codec",
+           "init_train_state", "train_step", "main"]
 
 
 @dataclasses.dataclass
@@ -58,7 +67,9 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                       optimizer: str = "sgd", schedule: str = "constant",
                       lr: float = 1e-2, eta: float = 0.5, warmup: int = 100,
                       total_steps: int = 1000,
-                      track_consensus_error: bool = False, seed: int = 0,
+                      track_consensus_error: bool = False,
+                      wire_codec: str = "int8",
+                      byte_budget: float | None = None, seed: int = 0,
                       device=None) -> TrainSetup:
     """Everything static about a run.  ``device`` defaults to ``cuda``
     (raising when there is none); pass ``device="cpu"`` for the plain
@@ -66,7 +77,8 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
     dev = resolve_device(device)
     ccfg = ConsensusConfig(algorithm=algorithm, gamma=gamma,
                            quant_mode=quant_mode, fixed_step0=fixed_step0,
-                           track_consensus_error=track_consensus_error)
+                           track_consensus_error=track_consensus_error,
+                           wire_codec=wire_codec, byte_budget=byte_budget)
     if schedule == "constant":
         sched = constant_schedule(lr)
     elif schedule == "inverse_power":
@@ -79,6 +91,15 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                       consensus=ConsensusRuntime(ccfg, consensus_nodes),
                       optimizer=opt_by_name(optimizer), schedule=sched,
                       n_nodes=consensus_nodes, device=dev, seed=seed)
+
+
+def with_codec(setup: TrainSetup, name: str) -> TrainSetup:
+    """The same setup with the consensus runtime's wire codec swapped for
+    ``name``.  The train state carries over: its packed shadows are fp32
+    and no codec changes them."""
+    cfg = dataclasses.replace(setup.consensus.cfg, wire_codec=name)
+    return dataclasses.replace(
+        setup, consensus=ConsensusRuntime(cfg, setup.n_nodes))
 
 
 def init_train_state(setup: TrainSetup, seed: int = 0,
@@ -144,6 +165,8 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
         state["params"], x_half, state["consensus"], k, seed=setup.seed,
         noise=noise)
     metrics = {"loss": float(losses.mean()), "node_loss": losses, "lr": lr_k}
+    if setup.consensus.cfg.algorithm == "adc_dgd":
+        metrics["codec"] = setup.consensus.codec.name
     for name, v in cmetrics.items():
         metrics[name] = float(v.mean()) if torch.is_tensor(v) else float(v)
     return ({"params": x_next, "opt": opt_state, "consensus": cons,
@@ -170,6 +193,22 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--gamma", type=float, default=1.0)
     ap.add_argument("--quant-mode", default="fixed",
                     choices=["fixed", "adaptive"])
+    ap.add_argument("--wire-codec", default="int8",
+                    help="payload codec of the exchange: int8 | int4 | int2 "
+                         "| topk | topk:k=<int> | adaptive; 'adaptive' hands "
+                         "the choice to the AdaptiveBitController, which "
+                         "re-selects it every --codec-period steps from the "
+                         "residual, overflow and consensus-error feedback "
+                         "and --byte-budget")
+    ap.add_argument("--codec-ladder", default=None,
+                    help="comma-separated codecs the adaptive controller "
+                         "chooses from, lowest fidelity first (default "
+                         "int2,int4,int8)")
+    ap.add_argument("--byte-budget", type=float, default=None,
+                    help="bytes/step ring budget (both directions) for the "
+                         "adaptive controller's candidate filter")
+    ap.add_argument("--codec-period", type=int, default=25,
+                    help="steps per adaptive-controller epoch")
     ap.add_argument("--seed", type=int, default=0,
                     help="run seed: parameter init AND the consensus "
                          "quantization-noise stream")
@@ -183,6 +222,18 @@ def main(argv=None) -> list[dict]:
     # TF32: PyTorch's default, stated here because the parity rests on it
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    adaptive = args.wire_codec == "adaptive"
+    if adaptive and args.algorithm != "adc_dgd":
+        raise SystemExit("--wire-codec adaptive requires adc_dgd")
+    ladder = (tuple(s.strip() for s in args.codec_ladder.split(",")
+                    if s.strip())
+              if args.codec_ladder else wcodec.AdaptiveBitController.ladder)
+    try:                                  # fail at the CLI, clearly
+        for name in ladder if adaptive else (args.wire_codec,):
+            wcodec.by_name(name)
+    except (KeyError, ValueError) as e:
+        raise SystemExit(f"--wire-codec/--codec-ladder: {e.args[0]}") \
+            from None
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -191,11 +242,26 @@ def main(argv=None) -> list[dict]:
         gamma=args.gamma, quant_mode=args.quant_mode,
         optimizer=args.optimizer, schedule=args.schedule, lr=args.lr,
         total_steps=args.steps, seed=args.seed, device=args.device,
-        track_consensus_error=(args.algorithm != "allreduce"))
+        track_consensus_error=(args.algorithm != "allreduce"),
+        wire_codec="int8" if adaptive else args.wire_codec,
+        byte_budget=args.byte_budget)
     state = init_train_state(setup, args.seed)
+    controller = None
+    if adaptive:
+        ccfg = setup.consensus.cfg
+        controller = wcodec.AdaptiveBitController(
+            ladder=ladder, byte_budget=ccfg.byte_budget, gamma=ccfg.gamma,
+            fixed_step0=ccfg.fixed_step0)
+        layout = setup.consensus.state_layout(state["params"])
+        n_rows, n_elements = layout.n_rows, layout.n_elements
+        codec_name = controller.initial(n_rows)
+        setup = with_codec(setup, codec_name)
+        print(f"[codec] controller start: {codec_name} "
+              f"(budget={ccfg.byte_budget})")
     ds = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
                             n_shards=args.nodes)
     history = []
+    ep_res, ep_ovf, ep_ce = [], [], []
     t0 = time.time()
     for step in range(args.steps):
         batch = ds.global_batch_arrays(step)
@@ -205,10 +271,32 @@ def main(argv=None) -> list[dict]:
             torch.cuda.synchronize(setup.device)
         metrics["step_s"] = time.perf_counter() - ts
         history.append(metrics)
-        shown = " ".join(f"{k}={v:.4g}" for k, v in metrics.items()
+        shown = " ".join(f"{k}={v}" if isinstance(v, str) else f"{k}={v:.4g}"
+                         for k, v in metrics.items()
                          if k not in ("loss", "node_loss"))
         print(f"step {step:5d} loss={metrics['loss']:.4f} {shown}",
               flush=True)
+        if controller is None:
+            continue
+        ep_res.append(metrics["residual_norm"])
+        ep_ovf.append(metrics["overflow_frac"])
+        if "consensus_err" in metrics:
+            # squared disagreement summed over the tree -> per-element RMS
+            ep_ce.append(float(np.sqrt(max(metrics["consensus_err"], 0.0)
+                                       / max(n_elements, 1))))
+        if (step + 1) % args.codec_period == 0:
+            res, ovf = float(np.mean(ep_res)), float(np.mean(ep_ovf))
+            ce = float(np.mean(ep_ce)) if ep_ce else None
+            new = controller.select(next_step=step + 2, residual_rms=res,
+                                    overflow_frac=ovf, n_rows=n_rows,
+                                    consensus_err=ce)
+            if new != codec_name:
+                print(f"[codec] step {step + 1}: {codec_name} -> {new} "
+                      f"(residual_rms={res:.3g}, overflow={ovf:.3g}"
+                      + (f", consensus_rms={ce:.3g}" if ce is not None
+                         else "") + ")")
+                codec_name, setup = new, with_codec(setup, new)
+            ep_res, ep_ovf, ep_ce = [], [], []
     print(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
     return history
 

@@ -6,8 +6,9 @@ where only PyTorch is installed::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Quantize payloads must be byte-equal; the combine within 1 ulp (it is
-bitwise equal on an H100: both sides round every product and sum).
+Encoded payloads (int8, int4, int2 and top-k) must be byte-equal; the
+combines within 1 ulp (they are bitwise equal on an H100: both sides round
+every product and sum).
 """
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import SyntheticLMDataset
+from repro_torch.kernels import bitpack as BP
 from repro_torch.kernels import dequant_combine as D
 from repro_torch.kernels import quantize as Q
 from repro_torch.launch import train
@@ -79,3 +81,87 @@ def test_cuda_train_step_launches_each_kernel_once_per_node(cuda_device):
             D.dequant_combine_payload.launches - before[1]) == (4, 4)
     assert np.isfinite(metrics["loss"])
     assert state["consensus"]["x_tilde"].device.type == "cuda"
+
+
+def _codec_inputs(device, seed, noise_cols):
+    g = torch.Generator(device=device).manual_seed(seed)
+    y = torch.randn((4099, BLOCK), generator=g, device=device) * 0.05
+    u = torch.rand((4099, noise_cols), generator=g, device=device)
+    return y, u
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code_bits", [4, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("step", [None, 1e-3])
+def test_cuda_subbyte_encode_kernel_matches_plain(cuda_device, code_bits,
+                                                  dtype, step):
+    y, u = _codec_inputs(cuda_device, 2, 2 * BLOCK)   # reads the lead BLOCK
+    y = y.to(dtype)
+    before = BP.subbyte_encode_payload.launches
+    for view in ({}, {"row_offset": 37, "n_rows": 1001}):
+        assert torch.equal(
+            BP.subbyte_encode_payload(y, u, code_bits, step, **view),
+            BP.subbyte_encode_plain(y, u, code_bits, step, **view))
+    assert BP.subbyte_encode_payload.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16, 64, 256, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("step", [None, 1e-3])
+def test_cuda_topk_encode_kernel_matches_plain(cuda_device, k, dtype, step):
+    y, u = _codec_inputs(cuda_device, 3, 2 * BLOCK)
+    y = y.to(dtype)
+    before = BP.topk_encode_payload.launches
+    for view in ({}, {"row_offset": 37, "n_rows": 1001}):
+        got = BP.topk_encode_payload(y, u, k, step, **view)
+        want = BP.topk_encode_plain(y, u, k, step, **view)
+        assert torch.equal(got, want), int((got != want).any(1).sum())
+    assert BP.topk_encode_payload.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["int4", "int2", "topk:k=1", "topk:k=16",
+                                   "topk", "topk:k=256"])
+def test_cuda_codec_combine_kernel_matches_plain(cuda_device, codec):
+    from repro_torch.core.codec import by_name
+    cd = by_name(codec)
+    y, u = _codec_inputs(cuda_device, 4, cd.noise_cols())
+    pays = [cd.encode_payload(y * (i + 1), u) for i in range(3)]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    xt = torch.randn((4099, BLOCK), generator=g, device=cuda_device)
+    m = torch.randn((4099, BLOCK), generator=g, device=cuda_device)
+    entry = (BP.subbyte_decode_combine if codec.startswith("int")
+             else BP.topk_decode_combine)
+    plain = (BP.subbyte_combine_plain if codec.startswith("int")
+             else BP.topk_combine_plain)
+    param = getattr(cd, "code_bits", None) or cd.k
+    before = entry.launches
+    for view in ({}, {"row_offset": 37, "n_rows": 1001}):
+        got = cd.decode_combine(*pays, xt, m, 0.5, 0.25, 0.37, **view)
+        want = plain(*pays, xt, m, 0.5, 0.25, 0.37, param, **view)
+        for a, b in zip(got, want):
+            np.testing.assert_array_max_ulp(a.cpu().numpy(), b.cpu().numpy(),
+                                            maxulp=1)
+    assert entry.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["int4", "int2", "topk"])
+def test_cuda_train_step_launches_codec_kernels(cuda_device, codec):
+    cfg = reduced(get_config("smollm-135m"))
+    setup = train.build_train_setup(cfg, consensus_nodes=4, wire_codec=codec,
+                                    device=cuda_device)
+    state = train.init_train_state(setup, 0)
+    batch = SyntheticLMDataset(cfg.vocab_size, 64, 8,
+                               n_shards=4).global_batch_arrays(0)
+    enc, comb = ((BP.subbyte_encode_payload, BP.subbyte_decode_combine)
+                 if codec.startswith("int")
+                 else (BP.topk_encode_payload, BP.topk_decode_combine))
+    before = (enc.launches, comb.launches, Q.quantize_payload.launches)
+    state, metrics = train.train_step(setup, state, batch)
+    torch.cuda.synchronize()
+    assert (enc.launches - before[0], comb.launches - before[1],
+            Q.quantize_payload.launches - before[2]) == (4, 4, 0)
+    assert np.isfinite(metrics["loss"]) and metrics["codec"] == codec

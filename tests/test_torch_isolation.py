@@ -24,21 +24,30 @@ def _py_files():
                 yield os.path.join(root, f)
 
 
-def test_no_source_file_imports_jax_or_repro():
+def _jax_imports(path):
+    """Every import of ``jax``/``jaxlib``/``repro`` in a file, at any depth
+    (imports inside functions count too)."""
     bad = []
-    for path in _py_files():
-        tree = ast.parse(open(path).read(), path)
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""] if node.level == 0 else []
-            else:
-                continue
-            for name in names:
-                if name.split(".")[0] in ("jax", "jaxlib", "repro"):
-                    bad.append(f"{os.path.relpath(path, REPO)}: {name}")
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        bad += [f"{os.path.relpath(path, REPO)}: {name}" for name in names
+                if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+    return bad
+
+
+def test_no_source_file_imports_jax_or_repro():
+    bad = [b for path in _py_files() for b in _jax_imports(path)]
     assert not bad, bad
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    """``chip_smoke.py`` runs where only PyTorch is installed."""
+    assert not _jax_imports(os.path.join(REPO, "chip_smoke.py"))
 
 
 def test_fresh_import_pulls_in_no_jax():
