@@ -13,7 +13,13 @@ Phases (any failure exits non-zero before the result line):
              wire layout, 262,752) and on a ragged chunk view, fixed and
              adaptive, float32 and bfloat16: int8, int4, int2 and top-k
              (k = 16, 64, 256) payload bytes must be equal, the three
-             combines' outputs bitwise equal or within 1 ulp;
+             combines' outputs bitwise equal or within 1 ulp; the per-leaf
+             quantizer's codes and scales equal and its combine within
+             1 ulp on each of the 11 leaves' padded rows; the flash-decode
+             partials within the CPU test's float32 tolerances at the
+             serve shape and at decode_32k's, for float32 and bf16 inputs
+             alike, with and without a softcap, on masks with a ragged
+             frontier and masked tiles;
 3. main    — ``repro_torch.launch.train.main`` on the full smollm-135m, 4
              ADC-DGD nodes (fixed grid), each run with every launch counter
              zeroed just before it: 5 steps of the int8 wire, then 3 steps
@@ -24,16 +30,39 @@ Phases (any failure exits non-zero before the result line):
              of ``--wire-codec adaptive`` over int2/int4/int8 with a codec
              period of 2, whose launches must match the codec it chose at
              each step; then 2 steps of the int8 wire in adaptive mode;
-4. parity  — reduced smollm-135m, 2 steps on the card and on the CPU from
+             then the per-leaf transport and compressed_dgd, each run
+             counted on its own: 3 steps of ``--wire-packing per_leaf``
+             (the per-leaf kernels launched 4 x 11 x 3 times each, no other
+             kernel; the per-leaf wire bytes), whose final parameters must
+             be bitwise equal to a 3-step packed run's from the same seed,
+             and 3 steps each of ``--algorithm compressed_dgd`` packed and
+             per-leaf, with its losses printed beside adc_dgd's;
+4. serve   — ``repro_torch.launch.serve.main`` on the full smollm-135m:
+             32 prompts of 1,984 tokens and 64 new tokens (capacity 2,048,
+             a 3.0 GB float32 KV cache): the flash-decode kernel launched
+             30 x 63 times and no other kernel, every token in range, and
+             for 2 sequences the decode logits within SERVE_LOGIT_TOL of a
+             train-mode forward over the generated sequence;
+5. parity  — reduced smollm-135m, 2 steps on the card and on the CPU from
              the same weights and quantization noise, for the int8, int4
-             and top-k wires: final parameters agree to float32 rounding but
-             in at most MAX_FRAC_OFF of the elements, and those within
-             MAX_GRID_STEPS quantization grid steps; losses within LOSS_RTOL;
-5. timing  — each kernel and its plain version, median of 25 launches
+             and top-k wires, the per-leaf transport and compressed_dgd
+             (packed and per-leaf): final parameters agree to float32
+             rounding but in at most MAX_FRAC_OFF of the elements, and
+             those within MAX_GRID_STEPS quantization grid steps; losses
+             within LOSS_RTOL; and reduced serving (2 prompts of 16 tokens,
+             8 new tokens) on the card and on the CPU from the same
+             weights: the same tokens, or a flip at a near tie whose
+             logits agree within SERVE_LOGIT_TOL;
+6. timing  — each kernel and its plain version, median of 25 launches
              timed with CUDA events, beside the least time the card needs
-             for the bytes and operations (H100 SXM data sheet rates);
-             the step time of each codec, the exchange time of each codec
-             and the peak memory.
+             for the bytes and operations (H100 SXM data sheet rates), and
+             for the flash-decode kernel the library call
+             ``scaled_dot_product_attention`` on the same inputs (each
+             layout and backend it takes them in, the fastest reported),
+             at the serve shape and at decode_32k's (b = 128, S = 32,768);
+             the
+             step time of each codec, the exchange time of each codec and
+             the peak memory.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Needs one card; exits non-zero with no result without one, or
@@ -48,6 +77,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
@@ -66,6 +96,29 @@ TIMING_REPS = 25
 #: payload rows: 2 x rows x payload width (516, 258, 130 and 130 bytes)
 WIRE_BYTES = {"int8": 271_160_064, "int4": 135_580_032,
               "int2": 68_315_520, "topk": 68_315_520}
+
+#: the per-leaf transport: the 11 leaves of the full smollm-135m tree, each
+#: padded to its own TILE_N multiple, 262,880 rows in all, so
+#: 2 x 262,880 x 516 bytes per step
+N_LEAVES, PER_LEAF_WIRE_BYTES = 11, 271_292_160
+
+#: serving: 32 prompts of 1,984 tokens + 64 new tokens fill SmolLM-135M's
+#: 2,048 positions; decode_32k (``src/repro/models/config.py:165``) is
+#: b = 128 over a 32,768-position cache.  smollm has 3 KV heads of 64 and
+#: 3 queries per KV head.
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 32, 1984, 64
+KVH, GROUP, HEAD_DIM = 3, 3, 64
+DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW),
+                 "decode_32k": (128, 32768)}
+#: the flash-decode partials against their plain version, on acc / l and
+#: on m + log l (the reference's float32 kernel-test tolerances).  bf16
+#: K and V widen to float32 exactly on both sides, which then sum in
+#: float32, so bf16 inputs are held to the same bounds: only the order of
+#: summation differs
+DECODE_TOL = (1e-5, 5e-5)
+#: decode logits against a train-mode forward, and card against CPU in
+#: serving (the CPU test's tolerance, absolute and relative)
+SERVE_LOGIT_TOL = 1e-5
 
 #: card-vs-CPU parity: float32 matmuls sum in other orders on the two
 #: devices, so now and then a stochastic rounding lands on the other side
@@ -115,17 +168,20 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main_path_rows(train) -> int:
-    """Payload rows per node of the main path: the wire layout of the full
-    smollm-135m parameter tree (shapes only, on the ``meta`` device)."""
+def main_path_rows(train) -> tuple[int, list[int]]:
+    """Payload rows per node of the main path, and the padded rows of each
+    leaf on the per-leaf transport: the wire layout of the full smollm-135m
+    parameter tree (shapes only, on the ``meta`` device)."""
     from repro_torch.configs import get_config
     from repro_torch.core import tree as T
+    from repro_torch.kernels.ops import padded_block_rows
     from repro_torch.models.params import meta_params
     setup = train.build_train_setup(get_config("smollm-135m"),
                                     consensus_nodes=NODES, device="cuda")
     params = T.tree_map(lambda a: a.expand((NODES,) + a.shape),
                         meta_params(setup.defs.storage))
-    return setup.consensus.state_layout(params).n_rows
+    layout = setup.consensus.state_layout(params)
+    return layout.n_rows, [padded_block_rows(s.size) for s in layout.slots]
 
 
 def decoded(Q, payload):
@@ -255,6 +311,118 @@ def phase_codec_kernels(torch, BP, n_rows):
     return errs
 
 
+def phase_block_kernels(torch, Q, D, leaf_rows):
+    """The per-leaf quantizer and combine against their plain versions on
+    each leaf's padded rows of the full smollm-135m tree."""
+    dev = "cuda"
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    total = sum(leaf_rows)
+    y = torch.randn((total, BLOCK), generator=g, device=dev) * 0.05
+    u = torch.rand((total, BLOCK), generator=g, device=dev)
+    xt = torch.randn((total, BLOCK), generator=g, device=dev)
+    mb = torch.randn((total, BLOCK), generator=g, device=dev)
+    spans, r0 = [], 0
+    for n in leaf_rows:
+        spans.append((r0, n))
+        r0 += n
+    q_abs = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        yy = y.to(dt)
+        for step in (None, 1e-3):
+            for r0, n in spans:
+                a = Q.quantize_blocks(yy[r0:r0 + n], u[r0:r0 + n], step)
+                b = Q.quantize_blocks_plain(yy[r0:r0 + n], u[r0:r0 + n],
+                                            step)
+                torch.cuda.synchronize()
+                if not (torch.equal(a[0], b[0]) and torch.equal(
+                        a[1].view(torch.int32), b[1].view(torch.int32))):
+                    fail(f"quantize_blocks {dt} step={step} rows {n}: "
+                         f"{int((a[0] != b[0]).sum())} codes and "
+                         f"{int((a[1] != b[1]).sum())} scales differ from "
+                         "the plain version")
+                q_abs = max(q_abs, float((a[0].float() * a[1]
+                                          - b[0].float() * b[1])
+                                         .abs().max()))
+    print(f"[kernels] quantize_blocks: codes and scales equal to the plain "
+          f"version on each of the {len(spans)} leaves' padded rows "
+          f"({total} in all; fixed+adaptive, f32+bf16), max |decoded "
+          f"diff| {q_abs}")
+    worst_ulp, worst_abs = 0, 0.0
+    for r0, n in spans:
+        sides = []
+        for i in range(3):
+            sides += Q.quantize_blocks(y[r0:r0 + n] * (i + 1), u[r0:r0 + n])
+        for deamp in (1.0, 0.37):
+            a = D.dequant_combine(*sides, xt[r0:r0 + n], mb[r0:r0 + n], 0.5,
+                                  0.25, deamp)
+            b = D.dequant_combine_plain(*sides, xt[r0:r0 + n],
+                                        mb[r0:r0 + n], 0.5, 0.25, deamp)
+            torch.cuda.synchronize()
+            for x, z in zip(a, b):
+                worst_ulp = max(worst_ulp, ulp_diff(x, z))
+                worst_abs = max(worst_abs, float((x - z).abs().max()))
+    if worst_ulp > 1:
+        fail(f"dequant_combine differs from the plain version by "
+             f"{worst_ulp} ulp")
+    why = ("bitwise equal" if worst_ulp == 0 else
+           "1 ulp: a product/sum rounded in another order")
+    print(f"[kernels] dequant_combine: {why} on each leaf's padded rows "
+          f"(max ulp {worst_ulp})")
+    return {"quantize_blocks": q_abs, "dequant_combine": worst_abs}
+
+
+def decode_inputs(torch, b, seq, dtype, seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((b, KVH, GROUP, HEAD_DIM),
+                               (b, seq, KVH, HEAD_DIM),
+                               (b, seq, KVH, HEAD_DIM)))
+
+
+def decode_invariants(torch, m, l, acc):
+    """acc / l and m + log l: what any order of summation keeps."""
+    l = torch.clamp_min(l, 1e-30)
+    return acc / l[..., None], m + torch.log(l)
+
+
+def phase_decode_kernel(torch, G):
+    """The flash-decode kernel against its plain version at the serve
+    shape and at decode_32k's: float32 and bf16, with and without a
+    softcap of 30, on a mask whose frontier falls inside a tile and one
+    that also leaves the later tiles fully masked."""
+    worst = 0.0
+    for shape, (b, seq) in DECODE_SHAPES.items():
+        masks = {"frontier": torch.arange(seq, device="cuda") < seq - 37,
+                 "masked tiles": torch.arange(seq, device="cuda")
+                 < seq // 2 + 201}
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = decode_inputs(torch, b, seq, dt, seq)
+            tol, lse_tol = DECODE_TOL
+            for cap in (None, 30.0):
+                for mask_name, valid in masks.items():
+                    got = G.gqa_decode(q, k, v, valid, softcap=cap)
+                    want = G.gqa_decode_plain(q, k, v, valid, softcap=cap)
+                    torch.cuda.synchronize()
+                    (o, lse), (wo, wlse) = (decode_invariants(torch, *got),
+                                            decode_invariants(torch, *want))
+                    err = float((o - wo).abs().max())
+                    lse_err = float((lse - wlse).abs().max())
+                    if not (torch.allclose(o, wo, atol=tol, rtol=tol)
+                            and lse_err <= lse_tol):
+                        fail(f"gqa_decode {shape} {dt} softcap={cap} "
+                             f"{mask_name}: |out diff| {err}, |lse diff| "
+                             f"{lse_err} (tolerances {tol}, {lse_tol})")
+                    worst = max(worst, err)
+            del q, k, v
+        print(f"[kernels] gqa_decode {shape} (b={b}, S={seq}, kvh={KVH}, "
+              f"g={GROUP}, hd={HEAD_DIM}): within tolerance of the plain "
+              f"version (f32+bf16, softcap none+30, ragged frontier + "
+              f"masked tiles)")
+    return {"gqa_decode": worst}
+
+
 #: the two kernels each codec's exchange launches
 CODEC_KERNELS = {
     "int8": ("quantize_payload", "dequant_combine_payload"),
@@ -271,13 +439,13 @@ def train_argv(steps: int, *extra: str) -> list[str]:
             "--device", "cuda", *extra]
 
 
-def run_counted(torch, train, entries, argv):
+def run_counted(torch, train, entries, argv, **kw):
     """One trainer run with every launch counter zeroed just before it and
     read just after; also its peak device memory."""
     for entry in entries.values():
         entry.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    hist = train.main(argv)
+    hist = train.main(argv, **kw)
     launches = {name: entry.launches for name, entry in entries.items()}
     return hist, launches, torch.cuda.max_memory_allocated() / 1e9
 
@@ -344,6 +512,171 @@ def phase_main(torch, train, entries):
     return main_launches, step_s, peak_gb
 
 
+def phase_perleaf(torch, train, entries):
+    """The per-leaf transport and compressed_dgd on the full smollm-135m x
+    4 nodes, each run counted on its own."""
+    per_leaf_kernels = ("quantize_blocks", "dequant_combine")
+    launches_total = {name: 0 for name in entries}
+
+    def counted(label, steps, want, *extra):
+        (hist, state), launches, _ = run_counted(
+            torch, train, entries, train_argv(steps, *extra),
+            return_state=True)
+        full = {name: want.get(name, 0) for name in entries}
+        if launches != full:
+            fail(f"{label}: launched {launches}, want {full}")
+        losses = [h["loss"] for h in hist]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"{label}: non-finite loss: {losses}")
+        for name, n in launches.items():
+            launches_total[name] += n
+        return hist, state
+
+    per_leaf = {name: NODES * N_LEAVES * CODEC_STEPS
+                for name in per_leaf_kernels}
+    hist_pl, st_pl = counted("adc_dgd per_leaf", CODEC_STEPS, per_leaf,
+                             "--wire-packing", "per_leaf")
+    wire = [h["wire_bytes_per_step"] for h in hist_pl]
+    coll = [h["collectives_per_step"] for h in hist_pl]
+    if set(wire) != {PER_LEAF_WIRE_BYTES} or set(coll) != {4.0 * N_LEAVES}:
+        fail(f"per_leaf: wire_bytes_per_step {wire} (want "
+             f"{PER_LEAF_WIRE_BYTES}), collectives {coll}")
+    packed = {name: NODES * CODEC_STEPS for name in CODEC_KERNELS["int8"]}
+    hist_pk, st_pk = counted("adc_dgd packed", CODEC_STEPS, packed)
+    from repro_torch.core import tree as T
+    same = all(torch.equal(a, b) for a, b in zip(
+        T.tree_leaves(st_pl["params"]), T.tree_leaves(st_pk["params"])))
+    same_state = all(torch.equal(st_pl["consensus"][k], st_pk["consensus"][k])
+                     for k in st_pk["consensus"])
+    if not (same and same_state):
+        fail("per_leaf run's final parameters or shadows differ from the "
+             "packed run's from the same seed")
+    del st_pl, st_pk
+    print(f"[main] smollm-135m x {NODES} nodes, adc_dgd fixed, per_leaf "
+          f"int8 wire: {CODEC_STEPS} steps, launches "
+          f"{ {n: per_leaf[n] for n in per_leaf_kernels} }, "
+          f"wire_bytes_per_step {wire[-1]:.0f}, collectives {coll[-1]:.0f}; "
+          f"final parameters and shadows bitwise equal to the packed run's")
+    hist_cp, _ = counted("compressed_dgd packed", CODEC_STEPS,
+                         {"quantize_payload": NODES * CODEC_STEPS},
+                         "--algorithm", "compressed_dgd")
+    hist_cl, _ = counted("compressed_dgd per_leaf", CODEC_STEPS,
+                         {"quantize_blocks": NODES * N_LEAVES * CODEC_STEPS},
+                         "--algorithm", "compressed_dgd", "--wire-packing",
+                         "per_leaf")
+    for step, (a, c, cl) in enumerate(zip(hist_pk, hist_cp, hist_cl)):
+        print(f"[main] step {step}: loss adc_dgd {a['loss']!r}, "
+              f"compressed_dgd {c['loss']!r} (per_leaf {cl['loss']!r}); "
+              f"consensus_err adc_dgd {a['consensus_err']!r}, "
+              f"compressed_dgd {c['consensus_err']!r}")
+    return launches_total
+
+
+def phase_serve(torch, serve, entries):
+    """``serve.main`` on the full smollm-135m, its launches counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params
+    for entry in entries.values():
+        entry.launches = 0
+    r = serve.main(["--arch", "smollm-135m", "--batch", str(SERVE_BATCH),
+                    "--prompt-len", str(SERVE_PROMPT), "--new-tokens",
+                    str(SERVE_NEW), "--keep-logits", "2", "--seed", "0",
+                    "--device", "cuda"])
+    launches = {name: entry.launches for name, entry in entries.items()}
+    cfg = get_config("smollm-135m")
+    want = {name: 0 for name in entries}
+    want["gqa_decode"] = cfg.n_periods * (SERVE_NEW - 1)
+    if launches != want:
+        fail(f"serve launched {launches}, want {want}")
+    tok = r["tokens"]
+    if (tok.shape != (SERVE_BATCH, SERVE_NEW) or tok.min() < 0
+            or tok.max() >= cfg.vocab_size
+            or r["cache_len"] != SERVE_PROMPT + SERVE_NEW - 1):
+        fail(f"serve: tokens {tok.shape} in [{tok.min()}, {tok.max()}], "
+             f"cache length {r['cache_len']}")
+    # the decode logits of 2 sequences against one train-mode forward over
+    # the prompt and the generated tokens, from the weights main drew
+    defs = TF.build_defs(cfg)
+    params = init_params(defs.storage, 0, "cuda")
+    import numpy as np
+    seq = np.concatenate([r["prompts"][:2], tok[:2]], axis=1)
+    with torch.inference_mode():
+        full, _ = TF.model_apply(
+            params, defs, {"tokens": torch.as_tensor(seq[:, :-1],
+                                                     device="cuda")})
+    want_l = full[:, SERVE_PROMPT:SERVE_PROMPT + SERVE_NEW - 1].cpu()
+    got_l = torch.from_numpy(r["logits"])
+    err = float((got_l - want_l).abs().max())
+    if not torch.allclose(got_l, want_l, atol=SERVE_LOGIT_TOL,
+                          rtol=SERVE_LOGIT_TOL):
+        fail(f"serve: decode logits differ from the train-mode forward by "
+             f"up to {err} (tolerance {SERVE_LOGIT_TOL})")
+    del params, full
+    print(f"[serve] smollm-135m, {SERVE_BATCH} x {SERVE_PROMPT} prompt + "
+          f"{SERVE_NEW} tokens: gqa_decode launched "
+          f"{launches['gqa_decode']} times; prefill {r['prefill_s']!r} s, "
+          f"decode {r['decode_s_per_token'] * 1e3!r} ms per token for the "
+          f"batch, peak memory {r['peak_gb']!r} GB; decode logits of 2 "
+          f"sequences vs a train-mode forward: max |diff| {err!r}")
+    return launches, r
+
+
+def phase_serve_parity(torch):
+    """Reduced smollm-135m serving on the card and on the CPU from the same
+    weights and prompts."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import tree as T
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params
+    cfg = reduced(get_config("smollm-135m"))
+    b, p, n = 2, 16, 8
+    base = init_params(TF.build_defs(cfg).storage, 0, "cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, p),
+                                                dtype=np.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = T.tree_map(lambda a: a.to(dev), base)
+        pre = serve.build_prefill_setup(cfg, device=dev)
+        srv = serve.build_serve_setup(cfg, device=dev, keep_logits=b)
+        first, cache = pre.prefill_step(
+            params, {"tokens": torch.as_tensor(prompts, device=dev)}, p + n)
+        state = {"params": params, "cache": cache, "tokens": first}
+        toks, logits = [first.cpu()], []
+        for _ in range(n - 1):
+            state = srv.serve_step(state)
+            toks.append(state["tokens"].cpu())
+            logits.append(state["logits"].cpu())
+        out[dev] = (torch.cat(toks, 1), torch.stack(logits, 1))
+    (t_cpu, l_cpu), (t_gpu, l_gpu) = out["cpu"], out["cuda"]
+    if torch.equal(t_cpu, t_gpu):
+        err = float((l_cpu - l_gpu).abs().max())
+        if not torch.allclose(l_gpu, l_cpu, atol=SERVE_LOGIT_TOL,
+                              rtol=SERVE_LOGIT_TOL):
+            fail(f"serve parity: logits differ by {err}")
+        print(f"[parity] reduced smollm-135m serving, {b} x {p} prompt + "
+              f"{n} tokens, card vs CPU: tokens equal, decode logits max "
+              f"|diff| {err!r}")
+        return
+    # a flip is only allowed at a near tie, before which all agrees
+    step = int((t_cpu != t_gpu).any(0).nonzero()[0])
+    if step == 0:
+        fail(f"serve parity: the prefill's tokens differ: {t_cpu[:, 0]} vs "
+             f"{t_gpu[:, 0]}")
+    a, c = l_gpu[:, step - 1], l_cpu[:, step - 1]
+    top2 = torch.topk(c, 2, dim=-1).values
+    gap = float((top2[:, 0] - top2[:, 1]).min())
+    if not (torch.allclose(a, c, atol=SERVE_LOGIT_TOL, rtol=SERVE_LOGIT_TOL)
+            and gap <= 2 * SERVE_LOGIT_TOL):
+        fail(f"serve parity: token {step} differs without a near tie (top-2 "
+             f"gap {gap}, logits |diff| {float((a - c).abs().max())})")
+    print(f"[parity] reduced smollm-135m serving, card vs CPU: token {step} "
+          f"flipped at a near tie (top-2 gap {gap!r}); the logits before it "
+          f"agree within {SERVE_LOGIT_TOL}")
+
+
 def phase_parity(torch, train):
     """The same two steps of reduced smollm-135m on the card and on the
     CPU (plain versions), from the same weights, batches and noise, for the
@@ -352,13 +685,18 @@ def phase_parity(torch, train):
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.core import tree as T
     cfg = reduced(get_config("smollm-135m"))
-    for codec in ("int8", "int4", "topk"):
+    for codec, kw in (("int8", {}), ("int4", {"wire_codec": "int4"}),
+                      ("topk", {"wire_codec": "topk"}),
+                      ("int8 per_leaf", {"wire_packing": "per_leaf"}),
+                      ("compressed_dgd", {"algorithm": "compressed_dgd"}),
+                      ("compressed_dgd per_leaf",
+                       {"algorithm": "compressed_dgd",
+                        "wire_packing": "per_leaf"})):
         base = None
         results = {}
         for dev in ("cpu", "cuda"):
             setup = train.build_train_setup(cfg, consensus_nodes=NODES,
-                                            lr=1e-2, wire_codec=codec,
-                                            device=dev)
+                                            lr=1e-2, device=dev, **kw)
             state = train.init_train_state(
                 setup, 0, params=None if base is None else T.tree_map(
                     lambda a: a.to(dev), base))
@@ -397,7 +735,108 @@ def phase_parity(torch, train):
               f"{FLOAT_ATOL} {frac_off!r}, losses {l_gpu} vs {l_cpu}")
 
 
-def phase_timing(torch, Q, D, BP, launches, errs, n_rows):
+def decode_bound(b, seq, n_valid, elt):
+    """Least bytes and operations of one flash-decode call: q, each valid
+    position's K and V row once, the mask, and m, l, acc out; per valid
+    position and query 2 x hd for q . k, 2 x hd for p v and ~8 for the
+    scale, max, exp and rescale."""
+    n_bytes = (b * KVH * GROUP * HEAD_DIM * 4
+               + 2 * b * n_valid * KVH * HEAD_DIM * elt + seq
+               + b * KVH * GROUP * (2 + HEAD_DIM) * 4)
+    n_ops = b * KVH * n_valid * GROUP * (4 * HEAD_DIM + 8)
+    return n_bytes, n_ops
+
+
+def sdpa_calls(torch, q, k, v, valid, n_valid):
+    """``scaled_dot_product_attention`` computing the normalised output
+    of the flash-decode inputs, each way it can take them and on each
+    backend that accepts that way: the cache layout under the mask with
+    ``enable_gqa``; and, the valid positions being a prefix, that prefix
+    with a KV head's g queries as its query rows (no mask and no head
+    expansion), as strided views of the cache and as contiguous copies
+    (made once, outside the timing).  Returns {label: callable}."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    b, seq = k.shape[:2]
+    if not torch.equal(valid, torch.arange(seq, device="cuda") < n_valid):
+        fail("gqa_decode timing: the valid positions are not a prefix")
+    ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    kp, vp = ks[:, :, :n_valid], vs[:, :, :n_valid]
+    ways = {"masked cache layout, enable_gqa":
+            (q.reshape(b, KVH * GROUP, 1, HEAD_DIM), ks, vs,
+             {"attn_mask": valid[None, :], "enable_gqa": True}),
+            "prefix, strided": (q, kp, vp, {}),
+            "prefix, contiguous": (q, kp.contiguous(), vp.contiguous(), {})}
+    calls = {}
+    for way, (qq, kk, vv, kw) in ways.items():
+        for backend in (SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            def call(qq=qq, kk=kk, vv=vv, kw=kw, backend=backend):
+                with sdpa_kernel(backend):
+                    out = F.scaled_dot_product_attention(qq, kk, vv, **kw)
+                return out.reshape(b, KVH, GROUP, HEAD_DIM)
+            try:
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    call()
+            except RuntimeError:    # this backend does not take this way
+                continue
+            calls[f"{way}, {backend.name}"] = call
+    torch.cuda.synchronize()
+    return calls
+
+
+def phase_decode_timing(torch, G, launches, errs):
+    """The flash-decode kernel, its plain version and the library call
+    that computes the normalised output (#9 plus the combine) at the serve
+    shape and at decode_32k's, float32, on the mask of a decode at the
+    cache's last position but one.  The library time is the fastest of
+    ``sdpa_calls``.  Returns the serve shape's row."""
+    row = None
+    for shape, (b, seq) in DECODE_SHAPES.items():
+        q, k, v = decode_inputs(torch, b, seq, torch.float32, 11)
+        valid = torch.arange(seq, device="cuda") <= seq - 2
+        n_valid = int(valid.sum())
+        ms = time_ms(lambda: G.gqa_decode(q, k, v, valid))
+        plain_ms = time_ms(lambda: G.gqa_decode_plain(q, k, v, valid))
+        o, _ = decode_invariants(torch, *G.gqa_decode(q, k, v, valid))
+        calls = sdpa_calls(torch, q, k, v, valid, n_valid)
+        if not calls:
+            fail(f"gqa_decode timing {shape}: no backend of "
+                 f"scaled_dot_product_attention took the inputs")
+        lib = {}
+        for label, call in calls.items():
+            lib_err = float((call() - o).abs().max())
+            lib[label] = time_ms(call)
+            print(f"[timing] gqa_decode {shape}: scaled_dot_product_"
+                  f"attention ({label}) {lib[label]:.4f} ms, its output "
+                  f"within {lib_err:.3g} of the kernel's")
+        lib_label = min(lib, key=lib.get)
+        lib_ms = lib[lib_label]
+        del calls
+        nb, no = decode_bound(b, seq, n_valid, 4)
+        b_ms, b_by = bound(nb, no)
+        print(f"[timing] gqa_decode {shape} (b={b}, S={seq}, {n_valid} "
+              f"valid, f32): {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+              f"fastest scaled_dot_product_attention {lib_ms:.4f} ms, "
+              f"{lib_label}; bound {b_ms:.4f} ms by {b_by}: "
+              f"{nb / 1e9:.4f} GB, {no / 1e9:.4f} GFLOP, "
+              f"{ms and b_ms / ms:.1%} of it)")
+        if row is None:
+            row = {"name": "gqa_decode", "route": "cuda",
+                   "source": "src/repro_torch/kernels/csrc/gqa_decode.cu",
+                   "replaces": "src/repro/kernels/gqa_decode.py:80",
+                   "launches": launches["gqa_decode"],
+                   "max_abs_err": errs["gqa_decode"], "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": lib_ms}
+        del q, k, v
+        torch.cuda.empty_cache()
+    return row
+
+
+def phase_timing(torch, Q, D, BP, launches, errs, n_rows, leaf_rows):
     g = torch.Generator(device="cuda")
     g.manual_seed(1)
     y = torch.randn((n_rows, BLOCK), generator=g, device="cuda") * 0.05
@@ -461,6 +900,30 @@ def phase_timing(torch, Q, D, BP, launches, errs, n_rows):
          "src/repro_torch/kernels/csrc/topk_combine.cu",
          "src/repro/kernels/bitpack.py:467"),
     ]
+    # the per-leaf kernels over all 11 leaves' padded rows in one launch
+    # (the main path launches them once per leaf: timed below as well)
+    pl_rows = sum(leaf_rows)
+    yb = torch.randn((pl_rows, BLOCK), generator=g, device="cuda") * 0.05
+    ub = torch.rand((pl_rows, BLOCK), generator=g, device="cuda")
+    xtb = torch.randn((pl_rows, BLOCK), generator=g, device="cuda")
+    mbb = torch.randn((pl_rows, BLOCK), generator=g, device="cuda")
+    sides = []
+    for i in range(3):
+        sides += Q.quantize_blocks(yb * (i + 1), ub, 1e-3)
+    pl_b = pl_rows * BLOCK * 4
+    cases += [
+        ("quantize_blocks", lambda: Q.quantize_blocks(yb, ub, 1e-3),
+         lambda: Q.quantize_blocks_plain(yb, ub, 1e-3),
+         2 * pl_b + pl_rows * PAYLOAD, pl_rows * BLOCK * 10,
+         "src/repro_torch/kernels/csrc/quantize_blocks.cu",
+         "src/repro/kernels/quantize.py:199"),
+        ("dequant_combine",
+         lambda: D.dequant_combine(*sides, xtb, mbb, 0.5, 0.25, 1.0),
+         lambda: D.dequant_combine_plain(*sides, xtb, mbb, 0.5, 0.25, 1.0),
+         3 * pl_rows * PAYLOAD + 5 * pl_b, pl_rows * BLOCK * 13,
+         "src/repro_torch/kernels/csrc/dequant_combine_blocks.cu",
+         "src/repro/kernels/dequant_combine.py:48"),
+    ]
     rows = []
     for name, fn, plain, nb, no, src, repl in cases:
         ms = time_ms(fn)
@@ -474,6 +937,26 @@ def phase_timing(torch, Q, D, BP, launches, errs, n_rows):
         print(f"[timing] {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
               f"bound {b_ms:.4f} ms by {b_by}: {nb / 1e9:.4f} GB, "
               f"{ms and b_ms / ms:.1%} of it)")
+    spans, r0 = [], 0
+    for n in leaf_rows:
+        spans.append((r0, n))
+        r0 += n
+
+    def per_leaf_quantize():
+        for r0, n in spans:
+            Q.quantize_blocks(yb[r0:r0 + n], ub[r0:r0 + n], 1e-3)
+
+    def per_leaf_combine():
+        for r0, n in spans:
+            D.dequant_combine(*(a[r0:r0 + n] for a in sides),
+                              xtb[r0:r0 + n], mbb[r0:r0 + n], 0.5, 0.25,
+                              1.0)
+
+    for name, fn in (("quantize_blocks", per_leaf_quantize),
+                     ("dequant_combine", per_leaf_combine)):
+        print(f"[timing] {name}, one node's {len(spans)} per-leaf launches: "
+              f"{time_ms(fn):.4f} ms")
+    del yb, ub, xtb, mbb, sides
     # int2 runs the same two kernels as int4 (template on the code width)
     for name, fn, nb in (
             ("subbyte_encode_payload int2",
@@ -527,8 +1010,9 @@ def main() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels import bitpack as BP
     from repro_torch.kernels import dequant_combine as D
+    from repro_torch.kernels import gqa_decode as G
     from repro_torch.kernels import quantize as Q
-    from repro_torch.launch import train
+    from repro_torch.launch import serve, train
     t0 = time.perf_counter()
     report = _build.build_all()
     print(f"[setup] built {sorted(report)} in "
@@ -538,13 +1022,24 @@ def main() -> None:
                "subbyte_encode_payload": BP.subbyte_encode_payload,
                "subbyte_decode_combine": BP.subbyte_decode_combine,
                "topk_encode_payload": BP.topk_encode_payload,
-               "topk_decode_combine": BP.topk_decode_combine}
-    n_rows = main_path_rows(train)
+               "topk_decode_combine": BP.topk_decode_combine,
+               "quantize_blocks": Q.quantize_blocks,
+               "dequant_combine": D.dequant_combine,
+               "gqa_decode": G.gqa_decode}
+    n_rows, leaf_rows = main_path_rows(train)
     errs = phase_kernels(torch, Q, D, n_rows)
     errs.update(phase_codec_kernels(torch, BP, n_rows))
+    errs.update(phase_block_kernels(torch, Q, D, leaf_rows))
+    errs.update(phase_decode_kernel(torch, G))
     launches, step_s, peak_gb = phase_main(torch, train, entries)
+    for name, n in phase_perleaf(torch, train, entries).items():
+        launches[name] += n
+    serve_launches, _ = phase_serve(torch, serve, entries)
+    launches["gqa_decode"] += serve_launches["gqa_decode"]
     phase_parity(torch, train)
-    rows = phase_timing(torch, Q, D, BP, launches, errs, n_rows)
+    phase_serve_parity(torch)
+    rows = phase_timing(torch, Q, D, BP, launches, errs, n_rows, leaf_rows)
+    rows.append(phase_decode_timing(torch, G, launches, errs))
     exchange_ms = phase_exchange_time(torch, train)
     for codec in step_s:
         print(f"[summary] {codec}: step {step_s[codec]:.4f} s, exchange "

@@ -21,7 +21,16 @@ the quantizer grid), for every node i:
 
 ``step_k = fixed_step0 / k**gamma`` in fixed mode, the per-row absmax grid
 in adaptive mode.  ``dgd`` (uncompressed mixing), ``allreduce`` (exact mean
-of the optimizer delta) and ``none`` (isolated nodes) are the baselines.
+of the optimizer delta) and ``none`` (isolated nodes) are the baselines;
+``compressed_dgd`` (paper Eq. (5), the negative control) mixes the
+neighbours' int8-compressed parameters themselves, on the undecayed grid
+``fixed_step0``, with the node's own parameters uncompressed.
+
+``wire_packing="packed"`` ships the whole tree as one payload per node;
+``"per_leaf"`` is the reference transport of the same exchange, int8 only:
+per leaf one quantize launch (codes and scales as two tensors) and one
+combine launch per node, four ring transfers per leaf.  Drawn from the same
+noise buffer, the two give the same bits.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import codec as wire_codec
 from repro_torch.core import tree as T
@@ -38,12 +48,15 @@ from repro_torch.kernels import ops as kops
 
 __all__ = ["ConsensusConfig", "ConsensusRuntime", "noise_seed"]
 
-ALGORITHMS = ("adc_dgd", "dgd", "allreduce", "none")
+ALGORITHMS = ("adc_dgd", "dgd", "compressed_dgd", "allreduce", "none")
+#: wire transports of the reference; the ported ones are packed and per_leaf
+WIRE_PACKINGS = ("packed", "pipelined", "per_leaf", "async")
 
 
 @dataclasses.dataclass(frozen=True)
 class ConsensusConfig:
-    algorithm: str = "adc_dgd"     # adc_dgd | dgd | allreduce | none
+    algorithm: str = "adc_dgd"     # adc_dgd | dgd | compressed_dgd |
+                                   # allreduce | none
     gamma: float = 1.0             # amplification exponent (paper gamma)
     self_weight: float = 0.5       # ring W_ii; each side gets (1 - W_ii)/2
     quant_mode: str = "fixed"      # fixed (paper-faithful) | adaptive
@@ -51,6 +64,7 @@ class ConsensusConfig:
     track_consensus_error: bool = False
     wire_codec: str = "int8"       # a core.codec name (no mixed plans yet)
     byte_budget: float | None = None   # bytes/step target (the controller)
+    wire_packing: str = "packed"   # packed | per_leaf (the reference path)
 
     def __post_init__(self):
         if self.algorithm not in ALGORITHMS:
@@ -74,6 +88,20 @@ class ConsensusConfig:
         if self.byte_budget is not None and self.byte_budget <= 0:
             raise ValueError(f"byte_budget must be positive, got "
                              f"{self.byte_budget}")
+        if self.wire_packing not in WIRE_PACKINGS:
+            raise ValueError(f"wire_packing must be one of {WIRE_PACKINGS}, "
+                             f"got {self.wire_packing!r}")
+        if self.wire_packing in ("pipelined", "async"):
+            raise NotImplementedError(
+                f"wire_packing={self.wire_packing!r} is not yet ported")
+        if self.wire_packing == "per_leaf" and self.wire_codec != "int8":
+            raise ValueError(
+                f"wire_codec={self.wire_codec!r} requires the packed "
+                "transport; the per-leaf reference path speaks int8 only")
+        if self.algorithm == "compressed_dgd" and self.wire_codec != "int8":
+            raise ValueError(
+                "compressed_dgd (the Eq. (5) negative control) is pinned "
+                f"to the int8 wire; got wire_codec={self.wire_codec!r}")
 
     @property
     def side_weight(self) -> float:
@@ -140,23 +168,33 @@ class ConsensusRuntime:
     # -- static accounting -------------------------------------------------
     def wire_bytes_per_step(self, n_params_local: int,
                             layout: wire.WireLayout | None = None) -> float:
-        """Bytes one node puts on the ring per step (both directions)."""
+        """Bytes one node puts on the ring per step (both directions).  The
+        per-leaf transport ships each leaf padded to its own TILE_N-aligned
+        height, so more rows than the packed payload of the same tree."""
         alg = self.cfg.algorithm
-        if alg == "adc_dgd":
-            rows = (layout.n_rows if layout is not None
-                    else kops.padded_block_rows(n_params_local))
+        if alg in ("adc_dgd", "compressed_dgd"):
+            if layout is not None and self.cfg.wire_packing == "per_leaf":
+                rows = sum(kops.padded_block_rows(s.size)
+                           for s in layout.slots)
+            elif layout is not None:
+                rows = layout.n_rows
+            else:
+                rows = kops.padded_block_rows(n_params_local)
             return 2.0 * self.codec.payload_bytes(rows)
         if alg == "dgd":
             return 2.0 * n_params_local * 4
         return 0.0
 
     def collectives_per_step(self, n_leaves: int = 1) -> float:
-        """Ring transfers one node issues per step (static)."""
+        """Ring transfers one node makes per step (static): one payload
+        per ring direction on the packed wire, codes and scales per
+        direction per leaf on the per-leaf transport."""
         alg, n = self.cfg.algorithm, self.n_nodes
         if alg == "none" or (n <= 1 and alg != "allreduce"):
             return 0.0
-        if alg == "adc_dgd":
-            return 2.0            # one payload per ring direction
+        if alg in ("adc_dgd", "compressed_dgd"):
+            return (2.0 if self.cfg.wire_packing == "packed"
+                    else 4.0 * n_leaves)
         if alg == "dgd":
             return 2.0 * n_leaves
         return float(n - 1) * n_leaves     # rotation all-reduce
@@ -205,9 +243,19 @@ class ConsensusRuntime:
             x_next = _allreduce_mean_delta(x_prev, x_half)
         elif alg == "dgd":
             x_next = self._dgd_exchange(x_prev, x_half)
+        elif alg == "compressed_dgd":
+            if noise is None:
+                noise = self.make_noise(layout, step, seed,
+                                        T.tree_leaves(x_half)[0].device)
+            fn = (self._cdgd_exchange_packed
+                  if self.cfg.wire_packing == "packed"
+                  else self._cdgd_exchange_per_leaf)
+            x_next = fn(x_prev, x_half, noise, layout)
         else:
-            x_next, state, adc = self._adc_exchange(
-                x_prev, x_half, state, step, seed, noise, layout)
+            fn = (self._adc_exchange if self.cfg.wire_packing == "packed"
+                  else self._adc_exchange_per_leaf)
+            x_next, state, adc = fn(x_prev, x_half, state, step, seed, noise,
+                                    layout)
             metrics.update(adc)
         if self.cfg.track_consensus_error:
             metrics["consensus_err"] = _consensus_error(x_next)
@@ -239,12 +287,7 @@ class ConsensusRuntime:
         xt_new, m_new, comb = (torch.stack([o[j] for o in outs])
                                for j in range(3))
         del outs
-        # averages as the reference evaluates them: XLA turns the division
-        # by a constant into a product with its float32 reciprocal
-        inv_codes = float(np.float32(1.0) / np.float32(
-            layout.n_rows * self.codec.codes_per_row(layout.block)))
-        inv_elems = float(np.float32(1.0) / np.float32(
-            layout.n_rows * layout.block))
+        inv_codes, inv_elems = self._ratios(layout)
         step_k = self._step_k(step)
         if cfg.quant_mode == "fixed":
             # overflow monitoring (paper §IV-D): values beyond the grid
@@ -264,6 +307,119 @@ class ConsensusRuntime:
         return (x_next, {"x_tilde": xt_new, "m_agg": m_new},
                 {"overflow_frac": overflow, "residual_norm": residual})
 
+    def _ratios(self, layout):
+        """``(1/codes, 1/elements)`` of the packed buffer as float32
+        reciprocals: the reference's averages, which XLA evaluates as
+        products with the divisor's float32 reciprocal."""
+        inv_codes = float(np.float32(1.0) / np.float32(
+            layout.n_rows * self.codec.codes_per_row(layout.block)))
+        inv_elems = float(np.float32(1.0) / np.float32(
+            layout.n_rows * layout.block))
+        return inv_codes, inv_elems
+
+    def _adc_exchange_per_leaf(self, x_prev, x_half, state, step, seed,
+                               noise, layout):
+        """The per-leaf reference transport of :meth:`_adc_exchange` (no
+        push-sum, faults or resync, as on the packed path): per leaf and
+        node one ``quantize_blocks`` launch, the codes and scales handed to
+        both ring neighbours, and one ``dequant_combine`` launch.  Each
+        leaf is padded to its own TILE_N-aligned height; the noise is the
+        packed path's buffer sliced per leaf, so the two transports give
+        the same bits."""
+        cfg, n = self.cfg, self.n_nodes
+        step_k = self._step_k(step)
+        xt, mb = state["x_tilde"], state["m_agg"]
+        if noise is None:
+            noise = self.make_noise(layout, step, seed, xt.device)
+        clipped = torch.zeros(n, dtype=torch.float32, device=xt.device)
+        residual_sq = torch.zeros(n, dtype=torch.float32, device=xt.device)
+        new_x, xt_rows, m_rows = [], [], []
+        for i, (slot, h, p) in enumerate(zip(layout.slots,
+                                              T.tree_leaves(x_half),
+                                              T.tree_leaves(x_prev))):
+            full = kops.padded_block_rows(slot.size)
+            y = _blockify_nodes(h, full)
+            xtb = _rowpad(layout.leaf_rows(xt, i), full)
+            mbb = _rowpad(layout.leaf_rows(mb, i), full)
+            y.sub_(xtb)
+            residual_sq += (y * y).sum(dim=(1, 2))
+            u = _rowpad(layout.leaf_rows(noise, i), full)
+            sent = [kops.quantize_blocks(y[j], u[j], fixed_step=step_k)
+                    for j in range(n)]
+            del y, u
+            if cfg.quant_mode == "fixed":
+                clipped += torch.stack([
+                    (c.to(torch.int16).abs() >= 127).sum(dtype=torch.float32)
+                    for c, _ in sent])
+            outs = [kops.dequant_combine(
+                        *sent[j], *sent[_left(j, n)], *sent[_right(j, n)],
+                        xtb[j], mbb[j], cfg.self_weight, cfg.side_weight, 1.0)
+                    for j in range(n)]
+            del sent
+            comb = torch.stack([o[2] for o in outs])
+            xt_rows.append(torch.stack([o[0][:slot.n_rows] for o in outs]))
+            m_rows.append(torch.stack([o[1][:slot.n_rows] for o in outs]))
+            del outs
+            combined = comb.reshape(n, -1)[:, :slot.size].reshape(h.shape)
+            new_x.append((combined + (h.to(torch.float32)
+                                      - p.to(torch.float32))).to(h.dtype))
+        inv_codes, inv_elems = self._ratios(layout)
+        new_state = {"x_tilde": layout.from_leaf_rows(xt_rows),
+                     "m_agg": layout.from_leaf_rows(m_rows)}
+        return (T.tree_unflatten(layout.treedef, new_x), new_state,
+                {"overflow_frac": clipped * inv_codes,
+                 "residual_norm": torch.sqrt(residual_sq * inv_elems)})
+
+    def _cdgd_mix(self, x_own, sent, j):
+        """Node j's Eq. (5) mix: its own parameters uncompressed, its ring
+        neighbours' as they arrive on the int8 wire (codes times scales)."""
+        n = self.n_nodes
+        (c_l, s_l), (c_r, s_r) = sent[_left(j, n)], sent[_right(j, n)]
+        left = c_l.to(torch.float32) * s_l
+        right = c_r.to(torch.float32) * s_r
+        return (self.cfg.self_weight * x_own
+                + self.cfg.side_weight * (left + right))
+
+    def _cdgd_exchange_packed(self, x_prev, x_half, noise, layout):
+        """Direct-compression DGD (paper Eq. (5), the negative control) on
+        the packed int8 wire: one ``quantize_payload`` launch per node over
+        the packed x_prev on the undecayed grid ``fixed_step0``; no
+        combine kernel (there are no shadows)."""
+        n = self.n_nodes
+        xp = layout.pack(x_prev)
+        step0 = float(np.float32(self.cfg.fixed_step0))
+        pays = [kops.quantize_payload(xp[j], noise[j], fixed_step=step0)
+                for j in range(n)]
+        sent = [kops.unpack_payload(p, layout.block) for p in pays]
+        mixed = torch.stack([self._cdgd_mix(xp[j], sent, j)
+                             for j in range(n)])
+        return T.tree_map(
+            lambda m, h, p: (m + (h.to(torch.float32)
+                                  - p.to(torch.float32))).to(h.dtype),
+            layout.unpack(mixed, cast=False), x_half, x_prev)
+
+    def _cdgd_exchange_per_leaf(self, x_prev, x_half, noise, layout):
+        """Per-leaf reference of :meth:`_cdgd_exchange_packed`: per leaf
+        and node one ``quantize_blocks`` launch; the same bits given the
+        same noise buffer."""
+        n = self.n_nodes
+        step0 = float(np.float32(self.cfg.fixed_step0))
+        out = []
+        for i, (slot, h, p) in enumerate(zip(layout.slots,
+                                              T.tree_leaves(x_half),
+                                              T.tree_leaves(x_prev))):
+            full = kops.padded_block_rows(slot.size)
+            xb = _blockify_nodes(p, full)
+            u = _rowpad(layout.leaf_rows(noise, i), full)
+            sent = [kops.quantize_blocks(xb[j], u[j], fixed_step=step0)
+                    for j in range(n)]
+            mixed = torch.stack([self._cdgd_mix(xb[j], sent, j)
+                                 for j in range(n)])
+            mixed = mixed.reshape(n, -1)[:, :slot.size].reshape(h.shape)
+            out.append((mixed + (h.to(torch.float32)
+                                 - p.to(torch.float32))).to(h.dtype))
+        return T.tree_unflatten(layout.treedef, out)
+
     def _dgd_exchange(self, x_prev, x_half):
         """Uncompressed DGD: mix the raw fp32 parameters with both ring
         neighbours each step, then add the local optimizer delta."""
@@ -280,6 +436,22 @@ class ConsensusRuntime:
             return (mixed + (h.to(torch.float32) - p32)).to(h.dtype)
 
         return T.tree_map(mix, x_half, x_prev)
+
+
+def _blockify_nodes(leaf: torch.Tensor, rows: int) -> torch.Tensor:
+    """A stacked leaf ``(N, *shape)`` as float32 ``(N, rows, BLOCK)``
+    blocks, zero padded (a fresh tensor)."""
+    n = leaf.shape[0]
+    flat = leaf.reshape(n, -1).to(torch.float32)
+    return F.pad(flat, (0, rows * kops.BLOCK - flat.shape[1])).reshape(
+        n, rows, kops.BLOCK)
+
+
+def _rowpad(a: torch.Tensor, rows: int) -> torch.Tensor:
+    """``(N, r, BLOCK)`` rows zero padded to ``(N, rows, BLOCK)`` (a fresh
+    contiguous tensor): per-leaf buffers take the TILE_N-aligned height,
+    and zero rows quantize to code 0."""
+    return F.pad(a, (0, 0, 0, rows - a.shape[-2]))
 
 
 def _allreduce_mean_delta(x_prev, x_half):

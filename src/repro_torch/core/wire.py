@@ -160,6 +160,23 @@ class WireLayout:
         slot = self.slots[i]
         return packed[..., slot.row_start:slot.row_end, :]
 
+    def from_leaf_rows(self, rows: list) -> torch.Tensor:
+        """Reassemble a packed buffer from per-leaf row blocks, given in
+        leaf order, each ``lead + (n_rows_i, block)`` (the TILE_N-alignment
+        tail is re-zeroed)."""
+        if len(rows) != len(self.slots):
+            raise ValueError(f"{len(rows)} row blocks != {len(self.slots)}")
+        for r, slot in zip(rows, self.slots):
+            if tuple(r.shape[-2:]) != (slot.n_rows, self.block):
+                raise ValueError(f"leaf {slot.path}: rows {tuple(r.shape)} "
+                                 f"do not end in {(slot.n_rows, self.block)}")
+        rows = [rows[i] for i in self.buffer_order]
+        lead = tuple(rows[0].shape[:-2])
+        tail = self.n_rows - self.n_data_rows
+        if tail:
+            rows.append(rows[0].new_zeros(lead + (tail, self.block)))
+        return torch.cat(rows, dim=-2)
+
 
 @dataclasses.dataclass(frozen=True)
 class ChunkedLayout:

@@ -23,7 +23,8 @@ __all__ = ["SOURCES", "CSRC_DIR", "BUILD_DIR", "nvcc_command", "build",
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 SOURCES = ("quantize_payload", "dequant_combine_payload", "subbyte_encode",
-           "subbyte_combine", "topk_encode", "topk_combine")
+           "subbyte_combine", "topk_encode", "topk_combine", "quantize_blocks",
+           "dequant_combine_blocks", "gqa_decode")
 
 #: ``-fmad=false`` keeps nvcc from contracting a*b+c into FMA anywhere the
 #: kernels do not already spell each rounding with an intrinsic: the

@@ -1,17 +1,22 @@
 """Dequant-combine: the receive side of the ADC-DGD exchange.
 
-Port of ``repro.kernels.dequant_combine`` (``dequant_combine_payload_pallas``).
-One call decodes the self / left / right int8 wire payloads and applies the
-shadow update and the ring combine::
+Port of ``repro.kernels.dequant_combine``.  One call decodes the self /
+left / right int8 operands and applies the shadow update and the ring
+combine::
 
     x_tilde' = x_tilde + deamp * dec(self)
     m_agg'   = m_agg + (w_side * deamp) * (dec(left) + dec(right))
     combined = w_self * x_tilde' + m_agg'
 
-``dequant_combine_payload`` dispatches on the device of its operands: CPU
-tensors take the plain PyTorch version, CUDA tensors launch the
-hand-written kernel ``csrc/dequant_combine_payload.cu`` or raise.
-``dequant_combine_payload.launches`` counts kernel launches.
+``dequant_combine_payload`` (``dequant_combine_payload_pallas``) decodes
+three wire payloads; ``dequant_combine`` (``dequant_combine_pallas``) three
+pairs of codes and scales, as the per-leaf reference transport ships them.
+
+Both dispatch on the device of their operands: CPU tensors take the plain
+PyTorch version, CUDA tensors launch the hand-written kernel
+(``csrc/dequant_combine_payload.cu``, ``csrc/dequant_combine_blocks.cu``)
+or raise.  ``dequant_combine_payload.launches`` and
+``dequant_combine.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from . import _build, ref
 from .quantize import (BLOCK, SCALE_BYTES, _check_rows, chunk_rows,
                        chunk_view, unpack_payload)
 
-__all__ = ["dequant_combine_payload_plain", "dequant_combine_payload"]
+__all__ = ["dequant_combine_payload_plain", "dequant_combine_payload",
+           "dequant_combine_plain", "dequant_combine"]
 
 
 def dequant_combine_payload_plain(payload_self, payload_left, payload_right,
@@ -109,3 +115,63 @@ def dequant_combine_payload(payload_self, payload_left, payload_right,
 
 
 dequant_combine_payload.launches = 0
+
+
+#: plain PyTorch version of ``dequant_combine``: runs on any device
+dequant_combine_plain = ref.dequant_combine_ref
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_kernel():
+    """The C entry point of csrc/dequant_combine_blocks.cu (built at first
+    use)."""
+    fn = _build.load("dequant_combine_blocks").dequant_combine_blocks_launch
+    fn.argtypes = [ctypes.c_void_p] * 11 + [
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dequant_combine(codes_self, scale_self, codes_left, scale_left,
+                    codes_right, scale_right, x_tilde, m_agg, w_self: float,
+                    w_side: float, deamp: float):
+    """Fused decode of three (codes ``(n, BLOCK)`` int8, scales ``(n, 1)``
+    f32) pairs + shadow update + ring combine on ``(n, BLOCK)`` f32
+    shadows.  Returns (x_tilde', m_agg', combined), each ``(n, BLOCK)``
+    float32."""
+    n = x_tilde.shape[0]
+    codes = (codes_self, codes_left, codes_right)
+    scales = (scale_self, scale_left, scale_right)
+    for side, c, s in zip(("self", "left", "right"), codes, scales):
+        _check_rows(f"codes_{side}", c, BLOCK, n, n, (torch.int8,))
+        _check_rows(f"scale_{side}", s, 1, n, n, (torch.float32,))
+    for name, a in (("x_tilde", x_tilde), ("m_agg", m_agg)):
+        _check_rows(name, a, BLOCK, n, n, (torch.float32,))
+    operands = (codes_self, scale_self, codes_left, scale_left, codes_right,
+                scale_right, x_tilde, m_agg)
+    if all(a.device.type == "cpu" for a in operands):
+        return dequant_combine_plain(*operands, w_self, w_side, deamp)
+    dev = x_tilde.device
+    if dev.type != "cuda" or any(a.device != dev for a in operands):
+        raise ValueError("dequant_combine: operands on "
+                         f"{sorted({str(a.device) for a in operands})}; all "
+                         "must be on one CUDA device (or all on the CPU)")
+    if not all(a.is_contiguous() for a in operands):
+        raise ValueError("dequant_combine: CUDA operands must be contiguous")
+    outs = tuple(torch.empty((n, BLOCK), dtype=torch.float32, device=dev)
+                 for _ in range(3))
+    err = _blocks_kernel()(
+        *(a.data_ptr() for a in operands), *(o.data_ptr() for o in outs), n,
+        float(np.float32(w_self)),
+        float(np.float32(w_side) * np.float32(deamp)),
+        float(np.float32(deamp)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    dequant_combine.launches += 1
+    if err != 0:
+        raise RuntimeError(f"dequant_combine kernel launch failed: CUDA "
+                           f"error {err}")
+    return outs
+
+
+dequant_combine.launches = 0

@@ -1,7 +1,9 @@
-"""Layout helpers and device-dispatching entry points of the wire codecs.
+"""Layout helpers and device-dispatching entry points of the kernels.
 
-Port of ``repro.kernels.ops`` for the packed exchange: the int8 payload
-and the sub-byte (int4/int2) and top-k payloads of ``kernels.bitpack``.
+Port of ``repro.kernels.ops``: the int8 payload and the sub-byte
+(int4/int2) and top-k payloads of ``kernels.bitpack`` for the packed
+exchange, the separate int8 codes and scales of the per-leaf reference
+transport, and the flash-decode partials of serving.
 Dispatch is by device, not by flag: a CPU tensor takes the plain PyTorch
 version and a CUDA tensor launches the hand-written kernel (or raises).
 Unlike the TPU grid, the CUDA kernels take any row range, so there is no
@@ -16,15 +18,17 @@ import torch.nn.functional as F
 
 from .bitpack import (subbyte_decode_combine, subbyte_encode_payload,
                       topk_decode_combine, topk_encode_payload)
-from .dequant_combine import dequant_combine_payload
+from .dequant_combine import dequant_combine, dequant_combine_payload
+from .gqa_decode import gqa_decode
 from .quantize import (BLOCK, SCALE_BYTES, TILE_N, pack_payload,
-                       quantize_payload, unpack_payload)
+                       quantize_blocks, quantize_payload, unpack_payload)
 
 __all__ = ["BLOCK", "TILE_N", "SCALE_BYTES", "padded_block_rows", "blockify",
            "unblockify", "payload_width", "pack_payload", "unpack_payload",
            "quantize_payload", "dequant_combine_payload",
            "subbyte_encode_payload", "subbyte_decode_combine",
-           "topk_encode_payload", "topk_decode_combine"]
+           "topk_encode_payload", "topk_decode_combine", "quantize_blocks",
+           "dequant_combine", "gqa_decode"]
 
 
 def padded_block_rows(n_elements: int, block: int = BLOCK,

@@ -1,14 +1,18 @@
-"""Quantize-to-wire: the int8 payload encoder of the ADC-DGD exchange.
+"""Quantize-to-wire: the int8 encoders of the ADC-DGD exchange.
 
-Port of ``repro.kernels.quantize`` (``quantize_payload_pallas``).  One call
-turns ``(n, BLOCK)`` float32/bf16 rows into the ``(n, BLOCK + 4)`` uint8
-wire payload: 512 int8 codes followed by the row's fp32 scale, least
-significant byte first.
+Port of ``repro.kernels.quantize``.  ``quantize_payload``
+(``quantize_payload_pallas``) turns ``(n, BLOCK)`` float32/bf16 rows into
+the ``(n, BLOCK + 4)`` uint8 wire payload: 512 int8 codes followed by the
+row's fp32 scale, least significant byte first.  ``quantize_blocks``
+(``quantize_blocks_pallas``) computes the same codes and scales as two
+tensors, ``(n, BLOCK)`` int8 and ``(n, 1)`` float32: the per-leaf reference
+transport and ``compressed_dgd`` ship them that way.
 
-``quantize_payload`` dispatches on the device of its input: a CPU tensor
-takes the plain PyTorch version (``quantize_payload_plain``), a CUDA tensor
-launches the hand-written kernel ``csrc/quantize_payload.cu`` or raises.
-``quantize_payload.launches`` counts kernel launches.
+Both dispatch on the device of their input: a CPU tensor takes the plain
+PyTorch version, a CUDA tensor launches the hand-written kernel
+(``csrc/quantize_payload.cu``, ``csrc/quantize_blocks.cu``) or raises.
+``quantize_payload.launches`` and ``quantize_blocks.launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from . import _build, ref
 
 __all__ = ["BLOCK", "TILE_N", "SCALE_BYTES", "pack_payload",
            "unpack_payload", "chunk_view", "chunk_rows",
-           "quantize_payload_plain", "quantize_payload"]
+           "quantize_payload_plain", "quantize_payload",
+           "quantize_blocks_plain", "quantize_blocks"]
 
 TILE_N = 32      # row multiple of every packed buffer's height
 BLOCK = 512      # quantization block = payload row width in codes
@@ -147,3 +152,53 @@ def quantize_payload(y: torch.Tensor, noise: torch.Tensor,
 
 
 quantize_payload.launches = 0
+
+
+#: plain PyTorch version of ``quantize_blocks``: runs on any device
+quantize_blocks_plain = ref.quantize_blocks_ref
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_kernel():
+    """The C entry point of csrc/quantize_blocks.cu (built at first use)."""
+    fn = _build.load("quantize_blocks").quantize_blocks_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def quantize_blocks(y: torch.Tensor, noise: torch.Tensor,
+                    fixed_step: float | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stochastic int8 quantization of ``(n, BLOCK)`` f32/bf16 rows with
+    ``(n, BLOCK)`` f32 uniform noise -> (codes int8 ``(n, BLOCK)``, scales
+    f32 ``(n, 1)``).  ``fixed_step`` (a float) is every row's scale;
+    ``None`` picks the adaptive per-row scale."""
+    n = y.shape[0]
+    _check_rows("y", y, BLOCK, n, n, (torch.float32, torch.bfloat16))
+    _check_rows("noise", noise, BLOCK, n, n, (torch.float32,))
+    if y.device.type == "cpu" and noise.device.type == "cpu":
+        return quantize_blocks_plain(y, noise, fixed_step=fixed_step)
+    if y.device.type != "cuda" or noise.device != y.device:
+        raise ValueError(f"quantize_blocks: y on {y.device}, noise on "
+                         f"{noise.device}; both must be on one CUDA device "
+                         "(or both on the CPU)")
+    if not (y.is_contiguous() and noise.is_contiguous()):
+        raise ValueError("quantize_blocks: CUDA operands must be contiguous")
+    codes = torch.empty((n, BLOCK), dtype=torch.int8, device=y.device)
+    scales = torch.empty((n, 1), dtype=torch.float32, device=y.device)
+    step = 0.0 if fixed_step is None else float(np.float32(fixed_step))
+    err = _blocks_kernel()(
+        y.data_ptr(), int(y.dtype == torch.bfloat16), noise.data_ptr(),
+        codes.data_ptr(), scales.data_ptr(), n, int(fixed_step is not None),
+        step, torch.cuda.current_stream(y.device).cuda_stream)
+    quantize_blocks.launches += 1
+    if err != 0:
+        raise RuntimeError(f"quantize_blocks kernel launch failed: CUDA "
+                           f"error {err}")
+    return codes, scales
+
+
+quantize_blocks.launches = 0

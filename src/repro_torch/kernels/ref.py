@@ -1,17 +1,23 @@
-"""Plain PyTorch versions of the int8 wire kernels (the parity oracles).
+"""Plain PyTorch versions of the int8 wire kernels and of the flash-decode
+kernel (the parity oracles).
 
-Counterparts of ``repro.kernels.ref``.  Every arithmetic step is one
-correctly-rounded float32 operation in the reference's order, so on any
-device these give the same bits as the CUDA kernels (which spell the same
-operations with ``__fdiv_rn``/``__fmul_rn``/``__fadd_rn``).
+Counterparts of ``repro.kernels.ref``.  In the wire oracles every
+arithmetic step is one correctly-rounded float32 operation in the
+reference's order, so on any device they give the same bits as the CUDA
+kernels (which spell the same operations with
+``__fdiv_rn``/``__fmul_rn``/``__fadd_rn``).  ``gqa_decode_ref`` is the
+reference's arithmetic in one pass over the cache; the CUDA kernel sums in
+another order and agrees to float32 rounding.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 __all__ = ["quantize_blocks_ref", "dequant_combine_ref", "combine_core",
-           "INV_127"]
+           "gqa_decode_ref", "INV_127"]
 
 #: float32(1/127), the adaptive-scale multiplier.  The reference multiplies
 #: by this reciprocal rather than dividing by 127; its bit pattern is
@@ -73,3 +79,27 @@ def dequant_combine_ref(codes_self, scale_self, codes_left, scale_left,
                         codes_left.to(torch.float32) * scale_left,
                         codes_right.to(torch.float32) * scale_right,
                         x_tilde, m_agg, w_self, w_side, deamp)
+
+
+def gqa_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   valid: torch.Tensor, softcap: float | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token GQA flash-decode partials over a cache shard.
+
+    q: (b, kvh, g, hd); k/v: (b, S, kvh, hd); valid: (S,) bool.  Returns
+    (m, l, acc) — (b, kvh, g), (b, kvh, g), (b, kvh, g, hd), float32 — for
+    a log-sum-exp combine: masked scores are -1e30 and their ``p`` is 0,
+    so a row with no valid position gives l = 0 and acc = 0."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bhgd,bkhd->bhgk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = valid[None, None, None, :]
+    s = torch.where(mask, s, torch.full_like(s, -1e30))   # not -inf
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    p = torch.where(mask, p, torch.zeros_like(p))
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bhgk,bkhd->bhgd", p, v.to(torch.float32))
+    return m, l, acc

@@ -1,0 +1,187 @@
+"""Serving: prefill a batch of prompts, then greedy decode token by token.
+
+Counterpart of ``repro.launch.serve`` on one device: no mesh, no FSDP, and
+no consensus nodes (serving uses one consensus-complete replica of the
+parameters, as in the reference).
+
+``build_prefill_setup`` carries ``prefill_step(params, batch, capacity)
+-> (first_ids, cache)``: the full-sequence forward over the prompts, whose
+last position gives the first generated token, and whose K and V are
+written into a decode cache of ``capacity`` positions.
+``build_serve_setup`` carries ``serve_step(state) -> state`` with ``state
+= {params, cache, tokens}``: one greedy decode step of every sequence
+(``transformer.greedy_decode_step``), through the flash-decode kernel
+(``kernels.gqa_decode``), with the next token in ``tokens``.
+
+CLI (runs on ``cuda`` unless ``--device cpu``; weights are random from
+``--seed`` and prompts are token ids drawn from it)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+        --batch 32 --prompt-len 1984 --new-tokens 64
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import transformer as TF
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import sharded_greedy_sample
+
+__all__ = ["PrefillSetup", "ServeSetup", "build_prefill_setup",
+           "build_serve_setup", "main"]
+
+
+@dataclasses.dataclass
+class PrefillSetup:
+    cfg: ModelConfig
+    defs: TF.ModelDefs
+    device: torch.device
+    prefill_step: Any
+
+
+@dataclasses.dataclass
+class ServeSetup:
+    cfg: ModelConfig
+    defs: TF.ModelDefs
+    device: torch.device
+    serve_step: Any
+
+
+def build_prefill_setup(cfg: ModelConfig, device=None) -> PrefillSetup:
+    """Prefill on ``device`` (``cuda`` unless ``device="cpu"``)."""
+    dev = resolve_device(device)
+    defs = TF.build_defs(cfg)
+
+    @torch.inference_mode()
+    def prefill_step(params, batch, capacity=None):
+        """The cache holds ``capacity`` positions (the prompt's length
+        when None)."""
+        tokens = batch["tokens"]
+        cache = TF.init_cache(cfg, tokens.shape[0],
+                              capacity or tokens.shape[1],
+                              device=tokens.device)
+        logits, cache = TF.model_apply(params, defs, batch, mode="prefill",
+                                       cache=cache)
+        return sharded_greedy_sample(logits[:, -1:, :]), cache
+
+    return PrefillSetup(cfg=cfg, defs=defs, device=dev,
+                        prefill_step=prefill_step)
+
+
+def build_serve_setup(cfg: ModelConfig, *, device=None,
+                      keep_logits: int = 0) -> ServeSetup:
+    """Decode on ``device`` (``cuda`` unless ``device="cpu"``) against the
+    state's cache, whose capacity bounds the positions.  With
+    ``keep_logits`` > 0 each step also leaves the logits of the first
+    ``keep_logits`` sequences in ``state["logits"]`` (for checks against a
+    full forward)."""
+    dev = resolve_device(device)
+    defs = TF.build_defs(cfg)
+
+    @torch.inference_mode()
+    def serve_step(state):
+        ids, cache, logits = TF.greedy_decode_step(
+            state["params"], defs, state["tokens"], state["cache"])
+        out = {"params": state["params"], "cache": cache, "tokens": ids}
+        if keep_logits:
+            out["logits"] = logits[:keep_logits]
+        return out
+
+    return ServeSetup(cfg=cfg, defs=defs, device=dev, serve_step=serve_step)
+
+
+def main(argv=None) -> dict:
+    """Command-line entry point: prefill ``--batch`` random prompts of
+    ``--prompt-len`` tokens, then decode until each sequence has
+    ``--new-tokens`` new tokens.  Returns the prompts and generated tokens
+    (numpy), the prefill and per-token decode seconds, the peak device
+    memory (GB, on the card) and, with ``--keep-logits K``, the logits of
+    the first K sequences at each decode step ``(K, new_tokens - 1, V)``:
+    step t fed new token t - 1 and predicted new token t."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.params import init_params
+
+    ap = argparse.ArgumentParser(description="batched greedy serving "
+                                 "(PyTorch port, one device)")
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--reduced", action="store_true", help="smoke-size model")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and the prompts")
+    ap.add_argument("--keep-logits", type=int, default=0,
+                    help="return the logits of the first K sequences")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.new_tokens < 1:
+        raise SystemExit("--new-tokens must be at least 1")
+    # float32 products in full float32, never TF32 (as the trainer)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    capacity = args.prompt_len + args.new_tokens
+    pre = build_prefill_setup(cfg, device=args.device)
+    dev = pre.device
+    keep = min(args.keep_logits, args.batch)
+    serve = build_serve_setup(cfg, device=dev, keep_logits=keep)
+    params = init_params(pre.defs.storage, args.seed, dev)
+    prompts = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
+    print(f"arch={cfg.arch_id} device={dev} batch={args.batch} "
+          f"prompt={args.prompt_len} +{args.new_tokens} tokens "
+          f"(capacity {capacity})", flush=True)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync()
+    t0 = time.perf_counter()
+    first_ids, cache = pre.prefill_step(
+        params, {"tokens": torch.as_tensor(prompts, device=dev)}, capacity)
+    sync()
+    prefill_s = time.perf_counter() - t0
+    logits = []
+    state = {"params": params, "cache": cache, "tokens": first_ids}
+    out = [first_ids]
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(args.new_tokens - 1):
+        state = serve.serve_step(state)
+        out.append(state["tokens"])
+        if keep:
+            logits.append(state["logits"])
+    sync()
+    steps = args.new_tokens - 1
+    decode_s = (time.perf_counter() - t0) / max(steps, 1)
+    gen = torch.cat(out, dim=1).cpu().numpy()
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else None)
+    print(f"prefill: {prefill_s:.4f} s; decode: {steps} steps, "
+          f"{decode_s * 1e3:.3f} ms/token for the batch"
+          + (f"; peak memory {peak:.2f} GB" if peak is not None else ""))
+    for b in range(min(args.batch, 4)):
+        print(f"  seq {b}: {gen[b].tolist()}")
+    result = {"prompts": prompts, "tokens": gen, "prefill_s": prefill_s,
+              "decode_s_per_token": decode_s, "peak_gb": peak,
+              "cache_len": state["cache"]["len"]}
+    if keep:
+        result["logits"] = (torch.stack(logits, dim=1).cpu().numpy()
+                            if logits else np.zeros((keep, 0, cfg.vocab_size),
+                                                    np.float32))
+    return result
+
+
+if __name__ == "__main__":
+    main()

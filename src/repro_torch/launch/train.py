@@ -11,6 +11,10 @@ Counterpart of ``repro.launch.train``.  One training step k does, for the
 The reference runs each node on its own device inside ``shard_map``; a
 ring over several cards is a later slice.
 
+``--algorithm compressed_dgd`` runs the paper's Eq. (5) negative control
+instead of ADC-DGD, and ``--wire-packing per_leaf`` the per-leaf reference
+transport of the int8 wire instead of the packed one.
+
 The wire codec is ``--wire-codec int8|int4|int2|topk|topk:k=<int>``, or
 ``adaptive``: then an ``AdaptiveBitController`` re-selects it every
 ``--codec-period`` steps from the epoch's mean residual, overflow and
@@ -69,7 +73,8 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                       total_steps: int = 1000,
                       track_consensus_error: bool = False,
                       wire_codec: str = "int8",
-                      byte_budget: float | None = None, seed: int = 0,
+                      byte_budget: float | None = None,
+                      wire_packing: str = "packed", seed: int = 0,
                       device=None) -> TrainSetup:
     """Everything static about a run.  ``device`` defaults to ``cuda``
     (raising when there is none); pass ``device="cpu"`` for the plain
@@ -78,7 +83,8 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
     ccfg = ConsensusConfig(algorithm=algorithm, gamma=gamma,
                            quant_mode=quant_mode, fixed_step0=fixed_step0,
                            track_consensus_error=track_consensus_error,
-                           wire_codec=wire_codec, byte_budget=byte_budget)
+                           wire_codec=wire_codec, byte_budget=byte_budget,
+                           wire_packing=wire_packing)
     if schedule == "constant":
         sched = constant_schedule(lr)
     elif schedule == "inverse_power":
@@ -173,8 +179,9 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
              "step": k}, metrics)
 
 
-def main(argv=None) -> list[dict]:
-    """CLI driver; returns the per-step metrics."""
+def main(argv=None, *, return_state: bool = False):
+    """Command-line entry point; returns the per-step metrics (and the
+    final train state when ``return_state``)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.data import SyntheticLMDataset
 
@@ -183,7 +190,8 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--reduced", action="store_true", help="smoke-size model")
     ap.add_argument("--algorithm", default="adc_dgd",
-                    choices=["adc_dgd", "dgd", "allreduce", "none"])
+                    choices=["adc_dgd", "dgd", "compressed_dgd", "allreduce",
+                             "none"])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--nodes", type=int, default=1)
     ap.add_argument("--batch", type=int, default=8,
@@ -193,6 +201,11 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--gamma", type=float, default=1.0)
     ap.add_argument("--quant-mode", default="fixed",
                     choices=["fixed", "adaptive"])
+    ap.add_argument("--wire-packing", default="packed",
+                    choices=["packed", "per_leaf"],
+                    help="consensus wire transport: one payload for the "
+                         "whole tree, or the per-leaf reference transport "
+                         "(int8 codes and scales per leaf; the same bits)")
     ap.add_argument("--wire-codec", default="int8",
                     help="payload codec of the exchange: int8 | int4 | int2 "
                          "| topk | topk:k=<int> | adaptive; 'adaptive' hands "
@@ -223,8 +236,10 @@ def main(argv=None) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     adaptive = args.wire_codec == "adaptive"
-    if adaptive and args.algorithm != "adc_dgd":
-        raise SystemExit("--wire-codec adaptive requires adc_dgd")
+    if adaptive and (args.algorithm != "adc_dgd"
+                     or args.wire_packing != "packed"):
+        raise SystemExit("--wire-codec adaptive requires adc_dgd on the "
+                         "packed wire")
     ladder = (tuple(s.strip() for s in args.codec_ladder.split(",")
                     if s.strip())
               if args.codec_ladder else wcodec.AdaptiveBitController.ladder)
@@ -244,7 +259,7 @@ def main(argv=None) -> list[dict]:
         total_steps=args.steps, seed=args.seed, device=args.device,
         track_consensus_error=(args.algorithm != "allreduce"),
         wire_codec="int8" if adaptive else args.wire_codec,
-        byte_budget=args.byte_budget)
+        byte_budget=args.byte_budget, wire_packing=args.wire_packing)
     state = init_train_state(setup, args.seed)
     controller = None
     if adaptive:
@@ -298,7 +313,7 @@ def main(argv=None) -> list[dict]:
                 codec_name, setup = new, with_codec(setup, new)
             ep_res, ep_ovf, ep_ce = [], [], []
     print(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
-    return history
+    return (history, state) if return_state else history
 
 
 if __name__ == "__main__":

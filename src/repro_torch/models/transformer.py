@@ -1,17 +1,23 @@
-"""Model assembly: parameter declarations, forward pass and training loss.
+"""Model assembly: parameter declarations, forward pass, training loss and
+the decode cache.
 
 Counterpart of ``repro.models.transformer`` for dense attention models
-(period of 'A' blocks) in train mode on one device.  The parameter tree
-has the reference's structure and names — ``embed/table``, ``final_norm``
-and ``layers[0]/{attn,mlp,norm1,norm2}`` whose leaves stack all
-``n_periods`` layers on a leading axis — so the wire layout and the weight
-carry line up leaf for leaf.  The reference scans the stacked layers with
-``lax.scan`` under remat; here a Python loop indexes them, and autograd
-keeps the activations (one node's fit on the card).
+(period of 'A' blocks) on one device, in train, prefill and decode mode.
+The parameter tree has the reference's structure and names —
+``embed/table``, ``final_norm`` and ``layers[0]/{attn,mlp,norm1,norm2}``
+whose leaves stack all ``n_periods`` layers on a leading axis — so the
+wire layout and the weight carry line up leaf for leaf.  The reference
+scans the stacked layers with ``lax.scan`` under remat; here a Python loop
+indexes them, and autograd keeps the activations (one node's fit on the
+card).
 
-``model_apply``/``train_loss`` are functions of a parameter tree;
-:class:`Transformer` is the ``nn.Module`` that owns such a tree as
-parameters.
+``model_apply``/``train_loss``/``greedy_decode_step`` are functions of a
+parameter tree; :class:`Transformer` is the ``nn.Module`` that owns such a
+tree as parameters.  The decode cache has the reference's structure,
+``{"layers": ({"attn": {"k", "v"}},), "len"}`` with K and V stacked over
+the layers, ``(n_periods, b, S, kvh, hd)``; ``len`` (the number of cached
+positions) is a Python int, and a decode step writes its K and V into the
+cache in place.
 """
 from __future__ import annotations
 
@@ -27,10 +33,11 @@ from repro_torch.models.layers import (attention_defs, attention_forward,
                                        embed_defs, embed_lookup,
                                        logits_local, mlp_defs, mlp_forward,
                                        norm_def, rms_norm,
+                                       sharded_greedy_sample,
                                        sharded_softmax_xent)
 
-__all__ = ["ModelDefs", "build_defs", "model_apply", "train_loss",
-           "Transformer"]
+__all__ = ["ModelDefs", "build_defs", "init_cache", "model_apply",
+           "train_loss", "greedy_decode_step", "Transformer"]
 
 
 #: configuration features the reference supports and the port does not yet:
@@ -75,26 +82,84 @@ def build_defs(cfg: ModelConfig) -> ModelDefs:
     return ModelDefs(cfg=cfg, storage=storage)
 
 
-def model_apply(params: Any, defs: ModelDefs, batch: dict) -> torch.Tensor:
-    """Train-mode forward: tokens ``(b, s)`` -> float32 logits
-    ``(b, s, V)``."""
+def init_cache(cfg: ModelConfig, b: int, capacity: int,
+               dtype=torch.float32, device=None) -> dict:
+    """Zeroed decode cache for ``b`` sequences of up to ``capacity``
+    positions (before prefill)."""
+    shape = (cfg.n_periods, b, capacity, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {"layers": ({"attn": {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}},),
+            "len": 0}
+
+
+def model_apply(params: Any, defs: ModelDefs, batch: dict, *,
+                mode: str = "train", cache: dict | None = None):
+    """Forward of tokens ``(b, s)``.  Returns (float32 logits ``(b, s,
+    V)``, cache):
+
+    * ``train``: the causal forward; the cache is None;
+    * ``prefill``: the same, and the prompt's K and V written at positions
+      ``[0, s)`` of ``cache`` (a new one of ``s`` positions when None);
+      the cache comes back with ``len = s``;
+    * ``decode``: ``s`` = 1 token at position ``cache["len"]``, written
+      into ``cache`` in place; the cache comes back with ``len + 1``.
+    """
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got "
+                         f"{mode!r}")
     cfg = defs.cfg
-    x = embed_lookup(params["embed"], batch["tokens"])
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    pos = 0
+    if mode == "decode":
+        if cache is None:
+            raise ValueError("decode requires a cache")
+        pos = cache["len"]
+    if mode == "prefill" and cache is None:
+        cache = init_cache(cfg, b, s, device=tokens.device)
+    if cache is not None:
+        kv = cache["layers"][0]["attn"]
+        if mode == "prefill" and s > kv["k"].shape[2]:
+            raise ValueError(f"prompt of {s} tokens exceeds the cache of "
+                             f"{kv['k'].shape[2]} positions")
+    x = embed_lookup(params["embed"], tokens)
     for layer in range(cfg.n_periods):
         p = T.tree_map(lambda a: a[layer], params["layers"][0])
-        x = x + attention_forward(p["attn"],
-                                  rms_norm(x, p["norm1"], cfg.norm_eps), cfg)
+        c = ({"k": kv["k"][layer], "v": kv["v"][layer]}
+             if mode == "decode" else None)
+        a, c = attention_forward(p["attn"],
+                                 rms_norm(x, p["norm1"], cfg.norm_eps), cfg,
+                                 mode=mode, cache=c, pos=pos)
+        x = x + a
         x = x + mlp_forward(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps))
+        if mode == "prefill":
+            kv["k"][layer, :, :s] = c["k"]
+            kv["v"][layer, :, :s] = c["v"]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_local(params["embed"], x)
+    logits = logits_local(params["embed"], x)
+    if mode == "train":
+        return logits, None
+    return logits, {"layers": cache["layers"], "len": pos + s}
 
 
 def train_loss(params: Any, defs: ModelDefs, batch: dict):
     """(loss, {"ce": ..., "aux": ...}); dense blocks have no auxiliary
     loss, so loss == ce."""
-    loss = sharded_softmax_xent(model_apply(params, defs, batch),
-                                batch["labels"])
+    logits, _ = model_apply(params, defs, batch)
+    loss = sharded_softmax_xent(logits, batch["labels"])
     return loss, {"ce": loss, "aux": torch.zeros((), device=loss.device)}
+
+
+def greedy_decode_step(params: Any, defs: ModelDefs, tokens: torch.Tensor,
+                       cache: dict):
+    """One serving step: tokens ``(b, 1)`` -> (greedy next ids ``(b, 1)``
+    int32, the cache advanced by one position, the step's logits ``(b,
+    V)``).  The reference returns the first two."""
+    logits, cache = model_apply(params, defs, {"tokens": tokens},
+                                mode="decode", cache=cache)
+    return sharded_greedy_sample(logits[:, -1:, :]), cache, logits[:, -1]
 
 
 class _Tree(nn.Module):

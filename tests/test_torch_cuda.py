@@ -6,9 +6,12 @@ where only PyTorch is installed::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Encoded payloads (int8, int4, int2 and top-k) must be byte-equal; the
-combines within 1 ulp (they are bitwise equal on an H100: both sides round
-every product and sum).
+Encoded payloads (int8, int4, int2 and top-k) and the per-leaf codes and
+scales must be byte-equal; the combines within 1 ulp (they are bitwise
+equal on an H100: both sides round every product and sum); the
+flash-decode partials within the float32 tolerances of the CPU test
+(``test_torch_serve.py``) on the invariants ``acc / l`` and ``m + log l``,
+for bf16 inputs too (both sides widen them exactly to float32).
 """
 import numpy as np
 import pytest
@@ -18,8 +21,9 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.kernels import bitpack as BP
 from repro_torch.kernels import dequant_combine as D
+from repro_torch.kernels import gqa_decode as G
 from repro_torch.kernels import quantize as Q
-from repro_torch.launch import train
+from repro_torch.launch import serve, train
 
 BLOCK = 512
 
@@ -165,3 +169,107 @@ def test_cuda_train_step_launches_codec_kernels(cuda_device, codec):
     assert (enc.launches - before[0], comb.launches - before[1],
             Q.quantize_payload.launches - before[2]) == (4, 4, 0)
     assert np.isfinite(metrics["loss"]) and metrics["codec"] == codec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("step", [None, 1e-3])
+def test_cuda_quantize_blocks_kernel_matches_plain(cuda_device, dtype, step):
+    y, u = _codec_inputs(cuda_device, 6, BLOCK)
+    y = y.to(dtype)
+    before = Q.quantize_blocks.launches
+    codes, scales = Q.quantize_blocks(y, u, step)
+    want_c, want_s = Q.quantize_blocks_plain(y, u, step)
+    assert Q.quantize_blocks.launches == before + 1
+    assert torch.equal(codes, want_c)
+    assert torch.equal(scales.view(torch.int32), want_s.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deamp", [1.0, 0.37])
+def test_cuda_dequant_combine_kernel_matches_plain(cuda_device, deamp):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    rows = 4099
+    u = torch.rand((rows, BLOCK), generator=g, device=cuda_device)
+    sides = []
+    for i in range(3):
+        sides += Q.quantize_blocks(torch.randn(
+            (rows, BLOCK), generator=g, device=cuda_device) * (i + 1), u)
+    xt = torch.randn((rows, BLOCK), generator=g, device=cuda_device)
+    m = torch.randn((rows, BLOCK), generator=g, device=cuda_device)
+    before = D.dequant_combine.launches
+    got = D.dequant_combine(*sides, xt, m, 0.5, 0.25, deamp)
+    want = D.dequant_combine_plain(*sides, xt, m, 0.5, 0.25, deamp)
+    assert D.dequant_combine.launches == before + 1
+    for a, b in zip(got, want):
+        np.testing.assert_array_max_ulp(a.cpu().numpy(), b.cpu().numpy(),
+                                        maxulp=1)
+
+
+def _decode_invariants(m, l, acc):
+    l = torch.clamp_min(l, 1e-30)
+    return acc / l[..., None], m + torch.log(l)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kvh,g,hd,S,cap", [
+    (2, 2, 4, 128, 1024, None), (1, 4, 1, 64, 512, 30.0),
+    (2, 1, 7, 128, 2048, None), (1, 8, 2, 128, 512, None),
+    (32, 3, 3, 64, 2048, None), (3, 3, 3, 64, 700, 30.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gqa_decode_kernel_matches_plain(cuda_device, b, kvh, g, hd, S,
+                                              cap, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(S + g)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(dtype) for shape in ((b, kvh, g, hd), (b, S, kvh, hd),
+                                        (b, S, kvh, hd)))
+    for valid in (torch.arange(S, device=cuda_device) < S - 37,
+                  torch.arange(S, device=cuda_device) < 100,
+                  torch.zeros(S, dtype=torch.bool, device=cuda_device)):
+        before = G.gqa_decode.launches
+        got = G.gqa_decode(q, k, v, valid, softcap=cap)
+        want = G.gqa_decode_plain(q, k, v, valid, softcap=cap)
+        assert G.gqa_decode.launches == before + 1
+        # both sides widen bf16 exactly and sum in float32: they differ
+        # only in the order of summation, whatever the input type
+        tol, lse_tol = 1e-5, 5e-5
+        (o, lse), (wo, wlse) = (_decode_invariants(*got),
+                                _decode_invariants(*want))
+        torch.testing.assert_close(o, wo, atol=tol, rtol=tol)
+        torch.testing.assert_close(lse, wlse, atol=lse_tol, rtol=0)
+        if not valid.any():
+            assert torch.all(got[1] == 0) and torch.all(got[2] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["adc_dgd", "compressed_dgd"])
+def test_cuda_per_leaf_train_step_launches_block_kernels(cuda_device,
+                                                         algorithm):
+    cfg = reduced(get_config("smollm-135m"))
+    setup = train.build_train_setup(cfg, consensus_nodes=4,
+                                    algorithm=algorithm,
+                                    wire_packing="per_leaf",
+                                    device=cuda_device)
+    state = train.init_train_state(setup, 0)
+    batch = SyntheticLMDataset(cfg.vocab_size, 64, 8,
+                               n_shards=4).global_batch_arrays(0)
+    before = (Q.quantize_blocks.launches, D.dequant_combine.launches,
+              Q.quantize_payload.launches)
+    state, metrics = train.train_step(setup, state, batch)
+    torch.cuda.synchronize()
+    n_leaves = 11
+    want = (4 * n_leaves, 4 * n_leaves if algorithm == "adc_dgd" else 0, 0)
+    assert (Q.quantize_blocks.launches - before[0],
+            D.dequant_combine.launches - before[1],
+            Q.quantize_payload.launches - before[2]) == want
+    assert np.isfinite(metrics["loss"])
+
+
+@pytest.mark.cuda
+def test_cuda_serve_decode_launches_kernel_per_layer(cuda_device):
+    before = G.gqa_decode.launches
+    r = serve.main(["--reduced", "--batch", "2", "--prompt-len", "16",
+                    "--new-tokens", "5"])
+    cfg = reduced(get_config("smollm-135m"))
+    assert G.gqa_decode.launches - before == cfg.n_periods * 4
+    assert r["tokens"].shape == (2, 5)
