@@ -19,7 +19,7 @@ Phases (any failure exits non-zero before the result line):
              partials within the CPU test's float32 tolerances at the
              serve shape and at decode_32k's, for float32 and bf16 inputs
              alike, with and without a softcap, on masks with a ragged
-             frontier and masked tiles;
+             frontier, masked tiles and random holes;
 3. main    — ``repro_torch.launch.train.main`` on the full smollm-135m, 4
              ADC-DGD nodes (fixed grid), each run with every launch counter
              zeroed just before it: 5 steps of the int8 wire, then 3 steps
@@ -42,7 +42,10 @@ Phases (any failure exits non-zero before the result line):
              a 3.0 GB float32 KV cache): the flash-decode kernel launched
              30 x 63 times and no other kernel, every token in range, and
              for 2 sequences the decode logits within SERVE_LOGIT_TOL of a
-             train-mode forward over the generated sequence;
+             train-mode forward over the generated sequence; then
+             ``torch.profiler`` (CPU and CUDA) over steady decode steps of
+             the same batch: the top kernels by device time, the flash-
+             decode kernel's share of the step and the device's idle share;
 5. parity  — reduced smollm-135m, 2 steps on the card and on the CPU from
              the same weights and quantization noise, for the int8, int4
              and top-k wires, the per-leaf transport and compressed_dgd
@@ -53,16 +56,19 @@ Phases (any failure exits non-zero before the result line):
              8 new tokens) on the card and on the CPU from the same
              weights: the same tokens, or a flip at a near tie whose
              logits agree within SERVE_LOGIT_TOL;
-6. timing  — each kernel and its plain version, median of 25 launches
-             timed with CUDA events, beside the least time the card needs
-             for the bytes and operations (H100 SXM data sheet rates), and
-             for the flash-decode kernel the library call
-             ``scaled_dot_product_attention`` on the same inputs (each
-             layout and backend it takes them in, the fastest reported),
-             at the serve shape and at decode_32k's (b = 128, S = 32,768);
-             the
-             step time of each codec, the exchange time of each codec and
-             the peak memory.
+6. timing  — each kernel and its plain version (``time_calls``: a run of
+             back-to-back launches between two CUDA events, queued behind a
+             spin kernel so that no host gap lies between them, over the
+             count; each wrapper's host time per call on its own line),
+             beside the least time the card needs for the bytes and
+             operations (H100 SXM data sheet rates); for the flash-decode
+             kernel, at the serve shape (over 4 operand sets in turn, so
+             K and V are cold in L2) and at decode_32k's (b = 128, S =
+             32,768), the library call ``scaled_dot_product_attention`` on
+             the same inputs (each layout and backend it takes them in, the
+             fastest reported) and a sweep of the ranges per row; the step
+             time of each codec, the exchange time of each codec and the
+             peak memory.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Needs one card; exits non-zero with no result without one, or
@@ -91,6 +97,9 @@ BLOCK, PAYLOAD = 512, 516
 NODES, STEPS = 4, 5
 CODEC_STEPS, ADAPTIVE_STEPS = 3, 6
 TIMING_REPS = 25
+#: spin-kernel cycles per second: above the H100's highest SM clock
+#: (1.98 GHz), so a spin lasts at least the seconds asked for
+SPIN_CYCLES_PER_S = 2.0e9
 
 #: bytes one node puts on the ring per step at the main path's 262,752
 #: payload rows: 2 x rows x payload width (516, 258, 130 and 130 bytes)
@@ -145,21 +154,62 @@ def ulp_diff(a, b) -> int:
     return int((ia - ib).abs().max())
 
 
-def time_ms(fn, reps: int = TIMING_REPS) -> float:
-    """Median device time of one call, CUDA events around each call."""
+def time_calls(fn, reps: int = TIMING_REPS) -> tuple[float, float, bool]:
+    """(device ms, host ms, gapless) per call of ``fn``, or of a list of
+    callables taken in turn (distinct operands, so that each call finds
+    them cold in the 50 MB L2).  After a warm-up call of each, ``reps``
+    back-to-back calls sit between two CUDA events, queued behind a spin
+    kernel long enough that the host has enqueued them all before the
+    first starts: the device time then holds no host gap (``gapless``).
+    The host time is the wall time of enqueueing them (the wrapper's own
+    work), measured meanwhile.  A callable that waits for the device (a
+    plain version that reads a result back) ends the spin at its first
+    call: its time then includes its host work, and ``gapless`` is
+    False."""
     import torch
-    fn()
+    fns = list(fn) if isinstance(fn, (list, tuple)) else [fn]
+    t0 = time.perf_counter()
+    for f in fns:
+        f()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    spin_s = 2.0 * reps * (time.perf_counter() - t0) / len(fns) + 2e-3
+    for _ in range(2):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_s * SPIN_CYCLES_PER_S))
         start.record()
-        fn()
+        t0 = time.perf_counter()
+        fns[0]()
+        waits = start.query()      # the first call waited out the spin
+        for i in range(1, reps):
+            fns[i % len(fns)]()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        ran_ahead = start.query()  # the spin ended before the last enqueue
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        ms = start.elapsed_time(end) / reps
+        if waits or not ran_ahead:
+            break
+        spin_s *= 4
+    return ms, host_ms, not ran_ahead
+
+
+def time_ms(fn, reps: int = TIMING_REPS) -> float:
+    """Device ms per call (``time_calls``)."""
+    return time_calls(fn, reps)[0]
+
+
+def kernel_time(name, fn, reps: int = TIMING_REPS) -> float:
+    """Device ms per call of a kernel's wrapper, with no host gap between
+    launches (a wrapper never waits for the device), and its host time on
+    a line of its own."""
+    ms, host_ms, gapless = time_calls(fn, reps)
+    if not gapless:
+        fail(f"timing {name}: the wrapper waited for the device, or the "
+             "host could not run ahead of it")
+    print(f"[timing] {name}: wrapper host time {host_ms:.4f} ms per call "
+          f"(device {ms:.4f} ms)")
+    return ms
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -387,16 +437,27 @@ def decode_invariants(torch, m, l, acc):
     return acc / l[..., None], m + torch.log(l)
 
 
+def holes_mask(torch, seq, seed):
+    """An arbitrary mask: about 30% of the positions valid at random, and
+    every 128-position block whose index is 1 mod 3 masked, so that fully
+    masked tiles lie between valid ones."""
+    import numpy as np
+    pos = np.arange(seq)
+    valid = ((np.random.default_rng(seed).random(seq) < 0.3)
+             & ((pos // 128) % 3 != 1))
+    return torch.from_numpy(valid).to("cuda")
+
+
 def phase_decode_kernel(torch, G):
     """The flash-decode kernel against its plain version at the serve
     shape and at decode_32k's: float32 and bf16, with and without a
-    softcap of 30, on a mask whose frontier falls inside a tile and one
-    that also leaves the later tiles fully masked."""
+    softcap of 30, on a mask whose frontier falls inside a tile, one that
+    also leaves the later tiles fully masked, and one with holes."""
     worst = 0.0
     for shape, (b, seq) in DECODE_SHAPES.items():
         masks = {"frontier": torch.arange(seq, device="cuda") < seq - 37,
                  "masked tiles": torch.arange(seq, device="cuda")
-                 < seq // 2 + 201}
+                 < seq // 2 + 201, "holes": holes_mask(torch, seq, seq)}
         for dt in (torch.float32, torch.bfloat16):
             q, k, v = decode_inputs(torch, b, seq, dt, seq)
             tol, lse_tol = DECODE_TOL
@@ -418,8 +479,8 @@ def phase_decode_kernel(torch, G):
             del q, k, v
         print(f"[kernels] gqa_decode {shape} (b={b}, S={seq}, kvh={KVH}, "
               f"g={GROUP}, hd={HEAD_DIM}): within tolerance of the plain "
-              f"version (f32+bf16, softcap none+30, ragged frontier + "
-              f"masked tiles)")
+              f"version (f32+bf16, softcap none+30, ragged frontier, "
+              f"masked tiles, holes)")
     return {"gqa_decode": worst}
 
 
@@ -622,6 +683,94 @@ def phase_serve(torch, serve, entries):
     return launches, r
 
 
+#: steady decode steps traced by the serve profile (after 2 warm-up steps)
+PROFILE_STEPS = 4
+
+
+def phase_serve_profile(torch, G):
+    """Breakdown of steady serve decode steps on the full smollm-135m (32
+    sequences, 1,984 prompt tokens, capacity 2,048): ``torch.profiler``
+    with CPU and CUDA activities over PROFILE_STEPS steps; the top kernels
+    by device time, #9's share of the step and the device's idle share.
+    Where the profiler reports no device time, #9's time per step is taken
+    from CUDA events over the 30 layers' caches instead."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.params import init_params
+    cfg = get_config("smollm-135m")
+    pre = serve.build_prefill_setup(cfg, device="cuda")
+    srv = serve.build_serve_setup(cfg, device="cuda")
+    params = init_params(pre.defs.storage, 0, "cuda")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
+    first, cache = pre.prefill_step(
+        params, {"tokens": torch.as_tensor(prompts, device="cuda")},
+        SERVE_PROMPT + SERVE_NEW)
+    state = {"params": params, "cache": cache, "tokens": first}
+
+    def steps():
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            state = srv.serve_step(state)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+
+    steps()                                    # warm-up
+    step_ms = steps()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced_ms = steps()
+
+    def self_device_us(e):
+        t = getattr(e, "self_device_time_total", None)
+        return getattr(e, "self_cuda_time_total", 0) if t is None else t
+
+    kernels = sorted(((self_device_us(e) / 1e3 / PROFILE_STEPS,
+                       e.count / PROFILE_STEPS, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_ms = sum(k[0] for k in kernels)
+    print(f"[profile] serve decode, smollm-135m {SERVE_BATCH} sequences at "
+          f"cache position {state['cache']['len']}: step {step_ms:.4f} ms "
+          f"({traced_ms:.4f} ms traced), {PROFILE_STEPS} steps traced")
+    attn = [k for k in kernels if "gqa_decode" in k[2]]
+    if busy_ms > 0 and not attn:
+        fail(f"serve profile: {len(kernels)} kernels ran, none of them "
+             f"gqa_decode: {[k[2][:60] for k in kernels[:10]]}")
+    if busy_ms > 0:
+        for ms, n, name in kernels[:10]:
+            print(f"[profile]   {ms:.4f} ms per step ({ms / busy_ms:.1%} of "
+                  f"device time), {n:g} launches per step: {name[:90]}")
+        attn_ms = sum(k[0] for k in attn)
+        print(f"[profile] device busy {busy_ms:.4f} ms per step, idle share "
+              f"{1 - busy_ms / traced_ms:.1%} of the traced step; gqa_decode "
+              f"{attn_ms:.4f} ms per step: {attn_ms / step_ms:.1%} of the "
+              f"untraced step, {attn_ms / busy_ms:.1%} of device time; "
+              f"{len(kernels)} kernels by name")
+    else:
+        caches = state["cache"]["layers"][0]["attn"]
+        valid = (torch.arange(caches["k"].shape[2], device="cuda")
+                 < state["cache"]["len"])
+        q = torch.randn((SERVE_BATCH, cfg.n_kv_heads,
+                         cfg.n_heads // cfg.n_kv_heads,
+                         cfg.resolved_head_dim), device="cuda")
+        attn_ms = cfg.n_periods * time_ms(
+            [lambda k=k, v=v: G.gqa_decode(q, k, v, valid)
+             for k, v in zip(caches["k"], caches["v"])], 4 * cfg.n_periods)
+        print(f"[profile] key_averages() shows no device time for the "
+              f"kernels on this machine ({len(kernels)} device entries); "
+              f"gqa_decode from CUDA events over the {cfg.n_periods} "
+              f"layers' caches: {attn_ms:.4f} ms per step, "
+              f"{attn_ms / step_ms:.1%} of the step")
+    del state, params, cache
+    torch.cuda.empty_cache()
+
+
 def phase_serve_parity(torch):
     """Reduced smollm-135m serving on the card and on the CPU from the same
     weights and prompts."""
@@ -787,41 +936,72 @@ def sdpa_calls(torch, q, k, v, valid, n_valid):
     return calls
 
 
+#: distinct (q, K, V) sets the serve shape's timing rotates over: 4 x
+#: 100.8 MB, so every call finds its K and V cold in the 50 MB L2, as the
+#: serve loop over 30 layers' caches does (decode_32k's 6.4 GB is cold)
+DECODE_TIMING_SETS = {"serve": 4, "decode_32k": 1}
+DECODE_TIMING_REPS = {"serve": 200, "decode_32k": 20}
+#: ranges per row the decode timing also tries (``gqa_decode(ranges=)``)
+DECODE_SWEEP = {"serve": (1, 2, 3, 4, 8), "decode_32k": (1, 2, 4)}
+
+
 def phase_decode_timing(torch, G, launches, errs):
     """The flash-decode kernel, its plain version and the library call
     that computes the normalised output (#9 plus the combine) at the serve
     shape and at decode_32k's, float32, on the mask of a decode at the
-    cache's last position but one.  The library time is the fastest of
+    cache's last position but one, each timed over ``DECODE_TIMING_SETS``
+    operand sets in turn.  The library time is the fastest of
     ``sdpa_calls``.  Returns the serve shape's row."""
     row = None
     for shape, (b, seq) in DECODE_SHAPES.items():
-        q, k, v = decode_inputs(torch, b, seq, torch.float32, 11)
+        sets = [decode_inputs(torch, b, seq, torch.float32, 11 + i)
+                for i in range(DECODE_TIMING_SETS[shape])]
+        reps = DECODE_TIMING_REPS[shape]
         valid = torch.arange(seq, device="cuda") <= seq - 2
         n_valid = int(valid.sum())
-        ms = time_ms(lambda: G.gqa_decode(q, k, v, valid))
-        plain_ms = time_ms(lambda: G.gqa_decode_plain(q, k, v, valid))
-        o, _ = decode_invariants(torch, *G.gqa_decode(q, k, v, valid))
-        calls = sdpa_calls(torch, q, k, v, valid, n_valid)
-        if not calls:
+        ms = kernel_time(f"gqa_decode {shape}", [
+            lambda q=q, k=k, v=v: G.gqa_decode(q, k, v, valid)
+            for q, k, v in sets], reps)
+        plain_ms = time_ms([
+            lambda q=q, k=k, v=v: G.gqa_decode_plain(q, k, v, valid)
+            for q, k, v in sets], max(4, reps // 20))
+        chosen = G.decode_splits(
+            b * KVH, seq, torch.cuda.get_device_properties(0)
+            .multi_processor_count, G.decode_tile(HEAD_DIM, torch.float32))
+        for ranges in DECODE_SWEEP[shape]:
+            r_ms = time_ms([
+                lambda q=q, k=k, v=v: G.gqa_decode(q, k, v, valid,
+                                                   ranges=ranges)
+                for q, k, v in sets], reps)
+            print(f"[timing] gqa_decode {shape}, {ranges} ranges per row "
+                  f"(decode_splits chose {chosen[1]} of {chosen[0]} "
+                  f"positions): {r_ms:.4f} ms")
+        outs = [decode_invariants(torch, *G.gqa_decode(q, k, v, valid))[0]
+                for q, k, v in sets]
+        per_set = [sdpa_calls(torch, q, k, v, valid, n_valid)
+                   for q, k, v in sets]
+        if not per_set[0]:
             fail(f"gqa_decode timing {shape}: no backend of "
                  f"scaled_dot_product_attention took the inputs")
         lib = {}
-        for label, call in calls.items():
-            lib_err = float((call() - o).abs().max())
-            lib[label] = time_ms(call)
+        for label in per_set[0]:
+            calls = [c[label] for c in per_set]
+            lib_err = max(float((call() - o).abs().max())
+                          for call, o in zip(calls, outs))
+            lib[label] = time_ms(calls, max(4, reps // 10))
             print(f"[timing] gqa_decode {shape}: scaled_dot_product_"
                   f"attention ({label}) {lib[label]:.4f} ms, its output "
                   f"within {lib_err:.3g} of the kernel's")
         lib_label = min(lib, key=lib.get)
         lib_ms = lib[lib_label]
-        del calls
+        del per_set, outs
         nb, no = decode_bound(b, seq, n_valid, 4)
         b_ms, b_by = bound(nb, no)
         print(f"[timing] gqa_decode {shape} (b={b}, S={seq}, {n_valid} "
-              f"valid, f32): {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-              f"fastest scaled_dot_product_attention {lib_ms:.4f} ms, "
-              f"{lib_label}; bound {b_ms:.4f} ms by {b_by}: "
-              f"{nb / 1e9:.4f} GB, {no / 1e9:.4f} GFLOP, "
+              f"valid, f32, {len(sets)} operand sets in turn): {ms:.4f} ms "
+              f"(plain {plain_ms:.4f} ms, fastest scaled_dot_product_"
+              f"attention {lib_ms:.4f} ms, {lib_label}; bound {b_ms:.4f} ms "
+              f"by {b_by}: {nb / 1e9:.4f} GB, {no / 1e9:.4f} GFLOP, "
               f"{ms and b_ms / ms:.1%} of it)")
         if row is None:
             row = {"name": "gqa_decode", "route": "cuda",
@@ -831,7 +1011,7 @@ def phase_decode_timing(torch, G, launches, errs):
                    "max_abs_err": errs["gqa_decode"], "ms": ms,
                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                    "library_ms": lib_ms}
-        del q, k, v
+        del sets
         torch.cuda.empty_cache()
     return row
 
@@ -926,7 +1106,7 @@ def phase_timing(torch, Q, D, BP, launches, errs, n_rows, leaf_rows):
     ]
     rows = []
     for name, fn, plain, nb, no, src, repl in cases:
-        ms = time_ms(fn)
+        ms = kernel_time(name, fn)
         plain_ms = time_ms(plain)
         b_ms, b_by = bound(nb, no)
         rows.append({"name": name, "route": "cuda", "source": src,
@@ -1036,6 +1216,7 @@ def main() -> None:
         launches[name] += n
     serve_launches, _ = phase_serve(torch, serve, entries)
     launches["gqa_decode"] += serve_launches["gqa_decode"]
+    phase_serve_profile(torch, G)
     phase_parity(torch, train)
     phase_serve_parity(torch)
     rows = phase_timing(torch, Q, D, BP, launches, errs, n_rows, leaf_rows)

@@ -32,6 +32,9 @@ SOURCES = ("quantize_payload", "dequant_combine_payload", "subbyte_encode",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+#: gqa_decode.cu instantiates its kernel 32 times (dtype x hd x g): nvcc
+#: compiles them on every core instead of one after another
+SOURCE_FLAGS = {"gqa_decode": ("-split-compile=0",)}
 
 
 def _nvcc() -> str:
@@ -54,7 +57,8 @@ def _paths(name: str) -> tuple[str, str]:
 
 def nvcc_command(name: str, out: str) -> list[str]:
     src, _ = _paths(name)
-    return [_nvcc(), *NVCC_FLAGS, "-o", out, src]
+    return [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", out,
+            src]
 
 
 def _fresh(name: str) -> bool:

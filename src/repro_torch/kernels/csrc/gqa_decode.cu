@@ -10,27 +10,44 @@
 //   l       = sum_s p_s,   acc = sum_s p_s v_s
 //
 // q is (b, kvh, g, hd) float32; k and v are read in place in the cache's
-// (b, S, kvh, hd) layout, float32 or bf16; valid is (S,) bytes.  Any S.
+// (b, S, kvh, hd) layout, float32 or bf16; valid is (S,) bytes, any mask.
 //
 // Bound: device-memory bytes.  Each valid position's K and V rows are read
 // once (2 x hd x 4 B in float32) for 4 x g x hd float operations: ~0.4
-// operations per byte at g = 3, far below the card's balance.
-// Design:
-// * The TPU kernel walks S sequentially on one core; here S is cut into
-//   n_splits contiguous ranges, one CTA per (b, h, range), so that
-//   b * kvh * n_splits CTAs fill the 132 SMs even when b * kvh is 3-96.
-//   Each CTA writes its range's partials (m, l, acc); a second small
-//   launch merges the ranges with the log-sum-exp rule.
-// * A CTA's 4 warps take 32 positions at a time, one position per lane:
-//   the lane reads its K row with 16-byte loads and forms the g scores
-//   against q held in shared memory (broadcast reads), so the g queries of
-//   the head share one pass over K.  The warp max then rescales the
-//   running (m, l, acc), and the warp walks the chunk's valid positions,
-//   each lane accumulating hd/32 dimensions of p * v from one coalesced
-//   V row read per position.  Chunks with no valid position are skipped
-//   before any K/V byte is read; the positions past the causal frontier
-//   cost one byte of `valid` each.
-// * The warps' states merge in shared memory at the end of the CTA.
+// operations per byte at g = 3, far below the card's balance, so the
+// design keeps enough bytes in flight and spends few instructions on them.
+// * One launch.  A CTA takes one (b, kv head) row and one range of its
+//   positions; the grid is sized to the card (decode_splits in
+//   kernels/gqa_decode.py: about two waves of the 3 CTAs an SM holds, in
+//   ranges of at least 20 tiles, so 3 ranges per row at the serve shape
+//   and 2 at decode_32k's).  The ranges of a row form one thread block
+//   cluster, and rank 0 merges their (m, l, acc) by log-sum-exp over
+//   distributed shared memory: no partials in device memory, no second
+//   launch.
+// * A pipelined shared-memory stream.  Tiles of kTile positions of one
+//   head (8 KB of K plus 8 KB of V) flow through a ring of kStages stages
+//   by 16-byte cp.async copies with commit/wait groups: three tiles are in
+//   flight while the fourth is consumed, ~48 KB per CTA and ~140 KB per
+//   SM (Little's law at 3.35 TB/s and ~1 us of latency wants ~25 KB per
+//   SM).  cp.async, not TMA: the cache
+//   base changes with every layer, and a tensor map would be encoded on
+//   the host at every call; the rows of one head are 256 B runs at a
+//   kvh x hd stride, which 16-byte copies take coalesced.  Rows past S are
+//   zero-filled by the copy.
+// * Masked tiles cost nothing.  The CTA first packs its range's `valid`
+//   bytes into bits in shared memory and lists the tiles with a valid
+//   position; only those are copied, so the positions past the causal
+//   frontier cost one byte of `valid` each.
+// * Compute from shared memory only.  Scores: 8 lanes share one
+//   position, each lane takes 16-byte chunks j, j + 8, ... of the K row
+//   (so the 8 lanes of a quarter warp read 128 contiguous bytes: no bank
+//   conflict, no padding) against q held in registers, then 3 shuffles sum
+//   the dot product; 4 positions per warp instruction.  p . V: each lane
+//   owns hd / 32 dimensions of the V row (contiguous across the warp) and
+//   reads p from shared memory by broadcast.  The position loop has no
+//   global load.  CUDA cores in float32 (~0.4 operations per byte: tensor
+//   cores would not pay, and TF32 would break the 1e-5 contract).
+// * Templated on g, so registers hold exactly the g queries of a head.
 //
 // Arithmetic: expf and tanhf (never the fast __expf/__tanhf), correctly
 // rounded division; dot products and the weighted sums use explicit fused
@@ -38,22 +55,56 @@
 // so a fully masked range or row gives m = -1e30, l = 0, acc = 0 exactly,
 // as the reference does.
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kGMax = 8;           // queries per KV head (g) supported
+constexpr int kStages = 4;
+constexpr int kTileBytes = 8192;    // one K (or V) tile in shared memory
+constexpr int kMaxRange = 32768;    // positions one CTA takes at most
+constexpr int kMaxRanges = 8;       // CTAs of one row (a portable cluster)
+constexpr int kGMax = 8;            // queries per KV head (g) supported
 constexpr float kNeg = -1e30f;
 
-__device__ __forceinline__ void load8(const float* p, float o[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+template <typename T, int HD>
+struct Geo {
+  static constexpr int kElt = static_cast<int>(sizeof(T));
+  static constexpr int kTile = kTileBytes / (HD * kElt);  // positions
+  static constexpr int kE = 16 / kElt;          // elements per 16 B chunk
+  static constexpr int kChunks = HD / kE;       // 16 B chunks per row
+  static constexpr int kCpl = kChunks / 8;      // chunks per score lane
+  static constexpr int kPerWarp = kTile / kWarps;
+  static constexpr int kPasses = kPerWarp / 4;  // 4 positions per pass
+  static constexpr int kDims = HD / 32;         // p . V dims per lane
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kSmem = kStages * kStageBytes;
+  static_assert(kTile % 16 == 0 && kPasses >= 1, "tile geometry");
+  static_assert(kTile * kChunks * 16 == kTileBytes &&
+                (kTile * kChunks) % kThreads == 0, "tile bytes");
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // bf16 -> f32 is exact: the bf16 bits are the high half of the f32
@@ -64,17 +115,23 @@ __device__ __forceinline__ float hi_bf16(uint32_t w) {
   return __uint_as_float(w & 0xffff0000u);
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float o[8]) {
-  const uint4 t = *reinterpret_cast<const uint4*>(p);
-  o[0] = lo_bf16(t.x); o[1] = hi_bf16(t.x);
-  o[2] = lo_bf16(t.y); o[3] = hi_bf16(t.y);
-  o[4] = lo_bf16(t.z); o[5] = hi_bf16(t.z);
-  o[6] = lo_bf16(t.w); o[7] = hi_bf16(t.w);
+// one 16-byte chunk of a row in shared memory as floats
+__device__ __forceinline__ void chunk(const float*, const uint4& u,
+                                      float o[4]) {
+  o[0] = __uint_as_float(u.x); o[1] = __uint_as_float(u.y);
+  o[2] = __uint_as_float(u.z); o[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void chunk(const __nv_bfloat16*, const uint4& u,
+                                      float o[8]) {
+  o[0] = lo_bf16(u.x); o[1] = hi_bf16(u.x);
+  o[2] = lo_bf16(u.y); o[3] = hi_bf16(u.y);
+  o[4] = lo_bf16(u.z); o[5] = hi_bf16(u.z);
+  o[6] = lo_bf16(u.w); o[7] = hi_bf16(u.w);
 }
 
-// N = hd / 32 consecutive elements (2 or 4)
+// N = hd / 32 consecutive elements (2 or 4) of a row in shared memory
 template <int N>
-__device__ __forceinline__ void load_n(const float* p, float o[N]) {
+__device__ __forceinline__ void dims(const float* p, float o[N]) {
   if constexpr (N == 2) {
     const float2 a = *reinterpret_cast<const float2*>(p);
     o[0] = a.x; o[1] = a.y;
@@ -83,9 +140,8 @@ __device__ __forceinline__ void load_n(const float* p, float o[N]) {
     o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
   }
 }
-
 template <int N>
-__device__ __forceinline__ void load_n(const __nv_bfloat16* p, float o[N]) {
+__device__ __forceinline__ void dims(const __nv_bfloat16* p, float o[N]) {
   if constexpr (N == 2) {
     const uint32_t a = *reinterpret_cast<const uint32_t*>(p);
     o[0] = lo_bf16(a); o[1] = hi_bf16(a);
@@ -96,250 +152,383 @@ __device__ __forceinline__ void load_n(const __nv_bfloat16* p, float o[N]) {
   }
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// bit i set where byte i of w is nonzero
+__device__ __forceinline__ uint32_t byte_bits(uint32_t w) {
+  return static_cast<uint32_t>((w & 0xffu) != 0) |
+         static_cast<uint32_t>((w & 0xff00u) != 0) << 1 |
+         static_cast<uint32_t>((w & 0xff0000u) != 0) << 2 |
+         static_cast<uint32_t>((w & 0xff000000u) != 0) << 3;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-template <typename T, int HD>
+template <typename T, int HD, int G>
 __global__ void __launch_bounds__(kThreads)
-gqa_decode_split_kernel(const float* __restrict__ q,
-                        const T* __restrict__ k, const T* __restrict__ v,
-                        const uint8_t* __restrict__ valid,
-                        float* __restrict__ m_part,
-                        float* __restrict__ l_part,
-                        float* __restrict__ acc_part, int S, int kvh, int g,
-                        int split_len, float scale, float softcap) {
-  constexpr int kPer = HD / 32;                 // dims per lane
-  __shared__ __align__(16) float q_s[kGMax * HD];
-  __shared__ float p_s[kWarps][kGMax][32];
-  __shared__ float m_w[kWarps][kGMax];
-  __shared__ float l_w[kWarps][kGMax];
-  __shared__ float acc_w[kWarps][kGMax * HD];
+gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const uint8_t* __restrict__ valid,
+                  float* __restrict__ m_out, float* __restrict__ l_out,
+                  float* __restrict__ acc_out, int S, int kvh, int range_len,
+                  int n_ranges, float scale, float softcap) {
+  using Ge = Geo<T, HD>;
+  constexpr int kTile = Ge::kTile, kE = Ge::kE, kChunks = Ge::kChunks;
+  constexpr int kCpl = Ge::kCpl, kPerWarp = Ge::kPerWarp;
+  constexpr int kPasses = Ge::kPasses, kDims = Ge::kDims;
+  constexpr int kHalves = kTile / 16;           // mask halfwords per tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ uint16_t mask16[kMaxRange / 16];
+  __shared__ int16_t live[kMaxRange / kTile];
+  __shared__ float p_s[kWarps][G][kPerWarp];
+  __shared__ int n_live_s;
 
-  const int n_splits = gridDim.y;
-  const int split = blockIdx.y;
-  const long long row = blockIdx.x;             // b * kvh + h
+  const long long row = blockIdx.x / n_ranges;  // b * kvh + h
+  const int range = static_cast<int>(blockIdx.x % n_ranges);
   const long long b = row / kvh;
   const int h = static_cast<int>(row % kvh);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 3, j = lane & 7;      // score group, its lane
 
-  for (int i = threadIdx.x; i < g * HD; i += kThreads)
-    q_s[i] = q[row * g * HD + i];
+  // 1. the range's mask as bits, and the list of tiles with a valid bit
+  const int s0 = range * range_len;
+  const int len = max(0, min(S, s0 + range_len) - s0);
+  const int n_tiles = (len + kTile - 1) / kTile;
+  const int n16 = (len + 15) / 16;
+  for (int c = tid; c < n_tiles * kHalves; c += kThreads) {
+    uint32_t bits = 0;
+    const int p = s0 + 16 * c;
+    if (c < n16) {
+      if (p + 16 <= S) {
+        const uint4 w = *reinterpret_cast<const uint4*>(valid + p);
+        bits = byte_bits(w.x) | byte_bits(w.y) << 4 |
+               byte_bits(w.z) << 8 | byte_bits(w.w) << 12;
+      } else {
+        for (int i = 0; p + i < S; ++i)
+          bits |= static_cast<uint32_t>(valid[p + i] != 0) << i;
+      }
+    }
+    mask16[c] = static_cast<uint16_t>(bits);
+  }
   __syncthreads();
+  if (warp == 0) {
+    int count = 0;
+    for (int t0 = 0; t0 < n_tiles; t0 += 32) {
+      const int t = t0 + lane;
+      bool any = false;
+      if (t < n_tiles) {
+#pragma unroll
+        for (int x = 0; x < kHalves; ++x) any |= mask16[t * kHalves + x] != 0;
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, any);
+      if (any) live[count + __popc(bal & ((1u << lane) - 1u))] =
+          static_cast<int16_t>(t);
+      count += __popc(bal);
+    }
+    if (lane == 0) n_live_s = count;
+  }
 
-  const long long stride = static_cast<long long>(kvh) * HD;   // per position
+  // q in registers: lane j of a score group holds chunks j, j + 8, ...
+  float qr[G][kCpl * kE];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+    for (int cc = 0; cc < kCpl; ++cc) {
+      const float* src = q + (row * G + gi) * HD + (j + 8 * cc) * kE;
+#pragma unroll
+      for (int e = 0; e < kE; e += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(src + e);
+        qr[gi][cc * kE + e] = a.x; qr[gi][cc * kE + e + 1] = a.y;
+        qr[gi][cc * kE + e + 2] = a.z; qr[gi][cc * kE + e + 3] = a.w;
+      }
+    }
+  }
+  __syncthreads();
+  const int n_live = n_live_s;
+
+  // 2. stream the live tiles through the ring of stages
+  const long long stride = static_cast<long long>(kvh) * HD;  // elements
   const T* kb = k + (b * S * kvh + h) * HD;
   const T* vb = v + (b * S * kvh + h) * HD;
-
-  float m[kGMax], l[kGMax], acc[kGMax][kPer];
+  auto issue = [&](int t, int stage) {
+    unsigned char* ks = smem + stage * Ge::kStageBytes;
+    unsigned char* vs = ks + kTileBytes;
+    const int p0 = s0 + t * kTile;
 #pragma unroll
-  for (int gi = 0; gi < kGMax; ++gi) {
+    for (int x = 0; x < kTile * kChunks / kThreads; ++x) {
+      const int i = tid + x * kThreads;
+      const int r = i / kChunks, c = i % kChunks;
+      const bool in = p0 + r < S;
+      const long long off = in ? (p0 + r) * stride + c * kE : 0;
+      cp_async16(ks + i * 16, kb + off, in ? 16 : 0);
+      cp_async16(vs + i * 16, vb + off, in ? 16 : 0);
+    }
+  };
+
+  float m[G], l[G], acc[G][kDims];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
     m[gi] = kNeg;
     l[gi] = 0.0f;
 #pragma unroll
-    for (int d = 0; d < kPer; ++d) acc[gi][d] = 0.0f;
+    for (int d = 0; d < kDims; ++d) acc[gi][d] = 0.0f;
   }
 
-  const int s0 = split * split_len;
-  const int s1 = min(S, s0 + split_len);
-  for (int base = s0 + warp * 32; base < s1; base += kWarps * 32) {
-    const int pos = base + lane;
-    const bool ok = pos < s1 && valid[pos] != 0;
-    const unsigned live = __ballot_sync(0xffffffffu, ok);
-    if (live == 0) continue;                    // nothing valid: no K/V read
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_live) issue(live[i], i);
+    cp_async_commit();
+  }
+  const int r0 = warp * kPerWarp;               // the warp's rows of a tile
+  for (int i = 0; i < n_live; ++i) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();          // tile i landed; every warp is done with i - 1
+    const int nx = i + kStages - 1;
+    if (nx < n_live) issue(live[nx], nx % kStages);
+    cp_async_commit();
 
-    float sc[kGMax];
+    const int tp = live[i] * kTile;             // tile's first position - s0
+    bool ok[kPasses];
+    bool any = false;
 #pragma unroll
-    for (int gi = 0; gi < kGMax; ++gi) sc[gi] = 0.0f;
-    if (ok) {
-      const T* kr = kb + pos * stride;
+    for (int ps = 0; ps < kPasses; ++ps) {
+      const int rel = tp + r0 + 4 * ps + grp;
+      ok[ps] = (mask16[rel >> 4] >> (rel & 15)) & 1u;
+      any |= ok[ps];
+    }
+    if (!__any_sync(0xffffffffu, any)) continue;  // the warp's rows: masked
+
+    const unsigned char* ks = smem + (i % kStages) * Ge::kStageBytes;
+    const T* vs = reinterpret_cast<const T*>(ks + kTileBytes);
+    float sc[kPasses][G];
 #pragma unroll
-      for (int e = 0; e < HD; e += 8) {
-        float kk[8];
-        load8(kr + e, kk);
+    for (int ps = 0; ps < kPasses; ++ps) {
+      const int r = r0 + 4 * ps + grp;
+      float dot[G];
 #pragma unroll
-        for (int gi = 0; gi < kGMax; ++gi) {
-          if (gi < g) {
+      for (int gi = 0; gi < G; ++gi) dot[gi] = 0.0f;
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
-              sc[gi] = __fmaf_rn(q_s[gi * HD + e + j], kk[j], sc[gi]);
-          }
+      for (int cc = 0; cc < kCpl; ++cc) {
+        const uint4 u = *reinterpret_cast<const uint4*>(
+            ks + (r * kChunks + j + 8 * cc) * 16);
+        float kk[kE];
+        chunk(static_cast<const T*>(nullptr), u, kk);
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+          for (int e = 0; e < kE; ++e)
+            dot[gi] = __fmaf_rn(qr[gi][cc * kE + e], kk[e], dot[gi]);
         }
       }
-    }
 #pragma unroll
-    for (int gi = 0; gi < kGMax; ++gi) {
-      if (gi < g) {
-        float s = __fmul_rn(sc[gi], scale);
+      for (int gi = 0; gi < G; ++gi) {
+        float s = dot[gi];
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1)
+          s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+        s = __fmul_rn(s, scale);
         if (softcap > 0.0f)
           s = __fmul_rn(softcap, tanhf(__fdiv_rn(s, softcap)));
-        s = ok ? s : kNeg;
-        const float m_new = fmaxf(m[gi], warp_max(s));
-        const float corr = expf(m[gi] - m_new);
-        const float p = ok ? expf(s - m_new) : 0.0f;
-        l[gi] = __fmaf_rn(l[gi], corr, p);
-#pragma unroll
-        for (int d = 0; d < kPer; ++d)
-          acc[gi][d] = __fmul_rn(acc[gi][d], corr);
-        m[gi] = m_new;
-        p_s[warp][gi][lane] = p;
+        sc[ps][gi] = ok[ps] ? s : kNeg;
       }
     }
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      float mx = sc[0][gi];
+#pragma unroll
+      for (int ps = 1; ps < kPasses; ++ps) mx = fmaxf(mx, sc[ps][gi]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+      const float m_new = fmaxf(m[gi], mx);
+      const float corr = expf(m[gi] - m_new);
+      float psum = 0.0f;
+#pragma unroll
+      for (int ps = 0; ps < kPasses; ++ps) {
+        const float p = ok[ps] ? expf(sc[ps][gi] - m_new) : 0.0f;
+        psum = __fadd_rn(psum, p);
+        if (j == 0) p_s[warp][gi][4 * ps + grp] = p;
+      }
+      psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, 8));
+      psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, 16));
+      l[gi] = __fmaf_rn(l[gi], corr, psum);
+      m[gi] = m_new;
+#pragma unroll
+      for (int d = 0; d < kDims; ++d) acc[gi][d] = __fmul_rn(acc[gi][d], corr);
+    }
     __syncwarp();
-    unsigned rest = live;
-    while (rest) {
-      const int j = __ffs(rest) - 1;
-      rest &= rest - 1;
-      float vv[kPer];
-      load_n<kPer>(vb + (base + j) * stride + lane * kPer, vv);
 #pragma unroll
-      for (int gi = 0; gi < kGMax; ++gi) {
-        if (gi < g) {
-          const float p = p_s[warp][gi][j];
+    for (int rr = 0; rr < kPerWarp; ++rr) {
+      float vv[kDims];
+      dims<kDims>(vs + (r0 + rr) * HD + lane * kDims, vv);
 #pragma unroll
-          for (int d = 0; d < kPer; ++d)
-            acc[gi][d] = __fmaf_rn(p, vv[d], acc[gi][d]);
-        }
+      for (int gi = 0; gi < G; ++gi) {
+        const float p = p_s[warp][gi][rr];
+#pragma unroll
+        for (int d = 0; d < kDims; ++d)
+          acc[gi][d] = __fmaf_rn(p, vv[d], acc[gi][d]);
       }
     }
     __syncwarp();
   }
+  cp_async_wait<0>();
+  __syncthreads();                    // the stages are free for the merge
 
+  // 3. merge the warps' states, then the cluster's ranges
+  float* m_w = reinterpret_cast<float*>(smem);  // [kWarps][G]
+  float* l_w = m_w + kWarps * G;                // [kWarps][G]
+  float* acc_w = l_w + kWarps * G;              // [kWarps][G * HD]
+  float* cm = acc_w + kWarps * G * HD;          // this CTA's m, l, acc
+  float* cl = cm + G;
+  float* cacc = cl + G;
 #pragma unroll
-  for (int gi = 0; gi < kGMax; ++gi) {
-    if (gi < g) {
-      const float lw = warp_sum(l[gi]);
-      if (lane == 0) {
-        m_w[warp][gi] = m[gi];
-        l_w[warp][gi] = lw;
-      }
-#pragma unroll
-      for (int d = 0; d < kPer; ++d)
-        acc_w[warp][gi * HD + lane * kPer + d] = acc[gi][d];
+  for (int gi = 0; gi < G; ++gi) {
+    if (lane == 0) {
+      m_w[warp * G + gi] = m[gi];
+      l_w[warp * G + gi] = l[gi];
     }
+#pragma unroll
+    for (int d = 0; d < kDims; ++d)
+      acc_w[(warp * G + gi) * HD + lane * kDims + d] = acc[gi][d];
   }
   __syncthreads();
-
-  // merge the warps' states: one thread per (query, dimension)
-  const long long out = (row * n_splits + split) * g;
-  for (int i = threadIdx.x; i < g * HD; i += kThreads) {
+  const long long out = row * G;
+  for (int i = tid; i < G * HD; i += kThreads) {
     const int gi = i / HD;
-    float mx = m_w[0][gi];
+    float mx = m_w[gi];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, m_w[w][gi]);
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, m_w[w * G + gi]);
     float a = 0.0f, lsum = 0.0f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(m_w[w][gi] - mx);
-      a = __fmaf_rn(acc_w[w][i], c, a);
-      lsum = __fmaf_rn(l_w[w][gi], c, lsum);
+      const float c = expf(m_w[w * G + gi] - mx);
+      a = __fmaf_rn(acc_w[w * G * HD + i], c, a);
+      lsum = __fmaf_rn(l_w[w * G + gi], c, lsum);
     }
-    acc_part[out * HD + i] = a;
-    if (i % HD == 0) {
-      m_part[out + gi] = mx;
-      l_part[out + gi] = lsum;
+    if (n_ranges == 1) {
+      acc_out[out * HD + i] = a;
+      if (i % HD == 0) {
+        m_out[out + gi] = mx;
+        l_out[out + gi] = lsum;
+      }
+    } else {
+      cacc[i] = a;
+      if (i % HD == 0) {
+        cm[gi] = mx;
+        cl[gi] = lsum;
+      }
     }
   }
+  if (n_ranges == 1) return;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();                     // every range's state is in place
+  if (cluster.block_rank() == 0) {
+    for (int i = tid; i < G * HD; i += kThreads) {
+      const int gi = i / HD;
+      float mx = kNeg;
+      for (int r = 0; r < n_ranges; ++r)
+        mx = fmaxf(mx, cluster.map_shared_rank(cm, r)[gi]);
+      float a = 0.0f, lsum = 0.0f;
+      for (int r = 0; r < n_ranges; ++r) {
+        const float c = expf(cluster.map_shared_rank(cm, r)[gi] - mx);
+        a = __fmaf_rn(cluster.map_shared_rank(cacc, r)[i], c, a);
+        lsum = __fmaf_rn(cluster.map_shared_rank(cl, r)[gi], c, lsum);
+      }
+      acc_out[out * HD + i] = a;
+      if (i % HD == 0) {
+        m_out[out + gi] = mx;
+        l_out[out + gi] = lsum;
+      }
+    }
+  }
+  cluster.sync();                     // rank 0 has read every range
 }
 
-// Log-sum-exp merge of the ranges' partials, one thread per output
-// element of acc: m = max_r m_r, l = sum_r l_r e^(m_r - m),
-// acc = sum_r acc_r e^(m_r - m).
-__global__ void __launch_bounds__(256)
-gqa_decode_merge_kernel(const float* __restrict__ m_part,
-                        const float* __restrict__ l_part,
-                        const float* __restrict__ acc_part,
-                        float* __restrict__ m_out, float* __restrict__ l_out,
-                        float* __restrict__ acc_out, long long n_queries,
-                        int g, int hd, int n_splits) {
-  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
-  if (i >= n_queries * hd) return;
-  const long long qi = i / hd;                  // (b * kvh + h) * g + gi
-  const int d = static_cast<int>(i % hd);
-  const long long row = qi / g;
-  const int gi = static_cast<int>(qi % g);
-  float mx = kNeg;
-  for (int r = 0; r < n_splits; ++r)
-    mx = fmaxf(mx, m_part[(row * n_splits + r) * g + gi]);
-  float a = 0.0f, lsum = 0.0f;
-  for (int r = 0; r < n_splits; ++r) {
-    const long long pr = (row * n_splits + r) * g + gi;
-    const float c = expf(m_part[pr] - mx);
-    a = __fmaf_rn(acc_part[pr * hd + d], c, a);
-    lsum = __fmaf_rn(l_part[pr], c, lsum);
+template <typename T, int HD, int G>
+int launch(const float* q, const void* k, const void* v,
+           const uint8_t* valid, float* m, float* l, float* acc, int rows,
+           int S, int kvh, int range_len, int n_ranges, float scale,
+           float softcap, cudaStream_t s) {
+  using Ge = Geo<T, HD>;
+  // the merge's arrays reuse the stages
+  static_assert((2 * kWarps * G + kWarps * G * HD + 2 * G + G * HD) * 4 <=
+                    Ge::kSmem, "merge scratch");
+  if (range_len % Ge::kTile != 0 || range_len > kMaxRange) return 1;
+  auto kern = gqa_decode_kernel<T, HD, G>;
+  static unsigned set_on = 0;   // devices whose shared-memory limit is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 32 && !(set_on >> dev & 1u)) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Ge::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    set_on |= 1u << dev;
   }
-  acc_out[i] = a;
-  if (d == 0) {
-    m_out[qi] = mx;
-    l_out[qi] = lsum;
-  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(rows * n_ranges));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Ge::kSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(n_ranges);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, q, static_cast<const T*>(k),
+                           static_cast<const T*>(v), valid, m, l, acc, S,
+                           kvh, range_len, n_ranges, scale, softcap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
-void launch_split(const float* q, const void* k, const void* v,
-                  const uint8_t* valid, float* m_part, float* l_part,
-                  float* acc_part, int b, int S, int kvh, int g,
-                  int split_len, int n_splits, float scale, float softcap,
-                  cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>(b * kvh),
-                  static_cast<unsigned>(n_splits));
-  gqa_decode_split_kernel<T, HD><<<grid, kThreads, 0, s>>>(
-      q, static_cast<const T*>(k), static_cast<const T*>(v), valid, m_part,
-      l_part, acc_part, S, kvh, g, split_len, scale, softcap);
+int launch_g(int g, const float* q, const void* k, const void* v,
+             const uint8_t* valid, float* m, float* l, float* acc, int rows,
+             int S, int kvh, int range_len, int n_ranges, float scale,
+             float softcap, cudaStream_t s) {
+#define GQA_CASE(G)                                                       \
+  case G:                                                                 \
+    return launch<T, HD, G>(q, k, v, valid, m, l, acc, rows, S, kvh,      \
+                            range_len, n_ranges, scale, softcap, s);
+  switch (g) {
+    GQA_CASE(1) GQA_CASE(2) GQA_CASE(3) GQA_CASE(4)
+    GQA_CASE(5) GQA_CASE(6) GQA_CASE(7) GQA_CASE(8)
+    default: return 1;
+  }
+#undef GQA_CASE
 }
 
 }  // namespace
 
 // q: (b, kvh, g, hd) f32; k, v: (b, S, kvh, hd) f32 (kv_is_bf16 == 0) or
-// bf16; valid: (S,) bytes; partials: m/l (b*kvh, n_splits, g) and acc
-// (b*kvh, n_splits, g, hd) f32 scratch; outputs m/l (b, kvh, g) and acc
-// (b, kvh, g, hd) f32 — all contiguous.  hd is 64 or 128, g <= 8,
-// split_len * n_splits >= S.  softcap <= 0 means none.  Returns
-// cudaGetLastError() after the two launches (or 1 for an unsupported hd
-// or g).
-extern "C" int gqa_decode_launch(
-    const float* q, const void* k, const void* v, int kv_is_bf16,
-    const uint8_t* valid, float* m_part, float* l_part, float* acc_part,
-    float* m_out, float* l_out, float* acc_out, int b, int S, int kvh, int g,
-    int hd, int split_len, int n_splits, float scale, float softcap,
-    void* stream) {
-  if (g < 1 || g > kGMax || (hd != 64 && hd != 128)) return 1;
+// bf16; valid: (S,) bytes; outputs m/l (b, kvh, g) and acc (b, kvh, g, hd)
+// f32 — all contiguous, q, k, v and valid 16-byte aligned.  hd is 64 or
+// 128, 1 <= g <= 8; each row's positions are cut into n_ranges <= 8 ranges
+// of range_len positions (a multiple of the tile, at most 32,768;
+// range_len * n_ranges >= S).  softcap <= 0 means none.  Returns 0, the
+// CUDA error of the launch, or 1 for an unsupported shape.
+extern "C" int gqa_decode_launch(const float* q, const void* k,
+                                 const void* v, int kv_is_bf16,
+                                 const uint8_t* valid, float* m, float* l,
+                                 float* acc, int b, int S, int kvh, int g,
+                                 int hd, int range_len, int n_ranges,
+                                 float scale, float softcap, void* stream) {
+  if (g < 1 || g > kGMax || (hd != 64 && hd != 128) || n_ranges < 1 ||
+      n_ranges > kMaxRanges ||
+      static_cast<long long>(range_len) * n_ranges < S)
+    return 1;
   if (b <= 0 || kvh <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = b * kvh;
   if (kv_is_bf16) {
-    if (hd == 64)
-      launch_split<__nv_bfloat16, 64>(q, k, v, valid, m_part, l_part,
-                                      acc_part, b, S, kvh, g, split_len,
-                                      n_splits, scale, softcap, s);
-    else
-      launch_split<__nv_bfloat16, 128>(q, k, v, valid, m_part, l_part,
-                                       acc_part, b, S, kvh, g, split_len,
-                                       n_splits, scale, softcap, s);
-  } else {
-    if (hd == 64)
-      launch_split<float, 64>(q, k, v, valid, m_part, l_part, acc_part, b, S,
-                              kvh, g, split_len, n_splits, scale, softcap, s);
-    else
-      launch_split<float, 128>(q, k, v, valid, m_part, l_part, acc_part, b,
-                               S, kvh, g, split_len, n_splits, scale,
-                               softcap, s);
+    return hd == 64
+        ? launch_g<__nv_bfloat16, 64>(g, q, k, v, valid, m, l, acc, rows, S,
+                                      kvh, range_len, n_ranges, scale,
+                                      softcap, s)
+        : launch_g<__nv_bfloat16, 128>(g, q, k, v, valid, m, l, acc, rows,
+                                       S, kvh, range_len, n_ranges, scale,
+                                       softcap, s);
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_queries = static_cast<long long>(b) * kvh * g;
-  const long long n = n_queries * hd;
-  gqa_decode_merge_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                            s>>>(m_part, l_part, acc_part, m_out, l_out,
-                                 acc_out, n_queries, g, hd, n_splits);
-  return static_cast<int>(cudaGetLastError());
+  return hd == 64
+      ? launch_g<float, 64>(g, q, k, v, valid, m, l, acc, rows, S, kvh,
+                            range_len, n_ranges, scale, softcap, s)
+      : launch_g<float, 128>(g, q, k, v, valid, m, l, acc, rows, S, kvh,
+                             range_len, n_ranges, scale, softcap, s);
 }

@@ -9,8 +9,10 @@ turns them into the attention output ``acc / l``.
 the plain PyTorch version (``ref.gqa_decode_ref``), CUDA tensors launch the
 hand-written kernel ``csrc/gqa_decode.cu`` or raise.  Unlike the TPU
 kernel it reads K and V in the cache's ``(b, S, kvh, hd)`` layout without a
-transposed copy and takes any S.  ``gqa_decode.launches`` counts calls that
-launched the kernel (each is one split pass and one small merge pass).
+transposed copy and takes any S and any mask.  ``decode_splits`` cuts each
+(b, kv head) row's positions into the ranges the kernel's CTAs take; the
+ranges of a row merge inside the one launch.  ``gqa_decode.launches``
+counts calls that launched the kernel.
 """
 from __future__ import annotations
 
@@ -22,29 +24,50 @@ import torch
 
 from . import _build, ref
 
-__all__ = ["gqa_decode_plain", "gqa_decode", "decode_splits", "HEAD_DIMS",
-           "MAX_GROUP"]
+__all__ = ["gqa_decode_plain", "gqa_decode", "decode_splits", "decode_tile",
+           "HEAD_DIMS", "MAX_GROUP"]
 
 #: head dims and queries per KV head the CUDA kernel is compiled for
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8
-#: the fewest cache positions one CTA takes, and CTAs wanted per SM
-MIN_SPLIT, CTAS_PER_SM = 256, 8
+#: bytes of one K (or V) tile the kernel stages in shared memory
+TILE_BYTES = 8192
+#: CTAs the kernel keeps resident on one SM (4 stages of 16 KB and ~6.5 KB
+#: of mask bits each), the most ranges of one row (a portable thread block
+#: cluster, merged over distributed shared memory), the most positions of
+#: one range (its mask bits live in shared memory), and the fewest tiles a
+#: range is cut down to (shorter ranges spend more on their start and merge
+#: than they gain in balance: ``chip_smoke.py``'s range sweep)
+CTAS_PER_SM, MAX_RANGES, MAX_RANGE, MIN_RANGE_TILES = 3, 8, 32768, 20
 
 #: plain PyTorch version: runs on any device
 gqa_decode_plain = ref.gqa_decode_ref
 
 
-def decode_splits(rows: int, seq: int, n_sms: int) -> tuple[int, int]:
-    """(positions per range, ranges): the cache of each of ``rows`` (b x
-    kvh) rows is cut into ranges of whole 128-position multiples, enough
-    for about ``CTAS_PER_SM`` CTAs per SM but none shorter than
-    ``MIN_SPLIT`` (or the whole cache)."""
-    want = max(1, -(-CTAS_PER_SM * n_sms // max(rows, 1)))
-    want = min(want, max(1, -(-seq // MIN_SPLIT)))
-    per = -(-seq // want)
-    split_len = max(128, -(-per // 128) * 128)
-    return split_len, max(1, -(-seq // split_len))
+def decode_tile(hd: int, dtype: torch.dtype) -> int:
+    """Cache positions in one tile of the kernel: TILE_BYTES of K."""
+    return TILE_BYTES // (hd * (2 if dtype == torch.bfloat16 else 4))
+
+
+def decode_splits(rows: int, seq: int, n_sms: int, tile: int,
+                  ranges: int | None = None) -> tuple[int, int]:
+    """(positions per range, ranges per row): each of ``rows`` (b x kvh)
+    rows' ``seq`` positions is cut into ranges of whole tiles, as many as
+    make about two waves of the card's CTAS_PER_SM x ``n_sms`` resident
+    CTAs, but none shorter than MIN_RANGE_TILES tiles (or the whole cache)
+    and at most MAX_RANGES; ``ranges`` asks for that many instead.  No
+    range exceeds MAX_RANGE positions."""
+    if ranges is None:
+        ranges = min(2 * CTAS_PER_SM * n_sms // max(rows, 1), MAX_RANGES,
+                     seq // (MIN_RANGE_TILES * tile))
+    want = max(1, ranges, -(-seq // MAX_RANGE))
+    if want > MAX_RANGES:
+        raise ValueError(f"gqa_decode: {want} ranges of a {seq}-position "
+                         f"cache exceed the kernel's {MAX_RANGES} x "
+                         f"{MAX_RANGE}")
+    per = -(-max(seq, 1) // want)
+    range_len = -(-per // tile) * tile
+    return range_len, max(1, -(-seq // range_len))
 
 
 @functools.lru_cache(maxsize=None)
@@ -52,10 +75,15 @@ def _kernel():
     """The C entry point of csrc/gqa_decode.cu (built at first use)."""
     fn = _build.load("gqa_decode").gqa_decode_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + \
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + \
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + \
         [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, k, v, valid):
@@ -78,11 +106,14 @@ def _check(q, k, v, valid):
 
 
 def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               valid: torch.Tensor, softcap: float | None = None):
+               valid: torch.Tensor, softcap: float | None = None,
+               ranges: int | None = None):
     """Flash-decode partials ``(m (b,kvh,g), l (b,kvh,g), acc
     (b,kvh,g,hd))``, float32, of ``q`` (b, kvh, g, hd) over the cache
     ``k``/``v`` (b, S, kvh, hd) at the positions where ``valid`` (S,) is
-    True, with an optional tanh ``softcap`` of the scores."""
+    True, with an optional tanh ``softcap`` of the scores.  ``ranges``
+    overrides how many ranges the kernel cuts each row into
+    (``decode_splits``); the CPU path ignores it."""
     _check(q, k, v, valid)
     operands = (q, k, v, valid)
     if all(a.device.type == "cpu" for a in operands):
@@ -104,22 +135,25 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
     q32 = q.to(torch.float32).contiguous()          # exact for bf16
-    split_len, n_splits = decode_splits(
-        b * kvh, seq, torch.cuda.get_device_properties(dev)
-        .multi_processor_count)
-    f32 = dict(dtype=torch.float32, device=dev)
-    m_part = torch.empty((b * kvh, n_splits, g), **f32)
-    l_part = torch.empty((b * kvh, n_splits, g), **f32)
-    acc_part = torch.empty((b * kvh, n_splits, g, hd), **f32)
-    m = torch.empty((b, kvh, g), **f32)
-    l = torch.empty((b, kvh, g), **f32)
-    acc = torch.empty((b, kvh, g, hd), **f32)
+    if q32.data_ptr() % 16:
+        q32 = q32.clone()
+    if valid.data_ptr() % 16:
+        valid = valid.clone()
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("gqa_decode: k and v must start 16-byte aligned")
+    range_len, n_ranges = decode_splits(b * kvh, seq, _sm_count(dev.index),
+                                        decode_tile(hd, k.dtype), ranges)
+    n = b * kvh * g
+    out = torch.empty(n * (hd + 2), dtype=torch.float32, device=dev)
+    acc = out[:n * hd].view(b, kvh, g, hd)
+    m = out[n * hd:n * (hd + 1)].view(b, kvh, g)
+    l = out[n * (hd + 1):].view(b, kvh, g)
     err = _kernel()(
         q32.data_ptr(), k.data_ptr(), v.data_ptr(),
-        int(k.dtype == torch.bfloat16), valid.data_ptr(), m_part.data_ptr(),
-        l_part.data_ptr(), acc_part.data_ptr(), m.data_ptr(), l.data_ptr(),
-        acc.data_ptr(), b, seq, kvh, g, hd, split_len, n_splits,
-        1.0 / math.sqrt(hd), 0.0 if softcap is None else float(softcap),
+        int(k.dtype == torch.bfloat16), valid.data_ptr(), m.data_ptr(),
+        l.data_ptr(), acc.data_ptr(), b, seq, kvh, g, hd, range_len,
+        n_ranges, 1.0 / math.sqrt(hd),
+        0.0 if softcap is None else float(softcap),
         torch.cuda.current_stream(dev).cuda_stream)
     gqa_decode.launches += 1
     if err != 0:

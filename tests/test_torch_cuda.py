@@ -211,11 +211,41 @@ def _decode_invariants(m, l, acc):
     return acc / l[..., None], m + torch.log(l)
 
 
+def _holes_mask(S, seed, device):
+    """About 30% of the positions valid at random, and every position in
+    a 128-block whose index is 1 mod 3 masked: fully masked tiles of every
+    tile size lie between valid ones."""
+    pos = np.arange(S)
+    valid = ((np.random.default_rng(seed).random(S) < 0.3)
+             & ((pos // 128) % 3 != 1))
+    return torch.from_numpy(valid).to(device)
+
+
+def _check_decode(q, k, v, valid, cap, ranges=None):
+    before = G.gqa_decode.launches
+    got = G.gqa_decode(q, k, v, valid, softcap=cap, ranges=ranges)
+    want = G.gqa_decode_plain(q, k, v, valid, softcap=cap)
+    assert G.gqa_decode.launches == before + 1
+    # both sides widen bf16 exactly and sum in float32: they differ only in
+    # the order of summation, whatever the input type
+    tol, lse_tol = 1e-5, 5e-5
+    (o, lse), (wo, wlse) = (_decode_invariants(*got),
+                            _decode_invariants(*want))
+    torch.testing.assert_close(o, wo, atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, wlse, atol=lse_tol, rtol=0)
+    if not valid.any():
+        assert torch.all(got[1] == 0) and torch.all(got[2] == 0)
+        assert torch.all(got[0] == -1e30)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,kvh,g,hd,S,cap", [
     (2, 2, 4, 128, 1024, None), (1, 4, 1, 64, 512, 30.0),
     (2, 1, 7, 128, 2048, None), (1, 8, 2, 128, 512, None),
-    (32, 3, 3, 64, 2048, None), (3, 3, 3, 64, 700, 30.0)])
+    (32, 3, 3, 64, 2048, None), (3, 3, 3, 64, 700, 30.0),
+    (3, 3, 3, 64, 37, None),         # S below one tile
+    (2, 3, 3, 64, 513, 30.0),        # one past a boundary of every tile
+    (2, 2, 8, 128, 1024, None)])     # g = 8 at hd 128
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_gqa_decode_kernel_matches_plain(cuda_device, b, kvh, g, hd, S,
                                               cap, dtype):
@@ -225,20 +255,36 @@ def test_cuda_gqa_decode_kernel_matches_plain(cuda_device, b, kvh, g, hd, S,
                                         (b, S, kvh, hd)))
     for valid in (torch.arange(S, device=cuda_device) < S - 37,
                   torch.arange(S, device=cuda_device) < 100,
-                  torch.zeros(S, dtype=torch.bool, device=cuda_device)):
-        before = G.gqa_decode.launches
-        got = G.gqa_decode(q, k, v, valid, softcap=cap)
-        want = G.gqa_decode_plain(q, k, v, valid, softcap=cap)
-        assert G.gqa_decode.launches == before + 1
-        # both sides widen bf16 exactly and sum in float32: they differ
-        # only in the order of summation, whatever the input type
-        tol, lse_tol = 1e-5, 5e-5
-        (o, lse), (wo, wlse) = (_decode_invariants(*got),
-                                _decode_invariants(*want))
-        torch.testing.assert_close(o, wo, atol=tol, rtol=tol)
-        torch.testing.assert_close(lse, wlse, atol=lse_tol, rtol=0)
-        if not valid.any():
-            assert torch.all(got[1] == 0) and torch.all(got[2] == 0)
+                  torch.zeros(S, dtype=torch.bool, device=cuda_device),
+                  _holes_mask(S, S + g, cuda_device)):
+        _check_decode(q, k, v, valid, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranges", [None, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gqa_decode_merges_ranges_in_one_launch(cuda_device, dtype,
+                                                     ranges):
+    """At the serve shape (b 32, S 2,048, kvh 3, g 3, hd 64) the ranges of
+    a row (decode_splits's choice: 3 in float32; or 2, or a full cluster of
+    8) merge inside the one launch."""
+    b, kvh, g, hd, S = 32, 3, 3, 64, 2048
+    n_sms = torch.cuda.get_device_properties(cuda_device) \
+        .multi_processor_count
+    _, n_ranges = G.decode_splits(b * kvh, S, n_sms,
+                                  G.decode_tile(hd, dtype), ranges)
+    if ranges:
+        assert n_ranges == ranges
+    elif dtype == torch.float32:
+        assert n_ranges > 1
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(dtype) for shape in ((b, kvh, g, hd), (b, S, kvh, hd),
+                                        (b, S, kvh, hd)))
+    for cap in (None, 30.0):
+        for valid in (torch.arange(S, device=cuda_device) < 1990,
+                      _holes_mask(S, 6, cuda_device)):
+            _check_decode(q, k, v, valid, cap, ranges)
 
 
 @pytest.mark.cuda

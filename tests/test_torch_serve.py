@@ -147,17 +147,72 @@ def test_gqa_decode_validates():
                        torch.ones(64, dtype=torch.bool))
 
 
-@pytest.mark.parametrize("rows,seq,want", [
-    (96, 2048, (256, 8)),            # smollm serve: b 32 x kvh 3
-    (384, 32768, (11008, 3)),        # decode_32k: b 128 x kvh 3
-    (3, 100, (128, 1)),
-    (2, 0, (128, 1)),
+def test_gqa_decode_mask_with_holes_matches_jax():
+    """An arbitrary mask: about 30% of the positions valid at random, and
+    whole 128-position blocks masked between valid ones."""
+    S = 2048
+    q, k, v = _qkv(2, 3, 3, 64, S, jnp.float32, 11)
+    pos = np.arange(S)
+    valid = ((np.random.default_rng(11).random(S) < 0.3)
+             & ((pos // 128) % 3 != 1))
+    for cap in (None, 30.0):
+        got = _invariants(*ops.gqa_decode(_t(q), _t(k), _t(v),
+                                          torch.from_numpy(valid),
+                                          softcap=cap))
+        for want in (jref.gqa_decode_ref(q, k, v, jnp.asarray(valid),
+                                         softcap=cap),
+                     gqa_decode_pallas(q, k, v, jnp.asarray(valid),
+                                       softcap=cap, interpret=True)):
+            w_out, w_lse = _invariants(*want)
+            np.testing.assert_allclose(got[0], w_out, atol=1e-5, rtol=1e-5)
+            np.testing.assert_allclose(got[1], w_lse, atol=5e-5)
+
+
+@pytest.mark.parametrize("rows,seq,tile,want", [
+    (96, 2048, 32, (704, 3)),        # smollm serve: b 32 x kvh 3, f32
+    (384, 32768, 32, (16384, 2)),    # decode_32k: b 128 x kvh 3, f32
+    (96, 2048, 64, (2048, 1)),       # serve with a bf16 cache
+    (3, 100, 32, (128, 1)),
+    (2, 0, 32, (32, 1)),
+    (1, 100_000, 16, (12512, 8)),    # ranges capped at one cluster
 ])
-def test_decode_splits_cover_the_cache(rows, seq, want):
-    split_len, n = G.decode_splits(rows, seq, 132)
-    assert (split_len, n) == want
-    assert split_len % 128 == 0 and split_len * n >= seq
-    assert seq == 0 or split_len * (n - 1) < seq
+def test_decode_splits_cover_the_cache(rows, seq, tile, want):
+    range_len, n = G.decode_splits(rows, seq, 132, tile)
+    assert (range_len, n) == want
+    assert range_len % tile == 0 and range_len * n >= seq
+    assert seq == 0 or range_len * (n - 1) < seq
+    assert range_len <= G.MAX_RANGE and n <= G.MAX_RANGES
+
+
+@pytest.mark.parametrize("hd,dtype,rows,seq", [
+    (64, torch.float32, 96, 2048),       # serve
+    (64, torch.float32, 384, 32768),     # decode_32k
+    (64, torch.float32, 9, 700),         # ragged
+    (128, torch.float32, 3, 37),         # below one tile
+    (64, torch.bfloat16, 6, 513),        # one past a tile boundary
+    (128, torch.bfloat16, 1, 262_144),   # the longest cache taken
+])
+def test_decode_partition_covers_each_position_once(hd, dtype, rows, seq):
+    tile = G.decode_tile(hd, dtype)
+    assert tile * hd * (4 if dtype == torch.float32 else 2) == 8192
+    range_len, n = G.decode_splits(rows, seq, 132, tile)
+    count = np.zeros(seq, np.int64)
+    for r in range(n):               # the positions CTA r of a row walks
+        lo = r * range_len
+        hi = min(seq, lo + range_len)
+        assert lo < hi or seq == 0   # no range is empty
+        for t in range(lo, hi, tile):
+            count[t:min(hi, t + tile)] += 1
+    assert np.all(count == 1)
+    assert n <= G.MAX_RANGES and range_len <= G.MAX_RANGE
+
+
+def test_decode_splits_refuses_too_long_a_cache():
+    with pytest.raises(ValueError):
+        G.decode_splits(1, G.MAX_RANGES * G.MAX_RANGE + 1, 132, 32)
+    with pytest.raises(ValueError):
+        G.decode_splits(96, 2048, 132, 32, ranges=G.MAX_RANGES + 1)
+    assert G.decode_splits(96, 2048, 132, 32, ranges=8) == (256, 8)
 
 
 @pytest.fixture(scope="module")
