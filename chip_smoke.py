@@ -12,14 +12,16 @@ Phases (any failure exits non-zero before the result line):
              the main path's shape (the payload rows of the full smollm-135m
              wire layout, 262,752) and on a ragged chunk view, fixed and
              adaptive, float32 and bfloat16: int8, int4, int2 and top-k
-             (k = 16, 64, 256) payload bytes must be equal, the three
+             (k = 8, 16, 64, 256) payload bytes must be equal, the three
              combines' outputs bitwise equal or within 1 ulp; the per-leaf
              quantizer's codes and scales equal and its combine within
              1 ulp on each of the 11 leaves' padded rows; the flash-decode
              partials within the CPU test's float32 tolerances at the
              serve shape and at decode_32k's, for float32 and bf16 inputs
              alike, with and without a softcap, on masks with a ragged
-             frontier, masked tiles and random holes;
+             frontier, masked tiles and random holes, and at long_500k
+             with gemma2-9b's heads (b 1, S 524,288, kvh 8, g 2, hd 256,
+             softcap 50; a frontier, holes and a 4,096-position window);
 3. main    — ``repro_torch.launch.train.main`` on the full smollm-135m, 4
              ADC-DGD nodes (fixed grid), each run with every launch counter
              zeroed just before it: 5 steps of the int8 wire, then 3 steps
@@ -56,7 +58,20 @@ Phases (any failure exits non-zero before the result line):
              8 new tokens) on the card and on the CPU from the same
              weights: the same tokens, or a flip at a near tie whose
              logits agree within SERVE_LOGIT_TOL;
-6. timing  — each kernel and its plain version (``time_calls``: a run of
+6. paper   — the paper's reference algorithms (``repro_torch.core``) on
+             ``paper_circle_problem(20, dim=2^22)`` over the 20-node
+             circle, StepSize(0.01, eta=0.5): kernel #3 through
+             ``Int8BlockQuantizer`` (163,840 rows, fixed and adaptive)
+             with codes and scales equal to its plain version; identity
+             ADC-DGD bitwise equal to DGD over 50 steps; then, each launch
+             counted, 500 steps each of ADC-DGD int8 fixed and adaptive,
+             CompressedDGD int8 adaptive and DGD (kernel #3 launched once
+             per compressed step and nothing else launched), with step
+             time, final metrics, wire bytes and peak memory; the Fig. 1
+             contrast (direct compression at least 10x farther from DGD's
+             iterate than ADC-DGD); and 20 ADC-DGD steps through kernel #3
+             and through its plain version, bitwise equal;
+7. timing  — each kernel and its plain version (``time_calls``: a run of
              back-to-back launches between two CUDA events, queued behind a
              spin kernel so that no host gap lies between them, over the
              count; each wrapper's host time per call on its own line),
@@ -66,7 +81,8 @@ Phases (any failure exits non-zero before the result line):
              K and V are cold in L2) and at decode_32k's (b = 128, S =
              32,768), the library call ``scaled_dot_product_attention`` on
              the same inputs (each layout and backend it takes them in, the
-             fastest reported) and a sweep of the ranges per row; the step
+             fastest reported) and a sweep of the ranges per row, and at
+             long_500k's shape; the step
              time of each codec, the exchange time of each codec and the
              peak memory.
 
@@ -79,6 +95,8 @@ from __future__ import annotations
 import json
 import math
 import os
+
+import numpy as np
 import statistics
 import subprocess
 import sys
@@ -117,8 +135,18 @@ N_LEAVES, PER_LEAF_WIRE_BYTES = 11, 271_292_160
 #: 3 queries per KV head.
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 32, 1984, 64
 KVH, GROUP, HEAD_DIM = 3, 3, 64
-DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW),
-                 "decode_32k": (128, 32768)}
+#: (b, S, kvh, g, hd) of each flash-decode shape held and timed: smollm's
+#: heads at the serve and decode_32k shapes, and the longest cache the
+#: reference serves (long_500k, ``src/repro/models/config.py:166``) at
+#: gemma2-9b's heads (8 KV heads of 256, 2 queries each, softcap 50:
+#: ``src/repro/configs/gemma2_9b.py``); K and V are 4.3 GB each in float32
+DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, KVH, GROUP,
+                           HEAD_DIM),
+                 "decode_32k": (128, 32768, KVH, GROUP, HEAD_DIM),
+                 "long_500k": (1, 524288, 8, 2, 256)}
+#: the softcap each shape is also held with, and its masks' sliding window
+DECODE_SOFTCAP = {"serve": 30.0, "decode_32k": 30.0, "long_500k": 50.0}
+LONG_WINDOW = 4096
 #: the flash-decode partials against their plain version, on acc / l and
 #: on m + log l (the reference's float32 kernel-test tolerances).  bf16
 #: K and V widen to float32 exactly on both sides, which then sum in
@@ -308,7 +336,7 @@ def phase_codec_kernels(torch, BP, n_rows):
             ("subbyte_encode_payload", BP.subbyte_encode_payload,
              BP.subbyte_encode_plain, BP.subbyte_decode_plain, (4, 2)),
             ("topk_encode_payload", BP.topk_encode_payload,
-             BP.topk_encode_plain, BP.topk_decode_plain, (16, 64, 256))):
+             BP.topk_encode_plain, BP.topk_decode_plain, (8, 16, 64, 256))):
         worst = 0.0
         for param in params:
             for dt in (torch.float32, torch.bfloat16):
@@ -422,13 +450,13 @@ def phase_block_kernels(torch, Q, D, leaf_rows):
     return {"quantize_blocks": q_abs, "dequant_combine": worst_abs}
 
 
-def decode_inputs(torch, b, seq, dtype, seed):
+def decode_inputs(torch, b, seq, dtype, seed, kvh=KVH, grp=GROUP,
+                  hd=HEAD_DIM):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
-                 for shape in ((b, KVH, GROUP, HEAD_DIM),
-                               (b, seq, KVH, HEAD_DIM),
-                               (b, seq, KVH, HEAD_DIM)))
+                 for shape in ((b, kvh, grp, hd), (b, seq, kvh, hd),
+                               (b, seq, kvh, hd)))
 
 
 def decode_invariants(torch, m, l, acc):
@@ -448,20 +476,31 @@ def holes_mask(torch, seq, seed):
     return torch.from_numpy(valid).to("cuda")
 
 
+def decode_masks(torch, shape, seq):
+    """The masks a shape is held on: a frontier inside a tile, random
+    holes, and either the later tiles fully masked or (at long_500k) a
+    sliding window before the frontier."""
+    pos = torch.arange(seq, device="cuda")
+    masks = {"frontier": pos < seq - 37, "holes": holes_mask(torch, seq, seq)}
+    if shape == "long_500k":
+        masks[f"window {LONG_WINDOW}"] = ((pos < seq - 37)
+                                          & (pos >= seq - 37 - LONG_WINDOW))
+    else:
+        masks["masked tiles"] = pos < seq // 2 + 201
+    return masks
+
+
 def phase_decode_kernel(torch, G):
-    """The flash-decode kernel against its plain version at the serve
-    shape and at decode_32k's: float32 and bf16, with and without a
-    softcap of 30, on a mask whose frontier falls inside a tile, one that
-    also leaves the later tiles fully masked, and one with holes."""
+    """The flash-decode kernel against its plain version at each of
+    DECODE_SHAPES: float32 and bf16, with and without the shape's softcap,
+    on each of its masks."""
     worst = 0.0
-    for shape, (b, seq) in DECODE_SHAPES.items():
-        masks = {"frontier": torch.arange(seq, device="cuda") < seq - 37,
-                 "masked tiles": torch.arange(seq, device="cuda")
-                 < seq // 2 + 201, "holes": holes_mask(torch, seq, seq)}
+    for shape, (b, seq, kvh, grp, hd) in DECODE_SHAPES.items():
+        masks = decode_masks(torch, shape, seq)
         for dt in (torch.float32, torch.bfloat16):
-            q, k, v = decode_inputs(torch, b, seq, dt, seq)
+            q, k, v = decode_inputs(torch, b, seq, dt, seq, kvh, grp, hd)
             tol, lse_tol = DECODE_TOL
-            for cap in (None, 30.0):
+            for cap in (None, DECODE_SOFTCAP[shape]):
                 for mask_name, valid in masks.items():
                     got = G.gqa_decode(q, k, v, valid, softcap=cap)
                     want = G.gqa_decode_plain(q, k, v, valid, softcap=cap)
@@ -476,11 +515,21 @@ def phase_decode_kernel(torch, G):
                              f"{mask_name}: |out diff| {err}, |lse diff| "
                              f"{lse_err} (tolerances {tol}, {lse_tol})")
                     worst = max(worst, err)
+                    del got, want
             del q, k, v
-        print(f"[kernels] gqa_decode {shape} (b={b}, S={seq}, kvh={KVH}, "
-              f"g={GROUP}, hd={HEAD_DIM}): within tolerance of the plain "
-              f"version (f32+bf16, softcap none+30, ragged frontier, "
-              f"masked tiles, holes)")
+            torch.cuda.empty_cache()
+        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+        ctas, _ = G.occupancy(0, False, hd, grp)
+        rl, nr = G.decode_splits(b * kvh, seq, n_sms,
+                                 G.decode_tile(hd, torch.float32),
+                                 ctas_per_sm=ctas)
+        clusters = G.occupancy(0, False, hd, grp, nr)[1]
+        print(f"[kernels] gqa_decode {shape} (b={b}, S={seq}, kvh={kvh}, "
+              f"g={grp}, hd={hd}): within tolerance of the plain version "
+              f"(f32+bf16, softcap none+{DECODE_SOFTCAP[shape]:g}, "
+              f"{', '.join(masks)}); float32: {nr} ranges of {rl} "
+              f"positions per row, {ctas} CTAs per SM, {clusters} clusters "
+              f"of {nr} resident at once")
     return {"gqa_decode": worst}
 
 
@@ -884,15 +933,14 @@ def phase_parity(torch, train):
               f"{FLOAT_ATOL} {frac_off!r}, losses {l_gpu} vs {l_cpu}")
 
 
-def decode_bound(b, seq, n_valid, elt):
+def decode_bound(b, seq, n_valid, elt, kvh=KVH, grp=GROUP, hd=HEAD_DIM):
     """Least bytes and operations of one flash-decode call: q, each valid
     position's K and V row once, the mask, and m, l, acc out; per valid
     position and query 2 x hd for q . k, 2 x hd for p v and ~8 for the
     scale, max, exp and rescale."""
-    n_bytes = (b * KVH * GROUP * HEAD_DIM * 4
-               + 2 * b * n_valid * KVH * HEAD_DIM * elt + seq
-               + b * KVH * GROUP * (2 + HEAD_DIM) * 4)
-    n_ops = b * KVH * n_valid * GROUP * (4 * HEAD_DIM + 8)
+    n_bytes = (b * kvh * grp * hd * 4 + 2 * b * n_valid * kvh * hd * elt
+               + seq + b * kvh * grp * (2 + hd) * 4)
+    n_ops = b * kvh * n_valid * grp * (4 * hd + 8)
     return n_bytes, n_ops
 
 
@@ -906,13 +954,14 @@ def sdpa_calls(torch, q, k, v, valid, n_valid):
     (made once, outside the timing).  Returns {label: callable}."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    b, seq = k.shape[:2]
+    b, kvh, grp, hd = q.shape
+    seq = k.shape[1]
     if not torch.equal(valid, torch.arange(seq, device="cuda") < n_valid):
         fail("gqa_decode timing: the valid positions are not a prefix")
     ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
     kp, vp = ks[:, :, :n_valid], vs[:, :, :n_valid]
     ways = {"masked cache layout, enable_gqa":
-            (q.reshape(b, KVH * GROUP, 1, HEAD_DIM), ks, vs,
+            (q.reshape(b, kvh * grp, 1, hd), ks, vs,
              {"attn_mask": valid[None, :], "enable_gqa": True}),
             "prefix, strided": (q, kp, vp, {}),
             "prefix, contiguous": (q, kp.contiguous(), vp.contiguous(), {})}
@@ -924,7 +973,7 @@ def sdpa_calls(torch, q, k, v, valid, n_valid):
             def call(qq=qq, kk=kk, vv=vv, kw=kw, backend=backend):
                 with sdpa_kernel(backend):
                     out = F.scaled_dot_product_attention(qq, kk, vv, **kw)
-                return out.reshape(b, KVH, GROUP, HEAD_DIM)
+                return out.reshape(b, kvh, grp, hd)
             try:
                 with warnings.catch_warnings():
                     warnings.simplefilter("ignore")
@@ -939,22 +988,25 @@ def sdpa_calls(torch, q, k, v, valid, n_valid):
 #: distinct (q, K, V) sets the serve shape's timing rotates over: 4 x
 #: 100.8 MB, so every call finds its K and V cold in the 50 MB L2, as the
 #: serve loop over 30 layers' caches does (decode_32k's 6.4 GB is cold)
-DECODE_TIMING_SETS = {"serve": 4, "decode_32k": 1}
-DECODE_TIMING_REPS = {"serve": 200, "decode_32k": 20}
-#: ranges per row the decode timing also tries (``gqa_decode(ranges=)``)
-DECODE_SWEEP = {"serve": (1, 2, 3, 4, 8), "decode_32k": (1, 2, 4)}
+DECODE_TIMING_SETS = {"serve": 4, "decode_32k": 1, "long_500k": 1}
+DECODE_TIMING_REPS = {"serve": 200, "decode_32k": 20, "long_500k": 20}
+#: ranges per row the decode timing also tries (``gqa_decode(ranges=)``);
+#: long_500k's rows take 16 ranges at the least
+DECODE_SWEEP = {"serve": (1, 2, 3, 4, 8), "decode_32k": (1, 2, 4),
+                "long_500k": ()}
 
 
 def phase_decode_timing(torch, G, launches, errs):
     """The flash-decode kernel, its plain version and the library call
-    that computes the normalised output (#9 plus the combine) at the serve
-    shape and at decode_32k's, float32, on the mask of a decode at the
+    that computes the normalised output (#9 plus the combine) at each of
+    DECODE_SHAPES, float32, on the mask of a decode at the
     cache's last position but one, each timed over ``DECODE_TIMING_SETS``
     operand sets in turn.  The library time is the fastest of
     ``sdpa_calls``.  Returns the serve shape's row."""
     row = None
-    for shape, (b, seq) in DECODE_SHAPES.items():
-        sets = [decode_inputs(torch, b, seq, torch.float32, 11 + i)
+    for shape, (b, seq, kvh, grp, hd) in DECODE_SHAPES.items():
+        sets = [decode_inputs(torch, b, seq, torch.float32, 11 + i, kvh, grp,
+                              hd)
                 for i in range(DECODE_TIMING_SETS[shape])]
         reps = DECODE_TIMING_REPS[shape]
         valid = torch.arange(seq, device="cuda") <= seq - 2
@@ -966,8 +1018,9 @@ def phase_decode_timing(torch, G, launches, errs):
             lambda q=q, k=k, v=v: G.gqa_decode_plain(q, k, v, valid)
             for q, k, v in sets], max(4, reps // 20))
         chosen = G.decode_splits(
-            b * KVH, seq, torch.cuda.get_device_properties(0)
-            .multi_processor_count, G.decode_tile(HEAD_DIM, torch.float32))
+            b * kvh, seq, torch.cuda.get_device_properties(0)
+            .multi_processor_count, G.decode_tile(hd, torch.float32),
+            ctas_per_sm=G.occupancy(0, False, hd, grp)[0])
         for ranges in DECODE_SWEEP[shape]:
             r_ms = time_ms([
                 lambda q=q, k=k, v=v: G.gqa_decode(q, k, v, valid,
@@ -995,10 +1048,11 @@ def phase_decode_timing(torch, G, launches, errs):
         lib_label = min(lib, key=lib.get)
         lib_ms = lib[lib_label]
         del per_set, outs
-        nb, no = decode_bound(b, seq, n_valid, 4)
+        nb, no = decode_bound(b, seq, n_valid, 4, kvh, grp, hd)
         b_ms, b_by = bound(nb, no)
-        print(f"[timing] gqa_decode {shape} (b={b}, S={seq}, {n_valid} "
-              f"valid, f32, {len(sets)} operand sets in turn): {ms:.4f} ms "
+        print(f"[timing] gqa_decode {shape} (b={b}, S={seq}, kvh={kvh}, "
+              f"g={grp}, hd={hd}, {n_valid} valid, f32, {len(sets)} operand "
+              f"sets in turn): {ms:.4f} ms "
               f"(plain {plain_ms:.4f} ms, fastest scaled_dot_product_"
               f"attention {lib_ms:.4f} ms, {lib_label}; bound {b_ms:.4f} ms "
               f"by {b_by}: {nb / 1e9:.4f} GB, {no / 1e9:.4f} GFLOP, "
@@ -1153,6 +1207,185 @@ def phase_timing(torch, Q, D, BP, launches, errs, n_rows, leaf_rows):
     return rows
 
 
+#: the paper's reference path on the card: Fig. 10's largest circle (n =
+#: 20) at P = 2^22 coordinates per node, StepSize(0.01, eta=0.5), gamma 1
+PAPER_NODES, PAPER_DIM, PAPER_STEPS = 20, 1 << 22, 500
+IDENTITY_STEPS, TRAJECTORY_STEPS, PAPER_STEP0 = 50, 20, 10
+#: the Fig. 1 contrast the card must show: direct compression's iterate
+#: stays at least this many times farther from uncompressed DGD's
+FIG1_RATIO = 10.0
+
+
+def phase_paper(torch, Q, entries):
+    """The paper's reference algorithms (``repro_torch.core.consensus``)
+    on ``paper_circle_problem(20, dim=2^22)`` over ``paper_circle(20)``:
+    kernel #3 through ``Int8BlockQuantizer`` against its plain version;
+    identity ADC-DGD against DGD; then, counted, ADC-DGD int8 fixed and
+    adaptive, CompressedDGD int8 adaptive (fixed would clip x itself at
+    127 x 1e-3) and DGD for PAPER_STEPS steps each; and the kernel and
+    plain ADC-DGD trajectories.  Returns (launches, errs)."""
+    from repro_torch.core import compression as C
+    from repro_torch.core import consensus as K
+    from repro_torch.core import problems as P
+    from repro_torch.core import topology as T
+    t0 = time.perf_counter()
+    prob = P.paper_circle_problem(PAPER_NODES, seed=0, dim=PAPER_DIM,
+                                  device="cuda")
+    mix = T.paper_circle(PAPER_NODES)
+    step = K.StepSize(0.01, eta=0.5)
+    print(f"[paper] paper_circle_problem({PAPER_NODES}, dim={PAPER_DIM}) on "
+          f"the card in {time.perf_counter() - t0:.2f} s; state "
+          f"({PAPER_NODES}, {PAPER_DIM}) float32, "
+          f"{PAPER_NODES * PAPER_DIM * 4 / 1e6:.1f} MB per buffer", flush=True)
+
+    # kernel #3 through the compressor, against its plain version
+    g = torch.Generator(device="cuda")
+    g.manual_seed(16)
+    z = torch.randn((PAPER_NODES, PAPER_DIM), generator=g, device="cuda")
+    q_abs = 0.0
+    for mode, scale in (("fixed", 0.05), ("adaptive", 1.0)):
+        comp = C.Int8BlockQuantizer(mode=mode)
+        u = torch.rand(comp.uniform_shape(z.shape), generator=g,
+                       device="cuda")
+        before = Q.quantize_blocks.launches
+        codes, scales, _ = comp.encode(z * scale, u)
+        rows = codes.numel() // BLOCK
+        want = Q.quantize_blocks_plain((z * scale).reshape(rows, BLOCK),
+                                       u.reshape(rows, BLOCK),
+                                       comp.step if mode == "fixed" else None)
+        torch.cuda.synchronize()
+        if Q.quantize_blocks.launches != before + 1 or not (
+                torch.equal(codes.reshape(rows, BLOCK), want[0])
+                and torch.equal(scales.reshape(rows, 1).view(torch.int32),
+                                want[1].view(torch.int32))):
+            fail(f"Int8BlockQuantizer {mode} on the card: "
+                 f"{Q.quantize_blocks.launches - before} launches, "
+                 f"{int((codes.reshape(rows, BLOCK) != want[0]).sum())} "
+                 "codes differ from quantize_blocks_plain")
+        q_abs = max(q_abs, float((codes.reshape(rows, BLOCK).float()
+                                  * scales.reshape(rows, 1)
+                                  - want[0].float() * want[1]).abs().max()))
+        print(f"[paper] Int8BlockQuantizer {mode}: one quantize_blocks "
+              f"launch over {rows} rows; codes and scales equal to the "
+              "plain version")
+    # #3 at the paper path's rows, timed as the timing phase times it
+    yr, ur = (z * 1.0).reshape(rows, BLOCK), u.reshape(rows, BLOCK)
+    ms = kernel_time(f"quantize_blocks paper ({rows} rows)",
+                     lambda: Q.quantize_blocks(yr, ur, None))
+    b_ms, b_by = bound(2 * rows * BLOCK * 4 + rows * BLOCK + rows * 4,
+                       rows * BLOCK * 10)
+    print(f"[timing] quantize_blocks at the paper path's {rows} rows: "
+          f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+          f"{ms and b_ms / ms:.1%} of it)")
+    del z, u, codes, scales, want, yr, ur
+
+    def paper_run(alg, n_steps, key=0, **kw):
+        """One ``run`` with its per-step CUDA events and peak memory."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = []
+        t0 = time.perf_counter()
+        r = K.run(alg, prob, n_steps, key=key, step_events=events, **kw)
+        wall = time.perf_counter() - t0
+        ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        return r, {"step_ms": statistics.median(ms[PAPER_STEP0:]),
+                   "wall_s": wall,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+    # identity ADC-DGD is DGD, bit for bit
+    ident, _ = paper_run(K.ADCDGD(mix, C.IdentityCompressor(), step),
+                         IDENTITY_STEPS)
+    dgd50, _ = paper_run(K.DGD(mix, step), IDENTITY_STEPS)
+    for name in ("x_final", "obj", "grad_norm", "consensus"):
+        if not np_equal(ident[name], dgd50[name]):
+            fail(f"identity ADC-DGD differs from DGD in {name} after "
+                 f"{IDENTITY_STEPS} steps on the card")
+    print(f"[paper] identity-compressor ADC-DGD == DGD bitwise over "
+          f"{IDENTITY_STEPS} steps (x_final, obj, grad_norm, consensus)")
+    del ident, dgd50
+
+    # the counted path: four algorithms, PAPER_STEPS steps each
+    algs = {
+        "adc_dgd int8 fixed": K.ADCDGD(
+            mix, C.Int8BlockQuantizer(mode="fixed"), step),
+        "adc_dgd int8 adaptive": K.ADCDGD(
+            mix, C.Int8BlockQuantizer(mode="adaptive"), step),
+        "compressed_dgd int8 adaptive": K.CompressedDGD(
+            mix, C.Int8BlockQuantizer(mode="adaptive"), step),
+        "dgd": K.DGD(mix, step)}
+    for entry in entries.values():
+        entry.launches = 0
+    results, stats = {}, {}
+    for name, alg in algs.items():
+        r, st = paper_run(alg, PAPER_STEPS)
+        results[name] = r
+        stats[name] = st
+        finite = all(np.isfinite(r[m]).all() for m in
+                     ("obj", "grad_norm", "consensus", "max_tx", "x_final"))
+        if not finite or r["x_final"].shape != (PAPER_NODES, PAPER_DIM):
+            fail(f"{name}: non-finite metrics or x_final "
+                 f"{r['x_final'].shape}")
+        print(f"[paper] {name}, {PAPER_STEPS} steps: step "
+              f"{st['step_ms']:.4f} ms (CUDA events, median of steps "
+              f"{PAPER_STEP0}-{PAPER_STEPS}), run {st['wall_s']:.2f} s; final "
+              f"grad_norm {r['grad_norm'][-1]!r}, consensus "
+              f"{r['consensus'][-1]!r}, max_tx {r['max_tx'].max()!r}; wire "
+              f"{alg.bytes_per_iteration(prob):.0f} bytes per step; peak "
+              f"memory {st['peak_gb']:.2f} GB", flush=True)
+    launches = {name: entry.launches for name, entry in entries.items()}
+    want = {name: 0 for name in entries}
+    want["quantize_blocks"] = 3 * PAPER_STEPS
+    if launches != want:
+        fail(f"paper path launched {launches}, want {want}")
+    x_dgd = results["dgd"]["x_final"]
+    off = {name: float(np.linalg.norm(results[name]["x_final"] - x_dgd))
+           for name in ("adc_dgd int8 adaptive",
+                        "compressed_dgd int8 adaptive")}
+    ratio = off["compressed_dgd int8 adaptive"] / max(
+        off["adc_dgd int8 adaptive"], 1e-30)
+    cons = {name: float(r["consensus"][-1]) for name, r in results.items()}
+    cons_ratio = (cons["compressed_dgd int8 adaptive"]
+                  / cons["adc_dgd int8 adaptive"])
+    print(f"[paper] Fig. 1 contrast at N {PAPER_NODES}, P {PAPER_DIM}: "
+          f"|x - x_dgd| adc_dgd {off['adc_dgd int8 adaptive']!r}, "
+          f"compressed_dgd {off['compressed_dgd int8 adaptive']!r}, ratio "
+          f"{ratio:.1f} (need >= {FIG1_RATIO:g}); last consensus error "
+          f"compressed_dgd / adc_dgd = "
+          f"{cons_ratio:.4f}"
+          f" (dgd itself {cons['dgd']!r}: DGD's own error ball)")
+    if ratio < FIG1_RATIO:
+        fail(f"Fig. 1 contrast: compressed_dgd only {ratio:.2f}x farther "
+             "from DGD than adc_dgd")
+    del results
+
+    # the kernel path and the plain path give the same ADC-DGD trajectory
+    alg = algs["adc_dgd int8 adaptive"]
+    kern, _ = paper_run(alg, TRAJECTORY_STEPS, key=5)
+    real = Q.quantize_blocks
+    Q.quantize_blocks = Q.quantize_blocks_plain
+    try:
+        plain, _ = paper_run(alg, TRAJECTORY_STEPS, key=5)
+    finally:
+        Q.quantize_blocks = real
+    for name in ("x_final", "obj", "grad_norm", "consensus", "max_tx"):
+        if not np_equal(kern[name], plain[name]):
+            fail(f"ADC-DGD through kernel #3 and through its plain version "
+                 f"differ in {name} after {TRAJECTORY_STEPS} steps")
+    print(f"[paper] ADC-DGD int8 adaptive through kernel #3 and through "
+          f"quantize_blocks_plain: bitwise equal trajectories over "
+          f"{TRAJECTORY_STEPS} steps from the same generator")
+    del kern, plain, prob
+    torch.cuda.empty_cache()
+    for name, st in stats.items():
+        print(f"[summary] paper path {name}: step {st['step_ms']:.4f} ms, "
+              f"peak memory {st['peak_gb']:.2f} GB")
+    return launches, {"quantize_blocks": q_abs}
+
+
+def np_equal(a, b) -> bool:
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
 def phase_exchange_time(torch, train):
     """Device time of one consensus exchange of the full 4-node smollm
     state (encode + combine + packing + noise) for each codec."""
@@ -1219,6 +1452,10 @@ def main() -> None:
     phase_serve_profile(torch, G)
     phase_parity(torch, train)
     phase_serve_parity(torch)
+    paper_launches, paper_errs = phase_paper(torch, Q, entries)
+    launches["quantize_blocks"] += paper_launches["quantize_blocks"]
+    errs["quantize_blocks"] = max(errs["quantize_blocks"],
+                                  paper_errs["quantize_blocks"])
     rows = phase_timing(torch, Q, D, BP, launches, errs, n_rows, leaf_rows)
     rows.append(phase_decode_timing(torch, G, launches, errs))
     exchange_ms = phase_exchange_time(torch, train)

@@ -1,0 +1,615 @@
+"""Consensus algorithms: ADC-DGD (the paper's contribution) and baselines;
+the static-mixing part of ``repro.core.consensus``.
+
+Single-process reference implementations on stacked node states ``x`` of
+shape ``(N, P)``, float32 on the problem's device.  One node's row is one
+node's iterate; the mixing ``W @ x`` is one ``torch.matmul`` (float32:
+``run`` keeps TF32 off on the card).
+
+  * ``ADCDGD``          — Algorithm 2: amplified-differential compression.
+  * ``DGD``             — Algorithm 1 (Nedic & Ozdaglar), no compression.
+  * ``DGDt``            — DGD^t (Berahas et al. [21]): t consensus steps per
+                          gradient step.
+  * ``CompressedDGD``   — Eq. (5): DGD with *directly* compressed exchanges;
+                          provably non-convergent (the paper's Fig. 1).
+  * ``CHOCOGossip``     — CHOCO-SGD (Koloskova et al.): error-feedback
+                          compressed gossip.
+  * ``CEDAS``           — one-step-stale ADC gossip; ``staleness=0`` is
+                          ``ADCDGD``.
+  * ``CentralizedGD``   — gradient descent on the global f.
+
+Every algorithm is a frozen dataclass with ``init(problem)`` and
+``step(state, problem, u=None) -> (state, metrics)``, where ``u`` holds
+the step's uniforms for the compressor (``uniform_shape``; the reference
+draws them from per-node keys ``jax.random.split(key, N)``).  The step
+counter ``state["k"]`` is a Python int, and every scalar of a step (the
+amplification ``k**gamma``, the step size) is the float32 value the
+reference's compiled step computes (``core.f32``).  A division by such a
+scalar divides by a 0-dim tensor on the device, never by a Python float,
+which PyTorch's CUDA kernels would turn into a product with a reciprocal.
+
+``run`` drives the steps in a Python loop and keeps the paper's metrics on
+the device until the end.  Directed (push-sum) mixing, time-varying
+schedules, elastic membership, hierarchy and wire plans are not ported
+yet: they raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from .compression import Compressor, IdentityCompressor
+from .f32 import f32, over_power, power, recip
+from .problems import ConsensusProblem
+from .topology import MixingMatrix
+
+__all__ = [
+    "StepSize",
+    "ADCDGD",
+    "DGD",
+    "DGDt",
+    "CompressedDGD",
+    "CHOCOGossip",
+    "CEDAS",
+    "CentralizedGD",
+    "run",
+    "run_many",
+    "run_elastic",
+    "pod_problem",
+    "run_hierarchical",
+    "by_name",
+    "on_wire_plan",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class StepSize:
+    """alpha_k = alpha0 / k^eta  (eta = 0 -> constant step-size)."""
+
+    alpha0: float
+    eta: float = 0.0
+
+    def __call__(self, k) -> float:
+        """The float32 step size at step ``k``: ``alpha0 / max(1, k)**eta``
+        as compiled (``alpha0 * pow(k, -eta)``)."""
+        return float(over_power(self.alpha0, max(f32(1.0), f32(k)),
+                                self.eta))
+
+
+def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A float32 0-dim tensor on ``like``'s device (a fill, no copy)."""
+    return torch.full((), v, dtype=torch.float32, device=like.device)
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not yet ported")
+
+
+class _Algorithm:
+    """Interface: see module docstring."""
+
+    name: str = "algorithm"
+
+    def __post_init__(self):
+        mixing = getattr(self, "mixing", None)
+        if mixing is None:
+            return
+        if getattr(mixing, "is_directed", False):
+            _not_ported("push-sum over a directed (column-stochastic) "
+                        "mixing matrix")
+        if getattr(mixing, "period", 1) > 1:
+            _not_ported("a time-varying TopologySchedule (period > 1)")
+        if not isinstance(mixing, MixingMatrix):
+            raise TypeError(f"mixing must be a MixingMatrix, got "
+                            f"{type(mixing).__name__}")
+
+    def init(self, problem: ConsensusProblem, x0=None) -> dict[str, Any]:
+        raise NotImplementedError
+
+    def step(self, state, problem: ConsensusProblem, u=None):
+        raise NotImplementedError
+
+    def uniform_shape(self, problem: ConsensusProblem):
+        """Shape of one step's uniforms (None: the step draws none)."""
+        comp = getattr(self, "compressor", None)
+        if comp is None:
+            return None
+        return comp.uniform_shape((problem.n_nodes, problem.dim))
+
+    def bytes_per_iteration(self, problem: ConsensusProblem) -> float:
+        """Mean wire bytes per iteration over the whole network: each node
+        broadcasts one message per iteration; every undirected edge carries
+        it in both directions -> 2*E messages of P elements."""
+        raise NotImplementedError
+
+    def _w(self, device, matrix: np.ndarray | None = None) -> torch.Tensor:
+        """The mixing matrix (or ``matrix``) as float32 on ``device``,
+        copied there once."""
+        key = ("w", str(device), id(matrix))
+        cache = self.__dict__.setdefault("_dev_cache", {})
+        if key not in cache:
+            src = self.mixing.w if matrix is None else matrix
+            cache[key] = torch.as_tensor(np.asarray(src, np.float64),
+                                         dtype=torch.float32, device=device)
+        return cache[key]
+
+    def _compressed_broadcast_bytes(self, problem) -> float:
+        """One compressed broadcast per node per iteration, over every
+        message of the mixing graph (``WireAccounting.shipped_payload``)."""
+        return float(self.mixing.n_messages
+                     * self.compressor.wire_bytes(problem.dim))
+
+
+def _start(problem, n, x0):
+    """The shared start x0 (zeros by default) as float32 on the problem's
+    device."""
+    if x0 is None:
+        return torch.zeros((n, problem.dim), device=problem.device)
+    return torch.as_tensor(x0, dtype=torch.float32, device=problem.device)
+
+
+def _max_abs(t: torch.Tensor) -> torch.Tensor:
+    return t.abs().amax()
+
+
+@dataclasses.dataclass(frozen=True)
+class ADCDGD(_Algorithm):
+    """Amplified-Differential Compression DGD (paper Algorithm 2).
+
+    Per iteration k (k = 1, 2, ...):
+        y_i,k   = x_i,k - xt_i,k-1                (local differential)
+        d_i,k   = C(k^gamma * y_i,k)              (amplified, compressed, sent)
+        xt_j,k  = xt_j,k-1 + d_j,k / k^gamma      (receiver-side integration)
+        x_i,k+1 = sum_j W_ij xt_j,k - alpha_k grad f_i(x_i,k)
+
+    The amplification turns the per-step compression noise into
+    eps/k^gamma — zero mean, variance sigma^2/k^(2gamma) -> 0 for
+    gamma > 1/2 (paper Eq. (8)).  With the identity compressor the wire
+    carries y exactly, so xt_k = x_k: the step then takes x itself (the
+    float round trip k^g y / k^g would only add rounding) and is DGD bit
+    for bit.
+    """
+
+    mixing: MixingMatrix
+    compressor: Compressor
+    stepsize: StepSize
+    gamma: float = 1.0
+    name: str = "adc_dgd"
+
+    def init(self, problem, x0=None):
+        n = self.mixing.n
+        assert n == problem.n_nodes, (n, problem.n_nodes)
+        x0 = _start(problem, n, x0)
+        # paper init, generalized: all nodes start at the shared x0, take
+        # the first gradient step; xt stays at x0
+        x1 = x0 - self.stepsize(1.0) * problem.grad_fn(x0)
+        return {"x": x1, "x_tilde": x0, "k": 1}
+
+    def step(self, state, problem, u=None):
+        x = state["x"]
+        w = self._w(x.device)
+        k = f32(state["k"])
+        kg = power(k, self.gamma)
+        y = x - state["x_tilde"]                              # (N, P)
+        if isinstance(self.compressor, IdentityCompressor):
+            x_tilde = x
+            max_tx = float(kg) * _max_abs(y)   # = max |k^g y|, rounded alike
+        else:
+            d = self.compressor.apply(float(kg) * y, u)       # transmitted
+            x_tilde = state["x_tilde"] + d / _scalar(kg, d)
+            max_tx = _max_abs(d)                              # paper Fig. 8
+        alpha = self.stepsize(k)
+        x_next = w @ x_tilde - alpha * problem.grad_fn(x)
+        return ({"x": x_next, "x_tilde": x_tilde, "k": state["k"] + 1},
+                {"max_transmitted": max_tx, "alpha": alpha})
+
+    def bytes_per_iteration(self, problem):
+        return self._compressed_broadcast_bytes(problem)
+
+
+@dataclasses.dataclass(frozen=True)
+class CEDAS(_Algorithm):
+    """One-step-stale compressed diffusion (after CEDAS — Huang & Pu): the
+    compressed increment ``d_k`` transmitted at step k is integrated at
+    step k+1, and the gossip term is the diffusion difference of shadows
+    at a common lag:
+
+        h_k     = h_{k-1} + d_{k-1} / (k-1)^gamma          (retire)
+        x_{k+1} = x_k - alpha_k grad f_i
+                  + mix_step * (sum_j W_ij h_j,k - h_i,k)  (diffusion)
+        d_k     = C(k^gamma (x_{k+1} - h_k))               (launch)
+
+    ``staleness=0`` removes the in-flight delay and is exactly ``ADCDGD``.
+    """
+
+    mixing: MixingMatrix
+    compressor: Compressor
+    stepsize: StepSize
+    gamma: float = 1.0
+    staleness: int = 1
+    mix_step: float = 0.5
+    name: str = "cedas"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.staleness not in (0, 1):
+            raise ValueError(
+                f"staleness must be 0 or 1, got {self.staleness}")
+        if not 0.0 < self.mix_step <= 1.0:
+            raise ValueError(
+                f"mix_step must be in (0, 1], got {self.mix_step}")
+
+    @functools.cached_property
+    def _eager(self) -> ADCDGD:
+        return ADCDGD(self.mixing, self.compressor, self.stepsize,
+                      gamma=self.gamma)
+
+    def init(self, problem, x0=None):
+        st = self._eager.init(problem, x0=x0)
+        if self.staleness:
+            # the in-flight increment (amplified domain); zero decodes to
+            # a no-op retire at k = 1
+            st["d_fly"] = torch.zeros_like(st["x_tilde"])
+        return st
+
+    def step(self, state, problem, u=None):
+        if self.staleness == 0:
+            return self._eager.step(state, problem, u)
+        x = state["x"]
+        w = self._w(x.device)
+        k = f32(state["k"])
+        # RETIRE the increment sent at step k-1 (max() guards k = 1, where
+        # d_fly is exactly zero)
+        kg_prev = power(max(f32(1.0), f32(k - f32(1.0))), self.gamma)
+        h = state["x_tilde"] + state["d_fly"] / _scalar(kg_prev, x)
+        alpha = self.stepsize(k)
+        x_next = (x - alpha * problem.grad_fn(x)
+                  + self.mix_step * (w @ h - h))
+        # LAUNCH the post-update differential against the drained shadow
+        kg = power(k, self.gamma)
+        d = self.compressor.apply(float(kg) * (x_next - h), u)
+        return ({"x": x_next, "x_tilde": h, "d_fly": d,
+                 "k": state["k"] + 1},
+                {"max_transmitted": _max_abs(d), "alpha": alpha})
+
+    def bytes_per_iteration(self, problem):
+        return self._compressed_broadcast_bytes(problem)
+
+
+@dataclasses.dataclass(frozen=True)
+class DGD(_Algorithm):
+    """Original DGD (paper Algorithm 1): x <- W x - alpha_k grad f(x)."""
+
+    mixing: MixingMatrix
+    stepsize: StepSize
+    name: str = "dgd"
+    #: bytes per transmitted element (paper stores uncompressed as double)
+    elem_bytes: float = 8.0
+
+    def init(self, problem, x0=None):
+        x0 = _start(problem, self.mixing.n, x0)
+        return {"x": x0 - self.stepsize(1.0) * problem.grad_fn(x0), "k": 1}
+
+    def step(self, state, problem, u=None, w=None):
+        """``w``: the mixing matrix to apply (DGD^t passes W^t)."""
+        del u
+        x = state["x"]
+        w = self._w(x.device) if w is None else w
+        alpha = self.stepsize(f32(state["k"]))
+        x_next = w @ x - alpha * problem.grad_fn(x)
+        return {"x": x_next, "k": state["k"] + 1}, {
+            "max_transmitted": _max_abs(x), "alpha": alpha}
+
+    def bytes_per_iteration(self, problem):
+        return float(self.mixing.n_messages * self.elem_bytes * problem.dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class DGDt(_Algorithm):
+    """DGD^t (Berahas et al. [21]): t consensus rounds per gradient step.
+
+    Effective mixing matrix W^t (beta^t mixing) at t-fold communication
+    cost; W^t is formed once at construction, in float64, and copied to
+    the device once.
+    """
+
+    mixing: MixingMatrix
+    stepsize: StepSize
+    t: int = 3
+    name: str = "dgd_t"
+    elem_bytes: float = 8.0
+
+    def __post_init__(self):
+        super().__post_init__()
+        object.__setattr__(
+            self, "_w_eff",
+            np.linalg.matrix_power(np.asarray(self.mixing.w), self.t))
+
+    def _dgd(self) -> DGD:
+        return DGD(self.mixing, self.stepsize, elem_bytes=self.elem_bytes)
+
+    def init(self, problem, x0=None):
+        return self._dgd().init(problem, x0)
+
+    def step(self, state, problem, u=None):
+        return self._dgd().step(state, problem, u,
+                                w=self._w(state["x"].device, self._w_eff))
+
+    def bytes_per_iteration(self, problem):
+        return self.t * self._dgd().bytes_per_iteration(problem)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompressedDGD(_Algorithm):
+    """DGD with *direct* compression (paper Eq. (5)) — does NOT converge.
+
+    x_i <- W_ii x_i + sum_{j != i} W_ij C(x_j) - alpha grad f_i(x_i).
+    The compression noise enters undamped each iteration (paper Fig. 1).
+    """
+
+    mixing: MixingMatrix
+    compressor: Compressor
+    stepsize: StepSize
+    name: str = "compressed_dgd"
+
+    def init(self, problem, x0=None):
+        return DGD(self.mixing, self.stepsize).init(problem, x0)
+
+    def step(self, state, problem, u=None):
+        x = state["x"]
+        w = self._w(x.device)
+        alpha = self.stepsize(f32(state["k"]))
+        cx = self.compressor.apply(x, u)                   # broadcast C(x_j)
+        w_diag = torch.diag(torch.diag(w))
+        x_next = w_diag @ x + (w - w_diag) @ cx - alpha * problem.grad_fn(x)
+        return {"x": x_next, "k": state["k"] + 1}, {
+            "max_transmitted": _max_abs(cx), "alpha": alpha}
+
+    def bytes_per_iteration(self, problem):
+        return self._compressed_broadcast_bytes(problem)
+
+
+@dataclasses.dataclass(frozen=True)
+class CHOCOGossip(_Algorithm):
+    """CHOCO-SGD (Koloskova et al., arXiv:1902.00340): error-feedback
+    compressed gossip.
+
+        x_i^{t+1/2} = x_i^t - alpha_t grad f_i(x_i^t)       (local step)
+        q_i^t       = C(x_i^{t+1/2} - xh_i^t)               (compressed, sent)
+        xh_j^{t+1}  = xh_j^t + q_j^t                        (all replicas of j)
+        x_i^{t+1}   = x_i^{t+1/2}
+                      + lam * sum_j W_ij (xh_j^{t+1} - xh_i^{t+1})
+    """
+
+    mixing: MixingMatrix
+    compressor: Compressor
+    stepsize: StepSize
+    consensus_lr: float = 0.5
+    name: str = "choco_gossip"
+
+    def init(self, problem, x0=None):
+        n = self.mixing.n
+        assert n == problem.n_nodes, (n, problem.n_nodes)
+        x0 = _start(problem, n, x0)
+        x1 = x0 - self.stepsize(1.0) * problem.grad_fn(x0)
+        # xh_0 = 0; the first q transmits C(x_1)
+        return {"x": x1, "x_hat": torch.zeros_like(x0), "k": 1}
+
+    def step(self, state, problem, u=None):
+        x = state["x"]
+        w = self._w(x.device)
+        alpha = self.stepsize(f32(state["k"]))
+        x_half = x - alpha * problem.grad_fn(x)
+        q = self.compressor.apply(x_half - state["x_hat"], u)
+        x_hat = state["x_hat"] + q
+        # sum_j W_ij (xh_j - xh_i) = (W - I) xh  since rows of W sum to 1
+        x_next = x_half + self.consensus_lr * (w @ x_hat - x_hat)
+        return ({"x": x_next, "x_hat": x_hat, "k": state["k"] + 1},
+                {"max_transmitted": _max_abs(q), "alpha": alpha})
+
+    def bytes_per_iteration(self, problem):
+        return self._compressed_broadcast_bytes(problem)
+
+
+@dataclasses.dataclass(frozen=True)
+class CentralizedGD(_Algorithm):
+    """Classical gradient descent on the global objective (no network)."""
+
+    stepsize: StepSize
+    n_nodes: int = 1
+    name: str = "centralized_gd"
+
+    def init(self, problem, x0=None):
+        return {"x": _start(problem, problem.n_nodes, x0), "k": 1}
+
+    def step(self, state, problem, u=None):
+        del u
+        x = state["x"]
+        alpha = self.stepsize(f32(state["k"]))
+        x_bar = x.mean(dim=0)
+        g = problem.global_grad(x_bar) * float(recip(problem.n_nodes))
+        x_next = (x_bar - alpha * g).expand(x.shape).contiguous()
+        return {"x": x_next, "k": state["k"] + 1}, {
+            "max_transmitted": torch.zeros((), device=x.device),
+            "alpha": alpha}
+
+    def bytes_per_iteration(self, problem):
+        return 0.0
+
+
+# ---------------------------------------------------------------------------
+# Running the steps
+# ---------------------------------------------------------------------------
+
+def _metrics(state, problem) -> dict[str, torch.Tensor]:
+    """The paper's per-step metrics, as 0-dim tensors on the device."""
+    x = state["x"]
+    x_bar = x.mean(dim=0)
+    return {"obj": problem.global_obj(x_bar),
+            "grad_norm": torch.linalg.vector_norm(problem.global_grad(x_bar))
+            * float(recip(problem.n_nodes)),
+            "consensus": problem.consensus_error(x)}
+
+
+def _generator(problem, seed: int) -> torch.Generator:
+    g = torch.Generator(device=problem.device)
+    g.manual_seed(seed)
+    return g
+
+
+def _trajectory(algorithm, problem, n_steps: int, uniforms, x0,
+                step_events=None):
+    """The steps of one run: ``(final state, {metric: (n_steps,) tensor})``.
+    ``uniforms(i)`` gives step i's uniforms (0-based); ``step_events``, a
+    list, receives a CUDA event recorded before each step and one after
+    the last."""
+    state = algorithm.init(problem, x0=x0)
+    cols = {"obj": [], "grad_norm": [], "consensus": [], "max_tx": [],
+            "alpha": []}
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for i in range(n_steps):
+            if step_events is not None:
+                step_events.append(_event())
+            state, m = algorithm.step(state, problem, uniforms(i))
+            for name, v in _metrics(state, problem).items():
+                cols[name].append(v)
+            cols["max_tx"].append(torch.as_tensor(
+                m["max_transmitted"], dtype=torch.float32,
+                device=problem.device))
+            cols["alpha"].append(m["alpha"])
+        if step_events is not None:
+            step_events.append(_event())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    traj = {name: torch.stack(v) for name, v in cols.items()
+            if name != "alpha"}
+    traj["alpha"] = np.asarray(cols["alpha"], np.float32)
+    return state, traj
+
+
+def _event():
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def _drawer(algorithm, problem, seed: int, uniforms):
+    """Step i's uniforms: ``uniforms(i)`` when given, else a draw from one
+    ``torch.Generator`` on the problem's device seeded with ``seed``."""
+    if uniforms is not None:
+        return uniforms
+    shape = algorithm.uniform_shape(problem)
+    if shape is None:
+        return lambda i: None
+    gen = _generator(problem, seed)
+    return lambda i: torch.rand(shape, generator=gen,
+                                device=problem.device)
+
+
+def run(
+    algorithm: _Algorithm,
+    problem: ConsensusProblem,
+    n_steps: int,
+    key: int = 0,
+    x0=None,
+    log_every: int = 1,
+    uniforms: Callable[[int], torch.Tensor] | None = None,
+    step_events: list | None = None,
+) -> dict[str, np.ndarray]:
+    """Run ``n_steps`` iterations; return the paper's metrics.
+
+    The compressor's uniforms come from a ``torch.Generator`` on the
+    problem's device seeded with ``key``, or from ``uniforms(i)`` for step
+    ``i`` (0-based).  The metrics stay on the device until the run ends,
+    then are copied to the host at once.  On a CUDA problem,
+    ``step_events`` (a list) receives a timing event recorded before each
+    step and one after the last.
+
+    Returned dict (numpy arrays of length n_steps//log_every):
+      obj        — global objective at the mean iterate f(x_bar)
+      grad_norm  — ||(1/N) sum_i grad f_i(x_bar)||   (paper's y-axis)
+      consensus  — ||x - 1 (x) x_bar||               (Theorem 1 metric)
+      max_tx     — max transmitted magnitude          (paper Fig. 8)
+      alpha      — the step size of each step
+      bytes      — cumulative wire bytes              (paper Fig. 6)
+      x_final    — final stacked iterate (N, P)
+    """
+    state, traj = _trajectory(algorithm, problem, n_steps,
+                              _drawer(algorithm, problem, key, uniforms), x0,
+                              step_events)
+    sl = slice(log_every - 1, None, log_every)
+    result = {name: (v.cpu().numpy() if torch.is_tensor(v) else v)[sl]
+              for name, v in traj.items()}
+    per_iter = algorithm.bytes_per_iteration(problem)
+    result["bytes"] = (per_iter * (np.arange(n_steps, dtype=np.float64)
+                                   + 1))[sl]
+    result["x_final"] = state["x"].cpu().numpy()
+    return result
+
+
+def run_many(
+    algorithm: _Algorithm,
+    problem: ConsensusProblem,
+    n_steps: int,
+    n_trials: int,
+    seed: int = 0,
+    x0=None,
+) -> dict[str, np.ndarray]:
+    """Several independent trials of :func:`run` (trial ``i`` draws its
+    uniforms from a generator seeded ``seed + i``): metric arrays of shape
+    (n_trials, n_steps) — the Monte-Carlo means of the paper's Figs. 7/8/10.
+    """
+    trials = []
+    for i in range(n_trials):
+        _, traj = _trajectory(algorithm, problem, n_steps,
+                              _drawer(algorithm, problem, seed + i, None),
+                              x0)
+        trials.append({name: v for name, v in traj.items()
+                       if name != "alpha"})
+    return {name: torch.stack([t[name] for t in trials]).cpu().numpy()
+            for name in trials[0]}
+
+
+def run_elastic(*args, **kwargs):
+    _not_ported("run_elastic (elastic membership)")
+
+
+def pod_problem(*args, **kwargs):
+    _not_ported("pod_problem (two-level hierarchy)")
+
+
+def run_hierarchical(*args, **kwargs):
+    _not_ported("run_hierarchical (two-level hierarchy)")
+
+
+def on_wire_plan(*args, **kwargs):
+    _not_ported("on_wire_plan (wire plans)")
+
+
+def by_name(name: str, mixing: MixingMatrix, stepsize: StepSize,
+            compressor: Compressor | None = None, **kw) -> _Algorithm:
+    if name == "adc_dgd":
+        return ADCDGD(mixing, compressor or IdentityCompressor(), stepsize,
+                      **kw)
+    if name == "dgd":
+        return DGD(mixing, stepsize)
+    if name == "dgd_t":
+        return DGDt(mixing, stepsize, **kw)
+    if name == "compressed_dgd":
+        return CompressedDGD(mixing, compressor or IdentityCompressor(),
+                             stepsize)
+    if name in ("choco_gossip", "choco"):
+        return CHOCOGossip(mixing, compressor or IdentityCompressor(),
+                           stepsize, **kw)
+    if name == "cedas":
+        return CEDAS(mixing, compressor or IdentityCompressor(), stepsize,
+                     **kw)
+    if name == "centralized_gd":
+        return CentralizedGD(stepsize)
+    raise KeyError(f"unknown algorithm {name!r}")

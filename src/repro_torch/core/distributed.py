@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.core import codec as wire_codec
 from repro_torch.core import tree as T
 from repro_torch.core import wire
+from repro_torch.core.f32 import over_power, recip
 from repro_torch.kernels import ops as kops
 
 __all__ = ["ConsensusConfig", "ConsensusRuntime", "noise_seed"]
@@ -200,12 +201,12 @@ class ConsensusRuntime:
         return float(n - 1) * n_leaves     # rotation all-reduce
 
     def _step_k(self, step: int) -> float | None:
-        """Fixed mode: the grid step Delta_0 / k^gamma, in float32."""
+        """Fixed mode: the grid step Delta_0 / k^gamma, in float32, as the
+        reference's compiled step computes it (``f32.over_power``)."""
         if self.cfg.quant_mode != "fixed":
             return None
-        k = np.maximum(np.float32(1.0), np.float32(step))
-        return float(np.float32(self.cfg.fixed_step0)
-                     / k ** np.float32(self.cfg.gamma))
+        k = max(np.float32(1.0), np.float32(step))
+        return float(over_power(self.cfg.fixed_step0, k, self.cfg.gamma))
 
     def make_noise(self, layout: wire.WireLayout, step: int, seed: int,
                    device) -> torch.Tensor:
@@ -454,25 +455,43 @@ def _rowpad(a: torch.Tensor, rows: int) -> torch.Tensor:
     return F.pad(a, (0, 0, 0, rows - a.shape[-2]))
 
 
+def _fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as XLA contracts it: the float64
+    product of two float32 values is exact."""
+    return (c.to(torch.float64) + a.to(torch.float64) * b).to(torch.float32)
+
+
 def _allreduce_mean_delta(x_prev, x_half):
     """Synchronous data parallelism: every node steps by the node-mean of
-    the optimizer delta (the reference's rotation all-reduce)."""
-    n = T.tree_leaves(x_half)[0].shape[0]
+    the optimizer delta (the reference's rotation all-reduce).  The
+    reference's ``x + s / n`` compiles to one fused multiply-add with
+    float32(1/N)."""
+    inv_n = float(recip(T.tree_leaves(x_half)[0].shape[0]))
 
     def avg(p, h):
         delta = (h - p).to(torch.float32)
-        return (p.to(torch.float32) + _ring_sum(delta) / n).to(h.dtype)
+        return _fma(_ring_sum(delta), inv_n, p.to(torch.float32)).to(h.dtype)
 
     return T.tree_map(avg, x_prev, x_half)
 
 
 def _consensus_error(params) -> torch.Tensor:
-    """(1/N) sum_i ||x_i - mean_nodes(x)||^2 over all leaves (a metric)."""
+    """(1/N) sum_i ||x_i - mean_nodes(x)||^2 over all leaves (a metric).
+
+    In the reference's order: ``x - s / n`` is a fused multiply-add with
+    float32(1/N); each node adds its leaves' sums of squares, the nodes'
+    totals are added in node order, and the total is multiplied by
+    float32(1/N).  Within a leaf the elements are added in PyTorch's order.
+    """
     n = T.tree_leaves(params)[0].shape[0]
-    total = None
+    inv_n = float(recip(n))
+    per_node = None
     for x in T.tree_leaves(params):
         x = x.to(torch.float32)
-        d = x - _ring_sum(x) / n
-        e = (d * d).sum()
-        total = e if total is None else total + e
-    return total / n
+        d = _fma(_ring_sum(x), -inv_n, x)
+        e = (d * d).reshape(n, -1).sum(dim=1)
+        per_node = e if per_node is None else per_node + e
+    total = per_node[0]
+    for i in range(1, n):
+        total = total + per_node[i]
+    return total * inv_n

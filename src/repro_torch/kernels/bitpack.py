@@ -53,6 +53,10 @@ SUB_SCALE_BYTES = 2      # bf16 scale image appended to each payload row
 #: float32 constants of the reference, bit for bit
 EPS = float(np.float32(1e-30))         # absmax floor; top-k weight |y| + eps
 EPS_NOISE = float(np.float32(1e-37))   # floor of the race's uniform
+#: XLA's CPU compiler splits a reduction over more than 32 elements into
+#: runs of 32 (a reduce-window), each added left to right, and then adds
+#: the runs' sums left to right; the top-k stratum sum follows that order
+SUM_RUN = 32
 BF16_BUMP = 1.0 + 2.0 ** -7            # moves any bf16 to the next one up
 
 
@@ -179,8 +183,9 @@ def _topk_select(y, u_sel, k: int):
     The exponential race ``argmin_i -log(max(u_i, 1e-37)) / w_i`` with
     weights ``w_i = |y_i| + 1e-30`` picks i with probability ``w_i /
     sum(w)``; ties go to the lowest index.  The pick is sent as ``y_i *
-    (sum(w) / w_i)``.  ``sum(w)`` is added left to right over the stratum,
-    the order XLA's CPU reduction takes for g <= 32.
+    (sum(w) / w_i)``.  ``sum(w)`` is added in the order of the reference's
+    compiled CPU reduction: left to right over each run of 32 elements,
+    then the runs' partial sums left to right (one run for g <= 32).
 
     Returns (onehot3 (R, k, g) bool, v (R, k) float32)."""
     r, b = y.shape
@@ -192,9 +197,12 @@ def _topk_select(y, u_sel, k: int):
     kmin = keys.amin(dim=-1, keepdim=True)
     idx = torch.arange(g, device=y.device).expand(r, k, g)
     sel = torch.where(keys <= kmin, idx, g).amin(dim=-1, keepdim=True)
-    wsum = w[..., 0:1]
-    for j in range(1, g):
-        wsum = wsum + w[..., j:j + 1]
+    wsum = None
+    for c in range(0, g, SUM_RUN):
+        part = w[..., c:c + 1]
+        for j in range(c + 1, min(c + SUM_RUN, g)):
+            part = part + w[..., j:j + 1]
+        wsum = part if wsum is None else wsum + part
     v = torch.gather(y3, -1, sel) * (wsum / torch.gather(w, -1, sel))
     return idx == sel, v.squeeze(-1)
 

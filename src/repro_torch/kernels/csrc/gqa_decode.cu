@@ -18,12 +18,15 @@
 // design keeps enough bytes in flight and spends few instructions on them.
 // * One launch.  A CTA takes one (b, kv head) row and one range of its
 //   positions; the grid is sized to the card (decode_splits in
-//   kernels/gqa_decode.py: about two waves of the 3 CTAs an SM holds, in
-//   ranges of at least 20 tiles, so 3 ranges per row at the serve shape
-//   and 2 at decode_32k's).  The ranges of a row form one thread block
-//   cluster, and rank 0 merges their (m, l, acc) by log-sum-exp over
-//   distributed shared memory: no partials in device memory, no second
-//   launch.
+//   kernels/gqa_decode.py: about two waves of the CTAs an SM holds, 3
+//   (2 for float32 at hd 256), in ranges of at least 20 tiles, so 3
+//   ranges per row at the serve shape and 2 at decode_32k's).  The ranges
+//   of a row form one thread block cluster, and rank 0 merges their
+//   (m, l, acc) by log-sum-exp over distributed shared memory: no partials
+//   in device memory, no second launch.  A range holds at most 32,768
+//   positions (its mask bits live in shared memory), so a row of up to
+//   262,144 positions is a portable cluster of 8, and one of up to 524,288
+//   a non-portable cluster of 16 (Hopper allows 16 when the kernel asks).
 // * A pipelined shared-memory stream.  Tiles of kTile positions of one
 //   head (8 KB of K plus 8 KB of V) flow through a ring of kStages stages
 //   by 16-byte cp.async copies with commit/wait groups: three tiles are in
@@ -38,13 +41,16 @@
 //   bytes into bits in shared memory and lists the tiles with a valid
 //   position; only those are copied, so the positions past the causal
 //   frontier cost one byte of `valid` each.
-// * Compute from shared memory only.  Scores: 8 lanes share one
-//   position, each lane takes 16-byte chunks j, j + 8, ... of the K row
-//   (so the 8 lanes of a quarter warp read 128 contiguous bytes: no bank
-//   conflict, no padding) against q held in registers, then 3 shuffles sum
-//   the dot product; 4 positions per warp instruction.  p . V: each lane
-//   owns hd / 32 dimensions of the V row (contiguous across the warp) and
-//   reads p from shared memory by broadcast.  The position loop has no
+// * Compute from shared memory only.  Scores: kLanes lanes share one
+//   position (8 up to hd 128, the whole warp at hd 256), each lane takes
+//   16-byte chunks j, j + kLanes, ... of the K row (so the lanes read
+//   contiguous bytes: no bank conflict, no padding) against q held in
+//   registers, then log2(kLanes) shuffles sum the dot product; 32 / kLanes
+//   positions per warp instruction.  At hd 256 a quarter-warp group would
+//   hold 32 x g floats of q per lane (256 registers at g = 8).  p . V:
+//   each lane owns hd / 32 dimensions of the V row, in vectors of 16
+//   bytes at most, each vector contiguous across the warp, and reads p
+//   from shared memory by broadcast.  The position loop has no
 //   global load.  CUDA cores in float32 (~0.4 operations per byte: tensor
 //   cores would not pay, and TF32 would break the 1e-5 contract).
 // * Templated on g, so registers hold exactly the g queries of a head.
@@ -69,7 +75,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 4;
 constexpr int kTileBytes = 8192;    // one K (or V) tile in shared memory
 constexpr int kMaxRange = 32768;    // positions one CTA takes at most
-constexpr int kMaxRanges = 8;       // CTAs of one row (a portable cluster)
+constexpr int kMaxRanges = 16;      // CTAs of one row (a cluster)
 constexpr int kGMax = 8;            // queries per KV head (g) supported
 constexpr float kNeg = -1e30f;
 
@@ -79,15 +85,23 @@ struct Geo {
   static constexpr int kTile = kTileBytes / (HD * kElt);  // positions
   static constexpr int kE = 16 / kElt;          // elements per 16 B chunk
   static constexpr int kChunks = HD / kE;       // 16 B chunks per row
-  static constexpr int kCpl = kChunks / 8;      // chunks per score lane
+  static constexpr int kLanes = HD <= 128 ? 8 : 32;  // lanes per score
+  static constexpr int kGroups = 32 / kLanes;   // positions per pass
+  static constexpr int kCpl = kChunks / kLanes; // chunks per score lane
   static constexpr int kPerWarp = kTile / kWarps;
-  static constexpr int kPasses = kPerWarp / 4;  // 4 positions per pass
+  static constexpr int kPasses = kPerWarp / kGroups;
   static constexpr int kDims = HD / 32;         // p . V dims per lane
+  static constexpr int kVec = kDims < kE ? kDims : kE;  // dims per load
   static constexpr int kStageBytes = 2 * kTileBytes;
   static constexpr int kSmem = kStages * kStageBytes;
-  static_assert(kTile % 16 == 0 && kPasses >= 1, "tile geometry");
+  static_assert(kPerWarp % kGroups == 0 && kPasses >= 1, "tile geometry");
+  static_assert(kCpl >= 1 && kChunks % kLanes == 0, "score lanes");
   static_assert(kTile * kChunks * 16 == kTileBytes &&
                 (kTile * kChunks) % kThreads == 0, "tile bytes");
+  // the dimension of the row that lane `lane` holds in its slot d
+  static __device__ __forceinline__ int dim(int lane, int d) {
+    return (d / kVec) * 32 * kVec + lane * kVec + d % kVec;
+  }
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -129,7 +143,7 @@ __device__ __forceinline__ void chunk(const __nv_bfloat16*, const uint4& u,
   o[6] = lo_bf16(u.w); o[7] = hi_bf16(u.w);
 }
 
-// N = hd / 32 consecutive elements (2 or 4) of a row in shared memory
+// N consecutive elements (2, 4, or 8 of bf16) of a row in shared memory
 template <int N>
 __device__ __forceinline__ void dims(const float* p, float o[N]) {
   if constexpr (N == 2) {
@@ -145,10 +159,12 @@ __device__ __forceinline__ void dims(const __nv_bfloat16* p, float o[N]) {
   if constexpr (N == 2) {
     const uint32_t a = *reinterpret_cast<const uint32_t*>(p);
     o[0] = lo_bf16(a); o[1] = hi_bf16(a);
-  } else {
+  } else if constexpr (N == 4) {
     const uint2 a = *reinterpret_cast<const uint2*>(p);
     o[0] = lo_bf16(a.x); o[1] = hi_bf16(a.x);
     o[2] = lo_bf16(a.y); o[3] = hi_bf16(a.y);
+  } else {
+    chunk(p, *reinterpret_cast<const uint4*>(p), o);
   }
 }
 
@@ -171,7 +187,8 @@ gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
   constexpr int kTile = Ge::kTile, kE = Ge::kE, kChunks = Ge::kChunks;
   constexpr int kCpl = Ge::kCpl, kPerWarp = Ge::kPerWarp;
   constexpr int kPasses = Ge::kPasses, kDims = Ge::kDims;
-  constexpr int kHalves = kTile / 16;           // mask halfwords per tile
+  constexpr int kLanes = Ge::kLanes, kGroups = Ge::kGroups;
+  constexpr int kVec = Ge::kVec;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ uint16_t mask16[kMaxRange / 16];
   __shared__ int16_t live[kMaxRange / kTile];
@@ -183,14 +200,14 @@ gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
   const long long b = row / kvh;
   const int h = static_cast<int>(row % kvh);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane >> 3, j = lane & 7;      // score group, its lane
+  const int grp = lane / kLanes, j = lane % kLanes;  // score group, lane
 
   // 1. the range's mask as bits, and the list of tiles with a valid bit
   const int s0 = range * range_len;
   const int len = max(0, min(S, s0 + range_len) - s0);
   const int n_tiles = (len + kTile - 1) / kTile;
   const int n16 = (len + 15) / 16;
-  for (int c = tid; c < n_tiles * kHalves; c += kThreads) {
+  for (int c = tid; c < (n_tiles * kTile + 15) / 16; c += kThreads) {
     uint32_t bits = 0;
     const int p = s0 + 16 * c;
     if (c < n16) {
@@ -212,8 +229,14 @@ gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
       const int t = t0 + lane;
       bool any = false;
       if (t < n_tiles) {
+        if constexpr (kTile >= 16) {
 #pragma unroll
-        for (int x = 0; x < kHalves; ++x) any |= mask16[t * kHalves + x] != 0;
+          for (int x = 0; x < kTile / 16; ++x)
+            any |= mask16[t * (kTile / 16) + x] != 0;
+        } else {                  // a tile is part of one halfword
+          const int bit = t * kTile;
+          any = (mask16[bit >> 4] >> (bit & 15)) & ((1u << kTile) - 1u);
+        }
       }
       const unsigned bal = __ballot_sync(0xffffffffu, any);
       if (any) live[count + __popc(bal & ((1u << lane) - 1u))] =
@@ -229,7 +252,7 @@ gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
   for (int gi = 0; gi < G; ++gi) {
 #pragma unroll
     for (int cc = 0; cc < kCpl; ++cc) {
-      const float* src = q + (row * G + gi) * HD + (j + 8 * cc) * kE;
+      const float* src = q + (row * G + gi) * HD + (j + kLanes * cc) * kE;
 #pragma unroll
       for (int e = 0; e < kE; e += 4) {
         const float4 a = *reinterpret_cast<const float4*>(src + e);
@@ -287,7 +310,7 @@ gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
     bool any = false;
 #pragma unroll
     for (int ps = 0; ps < kPasses; ++ps) {
-      const int rel = tp + r0 + 4 * ps + grp;
+      const int rel = tp + r0 + kGroups * ps + grp;
       ok[ps] = (mask16[rel >> 4] >> (rel & 15)) & 1u;
       any |= ok[ps];
     }
@@ -298,14 +321,14 @@ gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
     float sc[kPasses][G];
 #pragma unroll
     for (int ps = 0; ps < kPasses; ++ps) {
-      const int r = r0 + 4 * ps + grp;
+      const int r = r0 + kGroups * ps + grp;
       float dot[G];
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) dot[gi] = 0.0f;
 #pragma unroll
       for (int cc = 0; cc < kCpl; ++cc) {
         const uint4 u = *reinterpret_cast<const uint4*>(
-            ks + (r * kChunks + j + 8 * cc) * 16);
+            ks + (r * kChunks + j + kLanes * cc) * 16);
         float kk[kE];
         chunk(static_cast<const T*>(nullptr), u, kk);
 #pragma unroll
@@ -319,7 +342,7 @@ gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
       for (int gi = 0; gi < G; ++gi) {
         float s = dot[gi];
 #pragma unroll
-        for (int off = 1; off < 8; off <<= 1)
+        for (int off = 1; off < kLanes; off <<= 1)
           s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
         s = __fmul_rn(s, scale);
         if (softcap > 0.0f)
@@ -332,8 +355,9 @@ gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
       float mx = sc[0][gi];
 #pragma unroll
       for (int ps = 1; ps < kPasses; ++ps) mx = fmaxf(mx, sc[ps][gi]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+#pragma unroll
+      for (int off = kLanes; off < 32; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[gi], mx);
       const float corr = expf(m[gi] - m_new);
       float psum = 0.0f;
@@ -341,10 +365,11 @@ gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
       for (int ps = 0; ps < kPasses; ++ps) {
         const float p = ok[ps] ? expf(sc[ps][gi] - m_new) : 0.0f;
         psum = __fadd_rn(psum, p);
-        if (j == 0) p_s[warp][gi][4 * ps + grp] = p;
+        if (j == 0) p_s[warp][gi][kGroups * ps + grp] = p;
       }
-      psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, 8));
-      psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, 16));
+#pragma unroll
+      for (int off = kLanes; off < 32; off <<= 1)
+        psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, off));
       l[gi] = __fmaf_rn(l[gi], corr, psum);
       m[gi] = m_new;
 #pragma unroll
@@ -354,7 +379,10 @@ gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int rr = 0; rr < kPerWarp; ++rr) {
       float vv[kDims];
-      dims<kDims>(vs + (r0 + rr) * HD + lane * kDims, vv);
+#pragma unroll
+      for (int x = 0; x < kDims / kVec; ++x)
+        dims<kVec>(vs + (r0 + rr) * HD + Ge::dim(lane, x * kVec),
+                   vv + x * kVec);
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
         const float p = p_s[warp][gi][rr];
@@ -383,7 +411,7 @@ gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
     }
 #pragma unroll
     for (int d = 0; d < kDims; ++d)
-      acc_w[(warp * G + gi) * HD + lane * kDims + d] = acc[gi][d];
+      acc_w[(warp * G + gi) * HD + Ge::dim(lane, d)] = acc[gi][d];
   }
   __syncthreads();
   const long long out = row * G;
@@ -438,6 +466,50 @@ gqa_decode_kernel(const float* __restrict__ q, const T* __restrict__ k,
   cluster.sync();                     // rank 0 has read every range
 }
 
+// Sets, once per device, the kernel's dynamic shared memory (64 KB, past
+// the 48 KB default) and leave to form clusters past the portable 8.
+template <typename T, int HD, int G>
+cudaError_t prepare() {
+  static unsigned set_on = 0;   // devices whose attributes are set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 32 || (set_on >> dev & 1u)) return err;
+  auto kern = gqa_decode_kernel<T, HD, G>;
+  err = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Geo<T, HD>::kSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) set_on |= 1u << dev;
+  return err;
+}
+
+// CTAs of the kernel one SM holds, and clusters of n_ranges CTAs the card
+// holds at once (0 when such a cluster cannot be placed).
+template <typename T, int HD, int G>
+int occupancy(int n_ranges, int* ctas_per_sm, int* clusters) {
+  auto kern = gqa_decode_kernel<T, HD, G>;
+  cudaError_t err = prepare<T, HD, G>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas_per_sm, kern, kThreads, Geo<T, HD>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_ranges));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = Geo<T, HD>::kSmem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(n_ranges);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kern,
+                                                         &cfg));
+}
+
 template <typename T, int HD, int G>
 int launch(const float* q, const void* k, const void* v,
            const uint8_t* valid, float* m, float* l, float* acc, int rows,
@@ -449,16 +521,8 @@ int launch(const float* q, const void* k, const void* v,
                     Ge::kSmem, "merge scratch");
   if (range_len % Ge::kTile != 0 || range_len > kMaxRange) return 1;
   auto kern = gqa_decode_kernel<T, HD, G>;
-  static unsigned set_on = 0;   // devices whose shared-memory limit is set
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = prepare<T, HD, G>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 32 && !(set_on >> dev & 1u)) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Ge::kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    set_on |= 1u << dev;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(rows * n_ranges));
   cfg.blockDim = dim3(kThreads);
@@ -495,13 +559,45 @@ int launch_g(int g, const float* q, const void* k, const void* v,
 #undef GQA_CASE
 }
 
+template <typename T, int HD>
+int occupancy_g(int g, int n_ranges, int* ctas_per_sm, int* clusters) {
+#define GQA_CASE(G) \
+  case G: return occupancy<T, HD, G>(n_ranges, ctas_per_sm, clusters);
+  switch (g) {
+    GQA_CASE(1) GQA_CASE(2) GQA_CASE(3) GQA_CASE(4)
+    GQA_CASE(5) GQA_CASE(6) GQA_CASE(7) GQA_CASE(8)
+    default: return 1;
+  }
+#undef GQA_CASE
+}
+
+// Calls F<T, HD>(args...) for the cache's element type and head dim, or
+// returns 1 for a head dim the kernel is not compiled for.
+#define GQA_DISPATCH(F, bf16, hd, ...)                                    \
+  do {                                                                    \
+    if (bf16) {                                                           \
+      switch (hd) {                                                       \
+        case 64: return F<__nv_bfloat16, 64>(__VA_ARGS__);                \
+        case 128: return F<__nv_bfloat16, 128>(__VA_ARGS__);              \
+        case 256: return F<__nv_bfloat16, 256>(__VA_ARGS__);              \
+        default: return 1;                                                \
+      }                                                                   \
+    }                                                                     \
+    switch (hd) {                                                         \
+      case 64: return F<float, 64>(__VA_ARGS__);                          \
+      case 128: return F<float, 128>(__VA_ARGS__);                        \
+      case 256: return F<float, 256>(__VA_ARGS__);                        \
+      default: return 1;                                                  \
+    }                                                                     \
+  } while (0)
+
 }  // namespace
 
 // q: (b, kvh, g, hd) f32; k, v: (b, S, kvh, hd) f32 (kv_is_bf16 == 0) or
 // bf16; valid: (S,) bytes; outputs m/l (b, kvh, g) and acc (b, kvh, g, hd)
-// f32 — all contiguous, q, k, v and valid 16-byte aligned.  hd is 64 or
-// 128, 1 <= g <= 8; each row's positions are cut into n_ranges <= 8 ranges
-// of range_len positions (a multiple of the tile, at most 32,768;
+// f32 — all contiguous, q, k, v and valid 16-byte aligned.  hd is 64, 128
+// or 256, 1 <= g <= 8; each row's positions are cut into n_ranges <= 16
+// ranges of range_len positions (a multiple of the tile, at most 32,768;
 // range_len * n_ranges >= S).  softcap <= 0 means none.  Returns 0, the
 // CUDA error of the launch, or 1 for an unsupported shape.
 extern "C" int gqa_decode_launch(const float* q, const void* k,
@@ -510,25 +606,22 @@ extern "C" int gqa_decode_launch(const float* q, const void* k,
                                  float* acc, int b, int S, int kvh, int g,
                                  int hd, int range_len, int n_ranges,
                                  float scale, float softcap, void* stream) {
-  if (g < 1 || g > kGMax || (hd != 64 && hd != 128) || n_ranges < 1 ||
-      n_ranges > kMaxRanges ||
+  if (g < 1 || g > kGMax || n_ranges < 1 || n_ranges > kMaxRanges ||
       static_cast<long long>(range_len) * n_ranges < S)
     return 1;
   if (b <= 0 || kvh <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rows = b * kvh;
-  if (kv_is_bf16) {
-    return hd == 64
-        ? launch_g<__nv_bfloat16, 64>(g, q, k, v, valid, m, l, acc, rows, S,
-                                      kvh, range_len, n_ranges, scale,
-                                      softcap, s)
-        : launch_g<__nv_bfloat16, 128>(g, q, k, v, valid, m, l, acc, rows,
-                                       S, kvh, range_len, n_ranges, scale,
-                                       softcap, s);
-  }
-  return hd == 64
-      ? launch_g<float, 64>(g, q, k, v, valid, m, l, acc, rows, S, kvh,
-                            range_len, n_ranges, scale, softcap, s)
-      : launch_g<float, 128>(g, q, k, v, valid, m, l, acc, rows, S, kvh,
-                             range_len, n_ranges, scale, softcap, s);
+  GQA_DISPATCH(launch_g, kv_is_bf16, hd, g, q, k, v, valid, m, l, acc,
+               b * kvh, S, kvh, range_len, n_ranges, scale, softcap, s);
+}
+
+// The kernel's CTAs per SM for (element type, hd, g), and how many
+// clusters of n_ranges CTAs the current device holds at once.  Returns 0,
+// a CUDA error, or 1 for an unsupported shape.
+extern "C" int gqa_decode_occupancy(int kv_is_bf16, int hd, int g,
+                                    int n_ranges, int* ctas_per_sm,
+                                    int* clusters) {
+  if (g < 1 || g > kGMax || n_ranges < 1 || n_ranges > kMaxRanges) return 1;
+  GQA_DISPATCH(occupancy_g, kv_is_bf16, hd, g, n_ranges, ctas_per_sm,
+               clusters);
 }

@@ -8,7 +8,7 @@
 //   w_i   = |y_i| + 1e-30
 //   key_i = -log(max(u_i, 1e-37)) / w_i                 (columns [0, 512))
 //   pick  = the lowest index of the stratum's least key
-//   v_s   = y_pick * (sum_stratum(w) / w_pick)          sum left to right
+//   v_s   = y_pick * (sum_stratum(w) / w_pick)          sum in runs of 32
 //   scale = bf16_up(max(absmax(v), 1e-30) * f32(1/127)) (adaptive)
 //         = bf16(step)                                  (fixed)
 //   q_s   = clip(floor(v_s/scale) + (u_{512+s} < frac), +-127)
@@ -21,7 +21,9 @@
 // noise in shared memory with coalesced 16-byte loads; then each lane runs
 // whole strata (s = lane, lane + 32, ...): one pass over the g elements
 // keeps the least key (strict <, so ties go to the lowest index) and adds
-// the weights left to right, the order of the reference's CPU reduction.
+// the weights in the order of the reference's compiled CPU reduction: left
+// to right within each run of 32 elements, then the runs' sums left to
+// right (g > 32 only, i.e. k < 16).
 // The absmax over the k values is a warp shuffle reduction.  k is a
 // runtime argument, any divisor of 512; below k = 32 some lanes idle.
 // Payload rows are 66 + k bytes, not even 2-byte aligned for k = 1, so the
@@ -43,6 +45,7 @@ using wire::kBlock;
 constexpr int kWarpsPerCta = 8;
 constexpr int kPasses = kBlock / (32 * 4);
 constexpr int kBitmapBytes = kBlock / 8;
+constexpr int kSumRun = 32;      // XLA's CPU reduction run length
 
 __device__ __forceinline__ float eps_noise() {   // float32(1e-37)
   return __uint_as_float(0x02081CEAu);
@@ -85,7 +88,8 @@ topk_encode_kernel(const T* __restrict__ y, const float* __restrict__ noise,
     const int base = s * g;
     float w = __fadd_rn(fabsf(ys[base]), eps_w);
     float kmin = __fdiv_rn(-logf(fmaxf(us[base], eps_noise())), w);
-    float wsum = w;
+    float part = w;               // sum of the current run of 32
+    float wsum = 0.0f;            // sum of the finished runs
     int sel = 0;
     for (int j = 1; j < g; ++j) {
       w = __fadd_rn(fabsf(ys[base + j]), eps_w);
@@ -94,8 +98,14 @@ topk_encode_kernel(const T* __restrict__ y, const float* __restrict__ noise,
         kmin = key;
         sel = j;
       }
-      wsum = __fadd_rn(wsum, w);
+      if ((j & (kSumRun - 1)) == 0) {
+        wsum = j == kSumRun ? part : __fadd_rn(wsum, part);
+        part = w;
+      } else {
+        part = __fadd_rn(part, w);
+      }
     }
+    wsum = g <= kSumRun ? part : __fadd_rn(wsum, part);
     const float y_sel = ys[base + sel];
     const float w_sel = __fadd_rn(fabsf(y_sel), eps_w);
     const float v = __fmul_rn(y_sel, __fdiv_rn(wsum, w_sel));

@@ -11,8 +11,9 @@ hand-written kernel ``csrc/gqa_decode.cu`` or raise.  Unlike the TPU
 kernel it reads K and V in the cache's ``(b, S, kvh, hd)`` layout without a
 transposed copy and takes any S and any mask.  ``decode_splits`` cuts each
 (b, kv head) row's positions into the ranges the kernel's CTAs take; the
-ranges of a row merge inside the one launch.  ``gqa_decode.launches``
-counts calls that launched the kernel.
+ranges of a row merge inside the one launch, over a thread block cluster of
+up to 16 CTAs (so up to 16 x 32,768 = 524,288 positions).
+``gqa_decode.launches`` counts calls that launched the kernel.
 """
 from __future__ import annotations
 
@@ -28,17 +29,21 @@ __all__ = ["gqa_decode_plain", "gqa_decode", "decode_splits", "decode_tile",
            "HEAD_DIMS", "MAX_GROUP"]
 
 #: head dims and queries per KV head the CUDA kernel is compiled for
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
 #: bytes of one K (or V) tile the kernel stages in shared memory
 TILE_BYTES = 8192
-#: CTAs the kernel keeps resident on one SM (4 stages of 16 KB and ~6.5 KB
-#: of mask bits each), the most ranges of one row (a portable thread block
-#: cluster, merged over distributed shared memory), the most positions of
-#: one range (its mask bits live in shared memory), and the fewest tiles a
-#: range is cut down to (shorter ranges spend more on their start and merge
-#: than they gain in balance: ``chip_smoke.py``'s range sweep)
-CTAS_PER_SM, MAX_RANGES, MAX_RANGE, MIN_RANGE_TILES = 3, 8, 32768, 20
+#: CTAs the kernel keeps resident on one SM where the card is not asked (4
+#: stages of 16 KB and ~6.5 KB of mask bits each; the launch asks the card:
+#: ``ctas_per_sm``), the most ranges of one row the split picks by itself
+#: (a portable thread block cluster, merged over distributed shared
+#: memory), the most ranges of one row at all (a non-portable cluster of
+#: 16, for caches longer than 8 ranges), the most positions of one range
+#: (its mask bits live in shared memory), and the fewest tiles a range is
+#: cut down to (shorter ranges spend more on their start and merge than
+#: they gain in balance: ``chip_smoke.py``'s range sweep)
+CTAS_PER_SM, PORTABLE_RANGES, MAX_RANGES = 3, 8, 16
+MAX_RANGE, MIN_RANGE_TILES = 32768, 20
 
 #: plain PyTorch version: runs on any device
 gqa_decode_plain = ref.gqa_decode_ref
@@ -50,16 +55,18 @@ def decode_tile(hd: int, dtype: torch.dtype) -> int:
 
 
 def decode_splits(rows: int, seq: int, n_sms: int, tile: int,
-                  ranges: int | None = None) -> tuple[int, int]:
+                  ranges: int | None = None,
+                  ctas_per_sm: int = CTAS_PER_SM) -> tuple[int, int]:
     """(positions per range, ranges per row): each of ``rows`` (b x kvh)
     rows' ``seq`` positions is cut into ranges of whole tiles, as many as
-    make about two waves of the card's CTAS_PER_SM x ``n_sms`` resident
-    CTAs, but none shorter than MIN_RANGE_TILES tiles (or the whole cache)
-    and at most MAX_RANGES; ``ranges`` asks for that many instead.  No
-    range exceeds MAX_RANGE positions."""
+    make about two waves of the card's ``ctas_per_sm`` x ``n_sms``
+    resident CTAs, but none shorter than MIN_RANGE_TILES tiles (or the
+    whole cache) and at most PORTABLE_RANGES; ``ranges`` asks for that many
+    instead.  No range exceeds MAX_RANGE positions, so a longer cache takes
+    more ranges, up to MAX_RANGES."""
     if ranges is None:
-        ranges = min(2 * CTAS_PER_SM * n_sms // max(rows, 1), MAX_RANGES,
-                     seq // (MIN_RANGE_TILES * tile))
+        ranges = min(2 * ctas_per_sm * n_sms // max(rows, 1),
+                     PORTABLE_RANGES, seq // (MIN_RANGE_TILES * tile))
     want = max(1, ranges, -(-seq // MAX_RANGE))
     if want > MAX_RANGES:
         raise ValueError(f"gqa_decode: {want} ranges of a {seq}-position "
@@ -84,6 +91,25 @@ def _kernel():
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def occupancy(index: int, bf16: bool, hd: int, g: int,
+              n_ranges: int = 1) -> tuple[int, int]:
+    """(CTAs of the kernel one SM of CUDA device ``index`` holds, clusters
+    of ``n_ranges`` CTAs the card holds at once), as the CUDA occupancy
+    calculator gives them for that element type, head dim and group."""
+    fn = _build.load("gqa_decode").gqa_decode_occupancy
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    ctas, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = fn(int(bf16), hd, g, n_ranges, ctypes.addressof(ctas),
+                 ctypes.addressof(clusters))
+    if err != 0:
+        raise RuntimeError(f"gqa_decode occupancy query failed: CUDA error "
+                           f"{err}")
+    return ctas.value, clusters.value
 
 
 def _check(q, k, v, valid):
@@ -141,8 +167,10 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         valid = valid.clone()
     if k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("gqa_decode: k and v must start 16-byte aligned")
-    range_len, n_ranges = decode_splits(b * kvh, seq, _sm_count(dev.index),
-                                        decode_tile(hd, k.dtype), ranges)
+    bf16 = k.dtype == torch.bfloat16
+    range_len, n_ranges = decode_splits(
+        b * kvh, seq, _sm_count(dev.index), decode_tile(hd, k.dtype),
+        ranges, occupancy(dev.index, bf16, hd, g)[0])
     n = b * kvh * g
     out = torch.empty(n * (hd + 2), dtype=torch.float32, device=dev)
     acc = out[:n * hd].view(b, kvh, g, hd)
@@ -150,7 +178,7 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = out[n * (hd + 1):].view(b, kvh, g)
     err = _kernel()(
         q32.data_ptr(), k.data_ptr(), v.data_ptr(),
-        int(k.dtype == torch.bfloat16), valid.data_ptr(), m.data_ptr(),
+        int(bf16), valid.data_ptr(), m.data_ptr(),
         l.data_ptr(), acc.data_ptr(), b, seq, kvh, g, hd, range_len,
         n_ranges, 1.0 / math.sqrt(hd),
         0.0 if softcap is None else float(softcap),

@@ -3,8 +3,8 @@
 The same inputs, drawn with numpy, go through the JAX jnp oracles
 (``repro.kernels.bitpack.*_ref``), the Pallas kernels in interpret mode and
 the port's device-dispatching entry points (on CPU tensors: the plain
-PyTorch versions).  Encoded payloads must match byte for byte: int4 and
-int2 everywhere, top-k for k >= 16.  The combines are bitwise equal to
+PyTorch versions).  Encoded payloads must match byte for byte: int4,
+int2 and top-k at every k.  The combines are bitwise equal to
 ``combine_core`` on the reference's decode, and within 2 ulps of the
 operands' magnitude of the interpret-mode kernels, where XLA contracts the
 decode products into the sums as FMAs (ROADMAP Queue 3, hazard 5).
@@ -121,17 +121,30 @@ def test_topk_encode_matches_pallas_interpret(k, mode):
 
 @pytest.mark.parametrize("k", [1, 2, 4, 8])
 def test_topk_small_k_structure(k):
-    """k < 16: XLA's CPU reduction adds strata of g >= 64 weights in its
-    own order, so ``sum(w)`` may differ by an ulp and the value bytes are
-    not held equal.  What holds: exactly one pick per stratum, the same
-    picks as the reference (the race does not use the sum), and the port
-    decodes the reference's own bytes exactly."""
+    """k < 16: strata of g >= 64 weights.  XLA's CPU compiler adds
+    ``sum(w)`` over such a stratum in runs of 32 (a reduce-window), then
+    adds the runs' sums; the port spells that order, so the payload bytes
+    equal the jitted reference's, and the eager one's, in both modes.
+    Beside them: exactly one pick per stratum, and the port decodes the
+    reference's own bytes exactly."""
     y_j, y_t, noise = _inputs(45, 13, jnp.float32, 2 * BLOCK)
-    got = ops.topk_encode_payload(y_t, torch.from_numpy(noise), k).numpy()
-    want = np.array(jb.topk_encode_ref(y_j, jnp.asarray(noise), k))
+    # the sent values y_pick * (sum(w) / w_pick) themselves, before their
+    # bf16-scaled stochastic rounding hides most last-bit differences
+    _, v_want = jax.jit(lambda y, u: jb._topk_select(y, u, k))(
+        y_j, jnp.asarray(noise[:, :BLOCK]))
+    _, v_got = BP._topk_select(y_t, torch.from_numpy(noise[:, :BLOCK]), k)
+    np.testing.assert_array_equal(v_got.numpy(), np.asarray(v_want))
+    for mode in MODES:
+        step_j, step_t = _step(mode)
+        got = ops.topk_encode_payload(y_t, torch.from_numpy(noise), k,
+                                      step_t).numpy()
+        want = np.array(jax.jit(lambda y, u: jb.topk_encode_ref(
+            y, u, k, fixed_step=step_j))(y_j, jnp.asarray(noise)))
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, np.array(jb.topk_encode_ref(
+            y_j, jnp.asarray(noise), k, fixed_step=step_j)))
     bits = np.unpackbits(got[:, :BLOCK // 8], axis=1, bitorder="little")
     assert (bits.reshape(45, k, BLOCK // k).sum(-1) == 1).all()
-    np.testing.assert_array_equal(got[:, :BLOCK // 8], want[:, :BLOCK // 8])
     dec = BP.topk_decode_plain(torch.from_numpy(want), k).numpy()
     np.testing.assert_array_equal(dec, np.asarray(jb.topk_decode_ref(
         jnp.asarray(want), BLOCK, k)))

@@ -111,7 +111,7 @@ def test_cuda_subbyte_encode_kernel_matches_plain(cuda_device, code_bits,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 16, 64, 256, 512])
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16, 64, 256, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("step", [None, 1e-3])
 def test_cuda_topk_encode_kernel_matches_plain(cuda_device, k, dtype, step):
@@ -245,7 +245,11 @@ def _check_decode(q, k, v, valid, cap, ranges=None):
     (32, 3, 3, 64, 2048, None), (3, 3, 3, 64, 700, 30.0),
     (3, 3, 3, 64, 37, None),         # S below one tile
     (2, 3, 3, 64, 513, 30.0),        # one past a boundary of every tile
-    (2, 2, 8, 128, 1024, None)])     # g = 8 at hd 128
+    (2, 2, 8, 128, 1024, None),      # g = 8 at hd 128
+    (1, 8, 2, 256, 1024, 50.0),      # gemma2-9b's heads: hd 256, g 2
+    (2, 2, 8, 256, 700, None),       # g = 8 at hd 256
+    (1, 3, 3, 256, 37, None),        # hd 256, S below one tile
+    (2, 2, 3, 256, 513, 30.0)])      # hd 256, one past a tile boundary
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_gqa_decode_kernel_matches_plain(cuda_device, b, kvh, g, hd, S,
                                               cap, dtype):
@@ -319,3 +323,32 @@ def test_cuda_serve_decode_launches_kernel_per_layer(cuda_device):
     cfg = reduced(get_config("smollm-135m"))
     assert G.gqa_decode.launches - before == cfg.n_periods * 4
     assert r["tokens"].shape == (2, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [None, 50.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gqa_decode_half_million_positions_hd256(cuda_device, dtype,
+                                                       cap):
+    """The longest cache the reference serves (``long_500k``: 524,288
+    positions) at gemma2-9b's heads (kvh 8, g 2, hd 256, softcap 50): 16
+    ranges of 32,768 positions per row, merged over one non-portable
+    cluster of 16 in the one launch.  K and V are 4.3 GB each in
+    float32.  Masks: a ragged frontier, random holes, and a 4,096-position
+    sliding window before the frontier."""
+    b, kvh, g, hd, S = 1, 8, 2, 256, 524_288
+    n_sms = torch.cuda.get_device_properties(cuda_device) \
+        .multi_processor_count
+    ctas, _ = G.occupancy(cuda_device.index or 0,
+                          dtype == torch.bfloat16, hd, g)
+    assert G.decode_splits(b * kvh, S, n_sms, G.decode_tile(hd, dtype),
+                           ctas_per_sm=ctas) == (32768, 16)
+    gen = torch.Generator(device=cuda_device).manual_seed(524)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(dtype) for shape in ((b, kvh, g, hd), (b, S, kvh, hd),
+                                        (b, S, kvh, hd)))
+    pos = torch.arange(S, device=cuda_device)
+    frontier = S - 37
+    for valid in (pos < frontier, _holes_mask(S, 7, cuda_device),
+                  (pos < frontier) & (pos >= frontier - 4096)):
+        _check_decode(q, k, v, valid, cap)

@@ -95,16 +95,41 @@ def test_kernel_modules_import_without_nvcc():
 def test_entry_points_default_to_cuda():
     from repro_torch import resolve_device
     from repro_torch.configs import get_config, reduced
+    from repro_torch.core import compression, consensus, problems, topology
     from repro_torch.launch import train
     from repro_torch.models.params import meta_params, params_from_jax
     assert resolve_device("cpu") == torch.device("cpu")
     cfg = reduced(get_config("smollm-135m"))
     tree = T.tree_map(lambda a: np.zeros(a.shape, np.float32), meta_params(
         train.build_train_setup(cfg, device="cpu").defs.storage))
+    # the problems hold their data on the device they are built for, and
+    # ``run`` steps there: both default to CUDA
+    ctors = (problems.paper_2node, problems.paper_4node,
+             lambda **kw: problems.paper_circle_problem(3, dim=2, **kw),
+             lambda **kw: problems.quadratic_problem([[1.0]], [[0.0]], **kw),
+             lambda **kw: problems.decentralized_linear_regression(2, 4,
+                                                                   **kw),
+             lambda **kw: problems.decentralized_logistic_regression(2, 4,
+                                                                     **kw))
+    alg = consensus.ADCDGD(topology.paper_fig3(),
+                           compression.Int8BlockQuantizer(),
+                           consensus.StepSize(0.02))
+    cpu = consensus.run(alg, problems.paper_4node(device="cpu"), 2)
+    assert cpu["x_final"].shape == (4, 1)
     if torch.cuda.is_available():
         assert resolve_device() == torch.device("cuda")
         assert train.build_train_setup(cfg).device.type == "cuda"
+        for ctor in ctors:
+            assert ctor().device.type == "cuda"
+        assert consensus.run(alg, problems.paper_4node(), 2)["x_final"] \
+            .shape == (4, 1)
         return
+    for ctor in ctors:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ctor()
+        assert ctor(device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        consensus.run(alg, problems.paper_4node(), 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -175,6 +175,7 @@ def test_gqa_decode_mask_with_holes_matches_jax():
     (3, 100, 32, (128, 1)),
     (2, 0, 32, (32, 1)),
     (1, 100_000, 16, (12512, 8)),    # ranges capped at one cluster
+    (8, 524_288, 8, (32768, 16)),    # long_500k at hd 256, f32: 16 ranges
 ])
 def test_decode_splits_cover_the_cache(rows, seq, tile, want):
     range_len, n = G.decode_splits(rows, seq, 132, tile)
