@@ -38,7 +38,21 @@ Phases (any failure exits non-zero before the result line):
              kernel; the per-leaf wire bytes), whose final parameters must
              be bitwise equal to a 3-step packed run's from the same seed,
              and 3 steps each of ``--algorithm compressed_dgd`` packed and
-             per-leaf, with its losses printed beside adc_dgd's;
+             per-leaf, with its losses printed beside adc_dgd's; then
+             wire plans and transports on the same model, each run counted
+             on its own (one encode and one combine launch per node,
+             transfer unit and codec run): 3 steps each of plan A
+             (``--wire-plan mixed:norm=int4,embed=int4,*=int8``) packed and
+             pipelined over 4 chunks (bitwise equal: params, x_tilde,
+             m_agg), #1 on a 1,024-column noise buffer against its plain
+             version, plan B (``mixed:embed=topk:k=64,norm=int2,*=int8``)
+             packed, int8 packed, pipelined and async at staleness 0 (all
+             three bitwise equal) and at staleness 1, each with the
+             reference's wire bytes and 2 x units collectives per step;
+             then 6 steps of ``--wire-codec adaptive`` over plan A whose
+             launches and wire bytes must match the plan of each step; the
+             launches per step of every plan and tier are also held to the
+             written-out ``PLAN_STEP_LAUNCHES``;
 4. serve   — ``repro_torch.launch.serve.main`` on the full smollm-135m:
              32 prompts of 1,984 tokens and 64 new tokens (capacity 2,048,
              a 3.0 GB float32 KV cache): the flash-decode kernel launched
@@ -50,10 +64,12 @@ Phases (any failure exits non-zero before the result line):
              decode kernel's share of the step and the device's idle share;
 5. parity  — reduced smollm-135m, 2 steps on the card and on the CPU from
              the same weights and quantization noise, for the int8, int4
-             and top-k wires, the per-leaf transport and compressed_dgd
-             (packed and per-leaf): final parameters agree to float32
-             rounding but in at most MAX_FRAC_OFF of the elements, and
-             those within MAX_GRID_STEPS quantization grid steps; losses
+             and top-k wires, the per-leaf transport, compressed_dgd
+             (packed and per-leaf), plans A and B, plan A pipelined over 3
+             chunks and int8 async at staleness 1: final parameters
+             agree to float32 rounding but in at most MAX_FRAC_OFF of the
+             elements, and those within MAX_GRID_STEPS quantization grid
+             steps; losses
              within LOSS_RTOL; and reduced serving (2 prompts of 16 tokens,
              8 new tokens) on the card and on the CPU from the same
              weights: the same tokens, or a flip at a near tie whose
@@ -70,7 +86,12 @@ Phases (any failure exits non-zero before the result line):
              time, final metrics, wire bytes and peak memory; the Fig. 1
              contrast (direct compression at least 10x farther from DGD's
              iterate than ADC-DGD); and 20 ADC-DGD steps through kernel #3
-             and through its plain version, bitwise equal;
+             and through its plain version, bitwise equal; then
+             ``on_wire_plan`` ADC-DGD and CHOCO through plan A on a
+             two-leaf ``proj`` + ``norm1`` layout of ~2^22 elements at N 20:
+             100 counted steps each (one #5 and one #1 launch per node and
+             step), equal cumulative bytes, and 10 ADC-DGD steps through
+             the kernels and through their plain versions, bitwise equal;
 7. timing  — each kernel and its plain version (``time_calls``: a run of
              back-to-back launches between two CUDA events, queued behind a
              spin kernel so that no host gap lies between them, over the
@@ -84,7 +105,11 @@ Phases (any failure exits non-zero before the result line):
              fastest reported) and a sweep of the ranges per row, and at
              long_500k's shape; the step
              time of each codec, the exchange time of each codec and the
-             peak memory.
+             peak memory; the same for each plan and transport path, with
+             the card's clocks, power and temperature sampled beside each
+             (``CardSampler``); and the copies an exchange avoids (the
+             async ring transfer, combine outputs written in place) timed
+             apart at full width.
 
 Prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Needs one card; exits non-zero with no result without one, or
@@ -123,6 +148,41 @@ SPIN_CYCLES_PER_S = 2.0e9
 #: payload rows: 2 x rows x payload width (516, 258, 130 and 130 bytes)
 WIRE_BYTES = {"int8": 271_160_064, "int4": 135_580_032,
               "int2": 68_315_520, "topk": 68_315_520}
+
+#: mixed wire plans (``core/wireplan.py``) on the same rows: plan A ships
+#: the norms and the embedding (55,366 rows) in int4 and the rest in int8,
+#: plan B the embedding in top-k (k 64), the norms in int2 and the rest in
+#: int8; the reference's ``wire_bytes_per_step`` of each
+PLAN_A = "mixed:norm=int4,embed=int4,*=int8"
+PLAN_B = "mixed:embed=topk:k=64,norm=int2,*=int8"
+PLAN_WIRE_BYTES = {PLAN_A: 242_591_208, PLAN_B: 228_417_512}
+PIPELINE_CHUNKS = 4
+_A_PACKED = {"subbyte_encode_payload": 4, "quantize_payload": 4,
+             "subbyte_decode_combine": 4, "dequant_combine_payload": 4}
+#: launches per step (4 nodes) of each ``phase_plans`` run and adaptive
+#: tier, written out as designed: one encode and one combine per node,
+#: transfer unit and codec run.  Held beside the counts derived from the
+#: port's own plans, so a fault in its run geometry cannot move both.
+PLAN_STEP_LAUNCHES = {
+    "planA packed": _A_PACKED,
+    "planA pipelined": {"subbyte_encode_payload": 4, "quantize_payload": 12,
+                        "subbyte_decode_combine": 4,
+                        "dequant_combine_payload": 12},
+    "planB packed": {"topk_encode_payload": 4, "subbyte_encode_payload": 4,
+                     "quantize_payload": 4, "topk_decode_combine": 4,
+                     "subbyte_decode_combine": 4,
+                     "dequant_combine_payload": 4},
+    "int8 packed": {"quantize_payload": 4, "dequant_combine_payload": 4},
+    "int8 pipelined": {"quantize_payload": 16, "dequant_combine_payload": 16},
+    "int8 async s0": {"quantize_payload": 4, "dequant_combine_payload": 4},
+    "int8 async s1": {"quantize_payload": 4, "dequant_combine_payload": 4},
+    # adaptive over plan A, by the plan each step ran (plan A's placement:
+    # the int4 tier is one merged int4 run, the int2 tier two runs)
+    PLAN_A: _A_PACKED,
+    "int4": {"subbyte_encode_payload": 4, "subbyte_decode_combine": 4},
+    "mixed:norm=int4,embed=int4,*=int2": {"subbyte_encode_payload": 8,
+                                          "subbyte_decode_combine": 8},
+}
 
 #: the per-leaf transport: the 11 leaves of the full smollm-135m tree, each
 #: padded to its own TILE_N multiple, 262,880 rows in all, so
@@ -180,6 +240,71 @@ def ulp_diff(a, b) -> int:
     ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
     ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
     return int((ia - ib).abs().max())
+
+
+class CardSampler:
+    """The card's SM and memory clocks, power draw, temperature and clock
+    event reasons, read through NVML (``libnvidia-ml``, the library under
+    ``nvidia-smi``) every SAMPLE_S from a thread while the ``with`` body
+    runs: a few microseconds of host time per sample.  ``summary()`` gives
+    their ranges, to set beside a host-bound time."""
+
+    SAMPLE_S = 0.1
+
+    def __enter__(self):
+        import ctypes
+        import threading
+        self.rows, self._stop, self._thread = [], threading.Event(), None
+        try:
+            self._nvml = ctypes.CDLL("libnvidia-ml.so.1")
+            self._h = ctypes.c_void_p()
+            if self._nvml.nvmlInit_v2() != 0 \
+                    or self._nvml.nvmlDeviceGetHandleByIndex_v2(
+                        0, ctypes.byref(self._h)) != 0:
+                return self
+        except (OSError, AttributeError):
+            return self     # no NVML: summary() says so
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def _poll(self) -> None:
+        import ctypes
+        nv, h = self._nvml, self._h
+        reasons_fn = (getattr(nv, "nvmlDeviceGetCurrentClocksEventReasons",
+                              None)
+                      or nv.nvmlDeviceGetCurrentClocksThrottleReasons)
+        sm, mem, mw, temp = (ctypes.c_uint() for _ in range(4))
+        reasons = ctypes.c_ulonglong()
+        while not self._stop.is_set():
+            if (nv.nvmlDeviceGetClockInfo(h, 1, ctypes.byref(sm))
+                    | nv.nvmlDeviceGetClockInfo(h, 2, ctypes.byref(mem))
+                    | nv.nvmlDeviceGetPowerUsage(h, ctypes.byref(mw))
+                    | nv.nvmlDeviceGetTemperature(h, 0, ctypes.byref(temp))
+                    | reasons_fn(h, ctypes.byref(reasons))) == 0:
+                self.rows.append((sm.value, mem.value, mw.value / 1e3,
+                                  temp.value, reasons.value))
+            self._stop.wait(self.SAMPLE_S)
+
+    def __exit__(self, *exc) -> bool:
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join()
+            self._nvml.nvmlShutdown()
+        return False
+
+    def summary(self) -> str:
+        if not self.rows:
+            return "clocks and power not read"
+        sm, mem, power, temp, reasons = zip(*self.rows)
+        seen = 0
+        for r in reasons:
+            seen |= r
+        return (f"SM clock {min(sm)}-{max(sm)} MHz (median "
+                f"{statistics.median(sm):.0f}), memory clock {min(mem)}-"
+                f"{max(mem)} MHz, power {min(power):.1f}-{max(power):.1f} W, "
+                f"<= {max(temp)} C, clock event reasons {seen:#x}, over "
+                f"{len(self.rows)} samples")
 
 
 def time_calls(fn, reps: int = TIMING_REPS) -> tuple[float, float, bool]:
@@ -622,6 +747,198 @@ def phase_main(torch, train, entries):
     return main_launches, step_s, peak_gb
 
 
+def codec_kernels(codec: str) -> tuple[str, str]:
+    """The encode and combine kernels of one codec name of a plan."""
+    return CODEC_KERNELS["topk" if codec.startswith("topk") else codec]
+
+
+def full_plan(train, spec, layout_spec=None):
+    """The WirePlan of ``spec`` on the full smollm-135m x 4-node layout
+    (shapes only), placed by ``layout_spec``'s codec groups (default
+    ``spec``'s own), as the trainer builds it."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.core import wireplan
+    from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
+    from repro_torch.models.params import meta_params
+    rt = ConsensusRuntime(ConsensusConfig(wire_codec=spec), NODES,
+                          layout_spec=layout_spec and wireplan.parse_spec(
+                              layout_spec))
+    defs = train.build_train_setup(get_config("smollm-135m"),
+                                   consensus_nodes=NODES, device="cuda").defs
+    params = T.tree_map(lambda a: a.expand((NODES,) + a.shape),
+                        meta_params(defs.storage))
+    return rt.wire_plan_for(rt.state_layout(params))
+
+
+def plan_launches(entries, plan, units=None) -> dict:
+    """Launches of one step on ``plan``: per node, one encode and one
+    combine for each codec run of each transfer unit."""
+    want = {name: 0 for name in entries}
+    for unit in plan.transfer_units(units):
+        for f in plan.unit_runs(unit):
+            for name in codec_kernels(f.codec):
+                want[name] += NODES
+    return want
+
+
+def host_state(state) -> dict:
+    """A run's final parameters and consensus state, copied to the host so
+    that the card holds nothing of it while later runs' peaks are read."""
+    from repro_torch.core import tree as T
+    return {"params": T.tree_map(lambda a: a.cpu(), state["params"]),
+            "consensus": {k: v.cpu() for k, v in state["consensus"].items()}}
+
+
+def same_state(torch, a, b) -> bool:
+    """Final parameters, x_tilde and m_agg of two runs bitwise equal."""
+    from repro_torch.core import tree as T
+    return (all(torch.equal(x, y) for x, y in zip(T.tree_leaves(a["params"]),
+                                                   T.tree_leaves(b["params"])))
+            and all(torch.equal(a["consensus"][k], b["consensus"][k])
+                    for k in ("x_tilde", "m_agg")))
+
+
+def phase_plans(torch, Q, train, entries, n_rows):
+    """Mixed wire plans and the pipelined and async transports on the full
+    smollm-135m x 4 nodes, each run counted on its own: plan A packed and
+    pipelined (bitwise equal), plan B packed (after #1 on a 1,024-column
+    noise buffer against its plain version), uniform int8 packed,
+    pipelined and async at staleness 0 (all three bitwise equal) and 1,
+    and the adaptive controller over plan A.  Returns (launches, step
+    seconds, peak GB, #1's decoded error on the wide buffer)."""
+    launches_total = {name: 0 for name in entries}
+    step_s, peak_gb = {}, {}
+    pipelined = ("--wire-packing", "pipelined", "--pipeline-chunks",
+                 str(PIPELINE_CHUNKS))
+
+    def counted(label, wire, *extra):
+        argv = train_argv(CODEC_STEPS, *(("--wire-plan", wire)
+                                         if wire != "int8" else ()), *extra)
+        with CardSampler() as card:
+            (hist, state), launches, peak_gb[label] = run_counted(
+                torch, train, entries, argv, return_state=True)
+        units = PIPELINE_CHUNKS if "pipelined" in extra else None
+        per_step = plan_launches(entries, full_plan(train, wire), units)
+        if {n: v for n, v in per_step.items() if v} \
+                != PLAN_STEP_LAUNCHES[label]:
+            fail(f"{label}: the port's plan gives {per_step} launches per "
+                 f"step, designed {PLAN_STEP_LAUNCHES[label]}")
+        want = {name: CODEC_STEPS * n for name, n in per_step.items()}
+        if launches != want:
+            fail(f"{label}: launched {launches}, want {want}")
+        losses = [h["loss"] for h in hist]
+        if not all(math.isfinite(x) for x in losses) \
+                or abs(losses[0] - math.log(49152)) > 0.5:
+            fail(f"{label}: losses {losses}")
+        want_bytes = PLAN_WIRE_BYTES.get(wire, WIRE_BYTES["int8"])
+        coll = {h["collectives_per_step"] for h in hist}
+        if {h["wire_bytes_per_step"] for h in hist} != {want_bytes} \
+                or coll != {2.0 * (units or 1)}:
+            fail(f"{label}: wire_bytes_per_step "
+                 f"{[h['wire_bytes_per_step'] for h in hist]} (want "
+                 f"{want_bytes}), collectives {sorted(coll)}")
+        for name, n in launches.items():
+            launches_total[name] += n
+        step_s[label] = statistics.median(h["step_s"] for h in hist[1:])
+        print(f"[plans] {label}: {CODEC_STEPS} steps, losses {losses}; "
+              f"launches per step "
+              f"{ {n: v for n, v in per_step.items() if v} }; "
+              f"wire_bytes_per_step {want_bytes}; collectives "
+              f"{sorted(coll)}; overflow_frac "
+              f"{[h['overflow_frac'] for h in hist]}; median step "
+              f"{step_s[label]:.4f} s; peak memory {peak_gb[label]:.2f} GB; "
+              f"card: {card.summary()}", flush=True)
+        return host_state(state)
+
+    pa = counted("planA packed", PLAN_A)
+    pp = counted("planA pipelined", PLAN_A, *pipelined)
+    if not same_state(torch, pa, pp):
+        fail("plan A pipelined over 4 chunks differs from plan A packed")
+    print("[plans] plan A pipelined (4 chunks) == plan A packed bitwise "
+          "(params, x_tilde, m_agg)")
+    del pa, pp
+
+    # #1 on the shared 1,024-column noise buffer plan B hands it
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+    y = torch.randn((n_rows, BLOCK), generator=g, device="cuda") * 0.05
+    u = torch.rand((n_rows, 2 * BLOCK), generator=g, device="cuda")
+    wide_abs = 0.0
+    for step in (None, 1e-3):
+        for view in ({}, dict(row_offset=37, n_rows=1001)):
+            a = Q.quantize_payload(y, u, step, **view)
+            b = Q.quantize_payload_plain(y, u, step, **view)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                fail(f"quantize_payload on 1,024-column noise step={step} "
+                     f"view={view}: {int((a != b).sum())} bytes differ")
+            wide_abs = max(wide_abs, float((decoded(Q, a) - decoded(Q, b))
+                                           .abs().max()))
+    u8 = u[:, :BLOCK].contiguous()
+    ms_wide = kernel_time("quantize_payload, 1,024-column noise",
+                          lambda: Q.quantize_payload(y, u, 1e-3))
+    ms_lead = time_ms(lambda: Q.quantize_payload(y, u8, 1e-3))
+    print(f"[kernels] quantize_payload on a 1,024-column noise buffer (4 KB "
+          f"row stride): bytes equal to the plain version (fixed+adaptive, "
+          f"full {n_rows} rows + ragged view), max |decoded diff| "
+          f"{wide_abs}; {ms_wide:.4f} ms against {ms_lead:.4f} ms on a "
+          f"512-column copy")
+    del y, u, u8, a, b
+
+    counted("planB packed", PLAN_B)
+    i8 = counted("int8 packed", "int8")
+    ip = counted("int8 pipelined", "int8", *pipelined)
+    a0 = counted("int8 async s0", "int8", "--wire-packing", "async",
+                 "--staleness", "0")
+    if not (same_state(torch, i8, ip) and same_state(torch, i8, a0)):
+        fail("int8 pipelined (4 chunks) or async at staleness 0 differs "
+             "from int8 packed")
+    print("[plans] int8 pipelined (4 chunks) == int8 async staleness 0 == "
+          "int8 packed bitwise (params, x_tilde, m_agg)")
+    del ip, a0
+    a1 = counted("int8 async s1", "int8", "--wire-packing", "async",
+                 "--staleness", "1")
+    fly = tuple(a1["consensus"]["fly_self"].shape)
+    if same_state(torch, i8, a1) or fly != (NODES, PAYLOAD * n_rows):
+        fail(f"int8 async staleness 1 equals the packed exchange, or its "
+             f"in-flight payloads are {fly}")
+    print(f"[plans] int8 async staleness 1: one step stale (its state "
+          f"differs from packed), in-flight payloads {fly} uint8 x 3")
+    del i8, a1
+
+    for entry in entries.values():
+        entry.launches = 0
+    hist = train.main(train_argv(
+        ADAPTIVE_STEPS, "--wire-codec", "adaptive", "--wire-plan", PLAN_A,
+        "--codec-ladder", "int2,int4,int8", "--codec-period", "2"))
+    launches = {name: entry.launches for name, entry in entries.items()}
+    want = {name: 0 for name in entries}
+    for h in hist:
+        # every tier keeps plan A's placement (the state's row order)
+        plan = full_plan(train, h["codec"], layout_spec=PLAN_A)
+        per_step = plan_launches(entries, plan)
+        if {n: v for n, v in per_step.items() if v} \
+                != PLAN_STEP_LAUNCHES.get(h["codec"]):
+            fail(f"adaptive over plan A, {h['codec']}: the port's plan "
+                 f"gives {per_step} launches per step, designed "
+                 f"{PLAN_STEP_LAUNCHES.get(h['codec'])}")
+        for name, n in per_step.items():
+            want[name] += n
+        if h["wire_bytes_per_step"] != 2 * plan.payload_bytes:
+            fail(f"adaptive over plan A, {h['codec']}: wire bytes "
+                 f"{h['wire_bytes_per_step']}, want {2 * plan.payload_bytes}")
+    if launches != want or not all(math.isfinite(h["loss"]) for h in hist):
+        fail(f"adaptive over plan A: plans {[h['codec'] for h in hist]}, "
+             f"launches {launches}, want {want}")
+    for name, n in launches.items():
+        launches_total[name] += n
+    print(f"[plans] adaptive over plan A (ladder int2,int4,int8, period 2): "
+          f"plan per step {[h['codec'] for h in hist]}; launches "
+          f"{ {n: v for n, v in launches.items() if v} } match them")
+    return launches_total, step_s, peak_gb, wide_abs
+
+
 def phase_perleaf(torch, train, entries):
     """The per-leaf transport and compressed_dgd on the full smollm-135m x
     4 nodes, each run counted on its own."""
@@ -878,7 +1195,9 @@ def phase_serve_parity(torch):
 def phase_parity(torch, train):
     """The same two steps of reduced smollm-135m on the card and on the
     CPU (plain versions), from the same weights, batches and noise, for the
-    int8, int4 and top-k wires."""
+    int8, int4 and top-k wires, the per-leaf transport, compressed_dgd,
+    plans A and B, plan A pipelined over 3 chunks and int8 async at
+    staleness 1."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.core import tree as T
@@ -889,7 +1208,14 @@ def phase_parity(torch, train):
                       ("compressed_dgd", {"algorithm": "compressed_dgd"}),
                       ("compressed_dgd per_leaf",
                        {"algorithm": "compressed_dgd",
-                        "wire_packing": "per_leaf"})):
+                        "wire_packing": "per_leaf"}),
+                      ("plan A", {"wire_codec": PLAN_A}),
+                      ("plan A pipelined 3",
+                       {"wire_codec": PLAN_A, "wire_packing": "pipelined",
+                        "pipeline_chunks": 3}),
+                      ("plan B", {"wire_codec": PLAN_B}),
+                      ("int8 async staleness 1",
+                       {"wire_packing": "async", "staleness": 1})):
         base = None
         results = {}
         for dev in ("cpu", "cuda"):
@@ -902,7 +1228,7 @@ def phase_parity(torch, train):
             ds = SyntheticLMDataset(cfg.vocab_size, 64, 2 * NODES,
                                     n_shards=NODES)
             layout = setup.consensus.state_layout(state["params"])
-            cols = setup.consensus.codec.noise_cols(BLOCK)
+            cols = setup.consensus.noise_cols_for(layout)
             losses = []
             for step in range(2):
                 noise = torch.rand(
@@ -1382,6 +1708,97 @@ def phase_paper(torch, Q, entries):
     return launches, {"quantize_blocks": q_abs}
 
 
+#: on_wire_plan on the card: the two-leaf layout of the reference's equal-
+#: bytes comparison (``benchmarks/consensus_step.py``: a ``proj`` and a
+#: ``norm1`` leaf) at ~2^22 elements, N 20, plan A
+PLAN_PROJ_ROWS, PLAN_NORM = 8192, 200
+PLAN_PAPER_STEPS, PLAN_TRAJ_STEPS = 100, 10
+
+
+def phase_paper_plan(torch, entries):
+    """ADC-DGD and CHOCO gossiping through plan A (``on_wire_plan``) at N
+    20 on ``paper_circle_problem``: PLAN_PAPER_STEPS counted steps each
+    (one #5 and one #1 launch per node and step, nothing else), equal
+    cumulative bytes, and the kernel trajectory bitwise equal to the plain
+    one.  Returns the launches."""
+    from repro_torch.core import consensus as K
+    from repro_torch.core import problems as P
+    from repro_torch.core import topology as T
+    from repro_torch.core import wire, wireplan
+    from repro_torch.kernels import bitpack as BP
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quantize as Q
+    layout = wire.WireLayout.for_tree(
+        {"proj": torch.empty(PLAN_PROJ_ROWS * BLOCK, device="meta"),
+         "norm1": torch.empty(PLAN_NORM, device="meta")})
+    plan = wireplan.parse_spec(PLAN_A).build(layout)
+    prob = P.paper_circle_problem(PAPER_NODES, seed=0,
+                                  dim=layout.n_elements, device="cuda")
+    mix = T.paper_circle(PAPER_NODES)
+    step = K.StepSize(0.01, eta=0.5)
+    algs = {"adc_dgd": K.on_wire_plan("adc_dgd", mix, plan, step),
+            "choco": K.on_wire_plan("choco", mix, plan, step,
+                                    consensus_lr=0.1)}
+    for entry in entries.values():
+        entry.launches = 0
+    results = {}
+    for name, alg in algs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = []
+        with CardSampler() as card:
+            results[name] = r = K.run(alg, prob, PLAN_PAPER_STEPS, key=3,
+                                      step_events=events)
+        ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        if not all(np.isfinite(r[m]).all() for m in ("obj", "grad_norm",
+                                                     "consensus")):
+            fail(f"on_wire_plan {name}: non-finite metrics")
+        print(f"[paper] on_wire_plan {name}, plan A, N {PAPER_NODES}, P "
+              f"{layout.n_elements}: {PLAN_PAPER_STEPS} steps, step "
+              f"{statistics.median(ms[PAPER_STEP0:]):.4f} ms (CUDA events, "
+              f"median of steps {PAPER_STEP0}-{PLAN_PAPER_STEPS}); "
+              f"grad_norm {r['grad_norm'][0]!r} -> {r['grad_norm'][-1]!r}; "
+              f"{plan.payload_bytes} bytes per message; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; card: "
+              f"{card.summary()}", flush=True)
+    launches = {name: entry.launches for name, entry in entries.items()}
+    want = {name: 0 for name in entries}
+    for run in plan.runs:
+        want[codec_kernels(run.codec)[0]] += 2 * PLAN_PAPER_STEPS \
+            * PAPER_NODES
+    if launches != want:
+        fail(f"on_wire_plan launched {launches}, want {want}")
+    if results["adc_dgd"]["bytes"][-1] != results["choco"]["bytes"][-1]:
+        fail(f"on_wire_plan: cumulative bytes differ: "
+             f"{results['adc_dgd']['bytes'][-1]} vs "
+             f"{results['choco']['bytes'][-1]}")
+    print(f"[paper] on_wire_plan adc_dgd and choco: equal cumulative bytes "
+          f"{results['adc_dgd']['bytes'][-1]:.0f}; launches "
+          f"{ {n: v for n, v in launches.items() if v} }")
+    kern = K.run(algs["adc_dgd"], prob, PLAN_TRAJ_STEPS, key=5)
+    saved = (ops.quantize_payload, ops.subbyte_encode_payload)
+    # the plain versions, taking the wrappers' ``out=`` (a plan encodes
+    # each run in place into its flat payload)
+    ops.quantize_payload = lambda *a, out=None, **k: Q._into(
+        out, Q.quantize_payload_plain(*a, **k))
+    ops.subbyte_encode_payload = lambda *a, out=None, **k: Q._into(
+        out, BP.subbyte_encode_plain(*a, **k))
+    try:
+        plain = K.run(algs["adc_dgd"], prob, PLAN_TRAJ_STEPS, key=5)
+    finally:
+        ops.quantize_payload, ops.subbyte_encode_payload = saved
+    for name in ("x_final", "obj", "grad_norm", "consensus", "max_tx"):
+        if not np_equal(kern[name], plain[name]):
+            fail(f"on_wire_plan ADC-DGD through #1/#5 and through their "
+                 f"plain versions differ in {name}")
+    print(f"[paper] on_wire_plan ADC-DGD through #1 and #5 and through their "
+          f"plain versions: bitwise equal trajectories over "
+          f"{PLAN_TRAJ_STEPS} steps")
+    del prob, results, kern, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
 def np_equal(a, b) -> bool:
     return np.array_equal(np.asarray(a), np.asarray(b))
 
@@ -1402,7 +1819,70 @@ def phase_exchange_time(torch, train):
             state["params"], x_half, state["consensus"], 1), reps=5)
         print(f"[timing] one 4-node {codec} exchange (pack, noise, 4+4 "
               f"launches, unpack): {out[codec]:.2f} ms")
+    del state["consensus"]
+    from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
+    pipelined = dict(wire_packing="pipelined",
+                     pipeline_chunks=PIPELINE_CHUNKS)
+    for label, kw in (("planA packed", {"wire_codec": PLAN_A}),
+                      ("planA pipelined", {"wire_codec": PLAN_A,
+                                           **pipelined}),
+                      ("planB packed", {"wire_codec": PLAN_B}),
+                      ("int8 pipelined", pipelined),
+                      ("int8 async s0", {"wire_packing": "async",
+                                         "staleness": 0}),
+                      ("int8 async s1", {"wire_packing": "async"})):
+        rt = ConsensusRuntime(ConsensusConfig(**kw), NODES)
+        cons = rt.init_state(state["params"])
+        with CardSampler() as card:
+            out[label] = time_ms(lambda: rt.exchange(
+                state["params"], x_half, cons, 2), reps=5)
+        print(f"[timing] one 4-node {label} exchange: {out[label]:.2f} ms; "
+              f"card: {card.summary()}")
+        del cons
+    out["int8 packed"] = out["int8"]
+    del state, x_half
+    phase_copy_time(torch)
     return out
+
+
+def phase_copy_time(torch) -> None:
+    """The copies an exchange could make at full width, timed apart: the
+    async transport's ring transfer (two wrap rows of its ``(N + 2,
+    payload_bytes)`` buffer) against a stack of the four payloads and two
+    rolls of it, and the three combine outputs of every node copied into
+    the state buffers after the launch against none (the kernels write
+    them in place)."""
+    nb = WIRE_BYTES["int8"] // 2
+    rows = nb // PAYLOAD
+    ring = torch.zeros((NODES + 2, nb), dtype=torch.uint8, device="cuda")
+    pays = [ring[1 + i].clone() for i in range(NODES)]
+
+    def wrap():
+        ring[0].copy_(ring[NODES])
+        ring[NODES + 1].copy_(ring[1])
+
+    def stack_roll():
+        fly = torch.stack(pays)
+        return fly.roll(1, 0), fly.roll(-1, 0)
+
+    ms_wrap, ms_stack = time_ms(wrap, reps=5), time_ms(stack_roll, reps=5)
+    del ring, pays
+    outs = torch.zeros((3, NODES, rows, BLOCK), device="cuda")
+    got = torch.zeros((3, rows, BLOCK), device="cuda")
+
+    def copy_outs():
+        for i in range(NODES):
+            for k in range(3):
+                outs[k, i].copy_(got[k])
+
+    ms_copy = time_ms(copy_outs, reps=5)
+    del outs, got
+    torch.cuda.empty_cache()
+    print(f"[timing] copies at full width ({NODES} x {nb} payload bytes, "
+          f"{rows} rows): async ring transfer by 2 wrap rows {ms_wrap:.4f} "
+          f"ms against a stack of the payloads and 2 rolls {ms_stack:.4f} "
+          f"ms; combine outputs copied into the state buffers "
+          f"{ms_copy:.4f} ms per exchange (written in place: 0)")
 
 
 def main() -> None:
@@ -1447,6 +1927,11 @@ def main() -> None:
     launches, step_s, peak_gb = phase_main(torch, train, entries)
     for name, n in phase_perleaf(torch, train, entries).items():
         launches[name] += n
+    plan_launches_, plan_step_s, plan_peak_gb, wide_abs = phase_plans(
+        torch, Q, train, entries, n_rows)
+    for name, n in plan_launches_.items():
+        launches[name] += n
+    errs["quantize_payload"] = max(errs["quantize_payload"], wide_abs)
     serve_launches, _ = phase_serve(torch, serve, entries)
     launches["gqa_decode"] += serve_launches["gqa_decode"]
     phase_serve_profile(torch, G)
@@ -1454,6 +1939,8 @@ def main() -> None:
     phase_serve_parity(torch)
     paper_launches, paper_errs = phase_paper(torch, Q, entries)
     launches["quantize_blocks"] += paper_launches["quantize_blocks"]
+    for name, n in phase_paper_plan(torch, entries).items():
+        launches[name] += n
     errs["quantize_blocks"] = max(errs["quantize_blocks"],
                                   paper_errs["quantize_blocks"])
     rows = phase_timing(torch, Q, D, BP, launches, errs, n_rows, leaf_rows)
@@ -1463,6 +1950,12 @@ def main() -> None:
         print(f"[summary] {codec}: step {step_s[codec]:.4f} s, exchange "
               f"{exchange_ms[codec]:.2f} ms, peak memory "
               f"{peak_gb[codec]:.2f} GB, card {smi}")
+    for label in plan_step_s:
+        exch = (f"{exchange_ms[label]:.2f} ms" if label in exchange_ms
+                else "not timed")
+        print(f"[timing] {label}: step {plan_step_s[label]:.4f} s, exchange "
+              f"{exch}, peak memory {plan_peak_gb[label]:.2f} GB, card "
+              f"{smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

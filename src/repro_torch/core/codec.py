@@ -14,8 +14,8 @@ the static ``row_offset``/``n_rows`` chunk views of the kernels carry over.
 
 :class:`AdaptiveBitController` re-selects the codec per epoch from the
 residual RMS against the amplified grid ``Delta_0 / k^gamma``, the clip
-fraction and a byte budget.  Mixed per-leaf wire plans (``core.wireplan``
-of the reference) are not yet ported.
+fraction and a byte budget; over a mixed wire plan (``core.wireplan``) it
+picks the tier of the plan's hot slots.
 """
 from __future__ import annotations
 
@@ -69,8 +69,9 @@ class WireCodec:
 
     # -- wire transformation --------------------------------------------
     def encode_payload(self, y, noise, fixed_step=None, row_offset: int = 0,
-                       n_rows: int | None = None) -> torch.Tensor:
-        """(rows, BLOCK) f32 differential -> (rows, payload_width) uint8."""
+                       n_rows: int | None = None, out=None) -> torch.Tensor:
+        """(rows, BLOCK) f32 differential -> (rows, payload_width) uint8,
+        written into ``out`` when it is given."""
         raise NotImplementedError
 
     def decode_payload(self, payload, block: int = kops.BLOCK):
@@ -80,9 +81,11 @@ class WireCodec:
 
     def decode_combine(self, payload_self, payload_left, payload_right,
                        x_tilde, m_agg, w_self, w_side, deamp,
-                       row_offset: int = 0, n_rows: int | None = None):
+                       row_offset: int = 0, n_rows: int | None = None,
+                       out=None):
         """Fused decode + shadow update + ring combine; returns
-        (x_tilde', m_agg', combined), all chunk-height."""
+        (x_tilde', m_agg', combined), all chunk-height, written into the
+        three tensors of ``out`` when it is given."""
         raise NotImplementedError
 
     def count_clipped(self, payload, block: int = kops.BLOCK):
@@ -110,9 +113,10 @@ class Int8Codec(WireCodec):
         return kops.payload_width(block)
 
     def encode_payload(self, y, noise, fixed_step=None, row_offset=0,
-                       n_rows=None):
+                       n_rows=None, out=None):
         return kops.quantize_payload(y, noise, fixed_step=fixed_step,
-                                     row_offset=row_offset, n_rows=n_rows)
+                                     row_offset=row_offset, n_rows=n_rows,
+                                     out=out)
 
     def decode_payload(self, payload, block: int = kops.BLOCK):
         codes, scales = kops.unpack_payload(payload, block)
@@ -120,10 +124,11 @@ class Int8Codec(WireCodec):
 
     def decode_combine(self, payload_self, payload_left, payload_right,
                        x_tilde, m_agg, w_self, w_side, deamp,
-                       row_offset=0, n_rows=None):
+                       row_offset=0, n_rows=None, out=None):
         return kops.dequant_combine_payload(
             payload_self, payload_left, payload_right, x_tilde, m_agg,
-            w_self, w_side, deamp, row_offset=row_offset, n_rows=n_rows)
+            w_self, w_side, deamp, row_offset=row_offset, n_rows=n_rows,
+            out=out)
 
     def count_clipped(self, payload, block: int = kops.BLOCK):
         codes = payload[..., :block].view(torch.int8)
@@ -153,21 +158,21 @@ class SubByteCodec(WireCodec):
         return bitpack.subbyte_payload_width(block, self.code_bits)
 
     def encode_payload(self, y, noise, fixed_step=None, row_offset=0,
-                       n_rows=None):
+                       n_rows=None, out=None):
         return kops.subbyte_encode_payload(
             y, noise, self.code_bits, fixed_step=fixed_step,
-            row_offset=row_offset, n_rows=n_rows)
+            row_offset=row_offset, n_rows=n_rows, out=out)
 
     def decode_payload(self, payload, block: int = kops.BLOCK):
         return bitpack.subbyte_decode_plain(payload, self.code_bits, block)
 
     def decode_combine(self, payload_self, payload_left, payload_right,
                        x_tilde, m_agg, w_self, w_side, deamp,
-                       row_offset=0, n_rows=None):
+                       row_offset=0, n_rows=None, out=None):
         return kops.subbyte_decode_combine(
             payload_self, payload_left, payload_right, x_tilde, m_agg,
             w_self, w_side, deamp, self.code_bits, row_offset=row_offset,
-            n_rows=n_rows)
+            n_rows=n_rows, out=out)
 
     def count_clipped(self, payload, block: int = kops.BLOCK):
         pack = bitpack.subbyte_pack(self.code_bits)
@@ -215,21 +220,21 @@ class TopKCodec(WireCodec):
         return self.k / block
 
     def encode_payload(self, y, noise, fixed_step=None, row_offset=0,
-                       n_rows=None):
+                       n_rows=None, out=None):
         return kops.topk_encode_payload(
             y, noise, self.k, fixed_step=fixed_step, row_offset=row_offset,
-            n_rows=n_rows)
+            n_rows=n_rows, out=out)
 
     def decode_payload(self, payload, block: int = kops.BLOCK):
         return bitpack.topk_decode_plain(payload, self.k, block)
 
     def decode_combine(self, payload_self, payload_left, payload_right,
                        x_tilde, m_agg, w_self, w_side, deamp,
-                       row_offset=0, n_rows=None):
+                       row_offset=0, n_rows=None, out=None):
         return kops.topk_decode_combine(
             payload_self, payload_left, payload_right, x_tilde, m_agg,
             w_self, w_side, deamp, self.k, row_offset=row_offset,
-            n_rows=n_rows)
+            n_rows=n_rows, out=out)
 
     def count_clipped(self, payload, block: int = kops.BLOCK):
         wb = block // 8
@@ -286,8 +291,13 @@ class AdaptiveBitController:
       down-switches   only after ``patience`` consecutive epochs agree
 
     ``residual_rms=None`` (no fixed grid) leaves only the budget filter.
-    The reference's plan mode (a mixed wire plan in ``plan``) is not yet
-    ported.
+
+    Plan mode: with a built mixed ``core.wireplan.WirePlan`` in ``plan``,
+    each ladder entry names the tier of the plan's hot slots
+    (``plan.retier_hot``), the other slots stay pinned, and ``wire_bytes``
+    prices the whole heterogeneous payload.  ``initial`` and ``select``
+    still return ladder names; the trainer maps them back to plan specs
+    with ``PlanSpec.with_hot_tier``.
     """
 
     ladder: tuple[str, ...] = ("int2", "int4", "int8")
@@ -297,16 +307,13 @@ class AdaptiveBitController:
     headroom: float = 4.0        # target code_max >= headroom * rms / Delta_k
     overflow_hi: float = 0.01    # clip fraction that forces a rung up
     patience: int = 2            # consecutive epochs before a down-switch
+    #: optional WirePlan (duck-typed: retier_hot / payload_bytes)
     plan: Any = None
     current: str | None = None
     _pending: str | None = dataclasses.field(default=None, repr=False)
     _pending_count: int = dataclasses.field(default=0, repr=False)
 
     def __post_init__(self):
-        if self.plan is not None:
-            raise NotImplementedError(
-                "AdaptiveBitController plan mode (mixed wire plans) is not "
-                "yet ported")
         if not self.ladder:
             raise ValueError("ladder must be non-empty")
         for name in self.ladder:
@@ -315,7 +322,11 @@ class AdaptiveBitController:
     # -- static helpers --------------------------------------------------
     def wire_bytes(self, name: str, n_rows: int,
                    block: int = kops.BLOCK) -> float:
-        """Bytes per step a candidate puts on the ring (both directions)."""
+        """Bytes per step a candidate puts on the ring (both directions):
+        the codec's payload, or in plan mode the whole payload of the plan
+        with its hot slots moved to ``name``."""
+        if self.plan is not None:
+            return 2.0 * float(self.plan.retier_hot(name).payload_bytes)
         return 2.0 * by_name(name).payload_bytes(n_rows, block)
 
     def candidates(self, n_rows: int, block: int = kops.BLOCK

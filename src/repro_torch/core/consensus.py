@@ -29,9 +29,10 @@ scalar divides by a 0-dim tensor on the device, never by a Python float,
 which PyTorch's CUDA kernels would turn into a product with a reciprocal.
 
 ``run`` drives the steps in a Python loop and keeps the paper's metrics on
-the device until the end.  Directed (push-sum) mixing, time-varying
-schedules, elastic membership, hierarchy and wire plans are not ported
-yet: they raise.
+the device until the end.  ``on_wire_plan`` routes an algorithm's gossip
+through a wire plan (``core.wireplan.WirePlanCompressor``).  Directed
+(push-sum) mixing, time-varying schedules, elastic membership and
+hierarchy are not ported yet: they raise.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ from .compression import Compressor, IdentityCompressor
 from .f32 import f32, over_power, power, recip
 from .problems import ConsensusProblem
 from .topology import MixingMatrix
+from .wireplan import WirePlanCompressor
 
 __all__ = [
     "StepSize",
@@ -588,8 +590,16 @@ def run_hierarchical(*args, **kwargs):
     _not_ported("run_hierarchical (two-level hierarchy)")
 
 
-def on_wire_plan(*args, **kwargs):
-    _not_ported("on_wire_plan (wire plans)")
+def on_wire_plan(name: str, mixing: MixingMatrix, plan, stepsize: StepSize,
+                 **kw) -> _Algorithm:
+    """An algorithm whose gossip wire goes through a
+    :class:`~repro_torch.core.wireplan.WirePlan`: ADC-DGD's differential
+    and CHOCO's error-feedback correction are encoded and decoded with the
+    same plan, so the two ship equal bytes per step by construction.
+    ``plan`` must cover the problem (``plan.layout.n_elements ==
+    problem.dim``)."""
+    return by_name(name, mixing, stepsize,
+                   compressor=WirePlanCompressor(plan), **kw)
 
 
 def by_name(name: str, mixing: MixingMatrix, stepsize: StepSize,

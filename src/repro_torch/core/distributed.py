@@ -1,22 +1,27 @@
 """ADC-DGD consensus runtime over consensus nodes stacked on one device.
 
-Port of ``repro.core.distributed`` for the packed exchange with a uniform
-wire codec (``int8``, ``int4``, ``int2`` or ``topk[:k=<int>]``).  The
-reference runs one consensus node per device inside ``shard_map`` and moves
-the wire payload with ``ppermute``; here the ``N`` nodes are a leading axis
-of every tensor, and a ring transfer is an index: ``ppermute(+1)`` hands
-node ``i`` the payload of node ``i-1`` ("left"), ``ppermute(-1)`` that of
-node ``i+1`` ("right").  Payloads stay a list of per-node tensors and the
-neighbours' entries are passed as they are — nothing is copied for the
-"transfer".
+Port of ``repro.core.distributed``.  The reference runs one consensus node
+per device inside ``shard_map`` and moves the wire payload with
+``ppermute``; here the ``N`` nodes are a leading axis of every tensor, and
+a ring transfer is an index: ``ppermute(+1)`` hands node ``i`` the payload
+of node ``i-1`` ("left"), ``ppermute(-1)`` that of node ``i+1`` ("right").
+Payloads stay a list of per-node tensors and the neighbours' entries are
+passed as they are: nothing is copied for the "transfer" (but the async
+transport's two wrap rows), and the kernels write their outputs in place
+into the exchange's buffers.
 
-Per step k of ``adc_dgd`` (paper Algorithm 2, amplification folded into
-the quantizer grid), for every node i:
+The wire is a :class:`~repro_torch.core.wireplan.WirePlan`: a codec name
+(``int8``, ``int4``, ``int2``, ``topk[:k=<int>]``) is a uniform plan, a
+``mixed:pattern=codec,...`` spec gives each leaf its own codec, and then
+the packed buffer groups same-codec leaves (``grouped_placement``).  Per
+step k of ``adc_dgd`` (paper Algorithm 2, amplification folded into the
+quantizer grid), for every node i:
 
     y_i    = pack(x_half_i) - x_tilde_i
-    pay_i  = codec.encode_payload(y_i, noise_i, step_k)     (encode kernel)
+    pay_i  = plan.encode(y_i, noise_i, step_k)   (one launch per codec run)
     x_tilde_i, m_agg_i, comb_i = codec.decode_combine(
-                 pay_i, pay_{i-1}, pay_{i+1}, x_tilde_i, m_agg_i)  (combine)
+                 pay_i, pay_{i-1}, pay_{i+1}, x_tilde_i, m_agg_i)
+                                                 (one launch per codec run)
     x_next_i = comb_i + (x_half_i - x_prev_i)           (per leaf)
 
 ``step_k = fixed_step0 / k**gamma`` in fixed mode, the per-row absmax grid
@@ -26,11 +31,21 @@ of the optimizer delta) and ``none`` (isolated nodes) are the baselines;
 neighbours' int8-compressed parameters themselves, on the undecayed grid
 ``fixed_step0``, with the node's own parameters uncompressed.
 
-``wire_packing="packed"`` ships the whole tree as one payload per node;
-``"per_leaf"`` is the reference transport of the same exchange, int8 only:
-per leaf one quantize launch (codes and scales as two tensors) and one
-combine launch per node, four ring transfers per leaf.  Drawn from the same
-noise buffer, the two give the same bits.
+Transports (``wire_packing``), all giving the same bits from the same
+noise buffer:
+  ``packed``     one flat payload per node and step;
+  ``pipelined``  the plan's ``pipeline_chunks`` transfer units, chunk c+1
+                 encoded before chunk c is retired (the reference's
+                 emission order, on the current stream);
+  ``async``      one step stale (``staleness`` 1): step k first retires
+                 the payloads launched at step k-1, then encodes against
+                 the drained shadow and carries the payloads in the state;
+                 ``staleness`` 0 is the packed exchange;
+  ``per_leaf``   the reference transport of the int8 wire: per leaf one
+                 quantize launch (codes and scales as two tensors) and one
+                 combine launch per node, four ring transfers per leaf.
+The reference's faults, push-sum, directed weights, resync, membership,
+hierarchy and ring strides are not ported: no config field turns them on.
 """
 from __future__ import annotations
 
@@ -43,14 +58,13 @@ import torch.nn.functional as F
 
 from repro_torch.core import codec as wire_codec
 from repro_torch.core import tree as T
-from repro_torch.core import wire
+from repro_torch.core import wire, wireplan
 from repro_torch.core.f32 import over_power, recip
 from repro_torch.kernels import ops as kops
 
 __all__ = ["ConsensusConfig", "ConsensusRuntime", "noise_seed"]
 
 ALGORITHMS = ("adc_dgd", "dgd", "compressed_dgd", "allreduce", "none")
-#: wire transports of the reference; the ported ones are packed and per_leaf
 WIRE_PACKINGS = ("packed", "pipelined", "per_leaf", "async")
 
 
@@ -63,9 +77,11 @@ class ConsensusConfig:
     quant_mode: str = "fixed"      # fixed (paper-faithful) | adaptive
     fixed_step0: float = 1e-3      # Delta_0; effective step = Delta_0 / k^gamma
     track_consensus_error: bool = False
-    wire_codec: str = "int8"       # a core.codec name (no mixed plans yet)
+    wire_codec: str = "int8"       # a codec name or a "mixed:..." plan spec
     byte_budget: float | None = None   # bytes/step target (the controller)
-    wire_packing: str = "packed"   # packed | per_leaf (the reference path)
+    wire_packing: str = "packed"   # packed | pipelined | per_leaf | async
+    pipeline_chunks: int = 4       # transfer units of the pipelined wire
+    staleness: int = 1             # async: 1 retires step k-1's payload
 
     def __post_init__(self):
         if self.algorithm not in ALGORITHMS:
@@ -77,32 +93,36 @@ class ConsensusConfig:
         if not 0.0 < self.self_weight <= 1.0:
             raise ValueError(f"self_weight must be in (0, 1], got "
                              f"{self.self_weight}")
-        if self.wire_codec.startswith("mixed:"):
-            raise NotImplementedError(
-                f"wire_codec={self.wire_codec!r}: mixed wire plans are not "
-                "yet ported")
-        try:
-            wire_codec.by_name(self.wire_codec)
-        except (KeyError, ValueError) as e:
-            raise ValueError(f"wire_codec={self.wire_codec!r}: "
-                             f"{e.args[0]}") from None
-        if self.byte_budget is not None and self.byte_budget <= 0:
-            raise ValueError(f"byte_budget must be positive, got "
-                             f"{self.byte_budget}")
         if self.wire_packing not in WIRE_PACKINGS:
             raise ValueError(f"wire_packing must be one of {WIRE_PACKINGS}, "
                              f"got {self.wire_packing!r}")
-        if self.wire_packing in ("pipelined", "async"):
-            raise NotImplementedError(
-                f"wire_packing={self.wire_packing!r} is not yet ported")
-        if self.wire_packing == "per_leaf" and self.wire_codec != "int8":
+        if self.pipeline_chunks < 1:
+            raise ValueError(f"pipeline_chunks must be >= 1, got "
+                             f"{self.pipeline_chunks}")
+        if self.staleness not in (0, 1):
+            raise ValueError(f"staleness must be 0 or 1, got "
+                             f"{self.staleness}")
+        if self.wire_packing == "async" and self.algorithm != "adc_dgd":
             raise ValueError(
-                f"wire_codec={self.wire_codec!r} requires the packed "
-                "transport; the per-leaf reference path speaks int8 only")
-        if self.algorithm == "compressed_dgd" and self.wire_codec != "int8":
+                "wire_packing='async' is the one-step-stale ADC exchange; "
+                f"algorithm={self.algorithm!r} does not support it")
+        try:
+            spec = wireplan.parse_spec(self.wire_codec)
+        except (KeyError, ValueError) as e:
+            raise ValueError(f"wire_codec={self.wire_codec!r}: "
+                             f"{e.args[0]}") from None
+        if self.wire_packing == "per_leaf" and spec.uniform_codec != "int8":
+            raise ValueError(
+                f"wire_codec={self.wire_codec!r} requires the packed, "
+                "pipelined or async transport; the per-leaf reference path "
+                "speaks one uniform int8 wire per leaf")
+        if self.algorithm == "compressed_dgd" and spec.uniform_codec != "int8":
             raise ValueError(
                 "compressed_dgd (the Eq. (5) negative control) is pinned "
                 f"to the int8 wire; got wire_codec={self.wire_codec!r}")
+        if self.byte_budget is not None and self.byte_budget <= 0:
+            raise ValueError(f"byte_budget must be positive, got "
+                             f"{self.byte_budget}")
 
     @property
     def side_weight(self) -> float:
@@ -137,65 +157,153 @@ def _ring_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _pipeline_schedule(n_units: int, launch, retire, inspect=None) -> list:
+    """The reference's double-buffered transfer schedule: at iteration c,
+    ``launch(c+1)`` is issued before ``retire(c)``; ``inspect(c,
+    inflight)`` sees each in-flight value before its retire.  Everything
+    runs on the current stream.  Returns ``[retire(c, ...) for c]``."""
+    outs = []
+    inflight = launch(0)
+    for c in range(n_units):
+        if inspect is not None:
+            inspect(c, inflight)
+        nxt = launch(c + 1) if c + 1 < n_units else None
+        outs.append(retire(c, inflight))
+        inflight = nxt
+    return outs
+
+
 class ConsensusRuntime:
     """Stateless helper bound to (config, node count); the consensus state
     lives in the caller's train state.  Parameter trees have a leading
     node axis of size ``n_nodes`` on every leaf."""
 
-    def __init__(self, config: ConsensusConfig, n_nodes: int):
+    def __init__(self, config: ConsensusConfig, n_nodes: int,
+                 layout_spec: wireplan.PlanSpec | None = None):
+        """``layout_spec``: the plan whose codec groups place the leaves
+        in the packed buffer (default this runtime's own).  An adaptive
+        run over a mixed plan keeps its first plan's placement through
+        every tier, so its packed state keeps one row order."""
         if n_nodes < 1:
             raise ValueError(f"n_nodes must be >= 1, got {n_nodes}")
         self.cfg = config
         self.n_nodes = n_nodes
-        self.codec = wire_codec.by_name(config.wire_codec)
+        #: the layout-independent plan recipe (a bare codec name is a
+        #: uniform plan)
+        self.plan_spec = wireplan.parse_spec(config.wire_codec)
+        self.layout_spec = layout_spec or self.plan_spec
+        self._plan_cache: dict = {}
+
+    @property
+    def wire_name(self) -> str:
+        """The wire's name: the codec's, or the mixed plan's spec."""
+        return self.plan_spec.to_string()
 
     # -- state ---------------------------------------------------------
     def state_layout(self, params: Any) -> wire.WireLayout:
-        """The packing plan of one node's parameter tree."""
-        return wire.WireLayout.for_tree(T.tree_map(lambda a: a[0], params))
+        """The packing plan of one node's parameter tree: leaf order, or
+        for a mixed ``layout_spec`` its grouped placement (one run per
+        codec)."""
+        layout = wire.WireLayout.for_tree(T.tree_map(lambda a: a[0], params))
+        if not self.layout_spec.is_uniform:
+            placement = wireplan.grouped_placement(
+                layout, tuple(self.layout_spec.codec_for_path(s.path)
+                              for s in layout.slots))
+            if placement is not None:
+                layout = layout.with_placement(placement)
+        return layout
+
+    def wire_plan_for(self, layout: wire.WireLayout) -> wireplan.WirePlan:
+        """The (cached) WirePlan of this runtime's spec on ``layout``: the
+        one source of payload geometry and wire accounting."""
+        plan = self._plan_cache.get(layout)
+        if plan is None:
+            plan = self._plan_cache[layout] = self.plan_spec.build(layout)
+        return plan
+
+    def noise_cols_for(self, layout: wire.WireLayout) -> int:
+        """Columns of the noise buffer one exchange consumes (the most any
+        codec of the plan reads)."""
+        return self.wire_plan_for(layout).noise_cols(layout.block)
 
     def init_state(self, params: Any) -> dict:
-        """Packed consensus shadows ``(N, n_rows, BLOCK)`` for ``adc_dgd``.
+        """Packed consensus shadows ``(N, n_rows, BLOCK)`` for ``adc_dgd``,
+        and on the async transport the three ``(N, payload_bytes)`` uint8
+        in-flight payloads (zero bytes: the step-1 retire is a no-op).
 
         All nodes start from the same x0, so every neighbour estimate is x0
         and the incremental aggregate m_0 = sum_{j != i} W_ij x0 =
         (1 - W_ii) x0."""
         if self.cfg.algorithm != "adc_dgd":
             return {}
-        x_tilde = self.state_layout(params).pack(params)
-        return {"x_tilde": x_tilde,
-                "m_agg": (1.0 - self.cfg.self_weight) * x_tilde}
+        layout = self.state_layout(params)
+        x_tilde = layout.pack(params)
+        st = {"x_tilde": x_tilde,
+              "m_agg": (1.0 - self.cfg.self_weight) * x_tilde}
+        if self.cfg.wire_packing == "async":
+            nbytes = self.wire_plan_for(layout).payload_bytes
+            for key in wire.INFLIGHT_KEYS:
+                st[key] = wire.inflight_init(self.n_nodes, nbytes,
+                                             x_tilde.device)
+        return st
 
     # -- static accounting -------------------------------------------------
     def wire_bytes_per_step(self, n_params_local: int,
-                            layout: wire.WireLayout | None = None) -> float:
-        """Bytes one node puts on the ring per step (both directions).  The
-        per-leaf transport ships each leaf padded to its own TILE_N-aligned
-        height, so more rows than the packed payload of the same tree."""
+                            layout: wire.WireLayout) -> float:
+        """Bytes one node puts on the ring per step (both directions): the
+        plan's flat payload.  The per-leaf transport ships each leaf padded
+        to its own TILE_N-aligned height, so more rows than the packed
+        payload of the same tree."""
         alg = self.cfg.algorithm
         if alg in ("adc_dgd", "compressed_dgd"):
-            if layout is not None and self.cfg.wire_packing == "per_leaf":
-                rows = sum(kops.padded_block_rows(s.size)
-                           for s in layout.slots)
-            elif layout is not None:
-                rows = layout.n_rows
+            if self.cfg.wire_packing == "per_leaf":
+                payload = (sum(kops.padded_block_rows(s.size)
+                               for s in layout.slots) * kops.payload_width())
             else:
-                rows = kops.padded_block_rows(n_params_local)
-            return 2.0 * self.codec.payload_bytes(rows)
+                payload = self.wire_plan_for(layout).payload_bytes
+            return 2.0 * payload
         if alg == "dgd":
             return 2.0 * n_params_local * 4
         return 0.0
 
-    def collectives_per_step(self, n_leaves: int = 1) -> float:
-        """Ring transfers one node makes per step (static): one payload
-        per ring direction on the packed wire, codes and scales per
-        direction per leaf on the per-leaf transport."""
-        alg, n = self.cfg.algorithm, self.n_nodes
+    def _chunks_for(self, layout: wire.WireLayout) -> wire.ChunkedLayout:
+        """The compressed_dgd packed path's uniform int8 chunks: the
+        configured count on the pipelined transport, else one."""
+        return wire.ChunkedLayout.split(
+            layout, self.cfg.pipeline_chunks
+            if self.cfg.wire_packing == "pipelined" else 1)
+
+    def pipeline_chunks_for(self, layout: wire.WireLayout) -> int:
+        """Transfer units per step: the plan's snapped chunk count on the
+        pipelined transport, else 1."""
+        if self.cfg.wire_packing != "pipelined":
+            return 1
+        if self.cfg.algorithm == "compressed_dgd":
+            return self._chunks_for(layout).n_chunks
+        return self.wire_plan_for(layout).n_chunks(self.cfg.pipeline_chunks)
+
+    def collectives_per_step(self, n_leaves: int = 1,
+                             n_chunks: int | None = None,
+                             layout: wire.WireLayout | None = None) -> float:
+        """Ring transfers one node makes per step (static): one payload per
+        ring direction and transfer unit on the packed, pipelined and async
+        wires (2 x units), codes and scales per direction per leaf on the
+        per-leaf transport.  Without ``layout`` or ``n_chunks`` the
+        pipelined count is the configured one."""
+        cfg, n = self.cfg, self.n_nodes
+        alg = cfg.algorithm
         if alg == "none" or (n <= 1 and alg != "allreduce"):
             return 0.0
+        if cfg.wire_packing == "pipelined":
+            if n_chunks is None and layout is not None:
+                n_chunks = self.pipeline_chunks_for(layout)
+            chunks = float(cfg.pipeline_chunks if n_chunks is None
+                           else n_chunks)
+        else:
+            chunks = 1.0
         if alg in ("adc_dgd", "compressed_dgd"):
-            return (2.0 if self.cfg.wire_packing == "packed"
-                    else 4.0 * n_leaves)
+            return (4.0 * n_leaves if cfg.wire_packing == "per_leaf"
+                    else 2.0 * chunks)
         if alg == "dgd":
             return 2.0 * n_leaves
         return float(n - 1) * n_leaves     # rotation all-reduce
@@ -210,11 +318,12 @@ class ConsensusRuntime:
 
     def make_noise(self, layout: wire.WireLayout, step: int, seed: int,
                    device) -> torch.Tensor:
-        """``(N, n_rows, codec.noise_cols())`` uniform noise (``BLOCK``
-        columns; ``2 * BLOCK`` for top-k), one ``torch.Generator`` on
-        ``device`` per node seeded from (seed, step, node)."""
+        """``(N, n_rows, noise_cols_for(layout))`` uniform noise (``BLOCK``
+        columns; ``2 * BLOCK`` when the plan holds top-k), one
+        ``torch.Generator`` on ``device`` per node seeded from (seed, step,
+        node)."""
         noise = torch.empty((self.n_nodes, layout.n_rows,
-                             self.codec.noise_cols(layout.block)),
+                             self.noise_cols_for(layout)),
                             dtype=torch.float32, device=device)
         for i in range(self.n_nodes):
             g = torch.Generator(device=device)
@@ -227,15 +336,15 @@ class ConsensusRuntime:
                  seed: int = 0, noise: torch.Tensor | None = None):
         """x_prev: params at step k; x_half: after the local optimizer step.
 
-        ``noise``: optional ``(N, n_rows, >= codec.noise_cols())`` uniform
-        buffer consumed row for row by the encoder (tests inject the
-        reference's; int8 takes exactly ``BLOCK`` columns); without it
-        each node draws its own from ``(seed, step, node)``.
-        Returns (x_next, new_state, metrics)."""
+        ``noise``: optional ``(N, n_rows, >= noise_cols_for(layout))``
+        uniform buffer consumed row for row by the encoders (tests inject
+        the reference's); without it each node draws its own from ``(seed,
+        step, node)``.  Returns (x_next, new_state, metrics)."""
         alg = self.cfg.algorithm
         layout = self.state_layout(x_half)
         metrics = {
-            "collectives_per_step": self.collectives_per_step(layout.n_leaves),
+            "collectives_per_step": self.collectives_per_step(
+                layout.n_leaves, layout=layout),
             "wire_bytes_per_step": self.wire_bytes_per_step(
                 layout.n_elements, layout)}
         if alg == "none" or (self.n_nodes <= 1 and alg != "allreduce"):
@@ -248,13 +357,16 @@ class ConsensusRuntime:
             if noise is None:
                 noise = self.make_noise(layout, step, seed,
                                         T.tree_leaves(x_half)[0].device)
-            fn = (self._cdgd_exchange_packed
-                  if self.cfg.wire_packing == "packed"
-                  else self._cdgd_exchange_per_leaf)
+            fn = (self._cdgd_exchange_per_leaf
+                  if self.cfg.wire_packing == "per_leaf"
+                  else self._cdgd_exchange_packed)
             x_next = fn(x_prev, x_half, noise, layout)
         else:
-            fn = (self._adc_exchange if self.cfg.wire_packing == "packed"
-                  else self._adc_exchange_per_leaf)
+            fn = {"packed": self._adc_exchange,
+                  "pipelined": self._adc_exchange,
+                  "async": self._adc_exchange_async,
+                  "per_leaf": self._adc_exchange_per_leaf}[
+                      self.cfg.wire_packing]
             x_next, state, adc = fn(x_prev, x_half, state, step, seed, noise,
                                     layout)
             metrics.update(adc)
@@ -262,58 +374,151 @@ class ConsensusRuntime:
             metrics["consensus_err"] = _consensus_error(x_next)
         return x_next, state, metrics
 
-    def encode(self, y: torch.Tensor, noise: torch.Tensor,
-               step: int) -> list[torch.Tensor]:
-        """Each node's wire payload ``(n_rows, payload_width)`` uint8 for
-        the packed differentials ``y`` ``(N, n_rows, BLOCK)``: one encode
-        launch per node."""
-        step_k = self._step_k(step)
-        return [self.codec.encode_payload(y[i], noise[i], fixed_step=step_k)
+    def encode(self, y: torch.Tensor, noise: torch.Tensor, step: int,
+               layout: wire.WireLayout) -> list[torch.Tensor]:
+        """Each node's flat uint8 payload of the packed differentials ``y``
+        ``(N, n_rows, BLOCK)`` on ``layout``: the bytes the packed exchange
+        ships, one encode launch per node and codec run."""
+        plan = self.wire_plan_for(layout)
+        return self._encode_unit(plan, plan.transfer_units(None)[0], y,
+                                 noise, self._step_k(step))
+
+    def _encode_unit(self, plan, unit, y, noise, step_k, out=None) -> list:
+        """Each node's flat uint8 payload of transfer unit ``unit`` (into
+        ``out[i]`` when ``out`` is given): one encode launch per node and
+        codec run."""
+        return [plan.encode_unit(unit, y[i], noise[i], step_k,
+                                 None if out is None else out[i])
                 for i in range(self.n_nodes)]
+
+    def _retire(self, plan, unit, own, left, right, xt, mb, outs) -> None:
+        """Fused decode + shadow update + ring combine of one transfer unit
+        for every node, one launch per node and codec run, into the row
+        slices of ``outs`` = (x_tilde', m_agg', combined).  ``own[i]``,
+        ``left[i]`` and ``right[i]`` are node i's flat payload and its two
+        arrivals, each starting at the unit's first byte."""
+        cfg = self.cfg
+        for i in range(self.n_nodes):
+            for f in plan.unit_runs(unit):
+                views = [plan.fragment_payload(p[i], f, unit.byte_start)
+                         for p in (own, left, right)]
+                wire_codec.by_name(f.codec).decode_combine(
+                    *views, xt[i], mb[i], cfg.self_weight, cfg.side_weight,
+                    1.0, row_offset=f.row_start, n_rows=f.n_rows,
+                    out=[o[i, f.row_start:f.row_end] for o in outs])
+
+    def _census(self, plan, unit, y, step_k, pays, clipped) -> None:
+        """Add each node's grid-saturation count of unit ``unit`` to
+        ``clipped`` (overflow monitoring, paper §IV-D)."""
+        clipped += torch.stack([
+            plan.count_saturated(y[i], step_k, pays[i], unit.byte_start, unit)
+            for i in range(self.n_nodes)])
+
+    def _finish(self, x_prev, x_half, comb, y, clipped, plan, layout):
+        """The gradient step applied per leaf while unpacking, and the
+        overflow and residual metrics."""
+        inv_codes, inv_elems = self._ratios(plan, layout)
+        residual = torch.sqrt((y * y).sum(dim=(1, 2)) * inv_elems)
+        x_next = T.tree_map(
+            lambda c, h, p: (c + (h.to(torch.float32)
+                                  - p.to(torch.float32))).to(h.dtype),
+            layout.unpack(comb, cast=False), x_half, x_prev)
+        return x_next, {"overflow_frac": clipped * inv_codes,
+                        "residual_norm": residual}
 
     def _adc_exchange(self, x_prev, x_half, state, step, seed, noise,
                       layout):
+        """Packed / pipelined exchange over the runtime's WirePlan: one
+        transfer unit holding every codec run, or ``pipeline_chunks``
+        single-run units taken in the reference's schedule.  Every codec is
+        row-local, so every chunking gives the packed exchange's bits."""
         cfg, n = self.cfg, self.n_nodes
+        plan = self.wire_plan_for(layout)
+        units = plan.transfer_units(
+            cfg.pipeline_chunks if cfg.wire_packing == "pipelined" else None)
         xt, mb = state["x_tilde"], state["m_agg"]
         y = layout.pack(x_half)
         y.sub_(xt)                # the packed differential, built in place
         if noise is None:
             noise = self.make_noise(layout, step, seed, y.device)
-        pays = self.encode(y, noise, step)
-        del noise
-        outs = [self.codec.decode_combine(
-                    pays[i], pays[_left(i, n)], pays[_right(i, n)], xt[i],
-                    mb[i], cfg.self_weight, cfg.side_weight, 1.0)
-                for i in range(n)]
-        xt_new, m_new, comb = (torch.stack([o[j] for o in outs])
-                               for j in range(3))
-        del outs
-        inv_codes, inv_elems = self._ratios(layout)
         step_k = self._step_k(step)
-        if cfg.quant_mode == "fixed":
-            # overflow monitoring (paper §IV-D): values beyond the grid
-            overflow = torch.stack([
-                self.codec.count_saturated(y[i], step_k, pays[i],
-                                           layout.block)
-                for i in range(n)]) * inv_codes
-        else:
-            overflow = torch.zeros(n, dtype=torch.float32, device=y.device)
-        residual = torch.sqrt((y * y).sum(dim=(1, 2)) * inv_elems)
-        del y, pays
-        # gradient step applied per leaf while unpacking
-        x_next = T.tree_map(
-            lambda c, h, p: (c + (h.to(torch.float32)
-                                  - p.to(torch.float32))).to(h.dtype),
-            layout.unpack(comb, cast=False), x_half, x_prev)
-        return (x_next, {"x_tilde": xt_new, "m_agg": m_new},
-                {"overflow_frac": overflow, "residual_norm": residual})
+        outs = tuple(torch.empty_like(xt) for _ in range(3))
+        clipped = torch.zeros(n, dtype=torch.float32, device=y.device)
 
-    def _ratios(self, layout):
+        def launch(c):
+            return self._encode_unit(plan, units[c], y, noise, step_k)
+
+        def retire(c, pays):
+            self._retire(plan, units[c], pays,
+                         [pays[_left(i, n)] for i in range(n)],
+                         [pays[_right(i, n)] for i in range(n)], xt, mb, outs)
+
+        def census(c, pays):
+            self._census(plan, units[c], y, step_k, pays, clipped)
+
+        _pipeline_schedule(len(units), launch, retire,
+                           census if cfg.quant_mode == "fixed" else None)
+        del noise
+        x_next, metrics = self._finish(x_prev, x_half, outs[2], y, clipped,
+                                       plan, layout)
+        return x_next, {"x_tilde": outs[0], "m_agg": outs[1]}, metrics
+
+    def _adc_exchange_async(self, x_prev, x_half, state, step, seed, noise,
+                            layout):
+        """One-step-stale packed exchange.  ``staleness`` 1: RETIRE the
+        payloads launched at step k-1 (zero bytes at step 1: a no-op
+        gossip) into x_tilde / m_agg and the combine, then LAUNCH this
+        step's differential, encoded against the drained shadow, and carry
+        the three payloads (own, from the left, from the right) to step
+        k+1; the overflow census reads the fresh payload.  ``staleness`` 0
+        is the packed exchange, passing the idle buffers through.
+
+        The payloads are encoded into rows 1..N of one ``(N + 2,
+        payload_bytes)`` ring buffer whose row 0 repeats node N-1's and row
+        N+1 node 0's: ``fly_self``, ``fly_up`` and ``fly_dn`` are its
+        overlapping views at rows 1, 0 and 2: the ring transfer copies two
+        payloads."""
+        if self.cfg.staleness == 0:
+            x_next, ns, metrics = self._adc_exchange(
+                x_prev, x_half, state, step, seed, noise, layout)
+            for key in wire.INFLIGHT_KEYS:
+                ns[key] = state[key]
+            return x_next, ns, metrics
+        n = self.n_nodes
+        plan = self.wire_plan_for(layout)
+        unit = plan.transfer_units(None)[0]
+        xt, mb = state["x_tilde"], state["m_agg"]
+        outs = tuple(torch.empty_like(xt) for _ in range(3))
+        self._retire(plan, unit, state["fly_self"], state["fly_up"],
+                     state["fly_dn"], xt, mb, outs)
+        xt_new, m_new, comb = outs
+        y = layout.pack(x_half)
+        y.sub_(xt_new)
+        if noise is None:
+            noise = self.make_noise(layout, step, seed, y.device)
+        step_k = self._step_k(step)
+        ring = torch.empty((n + 2, plan.payload_bytes), dtype=torch.uint8,
+                           device=y.device)
+        pays = self._encode_unit(plan, unit, y, noise, step_k, ring[1:n + 1])
+        del noise
+        clipped = torch.zeros(n, dtype=torch.float32, device=y.device)
+        if self.cfg.quant_mode == "fixed":
+            self._census(plan, unit, y, step_k, pays, clipped)
+        # ppermute(+1) hands node i node i-1's payload, ppermute(-1) node
+        # i+1's
+        ring[0].copy_(ring[n])
+        ring[n + 1].copy_(ring[1])
+        x_next, metrics = self._finish(x_prev, x_half, comb, y, clipped,
+                                       plan, layout)
+        return x_next, {"x_tilde": xt_new, "m_agg": m_new,
+                        "fly_self": ring[1:n + 1], "fly_up": ring[:n],
+                        "fly_dn": ring[2:]}, metrics
+
+    def _ratios(self, plan, layout):
         """``(1/codes, 1/elements)`` of the packed buffer as float32
         reciprocals: the reference's averages, which XLA evaluates as
         products with the divisor's float32 reciprocal."""
-        inv_codes = float(np.float32(1.0) / np.float32(
-            layout.n_rows * self.codec.codes_per_row(layout.block)))
+        inv_codes = float(np.float32(1.0) / np.float32(plan.codes_total()))
         inv_elems = float(np.float32(1.0) / np.float32(
             layout.n_rows * layout.block))
         return inv_codes, inv_elems
@@ -364,7 +569,8 @@ class ConsensusRuntime:
             combined = comb.reshape(n, -1)[:, :slot.size].reshape(h.shape)
             new_x.append((combined + (h.to(torch.float32)
                                       - p.to(torch.float32))).to(h.dtype))
-        inv_codes, inv_elems = self._ratios(layout)
+        inv_codes, inv_elems = self._ratios(self.wire_plan_for(layout),
+                                            layout)
         new_state = {"x_tilde": layout.from_leaf_rows(xt_rows),
                      "m_agg": layout.from_leaf_rows(m_rows)}
         return (T.tree_unflatten(layout.treedef, new_x), new_state,
@@ -383,13 +589,17 @@ class ConsensusRuntime:
 
     def _cdgd_exchange_packed(self, x_prev, x_half, noise, layout):
         """Direct-compression DGD (paper Eq. (5), the negative control) on
-        the packed int8 wire: one ``quantize_payload`` launch per node over
-        the packed x_prev on the undecayed grid ``fixed_step0``; no
-        combine kernel (there are no shadows)."""
+        the packed int8 wire: per node one ``quantize_payload`` launch per
+        chunk (one chunk unless pipelined) over the packed x_prev on the
+        undecayed grid ``fixed_step0``; no combine kernel (there are no
+        shadows)."""
         n = self.n_nodes
         xp = layout.pack(x_prev)
         step0 = float(np.float32(self.cfg.fixed_step0))
-        pays = [kops.quantize_payload(xp[j], noise[j], fixed_step=step0)
+        bounds = self._chunks_for(layout).bounds
+        pays = [_cat([kops.quantize_payload(xp[j], noise[j], step0,
+                                            row_offset=r0, n_rows=rows)
+                      for r0, rows in bounds])
                 for j in range(n)]
         sent = [kops.unpack_payload(p, layout.block) for p in pays]
         mixed = torch.stack([self._cdgd_mix(xp[j], sent, j)
@@ -437,6 +647,11 @@ class ConsensusRuntime:
             return (mixed + (h.to(torch.float32) - p32)).to(h.dtype)
 
         return T.tree_map(mix, x_half, x_prev)
+
+
+def _cat(parts: list) -> torch.Tensor:
+    """Row concatenation that passes a single part through uncopied."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def _blockify_nodes(leaf: torch.Tensor, rows: int) -> torch.Tensor:

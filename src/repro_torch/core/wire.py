@@ -1,10 +1,11 @@
 """Flat wire packing: one ``(n_rows, BLOCK)`` buffer for a parameter tree.
 
 Port of ``repro.core.wire`` (``LeafSlot``, ``WireLayout``,
-``ChunkedLayout``).  A :class:`WireLayout` maps every leaf of a per-node
-parameter tree to a row range of one float32 buffer: each leaf is padded to
-whole ``BLOCK`` rows (quantization blocks never span leaves) and the buffer
-height to a ``TILE_N`` multiple.  Leaves are taken in JAX's flattening
+``ChunkedLayout``, the async exchange's in-flight buffers).  A
+:class:`WireLayout` maps every leaf of a per-node parameter tree to a row
+range of one float32 buffer: each leaf is padded to whole ``BLOCK`` rows
+(quantization blocks never span leaves) and the buffer height to a
+``TILE_N`` multiple.  Leaves are taken in JAX's flattening
 order (``core.tree``), so ``row_start``/``n_rows`` equal the reference's.
 
 ``pack``/``unpack`` also take trees whose leaves carry leading batch
@@ -26,7 +27,22 @@ import torch
 from repro_torch.core import tree as T
 from repro_torch.kernels import ops as kops
 
-__all__ = ["LeafSlot", "WireLayout", "ChunkedLayout"]
+__all__ = ["LeafSlot", "WireLayout", "ChunkedLayout", "INFLIGHT_KEYS",
+           "inflight_init"]
+
+#: consensus-state keys of the async (one-step-stale) exchange's in-flight
+#: payload triple: each node's own transmitted payload and its two ring
+#: arrivals, carried across the step boundary (core.distributed)
+INFLIGHT_KEYS = ("fly_self", "fly_up", "fly_dn")
+
+
+def inflight_init(n_nodes: int, payload_bytes: int,
+                  device=None) -> torch.Tensor:
+    """The initial ``(n_nodes, payload_bytes)`` uint8 in-flight payloads:
+    all zero bytes, which every codec decodes to a zero differential, so
+    retiring them at step 1 is an exact no-op gossip."""
+    return torch.zeros((n_nodes, int(payload_bytes)), dtype=torch.uint8,
+                       device=device)
 
 
 @dataclasses.dataclass(frozen=True)

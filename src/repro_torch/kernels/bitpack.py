@@ -36,7 +36,8 @@ import numpy as np
 import torch
 
 from . import _build
-from .quantize import BLOCK, _check_rows, chunk_rows, chunk_view
+from .quantize import (BLOCK, _check_noise, _check_rows, _into,
+                       _noise_rows_ok, _out_rows, chunk_rows, chunk_view)
 from .ref import combine_core
 
 __all__ = [
@@ -348,30 +349,26 @@ def _launched(entry, err: int) -> None:
 
 
 def _encode(entry, source, plain, param, width, noise_cols, y, noise,
-            fixed_step, row_offset, n_rows):
-    """Shared checks and launch of the two encoders."""
+            fixed_step, row_offset, n_rows, out, align):
+    """Shared checks and launch of the two encoders; ``out`` as in
+    ``quantize_payload`` (``align``: the kernel's widest payload store)."""
     n_full = y.shape[0]
     n = chunk_view(n_full, n_rows, row_offset)
     _check_rows("y", y, BLOCK, n, n_full, (torch.float32, torch.bfloat16))
-    if noise.dim() != 2 or noise.shape[1] < noise_cols \
-            or noise.shape[0] not in (n, n_full):
-        raise ValueError(f"noise must be ({n} or {n_full}, >= {noise_cols}), "
-                         f"got {tuple(noise.shape)}")
-    if noise.dtype != torch.float32:
-        raise TypeError(f"noise dtype {noise.dtype} is not float32")
+    _check_noise(entry.__name__, noise, noise_cols, n, n_full)
     if y.device.type == "cpu" and noise.device.type == "cpu":
-        return plain(y, noise, param, fixed_step, row_offset, n_rows)
+        return _into(out, plain(y, noise, param, fixed_step, row_offset,
+                                n_rows))
     name = entry.__name__
     if y.device.type != "cuda" or noise.device != y.device:
         raise ValueError(f"{name}: y on {y.device}, noise on {noise.device}; "
                          "both must be on one CUDA device (or both on the "
                          "CPU)")
-    if not y.is_contiguous() or noise.stride(1) != 1 \
-            or noise.stride(0) % 4 or noise.data_ptr() % 16:
+    if not y.is_contiguous() or not _noise_rows_ok(noise):
         raise ValueError(f"{name}: y must be contiguous and noise rows "
                          "unit-stride and 16-byte aligned")
     u0 = 0 if noise.shape[0] == n else row_offset
-    out = torch.empty((n, width), dtype=torch.uint8, device=y.device)
+    out = _out_rows(name, out, (n, width), torch.uint8, y.device, align)
     err = _kernel(source)(
         y.data_ptr() + row_offset * y.stride(0) * y.element_size(),
         int(y.dtype == torch.bfloat16),
@@ -385,9 +382,9 @@ def _encode(entry, source, plain, param, width, noise_cols, y, noise,
 
 
 def _combine(entry, source, plain, param, width, payloads, x_tilde, m_agg,
-             w_self, w_side, deamp, row_offset, n_rows):
-    """Shared checks and launch of the two combines (the chunk-view
-    contract of ``dequant_combine_payload``)."""
+             w_self, w_side, deamp, row_offset, n_rows, out):
+    """Shared checks and launch of the two combines (the chunk-view and
+    ``out`` contract of ``dequant_combine_payload``)."""
     n_full = x_tilde.shape[0]
     n = chunk_view(n_full, n_rows, row_offset)
     for nm, p in zip(("payload_self", "payload_left", "payload_right"),
@@ -397,8 +394,8 @@ def _combine(entry, source, plain, param, width, payloads, x_tilde, m_agg,
         _check_rows(nm, a, BLOCK, n, n_full, (torch.float32,))
     operands = (*payloads, x_tilde, m_agg)
     if all(a.device.type == "cpu" for a in operands):
-        return plain(*payloads, x_tilde, m_agg, w_self, w_side, deamp, param,
-                     row_offset, n_rows)
+        return _into(out, plain(*payloads, x_tilde, m_agg, w_self, w_side,
+                                deamp, param, row_offset, n_rows))
     name = entry.__name__
     dev = x_tilde.device
     if dev.type != "cuda" or any(a.device != dev for a in operands):
@@ -412,8 +409,8 @@ def _combine(entry, source, plain, param, width, payloads, x_tilde, m_agg,
         r0 = 0 if a.shape[0] == n else row_offset
         return a.data_ptr() + r0 * a.stride(0) * a.element_size()
 
-    outs = tuple(torch.empty((n, BLOCK), dtype=torch.float32, device=dev)
-                 for _ in range(3))
+    outs = _out_rows(name, out or (None,) * 3, (n, BLOCK), torch.float32,
+                     dev, align=16)
     err = _kernel(source)(
         *(at(a) for a in operands), *(o.data_ptr() for o in outs), n, param,
         float(np.float32(w_self)),
@@ -425,7 +422,8 @@ def _combine(entry, source, plain, param, width, payloads, x_tilde, m_agg,
 
 
 def subbyte_encode_payload(y, noise, code_bits: int, fixed_step=None,
-                           row_offset: int = 0, n_rows: int | None = None):
+                           row_offset: int = 0, n_rows: int | None = None,
+                           out=None):
     """Bit-packed sub-byte quantize-to-wire: ``(n_full, BLOCK)`` f32/bf16 +
     ``(n_full or n, >= BLOCK)`` f32 noise -> ``(n, BLOCK // (8 //
     code_bits) + 2)`` uint8.  Same chunk view as ``quantize_payload``;
@@ -433,13 +431,13 @@ def subbyte_encode_payload(y, noise, code_bits: int, fixed_step=None,
     return _encode(subbyte_encode_payload, "subbyte_encode",
                    subbyte_encode_plain, code_bits,
                    subbyte_payload_width(BLOCK, code_bits), BLOCK, y, noise,
-                   fixed_step, row_offset, n_rows)
+                   fixed_step, row_offset, n_rows, out, align=2)
 
 
 def subbyte_decode_combine(payload_self, payload_left, payload_right,
                            x_tilde, m_agg, w_self: float, w_side: float,
                            deamp: float, code_bits: int, row_offset: int = 0,
-                           n_rows: int | None = None):
+                           n_rows: int | None = None, out=None):
     """Sub-byte receive side: unpack the three payloads, shadow update and
     ring combine.  Returns (x_tilde', m_agg', combined), each ``(n,
     BLOCK)`` float32."""
@@ -447,31 +445,32 @@ def subbyte_decode_combine(payload_self, payload_left, payload_right,
                     subbyte_combine_plain, code_bits,
                     subbyte_payload_width(BLOCK, code_bits),
                     (payload_self, payload_left, payload_right), x_tilde,
-                    m_agg, w_self, w_side, deamp, row_offset, n_rows)
+                    m_agg, w_self, w_side, deamp, row_offset, n_rows, out)
 
 
 def topk_encode_payload(y, noise, k: int, fixed_step=None,
-                        row_offset: int = 0, n_rows: int | None = None):
+                        row_offset: int = 0, n_rows: int | None = None,
+                        out=None):
     """Top-k sparse quantize-to-wire: ``(n_full, BLOCK)`` f32/bf16 +
     ``(n_full or n, >= 2 * BLOCK)`` f32 noise -> ``(n, BLOCK // 8 + k +
     2)`` uint8 (bitmap || int8 values || bf16 scale)."""
     _check_k(k)
     return _encode(topk_encode_payload, "topk_encode", topk_encode_plain, k,
                    topk_payload_width(BLOCK, k), 2 * BLOCK, y, noise,
-                   fixed_step, row_offset, n_rows)
+                   fixed_step, row_offset, n_rows, out, align=1)
 
 
 def topk_decode_combine(payload_self, payload_left, payload_right, x_tilde,
                         m_agg, w_self: float, w_side: float, deamp: float,
                         k: int, row_offset: int = 0,
-                        n_rows: int | None = None):
+                        n_rows: int | None = None, out=None):
     """Top-k receive side: scatter the three payloads through their
     bitmaps, shadow update and ring combine."""
     _check_k(k)
     return _combine(topk_decode_combine, "topk_combine", topk_combine_plain,
                     k, topk_payload_width(BLOCK, k),
                     (payload_self, payload_left, payload_right), x_tilde,
-                    m_agg, w_self, w_side, deamp, row_offset, n_rows)
+                    m_agg, w_self, w_side, deamp, row_offset, n_rows, out)
 
 
 for _entry in (subbyte_encode_payload, subbyte_decode_combine,

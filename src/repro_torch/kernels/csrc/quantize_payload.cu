@@ -64,14 +64,14 @@ template <typename T>
 __global__ void __launch_bounds__(32 * kWarpsPerCta)
 quantize_payload_kernel(const T* __restrict__ y,
                         const float* __restrict__ noise,
-                        uint8_t* __restrict__ out, long long n_rows,
-                        int fixed, float step) {
+                        long long noise_stride, uint8_t* __restrict__ out,
+                        long long n_rows, int fixed, float step) {
   const int lane = threadIdx.x & 31;
   const long long row =
       static_cast<long long>(blockIdx.x) * kWarpsPerCta + (threadIdx.x >> 5);
   if (row >= n_rows) return;
   const T* yr = y + row * kBlock;
-  const float* ur = noise + row * kBlock;
+  const float* ur = noise + row * noise_stride;   // leading kBlock cols
 
   float v[kPasses][4];
   float absmax = 0.0f;
@@ -109,12 +109,15 @@ quantize_payload_kernel(const T* __restrict__ y,
 
 }  // namespace
 
-// y: (n_rows, 512) f32 (y_is_bf16 == 0) or bf16, noise: (n_rows, 512) f32,
-// out: (n_rows, 516) u8 — all contiguous, base pointers already at the
-// chunk's first row.  fixed != 0 uses `step` as every row's scale.
-// Returns cudaGetLastError() after the launch.
+// y: (n_rows, 512) f32 (y_is_bf16 == 0) or bf16, contiguous; noise: rows
+// of >= 512 f32 (the leading 512 read) every `noise_stride` floats, a
+// multiple of 4 so each row is 16-byte aligned; out: (n_rows, 516) u8,
+// contiguous.  Base pointers already at the chunk's first row.  fixed != 0
+// uses `step` as every row's scale.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int quantize_payload_launch(const void* y, int y_is_bf16,
-                                       const float* noise, uint8_t* out,
+                                       const float* noise,
+                                       long long noise_stride, uint8_t* out,
                                        long long n_rows, int fixed,
                                        float step, void* stream) {
   if (n_rows <= 0) return 0;
@@ -124,11 +127,12 @@ extern "C" int quantize_payload_launch(const void* y, int y_is_bf16,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (y_is_bf16) {
     quantize_payload_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(y), noise, out, n_rows, fixed,
-        step);
+        static_cast<const __nv_bfloat16*>(y), noise, noise_stride, out,
+        n_rows, fixed, step);
   } else {
     quantize_payload_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(y), noise, out, n_rows, fixed, step);
+        static_cast<const float*>(y), noise, noise_stride, out, n_rows,
+        fixed, step);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,8 +27,8 @@ import numpy as np
 import torch
 
 from . import _build, ref
-from .quantize import (BLOCK, SCALE_BYTES, _check_rows, chunk_rows,
-                       chunk_view, unpack_payload)
+from .quantize import (BLOCK, SCALE_BYTES, _check_rows, _into, _out_rows,
+                       chunk_rows, chunk_view, unpack_payload)
 
 __all__ = ["dequant_combine_payload_plain", "dequant_combine_payload",
            "dequant_combine_plain", "dequant_combine"]
@@ -64,7 +64,7 @@ def _kernel():
 def dequant_combine_payload(payload_self, payload_left, payload_right,
                             x_tilde, m_agg, w_self: float, w_side: float,
                             deamp: float, row_offset: int = 0,
-                            n_rows: int | None = None):
+                            n_rows: int | None = None, out=None):
     """Fused decode + shadow update + ring combine.
 
     Payloads are ``(n or n_full, BLOCK + 4)`` uint8, shadows ``(n or
@@ -72,7 +72,8 @@ def dequant_combine_payload(payload_self, payload_left, payload_right,
     static ``row_offset``/``n_rows`` chunk view picks ``n`` rows: operands
     of chunk height are read from row 0, full-height ones at
     ``row_offset``.  Returns (x_tilde', m_agg', combined), each
-    ``(n, BLOCK)`` float32."""
+    ``(n, BLOCK)`` float32: fresh tensors, or the three of ``out`` (e.g.
+    row slices of full-height buffers) written in place."""
     n_full = x_tilde.shape[0]
     n = chunk_view(n_full, n_rows, row_offset)
     pays = (payload_self, payload_left, payload_right)
@@ -83,9 +84,9 @@ def dequant_combine_payload(payload_self, payload_left, payload_right,
         _check_rows(name, a, BLOCK, n, n_full, (torch.float32,))
     operands = (*pays, x_tilde, m_agg)
     if all(a.device.type == "cpu" for a in operands):
-        return dequant_combine_payload_plain(*pays, x_tilde, m_agg, w_self,
-                                             w_side, deamp, row_offset,
-                                             n_rows)
+        return _into(out, dequant_combine_payload_plain(
+            *pays, x_tilde, m_agg, w_self, w_side, deamp, row_offset,
+            n_rows))
     dev = x_tilde.device
     if dev.type != "cuda" or any(a.device != dev for a in operands):
         raise ValueError("dequant_combine_payload: operands on "
@@ -99,8 +100,8 @@ def dequant_combine_payload(payload_self, payload_left, payload_right,
         r0 = 0 if a.shape[0] == n else row_offset
         return a.data_ptr() + r0 * a.stride(0) * a.element_size()
 
-    outs = tuple(torch.empty((n, BLOCK), dtype=torch.float32, device=dev)
-                 for _ in range(3))
+    outs = _out_rows("dequant_combine_payload", out or (None,) * 3,
+                     (n, BLOCK), torch.float32, dev, align=16)
     err = _kernel()(
         *(at(a) for a in operands), *(o.data_ptr() for o in outs), n,
         float(np.float32(w_self)),

@@ -86,16 +86,54 @@ def _check_rows(name: str, a: torch.Tensor, width: int, n: int,
         raise TypeError(f"{name} dtype {a.dtype} not in {dtypes}")
 
 
+def _into(out, got):
+    """``got`` returned as it is, or copied into the caller's ``out``
+    (a tensor or a tuple of them) and ``out`` returned: the plain
+    versions' side of the wrappers' ``out=``."""
+    if out is None:
+        return got
+    many = not isinstance(out, torch.Tensor)
+    for o, g in zip(out, got) if many else ((out, got),):
+        if o.shape != g.shape or o.dtype != g.dtype:
+            raise ValueError(f"out must be {tuple(g.shape)} {g.dtype}, got "
+                             f"{tuple(o.shape)} {o.dtype}")
+        o.copy_(g)
+    return tuple(out) if many else out
+
+
+def _out_rows(name: str, out, shape: tuple, dtype, device, align: int = 1):
+    """The caller's ``out`` tensor(s), checked for what a kernel writes
+    (``shape``, ``dtype``, contiguous on ``device``, ``align``-byte
+    aligned), fresh ones where it is None: one tensor, or a tuple for a
+    kernel with several outputs (a None entry is made fresh)."""
+    many = isinstance(out, (tuple, list))
+    outs = tuple(out) if many else (out,)
+    made = []
+    for o in outs:
+        if o is None:
+            o = torch.empty(shape, dtype=dtype, device=device)
+        elif (tuple(o.shape) != tuple(shape) or o.dtype != dtype
+              or o.device != device or not o.is_contiguous()
+              or o.data_ptr() % align):
+            raise ValueError(f"{name}: out must be a contiguous {shape} "
+                             f"{dtype} tensor on {device}, {align}-byte "
+                             f"aligned; got {tuple(o.shape)} {o.dtype} on "
+                             f"{o.device}")
+        made.append(o)
+    return tuple(made) if many else made[0]
+
+
 def quantize_payload_plain(y: torch.Tensor, noise: torch.Tensor,
                            fixed_step: float | None = None,
                            row_offset: int = 0,
                            n_rows: int | None = None) -> torch.Tensor:
     """Plain PyTorch version: ``pack_payload(quantize_blocks_ref(...))`` on
-    the chunk's rows.  Runs on any device."""
+    the chunk's rows and the leading ``BLOCK`` columns of ``noise``.  Runs
+    on any device."""
     n = chunk_view(y.shape[0], n_rows, row_offset)
     codes, scales = ref.quantize_blocks_ref(
-        chunk_rows(y, row_offset, n), chunk_rows(noise, row_offset, n),
-        fixed_step=fixed_step)
+        chunk_rows(y, row_offset, n),
+        chunk_rows(noise, row_offset, n)[:, :BLOCK], fixed_step=fixed_step)
     return pack_payload(codes, scales)
 
 
@@ -105,44 +143,69 @@ def _kernel():
     use)."""
     fn = _build.load("quantize_payload").quantize_payload_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_void_p]
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
+def _check_noise(name: str, noise: torch.Tensor, cols: int, n: int,
+                 n_full: int) -> None:
+    """Noise of ``n`` or ``n_full`` rows and at least ``cols`` float32
+    columns, of which the encoder reads the leading ones in place."""
+    if noise.dim() != 2 or noise.shape[1] < cols \
+            or noise.shape[0] not in (n, n_full):
+        raise ValueError(f"{name}: noise must be ({n} or {n_full}, >= "
+                         f"{cols}), got {tuple(noise.shape)}")
+    if noise.dtype != torch.float32:
+        raise TypeError(f"noise dtype {noise.dtype} is not float32")
+
+
+def _noise_rows_ok(noise: torch.Tensor) -> bool:
+    """What the CUDA encoders need of a noise buffer: unit column stride
+    and every row 16-byte aligned."""
+    return (noise.stride(1) == 1 and noise.stride(0) % 4 == 0
+            and noise.data_ptr() % 16 == 0)
+
+
 def quantize_payload(y: torch.Tensor, noise: torch.Tensor,
                      fixed_step: float | None = None, row_offset: int = 0,
-                     n_rows: int | None = None) -> torch.Tensor:
+                     n_rows: int | None = None,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
     """Fused quantize-to-wire: ``(n_full, BLOCK)`` f32/bf16 differential +
-    ``(n_full or n, BLOCK)`` f32 uniform noise -> ``(n, BLOCK + 4)`` uint8.
+    ``(n_full or n, >= BLOCK)`` f32 uniform noise -> ``(n, BLOCK + 4)``
+    uint8.  The leading ``BLOCK`` columns of each noise row are read, so a
+    wider buffer shared with the top-k encoder serves as it is.
 
     Static ``row_offset``/``n_rows`` select a chunk of full-height
     operands, read in place.  ``fixed_step`` (a float) is every row's
-    scale; ``None`` picks the adaptive per-row scale."""
+    scale; ``None`` picks the adaptive per-row scale.  ``out``: an
+    ``(n, BLOCK + 4)`` uint8 tensor to write the payload into (contiguous,
+    4-byte aligned on the card)."""
     n_full = y.shape[0]
     n = chunk_view(n_full, n_rows, row_offset)
     _check_rows("y", y, BLOCK, n, n_full, (torch.float32, torch.bfloat16))
-    _check_rows("noise", noise, BLOCK, n, n_full, (torch.float32,))
+    _check_noise("quantize_payload", noise, BLOCK, n, n_full)
     if y.device.type == "cpu" and noise.device.type == "cpu":
-        return quantize_payload_plain(y, noise, fixed_step, row_offset,
-                                      n_rows)
+        return _into(out, quantize_payload_plain(y, noise, fixed_step,
+                                                 row_offset, n_rows))
     if y.device.type != "cuda" or noise.device != y.device:
         raise ValueError(f"quantize_payload: y on {y.device}, noise on "
                          f"{noise.device}; both must be on one CUDA device "
                          "(or both on the CPU)")
-    if not (y.is_contiguous() and noise.is_contiguous()):
-        raise ValueError("quantize_payload: CUDA operands must be "
-                         "contiguous")
+    if not y.is_contiguous() or not _noise_rows_ok(noise):
+        raise ValueError("quantize_payload: y must be contiguous and noise "
+                         "rows unit-stride and 16-byte aligned")
     u0 = 0 if noise.shape[0] == n else row_offset
-    out = torch.empty((n, BLOCK + SCALE_BYTES), dtype=torch.uint8,
-                      device=y.device)
+    out = _out_rows("quantize_payload", out, (n, BLOCK + SCALE_BYTES),
+                    torch.uint8, y.device, align=4)
     step = 0.0 if fixed_step is None else float(np.float32(fixed_step))
     err = _kernel()(
         y.data_ptr() + row_offset * y.stride(0) * y.element_size(),
         int(y.dtype == torch.bfloat16),
         noise.data_ptr() + u0 * noise.stride(0) * noise.element_size(),
-        out.data_ptr(), n, int(fixed_step is not None), step,
+        noise.stride(0), out.data_ptr(), n, int(fixed_step is not None),
+        step,
         torch.cuda.current_stream(y.device).cuda_stream)
     quantize_payload.launches += 1
     if err != 0:

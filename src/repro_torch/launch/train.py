@@ -12,14 +12,19 @@ The reference runs each node on its own device inside ``shard_map``; a
 ring over several cards is a later slice.
 
 ``--algorithm compressed_dgd`` runs the paper's Eq. (5) negative control
-instead of ADC-DGD, and ``--wire-packing per_leaf`` the per-leaf reference
-transport of the int8 wire instead of the packed one.
+instead of ADC-DGD.  ``--wire-packing`` picks the transport: ``packed``
+(one payload per node and step), ``pipelined`` (``--pipeline-chunks``
+transfer units), ``async`` (one step stale at ``--staleness 1``) or
+``per_leaf`` (the per-leaf reference transport of the int8 wire).
 
 The wire codec is ``--wire-codec int8|int4|int2|topk|topk:k=<int>``, or
 ``adaptive``: then an ``AdaptiveBitController`` re-selects it every
 ``--codec-period`` steps from the epoch's mean residual, overflow and
 consensus error, and the runtime's codec is swapped while the train state
-(fp32 shadows, which no codec changes) is kept.
+(fp32 shadows, which no codec changes) is kept.  ``--wire-plan
+"mixed:pattern=codec,..."`` gives each leaf its own codec (it overrides
+``--wire-codec``); with ``--wire-codec adaptive`` the controller then
+moves the plan's hot slots through the ladder and pins the others.
 
 CLI (runs on ``cuda`` unless ``--device cpu``)::
 
@@ -40,10 +45,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import codec as wcodec
 from repro_torch.core import tree as T
+from repro_torch.core import wireplan
 from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.params import init_params
+from repro_torch.models.params import init_params, meta_params
 from repro_torch.optim import by_name as opt_by_name
 from repro_torch.optim.schedules import (constant_schedule,
                                          cosine_warmup_schedule,
@@ -74,17 +80,20 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                       track_consensus_error: bool = False,
                       wire_codec: str = "int8",
                       byte_budget: float | None = None,
-                      wire_packing: str = "packed", seed: int = 0,
+                      wire_packing: str = "packed", pipeline_chunks: int = 4,
+                      staleness: int = 1, seed: int = 0,
                       device=None) -> TrainSetup:
-    """Everything static about a run.  ``device`` defaults to ``cuda``
-    (raising when there is none); pass ``device="cpu"`` for the plain
-    PyTorch path."""
+    """Everything static about a run.  ``wire_codec`` is a codec name or a
+    ``mixed:`` plan spec.  ``device`` defaults to ``cuda`` (raising when
+    there is none); pass ``device="cpu"`` for the plain PyTorch path."""
     dev = resolve_device(device)
     ccfg = ConsensusConfig(algorithm=algorithm, gamma=gamma,
                            quant_mode=quant_mode, fixed_step0=fixed_step0,
                            track_consensus_error=track_consensus_error,
                            wire_codec=wire_codec, byte_budget=byte_budget,
-                           wire_packing=wire_packing)
+                           wire_packing=wire_packing,
+                           pipeline_chunks=pipeline_chunks,
+                           staleness=staleness)
     if schedule == "constant":
         sched = constant_schedule(lr)
     elif schedule == "inverse_power":
@@ -100,12 +109,15 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
 
 
 def with_codec(setup: TrainSetup, name: str) -> TrainSetup:
-    """The same setup with the consensus runtime's wire codec swapped for
-    ``name``.  The train state carries over: its packed shadows are fp32
-    and no codec changes them."""
-    cfg = dataclasses.replace(setup.consensus.cfg, wire_codec=name)
+    """The same setup with the consensus runtime's wire codec (or plan
+    spec) swapped for ``name``.  The train state carries over: its packed
+    shadows are fp32 and no codec changes them, and the buffer keeps the
+    setup's leaf placement (a tier change moves codecs, never rows)."""
+    rt = setup.consensus
+    cfg = dataclasses.replace(rt.cfg, wire_codec=name)
     return dataclasses.replace(
-        setup, consensus=ConsensusRuntime(cfg, setup.n_nodes))
+        setup, consensus=ConsensusRuntime(cfg, setup.n_nodes,
+                                          layout_spec=rt.layout_spec))
 
 
 def init_train_state(setup: TrainSetup, seed: int = 0,
@@ -172,7 +184,7 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
         noise=noise)
     metrics = {"loss": float(losses.mean()), "node_loss": losses, "lr": lr_k}
     if setup.consensus.cfg.algorithm == "adc_dgd":
-        metrics["codec"] = setup.consensus.codec.name
+        metrics["codec"] = setup.consensus.wire_name
     for name, v in cmetrics.items():
         metrics[name] = float(v.mean()) if torch.is_tensor(v) else float(v)
     return ({"params": x_next, "opt": opt_state, "consensus": cons,
@@ -202,10 +214,17 @@ def main(argv=None, *, return_state: bool = False):
     ap.add_argument("--quant-mode", default="fixed",
                     choices=["fixed", "adaptive"])
     ap.add_argument("--wire-packing", default="packed",
-                    choices=["packed", "per_leaf"],
+                    choices=["packed", "pipelined", "per_leaf", "async"],
                     help="consensus wire transport: one payload for the "
-                         "whole tree, or the per-leaf reference transport "
-                         "(int8 codes and scales per leaf; the same bits)")
+                         "whole tree, --pipeline-chunks transfer units, the "
+                         "one-step-stale exchange, or the per-leaf "
+                         "reference transport (int8 codes and scales per "
+                         "leaf); all give the same bits but async")
+    ap.add_argument("--pipeline-chunks", type=int, default=4,
+                    help="transfer units of --wire-packing pipelined")
+    ap.add_argument("--staleness", type=int, default=1, choices=[0, 1],
+                    help="--wire-packing async: 1 retires the previous "
+                         "step's payload; 0 is the packed exchange")
     ap.add_argument("--wire-codec", default="int8",
                     help="payload codec of the exchange: int8 | int4 | int2 "
                          "| topk | topk:k=<int> | adaptive; 'adaptive' hands "
@@ -213,6 +232,13 @@ def main(argv=None, *, return_state: bool = False):
                          "re-selects it every --codec-period steps from the "
                          "residual, overflow and consensus-error feedback "
                          "and --byte-budget")
+    ap.add_argument("--wire-plan", default=None,
+                    help="wire plan spec: a codec name or "
+                         "'mixed:pattern=codec,...' mapping leaf paths to "
+                         "codecs, e.g. 'mixed:norm=int2,embed=int4,*=int8'; "
+                         "overrides --wire-codec, and with --wire-codec "
+                         "adaptive the controller moves the plan's hot "
+                         "slots and pins the rest")
     ap.add_argument("--codec-ladder", default=None,
                     help="comma-separated codecs the adaptive controller "
                          "chooses from, lowest fidelity first (default "
@@ -236,43 +262,74 @@ def main(argv=None, *, return_state: bool = False):
     torch.backends.cuda.matmul.allow_tf32 = False
 
     adaptive = args.wire_codec == "adaptive"
-    if adaptive and (args.algorithm != "adc_dgd"
-                     or args.wire_packing != "packed"):
-        raise SystemExit("--wire-codec adaptive requires adc_dgd on the "
-                         "packed wire")
+    if adaptive and args.algorithm != "adc_dgd":
+        raise SystemExit("--wire-codec adaptive requires adc_dgd")
+    if adaptive and args.wire_packing == "per_leaf":
+        raise SystemExit("--wire-codec adaptive requires the packed, "
+                         "pipelined or async transport (per_leaf is "
+                         "int8-only)")
+    if adaptive and args.wire_packing == "async" and args.staleness == 1:
+        # a switch changes the payload's size: the payload in flight was
+        # encoded on the old wire and cannot be retired on the new one
+        raise SystemExit("--wire-codec adaptive cannot run on --wire-packing "
+                         "async with --staleness 1: a codec switch changes "
+                         "the in-flight payload's size")
     ladder = (tuple(s.strip() for s in args.codec_ladder.split(",")
                     if s.strip())
               if args.codec_ladder else wcodec.AdaptiveBitController.ladder)
     try:                                  # fail at the CLI, clearly
         for name in ladder if adaptive else (args.wire_codec,):
             wcodec.by_name(name)
+        plan_spec = (wireplan.parse_spec(args.wire_plan)
+                     if args.wire_plan else None)
     except (KeyError, ValueError) as e:
-        raise SystemExit(f"--wire-codec/--codec-ladder: {e.args[0]}") \
-            from None
+        raise SystemExit(f"--wire-codec/--codec-ladder/--wire-plan: "
+                         f"{e.args[0]}") from None
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    controller = None
+
+    def spec_for(tier: str) -> str:
+        """A ladder tier as the wire the setup is built with: the tier
+        itself, or in plan mode the plan with its hot slots moved to it
+        (the built plan's hot codec, so a rule that matches no slot
+        cannot take the tier)."""
+        if plan_spec is None:
+            return tier
+        hot = None if controller.plan is None else controller.plan.hot_codec
+        return plan_spec.with_hot_tier(tier, hot=hot).to_string()
+
+    wire = args.wire_codec
+    if plan_spec is not None:
+        wire = plan_spec.to_string()
     setup = build_train_setup(
         cfg, consensus_nodes=args.nodes, algorithm=args.algorithm,
         gamma=args.gamma, quant_mode=args.quant_mode,
         optimizer=args.optimizer, schedule=args.schedule, lr=args.lr,
         total_steps=args.steps, seed=args.seed, device=args.device,
         track_consensus_error=(args.algorithm != "allreduce"),
-        wire_codec="int8" if adaptive else args.wire_codec,
-        byte_budget=args.byte_budget, wire_packing=args.wire_packing)
-    state = init_train_state(setup, args.seed)
-    controller = None
+        wire_codec="int8" if adaptive and plan_spec is None else wire,
+        byte_budget=args.byte_budget, wire_packing=args.wire_packing,
+        pipeline_chunks=args.pipeline_chunks, staleness=args.staleness)
     if adaptive:
         ccfg = setup.consensus.cfg
         controller = wcodec.AdaptiveBitController(
             ladder=ladder, byte_budget=ccfg.byte_budget, gamma=ccfg.gamma,
             fixed_step0=ccfg.fixed_step0)
-        layout = setup.consensus.state_layout(state["params"])
+        params = meta_params(setup.defs.storage)
+        params = T.tree_map(lambda a: a.expand((args.nodes,) + a.shape),
+                            params)
+        layout = setup.consensus.state_layout(params)
         n_rows, n_elements = layout.n_rows, layout.n_elements
-        codec_name = controller.initial(n_rows)
+        if plan_spec is not None and not plan_spec.is_uniform:
+            # plan mode: price the grouped buffer the runtime ships
+            controller.plan = setup.consensus.wire_plan_for(layout)
+        codec_name = spec_for(controller.initial(n_rows))
         setup = with_codec(setup, codec_name)
         print(f"[codec] controller start: {codec_name} "
               f"(budget={ccfg.byte_budget})")
+    state = init_train_state(setup, args.seed)
     ds = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
                             n_shards=args.nodes)
     history = []
@@ -302,9 +359,9 @@ def main(argv=None, *, return_state: bool = False):
         if (step + 1) % args.codec_period == 0:
             res, ovf = float(np.mean(ep_res)), float(np.mean(ep_ovf))
             ce = float(np.mean(ep_ce)) if ep_ce else None
-            new = controller.select(next_step=step + 2, residual_rms=res,
-                                    overflow_frac=ovf, n_rows=n_rows,
-                                    consensus_err=ce)
+            new = spec_for(controller.select(
+                next_step=step + 2, residual_rms=res, overflow_frac=ovf,
+                n_rows=n_rows, consensus_err=ce))
             if new != codec_name:
                 print(f"[codec] step {step + 1}: {codec_name} -> {new} "
                       f"(residual_rms={res:.3g}, overflow={ovf:.3g}"

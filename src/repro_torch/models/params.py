@@ -19,7 +19,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import tree as T
 
-__all__ = ["ParamDef", "init_params", "params_from_jax", "meta_params"]
+__all__ = ["ParamDef", "init_params", "params_from_jax", "meta_params",
+           "consensus_state_from_jax"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,3 +87,33 @@ def params_from_jax(tree_of_numpy: Any, defs: Any, device=None,
             x = x.unsqueeze(0).repeat((n_nodes,) + (1,) * x.dim())
         out.append(x)
     return T.tree_unflatten(treedef, out)
+
+
+#: dtypes of the reference's consensus-state entries: the packed shadows,
+#: and the async exchange's in-flight payloads
+_CONSENSUS_DTYPES = {"x_tilde": torch.float32, "m_agg": torch.float32,
+                     "fly_self": torch.uint8, "fly_up": torch.uint8,
+                     "fly_dn": torch.uint8}
+
+
+def consensus_state_from_jax(state_of_numpy: dict, n_nodes: int,
+                             device=None) -> dict:
+    """The reference's consensus state (its arrays converted to numpy) ->
+    the port's, on ``device`` (``cuda`` unless ``device="cpu"``).
+
+    The reference keeps it device-major: the packed shadows ``(n_dev,
+    n_rows, BLOCK)`` float32 and the async in-flight payloads ``(n_dev,
+    nbytes)`` uint8.  With one device per node, as the port's stacked
+    nodes are, the device axis is the node axis ``N``."""
+    device = resolve_device(device)
+    out = {}
+    for key, a in state_of_numpy.items():
+        if key not in _CONSENSUS_DTYPES:
+            raise ValueError(f"consensus state entry {key!r} is not ported; "
+                             f"have {sorted(_CONSENSUS_DTYPES)}")
+        dtype = _CONSENSUS_DTYPES[key]
+        if a.shape[0] != n_nodes:
+            raise ValueError(f"{key}: {a.shape[0]} devices != {n_nodes} "
+                             "nodes (one device per node)")
+        out[key] = torch.from_numpy(np.array(a)).to(device, dtype)
+    return out

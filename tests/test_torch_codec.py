@@ -116,8 +116,10 @@ def test_config_validation():
         ConsensusConfig(wire_codec="int3")
     with pytest.raises(ValueError, match="wire_codec"):
         ConsensusConfig(wire_codec="topk:k=63")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ConsensusConfig(wire_codec="mixed:norm=int2,*=int8")
+    with pytest.raises(ValueError, match="wire_codec"):
+        ConsensusConfig(wire_codec="mixed:norm=int3,*=int8")
+    assert ConsensusConfig(wire_codec="mixed:norm=int2,*=int8").wire_codec \
+        == "mixed:norm=int2,*=int8"
     with pytest.raises(ValueError, match="byte_budget"):
         ConsensusConfig(byte_budget=-1.0)
     with pytest.raises(KeyError):
@@ -126,8 +128,9 @@ def test_config_validation():
         C.TopKCodec(k=63)
     with pytest.raises(ValueError, match="code_bits"):
         C.SubByteCodec(code_bits=3)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        C.AdaptiveBitController(plan=object())
+    with pytest.raises(ValueError, match="ladder"):
+        C.AdaptiveBitController(ladder=())
+    assert C.AdaptiveBitController(plan=object()).plan is not None
 
 
 # ---------------------------------------------------------------------------
@@ -346,10 +349,12 @@ for codec in __CODECS__:
                 layout.pack(jax.tree.map(lambda a: a[i], xh))
                 - js["x_tilde"][i], jnp.asarray(nz[i]), fixed_step=step_k))
                 for i in range(N)]
-            y = rt.state_layout(tt(xh)).pack(tt(xh)) - synced["x_tilde"]
-            got = rt.encode(y, torch.from_numpy(nz), k)
+            tlayout = rt.state_layout(tt(xh))
+            y = tlayout.pack(tt(xh)) - synced["x_tilde"]
+            got = rt.encode(y, torch.from_numpy(nz), k, tlayout)
             res["payload_equal"].append(all(
-                np.array_equal(g.numpy(), w) for g, w in zip(got, want)))
+                np.array_equal(g.numpy(), w.reshape(-1))
+                for g, w in zip(got, want)))
             jxn, js, jm = step_f(xp, xh, js, jnp.asarray(k, jnp.int32), nz)
             txn, ts, tm = rt.exchange(tt(xp), tt(xh), synced, k,
                                       noise=torch.from_numpy(nz))
@@ -460,8 +465,8 @@ def test_codec_switch_keeps_the_train_state():
                                     consensus_nodes=2, device="cpu")
     state = train.init_train_state(setup, 0)
     swapped = train.with_codec(setup, "topk:k=16")
-    assert swapped.consensus.codec == C.by_name("topk:k=16")
-    assert setup.consensus.codec.name == "int8"
+    assert swapped.consensus.wire_name == C.by_name("topk:k=16").name
+    assert setup.consensus.wire_name == "int8"
     assert swapped.defs is setup.defs
     assert ops.BLOCK == BLOCK
     for key, v in swapped.consensus.init_state(state["params"]).items():

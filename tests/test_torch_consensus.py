@@ -127,10 +127,12 @@ for mode in ("fixed", "adaptive"):
             for i in range(N)]
         grid = max(grid, max(float(np.max(np.asarray(
             jops.unpack_payload(jnp.asarray(w))[1]))) for w in want))
-        y = rt.state_layout(tt(xh)).pack(tt(xh)) - synced["x_tilde"]
-        got = rt.encode(y, torch.from_numpy(nz), k)
+        tlayout = rt.state_layout(tt(xh))
+        y = tlayout.pack(tt(xh)) - synced["x_tilde"]
+        got = rt.encode(y, torch.from_numpy(nz), k, tlayout)
         res["payload_equal"].append(all(
-            np.array_equal(g.numpy(), w) for g, w in zip(got, want)))
+            np.array_equal(g.numpy(), w.reshape(-1))
+            for g, w in zip(got, want)))
         jxn, js, jm = step_f(xp, xh, js, jnp.asarray(k, jnp.int32), nz)
         txn, ts, tm = rt.exchange(tt(xp), tt(xh), synced, k,
                                   noise=torch.from_numpy(nz))
@@ -372,14 +374,16 @@ for gamma in (0.5, 0.6, 0.75, 1.5):
                       for key, v in js.items()}
             jxn, js, jstep_k = step_f(xp, xh, js, jnp.asarray(k, jnp.int32),
                                       nz)
-            y = (rt.state_layout(tt(xh)).pack(tt(xh))
-                 - synced["x_tilde"]).numpy()
+            tlayout = rt.state_layout(tt(xh))
+            y = (tlayout.pack(tt(xh)) - synced["x_tilde"]).numpy()
             want_p = [np.asarray(jops.quantize_payload(
                 jnp.asarray(y[i]), jnp.asarray(nz[i]),
                 fixed_step=jnp.asarray(jstep_k)[i])) for i in range(4)]
-            got_p = rt.encode(torch.from_numpy(y), torch.from_numpy(nz), k)
+            got_p = rt.encode(torch.from_numpy(y), torch.from_numpy(nz), k,
+                              tlayout)
             res["payload_equal"].append(all(
-                np.array_equal(g.numpy(), w) for g, w in zip(got_p, want_p)))
+                np.array_equal(g.numpy(), w.reshape(-1))
+                for g, w in zip(got_p, want_p)))
             _, ts, _ = rt.exchange(tt(xp), tt(xh), synced, k,
                                    noise=torch.from_numpy(nz))
             a = ts["x_tilde"].numpy()

@@ -352,3 +352,167 @@ def test_cuda_gqa_decode_half_million_positions_hd256(cuda_device, dtype,
     for valid in (pos < frontier, _holes_mask(S, 7, cuda_device),
                   (pos < frontier) & (pos >= frontier - 4096)):
         _check_decode(q, k, v, valid, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("step", [None, 1e-3])
+def test_cuda_quantize_kernel_reads_lead_of_wide_noise(cuda_device, dtype,
+                                                       step):
+    """Kernel #1 on a 1,024-column noise buffer (a plan holding top-k
+    shares one): the noise row stride is the buffer's, the leading 512
+    columns are read, bytes equal to the plain version's."""
+    y, u = _codec_inputs(cuda_device, 6, 2 * BLOCK)
+    y = y.to(dtype)
+    before = Q.quantize_payload.launches
+    for view in ({}, {"row_offset": 37, "n_rows": 1001}):
+        got = Q.quantize_payload(y, u, step, **view)
+        assert torch.equal(got, Q.quantize_payload_plain(y, u, step, **view))
+        assert torch.equal(got, Q.quantize_payload(
+            y, u[:, :BLOCK].contiguous(), step, **view))
+    assert Q.quantize_payload.launches == before + 4
+
+
+PLANS = {"int8": "int8", "planA": "mixed:norm=int4,embed=int4,*=int8",
+         "planB": "mixed:embed=topk:k=64,norm=int2,*=int8"}
+
+
+def _exchange_inputs(seed=0):
+    """Reduced smollm-135m x 4 nodes: x_prev, x_half (a few entries
+    beyond the fixed grid) on the CPU, made with numpy."""
+    from repro_torch.core import tree as T
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import meta_params
+    rng = np.random.default_rng(seed)
+    tmpl = meta_params(TF.build_defs(reduced(get_config("smollm-135m")))
+                       .storage)
+    xp = T.tree_map(lambda a: torch.from_numpy(np.broadcast_to(
+        (rng.standard_normal(a.shape) * 0.05).astype(np.float32),
+        (4,) + a.shape).copy()), tmpl)
+
+    def step(a):
+        d = (rng.standard_normal(a.shape) * 2e-3).astype(np.float32)
+        d.reshape(-1)[::997] *= 300.0
+        return a + torch.from_numpy(d)
+    return xp, T.tree_map(step, xp)
+
+
+def _exchanges(device, spec, packing="packed", chunks=4, steps=2):
+    """``steps`` exchanges on ``device`` from the same inputs and noise
+    (async at staleness 0): (x_next, state, metrics) per step."""
+    from repro_torch.core import tree as T
+    from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
+    rt = ConsensusRuntime(ConsensusConfig(
+        wire_codec=spec, wire_packing=packing, pipeline_chunks=chunks,
+        staleness=0), 4)
+    xp, xh = (T.tree_map(lambda a: a.to(device), t)
+              for t in _exchange_inputs())
+    state = rt.init_state(xp)
+    layout = rt.state_layout(xp)
+    out = []
+    for k in range(1, steps + 1):
+        noise = torch.rand((4, layout.n_rows, rt.noise_cols_for(layout)),
+                           generator=torch.Generator().manual_seed(k))
+        x, state, m = rt.exchange(xp, xh, state, k, noise=noise.to(device))
+        out.append((x, state, m))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["planA", "planB"])
+def test_cuda_plan_exchange_matches_cpu(cuda_device, plan):
+    """One exchange step of a mixed plan on the card (every run on its
+    kernel) against the CPU (plain versions) from the same inputs, state
+    and noise: x_tilde, m_agg and x_next within 1 ulp (the combines' own
+    contract), overflow equal; the launches are one per node and run."""
+    from repro_torch.core import tree as T
+    before = {e: e.launches for e in (Q.quantize_payload,
+                                      D.dequant_combine_payload,
+                                      BP.subbyte_encode_payload,
+                                      BP.topk_encode_payload)}
+    (gx, gs, gm), = _exchanges(cuda_device, PLANS[plan], steps=1)
+    (cx, cs, cm), = _exchanges("cpu", PLANS[plan], steps=1)
+    for key in ("x_tilde", "m_agg"):
+        np.testing.assert_array_max_ulp(gs[key].cpu().numpy(),
+                                        cs[key].numpy(), maxulp=1)
+    for a, b in zip(T.tree_leaves(gx), T.tree_leaves(cx)):
+        np.testing.assert_array_max_ulp(a.cpu().numpy(), b.numpy(),
+                                        maxulp=1)
+    assert torch.equal(gm["overflow_frac"].cpu(), cm["overflow_frac"])
+    assert gm["wire_bytes_per_step"] == cm["wire_bytes_per_step"]
+    small = (BP.subbyte_encode_payload if plan == "planA"
+             else BP.topk_encode_payload)
+    assert (Q.quantize_payload.launches - before[Q.quantize_payload],
+            D.dequant_combine_payload.launches
+            - before[D.dequant_combine_payload],
+            small.launches - before[small]) == (4, 4, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", list(PLANS))
+def test_cuda_pipelined_equals_packed(cuda_device, plan):
+    """On the card, two exchanges pipelined over 4 and 7 chunks and on the
+    async transport at staleness 0 give the packed exchange's bits."""
+    from repro_torch.core import tree as T
+    want = _exchanges(cuda_device, PLANS[plan])
+    for packing, chunks in (("pipelined", 4), ("pipelined", 7),
+                            ("async", 4)):
+        got = _exchanges(cuda_device, PLANS[plan], packing, chunks)
+        for (gx, gs, _), (wx, ws, _) in zip(got, want):
+            assert all(torch.equal(a, b) for a, b in zip(T.tree_leaves(gx),
+                                                          T.tree_leaves(wx)))
+            assert all(torch.equal(gs[k], ws[k])
+                       for k in ("x_tilde", "m_agg"))
+
+
+def _codec_out_roundtrip(name, device):
+    """Encode and combine through ``out=``: the caller's tensors (row
+    views of larger buffers) come back written, equal to fresh outputs."""
+    from repro_torch.core.codec import by_name
+    cd = by_name(name)
+    g = torch.Generator(device=device).manual_seed(3)
+    rows, lo, n = 96, 13, 61
+    y = torch.randn((rows, BLOCK), generator=g, device=device) * 0.05
+    u = torch.rand((rows, cd.noise_cols()), generator=g, device=device)
+    width = cd.payload_width()
+    flat = torch.zeros(8 + (n + 1) * width, dtype=torch.uint8, device=device)
+    align = {"int8": 4, "int4": 2, "int2": 2}.get(name, 1)
+    seg = flat[width:width + n * width].view(n, width)
+    got = cd.encode_payload(y, u, 1e-3, row_offset=lo, n_rows=n, out=seg)
+    assert got.data_ptr() == seg.data_ptr() and seg.data_ptr() % align == 0
+    assert torch.equal(seg, cd.encode_payload(y, u, 1e-3, row_offset=lo,
+                                              n_rows=n))
+    pays = [cd.encode_payload(y * (i + 1), u) for i in range(3)]
+    xt = torch.randn((rows, BLOCK), generator=g, device=device)
+    m = torch.randn((rows, BLOCK), generator=g, device=device)
+    big = torch.full((3, 2, rows, BLOCK), 7.0, device=device)
+    outs = [big[k, 1, lo:lo + n] for k in range(3)]
+    got = cd.decode_combine(*pays, xt, m, 0.5, 0.25, 0.37, row_offset=lo,
+                            n_rows=n, out=outs)
+    want = cd.decode_combine(*pays, xt, m, 0.5, 0.25, 0.37, row_offset=lo,
+                             n_rows=n)
+    for o, a, b in zip(outs, got, want):
+        assert a.data_ptr() == o.data_ptr() and torch.equal(a, b)
+    assert (big[:, 0] == 7.0).all() and (big[:, 1, :lo] == 7.0).all()
+    with pytest.raises(ValueError, match="out"):
+        cd.encode_payload(y, u, 1e-3, out=seg)          # rows != n_full
+    return flat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["int8", "int4", "int2", "topk"])
+def test_cuda_codec_kernels_write_into_out(cuda_device, name):
+    """Kernels #1, #2 and #5-#8 write into the caller's row views (what the
+    exchange hands them), equal to fresh outputs; an int8 or sub-byte
+    payload view off its store alignment is refused."""
+    from repro_torch.core.codec import by_name
+    flat = _codec_out_roundtrip(name, cuda_device)
+    if name in ("int8", "int4", "int2"):
+        cd = by_name(name)
+        y, u = _codec_inputs(cuda_device, 6, cd.noise_cols())
+        width = cd.payload_width()
+        off = flat[1:1 + 4 * width].view(4, width)
+        with pytest.raises(ValueError, match="aligned"):
+            cd.encode_payload(y, u, None, n_rows=4, out=off)

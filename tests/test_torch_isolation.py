@@ -57,6 +57,7 @@ def test_fresh_import_pulls_in_no_jax():
     for path in _py_files():
         rel = os.path.relpath(path, os.path.join(REPO, "src"))[:-3]
         mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    assert "repro_torch.core.wireplan" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:

@@ -227,3 +227,37 @@ def test_cpu_dispatch_takes_plain_path_and_validates():
                              n_rows=20)
     with pytest.raises(TypeError):
         ops.quantize_payload(y, torch.rand((32, BLOCK), dtype=torch.float64))
+
+
+@pytest.mark.parametrize("view", [{}, {"row_offset": 37, "n_rows": 61}],
+                         ids=["full", "chunk"])
+@pytest.mark.parametrize("step", [None, 1e-3])
+def test_int8_encode_reads_leading_columns_of_wide_noise(view, step):
+    """A plan holding top-k shares one 1,024-column noise buffer with its
+    int8 run (columns 512-1023 are top-k's selection race): kernel #1's
+    wrapper takes it and reads the leading 512 columns, with bytes equal
+    to the reference's ``quantize_payload`` on the same buffer.  The
+    wrapper took exactly BLOCK columns before and raised here."""
+    rng = np.random.default_rng(11)
+    y = (rng.standard_normal((128, BLOCK)) * 0.02).astype(np.float32)
+    u = rng.random((128, 2 * BLOCK), dtype=np.float32)
+    jstep = None if step is None else jnp.float32(step)
+    want = np.asarray(jops.quantize_payload(jnp.asarray(y), jnp.asarray(u),
+                                            fixed_step=jstep, **view))
+    got = ops.quantize_payload(torch.from_numpy(y), torch.from_numpy(u),
+                               step, **view)
+    np.testing.assert_array_equal(got.numpy(), want)
+    lead = ops.quantize_payload(torch.from_numpy(y),
+                                torch.from_numpy(u[:, :BLOCK].copy()), step,
+                                **view)
+    assert torch.equal(got, lead)
+    with pytest.raises(ValueError, match="noise"):
+        ops.quantize_payload(torch.from_numpy(y),
+                             torch.from_numpy(u[:, :BLOCK - 1].copy()))
+
+
+
+@pytest.mark.parametrize("name", ["int8", "int4", "int2", "topk"])
+def test_codec_wrappers_write_into_out(name):
+    from test_torch_cuda import _codec_out_roundtrip
+    _codec_out_roundtrip(name, "cpu")

@@ -383,10 +383,14 @@ def test_by_name_validation_and_unported_paths(four_node):
             name, "choco_gossip")
     with pytest.raises(KeyError):
         K.by_name("nope", mix, K.StepSize(ALPHA))
-    for fn in (K.run_elastic, K.pod_problem, K.run_hierarchical,
-               K.on_wire_plan):
+    for fn in (K.run_elastic, K.pod_problem, K.run_hierarchical):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             fn()
+    from repro_torch.core import wire, wireplan
+    plan = wireplan.parse_spec("int8").build(
+        wire.WireLayout.for_tree({"w": torch.zeros(prob.dim)}))
+    on_plan = K.on_wire_plan("adc_dgd", mix, plan, K.StepSize(ALPHA))
+    assert isinstance(on_plan.compressor, wireplan.WirePlanCompressor)
     with pytest.raises(NotImplementedError, match="push-sum"):
         K.ADCDGD(JT.directed_ring(4), COMP, K.StepSize(ALPHA))
     with pytest.raises(NotImplementedError, match="TopologySchedule"):

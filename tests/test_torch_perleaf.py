@@ -508,8 +508,10 @@ def test_config_validation():
     with pytest.raises(ValueError):
         ConsensusConfig(wire_packing="ragged")
     for packing in ("pipelined", "async"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ConsensusConfig(wire_packing=packing)
+        assert ConsensusConfig(wire_packing=packing).wire_packing == packing
+    with pytest.raises(ValueError, match="per-leaf"):
+        ConsensusConfig(wire_packing="per_leaf",
+                        wire_codec="mixed:norm=int4,*=int8")
     assert ConsensusRuntime(ConsensusConfig(algorithm="compressed_dgd"),
                             4).init_state({"w": torch.zeros(4, 3)}) == {}
 
@@ -522,4 +524,4 @@ def test_trainer_cli_flags(one_thread):
     assert hist[0]["collectives_per_step"] == 44.0
     assert "codec" not in hist[0] and np.isfinite(hist[0]["loss"])
     with pytest.raises(SystemExit):
-        train.main(["--wire-packing", "pipelined"])
+        train.main(["--wire-packing", "ragged"])
