@@ -53,6 +53,19 @@ Phases (any failure exits non-zero before the result line):
              launches and wire bytes must match the plan of each step; the
              launches per step of every plan and tier are also held to the
              written-out ``PLAN_STEP_LAUNCHES``;
+             then the time-varying ring on the full smollm-135m x 5 nodes
+             (``--ring-strides 1,2 --schedule-period 2``, int8 fixed, 6
+             steps: stride 1 at steps 1-2 and 5-6, stride 2 at 3-4, the
+             m_agg resync at 3 and 5) packed, pipelined over 4 units, async
+             at staleness 0 and 1 and per-leaf, each counted on its own
+             (launches per node and unit, or per leaf; the reference's wire
+             bytes 809,276,160 / 809,670,400 and collectives; each step's
+             stride and resync), packed == pipelined == async s0 bitwise;
+             an uncounted probe run in which the m_agg each combine reads
+             at a resync equals ``side * (x_tilde[i - s] + x_tilde[i +
+             s])`` recomputed from the step's input, and step 3's exchange
+             with the plain versions of #1 and #2 equals the kernels'; the
+             exchange time at a resync against steps without one;
 4. serve   — ``repro_torch.launch.serve.main`` on the full smollm-135m:
              32 prompts of 1,984 tokens and 64 new tokens (capacity 2,048,
              a 3.0 GB float32 KV cache): the flash-decode kernel launched
@@ -73,7 +86,8 @@ Phases (any failure exits non-zero before the result line):
              within LOSS_RTOL; and reduced serving (2 prompts of 16 tokens,
              8 new tokens) on the card and on the CPU from the same
              weights: the same tokens, or a flip at a near tie whose
-             logits agree within SERVE_LOGIT_TOL;
+             logits agree within SERVE_LOGIT_TOL; also int8 at ring
+             strides (1, 2) re-wired every step (step 2 a resync);
 6. paper   — the paper's reference algorithms (``repro_torch.core``) on
              ``paper_circle_problem(20, dim=2^22)`` over the 20-node
              circle, StepSize(0.01, eta=0.5): kernel #3 through
@@ -81,12 +95,16 @@ Phases (any failure exits non-zero before the result line):
              with codes and scales equal to its plain version; identity
              ADC-DGD bitwise equal to DGD over 50 steps; then, each launch
              counted, 500 steps each of ADC-DGD int8 fixed and adaptive,
-             CompressedDGD int8 adaptive and DGD (kernel #3 launched once
+             CompressedDGD int8 adaptive and DGD, and ADC-DGD int8 fixed
+             and DGD under a periodic circle/torus schedule and an
+             Erdős-Rényi schedule (the stack copied to the card once, the
+             bytes billed per step's messages) (kernel #3 launched once
              per compressed step and nothing else launched), with step
              time, final metrics, wire bytes and peak memory; the Fig. 1
              contrast (direct compression at least 10x farther from DGD's
              iterate than ADC-DGD); and 20 ADC-DGD steps through kernel #3
-             and through its plain version, bitwise equal; then
+             and through its plain version, bitwise equal, on the circle
+             and under each schedule; then
              ``on_wire_plan`` ADC-DGD and CHOCO through plan A on a
              two-leaf ``proj`` + ``norm1`` layout of ~2^22 elements at N 20:
              100 counted steps each (one #5 and one #1 launch per node and
@@ -182,6 +200,39 @@ PLAN_STEP_LAUNCHES = {
     "int4": {"subbyte_encode_payload": 4, "subbyte_decode_combine": 4},
     "mixed:norm=int4,embed=int4,*=int2": {"subbyte_encode_payload": 8,
                                           "subbyte_decode_combine": 8},
+}
+
+#: the time-varying ring (``phase_strides``): full smollm-135m on 5 nodes,
+#: so that stride 2 reaches other nodes than stride 1, at strides (1, 2)
+#: held 2 steps each: stride 1 at steps 1-2 and 5-6, stride 2 at 3-4, and
+#: the m_agg resync at steps 3 and 5
+STRIDE_NODES, STRIDE_STEPS, STRIDE_PERIOD = 5, 6, 2
+STRIDE_ARGV = ("--ring-strides", "1,2", "--schedule-period",
+               str(STRIDE_PERIOD))
+STRIDE_SEQ = [1, 1, 2, 2, 1, 1]
+RESYNC_STEPS = (3, 5)
+#: the reference's wire bytes per step there: the int8 payload plus the
+#: resync's fp32 x_tilde both ways, amortized over the period
+#: (2 x rows x 512 x 4 / 2): packed 271,160,064 + 538,116,096, per-leaf
+#: 271,292,160 + 538,378,240
+STRIDE_WIRE_BYTES = {"packed": 809_276_160, "per_leaf": 809_670_400}
+#: each stride run: (extra flags, launches per step as designed (one
+#: encode and one combine per node and transfer unit; per leaf on the
+#: per-leaf transport), collectives per step by the reference's formula
+#: (2 x units + 2 x units / period; per leaf 4 x 11 + 2 x 11 / period))
+STRIDE_RUNS = {
+    "packed": ((), {"quantize_payload": 5, "dequant_combine_payload": 5},
+               3.0),
+    "pipelined": (("--wire-packing", "pipelined", "--pipeline-chunks",
+                   str(PIPELINE_CHUNKS)),
+                  {"quantize_payload": 20, "dequant_combine_payload": 20},
+                  12.0),
+    "async s0": (("--wire-packing", "async", "--staleness", "0"),
+                 {"quantize_payload": 5, "dequant_combine_payload": 5}, 3.0),
+    "async s1": (("--wire-packing", "async", "--staleness", "1"),
+                 {"quantize_payload": 5, "dequant_combine_payload": 5}, 3.0),
+    "per_leaf": (("--wire-packing", "per_leaf"),
+                 {"quantize_blocks": 55, "dequant_combine": 55}, 55.0),
 }
 
 #: the per-leaf transport: the 11 leaves of the full smollm-135m tree, each
@@ -939,6 +990,176 @@ def phase_plans(torch, Q, train, entries, n_rows):
     return launches_total, step_s, peak_gb, wide_abs
 
 
+def stride_argv(steps: int, *extra: str) -> list[str]:
+    return ["--arch", "smollm-135m", "--algorithm", "adc_dgd", "--nodes",
+            str(STRIDE_NODES), "--batch", str(4 * STRIDE_NODES), "--seq",
+            "512", "--steps", str(steps), "--quant-mode", "fixed", "--lr",
+            "1e-2", "--device", "cuda", *STRIDE_ARGV, *extra]
+
+
+def stride_probe(torch, Q, D, train):
+    """An uncounted packed run of the stride path with the exchange
+    watched: at each step, the m_agg each node's combine read (steps 3 and
+    5: ``side * (x_tilde[i - s] + x_tilde[i + s])`` of the step's input
+    shadows, recomputed here with ``roll``, bitwise; other steps: the
+    carried m_agg itself), and at step 3 the same exchange with the plain
+    versions of #1 and #2 on the card, bitwise equal."""
+    from repro_torch.core import distributed as Dist
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import ops
+    real_exchange = Dist.ConsensusRuntime.exchange
+    real_q, real_d = ops.quantize_payload, ops.dequant_combine_payload
+    m_args, seen = [], {}
+
+    def combine_spy(*args, **kw):
+        m_args.append(args[4])
+        return real_d(*args, **kw)
+
+    def plain_q(y, noise, fixed_step=None, row_offset=0, n_rows=None,
+                out=None):
+        return Q._into(out, Q.quantize_payload_plain(
+            y, noise, fixed_step, row_offset, n_rows))
+
+    def plain_d(ps, pl, pr, xt, mb, w_self, w_side, deamp, row_offset=0,
+                n_rows=None, out=None):
+        return Q._into(out, D.dequant_combine_payload_plain(
+            ps, pl, pr, xt, mb, w_self, w_side, deamp, row_offset, n_rows))
+
+    def exchange_spy(self, x_prev, x_half, state, step, seed=0, noise=None):
+        m_args.clear()
+        xt, mb = state["x_tilde"], state["m_agg"]
+        got = real_exchange(self, x_prev, x_half, state, step, seed, noise)
+        n, s = self.n_nodes, self.stride_at(step)
+        if len(m_args) != n:
+            fail(f"stride probe step {step}: {len(m_args)} combines")
+        if self.resync_at(step):
+            want = (xt.roll(s, 0) + xt.roll(-s, 0)) * self.cfg.side_weight
+            ok = all(torch.equal(m, want[i]) for i, m in enumerate(m_args))
+            del want
+        else:
+            ok = all(m.data_ptr() == mb[i].data_ptr()
+                     for i, m in enumerate(m_args))
+        seen[step] = (s, self.resync_at(step), ok)
+        m_args.clear()
+        if step == RESYNC_STEPS[0]:
+            ops.quantize_payload, ops.dequant_combine_payload = \
+                plain_q, plain_d
+            try:
+                plain = real_exchange(self, x_prev, x_half, state, step,
+                                      seed, noise)
+            finally:
+                ops.quantize_payload, ops.dequant_combine_payload = \
+                    real_q, combine_spy
+            same = (all(torch.equal(a, b) for a, b in zip(
+                T.tree_leaves(got[0]), T.tree_leaves(plain[0])))
+                    and all(torch.equal(got[1][k], plain[1][k])
+                            for k in ("x_tilde", "m_agg")))
+            seen["plain"] = same
+            del plain
+        return got
+
+    Dist.ConsensusRuntime.exchange = exchange_spy
+    ops.dequant_combine_payload = combine_spy
+    try:
+        train.main(stride_argv(RESYNC_STEPS[-1]))
+    finally:
+        Dist.ConsensusRuntime.exchange = real_exchange
+        ops.quantize_payload, ops.dequant_combine_payload = real_q, real_d
+    for step in range(1, RESYNC_STEPS[-1] + 1):
+        s, resync, ok = seen[step]
+        if s != STRIDE_SEQ[step - 1] or resync != (step in RESYNC_STEPS) \
+                or not ok:
+            fail(f"stride probe step {step}: stride {s}, resync {resync}, "
+                 f"m_agg into the combine as designed: {ok}")
+    if not seen["plain"]:
+        fail(f"stride path step {RESYNC_STEPS[0]}: the kernel exchange "
+             "differs from the plain versions' on the card")
+    print(f"[strides] m_agg into the combine at steps {RESYNC_STEPS} == "
+          "side * (x_tilde[i - s] + x_tilde[i + s]) of the step's input "
+          "bitwise (s = 2, then 1), the carried m_agg at the other steps; "
+          f"step {RESYNC_STEPS[0]}'s exchange (a resync) with the plain "
+          "versions of #1 and #2 == the kernels' bitwise (params, x_tilde, "
+          "m_agg)", flush=True)
+
+
+def phase_strides(torch, Q, D, train, entries):
+    """The time-varying ring on the full smollm-135m x 5 nodes, strides
+    (1, 2) held 2 steps each, int8 fixed grid: 6 steps on each transport,
+    each run counted on its own (launches as designed, the reference's
+    wire bytes and collectives, the stride and resync of every step);
+    packed == pipelined == async at staleness 0 bitwise; the watched probe
+    (``stride_probe``); then the exchange at a resync step against steps
+    without one, CUDA events.  Returns (launches, step s, exchange ms,
+    peak GB)."""
+    launches_total = {name: 0 for name in entries}
+    step_s, peak_gb, finals = {}, {}, {}
+    for label, (extra, per_step, coll) in STRIDE_RUNS.items():
+        with CardSampler() as card:
+            (hist, state), launches, peak_gb[label] = run_counted(
+                torch, train, entries, stride_argv(STRIDE_STEPS, *extra),
+                return_state=True)
+        want = {name: STRIDE_STEPS * per_step.get(name, 0)
+                for name in entries}
+        if launches != want:
+            fail(f"strides {label}: launched {launches}, want {want}")
+        losses = [h["loss"] for h in hist]
+        wire = STRIDE_WIRE_BYTES["per_leaf" if label == "per_leaf"
+                                 else "packed"]
+        got = ([h["ring_stride"] for h in hist],
+               [h["resync"] for h in hist],
+               {h["wire_bytes_per_step"] for h in hist},
+               {h["collectives_per_step"] for h in hist})
+        if not all(math.isfinite(x) for x in losses) \
+                or abs(losses[0] - math.log(49152)) > 0.5 \
+                or got != (STRIDE_SEQ, [k in RESYNC_STEPS for k in
+                                        range(1, STRIDE_STEPS + 1)],
+                           {wire}, {coll}):
+            fail(f"strides {label}: losses {losses}, strides / resyncs / "
+                 f"wire bytes / collectives {got}, want {STRIDE_SEQ}, "
+                 f"resyncs at {RESYNC_STEPS}, {wire}, {coll}")
+        for name, n in launches.items():
+            launches_total[name] += n
+        step_s[label] = statistics.median(h["step_s"] for h in hist[1:])
+        if label in ("packed", "pipelined", "async s0"):
+            finals[label] = host_state(state)
+        del state
+        print(f"[strides] {label}: {STRIDE_STEPS} steps at strides "
+              f"{STRIDE_SEQ}, resyncs at {RESYNC_STEPS}; losses {losses}; "
+              f"launches per step {per_step}; wire_bytes_per_step {wire}; "
+              f"collectives {coll}; consensus_err "
+              f"{[h['consensus_err'] for h in hist]}; median step "
+              f"{step_s[label]:.4f} s; peak memory {peak_gb[label]:.2f} GB; "
+              f"card: {card.summary()}", flush=True)
+    if not (same_state(torch, finals["packed"], finals["pipelined"])
+            and same_state(torch, finals["packed"], finals["async s0"])):
+        fail("strides: pipelined or async at staleness 0 differs from packed")
+    print("[strides] pipelined (4 units) == async staleness 0 == packed "
+          "bitwise across the resyncs (params, x_tilde, m_agg)")
+    del finals
+    stride_probe(torch, Q, D, train)
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    setup = train.build_train_setup(
+        get_config("smollm-135m"), consensus_nodes=STRIDE_NODES,
+        ring_strides=(1, 2), schedule_period=STRIDE_PERIOD, device="cuda")
+    st = train.init_train_state(setup, 0)
+    x_half = T.tree_map(lambda a: a + 1e-4, st["params"])
+    rt = setup.consensus
+    exchange_ms = {}
+    for step, label in ((2, "stride 1"), (4, "stride 2"),
+                        (3, "stride 2, resync")):
+        with CardSampler() as card:
+            exchange_ms[label] = time_ms(lambda: rt.exchange(
+                st["params"], x_half, st["consensus"], step), reps=5)
+        print(f"[timing] one 5-node strided exchange at step {step} "
+              f"({label}): {exchange_ms[label]:.2f} ms; card: "
+              f"{card.summary()}", flush=True)
+    del st, x_half
+    torch.cuda.empty_cache()
+    return launches_total, step_s, exchange_ms, peak_gb
+
+
 def phase_perleaf(torch, train, entries):
     """The per-leaf transport and compressed_dgd on the full smollm-135m x
     4 nodes, each run counted on its own."""
@@ -1196,8 +1417,8 @@ def phase_parity(torch, train):
     """The same two steps of reduced smollm-135m on the card and on the
     CPU (plain versions), from the same weights, batches and noise, for the
     int8, int4 and top-k wires, the per-leaf transport, compressed_dgd,
-    plans A and B, plan A pipelined over 3 chunks and int8 async at
-    staleness 1."""
+    plans A and B, plan A pipelined over 3 chunks, int8 async at
+    staleness 1, and int8 at ring strides (1, 2) re-wired every step."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.core import tree as T
@@ -1215,7 +1436,9 @@ def phase_parity(torch, train):
                         "pipeline_chunks": 3}),
                       ("plan B", {"wire_codec": PLAN_B}),
                       ("int8 async staleness 1",
-                       {"wire_packing": "async", "staleness": 1})):
+                       {"wire_packing": "async", "staleness": 1}),
+                      ("int8 strides 1,2 period 1 (step 2 a resync)",
+                       {"ring_strides": (1, 2), "schedule_period": 1})):
         base = None
         results = {}
         for dev in ("cpu", "cuda"):
@@ -1542,6 +1765,17 @@ IDENTITY_STEPS, TRAJECTORY_STEPS, PAPER_STEP0 = 50, 20, 10
 FIG1_RATIO = 10.0
 
 
+def paper_schedules(T) -> dict:
+    """The time-varying schedules of the paper path at N 20:
+    ``PeriodicSchedule`` alternating the circle and a 4 x 5 torus every 5
+    steps, and ``bench_fig10_timevarying``'s Erdős-Rényi graphs (p 0.35,
+    seed 11; ``benchmarks/run.py``), one per step."""
+    return {"periodic ring20/torus4x5 dwell 5": T.PeriodicSchedule(
+                [T.ring(PAPER_NODES), T.torus(4, 5)], dwell=5),
+            "erdos_renyi p 0.35": T.ErdosRenyiSchedule(
+                PAPER_NODES, p=0.35, horizon=PAPER_STEPS, seed=11)}
+
+
 def phase_paper(torch, Q, entries):
     """The paper's reference algorithms (``repro_torch.core.consensus``)
     on ``paper_circle_problem(20, dim=2^22)`` over ``paper_circle(20)``:
@@ -1630,7 +1864,8 @@ def phase_paper(torch, Q, entries):
           f"{IDENTITY_STEPS} steps (x_final, obj, grad_norm, consensus)")
     del ident, dgd50
 
-    # the counted path: four algorithms, PAPER_STEPS steps each
+    # the counted path: four algorithms on the static circle, and ADC-DGD
+    # and DGD under each time-varying schedule, PAPER_STEPS steps each
     algs = {
         "adc_dgd int8 fixed": K.ADCDGD(
             mix, C.Int8BlockQuantizer(mode="fixed"), step),
@@ -1639,10 +1874,24 @@ def phase_paper(torch, Q, entries):
         "compressed_dgd int8 adaptive": K.CompressedDGD(
             mix, C.Int8BlockQuantizer(mode="adaptive"), step),
         "dgd": K.DGD(mix, step)}
+    for sname, sched in paper_schedules(T).items():
+        algs[f"adc_dgd int8 fixed, {sname}"] = K.ADCDGD(
+            sched, C.Int8BlockQuantizer(mode="fixed"), step)
+        algs[f"dgd, {sname}"] = K.DGD(sched, step)
     for entry in entries.values():
         entry.launches = 0
     results, stats = {}, {}
     for name, alg in algs.items():
+        sched = alg.mixing if isinstance(alg.mixing,
+                                         T.TopologySchedule) else None
+        storages = []
+        if sched is not None:
+            real_step = alg.step
+
+            def spy(state, problem, u=None, w=None, real_step=real_step):
+                storages.append(w.untyped_storage().data_ptr())
+                return real_step(state, problem, u, w)
+            object.__setattr__(alg, "step", spy)
         r, st = paper_run(alg, PAPER_STEPS)
         results[name] = r
         stats[name] = st
@@ -1651,6 +1900,24 @@ def phase_paper(torch, Q, entries):
         if not finite or r["x_final"].shape != (PAPER_NODES, PAPER_DIM):
             fail(f"{name}: non-finite metrics or x_final "
                  f"{r['x_final'].shape}")
+        if sched is not None:
+            object.__delattr__(alg, "step")
+            # each step billed for the messages of its own W^(k)
+            per_msg = (8.0 * PAPER_DIM if isinstance(alg, K.DGD)
+                       else alg.compressor.wire_bytes(PAPER_DIM))
+            want = np.cumsum([sched.matrix_at(i).n_messages * per_msg
+                              for i in range(PAPER_STEPS)])
+            if len(storages) != PAPER_STEPS or len(set(storages)) != 1 \
+                    or not np.allclose(r["bytes"], want, rtol=1e-12):
+                fail(f"{name}: W^(k) from {len(set(storages))} device "
+                     f"copies over {len(storages)} steps (want 1 over "
+                     f"{PAPER_STEPS}); bytes {r['bytes'][-1]} vs "
+                     f"{want[-1]}")
+            print(f"[paper] {name}: the ({sched.period}, {PAPER_NODES}, "
+                  f"{PAPER_NODES}) stack copied to the card once, every "
+                  "step's W^(k) a row of it; cumulative bytes billed per "
+                  f"step's messages ({r['bytes'][-1]:.0f} B after "
+                  f"{PAPER_STEPS} steps)")
         print(f"[paper] {name}, {PAPER_STEPS} steps: step "
               f"{st['step_ms']:.4f} ms (CUDA events, median of steps "
               f"{PAPER_STEP0}-{PAPER_STEPS}), run {st['wall_s']:.2f} s; final "
@@ -1660,7 +1927,7 @@ def phase_paper(torch, Q, entries):
               f"memory {st['peak_gb']:.2f} GB", flush=True)
     launches = {name: entry.launches for name, entry in entries.items()}
     want = {name: 0 for name in entries}
-    want["quantize_blocks"] = 3 * PAPER_STEPS
+    want["quantize_blocks"] = 5 * PAPER_STEPS
     if launches != want:
         fail(f"paper path launched {launches}, want {want}")
     x_dgd = results["dgd"]["x_final"]
@@ -1684,22 +1951,27 @@ def phase_paper(torch, Q, entries):
              "from DGD than adc_dgd")
     del results
 
-    # the kernel path and the plain path give the same ADC-DGD trajectory
-    alg = algs["adc_dgd int8 adaptive"]
-    kern, _ = paper_run(alg, TRAJECTORY_STEPS, key=5)
-    real = Q.quantize_blocks
-    Q.quantize_blocks = Q.quantize_blocks_plain
-    try:
-        plain, _ = paper_run(alg, TRAJECTORY_STEPS, key=5)
-    finally:
-        Q.quantize_blocks = real
-    for name in ("x_final", "obj", "grad_norm", "consensus", "max_tx"):
-        if not np_equal(kern[name], plain[name]):
-            fail(f"ADC-DGD through kernel #3 and through its plain version "
-                 f"differ in {name} after {TRAJECTORY_STEPS} steps")
-    print(f"[paper] ADC-DGD int8 adaptive through kernel #3 and through "
-          f"quantize_blocks_plain: bitwise equal trajectories over "
-          f"{TRAJECTORY_STEPS} steps from the same generator")
+    # the kernel path and the plain path give the same ADC-DGD trajectory,
+    # on the static circle and under each schedule
+    for label in ["adc_dgd int8 adaptive"] + [
+            f"adc_dgd int8 fixed, {sname}" for sname in paper_schedules(T)]:
+        alg = algs[label]
+        kern, _ = paper_run(alg, TRAJECTORY_STEPS, key=5)
+        real = Q.quantize_blocks
+        Q.quantize_blocks = Q.quantize_blocks_plain
+        try:
+            plain, _ = paper_run(alg, TRAJECTORY_STEPS, key=5)
+        finally:
+            Q.quantize_blocks = real
+        for name in ("x_final", "obj", "grad_norm", "consensus", "max_tx",
+                     "bytes"):
+            if not np_equal(kern[name], plain[name]):
+                fail(f"{label} through kernel #3 and through its plain "
+                     f"version differ in {name} after {TRAJECTORY_STEPS} "
+                     "steps")
+        print(f"[paper] {label} through kernel #3 and through "
+              f"quantize_blocks_plain: bitwise equal trajectories over "
+              f"{TRAJECTORY_STEPS} steps from the same generator")
     del kern, plain, prob
     torch.cuda.empty_cache()
     for name, st in stats.items():
@@ -1932,6 +2204,10 @@ def main() -> None:
     for name, n in plan_launches_.items():
         launches[name] += n
     errs["quantize_payload"] = max(errs["quantize_payload"], wide_abs)
+    stride_launches, stride_step_s, stride_exchange_ms, stride_peak_gb = \
+        phase_strides(torch, Q, D, train, entries)
+    for name, n in stride_launches.items():
+        launches[name] += n
     serve_launches, _ = phase_serve(torch, serve, entries)
     launches["gqa_decode"] += serve_launches["gqa_decode"]
     phase_serve_profile(torch, G)
@@ -1956,6 +2232,15 @@ def main() -> None:
         print(f"[timing] {label}: step {plan_step_s[label]:.4f} s, exchange "
               f"{exch}, peak memory {plan_peak_gb[label]:.2f} GB, card "
               f"{smi}")
+    for label in stride_step_s:
+        print(f"[summary] strides {label} ({STRIDE_NODES} nodes, strides "
+              f"1,2, period {STRIDE_PERIOD}): step {stride_step_s[label]:.4f}"
+              f" s, peak memory {stride_peak_gb[label]:.2f} GB, card {smi}")
+    print(f"[summary] strided {STRIDE_NODES}-node exchange: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in stride_exchange_ms.items())
+          + f"; the resync adds "
+          f"{stride_exchange_ms['stride 2, resync'] - stride_exchange_ms['stride 2']:.2f}"
+          f" ms; card {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-"""Consensus algorithms: ADC-DGD (the paper's contribution) and baselines;
-the static-mixing part of ``repro.core.consensus``.
+"""Consensus algorithms: ADC-DGD (the paper's contribution) and baselines,
+over a static or time-varying undirected mixing; the single-level part of
+``repro.core.consensus``.
 
 Single-process reference implementations on stacked node states ``x`` of
 shape ``(N, P)``, float32 on the problem's device.  One node's row is one
@@ -19,9 +20,11 @@ node's iterate; the mixing ``W @ x`` is one ``torch.matmul`` (float32:
   * ``CentralizedGD``   — gradient descent on the global f.
 
 Every algorithm is a frozen dataclass with ``init(problem)`` and
-``step(state, problem, u=None) -> (state, metrics)``, where ``u`` holds
-the step's uniforms for the compressor (``uniform_shape``; the reference
-draws them from per-node keys ``jax.random.split(key, N)``).  The step
+``step(state, problem, u=None, w=None) -> (state, metrics)``, where ``u``
+holds the step's uniforms for the compressor (``uniform_shape``; the
+reference draws them from per-node keys ``jax.random.split(key, N)``) and
+``w`` the step's mixing matrix ``W^(k)`` (default: the static ``W``, or a
+schedule's first matrix).  The step
 counter ``state["k"]`` is a Python int, and every scalar of a step (the
 amplification ``k**gamma``, the step size) is the float32 value the
 reference's compiled step computes (``core.f32``).  A division by such a
@@ -29,10 +32,14 @@ scalar divides by a 0-dim tensor on the device, never by a Python float,
 which PyTorch's CUDA kernels would turn into a product with a reciprocal.
 
 ``run`` drives the steps in a Python loop and keeps the paper's metrics on
-the device until the end.  ``on_wire_plan`` routes an algorithm's gossip
-through a wire plan (``core.wireplan.WirePlanCompressor``).  Directed
-(push-sum) mixing, time-varying schedules, elastic membership and
-hierarchy are not ported yet: they raise.
+the device until the end.  With a :class:`~repro_torch.core.topology.
+TopologySchedule` of period > 1 as ``mixing``, ``run`` and ``run_many``
+copy its float32 ``(period, N, N)`` stack to the device once and hand
+step ``i`` the matrix ``stack[indices_for(n_steps)[i]]``; each step's
+bytes are billed for the messages of the matrix it used.
+``on_wire_plan`` routes an algorithm's gossip through a wire plan
+(``core.wireplan.WirePlanCompressor``).  Directed (push-sum) mixing,
+elastic membership and hierarchy are not ported yet: they raise.
 """
 from __future__ import annotations
 
@@ -46,7 +53,7 @@ import torch
 from .compression import Compressor, IdentityCompressor
 from .f32 import f32, over_power, power, recip
 from .problems import ConsensusProblem
-from .topology import MixingMatrix
+from .topology import MixingMatrix, TopologySchedule
 from .wireplan import WirePlanCompressor
 
 __all__ = [
@@ -103,16 +110,14 @@ class _Algorithm:
         if getattr(mixing, "is_directed", False):
             _not_ported("push-sum over a directed (column-stochastic) "
                         "mixing matrix")
-        if getattr(mixing, "period", 1) > 1:
-            _not_ported("a time-varying TopologySchedule (period > 1)")
-        if not isinstance(mixing, MixingMatrix):
-            raise TypeError(f"mixing must be a MixingMatrix, got "
-                            f"{type(mixing).__name__}")
+        if not isinstance(mixing, (MixingMatrix, TopologySchedule)):
+            raise TypeError(f"mixing must be a MixingMatrix or a "
+                            f"TopologySchedule, got {type(mixing).__name__}")
 
     def init(self, problem: ConsensusProblem, x0=None) -> dict[str, Any]:
         raise NotImplementedError
 
-    def step(self, state, problem: ConsensusProblem, u=None):
+    def step(self, state, problem: ConsensusProblem, u=None, w=None):
         raise NotImplementedError
 
     def uniform_shape(self, problem: ConsensusProblem):
@@ -128,14 +133,22 @@ class _Algorithm:
         it in both directions -> 2*E messages of P elements."""
         raise NotImplementedError
 
-    def _w(self, device, matrix: np.ndarray | None = None) -> torch.Tensor:
-        """The mixing matrix (or ``matrix``) as float32 on ``device``,
-        copied there once."""
+    def _w(self, device, w: torch.Tensor | None = None) -> torch.Tensor:
+        """This step's mixing matrix: the step-indexed ``w`` of a schedule
+        when given, else the static ``W`` (a schedule passed as ``mixing``
+        defaults to its first matrix) as float32 on ``device``."""
+        if w is not None:
+            return w
+        m = self.mixing
+        return self._on_device(device, m.matrix_at(0).w
+                               if isinstance(m, TopologySchedule) else m.w)
+
+    def _on_device(self, device, matrix: np.ndarray) -> torch.Tensor:
+        """A host matrix as float32 on ``device``, copied there once."""
         key = ("w", str(device), id(matrix))
         cache = self.__dict__.setdefault("_dev_cache", {})
         if key not in cache:
-            src = self.mixing.w if matrix is None else matrix
-            cache[key] = torch.as_tensor(np.asarray(src, np.float64),
+            cache[key] = torch.as_tensor(np.asarray(matrix, np.float64),
                                          dtype=torch.float32, device=device)
         return cache[key]
 
@@ -176,7 +189,7 @@ class ADCDGD(_Algorithm):
     for bit.
     """
 
-    mixing: MixingMatrix
+    mixing: MixingMatrix | TopologySchedule
     compressor: Compressor
     stepsize: StepSize
     gamma: float = 1.0
@@ -191,9 +204,9 @@ class ADCDGD(_Algorithm):
         x1 = x0 - self.stepsize(1.0) * problem.grad_fn(x0)
         return {"x": x1, "x_tilde": x0, "k": 1}
 
-    def step(self, state, problem, u=None):
+    def step(self, state, problem, u=None, w=None):
         x = state["x"]
-        w = self._w(x.device)
+        w = self._w(x.device, w)
         k = f32(state["k"])
         kg = power(k, self.gamma)
         y = x - state["x_tilde"]                              # (N, P)
@@ -228,7 +241,7 @@ class CEDAS(_Algorithm):
     ``staleness=0`` removes the in-flight delay and is exactly ``ADCDGD``.
     """
 
-    mixing: MixingMatrix
+    mixing: MixingMatrix | TopologySchedule
     compressor: Compressor
     stepsize: StepSize
     gamma: float = 1.0
@@ -258,11 +271,11 @@ class CEDAS(_Algorithm):
             st["d_fly"] = torch.zeros_like(st["x_tilde"])
         return st
 
-    def step(self, state, problem, u=None):
+    def step(self, state, problem, u=None, w=None):
         if self.staleness == 0:
-            return self._eager.step(state, problem, u)
+            return self._eager.step(state, problem, u, w)
         x = state["x"]
-        w = self._w(x.device)
+        w = self._w(x.device, w)
         k = f32(state["k"])
         # RETIRE the increment sent at step k-1 (max() guards k = 1, where
         # d_fly is exactly zero)
@@ -286,7 +299,7 @@ class CEDAS(_Algorithm):
 class DGD(_Algorithm):
     """Original DGD (paper Algorithm 1): x <- W x - alpha_k grad f(x)."""
 
-    mixing: MixingMatrix
+    mixing: MixingMatrix | TopologySchedule
     stepsize: StepSize
     name: str = "dgd"
     #: bytes per transmitted element (paper stores uncompressed as double)
@@ -300,14 +313,14 @@ class DGD(_Algorithm):
         """``w``: the mixing matrix to apply (DGD^t passes W^t)."""
         del u
         x = state["x"]
-        w = self._w(x.device) if w is None else w
+        w = self._w(x.device, w)
         alpha = self.stepsize(f32(state["k"]))
         x_next = w @ x - alpha * problem.grad_fn(x)
         return {"x": x_next, "k": state["k"] + 1}, {
             "max_transmitted": _max_abs(x), "alpha": alpha}
 
     def bytes_per_iteration(self, problem):
-        return float(self.mixing.n_messages * self.elem_bytes * problem.dim)
+        return float(self.mixing.n_messages * (self.elem_bytes * problem.dim))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -315,11 +328,13 @@ class DGDt(_Algorithm):
     """DGD^t (Berahas et al. [21]): t consensus rounds per gradient step.
 
     Effective mixing matrix W^t (beta^t mixing) at t-fold communication
-    cost; W^t is formed once at construction, in float64, and copied to
-    the device once.
+    cost.  For a static ``MixingMatrix``, W^t is formed once at
+    construction, in float64, and copied to the device once; under a
+    schedule every step forms W^(k)^t from its float32 W^(k) as the
+    reference does, a product chain ``((W @ W) @ W) ...``.
     """
 
-    mixing: MixingMatrix
+    mixing: MixingMatrix | TopologySchedule
     stepsize: StepSize
     t: int = 3
     name: str = "dgd_t"
@@ -329,7 +344,8 @@ class DGDt(_Algorithm):
         super().__post_init__()
         object.__setattr__(
             self, "_w_eff",
-            np.linalg.matrix_power(np.asarray(self.mixing.w), self.t))
+            np.linalg.matrix_power(np.asarray(self.mixing.w), self.t)
+            if isinstance(self.mixing, MixingMatrix) else None)
 
     def _dgd(self) -> DGD:
         return DGD(self.mixing, self.stepsize, elem_bytes=self.elem_bytes)
@@ -337,9 +353,16 @@ class DGDt(_Algorithm):
     def init(self, problem, x0=None):
         return self._dgd().init(problem, x0)
 
-    def step(self, state, problem, u=None):
-        return self._dgd().step(state, problem, u,
-                                w=self._w(state["x"].device, self._w_eff))
+    def step(self, state, problem, u=None, w=None):
+        dev = state["x"].device
+        if w is None and self._w_eff is not None:
+            wt = self._on_device(dev, self._w_eff)
+        else:
+            w = self._w(dev, w)
+            wt = w
+            for _ in range(self.t - 1):
+                wt = wt @ w
+        return self._dgd().step(state, problem, u, w=wt)
 
     def bytes_per_iteration(self, problem):
         return self.t * self._dgd().bytes_per_iteration(problem)
@@ -353,7 +376,7 @@ class CompressedDGD(_Algorithm):
     The compression noise enters undamped each iteration (paper Fig. 1).
     """
 
-    mixing: MixingMatrix
+    mixing: MixingMatrix | TopologySchedule
     compressor: Compressor
     stepsize: StepSize
     name: str = "compressed_dgd"
@@ -361,9 +384,9 @@ class CompressedDGD(_Algorithm):
     def init(self, problem, x0=None):
         return DGD(self.mixing, self.stepsize).init(problem, x0)
 
-    def step(self, state, problem, u=None):
+    def step(self, state, problem, u=None, w=None):
         x = state["x"]
-        w = self._w(x.device)
+        w = self._w(x.device, w)
         alpha = self.stepsize(f32(state["k"]))
         cx = self.compressor.apply(x, u)                   # broadcast C(x_j)
         w_diag = torch.diag(torch.diag(w))
@@ -387,7 +410,7 @@ class CHOCOGossip(_Algorithm):
                       + lam * sum_j W_ij (xh_j^{t+1} - xh_i^{t+1})
     """
 
-    mixing: MixingMatrix
+    mixing: MixingMatrix | TopologySchedule
     compressor: Compressor
     stepsize: StepSize
     consensus_lr: float = 0.5
@@ -401,9 +424,9 @@ class CHOCOGossip(_Algorithm):
         # xh_0 = 0; the first q transmits C(x_1)
         return {"x": x1, "x_hat": torch.zeros_like(x0), "k": 1}
 
-    def step(self, state, problem, u=None):
+    def step(self, state, problem, u=None, w=None):
         x = state["x"]
-        w = self._w(x.device)
+        w = self._w(x.device, w)
         alpha = self.stepsize(f32(state["k"]))
         x_half = x - alpha * problem.grad_fn(x)
         q = self.compressor.apply(x_half - state["x_hat"], u)
@@ -428,8 +451,8 @@ class CentralizedGD(_Algorithm):
     def init(self, problem, x0=None):
         return {"x": _start(problem, problem.n_nodes, x0), "k": 1}
 
-    def step(self, state, problem, u=None):
-        del u
+    def step(self, state, problem, u=None, w=None):
+        del u, w
         x = state["x"]
         alpha = self.stepsize(f32(state["k"]))
         x_bar = x.mean(dim=0)
@@ -463,6 +486,38 @@ def _generator(problem, seed: int) -> torch.Generator:
     return g
 
 
+def _active_schedule(algorithm) -> TopologySchedule | None:
+    """The algorithm's time-varying schedule, or None for static mixing
+    (a period-1 schedule counts as static: ``_w`` already resolves it)."""
+    mixing = getattr(algorithm, "mixing", None)
+    if isinstance(mixing, TopologySchedule) and mixing.period > 1:
+        return mixing
+    return None
+
+
+def _cumulative_bytes(algorithm, problem, n_steps: int) -> np.ndarray:
+    """Cumulative wire bytes after each iteration, schedule-aware: each step
+    is billed for the messages of the matrix it used."""
+    per_iter = algorithm.bytes_per_iteration(problem)
+    sched = _active_schedule(algorithm)
+    if sched is None or per_iter == 0.0 or sched.n_messages == 0.0:
+        return per_iter * (np.arange(n_steps, dtype=np.float64) + 1)
+    per_msg = per_iter / sched.n_messages
+    return np.cumsum(sched.messages_per_step(n_steps) * per_msg)
+
+
+def _mixing_for(algorithm, problem, n_steps: int):
+    """Step i's ``w`` argument: None for static mixing, else a row of the
+    schedule's float32 stack, copied to the problem's device once."""
+    sched = _active_schedule(algorithm)
+    if sched is None:
+        return lambda i: None
+    stack = torch.as_tensor(sched.stack, dtype=torch.float32,
+                            device=problem.device)
+    idx = sched.indices_for(n_steps)
+    return lambda i: stack[int(idx[i])]
+
+
 def _trajectory(algorithm, problem, n_steps: int, uniforms, x0,
                 step_events=None):
     """The steps of one run: ``(final state, {metric: (n_steps,) tensor})``.
@@ -470,6 +525,7 @@ def _trajectory(algorithm, problem, n_steps: int, uniforms, x0,
     list, receives a CUDA event recorded before each step and one after
     the last."""
     state = algorithm.init(problem, x0=x0)
+    mixing = _mixing_for(algorithm, problem, n_steps)
     cols = {"obj": [], "grad_norm": [], "consensus": [], "max_tx": [],
             "alpha": []}
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -478,7 +534,8 @@ def _trajectory(algorithm, problem, n_steps: int, uniforms, x0,
         for i in range(n_steps):
             if step_events is not None:
                 step_events.append(_event())
-            state, m = algorithm.step(state, problem, uniforms(i))
+            state, m = algorithm.step(state, problem, uniforms(i),
+                                      w=mixing(i))
             for name, v in _metrics(state, problem).items():
                 cols[name].append(v)
             cols["max_tx"].append(torch.as_tensor(
@@ -539,7 +596,8 @@ def run(
       consensus  — ||x - 1 (x) x_bar||               (Theorem 1 metric)
       max_tx     — max transmitted magnitude          (paper Fig. 8)
       alpha      — the step size of each step
-      bytes      — cumulative wire bytes              (paper Fig. 6)
+      bytes      — cumulative wire bytes              (paper Fig. 6), each
+                   step billed for the messages of its W^(k)
       x_final    — final stacked iterate (N, P)
     """
     state, traj = _trajectory(algorithm, problem, n_steps,
@@ -548,9 +606,7 @@ def run(
     sl = slice(log_every - 1, None, log_every)
     result = {name: (v.cpu().numpy() if torch.is_tensor(v) else v)[sl]
               for name, v in traj.items()}
-    per_iter = algorithm.bytes_per_iteration(problem)
-    result["bytes"] = (per_iter * (np.arange(n_steps, dtype=np.float64)
-                                   + 1))[sl]
+    result["bytes"] = _cumulative_bytes(algorithm, problem, n_steps)[sl]
     result["x_final"] = state["x"].cpu().numpy()
     return result
 
@@ -590,8 +646,8 @@ def run_hierarchical(*args, **kwargs):
     _not_ported("run_hierarchical (two-level hierarchy)")
 
 
-def on_wire_plan(name: str, mixing: MixingMatrix, plan, stepsize: StepSize,
-                 **kw) -> _Algorithm:
+def on_wire_plan(name: str, mixing: MixingMatrix | TopologySchedule, plan,
+                 stepsize: StepSize, **kw) -> _Algorithm:
     """An algorithm whose gossip wire goes through a
     :class:`~repro_torch.core.wireplan.WirePlan`: ADC-DGD's differential
     and CHOCO's error-feedback correction are encoded and decoded with the
@@ -602,8 +658,9 @@ def on_wire_plan(name: str, mixing: MixingMatrix, plan, stepsize: StepSize,
                    compressor=WirePlanCompressor(plan), **kw)
 
 
-def by_name(name: str, mixing: MixingMatrix, stepsize: StepSize,
-            compressor: Compressor | None = None, **kw) -> _Algorithm:
+def by_name(name: str, mixing: MixingMatrix | TopologySchedule,
+            stepsize: StepSize, compressor: Compressor | None = None,
+            **kw) -> _Algorithm:
     if name == "adc_dgd":
         return ADCDGD(mixing, compressor or IdentityCompressor(), stepsize,
                       **kw)

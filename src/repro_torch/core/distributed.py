@@ -44,12 +44,22 @@ noise buffer:
   ``per_leaf``   the reference transport of the int8 wire: per leaf one
                  quantize launch (codes and scales as two tensors) and one
                  combine launch per node, four ring transfers per leaf.
-The reference's faults, push-sum, directed weights, resync, membership,
-hierarchy and ring strides are not ported: no config field turns them on.
+Time-varying ring (``ring_strides``, ``schedule_period``): the ring's
+stride cycles through ``ring_strides``, each held ``schedule_period``
+steps, so step k talks to nodes i - s and i + s with
+``s = ring_strides[((k - 1) // schedule_period) % len(ring_strides)]``.
+``m_agg = sum_j W_ij x_tilde_j`` holds only for a fixed neighbour set, so
+on the first step of every epoch but the first (the resync) ``adc_dgd``
+rebuilds it exactly from the new neighbours' fp32 ``x_tilde`` before the
+combine consumes it; the wire accounting amortizes that exchange.
+
+The reference's faults, push-sum, directed weights, membership and
+hierarchy are not ported: no config field turns them on.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -82,8 +92,17 @@ class ConsensusConfig:
     wire_packing: str = "packed"   # packed | pipelined | per_leaf | async
     pipeline_chunks: int = 4       # transfer units of the pipelined wire
     staleness: int = 1             # async: 1 retires step k-1's payload
+    #: time-varying ring: the stride cycles through ``ring_strides``, each
+    #: held ``schedule_period`` steps; (1,) is the paper's static ring
+    ring_strides: tuple[int, ...] = (1,)
+    schedule_period: int = 1       # steps between ring re-wirings
 
     def __post_init__(self):
+        if not self.ring_strides:
+            raise ValueError("ring_strides must be non-empty")
+        if self.schedule_period < 1:
+            raise ValueError(f"schedule_period must be >= 1, got "
+                             f"{self.schedule_period}")
         if self.algorithm not in ALGORITHMS:
             raise ValueError(f"algorithm must be one of {ALGORITHMS} (the "
                              f"ported subset), got {self.algorithm!r}")
@@ -128,6 +147,12 @@ class ConsensusConfig:
     def side_weight(self) -> float:
         return (1.0 - self.self_weight) / 2.0
 
+    @property
+    def schedule_varying(self) -> bool:
+        """Does the wiring ever change at an epoch boundary?  This is what
+        makes the ``m_agg`` resync necessary."""
+        return len(self.ring_strides) > 1
+
 
 def noise_seed(seed: int, step: int, node: int) -> int:
     """Generator seed of node ``node``'s quantization noise at ``step`` of
@@ -137,13 +162,14 @@ def noise_seed(seed: int, step: int, node: int) -> int:
     return int(state[0] & np.uint64(0x7FFF_FFFF_FFFF_FFFF))
 
 
-def _left(i: int, n: int) -> int:
-    """Ring neighbour whose payload ``ppermute(+1)`` delivers to node i."""
-    return (i - 1) % n
+def _left(i: int, n: int, s: int = 1) -> int:
+    """Ring neighbour whose payload ``ppermute(+s)`` delivers to node i."""
+    return (i - s) % n
 
 
-def _right(i: int, n: int) -> int:
-    return (i + 1) % n
+def _right(i: int, n: int, s: int = 1) -> int:
+    """Ring neighbour whose payload ``ppermute(-s)`` delivers to node i."""
+    return (i + s) % n
 
 
 def _ring_sum(x: torch.Tensor) -> torch.Tensor:
@@ -186,6 +212,22 @@ class ConsensusRuntime:
         every tier, so its packed state keeps one row order."""
         if n_nodes < 1:
             raise ValueError(f"n_nodes must be >= 1, got {n_nodes}")
+        if n_nodes > 1 and config.algorithm in ("adc_dgd", "dgd",
+                                                "compressed_dgd"):
+            for s in config.ring_strides:
+                if s % n_nodes == 0:
+                    raise ValueError(
+                        f"ring stride {s} is a self-loop on {n_nodes} nodes: "
+                        "the exchange would carry no communication; drop it "
+                        "from ring_strides")
+            # the union over one cycle is the circulant with connection set
+            # {+-s}: connected iff gcd(s_1, ..., s_k, n) == 1
+            g = math.gcd(n_nodes, *config.ring_strides)
+            if g != 1:
+                raise ValueError(
+                    f"ring_strides {config.ring_strides} on {n_nodes} nodes "
+                    f"share the common factor {g}: the union of all schedule "
+                    "epochs splits the ring into disjoint components")
         self.cfg = config
         self.n_nodes = n_nodes
         #: the layout-independent plan recipe (a bare codec name is a
@@ -253,15 +295,23 @@ class ConsensusRuntime:
         """Bytes one node puts on the ring per step (both directions): the
         plan's flat payload.  The per-leaf transport ships each leaf padded
         to its own TILE_N-aligned height, so more rows than the packed
-        payload of the same tree."""
-        alg = self.cfg.algorithm
+        payload of the same tree.  A time-varying ring adds the epoch
+        resync of ``adc_dgd``, one fp32 ``x_tilde`` per ring direction per
+        re-wiring, amortized over ``schedule_period`` steps."""
+        cfg = self.cfg
+        alg = cfg.algorithm
         if alg in ("adc_dgd", "compressed_dgd"):
-            if self.cfg.wire_packing == "per_leaf":
-                payload = (sum(kops.padded_block_rows(s.size)
-                               for s in layout.slots) * kops.payload_width())
+            if cfg.wire_packing == "per_leaf":
+                rows = sum(kops.padded_block_rows(s.size)
+                           for s in layout.slots)
+                payload = rows * kops.payload_width()
             else:
+                rows = layout.n_rows
                 payload = self.wire_plan_for(layout).payload_bytes
-            return 2.0 * payload
+            resync = 0.0
+            if alg == "adc_dgd" and cfg.schedule_varying:
+                resync = 2.0 * rows * kops.BLOCK * 4 / cfg.schedule_period
+            return 2.0 * payload + resync
         if alg == "dgd":
             return 2.0 * n_params_local * 4
         return 0.0
@@ -288,12 +338,15 @@ class ConsensusRuntime:
         """Ring transfers one node makes per step (static): one payload per
         ring direction and transfer unit on the packed, pipelined and async
         wires (2 x units), codes and scales per direction per leaf on the
-        per-leaf transport.  Without ``layout`` or ``n_chunks`` the
-        pipelined count is the configured one."""
+        per-leaf transport; a time-varying ``adc_dgd`` ring adds its
+        resync's transfers amortized over ``schedule_period`` steps.
+        Without ``layout`` or ``n_chunks`` the pipelined count is the
+        configured one."""
         cfg, n = self.cfg, self.n_nodes
         alg = cfg.algorithm
         if alg == "none" or (n <= 1 and alg != "allreduce"):
             return 0.0
+        resync = 1.0 / cfg.schedule_period if cfg.schedule_varying else 0.0
         if cfg.wire_packing == "pipelined":
             if n_chunks is None and layout is not None:
                 n_chunks = self.pipeline_chunks_for(layout)
@@ -301,12 +354,43 @@ class ConsensusRuntime:
                            else n_chunks)
         else:
             chunks = 1.0
-        if alg in ("adc_dgd", "compressed_dgd"):
+        if alg == "adc_dgd":
+            if cfg.wire_packing == "per_leaf":
+                return 4.0 * n_leaves + 2.0 * n_leaves * resync
+            return 2.0 * chunks + 2.0 * chunks * resync
+        if alg == "compressed_dgd":
             return (4.0 * n_leaves if cfg.wire_packing == "per_leaf"
                     else 2.0 * chunks)
         if alg == "dgd":
             return 2.0 * n_leaves
         return float(n - 1) * n_leaves     # rotation all-reduce
+
+    def stride_at(self, step: int) -> int:
+        """The ring stride of ``step``'s schedule epoch (steps count from
+        1): ``ring_strides`` cycled, each held ``schedule_period`` steps."""
+        strides = self.cfg.ring_strides
+        return strides[((step - 1) // self.cfg.schedule_period)
+                       % len(strides)]
+
+    def resync_at(self, step: int) -> bool:
+        """Does ``step`` open a re-wired epoch (every epoch but the first
+        of a time-varying ring), so that ``adc_dgd`` rebuilds ``m_agg``?"""
+        return (self.cfg.schedule_varying and step > 1
+                and (step - 1) % self.cfg.schedule_period == 0)
+
+    def rebuild_m_agg(self, xt: torch.Tensor, stride: int,
+                      out: torch.Tensor | None = None) -> torch.Tensor:
+        """The epoch resync: each node's exact ``m_agg = side * (x_tilde[i -
+        s] + x_tilde[i + s])`` from its new ring neighbours' fp32 shadows
+        ``xt`` ``(N, rows, BLOCK)`` (added, then scaled, as the reference
+        does), into ``out`` when given."""
+        n = self.n_nodes
+        out = torch.empty_like(xt) if out is None else out
+        for i in range(n):
+            torch.add(xt[_left(i, n, stride)], xt[_right(i, n, stride)],
+                      out=out[i])
+            out[i].mul_(self.cfg.side_weight)
+        return out
 
     def _step_k(self, step: int) -> float | None:
         """Fixed mode: the grid step Delta_0 / k^gamma, in float32, as the
@@ -342,6 +426,7 @@ class ConsensusRuntime:
         step, node)``.  Returns (x_next, new_state, metrics)."""
         alg = self.cfg.algorithm
         layout = self.state_layout(x_half)
+        stride = self.stride_at(step)
         metrics = {
             "collectives_per_step": self.collectives_per_step(
                 layout.n_leaves, layout=layout),
@@ -352,7 +437,7 @@ class ConsensusRuntime:
         elif alg == "allreduce":
             x_next = _allreduce_mean_delta(x_prev, x_half)
         elif alg == "dgd":
-            x_next = self._dgd_exchange(x_prev, x_half)
+            x_next = self._dgd_exchange(x_prev, x_half, stride)
         elif alg == "compressed_dgd":
             if noise is None:
                 noise = self.make_noise(layout, step, seed,
@@ -360,7 +445,7 @@ class ConsensusRuntime:
             fn = (self._cdgd_exchange_per_leaf
                   if self.cfg.wire_packing == "per_leaf"
                   else self._cdgd_exchange_packed)
-            x_next = fn(x_prev, x_half, noise, layout)
+            x_next = fn(x_prev, x_half, noise, layout, stride)
         else:
             fn = {"packed": self._adc_exchange,
                   "pipelined": self._adc_exchange,
@@ -368,7 +453,7 @@ class ConsensusRuntime:
                   "per_leaf": self._adc_exchange_per_leaf}[
                       self.cfg.wire_packing]
             x_next, state, adc = fn(x_prev, x_half, state, step, seed, noise,
-                                    layout)
+                                    layout, stride)
             metrics.update(adc)
         if self.cfg.track_consensus_error:
             metrics["consensus_err"] = _consensus_error(x_next)
@@ -427,11 +512,13 @@ class ConsensusRuntime:
                         "residual_norm": residual}
 
     def _adc_exchange(self, x_prev, x_half, state, step, seed, noise,
-                      layout):
+                      layout, stride):
         """Packed / pipelined exchange over the runtime's WirePlan: one
         transfer unit holding every codec run, or ``pipeline_chunks``
         single-run units taken in the reference's schedule.  Every codec is
-        row-local, so every chunking gives the packed exchange's bits."""
+        row-local, so every chunking gives the packed exchange's bits.  At
+        a resync each unit's ``m_agg`` rows are rebuilt from its
+        pre-update ``x_tilde`` rows just before its retire."""
         cfg, n = self.cfg, self.n_nodes
         plan = self.wire_plan_for(layout)
         units = plan.transfer_units(
@@ -444,14 +531,20 @@ class ConsensusRuntime:
         step_k = self._step_k(step)
         outs = tuple(torch.empty_like(xt) for _ in range(3))
         clipped = torch.zeros(n, dtype=torch.float32, device=y.device)
+        resync = self.resync_at(step)
+        m_in = torch.empty_like(mb) if resync else mb
 
         def launch(c):
             return self._encode_unit(plan, units[c], y, noise, step_k)
 
         def retire(c, pays):
+            if resync:
+                rows = slice(units[c].row_start, units[c].row_end)
+                self.rebuild_m_agg(xt[:, rows], stride, out=m_in[:, rows])
             self._retire(plan, units[c], pays,
-                         [pays[_left(i, n)] for i in range(n)],
-                         [pays[_right(i, n)] for i in range(n)], xt, mb, outs)
+                         [pays[_left(i, n, stride)] for i in range(n)],
+                         [pays[_right(i, n, stride)] for i in range(n)], xt,
+                         m_in, outs)
 
         def census(c, pays):
             self._census(plan, units[c], y, step_k, pays, clipped)
@@ -464,7 +557,7 @@ class ConsensusRuntime:
         return x_next, {"x_tilde": outs[0], "m_agg": outs[1]}, metrics
 
     def _adc_exchange_async(self, x_prev, x_half, state, step, seed, noise,
-                            layout):
+                            layout, stride):
         """One-step-stale packed exchange.  ``staleness`` 1: RETIRE the
         payloads launched at step k-1 (zero bytes at step 1: a no-op
         gossip) into x_tilde / m_agg and the combine, then LAUNCH this
@@ -473,14 +566,19 @@ class ConsensusRuntime:
         k+1; the overflow census reads the fresh payload.  ``staleness`` 0
         is the packed exchange, passing the idle buffers through.
 
-        The payloads are encoded into rows 1..N of one ``(N + 2,
-        payload_bytes)`` ring buffer whose row 0 repeats node N-1's and row
-        N+1 node 0's: ``fly_self``, ``fly_up`` and ``fly_dn`` are its
-        overlapping views at rows 1, 0 and 2: the ring transfer copies two
-        payloads."""
+        At a resync the retired payloads came from the previous epoch's
+        neighbours, so they are drained with the old ``m_agg`` first; then
+        ``m_agg`` is rebuilt from the new neighbours' post-retire
+        ``x_tilde`` and the combine moves by the difference.
+
+        The payloads are encoded into rows s..s+N-1 of one ``(N + 2s,
+        payload_bytes)`` ring buffer (``s`` the stride mod N) whose first s
+        rows repeat nodes N-s..N-1 and last s rows nodes 0..s-1:
+        ``fly_self``, ``fly_up`` and ``fly_dn`` are its overlapping views at
+        rows s, 0 and 2s: the ring transfer copies 2s payloads."""
         if self.cfg.staleness == 0:
             x_next, ns, metrics = self._adc_exchange(
-                x_prev, x_half, state, step, seed, noise, layout)
+                x_prev, x_half, state, step, seed, noise, layout, stride)
             for key in wire.INFLIGHT_KEYS:
                 ns[key] = state[key]
             return x_next, ns, metrics
@@ -492,27 +590,32 @@ class ConsensusRuntime:
         self._retire(plan, unit, state["fly_self"], state["fly_up"],
                      state["fly_dn"], xt, mb, outs)
         xt_new, m_new, comb = outs
+        if self.resync_at(step):
+            m_drained = self.rebuild_m_agg(xt_new, stride)
+            comb.add_(m_drained - m_new)
+            m_new = m_drained
         y = layout.pack(x_half)
         y.sub_(xt_new)
         if noise is None:
             noise = self.make_noise(layout, step, seed, y.device)
         step_k = self._step_k(step)
-        ring = torch.empty((n + 2, plan.payload_bytes), dtype=torch.uint8,
+        r = stride % n
+        ring = torch.empty((n + 2 * r, plan.payload_bytes), dtype=torch.uint8,
                            device=y.device)
-        pays = self._encode_unit(plan, unit, y, noise, step_k, ring[1:n + 1])
+        pays = self._encode_unit(plan, unit, y, noise, step_k, ring[r:r + n])
         del noise
         clipped = torch.zeros(n, dtype=torch.float32, device=y.device)
         if self.cfg.quant_mode == "fixed":
             self._census(plan, unit, y, step_k, pays, clipped)
-        # ppermute(+1) hands node i node i-1's payload, ppermute(-1) node
-        # i+1's
-        ring[0].copy_(ring[n])
-        ring[n + 1].copy_(ring[1])
+        # ppermute(+s) hands node i node i-s's payload, ppermute(-s) node
+        # i+s's
+        ring[:r].copy_(ring[n:n + r])
+        ring[n + r:].copy_(ring[r:2 * r])
         x_next, metrics = self._finish(x_prev, x_half, comb, y, clipped,
                                        plan, layout)
         return x_next, {"x_tilde": xt_new, "m_agg": m_new,
-                        "fly_self": ring[1:n + 1], "fly_up": ring[:n],
-                        "fly_dn": ring[2:]}, metrics
+                        "fly_self": ring[r:r + n], "fly_up": ring[:n],
+                        "fly_dn": ring[2 * r:]}, metrics
 
     def _ratios(self, plan, layout):
         """``(1/codes, 1/elements)`` of the packed buffer as float32
@@ -524,15 +627,17 @@ class ConsensusRuntime:
         return inv_codes, inv_elems
 
     def _adc_exchange_per_leaf(self, x_prev, x_half, state, step, seed,
-                               noise, layout):
+                               noise, layout, stride):
         """The per-leaf reference transport of :meth:`_adc_exchange` (no
-        push-sum, faults or resync, as on the packed path): per leaf and
-        node one ``quantize_blocks`` launch, the codes and scales handed to
-        both ring neighbours, and one ``dequant_combine`` launch.  Each
+        push-sum or faults, as on the packed path): per leaf and node one
+        ``quantize_blocks`` launch, the codes and scales handed to both ring
+        neighbours, and one ``dequant_combine`` launch; at a resync each
+        leaf's ``m_agg`` is rebuilt from its row-padded ``x_tilde``.  Each
         leaf is padded to its own TILE_N-aligned height; the noise is the
         packed path's buffer sliced per leaf, so the two transports give
         the same bits."""
         cfg, n = self.cfg, self.n_nodes
+        resync = self.resync_at(step)
         step_k = self._step_k(step)
         xt, mb = state["x_tilde"], state["m_agg"]
         if noise is None:
@@ -546,7 +651,8 @@ class ConsensusRuntime:
             full = kops.padded_block_rows(slot.size)
             y = _blockify_nodes(h, full)
             xtb = _rowpad(layout.leaf_rows(xt, i), full)
-            mbb = _rowpad(layout.leaf_rows(mb, i), full)
+            mbb = (self.rebuild_m_agg(xtb, stride) if resync
+                   else _rowpad(layout.leaf_rows(mb, i), full))
             y.sub_(xtb)
             residual_sq += (y * y).sum(dim=(1, 2))
             u = _rowpad(layout.leaf_rows(noise, i), full)
@@ -558,7 +664,8 @@ class ConsensusRuntime:
                     (c.to(torch.int16).abs() >= 127).sum(dtype=torch.float32)
                     for c, _ in sent])
             outs = [kops.dequant_combine(
-                        *sent[j], *sent[_left(j, n)], *sent[_right(j, n)],
+                        *sent[j], *sent[_left(j, n, stride)],
+                        *sent[_right(j, n, stride)],
                         xtb[j], mbb[j], cfg.self_weight, cfg.side_weight, 1.0)
                     for j in range(n)]
             del sent
@@ -577,17 +684,19 @@ class ConsensusRuntime:
                 {"overflow_frac": clipped * inv_codes,
                  "residual_norm": torch.sqrt(residual_sq * inv_elems)})
 
-    def _cdgd_mix(self, x_own, sent, j):
+    def _cdgd_mix(self, x_own, sent, j, stride):
         """Node j's Eq. (5) mix: its own parameters uncompressed, its ring
-        neighbours' as they arrive on the int8 wire (codes times scales)."""
+        neighbours' (at ``stride``) as they arrive on the int8 wire (codes
+        times scales)."""
         n = self.n_nodes
-        (c_l, s_l), (c_r, s_r) = sent[_left(j, n)], sent[_right(j, n)]
+        (c_l, s_l) = sent[_left(j, n, stride)]
+        (c_r, s_r) = sent[_right(j, n, stride)]
         left = c_l.to(torch.float32) * s_l
         right = c_r.to(torch.float32) * s_r
         return (self.cfg.self_weight * x_own
                 + self.cfg.side_weight * (left + right))
 
-    def _cdgd_exchange_packed(self, x_prev, x_half, noise, layout):
+    def _cdgd_exchange_packed(self, x_prev, x_half, noise, layout, stride):
         """Direct-compression DGD (paper Eq. (5), the negative control) on
         the packed int8 wire: per node one ``quantize_payload`` launch per
         chunk (one chunk unless pipelined) over the packed x_prev on the
@@ -602,14 +711,15 @@ class ConsensusRuntime:
                       for r0, rows in bounds])
                 for j in range(n)]
         sent = [kops.unpack_payload(p, layout.block) for p in pays]
-        mixed = torch.stack([self._cdgd_mix(xp[j], sent, j)
+        mixed = torch.stack([self._cdgd_mix(xp[j], sent, j, stride)
                              for j in range(n)])
         return T.tree_map(
             lambda m, h, p: (m + (h.to(torch.float32)
                                   - p.to(torch.float32))).to(h.dtype),
             layout.unpack(mixed, cast=False), x_half, x_prev)
 
-    def _cdgd_exchange_per_leaf(self, x_prev, x_half, noise, layout):
+    def _cdgd_exchange_per_leaf(self, x_prev, x_half, noise, layout,
+                                stride):
         """Per-leaf reference of :meth:`_cdgd_exchange_packed`: per leaf
         and node one ``quantize_blocks`` launch; the same bits given the
         same noise buffer."""
@@ -624,25 +734,26 @@ class ConsensusRuntime:
             u = _rowpad(layout.leaf_rows(noise, i), full)
             sent = [kops.quantize_blocks(xb[j], u[j], fixed_step=step0)
                     for j in range(n)]
-            mixed = torch.stack([self._cdgd_mix(xb[j], sent, j)
+            mixed = torch.stack([self._cdgd_mix(xb[j], sent, j, stride)
                                  for j in range(n)])
             mixed = mixed.reshape(n, -1)[:, :slot.size].reshape(h.shape)
             out.append((mixed + (h.to(torch.float32)
                                  - p.to(torch.float32))).to(h.dtype))
         return T.tree_unflatten(layout.treedef, out)
 
-    def _dgd_exchange(self, x_prev, x_half):
+    def _dgd_exchange(self, x_prev, x_half, stride):
         """Uncompressed DGD: mix the raw fp32 parameters with both ring
-        neighbours each step, then add the local optimizer delta."""
+        neighbours (at ``stride``) each step, then add the local optimizer
+        delta."""
         n = self.n_nodes
         w_self, w_side = self.cfg.self_weight, self.cfg.side_weight
 
         def mix(h, p):
             p32 = p.to(torch.float32)
             left = p32.index_select(0, torch.tensor(
-                [_left(i, n) for i in range(n)], device=p.device))
+                [_left(i, n, stride) for i in range(n)], device=p.device))
             right = p32.index_select(0, torch.tensor(
-                [_right(i, n) for i in range(n)], device=p.device))
+                [_right(i, n, stride) for i in range(n)], device=p.device))
             mixed = w_self * p32 + w_side * (left + right)
             return (mixed + (h.to(torch.float32) - p32)).to(h.dtype)
 

@@ -1,5 +1,5 @@
-"""Network topologies and consensus (mixing) matrices: the static,
-undirected part of ``repro.core.topology``.
+"""Network topologies, consensus (mixing) matrices and time-varying
+schedules of them: the undirected part of ``repro.core.topology``.
 
 The consensus matrix ``W`` must satisfy the paper's three properties
 (Section III-A):
@@ -11,14 +11,21 @@ The consensus matrix ``W`` must satisfy the paper's three properties
 ``beta = max(|lam_2|, |lam_N|) < 1`` is the mixing rate that appears in every
 convergence bound of the paper (error ball ``alpha*D/(1-beta)`` etc.).
 
+A :class:`TopologySchedule` is a step-indexed stack of such matrices
+``W^(k)``: periodic (``PeriodicSchedule``) or pre-sampled i.i.d. random
+graphs (``ErdosRenyiSchedule``, ``RandomGeometricSchedule``) drawn with
+numpy from a seed, so the stacks equal the reference's.
+
 Matrices are float64 numpy arrays, built on the host exactly as the
 reference builds them; the algorithms copy ``W`` to their device as
-float32.  Directed (column-stochastic) matrices, time-varying schedules and
-membership schedules are not ported yet: their ``by_name`` rows raise.
+float32.  Directed (column-stochastic) matrices and schedules, and
+membership schedules, are not ported yet: their ``by_name`` and
+``schedule_by_name`` rows raise.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 
@@ -37,6 +44,16 @@ __all__ = [
     "spectral_beta",
     "validate_mixing_matrix",
     "by_name",
+    "is_connected",
+    "erdos_renyi_graph",
+    "random_geometric_graph",
+    "TopologySchedule",
+    "StaticSchedule",
+    "PeriodicSchedule",
+    "ErdosRenyiSchedule",
+    "RandomGeometricSchedule",
+    "as_schedule",
+    "schedule_by_name",
 ]
 
 #: ``by_name`` rows of the reference that belong to later slices
@@ -281,3 +298,227 @@ def by_name(name: str, n: int | None = None, **kw) -> MixingMatrix:
         raise KeyError(f"unknown topology {name!r}; have "
                        f"{sorted(builders) + list(NOT_PORTED)}")
     return builders[name]()
+
+
+# ---------------------------------------------------------------------------
+# Random-graph samplers (building blocks for time-varying schedules)
+# ---------------------------------------------------------------------------
+
+def is_connected(adj: np.ndarray) -> bool:
+    """BFS connectivity check on a boolean adjacency matrix."""
+    adj = np.asarray(adj, dtype=bool)
+    n = adj.shape[0]
+    if n == 0:
+        return True
+    seen = np.zeros(n, dtype=bool)
+    frontier = np.zeros(n, dtype=bool)
+    seen[0] = frontier[0] = True
+    while frontier.any():
+        nxt = adj[frontier].any(axis=0) & ~seen
+        seen |= nxt
+        frontier = nxt
+    return bool(seen.all())
+
+
+def erdos_renyi_graph(n: int, p: float,
+                      rng: np.random.Generator) -> np.ndarray:
+    """One G(n, p) sample: each undirected edge present i.i.d. w.p. ``p``."""
+    upper = rng.random((n, n)) < p
+    adj = np.triu(upper, k=1)
+    return adj | adj.T
+
+
+def random_geometric_graph(n: int, radius: float,
+                           rng: np.random.Generator) -> np.ndarray:
+    """RGG sample: nodes uniform in the unit square, edge iff dist <= radius."""
+    pts = rng.random((n, 2))
+    d2 = ((pts[:, None, :] - pts[None, :, :]) ** 2).sum(-1)
+    adj = d2 <= radius**2
+    np.fill_diagonal(adj, False)
+    return adj
+
+
+# ---------------------------------------------------------------------------
+# Time-varying topology schedules
+# ---------------------------------------------------------------------------
+
+class TopologySchedule:
+    """A step-indexed sequence of mixing matrices ``W^(k)``: iteration ``i``
+    (0-based) uses ``stack[i % period]``.  For i.i.d. random schedules the
+    period is a long pre-sampled horizon.  Every matrix of the stack
+    satisfies the paper's Section III-A requirements; connected samples
+    also have beta < 1."""
+
+    name: str = "schedule"
+
+    def __init__(self, matrices: Sequence[MixingMatrix], name: str):
+        if not matrices:
+            raise ValueError("schedule needs at least one mixing matrix")
+        n = matrices[0].n
+        if any(m.n != n for m in matrices):
+            raise ValueError("all matrices in a schedule must share N")
+        self.matrices: tuple[MixingMatrix, ...] = tuple(matrices)
+        self.name = name
+
+    @property
+    def n(self) -> int:
+        return self.matrices[0].n
+
+    @property
+    def period(self) -> int:
+        return len(self.matrices)
+
+    @property
+    def stack(self) -> np.ndarray:
+        """(period, N, N) float64 stack of the mixing matrices."""
+        return np.stack([m.w for m in self.matrices])
+
+    @property
+    def n_edges(self) -> float:
+        """Mean undirected edge count over the schedule."""
+        return float(np.mean([m.n_edges for m in self.matrices]))
+
+    @property
+    def is_directed(self) -> bool:
+        return any(m.is_directed for m in self.matrices)
+
+    @property
+    def n_messages(self) -> float:
+        """Mean point-to-point message count per round (2E undirected)."""
+        return float(np.mean([m.n_messages for m in self.matrices]))
+
+    @property
+    def beta(self) -> float:
+        """Spectral gap of the mean matrix E[W]."""
+        return spectral_beta(self.stack.mean(axis=0))
+
+    def matrix_at(self, i: int) -> MixingMatrix:
+        """Mixing matrix used by 0-based iteration ``i``."""
+        return self.matrices[i % self.period]
+
+    def indices_for(self, n_steps: int) -> np.ndarray:
+        """Stack indices for iterations 0..n_steps-1."""
+        return np.arange(n_steps) % self.period
+
+    def edges_per_step(self, n_steps: int) -> np.ndarray:
+        """Undirected edge count of the matrix used at each iteration."""
+        counts = np.array([m.n_edges for m in self.matrices], dtype=np.float64)
+        return counts[self.indices_for(n_steps)]
+
+    def messages_per_step(self, n_steps: int) -> np.ndarray:
+        """Wire message count of the matrix used at each iteration."""
+        counts = np.array([m.n_messages for m in self.matrices],
+                          dtype=np.float64)
+        return counts[self.indices_for(n_steps)]
+
+    def validate(self) -> None:
+        for m in self.matrices:
+            m.validate()
+
+
+class StaticSchedule(TopologySchedule):
+    """Degenerate schedule: the same W every step (the paper's setting)."""
+
+    def __init__(self, mixing: MixingMatrix):
+        super().__init__([mixing], f"static({mixing.name})")
+
+
+class PeriodicSchedule(TopologySchedule):
+    """Deterministic cycle through a list of matrices, each held ``dwell``
+    steps."""
+
+    def __init__(self, matrices: Sequence[MixingMatrix], dwell: int = 1,
+                 name: str | None = None):
+        if dwell < 1:
+            raise ValueError(f"dwell must be >= 1, got {dwell}")
+        expanded = [m for m in matrices for _ in range(dwell)]
+        label = name or ("periodic(" + "|".join(m.name for m in matrices)
+                         + (f" dwell={dwell}" if dwell > 1 else "") + ")")
+        super().__init__(expanded, label)
+
+
+def _sampled_schedule(sampler, horizon: int, seed: int,
+                      ensure_connected: bool, laziness: float,
+                      name: str) -> list[MixingMatrix]:
+    """Draw ``horizon`` i.i.d. graphs, lazy-Metropolis-weight each into a
+    valid W.  With ``ensure_connected`` a disconnected draw is rejected and
+    redrawn (at most 1,000 times); without it disconnected samples stay
+    (only joint connectivity over time matters)."""
+    rng = np.random.default_rng(seed)
+    mats: list[MixingMatrix] = []
+    for t in range(horizon):
+        adj = sampler(rng)
+        attempts = 0
+        while ensure_connected and not is_connected(adj):
+            adj = sampler(rng)
+            attempts += 1
+            if attempts > 1000:
+                raise RuntimeError(
+                    f"{name}: could not draw a connected graph in 1000 tries "
+                    "— increase p/radius or set ensure_connected=False")
+        mats.append(_mm(lazy_metropolis_weights(adj, laziness),
+                        f"{name}[{t}]"))
+    return mats
+
+
+class ErdosRenyiSchedule(TopologySchedule):
+    """i.i.d. G(n, p) samples with lazy Metropolis-Hastings weights."""
+
+    def __init__(self, n: int, p: float, horizon: int = 64, seed: int = 0,
+                 ensure_connected: bool = True, laziness: float = 0.5):
+        name = f"erdos_renyi(n={n},p={p})"
+        mats = _sampled_schedule(
+            lambda rng: erdos_renyi_graph(n, p, rng), horizon, seed,
+            ensure_connected, laziness, name)
+        super().__init__(mats, name)
+
+
+class RandomGeometricSchedule(TopologySchedule):
+    """i.i.d. random-geometric-graph samples (unit square, radius r) with
+    lazy Metropolis-Hastings weights."""
+
+    def __init__(self, n: int, radius: float, horizon: int = 64, seed: int = 0,
+                 ensure_connected: bool = True, laziness: float = 0.5):
+        name = f"rgg(n={n},r={radius})"
+        mats = _sampled_schedule(
+            lambda rng: random_geometric_graph(n, radius, rng), horizon,
+            seed, ensure_connected, laziness, name)
+        super().__init__(mats, name)
+
+
+def as_schedule(mixing: "MixingMatrix | TopologySchedule") -> TopologySchedule:
+    """Normalize a static W or an existing schedule to a TopologySchedule."""
+    if isinstance(mixing, TopologySchedule):
+        return mixing
+    if isinstance(mixing, MixingMatrix):
+        return StaticSchedule(mixing)
+    raise TypeError(f"expected MixingMatrix or TopologySchedule, got "
+                    f"{type(mixing)}")
+
+
+def schedule_by_name(name: str, n: int | None = None,
+                     **kw) -> TopologySchedule:
+    """Schedule registry:
+
+      static:<topology>     — StaticSchedule over ``by_name(topology)``
+      ring_torus            — ring(n) / torus alternation (n even)
+      erdos_renyi           — i.i.d. G(n, p) samples (kw: p, horizon, seed)
+      rgg                   — i.i.d. random geometric graphs (kw: radius, ...)
+      directed_erdos_renyi  — not yet ported (raises)
+    """
+    if name.startswith("static:"):
+        return StaticSchedule(by_name(name.split(":", 1)[1], n=n, **kw))
+    if name == "ring_torus":
+        if n is None or n % 2:
+            raise ValueError("ring_torus needs an even n")
+        return PeriodicSchedule([ring(n), torus(2, n // 2)],
+                                dwell=kw.get("dwell", 1))
+    if name == "erdos_renyi":
+        return ErdosRenyiSchedule(n, **kw)
+    if name == "rgg":
+        return RandomGeometricSchedule(n, **kw)
+    if name == "directed_erdos_renyi":
+        raise NotImplementedError(
+            "schedule 'directed_erdos_renyi' (directed, column-stochastic "
+            "matrices) is not yet ported")
+    raise KeyError(f"unknown schedule {name!r}")

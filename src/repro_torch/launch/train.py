@@ -16,6 +16,10 @@ instead of ADC-DGD.  ``--wire-packing`` picks the transport: ``packed``
 (one payload per node and step), ``pipelined`` (``--pipeline-chunks``
 transfer units), ``async`` (one step stale at ``--staleness 1``) or
 ``per_leaf`` (the per-leaf reference transport of the int8 wire).
+``--ring-strides 1,2 --schedule-period P`` makes the ring time-varying:
+its stride cycles through the list, each held P steps, and every step
+that re-wires it rebuilds ``m_agg`` from the new neighbours (a resync);
+the step line then names the epoch's stride and marks a resync.
 
 The wire codec is ``--wire-codec int8|int4|int2|topk|topk:k=<int>``, or
 ``adaptive``: then an ``AdaptiveBitController`` re-selects it every
@@ -81,7 +85,9 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                       wire_codec: str = "int8",
                       byte_budget: float | None = None,
                       wire_packing: str = "packed", pipeline_chunks: int = 4,
-                      staleness: int = 1, seed: int = 0,
+                      staleness: int = 1,
+                      ring_strides: tuple[int, ...] = (1,),
+                      schedule_period: int = 1, seed: int = 0,
                       device=None) -> TrainSetup:
     """Everything static about a run.  ``wire_codec`` is a codec name or a
     ``mixed:`` plan spec.  ``device`` defaults to ``cuda`` (raising when
@@ -93,7 +99,9 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                            wire_codec=wire_codec, byte_budget=byte_budget,
                            wire_packing=wire_packing,
                            pipeline_chunks=pipeline_chunks,
-                           staleness=staleness)
+                           staleness=staleness,
+                           ring_strides=tuple(ring_strides),
+                           schedule_period=schedule_period)
     if schedule == "constant":
         sched = constant_schedule(lr)
     elif schedule == "inverse_power":
@@ -183,8 +191,13 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
         state["params"], x_half, state["consensus"], k, seed=setup.seed,
         noise=noise)
     metrics = {"loss": float(losses.mean()), "node_loss": losses, "lr": lr_k}
-    if setup.consensus.cfg.algorithm == "adc_dgd":
-        metrics["codec"] = setup.consensus.wire_name
+    rt = setup.consensus
+    if rt.cfg.algorithm == "adc_dgd":
+        metrics["codec"] = rt.wire_name
+    if rt.cfg.schedule_varying:
+        metrics["ring_stride"] = rt.stride_at(k)
+        metrics["resync"] = (rt.cfg.algorithm == "adc_dgd"
+                             and rt.resync_at(k))
     for name, v in cmetrics.items():
         metrics[name] = float(v.mean()) if torch.is_tensor(v) else float(v)
     return ({"params": x_next, "opt": opt_state, "consensus": cons,
@@ -225,6 +238,11 @@ def main(argv=None, *, return_state: bool = False):
     ap.add_argument("--staleness", type=int, default=1, choices=[0, 1],
                     help="--wire-packing async: 1 retires the previous "
                          "step's payload; 0 is the packed exchange")
+    ap.add_argument("--ring-strides", default="1",
+                    help="comma-separated node-ring strides cycled per "
+                         "schedule epoch (time-varying topology), e.g. 1,2")
+    ap.add_argument("--schedule-period", type=int, default=1,
+                    help="steps between ring re-wirings")
     ap.add_argument("--wire-codec", default="int8",
                     help="payload codec of the exchange: int8 | int4 | int2 "
                          "| topk | topk:k=<int> | adaptive; 'adaptive' hands "
@@ -261,6 +279,11 @@ def main(argv=None, *, return_state: bool = False):
     # TF32: PyTorch's default, stated here because the parity rests on it
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    try:
+        strides = tuple(int(s) for s in args.ring_strides.split(","))
+    except ValueError:
+        raise SystemExit(f"--ring-strides: comma-separated integers, got "
+                         f"{args.ring_strides!r}") from None
     adaptive = args.wire_codec == "adaptive"
     if adaptive and args.algorithm != "adc_dgd":
         raise SystemExit("--wire-codec adaptive requires adc_dgd")
@@ -311,7 +334,8 @@ def main(argv=None, *, return_state: bool = False):
         track_consensus_error=(args.algorithm != "allreduce"),
         wire_codec="int8" if adaptive and plan_spec is None else wire,
         byte_budget=args.byte_budget, wire_packing=args.wire_packing,
-        pipeline_chunks=args.pipeline_chunks, staleness=args.staleness)
+        pipeline_chunks=args.pipeline_chunks, staleness=args.staleness,
+        ring_strides=strides, schedule_period=args.schedule_period)
     if adaptive:
         ccfg = setup.consensus.cfg
         controller = wcodec.AdaptiveBitController(
@@ -343,8 +367,8 @@ def main(argv=None, *, return_state: bool = False):
             torch.cuda.synchronize(setup.device)
         metrics["step_s"] = time.perf_counter() - ts
         history.append(metrics)
-        shown = " ".join(f"{k}={v}" if isinstance(v, str) else f"{k}={v:.4g}"
-                         for k, v in metrics.items()
+        shown = " ".join(f"{k}={v}" if isinstance(v, (str, bool, int))
+                         else f"{k}={v:.4g}" for k, v in metrics.items()
                          if k not in ("loss", "node_loss"))
         print(f"step {step:5d} loss={metrics['loss']:.4f} {shown}",
               flush=True)

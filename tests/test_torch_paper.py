@@ -393,8 +393,11 @@ def test_by_name_validation_and_unported_paths(four_node):
     assert isinstance(on_plan.compressor, wireplan.WirePlanCompressor)
     with pytest.raises(NotImplementedError, match="push-sum"):
         K.ADCDGD(JT.directed_ring(4), COMP, K.StepSize(ALPHA))
-    with pytest.raises(NotImplementedError, match="TopologySchedule"):
-        K.DGD(JT.PeriodicSchedule((JT.ring(4), JT.chain(4))),
+    # a time-varying undirected schedule is ported; a directed one is not
+    sched = T.PeriodicSchedule((T.ring(4), T.chain(4)))
+    assert K.DGD(sched, K.StepSize(ALPHA)).mixing.period == 2
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        K.DGD(JT.DirectedErdosRenyiSchedule(4, p=0.5, horizon=2),
               K.StepSize(ALPHA))
 
 
