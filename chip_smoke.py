@@ -66,6 +66,29 @@ Phases (any failure exits non-zero before the result line):
              s])`` recomputed from the step's input, and step 3's exchange
              with the plain versions of #1 and #2 equals the kernels'; the
              exchange time at a resync against steps without one;
+             then the lossy and directed rings (``phase_faults``), each
+             run counted and every exchange watched: 4 nodes on the
+             directed ring with push-sum, adaptive grid, loss seed 1, 8
+             steps at loss None, 0.0, 0.05 and 0.2 packed, then 0.2
+             pipelined over 4 units, async at staleness 0 and per-leaf,
+             the Gilbert-Elliott burst channel (p 0.1, r 0.9) with int8
+             and plan B, async at staleness 1 with 20% straggler
+             deadlines, and the strided 5-node ring at loss 0.2 with one
+             resync retry: the zero payloads each exchange reads equal the
+             host keep mask's drops per transfer unit, the delivered bytes
+             per node the formula, push-sum weights stay exactly 1; loss
+             0.0 equals lossless and at 0.2 packed == pipelined == async
+             s0 == per-leaf, bitwise; step 3 of the lossy packed, per-leaf
+             and async runs and of the strided one through the plain
+             versions of #1-#4 equals the kernels'; a failed resync keeps
+             the carried m_agg bitwise; the 4-node int8 exchange timed
+             symmetric and directed, with and without loss, and with
+             push-sum alone; then push-sum ADC-DGD int8, CHOCO and CEDAS
+             on ``directed_erdos_renyi(20, 0.3, seed=1)`` and ADC-DGD
+             under ``DirectedErdosRenyiSchedule(20, 0.3, horizon=500,
+             seed=0)`` at P 2^22, 500 counted steps each (#3 once per
+             step, weights positive and summing to 20, one message per
+             directed edge), and kernel against plain trajectories;
 4. serve   — ``repro_torch.launch.serve.main`` on the full smollm-135m:
              32 prompts of 1,984 tokens and 64 new tokens (capacity 2,048,
              a 3.0 GB float32 KV cache): the flash-decode kernel launched
@@ -998,88 +1021,29 @@ def stride_argv(steps: int, *extra: str) -> list[str]:
 
 
 def stride_probe(torch, Q, D, train):
-    """An uncounted packed run of the stride path with the exchange
-    watched: at each step, the m_agg each node's combine read (steps 3 and
-    5: ``side * (x_tilde[i - s] + x_tilde[i + s])`` of the step's input
-    shadows, recomputed here with ``roll``, bitwise; other steps: the
-    carried m_agg itself), and at step 3 the same exchange with the plain
-    versions of #1 and #2 on the card, bitwise equal."""
-    from repro_torch.core import distributed as Dist
-    from repro_torch.core import tree as T
-    from repro_torch.kernels import ops
-    real_exchange = Dist.ConsensusRuntime.exchange
-    real_q, real_d = ops.quantize_payload, ops.dequant_combine_payload
-    m_args, seen = [], {}
-
-    def combine_spy(*args, **kw):
-        m_args.append(args[4])
-        return real_d(*args, **kw)
-
-    def plain_q(y, noise, fixed_step=None, row_offset=0, n_rows=None,
-                out=None):
-        return Q._into(out, Q.quantize_payload_plain(
-            y, noise, fixed_step, row_offset, n_rows))
-
-    def plain_d(ps, pl, pr, xt, mb, w_self, w_side, deamp, row_offset=0,
-                n_rows=None, out=None):
-        return Q._into(out, D.dequant_combine_payload_plain(
-            ps, pl, pr, xt, mb, w_self, w_side, deamp, row_offset, n_rows))
-
-    def exchange_spy(self, x_prev, x_half, state, step, seed=0, noise=None):
-        m_args.clear()
-        xt, mb = state["x_tilde"], state["m_agg"]
-        got = real_exchange(self, x_prev, x_half, state, step, seed, noise)
-        n, s = self.n_nodes, self.stride_at(step)
-        if len(m_args) != n:
-            fail(f"stride probe step {step}: {len(m_args)} combines")
-        if self.resync_at(step):
-            want = (xt.roll(s, 0) + xt.roll(-s, 0)) * self.cfg.side_weight
-            ok = all(torch.equal(m, want[i]) for i, m in enumerate(m_args))
-            del want
-        else:
-            ok = all(m.data_ptr() == mb[i].data_ptr()
-                     for i, m in enumerate(m_args))
-        seen[step] = (s, self.resync_at(step), ok)
-        m_args.clear()
-        if step == RESYNC_STEPS[0]:
-            ops.quantize_payload, ops.dequant_combine_payload = \
-                plain_q, plain_d
-            try:
-                plain = real_exchange(self, x_prev, x_half, state, step,
-                                      seed, noise)
-            finally:
-                ops.quantize_payload, ops.dequant_combine_payload = \
-                    real_q, combine_spy
-            same = (all(torch.equal(a, b) for a, b in zip(
-                T.tree_leaves(got[0]), T.tree_leaves(plain[0])))
-                    and all(torch.equal(got[1][k], plain[1][k])
-                            for k in ("x_tilde", "m_agg")))
-            seen["plain"] = same
-            del plain
-        return got
-
-    Dist.ConsensusRuntime.exchange = exchange_spy
-    ops.dequant_combine_payload = combine_spy
-    try:
+    """An uncounted packed run of the stride path, watched
+    (``ExchangeWatch``): at each step the m_agg each node's combine read
+    (steps 3 and 5: ``side * (x_tilde[i - s] + x_tilde[i + s])`` of the
+    step's input shadows, recomputed with ``roll``, bitwise; other steps:
+    the carried m_agg itself), and at step 3 the same exchange through
+    the plain versions on the card, bitwise equal."""
+    with ExchangeWatch(torch, Q, D, RESYNC_STEPS[0], combine=True) as watch:
         train.main(stride_argv(RESYNC_STEPS[-1]))
-    finally:
-        Dist.ConsensusRuntime.exchange = real_exchange
-        ops.quantize_payload, ops.dequant_combine_payload = real_q, real_d
-    for step in range(1, RESYNC_STEPS[-1] + 1):
-        s, resync, ok = seen[step]
-        if s != STRIDE_SEQ[step - 1] or resync != (step in RESYNC_STEPS) \
-                or not ok:
-            fail(f"stride probe step {step}: stride {s}, resync {resync}, "
-                 f"m_agg into the combine as designed: {ok}")
-    if not seen["plain"]:
+    got = [(r["stride"], r["resync"], r["m_agg_ok"]) for r in watch.steps]
+    want = [(STRIDE_SEQ[k - 1], k in RESYNC_STEPS, True)
+            for k in range(1, RESYNC_STEPS[-1] + 1)]
+    if got != want:
+        fail(f"stride probe: (stride, resync, m_agg into the combine as "
+             f"designed) per step {got}, want {want}")
+    if not watch.plain_equal:
         fail(f"stride path step {RESYNC_STEPS[0]}: the kernel exchange "
              "differs from the plain versions' on the card")
     print(f"[strides] m_agg into the combine at steps {RESYNC_STEPS} == "
           "side * (x_tilde[i - s] + x_tilde[i + s]) of the step's input "
           "bitwise (s = 2, then 1), the carried m_agg at the other steps; "
           f"step {RESYNC_STEPS[0]}'s exchange (a resync) with the plain "
-          "versions of #1 and #2 == the kernels' bitwise (params, x_tilde, "
-          "m_agg)", flush=True)
+          "versions of #1 and #2 == the kernels' bitwise (params and the "
+          "consensus state)", flush=True)
 
 
 def phase_strides(torch, Q, D, train, entries):
@@ -1158,6 +1122,518 @@ def phase_strides(torch, Q, D, train, entries):
     del st, x_half
     torch.cuda.empty_cache()
     return launches_total, step_s, exchange_ms, peak_gb
+
+
+#: the lossy and directed rings (``phase_faults``) on the full smollm-135m
+#: x 4 nodes: the reference's packet-loss sweep (``benchmarks/
+#: consensus_step.py:171-174``: directed-ring push-sum on the adaptive
+#: grid, 8 steps, loss seed 1, rates None / 0.0 / 0.05 / 0.2), its burst
+#: channel (``CHURN_BURST``, :202), the async transport's straggler
+#: deadlines, and the strided 5-node ring of ``phase_strides`` with one
+#: resync retry (some handshakes fail)
+FAULT_STEPS, LOSS_SEED, STRAGGLE = 8, 1, 0.2
+LOSS_RATES = (None, 0.0, 0.05, 0.2)
+CHURN_BURST = "gilbert:p=0.1,r=0.9"
+FAULT_ARGV = ("--topology", "directed-ring", "--quant-mode", "adaptive",
+              "--loss-seed", str(LOSS_SEED))
+#: the step of each checked run whose exchange is run again through the
+#: plain versions of its kernels and compared bitwise
+PLAIN_STEP = 3
+#: the paper path on directed graphs: the reference's own draws
+#: (``tests/test_topology.py:60`` and ``:137``, there at n 12 and 8)
+DIRECTED_P, DIRECTED_SEED, DIRECTED_SCHED_SEED = 0.3, 1, 0
+
+
+class PlainKernels:
+    """Within the block the exchange's kernel entry points (``ops``: #1,
+    #2, #3, #4) run their plain PyTorch versions on the card; whatever
+    they were is restored after it."""
+
+    NAMES = ("quantize_payload", "dequant_combine_payload",
+             "quantize_blocks", "dequant_combine")
+
+    def __init__(self, Q, D):
+        self.Q, self.D = Q, D
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        Q, D = self.Q, self.D
+        self.saved = {k: getattr(ops, k) for k in self.NAMES}
+
+        def plain_q(y, noise, fixed_step=None, row_offset=0, n_rows=None,
+                    out=None):
+            return Q._into(out, Q.quantize_payload_plain(
+                y, noise, fixed_step, row_offset, n_rows))
+
+        def plain_d(ps, pl, pr, xt, mb, w_self, w_side, deamp, row_offset=0,
+                    n_rows=None, out=None):
+            return Q._into(out, D.dequant_combine_payload_plain(
+                ps, pl, pr, xt, mb, w_self, w_side, deamp, row_offset,
+                n_rows))
+
+        ops.quantize_payload, ops.dequant_combine_payload = plain_q, plain_d
+        ops.quantize_blocks = (lambda y, noise, fixed_step=None:
+                               Q.quantize_blocks_plain(y, noise, fixed_step))
+        ops.dequant_combine = D.dequant_combine_plain
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        from repro_torch.kernels import ops
+        for k, v in self.saved.items():
+            setattr(ops, k, v)
+        return False
+
+
+class ExchangeWatch:
+    """Within the block every ``ConsensusRuntime.exchange`` is watched
+    (no kernel launches of its own): per step, its stride and resync, the
+    zero payloads it read (``zero_payloads``), its per-node delivered
+    bytes and fraction, and the push-sum weights.  At ``plain_step`` the
+    exchange runs again through ``PlainKernels`` and must give the
+    kernels' bits (``plain_equal``).  With ``combine`` the m_agg each
+    node's int8 combine read is held (``m_agg_ok``): at a resync to the
+    aggregate rebuilt from the step's input shadows where the node's
+    handshake landed and to the carried one where it failed, at other
+    steps to the carried one itself.  Around each check the peak memory
+    so far is kept (``peak_gb``) and the peak counter restarts after it,
+    so that a run's peak leaves the checks' temporaries out."""
+
+    def __init__(self, torch, Q, D, plain_step=None, combine=False):
+        self.torch, self.Q, self.D = torch, Q, D
+        self.plain_step, self.combine = plain_step, combine
+        self.steps, self.plain_equal = [], None
+        self.peak_gb = 0.0
+
+    def _check(self, fn):
+        """``fn()`` with its memory kept out of the run's peak."""
+        torch = self.torch
+        self.peak_gb = max(self.peak_gb,
+                           torch.cuda.max_memory_allocated() / 1e9)
+        got = fn()
+        torch.cuda.reset_peak_memory_stats()
+        return got
+
+    def __enter__(self):
+        from repro_torch.core import distributed as Dist
+        from repro_torch.kernels import ops
+        torch, watch = self.torch, self
+        self.real = real = Dist.ConsensusRuntime.exchange
+        self.real_d = ops.dequant_combine_payload
+        m_args = []
+
+        def combine_spy(*args, **kw):
+            m_args.append(args[4])
+            return watch.real_d(*args, **kw)
+
+        def exchange_spy(rt, x_prev, x_half, state, step, seed=0,
+                         noise=None):
+            z0 = rt.zero_payloads
+            xt, mb = state.get("x_tilde"), state.get("m_agg")
+            m_args.clear()
+            got = real(rt, x_prev, x_half, state, step, seed, noise)
+            m = got[2]
+            ok = rt.resync_ok(step)
+            rec = {"step": step, "zero": rt.zero_payloads - z0,
+                   "stride": rt.stride_at(step),
+                   "resync": rt.resync_at(step),
+                   "resync_ok": None if ok is None else ok.tolist()}
+            for key in ("wire_bytes_delivered", "delivered_frac",
+                        "push_sum_weight"):
+                if key in m:
+                    rec[key] = m[key].cpu().numpy()
+            watch.steps.append(rec)
+
+            def m_agg_check():
+                if len(m_args) != rt.n_nodes:
+                    return False
+                if not rec["resync"]:
+                    return all(a.data_ptr() == mb[i].data_ptr()
+                               for i, a in enumerate(m_args))
+                s, side = rec["stride"], rt.cfg.side_weight
+                built = (xt.roll(s, 0) + xt.roll(-s, 0)) * side
+                return all(torch.equal(a, built[i] if ok is None or ok[i]
+                                       else mb[i])
+                           for i, a in enumerate(m_args))
+            if watch.combine:
+                rec["m_agg_ok"] = watch._check(m_agg_check)
+            m_args.clear()
+            if step == watch.plain_step:
+                def plain_check():
+                    z1 = rt.zero_payloads
+                    with PlainKernels(watch.Q, watch.D):
+                        plain = real(rt, x_prev, x_half, state, step, seed,
+                                     noise)
+                    rt.zero_payloads = z1
+                    return (all(torch.equal(a, b) for a, b in zip(
+                        tree_leaves(got[0]), tree_leaves(plain[0])))
+                        and sorted(got[1]) == sorted(plain[1])
+                        and all(torch.equal(got[1][k], plain[1][k])
+                                for k in got[1]))
+                watch.plain_equal = watch._check(plain_check)
+            return got
+
+        Dist.ConsensusRuntime.exchange = exchange_spy
+        if self.combine:
+            ops.dequant_combine_payload = combine_spy
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        from repro_torch.core import distributed as Dist
+        from repro_torch.kernels import ops
+        Dist.ConsensusRuntime.exchange = self.real
+        ops.dequant_combine_payload = self.real_d
+        return False
+
+
+def tree_leaves(tree):
+    from repro_torch.core import tree as T
+    return T.tree_leaves(tree)
+
+
+def arrival_mask(model, step, n, straggler=None):
+    """``(2, n)`` host mask of the payloads a step's exchange retires
+    (``straggler``: the async transport's deadlines, ANDed)."""
+    keep = model.keep_mask_host(n, [step])[0]
+    if straggler is not None:
+        keep = keep & straggler.keep_mask_host(n, [step])[0]
+    return keep
+
+
+def fault_checks(label, watch, model, units, bpd, n, async_s1=False,
+                 straggler=None, push=True):
+    """Each watched step of a run: the zero payloads read equal the host
+    keep mask's drops x transfer units, the delivered bytes per node equal
+    ``f32(bytes per direction) x surviving directions``, and the push-sum
+    weight is exactly 1.  Returns (drops per step, delivered fractions)."""
+    drops, fracs = [], []
+    for rec in watch.steps:
+        k = rec["step"]
+        if model is None:
+            if rec["zero"] or "delivered_frac" in rec:
+                fail(f"{label} step {k}: no loss model, yet "
+                     f"{rec['zero']} zero payloads / delivered metrics")
+            drops.append(0)
+        else:
+            mask = arrival_mask(model, k - 1 if async_s1 else k, n,
+                                straggler)
+            d = int((~mask).sum())
+            delivered = mask.sum(axis=0).astype(np.float32)
+            want = delivered * np.float32(bpd)
+            if rec["zero"] != units * d \
+                    or not np.array_equal(rec["wire_bytes_delivered"], want) \
+                    or not np.array_equal(rec["delivered_frac"],
+                                          delivered / 2):
+                fail(f"{label} step {k}: {rec['zero']} zero payloads (want "
+                     f"{units} x {d}), delivered bytes "
+                     f"{rec.get('wire_bytes_delivered')} (want {want}), "
+                     f"delivered {rec.get('delivered_frac')}")
+            drops.append(d)
+            fracs.append(float(rec["delivered_frac"].mean()))
+        if push and not np.array_equal(rec["push_sum_weight"],
+                                       np.ones(n, np.float32)):
+            fail(f"{label} step {k}: push-sum weights "
+                 f"{rec['push_sum_weight']} are not exactly 1")
+    return drops, fracs
+
+
+def phase_faults(torch, Q, D, train, entries):
+    """Lossy and directed rings on the full smollm-135m, each run counted
+    on its own and watched (``ExchangeWatch``): (a) 4 nodes, directed-ring
+    push-sum on the adaptive grid at loss None / 0.0 / 0.05 / 0.2,
+    packed; (b) 0.2 on pipelined 4 units, async at staleness 0 and
+    per-leaf, each bitwise equal to (a)'s packed run (and 0.0 to None);
+    (c) the burst channel, int8 and plan B; (d) async at staleness 1 with
+    straggler deadlines; (e) the strided 5-node ring at loss 0.2 with one
+    resync retry, a failed handshake keeping the carried m_agg bitwise;
+    then the exchange timed with and without loss, directed against
+    symmetric; then the paper path on directed graphs
+    (``phase_paper_directed``).  Returns (launches, step s, exchange ms,
+    peak GB)."""
+    from repro_torch.core import faults
+    launches_total = {name: 0 for name in entries}
+    step_s, peak_gb, finals = {}, {}, {}
+    packed_per_step = {"quantize_payload": NODES,
+                       "dequant_combine_payload": NODES}
+    payload = WIRE_BYTES["int8"] // 2
+    pipelined = ("--wire-packing", "pipelined", "--pipeline-chunks",
+                 str(PIPELINE_CHUNKS))
+    bernoulli = lambda rate: (None if rate is None  # noqa: E731
+                              else faults.LossModel(rate, LOSS_SEED))
+    burst = faults.GilbertElliottLoss(p=0.1, r=0.9, seed=LOSS_SEED,
+                                      n_nodes=NODES)
+    lossy = ("--link-loss", "0.2")
+    # (label, argv, loss model, launches per step, units, bytes per
+    # direction, async s1 straggler or None, plain check)
+    runs = []
+    for rate in LOSS_RATES:
+        runs.append((f"directed loss {rate}", train_argv(
+            FAULT_STEPS, *FAULT_ARGV,
+            *(() if rate is None else ("--link-loss", str(rate)))),
+            bernoulli(rate), packed_per_step, 1, payload + 4, None,
+            rate == 0.2))
+    runs += [
+        ("directed loss 0.2 pipelined", train_argv(
+            FAULT_STEPS, *FAULT_ARGV, *lossy, *pipelined),
+         bernoulli(0.2), {k: v * PIPELINE_CHUNKS
+                          for k, v in packed_per_step.items()},
+         PIPELINE_CHUNKS, payload + 4, None, False),
+        ("directed loss 0.2 async s0", train_argv(
+            FAULT_STEPS, *FAULT_ARGV, *lossy, "--wire-packing", "async",
+            "--staleness", "0"), bernoulli(0.2), packed_per_step, 1,
+         payload + 4, None, False),
+        ("directed loss 0.2 per-leaf", train_argv(
+            FAULT_STEPS, *FAULT_ARGV, *lossy, "--wire-packing", "per_leaf"),
+         bernoulli(0.2), {"quantize_blocks": NODES * N_LEAVES,
+                          "dequant_combine": NODES * N_LEAVES}, N_LEAVES,
+         PER_LEAF_WIRE_BYTES // 2 + 4, None, True),
+        ("directed burst int8", train_argv(
+            FAULT_STEPS, *FAULT_ARGV, "--link-loss-model", CHURN_BURST),
+         burst, packed_per_step, 1, payload + 4, None, False),
+        ("directed burst plan B", train_argv(
+            FAULT_STEPS, *FAULT_ARGV, "--link-loss-model", CHURN_BURST,
+            "--wire-plan", PLAN_B), burst,
+         {n: v for n, v in plan_launches(entries, full_plan(
+             train, PLAN_B)).items() if v}, 1,
+         PLAN_WIRE_BYTES[PLAN_B] // 2 + 4, None, False),
+        ("directed loss 0.2 async s1 straggle", train_argv(
+            FAULT_STEPS, *FAULT_ARGV, *lossy, "--wire-packing", "async",
+            "--staleness", "1", "--straggle", str(STRAGGLE)),
+         bernoulli(0.2), packed_per_step, 1, payload + 4,
+         faults.StragglerModel(STRAGGLE, 0), True)]
+    for label, argv, model, per_step, units, bpd, late, plain in runs:
+        with CardSampler() as card, ExchangeWatch(
+                torch, Q, D, PLAIN_STEP if plain else None) as watch:
+            (hist, state), launches, peak = run_counted(
+                torch, train, entries, argv, return_state=True)
+        peak_gb[label] = max(peak, watch.peak_gb)
+        want = {name: FAULT_STEPS * per_step.get(name, 0)
+                for name in entries}
+        losses = [h["loss"] for h in hist]
+        if launches != want or not all(math.isfinite(x) for x in losses) \
+                or abs(losses[0] - math.log(49152)) > 0.5:
+            fail(f"faults {label}: launched {launches} (want {want}), "
+                 f"losses {losses}")
+        if len(watch.steps) != FAULT_STEPS:
+            fail(f"faults {label}: {len(watch.steps)} exchanges watched")
+        async_s1 = "--straggle" in argv
+        drops, fracs = fault_checks(label, watch, model, units, bpd, NODES,
+                                    async_s1=async_s1, straggler=late)
+        if plain and not watch.plain_equal:
+            fail(f"faults {label}: step {PLAIN_STEP}'s exchange through "
+                 "the plain versions differs from the kernels'")
+        if {h["wire_bytes_per_step"] for h in hist} != {2.0 * bpd}:
+            fail(f"faults {label}: wire_bytes_per_step "
+                 f"{[h['wire_bytes_per_step'] for h in hist]}, want "
+                 f"{2 * bpd}")
+        for name, n in launches.items():
+            launches_total[name] += n
+        step_s[label] = statistics.median(h["step_s"] for h in hist[1:])
+        if "async s1" not in label and "burst" not in label:
+            finals[label] = host_state(state)
+        del state
+        print(f"[faults] {label}: {FAULT_STEPS} steps, losses {losses}; "
+              f"launches per step {per_step}; dropped payloads per step "
+              f"{drops} (x {units} units read as zero payloads, as the "
+              f"host mask says); delivered_frac {fracs}; wire bytes "
+              f"delivered as the formula; push_sum_weight exactly 1; "
+              + (f"step {PLAIN_STEP} through the plain versions bitwise "
+                 "equal; " if plain else "")
+              + f"consensus_err {[h['consensus_err'] for h in hist]}; "
+              f"median step {step_s[label]:.4f} s; peak memory "
+              f"{peak_gb[label]:.2f} GB; card: {card.summary()}",
+              flush=True)
+    keys = ("x_tilde", "m_agg", "ps_w", "ps_nbr")
+
+    def same(a, b):
+        return (all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(a["params"]), tree_leaves(b["params"])))
+            and all(torch.equal(a["consensus"][k], b["consensus"][k])
+                    for k in keys))
+    if not same(finals["directed loss None"], finals["directed loss 0.0"]):
+        fail("faults: loss 0.0 differs from the lossless run")
+    base = finals["directed loss 0.2"]
+    for label in ("pipelined", "async s0", "per-leaf"):
+        if not same(base, finals[f"directed loss 0.2 {label}"]):
+            fail(f"faults: loss 0.2 {label} differs from packed")
+    if same(base, finals["directed loss None"]):
+        fail("faults: loss 0.2 gave the lossless run's bits")
+    print("[faults] loss 0.0 == lossless bitwise; at loss 0.2 packed == "
+          "pipelined (4 units) == async staleness 0 == per-leaf bitwise "
+          "(params, x_tilde, m_agg, ps_w, ps_nbr), and != lossless",
+          flush=True)
+    del finals, base
+
+    # (e) the strided 5-node ring, one resync retry
+    label = "strided loss 0.2, 1 retry"
+    model = faults.LossModel(0.2, LOSS_SEED)
+    with CardSampler() as card, ExchangeWatch(torch, Q, D, RESYNC_STEPS[0],
+                                              combine=True) as watch:
+        hist, launches, peak = run_counted(
+            torch, train, entries, stride_argv(
+                STRIDE_STEPS, "--link-loss", "0.2", "--loss-seed",
+                str(LOSS_SEED), "--resync-retries", "1"))
+    peak_gb[label] = max(peak, watch.peak_gb)
+    want = {name: STRIDE_STEPS * STRIDE_RUNS["packed"][1].get(name, 0)
+            for name in entries}
+    if launches != want or not all(math.isfinite(h["loss"]) for h in hist):
+        fail(f"faults {label}: launched {launches} (want {want})")
+    drops, fracs = fault_checks(label, watch, model, 1, payload,
+                                STRIDE_NODES, push=False)
+    resyncs = [r for r in watch.steps if r["resync"]]
+    oks = [r["resync_ok"] for r in resyncs]
+    if [r["step"] for r in resyncs] != list(RESYNC_STEPS) \
+            or not all(r["m_agg_ok"] for r in watch.steps) \
+            or all(all(o) for o in oks) or not any(any(o) for o in oks) \
+            or not watch.plain_equal:
+        fail(f"faults {label}: resyncs {oks} at "
+             f"{[r['step'] for r in resyncs]}, m_agg into the combine as "
+             f"designed {[r['m_agg_ok'] for r in watch.steps]}, plain "
+             f"equal {watch.plain_equal}")
+    for name, n in launches.items():
+        launches_total[name] += n
+    step_s[label] = statistics.median(h["step_s"] for h in hist[1:])
+    print(f"[faults] {label} ({STRIDE_NODES} nodes, strides 1,2, period "
+          f"{STRIDE_PERIOD}): resync handshakes landed per node {oks} at "
+          f"steps {RESYNC_STEPS}; each combine read the rebuilt m_agg where "
+          "it landed and the carried m_agg bitwise where it failed (and "
+          "the carried one at the other steps); step "
+          f"{RESYNC_STEPS[0]} through the plain versions bitwise equal; "
+          f"dropped payloads per step {drops}; delivered_frac {fracs}; "
+          f"median step {step_s[label]:.4f} s; peak memory "
+          f"{peak_gb[label]:.2f} GB; card: {card.summary()}", flush=True)
+
+    exchange_ms, exchange_gb = phase_fault_timing(torch, train)
+    for name, n in phase_paper_directed(torch, Q, entries).items():
+        launches_total[name] += n
+    return launches_total, step_s, exchange_ms, exchange_gb, peak_gb
+
+
+def phase_fault_timing(torch, train):
+    """One 4-node int8 exchange (fixed grid, step 2) of the full smollm-135m
+    state: symmetric and directed ring, each lossless and at loss 0.2, and
+    push-sum alone on the symmetric ring (its numerator product and
+    de-bias division without the directed correction), CUDA events, with
+    the peak memory over each set of calls."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
+    setup = train.build_train_setup(get_config("smollm-135m"),
+                                    consensus_nodes=NODES, device="cuda")
+    params = train.init_train_state(setup, 0)["params"]
+    x_half = T.tree_map(lambda a: a + 1e-4, params)
+    loss = dict(link_loss=0.2, loss_seed=LOSS_SEED)
+    ms, gb = {}, {}
+    for label, kw in (("symmetric", {}), ("symmetric loss 0.2", loss),
+                      ("directed", {"topology": "directed-ring"}),
+                      ("directed loss 0.2", {"topology": "directed-ring",
+                                             **loss}),
+                      ("symmetric push-sum", {"push_sum": True}),
+                      ("symmetric, again", {})):
+        rt = ConsensusRuntime(ConsensusConfig(**kw), NODES)
+        cons = rt.init_state(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with CardSampler() as card:
+            ms[label] = time_ms(lambda: rt.exchange(params, x_half, cons, 2),
+                                reps=5)
+        gb[label] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        drops = "" if rt.loss is None else (
+            f", {int((~rt.keep_mask(2)).sum())} of {2 * NODES} payloads "
+            "dropped")
+        print(f"[timing] one 4-node {label} exchange{drops}: {ms[label]:.2f} "
+              f"ms, {gb[label]:.2f} GB above the state at peak; card: "
+              f"{card.summary()}", flush=True)
+        del cons
+    del params, x_half, setup
+    torch.cuda.empty_cache()
+    return ms, gb
+
+
+def phase_paper_directed(torch, Q, entries):
+    """The paper's reference algorithms with push-sum at N 20, P 2^22
+    (``paper_circle_problem``'s data) on ``directed_erdos_renyi(20, 0.3,
+    seed=1)``: ADC-DGD int8 fixed, CHOCO int8 adaptive (its first message
+    is x itself) and CEDAS int8 fixed, and ADC-DGD under
+    ``DirectedErdosRenyiSchedule(20, 0.3, horizon=500, seed=0)``,
+    PAPER_STEPS steps each, counted; then ADC-DGD's kernel and plain
+    trajectories over TRAJECTORY_STEPS, bitwise equal."""
+    from repro_torch.core import compression as C
+    from repro_torch.core import consensus as K
+    from repro_torch.core import problems as P
+    from repro_torch.core import topology as T
+    prob = P.paper_circle_problem(PAPER_NODES, seed=0, dim=PAPER_DIM,
+                                  device="cuda")
+    mix = T.directed_erdos_renyi(PAPER_NODES, DIRECTED_P, seed=DIRECTED_SEED)
+    sched = T.DirectedErdosRenyiSchedule(PAPER_NODES, DIRECTED_P,
+                                         horizon=PAPER_STEPS,
+                                         seed=DIRECTED_SCHED_SEED)
+    step = K.StepSize(0.01, eta=0.5)
+    fixed = C.Int8BlockQuantizer(mode="fixed")
+    algs = {"adc_dgd int8 fixed, directed ER": K.ADCDGD(mix, fixed, step),
+            "choco int8 adaptive, directed ER": K.CHOCOGossip(
+                mix, C.Int8BlockQuantizer(mode="adaptive"), step),
+            "cedas int8 fixed, directed ER": K.CEDAS(mix, fixed, step),
+            "adc_dgd int8 fixed, directed ER schedule": K.ADCDGD(
+                sched, fixed, step)}
+    print(f"[paper] directed Erdős-Rényi (n {PAPER_NODES}, p {DIRECTED_P}, "
+          f"seed {DIRECTED_SEED}): {mix.n_messages} directed edges, rows "
+          f"summing to {mix.w.sum(axis=1).min():.3f}-"
+          f"{mix.w.sum(axis=1).max():.3f}; schedule seed "
+          f"{DIRECTED_SCHED_SEED}: {sched.n_messages:.1f} edges per step on "
+          "average", flush=True)
+    for entry in entries.values():
+        entry.launches = 0
+    for name, alg in algs.items():
+        r, st = paper_run(torch, K, alg, prob, PAPER_STEPS)
+        ps = r["ps_w_final"]
+        finite = all(np.isfinite(r[m]).all() for m in
+                     ("obj", "grad_norm", "consensus", "max_tx", "x_final"))
+        per_msg = alg.compressor.wire_bytes(PAPER_DIM)
+        msgs = (sched.messages_per_step(PAPER_STEPS) if alg.mixing is sched
+                else np.full(PAPER_STEPS, mix.n_messages))
+        if not finite or ps.shape != (PAPER_NODES, 1) or ps.min() <= 0 \
+                or abs(ps.sum() - PAPER_NODES) > 1e-3 * PAPER_NODES \
+                or not np.allclose(r["bytes"], np.cumsum(msgs * per_msg),
+                                   rtol=1e-12):
+            fail(f"{name}: finite {finite}, ps_w_final {ps.ravel()}, bytes "
+                 f"{r['bytes'][-1]}")
+        print(f"[paper] {name}, {PAPER_STEPS} steps: step "
+              f"{st['step_ms']:.4f} ms (CUDA events, median of steps "
+              f"{PAPER_STEP0}-{PAPER_STEPS}); final grad_norm "
+              f"{r['grad_norm'][-1]!r}, consensus {r['consensus'][-1]!r}; "
+              f"ps_w_final {float(ps.min())!r}-{float(ps.max())!r}, sum "
+              f"{float(ps.sum())!r}; {r['bytes'][-1]:.0f} bytes in all (one "
+              f"message per directed edge); peak memory "
+              f"{st['peak_gb']:.2f} GB", flush=True)
+    launches = {name: entry.launches for name, entry in entries.items()}
+    want = {name: 0 for name in entries}
+    want["quantize_blocks"] = len(algs) * PAPER_STEPS
+    if launches != want:
+        fail(f"paper path on directed graphs launched {launches}, want "
+             f"{want}")
+    for label in ("adc_dgd int8 fixed, directed ER",
+                  "adc_dgd int8 fixed, directed ER schedule"):
+        kern, _ = paper_run(torch, K, algs[label], prob, TRAJECTORY_STEPS,
+                            key=5)
+        real = Q.quantize_blocks
+        Q.quantize_blocks = Q.quantize_blocks_plain
+        try:
+            plain, _ = paper_run(torch, K, algs[label], prob,
+                                 TRAJECTORY_STEPS, key=5)
+        finally:
+            Q.quantize_blocks = real
+        for name in ("x_final", "ps_w_final", "obj", "grad_norm",
+                     "consensus", "max_tx", "bytes"):
+            if not np_equal(kern[name], plain[name]):
+                fail(f"{label} through kernel #3 and through its plain "
+                     f"version differ in {name}")
+        print(f"[paper] {label} through kernel #3 and through "
+              f"quantize_blocks_plain: bitwise equal trajectories over "
+              f"{TRAJECTORY_STEPS} steps (x_final, ps_w_final, metrics)")
+    del prob
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_perleaf(torch, train, entries):
@@ -1776,6 +2252,21 @@ def paper_schedules(T) -> dict:
                 PAPER_NODES, p=0.35, horizon=PAPER_STEPS, seed=11)}
 
 
+def paper_run(torch, K, alg, prob, n_steps, key=0):
+    """One ``consensus.run`` with its per-step CUDA events and peak
+    memory: (result, {step_ms, wall_s, peak_gb})."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = []
+    t0 = time.perf_counter()
+    r = K.run(alg, prob, n_steps, key=key, step_events=events)
+    wall = time.perf_counter() - t0
+    ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return r, {"step_ms": statistics.median(ms[PAPER_STEP0:]),
+               "wall_s": wall,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
 def phase_paper(torch, Q, entries):
     """The paper's reference algorithms (``repro_torch.core.consensus``)
     on ``paper_circle_problem(20, dim=2^22)`` over ``paper_circle(20)``:
@@ -1839,23 +2330,10 @@ def phase_paper(torch, Q, entries):
           f"{ms and b_ms / ms:.1%} of it)")
     del z, u, codes, scales, want, yr, ur
 
-    def paper_run(alg, n_steps, key=0, **kw):
-        """One ``run`` with its per-step CUDA events and peak memory."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        events = []
-        t0 = time.perf_counter()
-        r = K.run(alg, prob, n_steps, key=key, step_events=events, **kw)
-        wall = time.perf_counter() - t0
-        ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-        return r, {"step_ms": statistics.median(ms[PAPER_STEP0:]),
-                   "wall_s": wall,
-                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
-
     # identity ADC-DGD is DGD, bit for bit
-    ident, _ = paper_run(K.ADCDGD(mix, C.IdentityCompressor(), step),
-                         IDENTITY_STEPS)
-    dgd50, _ = paper_run(K.DGD(mix, step), IDENTITY_STEPS)
+    ident, _ = paper_run(torch, K, K.ADCDGD(mix, C.IdentityCompressor(),
+                                            step), prob, IDENTITY_STEPS)
+    dgd50, _ = paper_run(torch, K, K.DGD(mix, step), prob, IDENTITY_STEPS)
     for name in ("x_final", "obj", "grad_norm", "consensus"):
         if not np_equal(ident[name], dgd50[name]):
             fail(f"identity ADC-DGD differs from DGD in {name} after "
@@ -1892,7 +2370,7 @@ def phase_paper(torch, Q, entries):
                 storages.append(w.untyped_storage().data_ptr())
                 return real_step(state, problem, u, w)
             object.__setattr__(alg, "step", spy)
-        r, st = paper_run(alg, PAPER_STEPS)
+        r, st = paper_run(torch, K, alg, prob, PAPER_STEPS)
         results[name] = r
         stats[name] = st
         finite = all(np.isfinite(r[m]).all() for m in
@@ -1956,11 +2434,12 @@ def phase_paper(torch, Q, entries):
     for label in ["adc_dgd int8 adaptive"] + [
             f"adc_dgd int8 fixed, {sname}" for sname in paper_schedules(T)]:
         alg = algs[label]
-        kern, _ = paper_run(alg, TRAJECTORY_STEPS, key=5)
+        kern, _ = paper_run(torch, K, alg, prob, TRAJECTORY_STEPS, key=5)
         real = Q.quantize_blocks
         Q.quantize_blocks = Q.quantize_blocks_plain
         try:
-            plain, _ = paper_run(alg, TRAJECTORY_STEPS, key=5)
+            plain, _ = paper_run(torch, K, alg, prob, TRAJECTORY_STEPS,
+                                 key=5)
         finally:
             Q.quantize_blocks = real
         for name in ("x_final", "obj", "grad_norm", "consensus", "max_tx",
@@ -2208,6 +2687,10 @@ def main() -> None:
         phase_strides(torch, Q, D, train, entries)
     for name, n in stride_launches.items():
         launches[name] += n
+    (fault_launches, fault_step_s, fault_exchange_ms, fault_exchange_gb,
+     fault_peak_gb) = phase_faults(torch, Q, D, train, entries)
+    for name, n in fault_launches.items():
+        launches[name] += n
     serve_launches, _ = phase_serve(torch, serve, entries)
     launches["gqa_decode"] += serve_launches["gqa_decode"]
     phase_serve_profile(torch, G)
@@ -2241,6 +2724,18 @@ def main() -> None:
           + f"; the resync adds "
           f"{stride_exchange_ms['stride 2, resync'] - stride_exchange_ms['stride 2']:.2f}"
           f" ms; card {smi}")
+    for label in fault_step_s:
+        print(f"[summary] faults {label}: step {fault_step_s[label]:.4f} s, "
+              f"peak memory {fault_peak_gb[label]:.2f} GB, card {smi}")
+    sym, dirl = fault_exchange_ms["symmetric"], fault_exchange_ms["directed"]
+    print(f"[summary] 4-node int8 exchange: "
+          + ", ".join(f"{k} {v:.2f} ms ({fault_exchange_gb[k]:.2f} GB)"
+                      for k, v in fault_exchange_ms.items())
+          + f"; loss 0.2 adds "
+          f"{fault_exchange_ms['symmetric loss 0.2'] - sym:.2f} ms, the "
+          f"directed ring {dirl - sym:.2f} ms and "
+          f"{fault_exchange_gb['directed'] - fault_exchange_gb['symmetric']:.2f}"
+          f" GB of peak; card {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -119,8 +119,13 @@ class Int8Codec(WireCodec):
                                      out=out)
 
     def decode_payload(self, payload, block: int = kops.BLOCK):
-        codes, scales = kops.unpack_payload(payload, block)
-        return codes.to(torch.float32) * scales
+        if payload.shape[-1] != self.payload_width(block):
+            raise ValueError(f"payload width {payload.shape[-1]} != "
+                             f"{self.payload_width(block)}")
+        # the codes read where they lie (no contiguous copy); int8 times
+        # float32 widens them exactly, so each value is rounded once
+        scales = payload[:, block:].contiguous().view(torch.float32)
+        return payload[:, :block].view(torch.int8) * scales
 
     def decode_combine(self, payload_self, payload_left, payload_right,
                        x_tilde, m_agg, w_self, w_side, deamp,

@@ -1,6 +1,6 @@
 """Consensus algorithms: ADC-DGD (the paper's contribution) and baselines,
-over a static or time-varying undirected mixing; the single-level part of
-``repro.core.consensus``.
+over a static or time-varying mixing, directed ones included; the
+single-level part of ``repro.core.consensus``.
 
 Single-process reference implementations on stacked node states ``x`` of
 shape ``(N, P)``, float32 on the problem's device.  One node's row is one
@@ -38,8 +38,16 @@ copy its float32 ``(period, N, N)`` stack to the device once and hand
 step ``i`` the matrix ``stack[indices_for(n_steps)[i]]``; each step's
 bytes are billed for the messages of the matrix it used.
 ``on_wire_plan`` routes an algorithm's gossip through a wire plan
-(``core.wireplan.WirePlanCompressor``).  Directed (push-sum) mixing,
-elastic membership and hierarchy are not ported yet: they raise.
+(``core.wireplan.WirePlanCompressor``).
+
+Directed (column-stochastic) mixing: ``ADCDGD``, ``CEDAS`` and
+``CHOCOGossip`` then carry the push-sum weight ``ps_w`` ``(N, 1)`` in
+their state, mixed by the same matrix as ``x``, and take gradients at the
+de-biased ratio ``z = x / ps_w``; ``run`` reports metrics of ``z`` (the
+network mean ``sum(x) / sum(ps_w)``), the de-biased ``x_final`` and
+``ps_w_final``.  ``DGD``, ``DGDt`` and ``CompressedDGD`` mix a directed
+matrix as they mix any other.  Each directed edge carries one message.
+Elastic membership and hierarchy are not ported yet: they raise.
 """
 from __future__ import annotations
 
@@ -107,9 +115,6 @@ class _Algorithm:
         mixing = getattr(self, "mixing", None)
         if mixing is None:
             return
-        if getattr(mixing, "is_directed", False):
-            _not_ported("push-sum over a directed (column-stochastic) "
-                        "mixing matrix")
         if not isinstance(mixing, (MixingMatrix, TopologySchedule)):
             raise TypeError(f"mixing must be a MixingMatrix or a "
                             f"TopologySchedule, got {type(mixing).__name__}")
@@ -119,6 +124,26 @@ class _Algorithm:
 
     def step(self, state, problem: ConsensusProblem, u=None, w=None):
         raise NotImplementedError
+
+    @property
+    def push_sum(self) -> bool:
+        """True when ``mixing`` is directed: the algorithm then threads the
+        push-sum weight ``ps_w`` through its state and takes gradients at
+        ``z = x / ps_w``."""
+        return bool(getattr(getattr(self, "mixing", None), "is_directed",
+                            False))
+
+    def _debias(self, state) -> torch.Tensor:
+        """The de-biased iterate ``x / ps_w`` (``x`` without push-sum)."""
+        ps = state.get("ps_w")
+        return state["x"] if ps is None else state["x"] / ps
+
+    def _ps_init(self, st: dict, x0: torch.Tensor) -> dict:
+        """Add the push-sum weight ``w_0 = 1`` to a fresh state."""
+        if self.push_sum:
+            st["ps_w"] = torch.ones((self.mixing.n, 1), dtype=torch.float32,
+                                    device=x0.device)
+        return st
 
     def uniform_shape(self, problem: ConsensusProblem):
         """Shape of one step's uniforms (None: the step draws none)."""
@@ -202,7 +227,7 @@ class ADCDGD(_Algorithm):
         # paper init, generalized: all nodes start at the shared x0, take
         # the first gradient step; xt stays at x0
         x1 = x0 - self.stepsize(1.0) * problem.grad_fn(x0)
-        return {"x": x1, "x_tilde": x0, "k": 1}
+        return self._ps_init({"x": x1, "x_tilde": x0, "k": 1}, x0)
 
     def step(self, state, problem, u=None, w=None):
         x = state["x"]
@@ -218,9 +243,12 @@ class ADCDGD(_Algorithm):
             x_tilde = state["x_tilde"] + d / _scalar(kg, d)
             max_tx = _max_abs(d)                              # paper Fig. 8
         alpha = self.stepsize(k)
-        x_next = w @ x_tilde - alpha * problem.grad_fn(x)
-        return ({"x": x_next, "x_tilde": x_tilde, "k": state["k"] + 1},
-                {"max_transmitted": max_tx, "alpha": alpha})
+        x_next = w @ x_tilde - alpha * problem.grad_fn(self._debias(state))
+        new_state = {"x": x_next, "x_tilde": x_tilde, "k": state["k"] + 1}
+        if "ps_w" in state:
+            # subgradient-push: the weight follows the numerator's mixing
+            new_state["ps_w"] = w @ state["ps_w"]
+        return new_state, {"max_transmitted": max_tx, "alpha": alpha}
 
     def bytes_per_iteration(self, problem):
         return self._compressed_broadcast_bytes(problem)
@@ -282,14 +310,18 @@ class CEDAS(_Algorithm):
         kg_prev = power(max(f32(1.0), f32(k - f32(1.0))), self.gamma)
         h = state["x_tilde"] + state["d_fly"] / _scalar(kg_prev, x)
         alpha = self.stepsize(k)
-        x_next = (x - alpha * problem.grad_fn(x)
+        x_next = (x - alpha * problem.grad_fn(self._debias(state))
                   + self.mix_step * (w @ h - h))
         # LAUNCH the post-update differential against the drained shadow
         kg = power(k, self.gamma)
         d = self.compressor.apply(float(kg) * (x_next - h), u)
-        return ({"x": x_next, "x_tilde": h, "d_fly": d,
-                 "k": state["k"] + 1},
-                {"max_transmitted": _max_abs(d), "alpha": alpha})
+        new_state = {"x": x_next, "x_tilde": h, "d_fly": d,
+                     "k": state["k"] + 1}
+        if "ps_w" in state:
+            # mass-conserving damped diffusion of the push-sum weight
+            ps = state["ps_w"]
+            new_state["ps_w"] = ps + self.mix_step * (w @ ps - ps)
+        return new_state, {"max_transmitted": _max_abs(d), "alpha": alpha}
 
     def bytes_per_iteration(self, problem):
         return self._compressed_broadcast_bytes(problem)
@@ -422,19 +454,25 @@ class CHOCOGossip(_Algorithm):
         x0 = _start(problem, n, x0)
         x1 = x0 - self.stepsize(1.0) * problem.grad_fn(x0)
         # xh_0 = 0; the first q transmits C(x_1)
-        return {"x": x1, "x_hat": torch.zeros_like(x0), "k": 1}
+        return self._ps_init({"x": x1, "x_hat": torch.zeros_like(x0),
+                              "k": 1}, x0)
 
     def step(self, state, problem, u=None, w=None):
         x = state["x"]
         w = self._w(x.device, w)
         alpha = self.stepsize(f32(state["k"]))
-        x_half = x - alpha * problem.grad_fn(x)
+        x_half = x - alpha * problem.grad_fn(self._debias(state))
         q = self.compressor.apply(x_half - state["x_hat"], u)
         x_hat = state["x_hat"] + q
-        # sum_j W_ij (xh_j - xh_i) = (W - I) xh  since rows of W sum to 1
+        # sum_j W_ij (xh_j - xh_i) = (W - I) xh  since rows of W sum to 1;
+        # on a directed W the same damped gossip of the numerator and the
+        # push-sum weight preserves both sums (columns sum to 1)
         x_next = x_half + self.consensus_lr * (w @ x_hat - x_hat)
-        return ({"x": x_next, "x_hat": x_hat, "k": state["k"] + 1},
-                {"max_transmitted": _max_abs(q), "alpha": alpha})
+        new_state = {"x": x_next, "x_hat": x_hat, "k": state["k"] + 1}
+        if "ps_w" in state:
+            ps = state["ps_w"]
+            new_state["ps_w"] = ps + self.consensus_lr * (w @ ps - ps)
+        return new_state, {"max_transmitted": _max_abs(q), "alpha": alpha}
 
     def bytes_per_iteration(self, problem):
         return self._compressed_broadcast_bytes(problem)
@@ -471,13 +509,19 @@ class CentralizedGD(_Algorithm):
 # ---------------------------------------------------------------------------
 
 def _metrics(state, problem) -> dict[str, torch.Tensor]:
-    """The paper's per-step metrics, as 0-dim tensors on the device."""
+    """The paper's per-step metrics, as 0-dim tensors on the device.  With
+    push-sum they are taken at the de-biased ``z = x / ps_w``, whose
+    network mean is the mass ratio ``sum(x) / sum(ps_w)``."""
     x = state["x"]
-    x_bar = x.mean(dim=0)
+    ps = state.get("ps_w")
+    if ps is None:
+        z, x_bar = x, x.mean(dim=0)
+    else:
+        z, x_bar = x / ps, x.sum(dim=0) / ps.sum()
     return {"obj": problem.global_obj(x_bar),
             "grad_norm": torch.linalg.vector_norm(problem.global_grad(x_bar))
             * float(recip(problem.n_nodes)),
-            "consensus": problem.consensus_error(x)}
+            "consensus": problem.consensus_error(z)}
 
 
 def _generator(problem, seed: int) -> torch.Generator:
@@ -598,7 +642,8 @@ def run(
       alpha      — the step size of each step
       bytes      — cumulative wire bytes              (paper Fig. 6), each
                    step billed for the messages of its W^(k)
-      x_final    — final stacked iterate (N, P)
+      x_final    — final stacked iterate (N, P), de-biased under push-sum
+      ps_w_final — the final push-sum weights (N, 1), under push-sum only
     """
     state, traj = _trajectory(algorithm, problem, n_steps,
                               _drawer(algorithm, problem, key, uniforms), x0,
@@ -607,7 +652,11 @@ def run(
     result = {name: (v.cpu().numpy() if torch.is_tensor(v) else v)[sl]
               for name, v in traj.items()}
     result["bytes"] = _cumulative_bytes(algorithm, problem, n_steps)[sl]
-    result["x_final"] = state["x"].cpu().numpy()
+    ps = state.get("ps_w")
+    result["x_final"] = (state["x"] if ps is None
+                         else state["x"] / ps).cpu().numpy()
+    if ps is not None:
+        result["ps_w_final"] = ps.cpu().numpy()
     return result
 
 

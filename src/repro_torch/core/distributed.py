@@ -53,8 +53,31 @@ on the first step of every epoch but the first (the resync) ``adc_dgd``
 rebuilds it exactly from the new neighbours' fp32 ``x_tilde`` before the
 combine consumes it; the wire accounting amortizes that exchange.
 
-The reference's faults, push-sum, directed weights, membership and
-hierarchy are not ported: no config field turns them on.
+Faults (``link_loss`` / ``link_loss_model``, ``straggle_rate``,
+``resync_retries``; ``core.faults``): one host keep mask ``(2, N)`` per
+step says which payloads arrive (row 0 from upstream i - s, row 1 from
+downstream i + s; async keys it by the launch step k - 1 and ANDs the
+straggler deadlines).  A dropped payload is read as the all-zero payload
+of its size (one zero buffer per transfer unit, never a write into the
+sender's buffer), which every codec decodes to a zero differential: the
+receiver keeps its stale estimate.  A resync whose bounded-retry
+handshake fails in either direction keeps the node's stale ``m_agg``.
+``link_loss=None`` runs none of this; ``0.0`` runs it and gives the same
+bits.
+
+Directed ring (``topology="directed-ring"``): in-weights ``(w_fwd,
+w_bwd)`` from upstream and downstream.  The symmetric kernels mix both
+sides at ``side = (w_fwd + w_bwd) / 2``; the correction ``t = f32(w_fwd -
+side) * (d_l - d_r)`` of the two decoded arrivals (plain PyTorch, per node
+and in row blocks) is added to ``m_agg`` and the combine.  Push-sum: the
+state carries ``ps_w`` ``(N, 1)`` and the last-seen neighbour weights
+``ps_nbr`` ``(N, 2)``; the wire carries ``x_half * ps_w`` and ``ps_w`` as a
+4-byte trailer on the last transfer unit's payload; ``ps_w' = ps_w +
+(w_fwd (w_l - ps_w) + w_bwd (w_r - ps_w))`` (exact, so 1 stays 1 on the
+homogeneous ring) and the combine is de-biased by ``ps_w'``.  A dropped
+or failed-resync weight is the stale ``ps_nbr``.
+
+Membership and hierarchy are not ported: their config fields raise.
 """
 from __future__ import annotations
 
@@ -67,6 +90,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import codec as wire_codec
+from repro_torch.core import faults
 from repro_torch.core import tree as T
 from repro_torch.core import wire, wireplan
 from repro_torch.core.f32 import over_power, recip
@@ -76,6 +100,10 @@ __all__ = ["ConsensusConfig", "ConsensusRuntime", "noise_seed"]
 
 ALGORITHMS = ("adc_dgd", "dgd", "compressed_dgd", "allreduce", "none")
 WIRE_PACKINGS = ("packed", "pipelined", "per_leaf", "async")
+TOPOLOGIES = ("ring", "directed-ring")
+#: rows of the directed correction's plain decode per launch: bounds its
+#: temporaries to a few tens of MB whatever the payload
+_DECODE_ROWS = 16384
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,8 +124,36 @@ class ConsensusConfig:
     #: held ``schedule_period`` steps; (1,) is the paper's static ring
     ring_strides: tuple[int, ...] = (1,)
     schedule_period: int = 1       # steps between ring re-wirings
+    wire_dtype: torch.dtype = torch.float32   # the dgd baseline's wire
+    #: "ring" (symmetric) or "directed-ring" (column-stochastic in-weights
+    #: forward_weight from upstream, 1 - self_weight - forward_weight from
+    #: downstream; push-sum)
+    topology: str = "ring"
+    forward_weight: float | None = None   # None: 2 (1 - self_weight) / 3
+    #: Bernoulli loss rate per directed edge; None runs no loss machinery,
+    #: 0.0 runs it and drops nothing
+    link_loss: float | None = None
+    loss_seed: int = 0
+    #: "bernoulli" (rate from link_loss) or "gilbert:p=..,r=..[,h=..][,g=..]"
+    link_loss_model: str = "bernoulli"
+    resync_retries: int = 3        # bounded retransmits of a lossy resync
+    straggle_rate: float | None = None    # async deadline-miss rate
+    straggle_seed: int = 0
+    #: None: on iff the topology is directed; True forces the weight
+    #: machinery on the symmetric ring (where the weight stays 1)
+    push_sum: bool | None = None
+    membership: tuple | None = None       # not yet ported
+    hierarchy: Any = None                 # not yet ported
 
     def __post_init__(self):
+        if self.membership is not None:
+            raise NotImplementedError(
+                "ConsensusConfig.membership (elastic membership) is not yet "
+                "ported")
+        if self.hierarchy is not None:
+            raise NotImplementedError(
+                "ConsensusConfig.hierarchy (two-level consensus) is not yet "
+                "ported")
         if not self.ring_strides:
             raise ValueError("ring_strides must be non-empty")
         if self.schedule_period < 1:
@@ -142,10 +198,106 @@ class ConsensusConfig:
         if self.byte_budget is not None and self.byte_budget <= 0:
             raise ValueError(f"byte_budget must be positive, got "
                              f"{self.byte_budget}")
+        if self.topology not in TOPOLOGIES:
+            raise ValueError(f"topology must be 'ring' or 'directed-ring', "
+                             f"got {self.topology!r}")
+        directed = self.topology == "directed-ring"
+        if directed and self.push_sum is False:
+            raise ValueError(
+                "directed-ring mixing is column-stochastic only; disabling "
+                "push_sum would leave the iterates biased — drop "
+                "push_sum=False or use topology='ring'")
+        if self.forward_weight is not None:
+            if not directed:
+                raise ValueError("forward_weight only applies to the "
+                                 "directed-ring topology")
+            if not 0.0 < self.forward_weight < 1.0 - self.self_weight:
+                raise ValueError(
+                    f"forward_weight must be in (0, 1 - self_weight) = "
+                    f"(0, {1.0 - self.self_weight}), got "
+                    f"{self.forward_weight}")
+        if self.link_loss is not None and not 0.0 <= self.link_loss < 1.0:
+            raise ValueError(f"link_loss must be in [0, 1), got "
+                             f"{self.link_loss}")
+        loss_spec = faults.parse_loss_spec(self.link_loss_model)  # raises
+        if loss_spec["kind"] != "bernoulli" and self.link_loss is not None:
+            raise ValueError(
+                "link_loss sets the Bernoulli rate; the gilbert burst "
+                "model takes its parameters in link_loss_model — set one "
+                "or the other, not both")
+        if self.resync_retries < 1:
+            raise ValueError(f"resync_retries must be >= 1, got "
+                             f"{self.resync_retries}")
+        if self.straggle_rate is not None:
+            if not 0.0 <= self.straggle_rate < 1.0:
+                raise ValueError(f"straggle_rate must be in [0, 1), got "
+                                 f"{self.straggle_rate}")
+            if self.wire_packing != "async" or self.staleness != 1:
+                raise ValueError(
+                    "straggler deadlines are a property of the one-step-"
+                    "stale transport: straggle_rate requires "
+                    "wire_packing='async' with staleness=1")
+        if ((directed or self.push_sum or self.link_loss is not None
+             or loss_spec["kind"] != "bernoulli"
+             or self.straggle_rate is not None)
+                and self.algorithm != "adc_dgd"):
+            raise ValueError(
+                "directed topology, push_sum, link loss, straggler "
+                "deadlines and membership are features of the adc_dgd "
+                f"wire; algorithm={self.algorithm!r} does not support them")
 
     @property
     def side_weight(self) -> float:
         return (1.0 - self.self_weight) / 2.0
+
+    @property
+    def in_weights(self) -> tuple[float, float]:
+        """(upstream, downstream) receive weights: ``side_weight`` twice on
+        the symmetric ring, (forward, backward) on the directed one."""
+        if self.topology == "directed-ring":
+            fwd = (2.0 * (1.0 - self.self_weight) / 3.0
+                   if self.forward_weight is None else self.forward_weight)
+            return (fwd, (1.0 - self.self_weight) - fwd)
+        return (self.side_weight, self.side_weight)
+
+    @property
+    def push_sum_enabled(self) -> bool:
+        if self.push_sum is not None:
+            return self.push_sum
+        return self.topology == "directed-ring"
+
+    @property
+    def loss_enabled(self) -> bool:
+        """Any link-loss machinery (Bernoulli or burst)?"""
+        return (self.link_loss is not None
+                or faults.parse_loss_spec(self.link_loss_model)["kind"]
+                != "bernoulli")
+
+    @property
+    def faults_enabled(self) -> bool:
+        """Anything that can drop a payload (loss or straggler deadlines):
+        the gate of the delivered-bytes metrics."""
+        return self.loss_enabled or self.straggle_rate is not None
+
+    def loss_model_for(self, n_nodes: int):
+        """The configured loss model bound to ``n_nodes`` ring elements
+        (the Gilbert-Elliott model realizes one chain per directed edge),
+        or None."""
+        spec = faults.parse_loss_spec(self.link_loss_model)
+        if spec["kind"] == "gilbert":
+            return faults.GilbertElliottLoss(
+                p=spec["p"], r=spec["r"], h=spec["h"], g=spec["g"],
+                seed=self.loss_seed, n_nodes=n_nodes)
+        if self.link_loss is None:
+            return None
+        return faults.LossModel(rate=self.link_loss, seed=self.loss_seed)
+
+    @property
+    def straggler_model(self):
+        if self.straggle_rate is None:
+            return None
+        return faults.StragglerModel(rate=self.straggle_rate,
+                                     seed=self.straggle_seed)
 
     @property
     def schedule_varying(self) -> bool:
@@ -235,6 +387,13 @@ class ConsensusRuntime:
         self.plan_spec = wireplan.parse_spec(config.wire_codec)
         self.layout_spec = layout_spec or self.plan_spec
         self._plan_cache: dict = {}
+        #: the loss model bound to the node count, and the async
+        #: transport's straggler model (None: not configured)
+        self.loss = config.loss_model_for(n_nodes)
+        self.straggler = config.straggler_model
+        #: payloads read as the zero payload so far (one per dropped
+        #: arrival per transfer unit): what the exchange really did
+        self.zero_payloads = 0
 
     @property
     def wire_name(self) -> str:
@@ -269,51 +428,72 @@ class ConsensusRuntime:
         return self.wire_plan_for(layout).noise_cols(layout.block)
 
     def init_state(self, params: Any) -> dict:
-        """Packed consensus shadows ``(N, n_rows, BLOCK)`` for ``adc_dgd``,
-        and on the async transport the three ``(N, payload_bytes)`` uint8
-        in-flight payloads (zero bytes: the step-1 retire is a no-op).
+        """Packed consensus shadows ``(N, n_rows, BLOCK)`` for ``adc_dgd``;
+        with push-sum the weights ``ps_w`` ``(N, 1)`` and ``ps_nbr`` ``(N,
+        2)`` (all 1); on the async transport the three ``(N, bytes)``
+        uint8 in-flight payloads: zero bytes (the step-1 retire is a
+        no-op), and with push-sum a trailer holding the weight 1.
 
         All nodes start from the same x0, so every neighbour estimate is x0
         and the incremental aggregate m_0 = sum_{j != i} W_ij x0 =
         (1 - W_ii) x0."""
         if self.cfg.algorithm != "adc_dgd":
             return {}
+        n = self.n_nodes
         layout = self.state_layout(params)
         x_tilde = layout.pack(params)
+        dev = x_tilde.device
         st = {"x_tilde": x_tilde,
               "m_agg": (1.0 - self.cfg.self_weight) * x_tilde}
+        push = self.cfg.push_sum_enabled
+        if push:
+            st["ps_w"] = torch.ones((n, 1), dtype=torch.float32, device=dev)
+            st["ps_nbr"] = torch.ones((n, 2), dtype=torch.float32,
+                                      device=dev)
         if self.cfg.wire_packing == "async":
             nbytes = self.wire_plan_for(layout).payload_bytes
+            trailer = st["ps_w"].view(torch.uint8) if push else None
             for key in wire.INFLIGHT_KEYS:
-                st[key] = wire.inflight_init(self.n_nodes, nbytes,
-                                             x_tilde.device)
+                st[key] = wire.inflight_init(n, nbytes, dev, trailer)
         return st
 
     # -- static accounting -------------------------------------------------
+    def _payload_rows(self, layout: wire.WireLayout) -> tuple[int, int]:
+        """(payload bytes of one direction without the trailer, rows of the
+        resync's fp32 x_tilde) of the compressed wire."""
+        if self.cfg.wire_packing == "per_leaf":
+            rows = sum(kops.padded_block_rows(s.size) for s in layout.slots)
+            return rows * kops.payload_width(), rows
+        return self.wire_plan_for(layout).payload_bytes, layout.n_rows
+
+    def bytes_per_direction(self, layout: wire.WireLayout) -> int:
+        """Bytes one ring direction carries per step on the compressed
+        wire: the payload and, with push-sum, the weight's trailer."""
+        push = (self.cfg.algorithm == "adc_dgd"
+                and self.cfg.push_sum_enabled)
+        return (self._payload_rows(layout)[0]
+                + (wireplan.PUSH_SUM_TRAILER_BYTES if push else 0))
+
     def wire_bytes_per_step(self, n_params_local: int,
                             layout: wire.WireLayout) -> float:
         """Bytes one node puts on the ring per step (both directions): the
-        plan's flat payload.  The per-leaf transport ships each leaf padded
-        to its own TILE_N-aligned height, so more rows than the packed
-        payload of the same tree.  A time-varying ring adds the epoch
-        resync of ``adc_dgd``, one fp32 ``x_tilde`` per ring direction per
-        re-wiring, amortized over ``schedule_period`` steps."""
+        plan's flat payload and the push-sum trailer.  The per-leaf
+        transport ships each leaf padded to its own TILE_N-aligned height,
+        so more rows than the packed payload of the same tree.  A
+        time-varying ring adds the epoch resync of ``adc_dgd``, one fp32
+        ``x_tilde`` per ring direction per re-wiring, amortized over
+        ``schedule_period`` steps.  ``dgd`` ships ``wire_dtype``."""
         cfg = self.cfg
         alg = cfg.algorithm
         if alg in ("adc_dgd", "compressed_dgd"):
-            if cfg.wire_packing == "per_leaf":
-                rows = sum(kops.padded_block_rows(s.size)
-                           for s in layout.slots)
-                payload = rows * kops.payload_width()
-            else:
-                rows = layout.n_rows
-                payload = self.wire_plan_for(layout).payload_bytes
+            rows = self._payload_rows(layout)[1]
             resync = 0.0
             if alg == "adc_dgd" and cfg.schedule_varying:
                 resync = 2.0 * rows * kops.BLOCK * 4 / cfg.schedule_period
-            return 2.0 * payload + resync
+            return float(2 * self.bytes_per_direction(layout)) + resync
         if alg == "dgd":
-            return 2.0 * n_params_local * 4
+            itemsize = torch.empty((), dtype=cfg.wire_dtype).element_size()
+            return float(2 * n_params_local * itemsize)
         return 0.0
 
     def _chunks_for(self, layout: wire.WireLayout) -> wire.ChunkedLayout:
@@ -355,9 +535,13 @@ class ConsensusRuntime:
         else:
             chunks = 1.0
         if alg == "adc_dgd":
+            # the push-sum weight rides the payload's trailer, but is its
+            # own scalar transfer per direction in the resync and on every
+            # per-leaf step
+            ps = 2.0 if cfg.push_sum_enabled else 0.0
             if cfg.wire_packing == "per_leaf":
-                return 4.0 * n_leaves + 2.0 * n_leaves * resync
-            return 2.0 * chunks + 2.0 * chunks * resync
+                return 4.0 * n_leaves + ps + 2.0 * n_leaves * resync
+            return 2.0 * chunks + (2.0 * chunks + ps) * resync
         if alg == "compressed_dgd":
             return (4.0 * n_leaves if cfg.wire_packing == "per_leaf"
                     else 2.0 * chunks)
@@ -383,14 +567,138 @@ class ConsensusRuntime:
         """The epoch resync: each node's exact ``m_agg = side * (x_tilde[i -
         s] + x_tilde[i + s])`` from its new ring neighbours' fp32 shadows
         ``xt`` ``(N, rows, BLOCK)`` (added, then scaled, as the reference
-        does), into ``out`` when given."""
+        does), into ``out`` when given.  On the directed ring it is
+        ``f32(w_fwd) x_tilde[i - s] + f32(w_bwd) x_tilde[i + s]``."""
         n = self.n_nodes
         out = torch.empty_like(xt) if out is None else out
+        w_fwd, w_bwd = self.cfg.in_weights
         for i in range(n):
-            torch.add(xt[_left(i, n, stride)], xt[_right(i, n, stride)],
-                      out=out[i])
-            out[i].mul_(self.cfg.side_weight)
+            left, right = xt[_left(i, n, stride)], xt[_right(i, n, stride)]
+            if w_fwd != w_bwd:
+                torch.mul(left, _f32(w_fwd), out=out[i])
+                out[i].add_(right * _f32(w_bwd))
+            else:
+                torch.add(left, right, out=out[i])
+                out[i].mul_(self.cfg.side_weight)
         return out
+
+    def _keep_stale(self, built: torch.Tensor, stale: torch.Tensor,
+                    ok: np.ndarray | None) -> None:
+        """A resync whose handshake failed at node i keeps its stale
+        aggregate: ``built[i] = stale[i]`` where ``ok[i]`` is False."""
+        if ok is None:
+            return
+        for i in np.flatnonzero(~ok):
+            built[i].copy_(stale[i])
+
+    # -- faults ----------------------------------------------------------
+    def keep_mask(self, step: int) -> np.ndarray | None:
+        """``(2, N)`` host keep mask of the payloads launched at ``step``
+        (row 0 from upstream, row 1 from downstream), or None without a
+        loss model."""
+        if self.loss is None:
+            return None
+        return self.loss.keep_flags(step, self.n_nodes)
+
+    def deadline_mask(self, launch_step: int) -> np.ndarray | None:
+        """``(2, N)`` straggler deadline flags of the async payloads
+        launched at ``launch_step``, or None without a straggler model."""
+        if self.straggler is None:
+            return None
+        return self.straggler.keep_flags(launch_step, self.n_nodes)
+
+    def resync_ok(self, step: int) -> np.ndarray | None:
+        """``(N,)`` success of ``step``'s resync handshake (both directions
+        landed within ``resync_retries``), or None when resyncs cannot fail
+        (no loss model, or no resync at ``step``)."""
+        if self.loss is None or not self.resync_at(step):
+            return None
+        ok = self.loss.resync_keep_flags(step, self.n_nodes,
+                                         self.cfg.resync_retries)
+        return ok[0] & ok[1]
+
+    def _arrivals(self, pays: list, stride: int,
+                  keep: np.ndarray | None) -> tuple[list, list]:
+        """Each node's (left, right) arrivals of one transfer unit: the
+        neighbours' payloads, or one shared all-zero payload of their size
+        where ``keep`` drops them (the senders' buffers are never
+        written)."""
+        n = self.n_nodes
+        return self._drop([pays[_left(i, n, stride)] for i in range(n)],
+                          [pays[_right(i, n, stride)] for i in range(n)],
+                          keep)
+
+    def _drop(self, left: list, right: list,
+              keep: np.ndarray | None) -> tuple[list, list]:
+        """Replace the arrivals ``keep`` ``(2, N)`` drops by one shared
+        zero payload of their shape (a tensor, or a tuple of them)."""
+        if keep is None or keep.all():
+            return left, right
+        first = left[0]
+        zero = (tuple(torch.zeros_like(t) for t in first)
+                if isinstance(first, tuple) else torch.zeros_like(first))
+        for side, row in ((left, keep[0]), (right, keep[1])):
+            for i in np.flatnonzero(~row):
+                side[i] = zero
+        self.zero_payloads += int((~keep).sum())
+        return left, right
+
+    def _fault_metrics(self, metrics: dict, layout, flags, device) -> None:
+        """``wire_bytes_delivered`` (bytes per direction times surviving
+        directions) and ``delivered_frac`` per node, from the ``(2, N)``
+        arrival flags."""
+        delivered = _node_values(flags.sum(axis=0), device)
+        metrics["wire_bytes_delivered"] = (
+            delivered * float(self.bytes_per_direction(layout)))
+        metrics["delivered_frac"] = delivered / 2.0
+
+    def _neighbour_rows(self, t: torch.Tensor, stride: int):
+        """(rows i - s, rows i + s) of a small per-node tensor ``t``,
+        stacked (no index tensor is copied to the device)."""
+        n = self.n_nodes
+        return (_rows(t, [_left(i, n, stride) for i in range(n)]),
+                _rows(t, [_right(i, n, stride) for i in range(n)]))
+
+    def _push_sum_update(self, ps_w, w_l, w_r, state, keep, resync, ok,
+                         stride):
+        """The push-sum weight step from the received weights ``w_l``,
+        ``w_r`` ``(N, 1)``: dropped arrivals fall back to the last-seen
+        ``ps_nbr``; a resync refreshes both from the new neighbours unless
+        the node's handshake failed.  Returns (ps_new, ps_nbr_new)."""
+        n = self.n_nodes
+        nbr = state["ps_nbr"]
+        if keep is not None:
+            w_l = _pick(keep[0], w_l, nbr[:, 0:1])
+            w_r = _pick(keep[1], w_r, nbr[:, 1:2])
+        if resync:
+            fresh_l, fresh_r = self._neighbour_rows(ps_w, stride)
+            if ok is None:
+                w_l, w_r = fresh_l, fresh_r
+            else:
+                w_l, w_r = _pick(ok, fresh_l, w_l), _pick(ok, fresh_r, w_r)
+        w_fwd, w_bwd = self.cfg.in_weights
+        # == self w + fwd w_l + bwd w_r, but exact when all weights agree:
+        # on the homogeneous ring the weight stays 1 bit for bit
+        ps_new = ps_w + ((w_l - ps_w) * _f32(w_fwd)
+                         + (w_r - ps_w) * _f32(w_bwd))
+        return ps_new, torch.cat([w_l, w_r], dim=1)
+
+    def _directed_fix(self, codec_name: str, pay_l, pay_r, outs, i: int,
+                      rows: slice) -> None:
+        """The directed ring's correction of node i's fragment: ``t =
+        f32(w_fwd - side) * (d_l - d_r)`` of the two decoded arrivals,
+        added to its ``m_agg`` and combine rows ``outs[1][i, rows]``,
+        ``outs[2][i, rows]``; in blocks of ``_DECODE_ROWS`` rows."""
+        cd = wire_codec.by_name(codec_name)
+        c = _f32(self.cfg.in_weights[0] - self.cfg.side_weight)
+        n_rows = pay_l.shape[0]
+        for r0 in range(0, n_rows, _DECODE_ROWS):
+            r1 = min(r0 + _DECODE_ROWS, n_rows)
+            t = cd.decode_payload(pay_l[r0:r1])
+            t.sub_(cd.decode_payload(pay_r[r0:r1])).mul_(c)
+            dst = slice(rows.start + r0, rows.start + r1)
+            outs[1][i, dst].add_(t)
+            outs[2][i, dst].add_(t)
 
     def _step_k(self, step: int) -> float | None:
         """Fixed mode: the grid step Delta_0 / k^gamma, in float32, as the
@@ -468,21 +776,36 @@ class ConsensusRuntime:
         return self._encode_unit(plan, plan.transfer_units(None)[0], y,
                                  noise, self._step_k(step))
 
-    def _encode_unit(self, plan, unit, y, noise, step_k, out=None) -> list:
+    def _encode_unit(self, plan, unit, y, noise, step_k, out=None,
+                     trailer=None) -> list:
         """Each node's flat uint8 payload of transfer unit ``unit`` (into
         ``out[i]`` when ``out`` is given): one encode launch per node and
-        codec run."""
-        return [plan.encode_unit(unit, y[i], noise[i], step_k,
-                                 None if out is None else out[i])
-                for i in range(self.n_nodes)]
+        codec run.  ``trailer`` ``(N, 4)`` uint8 (the push-sum weight's
+        bytes) is appended to each payload; ``out`` rows then hold it in
+        their last 4 bytes."""
+        n = self.n_nodes
+        nb = plan.unit_bytes(unit)
+        if trailer is not None and out is None:
+            out = torch.empty((n, nb + wireplan.PUSH_SUM_TRAILER_BYTES),
+                              dtype=torch.uint8, device=y.device)
+        if out is None:
+            return [plan.encode_unit(unit, y[i], noise[i], step_k)
+                    for i in range(n)]
+        if trailer is not None:
+            out[:, nb:].copy_(trailer)
+        for i in range(n):
+            plan.encode_unit(unit, y[i], noise[i], step_k, out[i, :nb])
+        return [out[i] for i in range(n)]
 
     def _retire(self, plan, unit, own, left, right, xt, mb, outs) -> None:
         """Fused decode + shadow update + ring combine of one transfer unit
         for every node, one launch per node and codec run, into the row
         slices of ``outs`` = (x_tilde', m_agg', combined).  ``own[i]``,
         ``left[i]`` and ``right[i]`` are node i's flat payload and its two
-        arrivals, each starting at the unit's first byte."""
+        arrivals, each starting at the unit's first byte.  On the directed
+        ring each fragment then gets its correction (``_directed_fix``)."""
         cfg = self.cfg
+        w_fwd, w_bwd = cfg.in_weights
         for i in range(self.n_nodes):
             for f in plan.unit_runs(unit):
                 views = [plan.fragment_payload(p[i], f, unit.byte_start)
@@ -491,6 +814,9 @@ class ConsensusRuntime:
                     *views, xt[i], mb[i], cfg.self_weight, cfg.side_weight,
                     1.0, row_offset=f.row_start, n_rows=f.n_rows,
                     out=[o[i, f.row_start:f.row_end] for o in outs])
+                if w_fwd != w_bwd:
+                    self._directed_fix(f.codec, views[1], views[2], outs, i,
+                                       slice(f.row_start, f.row_end))
 
     def _census(self, plan, unit, y, step_k, pays, clipped) -> None:
         """Add each node's grid-saturation count of unit ``unit`` to
@@ -511,6 +837,14 @@ class ConsensusRuntime:
         return x_next, {"overflow_frac": clipped * inv_codes,
                         "residual_norm": residual}
 
+    def _numerator(self, x_half, state, layout) -> torch.Tensor:
+        """The packed ``x_half``, times ``ps_w`` with push-sum (the wire
+        carries the numerator ``w x``; at ``w == 1`` an identity)."""
+        y = layout.pack(x_half)
+        if self.cfg.push_sum_enabled:
+            y.mul_(state["ps_w"].view(-1, 1, 1))
+        return y
+
     def _adc_exchange(self, x_prev, x_half, state, step, seed, noise,
                       layout, stride):
         """Packed / pipelined exchange over the runtime's WirePlan: one
@@ -518,33 +852,43 @@ class ConsensusRuntime:
         single-run units taken in the reference's schedule.  Every codec is
         row-local, so every chunking gives the packed exchange's bits.  At
         a resync each unit's ``m_agg`` rows are rebuilt from its
-        pre-update ``x_tilde`` rows just before its retire."""
+        pre-update ``x_tilde`` rows just before its retire (stale where the
+        node's handshake failed).  One keep mask covers every unit of the
+        step; the push-sum trailer rides the last unit."""
         cfg, n = self.cfg, self.n_nodes
         plan = self.wire_plan_for(layout)
         units = plan.transfer_units(
             cfg.pipeline_chunks if cfg.wire_packing == "pipelined" else None)
         xt, mb = state["x_tilde"], state["m_agg"]
-        y = layout.pack(x_half)
+        push = cfg.push_sum_enabled
+        keep = self.keep_mask(step)
+        resync = self.resync_at(step)
+        ok = self.resync_ok(step)
+        y = self._numerator(x_half, state, layout)
         y.sub_(xt)                # the packed differential, built in place
         if noise is None:
             noise = self.make_noise(layout, step, seed, y.device)
         step_k = self._step_k(step)
         outs = tuple(torch.empty_like(xt) for _ in range(3))
         clipped = torch.zeros(n, dtype=torch.float32, device=y.device)
-        resync = self.resync_at(step)
         m_in = torch.empty_like(mb) if resync else mb
+        last = len(units) - 1
+        trailer = state["ps_w"].view(torch.uint8) if push else None
+        recv = {}
 
         def launch(c):
-            return self._encode_unit(plan, units[c], y, noise, step_k)
+            return self._encode_unit(plan, units[c], y, noise, step_k,
+                                     trailer=trailer if c == last else None)
 
         def retire(c, pays):
             if resync:
                 rows = slice(units[c].row_start, units[c].row_end)
                 self.rebuild_m_agg(xt[:, rows], stride, out=m_in[:, rows])
-            self._retire(plan, units[c], pays,
-                         [pays[_left(i, n, stride)] for i in range(n)],
-                         [pays[_right(i, n, stride)] for i in range(n)], xt,
-                         m_in, outs)
+                self._keep_stale(m_in[:, rows], mb[:, rows], ok)
+            if push and c == last:
+                recv["w"] = _trailer_weights(pays)
+            left, right = self._arrivals(pays, stride, keep)
+            self._retire(plan, units[c], pays, left, right, xt, m_in, outs)
 
         def census(c, pays):
             self._census(plan, units[c], y, step_k, pays, clipped)
@@ -552,9 +896,22 @@ class ConsensusRuntime:
         _pipeline_schedule(len(units), launch, retire,
                            census if cfg.quant_mode == "fixed" else None)
         del noise
-        x_next, metrics = self._finish(x_prev, x_half, outs[2], y, clipped,
-                                       plan, layout)
-        return x_next, {"x_tilde": outs[0], "m_agg": outs[1]}, metrics
+        new_state = {"x_tilde": outs[0], "m_agg": outs[1]}
+        comb = outs[2]
+        metrics = {}
+        if push:
+            ps_new, new_state["ps_nbr"] = self._push_sum_update(
+                state["ps_w"], *self._neighbour_rows(recv["w"], stride),
+                state, keep, resync, ok, stride)
+            new_state["ps_w"] = ps_new
+            comb.div_(ps_new.view(-1, 1, 1))
+            metrics["push_sum_weight"] = ps_new[:, 0]
+        x_next, m = self._finish(x_prev, x_half, comb, y, clipped, plan,
+                                 layout)
+        metrics.update(m)
+        if keep is not None:
+            self._fault_metrics(metrics, layout, keep, y.device)
+        return x_next, new_state, metrics
 
     def _adc_exchange_async(self, x_prev, x_half, state, step, seed, noise,
                             layout, stride):
@@ -566,16 +923,19 @@ class ConsensusRuntime:
         k+1; the overflow census reads the fresh payload.  ``staleness`` 0
         is the packed exchange, passing the idle buffers through.
 
-        At a resync the retired payloads came from the previous epoch's
+        The retired payloads' loss draw and straggler deadlines are those
+        of their launch step k-1; a missed deadline is a drop.  At a
+        resync the retired payloads came from the previous epoch's
         neighbours, so they are drained with the old ``m_agg`` first; then
         ``m_agg`` is rebuilt from the new neighbours' post-retire
-        ``x_tilde`` and the combine moves by the difference.
+        ``x_tilde`` (kept where the handshake failed) and the combine
+        moves by the difference.
 
         The payloads are encoded into rows s..s+N-1 of one ``(N + 2s,
-        payload_bytes)`` ring buffer (``s`` the stride mod N) whose first s
-        rows repeat nodes N-s..N-1 and last s rows nodes 0..s-1:
-        ``fly_self``, ``fly_up`` and ``fly_dn`` are its overlapping views at
-        rows s, 0 and 2s: the ring transfer copies 2s payloads."""
+        bytes)`` ring buffer (``s`` the stride mod N) whose first s rows
+        repeat nodes N-s..N-1 and last s rows nodes 0..s-1: ``fly_self``,
+        ``fly_up`` and ``fly_dn`` are its overlapping views at rows s, 0
+        and 2s: the ring transfer copies 2s payloads."""
         if self.cfg.staleness == 0:
             x_next, ns, metrics = self._adc_exchange(
                 x_prev, x_half, state, step, seed, noise, layout, stride)
@@ -586,23 +946,48 @@ class ConsensusRuntime:
         plan = self.wire_plan_for(layout)
         unit = plan.transfer_units(None)[0]
         xt, mb = state["x_tilde"], state["m_agg"]
+        push = self.cfg.push_sum_enabled
+        keep, meet = self.keep_mask(step - 1), self.deadline_mask(step - 1)
+        arrive = (keep if meet is None else
+                  meet if keep is None else keep & meet)
+        resync = self.resync_at(step)
+        ok = self.resync_ok(step)
+        fly = [state["fly_self"][i] for i in range(n)]
+        # fly_up[i] / fly_dn[i] arrived at node i from i - s / i + s
+        up = [state["fly_up"][i] for i in range(n)]
+        dn = [state["fly_dn"][i] for i in range(n)]
+        left, right = self._drop(list(up), list(dn), arrive)
         outs = tuple(torch.empty_like(xt) for _ in range(3))
-        self._retire(plan, unit, state["fly_self"], state["fly_up"],
-                     state["fly_dn"], xt, mb, outs)
+        self._retire(plan, unit, fly, left, right, xt, mb, outs)
         xt_new, m_new, comb = outs
-        if self.resync_at(step):
+        if resync:
             m_drained = self.rebuild_m_agg(xt_new, stride)
+            self._keep_stale(m_drained, m_new, ok)
             comb.add_(m_drained - m_new)
             m_new = m_drained
-        y = layout.pack(x_half)
+        metrics = {}
+        new_state = {}
+        if push:
+            ps_new, new_state["ps_nbr"] = self._push_sum_update(
+                state["ps_w"], _trailer_weights(up), _trailer_weights(dn),
+                state, arrive, resync, ok, stride)
+            new_state["ps_w"] = ps_new
+            comb.div_(ps_new.view(-1, 1, 1))
+            metrics["push_sum_weight"] = ps_new[:, 0]
+        y = self._numerator(x_half, {"ps_w": ps_new} if push else state,
+                            layout)
         y.sub_(xt_new)
         if noise is None:
             noise = self.make_noise(layout, step, seed, y.device)
         step_k = self._step_k(step)
         r = stride % n
-        ring = torch.empty((n + 2 * r, plan.payload_bytes), dtype=torch.uint8,
+        width = plan.payload_bytes + (wireplan.PUSH_SUM_TRAILER_BYTES
+                                      if push else 0)
+        ring = torch.empty((n + 2 * r, width), dtype=torch.uint8,
                            device=y.device)
-        pays = self._encode_unit(plan, unit, y, noise, step_k, ring[r:r + n])
+        pays = self._encode_unit(
+            plan, unit, y, noise, step_k, ring[r:r + n],
+            trailer=ps_new.view(torch.uint8) if push else None)
         del noise
         clipped = torch.zeros(n, dtype=torch.float32, device=y.device)
         if self.cfg.quant_mode == "fixed":
@@ -611,11 +996,18 @@ class ConsensusRuntime:
         # i+s's
         ring[:r].copy_(ring[n:n + r])
         ring[n + r:].copy_(ring[r:2 * r])
-        x_next, metrics = self._finish(x_prev, x_half, comb, y, clipped,
-                                       plan, layout)
-        return x_next, {"x_tilde": xt_new, "m_agg": m_new,
-                        "fly_self": ring[r:r + n], "fly_up": ring[:n],
-                        "fly_dn": ring[2 * r:]}, metrics
+        x_next, m = self._finish(x_prev, x_half, comb, y, clipped, plan,
+                                 layout)
+        metrics.update(m)
+        if arrive is not None:
+            self._fault_metrics(metrics, layout, arrive, y.device)
+        if meet is not None:
+            metrics["deadline_miss_frac"] = _node_values(
+                (~meet).sum(axis=0), y.device) / 2.0
+        new_state.update({"x_tilde": xt_new, "m_agg": m_new,
+                          "fly_self": ring[r:r + n], "fly_up": ring[:n],
+                          "fly_dn": ring[2 * r:]})
+        return x_next, new_state, metrics
 
     def _ratios(self, plan, layout):
         """``(1/codes, 1/elements)`` of the packed buffer as float32
@@ -628,20 +1020,36 @@ class ConsensusRuntime:
 
     def _adc_exchange_per_leaf(self, x_prev, x_half, state, step, seed,
                                noise, layout, stride):
-        """The per-leaf reference transport of :meth:`_adc_exchange` (no
-        push-sum or faults, as on the packed path): per leaf and node one
-        ``quantize_blocks`` launch, the codes and scales handed to both ring
-        neighbours, and one ``dequant_combine`` launch; at a resync each
-        leaf's ``m_agg`` is rebuilt from its row-padded ``x_tilde``.  Each
+        """The per-leaf reference transport of :meth:`_adc_exchange`: per
+        leaf and node one ``quantize_blocks`` launch, the codes and scales
+        handed to both ring neighbours (zero codes and zero scales where a
+        packet drops), and one ``dequant_combine`` launch; at a resync each
+        leaf's ``m_agg`` is rebuilt from its row-padded ``x_tilde`` (stale
+        where the handshake failed).  The push-sum weight is its own
+        scalar transfer, received before the leaves; the directed
+        correction is the decoded arrivals' as on the packed path.  Each
         leaf is padded to its own TILE_N-aligned height; the noise is the
         packed path's buffer sliced per leaf, so the two transports give
         the same bits."""
         cfg, n = self.cfg, self.n_nodes
         resync = self.resync_at(step)
+        ok = self.resync_ok(step)
+        keep = self.keep_mask(step)
+        push = cfg.push_sum_enabled
+        w_fwd, w_bwd = cfg.in_weights
+        c_dir = _f32(w_fwd - cfg.side_weight)
         step_k = self._step_k(step)
         xt, mb = state["x_tilde"], state["m_agg"]
         if noise is None:
             noise = self.make_noise(layout, step, seed, xt.device)
+        metrics, new_state = {}, {}
+        if push:
+            ps_w = state["ps_w"]
+            ps_new, new_state["ps_nbr"] = self._push_sum_update(
+                ps_w, *self._neighbour_rows(ps_w, stride), state, keep,
+                resync, ok, stride)
+            new_state["ps_w"] = ps_new
+            metrics["push_sum_weight"] = ps_new[:, 0]
         clipped = torch.zeros(n, dtype=torch.float32, device=xt.device)
         residual_sq = torch.zeros(n, dtype=torch.float32, device=xt.device)
         new_x, xt_rows, m_rows = [], [], []
@@ -650,9 +1058,14 @@ class ConsensusRuntime:
                                               T.tree_leaves(x_prev))):
             full = kops.padded_block_rows(slot.size)
             y = _blockify_nodes(h, full)
+            if push:
+                y.mul_(ps_w.view(-1, 1, 1))
             xtb = _rowpad(layout.leaf_rows(xt, i), full)
-            mbb = (self.rebuild_m_agg(xtb, stride) if resync
-                   else _rowpad(layout.leaf_rows(mb, i), full))
+            mbb = _rowpad(layout.leaf_rows(mb, i), full)
+            if resync:
+                built = self.rebuild_m_agg(xtb, stride)
+                self._keep_stale(built, mbb, ok)
+                mbb = built
             y.sub_(xtb)
             residual_sq += (y * y).sum(dim=(1, 2))
             u = _rowpad(layout.leaf_rows(noise, i), full)
@@ -663,13 +1076,23 @@ class ConsensusRuntime:
                 clipped += torch.stack([
                     (c.to(torch.int16).abs() >= 127).sum(dtype=torch.float32)
                     for c, _ in sent])
+            left, right = self._arrivals(sent, stride, keep)
             outs = [kops.dequant_combine(
-                        *sent[j], *sent[_left(j, n, stride)],
-                        *sent[_right(j, n, stride)],
-                        xtb[j], mbb[j], cfg.self_weight, cfg.side_weight, 1.0)
+                        *sent[j], *left[j], *right[j], xtb[j], mbb[j],
+                        cfg.self_weight, cfg.side_weight, 1.0)
                     for j in range(n)]
-            del sent
+            if w_fwd != w_bwd:
+                for j, o in enumerate(outs):
+                    t = left[j][0] * left[j][1]    # int8 x f32: exact widen
+                    t.sub_(right[j][0] * right[j][1])
+                    t.mul_(c_dir)
+                    o[1].add_(t)
+                    o[2].add_(t)
+                    del t
+            del sent, left, right
             comb = torch.stack([o[2] for o in outs])
+            if push:
+                comb.div_(ps_new.view(-1, 1, 1))
             xt_rows.append(torch.stack([o[0][:slot.n_rows] for o in outs]))
             m_rows.append(torch.stack([o[1][:slot.n_rows] for o in outs]))
             del outs
@@ -678,11 +1101,14 @@ class ConsensusRuntime:
                                       - p.to(torch.float32))).to(h.dtype))
         inv_codes, inv_elems = self._ratios(self.wire_plan_for(layout),
                                             layout)
-        new_state = {"x_tilde": layout.from_leaf_rows(xt_rows),
-                     "m_agg": layout.from_leaf_rows(m_rows)}
-        return (T.tree_unflatten(layout.treedef, new_x), new_state,
-                {"overflow_frac": clipped * inv_codes,
-                 "residual_norm": torch.sqrt(residual_sq * inv_elems)})
+        new_state.update({"x_tilde": layout.from_leaf_rows(xt_rows),
+                          "m_agg": layout.from_leaf_rows(m_rows)})
+        metrics.update({"overflow_frac": clipped * inv_codes,
+                        "residual_norm": torch.sqrt(residual_sq
+                                                    * inv_elems)})
+        if keep is not None:
+            self._fault_metrics(metrics, layout, keep, xt.device)
+        return T.tree_unflatten(layout.treedef, new_x), new_state, metrics
 
     def _cdgd_mix(self, x_own, sent, j, stride):
         """Node j's Eq. (5) mix: its own parameters uncompressed, its ring
@@ -742,22 +1168,63 @@ class ConsensusRuntime:
         return T.tree_unflatten(layout.treedef, out)
 
     def _dgd_exchange(self, x_prev, x_half, stride):
-        """Uncompressed DGD: mix the raw fp32 parameters with both ring
-        neighbours (at ``stride``) each step, then add the local optimizer
-        delta."""
+        """Uncompressed DGD: mix the parameters with both ring neighbours
+        (at ``stride``), whose copies arrive cast to ``wire_dtype``, then
+        add the local optimizer delta."""
         n = self.n_nodes
         w_self, w_side = self.cfg.self_weight, self.cfg.side_weight
+        wire_dtype = self.cfg.wire_dtype
 
         def mix(h, p):
             p32 = p.to(torch.float32)
-            left = p32.index_select(0, torch.tensor(
-                [_left(i, n, stride) for i in range(n)], device=p.device))
-            right = p32.index_select(0, torch.tensor(
-                [_right(i, n, stride) for i in range(n)], device=p.device))
+            send = p.to(wire_dtype)
+            left = send.index_select(0, torch.tensor(
+                [_left(i, n, stride) for i in range(n)],
+                device=p.device)).to(torch.float32)
+            right = send.index_select(0, torch.tensor(
+                [_right(i, n, stride) for i in range(n)],
+                device=p.device)).to(torch.float32)
             mixed = w_self * p32 + w_side * (left + right)
             return (mixed + (h.to(torch.float32) - p32)).to(h.dtype)
 
         return T.tree_map(mix, x_half, x_prev)
+
+
+def _f32(v: float) -> float:
+    """A Python float rounded to float32, as the reference's
+    ``jnp.float32(v)`` constants are."""
+    return float(np.float32(v))
+
+
+def _node_values(values, device) -> torch.Tensor:
+    """A host vector as float32 on ``device``, written by fills (no
+    host-to-device copy, which would wait for the device)."""
+    out = torch.empty(len(values), dtype=torch.float32, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(float(v))
+    return out
+
+
+def _rows(t: torch.Tensor, idx: list) -> torch.Tensor:
+    """``t[idx]`` for a host list of row indices, without copying the
+    index to the device."""
+    return torch.stack([t[j] for j in idx])
+
+
+def _pick(flags: np.ndarray, a: torch.Tensor, b: torch.Tensor
+          ) -> torch.Tensor:
+    """Row i of ``a`` where the host flag ``flags[i]`` is set, else of
+    ``b`` (device tensors of one shape; no host-to-device copy)."""
+    if flags.all():
+        return a
+    return torch.stack([a[i] if f else b[i] for i, f in enumerate(flags)])
+
+
+def _trailer_weights(pays: list) -> torch.Tensor:
+    """``(N, 1)`` float32 push-sum weights from the 4-byte trailers of
+    ``pays`` (each a flat uint8 payload)."""
+    tb = wireplan.PUSH_SUM_TRAILER_BYTES
+    return torch.stack([p[-tb:] for p in pays]).view(torch.float32)
 
 
 def _cat(parts: list) -> torch.Tensor:

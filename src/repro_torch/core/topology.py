@@ -1,5 +1,5 @@
 """Network topologies, consensus (mixing) matrices and time-varying
-schedules of them: the undirected part of ``repro.core.topology``.
+schedules of them: port of ``repro.core.topology``.
 
 The consensus matrix ``W`` must satisfy the paper's three properties
 (Section III-A):
@@ -16,11 +16,17 @@ A :class:`TopologySchedule` is a step-indexed stack of such matrices
 graphs (``ErdosRenyiSchedule``, ``RandomGeometricSchedule``) drawn with
 numpy from a seed, so the stacks equal the reference's.
 
+Directed networks: a :class:`DirectedMixingMatrix` is only **column**
+stochastic — each sender splits unit mass over its out-edges
+(``out_degree_weights``) — so plain DGD converges to a reweighted average.
+Push-sum repairs this with a weight scalar mixed by the same matrix
+(``push_sum_weights``); the de-biased iterate is ``x / w``.  Each directed
+edge carries one message per round.
+
 Matrices are float64 numpy arrays, built on the host exactly as the
 reference builds them; the algorithms copy ``W`` to their device as
-float32.  Directed (column-stochastic) matrices and schedules, and
-membership schedules, are not ported yet: their ``by_name`` and
-``schedule_by_name`` rows raise.
+float32.  Membership schedules are not ported yet
+(:class:`MembershipSchedule` raises).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import numpy as np
 
 __all__ = [
     "MixingMatrix",
+    "DirectedMixingMatrix",
     "ring",
     "fully_connected",
     "star",
@@ -39,26 +46,32 @@ __all__ = [
     "expander",
     "paper_fig3",
     "paper_circle",
+    "directed_ring",
+    "directed_cycle",
+    "directed_erdos_renyi",
     "metropolis_weights",
     "lazy_metropolis_weights",
+    "out_degree_weights",
     "spectral_beta",
     "validate_mixing_matrix",
+    "validate_column_stochastic",
     "by_name",
     "is_connected",
+    "is_strongly_connected",
     "erdos_renyi_graph",
     "random_geometric_graph",
+    "directed_erdos_renyi_graph",
+    "push_sum_weights",
     "TopologySchedule",
     "StaticSchedule",
     "PeriodicSchedule",
     "ErdosRenyiSchedule",
     "RandomGeometricSchedule",
+    "DirectedErdosRenyiSchedule",
     "as_schedule",
     "schedule_by_name",
+    "MembershipSchedule",
 ]
-
-#: ``by_name`` rows of the reference that belong to later slices
-NOT_PORTED = ("directed-ring", "directed_ring", "directed-cycle",
-              "directed_cycle", "directed_er")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +114,46 @@ class MixingMatrix:
         validate_mixing_matrix(self.w)
 
 
+@dataclasses.dataclass(frozen=True)
+class DirectedMixingMatrix(MixingMatrix):
+    """A column-stochastic consensus matrix over a directed graph:
+    ``w[i, j] > 0`` iff the edge ``j -> i`` exists (or ``i == j``).  Rows
+    need not sum to 1; ``beta`` is the second-largest eigenvalue
+    modulus."""
+
+    @property
+    def is_directed(self) -> bool:
+        return True
+
+    @property
+    def n_edges(self) -> int:
+        """Number of directed communication edges (excluding self loops)."""
+        off = self.w.copy()
+        np.fill_diagonal(off, 0.0)
+        return int((np.abs(off) > 1e-12).sum())
+
+    @property
+    def n_messages(self) -> int:
+        """Each directed edge carries exactly one message per round."""
+        return self.n_edges
+
+    def in_neighbors(self, i: int) -> list[int]:
+        """Senders node ``i`` hears from (support of row i)."""
+        return [j for j in range(self.n)
+                if j != i and abs(self.w[i, j]) > 1e-12]
+
+    def out_neighbors(self, j: int) -> list[int]:
+        """Receivers node ``j`` pushes to (support of column j)."""
+        return [i for i in range(self.n)
+                if i != j and abs(self.w[i, j]) > 1e-12]
+
+    def neighbors(self, i: int) -> list[int]:
+        return self.in_neighbors(i)
+
+    def validate(self) -> None:
+        validate_column_stochastic(self.w)
+
+
 def validate_mixing_matrix(w: np.ndarray, atol: float = 1e-8) -> None:
     if w.ndim != 2 or w.shape[0] != w.shape[1]:
         raise ValueError(f"W must be square, got {w.shape}")
@@ -115,6 +168,21 @@ def validate_mixing_matrix(w: np.ndarray, atol: float = 1e-8) -> None:
         raise ValueError(f"lambda_N(W) = {lam[0]} must be > -1")
     if abs(lam[-1] - 1.0) > 1e-8:
         raise ValueError(f"lambda_1(W) = {lam[-1]} must equal 1")
+
+
+def validate_column_stochastic(w: np.ndarray, atol: float = 1e-8) -> None:
+    """The push-sum requirements: non-negative, columns sum to 1, and a
+    strictly positive diagonal (which keeps push-sum weights positive)."""
+    if w.ndim != 2 or w.shape[0] != w.shape[1]:
+        raise ValueError(f"W must be square, got {w.shape}")
+    if (w < -atol).any():
+        raise ValueError("column-stochastic W must be non-negative")
+    if not np.allclose(w.sum(axis=0), 1.0, atol=atol):
+        raise ValueError("W must be column stochastic (column sums == 1)")
+    if (np.diag(w) <= atol).any():
+        raise ValueError(
+            "column-stochastic W needs a strictly positive diagonal "
+            "(push-sum weight positivity; add a self loop / self_weight > 0)")
 
 
 def spectral_beta(w: np.ndarray) -> float:
@@ -160,6 +228,28 @@ def lazy_metropolis_weights(adj: np.ndarray,
     w = metropolis_weights(adj)
     n = w.shape[0]
     return (1.0 - laziness) * np.eye(n) + laziness * w
+
+
+def out_degree_weights(adj: np.ndarray,
+                       self_weight: float = 0.5) -> np.ndarray:
+    """Column-stochastic push weights for a directed adjacency
+    (``adj[i, j]`` is the edge ``j -> i``): sender ``j`` keeps
+    ``self_weight`` and splits the rest equally over its out-neighbours;
+    a sink keeps all its mass."""
+    if not 0.0 < self_weight < 1.0:
+        raise ValueError(f"self_weight must be in (0, 1), got {self_weight}")
+    adj = np.asarray(adj, dtype=bool).copy()
+    np.fill_diagonal(adj, False)
+    n = adj.shape[0]
+    outdeg = adj.sum(axis=0)                      # column sums = out-degrees
+    w = np.zeros((n, n), dtype=np.float64)
+    for j in range(n):
+        if outdeg[j] == 0:
+            w[j, j] = 1.0
+            continue
+        w[:, j] = adj[:, j] * ((1.0 - self_weight) / outdeg[j])
+        w[j, j] = self_weight
+    return w
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +366,66 @@ def paper_circle(n: int) -> MixingMatrix:
     return ring(n, self_weight=0.5)
 
 
+def _dmm(w: np.ndarray, name: str) -> DirectedMixingMatrix:
+    m = DirectedMixingMatrix(w=np.asarray(w, dtype=np.float64), name=name)
+    m.validate()
+    return m
+
+
+def directed_ring(n: int, self_weight: float = 0.5,
+                  forward_weight: float | None = None
+                  ) -> DirectedMixingMatrix:
+    """Asymmetric circulant ring: node i pushes ``forward_weight`` to i+1
+    and ``1 - self_weight - forward_weight`` to i-1 (mod n); the default
+    sends 2/3 of the leaving mass forward.  The matrix the runtime's
+    ``topology="directed-ring"`` realizes on the node ring."""
+    if not 0.0 < self_weight < 1.0:
+        raise ValueError(f"self_weight must be in (0, 1), got {self_weight}")
+    if forward_weight is None:
+        forward_weight = 2.0 * (1.0 - self_weight) / 3.0
+    backward = 1.0 - self_weight - forward_weight
+    if forward_weight <= 0.0 or backward < 0.0:
+        raise ValueError(
+            f"forward_weight must be in (0, 1 - self_weight]; got "
+            f"{forward_weight} with self_weight={self_weight}")
+    if n < 2:
+        return _dmm(np.ones((1, 1)), f"directed_ring{n}")
+    w = np.zeros((n, n))
+    for j in range(n):
+        w[j, j] = self_weight
+        w[(j + 1) % n, j] += forward_weight
+        w[(j - 1) % n, j] += backward
+    return _dmm(w, f"directed_ring{n}")
+
+
+def directed_cycle(n: int, self_weight: float = 0.5) -> DirectedMixingMatrix:
+    """Pure one-directional push ring: i sends only to i+1 (mod n)."""
+    return directed_ring(n, self_weight=self_weight,
+                         forward_weight=1.0 - self_weight)
+
+
+def directed_erdos_renyi(n: int, p: float, seed: int = 0,
+                         self_weight: float = 0.5,
+                         ensure_connected: bool = True
+                         ) -> DirectedMixingMatrix:
+    """One directed G(n, p) sample with out-degree push weights, redrawn
+    (at most 1,000 times) until strongly connected when
+    ``ensure_connected``."""
+    rng = np.random.default_rng(seed)
+    adj = directed_erdos_renyi_graph(n, p, rng)
+    attempts = 0
+    while ensure_connected and not is_strongly_connected(adj):
+        adj = directed_erdos_renyi_graph(n, p, rng)
+        attempts += 1
+        if attempts > 1000:
+            raise RuntimeError(
+                f"directed_erdos_renyi(n={n}, p={p}): no strongly connected "
+                "draw in 1000 tries — increase p or set "
+                "ensure_connected=False")
+    return _dmm(out_degree_weights(adj, self_weight),
+                f"directed_er(n={n},p={p})")
+
+
 def by_name(name: str, n: int | None = None, **kw) -> MixingMatrix:
     """Topology registry (``--topology ring --nodes 8``)."""
     builders = {
@@ -286,17 +436,17 @@ def by_name(name: str, n: int | None = None, **kw) -> MixingMatrix:
         "expander": lambda: expander(n, **kw),
         "paper_fig3": paper_fig3,
         "paper_circle": lambda: paper_circle(n),
+        "directed-ring": lambda: directed_ring(n, **kw),
+        "directed_ring": lambda: directed_ring(n, **kw),
+        "directed-cycle": lambda: directed_cycle(n, **kw),
+        "directed_cycle": lambda: directed_cycle(n, **kw),
+        "directed_er": lambda: directed_erdos_renyi(n, **kw),
     }
     if name.startswith("torus"):
         r, c = name[5:].split("x")
         return torus(int(r), int(c))
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"topology {name!r} (a directed, column-stochastic matrix) is "
-            "not yet ported")
     if name not in builders:
-        raise KeyError(f"unknown topology {name!r}; have "
-                       f"{sorted(builders) + list(NOT_PORTED)}")
+        raise KeyError(f"unknown topology {name!r}; have {sorted(builders)}")
     return builders[name]()
 
 
@@ -336,6 +486,58 @@ def random_geometric_graph(n: int, radius: float,
     adj = d2 <= radius**2
     np.fill_diagonal(adj, False)
     return adj
+
+
+def directed_erdos_renyi_graph(n: int, p: float,
+                               rng: np.random.Generator) -> np.ndarray:
+    """One directed G(n, p) sample: each ordered pair (j, i), i != j, is an
+    edge j -> i (``adj[i, j]``) i.i.d. w.p. ``p``."""
+    adj = rng.random((n, n)) < p
+    np.fill_diagonal(adj, False)
+    return adj
+
+
+def is_strongly_connected(adj: np.ndarray) -> bool:
+    """Strong connectivity of a directed adjacency (``adj[i, j]`` = edge
+    j -> i): node 0 reaches every node forward and backward."""
+    adj = np.asarray(adj, dtype=bool)
+
+    def _reaches_all(a: np.ndarray) -> bool:
+        n = a.shape[0]
+        if n == 0:
+            return True
+        seen = np.zeros(n, dtype=bool)
+        frontier = np.zeros(n, dtype=bool)
+        seen[0] = frontier[0] = True
+        while frontier.any():
+            nxt = a[:, frontier].any(axis=1) & ~seen
+            seen |= nxt
+            frontier = nxt
+        return bool(seen.all())
+
+    return _reaches_all(adj) and _reaches_all(adj.T)
+
+
+def push_sum_weights(matrices: "Sequence[MixingMatrix] | TopologySchedule",
+                     horizon: int | None = None) -> np.ndarray:
+    """Push-sum weight trajectory ``w_k = W^(k-1) ... W^(0) 1``:
+    ``(horizon + 1, N)`` float64 with ``w_0 = 1``.  Column stochasticity
+    keeps ``sum(w_k) == N``, a positive diagonal every entry positive."""
+    if isinstance(matrices, TopologySchedule):
+        sched = matrices
+        steps = sched.period if horizon is None else horizon
+        mats = [sched.matrix_at(i).w for i in range(steps)]
+    else:
+        mats = [m.w for m in matrices]
+        if horizon is not None:
+            mats = [mats[i % len(mats)] for i in range(horizon)]
+    n = mats[0].shape[0]
+    w = np.ones(n, dtype=np.float64)
+    out = [w.copy()]
+    for a in mats:
+        w = np.asarray(a, dtype=np.float64) @ w
+        out.append(w.copy())
+    return np.stack(out)
 
 
 # ---------------------------------------------------------------------------
@@ -486,6 +688,31 @@ class RandomGeometricSchedule(TopologySchedule):
         super().__init__(mats, name)
 
 
+class DirectedErdosRenyiSchedule(TopologySchedule):
+    """i.i.d. directed G(n, p) samples with out-degree (column-stochastic)
+    push weights; a draw that is not strongly connected is redrawn (at
+    most 1,000 times) when ``ensure_connected``."""
+
+    def __init__(self, n: int, p: float, horizon: int = 64, seed: int = 0,
+                 ensure_connected: bool = True, self_weight: float = 0.5):
+        name = f"directed_er(n={n},p={p})"
+        rng = np.random.default_rng(seed)
+        mats: list[MixingMatrix] = []
+        for t in range(horizon):
+            adj = directed_erdos_renyi_graph(n, p, rng)
+            attempts = 0
+            while ensure_connected and not is_strongly_connected(adj):
+                adj = directed_erdos_renyi_graph(n, p, rng)
+                attempts += 1
+                if attempts > 1000:
+                    raise RuntimeError(
+                        f"{name}: no strongly connected draw in 1000 tries "
+                        "— increase p or set ensure_connected=False")
+            mats.append(_dmm(out_degree_weights(adj, self_weight),
+                             f"{name}[{t}]"))
+        super().__init__(mats, name)
+
+
 def as_schedule(mixing: "MixingMatrix | TopologySchedule") -> TopologySchedule:
     """Normalize a static W or an existing schedule to a TopologySchedule."""
     if isinstance(mixing, TopologySchedule):
@@ -504,7 +731,7 @@ def schedule_by_name(name: str, n: int | None = None,
       ring_torus            — ring(n) / torus alternation (n even)
       erdos_renyi           — i.i.d. G(n, p) samples (kw: p, horizon, seed)
       rgg                   — i.i.d. random geometric graphs (kw: radius, ...)
-      directed_erdos_renyi  — not yet ported (raises)
+      directed_erdos_renyi  — i.i.d. directed G(n, p) samples (kw: p, ...)
     """
     if name.startswith("static:"):
         return StaticSchedule(by_name(name.split(":", 1)[1], n=n, **kw))
@@ -518,7 +745,19 @@ def schedule_by_name(name: str, n: int | None = None,
     if name == "rgg":
         return RandomGeometricSchedule(n, **kw)
     if name == "directed_erdos_renyi":
-        raise NotImplementedError(
-            "schedule 'directed_erdos_renyi' (directed, column-stochastic "
-            "matrices) is not yet ported")
+        return DirectedErdosRenyiSchedule(n, **kw)
     raise KeyError(f"unknown schedule {name!r}")
+
+
+def _membership_not_ported(*args, **kwargs):
+    raise NotImplementedError(
+        "MembershipSchedule (elastic membership) is not yet ported")
+
+
+class MembershipSchedule:
+    """Per-epoch active-node masks for elastic consensus: not yet ported
+    (constructing one raises)."""
+
+    __init__ = _membership_not_ported
+    static = from_spec = from_failure_model = staticmethod(
+        _membership_not_ported)

@@ -36,13 +36,18 @@ __all__ = ["LeafSlot", "WireLayout", "ChunkedLayout", "INFLIGHT_KEYS",
 INFLIGHT_KEYS = ("fly_self", "fly_up", "fly_dn")
 
 
-def inflight_init(n_nodes: int, payload_bytes: int,
-                  device=None) -> torch.Tensor:
+def inflight_init(n_nodes: int, payload_bytes: int, device=None,
+                  trailer: torch.Tensor | None = None) -> torch.Tensor:
     """The initial ``(n_nodes, payload_bytes)`` uint8 in-flight payloads:
     all zero bytes, which every codec decodes to a zero differential, so
-    retiring them at step 1 is an exact no-op gossip."""
-    return torch.zeros((n_nodes, int(payload_bytes)), dtype=torch.uint8,
-                       device=device)
+    retiring them at step 1 is an exact no-op gossip; with ``trailer``
+    ``(n_nodes, t)`` uint8 (the push-sum weight 1, which must not decode
+    to 0) appended to each row."""
+    buf = torch.zeros((n_nodes, int(payload_bytes)), dtype=torch.uint8,
+                      device=device)
+    if trailer is None:
+        return buf
+    return torch.cat([buf, trailer.to(device, torch.uint8)], dim=1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,6 +20,13 @@ transfer units), ``async`` (one step stale at ``--staleness 1``) or
 its stride cycles through the list, each held P steps, and every step
 that re-wires it rebuilds ``m_agg`` from the new neighbours (a resync);
 the step line then names the epoch's stride and marks a resync.
+``--topology directed-ring`` (``--forward-weight``) makes the ring
+column-stochastic and the exchange push-sum; ``--link-loss`` (with
+``--loss-seed``, or ``--link-loss-model gilbert:p=..,r=..`` for burst
+loss), ``--resync-retries`` and, on the async transport, ``--straggle``
+(``--straggle-seed``) inject the reference's seeded faults; the step line
+then shows ``delivered_frac`` (and ``push_sum_weight``,
+``deadline_miss_frac``).
 
 The wire codec is ``--wire-codec int8|int4|int2|topk|topk:k=<int>``, or
 ``adaptive``: then an ``AdaptiveBitController`` re-selects it every
@@ -87,7 +94,14 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                       wire_packing: str = "packed", pipeline_chunks: int = 4,
                       staleness: int = 1,
                       ring_strides: tuple[int, ...] = (1,),
-                      schedule_period: int = 1, seed: int = 0,
+                      schedule_period: int = 1,
+                      topology: str = "ring",
+                      forward_weight: float | None = None,
+                      link_loss: float | None = None, loss_seed: int = 0,
+                      link_loss_model: str = "bernoulli",
+                      resync_retries: int = 3,
+                      straggle_rate: float | None = None,
+                      straggle_seed: int = 0, seed: int = 0,
                       device=None) -> TrainSetup:
     """Everything static about a run.  ``wire_codec`` is a codec name or a
     ``mixed:`` plan spec.  ``device`` defaults to ``cuda`` (raising when
@@ -101,7 +115,13 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                            pipeline_chunks=pipeline_chunks,
                            staleness=staleness,
                            ring_strides=tuple(ring_strides),
-                           schedule_period=schedule_period)
+                           schedule_period=schedule_period,
+                           topology=topology, forward_weight=forward_weight,
+                           link_loss=link_loss, loss_seed=loss_seed,
+                           link_loss_model=link_loss_model,
+                           resync_retries=resync_retries,
+                           straggle_rate=straggle_rate,
+                           straggle_seed=straggle_seed)
     if schedule == "constant":
         sched = constant_schedule(lr)
     elif schedule == "inverse_power":
@@ -243,6 +263,35 @@ def main(argv=None, *, return_state: bool = False):
                          "schedule epoch (time-varying topology), e.g. 1,2")
     ap.add_argument("--schedule-period", type=int, default=1,
                     help="steps between ring re-wirings")
+    ap.add_argument("--topology", default="ring",
+                    choices=["ring", "directed-ring"],
+                    help="consensus graph of the node ring: directed-ring "
+                         "is column-stochastic only and switches the "
+                         "exchange to push-sum (ratio) consensus")
+    ap.add_argument("--forward-weight", type=float, default=None,
+                    help="directed-ring upstream in-weight in "
+                         "(0, 1 - self_weight); default 2(1-w_ii)/3")
+    ap.add_argument("--link-loss", type=float, default=None,
+                    help="per-directed-edge Bernoulli packet-loss rate in "
+                         "[0, 1); dropped payloads fall back to the stale "
+                         "x_tilde estimate")
+    ap.add_argument("--loss-seed", type=int, default=0,
+                    help="seed of the deterministic loss masks")
+    ap.add_argument("--link-loss-model", default="bernoulli",
+                    help="link-loss process: 'bernoulli' (i.i.d., rate from "
+                         "--link-loss) or 'gilbert:p=..,r=..[,h=..][,g=..]' "
+                         "(a two-state Markov burst-loss channel)")
+    ap.add_argument("--resync-retries", type=int, default=3,
+                    help="bounded retransmit attempts of the epoch resync "
+                         "handshake under link loss (a failed handshake "
+                         "keeps the stale m_agg one more epoch)")
+    ap.add_argument("--straggle", type=float, default=None,
+                    help="per-node-direction deadline-miss rate in [0, 1) "
+                         "for --wire-packing async: an in-flight payload "
+                         "that misses its one-step deadline is treated as "
+                         "dropped")
+    ap.add_argument("--straggle-seed", type=int, default=0,
+                    help="seed of the deterministic straggler masks")
     ap.add_argument("--wire-codec", default="int8",
                     help="payload codec of the exchange: int8 | int4 | int2 "
                          "| topk | topk:k=<int> | adaptive; 'adaptive' hands "
@@ -335,7 +384,12 @@ def main(argv=None, *, return_state: bool = False):
         wire_codec="int8" if adaptive and plan_spec is None else wire,
         byte_budget=args.byte_budget, wire_packing=args.wire_packing,
         pipeline_chunks=args.pipeline_chunks, staleness=args.staleness,
-        ring_strides=strides, schedule_period=args.schedule_period)
+        ring_strides=strides, schedule_period=args.schedule_period,
+        topology=args.topology, forward_weight=args.forward_weight,
+        link_loss=args.link_loss, loss_seed=args.loss_seed,
+        link_loss_model=args.link_loss_model,
+        resync_retries=args.resync_retries, straggle_rate=args.straggle,
+        straggle_seed=args.straggle_seed)
     if adaptive:
         ccfg = setup.consensus.cfg
         controller = wcodec.AdaptiveBitController(

@@ -90,8 +90,10 @@ def params_from_jax(tree_of_numpy: Any, defs: Any, device=None,
 
 
 #: dtypes of the reference's consensus-state entries: the packed shadows,
-#: and the async exchange's in-flight payloads
+#: the push-sum weights, and the async exchange's in-flight payloads (with
+#: the push-sum trailer when there is one)
 _CONSENSUS_DTYPES = {"x_tilde": torch.float32, "m_agg": torch.float32,
+                     "ps_w": torch.float32, "ps_nbr": torch.float32,
                      "fly_self": torch.uint8, "fly_up": torch.uint8,
                      "fly_dn": torch.uint8}
 
@@ -102,8 +104,9 @@ def consensus_state_from_jax(state_of_numpy: dict, n_nodes: int,
     the port's, on ``device`` (``cuda`` unless ``device="cpu"``).
 
     The reference keeps it device-major: the packed shadows ``(n_dev,
-    n_rows, BLOCK)`` float32 and the async in-flight payloads ``(n_dev,
-    nbytes)`` uint8.  With one device per node, as the port's stacked
+    n_rows, BLOCK)`` float32, the push-sum weights ``ps_w`` ``(n_dev, 1)``
+    and ``ps_nbr`` ``(n_dev, 2)`` float32, and the async in-flight
+    payloads ``(n_dev, nbytes)`` uint8.  With one device per node, as the port's stacked
     nodes are, the device axis is the node axis ``N``."""
     device = resolve_device(device)
     out = {}

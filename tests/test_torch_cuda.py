@@ -516,3 +516,101 @@ def test_cuda_codec_kernels_write_into_out(cuda_device, name):
         off = flat[1:1 + 4 * width].view(4, width)
         with pytest.raises(ValueError, match="aligned"):
             cd.encode_payload(y, u, None, n_rows=4, out=off)
+
+
+class _plain_kernels:
+    """Within the block the exchange's kernel entry points (``ops``) run
+    their plain PyTorch versions on the card instead of the kernels."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.saved = ops, {
+            k: getattr(ops, k) for k in ("quantize_payload",
+                                         "dequant_combine_payload",
+                                         "quantize_blocks", "dequant_combine")}
+        ops.quantize_payload = (
+            lambda y, noise, fixed_step=None, row_offset=0, n_rows=None,
+            out=None: Q._into(out, Q.quantize_payload_plain(
+                y, noise, fixed_step, row_offset, n_rows)))
+        ops.dequant_combine_payload = (
+            lambda ps, pl, pr, xt, mb, w_self, w_side, deamp, row_offset=0,
+            n_rows=None, out=None: Q._into(
+                out, D.dequant_combine_payload_plain(
+                    ps, pl, pr, xt, mb, w_self, w_side, deamp, row_offset,
+                    n_rows)))
+        ops.quantize_blocks = (lambda y, noise, fixed_step=None:
+                               Q.quantize_blocks_plain(y, noise, fixed_step))
+        ops.dequant_combine = D.dequant_combine_plain
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.ops, k, v)
+        return False
+
+
+def _fault_exchanges(device, steps=2, **kw):
+    """``steps`` exchanges of the reduced 4-node tree on ``device`` under
+    ``ConsensusConfig(**kw)`` from the same inputs and noise: the final
+    (x_next, state) and the launches of #1-#4 over the run."""
+    from repro_torch.core import tree as T
+    from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
+    rt = ConsensusRuntime(ConsensusConfig(**kw), 4)
+    xp, xh = (T.tree_map(lambda a: a.to(device), t)
+              for t in _exchange_inputs())
+    state = rt.init_state(xp)
+    layout = rt.state_layout(xp)
+    kernels = (Q.quantize_payload, D.dequant_combine_payload,
+               Q.quantize_blocks, D.dequant_combine)
+    before = [k.launches for k in kernels]
+    for k in range(1, steps + 1):
+        noise = torch.rand((4, layout.n_rows, rt.noise_cols_for(layout)),
+                           generator=torch.Generator().manual_seed(k))
+        x, state, _ = rt.exchange(xp, xh, state, k, noise=noise.to(device))
+        xp, xh = x, T.tree_map(lambda a: a * 1.001, x)
+    torch.cuda.synchronize()
+    return x, state, [k.launches - b for k, b in zip(kernels, before)]
+
+
+def _same_exchange(a, b):
+    from repro_torch.core import tree as T
+    return (all(torch.equal(p, q) for p, q in zip(T.tree_leaves(a[0]),
+                                                   T.tree_leaves(b[0])))
+            and sorted(a[1]) == sorted(b[1])
+            and all(torch.equal(a[1][k], b[1][k]) for k in a[1]))
+
+
+#: (label, ConsensusConfig keywords, launches of #1-#4 over 2 steps)
+FAULT_CASES = [
+    ("lossy packed", dict(link_loss=0.3, loss_seed=1), [8, 8, 0, 0]),
+    ("lossy per-leaf", dict(link_loss=0.3, loss_seed=1,
+                            wire_packing="per_leaf"), [0, 0, 88, 88]),
+    ("lossy async s1 + straggle", dict(
+        link_loss=0.3, loss_seed=1, wire_packing="async", straggle_rate=0.3),
+     [8, 8, 0, 0]),
+    ("directed lossy packed", dict(topology="directed-ring", link_loss=0.2,
+                                   loss_seed=1), [8, 8, 0, 0]),
+    ("directed lossy pipelined", dict(
+        topology="directed-ring", link_loss=0.2, loss_seed=1,
+        wire_packing="pipelined", pipeline_chunks=3), [24, 24, 0, 0]),
+    ("directed lossy per-leaf", dict(
+        topology="directed-ring", link_loss=0.2, loss_seed=1,
+        wire_packing="per_leaf"), [0, 0, 88, 88])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,kw,launches", FAULT_CASES,
+                         ids=[c[0] for c in FAULT_CASES])
+def test_cuda_fault_exchange_matches_plain(cuda_device, label, kw, launches):
+    """Two exchange steps under link loss (and straggler deadlines, and the
+    directed ring with push-sum) through the kernels and through their
+    plain versions on the card: parameters and the whole consensus state
+    (push-sum weights and in-flight payloads included) bitwise equal; the
+    kernels launched once per node, transfer unit (or leaf) and step."""
+    got = _fault_exchanges(cuda_device, **kw)
+    with _plain_kernels():
+        want = _fault_exchanges(cuda_device, **kw)
+    assert _same_exchange(got, want)
+    assert got[2] == launches and want[2] == [0, 0, 0, 0]
+    if "ps_w" in got[1]:
+        assert torch.equal(got[1]["ps_w"].cpu(), torch.ones(4, 1))

@@ -391,14 +391,20 @@ def test_by_name_validation_and_unported_paths(four_node):
         wire.WireLayout.for_tree({"w": torch.zeros(prob.dim)}))
     on_plan = K.on_wire_plan("adc_dgd", mix, plan, K.StepSize(ALPHA))
     assert isinstance(on_plan.compressor, wireplan.WirePlanCompressor)
-    with pytest.raises(NotImplementedError, match="push-sum"):
-        K.ADCDGD(JT.directed_ring(4), COMP, K.StepSize(ALPHA))
-    # a time-varying undirected schedule is ported; a directed one is not
+    # directed mixing runs push-sum, as the reference's does
+    directed = K.ADCDGD(T.directed_ring(4), COMP, K.StepSize(ALPHA))
+    jdirected = JK.ADCDGD(JT.directed_ring(4), JC.RandomizedRounding(1.0),
+                          JK.StepSize(ALPHA))
+    assert directed.push_sum and jdirected.push_sum
+    assert directed.bytes_per_iteration(prob) == \
+        jdirected.bytes_per_iteration(JP.paper_4node())
+    # time-varying schedules are ported, undirected and directed alike
     sched = T.PeriodicSchedule((T.ring(4), T.chain(4)))
     assert K.DGD(sched, K.StepSize(ALPHA)).mixing.period == 2
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        K.DGD(JT.DirectedErdosRenyiSchedule(4, p=0.5, horizon=2),
-              K.StepSize(ALPHA))
+    dsched = K.DGD(T.DirectedErdosRenyiSchedule(4, p=0.5, horizon=2),
+                   K.StepSize(ALPHA)).mixing
+    np.testing.assert_array_equal(dsched.stack, JT.DirectedErdosRenyiSchedule(
+        4, p=0.5, horizon=2).stack)
 
 
 def test_theory_functions_equal_reference():

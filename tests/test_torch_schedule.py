@@ -99,8 +99,10 @@ def test_schedule_by_name_and_as_schedule():
                      ("rgg", dict(n=6, radius=0.7, horizon=3, seed=4))):
         _same_schedule(T.schedule_by_name(name, **kw),
                        JT.schedule_by_name(name, **kw))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        T.schedule_by_name("directed_erdos_renyi", n=4, p=0.5)
+    got = T.schedule_by_name("directed_erdos_renyi", n=4, p=0.5)
+    want = JT.schedule_by_name("directed_erdos_renyi", n=4, p=0.5)
+    np.testing.assert_array_equal(got.stack, want.stack)
+    assert got.name == want.name and got.is_directed and want.is_directed
     with pytest.raises(KeyError):
         T.schedule_by_name("nope", n=4)
     with pytest.raises(ValueError, match="even"):

@@ -4,8 +4,9 @@ Every ported constructor builds the same float64 ``W`` on the host as
 ``repro.core.topology`` does, so ``W``, ``beta``, the edge and message
 counts and the neighbour lists are compared exactly (no tolerance).
 ``validate_mixing_matrix`` refuses what the reference refuses, with the
-same message.  The rows of ``by_name`` that belong to later slices
-(directed matrices) raise ``NotImplementedError``.
+same message.  The directed rows of ``by_name`` build the reference's
+column-stochastic matrices (``tests/test_torch_directed.py`` holds the
+directed half in full).
 """
 import numpy as np
 import pytest
@@ -92,9 +93,12 @@ def test_by_name_equals_reference(name, n, kw):
 @pytest.mark.parametrize("name", ["directed-ring", "directed_ring",
                                   "directed-cycle", "directed_cycle",
                                   "directed_er"])
-def test_directed_rows_not_yet_ported(name):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        T.by_name(name, 4)
+def test_directed_rows_equal_reference(name):
+    kw = {"p": 0.5, "seed": 2} if name == "directed_er" else {}
+    got, want = T.by_name(name, 4, **kw), JT.by_name(name, 4, **kw)
+    np.testing.assert_array_equal(got.w, want.w)
+    assert got.name == want.name and got.is_directed and want.is_directed
+    assert (got.n_edges, got.n_messages) == (want.n_edges, want.n_messages)
     with pytest.raises(KeyError):
         T.by_name("no-such-topology", 4)
 
