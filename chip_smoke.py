@@ -89,6 +89,30 @@ Phases (any failure exits non-zero before the result line):
              seed=0)`` at P 2^22, 500 counted steps each (#3 once per
              step, weights positive and summing to 20, one message per
              directed edge), and kernel against plain trajectories;
+             then elastic membership and the two-level hierarchy
+             (``phase_elastic``), each run counted and watched: the
+             reference's churn sweep on 4 nodes (node 2 out for the second
+             of 4-step epochs, 16 steps) packed, pipelined over 4 units,
+             async at staleness 0 and 1 and under the burst channel:
+             active nodes 4 / 3 / 4, node 2's parameters and shadows
+             frozen bitwise through steps 5-8, resyncs at steps 5 and 9
+             only, the reference's wire bytes (540,218,112), one encode
+             and one combine per active node and unit, packed ==
+             pipelined == async s0 bitwise, step 5 through the plain
+             versions equal to the kernels; the hierarchy sweep (2 pods
+             of 2 nodes, 6 steps) packed, pipelined 4, async s1 and plan
+             B: pod members bitwise replicas after every step, one launch
+             per pod, 3 collectives per step packed, the outer payload
+             plus the inner fp32 bytes; pods 4 == the flat ring and pods
+             1 == ``--algorithm allreduce`` bitwise (3 steps each); a
+             single all-active
+             mask == no membership bitwise; the exchange timed flat, in
+             the hole, at the two resyncs and at pods 2 (its inner mean
+             apart); then ``run_elastic`` (with and without push-sum)
+             and ``run_hierarchical`` (pods 5, 20, 1; pods 20 == ``run``
+             on ``ring(20)`` bitwise) at N 20, P 2^22, 500 counted steps
+             each, and run_elastic through #3 and its plain version
+             bitwise over 20 steps;
 4. serve   — ``repro_torch.launch.serve.main`` on the full smollm-135m:
              32 prompts of 1,984 tokens and 64 new tokens (capacity 2,048,
              a 3.0 GB float32 KV cache): the flash-decode kernel launched
@@ -1636,6 +1660,450 @@ def phase_paper_directed(torch, Q, entries):
     return launches
 
 
+#: elastic membership (``phase_elastic``): the reference's churn sweep
+#: (``benchmarks/consensus_step.py:179-202``, ``CHURN_MASKS`` and
+#: ``CHURN_PERIOD``): node 2 out for schedule epoch 1 of 4-step epochs, 16
+#: steps: nodes 0, 1, 3 at steps 5-8, all four at the others; the resync
+#: at steps 5 and 9 (at 13 the mask has clamped, so none)
+CHURN_SPEC, CHURN_PERIOD, CHURN_STEPS = "2@1:2", 4, 16
+CHURN_ARGV = ("--node-failures", CHURN_SPEC, "--schedule-period",
+              str(CHURN_PERIOD))
+CHURN_ACTIVE = [4] * 4 + [3] * 4 + [4] * 8
+CHURN_RESYNCS = (5, 9)
+CHURN_HOLE = (True, True, False, True)
+#: the reference's wire bytes per step: the int8 payload and the amortized
+#: resync, 271,160,064 + 2 x 262,752 x 512 x 4 / 4
+CHURN_WIRE_BYTES = 540_218_112
+#: the reference's hierarchy sweep (``HIER_PODS``, ``HIER_GOSSIP_STEPS``,
+#: ``benchmarks/consensus_step.py:218-232``): 2 pods of 2 of the 4 nodes
+HIER_PODS, HIER_STEPS = 2, 6
+#: the paper path's membership (nodes 3 and 7 of 20 out for epochs 1-2
+#: and 2-3 of 50 steps) and pod counts
+PAPER_MEMBERSHIP, PAPER_EPOCH = "3@1:3;7@2:4", 50
+PAPER_PODS = (5, 20, 1)
+
+
+class ElasticWatch:
+    """Within the block every ``ConsensusRuntime.exchange`` is watched
+    (no kernel launches of its own): per step its resync flag and active
+    ring elements, whether every inactive element's nodes came out with
+    their parameters, ``x_tilde`` and ``m_agg`` bitwise as they went in
+    (``frozen``), and, on the pod ring, whether every pod's members are
+    bitwise equal after it (``replicas``)."""
+
+    def __init__(self, torch):
+        self.torch, self.steps = torch, []
+
+    def __enter__(self):
+        from repro_torch.core import distributed as Dist
+        torch, watch = self.torch, self
+        self.real = real = Dist.ConsensusRuntime.exchange
+
+        def spy(rt, x_prev, x_half, state, step, seed=0, noise=None):
+            got = real(rt, x_prev, x_half, state, step, seed, noise)
+            x_next, new, _ = got
+            wiring, m = rt.wiring_at(step), rt.pod_size
+            out = [i for e in wiring.inactive
+                   for i in range(e * m, (e + 1) * m)]
+            frozen = all(torch.equal(a[i], b[i]) for i in out
+                         for a, b in zip(tree_leaves(x_next),
+                                         tree_leaves(x_prev)))
+            frozen = frozen and all(torch.equal(new[k][i], state[k][i])
+                                    for i in out
+                                    for k in ("x_tilde", "m_agg"))
+            replicas = None
+            if m > 1 and rt.ring_len > 1:
+                replicas = all(
+                    torch.equal(a[i], a[i - i % m])
+                    for a in tree_leaves(x_next) + list(new.values())
+                    for i in range(rt.n_nodes))
+            watch.steps.append({"step": step, "resync": rt.resync_at(step),
+                                "active": wiring.active, "frozen": frozen,
+                                "replicas": replicas})
+            return got
+
+        Dist.ConsensusRuntime.exchange = spy
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        from repro_torch.core import distributed as Dist
+        Dist.ConsensusRuntime.exchange = self.real
+        return False
+
+
+def phase_elastic(torch, Q, D, train, entries):
+    """Elastic membership and the two-level hierarchy on the full
+    smollm-135m x 4 nodes, each run counted on its own and watched
+    (``ElasticWatch``, ``ExchangeWatch``): (a) the churn sweep, 16 steps
+    on packed, pipelined 4 units, async at staleness 0 and 1, and packed
+    under the burst channel: 4 / 3 / 4 active, node 2 frozen bitwise
+    through steps 5-8, resyncs at 5 and 9 only, the reference's wire
+    bytes, launches per active node, packed == pipelined == async s0
+    bitwise, step 5 through the plain versions equal to the kernels, zero
+    payloads and delivered bytes as the burst mask says for the active
+    receivers; (b) the hierarchy sweep, 6 steps: pods 2 packed, pipelined
+    4, async s1 and plan B (members bitwise replicas after every step, 3
+    collectives per step packed, the outer payload plus the inner fp32
+    bytes), pods 4 == the flat ring and pods 1 == ``--algorithm
+    allreduce`` bitwise (3 steps each); then the exchange timed (``phase_elastic_timing``)
+    and the paper path (``phase_paper_elastic``).  Returns (launches, step
+    s, exchange ms, peak GB)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import faults
+    from repro_torch.core.hierarchy import HierarchySpec
+    launches_total = {name: 0 for name in entries}
+    step_s, peak_gb, finals = {}, {}, {}
+    payload = WIRE_BYTES["int8"] // 2
+    pipelined = ("--wire-packing", "pipelined", "--pipeline-chunks",
+                 str(PIPELINE_CHUNKS))
+    burst = faults.GilbertElliottLoss(p=0.1, r=0.9, seed=LOSS_SEED,
+                                      n_nodes=NODES)
+    masks = [CHURN_HOLE if 5 <= k <= 8 else (True,) * NODES
+             for k in range(1, CHURN_STEPS + 1)]
+    # (label, extra flags, transfer units, loss model, plain-check step)
+    runs = [("churn packed", (), 1, None, CHURN_RESYNCS[0]),
+            ("churn pipelined 4", pipelined, PIPELINE_CHUNKS, None, None),
+            ("churn async s0", ("--wire-packing", "async", "--staleness",
+                                "0"), 1, None, None),
+            ("churn async s1", ("--wire-packing", "async", "--staleness",
+                                "1"), 1, None, CHURN_RESYNCS[0]),
+            ("churn burst", ("--link-loss-model", CHURN_BURST,
+                             "--loss-seed", str(LOSS_SEED)), 1, burst,
+             None)]
+    for label, extra, units, model, plain in runs:
+        with CardSampler() as card, ExchangeWatch(
+                torch, Q, D, plain) as watch, ElasticWatch(torch) as ew:
+            (hist, state), launches, peak = run_counted(
+                torch, train, entries,
+                train_argv(CHURN_STEPS, *CHURN_ARGV, *extra),
+                return_state=True)
+        peak_gb[label] = max(peak, watch.peak_gb)
+        per_node = units * sum(CHURN_ACTIVE)
+        want = {name: 0 for name in entries}
+        want["quantize_payload"] = want["dequant_combine_payload"] = per_node
+        losses = [h["loss"] for h in hist]
+        got = ([h["active_nodes"] for h in hist],
+               [r["step"] for r in ew.steps if r["resync"]],
+               {h["wire_bytes_per_step"] for h in hist},
+               all(r["frozen"] for r in ew.steps),
+               [r["active"] for r in ew.steps][4])
+        if launches != want or not all(math.isfinite(x) for x in losses) \
+                or abs(losses[0] - math.log(49152)) > 0.5 \
+                or got != (CHURN_ACTIVE, list(CHURN_RESYNCS),
+                           {CHURN_WIRE_BYTES}, True, [0, 1, 3]):
+            fail(f"elastic {label}: launched {launches} (want {want}), "
+                 f"losses {losses}, active / resyncs / wire bytes / frozen "
+                 f"/ step-5 active {got}")
+        if plain and not watch.plain_equal:
+            fail(f"elastic {label}: step {plain}'s exchange through the "
+                 "plain versions differs from the kernels'")
+        drops = []
+        for rec, mask in zip(watch.steps, masks):
+            act = np.asarray(mask)
+            keep = (np.ones((2, NODES), bool) if model is None
+                    else arrival_mask(model, rec["step"], NODES))
+            d = int((~keep)[:, act].sum())
+            delivered = np.where(act, keep.sum(axis=0), 0).astype(
+                np.float32)
+            if rec["zero"] != units * d or (model is not None and (
+                    not np.array_equal(rec["wire_bytes_delivered"],
+                                       delivered * np.float32(payload))
+                    or not np.array_equal(rec["delivered_frac"],
+                                          delivered / 2))):
+                fail(f"elastic {label} step {rec['step']}: {rec['zero']} "
+                     f"zero payloads (want {units} x {d}), delivered "
+                     f"{rec.get('delivered_frac')}")
+            drops.append(d)
+        for name, n in launches.items():
+            launches_total[name] += n
+        step_s[label] = statistics.median(h["step_s"] for h in hist[1:])
+        if label in ("churn packed", "churn pipelined 4", "churn async s0"):
+            finals[label] = host_state(state)
+        del state
+        print(f"[elastic] {label}: {CHURN_STEPS} steps, active_nodes "
+              f"{got[0]}; node 2 frozen bitwise through steps 5-8; resyncs "
+              f"at {got[1]}; launches {({n: v for n, v in launches.items() if v})} "
+              f"(one per active node and unit); wire_bytes_per_step "
+              f"{CHURN_WIRE_BYTES}; "
+              + (f"step {plain} through the plain versions bitwise equal; "
+                 if plain else "")
+              + (f"dropped arrivals at active nodes per step {drops}; "
+                 if model is not None else "")
+              + f"losses {losses}; consensus_err "
+              f"{[h['consensus_err'] for h in hist]}; median step "
+              f"{step_s[label]:.4f} s; peak memory {peak_gb[label]:.2f} GB; "
+              f"card: {card.summary()}", flush=True)
+    base = finals["churn packed"]
+    for label in ("churn pipelined 4", "churn async s0"):
+        if not same_state(torch, base, finals[label]):
+            fail(f"elastic: {label} differs from churn packed")
+    print("[elastic] churn: packed == pipelined (4 units) == async "
+          "staleness 0 bitwise (params, x_tilde, m_agg)", flush=True)
+    del base
+    finals.clear()
+
+    # (b) the hierarchy sweep
+    layout = full_plan(train, "int8").layout
+    inner = HierarchySpec(HIER_PODS).inner_bytes_per_step(layout.n_elements,
+                                                          NODES)
+    plan_b = {n: v // HIER_PODS for n, v in plan_launches(
+        entries, full_plan(train, PLAN_B)).items() if v}
+    pods2 = ("--hierarchy", f"pods={HIER_PODS}")
+    two = {"quantize_payload": HIER_PODS, "dequant_combine_payload": HIER_PODS}
+    # (label, flags, launches per step, collectives, wire bytes)
+    hruns = [("pods=2 packed", pods2, two, 3.0, WIRE_BYTES["int8"] + inner),
+             ("pods=2 pipelined 4", (*pods2, *pipelined),
+              {k: v * PIPELINE_CHUNKS for k, v in two.items()},
+              1.0 + 2 * PIPELINE_CHUNKS, WIRE_BYTES["int8"] + inner),
+             ("pods=2 async s1", (*pods2, "--wire-packing", "async"), two,
+              3.0, WIRE_BYTES["int8"] + inner),
+             ("pods=2 plan B", (*pods2, "--wire-plan", PLAN_B), plan_b, 3.0,
+              PLAN_WIRE_BYTES[PLAN_B] + inner),
+             ("pods=4", ("--hierarchy", "pods=4"),
+              {k: 2 * v for k, v in two.items()}, 2.0, WIRE_BYTES["int8"]),
+             ("flat", (), {k: 2 * v for k, v in two.items()}, 2.0,
+              WIRE_BYTES["int8"]),
+             ("pods=1", ("--hierarchy", "pods=1"), {}, 3.0 * N_LEAVES,
+              2.0 * 0.75 * 4 * layout.n_elements),
+             ("allreduce", ("--algorithm", "allreduce"), {},
+              3.0 * N_LEAVES, 0.0)]
+    for label, extra, per_step, coll, wire in hruns:
+        # the degenerate pod counts and their counterparts: half the steps
+        steps = HIER_STEPS if label.startswith("pods=2") else HIER_STEPS // 2
+        with CardSampler() as card, ElasticWatch(torch) as ew:
+            (hist, state), launches, peak_gb[label] = run_counted(
+                torch, train, entries, train_argv(steps, *extra),
+                return_state=True)
+        want = {name: steps * per_step.get(name, 0) for name in entries}
+        losses = [h["loss"] for h in hist]
+        got = ({h["collectives_per_step"] for h in hist},
+               {h["wire_bytes_per_step"] for h in hist},
+               {r["replicas"] for r in ew.steps})
+        rep = {True} if label.startswith("pods=2") else {None}
+        if launches != want or not all(math.isfinite(x) for x in losses) \
+                or got != ({coll}, {wire}, rep):
+            fail(f"elastic {label}: launched {launches} (want {want}), "
+                 f"losses {losses}, collectives / wire bytes / pod replicas "
+                 f"{got}, want {coll}, {wire}, {rep}")
+        for name, n in launches.items():
+            launches_total[name] += n
+        step_s[label] = statistics.median(h["step_s"] for h in hist[1:])
+        if label in ("pods=4", "flat", "pods=1", "allreduce"):
+            finals[label] = host_state(state)
+        del state
+        print(f"[elastic] hierarchy {label}: {steps} steps; launches "
+              f"{({n: v for n, v in launches.items() if v})}; "
+              f"collectives_per_step {coll}; wire_bytes_per_step {wire:.0f}"
+              + (" (outer payload + inner fp32 "
+                 f"{inner:.0f}); pod members bitwise replicas after every "
+                 "step" if label.startswith("pods=2") else "")
+              + f"; losses {losses}; consensus_err "
+              f"{[h.get('consensus_err') for h in hist]}; median step "
+              f"{step_s[label]:.4f} s; peak memory {peak_gb[label]:.2f} GB; "
+              f"card: {card.summary()}", flush=True)
+    if not same_state(torch, finals["pods=4"], finals["flat"]):
+        fail("elastic: pods=4 differs from the flat ring")
+    if not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(finals["pods=1"]["params"]),
+            tree_leaves(finals["allreduce"]["params"]))):
+        fail("elastic: pods=1 differs from --algorithm allreduce")
+    print("[elastic] pods=4 == the flat ring bitwise (params, x_tilde, "
+          "m_agg); pods=1 == --algorithm allreduce bitwise (params)",
+          flush=True)
+    del finals
+    exchange_ms = phase_elastic_timing(torch, train)
+    for name, n in phase_paper_elastic(torch, Q, entries).items():
+        launches_total[name] += n
+    return launches_total, step_s, exchange_ms, peak_gb
+
+
+def phase_elastic_timing(torch, train):
+    """One 4-node int8 exchange (fixed grid) of the full smollm-135m state,
+    CUDA events: the flat ring, a single all-active mask (its outputs
+    bitwise the flat ring's), the hole mask (node 2 out), the churn
+    schedule at step 5 (a resync into the hole) and step 9 (a resync out
+    of it, 4 active) against step 2 (no resync), and pods=2 whole and its
+    inner mean alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
+    setup = train.build_train_setup(get_config("smollm-135m"),
+                                    consensus_nodes=NODES, device="cuda")
+    params = train.init_train_state(setup, 0)["params"]
+    x_half = T.tree_map(lambda a: a + 1e-4, params)
+    churn = (tuple([True] * NODES), CHURN_HOLE, tuple([True] * NODES))
+    flat = ConsensusRuntime(ConsensusConfig(), NODES)
+    allm = ConsensusRuntime(ConsensusConfig(membership=(churn[0],)), NODES)
+    a = flat.exchange(params, x_half, flat.init_state(params), 2)
+    b = allm.exchange(params, x_half, allm.init_state(params), 2)
+    if not (all(torch.equal(p, q) for p, q in zip(tree_leaves(a[0]),
+                                                  tree_leaves(b[0])))
+            and all(torch.equal(a[1][k], b[1][k]) for k in a[1])):
+        fail("elastic: an all-active mask differs from no membership")
+    del a, b
+    print("[elastic] one full-width exchange under a single all-active "
+          "mask == without membership, bitwise", flush=True)
+    ms = {}
+    for label, kw, step in (
+            ("flat", {}, 2), ("all-active mask", {"membership": (churn[0],)},
+                              2),
+            ("hole (3 active)", {"membership": (CHURN_HOLE,)}, 2),
+            ("churn step 5 (resync, 3 active)",
+             {"membership": churn, "schedule_period": CHURN_PERIOD}, 5),
+            ("churn step 9 (resync, 4 active)",
+             {"membership": churn, "schedule_period": CHURN_PERIOD}, 9),
+            ("pods=2", {"hierarchy": HIER_PODS}, 2),
+            ("flat, again", {}, 2)):
+        rt = ConsensusRuntime(ConsensusConfig(**kw), NODES)
+        cons = rt.init_state(params)
+        with CardSampler() as card:
+            ms[label] = time_ms(lambda: rt.exchange(params, x_half, cons,
+                                                    step), reps=5)
+        print(f"[timing] one 4-node {label} exchange at step {step}: "
+              f"{ms[label]:.2f} ms; card: {card.summary()}", flush=True)
+        if label == "pods=2":
+            with CardSampler() as card:
+                ms["pods=2 inner mean"] = time_ms(
+                    lambda: rt._pod_mean_delta(params, x_half), reps=5)
+            print(f"[timing] pods=2 inner mean alone: "
+                  f"{ms['pods=2 inner mean']:.2f} ms, so the outer "
+                  f"exchange {ms['pods=2'] - ms['pods=2 inner mean']:.2f} "
+                  f"ms; card: {card.summary()}", flush=True)
+        del cons
+    del params, x_half, setup
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_paper_elastic(torch, Q, entries):
+    """The paper path at N 20, P 2^22 (``paper_circle_problem``'s data,
+    int8 fixed through #3): ``run_elastic`` under ``MembershipSchedule.
+    from_spec(PAPER_MEMBERSHIP, 20)`` with PAPER_EPOCH-step epochs, with
+    and without push-sum; ``run_hierarchical`` at pods 5, 20 and 1, pods
+    20 bitwise ``run`` on ``ring(20)``; PAPER_STEPS counted steps each;
+    then run_elastic with push-sum through #3 and through its plain
+    version over TRAJECTORY_STEPS, bitwise equal.  Returns the launches."""
+    from repro_torch.core import compression as C
+    from repro_torch.core import consensus as K
+    from repro_torch.core import problems as P
+    from repro_torch.core import topology as T
+    prob = P.paper_circle_problem(PAPER_NODES, seed=0, dim=PAPER_DIM,
+                                  device="cuda")
+    step = K.StepSize(0.01, eta=0.5)
+    fixed = C.Int8BlockQuantizer(mode="fixed")
+    alg = K.ADCDGD(T.ring(PAPER_NODES), fixed, step)
+    mem = T.MembershipSchedule.from_spec(PAPER_MEMBERSHIP, PAPER_NODES)
+    active = np.asarray([sum(mem.mask_at(i // PAPER_EPOCH))
+                         for i in range(PAPER_STEPS)], np.float32)
+    rejoins = sum(len(mem.rejoiners_at(e)) for e in range(
+        1, min(mem.n_epochs, -(-PAPER_STEPS // PAPER_EPOCH))))
+    for entry in entries.values():
+        entry.launches = 0
+    want = {name: 0 for name in entries}
+
+    def timed(fn, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events = []
+        r = fn(step_events=events, **kw)
+        ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        return r, statistics.median(ms[PAPER_STEP0:]), \
+            torch.cuda.max_memory_allocated() / 1e9
+
+    per_iter = alg.bytes_per_iteration(prob)
+    for push in (False, True):
+        label = f"run_elastic{' push-sum' if push else ''}"
+        r, ms, gb = timed(lambda **kw: K.run_elastic(
+            alg, prob, PAPER_STEPS, mem, schedule_period=PAPER_EPOCH,
+            push_sum=push, **kw))
+        want["quantize_blocks"] += PAPER_STEPS
+        finite = all(np.isfinite(r[m]).all() for m in
+                     ("obj", "grad_norm", "consensus", "max_tx", "x_final"))
+        nbytes = np.cumsum(per_iter * (active / np.float32(PAPER_NODES)))
+        ok = (finite and np.array_equal(r["active_nodes"], active)
+              and np.allclose(r["bytes"], nbytes, rtol=1e-6))
+        extra = ""
+        if push:
+            ps = r["ps_w_final"]
+            # mixing and the handoff keep the weights' sum; each rejoin's
+            # warm restart re-seeds one weight at 1.  The float32 columns
+            # of W sum to 1 within 2^-24 (f32(1/3) x 3), so each step may
+            # move the sum by that share
+            total = PAPER_NODES + rejoins
+            ok = ok and ps.min() > 0 and abs(float(ps.sum()) - total) \
+                <= total * PAPER_STEPS * 2.0 ** -24
+            extra = (f"; ps_w_final {float(ps.min())!r}-"
+                     f"{float(ps.max())!r}, sum {float(ps.sum())!r} "
+                     f"({PAPER_NODES} + {rejoins} rejoins)")
+        if not ok:
+            fail(f"paper {label}: finite {finite}, active "
+                 f"{r['active_nodes'][::PAPER_EPOCH]}, bytes "
+                 f"{r['bytes'][-1]} (want {nbytes[-1]}){extra}")
+        print(f"[paper] {label} under {PAPER_MEMBERSHIP!r} ({PAPER_EPOCH}-"
+              f"step epochs), {PAPER_STEPS} steps: step {ms:.4f} ms (CUDA "
+              f"events, median of steps {PAPER_STEP0}-{PAPER_STEPS}); "
+              f"active per epoch {r['active_nodes'][::PAPER_EPOCH].tolist()}"
+              f"; final grad_norm {r['grad_norm'][-1]!r}, consensus "
+              f"{r['consensus'][-1]!r}; {r['bytes'][-1]:.0f} bytes{extra}; "
+              f"peak memory {gb:.2f} GB", flush=True)
+    hier = {}
+    for pods in PAPER_PODS:
+        r, ms, gb = timed(lambda **kw: K.run_hierarchical(
+            prob, pods, PAPER_STEPS, compressor=fixed, stepsize=step, **kw))
+        hier[pods] = r
+        if pods > 1:
+            want["quantize_blocks"] += PAPER_STEPS
+        if not all(np.isfinite(r[m]).all() for m in
+                   ("obj", "grad_norm", "consensus", "x_final")):
+            fail(f"paper run_hierarchical pods {pods}: non-finite metrics")
+        print(f"[paper] run_hierarchical pods {pods} (pod size "
+              f"{r['pod_size']}), {PAPER_STEPS} steps: step {ms:.4f} ms; "
+              f"final grad_norm {r['grad_norm'][-1]!r}, consensus "
+              f"{r['consensus'][-1]!r}; bytes outer "
+              f"{r['bytes_outer'][-1]:.0f} + inner {r['bytes_inner'][-1]:.0f}"
+              f"; peak memory {gb:.2f} GB", flush=True)
+    flat = K.run(K.ADCDGD(T.ring(PAPER_NODES, 0.5), fixed, step), prob,
+                 PAPER_STEPS)
+    want["quantize_blocks"] += PAPER_STEPS
+    if not all(np_equal(hier[PAPER_NODES][k], flat[k]) for k in
+               ("x_final", "obj", "grad_norm", "consensus", "max_tx",
+                "bytes")):
+        fail("paper: run_hierarchical at pods 20 differs from run on "
+             "ring(20)")
+    launches = {name: entry.launches for name, entry in entries.items()}
+    if launches != want:
+        fail(f"paper path under membership and hierarchy launched "
+             f"{launches}, want {want}")
+    print(f"[paper] run_hierarchical pods {PAPER_NODES} == run on "
+          f"ring({PAPER_NODES}) bitwise (x_final, metrics, bytes); launches "
+          f"{({n: v for n, v in launches.items() if v})}", flush=True)
+    # 4-step epochs: the 5 epochs of the schedule fit in the run, which
+    # ends with every node active (a departed node's x / ps_w is 0 / 0)
+    kern = K.run_elastic(alg, prob, TRAJECTORY_STEPS, mem,
+                         schedule_period=TRAJECTORY_STEPS // 5,
+                         push_sum=True, key=5)
+    real = Q.quantize_blocks
+    Q.quantize_blocks = Q.quantize_blocks_plain
+    try:
+        plain = K.run_elastic(alg, prob, TRAJECTORY_STEPS, mem,
+                              schedule_period=TRAJECTORY_STEPS // 5,
+                              push_sum=True, key=5)
+    finally:
+        Q.quantize_blocks = real
+    for name in ("x_final", "ps_w_final", "obj", "grad_norm", "consensus",
+                 "max_tx", "bytes", "active_nodes"):
+        if not np_equal(kern[name], plain[name]):
+            fail(f"run_elastic through kernel #3 and through its plain "
+                 f"version differ in {name}")
+    print(f"[paper] run_elastic push-sum through kernel #3 and through "
+          f"quantize_blocks_plain: bitwise equal over {TRAJECTORY_STEPS} "
+          "steps across the outages (x_final, ps_w_final, metrics)",
+          flush=True)
+    del prob
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_perleaf(torch, train, entries):
     """The per-leaf transport and compressed_dgd on the full smollm-135m x
     4 nodes, each run counted on its own."""
@@ -2691,6 +3159,13 @@ def main() -> None:
      fault_peak_gb) = phase_faults(torch, Q, D, train, entries)
     for name, n in fault_launches.items():
         launches[name] += n
+    t0 = time.perf_counter()
+    (elastic_launches, elastic_step_s, elastic_exchange_ms,
+     elastic_peak_gb) = phase_elastic(torch, Q, D, train, entries)
+    print(f"[elastic] phase_elastic: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, n in elastic_launches.items():
+        launches[name] += n
     serve_launches, _ = phase_serve(torch, serve, entries)
     launches["gqa_decode"] += serve_launches["gqa_decode"]
     phase_serve_profile(torch, G)
@@ -2736,6 +3211,18 @@ def main() -> None:
           f"directed ring {dirl - sym:.2f} ms and "
           f"{fault_exchange_gb['directed'] - fault_exchange_gb['symmetric']:.2f}"
           f" GB of peak; card {smi}")
+    for label in elastic_step_s:
+        print(f"[summary] elastic {label}: step "
+              f"{elastic_step_s[label]:.4f} s, peak memory "
+              f"{elastic_peak_gb[label]:.2f} GB, card {smi}")
+    flat = elastic_exchange_ms["flat"]
+    print(f"[summary] 4-node elastic exchange: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                      elastic_exchange_ms.items())
+          + f"; the hole epoch {elastic_exchange_ms['hole (3 active)'] / flat:.3f}"
+          f" of the flat exchange, the resync at 4 nodes adds "
+          f"{elastic_exchange_ms['churn step 9 (resync, 4 active)'] - flat:.2f}"
+          f" ms; card {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

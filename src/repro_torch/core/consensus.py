@@ -47,7 +47,12 @@ de-biased ratio ``z = x / ps_w``; ``run`` reports metrics of ``z`` (the
 network mean ``sum(x) / sum(ps_w)``), the de-biased ``x_final`` and
 ``ps_w_final``.  ``DGD``, ``DGDt`` and ``CompressedDGD`` mix a directed
 matrix as they mix any other.  Each directed edge carries one message.
-Elastic membership and hierarchy are not ported yet: they raise.
+
+``run_elastic`` runs ADC-DGD under a :class:`~repro_torch.core.topology.
+MembershipSchedule` (inactive nodes frozen, the survivors mixed by each
+epoch's matrix, with push-sum's mass handoff and rejoin warm-restart), and
+``run_hierarchical`` the two-level rule: exact pod means
+(``pod_problem``), then ADC-DGD over the ring of pods.
 """
 from __future__ import annotations
 
@@ -61,7 +66,9 @@ import torch
 from .compression import Compressor, IdentityCompressor
 from .f32 import f32, over_power, power, recip
 from .problems import ConsensusProblem
-from .topology import MixingMatrix, TopologySchedule
+from .hierarchy import HierarchySpec
+from .topology import (MembershipSchedule, MixingMatrix, TopologySchedule,
+                       fully_connected, ring)
 from .wireplan import WirePlanCompressor
 
 __all__ = [
@@ -100,10 +107,6 @@ class StepSize:
 def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     """A float32 0-dim tensor on ``like``'s device (a fill, no copy)."""
     return torch.full((), v, dtype=torch.float32, device=like.device)
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not yet ported")
 
 
 class _Algorithm:
@@ -683,16 +686,239 @@ def run_many(
             for name in trials[0]}
 
 
-def run_elastic(*args, **kwargs):
-    _not_ported("run_elastic (elastic membership)")
+def run_elastic(
+    algorithm: _Algorithm,
+    problem: ConsensusProblem,
+    n_steps: int,
+    membership,
+    *,
+    schedule_period: int = 1,
+    self_weight: float = 0.5,
+    rule: str = "metropolis",
+    push_sum: bool = False,
+    key: int = 0,
+    x0=None,
+    log_every: int = 1,
+    uniforms: Callable[[int], torch.Tensor] | None = None,
+    step_events: list | None = None,
+) -> dict[str, np.ndarray]:
+    """ADC-DGD under elastic membership: the single-process rule of the
+    runtime's ``ConsensusConfig.membership``.
+
+    ``membership`` is a :class:`~repro_torch.core.topology.
+    MembershipSchedule` (or its masks); epoch ``e = k // schedule_period``
+    (0-based step ``k``, clamped to the last epoch) picks the active mask
+    and the Metropolis-Hastings (or ``"ring"``) mixing over the survivors.
+    Per step an inactive node sends a zero differential, takes no gradient
+    step and keeps ``x`` and ``x_tilde`` (``a * x_next + (1 - a) * x``);
+    metrics cover the active nodes, and ``bytes`` bills the full ring's
+    bytes per iteration scaled by the active share.
+
+    ``push_sum=True`` keeps the mass across membership changes: at each
+    epoch boundary a departing node's ``(x, ps_w)`` moves to its nearest
+    survivor (``handoff_at``) and a rejoining node warm-restarts from its
+    nearest continuously active neighbour's de-biased iterate (``x = xt =
+    z_src``, ``ps_w = 1``).  The reference applies the handoff ``T`` on
+    every step, the identity off a boundary; here it is applied at
+    boundaries only: the values are equal, the sign of a zero may differ.
+
+    ``uniforms(i)``, ``key`` and ``step_events`` are as in :func:`run`.
+    Returns :func:`run`'s dict plus ``active_nodes`` per step.  A single
+    all-active mask gives :func:`run`'s dynamics.
+    """
+    if not isinstance(algorithm, ADCDGD):
+        raise ValueError(
+            f"run_elastic supports adc_dgd only, got {algorithm.name!r}")
+    if not isinstance(membership, MembershipSchedule):
+        membership = MembershipSchedule(tuple(membership))
+    n = membership.n_nodes
+    if n != problem.n_nodes:
+        raise ValueError(f"membership has {n} nodes, problem has "
+                         f"{problem.n_nodes}")
+    if schedule_period < 1:
+        raise ValueError(f"schedule_period must be >= 1, got "
+                         f"{schedule_period}")
+    n_ep = max(1, min(membership.n_epochs,
+                      (n_steps + schedule_period - 1) // schedule_period))
+    w_stack = np.stack([
+        np.asarray(membership.mixing_at(e, self_weight=self_weight,
+                                        rule=rule).w, np.float32)
+        for e in range(n_ep)])
+    act_stack = np.stack([
+        np.asarray(membership.mask_at(e), np.float32) for e in range(n_ep)])
+    ep_idx = np.minimum(np.arange(n_steps) // schedule_period,
+                        n_ep - 1).astype(np.int32)
+    dev = problem.device
+    w_dev = torch.as_tensor(w_stack, device=dev)
+    act_dev = torch.as_tensor(act_stack, device=dev)[:, :, None]
+    draw = _drawer(algorithm, problem, key, uniforms)
+    comp, stepsize, gamma = (algorithm.compressor, algorithm.stepsize,
+                             algorithm.gamma)
+
+    def debias(x, ps):
+        # a departed node handed its mass off, leaving ps_j = 0: its
+        # frozen row must not turn into 0/0
+        return x / torch.where(ps == 0.0, torch.ones_like(ps), ps)
+
+    x0 = _start(problem, n, x0)
+    x = x0 - stepsize(1.0) * problem.grad_fn(x0)
+    xt = x0
+    ps = (torch.ones((n, 1), dtype=torch.float32, device=dev)
+          if push_sum else None)
+    cols = {"obj": [], "grad_norm": [], "consensus": [], "max_tx": [],
+            "alpha": [], "active_nodes": []}
+    inv_n = float(recip(n))
+    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for i in range(n_steps):
+            if step_events is not None:
+                step_events.append(_event())
+            e = int(ep_idx[i])
+            w, a = w_dev[e], act_dev[e]
+            if push_sum and i > 0 and e != int(ep_idx[i - 1]):
+                t = torch.as_tensor(membership.handoff_at(e),
+                                    dtype=torch.float32, device=dev)
+                x, ps = t @ x, t @ ps                  # mass handoff
+                sources = membership.rejoin_sources_at(e)
+                if sources:
+                    x, xt, ps = x.clone(), xt.clone(), ps.clone()
+                    for j, src in sources.items():      # warm restart
+                        z = debias(x[src], ps[src])
+                        x[j], xt[j] = z, z
+                        ps[j] = 1.0
+            k = f32(i + 1)
+            kg = power(k, gamma)
+            y = (x - xt) * a                           # inactive: zero
+            d = comp.apply(float(kg) * y, draw(i)) * a
+            xt_new = xt + d / _scalar(kg, d)
+            grads = problem.grad_fn(debias(x, ps) if push_sum else x) * a
+            alpha = stepsize(k)
+            x_next = w @ xt_new - alpha * grads
+            x_next = a * x_next + (1.0 - a) * x        # freeze inactive
+            if push_sum:
+                ps = a * (w @ ps) + (1.0 - a) * ps
+            x, xt = x_next, xt_new
+            m = float(act_stack[e].sum())
+            if push_sum:
+                zz = debias(x, ps)
+                x_bar = (a * x).sum(dim=0) / (a * ps).sum()
+            else:
+                zz = x
+                x_bar = (a * x).sum(dim=0) / _scalar(m, x)
+            cols["obj"].append(problem.global_obj(x_bar))
+            cols["grad_norm"].append(torch.linalg.vector_norm(
+                problem.global_grad(x_bar)) * inv_n)
+            cols["consensus"].append(torch.linalg.vector_norm(
+                (zz - x_bar) * a))
+            cols["max_tx"].append(_max_abs(d))
+            cols["alpha"].append(alpha)
+            cols["active_nodes"].append(m)
+        if step_events is not None:
+            step_events.append(_event())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    sl = slice(log_every - 1, None, log_every)
+    result = {name: torch.stack(cols[name]).cpu().numpy()[sl]
+              for name in ("obj", "grad_norm", "consensus", "max_tx")}
+    result["alpha"] = np.asarray(cols["alpha"], np.float32)[sl]
+    result["active_nodes"] = np.asarray(cols["active_nodes"],
+                                        np.float32)[sl]
+    # the full ring's bytes per iteration times the active share: a
+    # compacted ring of m survivors carries 2m of the full ring's 2n
+    # messages
+    per_iter = algorithm.bytes_per_iteration(problem)
+    frac = act_stack.sum(axis=1)[ep_idx] / float(n)
+    result["bytes"] = np.cumsum(per_iter * frac)[sl]
+    result["x_final"] = (x if ps is None else x / ps).cpu().numpy()
+    if ps is not None:
+        result["ps_w_final"] = ps.cpu().numpy()
+    return result
 
 
-def pod_problem(*args, **kwargs):
-    _not_ported("pod_problem (two-level hierarchy)")
+def pod_problem(problem: ConsensusProblem, pods: int) -> ConsensusProblem:
+    """An ``n``-node problem as its ``pods``-node outer problem under the
+    two-level hierarchy: pod ``g`` is one node with objective ``f_g =
+    (1/m) sum_{i in pod g} f_i``, its gradient rows the pod means of the
+    members' gradients at the pod iterate; ``global_obj`` and
+    ``global_grad`` scale by ``1/m`` (so ``grad_norm`` reads as the flat
+    run's).  The minimizer is unchanged."""
+    spec = HierarchySpec.from_spec(pods)
+    m = spec.pod_size(problem.n_nodes)
+
+    def grad_fn(x_pods, key=None):
+        g = problem.grad_fn(x_pods.repeat_interleave(m, dim=0))
+        return g.reshape(spec.pods, m, -1).mean(dim=1)
+
+    return dataclasses.replace(
+        problem, n_nodes=spec.pods, grad_fn=grad_fn,
+        global_obj=lambda x: problem.global_obj(x) / m,
+        global_grad=lambda x: problem.global_grad(x) / m,
+        name=f"{problem.name}/pods={spec.pods}")
 
 
-def run_hierarchical(*args, **kwargs):
-    _not_ported("run_hierarchical (two-level hierarchy)")
+def run_hierarchical(
+    problem: ConsensusProblem,
+    pods: int,
+    n_steps: int,
+    *,
+    compressor: Compressor | None = None,
+    stepsize: StepSize,
+    gamma: float = 1.0,
+    self_weight: float = 0.5,
+    key: int = 0,
+    x0=None,
+    log_every: int = 1,
+    uniforms: Callable[[int], torch.Tensor] | None = None,
+    step_events: list | None = None,
+) -> dict[str, np.ndarray]:
+    """Two-level hierarchical ADC-DGD: each pod of ``m = n // pods``
+    members averages exactly (:func:`pod_problem`), the pods run
+    compressed ADC-DGD on the ``pods``-node ring; the effective mixing is
+    ``W_outer (x) (1/m) 11^T`` (``topology.hierarchical_mixing``).
+
+    ``pods == n`` is :func:`run` of ``ADCDGD(ring(n, self_weight), ...)``
+    on the problem itself; ``pods == 1`` runs ADC-DGD on
+    ``fully_connected(1)`` with the identity compressor (gradient descent
+    on the mean objective; nothing on the wire).  ``x0`` may be ``(pods,
+    P)``, ``(P,)`` or ``(n, P)`` with pod-identical rows (the
+    representatives ``x0[::m]`` are taken).
+
+    Returns :func:`run`'s dict over the outer problem with ``x_final``
+    expanded to ``(n, P)``, plus ``bytes_outer`` (:func:`run`'s bytes),
+    ``bytes_inner`` (the fp32 ring all-reduce model, 0 for singleton pods),
+    ``bytes`` = inner + outer, ``pods`` and ``pod_size``."""
+    spec = HierarchySpec.from_spec(pods)
+    n = problem.n_nodes
+    m = spec.pod_size(n)
+    if compressor is None:
+        compressor = IdentityCompressor()
+    pp = problem if m == 1 else pod_problem(problem, spec.pods)
+    if x0 is not None:
+        x0 = torch.as_tensor(x0, dtype=torch.float32, device=problem.device)
+        if x0.ndim == 1:
+            x0 = x0[None].expand(spec.pods, x0.shape[0])
+        elif x0.shape[0] == n and m > 1:
+            x0 = x0[::m]
+    if spec.pods == 1:
+        outer = ADCDGD(mixing=fully_connected(1),
+                       compressor=IdentityCompressor(), stepsize=stepsize,
+                       gamma=gamma)
+    else:
+        outer = ADCDGD(mixing=ring(spec.pods, self_weight),
+                       compressor=compressor, stepsize=stepsize, gamma=gamma)
+    out = run(outer, pp, n_steps, key=key, x0=x0, log_every=log_every,
+              uniforms=uniforms, step_events=step_events)
+    out["x_final"] = np.repeat(out["x_final"], m, axis=0)
+    sl = slice(log_every - 1, None, log_every)
+    inner_per_step = spec.inner_bytes_per_step(problem.dim, n) * n
+    out["bytes_outer"] = out["bytes"]
+    out["bytes_inner"] = (inner_per_step
+                          * (np.arange(n_steps, dtype=np.float64) + 1))[sl]
+    out["bytes"] = out["bytes_outer"] + out["bytes_inner"]
+    out["pods"] = spec.pods
+    out["pod_size"] = m
+    return out
 
 
 def on_wire_plan(name: str, mixing: MixingMatrix | TopologySchedule, plan,

@@ -77,7 +77,26 @@ state carries ``ps_w`` ``(N, 1)`` and the last-seen neighbour weights
 homogeneous ring) and the combine is de-biased by ``ps_w'``.  A dropped
 or failed-resync weight is the stale ``ps_nbr``.
 
-Membership and hierarchy are not ported: their config fields raise.
+Elastic membership (``membership``: per-epoch masks of active ring
+elements, the last mask held once reached): the survivors form a
+compacted ring in active-position order, at the epoch's stride (stride 1
+where the stride has no meaning on the smaller ring), read from one
+neighbour table per (stride, mask) (:meth:`ConsensusRuntime.wiring_at`).
+An inactive element freezes its parameters and shadows bitwise, sends
+nothing and receives nothing, and its per-node metrics read 0; the
+exchange encodes and combines only the active elements.  The resync fires
+at the first step of every epoch after the first (with one stride, until
+the mask has clamped) and rebuilds ``m_agg`` over the new active set.
+
+Two-level hierarchy (``hierarchy``: ``pods`` groups of ``m`` consecutive
+nodes, ``core.hierarchy``): every pod first averages its optimizer delta
+in fp32 (``x_prev + sum_pod(x_half - x_prev) / m``), then the pods run the
+compressed exchange on the pod ring, whose elements the loss model and
+membership masks index.  Pod members are bitwise replicas of their
+representative (all nodes share x0), so the exchange runs on the
+representatives' rows alone, one launch per pod, and its results are
+copied to the members.  ``pods == n`` is the flat ring; ``pods == 1`` is
+the ``allreduce`` exchange.
 """
 from __future__ import annotations
 
@@ -94,9 +113,11 @@ from repro_torch.core import faults
 from repro_torch.core import tree as T
 from repro_torch.core import wire, wireplan
 from repro_torch.core.f32 import over_power, recip
+from repro_torch.core.hierarchy import HierarchySpec
 from repro_torch.kernels import ops as kops
 
-__all__ = ["ConsensusConfig", "ConsensusRuntime", "noise_seed"]
+__all__ = ["ConsensusConfig", "ConsensusRuntime", "HierarchySpec", "Wiring",
+           "noise_seed"]
 
 ALGORITHMS = ("adc_dgd", "dgd", "compressed_dgd", "allreduce", "none")
 WIRE_PACKINGS = ("packed", "pipelined", "per_leaf", "async")
@@ -142,18 +163,15 @@ class ConsensusConfig:
     #: None: on iff the topology is directed; True forces the weight
     #: machinery on the symmetric ring (where the weight stays 1)
     push_sum: bool | None = None
-    membership: tuple | None = None       # not yet ported
-    hierarchy: Any = None                 # not yet ported
+    #: per-epoch masks of active ring elements (``MembershipSchedule.
+    #: masks``); epoch e uses ``masks[min(e, len - 1)]``.  None runs no
+    #: membership machinery; a single all-active mask gives its bits
+    membership: tuple | None = None
+    #: two-level consensus: a HierarchySpec, an int pod count or "pods=P"
+    #: (normalized to a HierarchySpec); None is the flat ring
+    hierarchy: Any = None
 
     def __post_init__(self):
-        if self.membership is not None:
-            raise NotImplementedError(
-                "ConsensusConfig.membership (elastic membership) is not yet "
-                "ported")
-        if self.hierarchy is not None:
-            raise NotImplementedError(
-                "ConsensusConfig.hierarchy (two-level consensus) is not yet "
-                "ported")
         if not self.ring_strides:
             raise ValueError("ring_strides must be non-empty")
         if self.schedule_period < 1:
@@ -237,9 +255,51 @@ class ConsensusConfig:
                     "straggler deadlines are a property of the one-step-"
                     "stale transport: straggle_rate requires "
                     "wire_packing='async' with staleness=1")
+        if self.membership is not None:
+            masks = self.membership
+            if (not masks or not all(isinstance(m, tuple) for m in masks)
+                    or len({len(m) for m in masks}) != 1):
+                raise ValueError(
+                    "membership must be a non-empty tuple of equal-length "
+                    "per-epoch mask tuples (MembershipSchedule.masks)")
+            for e, m in enumerate(masks):
+                if sum(bool(b) for b in m) < 2:
+                    raise ValueError(
+                        f"membership epoch {e} keeps "
+                        f"{sum(bool(b) for b in m)} active nodes; the "
+                        "surviving ring needs >= 2")
+            if self.wire_packing == "per_leaf":
+                raise ValueError(
+                    "membership requires the packed/pipelined/async "
+                    "transports; the per-leaf reference path predates "
+                    "elasticity")
+            if self.push_sum_enabled or directed:
+                raise ValueError(
+                    "runtime membership supports the symmetric ring only; "
+                    "push-sum mass handoff under churn is reference-side "
+                    "(topology.MembershipSchedule.handoff_at + "
+                    "consensus.run_elastic)")
+        if self.hierarchy is not None:
+            object.__setattr__(
+                self, "hierarchy", HierarchySpec.from_spec(self.hierarchy))
+            if self.algorithm != "adc_dgd":
+                raise ValueError(
+                    "hierarchy composes the inner all-reduce with the "
+                    "compressed adc_dgd outer exchange; algorithm="
+                    f"{self.algorithm!r} does not support it")
+            if directed or self.push_sum_enabled:
+                raise ValueError(
+                    "hierarchical consensus supports the symmetric outer "
+                    "ring only; directed/push-sum pod rings are a "
+                    "follow-up (ROADMAP)")
+            if self.wire_packing == "per_leaf":
+                raise ValueError(
+                    "hierarchy requires the packed/pipelined/async "
+                    "transports; the per-leaf reference path predates it")
         if ((directed or self.push_sum or self.link_loss is not None
              or loss_spec["kind"] != "bernoulli"
-             or self.straggle_rate is not None)
+             or self.straggle_rate is not None
+             or self.membership is not None)
                 and self.algorithm != "adc_dgd"):
             raise ValueError(
                 "directed topology, push_sum, link loss, straggler "
@@ -301,9 +361,11 @@ class ConsensusConfig:
 
     @property
     def schedule_varying(self) -> bool:
-        """Does the wiring ever change at an epoch boundary?  This is what
-        makes the ``m_agg`` resync necessary."""
-        return len(self.ring_strides) > 1
+        """Does the wiring (stride or membership) ever change at an epoch
+        boundary?  This is what makes the ``m_agg`` resync necessary."""
+        return (len(self.ring_strides) > 1
+                or (self.membership is not None
+                    and len(self.membership) > 1))
 
 
 def noise_seed(seed: int, step: int, node: int) -> int:
@@ -314,14 +376,52 @@ def noise_seed(seed: int, step: int, node: int) -> int:
     return int(state[0] & np.uint64(0x7FFF_FFFF_FFFF_FFFF))
 
 
-def _left(i: int, n: int, s: int = 1) -> int:
-    """Ring neighbour whose payload ``ppermute(+s)`` delivers to node i."""
-    return (i - s) % n
+@dataclasses.dataclass(frozen=True)
+class Wiring:
+    """One epoch's ring over the ring elements (nodes, or pods under
+    hierarchy): ``left[i]`` is the element whose payload ``ppermute(+s)``
+    delivers to element i (upstream), ``right[i]`` the one ``ppermute(-s)``
+    delivers (downstream); both None for an inactive element, which
+    receives nothing.  ``mask`` is None when every element is active (the
+    plain shift ring ``i -+ s``); ``n_active`` counts the mask's active
+    elements (all of them without membership)."""
 
+    stride: int
+    left: tuple
+    right: tuple
+    mask: tuple | None
+    n_active: int
 
-def _right(i: int, n: int, s: int = 1) -> int:
-    """Ring neighbour whose payload ``ppermute(-s)`` delivers to node i."""
-    return (i + s) % n
+    @property
+    def active(self) -> list[int]:
+        return [i for i, j in enumerate(self.left) if j is not None]
+
+    @property
+    def inactive(self) -> list[int]:
+        return [i for i, j in enumerate(self.left) if j is None]
+
+    @classmethod
+    def build(cls, n: int, stride: int, mask=None) -> "Wiring":
+        """The ring of ``n`` elements at ``stride``, compacted over the
+        active elements of ``mask`` in active-position order.  A stride
+        with no meaning on the smaller ring (``s % m == 0``, or ``gcd(s,
+        m) > 1``, which would split the survivors) falls back to 1.  An
+        all-active mask is the unmasked ring."""
+        if mask is None or all(mask):
+            return cls(stride, tuple((i - stride) % n for i in range(n)),
+                       tuple((i + stride) % n for i in range(n)), None,
+                       n if mask is None else len(mask))
+        active = [v for v, a in enumerate(mask) if a]
+        m = len(active)
+        s_eff = abs(stride) % m
+        if s_eff == 0 or math.gcd(s_eff, m) != 1:
+            s_eff = 1
+        pos = {v: p for p, v in enumerate(active)}
+        left = tuple(active[(pos[i] - s_eff) % m] if i in pos else None
+                     for i in range(n))
+        right = tuple(active[(pos[i] + s_eff) % m] if i in pos else None
+                      for i in range(n))
+        return cls(stride, left, right, tuple(bool(b) for b in mask), m)
 
 
 def _ring_sum(x: torch.Tensor) -> torch.Tensor:
@@ -364,32 +464,47 @@ class ConsensusRuntime:
         every tier, so its packed state keeps one row order."""
         if n_nodes < 1:
             raise ValueError(f"n_nodes must be >= 1, got {n_nodes}")
-        if n_nodes > 1 and config.algorithm in ("adc_dgd", "dgd",
-                                                "compressed_dgd"):
-            for s in config.ring_strides:
-                if s % n_nodes == 0:
+        hier = config.hierarchy
+        #: nodes per ring element (a pod under hierarchy, else 1) and the
+        #: ring's length: the loss model's receivers, the membership masks
+        #: and the stride checks all index the ``ring_len`` elements
+        self.pod_size = 1 if hier is None else hier.pod_size(n_nodes)
+        self.ring_len = rl = n_nodes // self.pod_size
+        if config.membership is not None:
+            for e, m in enumerate(config.membership):
+                if len(m) != rl:
                     raise ValueError(
-                        f"ring stride {s} is a self-loop on {n_nodes} nodes: "
-                        "the exchange would carry no communication; drop it "
-                        "from ring_strides")
+                        f"membership mask {e} covers {len(m)} ring elements "
+                        f"but the mesh has {rl} "
+                        f"({'pods' if self.pod_size > 1 else 'nodes'})")
+        if rl > 1 and config.algorithm in ("adc_dgd", "dgd",
+                                           "compressed_dgd"):
+            for s in config.ring_strides:
+                if s % rl == 0:
+                    raise ValueError(
+                        f"ring stride {s} is a self-loop on {rl} ring "
+                        "elements: the exchange would carry no "
+                        "communication; drop it from ring_strides")
             # the union over one cycle is the circulant with connection set
             # {+-s}: connected iff gcd(s_1, ..., s_k, n) == 1
-            g = math.gcd(n_nodes, *config.ring_strides)
+            g = math.gcd(rl, *config.ring_strides)
             if g != 1:
                 raise ValueError(
-                    f"ring_strides {config.ring_strides} on {n_nodes} nodes "
-                    f"share the common factor {g}: the union of all schedule "
-                    "epochs splits the ring into disjoint components")
+                    f"ring_strides {config.ring_strides} on {rl} ring "
+                    f"elements share the common factor {g}: the union of "
+                    "all schedule epochs splits the ring into disjoint "
+                    "components")
         self.cfg = config
         self.n_nodes = n_nodes
+        self._wirings: dict = {}
         #: the layout-independent plan recipe (a bare codec name is a
         #: uniform plan)
         self.plan_spec = wireplan.parse_spec(config.wire_codec)
         self.layout_spec = layout_spec or self.plan_spec
         self._plan_cache: dict = {}
-        #: the loss model bound to the node count, and the async
+        #: the loss model bound to the ring elements, and the async
         #: transport's straggler model (None: not configured)
-        self.loss = config.loss_model_for(n_nodes)
+        self.loss = config.loss_model_for(rl)
         self.straggler = config.straggler_model
         #: payloads read as the zero payload so far (one per dropped
         #: arrival per transfer unit): what the exchange really did
@@ -482,15 +597,25 @@ class ConsensusRuntime:
         so more rows than the packed payload of the same tree.  A
         time-varying ring adds the epoch resync of ``adc_dgd``, one fp32
         ``x_tilde`` per ring direction per re-wiring, amortized over
-        ``schedule_period`` steps.  ``dgd`` ships ``wire_dtype``."""
+        ``schedule_period`` steps.  Hierarchy adds the inner level's fp32
+        ring all-reduce (``HierarchySpec.inner_bytes_per_step``), all there
+        is at one pod.  ``dgd`` ships ``wire_dtype``."""
         cfg = self.cfg
         alg = cfg.algorithm
         if alg in ("adc_dgd", "compressed_dgd"):
+            hier = cfg.hierarchy if alg == "adc_dgd" else None
+            inner = (0.0 if hier is None else hier.inner_bytes_per_step(
+                n_params_local, self.n_nodes))
+            if hier is not None and self.ring_len <= 1:
+                return inner         # one pod: the inner level is all
             rows = self._payload_rows(layout)[1]
             resync = 0.0
             if alg == "adc_dgd" and cfg.schedule_varying:
+                # an upper bound under membership, whose resyncs stop
+                # once the mask has clamped
                 resync = 2.0 * rows * kops.BLOCK * 4 / cfg.schedule_period
-            return float(2 * self.bytes_per_direction(layout)) + resync
+            return (float(2 * self.bytes_per_direction(layout)) + resync
+                    + inner)
         if alg == "dgd":
             itemsize = torch.empty((), dtype=cfg.wire_dtype).element_size()
             return float(2 * n_params_local * itemsize)
@@ -519,8 +644,9 @@ class ConsensusRuntime:
         ring direction and transfer unit on the packed, pipelined and async
         wires (2 x units), codes and scales per direction per leaf on the
         per-leaf transport; a time-varying ``adc_dgd`` ring adds its
-        resync's transfers amortized over ``schedule_period`` steps.
-        Without ``layout`` or ``n_chunks`` the pipelined count is the
+        resync's transfers amortized over ``schedule_period`` steps, and
+        hierarchy its inner average (the all-reduce's ``n - 1`` at one
+        pod).  Without ``layout`` or ``n_chunks`` the pipelined count is the
         configured one."""
         cfg, n = self.cfg, self.n_nodes
         alg = cfg.algorithm
@@ -535,13 +661,16 @@ class ConsensusRuntime:
         else:
             chunks = 1.0
         if alg == "adc_dgd":
+            if cfg.hierarchy is not None and self.ring_len <= 1:
+                return float(n - 1) * n_leaves     # the rotation all-reduce
             # the push-sum weight rides the payload's trailer, but is its
             # own scalar transfer per direction in the resync and on every
-            # per-leaf step
+            # per-leaf step; the hierarchy's inner level is one more
             ps = 2.0 if cfg.push_sum_enabled else 0.0
             if cfg.wire_packing == "per_leaf":
                 return 4.0 * n_leaves + ps + 2.0 * n_leaves * resync
-            return 2.0 * chunks + (2.0 * chunks + ps) * resync
+            inner = 1.0 if self.pod_size > 1 else 0.0
+            return inner + 2.0 * chunks + (2.0 * chunks + ps) * resync
         if alg == "compressed_dgd":
             return (4.0 * n_leaves if cfg.wire_packing == "per_leaf"
                     else 2.0 * chunks)
@@ -556,24 +685,55 @@ class ConsensusRuntime:
         return strides[((step - 1) // self.cfg.schedule_period)
                        % len(strides)]
 
+    def mask_at(self, step: int) -> tuple | None:
+        """The membership mask of ``step``'s epoch (clamped to the last
+        mask), or None without membership."""
+        masks = self.cfg.membership
+        if masks is None:
+            return None
+        return masks[min((step - 1) // self.cfg.schedule_period,
+                         len(masks) - 1)]
+
+    def _wiring(self, stride: int, mask=None) -> Wiring:
+        key = (stride, mask)
+        if key not in self._wirings:
+            self._wirings[key] = Wiring.build(self.ring_len, stride, mask)
+        return self._wirings[key]
+
+    def wiring_at(self, step: int) -> Wiring:
+        """The neighbour table of ``step``'s epoch: its stride over the
+        ring compacted by its membership mask."""
+        return self._wiring(self.stride_at(step), self.mask_at(step))
+
     def resync_at(self, step: int) -> bool:
         """Does ``step`` open a re-wired epoch (every epoch but the first
-        of a time-varying ring), so that ``adc_dgd`` rebuilds ``m_agg``?"""
-        return (self.cfg.schedule_varying and step > 1
-                and (step - 1) % self.cfg.schedule_period == 0)
+        of a time-varying ring or membership), so that ``adc_dgd`` rebuilds
+        ``m_agg``?  With membership and one stride the wiring stops
+        changing once the mask has clamped, and so do the resyncs."""
+        cfg = self.cfg
+        if not (cfg.schedule_varying and step > 1
+                and (step - 1) % cfg.schedule_period == 0):
+            return False
+        if cfg.membership is not None and len(cfg.ring_strides) == 1:
+            return (step - 1) // cfg.schedule_period <= len(
+                cfg.membership) - 1
+        return True
 
     def rebuild_m_agg(self, xt: torch.Tensor, stride: int,
-                      out: torch.Tensor | None = None) -> torch.Tensor:
-        """The epoch resync: each node's exact ``m_agg = side * (x_tilde[i -
-        s] + x_tilde[i + s])`` from its new ring neighbours' fp32 shadows
-        ``xt`` ``(N, rows, BLOCK)`` (added, then scaled, as the reference
-        does), into ``out`` when given.  On the directed ring it is
-        ``f32(w_fwd) x_tilde[i - s] + f32(w_bwd) x_tilde[i + s]``."""
-        n = self.n_nodes
+                      out: torch.Tensor | None = None,
+                      mask=None) -> torch.Tensor:
+        """The epoch resync: each active element's exact ``m_agg = side *
+        (x_tilde[left] + x_tilde[right])`` from its new neighbours'
+        (``Wiring`` of ``stride`` and ``mask``) fp32 shadows ``xt``
+        ``(n, rows, BLOCK)`` (added, then scaled, as the reference does),
+        into ``out`` when given; inactive rows are left as they are.  On
+        the directed ring it is ``f32(w_fwd) x_tilde[left] + f32(w_bwd)
+        x_tilde[right]``."""
+        wiring = self._wiring(stride, mask)
         out = torch.empty_like(xt) if out is None else out
         w_fwd, w_bwd = self.cfg.in_weights
-        for i in range(n):
-            left, right = xt[_left(i, n, stride)], xt[_right(i, n, stride)]
+        for i in wiring.active:
+            left, right = xt[wiring.left[i]], xt[wiring.right[i]]
             if w_fwd != w_bwd:
                 torch.mul(left, _f32(w_fwd), out=out[i])
                 out[i].add_(right * _f32(w_bwd))
@@ -593,19 +753,19 @@ class ConsensusRuntime:
 
     # -- faults ----------------------------------------------------------
     def keep_mask(self, step: int) -> np.ndarray | None:
-        """``(2, N)`` host keep mask of the payloads launched at ``step``
-        (row 0 from upstream, row 1 from downstream), or None without a
-        loss model."""
+        """``(2, n)`` host keep mask of the payloads launched at ``step``
+        for the ``n`` ring elements (row 0 from upstream, row 1 from
+        downstream), or None without a loss model."""
         if self.loss is None:
             return None
-        return self.loss.keep_flags(step, self.n_nodes)
+        return self.loss.keep_flags(step, self.ring_len)
 
     def deadline_mask(self, launch_step: int) -> np.ndarray | None:
         """``(2, N)`` straggler deadline flags of the async payloads
         launched at ``launch_step``, or None without a straggler model."""
         if self.straggler is None:
             return None
-        return self.straggler.keep_flags(launch_step, self.n_nodes)
+        return self.straggler.keep_flags(launch_step, self.ring_len)
 
     def resync_ok(self, step: int) -> np.ndarray | None:
         """``(N,)`` success of ``step``'s resync handshake (both directions
@@ -613,65 +773,69 @@ class ConsensusRuntime:
         (no loss model, or no resync at ``step``)."""
         if self.loss is None or not self.resync_at(step):
             return None
-        ok = self.loss.resync_keep_flags(step, self.n_nodes,
+        ok = self.loss.resync_keep_flags(step, self.ring_len,
                                          self.cfg.resync_retries)
         return ok[0] & ok[1]
 
-    def _arrivals(self, pays: list, stride: int,
+    def _arrivals(self, pays: list, wiring: Wiring,
                   keep: np.ndarray | None) -> tuple[list, list]:
-        """Each node's (left, right) arrivals of one transfer unit: the
+        """Each element's (left, right) arrivals of one transfer unit: its
         neighbours' payloads, or one shared all-zero payload of their size
-        where ``keep`` drops them (the senders' buffers are never
-        written)."""
-        n = self.n_nodes
-        return self._drop([pays[_left(i, n, stride)] for i in range(n)],
-                          [pays[_right(i, n, stride)] for i in range(n)],
-                          keep)
+        where ``keep`` drops them (the senders' buffers are never written);
+        None for an inactive element."""
+        left = [None if j is None else pays[j] for j in wiring.left]
+        right = [None if j is None else pays[j] for j in wiring.right]
+        return self._drop(left, right, keep, wiring)
 
-    def _drop(self, left: list, right: list,
-              keep: np.ndarray | None) -> tuple[list, list]:
-        """Replace the arrivals ``keep`` ``(2, N)`` drops by one shared
-        zero payload of their shape (a tensor, or a tuple of them)."""
-        if keep is None or keep.all():
+    def _drop(self, left: list, right: list, keep: np.ndarray | None,
+              wiring: Wiring) -> tuple[list, list]:
+        """Replace the arrivals ``keep`` ``(2, n)`` drops at active
+        elements by one shared zero payload of their shape (a tensor, or a
+        tuple of them); each is one zero payload read."""
+        if keep is None:
             return left, right
-        first = left[0]
+        drop = ~keep
+        drop[:, wiring.inactive] = False
+        if not drop.any():
+            return left, right
+        first = left[wiring.active[0]]
         zero = (tuple(torch.zeros_like(t) for t in first)
                 if isinstance(first, tuple) else torch.zeros_like(first))
-        for side, row in ((left, keep[0]), (right, keep[1])):
-            for i in np.flatnonzero(~row):
+        for side, row in ((left, drop[0]), (right, drop[1])):
+            for i in np.flatnonzero(row):
                 side[i] = zero
-        self.zero_payloads += int((~keep).sum())
+        self.zero_payloads += int(drop.sum())
         return left, right
 
-    def _fault_metrics(self, metrics: dict, layout, flags, device) -> None:
+    def _fault_metrics(self, metrics: dict, layout, flags, device,
+                       wiring: Wiring) -> None:
         """``wire_bytes_delivered`` (bytes per direction times surviving
-        directions) and ``delivered_frac`` per node, from the ``(2, N)``
-        arrival flags."""
-        delivered = _node_values(flags.sum(axis=0), device)
+        directions) and ``delivered_frac`` per element, from the ``(2, n)``
+        arrival flags; 0 at an inactive element."""
+        delivered = flags.sum(axis=0)
+        delivered[wiring.inactive] = 0
+        delivered = _node_values(delivered, device)
         metrics["wire_bytes_delivered"] = (
             delivered * float(self.bytes_per_direction(layout)))
         metrics["delivered_frac"] = delivered / 2.0
 
-    def _neighbour_rows(self, t: torch.Tensor, stride: int):
-        """(rows i - s, rows i + s) of a small per-node tensor ``t``,
+    def _neighbour_rows(self, t: torch.Tensor, wiring: Wiring):
+        """(rows left, rows right) of a small per-element tensor ``t``,
         stacked (no index tensor is copied to the device)."""
-        n = self.n_nodes
-        return (_rows(t, [_left(i, n, stride) for i in range(n)]),
-                _rows(t, [_right(i, n, stride) for i in range(n)]))
+        return _rows(t, list(wiring.left)), _rows(t, list(wiring.right))
 
     def _push_sum_update(self, ps_w, w_l, w_r, state, keep, resync, ok,
-                         stride):
+                         wiring):
         """The push-sum weight step from the received weights ``w_l``,
         ``w_r`` ``(N, 1)``: dropped arrivals fall back to the last-seen
         ``ps_nbr``; a resync refreshes both from the new neighbours unless
         the node's handshake failed.  Returns (ps_new, ps_nbr_new)."""
-        n = self.n_nodes
         nbr = state["ps_nbr"]
         if keep is not None:
             w_l = _pick(keep[0], w_l, nbr[:, 0:1])
             w_r = _pick(keep[1], w_r, nbr[:, 1:2])
         if resync:
-            fresh_l, fresh_r = self._neighbour_rows(ps_w, stride)
+            fresh_l, fresh_r = self._neighbour_rows(ps_w, wiring)
             if ok is None:
                 w_l, w_r = fresh_l, fresh_r
             else:
@@ -710,14 +874,15 @@ class ConsensusRuntime:
 
     def make_noise(self, layout: wire.WireLayout, step: int, seed: int,
                    device) -> torch.Tensor:
-        """``(N, n_rows, noise_cols_for(layout))`` uniform noise (``BLOCK``
-        columns; ``2 * BLOCK`` when the plan holds top-k), one
-        ``torch.Generator`` on ``device`` per node seeded from (seed, step,
-        node)."""
-        noise = torch.empty((self.n_nodes, layout.n_rows,
+        """``(n, n_rows, noise_cols_for(layout))`` uniform noise for the
+        ``n`` ring elements (``BLOCK`` columns; ``2 * BLOCK`` when the plan
+        holds top-k), one ``torch.Generator`` on ``device`` per element
+        seeded from (seed, step, element): under hierarchy a pod's members
+        share their pod's draw."""
+        noise = torch.empty((self.ring_len, layout.n_rows,
                              self.noise_cols_for(layout)),
                             dtype=torch.float32, device=device)
-        for i in range(self.n_nodes):
+        for i in range(self.ring_len):
             g = torch.Generator(device=device)
             g.manual_seed(noise_seed(seed, step, i))
             torch.rand(noise[i].shape, generator=g, out=noise[i])
@@ -730,42 +895,118 @@ class ConsensusRuntime:
 
         ``noise``: optional ``(N, n_rows, >= noise_cols_for(layout))``
         uniform buffer consumed row for row by the encoders (tests inject
-        the reference's); without it each node draws its own from ``(seed,
-        step, node)``.  Returns (x_next, new_state, metrics)."""
+        the reference's; under hierarchy each pod reads its first
+        member's rows); without it each ring element draws its own from
+        ``(seed, step, element)``.  Returns (x_next, new_state,
+        metrics)."""
         alg = self.cfg.algorithm
         layout = self.state_layout(x_half)
-        stride = self.stride_at(step)
+        wiring = self.wiring_at(step)
         metrics = {
             "collectives_per_step": self.collectives_per_step(
                 layout.n_leaves, layout=layout),
             "wire_bytes_per_step": self.wire_bytes_per_step(
                 layout.n_elements, layout)}
+        device = T.tree_leaves(x_half)[0].device
+        hier = alg == "adc_dgd" and self.cfg.hierarchy is not None
         if alg == "none" or (self.n_nodes <= 1 and alg != "allreduce"):
             x_next = x_half
-        elif alg == "allreduce":
+        elif alg == "allreduce" or (hier and self.ring_len <= 1):
+            # one pod of every node: its inner average is the whole
+            # exchange, the allreduce's bit for bit; the shadows pass
             x_next = _allreduce_mean_delta(x_prev, x_half)
+            if hier:
+                metrics.update(self._idle_metrics(device))
         elif alg == "dgd":
-            x_next = self._dgd_exchange(x_prev, x_half, stride)
+            x_next = self._dgd_exchange(x_prev, x_half, wiring)
         elif alg == "compressed_dgd":
             if noise is None:
-                noise = self.make_noise(layout, step, seed,
-                                        T.tree_leaves(x_half)[0].device)
+                noise = self.make_noise(layout, step, seed, device)
             fn = (self._cdgd_exchange_per_leaf
                   if self.cfg.wire_packing == "per_leaf"
                   else self._cdgd_exchange_packed)
-            x_next = fn(x_prev, x_half, noise, layout, stride)
+            x_next = fn(x_prev, x_half, noise, layout, wiring)
         else:
             fn = {"packed": self._adc_exchange,
                   "pipelined": self._adc_exchange,
                   "async": self._adc_exchange_async,
                   "per_leaf": self._adc_exchange_per_leaf}[
                       self.cfg.wire_packing]
-            x_next, state, adc = fn(x_prev, x_half, state, step, seed, noise,
-                                    layout, stride)
+            if self.pod_size > 1:
+                x_next, state, adc = self._pod_exchange(
+                    fn, x_prev, x_half, state, step, seed, noise, layout,
+                    wiring)
+            else:
+                x_next, state, adc = fn(x_prev, x_half, state, step, seed,
+                                        noise, layout, wiring)
             metrics.update(adc)
+            if self.cfg.membership is not None:
+                metrics["active_nodes"] = torch.full(
+                    (self.n_nodes,), float(wiring.n_active),
+                    dtype=torch.float32, device=device)
         if self.cfg.track_consensus_error:
             metrics["consensus_err"] = _consensus_error(x_next)
         return x_next, state, metrics
+
+    def _idle_metrics(self, device) -> dict:
+        """The ADC metrics of an exchange that ran no compressed wire (one
+        pod): nothing clipped or sent, every arrival delivered."""
+        n = self.n_nodes
+        zero = torch.zeros(n, dtype=torch.float32, device=device)
+        out = {"overflow_frac": zero, "residual_norm": zero}
+        if self.cfg.faults_enabled:
+            out["wire_bytes_delivered"] = zero
+            out["delivered_frac"] = torch.ones_like(zero)
+        if self.cfg.straggle_rate is not None:
+            out["deadline_miss_frac"] = zero
+        if self.cfg.membership is not None:
+            out["active_nodes"] = torch.full_like(zero, float(n))
+        return out
+
+    def _pod_exchange(self, fn, x_prev, x_half, state, step, seed, noise,
+                      layout, wiring):
+        """The two-level exchange: each pod's inner fp32 mean of the
+        optimizer delta, then ``fn``, the outer exchange, on the pods'
+        representatives (their first members) over the pod ring; its
+        parameters, state and per-element metrics are copied to every
+        member, which the shared-x0 contract makes bitwise replicas."""
+        m = self.pod_size
+        x_half = self._pod_mean_delta(x_prev, x_half)
+        x_prev = T.tree_map(lambda a: a[::m], x_prev)
+        state = {k: v[::m] for k, v in state.items()}
+        x_next, state, adc = fn(x_prev, x_half, state, step, seed,
+                                None if noise is None else noise[::m],
+                                layout, wiring)
+
+        def grow(a):
+            return a.repeat_interleave(m, dim=0)
+        return (T.tree_map(grow, x_next), {k: grow(v) for k, v in
+                                           state.items()},
+                {k: grow(v) if torch.is_tensor(v) else v
+                 for k, v in adc.items()})
+
+    def _pod_mean_delta(self, x_prev, x_half):
+        """The inner level for the pods' representatives: ``x_prev + s /
+        m`` with ``s`` the sum of the pod's members' fp32 deltas, added in
+        member order.  The reference's ``s / m`` compiles to ``s *
+        f32(1/m)`` contracted with the add into one fused multiply-add
+        (``_fma``); at a pod size that is a power of two the product is
+        exact and the plain multiply-add gives the same bits."""
+        m = self.pod_size
+        inv = float(recip(m))
+
+        def avg(xp, xh):
+            delta = (xh - xp).to(torch.float32)
+            s = delta[::m].clone()
+            for j in range(1, m):
+                s.add_(delta[j::m])
+            del delta
+            base = xp[::m].to(torch.float32)
+            if inv * m == 1.0:
+                return s.mul_(inv).add_(base).to(xh.dtype)
+            return _fma(s, inv, base).to(xh.dtype)
+
+        return T.tree_map(avg, x_prev, x_half)
 
     def encode(self, y: torch.Tensor, noise: torch.Tensor, step: int,
                layout: wire.WireLayout) -> list[torch.Tensor]:
@@ -774,39 +1015,46 @@ class ConsensusRuntime:
         ships, one encode launch per node and codec run."""
         plan = self.wire_plan_for(layout)
         return self._encode_unit(plan, plan.transfer_units(None)[0], y,
-                                 noise, self._step_k(step))
+                                 noise, self._step_k(step),
+                                 nodes=range(y.shape[0]))
 
-    def _encode_unit(self, plan, unit, y, noise, step_k, out=None,
+    def _encode_unit(self, plan, unit, y, noise, step_k, nodes, out=None,
                      trailer=None) -> list:
-        """Each node's flat uint8 payload of transfer unit ``unit`` (into
-        ``out[i]`` when ``out`` is given): one encode launch per node and
-        codec run.  ``trailer`` ``(N, 4)`` uint8 (the push-sum weight's
-        bytes) is appended to each payload; ``out`` rows then hold it in
-        their last 4 bytes."""
-        n = self.n_nodes
+        """Each element's flat uint8 payload of transfer unit ``unit``
+        (into ``out[i]`` when ``out`` is given): one encode launch per
+        element of ``nodes`` and codec run; None for the others.
+        ``trailer`` ``(n, 4)`` uint8 (the push-sum weight's bytes) is
+        appended to each payload; ``out`` rows then hold it in their last
+        4 bytes."""
+        n = y.shape[0]
         nb = plan.unit_bytes(unit)
         if trailer is not None and out is None:
             out = torch.empty((n, nb + wireplan.PUSH_SUM_TRAILER_BYTES),
                               dtype=torch.uint8, device=y.device)
+        pays = [None] * n
         if out is None:
-            return [plan.encode_unit(unit, y[i], noise[i], step_k)
-                    for i in range(n)]
+            for i in nodes:
+                pays[i] = plan.encode_unit(unit, y[i], noise[i], step_k)
+            return pays
         if trailer is not None:
             out[:, nb:].copy_(trailer)
-        for i in range(n):
+        for i in nodes:
             plan.encode_unit(unit, y[i], noise[i], step_k, out[i, :nb])
-        return [out[i] for i in range(n)]
+            pays[i] = out[i]
+        return pays
 
-    def _retire(self, plan, unit, own, left, right, xt, mb, outs) -> None:
+    def _retire(self, plan, unit, own, left, right, xt, mb, outs,
+                nodes) -> None:
         """Fused decode + shadow update + ring combine of one transfer unit
-        for every node, one launch per node and codec run, into the row
-        slices of ``outs`` = (x_tilde', m_agg', combined).  ``own[i]``,
-        ``left[i]`` and ``right[i]`` are node i's flat payload and its two
-        arrivals, each starting at the unit's first byte.  On the directed
-        ring each fragment then gets its correction (``_directed_fix``)."""
+        for every element of ``nodes``, one launch per element and codec
+        run, into the row slices of ``outs`` = (x_tilde', m_agg',
+        combined).  ``own[i]``, ``left[i]`` and ``right[i]`` are element
+        i's flat payload and its two arrivals, each starting at the unit's
+        first byte.  On the directed ring each fragment then gets its
+        correction (``_directed_fix``)."""
         cfg = self.cfg
         w_fwd, w_bwd = cfg.in_weights
-        for i in range(self.n_nodes):
+        for i in nodes:
             for f in plan.unit_runs(unit):
                 views = [plan.fragment_payload(p[i], f, unit.byte_start)
                          for p in (own, left, right)]
@@ -818,24 +1066,38 @@ class ConsensusRuntime:
                     self._directed_fix(f.codec, views[1], views[2], outs, i,
                                        slice(f.row_start, f.row_end))
 
-    def _census(self, plan, unit, y, step_k, pays, clipped) -> None:
-        """Add each node's grid-saturation count of unit ``unit`` to
+    def _census(self, plan, unit, y, step_k, pays, clipped, nodes) -> None:
+        """Add each element's grid-saturation count of unit ``unit`` to
         ``clipped`` (overflow monitoring, paper §IV-D)."""
-        clipped += torch.stack([
-            plan.count_saturated(y[i], step_k, pays[i], unit.byte_start, unit)
-            for i in range(self.n_nodes)])
+        for i in nodes:
+            clipped[i] += plan.count_saturated(y[i], step_k, pays[i],
+                                               unit.byte_start, unit)
 
-    def _finish(self, x_prev, x_half, comb, y, clipped, plan, layout):
+    def _finish(self, x_prev, x_half, comb, y, clipped, plan, layout,
+                wiring):
         """The gradient step applied per leaf while unpacking, and the
-        overflow and residual metrics."""
+        overflow and residual metrics.  An inactive element keeps its
+        ``x_prev`` bitwise and reads 0 in both metrics."""
         inv_codes, inv_elems = self._ratios(plan, layout)
         residual = torch.sqrt((y * y).sum(dim=(1, 2)) * inv_elems)
         x_next = T.tree_map(
             lambda c, h, p: (c + (h.to(torch.float32)
                                   - p.to(torch.float32))).to(h.dtype),
             layout.unpack(comb, cast=False), x_half, x_prev)
+        for i in wiring.inactive:
+            residual[i] = 0.0
+            for nx, p in zip(T.tree_leaves(x_next), T.tree_leaves(x_prev)):
+                nx[i].copy_(p[i])
         return x_next, {"overflow_frac": clipped * inv_codes,
                         "residual_norm": residual}
+
+    @staticmethod
+    def _freeze(new: tuple, old: tuple, wiring: Wiring) -> None:
+        """An inactive element keeps its shadows: ``new[k][i] =
+        old[k][i]``."""
+        for i in wiring.inactive:
+            for a, b in zip(new, old):
+                a[i].copy_(b[i])
 
     def _numerator(self, x_half, state, layout) -> torch.Tensor:
         """The packed ``x_half``, times ``ps_w`` with push-sum (the wire
@@ -846,16 +1108,22 @@ class ConsensusRuntime:
         return y
 
     def _adc_exchange(self, x_prev, x_half, state, step, seed, noise,
-                      layout, stride):
+                      layout, wiring):
         """Packed / pipelined exchange over the runtime's WirePlan: one
         transfer unit holding every codec run, or ``pipeline_chunks``
         single-run units taken in the reference's schedule.  Every codec is
         row-local, so every chunking gives the packed exchange's bits.  At
         a resync each unit's ``m_agg`` rows are rebuilt from its
         pre-update ``x_tilde`` rows just before its retire (stale where the
-        node's handshake failed).  One keep mask covers every unit of the
-        step; the push-sum trailer rides the last unit."""
-        cfg, n = self.cfg, self.n_nodes
+        element's handshake failed).  One keep mask covers every unit of
+        the step; the push-sum trailer rides the last unit.
+
+        Under a membership mask only the active elements encode and
+        combine: nothing an inactive one would encode is delivered (the
+        masked ring has no edge from it) and its combine's results are
+        discarded by the freeze, so both are skipped, and its shadows and
+        parameters are kept bitwise."""
+        cfg, n = self.cfg, self.ring_len
         plan = self.wire_plan_for(layout)
         units = plan.transfer_units(
             cfg.pipeline_chunks if cfg.wire_packing == "pipelined" else None)
@@ -864,6 +1132,7 @@ class ConsensusRuntime:
         keep = self.keep_mask(step)
         resync = self.resync_at(step)
         ok = self.resync_ok(step)
+        nodes = wiring.active
         y = self._numerator(x_half, state, layout)
         y.sub_(xt)                # the packed differential, built in place
         if noise is None:
@@ -877,44 +1146,47 @@ class ConsensusRuntime:
         recv = {}
 
         def launch(c):
-            return self._encode_unit(plan, units[c], y, noise, step_k,
+            return self._encode_unit(plan, units[c], y, noise, step_k, nodes,
                                      trailer=trailer if c == last else None)
 
         def retire(c, pays):
             if resync:
                 rows = slice(units[c].row_start, units[c].row_end)
-                self.rebuild_m_agg(xt[:, rows], stride, out=m_in[:, rows])
+                self.rebuild_m_agg(xt[:, rows], wiring.stride,
+                                   out=m_in[:, rows], mask=wiring.mask)
                 self._keep_stale(m_in[:, rows], mb[:, rows], ok)
             if push and c == last:
                 recv["w"] = _trailer_weights(pays)
-            left, right = self._arrivals(pays, stride, keep)
-            self._retire(plan, units[c], pays, left, right, xt, m_in, outs)
+            left, right = self._arrivals(pays, wiring, keep)
+            self._retire(plan, units[c], pays, left, right, xt, m_in, outs,
+                         nodes)
 
         def census(c, pays):
-            self._census(plan, units[c], y, step_k, pays, clipped)
+            self._census(plan, units[c], y, step_k, pays, clipped, nodes)
 
         _pipeline_schedule(len(units), launch, retire,
                            census if cfg.quant_mode == "fixed" else None)
         del noise
+        self._freeze(outs[:2], (xt, mb), wiring)
         new_state = {"x_tilde": outs[0], "m_agg": outs[1]}
         comb = outs[2]
         metrics = {}
         if push:
             ps_new, new_state["ps_nbr"] = self._push_sum_update(
-                state["ps_w"], *self._neighbour_rows(recv["w"], stride),
-                state, keep, resync, ok, stride)
+                state["ps_w"], *self._neighbour_rows(recv["w"], wiring),
+                state, keep, resync, ok, wiring)
             new_state["ps_w"] = ps_new
             comb.div_(ps_new.view(-1, 1, 1))
             metrics["push_sum_weight"] = ps_new[:, 0]
         x_next, m = self._finish(x_prev, x_half, comb, y, clipped, plan,
-                                 layout)
+                                 layout, wiring)
         metrics.update(m)
         if keep is not None:
-            self._fault_metrics(metrics, layout, keep, y.device)
+            self._fault_metrics(metrics, layout, keep, y.device, wiring)
         return x_next, new_state, metrics
 
     def _adc_exchange_async(self, x_prev, x_half, state, step, seed, noise,
-                            layout, stride):
+                            layout, wiring):
         """One-step-stale packed exchange.  ``staleness`` 1: RETIRE the
         payloads launched at step k-1 (zero bytes at step 1: a no-op
         gossip) into x_tilde / m_agg and the combine, then LAUNCH this
@@ -931,18 +1203,22 @@ class ConsensusRuntime:
         ``x_tilde`` (kept where the handshake failed) and the combine
         moves by the difference.
 
-        The payloads are encoded into rows s..s+N-1 of one ``(N + 2s,
-        bytes)`` ring buffer (``s`` the stride mod N) whose first s rows
-        repeat nodes N-s..N-1 and last s rows nodes 0..s-1: ``fly_self``,
-        ``fly_up`` and ``fly_dn`` are its overlapping views at rows s, 0
-        and 2s: the ring transfer copies 2s payloads."""
+        On the shift ring the payloads are encoded into rows s..s+n-1 of
+        one ``(n + 2s, bytes)`` ring buffer (``s`` the stride mod n) whose
+        first s rows repeat elements n-s..n-1 and last s rows elements
+        0..s-1: ``fly_self``, ``fly_up`` and ``fly_dn`` are its
+        overlapping views at rows s, 0 and 2s: the ring transfer copies 2s
+        payloads.  Under a membership mask the compacted ring is no shift:
+        ``fly_up`` and ``fly_dn`` are gathered from the neighbour table,
+        and an inactive element launches and receives zero payloads (so a
+        rejoining one retires zeros, then resyncs)."""
         if self.cfg.staleness == 0:
             x_next, ns, metrics = self._adc_exchange(
-                x_prev, x_half, state, step, seed, noise, layout, stride)
+                x_prev, x_half, state, step, seed, noise, layout, wiring)
             for key in wire.INFLIGHT_KEYS:
                 ns[key] = state[key]
             return x_next, ns, metrics
-        n = self.n_nodes
+        n = self.ring_len
         plan = self.wire_plan_for(layout)
         unit = plan.transfer_units(None)[0]
         xt, mb = state["x_tilde"], state["m_agg"]
@@ -952,25 +1228,29 @@ class ConsensusRuntime:
                   meet if keep is None else keep & meet)
         resync = self.resync_at(step)
         ok = self.resync_ok(step)
+        nodes = wiring.active
         fly = [state["fly_self"][i] for i in range(n)]
-        # fly_up[i] / fly_dn[i] arrived at node i from i - s / i + s
+        # fly_up[i] / fly_dn[i] arrived at element i from its upstream /
+        # downstream neighbour of step k-1
         up = [state["fly_up"][i] for i in range(n)]
         dn = [state["fly_dn"][i] for i in range(n)]
-        left, right = self._drop(list(up), list(dn), arrive)
+        left, right = self._drop(list(up), list(dn), arrive, wiring)
         outs = tuple(torch.empty_like(xt) for _ in range(3))
-        self._retire(plan, unit, fly, left, right, xt, mb, outs)
+        self._retire(plan, unit, fly, left, right, xt, mb, outs, nodes)
         xt_new, m_new, comb = outs
         if resync:
-            m_drained = self.rebuild_m_agg(xt_new, stride)
+            m_drained = self.rebuild_m_agg(xt_new, wiring.stride,
+                                           mask=wiring.mask)
             self._keep_stale(m_drained, m_new, ok)
             comb.add_(m_drained - m_new)
             m_new = m_drained
+        self._freeze((xt_new, m_new), (xt, mb), wiring)
         metrics = {}
         new_state = {}
         if push:
             ps_new, new_state["ps_nbr"] = self._push_sum_update(
                 state["ps_w"], _trailer_weights(up), _trailer_weights(dn),
-                state, arrive, resync, ok, stride)
+                state, arrive, resync, ok, wiring)
             new_state["ps_w"] = ps_new
             comb.div_(ps_new.view(-1, 1, 1))
             metrics["push_sum_weight"] = ps_new[:, 0]
@@ -980,33 +1260,48 @@ class ConsensusRuntime:
         if noise is None:
             noise = self.make_noise(layout, step, seed, y.device)
         step_k = self._step_k(step)
-        r = stride % n
         width = plan.payload_bytes + (wireplan.PUSH_SUM_TRAILER_BYTES
                                       if push else 0)
+        trailer = ps_new.view(torch.uint8) if push else None
+        r = wiring.stride % n if wiring.mask is None else 0
         ring = torch.empty((n + 2 * r, width), dtype=torch.uint8,
                            device=y.device)
-        pays = self._encode_unit(
-            plan, unit, y, noise, step_k, ring[r:r + n],
-            trailer=ps_new.view(torch.uint8) if push else None)
+        own = ring[r:r + n]
+        pays = self._encode_unit(plan, unit, y, noise, step_k, nodes, own,
+                                 trailer=trailer)
         del noise
         clipped = torch.zeros(n, dtype=torch.float32, device=y.device)
         if self.cfg.quant_mode == "fixed":
-            self._census(plan, unit, y, step_k, pays, clipped)
-        # ppermute(+s) hands node i node i-s's payload, ppermute(-s) node
-        # i+s's
-        ring[:r].copy_(ring[n:n + r])
-        ring[n + r:].copy_(ring[r:2 * r])
+            self._census(plan, unit, y, step_k, pays, clipped, nodes)
+        if wiring.mask is None:
+            # ppermute(+s) hands element i element i-s's payload,
+            # ppermute(-s) element i+s's
+            ring[:r].copy_(ring[n:n + r])
+            ring[n + r:].copy_(ring[r:2 * r])
+            fly_up, fly_dn = ring[:n], ring[2 * r:]
+        else:
+            for i in wiring.inactive:
+                own[i].zero_()
+            fly_up, fly_dn = torch.empty_like(own), torch.empty_like(own)
+            for dst, src in ((fly_up, wiring.left), (fly_dn, wiring.right)):
+                for i, j in enumerate(src):
+                    if j is None:
+                        dst[i].zero_()
+                    else:
+                        dst[i].copy_(own[j])
         x_next, m = self._finish(x_prev, x_half, comb, y, clipped, plan,
-                                 layout)
+                                 layout, wiring)
         metrics.update(m)
         if arrive is not None:
-            self._fault_metrics(metrics, layout, arrive, y.device)
+            self._fault_metrics(metrics, layout, arrive, y.device, wiring)
         if meet is not None:
-            metrics["deadline_miss_frac"] = _node_values(
-                (~meet).sum(axis=0), y.device) / 2.0
+            miss = (~meet).sum(axis=0)
+            miss[wiring.inactive] = 0
+            metrics["deadline_miss_frac"] = _node_values(miss,
+                                                         y.device) / 2.0
         new_state.update({"x_tilde": xt_new, "m_agg": m_new,
-                          "fly_self": ring[r:r + n], "fly_up": ring[:n],
-                          "fly_dn": ring[2 * r:]})
+                          "fly_self": own, "fly_up": fly_up,
+                          "fly_dn": fly_dn})
         return x_next, new_state, metrics
 
     def _ratios(self, plan, layout):
@@ -1019,7 +1314,7 @@ class ConsensusRuntime:
         return inv_codes, inv_elems
 
     def _adc_exchange_per_leaf(self, x_prev, x_half, state, step, seed,
-                               noise, layout, stride):
+                               noise, layout, wiring):
         """The per-leaf reference transport of :meth:`_adc_exchange`: per
         leaf and node one ``quantize_blocks`` launch, the codes and scales
         handed to both ring neighbours (zero codes and zero scales where a
@@ -1046,8 +1341,8 @@ class ConsensusRuntime:
         if push:
             ps_w = state["ps_w"]
             ps_new, new_state["ps_nbr"] = self._push_sum_update(
-                ps_w, *self._neighbour_rows(ps_w, stride), state, keep,
-                resync, ok, stride)
+                ps_w, *self._neighbour_rows(ps_w, wiring), state, keep,
+                resync, ok, wiring)
             new_state["ps_w"] = ps_new
             metrics["push_sum_weight"] = ps_new[:, 0]
         clipped = torch.zeros(n, dtype=torch.float32, device=xt.device)
@@ -1063,7 +1358,7 @@ class ConsensusRuntime:
             xtb = _rowpad(layout.leaf_rows(xt, i), full)
             mbb = _rowpad(layout.leaf_rows(mb, i), full)
             if resync:
-                built = self.rebuild_m_agg(xtb, stride)
+                built = self.rebuild_m_agg(xtb, wiring.stride)
                 self._keep_stale(built, mbb, ok)
                 mbb = built
             y.sub_(xtb)
@@ -1076,7 +1371,7 @@ class ConsensusRuntime:
                 clipped += torch.stack([
                     (c.to(torch.int16).abs() >= 127).sum(dtype=torch.float32)
                     for c, _ in sent])
-            left, right = self._arrivals(sent, stride, keep)
+            left, right = self._arrivals(sent, wiring, keep)
             outs = [kops.dequant_combine(
                         *sent[j], *left[j], *right[j], xtb[j], mbb[j],
                         cfg.self_weight, cfg.side_weight, 1.0)
@@ -1107,22 +1402,21 @@ class ConsensusRuntime:
                         "residual_norm": torch.sqrt(residual_sq
                                                     * inv_elems)})
         if keep is not None:
-            self._fault_metrics(metrics, layout, keep, xt.device)
+            self._fault_metrics(metrics, layout, keep, xt.device, wiring)
         return T.tree_unflatten(layout.treedef, new_x), new_state, metrics
 
-    def _cdgd_mix(self, x_own, sent, j, stride):
+    def _cdgd_mix(self, x_own, sent, j, wiring):
         """Node j's Eq. (5) mix: its own parameters uncompressed, its ring
-        neighbours' (at ``stride``) as they arrive on the int8 wire (codes
+        neighbours' (``wiring``) as they arrive on the int8 wire (codes
         times scales)."""
-        n = self.n_nodes
-        (c_l, s_l) = sent[_left(j, n, stride)]
-        (c_r, s_r) = sent[_right(j, n, stride)]
+        (c_l, s_l) = sent[wiring.left[j]]
+        (c_r, s_r) = sent[wiring.right[j]]
         left = c_l.to(torch.float32) * s_l
         right = c_r.to(torch.float32) * s_r
         return (self.cfg.self_weight * x_own
                 + self.cfg.side_weight * (left + right))
 
-    def _cdgd_exchange_packed(self, x_prev, x_half, noise, layout, stride):
+    def _cdgd_exchange_packed(self, x_prev, x_half, noise, layout, wiring):
         """Direct-compression DGD (paper Eq. (5), the negative control) on
         the packed int8 wire: per node one ``quantize_payload`` launch per
         chunk (one chunk unless pipelined) over the packed x_prev on the
@@ -1137,7 +1431,7 @@ class ConsensusRuntime:
                       for r0, rows in bounds])
                 for j in range(n)]
         sent = [kops.unpack_payload(p, layout.block) for p in pays]
-        mixed = torch.stack([self._cdgd_mix(xp[j], sent, j, stride)
+        mixed = torch.stack([self._cdgd_mix(xp[j], sent, j, wiring)
                              for j in range(n)])
         return T.tree_map(
             lambda m, h, p: (m + (h.to(torch.float32)
@@ -1145,7 +1439,7 @@ class ConsensusRuntime:
             layout.unpack(mixed, cast=False), x_half, x_prev)
 
     def _cdgd_exchange_per_leaf(self, x_prev, x_half, noise, layout,
-                                stride):
+                                wiring):
         """Per-leaf reference of :meth:`_cdgd_exchange_packed`: per leaf
         and node one ``quantize_blocks`` launch; the same bits given the
         same noise buffer."""
@@ -1160,18 +1454,17 @@ class ConsensusRuntime:
             u = _rowpad(layout.leaf_rows(noise, i), full)
             sent = [kops.quantize_blocks(xb[j], u[j], fixed_step=step0)
                     for j in range(n)]
-            mixed = torch.stack([self._cdgd_mix(xb[j], sent, j, stride)
+            mixed = torch.stack([self._cdgd_mix(xb[j], sent, j, wiring)
                                  for j in range(n)])
             mixed = mixed.reshape(n, -1)[:, :slot.size].reshape(h.shape)
             out.append((mixed + (h.to(torch.float32)
                                  - p.to(torch.float32))).to(h.dtype))
         return T.tree_unflatten(layout.treedef, out)
 
-    def _dgd_exchange(self, x_prev, x_half, stride):
+    def _dgd_exchange(self, x_prev, x_half, wiring):
         """Uncompressed DGD: mix the parameters with both ring neighbours
-        (at ``stride``), whose copies arrive cast to ``wire_dtype``, then
-        add the local optimizer delta."""
-        n = self.n_nodes
+        (``wiring``), whose copies arrive cast to ``wire_dtype``, then add
+        the local optimizer delta."""
         w_self, w_side = self.cfg.self_weight, self.cfg.side_weight
         wire_dtype = self.cfg.wire_dtype
 
@@ -1179,11 +1472,9 @@ class ConsensusRuntime:
             p32 = p.to(torch.float32)
             send = p.to(wire_dtype)
             left = send.index_select(0, torch.tensor(
-                [_left(i, n, stride) for i in range(n)],
-                device=p.device)).to(torch.float32)
+                wiring.left, device=p.device)).to(torch.float32)
             right = send.index_select(0, torch.tensor(
-                [_right(i, n, stride) for i in range(n)],
-                device=p.device)).to(torch.float32)
+                wiring.right, device=p.device)).to(torch.float32)
             mixed = w_self * p32 + w_side * (left + right)
             return (mixed + (h.to(torch.float32) - p32)).to(h.dtype)
 

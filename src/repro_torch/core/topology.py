@@ -25,8 +25,12 @@ edge carries one message per round.
 
 Matrices are float64 numpy arrays, built on the host exactly as the
 reference builds them; the algorithms copy ``W`` to their device as
-float32.  Membership schedules are not ported yet
-(:class:`MembershipSchedule` raises).
+float32.
+
+Elastic membership: a :class:`MembershipSchedule` holds per-epoch masks of
+active nodes, the mixing over each epoch's surviving ring, and the
+push-sum handoff and rejoin sources at each change; ``hierarchical_mixing``
+is the two-level matrix ``W_outer (x) (1/m) 11^T``.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ __all__ = [
     "DirectedMixingMatrix",
     "ring",
     "fully_connected",
+    "hierarchical_mixing",
     "star",
     "torus",
     "chain",
@@ -297,6 +302,19 @@ def fully_connected(n: int) -> MixingMatrix:
     With W = (1/n) 11^T, DGD reduces to synchronous data-parallel SGD.
     """
     return _mm(np.full((n, n), 1.0 / n), f"full{n}")
+
+
+def hierarchical_mixing(outer: MixingMatrix, pod_size: int) -> MixingMatrix:
+    """Two-level mixing ``W_outer (x) (1/m) 11^T`` over ``outer.n *
+    pod_size`` nodes: every pod of ``m`` consecutive nodes averages
+    internally while the pods mix by ``outer``.  Its spectrum is
+    ``eig(W_outer)`` plus ``n - pods`` zeros, so its ``beta`` is the pod
+    ring's."""
+    if pod_size < 1:
+        raise ValueError(f"pod_size must be >= 1, got {pod_size}")
+    m = pod_size
+    w = np.kron(outer.w, np.full((m, m), 1.0 / m))
+    return _mm(w, f"hier[{outer.name}x{m}]")
 
 
 def star(n: int) -> MixingMatrix:
@@ -749,15 +767,199 @@ def schedule_by_name(name: str, n: int | None = None,
     raise KeyError(f"unknown schedule {name!r}")
 
 
-def _membership_not_ported(*args, **kwargs):
-    raise NotImplementedError(
-        "MembershipSchedule (elastic membership) is not yet ported")
+# ---------------------------------------------------------------------------
+# Elastic membership
+# ---------------------------------------------------------------------------
+
+def _nearest_active(j: int, mask: "Sequence[bool]",
+                    exclude: "set[int] | None" = None) -> int:
+    """Nearest node to ``j`` (ring distance, preferring +1 over -1) that is
+    active in ``mask`` and not in ``exclude``."""
+    n = len(mask)
+    exclude = exclude or set()
+    for d in range(1, n):
+        for cand in ((j + d) % n, (j - d) % n):
+            if mask[cand] and cand not in exclude and cand != j:
+                return cand
+    raise ValueError(f"no active neighbor for node {j} in mask {mask}")
 
 
+@dataclasses.dataclass(frozen=True)
 class MembershipSchedule:
-    """Per-epoch active-node masks for elastic consensus: not yet ported
-    (constructing one raises)."""
+    """Per-epoch active-node masks for elastic consensus.
 
-    __init__ = _membership_not_ported
-    static = from_spec = from_failure_model = staticmethod(
-        _membership_not_ported)
+    ``masks[e][v]`` says whether node ``v`` takes part in epoch ``e``;
+    epochs past the end clamp to the last mask.  Three pieces of algebra
+    hang off the masks:
+
+      * :meth:`mixing_at`: the consensus matrix over the surviving ring:
+        identity rows and columns for inactive nodes, the survivors a
+        compacted stride-1 ring weighted by Metropolis-Hastings (default)
+        or the runtime's ``(self_weight, side, side)`` rule;
+      * :meth:`handoff_at`: the column-stochastic push-sum handoff: a node
+        departing at epoch ``e`` pushes its whole (value, weight) mass to
+        its nearest survivor;
+      * :meth:`rejoin_sources_at`: for each node rejoining at ``e``, the
+        nearest node active through ``e - 1``, whose de-biased iterate it
+        warm-restarts from.
+    """
+
+    masks: tuple
+
+    def __post_init__(self):
+        if not self.masks:
+            raise ValueError("MembershipSchedule needs at least one mask")
+        masks = tuple(tuple(bool(b) for b in m) for m in self.masks)
+        n = len(masks[0])
+        for e, m in enumerate(masks):
+            if len(m) != n:
+                raise ValueError(
+                    f"mask {e} has {len(m)} nodes, expected {n}")
+            if sum(m) < 2:
+                raise ValueError(
+                    f"epoch {e} must keep >= 2 active nodes, got {sum(m)}")
+        object.__setattr__(self, "masks", masks)
+
+    @property
+    def n_nodes(self) -> int:
+        return len(self.masks[0])
+
+    @property
+    def n_epochs(self) -> int:
+        return len(self.masks)
+
+    @property
+    def is_static(self) -> bool:
+        return all(m == self.masks[0] for m in self.masks)
+
+    def mask_at(self, epoch: int) -> tuple:
+        """The active mask for ``epoch`` (clamped to the last one)."""
+        return self.masks[min(epoch, self.n_epochs - 1)]
+
+    def active_indices(self, epoch: int) -> list:
+        m = self.mask_at(epoch)
+        return [v for v in range(self.n_nodes) if m[v]]
+
+    def epoch_events(self) -> list:
+        """One row per epoch boundary where the mask changes: who joined,
+        who departed, how many remain active."""
+        events = []
+        for e in range(1, self.n_epochs):
+            prev, cur = self.masks[e - 1], self.masks[e]
+            if prev == cur:
+                continue
+            events.append({
+                "epoch": e,
+                "joined": [v for v in range(self.n_nodes)
+                           if cur[v] and not prev[v]],
+                "departed": [v for v in range(self.n_nodes)
+                             if prev[v] and not cur[v]],
+                "active": sum(cur),
+            })
+        return events
+
+    def mixing_at(self, epoch: int, self_weight: float = 0.5,
+                  rule: str = "metropolis") -> MixingMatrix:
+        """The mixing over the surviving ring at ``epoch`` (float64)."""
+        active = self.active_indices(epoch)
+        n, m = self.n_nodes, len(active)
+        w = np.eye(n, dtype=np.float64)
+        if rule == "metropolis":
+            adj = np.zeros((m, m), dtype=bool)
+            for p in range(m):
+                q = (p + 1) % m
+                if q != p:
+                    adj[p, q] = adj[q, p] = True
+            sub = metropolis_weights(adj)
+        elif rule == "ring":
+            sub = ring(m, self_weight=self_weight).w
+        else:
+            raise ValueError(f"unknown reweighting rule {rule!r}")
+        for p, i in enumerate(active):
+            for q, j in enumerate(active):
+                w[i, j] = sub[p, q]
+        mm = MixingMatrix(w=w, name=f"elastic{m}of{n}@{epoch}")
+        mm.validate()
+        return mm
+
+    def handoff_at(self, epoch: int) -> np.ndarray:
+        """Column-stochastic ``(n, n)`` handoff ``H`` at the boundary
+        entering ``epoch``: column ``j`` of a node departing there is
+        ``e_target`` (its nearest node active through the change, or of
+        the new active set when none is); other columns are identity."""
+        if epoch < 1:
+            raise ValueError("handoff is defined for epoch >= 1")
+        prev, cur = self.mask_at(epoch - 1), self.mask_at(epoch)
+        cont = [prev[v] and cur[v] for v in range(self.n_nodes)]
+        pool = cont if any(cont) else list(cur)
+        h = np.eye(self.n_nodes, dtype=np.float64)
+        for j in range(self.n_nodes):
+            if prev[j] and not cur[j]:
+                target = _nearest_active(j, pool)
+                h[j, j] = 0.0
+                h[target, j] = 1.0
+        return h
+
+    def rejoiners_at(self, epoch: int) -> list:
+        if epoch < 1:
+            return []
+        prev, cur = self.mask_at(epoch - 1), self.mask_at(epoch)
+        return [v for v in range(self.n_nodes) if cur[v] and not prev[v]]
+
+    def rejoin_sources_at(self, epoch: int) -> dict:
+        """``{rejoiner: source}``, the source active through ``epoch - 1``
+        and at ``epoch``; empty when no node is active through the change
+        (a full membership swap)."""
+        prev, cur = self.mask_at(epoch - 1), self.mask_at(epoch)
+        survivors = [prev[v] and cur[v] for v in range(self.n_nodes)]
+        if not any(survivors):
+            return {}
+        return {v: _nearest_active(v, survivors)
+                for v in self.rejoiners_at(epoch)}
+
+    @classmethod
+    def static(cls, n_nodes: int) -> "MembershipSchedule":
+        return cls(masks=(tuple(True for _ in range(n_nodes)),))
+
+    @classmethod
+    def from_spec(cls, spec: str, n_nodes: int,
+                  n_epochs: int | None = None) -> "MembershipSchedule":
+        """Parse ``"2@1:3;0@4:6"``: node 2 inactive for epochs [1, 3), node
+        0 for [4, 6).  ``n_epochs`` defaults to ``max(end) + 1``, so the
+        schedule ends with a recovery epoch."""
+        outages = []
+        for part in spec.split(";"):
+            part = part.strip()
+            if not part:
+                continue
+            node_s, sep, span = part.partition("@")
+            start_s, sep2, end_s = span.partition(":")
+            if not sep or not sep2:
+                raise ValueError(
+                    f"bad outage {part!r} (expected 'node@start:end')")
+            node, start, end = int(node_s), int(start_s), int(end_s)
+            if not 0 <= node < n_nodes:
+                raise ValueError(f"node {node} out of range [0, {n_nodes})")
+            if not 0 <= start < end:
+                raise ValueError(f"bad epoch span {start}:{end}")
+            outages.append((node, start, end))
+        if not outages:
+            raise ValueError(f"empty membership spec {spec!r}")
+        total = n_epochs if n_epochs is not None else max(
+            e for _, _, e in outages) + 1
+        masks = []
+        for e in range(total):
+            m = [True] * n_nodes
+            for node, start, end in outages:
+                if start <= e < end:
+                    m[node] = False
+            masks.append(tuple(m))
+        return cls(masks=tuple(masks))
+
+    @classmethod
+    def from_failure_model(cls, model, n_nodes: int,
+                           n_epochs: int) -> "MembershipSchedule":
+        """Masks drawn from a :class:`repro_torch.core.faults.
+        NodeFailureModel`."""
+        am = model.active_mask_host(n_nodes, n_epochs)
+        return cls(masks=tuple(tuple(bool(b) for b in row) for row in am))

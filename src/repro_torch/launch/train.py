@@ -26,7 +26,13 @@ column-stochastic and the exchange push-sum; ``--link-loss`` (with
 loss), ``--resync-retries`` and, on the async transport, ``--straggle``
 (``--straggle-seed``) inject the reference's seeded faults; the step line
 then shows ``delivered_frac`` (and ``push_sum_weight``,
-``deadline_miss_frac``).
+``deadline_miss_frac``).  ``--node-failures 'node@start:end[;...]'``
+takes nodes out of the ring for schedule epochs [start, end) of
+``--schedule-period`` steps (elastic membership: the survivors form a
+compacted ring and the step line shows ``active_nodes``); ``--hierarchy
+pods=P`` runs two-level consensus (each pod of nodes/P nodes averages its
+optimizer delta in fp32, then the pods run the compressed exchange on the
+pod ring, whose elements ``--node-failures`` then indexes).
 
 The wire codec is ``--wire-codec int8|int4|int2|topk|topk:k=<int>``, or
 ``adaptive``: then an ``AdaptiveBitController`` re-selects it every
@@ -58,6 +64,8 @@ from repro_torch.core import codec as wcodec
 from repro_torch.core import tree as T
 from repro_torch.core import wireplan
 from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
+from repro_torch.core.hierarchy import HierarchySpec
+from repro_torch.core.topology import MembershipSchedule
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import init_params, meta_params
@@ -101,10 +109,14 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                       link_loss_model: str = "bernoulli",
                       resync_retries: int = 3,
                       straggle_rate: float | None = None,
-                      straggle_seed: int = 0, seed: int = 0,
+                      straggle_seed: int = 0,
+                      membership: tuple | None = None,
+                      hierarchy=None, seed: int = 0,
                       device=None) -> TrainSetup:
     """Everything static about a run.  ``wire_codec`` is a codec name or a
-    ``mixed:`` plan spec.  ``device`` defaults to ``cuda`` (raising when
+    ``mixed:`` plan spec; ``membership`` per-epoch masks of active ring
+    elements (``MembershipSchedule.masks``), ``hierarchy`` a pod count,
+    ``"pods=P"`` or a ``HierarchySpec``.  ``device`` defaults to ``cuda`` (raising when
     there is none); pass ``device="cpu"`` for the plain PyTorch path."""
     dev = resolve_device(device)
     ccfg = ConsensusConfig(algorithm=algorithm, gamma=gamma,
@@ -121,7 +133,8 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                            link_loss_model=link_loss_model,
                            resync_retries=resync_retries,
                            straggle_rate=straggle_rate,
-                           straggle_seed=straggle_seed)
+                           straggle_seed=straggle_seed,
+                           membership=membership, hierarchy=hierarchy)
     if schedule == "constant":
         sched = constant_schedule(lr)
     elif schedule == "inverse_power":
@@ -292,6 +305,18 @@ def main(argv=None, *, return_state: bool = False):
                          "dropped")
     ap.add_argument("--straggle-seed", type=int, default=0,
                     help="seed of the deterministic straggler masks")
+    ap.add_argument("--node-failures", default=None,
+                    help="elastic membership 'node@start:end[;...]': the "
+                         "node is inactive for schedule epochs [start, end) "
+                         "of --schedule-period steps, e.g. '2@1:3;0@4:6'; "
+                         "the survivors form a compacted ring (under "
+                         "--hierarchy the masks index pods)")
+    ap.add_argument("--hierarchy", default=None,
+                    help="two-level consensus 'pods=P': every pod of "
+                         "nodes/P consecutive nodes averages its optimizer "
+                         "delta in fp32, then the P pods run the compressed "
+                         "exchange on the pod ring; pods=nodes is the flat "
+                         "ring, pods=1 the allreduce")
     ap.add_argument("--wire-codec", default="int8",
                     help="payload codec of the exchange: int8 | int4 | int2 "
                          "| topk | topk:k=<int> | adaptive; 'adaptive' hands "
@@ -357,6 +382,19 @@ def main(argv=None, *, return_state: bool = False):
     except (KeyError, ValueError) as e:
         raise SystemExit(f"--wire-codec/--codec-ladder/--wire-plan: "
                          f"{e.args[0]}") from None
+    hierarchy = None
+    membership = None
+    try:                                  # fail at the CLI, clearly
+        if args.hierarchy:
+            hierarchy = HierarchySpec.from_spec(args.hierarchy)
+            hierarchy.pod_size(args.nodes)
+        if args.node_failures:
+            # under hierarchy the masks index the pods of the outer ring
+            membership = MembershipSchedule.from_spec(
+                args.node_failures, args.nodes if hierarchy is None
+                else hierarchy.pods).masks
+    except ValueError as e:
+        raise SystemExit(f"--hierarchy/--node-failures: {e}") from None
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -389,7 +427,14 @@ def main(argv=None, *, return_state: bool = False):
         link_loss=args.link_loss, loss_seed=args.loss_seed,
         link_loss_model=args.link_loss_model,
         resync_retries=args.resync_retries, straggle_rate=args.straggle,
-        straggle_seed=args.straggle_seed)
+        straggle_seed=args.straggle_seed, membership=membership,
+        hierarchy=hierarchy)
+    if hierarchy is not None:
+        print(f"[setup] {hierarchy.describe(args.nodes)}")
+    if membership is not None:
+        print(f"[setup] membership over {len(membership[0])} ring elements,"
+              f" {len(membership)} epochs of {args.schedule_period} steps: "
+              f"active {[sum(m) for m in membership]}")
     if adaptive:
         ccfg = setup.consensus.cfg
         controller = wcodec.AdaptiveBitController(

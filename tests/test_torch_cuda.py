@@ -614,3 +614,45 @@ def test_cuda_fault_exchange_matches_plain(cuda_device, label, kw, launches):
     assert got[2] == launches and want[2] == [0, 0, 0, 0]
     if "ps_w" in got[1]:
         assert torch.equal(got[1]["ps_w"].cpu(), torch.ones(4, 1))
+
+
+#: (label, ConsensusConfig keywords, launches of #1-#4 over 2 steps): the
+#: hole mask encodes and combines 3 of the 4 nodes, the pod ring 2 pods
+ELASTIC_CASES = [
+    ("hole packed", dict(membership=((True, True, False, True),)),
+     [6, 6, 0, 0]),
+    ("hole async s1", dict(membership=((True, True, False, True),),
+                           wire_packing="async"), [6, 6, 0, 0]),
+    ("churn pipelined", dict(membership=((True,) * 4,
+                                         (True, True, False, True)),
+                             wire_packing="pipelined", pipeline_chunks=3),
+     [21, 21, 0, 0]),
+    ("pods 2 packed", dict(hierarchy=2), [4, 4, 0, 0]),
+    ("pods 2 async s1 lossy", dict(hierarchy=2, wire_packing="async",
+                                   link_loss=0.3, loss_seed=1),
+     [4, 4, 0, 0])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,kw,launches", ELASTIC_CASES,
+                         ids=[c[0] for c in ELASTIC_CASES])
+def test_cuda_elastic_exchange_matches_plain(cuda_device, label, kw,
+                                             launches):
+    """Two exchange steps under a membership mask and on the pod ring
+    through the kernels and through their plain versions on the card:
+    parameters and the consensus state (in-flight payloads included)
+    bitwise equal; an inactive node's rows frozen; pod members bitwise
+    replicas."""
+    from repro_torch.core import tree as T
+    got = _fault_exchanges(cuda_device, **kw)
+    with _plain_kernels():
+        want = _fault_exchanges(cuda_device, **kw)
+    assert _same_exchange(got, want)
+    assert got[2] == launches and want[2] == [0, 0, 0, 0]
+    if "hierarchy" in kw:
+        for a in T.tree_leaves(got[0]) + list(got[1].values()):
+            assert torch.equal(a[0::2], a[1::2])
+    if label.startswith("hole"):
+        xp, _ = _exchange_inputs()
+        for a, b in zip(T.tree_leaves(got[0]), T.tree_leaves(xp)):
+            assert torch.equal(a[2].cpu(), b[2])

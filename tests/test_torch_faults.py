@@ -11,8 +11,8 @@ the JAX package.
     straggler keep masks, the resync masks, the Gilbert-Elliott table at
     horizon 64 and ``NodeFailureModel.active_mask_host``; so do
     ``parse_loss_spec`` and the models' refusals.
-  * ``ConsensusConfig`` refuses what the reference refuses; membership and
-    hierarchy still raise "not yet ported".
+  * ``ConsensusConfig`` refuses what the reference refuses, membership and
+    hierarchy included.
   * The port alone, on 5 stacked nodes of the reduced smollm-135m tree at
     loss 0.2: ``link_loss=0.0`` gives the bits of ``None``; packed ==
     pipelined == async at staleness 0 == per-leaf bit for bit under loss;
@@ -268,16 +268,74 @@ def test_config_helpers_equal_reference():
                                                  is None)
 
 
+MEMBERSHIP_CONFIGS = [
+    dict(membership=((True, True, True),)),
+    dict(membership=((True, True, False, True), (True,) * 4),
+         wire_packing="async"),
+    dict(hierarchy=2), dict(hierarchy="pods=3"),
+    dict(hierarchy=2, membership=((True, False, True),)),
+    dict(membership=()), dict(membership=((True, False, False),)),
+    dict(membership=((True, True), (True, True, True))),
+    dict(membership=[(True, True)]),
+    dict(membership=((True, True),), wire_packing="per_leaf"),
+    dict(membership=((True, True),), push_sum=True),
+    dict(membership=((True, True),), topology="directed-ring"),
+    dict(membership=((True, True),), algorithm="dgd"),
+    dict(hierarchy=2, algorithm="allreduce"),
+    dict(hierarchy=2, topology="directed-ring"),
+    dict(hierarchy=2, push_sum=True),
+    dict(hierarchy=2, wire_packing="per_leaf"),
+    dict(hierarchy="rings=2"), dict(hierarchy=0)]
+
+
 def test_membership_and_hierarchy_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ConsensusConfig(membership=((True, True, True),))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ConsensusConfig(hierarchy=2)
+    """Membership and hierarchy are ported: ``ConsensusConfig`` accepts
+    what the reference accepts (the spec normalized alike) and refuses
+    what it refuses, with the same exception class and message; so do
+    ``MembershipSchedule`` and the runtime's pod and mask checks."""
+    from repro.core import topology as JT
+    from repro.core.distributed import ConsensusConfig as JCfg
     from repro_torch.core import topology
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        topology.MembershipSchedule(masks=((True, True),))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        topology.MembershipSchedule.from_spec("1@1:2", 4)
+    for kw in MEMBERSHIP_CONFIGS:
+        try:
+            want = JCfg(**kw)
+        except Exception as e:          # noqa: BLE001 - compared below
+            with pytest.raises(type(e)) as got:
+                ConsensusConfig(**kw)
+            assert str(got.value) == str(e), kw
+            continue
+        got = ConsensusConfig(**kw)
+        assert got.membership == want.membership, kw
+        assert (got.hierarchy is None) == (want.hierarchy is None), kw
+        if got.hierarchy is not None:
+            assert got.hierarchy.pods == want.hierarchy.pods
+        assert got.schedule_varying == want.schedule_varying, kw
+    for args in [(((True, True),),), (((True, False),),),
+                 (((True, True), (True, True, True)),), ((),)]:
+        try:
+            want = JT.MembershipSchedule(*args)
+        except Exception as e:          # noqa: BLE001 - compared below
+            with pytest.raises(type(e)) as got:
+                topology.MembershipSchedule(*args)
+            assert str(got.value) == str(e)
+            continue
+        assert topology.MembershipSchedule(*args).masks == want.masks
+    for spec, n in (("9@1:2", 4), ("1@2:2", 4), ("1-2", 4), (";", 4),
+                    ("1@1:2", 4), ("0@0:3;3@1:2", 4)):
+        try:
+            want = JT.MembershipSchedule.from_spec(spec, n)
+        except Exception as e:          # noqa: BLE001 - compared below
+            with pytest.raises(type(e)) as got:
+                topology.MembershipSchedule.from_spec(spec, n)
+            assert str(got.value) == str(e)
+            continue
+        assert topology.MembershipSchedule.from_spec(spec, n).masks == \
+            want.masks
+    with pytest.raises(ValueError, match="does not divide"):
+        ConsensusRuntime(ConsensusConfig(hierarchy=3), 4)
+    with pytest.raises(ValueError, match="covers 4 ring elements"):
+        ConsensusRuntime(ConsensusConfig(hierarchy=2,
+                                         membership=((True,) * 4,)), 4)
 
 
 # ---------------------------------------------------------------------------

@@ -383,9 +383,17 @@ def test_by_name_validation_and_unported_paths(four_node):
             name, "choco_gossip")
     with pytest.raises(KeyError):
         K.by_name("nope", mix, K.StepSize(ALPHA))
-    for fn in (K.run_elastic, K.pod_problem, K.run_hierarchical):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            fn()
+    # elastic membership and the two-level hierarchy run
+    r = K.run_elastic(K.ADCDGD(mix, COMP, K.StepSize(ALPHA)), prob, 6,
+                      T.MembershipSchedule.from_spec("1@1:2", 4),
+                      schedule_period=2)
+    assert r["active_nodes"].tolist() == [4, 4, 3, 3, 4, 4]
+    assert np.isfinite(r["x_final"]).all()
+    assert K.pod_problem(prob, 2).n_nodes == 2
+    h = K.run_hierarchical(prob, 2, 6, compressor=COMP,
+                           stepsize=K.StepSize(ALPHA))
+    assert h["x_final"].shape == (4, prob.dim) and h["pod_size"] == 2
+    np.testing.assert_array_equal(h["x_final"][0::2], h["x_final"][1::2])
     from repro_torch.core import wire, wireplan
     plan = wireplan.parse_spec("int8").build(
         wire.WireLayout.for_tree({"w": torch.zeros(prob.dim)}))

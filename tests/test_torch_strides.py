@@ -242,8 +242,9 @@ def test_resync_rebuilds_m_agg_from_new_neighbours(packing):
     seen = {}
     real = ConsensusRuntime.rebuild_m_agg
 
-    def spy(self, xt, stride, out=None):
-        got = real(self, xt, stride, out)
+    def spy(self, xt, stride, out=None, mask=None):
+        assert mask is None
+        got = real(self, xt, stride, out, mask=mask)
         seen.setdefault(self._step, []).append((stride, got.clone()))
         return got
 
