@@ -68,7 +68,7 @@ Phases (any failure exits non-zero before the result line):
              exchange time at a resync against steps without one;
              then the lossy and directed rings (``phase_faults``), each
              run counted and every exchange watched: 4 nodes on the
-             directed ring with push-sum, adaptive grid, loss seed 1, 8
+             directed ring with push-sum, adaptive grid, loss seed 1, 6
              steps at loss None, 0.0, 0.05 and 0.2 packed, then 0.2
              pipelined over 4 units, async at staleness 0 and per-leaf,
              the Gilbert-Elliott burst channel (p 0.1, r 0.9) with int8
@@ -92,7 +92,7 @@ Phases (any failure exits non-zero before the result line):
              then elastic membership and the two-level hierarchy
              (``phase_elastic``), each run counted and watched: the
              reference's churn sweep on 4 nodes (node 2 out for the second
-             of 4-step epochs, 16 steps) packed, pipelined over 4 units,
+             of 4-step epochs, 13 steps) packed, pipelined over 4 units,
              async at staleness 0 and 1 and under the burst channel:
              active nodes 4 / 3 / 4, node 2's parameters and shadows
              frozen bitwise through steps 5-8, resyncs at steps 5 and 9
@@ -113,6 +113,26 @@ Phases (any failure exits non-zero before the result line):
              on ``ring(20)`` bitwise) at N 20, P 2^22, 500 counted steps
              each, and run_elastic through #3 and its plain version
              bitwise over 20 steps;
+             then telemetry, checkpoints and gradient accumulation
+             (``phase_telemetry``) on the same 4 nodes, each run counted:
+             ``--telemetry`` for 5 steps on packed, pipelined over 4 units
+             and async at staleness 1 beside the same run without it (the
+             sink valid under ``core.telemetry.validate_file``, every
+             exchange phase in the trace, the async in-flight span over
+             the next step's forward/backward, 271,160,064 shipped bytes
+             per step, losses and metrics of every step, final params,
+             shadows and in-flight payloads bitwise equal, launches
+             equal; each run's exchange windows and phases read from its
+             trace); the measured split of one packed exchange from its
+             CUDA events (the phases and the glue adding up to the window
+             within 0.1 ms), the exchange with a span recorder against
+             without (within 0.2 ms) and the trainer's consensus_err
+             metric alone; a 2-step ``--checkpoint-every 2``
+             run loaded into a fresh state and run through steps 3-4,
+             bitwise equal to a 4-step run, packed and async at staleness
+             1, with the bytes and seconds of save and load; 3 steps of
+             ``--microbatches 2`` beside 1, its gradient bitwise the two
+             halves' gradients added and halved;
 4. serve   — ``repro_torch.launch.serve.main`` on the full smollm-135m:
              32 prompts of 1,984 tokens and 64 new tokens (capacity 2,048,
              a 3.0 GB float32 KV cache): the flash-decode kernel launched
@@ -202,7 +222,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 BLOCK, PAYLOAD = 512, 516
-NODES, STEPS = 4, 5
+#: 4 x 512 tokens per node per step
+NODES, STEPS, SEQ = 4, 5, 512
 CODEC_STEPS, ADAPTIVE_STEPS = 3, 6
 TIMING_REPS = 25
 #: spin-kernel cycles per second: above the H100's highest SM clock
@@ -767,7 +788,7 @@ CODEC_KERNELS = {
 
 def train_argv(steps: int, *extra: str) -> list[str]:
     return ["--arch", "smollm-135m", "--algorithm", "adc_dgd", "--nodes",
-            str(NODES), "--batch", str(4 * NODES), "--seq", "512",
+            str(NODES), "--batch", str(4 * NODES), "--seq", str(SEQ),
             "--steps", str(steps), "--quant-mode", "fixed", "--lr", "1e-2",
             "--device", "cuda", *extra]
 
@@ -794,7 +815,7 @@ def expected_launches(entries, codecs) -> dict:
 
 def phase_main(torch, train, entries):
     main_launches = {name: 0 for name in entries}
-    step_s, peak_gb = {}, {}
+    step_s, peak_gb, first_loss = {}, {}, {}
     for codec, steps in (("int8", STEPS), ("int4", CODEC_STEPS),
                          ("int2", CODEC_STEPS), ("topk", CODEC_STEPS)):
         extra = () if codec == "int8" else ("--wire-codec", codec)
@@ -817,6 +838,7 @@ def phase_main(torch, train, entries):
             fail(f"{codec}: wire_bytes_per_step {wire} (want "
                  f"{WIRE_BYTES[codec]}), codecs {[h['codec'] for h in hist]}")
         step_s[codec] = statistics.median(h["step_s"] for h in hist[1:])
+        first_loss[codec] = losses[0]
         print(f"[main] smollm-135m x {NODES} nodes, adc_dgd fixed, "
               f"{codec} wire: losses {losses}; launches "
               f"{ {n: v for n, v in launches.items() if v} }; "
@@ -842,7 +864,7 @@ def phase_main(torch, train, entries):
     if not all(math.isfinite(h["loss"]) for h in hist_a):
         fail(f"non-finite adaptive-mode loss: {hist_a}")
     print(f"[main] adaptive mode: losses {[h['loss'] for h in hist_a]}")
-    return main_launches, step_s, peak_gb
+    return main_launches, step_s, peak_gb, first_loss
 
 
 def codec_kernels(codec: str) -> tuple[str, str]:
@@ -1151,11 +1173,12 @@ def phase_strides(torch, Q, D, train, entries):
 #: the lossy and directed rings (``phase_faults``) on the full smollm-135m
 #: x 4 nodes: the reference's packet-loss sweep (``benchmarks/
 #: consensus_step.py:171-174``: directed-ring push-sum on the adaptive
-#: grid, 8 steps, loss seed 1, rates None / 0.0 / 0.05 / 0.2), its burst
+#: grid, loss seed 1, rates None / 0.0 / 0.05 / 0.2; 6 of its 8 steps, cut
+#: for the script's time), its burst
 #: channel (``CHURN_BURST``, :202), the async transport's straggler
 #: deadlines, and the strided 5-node ring of ``phase_strides`` with one
 #: resync retry (some handshakes fail)
-FAULT_STEPS, LOSS_SEED, STRAGGLE = 8, 1, 0.2
+FAULT_STEPS, LOSS_SEED, STRAGGLE = 6, 1, 0.2
 LOSS_RATES = (None, 0.0, 0.05, 0.2)
 CHURN_BURST = "gilbert:p=0.1,r=0.9"
 FAULT_ARGV = ("--topology", "directed-ring", "--quant-mode", "adaptive",
@@ -1662,13 +1685,14 @@ def phase_paper_directed(torch, Q, entries):
 
 #: elastic membership (``phase_elastic``): the reference's churn sweep
 #: (``benchmarks/consensus_step.py:179-202``, ``CHURN_MASKS`` and
-#: ``CHURN_PERIOD``): node 2 out for schedule epoch 1 of 4-step epochs, 16
-#: steps: nodes 0, 1, 3 at steps 5-8, all four at the others; the resync
-#: at steps 5 and 9 (at 13 the mask has clamped, so none)
-CHURN_SPEC, CHURN_PERIOD, CHURN_STEPS = "2@1:2", 4, 16
+#: ``CHURN_PERIOD``): node 2 out for schedule epoch 1 of 4-step epochs, 13
+#: of its 16 steps (cut for the script's time; step 13 still opens the
+#: clamped epoch): nodes 0, 1, 3 at steps 5-8, all four at the others; the
+#: resync at steps 5 and 9 (at 13 the mask has clamped, so none)
+CHURN_SPEC, CHURN_PERIOD, CHURN_STEPS = "2@1:2", 4, 13
 CHURN_ARGV = ("--node-failures", CHURN_SPEC, "--schedule-period",
               str(CHURN_PERIOD))
-CHURN_ACTIVE = [4] * 4 + [3] * 4 + [4] * 8
+CHURN_ACTIVE = [4] * 4 + [3] * 4 + [4] * 5
 CHURN_RESYNCS = (5, 9)
 CHURN_HOLE = (True, True, False, True)
 #: the reference's wire bytes per step: the int8 payload and the amortized
@@ -1734,7 +1758,7 @@ class ElasticWatch:
 def phase_elastic(torch, Q, D, train, entries):
     """Elastic membership and the two-level hierarchy on the full
     smollm-135m x 4 nodes, each run counted on its own and watched
-    (``ElasticWatch``, ``ExchangeWatch``): (a) the churn sweep, 16 steps
+    (``ElasticWatch``, ``ExchangeWatch``): (a) the churn sweep, 13 steps
     on packed, pipelined 4 units, async at staleness 0 and 1, and packed
     under the burst channel: 4 / 3 / 4 active, node 2 frozen bitwise
     through steps 5-8, resyncs at 5 and 9 only, the reference's wire
@@ -1973,6 +1997,317 @@ def phase_elastic_timing(torch, train):
     del params, x_half, setup
     torch.cuda.empty_cache()
     return ms
+
+
+#: the telemetry phase: 5 steps of each transport with and without
+#: ``--telemetry``; the checkpoint resume (2 + 2 against 4 steps); 3 steps of
+#: ``--microbatches 2`` and of 1
+TEL_STEPS, CKPT_STEPS, MICRO_STEPS = 5, 4, 3
+TEL_RUNS = {"packed": (),
+            "pipelined 4": ("--wire-packing", "pipelined",
+                            "--pipeline-chunks", str(PIPELINE_CHUNKS)),
+            "async s1": ("--wire-packing", "async", "--staleness", "1")}
+#: the measured spans of one exchange add up to its window within this
+SPAN_SUM_TOL_MS = 0.1
+#: the exchange with a span recorder installed against without, CUDA events
+TEL_OVERHEAD_MS = 0.2
+
+
+def tel_trace_checks(label, sink, trace_path, hist):
+    """One ``--telemetry`` run's sink and trace: valid records under the
+    port's validator, one step record per step whose shipped bytes are the
+    int8 payload's, every phase in the trace, and on the async transport an
+    in-flight span overlapping the next step's forward/backward."""
+    from repro_torch.core import telemetry
+    problems = telemetry.validate_file(sink)
+    with open(sink) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    steps = [r for r in recs if r["kind"] == "step"]
+    shipped = {r["metrics"]["wire_bytes_shipped"] for r in steps}
+    with open(trace_path) as f:
+        trace = json.load(f)
+    cov = telemetry.trace_phase_coverage(trace)
+    spans = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    fly = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+           if e["name"].startswith("in_flight")]
+    fwd = [(e["ts"], e["ts"] + e["dur"]) for e in spans
+           if e["name"].startswith("fwd/bwd")]
+    over_next = any(f0 < w1 and w0 < f1 for f0, f1 in fly for w0, w1 in fwd)
+    # per rendered step (2-5): the window and its phases, in ms
+    split = {}
+    for e in spans:
+        if e["name"].startswith("exchange step"):
+            split[e["args"]["step"]] = {"window": e["dur"] / 1e3,
+                                        "phases": {}, "t": (e["ts"],)}
+    for e in spans:
+        ph = e["name"].split()[0]
+        if ph in ("quantize", "launch", "retire", "dequant_combine"):
+            row = split[e["args"]["step"]]
+            row["phases"][ph] = row["phases"].get(ph, 0.0) + e["dur"] / 1e3
+    if problems or len(steps) != len(hist) or shipped != {WIRE_BYTES["int8"]} \
+            or min(cov.values()) < 1 or trace["otherData"]["spans"] != \
+            "cuda-events" or (label == "async s1") != over_next:
+        fail(f"telemetry {label}: sink problems {problems[:3]}, "
+             f"{len(steps)} step records for {len(hist)} steps, shipped "
+             f"{shipped}, phases {cov}, spans {trace['otherData']}, "
+             f"in-flight over the next fwd/bwd {over_next}")
+    return cov, over_next, split
+
+
+def phase_telemetry(torch, train, entries, main_int8):
+    """Telemetry, checkpoints and gradient accumulation on the full
+    smollm-135m x 4 nodes, int8 fixed grid, each trainer run counted:
+    (a) ``--telemetry`` for 5 steps on packed, pipelined 4 and async s1
+    beside the same run without it: the sink valid, every phase in the
+    trace, async's in-flight span over the next step's compute, shipped
+    bytes = the int8 payload, losses and metrics of every step, final
+    params, shadows and in-flight payloads bitwise equal, launches equal,
+    each run's exchange windows and phases from its trace; the measured
+    split of one packed exchange (its spans adding up to the window), the
+    exchange with and without a recorder, and the trainer's
+    ``consensus_err`` metric timed alone; (b) a 2-step run
+    saving at step 2 (``--checkpoint-every 2``), loaded into a fresh state
+    of another seed and run through steps 3-4, bitwise equal to a 4-step
+    run, packed and async s1, with bytes and seconds of save and load; (c)
+    ``--microbatches 2`` for 3 steps beside the main phase's int8 run
+    (``main_int8``: its median step s, peak GB and step-1 loss), its
+    gradient bitwise the two halves' gradients added and halved.  Returns
+    (launches, the measured split in ms, summary lines)."""
+    import tempfile
+    from repro_torch import checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core import telemetry
+    from repro_torch.core import tree as T
+    from repro_torch.core.distributed import (ConsensusConfig,
+                                              ConsensusRuntime,
+                                              _consensus_error)
+    from repro_torch.data import SyntheticLMDataset
+    launches_total = {name: 0 for name in entries}
+    summary = []
+
+    def counted(argv):
+        (hist, state), launches, peak = run_counted(
+            torch, train, entries, argv, return_state=True)
+        for name, n in launches.items():
+            launches_total[name] += n
+        return hist, state, launches, peak
+
+    # (a) telemetry on and off
+    for label, extra in TEL_RUNS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            hist_on, on, l_on, _ = counted(train_argv(
+                TEL_STEPS, *extra, "--telemetry", "--telemetry-dir", tmp,
+                "--run-id", "smoke"))
+            cov, over, tsplit = tel_trace_checks(
+                label, os.path.join(tmp, "telemetry-smoke.jsonl"),
+                os.path.join(tmp, "trace-smoke.json"), hist_on)
+        hist_off, off, l_off, _ = counted(train_argv(TEL_STEPS, *extra))
+        keys = ("loss", "overflow_frac", "residual_norm", "consensus_err")
+        same_hist = all(a[k] == b[k] for a, b in zip(hist_on, hist_off)
+                        for k in keys)
+        same = (all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(on["params"]), tree_leaves(off["params"])))
+            and sorted(on["consensus"]) == sorted(off["consensus"])
+            and all(torch.equal(on["consensus"][k], off["consensus"][k])
+                    for k in on["consensus"]))
+        if not (same and same_hist) or l_on != l_off:
+            fail(f"telemetry {label}: telemetry on differs from off: state "
+                 f"bitwise {same}, per-step metrics {same_hist}, launches "
+                 f"{l_on} against {l_off}")
+        exch = [h["consensus_exchange_s"] * 1e3 for h in hist_on[1:]]
+        phases = {ph: statistics.median(r["phases"].get(ph, 0.0)
+                                        for r in tsplit.values())
+                  for ph in ("quantize", "launch", "retire",
+                             "dequant_combine")}
+        glue = statistics.median(r["window"] - sum(r["phases"].values())
+                                 for r in tsplit.values())
+        print(f"[telemetry] {label}: {TEL_STEPS} steps with --telemetry == "
+              f"without, bitwise (params, {sorted(on['consensus'])}) and "
+              f"per step ({', '.join(keys)}); launches equal "
+              f"{({n: v for n, v in l_on.items() if v})}; spans per phase "
+              f"{cov}; in-flight over the next step's fwd/bwd {over}; "
+              f"wire_bytes_shipped {WIRE_BYTES['int8']} per step; exchange "
+              f"window per step {[round(x, 3) for x in exch]} ms, of it "
+              f"(median of steps 2-{TEL_STEPS}) "
+              + ", ".join(f"{k} {v:.3f}" for k, v in phases.items())
+              + f" and glue {glue:.3f} ms (with the trainer's consensus_err)",
+              flush=True)
+        if label == "packed":
+            trainer_split = {"trainer window": statistics.median(exch),
+                             "trainer glue": glue}
+        del on, off
+    # the measured split of one packed exchange, and the recorder's cost
+    setup = train.build_train_setup(get_config("smollm-135m"),
+                                    consensus_nodes=NODES, device="cuda")
+    state = train.init_train_state(setup, 0)
+    params, cons = state["params"], state["consensus"]
+    x_half = T.tree_map(lambda a: a + 1e-4, params)
+    rt_on = ConsensusRuntime(ConsensusConfig(telemetry=True), NODES)
+    rec = telemetry.SpanRecorder("cuda").install()
+    splits = []
+    for _ in range(5):
+        rec.step_begin()
+        with telemetry.exchange_window():
+            rt_on.exchange(params, x_half, cons, 2)
+        torch.cuda.synchronize()
+        splits.append(rec.measure())
+    rec.uninstall()
+    for sp in splits:
+        parts = sp["glue_parts"]
+        total = sum(sp["phases"].values()) + sum(parts.values())
+        if abs(total - sp["window_s"]) * 1e3 > SPAN_SUM_TOL_MS or \
+                min(parts.values()) < 0:
+            fail(f"telemetry: the spans {sp} do not add up to the window")
+    med = {ph: statistics.median(sp["phases"][ph] for sp in splits) * 1e3
+           for ph in splits[0]["phases"]}
+    glue = {k: statistics.median(sp["glue_parts"][k] for sp in splits) * 1e3
+            for k in ("before", "between", "after")}
+    window = statistics.median(sp["window_s"] for sp in splits) * 1e3
+    print(f"[telemetry] measured split of one 4-node int8 packed exchange "
+          f"(CUDA events, median of 5, fixed grid, step 2): window "
+          f"{window:.3f} ms = quantize {med['quantize']:.3f} + launch "
+          f"{med['launch']:.3f} + retire {med['retire']:.3f} + "
+          f"dequant_combine {med['dequant_combine']:.3f} + glue "
+          f"{sum(glue.values()):.3f} (before the first mark: pack, "
+          f"differential, noise {glue['before']:.3f}; launch->retire: the "
+          f"overflow census {glue['between']:.3f}; after the combine: "
+          f"unpack, residual {glue['after']:.3f}); the spans add up to the "
+          f"window within {SPAN_SUM_TOL_MS} ms", flush=True)
+    rt_off = ConsensusRuntime(ConsensusConfig(), NODES)
+
+    def timed_on():
+        rec.step_begin()
+        with telemetry.exchange_window():
+            rt_on.exchange(params, x_half, cons, 2)
+
+    ms = {"off": [], "on": []}
+    for key in ("off", "on", "on", "off"):
+        if key == "on":
+            rec.install()
+            ms[key].append(time_ms(timed_on, reps=5))
+            rec.uninstall()
+        else:
+            ms[key].append(time_ms(lambda: rt_off.exchange(
+                params, x_half, cons, 2), reps=5))
+    t_on, t_off = statistics.mean(ms["on"]), statistics.mean(ms["off"])
+    if abs(t_on - t_off) > TEL_OVERHEAD_MS:
+        fail(f"telemetry: the exchange with a recorder took {ms['on']} ms "
+             f"against {ms['off']} ms without")
+    print(f"[telemetry] one 4-node int8 exchange with telemetry and a span "
+          f"recorder {t_on:.3f} ms ({ms['on']}) against without "
+          f"{t_off:.3f} ms ({ms['off']}), in turns off/on/on/off",
+          flush=True)
+    cerr = time_ms(lambda: _consensus_error(x_half), reps=5)
+    print(f"[telemetry] the consensus_err metric alone (the trainer's "
+          f"exchange computes it, the timed exchanges do not): {cerr:.3f} "
+          "ms", flush=True)
+    split = {"window": window, **med, **{f"glue {k}": v
+                                         for k, v in glue.items()},
+             "exchange on": t_on, "exchange off": t_off,
+             **trainer_split, "consensus_err": cerr}
+    del state, params, cons, x_half, rec
+    torch.cuda.empty_cache()
+
+    # (b) checkpoint and resume
+    saves = []
+    real_save = train.save_checkpoint
+
+    def timed_save(directory, step, tree):
+        t0 = time.perf_counter()
+        path = real_save(directory, step, tree)
+        saves.append((time.perf_counter() - t0, os.path.getsize(path)))
+        return path
+
+    train.save_checkpoint = timed_save
+    try:
+        for label, extra in (("packed", ()), ("async s1",
+                                               TEL_RUNS["async s1"])):
+            with tempfile.TemporaryDirectory() as tmp:
+                _, half, _, _ = counted(train_argv(
+                    2, *extra, "--checkpoint-dir", tmp,
+                    "--checkpoint-every", "2"))
+                del half
+                _, full, _, _ = counted(train_argv(CKPT_STEPS, *extra))
+                setup = train.build_train_setup(
+                    get_config("smollm-135m"), consensus_nodes=NODES,
+                    lr=1e-2, quant_mode="fixed", device="cuda",
+                    total_steps=2, track_consensus_error=True,
+                    wire_packing="async" if extra else "packed")
+                template = train.init_train_state(setup, 7)
+                t0 = time.perf_counter()
+                state, step = checkpoint.load_checkpoint(tmp, template)
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - t0
+                del template
+                ds = SyntheticLMDataset(setup.cfg.vocab_size, SEQ,
+                                        4 * NODES, n_shards=NODES)
+                for k in range(step, CKPT_STEPS):
+                    state, _ = train.train_step(setup, state,
+                                                ds.global_batch_arrays(k))
+                torch.cuda.synchronize()
+            same = (state["step"] == full["step"] == CKPT_STEPS
+                    and all(torch.equal(a, b) for a, b in zip(
+                        tree_leaves(state["params"]),
+                        tree_leaves(full["params"])))
+                    and sorted(state["consensus"]) == sorted(full["consensus"])
+                    and all(torch.equal(state["consensus"][k],
+                                        full["consensus"][k])
+                            for k in full["consensus"]))
+            save_s, nbytes = saves[-1]
+            if not same or step != 2:
+                fail(f"checkpoint {label}: steps 3-{CKPT_STEPS} resumed from "
+                     f"the step-{step} checkpoint differ from the "
+                     "uninterrupted run")
+            line = (f"checkpoint {label}: saved {nbytes} bytes in "
+                    f"{save_s:.2f} s ({sorted(full['consensus'])}, params, "
+                    f"step), loaded in {load_s:.2f} s; steps 3-{CKPT_STEPS} "
+                    f"from it == the uninterrupted {CKPT_STEPS}-step run "
+                    "bitwise (params, every consensus entry)")
+            print(f"[telemetry] {line}", flush=True)
+            summary.append(line)
+            del state, full, setup
+            torch.cuda.empty_cache()
+    finally:
+        train.save_checkpoint = real_save
+
+    # (c) microbatches
+    hist, state, _, peak = counted(train_argv(MICRO_STEPS,
+                                              "--microbatches", "2"))
+    losses = [h["loss"] for h in hist]
+    micro_s = statistics.median(h["step_s"] for h in hist[1:])
+    del state
+    if not all(math.isfinite(x) for x in losses) or \
+            abs(losses[0] - main_int8[2]) > 1e-4 * main_int8[2]:
+        fail(f"microbatches 2: losses {losses}, step 1 of the int8 run "
+             f"{main_int8[2]}")
+    setups = {m: train.build_train_setup(
+        get_config("smollm-135m"), consensus_nodes=NODES, device="cuda",
+        microbatches=m) for m in (1, 2)}
+    params = train.init_train_state(setups[1], 0)["params"]
+    batch = SyntheticLMDataset(setups[1].cfg.vocab_size, SEQ, 4 * NODES,
+                               n_shards=NODES).global_batch_arrays(0)
+    halves = [{k: np.concatenate([v[i * 4 + j * 2:i * 4 + j * 2 + 2]
+                                  for i in range(NODES)])
+               for k, v in batch.items()} for j in range(2)]
+    loss2, g2 = train._node_grads(setups[2], params, batch)
+    parts = [train._node_grads(setups[1], params, h) for h in halves]
+    same = torch.equal(loss2, (parts[0][0] + parts[1][0]) * 0.5) and all(
+        torch.equal(g, (a + b) * 0.5) for g, a, b in zip(
+            tree_leaves(g2), tree_leaves(parts[0][1]),
+            tree_leaves(parts[1][1])))
+    if not same:
+        fail("microbatches 2: the gradient differs from the two halves' "
+             "gradients added and halved")
+    del params, g2, parts
+    torch.cuda.empty_cache()
+    line = (f"--microbatches 2: {MICRO_STEPS} steps, losses {losses}, "
+            f"median step {micro_s:.4f} s, peak memory {peak:.2f} GB, "
+            f"against 1 (the main phase's int8 run): {main_int8[0]:.4f} s, "
+            f"{main_int8[1]:.2f} GB; the gradient bitwise the two halves' "
+            "added and halved")
+    print(f"[telemetry] {line}", flush=True)
+    summary.append(line)
+    return launches_total, split, summary
 
 
 def phase_paper_elastic(torch, Q, entries):
@@ -3143,7 +3478,8 @@ def main() -> None:
     errs.update(phase_codec_kernels(torch, BP, n_rows))
     errs.update(phase_block_kernels(torch, Q, D, leaf_rows))
     errs.update(phase_decode_kernel(torch, G))
-    launches, step_s, peak_gb = phase_main(torch, train, entries)
+    launches, step_s, peak_gb, first_loss = phase_main(torch, train,
+                                                       entries)
     for name, n in phase_perleaf(torch, train, entries).items():
         launches[name] += n
     plan_launches_, plan_step_s, plan_peak_gb, wide_abs = phase_plans(
@@ -3165,6 +3501,14 @@ def main() -> None:
     print(f"[elastic] phase_elastic: {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, n in elastic_launches.items():
+        launches[name] += n
+    t0 = time.perf_counter()
+    tel_launches, tel_split, tel_summary = phase_telemetry(
+        torch, train, entries, (step_s["int8"], peak_gb["int8"],
+                                first_loss["int8"]))
+    print(f"[telemetry] phase_telemetry: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for name, n in tel_launches.items():
         launches[name] += n
     serve_launches, _ = phase_serve(torch, serve, entries)
     launches["gqa_decode"] += serve_launches["gqa_decode"]
@@ -3223,6 +3567,11 @@ def main() -> None:
           f" of the flat exchange, the resync at 4 nodes adds "
           f"{elastic_exchange_ms['churn step 9 (resync, 4 active)'] - flat:.2f}"
           f" ms; card {smi}")
+    print("[summary] 4-node int8 packed exchange, measured split (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in tel_split.items())
+          + f"; card {smi}")
+    for line in tel_summary:
+        print(f"[summary] {line}; card {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -66,6 +66,7 @@ import torch
 from .compression import Compressor, IdentityCompressor
 from .f32 import f32, over_power, power, recip
 from .problems import ConsensusProblem
+from .telemetry import WireAccounting
 from .hierarchy import HierarchySpec
 from .topology import (MembershipSchedule, MixingMatrix, TopologySchedule,
                        fully_connected, ring)
@@ -183,8 +184,9 @@ class _Algorithm:
     def _compressed_broadcast_bytes(self, problem) -> float:
         """One compressed broadcast per node per iteration, over every
         message of the mixing graph (``WireAccounting.shipped_payload``)."""
-        return float(self.mixing.n_messages
-                     * self.compressor.wire_bytes(problem.dim))
+        return WireAccounting(
+            payload_bytes=self.compressor.wire_bytes(problem.dim),
+            directions=self.mixing.n_messages).shipped_payload
 
 
 def _start(problem, n, x0):
@@ -355,7 +357,9 @@ class DGD(_Algorithm):
             "max_transmitted": _max_abs(x), "alpha": alpha}
 
     def bytes_per_iteration(self, problem):
-        return float(self.mixing.n_messages * (self.elem_bytes * problem.dim))
+        return WireAccounting(payload_bytes=self.elem_bytes * problem.dim,
+                              directions=self.mixing.n_messages
+                              ).shipped_payload
 
 
 @dataclasses.dataclass(frozen=True)

@@ -97,6 +97,14 @@ representative (all nodes share x0), so the exchange runs on the
 representatives' rows alone, one launch per pod, and its results are
 copied to the members.  ``pods == n`` is the flat ring; ``pods == 1`` is
 the ``allreduce`` exchange.
+
+Telemetry (``telemetry``, ``core.telemetry``): every ADC return path adds
+the reference's extra per-node metrics (``telemetry_metric_keys``), all
+read from ``wire_accounting``; off or on, the exchange computes the same
+bits.  The packed, pipelined and async exchanges call ``trace_mark`` where
+each phase's work starts (quantize, launch, retire, dequant_combine, in
+the reference's order and with its ``info``) and ``trace_end`` where it
+ends; an installed ``SpanRecorder`` times them with CUDA events.
 """
 from __future__ import annotations
 
@@ -109,7 +117,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import codec as wire_codec
-from repro_torch.core import faults
+from repro_torch.core import faults, telemetry
 from repro_torch.core import tree as T
 from repro_torch.core import wire, wireplan
 from repro_torch.core.f32 import over_power, recip
@@ -170,6 +178,10 @@ class ConsensusConfig:
     #: two-level consensus: a HierarchySpec, an int pod count or "pods=P"
     #: (normalized to a HierarchySpec); None is the flat ring
     hierarchy: Any = None
+    #: the exchange's extra per-node metrics (``telemetry_metric_keys``);
+    #: off or on, the exchange computes the same bits and launches the
+    #: same kernels
+    telemetry: bool = False
 
     def __post_init__(self):
         if not self.ring_strides:
@@ -366,6 +378,20 @@ class ConsensusConfig:
         return (len(self.ring_strides) > 1
                 or (self.membership is not None
                     and len(self.membership) > 1))
+
+    def telemetry_metric_keys(self) -> tuple:
+        """The extra metric keys every return path of the ADC exchange
+        gives when ``telemetry`` is on (the reference's list)."""
+        if not self.telemetry or self.algorithm != "adc_dgd":
+            return ()
+        keys = ["wire_bytes_shipped", "saturated_count"]
+        if self.hierarchy is not None:
+            keys += ["wire_bytes_inner", "wire_bytes_outer"]
+        if self.schedule_varying:
+            keys += ["resync_fired", "resync_ok"]
+        if self.wire_packing == "async" and self.staleness == 1:
+            keys.append("staleness_retired")
+        return tuple(keys)
 
 
 def noise_seed(seed: int, step: int, node: int) -> int:
@@ -581,25 +607,21 @@ class ConsensusRuntime:
             return rows * kops.payload_width(), rows
         return self.wire_plan_for(layout).payload_bytes, layout.n_rows
 
-    def bytes_per_direction(self, layout: wire.WireLayout) -> int:
-        """Bytes one ring direction carries per step on the compressed
-        wire: the payload and, with push-sum, the weight's trailer."""
-        push = (self.cfg.algorithm == "adc_dgd"
-                and self.cfg.push_sum_enabled)
-        return (self._payload_rows(layout)[0]
-                + (wireplan.PUSH_SUM_TRAILER_BYTES if push else 0))
-
-    def wire_bytes_per_step(self, n_params_local: int,
-                            layout: wire.WireLayout) -> float:
-        """Bytes one node puts on the ring per step (both directions): the
-        plan's flat payload and the push-sum trailer.  The per-leaf
-        transport ships each leaf padded to its own TILE_N-aligned height,
-        so more rows than the packed payload of the same tree.  A
-        time-varying ring adds the epoch resync of ``adc_dgd``, one fp32
-        ``x_tilde`` per ring direction per re-wiring, amortized over
-        ``schedule_period`` steps.  Hierarchy adds the inner level's fp32
-        ring all-reduce (``HierarchySpec.inner_bytes_per_step``), all there
-        is at one pod.  ``dgd`` ships ``wire_dtype``."""
+    def wire_accounting(self, n_params_local: int,
+                        layout: wire.WireLayout
+                        ) -> telemetry.WireAccounting | None:
+        """The byte accounting of this runtime's wire, the one source of
+        ``wire_bytes_per_step``, the delivered bytes and the telemetry's
+        shipped bytes: the plan's flat payload and the push-sum trailer
+        per direction.  The per-leaf transport ships each leaf padded to
+        its own TILE_N-aligned height, so more rows than the packed
+        payload of the same tree.  A time-varying ring adds the epoch
+        resync of ``adc_dgd``, one fp32 ``x_tilde`` per ring direction per
+        re-wiring, amortized over ``schedule_period`` steps (an upper bound
+        under membership, whose resyncs stop once the mask has clamped).
+        Hierarchy adds the inner level's fp32 ring all-reduce
+        (``HierarchySpec.inner_bytes_per_step``), all there is at one pod.
+        ``dgd`` ships ``wire_dtype``; the others nothing (None)."""
         cfg = self.cfg
         alg = cfg.algorithm
         if alg in ("adc_dgd", "compressed_dgd"):
@@ -607,19 +629,30 @@ class ConsensusRuntime:
             inner = (0.0 if hier is None else hier.inner_bytes_per_step(
                 n_params_local, self.n_nodes))
             if hier is not None and self.ring_len <= 1:
-                return inner         # one pod: the inner level is all
-            rows = self._payload_rows(layout)[1]
+                return telemetry.WireAccounting(payload_bytes=0,
+                                                inner_bytes=inner)
+            payload, rows = self._payload_rows(layout)
             resync = 0.0
             if alg == "adc_dgd" and cfg.schedule_varying:
-                # an upper bound under membership, whose resyncs stop
-                # once the mask has clamped
                 resync = 2.0 * rows * kops.BLOCK * 4 / cfg.schedule_period
-            return (float(2 * self.bytes_per_direction(layout)) + resync
-                    + inner)
+            push = alg == "adc_dgd" and cfg.push_sum_enabled
+            return telemetry.WireAccounting(
+                payload_bytes=int(payload),
+                trailer_bytes=(wireplan.PUSH_SUM_TRAILER_BYTES if push
+                               else 0),
+                resync_bytes_amortized=resync, inner_bytes=inner)
         if alg == "dgd":
-            itemsize = torch.empty((), dtype=cfg.wire_dtype).element_size()
-            return float(2 * n_params_local * itemsize)
-        return 0.0
+            return telemetry.WireAccounting.uncompressed(
+                n_params_local,
+                torch.empty((), dtype=cfg.wire_dtype).element_size())
+        return None
+
+    def wire_bytes_per_step(self, n_params_local: int,
+                            layout: wire.WireLayout) -> float:
+        """Bytes one node puts on the ring per step, both directions
+        (:meth:`wire_accounting`)."""
+        acct = self.wire_accounting(n_params_local, layout)
+        return 0.0 if acct is None else acct.shipped_per_step
 
     def _chunks_for(self, layout: wire.WireLayout) -> wire.ChunkedLayout:
         """The compressed_dgd packed path's uniform int8 chunks: the
@@ -807,17 +840,55 @@ class ConsensusRuntime:
         self.zero_payloads += int(drop.sum())
         return left, right
 
-    def _fault_metrics(self, metrics: dict, layout, flags, device,
-                       wiring: Wiring) -> None:
+    def _fault_metrics(self, metrics: dict, acct, flags, device,
+                       wiring: Wiring) -> torch.Tensor:
         """``wire_bytes_delivered`` (bytes per direction times surviving
-        directions) and ``delivered_frac`` per element, from the ``(2, n)``
-        arrival flags; 0 at an inactive element."""
+        directions, ``acct``) and ``delivered_frac`` per element, from the
+        ``(2, n)`` arrival flags; 0 at an inactive element.  Returns the
+        surviving directions per element."""
         delivered = flags.sum(axis=0)
         delivered[wiring.inactive] = 0
         delivered = _node_values(delivered, device)
-        metrics["wire_bytes_delivered"] = (
-            delivered * float(self.bytes_per_direction(layout)))
+        metrics["wire_bytes_delivered"] = acct.delivered_bytes(delivered)
         metrics["delivered_frac"] = delivered / 2.0
+        return delivered
+
+    def _telemetry_metrics(self, metrics: dict, acct, saturated, resync,
+                           ok, wiring: Wiring, retired=None) -> None:
+        """The ``telemetry`` extras per element, shared by every ADC return
+        path, 0 at an inactive element: ``wire_bytes_shipped`` (payload
+        bytes put on the ring), ``saturated_count`` (the clipped-code
+        census), under hierarchy ``wire_bytes_inner`` / ``_outer`` (the
+        pod's fp32 level, the pod ring's payload), on a re-wired ring
+        ``resync_fired`` and ``resync_ok`` (both handshakes landed), and on
+        the async transport ``staleness_retired`` (in-flight payloads
+        drained: the delivered directions, else 2)."""
+        keys = self.cfg.telemetry_metric_keys()
+        if not keys:
+            return
+        act = np.ones(self.ring_len, np.float32)
+        act[wiring.inactive] = 0.0
+        act = _node_values(act, saturated.device)
+        metrics["wire_bytes_shipped"] = act * _f32(acct.shipped_payload)
+        metrics["saturated_count"] = act * saturated
+        if "wire_bytes_inner" in keys:
+            metrics["wire_bytes_inner"] = act * _f32(acct.inner_bytes)
+            metrics["wire_bytes_outer"] = act * _f32(acct.shipped_payload)
+        if "resync_fired" in keys:
+            fired = 1.0 if resync else 0.0
+            metrics["resync_fired"] = act * fired
+            metrics["resync_ok"] = act * (
+                fired if ok is None else _node_values(ok * fired,
+                                                      act.device))
+        if "staleness_retired" in keys:
+            metrics["staleness_retired"] = act * (2.0 if retired is None
+                                                  else retired)
+
+    def _idle_telemetry(self, device) -> dict:
+        """The ``telemetry`` extras of an exchange that sent nothing."""
+        return {k: torch.zeros(self.n_nodes, dtype=torch.float32,
+                               device=device)
+                for k in self.cfg.telemetry_metric_keys()}
 
     def _neighbour_rows(self, t: torch.Tensor, wiring: Wiring):
         """(rows left, rows right) of a small per-element tensor ``t``,
@@ -911,6 +982,7 @@ class ConsensusRuntime:
         hier = alg == "adc_dgd" and self.cfg.hierarchy is not None
         if alg == "none" or (self.n_nodes <= 1 and alg != "allreduce"):
             x_next = x_half
+            metrics.update(self._idle_telemetry(device))
         elif alg == "allreduce" or (hier and self.ring_len <= 1):
             # one pod of every node: its inner average is the whole
             # exchange, the allreduce's bit for bit; the shadows pass
@@ -961,6 +1033,7 @@ class ConsensusRuntime:
             out["deadline_miss_frac"] = zero
         if self.cfg.membership is not None:
             out["active_nodes"] = torch.full_like(zero, float(n))
+        out.update(self._idle_telemetry(device))
         return out
 
     def _pod_exchange(self, fn, x_prev, x_half, state, step, seed, noise,
@@ -1146,10 +1219,16 @@ class ConsensusRuntime:
         recv = {}
 
         def launch(c):
-            return self._encode_unit(plan, units[c], y, noise, step_k, nodes,
+            # the ring transfer is an index: the launch phase is empty
+            telemetry.trace_mark("quantize", c, rows=units[c].n_rows)
+            pays = self._encode_unit(plan, units[c], y, noise, step_k, nodes,
                                      trailer=trailer if c == last else None)
+            telemetry.trace_mark("launch", c, rows=units[c].n_rows)
+            telemetry.trace_end()
+            return pays
 
         def retire(c, pays):
+            telemetry.trace_mark("retire", c)
             if resync:
                 rows = slice(units[c].row_start, units[c].row_end)
                 self.rebuild_m_agg(xt[:, rows], wiring.stride,
@@ -1158,8 +1237,11 @@ class ConsensusRuntime:
             if push and c == last:
                 recv["w"] = _trailer_weights(pays)
             left, right = self._arrivals(pays, wiring, keep)
+            telemetry.trace_mark("dequant_combine", c,
+                                 rows=units[c].n_rows)
             self._retire(plan, units[c], pays, left, right, xt, m_in, outs,
                          nodes)
+            telemetry.trace_end()
 
         def census(c, pays):
             self._census(plan, units[c], y, step_k, pays, clipped, nodes)
@@ -1181,8 +1263,10 @@ class ConsensusRuntime:
         x_next, m = self._finish(x_prev, x_half, comb, y, clipped, plan,
                                  layout, wiring)
         metrics.update(m)
+        acct = self.wire_accounting(layout.n_elements, layout)
         if keep is not None:
-            self._fault_metrics(metrics, layout, keep, y.device, wiring)
+            self._fault_metrics(metrics, acct, keep, y.device, wiring)
+        self._telemetry_metrics(metrics, acct, clipped, resync, ok, wiring)
         return x_next, new_state, metrics
 
     def _adc_exchange_async(self, x_prev, x_half, state, step, seed, noise,
@@ -1234,9 +1318,12 @@ class ConsensusRuntime:
         # downstream neighbour of step k-1
         up = [state["fly_up"][i] for i in range(n)]
         dn = [state["fly_dn"][i] for i in range(n)]
+        telemetry.trace_mark("retire", 0, mode="async")
         left, right = self._drop(list(up), list(dn), arrive, wiring)
         outs = tuple(torch.empty_like(xt) for _ in range(3))
+        telemetry.trace_mark("dequant_combine", 0, rows=unit.n_rows)
         self._retire(plan, unit, fly, left, right, xt, mb, outs, nodes)
+        telemetry.trace_end()
         xt_new, m_new, comb = outs
         if resync:
             m_drained = self.rebuild_m_agg(xt_new, wiring.stride,
@@ -1267,12 +1354,12 @@ class ConsensusRuntime:
         ring = torch.empty((n + 2 * r, width), dtype=torch.uint8,
                            device=y.device)
         own = ring[r:r + n]
+        telemetry.trace_mark("quantize", 0, rows=unit.n_rows, mode="async")
         pays = self._encode_unit(plan, unit, y, noise, step_k, nodes, own,
                                  trailer=trailer)
         del noise
-        clipped = torch.zeros(n, dtype=torch.float32, device=y.device)
-        if self.cfg.quant_mode == "fixed":
-            self._census(plan, unit, y, step_k, pays, clipped, nodes)
+        telemetry.trace_mark("launch", 0, rows=unit.n_rows,
+                             buffers=wire.INFLIGHT_KEYS)
         if wiring.mask is None:
             # ppermute(+s) hands element i element i-s's payload,
             # ppermute(-s) element i+s's
@@ -1289,16 +1376,25 @@ class ConsensusRuntime:
                         dst[i].zero_()
                     else:
                         dst[i].copy_(own[j])
+        telemetry.trace_end()
+        clipped = torch.zeros(n, dtype=torch.float32, device=y.device)
+        if self.cfg.quant_mode == "fixed":
+            self._census(plan, unit, y, step_k, pays, clipped, nodes)
         x_next, m = self._finish(x_prev, x_half, comb, y, clipped, plan,
                                  layout, wiring)
         metrics.update(m)
+        acct = self.wire_accounting(layout.n_elements, layout)
+        retired = None
         if arrive is not None:
-            self._fault_metrics(metrics, layout, arrive, y.device, wiring)
+            retired = self._fault_metrics(metrics, acct, arrive, y.device,
+                                          wiring)
         if meet is not None:
             miss = (~meet).sum(axis=0)
             miss[wiring.inactive] = 0
             metrics["deadline_miss_frac"] = _node_values(miss,
                                                          y.device) / 2.0
+        self._telemetry_metrics(metrics, acct, clipped, resync, ok, wiring,
+                                retired)
         new_state.update({"x_tilde": xt_new, "m_agg": m_new,
                           "fly_self": own, "fly_up": fly_up,
                           "fly_dn": fly_dn})
@@ -1401,8 +1497,10 @@ class ConsensusRuntime:
         metrics.update({"overflow_frac": clipped * inv_codes,
                         "residual_norm": torch.sqrt(residual_sq
                                                     * inv_elems)})
+        acct = self.wire_accounting(layout.n_elements, layout)
         if keep is not None:
-            self._fault_metrics(metrics, layout, keep, xt.device, wiring)
+            self._fault_metrics(metrics, acct, keep, xt.device, wiring)
+        self._telemetry_metrics(metrics, acct, clipped, resync, ok, wiring)
         return T.tree_unflatten(layout.treedef, new_x), new_state, metrics
 
     def _cdgd_mix(self, x_own, sent, j, wiring):

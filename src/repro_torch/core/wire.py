@@ -129,6 +129,13 @@ class WireLayout:
         """Real (un-padded) element count across the tree."""
         return sum(s.size for s in self.slots)
 
+    def describe(self) -> dict:
+        """JSON-able geometry snapshot (telemetry ``wire_plan`` events)."""
+        return {"n_leaves": self.n_leaves, "n_elements": self.n_elements,
+                "n_rows": self.n_rows, "n_data_rows": self.n_data_rows,
+                "block": self.block,
+                "reordered": bool(self.placement)}
+
     def _leaves_and_lead(self, tree: Any) -> tuple[list, tuple[int, ...]]:
         leaves, treedef = T.tree_flatten(tree)
         if treedef != self.treedef:

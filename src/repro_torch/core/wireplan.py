@@ -45,9 +45,9 @@ __all__ = ["PlanSpec", "parse_spec", "grouped_placement", "CodecRun",
            "Fragment", "TransferUnit", "WirePlan", "WirePlanCompressor",
            "PUSH_SUM_TRAILER_BYTES"]
 
-#: the reference's push-sum transport appends the fp32 weight to the last
-#: transfer unit's payload; push-sum itself is not ported, only its byte
-#: accounting (``WirePlan.wire_bytes(push_sum=True)``)
+#: the push-sum transport appends the fp32 weight to the last transfer
+#: unit's payload, as the reference's does (``WirePlan.wire_bytes(
+#: push_sum=True)``; ``ConsensusRuntime`` writes and reads the trailer)
 PUSH_SUM_TRAILER_BYTES = 4
 
 _MIXED_PREFIX = "mixed:"

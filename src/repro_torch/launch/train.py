@@ -34,6 +34,18 @@ pods=P`` runs two-level consensus (each pod of nodes/P nodes averages its
 optimizer delta in fp32, then the pods run the compressed exchange on the
 pod ring, whose elements ``--node-failures`` then indexes).
 
+``--microbatches M`` accumulates each node's gradient over M slices of its
+shard (the first slice's, then each later one's added in order, times
+f32(1/M), as the reference's compiled ``g / M``).  ``--checkpoint-dir``
+with ``--checkpoint-every E`` saves the whole train state after every E-th
+step (``repro_torch.checkpoint``); a run resumes through
+``load_checkpoint`` and :func:`train_step`.  ``--telemetry`` writes the
+``telemetry/v1`` sink ``<--telemetry-dir>/telemetry-<--run-id>.jsonl``
+(step records, host events) and the Perfetto trace ``trace-<run id>.json``
+whose exchange spans are measured on the device (``core.telemetry``), and
+turns on the exchange's telemetry metrics; ``python -m
+repro_torch.launch.obs validate <sink> --trace <trace>`` checks both.
+
 The wire codec is ``--wire-codec int8|int4|int2|topk|topk:k=<int>``, or
 ``adaptive``: then an ``AdaptiveBitController`` re-selects it every
 ``--codec-period`` steps from the epoch's mean residual, overflow and
@@ -53,6 +65,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import statistics
+import subprocess
 import time
 from typing import Any
 
@@ -60,10 +75,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.core import codec as wcodec
+from repro_torch.core import telemetry
 from repro_torch.core import tree as T
 from repro_torch.core import wireplan
 from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
+from repro_torch.core.f32 import recip
 from repro_torch.core.hierarchy import HierarchySpec
 from repro_torch.core.topology import MembershipSchedule
 from repro_torch.models import transformer as TF
@@ -88,6 +106,7 @@ class TrainSetup:
     n_nodes: int
     device: torch.device
     seed: int = 0            # consensus quantization-noise seed
+    microbatches: int = 1    # gradient-accumulation slices per node
 
 
 def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
@@ -111,12 +130,15 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                       straggle_rate: float | None = None,
                       straggle_seed: int = 0,
                       membership: tuple | None = None,
-                      hierarchy=None, seed: int = 0,
+                      hierarchy=None, telemetry: bool = False,
+                      microbatches: int = 1, seed: int = 0,
                       device=None) -> TrainSetup:
     """Everything static about a run.  ``wire_codec`` is a codec name or a
     ``mixed:`` plan spec; ``membership`` per-epoch masks of active ring
     elements (``MembershipSchedule.masks``), ``hierarchy`` a pod count,
-    ``"pods=P"`` or a ``HierarchySpec``.  ``device`` defaults to ``cuda`` (raising when
+    ``"pods=P"`` or a ``HierarchySpec``; ``telemetry`` turns on the
+    exchange's telemetry metrics; ``microbatches`` splits each node's batch
+    for gradient accumulation.  ``device`` defaults to ``cuda`` (raising when
     there is none); pass ``device="cpu"`` for the plain PyTorch path."""
     dev = resolve_device(device)
     ccfg = ConsensusConfig(algorithm=algorithm, gamma=gamma,
@@ -134,7 +156,10 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                            resync_retries=resync_retries,
                            straggle_rate=straggle_rate,
                            straggle_seed=straggle_seed,
-                           membership=membership, hierarchy=hierarchy)
+                           membership=membership, hierarchy=hierarchy,
+                           telemetry=telemetry)
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     if schedule == "constant":
         sched = constant_schedule(lr)
     elif schedule == "inverse_power":
@@ -146,7 +171,8 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
     return TrainSetup(cfg=cfg, defs=TF.build_defs(cfg),
                       consensus=ConsensusRuntime(ccfg, consensus_nodes),
                       optimizer=opt_by_name(optimizer), schedule=sched,
-                      n_nodes=consensus_nodes, device=dev, seed=seed)
+                      n_nodes=consensus_nodes, device=dev, seed=seed,
+                      microbatches=microbatches)
 
 
 def with_codec(setup: TrainSetup, name: str) -> TrainSetup:
@@ -185,27 +211,42 @@ def _node_grads(setup: TrainSetup, params: Any, batch: dict):
     """Per-node forward/backward: (losses (N,), stacked gradient tree).
 
     Node i's ``Transformer`` shares its parameters' storage with slice i
-    of the stacked tree, and only one node's activations are alive at a
-    time."""
-    n = setup.n_nodes
+    of the stacked tree, and only one microbatch's activations are alive
+    at a time.  With ``microbatches`` M > 1 node i's shard splits into M
+    slices: its gradient and loss are the first slice's, each later one's
+    added in order, times f32(1/M) (what the reference's ``g / M``
+    compiles to; exact at a power of two)."""
+    n, m = setup.n_nodes, setup.microbatches
     b = batch["tokens"].shape[0]
     if b % n:
         raise ValueError(f"global batch {b} does not split over {n} nodes")
     bn = b // n
+    if bn % m:
+        raise ValueError(f"node batch {bn} does not split into {m} "
+                         "microbatches")
+    bm = bn // m
+    inv_m = float(recip(m))
     grads = T.tree_map(torch.empty_like, params)
     g_leaves = T.tree_leaves(grads)
     losses = []
     for i in range(n):
         model = TF.Transformer(setup.defs,
                                T.tree_map(lambda a: a[i], params))
-        node_batch = {k: torch.as_tensor(v[i * bn:(i + 1) * bn],
-                                         device=setup.device)
-                      for k, v in batch.items()}
-        loss, _ = model(node_batch)
-        gs = torch.autograd.grad(loss, T.tree_leaves(model.tree()))
-        for dst, g in zip(g_leaves, gs):
-            dst[i].copy_(g)
-        losses.append(loss.detach())
+        leaves = T.tree_leaves(model.tree())
+        for j in range(m):
+            lo = i * bn + j * bm
+            mb = {k: torch.as_tensor(v[lo:lo + bm], device=setup.device)
+                  for k, v in batch.items()}
+            loss_j, _ = model(mb)
+            gs = torch.autograd.grad(loss_j, leaves)
+            for dst, g in zip(g_leaves, gs):
+                (dst[i].copy_ if j == 0 else dst[i].add_)(g)
+            loss = loss_j.detach() if j == 0 else loss + loss_j.detach()
+        if m > 1:
+            for dst in g_leaves:
+                dst[i].mul_(inv_m)
+            loss = loss * inv_m
+        losses.append(loss)
     return torch.stack(losses), grads
 
 
@@ -220,9 +261,10 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
     x_half, opt_state = setup.optimizer.step(state["opt"], state["params"],
                                              grads, lr_k)
     del grads
-    x_next, cons, cmetrics = setup.consensus.exchange(
-        state["params"], x_half, state["consensus"], k, seed=setup.seed,
-        noise=noise)
+    with telemetry.exchange_window():
+        x_next, cons, cmetrics = setup.consensus.exchange(
+            state["params"], x_half, state["consensus"], k, seed=setup.seed,
+            noise=noise)
     metrics = {"loss": float(losses.mean()), "node_loss": losses, "lr": lr_k}
     rt = setup.consensus
     if rt.cfg.algorithm == "adc_dgd":
@@ -346,6 +388,24 @@ def main(argv=None, *, return_state: bool = False):
     ap.add_argument("--optimizer", default="sgd")
     ap.add_argument("--schedule", default="constant",
                     choices=["constant", "inverse_power", "cosine"])
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="gradient-accumulation slices of each node's "
+                         "shard (its batch must divide evenly)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save the whole train state here (npz + "
+                         "manifest, repro_torch.checkpoint)")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save after every N-th step (0: never)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="telemetry/v1 step records and host events to "
+                         "<--telemetry-dir>/telemetry-<run id>.jsonl and a "
+                         "Perfetto trace of measured exchange spans to "
+                         "trace-<run id>.json; also turns on the "
+                         "exchange's telemetry metrics")
+    ap.add_argument("--telemetry-dir", default="obs",
+                    help="sink directory for --telemetry")
+    ap.add_argument("--run-id", default=None,
+                    help="telemetry run id (default: a wall-clock stamp)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -382,17 +442,26 @@ def main(argv=None, *, return_state: bool = False):
     except (KeyError, ValueError) as e:
         raise SystemExit(f"--wire-codec/--codec-ladder/--wire-plan: "
                          f"{e.args[0]}") from None
+    if args.microbatches < 1 or args.batch % (args.nodes
+                                              * args.microbatches):
+        raise SystemExit(f"--microbatches {args.microbatches}: the global "
+                         f"batch {args.batch} must split evenly over "
+                         f"{args.nodes} nodes x {args.microbatches} "
+                         "microbatches")
     hierarchy = None
     membership = None
+    epoch_events = {}
     try:                                  # fail at the CLI, clearly
         if args.hierarchy:
             hierarchy = HierarchySpec.from_spec(args.hierarchy)
             hierarchy.pod_size(args.nodes)
         if args.node_failures:
             # under hierarchy the masks index the pods of the outer ring
-            membership = MembershipSchedule.from_spec(
+            sched = MembershipSchedule.from_spec(
                 args.node_failures, args.nodes if hierarchy is None
-                else hierarchy.pods).masks
+                else hierarchy.pods)
+            membership = sched.masks
+            epoch_events = {ev["epoch"]: ev for ev in sched.epoch_events()}
     except ValueError as e:
         raise SystemExit(f"--hierarchy/--node-failures: {e}") from None
     cfg = get_config(args.arch)
@@ -428,7 +497,8 @@ def main(argv=None, *, return_state: bool = False):
         link_loss_model=args.link_loss_model,
         resync_retries=args.resync_retries, straggle_rate=args.straggle,
         straggle_seed=args.straggle_seed, membership=membership,
-        hierarchy=hierarchy)
+        hierarchy=hierarchy, telemetry=args.telemetry,
+        microbatches=args.microbatches)
     if hierarchy is not None:
         print(f"[setup] {hierarchy.describe(args.nodes)}")
     if membership is not None:
@@ -453,24 +523,71 @@ def main(argv=None, *, return_state: bool = False):
         print(f"[codec] controller start: {codec_name} "
               f"(budget={ccfg.byte_budget})")
     state = init_train_state(setup, args.seed)
+    tel = None
+    if args.telemetry:
+        tel = telemetry.Telemetry(
+            args.run_id or time.strftime("%Y%m%d-%H%M%S"),
+            out_dir=args.telemetry_dir, config=dict(vars(args)),
+            git_sha=_git_sha(), spans=True, device=setup.device)
+        print(f"[telemetry] -> {tel.path}")
+        _wire_plan_event(tel, setup, state, 0, hierarchy, args)
+        if membership is not None:
+            tel.event("membership_epoch", step=0, epoch=0,
+                      active=int(sum(membership[0])),
+                      mask=list(membership[0]))
     ds = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
                             n_shards=args.nodes)
     history = []
     ep_res, ep_ovf, ep_ce = [], [], []
+    step_times, exchange_s = [], []
+    prev_epoch = 0
     t0 = time.time()
     for step in range(args.steps):
         batch = ds.global_batch_arrays(step)
         ts = time.perf_counter()
+        if tel is not None:
+            tel.spans.step_begin()
         state, metrics = train_step(setup, state, batch)
         if setup.device.type == "cuda":
             torch.cuda.synchronize(setup.device)
-        metrics["step_s"] = time.perf_counter() - ts
+        metrics["step_s"] = dur = time.perf_counter() - ts
+        if step >= 1:
+            step_times.append(dur)
+        if tel is not None:
+            # the first step's window holds the kernels' first loads
+            split = (tel.spans.record_step_window(step + 1, ts, dur)
+                     if step >= 1 else tel.spans.measure())
+            if "window_s" in split:
+                metrics["consensus_exchange_s"] = split["window_s"]
+                metrics["consensus_overhead_frac"] = split["window_s"] / dur
+                if step >= 1:
+                    exchange_s.append(split["window_s"])
+            tel.record_step(step + 1, {
+                k: v for k, v in metrics.items()
+                if k in telemetry.STEP_METRICS})
+            if metrics.get("resync_fired", 0.0) > 0.0:
+                tel.event("resync", step=step + 1,
+                          ok=metrics.get("resync_ok", 0.0) > 0.5)
+            if membership is not None:
+                e = min((step + 1) // args.schedule_period,
+                        len(membership) - 1)
+                if e != prev_epoch:
+                    ev = epoch_events.get(e, {})
+                    tel.event("membership_epoch", step=step + 2, epoch=e,
+                              active=int(sum(membership[e])),
+                              mask=list(membership[e]),
+                              joined=ev.get("joined", []),
+                              departed=ev.get("departed", []))
+                    prev_epoch = e
         history.append(metrics)
         shown = " ".join(f"{k}={v}" if isinstance(v, (str, bool, int))
                          else f"{k}={v:.4g}" for k, v in metrics.items()
                          if k not in ("loss", "node_loss"))
         print(f"step {step:5d} loss={metrics['loss']:.4f} {shown}",
               flush=True)
+        if (args.checkpoint_dir and args.checkpoint_every
+                and (step + 1) % args.checkpoint_every == 0):
+            save_checkpoint(args.checkpoint_dir, step + 1, state)
         if controller is None:
             continue
         ep_res.append(metrics["residual_norm"])
@@ -482,18 +599,85 @@ def main(argv=None, *, return_state: bool = False):
         if (step + 1) % args.codec_period == 0:
             res, ovf = float(np.mean(ep_res)), float(np.mean(ep_ovf))
             ce = float(np.mean(ep_ce)) if ep_ce else None
-            new = spec_for(controller.select(
+            tier = controller.select(
                 next_step=step + 2, residual_rms=res, overflow_frac=ovf,
-                n_rows=n_rows, consensus_err=ce))
+                n_rows=n_rows, consensus_err=ce)
+            new = spec_for(tier)
+            if tel is not None:
+                tel.event("codec_decision", step=step + 1, old=codec_name,
+                          new=new, tier=tier, residual_rms=res,
+                          overflow_frac=ovf, consensus_rms=ce,
+                          candidates=controller.candidate_table(n_rows))
             if new != codec_name:
                 print(f"[codec] step {step + 1}: {codec_name} -> {new} "
                       f"(residual_rms={res:.3g}, overflow={ovf:.3g}"
                       + (f", consensus_rms={ce:.3g}" if ce is not None
                          else "") + ")")
+                if tel is not None and controller.plan is not None:
+                    tel.event("plan_retier", step=step + 1,
+                              old=codec_name, new=new, tier=tier)
                 codec_name, setup = new, with_codec(setup, new)
+                if tel is not None:
+                    _wire_plan_event(tel, setup, state, step + 2,
+                                     hierarchy, args)
             ep_res, ep_ovf, ep_ce = [], [], []
     print(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
+    if tel is not None:
+        run_end = {"wall_s": time.time() - t0,
+                   "steps_per_s": (1.0 / statistics.median(step_times)
+                                   if step_times else None)}
+        if exchange_s:
+            run_end["consensus_exchange_s"] = statistics.median(exchange_s)
+            run_end["consensus_overhead_frac"] = (
+                run_end["consensus_exchange_s"]
+                / statistics.median(step_times))
+        tel.event("run_end", step=args.steps, **run_end)
+        tel.close()
+        print(f"[telemetry] wrote {tel.path} and {tel.trace_path}")
     return (history, state) if return_state else history
+
+
+def _git_sha() -> str | None:
+    """The commit of the checkout this module lies in, or None where there
+    is no git or no repository."""
+    try:
+        out = subprocess.run(["git", "rev-parse", "HEAD"],
+                             capture_output=True, text=True, timeout=5,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return out.stdout.strip() or None
+
+
+def _wire_plan_event(tel, setup: TrainSetup, state: dict, at_step: int,
+                     hierarchy, args) -> None:
+    """The shipped wire's geometry as a ``wire_plan`` event: the layout,
+    the byte accounting, the plan's runs and the reference's fallback
+    fragment count (the port launches every fragment's kernel), the loss
+    channel and the straggler model."""
+    rt = setup.consensus
+    if rt.cfg.algorithm != "adc_dgd":
+        return
+    layout = rt.state_layout(state["params"])
+    acct = rt.wire_accounting(layout.n_elements, layout)
+    data = dict(codec=rt.wire_name, layout=layout.describe(),
+                wire_bytes_per_step=acct.shipped_per_step,
+                shipped_payload=acct.shipped_payload,
+                trailer_bytes=acct.trailer_bytes,
+                inner_bytes=acct.inner_bytes)
+    if hierarchy is not None:
+        data["hierarchy"] = hierarchy.describe(args.nodes)
+    if rt.cfg.wire_packing != "per_leaf":
+        plan = rt.wire_plan_for(layout)
+        data["plan"] = plan.describe()
+        data["fallback_fragments"] = plan.fallback_fragments(
+            rt.cfg.pipeline_chunks if rt.cfg.wire_packing == "pipelined"
+            else None)
+    if rt.loss is not None:
+        data["channel"] = rt.loss.describe()
+    if rt.straggler is not None:
+        data["straggler"] = rt.straggler.describe()
+    tel.event("wire_plan", step=at_step, **data)
 
 
 if __name__ == "__main__":

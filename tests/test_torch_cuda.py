@@ -656,3 +656,67 @@ def test_cuda_elastic_exchange_matches_plain(cuda_device, label, kw,
         xp, _ = _exchange_inputs()
         for a, b in zip(T.tree_leaves(got[0]), T.tree_leaves(xp)):
             assert torch.equal(a[2].cpu(), b[2])
+
+
+#: (label, ConsensusConfig keywords) of the telemetry cases on the card
+TELEMETRY_CASES = [("packed", {}),
+                   ("pipelined", dict(wire_packing="pipelined",
+                                      pipeline_chunks=3)),
+                   ("async s1 lossy", dict(wire_packing="async",
+                                           link_loss=0.3, loss_seed=1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,kw", TELEMETRY_CASES,
+                         ids=[c[0] for c in TELEMETRY_CASES])
+def test_cuda_telemetry_is_bitwise_and_measured(cuda_device, label, kw):
+    """Two exchange steps with ``telemetry`` and a span recorder installed
+    equal the same steps without, bitwise, with the same launches; the
+    recorder's CUDA events measure every phase, and the phases and the glue
+    read from their own stamps add up to the window."""
+    from repro_torch.core import telemetry
+    plain = _fault_exchanges(cuda_device, **kw)
+    rec = telemetry.SpanRecorder(cuda_device).install()
+    try:
+        rec.step_begin()
+        with telemetry.exchange_window():
+            got = _fault_exchanges(cuda_device, telemetry=True, **kw)
+        torch.cuda.synchronize()
+        split = rec.measure()
+    finally:
+        rec.uninstall()
+    assert _same_exchange(got, plain) and got[2] == plain[2]
+    assert set(split["phases"]) == {"quantize", "launch", "retire",
+                                    "dequant_combine"}
+    total = sum(split["phases"].values()) + sum(split["glue_parts"].values())
+    assert abs(total - split["window_s"]) < 1e-4
+    assert all(v >= 0 for v in split["phases"].values())
+    assert rec.to_perfetto()["otherData"]["spans"] == "cuda-events"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packing", ["packed", "async"])
+def test_cuda_checkpoint_resume_is_bitwise(cuda_device, tmp_path, packing):
+    """A reduced 4-node run saved after step 2 and resumed into a fresh
+    state on the card equals the uninterrupted 4-step run bit for bit."""
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core import tree as T
+    argv = ["--reduced", "--nodes", "4", "--batch", "8", "--seq", "32",
+            "--steps", "4", "--wire-packing", packing, "--checkpoint-dir",
+            str(tmp_path), "--checkpoint-every", "2"]
+    _, full = train.main(argv, return_state=True)
+    cfg = reduced(get_config("smollm-135m"))
+    setup = train.build_train_setup(cfg, consensus_nodes=4, lr=3e-2,
+                                    track_consensus_error=True,
+                                    wire_packing=packing)
+    state, step = load_checkpoint(str(tmp_path),
+                                  train.init_train_state(setup, 9), step=2)
+    assert all(a.device.type == "cuda" for a in T.tree_leaves(state)
+               if torch.is_tensor(a))
+    ds = SyntheticLMDataset(cfg.vocab_size, 32, 8, n_shards=4)
+    for k in (2, 3):
+        state, _ = train.train_step(setup, state, ds.global_batch_arrays(k))
+    assert state["step"] == full["step"] == 4
+    assert all(torch.equal(a, b) for a, b in zip(T.tree_leaves(state),
+                                                  T.tree_leaves(full))
+               if torch.is_tensor(a))
