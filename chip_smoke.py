@@ -21,7 +21,10 @@ Phases (any failure exits non-zero before the result line):
              alike, with and without a softcap, on masks with a ragged
              frontier, masked tiles and random holes, and at long_500k
              with gemma2-9b's heads (b 1, S 524,288, kvh 8, g 2, hd 256,
-             softcap 50; a frontier, holes and a 4,096-position window);
+             softcap 50; a frontier, holes and a 4,096-position window),
+             and at the zoo's decode shapes (qwen3-0.6b, yi-9b,
+             chameleon-34b, gemma2-9b with its 4,096 window and its
+             long-serve cache with the 32,768 cap: ``DECODE_SHAPES``);
 3. main    — ``repro_torch.launch.train.main`` on the full smollm-135m, 4
              ADC-DGD nodes (fixed grid), each run with every launch counter
              zeroed just before it: 5 steps of the int8 wire, then 3 steps
@@ -142,6 +145,25 @@ Phases (any failure exits non-zero before the result line):
              ``torch.profiler`` (CPU and CUDA) over steady decode steps of
              the same batch: the top kernels by device time, the flash-
              decode kernel's share of the step and the device's idle share;
+4b. zoo    — the dense model zoo at full width on random weights from
+             seed 0 (``phase_zoo``), each model freed before the next:
+             ``serve.main`` on gemma2-9b (42 layers, 4 x 6,080 + 64
+             tokens), gemma2-9b ``--long-serve`` at 2 of its 21 periods (1
+             x 32,832 + 64: the 32,768 cap of its 'A' blocks bites),
+             yi-9b (48 layers, 8 x 1,984 + 64), chameleon-34b at 12 of
+             its 48 layers (4 x 1,984 + 64) and qwen3-0.6b (28 layers, 32
+             x 1,984 + 64), each counted: #9 launched layers x 63 times
+             and no other kernel, tokens in range, the decode logits of 2
+             sequences within ZOO_LOGIT_TOL of a train-mode forward (and
+             for long-serve, apart from the uncapped one), and one decode
+             step through the plain #9 within SERVE_LOGIT_TOL of the
+             kernel's; prefill seconds, decode ms per token and peak
+             memory printed; then the trainer on full qwen3-0.6b, 3 nodes
+             x 4 x 512 tokens, int8 packed, 5 steps: #1 and #2 launched 15
+             times each and nothing else, every call of them bitwise equal
+             to its plain version on the same inputs
+             (``KernelVsPlain``), the reference's 1,201,413,120 wire bytes
+             per step, a finite loss near ln(151,936);
 5. parity  — reduced smollm-135m, 2 steps on the card and on the CPU from
              the same weights and quantization noise, for the int8, int4
              and top-k wires, the per-leaf transport, compressed_dgd
@@ -319,13 +341,27 @@ KVH, GROUP, HEAD_DIM = 3, 3, 64
 #: reference serves (long_500k, ``src/repro/models/config.py:166``) at
 #: gemma2-9b's heads (8 KV heads of 256, 2 queries each, softcap 50:
 #: ``src/repro/configs/gemma2_9b.py``); K and V are 4.3 GB each in float32
+#: The zoo's serve runs (``phase_zoo``) decode at their own heads: qwen3-0.6b
+#: (b 32, capacity 2,048, 8 KV heads of 128, g 2), yi-9b (b 8, 4 of 128,
+#: g 8), chameleon-34b (b 4, 8 of 128, g 8), gemma2-9b (b 4, capacity
+#: 6,144; and long-serve, b 1, capacity 32,896)
 DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, KVH, GROUP,
                            HEAD_DIM),
                  "decode_32k": (128, 32768, KVH, GROUP, HEAD_DIM),
-                 "long_500k": (1, 524288, 8, 2, 256)}
-#: the softcap each shape is also held with, and its masks' sliding window
-DECODE_SOFTCAP = {"serve": 30.0, "decode_32k": 30.0, "long_500k": 50.0}
-LONG_WINDOW = 4096
+                 "long_500k": (1, 524288, 8, 2, 256),
+                 "qwen3-0.6b": (32, 2048, 8, 2, 128),
+                 "yi-9b": (8, 2048, 4, 8, 128),
+                 "chameleon-34b": (4, 2048, 8, 8, 128),
+                 "gemma2-9b": (4, 6144, 8, 2, 256),
+                 "gemma2-9b long-serve": (1, 32896, 8, 2, 256)}
+#: the softcap each shape is also held with (gemma2-9b's own is 50)
+DECODE_SOFTCAP = {"serve": 30.0, "decode_32k": 30.0, "long_500k": 50.0,
+                  "qwen3-0.6b": 30.0, "yi-9b": 30.0, "chameleon-34b": 30.0,
+                  "gemma2-9b": 50.0, "gemma2-9b long-serve": 50.0}
+#: the sliding window a shape's masks also take: gemma2-9b's 'L' blocks
+#: (4,096), and the long-serve cap of its 'A' blocks (32,768)
+DECODE_WINDOW = {"long_500k": 4096, "gemma2-9b": 4096,
+                 "gemma2-9b long-serve": 32768}
 #: the flash-decode partials against their plain version, on acc / l and
 #: on m + log l (the reference's float32 kernel-test tolerances).  bf16
 #: K and V widen to float32 exactly on both sides, which then sum in
@@ -722,14 +758,15 @@ def holes_mask(torch, seq, seed):
 
 def decode_masks(torch, shape, seq):
     """The masks a shape is held on: a frontier inside a tile, random
-    holes, and either the later tiles fully masked or (at long_500k) a
-    sliding window before the frontier."""
+    holes, the later tiles fully masked (except at long_500k), and a sliding
+    window before the frontier where the shape has one (the decode mask
+    ``gpos > pos - window``)."""
     pos = torch.arange(seq, device="cuda")
     masks = {"frontier": pos < seq - 37, "holes": holes_mask(torch, seq, seq)}
-    if shape == "long_500k":
-        masks[f"window {LONG_WINDOW}"] = ((pos < seq - 37)
-                                          & (pos >= seq - 37 - LONG_WINDOW))
-    else:
+    if shape in DECODE_WINDOW:
+        w = DECODE_WINDOW[shape]
+        masks[f"window {w}"] = (pos < seq - 37) & (pos > seq - 38 - w)
+    if shape != "long_500k":
         masks["masked tiles"] = pos < seq // 2 + 201
     return masks
 
@@ -2692,6 +2729,280 @@ def phase_serve_parity(torch):
           f"agree within {SERVE_LOGIT_TOL}")
 
 
+#: the dense model zoo (``phase_zoo``), each run at full width on random
+#: weights from seed 0: (label, arch, periods (None: the full depth),
+#: long-serve, sequences, prompt tokens); every run adds ZOO_NEW tokens
+ZOO_NEW = 64
+ZOO_SERVE = (
+    ("gemma2-9b", "gemma2-9b", None, False, 4, 6080),
+    ("gemma2-9b long-serve, 2 of 21 periods", "gemma2-9b", 2, True, 1,
+     32832),
+    ("yi-9b", "yi-9b", None, False, 8, 1984),
+    ("chameleon-34b, 12 of 48 layers", "chameleon-34b", 12, False, 4, 1984),
+    ("qwen3-0.6b", "qwen3-0.6b", None, False, 32, 1984),
+)
+#: the zoo trainer: full qwen3-0.6b on 3 nodes (4 x 512 tokens each), the
+#: int8 packed wire on the fixed grid, and the reference's wire bytes per
+#: node and step for its tree: 2 x 1,164,160 rows x 516
+#: (``tests/test_torch_zoo.py`` holds the rows to the reference's layout)
+ZOO_TRAIN_NODES, ZOO_TRAIN_STEPS = 3, 5
+#: a zoo run's decode logits against its train-mode forward (absolute and
+#: relative): both are float32, but a prefill's matrix products and a
+#: decode step's matrix-vector products sum in other orders, over up to 48
+#: layers of width 4,096-8,192 here against smollm-135m's 30 of 576 (yi-9b
+#: measured 3.3e-5 where SERVE_LOGIT_TOL allows 1e-5).  A decode step
+#: through the plain flash-decode version is still held to SERVE_LOGIT_TOL
+ZOO_LOGIT_TOL = 1e-4
+ZOO_TRAIN_WIRE_BYTES = 1_201_413_120
+
+
+class KernelVsPlain:
+    """Within the block every call of #1 and #2 (``ops.quantize_payload``,
+    ``ops.dequant_combine_payload``) is held, right after its launch, to
+    its plain version on the same inputs, bitwise (``calls``, ``equal``).
+    So a step through the plain versions is the kernels' step, bit for
+    bit.  The plain version runs CHUNK rows at a time: at 3 qwen3-0.6b
+    nodes a whole node's plain temporaries do not fit beside the
+    trainer's buffers.  A kernel's outputs must not share storage with
+    its inputs (they are the exchange's own out buffers), so the inputs
+    are still as the kernel read them."""
+
+    CHUNK = 1 << 16
+
+    def __init__(self, torch, Q, D):
+        self.torch, self.Q, self.D = torch, Q, D
+        self.calls, self.equal = 0, True
+
+    def _check(self, got, operands, row_offset, n_rows, plain):
+        torch = self.torch
+        outs = tuple(got) if isinstance(got, (tuple, list)) else (got,)
+        ins = {a.untyped_storage().data_ptr() for a in operands}
+        if any(o.untyped_storage().data_ptr() in ins for o in outs):
+            fail("KernelVsPlain: a kernel wrote into the storage of one of "
+                 "its inputs")
+        n = self.Q.chunk_view(operands[-1].shape[0], n_rows, row_offset)
+        views = [a if a.shape[0] == n else a[row_offset:row_offset + n]
+                 for a in operands]
+        for r0 in range(0, n, self.CHUNK):
+            m = min(self.CHUNK, n - r0)
+            want = plain(*(v[r0:r0 + m] for v in views))
+            want = tuple(want) if isinstance(want, (tuple, list)) else (want,)
+            self.equal &= len(want) == len(outs) and all(
+                torch.equal(o.reshape(n, -1)[r0:r0 + m], w.reshape(m, -1))
+                for o, w in zip(outs, want))
+        self.calls += 1
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        Q, D, watch = self.Q, self.D, self
+        self.saved = (ops.quantize_payload, ops.dequant_combine_payload)
+        real_q, real_d = self.saved
+
+        def spy_q(y, noise, fixed_step=None, row_offset=0, n_rows=None,
+                  out=None):
+            got = real_q(y, noise, fixed_step, row_offset, n_rows, out=out)
+            watch._check(got, (noise, y), row_offset, n_rows,
+                         lambda u, yy: Q.quantize_payload_plain(
+                             yy, u, fixed_step))
+            return got
+
+        def spy_d(ps, pl, pr, xt, mb, w_self, w_side, deamp, row_offset=0,
+                  n_rows=None, out=None):
+            got = real_d(ps, pl, pr, xt, mb, w_self, w_side, deamp,
+                         row_offset, n_rows, out=out)
+            watch._check(got, (ps, pl, pr, mb, xt), row_offset, n_rows,
+                         lambda a, b, c, m_, x: D.dequant_combine_payload_plain(
+                             a, b, c, x, m_, w_self, w_side, deamp))
+            return got
+
+        ops.quantize_payload, ops.dequant_combine_payload = spy_q, spy_d
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        from repro_torch.kernels import ops
+        ops.quantize_payload, ops.dequant_combine_payload = self.saved
+        return False
+
+
+def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
+              prompt):
+    """One serve run of the zoo, counted, then checked: its decode logits
+    of 2 sequences against a train-mode forward over prompt + generated
+    tokens, and one decode step through the plain flash-decode version
+    against the kernel's.  Returns (#9 launches, a summary dict)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params
+    cfg = get_config(arch)
+    flags = ["--long-serve"] if long_serve else []
+    if periods is not None:
+        cfg = dataclasses.replace(cfg, n_periods=periods)
+        flags += ["--periods", str(periods)]
+    for entry in entries.values():
+        entry.launches = 0
+    r = serve.main(["--arch", arch, *flags, "--batch", str(batch),
+                    "--prompt-len", str(prompt), "--new-tokens",
+                    str(ZOO_NEW), "--keep-logits", "2", "--seed", "0",
+                    "--device", "cuda"])
+    launches = {name: entry.launches for name, entry in entries.items()}
+    want = {name: 0 for name in entries}
+    want["gqa_decode"] = cfg.n_layers * (ZOO_NEW - 1)
+    if launches != want:
+        fail(f"zoo {label}: serve launched {launches}, want {want}")
+    tok = r["tokens"]
+    if (tok.shape != (batch, ZOO_NEW) or tok.min() < 0
+            or tok.max() >= cfg.vocab_size
+            or r["cache_len"] != prompt + ZOO_NEW - 1
+            or not np.isfinite(r["logits"]).all()):
+        fail(f"zoo {label}: tokens {tok.shape} in [{tok.min()}, "
+             f"{tok.max()}], cache length {r['cache_len']}, finite logits "
+             f"{np.isfinite(r['logits']).all()}")
+    torch.cuda.empty_cache()
+    defs = TF.build_defs(cfg)
+    params = init_params(defs.storage, 0, "cuda")
+    # a causal forward over the whole sequence (prompt + 64 tokens) has the
+    # same logits at the first 63 generated positions as one over all but
+    # the last token, and a length with large divisors (chunked_attention's
+    # blocks divide it)
+    seq = torch.as_tensor(np.concatenate([r["prompts"][:2], tok[:2]], 1),
+                          device="cuda")
+    with torch.inference_mode():
+        full, _ = TF.model_apply(params, defs, {"tokens": seq},
+                                 long_serve=long_serve, logits_from=prompt)
+        full = full[:, :ZOO_NEW - 1].cpu()
+        uncapped_diff = None
+        if long_serve:
+            free, _ = TF.model_apply(params, defs, {"tokens": seq},
+                                     logits_from=prompt)
+            uncapped_diff = float((free[:, :ZOO_NEW - 1].cpu()
+                                   - full).abs().max())
+            del free
+    got = torch.from_numpy(r["logits"])
+    err = float((got - full).abs().max())
+    if not torch.allclose(got, full, atol=ZOO_LOGIT_TOL, rtol=ZOO_LOGIT_TOL):
+        fail(f"zoo {label}: decode logits differ from the train-mode "
+             f"forward by up to {err} (tolerance {ZOO_LOGIT_TOL})")
+    if long_serve and not uncapped_diff > 10 * ZOO_LOGIT_TOL:
+        fail(f"zoo {label}: the logits without the {cfg.long_context_window}"
+             f"-position cap differ by only {uncapped_diff}: the cap did "
+             "not bite")
+    del full
+    torch.cuda.empty_cache()
+    # one decode step of 2 sequences through the kernel and through the
+    # plain version, from the same prefilled cache: the step rewrites the
+    # same K and V at the same position, so the second sees the first's
+    pre = serve.build_prefill_setup(cfg, device="cuda",
+                                    long_serve=long_serve)
+    with torch.inference_mode():
+        first, cache = pre.prefill_step(params, {"tokens": seq[:, :prompt]},
+                                        prompt + 1)
+        _, _, kern = TF.greedy_decode_step(params, defs, first, cache,
+                                           long_serve=long_serve)
+        saved, ops.gqa_decode = ops.gqa_decode, G.gqa_decode_plain
+        try:
+            _, _, plain = TF.greedy_decode_step(params, defs, first, cache,
+                                                long_serve=long_serve)
+        finally:
+            ops.gqa_decode = saved
+    step_err = float((kern - plain).abs().max())
+    if not torch.allclose(kern, plain, atol=SERVE_LOGIT_TOL,
+                          rtol=SERVE_LOGIT_TOL):
+        fail(f"zoo {label}: a decode step through the plain gqa_decode "
+             f"differs from the kernel's by {step_err}")
+    del params, cache, kern, plain, seq
+    torch.cuda.empty_cache()
+    out = {"layers": cfg.n_layers, "prefill_s": r["prefill_s"],
+           "decode_ms": r["decode_s_per_token"] * 1e3,
+           "peak_gb": r["peak_gb"], "launches": launches["gqa_decode"],
+           "logit_err": err, "plain_step_err": step_err}
+    if long_serve:
+        out["uncapped_diff"] = uncapped_diff
+    print(f"[zoo] {label} ({cfg.n_layers} layers), {batch} x {prompt} "
+          f"prompt + {ZOO_NEW} tokens"
+          + (f", 'A' blocks capped at {cfg.long_context_window}"
+             if long_serve else "")
+          + f": gqa_decode launched {launches['gqa_decode']} times "
+          f"({cfg.n_layers} x {ZOO_NEW - 1}), no other kernel; prefill "
+          f"{r['prefill_s']!r} s, decode {out['decode_ms']!r} ms per token "
+          f"for the batch, peak memory {r['peak_gb']!r} GB; decode logits "
+          f"of 2 sequences vs a train-mode forward: max |diff| {err!r}; "
+          f"one decode step through the plain gqa_decode vs the kernel: "
+          f"max |diff| {step_err!r}"
+          + (f"; without the cap the logits move by up to "
+             f"{uncapped_diff!r}" if long_serve else ""), flush=True)
+    return launches["gqa_decode"], out
+
+
+def zoo_train(torch, Q, D, train, entries):
+    """Full qwen3-0.6b on the consensus trainer, counted, with every call
+    of #1 and #2 held to its plain version (``KernelVsPlain``).  Returns
+    (launches, a summary dict)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import wire
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import meta_params
+    argv = ["--arch", "qwen3-0.6b", "--algorithm", "adc_dgd", "--nodes",
+            str(ZOO_TRAIN_NODES), "--batch", str(4 * ZOO_TRAIN_NODES),
+            "--seq", str(SEQ), "--steps", str(ZOO_TRAIN_STEPS),
+            "--quant-mode", "fixed", "--lr", "1e-2", "--device", "cuda"]
+    with KernelVsPlain(torch, Q, D) as watch:
+        hist, launches, peak = run_counted(torch, train, entries, argv)
+    want = {name: 0 for name in entries}
+    for name in CODEC_KERNELS["int8"]:
+        want[name] = ZOO_TRAIN_NODES * ZOO_TRAIN_STEPS
+    if launches != want:
+        fail(f"zoo trainer: launched {launches}, want {want}")
+    if not watch.equal or watch.calls != 2 * want["quantize_payload"]:
+        fail(f"zoo trainer: {watch.calls} calls of #1 and #2 held to their "
+             f"plain versions, all bitwise equal: {watch.equal}")
+    cfg = get_config("qwen3-0.6b")
+    rows = wire.WireLayout.for_tree(meta_params(
+        TF.build_defs(cfg).storage)).n_rows
+    wires = {h["wire_bytes_per_step"] for h in hist}
+    if wires != {ZOO_TRAIN_WIRE_BYTES} or 2 * rows * PAYLOAD != \
+            ZOO_TRAIN_WIRE_BYTES:
+        fail(f"zoo trainer: wire_bytes_per_step {wires}, from the layout's "
+             f"{rows} rows {2 * rows * PAYLOAD}, the reference's "
+             f"{ZOO_TRAIN_WIRE_BYTES}")
+    losses = [h["loss"] for h in hist]
+    if not all(math.isfinite(x) for x in losses) \
+            or abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
+        fail(f"zoo trainer: losses {losses} (step 1 should be near "
+             f"ln({cfg.vocab_size}) at random init)")
+    step_s = statistics.median(h["step_s"] for h in hist[1:])
+    print(f"[zoo] qwen3-0.6b trainer, {ZOO_TRAIN_NODES} nodes x 4 x {SEQ} "
+          f"tokens, int8 packed, fixed grid, {ZOO_TRAIN_STEPS} steps: "
+          f"losses {losses}; launches "
+          f"{ {n: v for n, v in launches.items() if v} }; "
+          f"wire_bytes_per_step {ZOO_TRAIN_WIRE_BYTES} (2 x {rows} rows x "
+          f"{PAYLOAD}, the reference's accounting); {watch.calls} calls of "
+          f"#1 and #2 bitwise equal to their plain versions on the same "
+          f"inputs; median step {step_s:.4f} s; peak memory {peak:.2f} GB",
+          flush=True)
+    torch.cuda.empty_cache()
+    return launches, {"step_s": step_s, "peak_gb": peak}
+
+
+def phase_zoo(torch, Q, D, G, train, entries):
+    """The dense zoo at full width (``ZOO_SERVE``, then the qwen3-0.6b
+    trainer), each model freed before the next is built.  Returns (the
+    launches of every kernel over the phase, summaries by run)."""
+    launches = {name: 0 for name in entries}
+    summary = {}
+    for run in ZOO_SERVE:
+        n, summary[run[0]] = zoo_serve(torch, G, entries, *run)
+        launches["gqa_decode"] += n
+    train_launches, summary["qwen3-0.6b trainer"] = zoo_train(
+        torch, Q, D, train, entries)
+    for name, n in train_launches.items():
+        launches[name] += n
+    return launches, summary
+
+
 def phase_parity(torch, train):
     """The same two steps of reduced smollm-135m on the card and on the
     CPU (plain versions), from the same weights, batches and noise, for the
@@ -2816,11 +3127,17 @@ def sdpa_calls(torch, q, k, v, valid, n_valid):
 #: distinct (q, K, V) sets the serve shape's timing rotates over: 4 x
 #: 100.8 MB, so every call finds its K and V cold in the 50 MB L2, as the
 #: serve loop over 30 layers' caches does (decode_32k's 6.4 GB is cold)
-DECODE_TIMING_SETS = {"serve": 4, "decode_32k": 1, "long_500k": 1}
-DECODE_TIMING_REPS = {"serve": 200, "decode_32k": 20, "long_500k": 20}
+DECODE_TIMING_SETS = {"serve": 4, "decode_32k": 1, "long_500k": 1,
+                      "qwen3-0.6b": 1, "yi-9b": 4, "chameleon-34b": 4,
+                      "gemma2-9b": 1, "gemma2-9b long-serve": 1}
+DECODE_TIMING_REPS = {"serve": 200, "decode_32k": 20, "long_500k": 20,
+                      "qwen3-0.6b": 100, "yi-9b": 200, "chameleon-34b": 200,
+                      "gemma2-9b": 100, "gemma2-9b long-serve": 100}
 #: ranges per row the decode timing also tries (``gqa_decode(ranges=)``);
 #: long_500k's rows take 16 ranges at the least
 DECODE_SWEEP = {"serve": (1, 2, 3, 4, 8), "decode_32k": (1, 2, 4),
+                "qwen3-0.6b": (), "yi-9b": (), "chameleon-34b": (),
+                "gemma2-9b": (), "gemma2-9b long-serve": (),
                 "long_500k": ()}
 
 
@@ -3515,6 +3832,12 @@ def main() -> None:
     phase_serve_profile(torch, G)
     phase_parity(torch, train)
     phase_serve_parity(torch)
+    t0 = time.perf_counter()
+    zoo_launches, zoo_summary = phase_zoo(torch, Q, D, G, train, entries)
+    zoo_s = time.perf_counter() - t0
+    print(f"[zoo] phase_zoo: {zoo_s:.1f} s", flush=True)
+    for name, n in zoo_launches.items():
+        launches[name] += n
     paper_launches, paper_errs = phase_paper(torch, Q, entries)
     launches["quantize_blocks"] += paper_launches["quantize_blocks"]
     for name, n in phase_paper_plan(torch, entries).items():
@@ -3572,6 +3895,11 @@ def main() -> None:
           + f"; card {smi}")
     for line in tel_summary:
         print(f"[summary] {line}; card {smi}")
+    for label, z in zoo_summary.items():
+        print(f"[summary] zoo {label}: "
+              + ", ".join(f"{k} {v!r}" for k, v in z.items())
+              + f"; card {smi}")
+    print(f"[summary] phase_zoo {zoo_s:.1f} s; card {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,19 +1,22 @@
 """Architecture config registry and reduced smoke variants.
 
 Counterpart of ``repro.configs``.  ``get_config(arch_id)`` returns the
-exact configuration for the architectures the port runs (``smollm-135m``)
-and raises ``NotImplementedError`` for the ones the reference supports but
-the port does not yet; ``reduced(cfg)`` returns the same small same-family
-variant as the reference.
+exact configuration for the architectures the port runs (the dense
+family: smollm-135m, qwen3-0.6b, yi-9b, chameleon-34b and gemma2-9b) and
+raises ``NotImplementedError`` for the ones the reference supports but the
+port does not yet; ``reduced(cfg)`` returns the same small same-family
+variant as the reference; ``shape_applicable`` says whether an
+architecture runs at an input shape.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import InputShape, ModelConfig
 
-__all__ = ["ARCH_IDS", "PORTED", "get_config", "reduced"]
+__all__ = ["ARCH_IDS", "PORTED", "get_config", "reduced",
+           "shape_applicable"]
 
 #: every architecture of the reference registry
 ARCH_IDS = ("jamba-v0.1-52b", "qwen3-0.6b", "chameleon-34b", "yi-9b",
@@ -21,7 +24,9 @@ ARCH_IDS = ("jamba-v0.1-52b", "qwen3-0.6b", "chameleon-34b", "yi-9b",
             "granite-moe-3b-a800m", "mamba2-1.3b", "smollm-135m")
 
 #: the architectures this package runs, and their modules
-PORTED = {"smollm-135m": "smollm_135m"}
+PORTED = {"qwen3-0.6b": "qwen3_0_6b", "chameleon-34b": "chameleon_34b",
+          "yi-9b": "yi_9b", "gemma2-9b": "gemma2_9b",
+          "smollm-135m": "smollm_135m"}
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -57,3 +62,11 @@ def reduced(cfg: ModelConfig, d_model: int = 256) -> ModelConfig:
         long_context_window=(min(cfg.long_context_window, 128)
                              if cfg.long_context_window else None),
     )
+
+
+def shape_applicable(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:
+    """Whether (arch, input-shape) runs; reason string if skipped."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("pure full-attention architecture: long_500k requires "
+                       "sub-quadratic attention (DESIGN.md section 5)")
+    return True, ""

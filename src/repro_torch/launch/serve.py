@@ -6,18 +6,27 @@ parameters, as in the reference).
 
 ``build_prefill_setup`` carries ``prefill_step(params, batch, capacity)
 -> (first_ids, cache)``: the full-sequence forward over the prompts, whose
-last position gives the first generated token, and whose K and V are
-written into a decode cache of ``capacity`` positions.
+last position gives the first generated token (only that position is
+projected onto the vocabulary: the reference's step reads the same
+``logits[:, -1:]``), and whose K and V are written into a decode cache of
+``capacity`` positions.
 ``build_serve_setup`` carries ``serve_step(state) -> state`` with ``state
 = {params, cache, tokens}``: one greedy decode step of every sequence
 (``transformer.greedy_decode_step``), through the flash-decode kernel
-(``kernels.gqa_decode``), with the next token in ``tokens``.
+(``kernels.gqa_decode``), with the next token in ``tokens``.  With
+``long_serve`` both cap the attention of 'A' blocks at the config's
+``long_context_window`` (gemma2-9b: 32,768); the reference's prefill setup
+takes no such flag, its ``model_apply`` does.
 
 CLI (runs on ``cuda`` unless ``--device cpu``; weights are random from
-``--seed`` and prompts are token ids drawn from it)::
+``--seed`` and prompts are token ids drawn from it; ``--periods`` cuts the
+depth and keeps the widths)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --batch 32 --prompt-len 1984 --new-tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+        --periods 2 --long-serve --batch 1 --prompt-len 32832 \\
+        --new-tokens 64
 """
 from __future__ import annotations
 
@@ -54,7 +63,8 @@ class ServeSetup:
     serve_step: Any
 
 
-def build_prefill_setup(cfg: ModelConfig, device=None) -> PrefillSetup:
+def build_prefill_setup(cfg: ModelConfig, device=None, *,
+                        long_serve: bool = False) -> PrefillSetup:
     """Prefill on ``device`` (``cuda`` unless ``device="cpu"``)."""
     dev = resolve_device(device)
     defs = TF.build_defs(cfg)
@@ -68,15 +78,17 @@ def build_prefill_setup(cfg: ModelConfig, device=None) -> PrefillSetup:
                               capacity or tokens.shape[1],
                               device=tokens.device)
         logits, cache = TF.model_apply(params, defs, batch, mode="prefill",
-                                       cache=cache)
-        return sharded_greedy_sample(logits[:, -1:, :]), cache
+                                       cache=cache, long_serve=long_serve,
+                                       logits_from=tokens.shape[1] - 1)
+        return sharded_greedy_sample(logits), cache
 
     return PrefillSetup(cfg=cfg, defs=defs, device=dev,
                         prefill_step=prefill_step)
 
 
 def build_serve_setup(cfg: ModelConfig, *, device=None,
-                      keep_logits: int = 0) -> ServeSetup:
+                      keep_logits: int = 0,
+                      long_serve: bool = False) -> ServeSetup:
     """Decode on ``device`` (``cuda`` unless ``device="cpu"``) against the
     state's cache, whose capacity bounds the positions.  With
     ``keep_logits`` > 0 each step also leaves the logits of the first
@@ -88,7 +100,8 @@ def build_serve_setup(cfg: ModelConfig, *, device=None,
     @torch.inference_mode()
     def serve_step(state):
         ids, cache, logits = TF.greedy_decode_step(
-            state["params"], defs, state["tokens"], state["cache"])
+            state["params"], defs, state["tokens"], state["cache"],
+            long_serve=long_serve)
         out = {"params": state["params"], "cache": cache, "tokens": ids}
         if keep_logits:
             out["logits"] = logits[:keep_logits]
@@ -112,6 +125,12 @@ def main(argv=None) -> dict:
                                  "(PyTorch port, one device)")
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--reduced", action="store_true", help="smoke-size model")
+    ap.add_argument("--periods", type=int, default=None,
+                    help="cut the depth to this many periods of the layer "
+                         "pattern (widths unchanged)")
+    ap.add_argument("--long-serve", action="store_true",
+                    help="cap the attention of 'A' blocks at the config's "
+                         "long_context_window (long-context serving)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=16)
@@ -128,17 +147,27 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.periods is not None:
+        if not 1 <= args.periods <= cfg.n_periods:
+            raise SystemExit(f"--periods must be in [1, {cfg.n_periods}]")
+        cfg = dataclasses.replace(cfg, n_periods=args.periods)
+    if args.long_serve and not cfg.long_context_window:
+        raise SystemExit(f"--long-serve: {cfg.arch_id} has no "
+                         "long_context_window")
     capacity = args.prompt_len + args.new_tokens
-    pre = build_prefill_setup(cfg, device=args.device)
+    pre = build_prefill_setup(cfg, device=args.device,
+                              long_serve=args.long_serve)
     dev = pre.device
     keep = min(args.keep_logits, args.batch)
-    serve = build_serve_setup(cfg, device=dev, keep_logits=keep)
+    serve = build_serve_setup(cfg, device=dev, keep_logits=keep,
+                              long_serve=args.long_serve)
     params = init_params(pre.defs.storage, args.seed, dev)
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
-    print(f"arch={cfg.arch_id} device={dev} batch={args.batch} "
-          f"prompt={args.prompt_len} +{args.new_tokens} tokens "
-          f"(capacity {capacity})", flush=True)
+    print(f"arch={cfg.arch_id} layers={cfg.n_layers} device={dev} "
+          f"batch={args.batch} prompt={args.prompt_len} +{args.new_tokens} "
+          f"tokens (capacity {capacity})"
+          + (" long-serve" if args.long_serve else ""), flush=True)
 
     def sync():
         if dev.type == "cuda":

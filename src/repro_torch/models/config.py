@@ -1,4 +1,5 @@
-"""Model configuration (a copy of ``repro.models.config.ModelConfig``).
+"""Model configuration (a copy of ``repro.models.config``: ``ModelConfig``,
+``InputShape`` and ``INPUT_SHAPES``).
 
 A ``ModelConfig`` fully determines the parameter pytree and the forward pass.
 Architectures are expressed as a *layer pattern*: a short period string that
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "InputShape", "INPUT_SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,3 +149,19 @@ class ModelConfig:
             1 for c in self.prelude + self.period * self.n_periods if c in ("E", "X")
         )
         return full - n_moe_blocks * inactive_experts * 3 * d * self.moe_d_ff
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

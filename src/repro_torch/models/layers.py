@@ -1,22 +1,27 @@
 """Transformer layers on one device (tensor-parallel degree 1).
 
 Counterpart of ``repro.models.layers`` at tp = 1, where every collective
-of the reference is the identity, for the llama-style blocks of the ported
-configuration (smollm-135m): SwiGLU MLP, no q/k norms, tied embeddings, no
-softcaps.  ``transformer.build_defs`` refuses configurations outside that.
-Layouts follow the reference at every public function: activations ``(b,
-s, d)``, grouped queries ``(b, s, kvh, g, hd)``, weights ``(d_in,
-d_out)``, KV caches ``(b, S, kvh, hd)``; everything is float32.
+of the reference is the identity, for the dense blocks of the ported
+configurations: gated MLPs (SwiGLU, or GeGLU with the tanh-approximate
+gelu), optional q/k norms, tied or untied embeddings, attention and final
+softcaps, the ``sqrt(d_model)`` embedding scale, and sliding-window ('L')
+as well as global ('A') attention.  ``transformer.build_defs`` refuses
+configurations outside that.  Layouts follow the reference at every public
+function: activations ``(b, s, d)``, grouped queries ``(b, s, kvh, g,
+hd)``, weights ``(d_in, d_out)``, KV caches ``(b, S, kvh, hd)``;
+everything is float32.
 
 ``attention_forward`` runs in three modes, as the reference's does:
-``train`` (the causal forward), ``prefill`` (the same, returning the
-prompt's rotated K and V as the decode cache) and ``decode`` (one token
-against the cache through the flash-decode kernel, ``kernels.gqa_decode``).
+``train`` (the causal forward, ``chunked_attention``), ``prefill`` (the
+same, returning the prompt's rotated K and V as the decode cache) and
+``decode`` (one token against the cache through the flash-decode kernel,
+``kernels.gqa_decode``).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -24,7 +29,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 
-__all__ = ["rms_norm", "rope_freqs", "apply_rope", "attention",
+__all__ = ["rms_norm", "rope_freqs", "apply_rope", "chunked_attention",
            "decode_attention_local", "combine_decode_partials",
            "attention_defs", "attention_forward", "mlp_defs", "mlp_forward",
            "embed_defs", "embed_lookup", "logits_local",
@@ -38,6 +43,14 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * (1 + w)``; weights initialise to 0."""
     var = x.square().mean(dim=-1, keepdim=True)
     return x * torch.rsqrt(var + eps) * (1.0 + w)
+
+
+def _act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "silu":
+        return F.silu(x)
+    if name == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(name)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -57,33 +70,83 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def attention(q: torch.Tensor, k: torch.Tensor,
-              v: torch.Tensor) -> torch.Tensor:
-    """Plain causal softmax attention, the reference's ``chunked_attention``
-    arithmetic in one chunk: masked scores are -1e30, and the output is
-    ``(p @ v) / max(sum p, 1e-30)`` with ``p = exp(s - max s)``.
+def _divisor_chunk(s: int, target: int) -> int:
+    """Largest chunk size <= target that divides s."""
+    c = min(target, s)
+    while s % c:
+        c -= 1
+    return c
+
+
+def _softcap(s: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return s
+    return cap * torch.tanh(s / cap)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int | None = None,
+                      softcap: float | None = None, q_offset: int = 0,
+                      k_offset: int = 0, chunk_q: int = 512,
+                      chunk_k: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over ``(chunk_q, chunk_k)`` blocks (each a
+    divisor of its length), the reference's arithmetic block for block:
+    scores scaled by ``1/sqrt(hd)``, softcapped, masked to -1e30 (causal:
+    ``qpos >= kpos``; window: ``qpos - kpos < window``; positions count
+    from ``q_offset`` and ``k_offset``), then the running max, denominator
+    and weighted sum; the output is ``acc / max(l, 1e-30)``.  Only one
+    block's scores exist at a time.
 
     q: (b, sq, kvh, g, hd); k, v: (b, sk, kvh, hd) -> (b, sq, kvh, g, hd).
     """
-    sq, sk, hd = q.shape[1], k.shape[1], q.shape[-1]
+    b, sq, kvh, g, hd = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    cq, ck = _divisor_chunk(sq, chunk_q), _divisor_chunk(sk, chunk_k)
     qh = q.permute(0, 2, 3, 1, 4)                          # (b,kvh,g,sq,hd)
     kh = k.permute(0, 2, 3, 1).unsqueeze(2)                # (b,kvh,1,hd,sk)
     vh = v.permute(0, 2, 1, 3).unsqueeze(2)                # (b,kvh,1,sk,hd)
-    s = torch.matmul(qh, kh) * (1.0 / math.sqrt(hd))
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device).tril()
-    s = torch.where(mask, s, torch.full_like(s, NEG))
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p, vh) / torch.clamp_min(l, 1e-30)
-    return out.permute(0, 3, 1, 2, 4)
+    ar_q = torch.arange(cq, device=q.device)
+    ar_k = torch.arange(ck, device=q.device)
+    outs = []
+    for q0 in range(0, sq, cq):
+        qi = qh[..., q0:q0 + cq, :]
+        qpos = (q_offset + q0 + ar_q)[:, None]
+        m = torch.full((b, kvh, g, cq), NEG, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, kvh, g, cq, hd), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, sk, ck):
+            kpos = (k_offset + k0 + ar_k)[None, :]
+            s = _softcap(torch.matmul(qi, kh[..., k0:k0 + ck]) * scale,
+                         softcap)
+            mask = torch.ones((cq, ck), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= qpos >= kpos
+            if window is not None:
+                mask &= qpos - kpos < window
+            s = torch.where(mask, s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.matmul(p, vh[..., k0:k0 + ck,
+                                                             :])
+            m = m_new
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    return torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4)
 
 
 def attention_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
-    return {"wq": ParamDef((d, h * hd)), "wk": ParamDef((d, kvh * hd)),
-            "wv": ParamDef((d, kvh * hd)), "wo": ParamDef((h * hd, d))}
+    out = {"wq": ParamDef((d, h * hd)), "wk": ParamDef((d, kvh * hd)),
+           "wv": ParamDef((d, kvh * hd)), "wo": ParamDef((h * hd, d))}
+    if cfg.qk_norm:
+        out["q_norm"] = ParamDef((hd,), init="zeros")
+        out["k_norm"] = ParamDef((hd,), init="zeros")
+    return out
 
 
 def decode_attention_local(q: torch.Tensor, k_cache: torch.Tensor,
@@ -111,44 +174,57 @@ def combine_decode_partials(m: torch.Tensor, l: torch.Tensor,
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor):
-    """Rotated q (b, s, kvh, g, hd), rotated k and v (b, s, kvh, hd) of
-    ``x`` at positions ``pos``."""
+    """q (b, s, kvh, g, hd), k and v (b, s, kvh, hd) of ``x`` at positions
+    ``pos``: projected, q and k normalised over ``hd`` when the config has
+    q/k norms, then rotated."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    q = (x @ p["wq"]).reshape(b, s, kvh, h // kvh, hd)
     k = (x @ p["wk"]).reshape(b, s, kvh, hd)
     v = (x @ p["wv"]).reshape(b, s, kvh, hd)
-    q = apply_rope(q, pos, cfg.rope_theta).reshape(b, s, kvh, h // kvh, hd)
-    return q, apply_rope(k, pos, cfg.rope_theta), v
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q.reshape(b, s, h, hd), pos, cfg.rope_theta)
+    return (q.reshape(b, s, kvh, h // kvh, hd),
+            apply_rope(k, pos, cfg.rope_theta), v)
 
 
 def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
                       mode: str = "train", cache: dict | None = None,
-                      pos: int = 0):
-    """Self-attention with RoPE.  Returns (out (b, s, d), cache):
+                      pos: int = 0, kind: str = "A",
+                      window_override: int | None = None):
+    """Self-attention with RoPE.  ``kind`` 'A' attends globally, 'L'
+    within ``cfg.sliding_window`` positions; ``window_override`` sets the
+    window of either (long-context serving caps 'A' blocks).  The
+    attention softcap applies in every mode.  Returns (out (b, s, d),
+    cache):
 
     * ``train``: causal attention over the whole sequence; no cache;
     * ``prefill``: the same, and the prompt's rotated K and V as the cache
       ``{"k", "v"}``, each (b, s, kvh, hd);
     * ``decode``: one token at position ``pos`` against ``cache`` (each of
       k, v (b, S, kvh, hd)): its K and V are written at ``pos`` in place,
-      positions ``<= pos`` are valid, and the flash-decode kernel attends
-      over them.  Returns the same cache.
+      positions ``<= pos`` (and ``> pos - window``) are valid, and the
+      flash-decode kernel attends over them.  Returns the same cache.
     """
     b, s, _ = x.shape
+    window = window_override if window_override is not None else (
+        cfg.sliding_window if kind == "L" else None)
     if mode == "decode":
-        return _attention_decode(p, x, cfg, cache, pos)
+        return _attention_decode(p, x, cfg, cache, pos, window)
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
     q, k, v = _project_qkv(p, x, cfg, torch.arange(s, device=x.device))
-    out = attention(q, k, v).reshape(b, s, -1)
+    out = chunked_attention(q, k, v, window=window,
+                            softcap=cfg.attn_softcap).reshape(b, s, -1)
     return out @ p["wo"], ({"k": k, "v": v} if mode == "prefill" else None)
 
 
 def _attention_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict,
-                      pos: int):
+                      pos: int, window: int | None):
     """One-token decode against a KV cache (one device, no shards)."""
     if cache is None:
         raise ValueError("decode requires a cache")
@@ -163,7 +239,10 @@ def _attention_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict,
         p, x, cfg, torch.full((1,), pos, device=x.device))
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
-    valid = torch.arange(k_cache.shape[1], device=x.device) <= pos
+    gpos = torch.arange(k_cache.shape[1], device=x.device)
+    valid = gpos <= pos
+    if window is not None:
+        valid &= gpos > pos - window
     m, l, acc = decode_attention_local(q, k_cache, v_cache, valid,
                                        cfg.attn_softcap)
     out = combine_decode_partials(m, l, acc).reshape(b, 1, -1).to(x.dtype)
@@ -176,23 +255,34 @@ def mlp_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
             "w_down": ParamDef((ff, d))}
 
 
-def mlp_forward(p, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: ``(silu(x W_gate) * x W_up) W_down``."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def mlp_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Gated MLP: ``(act(x W_gate) * x W_up) W_down`` with ``cfg.mlp_act``
+    (silu: SwiGLU; gelu: GeGLU)."""
+    return (_act(cfg.mlp_act, x @ p["w_gate"]) * (x @ p["w_up"])) \
+        @ p["w_down"]
 
 
 def embed_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
-    return {"table": ParamDef((cfg.vocab_size, cfg.d_model))}
+    out = {"table": ParamDef((cfg.vocab_size, cfg.d_model))}
+    if not cfg.tie_embeddings:
+        out["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size))
+    return out
 
 
-def embed_lookup(p, ids: torch.Tensor) -> torch.Tensor:
-    """ids (b, s) -> (b, s, d)."""
-    return p["table"][ids.long()]
+def embed_lookup(p, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """ids (b, s) -> (b, s, d), times ``sqrt(d_model)`` rounded to float32
+    when the config scales its embeddings."""
+    emb = p["table"][ids.long()]
+    if cfg.embed_scale:
+        emb = emb * float(np.float32(math.sqrt(cfg.d_model)))
+    return emb
 
 
-def logits_local(p, h: torch.Tensor) -> torch.Tensor:
-    """(b, s, d) -> (b, s, V) logits through the tied embedding table."""
-    return h @ p["table"].t()
+def logits_local(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(b, s, d) -> (b, s, V) logits through the tied embedding table or
+    the ``unembed`` matrix, softcapped when the config says so."""
+    w = p["table"].t() if cfg.tie_embeddings else p["unembed"]
+    return _softcap(h @ w, cfg.final_softcap)
 
 
 def sharded_softmax_xent(logits: torch.Tensor,

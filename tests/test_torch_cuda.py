@@ -265,6 +265,31 @@ def test_cuda_gqa_decode_kernel_matches_plain(cuda_device, b, kvh, g, hd, S,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,kvh,g,hd,S,cap,window", [
+    (32, 8, 2, 128, 2048, None, None),       # qwen3-0.6b serving
+    (8, 4, 8, 128, 2048, None, None),        # yi-9b
+    (4, 8, 8, 128, 2048, None, None),        # chameleon-34b
+    (4, 8, 2, 256, 6144, 50.0, 4096),        # gemma2-9b, an 'L' block
+    (1, 8, 2, 256, 32896, 50.0, 32768)])     # gemma2-9b long-serve, 'A'
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gqa_decode_zoo_heads(cuda_device, b, kvh, g, hd, S, cap,
+                                   window, dtype):
+    """#9 at the dense zoo's decode shapes, with the model's softcap and
+    its decode window (``gpos > pos - window``) where it has one."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S + g + hd)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(dtype) for shape in ((b, kvh, g, hd), (b, S, kvh, hd),
+                                        (b, S, kvh, hd)))
+    gpos = torch.arange(S, device=cuda_device)
+    pos = S - 38
+    masks = [gpos <= pos, _holes_mask(S, S + g, cuda_device)]
+    if window:
+        masks.append((gpos <= pos) & (gpos > pos - window))
+    for valid in masks:
+        _check_decode(q, k, v, valid, cap)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ranges", [None, 2, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_gqa_decode_merges_ranges_in_one_launch(cuda_device, dtype,
@@ -322,6 +347,21 @@ def test_cuda_serve_decode_launches_kernel_per_layer(cuda_device):
                     "--new-tokens", "5"])
     cfg = reduced(get_config("smollm-135m"))
     assert G.gqa_decode.launches - before == cfg.n_periods * 4
+    assert r["tokens"].shape == (2, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,extra", [
+    ("qwen3-0.6b", ()), ("yi-9b", ()), ("chameleon-34b", ()),
+    ("gemma2-9b", ()), ("gemma2-9b", ("--long-serve",))])
+def test_cuda_zoo_serve_launches_kernel_per_layer(cuda_device, arch, extra):
+    """Reduced zoo serving on the card: #9 once per layer and decode step,
+    prompts longer than reduced gemma2's window (64) and cap (128)."""
+    before = G.gqa_decode.launches
+    r = serve.main(["--arch", arch, "--reduced", "--batch", "2",
+                    "--prompt-len", "131", "--new-tokens", "5", *extra])
+    cfg = reduced(get_config(arch))
+    assert G.gqa_decode.launches - before == cfg.n_layers * 4
     assert r["tokens"].shape == (2, 5)
 
 

@@ -161,7 +161,9 @@ def test_unported_architectures_say_so():
     from repro.configs import ARCH_IDS as REFERENCE_ARCH_IDS
     from repro_torch.configs import ARCH_IDS, PORTED, get_config
     assert ARCH_IDS == REFERENCE_ARCH_IDS
-    assert set(PORTED) == {"smollm-135m"}
+    assert set(PORTED) == {"smollm-135m", "qwen3-0.6b", "yi-9b",
+                           "chameleon-34b", "gemma2-9b"}
+    assert len(set(ARCH_IDS) - set(PORTED)) == 5
     for arch in ARCH_IDS:
         if arch not in PORTED:
             with pytest.raises(NotImplementedError, match="not yet ported"):
