@@ -24,7 +24,9 @@ Phases (any failure exits non-zero before the result line):
              softcap 50; a frontier, holes and a 4,096-position window),
              and at the zoo's decode shapes (qwen3-0.6b, yi-9b,
              chameleon-34b, gemma2-9b with its 4,096 window and its
-             long-serve cache with the 32,768 cap: ``DECODE_SHAPES``);
+             long-serve cache with the 32,768 cap), and at the MoE decode shapes
+             (granite-moe-3b-a800m g 3 hd 64, deepseek-moe-16b g 1 hd
+             128: ``DECODE_SHAPES``);
 3. main    — ``repro_torch.launch.train.main`` on the full smollm-135m, 4
              ADC-DGD nodes (fixed grid), each run with every launch counter
              zeroed just before it: 5 steps of the int8 wire, then 3 steps
@@ -164,6 +166,33 @@ Phases (any failure exits non-zero before the result line):
              to its plain version on the same inputs
              (``KernelVsPlain``), the reference's 1,201,413,120 wire bytes
              per step, a finite loss near ln(151,936);
+4c. moe    — the mixture-of-experts family at full width (``phase_moe``),
+             each model freed before the next: ``serve.main`` on
+             granite-moe-3b-a800m (32 layers, 32 x 1,984 + 64 tokens) and
+             deepseek-moe-16b at full depth (its dense 'D' prelude and 27
+             'E' periods, 2 x 1,984 + 64), each counted: #9 launched
+             layers x 63 times (g 3 hd 64; g 1 hd 128) and no other kernel,
+             tokens in range, the share of routed assignments dropped at
+             prefill and at the first decode step (``RouteWatch`` on
+             ``models.moe.route``); then, on a copy of the config whose
+             capacity factor ``n_experts / top_k`` drops nothing, 8
+             prompts of 64 tokens each prefilled alone and decoded
+             together: nothing dropped, the decode logits within
+             ZOO_LOGIT_TOL of a train-mode forward up to each sequence's
+             first routing flip, which must be a near tie (margin below
+             MOE_TIE_MARGIN), with at least MOE_MIN_COMPARED (252) of the
+             504 decode steps compared, and one decode step after 2 of the
+             served prompts through the plain #9 within SERVE_LOGIT_TOL of
+             the kernel's; the routing
+             of one full-width MoE layer of each arch at capacity factor
+             1.25 against a per-token loop (chosen experts and kept set
+             equal, output within MOE_ORACLE_TOL, some assignments
+             dropped); then the trainer on granite-moe-3b-a800m cut to 3
+             of 32 periods, 4 nodes x 4 x 512 tokens, int8 packed, 5
+             steps: #1 and #2 launched 20 times each and nothing else,
+             every call bitwise equal to its plain version, the
+             reference's 913,476,864 wire bytes per step, a finite loss
+             near ln(49,155) + 0.01 aux and the ``aux`` metric;
 5. parity  — reduced smollm-135m, 2 steps on the card and on the CPU from
              the same weights and quantization noise, for the int8, int4
              and top-k wires, the per-leaf transport, compressed_dgd
@@ -344,7 +373,9 @@ KVH, GROUP, HEAD_DIM = 3, 3, 64
 #: The zoo's serve runs (``phase_zoo``) decode at their own heads: qwen3-0.6b
 #: (b 32, capacity 2,048, 8 KV heads of 128, g 2), yi-9b (b 8, 4 of 128,
 #: g 8), chameleon-34b (b 4, 8 of 128, g 8), gemma2-9b (b 4, capacity
-#: 6,144; and long-serve, b 1, capacity 32,896)
+#: 6,144; and long-serve, b 1, capacity 32,896); the MoE runs
+#: (``phase_moe``) granite-moe-3b-a800m (b 32, capacity 2,048, 8 KV heads
+#: of 64, g 3) and deepseek-moe-16b (b 2, 16 KV heads of 128, g 1: MHA)
 DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, KVH, GROUP,
                            HEAD_DIM),
                  "decode_32k": (128, 32768, KVH, GROUP, HEAD_DIM),
@@ -353,11 +384,14 @@ DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, KVH, GROUP,
                  "yi-9b": (8, 2048, 4, 8, 128),
                  "chameleon-34b": (4, 2048, 8, 8, 128),
                  "gemma2-9b": (4, 6144, 8, 2, 256),
-                 "gemma2-9b long-serve": (1, 32896, 8, 2, 256)}
+                 "gemma2-9b long-serve": (1, 32896, 8, 2, 256),
+                 "granite-moe-3b-a800m": (32, 2048, 8, 3, 64),
+                 "deepseek-moe-16b": (2, 2048, 16, 1, 128)}
 #: the softcap each shape is also held with (gemma2-9b's own is 50)
 DECODE_SOFTCAP = {"serve": 30.0, "decode_32k": 30.0, "long_500k": 50.0,
                   "qwen3-0.6b": 30.0, "yi-9b": 30.0, "chameleon-34b": 30.0,
-                  "gemma2-9b": 50.0, "gemma2-9b long-serve": 50.0}
+                  "gemma2-9b": 50.0, "gemma2-9b long-serve": 50.0,
+                  "granite-moe-3b-a800m": 30.0, "deepseek-moe-16b": 30.0}
 #: the sliding window a shape's masks also take: gemma2-9b's 'L' blocks
 #: (4,096), and the long-serve cap of its 'A' blocks (32,768)
 DECODE_WINDOW = {"long_500k": 4096, "gemma2-9b": 4096,
@@ -3003,6 +3037,486 @@ def phase_zoo(torch, Q, D, G, train, entries):
     return launches, summary
 
 
+#: the mixture-of-experts serve runs (``phase_moe``): (label, arch, periods
+#: (None: full depth), batch, prompt), each at full width with 64 new tokens
+#: and freed before the next.  granite-moe-3b-a800m: 32 layers, 13.5 GB of
+#: weights, an 8.6 GB cache; deepseek-moe-16b: its dense 'D' prelude and 27
+#: 'E' periods, 65.5 GB of weights
+MOE_SERVE = (
+    ("granite-moe-3b-a800m", "granite-moe-3b-a800m", None, 32, 1984),
+    ("deepseek-moe-16b", "deepseek-moe-16b", None, 2, 1984),
+)
+#: the MoE trainer: granite-moe-3b-a800m at full width cut to 3 of its 32
+#: periods (1.81 GB of float32 per node; 4 periods ran out of the card's
+#: memory at 4 nodes, 3 peak at 69.4 GB), 4 nodes x 4 x 512 tokens, int8
+#: packed on the fixed grid; the reference's wire bytes per node and step
+#: for this tree, 2 x 885,152 rows x 516 (``tests/test_torch_moe.py``)
+MOE_TRAIN_PERIODS, MOE_TRAIN_NODES, MOE_TRAIN_STEPS = 3, 4, 5
+MOE_TRAIN_WIRE_BYTES = 913_476_864
+#: the routing oracle: one full-width MoE layer of each arch on this many
+#: tokens at capacity factor 1.25; every token is a standard normal draw
+#: plus one shared draw times MOE_ORACLE_SHIFT, so that the tokens agree
+#: on some experts, which overflow and drop
+MOE_ORACLE_TOKENS, MOE_ORACLE_SHIFT = 2048, 0.5
+#: the oracle's output against moe_forward's (absolute and relative): the
+#: same products, but the oracle multiplies each expert's kept rows alone
+#: and the port all of its capacity slots at once, so the matrix products
+#: take other blockings and sum in other orders
+MOE_ORACLE_TOL = 1e-4
+#: a routing decision that rounding may flip: the k-th and the next
+#: probability closer than this
+MOE_TIE_MARGIN = 1e-5
+#: the no-drop check (``moe_no_drop``): this many prompts of
+#: MOE_NO_DROP_PROMPT tokens, each prefilled alone, then decoded together.
+#: Every routing decision, prompt tokens' too, may flip at a near tie and
+#: end its sequence's comparison; at the served prompts' 1,984 tokens 1 of
+#: 4 granite and 3 of 4 deepseek sequences flipped in their prompts (H100
+#: 80GB HBM3), so the prompts are short.  At least MOE_MIN_COMPARED of the
+#: decode steps in all (half) must come before the flips
+MOE_NO_DROP_SEQS, MOE_NO_DROP_PROMPT = 8, 64
+MOE_MIN_COMPARED = MOE_NO_DROP_SEQS * (ZOO_NEW - 1) // 2
+
+
+class RouteWatch:
+    """Within the block every call of ``models.moe.route`` (the routing
+    ``moe_forward`` does) leaves its token count and the number of its
+    assignments dropped past the capacity, as a device tensor, so that the
+    watch adds no synchronisation; up to ``limit`` calls (all when None).
+    ``dropped(t)`` sums them over the calls that routed ``t`` tokens:
+    (assignments dropped, assignments).  With ``routes`` each call also
+    leaves its tokens' chosen experts in ascending id and their margin:
+    the k-th largest probability less the next one."""
+
+    def __init__(self, limit=None, routes=False):
+        self.limit, self.routes, self.calls = limit, routes, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.saved = real = moe.route
+
+        def spy(router, xf, cfg):
+            r = real(router, xf, cfg)
+            if self.limit is None or len(self.calls) < self.limit:
+                call = (xf.shape[0], r.keep.numel(), (~r.keep).sum())
+                if self.routes:
+                    srt = r.probs.sort(dim=-1, descending=True).values
+                    call += (r.top_e.sort(dim=1).values,
+                             srt[:, cfg.top_k - 1] - srt[:, cfg.top_k])
+                self.calls.append(call)
+            return r
+
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        from repro_torch.models import moe
+        moe.route = self.saved
+        return False
+
+    def dropped(self, t: int) -> tuple[int, int]:
+        picked = [(n, d) for tt, n, d in self.calls if tt == t]
+        return (int(sum(int(d) for _, d in picked)),
+                sum(n for n, _ in picked))
+
+
+def route_flips(torch, calls, n_moe, n_seq, prompt, steps):
+    """Where a no-drop serve run and the train-mode forwards after it (one
+    per sequence, over prompt + generated tokens) chose other experts for
+    the same token, from a ``RouteWatch(routes=True)``: the prefills of
+    ``n_seq`` sequences one at a time, then ``steps`` decode steps of all
+    of them, then the ``n_seq`` forwards, each ``n_moe`` calls.  Returns
+    ([(sequence, step (a prompt position counts from -prompt), MoE layer,
+    the smaller of the two margins)], the assignments dropped over all
+    calls)."""
+    dropped = sum(int(c[2]) for c in calls)
+    pre = calls[:n_seq * n_moe]
+    dec = calls[n_seq * n_moe:n_moe * (n_seq + steps)]
+    fwd = calls[n_moe * (n_seq + steps):]
+    if len(fwd) != n_seq * n_moe or any(c[0] != prompt for c in pre) \
+            or any(c[0] != n_seq for c in dec):
+        fail(f"route_flips: {len(calls)} routing calls, not {n_seq} "
+             f"prefills, {steps} decode steps and {n_seq} forwards of "
+             f"{n_moe} MoE layers")
+    flips = []
+    for layer in range(n_moe):
+        for i in range(n_seq):
+            f_e, f_m = fwd[i * n_moe + layer][3:5]
+            p_e, p_m = pre[i * n_moe + layer][3:5]
+            s_e = torch.stack([dec[j * n_moe + layer][3][i]
+                               for j in range(steps)])
+            s_m = torch.stack([dec[j * n_moe + layer][4][i]
+                               for j in range(steps)])
+            for ours, margin, lo in ((p_e, p_m, 0), (s_e, s_m, prompt)):
+                n = ours.shape[0]
+                theirs = f_e[lo:lo + n]
+                differ = (ours != theirs).any(dim=1).nonzero().flatten()
+                for j in differ.tolist():
+                    flips.append((i, j + lo - prompt, layer,
+                                  min(float(margin[j]),
+                                      float(f_m[lo + j]))))
+    return sorted(flips, key=lambda f: (f[0], f[1])), dropped
+
+
+def _cache_row(dst, src, i):
+    """Copies the one-sequence decode cache ``src`` into row ``i`` of the
+    batched ``dst`` (the periods' entries stack the periods first)."""
+    for part, lead in (("layers", 1), ("prelude", 0)):
+        for d_blk, s_blk in zip(dst.get(part, ()), src.get(part, ())):
+            for key, t in s_blk["attn"].items():
+                d_blk["attn"][key].narrow(lead, i, 1).copy_(t)
+    dst["len"] = src["len"]
+
+
+def moe_no_drop(torch, label, defs, params, n_moe, seed):
+    """The no-drop copy's decode against a train-mode forward:
+    MOE_NO_DROP_SEQS prompts of MOE_NO_DROP_PROMPT tokens drawn from
+    ``seed``, each prefilled alone (the one-sequence shape of the forward)
+    into its row of one cache, then decoded 63 tokens together; then one
+    forward per sequence over prompt + generated tokens.  Nothing may
+    drop, the first routing flip of each sequence must be a near tie, the
+    logits must agree within ZOO_LOGIT_TOL up to it, and at least
+    MOE_MIN_COMPARED decode steps in all must come before the flips.
+    Returns a summary dict."""
+    import numpy as np
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TF
+    nd = defs.cfg
+    n_nd, p_nd, steps = MOE_NO_DROP_SEQS, MOE_NO_DROP_PROMPT, ZOO_NEW - 1
+    pre = serve.build_prefill_setup(nd, device="cuda")
+    srv = serve.build_serve_setup(nd, device="cuda", keep_logits=n_nd)
+    prompts = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, nd.vocab_size, (n_nd, p_nd)), device="cuda")
+    with RouteWatch(routes=True) as nd_watch, torch.inference_mode():
+        cache = TF.init_cache(nd, n_nd, p_nd + ZOO_NEW, device="cuda")
+        first = []
+        for i in range(n_nd):
+            f, c = pre.prefill_step(params, {"tokens": prompts[i:i + 1]},
+                                    p_nd + ZOO_NEW)
+            _cache_row(cache, c, i)
+            first.append(f)
+            del c
+        first = torch.cat(first)
+        state = {"params": params, "cache": cache, "tokens": first}
+        out, logits = [first], []
+        for _ in range(steps):
+            state = srv.serve_step(state)
+            out.append(state["tokens"])
+            logits.append(state["logits"])
+        del state, cache
+        got = torch.stack(logits, dim=1).cpu()
+        seq = torch.cat([prompts, *out], dim=1)
+        # one sequence at a time: a no-drop forward gives every expert
+        # capacity for all of its tokens
+        full = torch.cat([TF.model_apply(
+            params, defs, {"tokens": seq[i:i + 1]},
+            logits_from=p_nd)[0][:, :steps].cpu()
+            for i in range(n_nd)])
+    flips, nd_drops = route_flips(torch, nd_watch.calls, n_moe, n_nd,
+                                  p_nd, steps)
+    if nd_drops:
+        fail(f"moe {label}: the no-drop copy dropped {nd_drops} assignments")
+    # a token routed to other experts in the forward than in prefill or
+    # decode changes its own logits and, through attention, every later
+    # one.  The first such token of a sequence (the earliest position, its
+    # lowest layer) saw inputs that differ only by rounding, so its choice
+    # must have been a near tie; the logits are compared up to it, and
+    # enough decode steps must come before the flips
+    firsts = [min([f for f in flips if f[0] == i],
+                  key=lambda f: (f[1], f[2]), default=None)
+              for i in range(n_nd)]
+    upto = [steps if f is None else max(f[1], 0) for f in firsts]
+    compared = sum(upto)
+    err = max([float((got[i, :upto[i]] - full[i, :upto[i]]).abs().max())
+               for i in range(n_nd) if upto[i]], default=0.0)
+    wide = [f for f in firsts if f is not None and f[3] >= MOE_TIE_MARGIN]
+    if wide or compared < MOE_MIN_COMPARED or not all(
+            torch.allclose(got[i, :upto[i]], full[i, :upto[i]],
+                           atol=ZOO_LOGIT_TOL, rtol=ZOO_LOGIT_TOL)
+            for i in range(n_nd)):
+        fail(f"moe {label}: no-drop decode logits differ from the "
+             f"train-mode forward by up to {err} over the first {upto} "
+             f"steps ({compared} in all, at least {MOE_MIN_COMPARED} "
+             f"needed; tolerance {ZOO_LOGIT_TOL}); first routing flips "
+             f"(sequence, step (< 0: prompt), layer, margin) {firsts}, "
+             f"not near ties (margin >= {MOE_TIE_MARGIN}): {wide}")
+    return {"logit_err": err, "steps_compared": upto, "compared": compared,
+            "first_flips": firsts, "flips": len(flips),
+            "logit_err_all": float((got - full).abs().max())}
+
+
+def moe_serve(torch, G, entries, label, arch, periods, batch, prompt):
+    """One MoE serve run at full width, counted: #9 launched layers x 63
+    times and nothing else, tokens in range, and the share of routed
+    assignments dropped at prefill and at the first decode step, from the
+    port's own routing.  Then, on a copy of the config whose capacity
+    factor is ``n_experts / top_k`` (capacity >= the tokens a call routes,
+    so nothing drops and a token's experts do not depend on the others):
+    the decode against a train-mode forward (``moe_no_drop``), and one
+    decode step after 2 of the served prompts through the plain #9 within
+    SERVE_LOGIT_TOL of the kernel's.  Returns (#9 launches, a
+    summary dict)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params
+    cfg = get_config(arch)
+    flags = []
+    if periods is not None:
+        cfg = dataclasses.replace(cfg, n_periods=periods)
+        flags = ["--periods", str(periods)]
+    n_moe = sum(c == "E" for c in cfg.prelude + cfg.period * cfg.n_periods)
+    for entry in entries.values():
+        entry.launches = 0
+    with RouteWatch(limit=2 * n_moe) as rw:
+        r = serve.main(["--arch", arch, *flags, "--batch", str(batch),
+                        "--prompt-len", str(prompt), "--new-tokens",
+                        str(ZOO_NEW), "--keep-logits", "2", "--seed", "0",
+                        "--device", "cuda"])
+    launches = {name: entry.launches for name, entry in entries.items()}
+    want = {name: 0 for name in entries}
+    want["gqa_decode"] = cfg.n_layers * (ZOO_NEW - 1)
+    if launches != want:
+        fail(f"moe {label}: serve launched {launches}, want {want}")
+    tok = r["tokens"]
+    if (tok.shape != (batch, ZOO_NEW) or tok.min() < 0
+            or tok.max() >= cfg.vocab_size
+            or r["cache_len"] != prompt + ZOO_NEW - 1
+            or not np.isfinite(r["logits"]).all()):
+        fail(f"moe {label}: tokens {tok.shape} in [{tok.min()}, "
+             f"{tok.max()}], cache length {r['cache_len']}, finite logits "
+             f"{np.isfinite(r['logits']).all()}")
+    drops = {"prefill": rw.dropped(batch * prompt),
+             "decode step": rw.dropped(batch)}
+    if drops["prefill"][1] != n_moe * batch * prompt * cfg.top_k \
+            or drops["decode step"][1] != n_moe * batch * cfg.top_k:
+        fail(f"moe {label}: the route watch saw {drops} assignments, want "
+             f"{n_moe} MoE layers x {cfg.top_k} per token")
+    share = {k: d / n for k, (d, n) in drops.items()}
+    torch.cuda.empty_cache()
+
+    nd = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    defs = TF.build_defs(nd)
+    params = init_params(defs.storage, 0, "cuda")
+    pre = serve.build_prefill_setup(nd, device="cuda")
+    nd_sum = moe_no_drop(torch, label, defs, params, n_moe, 1)
+    with torch.inference_mode():
+        # 2 of the served prompts, at their full length
+        first, cache = pre.prefill_step(
+            params, {"tokens": torch.as_tensor(r["prompts"][:2],
+                                               device="cuda")}, prompt + 1)
+        _, _, kern = TF.greedy_decode_step(params, defs, first, cache)
+        saved, ops.gqa_decode = ops.gqa_decode, G.gqa_decode_plain
+        try:
+            _, _, plain = TF.greedy_decode_step(params, defs, first, cache)
+        finally:
+            ops.gqa_decode = saved
+    step_err = float((kern - plain).abs().max())
+    if not torch.allclose(kern, plain, atol=SERVE_LOGIT_TOL,
+                          rtol=SERVE_LOGIT_TOL):
+        fail(f"moe {label}: a decode step through the plain gqa_decode "
+             f"differs from the kernel's by {step_err}")
+    del params, cache, kern, plain
+    torch.cuda.empty_cache()
+    summary = {"layers": cfg.n_layers, "prefill_s": r["prefill_s"],
+               "decode_ms": r["decode_s_per_token"] * 1e3,
+               "peak_gb": r["peak_gb"], "launches": launches["gqa_decode"],
+               "prefill_drop_share": share["prefill"],
+               "decode_drop_share": share["decode step"],
+               **{f"no_drop_{k}": v for k, v in nd_sum.items()},
+               "plain_step_err": step_err}
+    depth = (f"{periods} of {get_config(arch).n_periods} periods, "
+             if periods is not None else "")
+    print(f"[moe] {label} ({depth}{cfg.n_layers} layers), {batch} x "
+          f"{prompt} prompt + {ZOO_NEW} tokens: gqa_decode launched "
+          f"{launches['gqa_decode']} times ({cfg.n_layers} x {ZOO_NEW - 1}),"
+          f" no other kernel; prefill {r['prefill_s']!r} s, decode "
+          f"{summary['decode_ms']!r} ms per token for the batch, peak "
+          f"memory {r['peak_gb']!r} GB; routed assignments dropped: "
+          f"{drops['prefill'][0]} of {drops['prefill'][1]} at prefill "
+          f"({share['prefill']!r}), {drops['decode step'][0]} of "
+          f"{drops['decode step'][1]} at the first decode step "
+          f"({share['decode step']!r}); capacity factor "
+          f"{nd.capacity_factor:g} (no drops): decode logits of "
+          f"{MOE_NO_DROP_SEQS} sequences of {MOE_NO_DROP_PROMPT}-token "
+          f"prompts, each prefilled alone, vs a train-mode forward max "
+          f"|diff| {nd_sum['logit_err']!r} over their first "
+          f"{nd_sum['steps_compared']} steps ({nd_sum['compared']} of "
+          f"{MOE_NO_DROP_SEQS * (ZOO_NEW - 1)}), before each sequence's "
+          f"first routing flip (sequence, step, layer, margin) "
+          f"{nd_sum['first_flips']} ({nd_sum['flips']} flips in all; "
+          f"{nd_sum['logit_err_all']!r} over all steps); one 2 x "
+          f"{prompt} decode step through the plain gqa_decode vs the "
+          f"kernel: max |diff| {step_err!r}", flush=True)
+    return launches["gqa_decode"], summary
+
+
+def moe_routing_oracle(torch, arch):
+    """One full-width MoE layer of ``arch`` at capacity factor 1.25 on
+    MOE_ORACLE_TOKENS tokens, held to a plain per-token loop: each token's
+    experts in descending probability (ties to the lower id), each kept
+    while its expert has a slot left, counted in token order; then each
+    expert's FFN on its kept tokens alone, the weighted outputs added per
+    token in ascending expert id, and the shared experts after.  The kept
+    set and the chosen experts must be equal, the output within
+    MOE_ORACLE_TOL, the auxiliary loss within 1e-5.  Returns a summary."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.layers import _act
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(get_config(arch), capacity_factor=1.25)
+    p = init_params(moe.moe_defs(cfg), 3, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    t, d, k = MOE_ORACLE_TOKENS, cfg.d_model, cfg.top_k
+    x = (torch.randn((1, t, d), generator=g, device="cuda")
+         + MOE_ORACLE_SHIFT * torch.randn((d,), generator=g, device="cuda"))
+    with torch.inference_mode():
+        r = moe.route(p["router"], x[0], cfg)
+        out, aux = moe.moe_forward(p, x, cfg)
+        probs = torch.softmax((x[0] @ p["router"]).float(), dim=-1)
+    pr = probs.cpu().numpy()
+    top_e = np.argsort(-pr, axis=1, kind="stable")[:, :k]
+    top_p = np.take_along_axis(pr, top_e, 1)
+    top_p = top_p / np.maximum(top_p.sum(1, keepdims=True), 1e-9)
+    cap = max(1, int(math.ceil(t * k / cfg.n_experts
+                               * cfg.capacity_factor)))
+    fill = np.zeros(cfg.n_experts, np.int64)
+    keep = np.zeros((t, k), bool)
+    for i in range(t):
+        for j in range(k):
+            e = top_e[i, j]
+            keep[i, j] = fill[e] < cap
+            fill[e] += 1
+    if not (np.array_equal(r.top_e.cpu().numpy(), top_e)
+            and np.array_equal(r.keep.cpu().numpy(), keep)
+            and r.capacity == cap):
+        fail(f"moe routing oracle {arch}: the chosen experts or the kept "
+             "set differ from the per-token loop")
+    want = torch.zeros((t, d), device="cuda")
+    w = torch.from_numpy(top_p.astype(np.float32)).to("cuda")
+    with torch.inference_mode():
+        for e in range(cfg.n_experts):
+            rows, cols = np.nonzero((top_e == e) & keep)
+            if not len(rows):
+                continue
+            toks = torch.from_numpy(rows).to("cuda")
+            xe = x[0, toks]
+            y = (_act(cfg.mlp_act, xe @ p["w_gate"][e]) * (xe @ p["w_up"][e])
+                 ) @ p["w_down"][e]
+            want[toks] = want[toks] + y * w[toks, torch.from_numpy(cols)
+                                            .to("cuda")][:, None]
+        if "shared" in p:
+            sp = p["shared"]
+            xf = x[0]
+            want = want + (_act(cfg.mlp_act, xf @ sp["w_gate"])
+                           * (xf @ sp["w_up"])) @ sp["w_down"]
+    f_e = np.bincount(top_e.reshape(-1), minlength=cfg.n_experts) / t
+    want_aux = cfg.n_experts * float(np.sum(f_e * pr.astype(np.float64)
+                                            .mean(0)))
+    err = float((out[0] - want).abs().max())
+    dropped = int((~keep).sum())
+    if not torch.allclose(out[0], want, atol=MOE_ORACLE_TOL,
+                          rtol=MOE_ORACLE_TOL) \
+            or abs(float(aux) - want_aux) > 1e-5 * abs(want_aux) \
+            or not 0 < dropped < keep.size:
+        fail(f"moe routing oracle {arch}: output max |diff| {err} "
+             f"(tolerance {MOE_ORACLE_TOL}), aux {float(aux)} vs "
+             f"{want_aux}, {dropped} of {keep.size} assignments dropped")
+    print(f"[moe] routing oracle {arch}: {t} tokens, capacity {cap} at "
+          f"factor 1.25, shared shift {MOE_ORACLE_SHIFT:g}: chosen experts "
+          f"and kept set equal to the per-token loop ({dropped} of "
+          f"{keep.size} assignments dropped, expert loads "
+          f"{fill.min()}-{fill.max()}); output max |diff| {err!r}, aux "
+          f"{float(aux)!r} vs {want_aux!r}", flush=True)
+    del p, x, out, want
+    torch.cuda.empty_cache()
+    return {"dropped": dropped, "assignments": keep.size, "out_err": err}
+
+
+def moe_train(torch, Q, D, train, entries):
+    """granite-moe-3b-a800m on the consensus trainer at full width, cut to
+    MOE_TRAIN_PERIODS periods, counted, with every call of #1 and #2 held
+    to its plain version (``KernelVsPlain``).  Returns (launches, a summary
+    dict)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import wire
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import meta_params
+    arch = "granite-moe-3b-a800m"
+    argv = ["--arch", arch, "--periods", str(MOE_TRAIN_PERIODS),
+            "--algorithm", "adc_dgd", "--nodes", str(MOE_TRAIN_NODES),
+            "--batch", str(4 * MOE_TRAIN_NODES), "--seq", str(SEQ),
+            "--steps", str(MOE_TRAIN_STEPS), "--quant-mode", "fixed",
+            "--lr", "1e-2", "--device", "cuda"]
+    with KernelVsPlain(torch, Q, D) as watch:
+        hist, launches, peak = run_counted(torch, train, entries, argv)
+    want = {name: 0 for name in entries}
+    for name in CODEC_KERNELS["int8"]:
+        want[name] = MOE_TRAIN_NODES * MOE_TRAIN_STEPS
+    if launches != want:
+        fail(f"moe trainer: launched {launches}, want {want}")
+    if not watch.equal or watch.calls != 2 * want["quantize_payload"]:
+        fail(f"moe trainer: {watch.calls} calls of #1 and #2 held to their "
+             f"plain versions, all bitwise equal: {watch.equal}")
+    cfg = dataclasses.replace(get_config(arch), n_periods=MOE_TRAIN_PERIODS)
+    rows = wire.WireLayout.for_tree(meta_params(
+        TF.build_defs(cfg).storage)).n_rows
+    wires = {h["wire_bytes_per_step"] for h in hist}
+    if wires != {MOE_TRAIN_WIRE_BYTES} or 2 * rows * PAYLOAD != \
+            MOE_TRAIN_WIRE_BYTES:
+        fail(f"moe trainer: wire_bytes_per_step {wires}, from the layout's "
+             f"{rows} rows {2 * rows * PAYLOAD}, the reference's "
+             f"{MOE_TRAIN_WIRE_BYTES}")
+    losses = [h["loss"] for h in hist]
+    auxes = [h.get("aux", float("nan")) for h in hist]
+    # the untied unembed (fan-in d) gives logits of about unit spread at
+    # init, which puts the cross-entropy about 0.5 above ln(vocab)
+    near = math.log(cfg.vocab_size) + cfg.router_aux_weight * auxes[0]
+    if not all(math.isfinite(x) for x in losses + auxes) \
+            or abs(losses[0] - near) > 1.0 \
+            or not auxes[0] >= 0.9 * cfg.top_k * MOE_TRAIN_PERIODS:
+        fail(f"moe trainer: losses {losses}, aux {auxes} (step 1 should be "
+             f"near ln({cfg.vocab_size}) + {cfg.router_aux_weight} x aux = "
+             f"{near}, aux about {cfg.top_k} per MoE layer or more)")
+    step_s = statistics.median(h["step_s"] for h in hist[1:])
+    print(f"[moe] {arch} trainer, {MOE_TRAIN_PERIODS} of "
+          f"{get_config(arch).n_periods} periods, "
+          f"{MOE_TRAIN_NODES} nodes x 4 x {SEQ} tokens, int8 packed, fixed "
+          f"grid, {MOE_TRAIN_STEPS} steps: losses {losses}; aux {auxes}; "
+          f"launches { {n: v for n, v in launches.items() if v} }; "
+          f"wire_bytes_per_step {MOE_TRAIN_WIRE_BYTES} (2 x {rows} rows x "
+          f"{PAYLOAD}, the reference's accounting); {watch.calls} calls of "
+          f"#1 and #2 bitwise equal to their plain versions on the same "
+          f"inputs; median step {step_s:.4f} s; peak memory {peak:.2f} GB",
+          flush=True)
+    torch.cuda.empty_cache()
+    return launches, {"step_s": step_s, "peak_gb": peak, "aux": auxes}
+
+
+def phase_moe(torch, Q, D, G, train, entries):
+    """The mixture-of-experts family at full width (``MOE_SERVE``, the
+    routing oracle, then the granite trainer), each model freed before the
+    next is built.  Returns (the launches of every kernel over the phase,
+    summaries by run)."""
+    launches = {name: 0 for name in entries}
+    summary = {}
+    for run in MOE_SERVE:
+        n, summary[run[0]] = moe_serve(torch, G, entries, *run)
+        launches["gqa_decode"] += n
+    for arch in ("granite-moe-3b-a800m", "deepseek-moe-16b"):
+        summary[f"{arch} routing oracle"] = moe_routing_oracle(torch, arch)
+    train_launches, summary["granite-moe-3b-a800m trainer"] = moe_train(
+        torch, Q, D, train, entries)
+    for name, n in train_launches.items():
+        launches[name] += n
+    return launches, summary
+
+
 def phase_parity(torch, train):
     """The same two steps of reduced smollm-135m on the card and on the
     CPU (plain versions), from the same weights, batches and noise, for the
@@ -3129,16 +3643,19 @@ def sdpa_calls(torch, q, k, v, valid, n_valid):
 #: serve loop over 30 layers' caches does (decode_32k's 6.4 GB is cold)
 DECODE_TIMING_SETS = {"serve": 4, "decode_32k": 1, "long_500k": 1,
                       "qwen3-0.6b": 1, "yi-9b": 4, "chameleon-34b": 4,
-                      "gemma2-9b": 1, "gemma2-9b long-serve": 1}
+                      "gemma2-9b": 1, "gemma2-9b long-serve": 1,
+                      "granite-moe-3b-a800m": 1, "deepseek-moe-16b": 4}
 DECODE_TIMING_REPS = {"serve": 200, "decode_32k": 20, "long_500k": 20,
                       "qwen3-0.6b": 100, "yi-9b": 200, "chameleon-34b": 200,
-                      "gemma2-9b": 100, "gemma2-9b long-serve": 100}
+                      "gemma2-9b": 100, "gemma2-9b long-serve": 100,
+                      "granite-moe-3b-a800m": 100, "deepseek-moe-16b": 200}
 #: ranges per row the decode timing also tries (``gqa_decode(ranges=)``);
 #: long_500k's rows take 16 ranges at the least
 DECODE_SWEEP = {"serve": (1, 2, 3, 4, 8), "decode_32k": (1, 2, 4),
                 "qwen3-0.6b": (), "yi-9b": (), "chameleon-34b": (),
                 "gemma2-9b": (), "gemma2-9b long-serve": (),
-                "long_500k": ()}
+                "long_500k": (), "granite-moe-3b-a800m": (),
+                "deepseek-moe-16b": ()}
 
 
 def phase_decode_timing(torch, G, launches, errs):
@@ -3838,6 +4355,12 @@ def main() -> None:
     print(f"[zoo] phase_zoo: {zoo_s:.1f} s", flush=True)
     for name, n in zoo_launches.items():
         launches[name] += n
+    t0 = time.perf_counter()
+    moe_launches, moe_summary = phase_moe(torch, Q, D, G, train, entries)
+    moe_s = time.perf_counter() - t0
+    print(f"[moe] phase_moe: {moe_s:.1f} s", flush=True)
+    for name, n in moe_launches.items():
+        launches[name] += n
     paper_launches, paper_errs = phase_paper(torch, Q, entries)
     launches["quantize_blocks"] += paper_launches["quantize_blocks"]
     for name, n in phase_paper_plan(torch, entries).items():
@@ -3900,6 +4423,11 @@ def main() -> None:
               + ", ".join(f"{k} {v!r}" for k, v in z.items())
               + f"; card {smi}")
     print(f"[summary] phase_zoo {zoo_s:.1f} s; card {smi}")
+    for label, z in moe_summary.items():
+        print(f"[summary] moe {label}: "
+              + ", ".join(f"{k} {v!r}" for k, v in z.items())
+              + f"; card {smi}")
+    print(f"[summary] phase_moe {moe_s:.1f} s; card {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

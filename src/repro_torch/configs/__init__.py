@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.configs``.  ``get_config(arch_id)`` returns the
 exact configuration for the architectures the port runs (the dense
-family: smollm-135m, qwen3-0.6b, yi-9b, chameleon-34b and gemma2-9b) and
+family: smollm-135m, qwen3-0.6b, yi-9b, chameleon-34b and gemma2-9b; the
+mixture-of-experts family: granite-moe-3b-a800m and deepseek-moe-16b) and
 raises ``NotImplementedError`` for the ones the reference supports but the
 port does not yet; ``reduced(cfg)`` returns the same small same-family
 variant as the reference; ``shape_applicable`` says whether an
@@ -26,7 +27,9 @@ ARCH_IDS = ("jamba-v0.1-52b", "qwen3-0.6b", "chameleon-34b", "yi-9b",
 #: the architectures this package runs, and their modules
 PORTED = {"qwen3-0.6b": "qwen3_0_6b", "chameleon-34b": "chameleon_34b",
           "yi-9b": "yi_9b", "gemma2-9b": "gemma2_9b",
-          "smollm-135m": "smollm_135m"}
+          "smollm-135m": "smollm_135m",
+          "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+          "deepseek-moe-16b": "deepseek_moe_16b"}
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -46,8 +49,7 @@ def reduced(cfg: ModelConfig, d_model: int = 256) -> ModelConfig:
     architectures use)."""
     n_heads = min(cfg.n_heads, 4) if cfg.n_heads else 0
     n_kv = min(cfg.n_kv_heads, max(1, n_heads // 2)) if cfg.n_kv_heads else 0
-    return dataclasses.replace(
-        cfg,
+    changes = dict(
         arch_id=cfg.arch_id + "-smoke",
         d_model=d_model,
         vocab_size=min(cfg.vocab_size, 1024),
@@ -62,6 +64,13 @@ def reduced(cfg: ModelConfig, d_model: int = 256) -> ModelConfig:
         long_context_window=(min(cfg.long_context_window, 128)
                              if cfg.long_context_window else None),
     )
+    if cfg.n_experts:
+        # capacity factor 8: no assignment is dropped at smoke size
+        changes.update(n_experts=4, top_k=min(cfg.top_k, 2),
+                       moe_d_ff=min(cfg.moe_d_ff, 128),
+                       n_shared_experts=min(cfg.n_shared_experts, 1),
+                       capacity_factor=8.0)
+    return dataclasses.replace(cfg, **changes)
 
 
 def shape_applicable(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:

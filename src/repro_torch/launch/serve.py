@@ -27,6 +27,14 @@ depth and keeps the widths)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
         --periods 2 --long-serve --batch 1 --prompt-len 32832 \\
         --new-tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch granite-moe-3b-a800m --batch 32 --prompt-len 1984 \\
+        --new-tokens 64
+
+The mixture-of-experts archs (granite-moe-3b-a800m, deepseek-moe-16b,
+whose dense layer 0 is a prelude with its own cache entry) route with the
+reference's capacity: it depends on the tokens a call routes, so a
+decode step (``b`` tokens) can drop other assignments than the prefill.
 """
 from __future__ import annotations
 

@@ -55,6 +55,14 @@ consensus error, and the runtime's codec is swapped while the train state
 ``--wire-codec``); with ``--wire-codec adaptive`` the controller then
 moves the plan's hot slots through the ladder and pins the others.
 
+``--periods P`` cuts the model's depth to P periods of its layer pattern
+and keeps every width (a full-width model that does not fit the card at
+full depth on several nodes).  For the mixture-of-experts archs
+(``--arch granite-moe-3b-a800m`` or ``deepseek-moe-16b``) each node's
+loss adds ``router_aux_weight`` times the router's load-balance loss, and
+the step metrics report its node mean as ``aux`` (0 for dense models;
+absent with ``--microbatches`` > 1, as in the reference).
+
 CLI (runs on ``cuda`` unless ``--device cpu``)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
@@ -207,7 +215,8 @@ def init_train_state(setup: TrainSetup, seed: int = 0,
             "step": 0}
 
 
-def _node_grads(setup: TrainSetup, params: Any, batch: dict):
+def _node_grads(setup: TrainSetup, params: Any, batch: dict,
+                auxes: list | None = None):
     """Per-node forward/backward: (losses (N,), stacked gradient tree).
 
     Node i's ``Transformer`` shares its parameters' storage with slice i
@@ -215,7 +224,9 @@ def _node_grads(setup: TrainSetup, params: Any, batch: dict):
     at a time.  With ``microbatches`` M > 1 node i's shard splits into M
     slices: its gradient and loss are the first slice's, each later one's
     added in order, times f32(1/M) (what the reference's ``g / M``
-    compiles to; exact at a power of two)."""
+    compiles to; exact at a power of two).  With M = 1 each node's
+    auxiliary loss (the MoE router's, 0 for dense models) is appended to
+    ``auxes`` when a list is given; the reference reports it only then."""
     n, m = setup.n_nodes, setup.microbatches
     b = batch["tokens"].shape[0]
     if b % n:
@@ -237,8 +248,10 @@ def _node_grads(setup: TrainSetup, params: Any, batch: dict):
             lo = i * bn + j * bm
             mb = {k: torch.as_tensor(v[lo:lo + bm], device=setup.device)
                   for k, v in batch.items()}
-            loss_j, _ = model(mb)
+            loss_j, parts = model(mb)
             gs = torch.autograd.grad(loss_j, leaves)
+            if m == 1 and auxes is not None:
+                auxes.append(parts["aux"].detach())
             for dst, g in zip(g_leaves, gs):
                 (dst[i].copy_ if j == 0 else dst[i].add_)(g)
             loss = loss_j.detach() if j == 0 else loss + loss_j.detach()
@@ -256,7 +269,8 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
     tensors), split across nodes in order; ``noise`` optionally injects
     the exchange's quantization noise.  Returns (new state, metrics)."""
     k = state["step"] + 1
-    losses, grads = _node_grads(setup, state["params"], batch)
+    auxes = []
+    losses, grads = _node_grads(setup, state["params"], batch, auxes)
     lr_k = setup.schedule(k)
     x_half, opt_state = setup.optimizer.step(state["opt"], state["params"],
                                              grads, lr_k)
@@ -266,6 +280,8 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
             state["params"], x_half, state["consensus"], k, seed=setup.seed,
             noise=noise)
     metrics = {"loss": float(losses.mean()), "node_loss": losses, "lr": lr_k}
+    if auxes and setup.cfg.router_aux_weight:
+        metrics["aux"] = float(torch.stack(auxes).mean())
     rt = setup.consensus
     if rt.cfg.algorithm == "adc_dgd":
         metrics["codec"] = rt.wire_name
@@ -289,6 +305,9 @@ def main(argv=None, *, return_state: bool = False):
                                  "(PyTorch port, one device)")
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--reduced", action="store_true", help="smoke-size model")
+    ap.add_argument("--periods", type=int, default=None,
+                    help="cut the depth to this many periods of the layer "
+                         "pattern (widths unchanged), as serve's --periods")
     ap.add_argument("--algorithm", default="adc_dgd",
                     choices=["adc_dgd", "dgd", "compressed_dgd", "allreduce",
                              "none"])
@@ -467,6 +486,10 @@ def main(argv=None, *, return_state: bool = False):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.periods is not None:
+        if not 1 <= args.periods <= cfg.n_periods:
+            raise SystemExit(f"--periods must be in [1, {cfg.n_periods}]")
+        cfg = dataclasses.replace(cfg, n_periods=args.periods)
     controller = None
 
     def spec_for(tier: str) -> str:

@@ -3,9 +3,10 @@
 Counterpart of ``repro.models.layers`` at tp = 1, where every collective
 of the reference is the identity, for the dense blocks of the ported
 configurations: gated MLPs (SwiGLU, or GeGLU with the tanh-approximate
-gelu), optional q/k norms, tied or untied embeddings, attention and final
-softcaps, the ``sqrt(d_model)`` embedding scale, and sliding-window ('L')
-as well as global ('A') attention.  ``transformer.build_defs`` refuses
+gelu; ``models.moe`` stacks them into experts), optional q/k norms,
+tied or untied embeddings, attention and final softcaps, the
+``sqrt(d_model)`` embedding scale, and sliding-window ('L') as well as
+global ('A', 'E', 'D') attention.  ``transformer.build_defs`` refuses
 configurations outside that.  Layouts follow the reference at every public
 function: activations ``(b, s, d)``, grouped queries ``(b, s, kvh, g,
 hd)``, weights ``(d_in, d_out)``, KV caches ``(b, S, kvh, hd)``;
@@ -195,8 +196,9 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
                       mode: str = "train", cache: dict | None = None,
                       pos: int = 0, kind: str = "A",
                       window_override: int | None = None):
-    """Self-attention with RoPE.  ``kind`` 'A' attends globally, 'L'
-    within ``cfg.sliding_window`` positions; ``window_override`` sets the
+    """Self-attention with RoPE.  ``kind`` 'L' attends within
+    ``cfg.sliding_window`` positions, every other kind ('A', and the MoE
+    'E' and dense 'D' blocks) globally; ``window_override`` sets the
     window of either (long-context serving caps 'A' blocks).  The
     attention softcap applies in every mode.  Returns (out (b, s, d),
     cache):
@@ -249,8 +251,11 @@ def _attention_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     return out @ p["wo"], cache
 
 
-def mlp_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
-    d, ff = cfg.d_model, cfg.d_ff
+def mlp_defs(cfg: ModelConfig, d_ff: int | None = None
+             ) -> dict[str, ParamDef]:
+    """A gated MLP of width ``d_ff`` (``cfg.d_ff`` when None; deepseek's
+    dense 'D' block passes its ``dense_d_ff``)."""
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
     return {"w_gate": ParamDef((d, ff)), "w_up": ParamDef((d, ff)),
             "w_down": ParamDef((ff, d))}
 

@@ -31,12 +31,23 @@ class ParamDef:
     init: str = "normal"            # normal | zeros
 
 
-def _init_tensor(d: ParamDef, gen: torch.Generator, device) -> torch.Tensor:
+def _init_tensor(d: ParamDef, gen: torch.Generator, device,
+                 n_nodes: int | None = None) -> torch.Tensor:
+    """One leaf, with a leading axis of ``n_nodes`` identical replicas
+    when given.  The draw is scaled in place and copied into the replicas,
+    so no second copy of the leaf is ever allocated (deepseek-moe-16b's
+    stacked expert weights are 19.9 GB each)."""
+    lead = () if n_nodes is None else (n_nodes,)
     if d.init == "zeros":
-        return torch.zeros(d.shape, device=device)
+        return torch.zeros(lead + d.shape, device=device)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
-    x = torch.randn(d.shape, generator=gen, device=device)
-    return x * (1.0 / math.sqrt(max(fan_in, 1)))
+    x = torch.empty(lead + d.shape, device=device)
+    first = x if n_nodes is None else x[0]
+    torch.randn(d.shape, generator=gen, out=first)
+    first.mul_(1.0 / math.sqrt(max(fan_in, 1)))
+    if n_nodes is not None:
+        x[1:] = first
+    return x
 
 
 def init_params(defs: Any, seed: int, device,
@@ -49,13 +60,8 @@ def init_params(defs: Any, seed: int, device,
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     leaves, treedef = T.tree_flatten(defs)
-    out = []
-    for d in leaves:
-        x = _init_tensor(d, gen, device)
-        if n_nodes is not None:
-            x = x.unsqueeze(0).repeat((n_nodes,) + (1,) * x.dim())
-        out.append(x)
-    return T.tree_unflatten(treedef, out)
+    return T.tree_unflatten(treedef, [_init_tensor(d, gen, device, n_nodes)
+                                      for d in leaves])
 
 
 def meta_params(defs: Any) -> Any:

@@ -1,26 +1,33 @@
 """Model assembly: parameter declarations, forward pass, training loss and
 the decode cache.
 
-Counterpart of ``repro.models.transformer`` for dense attention models on
-one device, in train, prefill and decode mode: a period of blocks, each
-'A' (global attention) or 'L' (sliding-window attention) with a gated MLP,
-repeated ``n_periods`` times, with the reference's optional post-norms
-(``norm1_post``/``norm2_post``).  The parameter tree has the reference's
-structure and names — ``embed/{table, unembed}``, ``final_norm`` and
-``layers[j]/{attn,mlp,norm1,norm2,...}``, one tree per code ``j`` of the
-period whose leaves stack its ``n_periods`` layers on a leading axis — so
-the wire layout and the weight carry line up leaf for leaf.  The reference
-scans the stacked periods with ``lax.scan`` under remat; here a Python
-loop indexes them, and autograd keeps the activations (one node's fit on
-the card).
+Counterpart of ``repro.models.transformer`` for attention models on one
+device, in train, prefill and decode mode: an optional prelude of
+unstacked layers, then a period of blocks repeated ``n_periods`` times.
+Each block is 'A' (global attention) or 'L' (sliding-window attention)
+with a gated MLP, 'E' (global attention with the routed experts of
+``models.moe``) or 'D' (global attention with a dense MLP of width
+``dense_d_ff``, deepseek's layer 0), with the reference's optional
+post-norms (``norm1_post``/``norm2_post``).  The parameter tree has the
+reference's structure and names — ``embed/{table, unembed}``,
+``final_norm``, ``layers[j]/{attn,mlp|moe,norm1,norm2,...}``, one tree per
+code ``j`` of the period whose leaves stack its ``n_periods`` layers on a
+leading axis, and ``prelude[i]``, one unstacked tree per prelude layer —
+so the wire layout and the weight carry line up leaf for leaf.  The
+reference scans the stacked periods with ``lax.scan`` under remat; here a
+Python loop indexes them, and autograd keeps the activations (one node's
+fit on the card).  The MoE blocks' auxiliary losses are summed over the
+model and weighted into ``train_loss`` by ``cfg.router_aux_weight``.
 
 ``model_apply``/``train_loss``/``greedy_decode_step`` are functions of a
 parameter tree; :class:`Transformer` is the ``nn.Module`` that owns such a
 tree as parameters.  The decode cache has the reference's structure,
 ``{"layers": ({"attn": {"k", "v"}}, ...), "len"}``, one entry per code of
 the period with K and V stacked over its layers, ``(n_periods, b, S, kvh,
-hd)``; ``len`` (the number of cached positions) is a Python int, and a
-decode step writes its K and V into the cache in place.  With
+hd)``, and with a prelude ``"prelude": ({"attn": {"k", "v"}}, ...)``, one
+entry per prelude layer, each ``(b, S, kvh, hd)``; ``len`` (the number of
+cached positions) is a Python int, and a decode step writes its K and V
+into the cache in place.  With
 ``long_serve`` the 'A' blocks attend within ``cfg.long_context_window``
 positions (the reference's long-context serving).
 """
@@ -33,6 +40,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import tree as T
+from repro_torch.models import moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention_defs, attention_forward,
                                        embed_defs, embed_lookup,
@@ -48,19 +56,25 @@ __all__ = ["ModelDefs", "build_defs", "init_cache", "model_apply",
 #: configuration features the reference supports and the port does not yet:
 #: each is ``(description, predicate on the config)``
 _UNPORTED = (
-    ("layer codes other than 'A' and 'L' (attention + dense MLP)",
-     lambda c: bool(set(c.period) - set("AL"))),
-    ("prelude layers", lambda c: bool(c.prelude)),
+    ("Mamba2 layer codes 'M' and 'X'",
+     lambda c: bool(set(c.prelude + c.period) - set("ALED"))),
     ("encoder-decoder stacks", lambda c: c.is_encoder_decoder),
     ("MLP activations other than silu and gelu",
      lambda c: c.mlp_act not in ("silu", "gelu")),
 )
 
 
-def _block_defs(cfg: ModelConfig) -> dict:
-    """One 'A' or 'L' block (both hold the same parameters)."""
+def _block_defs(code: str, cfg: ModelConfig) -> dict:
+    """One block: attention, then a dense MLP ('A', 'L'), the routed
+    experts ('E') or a dense MLP of width ``dense_d_ff`` ('D')."""
     d = {"norm1": norm_def(cfg), "attn": attention_defs(cfg),
-         "norm2": norm_def(cfg), "mlp": mlp_defs(cfg)}
+         "norm2": norm_def(cfg)}
+    if code == "E":
+        d["moe"] = moe.moe_defs(cfg)
+    elif code == "D":
+        d["mlp"] = mlp_defs(cfg, d_ff=cfg.dense_d_ff)
+    else:
+        d["mlp"] = mlp_defs(cfg)
     if cfg.post_norms:
         d["norm1_post"] = norm_def(cfg)
         d["norm2_post"] = norm_def(cfg)
@@ -85,9 +99,12 @@ def build_defs(cfg: ModelConfig) -> ModelDefs:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(missing)} not yet ported")
     storage = {"embed": embed_defs(cfg),
-               "layers": tuple(_stack_defs(_block_defs(cfg), cfg.n_periods)
-                               for _ in cfg.period),
+               "layers": tuple(_stack_defs(_block_defs(c, cfg),
+                                           cfg.n_periods)
+                               for c in cfg.period),
                "final_norm": norm_def(cfg)}
+    if cfg.prelude:
+        storage["prelude"] = tuple(_block_defs(c, cfg) for c in cfg.prelude)
     return ModelDefs(cfg=cfg, storage=storage)
 
 
@@ -95,21 +112,26 @@ def init_cache(cfg: ModelConfig, b: int, capacity: int,
                dtype=torch.float32, device=None) -> dict:
     """Zeroed decode cache for ``b`` sequences of up to ``capacity``
     positions (before prefill)."""
-    shape = (cfg.n_periods, b, capacity, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"layers": tuple(
-                {"attn": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                          "v": torch.zeros(shape, dtype=dtype,
-                                           device=device)}}
-                for _ in cfg.period),
-            "len": 0}
+    shape = (b, capacity, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+    def attn(lead=()):
+        return {"attn": {key: torch.zeros(lead + shape, dtype=dtype,
+                                          device=device)
+                         for key in ("k", "v")}}
+
+    cache = {"layers": tuple(attn((cfg.n_periods,)) for _ in cfg.period),
+             "len": 0}
+    if cfg.prelude:
+        cache["prelude"] = tuple(attn() for _ in cfg.prelude)
+    return cache
 
 
 def _block_forward(code: str, p, x: torch.Tensor, cfg: ModelConfig, *,
                    mode: str, cache: dict | None, pos: int,
                    long_serve: bool):
-    """One block: pre-norm attention and MLP, each with its post-norm when
-    the config has them.  Returns (x, the attention's cache)."""
+    """One block: pre-norm attention and MLP (or experts), each with its
+    post-norm when the config has them.  Returns (x, the attention's
+    cache, the block's auxiliary loss: None but for 'E')."""
     window = (cfg.long_context_window
               if long_serve and code == "A" and cfg.long_context_window
               else None)
@@ -119,10 +141,15 @@ def _block_forward(code: str, p, x: torch.Tensor, cfg: ModelConfig, *,
     if cfg.post_norms:
         a = rms_norm(a, p["norm1_post"], cfg.norm_eps)
     x = x + a
-    f = mlp_forward(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps), cfg)
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    aux = None
+    if "moe" in p:
+        f, aux = moe.moe_forward(p["moe"], h, cfg)
+    else:
+        f = mlp_forward(p["mlp"], h, cfg)
     if cfg.post_norms:
         f = rms_norm(f, p["norm2_post"], cfg.norm_eps)
-    return x + f, c
+    return x + f, c, aux
 
 
 def model_apply(params: Any, defs: ModelDefs, batch: dict, *,
@@ -141,6 +168,17 @@ def model_apply(params: Any, defs: ModelDefs, batch: dict, *,
     ``long_serve`` caps the 'A' blocks' attention at
     ``cfg.long_context_window`` positions.
     """
+    logits, cache, _ = _apply(params, defs, batch, mode=mode,
+                              cache=cache, long_serve=long_serve,
+                              logits_from=logits_from)
+    return logits, cache
+
+
+def _apply(params: Any, defs: ModelDefs, batch: dict, *,
+           mode: str = "train", cache: dict | None = None,
+           long_serve: bool = False, logits_from: int = 0):
+    """:func:`model_apply`, returning (logits, cache, aux): the MoE blocks'
+    auxiliary losses summed over the layers, 0 without MoE blocks."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
@@ -159,30 +197,42 @@ def model_apply(params: Any, defs: ModelDefs, batch: dict, *,
                          f"{cache['layers'][0]['attn']['k'].shape[2]} "
                          "positions")
     x = embed_lookup(params["embed"], tokens, cfg)
+    # (code, parameters, cache entry) of every layer: the prelude's, then
+    # the periods' slices of the stacked trees
+    blocks = [(code, params["prelude"][i],
+               cache["prelude"][i]["attn"] if cache is not None else None)
+              for i, code in enumerate(cfg.prelude)]
     for layer in range(cfg.n_periods):
         for j, code in enumerate(cfg.period):
-            p = T.tree_map(lambda a: a[layer], params["layers"][j])
             kv = cache["layers"][j]["attn"] if cache is not None else None
-            c = ({"k": kv["k"][layer], "v": kv["v"][layer]}
-                 if mode == "decode" else None)
-            x, c = _block_forward(code, p, x, cfg, mode=mode, cache=c,
-                                  pos=pos, long_serve=long_serve)
-            if mode == "prefill":
-                kv["k"][layer, :, :s] = c["k"]
-                kv["v"][layer, :, :s] = c["v"]
+            p = T.tree_map(lambda a: a[layer], params["layers"][j])
+            blocks.append((code, p, {"k": kv["k"][layer],
+                                     "v": kv["v"][layer]}
+                           if kv is not None else None))
+    aux = torch.zeros((), device=tokens.device)
+    for code, p, kv in blocks:
+        x, c, a = _block_forward(code, p, x, cfg, mode=mode,
+                                 cache=kv if mode == "decode" else None,
+                                 pos=pos, long_serve=long_serve)
+        if mode == "prefill":
+            kv["k"][:, :s] = c["k"]
+            kv["v"][:, :s] = c["v"]
+        if a is not None:
+            aux = aux + a
     x = rms_norm(x[:, logits_from:], params["final_norm"], cfg.norm_eps)
     logits = logits_local(params["embed"], x, cfg)
     if mode == "train":
-        return logits, None
-    return logits, {"layers": cache["layers"], "len": pos + s}
+        return logits, None, aux
+    return logits, {**cache, "len": pos + s}, aux
 
 
 def train_loss(params: Any, defs: ModelDefs, batch: dict):
-    """(loss, {"ce": ..., "aux": ...}); dense blocks have no auxiliary
-    loss, so loss == ce."""
-    logits, _ = model_apply(params, defs, batch)
-    loss = sharded_softmax_xent(logits, batch["labels"])
-    return loss, {"ce": loss, "aux": torch.zeros((), device=loss.device)}
+    """(loss, {"ce": ..., "aux": ...}): the cross-entropy plus
+    ``cfg.router_aux_weight`` times the MoE blocks' auxiliary loss (0
+    without MoE blocks, so loss == ce for dense models)."""
+    logits, _, aux = _apply(params, defs, batch)
+    ce = sharded_softmax_xent(logits, batch["labels"])
+    return ce + defs.cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def greedy_decode_step(params: Any, defs: ModelDefs, tokens: torch.Tensor,

@@ -760,3 +760,89 @@ def test_cuda_checkpoint_resume_is_bitwise(cuda_device, tmp_path, packing):
     assert all(torch.equal(a, b) for a, b in zip(T.tree_leaves(state),
                                                   T.tree_leaves(full))
                if torch.is_tensor(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kvh,g,hd,S", [
+    (32, 8, 3, 64, 2048),           # granite-moe-3b-a800m serving
+    (2, 16, 1, 128, 2048)])         # deepseek-moe-16b: g = 1 (MHA)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gqa_decode_moe_heads(cuda_device, b, kvh, g, hd, S, dtype):
+    """#9 at the MoE archs' decode shapes, g 1 included."""
+    gen = torch.Generator(device=cuda_device).manual_seed(S + g + hd)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(dtype) for shape in ((b, kvh, g, hd), (b, S, kvh, hd),
+                                        (b, S, kvh, hd)))
+    gpos = torch.arange(S, device=cuda_device)
+    for cap in (None, 30.0):
+        for valid in (gpos <= S - 38, _holes_mask(S, S + g, cuda_device)):
+            _check_decode(q, k, v, valid, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-moe-16b"])
+def test_cuda_moe_routing_matches_per_token_loop(cuda_device, arch):
+    """One full-width MoE layer on the card at capacity factor 1.25, on
+    tokens that share a component (so that experts overflow): the chosen
+    experts and the kept set equal a per-token loop over the card's own
+    probabilities, and the output a per-expert computation of the kept
+    tokens, added per token in ascending expert id."""
+    import dataclasses
+    import math
+    from repro_torch.models import moe
+    from repro_torch.models.layers import _act
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(get_config(arch), capacity_factor=1.25)
+    p = init_params(moe.moe_defs(cfg), 3, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    t, d, k = 512, cfg.d_model, cfg.top_k
+    x = (torch.randn((1, t, d), generator=gen, device=cuda_device)
+         + 0.5 * torch.randn((d,), generator=gen, device=cuda_device))
+    with torch.no_grad():
+        r = moe.route(p["router"], x[0], cfg)
+        out, _ = moe.moe_forward(p, x, cfg)
+    probs = r.probs.cpu().numpy()
+    top_e = np.argsort(-probs, axis=1, kind="stable")[:, :k]
+    cap = max(1, int(math.ceil(t * k / cfg.n_experts
+                               * cfg.capacity_factor)))
+    fill = np.zeros(cfg.n_experts, np.int64)
+    keep = np.zeros((t, k), bool)
+    for i in range(t):
+        for j in range(k):
+            keep[i, j] = fill[top_e[i, j]] < cap
+            fill[top_e[i, j]] += 1
+    np.testing.assert_array_equal(r.top_e.cpu().numpy(), top_e)
+    np.testing.assert_array_equal(r.keep.cpu().numpy(), keep)
+    assert 0 < (~keep).sum()
+    w = r.top_p
+    want = torch.zeros((t, d), device=cuda_device)
+    with torch.no_grad():
+        for e in range(cfg.n_experts):
+            rows, cols = np.nonzero((top_e == e) & keep)
+            if len(rows):
+                toks = torch.from_numpy(rows).to(cuda_device)
+                xe = x[0, toks]
+                y = (_act(cfg.mlp_act, xe @ p["w_gate"][e])
+                     * (xe @ p["w_up"][e])) @ p["w_down"][e]
+                want[toks] += y * w[toks, torch.from_numpy(cols)
+                                    .to(cuda_device)][:, None]
+        if "shared" in p:
+            sp = p["shared"]
+            want += (_act(cfg.mlp_act, x[0] @ sp["w_gate"])
+                     * (x[0] @ sp["w_up"])) @ sp["w_down"]
+    torch.testing.assert_close(out[0], want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-moe-16b"])
+def test_cuda_moe_serve_launches_kernel_per_layer(cuda_device, arch):
+    """Reduced MoE serving on the card: #9 once per layer (deepseek's
+    prelude included) and decode step."""
+    before = G.gqa_decode.launches
+    r = serve.main(["--arch", arch, "--reduced", "--batch", "2",
+                    "--prompt-len", "37", "--new-tokens", "5"])
+    cfg = reduced(get_config(arch))
+    assert G.gqa_decode.launches - before == cfg.n_layers * 4
+    assert r["tokens"].shape == (2, 5)

@@ -105,16 +105,17 @@ def test_transformer_module_shares_storage(setup):
 
 
 @pytest.mark.parametrize("change", [
-    {"prelude": "A"}, {"prelude": "D"}, {"period": "E"}, {"period": "LAM"},
-    {"period": "X"}, {"period": "D"}, {"is_encoder_decoder": True},
+    {"prelude": "M"}, {"prelude": "X"}, {"period": "M"}, {"period": "LAM"},
+    {"period": "X"}, {"period": "EM"}, {"is_encoder_decoder": True},
     {"mlp_act": "gelu_mlp"}, {"period": "AE", "mlp_act": "gelu_mlp"}])
 def test_unported_model_features_say_so(change):
-    """Configurations the ported layers do not compute (preludes, MoE,
-    Mamba and deepseek's dense blocks, encoder-decoder stacks, the plain
-    gelu MLP) are refused, not silently run as a dense model.  The dense
-    features (periods of 'A' and 'L', q/k norms, untied embeddings,
-    softcaps, embedding scale, GeGLU) are held to the reference in
-    ``test_torch_zoo.py``."""
+    """Configurations the ported layers do not compute (Mamba2 blocks,
+    plain or with experts, in the prelude or the period, encoder-decoder
+    stacks, the plain gelu MLP) are refused, not silently run as another
+    model.  The dense features (periods of 'A' and 'L', q/k norms, untied
+    embeddings, softcaps, embedding scale, GeGLU) are held to the
+    reference in ``test_torch_zoo.py``; the MoE 'E' blocks, the dense 'D'
+    block and preludes in ``test_torch_moe.py``."""
     import dataclasses
     cfg = dataclasses.replace(reduced(get_config("smollm-135m")), **change)
     with pytest.raises(NotImplementedError, match="not yet ported"):
