@@ -26,7 +26,7 @@ Phases (any failure exits non-zero before the result line):
              chameleon-34b, gemma2-9b with its 4,096 window and its
              long-serve cache with the 32,768 cap), and at the MoE decode shapes
              (granite-moe-3b-a800m g 3 hd 64, deepseek-moe-16b g 1 hd
-             128: ``DECODE_SHAPES``);
+             128) and jamba-v0.1-52b's (g 4 hd 128: ``DECODE_SHAPES``);
 3. main    — ``repro_torch.launch.train.main`` on the full smollm-135m, 4
              ADC-DGD nodes (fixed grid), each run with every launch counter
              zeroed just before it: 5 steps of the int8 wire, then 3 steps
@@ -193,6 +193,21 @@ Phases (any failure exits non-zero before the result line):
              every call bitwise equal to its plain version, the
              reference's 913,476,864 wire bytes per step, a finite loss
              near ln(49,155) + 0.01 aux and the ``aux`` metric;
+4d. ssm    — the state-space family at full width (``phase_ssm``), each
+             model freed before the next: ``serve.main`` on mamba2-1.3b at
+             full depth (48 'M' layers) at 32 x 2,048 + 64 and 1 x 32,768
+             + 64 (prompts a multiple of the 256-token chunk), counted: no
+             kernel launched, decode logits within SSM_LOGIT_TOL of a
+             train-mode forward (padded to a chunk multiple past the
+             compared positions), beside the distance of each from the
+             same forward in float64; jamba-v0.1-52b at 1 of its 4 periods
+             ('MXMXAXMX', 53 GB of weights), 4 x 2,048 + 64, through the
+             MoE run's checks (#9 63 times on its one 'A' layer, the drop
+             shares, the no-drop check, a plain-#9 step); then the trainer
+             on mamba2-1.3b cut to 8 of 48 periods, 4 nodes x 4 x 512
+             tokens, int8 packed, 5 steps: #1 and #2 launched 20 times
+             each, every call bitwise equal to its plain version, the
+             reference's 624,318,720 wire bytes per step;
 5. parity  — reduced smollm-135m, 2 steps on the card and on the CPU from
              the same weights and quantization noise, for the int8, int4
              and top-k wires, the per-leaf transport, compressed_dgd
@@ -375,7 +390,9 @@ KVH, GROUP, HEAD_DIM = 3, 3, 64
 #: g 8), chameleon-34b (b 4, 8 of 128, g 8), gemma2-9b (b 4, capacity
 #: 6,144; and long-serve, b 1, capacity 32,896); the MoE runs
 #: (``phase_moe``) granite-moe-3b-a800m (b 32, capacity 2,048, 8 KV heads
-#: of 64, g 3) and deepseek-moe-16b (b 2, 16 KV heads of 128, g 1: MHA)
+#: of 64, g 3) and deepseek-moe-16b (b 2, 16 KV heads of 128, g 1: MHA);
+#: the state-space run (``phase_ssm``) jamba-v0.1-52b's one 'A' layer per
+#: period (b 4, capacity 2,112, 8 KV heads of 128, g 4)
 DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, KVH, GROUP,
                            HEAD_DIM),
                  "decode_32k": (128, 32768, KVH, GROUP, HEAD_DIM),
@@ -386,12 +403,14 @@ DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, KVH, GROUP,
                  "gemma2-9b": (4, 6144, 8, 2, 256),
                  "gemma2-9b long-serve": (1, 32896, 8, 2, 256),
                  "granite-moe-3b-a800m": (32, 2048, 8, 3, 64),
-                 "deepseek-moe-16b": (2, 2048, 16, 1, 128)}
+                 "deepseek-moe-16b": (2, 2048, 16, 1, 128),
+                 "jamba-v0.1-52b": (4, 2112, 8, 4, 128)}
 #: the softcap each shape is also held with (gemma2-9b's own is 50)
 DECODE_SOFTCAP = {"serve": 30.0, "decode_32k": 30.0, "long_500k": 50.0,
                   "qwen3-0.6b": 30.0, "yi-9b": 30.0, "chameleon-34b": 30.0,
                   "gemma2-9b": 50.0, "gemma2-9b long-serve": 50.0,
-                  "granite-moe-3b-a800m": 30.0, "deepseek-moe-16b": 30.0}
+                  "granite-moe-3b-a800m": 30.0, "deepseek-moe-16b": 30.0,
+                  "jamba-v0.1-52b": 30.0}
 #: the sliding window a shape's masks also take: gemma2-9b's 'L' blocks
 #: (4,096), and the long-serve cap of its 'A' blocks (32,768)
 DECODE_WINDOW = {"long_500k": 4096, "gemma2-9b": 4096,
@@ -2858,16 +2877,26 @@ class KernelVsPlain:
         return False
 
 
+def attention_layers(cfg) -> int:
+    """Layers that decode through #9: every block but the Mamba2 ones."""
+    return sum(c not in "MX" for c in cfg.prelude + cfg.period
+               * cfg.n_periods)
+
+
 def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
-              prompt):
-    """One serve run of the zoo, counted, then checked: its decode logits
-    of 2 sequences against a train-mode forward over prompt + generated
-    tokens, and one decode step through the plain flash-decode version
-    against the kernel's.  Returns (#9 launches, a summary dict)."""
+              prompt, tag="zoo", tol=None, probe64=False):
+    """One serve run of the zoo, counted (#9 once per attention layer and
+    decode step, nothing else), then checked: its decode logits of 2
+    sequences against a train-mode forward over prompt + generated tokens
+    within ``tol`` (ZOO_LOGIT_TOL when None), and, when the model has
+    attention layers, one decode step through the plain flash-decode
+    version against the kernel's.  With ``probe64`` the same forward also
+    runs in float64, and the distances of the decode's and the float32
+    forward's logits from it are reported.  Returns (#9 launches, a
+    summary dict)."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import transformer as TF
     from repro_torch.models.params import init_params
@@ -2883,16 +2912,18 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
                     str(ZOO_NEW), "--keep-logits", "2", "--seed", "0",
                     "--device", "cuda"])
     launches = {name: entry.launches for name, entry in entries.items()}
+    tol = ZOO_LOGIT_TOL if tol is None else tol
+    n_attn = attention_layers(cfg)
     want = {name: 0 for name in entries}
-    want["gqa_decode"] = cfg.n_layers * (ZOO_NEW - 1)
+    want["gqa_decode"] = n_attn * (ZOO_NEW - 1)
     if launches != want:
-        fail(f"zoo {label}: serve launched {launches}, want {want}")
+        fail(f"{tag} {label}: serve launched {launches}, want {want}")
     tok = r["tokens"]
     if (tok.shape != (batch, ZOO_NEW) or tok.min() < 0
             or tok.max() >= cfg.vocab_size
             or r["cache_len"] != prompt + ZOO_NEW - 1
             or not np.isfinite(r["logits"]).all()):
-        fail(f"zoo {label}: tokens {tok.shape} in [{tok.min()}, "
+        fail(f"{tag} {label}: tokens {tok.shape} in [{tok.min()}, "
              f"{tok.max()}], cache length {r['cache_len']}, finite logits "
              f"{np.isfinite(r['logits']).all()}")
     torch.cuda.empty_cache()
@@ -2901,9 +2932,12 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
     # a causal forward over the whole sequence (prompt + 64 tokens) has the
     # same logits at the first 63 generated positions as one over all but
     # the last token, and a length with large divisors (chunked_attention's
-    # blocks divide it)
-    seq = torch.as_tensor(np.concatenate([r["prompts"][:2], tok[:2]], 1),
-                          device="cuda")
+    # blocks divide it); a model with Mamba2 blocks takes a multiple of its
+    # chunk, so the sequence is padded with token 0 after them
+    seq = np.concatenate([r["prompts"][:2], tok[:2]], 1)
+    if n_attn < cfg.n_layers:
+        seq = np.pad(seq, ((0, 0), (0, -seq.shape[1] % cfg.ssm_chunk)))
+    seq = torch.as_tensor(seq, device="cuda")
     with torch.inference_mode():
         full, _ = TF.model_apply(params, defs, {"tokens": seq},
                                  long_serve=long_serve, logits_from=prompt)
@@ -2917,37 +2951,35 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
             del free
     got = torch.from_numpy(r["logits"])
     err = float((got - full).abs().max())
-    if not torch.allclose(got, full, atol=ZOO_LOGIT_TOL, rtol=ZOO_LOGIT_TOL):
-        fail(f"zoo {label}: decode logits differ from the train-mode "
-             f"forward by up to {err} (tolerance {ZOO_LOGIT_TOL})")
+    probe = None
+    if probe64:
+        from repro_torch.core import tree as T
+        with torch.inference_mode():
+            p64 = T.tree_map(lambda a: a.double(), params)
+            full64 = TF.model_apply(p64, defs, {"tokens": seq},
+                                    logits_from=prompt)[0]
+            full64 = full64[:, :ZOO_NEW - 1].cpu()
+            del p64
+        probe = (float((got.double() - full64).abs().max()),
+                 float((full.double() - full64).abs().max()))
+        del full64
+    if not torch.allclose(got, full, atol=tol, rtol=tol):
+        fail(f"{tag} {label}: decode logits differ from the train-mode "
+             f"forward by up to {err} (tolerance {tol}"
+             + (f"; from a float64 forward: decode {probe[0]}, forward "
+                f"{probe[1]}" if probe else "") + ")")
     if long_serve and not uncapped_diff > 10 * ZOO_LOGIT_TOL:
         fail(f"zoo {label}: the logits without the {cfg.long_context_window}"
              f"-position cap differ by only {uncapped_diff}: the cap did "
              "not bite")
     del full
     torch.cuda.empty_cache()
-    # one decode step of 2 sequences through the kernel and through the
-    # plain version, from the same prefilled cache: the step rewrites the
-    # same K and V at the same position, so the second sees the first's
-    pre = serve.build_prefill_setup(cfg, device="cuda",
-                                    long_serve=long_serve)
-    with torch.inference_mode():
-        first, cache = pre.prefill_step(params, {"tokens": seq[:, :prompt]},
-                                        prompt + 1)
-        _, _, kern = TF.greedy_decode_step(params, defs, first, cache,
-                                           long_serve=long_serve)
-        saved, ops.gqa_decode = ops.gqa_decode, G.gqa_decode_plain
-        try:
-            _, _, plain = TF.greedy_decode_step(params, defs, first, cache,
-                                                long_serve=long_serve)
-        finally:
-            ops.gqa_decode = saved
-    step_err = float((kern - plain).abs().max())
-    if not torch.allclose(kern, plain, atol=SERVE_LOGIT_TOL,
-                          rtol=SERVE_LOGIT_TOL):
-        fail(f"zoo {label}: a decode step through the plain gqa_decode "
-             f"differs from the kernel's by {step_err}")
-    del params, cache, kern, plain, seq
+    seq_len = seq.shape[1]
+    step_err = None
+    if n_attn:
+        step_err = plain_decode_step(torch, G, f"{tag} {label}", cfg, defs,
+                                     params, seq[:, :prompt], long_serve)
+    del params, seq
     torch.cuda.empty_cache()
     out = {"layers": cfg.n_layers, "prefill_s": r["prefill_s"],
            "decode_ms": r["decode_s_per_token"] * 1e3,
@@ -2955,64 +2987,116 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
            "logit_err": err, "plain_step_err": step_err}
     if long_serve:
         out["uncapped_diff"] = uncapped_diff
-    print(f"[zoo] {label} ({cfg.n_layers} layers), {batch} x {prompt} "
+    if probe:
+        out["decode_vs_f64"], out["forward_vs_f64"] = probe
+    print(f"[{tag}] {label} ({cfg.n_layers} layers), {batch} x {prompt} "
           f"prompt + {ZOO_NEW} tokens"
           + (f", 'A' blocks capped at {cfg.long_context_window}"
              if long_serve else "")
           + f": gqa_decode launched {launches['gqa_decode']} times "
-          f"({cfg.n_layers} x {ZOO_NEW - 1}), no other kernel; prefill "
-          f"{r['prefill_s']!r} s, decode {out['decode_ms']!r} ms per token "
-          f"for the batch, peak memory {r['peak_gb']!r} GB; decode logits "
-          f"of 2 sequences vs a train-mode forward: max |diff| {err!r}; "
-          f"one decode step through the plain gqa_decode vs the kernel: "
-          f"max |diff| {step_err!r}"
+          f"({n_attn} attention layers x {ZOO_NEW - 1}), no other kernel; "
+          f"prefill {r['prefill_s']!r} s, decode {out['decode_ms']!r} ms "
+          f"per token for the batch, peak memory {r['peak_gb']!r} GB; "
+          f"decode logits of {got.shape[0]} sequences vs a train-mode "
+          f"forward over "
+          f"{seq_len} tokens: max |diff| {err!r} (tolerance {tol:g})"
+          + (f", each from the same forward in float64: decode {probe[0]!r},"
+             f" float32 forward {probe[1]!r}" if probe else "")
+          + (f"; one decode step through the plain gqa_decode vs the "
+             f"kernel: max |diff| {step_err!r}" if n_attn else "")
           + (f"; without the cap the logits move by up to "
              f"{uncapped_diff!r}" if long_serve else ""), flush=True)
     return launches["gqa_decode"], out
 
 
-def zoo_train(torch, Q, D, train, entries):
-    """Full qwen3-0.6b on the consensus trainer, counted, with every call
-    of #1 and #2 held to its plain version (``KernelVsPlain``).  Returns
-    (launches, a summary dict)."""
+def plain_decode_step(torch, G, what, cfg, defs, params, prompts,
+                      long_serve=False):
+    """One decode step of ``prompts`` (a device tensor) through the kernel
+    and through the plain flash-decode version, each from the same
+    prefilled cache (the plain step's a copy: a step overwrites the Mamba2
+    blocks' states in place).  Fails unless the logits agree within
+    SERVE_LOGIT_TOL; returns their max |diff|."""
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TF
+    pre = serve.build_prefill_setup(cfg, device="cuda",
+                                    long_serve=long_serve)
+    with torch.inference_mode():
+        first, cache = pre.prefill_step(params, {"tokens": prompts},
+                                        prompts.shape[1] + 1)
+        twin = {k: (v if k == "len" else T.tree_map(torch.clone, v))
+                for k, v in cache.items()}
+        _, _, kern = TF.greedy_decode_step(params, defs, first, cache,
+                                           long_serve=long_serve)
+        saved, ops.gqa_decode = ops.gqa_decode, G.gqa_decode_plain
+        try:
+            _, _, plain = TF.greedy_decode_step(params, defs, first, twin,
+                                                long_serve=long_serve)
+        finally:
+            ops.gqa_decode = saved
+    err = float((kern - plain).abs().max())
+    if not torch.allclose(kern, plain, atol=SERVE_LOGIT_TOL,
+                          rtol=SERVE_LOGIT_TOL):
+        fail(f"{what}: a decode step through the plain gqa_decode differs "
+             f"from the kernel's by {err}")
+    del cache, twin, kern, plain
+    torch.cuda.empty_cache()
+    return err
+
+
+def zoo_train(torch, Q, D, train, entries, arch="qwen3-0.6b", periods=None,
+              nodes=ZOO_TRAIN_NODES, wire_bytes=ZOO_TRAIN_WIRE_BYTES,
+              tag="zoo"):
+    """``arch`` at full width (cut to ``periods`` periods when given) on
+    the consensus trainer, ``nodes`` nodes x 4 x SEQ tokens, int8 packed
+    on the fixed grid for ZOO_TRAIN_STEPS steps, counted, with every call
+    of #1 and #2 held to its plain version (``KernelVsPlain``) and the
+    reference's ``wire_bytes`` per node and step.  Returns (launches, a
+    summary dict)."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.core import wire
     from repro_torch.models import transformer as TF
     from repro_torch.models.params import meta_params
-    argv = ["--arch", "qwen3-0.6b", "--algorithm", "adc_dgd", "--nodes",
-            str(ZOO_TRAIN_NODES), "--batch", str(4 * ZOO_TRAIN_NODES),
-            "--seq", str(SEQ), "--steps", str(ZOO_TRAIN_STEPS),
-            "--quant-mode", "fixed", "--lr", "1e-2", "--device", "cuda"]
+    cut = ["--periods", str(periods)] if periods else []
+    argv = ["--arch", arch, *cut, "--algorithm", "adc_dgd", "--nodes",
+            str(nodes), "--batch", str(4 * nodes), "--seq", str(SEQ),
+            "--steps", str(ZOO_TRAIN_STEPS), "--quant-mode", "fixed", "--lr",
+            "1e-2", "--device", "cuda"]
     with KernelVsPlain(torch, Q, D) as watch:
         hist, launches, peak = run_counted(torch, train, entries, argv)
     want = {name: 0 for name in entries}
     for name in CODEC_KERNELS["int8"]:
-        want[name] = ZOO_TRAIN_NODES * ZOO_TRAIN_STEPS
+        want[name] = nodes * ZOO_TRAIN_STEPS
     if launches != want:
-        fail(f"zoo trainer: launched {launches}, want {want}")
+        fail(f"{tag} trainer: launched {launches}, want {want}")
     if not watch.equal or watch.calls != 2 * want["quantize_payload"]:
-        fail(f"zoo trainer: {watch.calls} calls of #1 and #2 held to their "
+        fail(f"{tag} trainer: {watch.calls} calls of #1 and #2 held to their "
              f"plain versions, all bitwise equal: {watch.equal}")
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(arch)
+    if periods:
+        cfg = dataclasses.replace(cfg, n_periods=periods)
     rows = wire.WireLayout.for_tree(meta_params(
         TF.build_defs(cfg).storage)).n_rows
     wires = {h["wire_bytes_per_step"] for h in hist}
-    if wires != {ZOO_TRAIN_WIRE_BYTES} or 2 * rows * PAYLOAD != \
-            ZOO_TRAIN_WIRE_BYTES:
-        fail(f"zoo trainer: wire_bytes_per_step {wires}, from the layout's "
-             f"{rows} rows {2 * rows * PAYLOAD}, the reference's "
-             f"{ZOO_TRAIN_WIRE_BYTES}")
+    if wires != {wire_bytes} or 2 * rows * PAYLOAD != wire_bytes:
+        fail(f"{tag} trainer: wire_bytes_per_step {wires}, from the "
+             f"layout's {rows} rows {2 * rows * PAYLOAD}, the reference's "
+             f"{wire_bytes}")
     losses = [h["loss"] for h in hist]
     if not all(math.isfinite(x) for x in losses) \
             or abs(losses[0] - math.log(cfg.vocab_size)) > 0.5:
-        fail(f"zoo trainer: losses {losses} (step 1 should be near "
+        fail(f"{tag} trainer: losses {losses} (step 1 should be near "
              f"ln({cfg.vocab_size}) at random init)")
     step_s = statistics.median(h["step_s"] for h in hist[1:])
-    print(f"[zoo] qwen3-0.6b trainer, {ZOO_TRAIN_NODES} nodes x 4 x {SEQ} "
+    depth = (f", {periods} of {get_config(arch).n_periods} periods"
+             if periods else "")
+    print(f"[{tag}] {arch} trainer{depth}, {nodes} nodes x 4 x {SEQ} "
           f"tokens, int8 packed, fixed grid, {ZOO_TRAIN_STEPS} steps: "
           f"losses {losses}; launches "
           f"{ {n: v for n, v in launches.items() if v} }; "
-          f"wire_bytes_per_step {ZOO_TRAIN_WIRE_BYTES} (2 x {rows} rows x "
+          f"wire_bytes_per_step {wire_bytes} (2 x {rows} rows x "
           f"{PAYLOAD}, the reference's accounting); {watch.calls} calls of "
           f"#1 and #2 bitwise equal to their plain versions on the same "
           f"inputs; median step {step_s:.4f} s; peak memory {peak:.2f} GB",
@@ -3159,11 +3243,13 @@ def route_flips(torch, calls, n_moe, n_seq, prompt, steps):
 
 def _cache_row(dst, src, i):
     """Copies the one-sequence decode cache ``src`` into row ``i`` of the
-    batched ``dst`` (the periods' entries stack the periods first)."""
+    batched ``dst``: every entry, K and V or a Mamba2 block's state and
+    conv windows (the periods' entries stack the periods first)."""
+    from repro_torch.core import tree as T
     for part, lead in (("layers", 1), ("prelude", 0)):
-        for d_blk, s_blk in zip(dst.get(part, ()), src.get(part, ())):
-            for key, t in s_blk["attn"].items():
-                d_blk["attn"][key].narrow(lead, i, 1).copy_(t)
+        for d, t in zip(T.tree_leaves(dst.get(part, ())),
+                        T.tree_leaves(src.get(part, ()))):
+            d.narrow(lead, i, 1).copy_(t)
     dst["len"] = src["len"]
 
 
@@ -3244,9 +3330,11 @@ def moe_no_drop(torch, label, defs, params, n_moe, seed):
             "logit_err_all": float((got - full).abs().max())}
 
 
-def moe_serve(torch, G, entries, label, arch, periods, batch, prompt):
-    """One MoE serve run at full width, counted: #9 launched layers x 63
-    times and nothing else, tokens in range, and the share of routed
+def moe_serve(torch, G, entries, label, arch, periods, batch, prompt,
+              tag="moe"):
+    """One MoE serve run at full width, counted: #9 launched attention
+    layers x 63 times and nothing else, tokens in range, and the share of
+    routed
     assignments dropped at prefill and at the first decode step, from the
     port's own routing.  Then, on a copy of the config whose capacity
     factor is ``n_experts / top_k`` (capacity >= the tokens a call routes,
@@ -3258,7 +3346,6 @@ def moe_serve(torch, G, entries, label, arch, periods, batch, prompt):
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import transformer as TF
     from repro_torch.models.params import init_params
@@ -3267,7 +3354,7 @@ def moe_serve(torch, G, entries, label, arch, periods, batch, prompt):
     if periods is not None:
         cfg = dataclasses.replace(cfg, n_periods=periods)
         flags = ["--periods", str(periods)]
-    n_moe = sum(c == "E" for c in cfg.prelude + cfg.period * cfg.n_periods)
+    n_moe = sum(c in "EX" for c in cfg.prelude + cfg.period * cfg.n_periods)
     for entry in entries.values():
         entry.launches = 0
     with RouteWatch(limit=2 * n_moe) as rw:
@@ -3276,23 +3363,24 @@ def moe_serve(torch, G, entries, label, arch, periods, batch, prompt):
                         str(ZOO_NEW), "--keep-logits", "2", "--seed", "0",
                         "--device", "cuda"])
     launches = {name: entry.launches for name, entry in entries.items()}
+    n_attn = attention_layers(cfg)
     want = {name: 0 for name in entries}
-    want["gqa_decode"] = cfg.n_layers * (ZOO_NEW - 1)
+    want["gqa_decode"] = n_attn * (ZOO_NEW - 1)
     if launches != want:
-        fail(f"moe {label}: serve launched {launches}, want {want}")
+        fail(f"{tag} {label}: serve launched {launches}, want {want}")
     tok = r["tokens"]
     if (tok.shape != (batch, ZOO_NEW) or tok.min() < 0
             or tok.max() >= cfg.vocab_size
             or r["cache_len"] != prompt + ZOO_NEW - 1
             or not np.isfinite(r["logits"]).all()):
-        fail(f"moe {label}: tokens {tok.shape} in [{tok.min()}, "
+        fail(f"{tag} {label}: tokens {tok.shape} in [{tok.min()}, "
              f"{tok.max()}], cache length {r['cache_len']}, finite logits "
              f"{np.isfinite(r['logits']).all()}")
     drops = {"prefill": rw.dropped(batch * prompt),
              "decode step": rw.dropped(batch)}
     if drops["prefill"][1] != n_moe * batch * prompt * cfg.top_k \
             or drops["decode step"][1] != n_moe * batch * cfg.top_k:
-        fail(f"moe {label}: the route watch saw {drops} assignments, want "
+        fail(f"{tag} {label}: the route watch saw {drops} assignments, want "
              f"{n_moe} MoE layers x {cfg.top_k} per token")
     share = {k: d / n for k, (d, n) in drops.items()}
     torch.cuda.empty_cache()
@@ -3300,25 +3388,12 @@ def moe_serve(torch, G, entries, label, arch, periods, batch, prompt):
     nd = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
     defs = TF.build_defs(nd)
     params = init_params(defs.storage, 0, "cuda")
-    pre = serve.build_prefill_setup(nd, device="cuda")
     nd_sum = moe_no_drop(torch, label, defs, params, n_moe, 1)
-    with torch.inference_mode():
-        # 2 of the served prompts, at their full length
-        first, cache = pre.prefill_step(
-            params, {"tokens": torch.as_tensor(r["prompts"][:2],
-                                               device="cuda")}, prompt + 1)
-        _, _, kern = TF.greedy_decode_step(params, defs, first, cache)
-        saved, ops.gqa_decode = ops.gqa_decode, G.gqa_decode_plain
-        try:
-            _, _, plain = TF.greedy_decode_step(params, defs, first, cache)
-        finally:
-            ops.gqa_decode = saved
-    step_err = float((kern - plain).abs().max())
-    if not torch.allclose(kern, plain, atol=SERVE_LOGIT_TOL,
-                          rtol=SERVE_LOGIT_TOL):
-        fail(f"moe {label}: a decode step through the plain gqa_decode "
-             f"differs from the kernel's by {step_err}")
-    del params, cache, kern, plain
+    # 2 of the served prompts, at their full length
+    step_err = plain_decode_step(
+        torch, G, f"{tag} {label}", nd, defs, params,
+        torch.as_tensor(r["prompts"][:2], device="cuda"))
+    del params
     torch.cuda.empty_cache()
     summary = {"layers": cfg.n_layers, "prefill_s": r["prefill_s"],
                "decode_ms": r["decode_s_per_token"] * 1e3,
@@ -3329,11 +3404,11 @@ def moe_serve(torch, G, entries, label, arch, periods, batch, prompt):
                "plain_step_err": step_err}
     depth = (f"{periods} of {get_config(arch).n_periods} periods, "
              if periods is not None else "")
-    print(f"[moe] {label} ({depth}{cfg.n_layers} layers), {batch} x "
+    print(f"[{tag}] {label} ({depth}{cfg.n_layers} layers), {batch} x "
           f"{prompt} prompt + {ZOO_NEW} tokens: gqa_decode launched "
-          f"{launches['gqa_decode']} times ({cfg.n_layers} x {ZOO_NEW - 1}),"
-          f" no other kernel; prefill {r['prefill_s']!r} s, decode "
-          f"{summary['decode_ms']!r} ms per token for the batch, peak "
+          f"{launches['gqa_decode']} times ({n_attn} attention layers x "
+          f"{ZOO_NEW - 1}), no other kernel; prefill {r['prefill_s']!r} s, "
+          f"decode {summary['decode_ms']!r} ms per token for the batch, peak "
           f"memory {r['peak_gb']!r} GB; routed assignments dropped: "
           f"{drops['prefill'][0]} of {drops['prefill'][1]} at prefill "
           f"({share['prefill']!r}), {drops['decode step'][0]} of "
@@ -3517,6 +3592,64 @@ def phase_moe(torch, Q, D, G, train, entries):
     return launches, summary
 
 
+#: the state-space family (``phase_ssm``), each at full width on random
+#: weights from seed 0, ZOO_NEW new tokens, freed before the next: (label,
+#: arch, periods (None: full depth), long-serve, batch, prompt).  Prompts
+#: are multiples of the scan's 256-token chunk (2,048, not the zoo's
+#: 1,984); 32,768 is prefill_32k's length (``src/repro/models/config.py:
+#: 164``), 128 chunks per layer, so the state crosses 127 chunk borders
+SSM_SERVE = (
+    ("mamba2-1.3b", "mamba2-1.3b", None, False, 32, 2048),
+    ("mamba2-1.3b, prefill_32k", "mamba2-1.3b", None, False, 1, 32768),
+)
+#: mamba2-1.3b's decode logits against its train-mode forward (absolute
+#: and relative): the one-token recurrence and the chunked scan sum in
+#: other orders, over 48 layers of width 4,096 with a 128-wide state: at
+#: 32 x 2,048 they differed by up to 1.86e-4 (H100 80GB HBM3), above
+#: ZOO_LOGIT_TOL, while the decode's and the forward's logits each lay
+#: further from the same forward in float64 (2.09e-4 and 2.36e-4,
+#: ``zoo_serve(probe64=True)``): float32 rounding over 48 layers, not
+#: one algorithm off the other.  The reference's own decode-against-scan
+#: test allows 2e-3
+SSM_LOGIT_TOL = 5e-4
+#: jamba-v0.1-52b at 1 of its 4 periods ('MXMXAXMX' once: 13,267,541,504
+#: parameters, 53.07 GB of float32; 2 periods, 104 GB, do not fit), 4 x
+#: 2,048 + 64 tokens at its capacity factor 1.25: (label, arch, periods,
+#: batch, prompt) for ``moe_serve``
+SSM_JAMBA = ("jamba-v0.1-52b", "jamba-v0.1-52b", 1, 4, 2048)
+#: the mamba2-1.3b trainer: 8 of its 48 periods (604,960 payload rows per
+#: node; all 48, 2,624,096 rows, do not fit 4 nodes), 4 nodes x 4 x 512
+#: tokens; the reference's int8 wire bytes per node and step for that tree,
+#: 2 x 604,960 x 516 (``tests/test_torch_ssm.py``)
+SSM_TRAIN_PERIODS, SSM_TRAIN_NODES = 8, 4
+SSM_TRAIN_WIRE_BYTES = 624_318_720
+
+
+def phase_ssm(torch, Q, D, G, train, entries):
+    """The state-space family at full width: mamba2-1.3b served at full
+    depth (``SSM_SERVE``: no kernel launched, decode against a forward),
+    jamba-v0.1-52b at 1 of 4 periods through ``moe_serve`` (#9 on its 'A'
+    layer, drop shares, the no-drop check, the plain-#9 step), then the
+    mamba2-1.3b trainer, each model freed before the next is built.
+    Returns (the launches of every kernel over the phase, summaries by
+    run)."""
+    launches = {name: 0 for name in entries}
+    summary = {}
+    for run in SSM_SERVE:
+        n, summary[run[0]] = zoo_serve(torch, G, entries, *run, tag="ssm",
+                                       tol=SSM_LOGIT_TOL, probe64=True)
+        launches["gqa_decode"] += n
+    n, summary[SSM_JAMBA[0]] = moe_serve(torch, G, entries, *SSM_JAMBA,
+                                         tag="ssm")
+    launches["gqa_decode"] += n
+    train_launches, summary["mamba2-1.3b trainer"] = zoo_train(
+        torch, Q, D, train, entries, "mamba2-1.3b", SSM_TRAIN_PERIODS,
+        SSM_TRAIN_NODES, SSM_TRAIN_WIRE_BYTES, tag="ssm")
+    for name, n in train_launches.items():
+        launches[name] += n
+    return launches, summary
+
+
 def phase_parity(torch, train):
     """The same two steps of reduced smollm-135m on the card and on the
     CPU (plain versions), from the same weights, batches and noise, for the
@@ -3644,18 +3777,20 @@ def sdpa_calls(torch, q, k, v, valid, n_valid):
 DECODE_TIMING_SETS = {"serve": 4, "decode_32k": 1, "long_500k": 1,
                       "qwen3-0.6b": 1, "yi-9b": 4, "chameleon-34b": 4,
                       "gemma2-9b": 1, "gemma2-9b long-serve": 1,
-                      "granite-moe-3b-a800m": 1, "deepseek-moe-16b": 4}
+                      "granite-moe-3b-a800m": 1, "deepseek-moe-16b": 4,
+                      "jamba-v0.1-52b": 4}
 DECODE_TIMING_REPS = {"serve": 200, "decode_32k": 20, "long_500k": 20,
                       "qwen3-0.6b": 100, "yi-9b": 200, "chameleon-34b": 200,
                       "gemma2-9b": 100, "gemma2-9b long-serve": 100,
-                      "granite-moe-3b-a800m": 100, "deepseek-moe-16b": 200}
+                      "granite-moe-3b-a800m": 100, "deepseek-moe-16b": 200,
+                      "jamba-v0.1-52b": 200}
 #: ranges per row the decode timing also tries (``gqa_decode(ranges=)``);
 #: long_500k's rows take 16 ranges at the least
 DECODE_SWEEP = {"serve": (1, 2, 3, 4, 8), "decode_32k": (1, 2, 4),
                 "qwen3-0.6b": (), "yi-9b": (), "chameleon-34b": (),
                 "gemma2-9b": (), "gemma2-9b long-serve": (),
                 "long_500k": (), "granite-moe-3b-a800m": (),
-                "deepseek-moe-16b": ()}
+                "deepseek-moe-16b": (), "jamba-v0.1-52b": ()}
 
 
 def phase_decode_timing(torch, G, launches, errs):
@@ -4361,6 +4496,12 @@ def main() -> None:
     print(f"[moe] phase_moe: {moe_s:.1f} s", flush=True)
     for name, n in moe_launches.items():
         launches[name] += n
+    t0 = time.perf_counter()
+    ssm_launches, ssm_summary = phase_ssm(torch, Q, D, G, train, entries)
+    ssm_s = time.perf_counter() - t0
+    print(f"[ssm] phase_ssm: {ssm_s:.1f} s", flush=True)
+    for name, n in ssm_launches.items():
+        launches[name] += n
     paper_launches, paper_errs = phase_paper(torch, Q, entries)
     launches["quantize_blocks"] += paper_launches["quantize_blocks"]
     for name, n in phase_paper_plan(torch, entries).items():
@@ -4428,6 +4569,11 @@ def main() -> None:
               + ", ".join(f"{k} {v!r}" for k, v in z.items())
               + f"; card {smi}")
     print(f"[summary] phase_moe {moe_s:.1f} s; card {smi}")
+    for label, z in ssm_summary.items():
+        print(f"[summary] ssm {label}: "
+              + ", ".join(f"{k} {v!r}" for k, v in z.items())
+              + f"; card {smi}")
+    print(f"[summary] phase_ssm {ssm_s:.1f} s; card {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 Counterpart of ``repro.configs``.  ``get_config(arch_id)`` returns the
 exact configuration for the architectures the port runs (the dense
 family: smollm-135m, qwen3-0.6b, yi-9b, chameleon-34b and gemma2-9b; the
-mixture-of-experts family: granite-moe-3b-a800m and deepseek-moe-16b) and
+mixture-of-experts family: granite-moe-3b-a800m and deepseek-moe-16b; the
+state-space family: mamba2-1.3b and the hybrid jamba-v0.1-52b) and
 raises ``NotImplementedError`` for the ones the reference supports but the
 port does not yet; ``reduced(cfg)`` returns the same small same-family
 variant as the reference; ``shape_applicable`` says whether an
@@ -29,7 +30,9 @@ PORTED = {"qwen3-0.6b": "qwen3_0_6b", "chameleon-34b": "chameleon_34b",
           "yi-9b": "yi_9b", "gemma2-9b": "gemma2_9b",
           "smollm-135m": "smollm_135m",
           "granite-moe-3b-a800m": "granite_moe_3b_a800m",
-          "deepseek-moe-16b": "deepseek_moe_16b"}
+          "deepseek-moe-16b": "deepseek_moe_16b",
+          "mamba2-1.3b": "mamba2_1_3b",
+          "jamba-v0.1-52b": "jamba_v0_1_52b"}
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -44,9 +47,10 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 def reduced(cfg: ModelConfig, d_model: int = 256) -> ModelConfig:
-    """Small same-family variant: <=2 periods, d_model<=512, <=4 experts
-    (the reference's rule, restricted to the fields the port's
-    architectures use)."""
+    """Small same-family variant: <=2 periods, d_model<=512, <=4 experts,
+    and for the Mamba2 blocks 8 SSM heads of 64 with state 16 and chunk 32
+    at d_model 256 (the reference's rule, restricted to the fields the
+    port's architectures use)."""
     n_heads = min(cfg.n_heads, 4) if cfg.n_heads else 0
     n_kv = min(cfg.n_kv_heads, max(1, n_heads // 2)) if cfg.n_kv_heads else 0
     changes = dict(
@@ -70,6 +74,10 @@ def reduced(cfg: ModelConfig, d_model: int = 256) -> ModelConfig:
                        moe_d_ff=min(cfg.moe_d_ff, 128),
                        n_shared_experts=min(cfg.n_shared_experts, 1),
                        capacity_factor=8.0)
+    if cfg.ssm_state:
+        # d_inner = expand * d_model = heads * head_dim: 2 * 256 = 8 * 64
+        changes.update(ssm_state=16, ssm_heads=(2 * 256) // 64,
+                       ssm_head_dim=64, ssm_chunk=32, d_model=256)
     return dataclasses.replace(cfg, **changes)
 
 

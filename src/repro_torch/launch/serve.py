@@ -30,11 +30,22 @@ depth and keeps the widths)::
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch granite-moe-3b-a800m --batch 32 --prompt-len 1984 \\
         --new-tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \\
+        --batch 32 --prompt-len 2048 --new-tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-v0.1-52b --periods 1 --batch 4 --prompt-len 2048 \\
+        --new-tokens 64
 
 The mixture-of-experts archs (granite-moe-3b-a800m, deepseek-moe-16b,
 whose dense layer 0 is a prelude with its own cache entry) route with the
 reference's capacity: it depends on the tokens a call routes, so a
 decode step (``b`` tokens) can drop other assignments than the prefill.
+The state-space archs (mamba2-1.3b; jamba-v0.1-52b, whose 'X' blocks route
+likewise and whose one 'A' block per period decodes through the
+flash-decode kernel) keep a fixed-size state per Mamba2 block, and their
+chunked scan takes a prompt whose length is a multiple of ``min(ssm_chunk,
+prompt)``: 256 at full size, so 2,048 tokens and not 1,984.  Another
+length is refused, as the reference asserts; it is not padded.
 """
 from __future__ import annotations
 
@@ -47,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import mamba2
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import sharded_greedy_sample
@@ -162,6 +174,9 @@ def main(argv=None) -> dict:
     if args.long_serve and not cfg.long_context_window:
         raise SystemExit(f"--long-serve: {cfg.arch_id} has no "
                          "long_context_window")
+    if set(cfg.prelude + cfg.period) & set("MX"):
+        # the chunked scan's rule, before the weights are built
+        mamba2.chunk_len(cfg, args.prompt_len)
     capacity = args.prompt_len + args.new_tokens
     pre = build_prefill_setup(cfg, device=args.device,
                               long_serve=args.long_serve)

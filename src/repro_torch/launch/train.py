@@ -61,13 +61,19 @@ full depth on several nodes).  For the mixture-of-experts archs
 (``--arch granite-moe-3b-a800m`` or ``deepseek-moe-16b``) each node's
 loss adds ``router_aux_weight`` times the router's load-balance loss, and
 the step metrics report its node mean as ``aux`` (0 for dense models;
-absent with ``--microbatches`` > 1, as in the reference).
+absent with ``--microbatches`` > 1, as in the reference).  The
+state-space archs train the same way (``--arch mamba2-1.3b``: 48 'M'
+layers, 2.6 M payload rows per node, so ``--periods 8`` on 4 nodes of
+one card); their chunked scan needs ``--seq`` to be a multiple of
+``min(ssm_chunk, seq)``.
 
 CLI (runs on ``cuda`` unless ``--device cpu``)::
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --algorithm adc_dgd --nodes 4 --batch 16 --seq 512 --steps 5 \\
         --wire-codec int4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
+        --periods 8 --nodes 4 --batch 16 --seq 512 --steps 5
 """
 from __future__ import annotations
 

@@ -1,0 +1,191 @@
+"""Mamba2 (SSD, state-space duality, arXiv:2405.21060) block on one device.
+
+Counterpart of ``repro.models.mamba2`` at tensor-parallel degree 1, where
+the reference's head slicing and the ``psum`` of its output projection are
+the identity.  Separate projections give the gate ``z``, the inner ``x``,
+one group of ``B`` and ``C`` (state width ``N``) and the per-head step
+``dt``; ``x``, ``B`` and ``C`` each pass a depthwise causal conv of width
+``ssm_conv`` and SiLU; then the selective scan, the skip ``D * x``, the
+gate ``y * silu(z)``, an RMS norm over the whole of ``d_inner`` with ``(1
++ norm_w)``, and the output projection.
+
+Train and prefill run the reference's chunked SSD scan: chunks of ``q =
+min(ssm_chunk, s)`` positions (``s`` must be a multiple of ``q``, as the
+reference asserts), each with its within-chunk decay matrix ``L`` from
+:func:`_segsum`, the factorised contractions ``w = L * scores``, ``wd``,
+``y_diag``, the incoming state's ``y_off`` and the state carried to the
+next chunk; the chunks run in a Python loop, as the reference's
+``lax.scan``.  Decode runs the exact one-token recurrence.  Everything is
+plain PyTorch: the reference has no Pallas kernel here.
+
+The decode cache of one block is ``{"ssm": (b, h, hd, N), "conv": {"x":
+(b, k-1, d_inner), "b": (b, k-1, N), "c": (b, k-1, N)}}``: the recurrent
+state and the last ``k - 1`` raw (pre-conv) inputs of each conv.  Prefill
+returns it; a decode step writes it in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.params import ParamDef
+
+__all__ = ["mamba_defs", "mamba_forward", "chunk_len"]
+
+
+def _dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
+    """(d_inner, head dim, heads, state width N)."""
+    d_in, hd = cfg.d_inner, cfg.ssm_head_dim
+    return d_in, hd, cfg.ssm_heads or d_in // hd, cfg.ssm_state
+
+
+def mamba_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+    d = cfg.d_model
+    d_in, _, h, n = _dims(cfg)
+    k = cfg.ssm_conv
+    return {"w_z": ParamDef((d, d_in)), "w_x": ParamDef((d, d_in)),
+            "w_b": ParamDef((d, n)), "w_c": ParamDef((d, n)),
+            "w_dt": ParamDef((d, h)),
+            "conv_x": ParamDef((k, d_in), scale=0.5),
+            "conv_b": ParamDef((k, n), scale=0.5),
+            "conv_c": ParamDef((k, n), scale=0.5),
+            "a_log": ParamDef((h,), init="zeros"),
+            "d_skip": ParamDef((h,), init="ones"),
+            "dt_bias": ParamDef((h,), init="zeros"),
+            "norm_w": ParamDef((d_in,), init="zeros"),
+            "w_out": ParamDef((d_in, d))}
+
+
+def chunk_len(cfg: ModelConfig, s: int) -> int:
+    """The scan's chunk ``q = min(ssm_chunk, s)``; raises ValueError
+    unless ``s`` is a multiple of it."""
+    q = min(cfg.ssm_chunk, s)
+    if s % q:
+        raise ValueError(f"{cfg.arch_id}: a sequence of {s} tokens is not a "
+                         f"multiple of min(ssm_chunk, length) = {q}: the "
+                         "Mamba2 blocks' chunked scan needs one")
+    return q
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 cache: torch.Tensor | None):
+    """Depthwise causal conv1d, then SiLU.  x: (b, s, c), w: (k, c).
+
+    Returns (y, the last k - 1 inputs): ``cache`` (b, k-1, c) goes in
+    front of ``x`` when given, zeros otherwise."""
+    k, s = w.shape[0], x.shape[1]
+    if cache is not None:
+        xc = torch.cat([cache.to(x.dtype), x], dim=1)
+    else:
+        xc = F.pad(x, (0, 0, k - 1, 0))
+    # y[t] = sum_j w[j] * xc[t + j]
+    y = torch.zeros_like(x)
+    for j in range(k):
+        y = y + xc[:, j:j + s] * w[j]
+    return F.silu(y), (xc[:, -(k - 1):] if k > 1 else None)
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """Lower-triangular pairwise sums, ``out[..., i, j] = sum_{j<k<=i}
+    a[..., k]``, as the difference of a cumsum; -inf above the diagonal.
+    a: (..., q) -> (..., q, q)."""
+    q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    ii = torch.arange(q, device=a.device)
+    return torch.where(ii[:, None] >= ii[None, :], diff, -torch.inf)
+
+
+def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
+                  cache: dict | None = None):
+    """x: (b, s, d).  Returns (out (b, s, d), cache):
+
+    * ``train``: the chunked scan from a zero state; no cache;
+    * ``prefill``: the same, and the block's decode cache (the final state
+      and the conv windows);
+    * ``decode``: one token through the recurrence against ``cache``,
+      whose state and conv windows are overwritten in place.
+    """
+    b, s, _ = x.shape
+    d_in, hd, h, n = _dims(cfg)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got "
+                         f"{mode!r}")
+    if mode == "decode" and (cache is None or s != 1):
+        raise ValueError(f"decode takes one token and a cache, got {s} "
+                         f"tokens and {'a' if cache else 'no'} cache")
+    z = x @ p["w_z"]
+    xi = x @ p["w_x"]
+    bb = x @ p["w_b"]
+    cc = x @ p["w_c"]
+    dt = F.softplus(x @ p["w_dt"] + p["dt_bias"])               # (b, s, h)
+    a = -torch.exp(p["a_log"])                                  # (h,)
+
+    conv = cache["conv"] if mode == "decode" else None
+    xi, ncx = _causal_conv(xi, p["conv_x"], conv["x"] if conv else None)
+    bb, ncb = _causal_conv(bb, p["conv_b"], conv["b"] if conv else None)
+    cc, ncc = _causal_conv(cc, p["conv_c"], conv["c"] if conv else None)
+    xh = xi.reshape(b, s, h, hd)
+
+    if mode == "decode":
+        dt1 = dt[:, 0]                                          # (b, h)
+        da = torch.exp(dt1 * a)
+        dbx = ((dt1[:, :, None] * xh[:, 0])[..., None]
+               * bb[:, 0][:, None, None, :])                    # (b,h,hd,n)
+        ssm = cache["ssm"] * da[..., None, None] + dbx
+        y = torch.einsum("bn,bhpn->bhp", cc[:, 0], ssm)
+        y = y + p["d_skip"][None, :, None] * xh[:, 0]
+        out = _finish(p, y.reshape(b, 1, d_in), z, cfg)
+        cache["ssm"].copy_(ssm)
+        for key, new in (("x", ncx), ("b", ncb), ("c", ncc)):
+            cache["conv"][key].copy_(new)
+        return out, cache
+
+    # ----- the chunked SSD scan (train / prefill) ------------------------
+    q = chunk_len(cfg, s)
+    nc = s // q
+    xc = xh.reshape(b, nc, q, h, hd)
+    bc = bb.reshape(b, nc, q, n)
+    ccq = cc.reshape(b, nc, q, n)
+    dtc = dt.reshape(b, nc, q, h)
+    dac = dtc * a                                               # (b,nc,q,h)
+    ssm = x.new_zeros((b, h, hd, n))
+    ys = []
+    for c in range(nc):
+        xq, bq, cq, dtq, daq = xc[:, c], bc[:, c], ccq[:, c], dtc[:, c], \
+            dac[:, c]
+        # within-chunk decay matrix L (b, h, q, q)
+        L = torch.exp(_segsum(daq.transpose(1, 2)))
+        scores = torch.einsum("bqn,bkn->bqk", cq, bq)           # (b, q, q)
+        # the reference's factorised contractions: elementwise weights,
+        # then one contraction over the key position each
+        w = L * scores[:, None]                                 # (b,h,q,k)
+        wd = w * dtq.transpose(1, 2)[:, :, None, :]             # dt at k
+        y_diag = torch.einsum("bhqk,bkhp->bqhp", wd, xq)
+        # the incoming state's contribution
+        decay_in = torch.exp(torch.cumsum(daq, dim=1))          # (b, q, h)
+        y_off = torch.einsum("bqn,bhpn->bqhp", cq, ssm) * decay_in[..., None]
+        # the state at the chunk's end: the old one decayed, plus the
+        # chunk's outer products decayed from each position to the end
+        total = torch.exp(torch.sum(daq, dim=1))                # (b, h)
+        decay_out = torch.exp(torch.sum(daq, dim=1)[:, None, :]
+                              - torch.cumsum(daq, dim=1))
+        xw = xq * (decay_out * dtq)[..., None]                  # (b,k,h,hd)
+        state_new = torch.einsum("bkn,bkhp->bhpn", bq, xw)
+        ssm = ssm * total[..., None, None] + state_new
+        ys.append(y_diag + y_off)
+    y = torch.stack(ys, dim=1).reshape(b, s, h, hd)
+    y = y + p["d_skip"][None, None, :, None] * xh
+    out = _finish(p, y.reshape(b, s, d_in), z, cfg)
+    if mode == "prefill":
+        return out, {"ssm": ssm, "conv": {"x": ncx, "b": ncb, "c": ncc}}
+    return out, None
+
+
+def _finish(p, y: torch.Tensor, z: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Gate, RMS norm over the whole of d_inner with ``(1 + norm_w)``,
+    output projection."""
+    return rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps) @ p["w_out"]

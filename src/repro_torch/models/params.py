@@ -28,7 +28,8 @@ class ParamDef:
     """Declaration of one parameter tensor (logical, per node)."""
 
     shape: tuple[int, ...]
-    init: str = "normal"            # normal | zeros
+    init: str = "normal"            # normal | zeros | ones
+    scale: float = 1.0              # stddev multiplier for 'normal'
 
 
 def _init_tensor(d: ParamDef, gen: torch.Generator, device,
@@ -40,11 +41,13 @@ def _init_tensor(d: ParamDef, gen: torch.Generator, device,
     lead = () if n_nodes is None else (n_nodes,)
     if d.init == "zeros":
         return torch.zeros(lead + d.shape, device=device)
+    if d.init == "ones":
+        return torch.ones(lead + d.shape, device=device)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
     x = torch.empty(lead + d.shape, device=device)
     first = x if n_nodes is None else x[0]
     torch.randn(d.shape, generator=gen, out=first)
-    first.mul_(1.0 / math.sqrt(max(fan_in, 1)))
+    first.mul_(d.scale / math.sqrt(max(fan_in, 1)))
     if n_nodes is not None:
         x[1:] = first
     return x
@@ -52,9 +55,10 @@ def _init_tensor(d: ParamDef, gen: torch.Generator, device,
 
 def init_params(defs: Any, seed: int, device,
                 n_nodes: int | None = None) -> Any:
-    """Random parameters from ``defs`` (normal(0, 1/sqrt(fan_in)),
-    zeros for norms), drawn from one ``torch.Generator`` on ``device``
-    seeded with ``seed``, leaves in JAX order.  With ``n_nodes`` every leaf
+    """Random parameters from ``defs`` (normal(0, scale/sqrt(fan_in)),
+    zeros or ones where declared; only normal leaves draw), drawn from
+    one ``torch.Generator`` on ``device`` seeded with ``seed``, leaves in
+    JAX order.  With ``n_nodes`` every leaf
     gets a leading node axis holding identical replicas: all consensus
     nodes start from the same x0, as in the reference."""
     gen = torch.Generator(device=device)

@@ -1,35 +1,41 @@
 """Model assembly: parameter declarations, forward pass, training loss and
 the decode cache.
 
-Counterpart of ``repro.models.transformer`` for attention models on one
+Counterpart of ``repro.models.transformer`` for decoder-only models on one
 device, in train, prefill and decode mode: an optional prelude of
 unstacked layers, then a period of blocks repeated ``n_periods`` times.
 Each block is 'A' (global attention) or 'L' (sliding-window attention)
 with a gated MLP, 'E' (global attention with the routed experts of
-``models.moe``) or 'D' (global attention with a dense MLP of width
-``dense_d_ff``, deepseek's layer 0), with the reference's optional
+``models.moe``), 'D' (global attention with a dense MLP of width
+``dense_d_ff``, deepseek's layer 0), 'M' (the Mamba2 block of
+``models.mamba2``, with a gated MLP only when ``d_ff > 0``) or 'X' (Mamba2
+with the routed experts, jamba's), with the reference's optional
 post-norms (``norm1_post``/``norm2_post``).  The parameter tree has the
 reference's structure and names — ``embed/{table, unembed}``,
-``final_norm``, ``layers[j]/{attn,mlp|moe,norm1,norm2,...}``, one tree per
-code ``j`` of the period whose leaves stack its ``n_periods`` layers on a
-leading axis, and ``prelude[i]``, one unstacked tree per prelude layer —
-so the wire layout and the weight carry line up leaf for leaf.  The
-reference scans the stacked periods with ``lax.scan`` under remat; here a
-Python loop indexes them, and autograd keeps the activations (one node's
-fit on the card).  The MoE blocks' auxiliary losses are summed over the
-model and weighted into ``train_loss`` by ``cfg.router_aux_weight``.
+``final_norm``, ``layers[j]/{attn|mamba,mlp|moe,norm1,norm2,...}``, one
+tree per code ``j`` of the period whose leaves stack its ``n_periods``
+layers on a leading axis, and ``prelude[i]``, one unstacked tree per
+prelude layer — so the wire layout and the weight carry line up leaf for
+leaf.  The reference scans the stacked periods with ``lax.scan`` under
+remat; here a Python loop indexes them, and autograd keeps the
+activations (one node's fit on the card).  The MoE blocks' auxiliary
+losses are summed over the model and weighted into ``train_loss`` by
+``cfg.router_aux_weight``.
 
 ``model_apply``/``train_loss``/``greedy_decode_step`` are functions of a
 parameter tree; :class:`Transformer` is the ``nn.Module`` that owns such a
 tree as parameters.  The decode cache has the reference's structure,
-``{"layers": ({"attn": {"k", "v"}}, ...), "len"}``, one entry per code of
-the period with K and V stacked over its layers, ``(n_periods, b, S, kvh,
-hd)``, and with a prelude ``"prelude": ({"attn": {"k", "v"}}, ...)``, one
-entry per prelude layer, each ``(b, S, kvh, hd)``; ``len`` (the number of
-cached positions) is a Python int, and a decode step writes its K and V
-into the cache in place.  With
-``long_serve`` the 'A' blocks attend within ``cfg.long_context_window``
-positions (the reference's long-context serving).
+``{"layers": (entry, ...), "len"}``, one entry per code of the period
+stacked over its layers, and with a prelude ``"prelude": (entry, ...)``,
+one unstacked entry per prelude layer.  An attention block's entry is
+``{"attn": {"k", "v"}}``, K and V ``(n_periods, b, S, kvh, hd)``; a Mamba2
+block's is ``{"mamba": {"ssm", "conv": {"x", "b", "c"}}}``, its recurrent
+state ``(n_periods, b, h, hd, N)`` and conv windows ``(n_periods, b, k-1,
+width)``.  ``len`` (the number of cached positions) is a Python int, and a
+decode step writes K and V, or the state and the shifted windows, into
+the cache in place.  With ``long_serve`` the 'A' blocks attend within
+``cfg.long_context_window`` positions (the reference's long-context
+serving).
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ import torch
 from torch import nn
 
 from repro_torch.core import tree as T
-from repro_torch.models import moe
+from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention_defs, attention_forward,
                                        embed_defs, embed_lookup,
@@ -56,8 +62,6 @@ __all__ = ["ModelDefs", "build_defs", "init_cache", "model_apply",
 #: configuration features the reference supports and the port does not yet:
 #: each is ``(description, predicate on the config)``
 _UNPORTED = (
-    ("Mamba2 layer codes 'M' and 'X'",
-     lambda c: bool(set(c.prelude + c.period) - set("ALED"))),
     ("encoder-decoder stacks", lambda c: c.is_encoder_decoder),
     ("MLP activations other than silu and gelu",
      lambda c: c.mlp_act not in ("silu", "gelu")),
@@ -65,19 +69,29 @@ _UNPORTED = (
 
 
 def _block_defs(code: str, cfg: ModelConfig) -> dict:
-    """One block: attention, then a dense MLP ('A', 'L'), the routed
-    experts ('E') or a dense MLP of width ``dense_d_ff`` ('D')."""
-    d = {"norm1": norm_def(cfg), "attn": attention_defs(cfg),
-         "norm2": norm_def(cfg)}
-    if code == "E":
+    """One block: attention ('A', 'L', 'E', 'D') or Mamba2 ('M', 'X'),
+    then a dense MLP ('A', 'L', and 'M' when ``d_ff > 0``), the routed
+    experts ('E', 'X') or a dense MLP of width ``dense_d_ff`` ('D')."""
+    d = {"norm1": norm_def(cfg)}
+    if code in "ALED":
+        d["attn"] = attention_defs(cfg)
+    elif code in "MX":
+        d["mamba"] = mamba2.mamba_defs(cfg)
+    else:
+        raise ValueError(f"unknown block code {code!r}")
+    if code in "EX":
+        d["norm2"] = norm_def(cfg)
         d["moe"] = moe.moe_defs(cfg)
     elif code == "D":
+        d["norm2"] = norm_def(cfg)
         d["mlp"] = mlp_defs(cfg, d_ff=cfg.dense_d_ff)
-    else:
+    elif code in "AL" or (code == "M" and cfg.d_ff > 0):
+        d["norm2"] = norm_def(cfg)
         d["mlp"] = mlp_defs(cfg)
     if cfg.post_norms:
         d["norm1_post"] = norm_def(cfg)
-        d["norm2_post"] = norm_def(cfg)
+        if "norm2" in d:
+            d["norm2_post"] = norm_def(cfg)
     return d
 
 
@@ -111,38 +125,53 @@ def build_defs(cfg: ModelConfig) -> ModelDefs:
 def init_cache(cfg: ModelConfig, b: int, capacity: int,
                dtype=torch.float32, device=None) -> dict:
     """Zeroed decode cache for ``b`` sequences of up to ``capacity``
-    positions (before prefill)."""
-    shape = (b, capacity, cfg.n_kv_heads, cfg.resolved_head_dim)
+    positions (before prefill); a Mamba2 block's entry does not grow with
+    the positions."""
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
 
-    def attn(lead=()):
-        return {"attn": {key: torch.zeros(lead + shape, dtype=dtype,
-                                          device=device)
-                         for key in ("k", "v")}}
+    def entry(code, *lead):
+        if code in "MX":
+            d_in, hd, h, n = mamba2._dims(cfg)
+            k = cfg.ssm_conv
+            return {"mamba": {"ssm": zeros(*lead, b, h, hd, n),
+                              "conv": {"x": zeros(*lead, b, k - 1, d_in),
+                                       "b": zeros(*lead, b, k - 1, n),
+                                       "c": zeros(*lead, b, k - 1, n)}}}
+        shape = (*lead, b, capacity, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"attn": {"k": zeros(*shape), "v": zeros(*shape)}}
 
-    cache = {"layers": tuple(attn((cfg.n_periods,)) for _ in cfg.period),
+    cache = {"layers": tuple(entry(c, cfg.n_periods) for c in cfg.period),
              "len": 0}
     if cfg.prelude:
-        cache["prelude"] = tuple(attn() for _ in cfg.prelude)
+        cache["prelude"] = tuple(entry(c) for c in cfg.prelude)
     return cache
 
 
 def _block_forward(code: str, p, x: torch.Tensor, cfg: ModelConfig, *,
                    mode: str, cache: dict | None, pos: int,
                    long_serve: bool):
-    """One block: pre-norm attention and MLP (or experts), each with its
-    post-norm when the config has them.  Returns (x, the attention's
-    cache, the block's auxiliary loss: None but for 'E')."""
-    window = (cfg.long_context_window
-              if long_serve and code == "A" and cfg.long_context_window
-              else None)
-    a, c = attention_forward(p["attn"], rms_norm(x, p["norm1"], cfg.norm_eps),
-                             cfg, mode=mode, cache=cache, pos=pos, kind=code,
-                             window_override=window)
+    """One block: pre-norm attention or Mamba2, then the MLP or experts
+    when the block has them, each with its post-norm when the config has
+    them.  Returns (x, the block's attention or Mamba2 cache, its
+    auxiliary loss: None but for 'E' and 'X')."""
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    if "attn" in p:
+        window = (cfg.long_context_window
+                  if long_serve and code == "A" and cfg.long_context_window
+                  else None)
+        a, c = attention_forward(p["attn"], h, cfg, mode=mode, cache=cache,
+                                 pos=pos, kind=code, window_override=window)
+    else:
+        a, c = mamba2.mamba_forward(p["mamba"], h, cfg, mode=mode,
+                                    cache=cache)
     if cfg.post_norms:
         a = rms_norm(a, p["norm1_post"], cfg.norm_eps)
     x = x + a
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
     aux = None
+    if "norm2" not in p:
+        return x, c, aux
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if "moe" in p:
         f, aux = moe.moe_forward(p["moe"], h, cfg)
     else:
@@ -160,10 +189,15 @@ def model_apply(params: Any, defs: ModelDefs, batch: dict, *,
 
     * ``train``: the causal forward; the cache is None;
     * ``prefill``: the same, and the prompt's K and V written at positions
-      ``[0, s)`` of ``cache`` (a new one of ``s`` positions when None);
-      the cache comes back with ``len = s``;
+      ``[0, s)`` of ``cache`` (a new one of ``s`` positions when None),
+      the Mamba2 blocks' final states and conv windows into theirs; the
+      cache comes back with ``len = s``;
     * ``decode``: ``s`` = 1 token at position ``cache["len"]``, written
       into ``cache`` in place; the cache comes back with ``len + 1``.
+
+    With Mamba2 blocks, train and prefill need ``s`` to be a multiple of
+    ``min(ssm_chunk, s)`` (ValueError otherwise, where the reference
+    asserts).
 
     ``long_serve`` caps the 'A' blocks' attention at
     ``cfg.long_context_window`` positions.
@@ -192,31 +226,36 @@ def _apply(params: Any, defs: ModelDefs, batch: dict, *,
         pos = cache["len"]
     if mode == "prefill" and cache is None:
         cache = init_cache(cfg, b, s, device=tokens.device)
-    if mode == "prefill" and s > cache["layers"][0]["attn"]["k"].shape[2]:
-        raise ValueError(f"prompt of {s} tokens exceeds the cache of "
-                         f"{cache['layers'][0]['attn']['k'].shape[2]} "
-                         "positions")
+    if mode == "prefill":
+        cap = min((e["attn"]["k"].shape[-3] for e in
+                   cache["layers"] + cache.get("prelude", ()) if "attn" in e),
+                  default=s)
+        if s > cap:
+            raise ValueError(f"prompt of {s} tokens exceeds the cache of "
+                             f"{cap} positions")
     x = embed_lookup(params["embed"], tokens, cfg)
-    # (code, parameters, cache entry) of every layer: the prelude's, then
-    # the periods' slices of the stacked trees
+    # (code, parameters, cache entry: the attention's or the Mamba2
+    # block's) of every layer: the prelude's, then the periods' slices of
+    # the stacked trees
     blocks = [(code, params["prelude"][i],
-               cache["prelude"][i]["attn"] if cache is not None else None)
+               _entry(cache["prelude"][i]) if cache is not None else None)
               for i, code in enumerate(cfg.prelude)]
     for layer in range(cfg.n_periods):
         for j, code in enumerate(cfg.period):
-            kv = cache["layers"][j]["attn"] if cache is not None else None
             p = T.tree_map(lambda a: a[layer], params["layers"][j])
-            blocks.append((code, p, {"k": kv["k"][layer],
-                                     "v": kv["v"][layer]}
-                           if kv is not None else None))
+            blocks.append((code, p, _entry(T.tree_map(
+                lambda a: a[layer], cache["layers"][j]))
+                if cache is not None else None))
     aux = torch.zeros((), device=tokens.device)
-    for code, p, kv in blocks:
+    for code, p, entry in blocks:
         x, c, a = _block_forward(code, p, x, cfg, mode=mode,
-                                 cache=kv if mode == "decode" else None,
+                                 cache=entry if mode == "decode" else None,
                                  pos=pos, long_serve=long_serve)
         if mode == "prefill":
-            kv["k"][:, :s] = c["k"]
-            kv["v"][:, :s] = c["v"]
+            # K and V fill the prompt's positions; a Mamba2 block's state
+            # and conv windows fill the whole of theirs
+            for dst, src in zip(T.tree_leaves(entry), T.tree_leaves(c)):
+                dst[:, :src.shape[1]] = src
         if a is not None:
             aux = aux + a
     x = rms_norm(x[:, logits_from:], params["final_norm"], cfg.norm_eps)
@@ -224,6 +263,11 @@ def _apply(params: Any, defs: ModelDefs, batch: dict, *,
     if mode == "train":
         return logits, None, aux
     return logits, {**cache, "len": pos + s}, aux
+
+
+def _entry(block_cache: dict) -> dict:
+    """A block's cache entry: its ``attn`` or its ``mamba`` part."""
+    return block_cache["attn" if "attn" in block_cache else "mamba"]
 
 
 def train_loss(params: Any, defs: ModelDefs, batch: dict):

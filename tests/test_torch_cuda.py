@@ -846,3 +846,68 @@ def test_cuda_moe_serve_launches_kernel_per_layer(cuda_device, arch):
     cfg = reduced(get_config(arch))
     assert G.gqa_decode.launches - before == cfg.n_layers * 4
     assert r["tokens"].shape == (2, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gqa_decode_jamba_heads(cuda_device, dtype):
+    """#9 at jamba-v0.1-52b's decode shape (b 4, S 2,112, 8 KV heads of
+    128, g 4)."""
+    b, kvh, g, hd, S = 4, 8, 4, 128, 2112
+    gen = torch.Generator(device=cuda_device).manual_seed(S + g + hd)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(dtype) for shape in ((b, kvh, g, hd), (b, S, kvh, hd),
+                                        (b, S, kvh, hd)))
+    gpos = torch.arange(S, device=cuda_device)
+    for cap in (None, 30.0):
+        for valid in (gpos <= S - 2, _holes_mask(S, S + g, cuda_device)):
+            _check_decode(q, k, v, valid, cap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b"])
+def test_cuda_ssm_serve_launches_kernel_per_attention_layer(cuda_device,
+                                                            arch):
+    """Reduced state-space serving on the card: #9 once per 'A' layer and
+    decode step (none for mamba2-1.3b), the prompt two chunks long."""
+    before = G.gqa_decode.launches
+    r = serve.main(["--arch", arch, "--reduced", "--batch", "2",
+                    "--prompt-len", "64", "--new-tokens", "5"])
+    cfg = reduced(get_config(arch))
+    n_attn = (cfg.prelude + cfg.period * cfg.n_periods).count("A")
+    assert G.gqa_decode.launches - before == n_attn * 4
+    assert r["tokens"].shape == (2, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b"])
+def test_cuda_ssm_prefill_and_decode_match_cpu(cuda_device, arch):
+    """Reduced state-space model, the same weights on the card and on the
+    CPU: prefill logits and caches, then 4 teacher-forced decode steps,
+    within 1e-4 (float32 products sum in other orders on the two)."""
+    from repro_torch.core import tree as T
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params
+    cfg = reduced(get_config(arch))
+    defs = TF.build_defs(cfg)
+    params = init_params(defs.storage, 0, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 68)))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = T.tree_map(lambda a: a.to(dev), params)
+        cache = TF.init_cache(cfg, 2, 68, device=dev)
+        with torch.inference_mode():
+            logits, cache = TF.model_apply(
+                p, defs, {"tokens": tokens[:, :64].to(dev)}, mode="prefill",
+                cache=cache)
+            steps = [logits]
+            for t in range(64, 68):
+                lg, cache = TF.model_apply(
+                    p, defs, {"tokens": tokens[:, t:t + 1].to(dev)},
+                    mode="decode", cache=cache)
+                steps.append(lg)
+        out[str(dev)] = [a.cpu() for a in steps + T.tree_leaves(
+            {k: v for k, v in cache.items() if k != "len"})]
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        assert torch.allclose(a, b, atol=1e-4, rtol=1e-4)

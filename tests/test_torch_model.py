@@ -105,21 +105,47 @@ def test_transformer_module_shares_storage(setup):
 
 
 @pytest.mark.parametrize("change", [
-    {"prelude": "M"}, {"prelude": "X"}, {"period": "M"}, {"period": "LAM"},
-    {"period": "X"}, {"period": "EM"}, {"is_encoder_decoder": True},
-    {"mlp_act": "gelu_mlp"}, {"period": "AE", "mlp_act": "gelu_mlp"}])
+    {"is_encoder_decoder": True}, {"mlp_act": "gelu_mlp"},
+    {"period": "AE", "mlp_act": "gelu_mlp"}])
 def test_unported_model_features_say_so(change):
-    """Configurations the ported layers do not compute (Mamba2 blocks,
-    plain or with experts, in the prelude or the period, encoder-decoder
+    """Configurations the ported layers do not compute (encoder-decoder
     stacks, the plain gelu MLP) are refused, not silently run as another
     model.  The dense features (periods of 'A' and 'L', q/k norms, untied
     embeddings, softcaps, embedding scale, GeGLU) are held to the
     reference in ``test_torch_zoo.py``; the MoE 'E' blocks, the dense 'D'
-    block and preludes in ``test_torch_moe.py``."""
+    block and preludes in ``test_torch_moe.py``; the Mamba2 'M' and 'X'
+    blocks in ``test_torch_ssm.py`` and below."""
     import dataclasses
     cfg = dataclasses.replace(reduced(get_config("smollm-135m")), **change)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         TF.build_defs(cfg)
+
+
+@pytest.mark.parametrize("change", [
+    {"prelude": "M"}, {"prelude": "X"}, {"period": "M"}, {"period": "LAM"},
+    {"period": "X"}, {"period": "EM"}])
+def test_mamba_model_features_match_reference_storage(change):
+    """Mamba2 blocks, plain or with experts, in the prelude or the period,
+    beside attention blocks: the storage tree (every leaf's path and
+    shape, in the reference's flatten order) equals the reference's
+    ``build_defs`` of the same config (reduced jamba-v0.1-52b, which has
+    attention, experts, a dense MLP and the SSM fields, with a sliding
+    window for 'L')."""
+    import dataclasses
+    from repro.models.params import ParamDef as JParamDef
+    change = dict(change, sliding_window=64)
+    jcfg = dataclasses.replace(jreduced(jget_config("jamba-v0.1-52b")),
+                               **change)
+    cfg = dataclasses.replace(reduced(get_config("jamba-v0.1-52b")),
+                              **change)
+    want = [(jax.tree_util.keystr(p), tuple(d.shape))
+            for p, d in jax.tree_util.tree_leaves_with_path(
+                JT.build_defs(jcfg, local_context()).storage,
+                is_leaf=lambda x: isinstance(x, JParamDef))]
+    got = [(p, tuple(d.shape)) for p, d in
+           T.tree_flatten_with_path(TF.build_defs(cfg).storage)[0]]
+    assert got == want
+    assert any("['mamba']['conv_x']" in p for p, _ in got)
 
 
 @pytest.mark.parametrize("fn", ["rms_norm", "rope", "attention", "xent"])
