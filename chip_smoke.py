@@ -26,7 +26,9 @@ Phases (any failure exits non-zero before the result line):
              chameleon-34b, gemma2-9b with its 4,096 window and its
              long-serve cache with the 32,768 cap), and at the MoE decode shapes
              (granite-moe-3b-a800m g 3 hd 64, deepseek-moe-16b g 1 hd
-             128) and jamba-v0.1-52b's (g 4 hd 128: ``DECODE_SHAPES``);
+             128), jamba-v0.1-52b's (g 4 hd 128) and whisper-small's
+             self and cross attention (g 1 hd 64, 448 and 1,504
+             positions: ``DECODE_SHAPES``);
 3. main    — ``repro_torch.launch.train.main`` on the full smollm-135m, 4
              ADC-DGD nodes (fixed grid), each run with every launch counter
              zeroed just before it: 5 steps of the int8 wire, then 3 steps
@@ -208,6 +210,20 @@ Phases (any failure exits non-zero before the result line):
              tokens, int8 packed, 5 steps: #1 and #2 launched 20 times
              each, every call bitwise equal to its plain version, the
              reference's 624,318,720 wire bytes per step;
+4e. whisper — whisper-small at full width and depth (``phase_whisper``:
+             12 encoder and 12 decoder layers, d 768): ``serve.main`` on
+             32 requests of 1,504 frames and a 384-token prompt + 64 new
+             tokens (capacity 448, whisper's decoder context), counted:
+             #9 launched 2 x 12 x 63 = 1,512 times (self and cross
+             attention per decoder layer and step) and nothing else,
+             decode logits of 2 sequences within ZOO_LOGIT_TOL of a
+             train-mode forward with the same frames, a plain-#9 step
+             within SERVE_LOGIT_TOL, the encoder alone timed with CUDA
+             events; then the trainer, 4 nodes x 1 x 1,536 tokens with
+             their 1,504 frames, int8 packed, 5 steps: #1 and #2 launched
+             20 times each, every call bitwise equal to its plain version,
+             the reference's 725,008,896 wire bytes per step, a loss near
+             ln(51,865);
 5. parity  — reduced smollm-135m, 2 steps on the card and on the CPU from
              the same weights and quantization noise, for the int8, int4
              and top-k wires, the per-leaf transport, compressed_dgd
@@ -392,7 +408,10 @@ KVH, GROUP, HEAD_DIM = 3, 3, 64
 #: (``phase_moe``) granite-moe-3b-a800m (b 32, capacity 2,048, 8 KV heads
 #: of 64, g 3) and deepseek-moe-16b (b 2, 16 KV heads of 128, g 1: MHA);
 #: the state-space run (``phase_ssm``) jamba-v0.1-52b's one 'A' layer per
-#: period (b 4, capacity 2,112, 8 KV heads of 128, g 4)
+#: period (b 4, capacity 2,112, 8 KV heads of 128, g 4); whisper-small
+#: (``phase_whisper``: b 32, 12 KV heads of 64, g 1) its decoder's
+#: self-attention over its 448-position context and its cross attention
+#: over 1,504 frames, every one valid
 DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, KVH, GROUP,
                            HEAD_DIM),
                  "decode_32k": (128, 32768, KVH, GROUP, HEAD_DIM),
@@ -404,17 +423,23 @@ DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, KVH, GROUP,
                  "gemma2-9b long-serve": (1, 32896, 8, 2, 256),
                  "granite-moe-3b-a800m": (32, 2048, 8, 3, 64),
                  "deepseek-moe-16b": (2, 2048, 16, 1, 128),
-                 "jamba-v0.1-52b": (4, 2112, 8, 4, 128)}
+                 "jamba-v0.1-52b": (4, 2112, 8, 4, 128),
+                 "whisper-small": (32, 448, 12, 1, 64),
+                 "whisper-small cross": (32, 1504, 12, 1, 64)}
 #: the softcap each shape is also held with (gemma2-9b's own is 50)
 DECODE_SOFTCAP = {"serve": 30.0, "decode_32k": 30.0, "long_500k": 50.0,
                   "qwen3-0.6b": 30.0, "yi-9b": 30.0, "chameleon-34b": 30.0,
                   "gemma2-9b": 50.0, "gemma2-9b long-serve": 50.0,
                   "granite-moe-3b-a800m": 30.0, "deepseek-moe-16b": 30.0,
-                  "jamba-v0.1-52b": 30.0}
+                  "jamba-v0.1-52b": 30.0, "whisper-small": 30.0,
+                  "whisper-small cross": 30.0}
 #: the sliding window a shape's masks also take: gemma2-9b's 'L' blocks
 #: (4,096), and the long-serve cap of its 'A' blocks (32,768)
 DECODE_WINDOW = {"long_500k": 4096, "gemma2-9b": 4096,
                  "gemma2-9b long-serve": 32768}
+#: the shapes a decode reads whole: a cross attention sees every frame, so
+#: they are also held, and timed, on an all-valid mask
+DECODE_ALL_VALID = ("whisper-small cross",)
 #: the flash-decode partials against their plain version, on acc / l and
 #: on m + log l (the reference's float32 kernel-test tolerances).  bf16
 #: K and V widen to float32 exactly on both sides, which then sum in
@@ -819,6 +844,8 @@ def decode_masks(torch, shape, seq):
     if shape in DECODE_WINDOW:
         w = DECODE_WINDOW[shape]
         masks[f"window {w}"] = (pos < seq - 37) & (pos > seq - 38 - w)
+    if shape in DECODE_ALL_VALID:
+        masks["all valid"] = pos >= 0
     if shape != "long_500k":
         masks["masked tiles"] = pos < seq // 2 + 201
     return masks
@@ -2892,8 +2919,10 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
     attention layers, one decode step through the plain flash-decode
     version against the kernel's.  With ``probe64`` the same forward also
     runs in float64, and the distances of the decode's and the float32
-    forward's logits from it are reported.  Returns (#9 launches, a
-    summary dict)."""
+    forward's logits from it are reported.  An encoder-decoder's forward
+    and plain step take the served frames of their sequences, and one
+    call of its encoder over all the frames is timed with CUDA events.
+    Returns (#9 launches, a summary dict)."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
@@ -2915,7 +2944,9 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
     tol = ZOO_LOGIT_TOL if tol is None else tol
     n_attn = attention_layers(cfg)
     want = {name: 0 for name in entries}
-    want["gqa_decode"] = n_attn * (ZOO_NEW - 1)
+    # an encoder-decoder's decoder layers decode self and cross attention
+    want["gqa_decode"] = (n_attn * (2 if cfg.is_encoder_decoder else 1)
+                          * (ZOO_NEW - 1))
     if launches != want:
         fail(f"{tag} {label}: serve launched {launches}, want {want}")
     tok = r["tokens"]
@@ -2929,6 +2960,20 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
     torch.cuda.empty_cache()
     defs = TF.build_defs(cfg)
     params = init_params(defs.storage, 0, "cuda")
+    extra, encoder_ms = {}, None
+    if "frames" in r:
+        frames = torch.as_tensor(r["frames"], device="cuda")
+        extra = {"enc_frames": frames[:2]}
+        with torch.inference_mode():
+            TF._encoder_apply(params, cfg, frames)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            TF._encoder_apply(params, cfg, frames)
+            ev[1].record()
+            torch.cuda.synchronize()
+        encoder_ms = ev[0].elapsed_time(ev[1])
+        del frames
+        torch.cuda.empty_cache()
     # a causal forward over the whole sequence (prompt + 64 tokens) has the
     # same logits at the first 63 generated positions as one over all but
     # the last token, and a length with large divisors (chunked_attention's
@@ -2939,7 +2984,7 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
         seq = np.pad(seq, ((0, 0), (0, -seq.shape[1] % cfg.ssm_chunk)))
     seq = torch.as_tensor(seq, device="cuda")
     with torch.inference_mode():
-        full, _ = TF.model_apply(params, defs, {"tokens": seq},
+        full, _ = TF.model_apply(params, defs, {"tokens": seq, **extra},
                                  long_serve=long_serve, logits_from=prompt)
         full = full[:, :ZOO_NEW - 1].cpu()
         uncapped_diff = None
@@ -2956,7 +3001,7 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
         from repro_torch.core import tree as T
         with torch.inference_mode():
             p64 = T.tree_map(lambda a: a.double(), params)
-            full64 = TF.model_apply(p64, defs, {"tokens": seq},
+            full64 = TF.model_apply(p64, defs, {"tokens": seq, **extra},
                                     logits_from=prompt)[0]
             full64 = full64[:, :ZOO_NEW - 1].cpu()
             del p64
@@ -2978,7 +3023,8 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
     step_err = None
     if n_attn:
         step_err = plain_decode_step(torch, G, f"{tag} {label}", cfg, defs,
-                                     params, seq[:, :prompt], long_serve)
+                                     params, seq[:, :prompt], long_serve,
+                                     extra)
     del params, seq
     torch.cuda.empty_cache()
     out = {"layers": cfg.n_layers, "prefill_s": r["prefill_s"],
@@ -2987,14 +3033,20 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
            "logit_err": err, "plain_step_err": step_err}
     if long_serve:
         out["uncapped_diff"] = uncapped_diff
+    if encoder_ms is not None:
+        out["encoder_ms"] = encoder_ms
     if probe:
         out["decode_vs_f64"], out["forward_vs_f64"] = probe
     print(f"[{tag}] {label} ({cfg.n_layers} layers), {batch} x {prompt} "
           f"prompt + {ZOO_NEW} tokens"
           + (f", 'A' blocks capped at {cfg.long_context_window}"
              if long_serve else "")
+          + (f", {r['frames'].shape[1]} frames per request"
+             if encoder_ms is not None else "")
           + f": gqa_decode launched {launches['gqa_decode']} times "
-          f"({n_attn} attention layers x {ZOO_NEW - 1}), no other kernel; "
+          f"({n_attn} attention layers"
+          + (" x 2 (self and cross)" if cfg.is_encoder_decoder else "")
+          + f" x {ZOO_NEW - 1}), no other kernel; "
           f"prefill {r['prefill_s']!r} s, decode {out['decode_ms']!r} ms "
           f"per token for the batch, peak memory {r['peak_gb']!r} GB; "
           f"decode logits of {got.shape[0]} sequences vs a train-mode "
@@ -3005,14 +3057,18 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
           + (f"; one decode step through the plain gqa_decode vs the "
              f"kernel: max |diff| {step_err!r}" if n_attn else "")
           + (f"; without the cap the logits move by up to "
-             f"{uncapped_diff!r}" if long_serve else ""), flush=True)
+             f"{uncapped_diff!r}" if long_serve else "")
+          + (f"; the encoder alone over all {batch} requests' frames "
+             f"{encoder_ms!r} ms (CUDA events)" if encoder_ms is not None
+             else ""), flush=True)
     return launches["gqa_decode"], out
 
 
 def plain_decode_step(torch, G, what, cfg, defs, params, prompts,
-                      long_serve=False):
-    """One decode step of ``prompts`` (a device tensor) through the kernel
-    and through the plain flash-decode version, each from the same
+                      long_serve=False, extra=None):
+    """One decode step of ``prompts`` (a device tensor, prefilled with the
+    batch entries ``extra``: an encoder-decoder's frames) through the
+    kernel and through the plain flash-decode version, each from the same
     prefilled cache (the plain step's a copy: a step overwrites the Mamba2
     blocks' states in place).  Fails unless the logits agree within
     SERVE_LOGIT_TOL; returns their max |diff|."""
@@ -3023,7 +3079,8 @@ def plain_decode_step(torch, G, what, cfg, defs, params, prompts,
     pre = serve.build_prefill_setup(cfg, device="cuda",
                                     long_serve=long_serve)
     with torch.inference_mode():
-        first, cache = pre.prefill_step(params, {"tokens": prompts},
+        first, cache = pre.prefill_step(params, {"tokens": prompts,
+                                                 **(extra or {})},
                                         prompts.shape[1] + 1)
         twin = {k: (v if k == "len" else T.tree_map(torch.clone, v))
                 for k, v in cache.items()}
@@ -3047,9 +3104,10 @@ def plain_decode_step(torch, G, what, cfg, defs, params, prompts,
 
 def zoo_train(torch, Q, D, train, entries, arch="qwen3-0.6b", periods=None,
               nodes=ZOO_TRAIN_NODES, wire_bytes=ZOO_TRAIN_WIRE_BYTES,
-              tag="zoo"):
+              tag="zoo", node_batch=4, seq=SEQ):
     """``arch`` at full width (cut to ``periods`` periods when given) on
-    the consensus trainer, ``nodes`` nodes x 4 x SEQ tokens, int8 packed
+    the consensus trainer, ``nodes`` nodes x ``node_batch`` x ``seq``
+    tokens (with their frames for an encoder-decoder), int8 packed
     on the fixed grid for ZOO_TRAIN_STEPS steps, counted, with every call
     of #1 and #2 held to its plain version (``KernelVsPlain``) and the
     reference's ``wire_bytes`` per node and step.  Returns (launches, a
@@ -3061,7 +3119,8 @@ def zoo_train(torch, Q, D, train, entries, arch="qwen3-0.6b", periods=None,
     from repro_torch.models.params import meta_params
     cut = ["--periods", str(periods)] if periods else []
     argv = ["--arch", arch, *cut, "--algorithm", "adc_dgd", "--nodes",
-            str(nodes), "--batch", str(4 * nodes), "--seq", str(SEQ),
+            str(nodes), "--batch", str(node_batch * nodes), "--seq",
+            str(seq),
             "--steps", str(ZOO_TRAIN_STEPS), "--quant-mode", "fixed", "--lr",
             "1e-2", "--device", "cuda"]
     with KernelVsPlain(torch, Q, D) as watch:
@@ -3092,8 +3151,11 @@ def zoo_train(torch, Q, D, train, entries, arch="qwen3-0.6b", periods=None,
     step_s = statistics.median(h["step_s"] for h in hist[1:])
     depth = (f", {periods} of {get_config(arch).n_periods} periods"
              if periods else "")
-    print(f"[{tag}] {arch} trainer{depth}, {nodes} nodes x 4 x {SEQ} "
-          f"tokens, int8 packed, fixed grid, {ZOO_TRAIN_STEPS} steps: "
+    print(f"[{tag}] {arch} trainer{depth}, {nodes} nodes x {node_batch} x "
+          f"{seq} tokens"
+          + (f" with their {cfg.encoder_frames} frames"
+             if cfg.is_encoder_decoder else "")
+          + f", int8 packed, fixed grid, {ZOO_TRAIN_STEPS} steps: "
           f"losses {losses}; launches "
           f"{ {n: v for n, v in launches.items() if v} }; "
           f"wire_bytes_per_step {wire_bytes} (2 x {rows} rows x "
@@ -3650,6 +3712,43 @@ def phase_ssm(torch, Q, D, G, train, entries):
     return launches, summary
 
 
+#: whisper-small (``phase_whisper``) served at full width and depth on
+#: random weights from seed 0: 32 requests of 1,504 frames each (whisper's
+#: 1,500 padded to a multiple of 16) and a 384-token prompt, + ZOO_NEW
+#: tokens, so the decoder's cache holds 448 positions, whisper's decoder
+#: context (``n_text_ctx``, arXiv:2212.04356): (label, arch, periods,
+#: long-serve, batch, prompt) for ``zoo_serve``.  1.44 GB of weights, a
+#: 3.55 GB cross cache and a 1.06 GB self cache
+WHISPER_SERVE = ("whisper-small", "whisper-small", None, False, 32, 384)
+#: the whisper-small trainer at full width and depth: 4 nodes x 1 sequence
+#: of 1,536 tokens with its 1,504 frames (the data stub draws them from the
+#: first seq + 1 tokens, so seq >= 1,503); the reference's int8 wire bytes
+#: per node and step for its tree, 2 x 702,528 x 516
+#: (``tests/test_torch_whisper.py``)
+WHISPER_TRAIN_NODES, WHISPER_TRAIN_SEQ = 4, 1536
+WHISPER_TRAIN_WIRE_BYTES = 725_008_896
+
+
+def phase_whisper(torch, Q, D, G, train, entries):
+    """whisper-small at full width and depth: served through ``zoo_serve``
+    (#9 twice per decoder layer and step, decode against a forward with
+    the same frames, the plain-#9 step, the encoder timed alone), then
+    trained through ``zoo_train``, the model freed in between.  Returns
+    (the launches of every kernel over the phase, summaries by run)."""
+    launches = {name: 0 for name in entries}
+    summary = {}
+    n, summary[WHISPER_SERVE[0]] = zoo_serve(torch, G, entries,
+                                             *WHISPER_SERVE, tag="whisper")
+    launches["gqa_decode"] += n
+    train_launches, summary["whisper-small trainer"] = zoo_train(
+        torch, Q, D, train, entries, "whisper-small", None,
+        WHISPER_TRAIN_NODES, WHISPER_TRAIN_WIRE_BYTES, tag="whisper",
+        node_batch=1, seq=WHISPER_TRAIN_SEQ)
+    for name, n in train_launches.items():
+        launches[name] += n
+    return launches, summary
+
+
 def phase_parity(torch, train):
     """The same two steps of reduced smollm-135m on the card and on the
     CPU (plain versions), from the same weights, batches and noise, for the
@@ -3778,26 +3877,30 @@ DECODE_TIMING_SETS = {"serve": 4, "decode_32k": 1, "long_500k": 1,
                       "qwen3-0.6b": 1, "yi-9b": 4, "chameleon-34b": 4,
                       "gemma2-9b": 1, "gemma2-9b long-serve": 1,
                       "granite-moe-3b-a800m": 1, "deepseek-moe-16b": 4,
-                      "jamba-v0.1-52b": 4}
+                      "jamba-v0.1-52b": 4, "whisper-small": 4,
+                      "whisper-small cross": 4}
 DECODE_TIMING_REPS = {"serve": 200, "decode_32k": 20, "long_500k": 20,
                       "qwen3-0.6b": 100, "yi-9b": 200, "chameleon-34b": 200,
                       "gemma2-9b": 100, "gemma2-9b long-serve": 100,
                       "granite-moe-3b-a800m": 100, "deepseek-moe-16b": 200,
-                      "jamba-v0.1-52b": 200}
+                      "jamba-v0.1-52b": 200, "whisper-small": 200,
+                      "whisper-small cross": 200}
 #: ranges per row the decode timing also tries (``gqa_decode(ranges=)``);
 #: long_500k's rows take 16 ranges at the least
 DECODE_SWEEP = {"serve": (1, 2, 3, 4, 8), "decode_32k": (1, 2, 4),
                 "qwen3-0.6b": (), "yi-9b": (), "chameleon-34b": (),
                 "gemma2-9b": (), "gemma2-9b long-serve": (),
                 "long_500k": (), "granite-moe-3b-a800m": (),
-                "deepseek-moe-16b": (), "jamba-v0.1-52b": ()}
+                "deepseek-moe-16b": (), "jamba-v0.1-52b": (),
+                "whisper-small": (), "whisper-small cross": ()}
 
 
 def phase_decode_timing(torch, G, launches, errs):
     """The flash-decode kernel, its plain version and the library call
     that computes the normalised output (#9 plus the combine) at each of
     DECODE_SHAPES, float32, on the mask of a decode at the
-    cache's last position but one, each timed over ``DECODE_TIMING_SETS``
+    cache's last position but one (every position at the shapes of
+    DECODE_ALL_VALID), each timed over ``DECODE_TIMING_SETS``
     operand sets in turn.  The library time is the fastest of
     ``sdpa_calls``.  Returns the serve shape's row."""
     row = None
@@ -3806,7 +3909,8 @@ def phase_decode_timing(torch, G, launches, errs):
                               hd)
                 for i in range(DECODE_TIMING_SETS[shape])]
         reps = DECODE_TIMING_REPS[shape]
-        valid = torch.arange(seq, device="cuda") <= seq - 2
+        valid = torch.arange(seq, device="cuda") <= (
+            seq - 1 if shape in DECODE_ALL_VALID else seq - 2)
         n_valid = int(valid.sum())
         ms = kernel_time(f"gqa_decode {shape}", [
             lambda q=q, k=k, v=v: G.gqa_decode(q, k, v, valid)
@@ -4502,6 +4606,13 @@ def main() -> None:
     print(f"[ssm] phase_ssm: {ssm_s:.1f} s", flush=True)
     for name, n in ssm_launches.items():
         launches[name] += n
+    t0 = time.perf_counter()
+    whisper_launches, whisper_summary = phase_whisper(torch, Q, D, G, train,
+                                                      entries)
+    whisper_s = time.perf_counter() - t0
+    print(f"[whisper] phase_whisper: {whisper_s:.1f} s", flush=True)
+    for name, n in whisper_launches.items():
+        launches[name] += n
     paper_launches, paper_errs = phase_paper(torch, Q, entries)
     launches["quantize_blocks"] += paper_launches["quantize_blocks"]
     for name, n in phase_paper_plan(torch, entries).items():
@@ -4574,6 +4685,11 @@ def main() -> None:
               + ", ".join(f"{k} {v!r}" for k, v in z.items())
               + f"; card {smi}")
     print(f"[summary] phase_ssm {ssm_s:.1f} s; card {smi}")
+    for label, z in whisper_summary.items():
+        print(f"[summary] whisper {label}: "
+              + ", ".join(f"{k} {v!r}" for k, v in z.items())
+              + f"; card {smi}")
+    print(f"[summary] phase_whisper {whisper_s:.1f} s; card {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,14 @@
 """Architecture config registry and reduced smoke variants.
 
 Counterpart of ``repro.configs``.  ``get_config(arch_id)`` returns the
-exact configuration for the architectures the port runs (the dense
+exact configuration of every architecture of the reference (the dense
 family: smollm-135m, qwen3-0.6b, yi-9b, chameleon-34b and gemma2-9b; the
 mixture-of-experts family: granite-moe-3b-a800m and deepseek-moe-16b; the
-state-space family: mamba2-1.3b and the hybrid jamba-v0.1-52b) and
-raises ``NotImplementedError`` for the ones the reference supports but the
-port does not yet; ``reduced(cfg)`` returns the same small same-family
-variant as the reference; ``shape_applicable`` says whether an
-architecture runs at an input shape.
+state-space family: mamba2-1.3b and the hybrid jamba-v0.1-52b; the
+encoder-decoder whisper-small) and raises ``KeyError`` for an unknown
+one; ``reduced(cfg)`` returns the same small same-family variant as the
+reference; ``shape_applicable`` says whether an architecture runs at an
+input shape.
 """
 from __future__ import annotations
 
@@ -25,32 +25,30 @@ ARCH_IDS = ("jamba-v0.1-52b", "qwen3-0.6b", "chameleon-34b", "yi-9b",
             "gemma2-9b", "deepseek-moe-16b", "whisper-small",
             "granite-moe-3b-a800m", "mamba2-1.3b", "smollm-135m")
 
-#: the architectures this package runs, and their modules
+#: the module of each architecture (all of the reference's)
 PORTED = {"qwen3-0.6b": "qwen3_0_6b", "chameleon-34b": "chameleon_34b",
           "yi-9b": "yi_9b", "gemma2-9b": "gemma2_9b",
           "smollm-135m": "smollm_135m",
           "granite-moe-3b-a800m": "granite_moe_3b_a800m",
           "deepseek-moe-16b": "deepseek_moe_16b",
           "mamba2-1.3b": "mamba2_1_3b",
-          "jamba-v0.1-52b": "jamba_v0_1_52b"}
+          "jamba-v0.1-52b": "jamba_v0_1_52b",
+          "whisper-small": "whisper_small"}
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCH_IDS)}")
-    if arch_id not in PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not yet ported to repro_torch; ported: "
-            f"{sorted(PORTED)}")
     return importlib.import_module(
         f"repro_torch.configs.{PORTED[arch_id]}").CONFIG
 
 
 def reduced(cfg: ModelConfig, d_model: int = 256) -> ModelConfig:
     """Small same-family variant: <=2 periods, d_model<=512, <=4 experts,
-    and for the Mamba2 blocks 8 SSM heads of 64 with state 16 and chunk 32
-    at d_model 256 (the reference's rule, restricted to the fields the
-    port's architectures use)."""
+    for the Mamba2 blocks 8 SSM heads of 64 with state 16 and chunk 32
+    at d_model 256, and for an encoder-decoder 2 encoder layers over 32
+    frames (the reference's rule, restricted to the fields the port's
+    architectures use)."""
     n_heads = min(cfg.n_heads, 4) if cfg.n_heads else 0
     n_kv = min(cfg.n_kv_heads, max(1, n_heads // 2)) if cfg.n_kv_heads else 0
     changes = dict(
@@ -78,6 +76,8 @@ def reduced(cfg: ModelConfig, d_model: int = 256) -> ModelConfig:
         # d_inner = expand * d_model = heads * head_dim: 2 * 256 = 8 * 64
         changes.update(ssm_state=16, ssm_heads=(2 * 256) // 64,
                        ssm_head_dim=64, ssm_chunk=32, d_model=256)
+    if cfg.is_encoder_decoder:
+        changes.update(n_encoder_layers=2, encoder_frames=32)
     return dataclasses.replace(cfg, **changes)
 
 

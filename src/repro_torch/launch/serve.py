@@ -9,7 +9,11 @@ parameters, as in the reference).
 last position gives the first generated token (only that position is
 projected onto the vocabulary: the reference's step reads the same
 ``logits[:, -1:]``), and whose K and V are written into a decode cache of
-``capacity`` positions.
+``capacity`` positions.  An encoder-decoder's batch also carries its
+frames ``enc_frames`` (b, T, d): the prefill runs the encoder over them and
+writes the cross attention's K and V over all T frames into the cache,
+which the decode steps read (a decode batch carries tokens only, as the
+reference's).
 ``build_serve_setup`` carries ``serve_step(state) -> state`` with ``state
 = {params, cache, tokens}``: one greedy decode step of every sequence
 (``transformer.greedy_decode_step``), through the flash-decode kernel
@@ -19,8 +23,10 @@ projected onto the vocabulary: the reference's step reads the same
 takes no such flag, its ``model_apply`` does.
 
 CLI (runs on ``cuda`` unless ``--device cpu``; weights are random from
-``--seed`` and prompts are token ids drawn from it; ``--periods`` cuts the
-depth and keeps the widths)::
+``--seed`` and prompts are token ids drawn from it, then for an
+encoder-decoder the frames, standard normal float32 ``(batch,
+encoder_frames, d_model)`` from the same generator; ``--periods`` cuts
+the depth and keeps the widths)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --batch 32 --prompt-len 1984 --new-tokens 64
@@ -35,6 +41,8 @@ depth and keeps the widths)::
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch jamba-v0.1-52b --periods 1 --batch 4 --prompt-len 2048 \\
         --new-tokens 64
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-small \\
+        --batch 32 --prompt-len 384 --new-tokens 64
 
 The mixture-of-experts archs (granite-moe-3b-a800m, deepseek-moe-16b,
 whose dense layer 0 is a prelude with its own cache entry) route with the
@@ -46,6 +54,9 @@ flash-decode kernel) keep a fixed-size state per Mamba2 block, and their
 chunked scan takes a prompt whose length is a multiple of ``min(ssm_chunk,
 prompt)``: 256 at full size, so 2,048 tokens and not 1,984.  Another
 length is refused, as the reference asserts; it is not padded.
+whisper-small's decoder learns 32,768 positions, so a larger capacity
+(prompt + new tokens) is refused (ValueError); its own decoder context is
+448, as in the run above.
 """
 from __future__ import annotations
 
@@ -93,10 +104,12 @@ def build_prefill_setup(cfg: ModelConfig, device=None, *,
     def prefill_step(params, batch, capacity=None):
         """The cache holds ``capacity`` positions (the prompt's length
         when None)."""
-        tokens = batch["tokens"]
+        tokens, frames = batch["tokens"], batch.get("enc_frames")
         cache = TF.init_cache(cfg, tokens.shape[0],
                               capacity or tokens.shape[1],
-                              device=tokens.device)
+                              device=tokens.device,
+                              enc_len=None if frames is None
+                              else frames.shape[1])
         logits, cache = TF.model_apply(params, defs, batch, mode="prefill",
                                        cache=cache, long_serve=long_serve,
                                        logits_from=tokens.shape[1] - 1)
@@ -133,7 +146,8 @@ def build_serve_setup(cfg: ModelConfig, *, device=None,
 def main(argv=None) -> dict:
     """Command-line entry point: prefill ``--batch`` random prompts of
     ``--prompt-len`` tokens, then decode until each sequence has
-    ``--new-tokens`` new tokens.  Returns the prompts and generated tokens
+    ``--new-tokens`` new tokens.  Returns the prompts, an
+    encoder-decoder's frames (``frames``) and the generated tokens
     (numpy), the prefill and per-token decode seconds, the peak device
     memory (GB, on the card) and, with ``--keep-logits K``, the logits of
     the first K sequences at each decode step ``(K, new_tokens - 1, V)``:
@@ -185,8 +199,14 @@ def main(argv=None) -> dict:
     serve = build_serve_setup(cfg, device=dev, keep_logits=keep,
                               long_serve=args.long_serve)
     params = init_params(pre.defs.storage, args.seed, dev)
-    prompts = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           dtype=np.int32)
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    if cfg.frontend == "audio_frames":
+        frames = rng.standard_normal(
+            (args.batch, cfg.encoder_frames, cfg.d_model), dtype=np.float32)
+        batch["enc_frames"] = torch.as_tensor(frames, device=dev)
     print(f"arch={cfg.arch_id} layers={cfg.n_layers} device={dev} "
           f"batch={args.batch} prompt={args.prompt_len} +{args.new_tokens} "
           f"tokens (capacity {capacity})"
@@ -200,8 +220,7 @@ def main(argv=None) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     sync()
     t0 = time.perf_counter()
-    first_ids, cache = pre.prefill_step(
-        params, {"tokens": torch.as_tensor(prompts, device=dev)}, capacity)
+    first_ids, cache = pre.prefill_step(params, batch, capacity)
     sync()
     prefill_s = time.perf_counter() - t0
     logits = []
@@ -228,6 +247,8 @@ def main(argv=None) -> dict:
     result = {"prompts": prompts, "tokens": gen, "prefill_s": prefill_s,
               "decode_s_per_token": decode_s, "peak_gb": peak,
               "cache_len": state["cache"]["len"]}
+    if "enc_frames" in batch:
+        result["frames"] = frames
     if keep:
         result["logits"] = (torch.stack(logits, dim=1).cpu().numpy()
                             if logits else np.zeros((keep, 0, cfg.vocab_size),

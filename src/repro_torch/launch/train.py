@@ -65,7 +65,12 @@ absent with ``--microbatches`` > 1, as in the reference).  The
 state-space archs train the same way (``--arch mamba2-1.3b``: 48 'M'
 layers, 2.6 M payload rows per node, so ``--periods 8`` on 4 nodes of
 one card); their chunked scan needs ``--seq`` to be a multiple of
-``min(ssm_chunk, seq)``.
+``min(ssm_chunk, seq)``.  whisper-small (``--arch whisper-small``) trains
+with the encoder in the graph: each sequence carries its synthetic frames
+``(encoder_frames, d_model)``, drawn by the data stub from its first
+``seq + 1`` tokens, so ``--seq`` must be at least ``encoder_frames - 1``
+(1,503 at full size; ValueError otherwise, where the reference fails in a
+numpy broadcast).
 
 CLI (runs on ``cuda`` unless ``--device cpu``)::
 
@@ -74,6 +79,8 @@ CLI (runs on ``cuda`` unless ``--device cpu``)::
         --wire-codec int4
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
         --periods 8 --nodes 4 --batch 16 --seq 512 --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
+        --nodes 4 --batch 4 --seq 1536 --steps 5
 """
 from __future__ import annotations
 
@@ -496,6 +503,15 @@ def main(argv=None, *, return_state: bool = False):
         if not 1 <= args.periods <= cfg.n_periods:
             raise SystemExit(f"--periods must be in [1, {cfg.n_periods}]")
         cfg = dataclasses.replace(cfg, n_periods=args.periods)
+    ds_kw = {}
+    if cfg.frontend == "audio_frames":
+        if args.seq + 1 < cfg.encoder_frames:
+            raise ValueError(
+                f"--seq {args.seq}: {cfg.arch_id}'s data stub draws its "
+                f"{cfg.encoder_frames} frames from the first seq + 1 "
+                f"tokens, so --seq must be at least "
+                f"{cfg.encoder_frames - 1}")
+        ds_kw = dict(enc_frames=cfg.encoder_frames, d_model=cfg.d_model)
     controller = None
 
     def spec_for(tier: str) -> str:
@@ -565,7 +581,7 @@ def main(argv=None, *, return_state: bool = False):
                       active=int(sum(membership[0])),
                       mask=list(membership[0]))
     ds = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
-                            n_shards=args.nodes)
+                            n_shards=args.nodes, **ds_kw)
     history = []
     ep_res, ep_ovf, ep_ce = [], [], []
     step_times, exchange_s = [], []

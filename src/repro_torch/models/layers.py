@@ -5,16 +5,19 @@ of the reference is the identity, for the dense blocks of the ported
 configurations: gated MLPs (SwiGLU, or GeGLU with the tanh-approximate
 gelu; ``models.moe`` stacks them into experts), optional q/k norms,
 tied or untied embeddings, attention and final softcaps, the
-``sqrt(d_model)`` embedding scale, and sliding-window ('L') as well as
-global ('A', 'E', 'D') attention.  ``transformer.build_defs`` refuses
+``sqrt(d_model)`` embedding scale, sliding-window ('L') as well as
+global ('A', 'E', 'D') attention, and for the encoder-decoder (whisper)
+attention without RoPE, bidirectional attention and the sinusoidal
+positions of the encoder.  ``transformer.build_defs`` refuses
 configurations outside that.  Layouts follow the reference at every public
 function: activations ``(b, s, d)``, grouped queries ``(b, s, kvh, g,
 hd)``, weights ``(d_in, d_out)``, KV caches ``(b, S, kvh, hd)``;
 everything is float32.
 
 ``attention_forward`` runs in three modes, as the reference's does:
-``train`` (the causal forward, ``chunked_attention``), ``prefill`` (the
-same, returning the prompt's rotated K and V as the decode cache) and
+``train`` (the causal forward, ``chunked_attention``; bidirectional with
+``causal=False``), ``prefill`` (the same, returning the prompt's K and V,
+rotated unless ``use_rope=False``, as the decode cache) and
 ``decode`` (one token against the cache through the flash-decode kernel,
 ``kernels.gqa_decode``).
 """
@@ -30,7 +33,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 
-__all__ = ["rms_norm", "rope_freqs", "apply_rope", "chunked_attention",
+__all__ = ["rms_norm", "rope_freqs", "apply_rope", "sinusoidal_positions",
+           "chunked_attention",
            "decode_attention_local", "combine_decode_partials",
            "attention_defs", "attention_forward", "mlp_defs", "mlp_forward",
            "embed_defs", "embed_lookup", "logits_local",
@@ -69,6 +73,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """(n, d) float32 table: ``sin(pos * div)`` in the even columns and
+    ``cos(pos * div)`` in the odd ones, ``div = exp(arange(0, d, 2) *
+    f32(-log(1e4) / d))``, in the reference's float32 order.  ``exp``,
+    ``sin`` and ``cos`` are evaluated in float64 and rounded, so each
+    value is the correctly rounded one of its float32 argument: the
+    compiled reference's ``exp`` is, and its ``sin``/``cos`` lie within an
+    ulp of it, where float32 ``torch.exp`` is an ulp off in 5 of 384
+    entries at d 768 and so moves angles up to 1,503 rad by ~1e-4."""
+    arg = torch.arange(0, d, 2, dtype=torch.float32, device=device) \
+        * float(np.float32(-math.log(10000.0) / d))
+    div = torch.exp(arg.double()).float()
+    ang = (torch.arange(n, dtype=torch.float32, device=device)[:, None]
+           * div).double()
+    pe = torch.empty((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang)
+    return pe
 
 
 def _divisor_chunk(s: int, target: int) -> int:
@@ -174,10 +198,11 @@ def combine_decode_partials(m: torch.Tensor, l: torch.Tensor,
     return acc / torch.clamp_min(l, 1e-30)[..., None]
 
 
-def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor):
+def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
+                 pos: torch.Tensor | None):
     """q (b, s, kvh, g, hd), k and v (b, s, kvh, hd) of ``x`` at positions
     ``pos``: projected, q and k normalised over ``hd`` when the config has
-    q/k norms, then rotated."""
+    q/k norms, then rotated (not when ``pos`` is None)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
@@ -187,6 +212,8 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor):
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if pos is None:
+        return q, k, v
     q = apply_rope(q.reshape(b, s, h, hd), pos, cfg.rope_theta)
     return (q.reshape(b, s, kvh, h // kvh, hd),
             apply_rope(k, pos, cfg.rope_theta), v)
@@ -195,16 +222,19 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig, pos: torch.Tensor):
 def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
                       mode: str = "train", cache: dict | None = None,
                       pos: int = 0, kind: str = "A",
-                      window_override: int | None = None):
-    """Self-attention with RoPE.  ``kind`` 'L' attends within
+                      window_override: int | None = None,
+                      use_rope: bool = True, causal: bool = True):
+    """Self-attention, with RoPE unless ``use_rope`` is False (whisper's
+    encoder and decoder), causal unless ``causal`` is False (whisper's
+    encoder; train and prefill only).  ``kind`` 'L' attends within
     ``cfg.sliding_window`` positions, every other kind ('A', and the MoE
     'E' and dense 'D' blocks) globally; ``window_override`` sets the
     window of either (long-context serving caps 'A' blocks).  The
     attention softcap applies in every mode.  Returns (out (b, s, d),
     cache):
 
-    * ``train``: causal attention over the whole sequence; no cache;
-    * ``prefill``: the same, and the prompt's rotated K and V as the cache
+    * ``train``: attention over the whole sequence; no cache;
+    * ``prefill``: the same, and the prompt's K and V as the cache
       ``{"k", "v"}``, each (b, s, kvh, hd);
     * ``decode``: one token at position ``pos`` against ``cache`` (each of
       k, v (b, S, kvh, hd)): its K and V are written at ``pos`` in place,
@@ -215,18 +245,19 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
     window = window_override if window_override is not None else (
         cfg.sliding_window if kind == "L" else None)
     if mode == "decode":
-        return _attention_decode(p, x, cfg, cache, pos, window)
+        return _attention_decode(p, x, cfg, cache, pos, window, use_rope)
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
-    q, k, v = _project_qkv(p, x, cfg, torch.arange(s, device=x.device))
-    out = chunked_attention(q, k, v, window=window,
+    q, k, v = _project_qkv(p, x, cfg, torch.arange(s, device=x.device)
+                           if use_rope else None)
+    out = chunked_attention(q, k, v, causal=causal, window=window,
                             softcap=cfg.attn_softcap).reshape(b, s, -1)
     return out @ p["wo"], ({"k": k, "v": v} if mode == "prefill" else None)
 
 
 def _attention_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict,
-                      pos: int, window: int | None):
+                      pos: int, window: int | None, use_rope: bool = True):
     """One-token decode against a KV cache (one device, no shards)."""
     if cache is None:
         raise ValueError("decode requires a cache")
@@ -238,7 +269,8 @@ def _attention_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict,
         raise ValueError(f"position {pos} outside the cache of "
                          f"{k_cache.shape[1]}")
     q, k_new, v_new = _project_qkv(
-        p, x, cfg, torch.full((1,), pos, device=x.device))
+        p, x, cfg, torch.full((1,), pos, device=x.device) if use_rope
+        else None)
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
     gpos = torch.arange(k_cache.shape[1], device=x.device)

@@ -1,9 +1,9 @@
 """Model assembly: parameter declarations, forward pass, training loss and
 the decode cache.
 
-Counterpart of ``repro.models.transformer`` for decoder-only models on one
-device, in train, prefill and decode mode: an optional prelude of
-unstacked layers, then a period of blocks repeated ``n_periods`` times.
+Counterpart of ``repro.models.transformer`` on one device, in train,
+prefill and decode mode: an optional prelude of unstacked layers, then a
+period of blocks repeated ``n_periods`` times.
 Each block is 'A' (global attention) or 'L' (sliding-window attention)
 with a gated MLP, 'E' (global attention with the routed experts of
 ``models.moe``), 'D' (global attention with a dense MLP of width
@@ -22,13 +22,25 @@ activations (one node's fit on the card).  The MoE blocks' auxiliary
 losses are summed over the model and weighted into ``train_loss`` by
 ``cfg.router_aux_weight``.
 
+An encoder-decoder config (whisper-small) adds, as the reference does,
+an encoder (``encoder/{layers[0], final_norm}``: 'A' blocks stacked over
+``n_encoder_layers``, bidirectional, without RoPE, over the frames
+``batch["enc_frames"]`` ``(b, T, d)`` plus sinusoidal positions) and
+learned decoder positions ``pos_emb`` ``(32768, d)`` in place of RoPE;
+every decoder block gains ``norm_cross`` and a ``cross`` attention from
+the decoder stream to the encoder's output.  A batch without frames
+skips the cross attention (train and prefill), as the reference's does.
+
 ``model_apply``/``train_loss``/``greedy_decode_step`` are functions of a
 parameter tree; :class:`Transformer` is the ``nn.Module`` that owns such a
 tree as parameters.  The decode cache has the reference's structure,
 ``{"layers": (entry, ...), "len"}``, one entry per code of the period
 stacked over its layers, and with a prelude ``"prelude": (entry, ...)``,
 one unstacked entry per prelude layer.  An attention block's entry is
-``{"attn": {"k", "v"}}``, K and V ``(n_periods, b, S, kvh, hd)``; a Mamba2
+``{"attn": {"k", "v"}}``, K and V ``(n_periods, b, S, kvh, hd)``, plus
+``"cross": {"k", "v"}`` ``(n_periods, b, T, kvh, hd)`` for an
+encoder-decoder (the encoder output's K and V, written whole by the
+prefill and only read by decode steps); a Mamba2
 block's is ``{"mamba": {"ssm", "conv": {"x", "b", "c"}}}``, its recurrent
 state ``(n_periods, b, h, hd, N)`` and conv windows ``(n_periods, b, k-1,
 width)``.  ``len`` (the number of cached positions) is a Python int, and a
@@ -49,29 +61,37 @@ from repro_torch.core import tree as T
 from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention_defs, attention_forward,
-                                       embed_defs, embed_lookup,
-                                       logits_local, mlp_defs, mlp_forward,
-                                       norm_def, rms_norm,
+                                       chunked_attention,
+                                       combine_decode_partials,
+                                       decode_attention_local, embed_defs,
+                                       embed_lookup, logits_local, mlp_defs,
+                                       mlp_forward, norm_def, rms_norm,
                                        sharded_greedy_sample,
-                                       sharded_softmax_xent)
+                                       sharded_softmax_xent,
+                                       sinusoidal_positions)
+from repro_torch.models.params import ParamDef
 
 __all__ = ["ModelDefs", "build_defs", "init_cache", "model_apply",
-           "train_loss", "greedy_decode_step", "Transformer"]
+           "train_loss", "greedy_decode_step", "Transformer", "POS_EMB_ROWS"]
 
 
 #: configuration features the reference supports and the port does not yet:
 #: each is ``(description, predicate on the config)``
 _UNPORTED = (
-    ("encoder-decoder stacks", lambda c: c.is_encoder_decoder),
     ("MLP activations other than silu and gelu",
      lambda c: c.mlp_act not in ("silu", "gelu")),
 )
 
+#: rows of an encoder-decoder's learned decoder positions: the most
+#: positions a decoder (and its cache) can hold
+POS_EMB_ROWS = 32_768
 
-def _block_defs(code: str, cfg: ModelConfig) -> dict:
+
+def _block_defs(code: str, cfg: ModelConfig, cross: bool = False) -> dict:
     """One block: attention ('A', 'L', 'E', 'D') or Mamba2 ('M', 'X'),
-    then a dense MLP ('A', 'L', and 'M' when ``d_ff > 0``), the routed
-    experts ('E', 'X') or a dense MLP of width ``dense_d_ff`` ('D')."""
+    with ``cross`` a cross attention and its norm, then a dense MLP ('A',
+    'L', and 'M' when ``d_ff > 0``), the routed experts ('E', 'X') or a
+    dense MLP of width ``dense_d_ff`` ('D')."""
     d = {"norm1": norm_def(cfg)}
     if code in "ALED":
         d["attn"] = attention_defs(cfg)
@@ -79,6 +99,9 @@ def _block_defs(code: str, cfg: ModelConfig) -> dict:
         d["mamba"] = mamba2.mamba_defs(cfg)
     else:
         raise ValueError(f"unknown block code {code!r}")
+    if cross:
+        d["norm_cross"] = norm_def(cfg)
+        d["cross"] = attention_defs(cfg)
     if code in "EX":
         d["norm2"] = norm_def(cfg)
         d["moe"] = moe.moe_defs(cfg)
@@ -112,21 +135,38 @@ def build_defs(cfg: ModelConfig) -> ModelDefs:
     if missing:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(missing)} not yet ported")
+    cross = cfg.is_encoder_decoder
     storage = {"embed": embed_defs(cfg),
-               "layers": tuple(_stack_defs(_block_defs(c, cfg),
+               "layers": tuple(_stack_defs(_block_defs(c, cfg, cross),
                                            cfg.n_periods)
                                for c in cfg.period),
                "final_norm": norm_def(cfg)}
     if cfg.prelude:
-        storage["prelude"] = tuple(_block_defs(c, cfg) for c in cfg.prelude)
+        storage["prelude"] = tuple(_block_defs(c, cfg, cross)
+                                   for c in cfg.prelude)
+    if cross:
+        storage["pos_emb"] = ParamDef((POS_EMB_ROWS, cfg.d_model),
+                                      scale=0.02)
+        storage["encoder"] = {
+            "layers": (_stack_defs(_block_defs("A", cfg),
+                                   cfg.n_encoder_layers),),
+            "final_norm": norm_def(cfg)}
     return ModelDefs(cfg=cfg, storage=storage)
 
 
 def init_cache(cfg: ModelConfig, b: int, capacity: int,
-               dtype=torch.float32, device=None) -> dict:
+               dtype=torch.float32, device=None,
+               enc_len: int | None = None) -> dict:
     """Zeroed decode cache for ``b`` sequences of up to ``capacity``
     positions (before prefill); a Mamba2 block's entry does not grow with
-    the positions."""
+    the positions.  An encoder-decoder's blocks also hold the cross K/V
+    over ``enc_len`` frames (``cfg.encoder_frames`` when None), and its
+    capacity is at most POS_EMB_ROWS (ValueError: the reference would read
+    fill values past its learned positions)."""
+    if cfg.is_encoder_decoder and capacity > POS_EMB_ROWS:
+        raise ValueError(f"a cache of {capacity} positions exceeds the "
+                         f"{POS_EMB_ROWS} learned decoder positions")
+
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -138,8 +178,14 @@ def init_cache(cfg: ModelConfig, b: int, capacity: int,
                               "conv": {"x": zeros(*lead, b, k - 1, d_in),
                                        "b": zeros(*lead, b, k - 1, n),
                                        "c": zeros(*lead, b, k - 1, n)}}}
-        shape = (*lead, b, capacity, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return {"attn": {"k": zeros(*shape), "v": zeros(*shape)}}
+        kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
+        out = {"attn": {"k": zeros(*lead, b, capacity, *kv),
+                        "v": zeros(*lead, b, capacity, *kv)}}
+        if cfg.is_encoder_decoder:
+            t = enc_len or cfg.encoder_frames
+            out["cross"] = {"k": zeros(*lead, b, t, *kv),
+                            "v": zeros(*lead, b, t, *kv)}
+        return out
 
     cache = {"layers": tuple(entry(c, cfg.n_periods) for c in cfg.period),
              "len": 0}
@@ -150,27 +196,42 @@ def init_cache(cfg: ModelConfig, b: int, capacity: int,
 
 def _block_forward(code: str, p, x: torch.Tensor, cfg: ModelConfig, *,
                    mode: str, cache: dict | None, pos: int,
-                   long_serve: bool):
-    """One block: pre-norm attention or Mamba2, then the MLP or experts
-    when the block has them, each with its post-norm when the config has
-    them.  Returns (x, the block's attention or Mamba2 cache, its
-    auxiliary loss: None but for 'E' and 'X')."""
+                   long_serve: bool, enc_out: torch.Tensor | None = None,
+                   use_rope: bool = True):
+    """One block: pre-norm attention or Mamba2, then the cross attention
+    when the block has one and there are frames (``enc_out``) or their
+    cached K/V, then the MLP or experts when the block has them, each with
+    its post-norm when the config has them.  ``cache`` is the block's
+    cache entry in decode, None otherwise.  Returns (x, the block's cache
+    parts ``{"attn" | "mamba": ..., "cross": ...}``, its auxiliary loss:
+    None but for 'E' and 'X')."""
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if "attn" in p:
+    part = "attn" if "attn" in p else "mamba"
+    c_in = cache[part] if cache is not None else None
+    if part == "attn":
         window = (cfg.long_context_window
                   if long_serve and code == "A" and cfg.long_context_window
                   else None)
-        a, c = attention_forward(p["attn"], h, cfg, mode=mode, cache=cache,
-                                 pos=pos, kind=code, window_override=window)
+        a, c = attention_forward(p["attn"], h, cfg, mode=mode, cache=c_in,
+                                 pos=pos, kind=code, window_override=window,
+                                 use_rope=use_rope)
     else:
         a, c = mamba2.mamba_forward(p["mamba"], h, cfg, mode=mode,
-                                    cache=cache)
+                                    cache=c_in)
     if cfg.post_norms:
         a = rms_norm(a, p["norm1_post"], cfg.norm_eps)
     x = x + a
+    parts = {part: c}
+    if "cross" in p and (enc_out is not None or
+                         (cache is not None and "cross" in cache)):
+        h = rms_norm(x, p["norm_cross"], cfg.norm_eps)
+        a, parts["cross"] = _cross_attention(
+            p["cross"], h, cfg, enc_out=enc_out,
+            cache=cache["cross"] if mode == "decode" else None)
+        x = x + a
     aux = None
     if "norm2" not in p:
-        return x, c, aux
+        return x, parts, aux
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if "moe" in p:
         f, aux = moe.moe_forward(p["moe"], h, cfg)
@@ -178,7 +239,53 @@ def _block_forward(code: str, p, x: torch.Tensor, cfg: ModelConfig, *,
         f = mlp_forward(p["mlp"], h, cfg)
     if cfg.post_norms:
         f = rms_norm(f, p["norm2_post"], cfg.norm_eps)
-    return x + f, c, aux
+    return x + f, parts, aux
+
+
+def _cross_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
+                     enc_out: torch.Tensor | None, cache: dict | None):
+    """Attention of the decoder stream ``x`` (b, s, d) over the encoder's
+    frames: no RoPE, no q/k norm, no softcap, every frame visible.  With
+    ``cache`` (decode) q attends over its K and V through the flash-decode
+    kernel, and the same cache comes back; otherwise K and V are projected
+    from ``enc_out`` (b, T, d), attended in the reference's blocks
+    (``min(512, s)`` x ``min(1024, T)``) and returned as the cache
+    ``{"k", "v"}``, each (b, T, kvh, hd).  Returns (out (b, s, d),
+    cache)."""
+    b, s, _ = x.shape
+    hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
+    q = (x @ p["wq"]).reshape(b, s, kvh, cfg.n_heads // kvh, hd)
+    if cache is not None:
+        k, v = cache["k"], cache["v"]
+        valid = torch.ones(k.shape[1], dtype=torch.bool, device=x.device)
+        out = combine_decode_partials(
+            *decode_attention_local(q, k, v, valid)).reshape(b, s, -1)
+        return out @ p["wo"], cache
+    t = enc_out.shape[1]
+    k = (enc_out @ p["wk"]).reshape(b, t, kvh, hd)
+    v = (enc_out @ p["wv"]).reshape(b, t, kvh, hd)
+    out = chunked_attention(q, k, v, causal=False, chunk_q=min(512, s),
+                            chunk_k=min(1024, t)).reshape(b, s, -1)
+    return out @ p["wo"], {"k": k, "v": v}
+
+
+def _encoder_apply(params: Any, cfg: ModelConfig,
+                   frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over frames (b, T, d): sinusoidal positions added, then
+    ``n_encoder_layers`` pre-norm blocks of bidirectional attention
+    without RoPE and the MLP, then the encoder's final norm."""
+    enc = params["encoder"]
+    x = frames + sinusoidal_positions(frames.shape[1], frames.shape[2],
+                                      device=frames.device)[None]
+    for layer in range(cfg.n_encoder_layers):
+        p = T.tree_map(lambda a: a[layer], enc["layers"][0])
+        a, _ = attention_forward(p["attn"], rms_norm(x, p["norm1"],
+                                                     cfg.norm_eps),
+                                 cfg, use_rope=False, causal=False)
+        x = x + a
+        x = x + mlp_forward(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
+                            cfg)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
 def model_apply(params: Any, defs: ModelDefs, batch: dict, *,
@@ -190,10 +297,16 @@ def model_apply(params: Any, defs: ModelDefs, batch: dict, *,
     * ``train``: the causal forward; the cache is None;
     * ``prefill``: the same, and the prompt's K and V written at positions
       ``[0, s)`` of ``cache`` (a new one of ``s`` positions when None),
-      the Mamba2 blocks' final states and conv windows into theirs; the
+      the Mamba2 blocks' final states and conv windows into theirs, an
+      encoder-decoder's cross K/V over all the frames into theirs; the
       cache comes back with ``len = s``;
     * ``decode``: ``s`` = 1 token at position ``cache["len"]``, written
       into ``cache`` in place; the cache comes back with ``len + 1``.
+
+    An encoder-decoder takes ``batch["enc_frames"]`` (b, T, d) in train
+    and prefill; without them the cross attention is skipped, and a
+    prefill's cache then comes back without its ``cross`` entries, so
+    that decode skips it too.  Decode takes tokens only (ValueError).
 
     With Mamba2 blocks, train and prefill need ``s`` to be a multiple of
     ``min(ssm_chunk, s)`` (ValueError otherwise, where the reference
@@ -219,13 +332,19 @@ def _apply(params: Any, defs: ModelDefs, batch: dict, *,
     cfg = defs.cfg
     tokens = batch["tokens"]
     b, s = tokens.shape
+    frames = batch.get("enc_frames") if cfg.is_encoder_decoder else None
     pos = 0
     if mode == "decode":
         if cache is None:
             raise ValueError("decode requires a cache")
+        if frames is not None:
+            raise ValueError("decode takes no enc_frames: the cross K/V "
+                             "come from the prefill's cache")
         pos = cache["len"]
     if mode == "prefill" and cache is None:
-        cache = init_cache(cfg, b, s, device=tokens.device)
+        cache = init_cache(cfg, b, s, device=tokens.device,
+                           enc_len=None if frames is None
+                           else frames.shape[1])
     if mode == "prefill":
         cap = min((e["attn"]["k"].shape[-3] for e in
                    cache["layers"] + cache.get("prelude", ()) if "attn" in e),
@@ -233,41 +352,56 @@ def _apply(params: Any, defs: ModelDefs, batch: dict, *,
         if s > cap:
             raise ValueError(f"prompt of {s} tokens exceeds the cache of "
                              f"{cap} positions")
+        if frames is not None and any(
+                e["cross"]["k"].shape[-3] != frames.shape[1]
+                for e in cache["layers"] + cache.get("prelude", ())):
+            raise ValueError(f"{frames.shape[1]} frames do not fill the "
+                             "cache's cross K/V")
     x = embed_lookup(params["embed"], tokens, cfg)
-    # (code, parameters, cache entry: the attention's or the Mamba2
-    # block's) of every layer: the prelude's, then the periods' slices of
-    # the stacked trees
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if frames is not None:
+            enc_out = _encoder_apply(params, cfg, frames)
+        x = x + params["pos_emb"][pos:pos + s][None]
+    # (code, parameters, cache entry) of every layer: the prelude's, then
+    # the periods' slices of the stacked trees
     blocks = [(code, params["prelude"][i],
-               _entry(cache["prelude"][i]) if cache is not None else None)
+               cache["prelude"][i] if cache is not None else None)
               for i, code in enumerate(cfg.prelude)]
     for layer in range(cfg.n_periods):
         for j, code in enumerate(cfg.period):
             p = T.tree_map(lambda a: a[layer], params["layers"][j])
-            blocks.append((code, p, _entry(T.tree_map(
-                lambda a: a[layer], cache["layers"][j]))
+            blocks.append((code, p, T.tree_map(
+                lambda a: a[layer], cache["layers"][j])
                 if cache is not None else None))
     aux = torch.zeros((), device=tokens.device)
     for code, p, entry in blocks:
-        x, c, a = _block_forward(code, p, x, cfg, mode=mode,
-                                 cache=entry if mode == "decode" else None,
-                                 pos=pos, long_serve=long_serve)
+        x, parts, a = _block_forward(
+            code, p, x, cfg, mode=mode,
+            cache=entry if mode == "decode" else None, pos=pos,
+            long_serve=long_serve, enc_out=enc_out,
+            use_rope=not cfg.is_encoder_decoder)
         if mode == "prefill":
-            # K and V fill the prompt's positions; a Mamba2 block's state
-            # and conv windows fill the whole of theirs
-            for dst, src in zip(T.tree_leaves(entry), T.tree_leaves(c)):
-                dst[:, :src.shape[1]] = src
+            # K and V fill the prompt's positions (the cross K/V all the
+            # frames); a Mamba2 block's state and conv windows fill the
+            # whole of theirs
+            for part, c in parts.items():
+                for dst, src in zip(T.tree_leaves(entry[part]),
+                                    T.tree_leaves(c)):
+                    dst[:, :src.shape[1]] = src
         if a is not None:
             aux = aux + a
     x = rms_norm(x[:, logits_from:], params["final_norm"], cfg.norm_eps)
     logits = logits_local(params["embed"], x, cfg)
     if mode == "train":
         return logits, None, aux
-    return logits, {**cache, "len": pos + s}, aux
-
-
-def _entry(block_cache: dict) -> dict:
-    """A block's cache entry: its ``attn`` or its ``mamba`` part."""
-    return block_cache["attn" if "attn" in block_cache else "mamba"]
+    cache = {**cache, "len": pos + s}
+    if mode == "prefill" and cfg.is_encoder_decoder and frames is None:
+        for key in ("layers", "prelude"):
+            if key in cache:
+                cache[key] = tuple({k: v for k, v in e.items()
+                                    if k != "cross"} for e in cache[key])
+    return logits, cache, aux
 
 
 def train_loss(params: Any, defs: ModelDefs, batch: dict):

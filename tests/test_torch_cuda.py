@@ -911,3 +911,73 @@ def test_cuda_ssm_prefill_and_decode_match_cpu(cuda_device, arch):
             {k: v for k, v in cache.items() if k != "len"})]
     for a, b in zip(out["cpu"], out[str(cuda_device)]):
         assert torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,all_valid", [(448, False), (1504, True)],
+                         ids=["self", "cross"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gqa_decode_whisper_heads(cuda_device, S, all_valid, dtype):
+    """#9 at whisper-small's decode shapes (b 32, 12 KV heads of 64, g 1):
+    the decoder's self-attention over its 448-position context, and its
+    cross attention over 1,504 frames, every one valid."""
+    b, kvh, g, hd = 32, 12, 1, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(S + hd)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
+               .to(dtype) for shape in ((b, kvh, g, hd), (b, S, kvh, hd),
+                                        (b, S, kvh, hd)))
+    gpos = torch.arange(S, device=cuda_device)
+    masks = [gpos >= 0] if all_valid else [gpos <= S - 2,
+                                           _holes_mask(S, S, cuda_device)]
+    for cap in (None, 30.0):
+        for valid in masks:
+            _check_decode(q, k, v, valid, cap)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_serve_launches_kernel_twice_per_layer(cuda_device):
+    """Reduced whisper-small serving on the card: #9 twice per decoder
+    layer and decode step (self and cross attention)."""
+    before = G.gqa_decode.launches
+    r = serve.main(["--arch", "whisper-small", "--reduced", "--batch", "2",
+                    "--prompt-len", "16", "--new-tokens", "5"])
+    cfg = reduced(get_config("whisper-small"))
+    assert G.gqa_decode.launches - before == 2 * cfg.n_layers * 4
+    assert r["tokens"].shape == (2, 5) and r["frames"].shape == (2, 32, 256)
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_prefill_and_decode_match_cpu(cuda_device):
+    """Reduced whisper-small, the same weights and frames on the card and
+    on the CPU: prefill logits and both caches, then 4 teacher-forced
+    decode steps through #9 (self and cross), within 1e-4 (float32
+    products sum in other orders on the two)."""
+    from repro_torch.core import tree as T
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params
+    cfg = reduced(get_config("whisper-small"))
+    defs = TF.build_defs(cfg)
+    params = init_params(defs.storage, 0, "cpu")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 20)))
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.encoder_frames, cfg.d_model), dtype=np.float32))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = T.tree_map(lambda a: a.to(dev), params)
+        cache = TF.init_cache(cfg, 2, 20, device=dev)
+        with torch.inference_mode():
+            logits, cache = TF.model_apply(
+                p, defs, {"tokens": tokens[:, :16].to(dev),
+                          "enc_frames": frames.to(dev)},
+                mode="prefill", cache=cache)
+            steps = [logits]
+            for t in range(16, 20):
+                lg, cache = TF.model_apply(
+                    p, defs, {"tokens": tokens[:, t:t + 1].to(dev)},
+                    mode="decode", cache=cache)
+                steps.append(lg)
+        out[str(dev)] = [a.cpu() for a in steps + T.tree_leaves(
+            {k: v for k, v in cache.items() if k != "len"})]
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        assert torch.allclose(a, b, atol=1e-4, rtol=1e-4)

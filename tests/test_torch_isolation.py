@@ -161,14 +161,11 @@ def test_unported_architectures_say_so():
     from repro.configs import ARCH_IDS as REFERENCE_ARCH_IDS
     from repro_torch.configs import ARCH_IDS, PORTED, get_config
     assert ARCH_IDS == REFERENCE_ARCH_IDS
-    assert set(PORTED) == {"smollm-135m", "qwen3-0.6b", "yi-9b",
-                           "chameleon-34b", "gemma2-9b",
-                           "granite-moe-3b-a800m", "deepseek-moe-16b",
-                           "mamba2-1.3b", "jamba-v0.1-52b"}
-    assert set(ARCH_IDS) - set(PORTED) == {"whisper-small"}
+    assert set(PORTED) == set(ARCH_IDS) == {
+        "smollm-135m", "qwen3-0.6b", "yi-9b", "chameleon-34b", "gemma2-9b",
+        "granite-moe-3b-a800m", "deepseek-moe-16b", "mamba2-1.3b",
+        "jamba-v0.1-52b", "whisper-small"}
     for arch in ARCH_IDS:
-        if arch not in PORTED:
-            with pytest.raises(NotImplementedError, match="not yet ported"):
-                get_config(arch)
+        assert get_config(arch).arch_id == arch
     with pytest.raises(KeyError):
         get_config("no-such-arch")

@@ -105,16 +105,16 @@ def test_transformer_module_shares_storage(setup):
 
 
 @pytest.mark.parametrize("change", [
-    {"is_encoder_decoder": True}, {"mlp_act": "gelu_mlp"},
-    {"period": "AE", "mlp_act": "gelu_mlp"}])
+    {"mlp_act": "gelu_mlp"}, {"period": "AE", "mlp_act": "gelu_mlp"}])
 def test_unported_model_features_say_so(change):
-    """Configurations the ported layers do not compute (encoder-decoder
-    stacks, the plain gelu MLP) are refused, not silently run as another
-    model.  The dense features (periods of 'A' and 'L', q/k norms, untied
-    embeddings, softcaps, embedding scale, GeGLU) are held to the
-    reference in ``test_torch_zoo.py``; the MoE 'E' blocks, the dense 'D'
-    block and preludes in ``test_torch_moe.py``; the Mamba2 'M' and 'X'
-    blocks in ``test_torch_ssm.py`` and below."""
+    """Configurations the ported layers do not compute (the plain gelu
+    MLP, which the reference's own ``_act`` refuses too) are refused, not
+    silently run as another model.  The dense features (periods of 'A' and
+    'L', q/k norms, untied embeddings, softcaps, embedding scale, GeGLU)
+    are held to the reference in ``test_torch_zoo.py``; the MoE 'E'
+    blocks, the dense 'D' block and preludes in ``test_torch_moe.py``; the
+    Mamba2 'M' and 'X' blocks in ``test_torch_ssm.py`` and below; the
+    encoder-decoder stack in ``test_torch_whisper.py``."""
     import dataclasses
     cfg = dataclasses.replace(reduced(get_config("smollm-135m")), **change)
     with pytest.raises(NotImplementedError, match="not yet ported"):
