@@ -224,6 +224,25 @@ Phases (any failure exits non-zero before the result line):
              20 times each, every call bitwise equal to its plain version,
              the reference's 725,008,896 wire bytes per step, a loss near
              ln(51,865);
+4f. precision — the reference's production configuration, bfloat16
+             (``phase_precision``; every trainer run of the earlier phases
+             passes ``--remat none``, so their rows stay comparable): the
+             smollm-135m trainer of phase 2 at ``--compute-dtype bfloat16``
+             and ``--remat`` full, dots and none, 3 steps each: #1 and #2
+             launched 12 times each, every call bitwise equal to its plain
+             version, the reference's 271,160,064 wire bytes per step,
+             bfloat16 parameters and float32 shadows after the run, the
+             same first loss at every remat choice (later ones within
+             PREC_REMAT_LOSS_RTOL), step time and peak memory beside the
+             float32 run's; then ``serve.main`` at bfloat16 compute and
+             cache on smollm-135m (32 x 1,984 + 64) and on chameleon-34b
+             at all 48 layers (4 x 1,984 + 64: 68.59 GB of bfloat16
+             weights), counted (#9 once per layer and step, every call on
+             bfloat16 K and V), decode logits within BF16_LOGIT_TOL of the
+             largest logit of a bfloat16 train-mode forward (smollm-135m's
+             also beside a float64 forward), a plain-#9 step within
+             BF16_STEP_TOL; #9 is also timed in bfloat16 at both decode
+             shapes (phase 7);
 5. parity  — reduced smollm-135m, 2 steps on the card and on the CPU from
              the same weights and quantization noise, for the int8, int4
              and top-k wires, the per-leaf transport, compressed_dgd
@@ -903,11 +922,17 @@ CODEC_KERNELS = {
 }
 
 
+#: every trainer run of the phases before ``phase_precision`` keeps its
+#: activations (the trainer's default, the reference's, is full
+#: recompute): their times and peaks stay comparable with earlier runs
+NO_REMAT = ("--remat", "none")
+
+
 def train_argv(steps: int, *extra: str) -> list[str]:
     return ["--arch", "smollm-135m", "--algorithm", "adc_dgd", "--nodes",
             str(NODES), "--batch", str(4 * NODES), "--seq", str(SEQ),
             "--steps", str(steps), "--quant-mode", "fixed", "--lr", "1e-2",
-            "--device", "cuda", *extra]
+            "--device", "cuda", *NO_REMAT, *extra]
 
 
 def run_counted(torch, train, entries, argv, **kw):
@@ -977,7 +1002,7 @@ def phase_main(torch, train, entries):
     hist_a = train.main(["--arch", "smollm-135m", "--nodes", str(NODES),
                          "--batch", str(4 * NODES), "--seq", "512",
                          "--steps", "2", "--quant-mode", "adaptive",
-                         "--lr", "1e-2", "--device", "cuda"])
+                         "--lr", "1e-2", "--device", "cuda", *NO_REMAT])
     if not all(math.isfinite(h["loss"]) for h in hist_a):
         fail(f"non-finite adaptive-mode loss: {hist_a}")
     print(f"[main] adaptive mode: losses {[h['loss'] for h in hist_a]}")
@@ -1180,7 +1205,7 @@ def stride_argv(steps: int, *extra: str) -> list[str]:
     return ["--arch", "smollm-135m", "--algorithm", "adc_dgd", "--nodes",
             str(STRIDE_NODES), "--batch", str(4 * STRIDE_NODES), "--seq",
             "512", "--steps", str(steps), "--quant-mode", "fixed", "--lr",
-            "1e-2", "--device", "cuda", *STRIDE_ARGV, *extra]
+            "1e-2", "--device", "cuda", *NO_REMAT, *STRIDE_ARGV, *extra]
 
 
 def stride_probe(torch, Q, D, train):
@@ -2348,7 +2373,7 @@ def phase_telemetry(torch, train, entries, main_int8):
                 setup = train.build_train_setup(
                     get_config("smollm-135m"), consensus_nodes=NODES,
                     lr=1e-2, quant_mode="fixed", device="cuda",
-                    total_steps=2, track_consensus_error=True,
+                    total_steps=2, track_consensus_error=True, remat=False,
                     wire_packing="async" if extra else "packed")
                 template = train.init_train_state(setup, 7)
                 t0 = time.perf_counter()
@@ -2399,7 +2424,7 @@ def phase_telemetry(torch, train, entries, main_int8):
              f"{main_int8[2]}")
     setups = {m: train.build_train_setup(
         get_config("smollm-135m"), consensus_nodes=NODES, device="cuda",
-        microbatches=m) for m in (1, 2)}
+        microbatches=m, remat=False) for m in (1, 2)}
     params = train.init_train_state(setups[1], 0)["params"]
     batch = SyntheticLMDataset(setups[1].cfg.vocab_size, SEQ, 4 * NODES,
                                n_shards=NODES).global_batch_arrays(0)
@@ -2670,9 +2695,10 @@ def phase_serve(torch, serve, entries):
 PROFILE_STEPS = 4
 
 
-def phase_serve_profile(torch, G):
+def phase_serve_profile(torch, G, compute_dtype=None):
     """Breakdown of steady serve decode steps on the full smollm-135m (32
-    sequences, 1,984 prompt tokens, capacity 2,048): ``torch.profiler``
+    sequences, 1,984 prompt tokens, capacity 2,048), at ``compute_dtype``
+    (compute and cache; float32 when None): ``torch.profiler``
     with CPU and CUDA activities over PROFILE_STEPS steps; the top kernels
     by device time, #9's share of the step and the device's idle share.
     Where the profiler reports no device time, #9's time per step is taken
@@ -2684,14 +2710,16 @@ def phase_serve_profile(torch, G):
     from repro_torch.launch import serve
     from repro_torch.models.params import init_params
     cfg = get_config("smollm-135m")
-    pre = serve.build_prefill_setup(cfg, device="cuda")
-    srv = serve.build_serve_setup(cfg, device="cuda")
+    cdt = compute_dtype or torch.float32
+    label = "" if cdt == torch.float32 else f" {cdt}".replace("torch.", "")
+    pre = serve.build_prefill_setup(cfg, device="cuda", compute_dtype=cdt)
+    srv = serve.build_serve_setup(cfg, device="cuda", compute_dtype=cdt)
     params = init_params(pre.defs.storage, 0, "cuda")
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT), dtype=np.int32)
     first, cache = pre.prefill_step(
         params, {"tokens": torch.as_tensor(prompts, device="cuda")},
-        SERVE_PROMPT + SERVE_NEW)
+        SERVE_PROMPT + SERVE_NEW, srv.cache_dtype)
     state = {"params": params, "cache": cache, "tokens": first}
 
     def steps():
@@ -2718,9 +2746,13 @@ def phase_serve_profile(torch, G):
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA), reverse=True)
     busy_ms = sum(k[0] for k in kernels)
-    print(f"[profile] serve decode, smollm-135m {SERVE_BATCH} sequences at "
-          f"cache position {state['cache']['len']}: step {step_ms:.4f} ms "
-          f"({traced_ms:.4f} ms traced), {PROFILE_STEPS} steps traced")
+    cpu_ops = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU
+                  and e.key.startswith("aten::")) / PROFILE_STEPS
+    print(f"[profile] serve decode{label}, smollm-135m {SERVE_BATCH} "
+          f"sequences at cache position {state['cache']['len']}: step "
+          f"{step_ms:.4f} ms ({traced_ms:.4f} ms traced), {PROFILE_STEPS} "
+          f"steps traced, {cpu_ops:g} aten ops per step on the host")
     attn = [k for k in kernels if "gqa_decode" in k[2]]
     if busy_ms > 0 and not attn:
         fail(f"serve profile: {len(kernels)} kernels ran, none of them "
@@ -2730,7 +2762,7 @@ def phase_serve_profile(torch, G):
             print(f"[profile]   {ms:.4f} ms per step ({ms / busy_ms:.1%} of "
                   f"device time), {n:g} launches per step: {name[:90]}")
         attn_ms = sum(k[0] for k in attn)
-        print(f"[profile] device busy {busy_ms:.4f} ms per step, idle share "
+        print(f"[profile]{label} device busy {busy_ms:.4f} ms per step, idle share "
               f"{1 - busy_ms / traced_ms:.1%} of the traced step; gqa_decode "
               f"{attn_ms:.4f} ms per step: {attn_ms / step_ms:.1%} of the "
               f"untraced step, {attn_ms / busy_ms:.1%} of device time; "
@@ -2911,7 +2943,8 @@ def attention_layers(cfg) -> int:
 
 
 def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
-              prompt, tag="zoo", tol=None, probe64=False):
+              prompt, tag="zoo", tol=None, probe64=False, compute=None,
+              rel_tol=None, step_rel_tol=None):
     """One serve run of the zoo, counted (#9 once per attention layer and
     decode step, nothing else), then checked: its decode logits of 2
     sequences against a train-mode forward over prompt + generated tokens
@@ -2922,6 +2955,9 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
     forward's logits from it are reported.  An encoder-decoder's forward
     and plain step take the served frames of their sequences, and one
     call of its encoder over all the frames is timed with CUDA events.
+    With ``compute`` ("bfloat16") the run serves at that compute and cache
+    dtype, the forward runs at it, and the logits are held to ``rel_tol``
+    and the plain-#9 step to ``step_rel_tol`` times the largest logit.
     Returns (#9 launches, a summary dict)."""
     import dataclasses
     import numpy as np
@@ -2934,6 +2970,10 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
     if periods is not None:
         cfg = dataclasses.replace(cfg, n_periods=periods)
         flags += ["--periods", str(periods)]
+    cdt = torch.float32
+    if compute is not None:
+        cdt = getattr(torch, compute)
+        flags += ["--compute-dtype", compute, "--cache-dtype", compute]
     for entry in entries.values():
         entry.launches = 0
     r = serve.main(["--arch", arch, *flags, "--batch", str(batch),
@@ -2958,11 +2998,11 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
              f"{tok.max()}], cache length {r['cache_len']}, finite logits "
              f"{np.isfinite(r['logits']).all()}")
     torch.cuda.empty_cache()
-    defs = TF.build_defs(cfg)
+    defs = TF.build_defs(cfg, dtype=cdt)
     params = init_params(defs.storage, 0, "cuda")
     extra, encoder_ms = {}, None
     if "frames" in r:
-        frames = torch.as_tensor(r["frames"], device="cuda")
+        frames = torch.as_tensor(r["frames"], device="cuda").to(cdt)
         extra = {"enc_frames": frames[:2]}
         with torch.inference_mode():
             TF._encoder_apply(params, cfg, frames)
@@ -2985,7 +3025,8 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
     seq = torch.as_tensor(seq, device="cuda")
     with torch.inference_mode():
         full, _ = TF.model_apply(params, defs, {"tokens": seq, **extra},
-                                 long_serve=long_serve, logits_from=prompt)
+                                 compute_dtype=cdt, long_serve=long_serve,
+                                 logits_from=prompt)
         full = full[:, :ZOO_NEW - 1].cpu()
         uncapped_diff = None
         if long_serve:
@@ -2996,19 +3037,23 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
             del free
     got = torch.from_numpy(r["logits"])
     err = float((got - full).abs().max())
+    if rel_tol is not None:
+        tol = rel_tol * float(full.abs().max())
     probe = None
     if probe64:
         from repro_torch.core import tree as T
         with torch.inference_mode():
             p64 = T.tree_map(lambda a: a.double(), params)
             full64 = TF.model_apply(p64, defs, {"tokens": seq, **extra},
+                                    compute_dtype=torch.float64,
                                     logits_from=prompt)[0]
             full64 = full64[:, :ZOO_NEW - 1].cpu()
             del p64
         probe = (float((got.double() - full64).abs().max()),
                  float((full.double() - full64).abs().max()))
         del full64
-    if not torch.allclose(got, full, atol=tol, rtol=tol):
+    if not torch.allclose(got, full, atol=tol,
+                          rtol=0.0 if rel_tol is not None else tol):
         fail(f"{tag} {label}: decode logits differ from the train-mode "
              f"forward by up to {err} (tolerance {tol}"
              + (f"; from a float64 forward: decode {probe[0]}, forward "
@@ -3024,10 +3069,12 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
     if n_attn:
         step_err = plain_decode_step(torch, G, f"{tag} {label}", cfg, defs,
                                      params, seq[:, :prompt], long_serve,
-                                     extra)
+                                     extra, compute_dtype=cdt,
+                                     rel_tol=step_rel_tol)
     del params, seq
     torch.cuda.empty_cache()
-    out = {"layers": cfg.n_layers, "prefill_s": r["prefill_s"],
+    out = {"layers": cfg.n_layers, "compute": str(cdt), "tol": tol,
+           "prefill_s": r["prefill_s"],
            "decode_ms": r["decode_s_per_token"] * 1e3,
            "peak_gb": r["peak_gb"], "launches": launches["gqa_decode"],
            "logit_err": err, "plain_step_err": step_err}
@@ -3065,18 +3112,22 @@ def zoo_serve(torch, G, entries, label, arch, periods, long_serve, batch,
 
 
 def plain_decode_step(torch, G, what, cfg, defs, params, prompts,
-                      long_serve=False, extra=None):
+                      long_serve=False, extra=None,
+                      compute_dtype=None, rel_tol=None):
     """One decode step of ``prompts`` (a device tensor, prefilled with the
     batch entries ``extra``: an encoder-decoder's frames) through the
     kernel and through the plain flash-decode version, each from the same
     prefilled cache (the plain step's a copy: a step overwrites the Mamba2
-    blocks' states in place).  Fails unless the logits agree within
-    SERVE_LOGIT_TOL; returns their max |diff|."""
+    blocks' states in place), at ``compute_dtype`` (float32 when None;
+    the cache in the same dtype).  Fails unless the logits agree within
+    SERVE_LOGIT_TOL, or with ``rel_tol`` within that share of the largest
+    logit; returns their max |diff|."""
     from repro_torch.core import tree as T
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import transformer as TF
-    pre = serve.build_prefill_setup(cfg, device="cuda",
+    cdt = compute_dtype or torch.float32
+    pre = serve.build_prefill_setup(cfg, device="cuda", compute_dtype=cdt,
                                     long_serve=long_serve)
     with torch.inference_mode():
         first, cache = pre.prefill_step(params, {"tokens": prompts,
@@ -3085,16 +3136,20 @@ def plain_decode_step(torch, G, what, cfg, defs, params, prompts,
         twin = {k: (v if k == "len" else T.tree_map(torch.clone, v))
                 for k, v in cache.items()}
         _, _, kern = TF.greedy_decode_step(params, defs, first, cache,
+                                           compute_dtype=cdt,
                                            long_serve=long_serve)
         saved, ops.gqa_decode = ops.gqa_decode, G.gqa_decode_plain
         try:
             _, _, plain = TF.greedy_decode_step(params, defs, first, twin,
+                                                compute_dtype=cdt,
                                                 long_serve=long_serve)
         finally:
             ops.gqa_decode = saved
     err = float((kern - plain).abs().max())
-    if not torch.allclose(kern, plain, atol=SERVE_LOGIT_TOL,
-                          rtol=SERVE_LOGIT_TOL):
+    atol = rtol = SERVE_LOGIT_TOL
+    if rel_tol is not None:
+        atol, rtol = rel_tol * float(kern.abs().max()), 0.0
+    if not torch.allclose(kern, plain, atol=atol, rtol=rtol):
         fail(f"{what}: a decode step through the plain gqa_decode differs "
              f"from the kernel's by {err}")
     del cache, twin, kern, plain
@@ -3104,7 +3159,7 @@ def plain_decode_step(torch, G, what, cfg, defs, params, prompts,
 
 def zoo_train(torch, Q, D, train, entries, arch="qwen3-0.6b", periods=None,
               nodes=ZOO_TRAIN_NODES, wire_bytes=ZOO_TRAIN_WIRE_BYTES,
-              tag="zoo", node_batch=4, seq=SEQ):
+              tag="zoo", node_batch=4, seq=SEQ, extra=()):
     """``arch`` at full width (cut to ``periods`` periods when given) on
     the consensus trainer, ``nodes`` nodes x ``node_batch`` x ``seq``
     tokens (with their frames for an encoder-decoder), int8 packed
@@ -3122,7 +3177,7 @@ def zoo_train(torch, Q, D, train, entries, arch="qwen3-0.6b", periods=None,
             str(nodes), "--batch", str(node_batch * nodes), "--seq",
             str(seq),
             "--steps", str(ZOO_TRAIN_STEPS), "--quant-mode", "fixed", "--lr",
-            "1e-2", "--device", "cuda"]
+            "1e-2", "--device", "cuda", *NO_REMAT, *extra]
     with KernelVsPlain(torch, Q, D) as watch:
         hist, launches, peak = run_counted(torch, train, entries, argv)
     want = {name: 0 for name in entries}
@@ -3589,7 +3644,7 @@ def moe_train(torch, Q, D, train, entries):
             "--algorithm", "adc_dgd", "--nodes", str(MOE_TRAIN_NODES),
             "--batch", str(4 * MOE_TRAIN_NODES), "--seq", str(SEQ),
             "--steps", str(MOE_TRAIN_STEPS), "--quant-mode", "fixed",
-            "--lr", "1e-2", "--device", "cuda"]
+            "--lr", "1e-2", "--device", "cuda", *NO_REMAT]
     with KernelVsPlain(torch, Q, D) as watch:
         hist, launches, peak = run_counted(torch, train, entries, argv)
     want = {name: 0 for name in entries}
@@ -3749,6 +3804,178 @@ def phase_whisper(torch, Q, D, G, train, entries):
     return launches, summary
 
 
+#: ``phase_precision``: the reference's production configuration,
+#: bfloat16 compute (and cache).  The smollm-135m trainer of phase_main
+#: (4 nodes x 4 x 512 tokens, int8 packed, fixed grid) at each ``remat``
+#: choice for PREC_TRAIN_STEPS steps; then bfloat16 serving, (label, arch,
+#: periods (None: full depth), long_serve, batch, prompt) + 64 new tokens:
+#: smollm-135m as phase_serve serves it in float32, and chameleon-34b at
+#: all 48 layers (68.59 GB of bfloat16 weights and a 1.61 GB cache, where
+#: its 137 GB of float32 weights do not fit and the zoo serves 12 layers)
+PREC_TRAIN_STEPS = 3
+PREC_REMATS = ("full", "dots", "none")
+PREC_SERVE = (
+    ("smollm-135m", "smollm-135m", None, False, SERVE_BATCH, SERVE_PROMPT),
+    ("chameleon-34b, 48 layers", "chameleon-34b", None, False, 4, 1984),
+)
+#: the #9 shapes the bfloat16 serve runs decode at, timed in bfloat16
+PREC_DECODE_SHAPES = {"serve": DECODE_SHAPES["serve"],
+                      "chameleon-34b": DECODE_SHAPES["chameleon-34b"]}
+#: bfloat16 decode logits against a bfloat16 train-mode forward over the
+#: same tokens, as a share of the forward's largest logit: the two round in
+#: other places (a decode step's matrix-vector products, the prefill's
+#: matrix products), and each lies 0.01-0.02 of it from a float64 forward
+#: (``tests/test_torch_precision.py``: a bfloat16 rounding is 2^-9 of a
+#: value, and 30-48 layers add them up), so 2^-4
+BF16_LOGIT_TOL = 2.0 ** -4
+#: a bfloat16 decode step through the plain #9 against the kernel's, the
+#: same share: both widen the same bfloat16 K and V to float32 and sum
+#: them in other orders (the kernel is held to the plain version within
+#: DECODE_TOL on its own, phase 1), and the attention output is rounded to
+#: bfloat16, so now and then an element lands one bfloat16 ulp apart, and
+#: the layers above carry it as far as any other rounding: at random
+#: weights through chameleon-34b's 48 layers the two steps' logits were
+#: 0.0854 apart (H100 80GB HBM3, 700 W), so BF16_LOGIT_TOL
+BF16_STEP_TOL = BF16_LOGIT_TOL
+#: the bfloat16 trainer's losses at the three remat choices, relative: the
+#: first step's forward is the same operations (equal bits); later steps
+#: start from parameters that the embedding's backward (atomic adds on the
+#: card) may round apart by a bfloat16 ulp
+PREC_REMAT_LOSS_RTOL = 1e-3
+
+
+class DtypeWatch:
+    """Within the block, the dtype of the K/V cache of every call of #9
+    through ``ops.gqa_decode`` (the layers' entry), in ``dtypes``."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.saved, self.dtypes = ops.gqa_decode, []
+        real = self.saved
+
+        def spy(q, k, v, valid, softcap=None, **kw):
+            self.dtypes.append(k.dtype)
+            return real(q, k, v, valid, softcap, **kw)
+
+        ops.gqa_decode = spy
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        from repro_torch.kernels import ops
+        ops.gqa_decode = self.saved
+        return False
+
+
+def phase_precision(torch, Q, D, G, train, entries, main_int8):
+    """bfloat16, the reference's production configuration: the smollm-135m
+    trainer at ``--compute-dtype bfloat16`` and each ``--remat`` choice
+    (PREC_REMATS), counted, every #1 / #2 call held bitwise to its plain
+    version (``KernelVsPlain``: the wire packs the bfloat16 leaves as
+    float32 rows), the reference's 271,160,064 wire bytes per step,
+    bfloat16 parameters and float32 shadows after the run, the remat
+    choices' losses against each other, step time and peak memory beside
+    phase_main's float32 run (``main_int8``: its step s, peak GB); then
+    PREC_SERVE through ``zoo_serve`` at bfloat16 compute and cache: #9 once
+    per layer and step on bfloat16 caches (``DtypeWatch``), decode logits
+    within BF16_LOGIT_TOL of a bfloat16 train-mode forward, a plain-#9 step
+    within BF16_STEP_TOL.  Returns (the launches of every kernel over the
+    phase, summaries by run)."""
+    from repro_torch.core import tree as T
+    launches = {name: 0 for name in entries}
+    summary = {}
+    losses = {}
+    # the timed runs, then one more run of the first choice whose every #1
+    # and #2 call is held to its plain version (which the timing excludes)
+    for remat, watched in [(r, False) for r in PREC_REMATS] + [
+            (PREC_REMATS[0], True)]:
+        argv = ["--arch", "smollm-135m", "--algorithm", "adc_dgd", "--nodes",
+                str(NODES), "--batch", str(4 * NODES), "--seq", str(SEQ),
+                "--steps", str(PREC_TRAIN_STEPS), "--quant-mode", "fixed",
+                "--lr", "1e-2", "--device", "cuda", "--compute-dtype",
+                "bfloat16", "--remat", remat]
+        watch = KernelVsPlain(torch, Q, D)
+        if watched:
+            with watch:
+                (hist, state), n, peak = run_counted(
+                    torch, train, entries, argv, return_state=True)
+        else:
+            (hist, state), n, peak = run_counted(torch, train, entries, argv,
+                                                 return_state=True)
+        want = {name: 0 for name in entries}
+        for name in CODEC_KERNELS["int8"]:
+            want[name] = NODES * PREC_TRAIN_STEPS
+        if n != want:
+            fail(f"precision trainer, remat {remat}: launched {n}, want "
+                 f"{want}")
+        if watched and (not watch.equal
+                        or watch.calls != 2 * want["quantize_payload"]):
+            fail(f"precision trainer, remat {remat}: {watch.calls} calls of "
+                 f"#1 and #2, all bitwise equal to their plain versions: "
+                 f"{watch.equal}")
+        wires = {h["wire_bytes_per_step"] for h in hist}
+        if wires != {WIRE_BYTES["int8"]}:
+            fail(f"precision trainer, remat {remat}: wire bytes {wires}, "
+                 f"want {WIRE_BYTES['int8']}")
+        dtypes = {a.dtype for a in T.tree_leaves(state["params"])}
+        shadows = {state["consensus"][k].dtype for k in ("x_tilde", "m_agg")}
+        if dtypes != {torch.bfloat16} or shadows != {torch.float32}:
+            fail(f"precision trainer, remat {remat}: parameters {dtypes}, "
+                 f"shadows {shadows}")
+        got = [h["loss"] for h in hist]
+        if not all(math.isfinite(x) for x in got) \
+                or abs(got[0] - math.log(49152)) > 0.5:
+            fail(f"precision trainer, remat {remat}: losses {got}")
+        if watched and not all(
+                abs(a - b) <= PREC_REMAT_LOSS_RTOL * abs(b)
+                for a, b in zip(got, losses[remat])):
+            fail(f"precision trainer, remat {remat}: the watched run's "
+                 f"losses {got}, the timed run's {losses[remat]}")
+        losses[remat] = got
+        step_s = statistics.median(h["step_s"] for h in hist[1:])
+        for name, k in n.items():
+            launches[name] += k
+        if not watched:
+            summary[f"trainer bf16 remat {remat}"] = {"step_s": step_s,
+                                                      "peak_gb": peak}
+        print(f"[precision] smollm-135m trainer, bfloat16, remat {remat}, "
+              f"{NODES} nodes x 4 x {SEQ} tokens, int8 packed, "
+              f"{PREC_TRAIN_STEPS} steps"
+              + (" (every #1 and #2 call also through its plain version)"
+                 if watched else "")
+              + f": losses {got}; launches "
+              f"{ {k: v for k, v in n.items() if v} }; "
+              + (f"{watch.calls} calls of #1 and #2 bitwise equal to their "
+                 "plain versions; " if watched else "")
+              + f"wire bytes {WIRE_BYTES['int8']} per step; median step "
+              f"{step_s:.4f} s, peak memory {peak:.2f} GB (float32, remat "
+              f"none, phase_main: {main_int8[0]:.4f} s, "
+              f"{main_int8[1]:.2f} GB)", flush=True)
+        del hist, state
+        torch.cuda.empty_cache()
+    first = {losses[r][0] for r in PREC_REMATS}
+    spread = max(abs(losses[r][k] - losses["none"][k]) / losses["none"][k]
+                 for r in PREC_REMATS for k in range(PREC_TRAIN_STEPS))
+    if len(first) != 1 or spread > PREC_REMAT_LOSS_RTOL:
+        fail(f"precision trainer: losses by remat {losses}")
+    print(f"[precision] remat full / dots / none: the same first loss "
+          f"{first.pop()!r}, later losses within {spread:.3g} of each other "
+          "(relative)", flush=True)
+    for run in PREC_SERVE:
+        with DtypeWatch() as dw:
+            n, summary[run[0]] = zoo_serve(
+                torch, G, entries, *run, tag="precision",
+                probe64=run[1] == "smollm-135m", compute="bfloat16",
+                rel_tol=BF16_LOGIT_TOL, step_rel_tol=BF16_STEP_TOL)
+        if not dw.dtypes or set(dw.dtypes) != {torch.bfloat16}:
+            fail(f"precision {run[0]}: #9 read caches of "
+                 f"{sorted(map(str, set(dw.dtypes)))}, want bfloat16 only")
+        print(f"[precision] {run[0]}: all {len(dw.dtypes)} calls of #9 read "
+              "bfloat16 K and V", flush=True)
+        launches["gqa_decode"] += n
+    phase_serve_profile(torch, G, torch.bfloat16)
+    return launches, summary
+
+
 def phase_parity(torch, train):
     """The same two steps of reduced smollm-135m on the card and on the
     CPU (plain versions), from the same weights, batches and noise, for the
@@ -3779,7 +4006,8 @@ def phase_parity(torch, train):
         results = {}
         for dev in ("cpu", "cuda"):
             setup = train.build_train_setup(cfg, consensus_nodes=NODES,
-                                            lr=1e-2, device=dev, **kw)
+                                            lr=1e-2, device=dev, remat=False,
+                                            **kw)
             state = train.init_train_state(
                 setup, 0, params=None if base is None else T.tree_map(
                     lambda a: a.to(dev), base))
@@ -3895,24 +4123,28 @@ DECODE_SWEEP = {"serve": (1, 2, 3, 4, 8), "decode_32k": (1, 2, 4),
                 "whisper-small": (), "whisper-small cross": ()}
 
 
-def phase_decode_timing(torch, G, launches, errs):
+def phase_decode_timing(torch, G, launches, errs, dtype=None, shapes=None):
     """The flash-decode kernel, its plain version and the library call
     that computes the normalised output (#9 plus the combine) at each of
-    DECODE_SHAPES, float32, on the mask of a decode at the
+    ``shapes`` (DECODE_SHAPES when None), K and V (and q) in ``dtype``
+    (float32 when None), on the mask of a decode at the
     cache's last position but one (every position at the shapes of
     DECODE_ALL_VALID), each timed over ``DECODE_TIMING_SETS``
     operand sets in turn.  The library time is the fastest of
-    ``sdpa_calls``.  Returns the serve shape's row."""
+    ``sdpa_calls`` on the same inputs.  Returns the first shape's row."""
+    dtype = dtype or torch.float32
+    dname = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    elt = torch.empty((), dtype=dtype).element_size()
     row = None
-    for shape, (b, seq, kvh, grp, hd) in DECODE_SHAPES.items():
-        sets = [decode_inputs(torch, b, seq, torch.float32, 11 + i, kvh, grp,
-                              hd)
+    for shape, (b, seq, kvh, grp, hd) in (shapes or DECODE_SHAPES).items():
+        sets = [decode_inputs(torch, b, seq, dtype, 11 + i, kvh, grp, hd)
                 for i in range(DECODE_TIMING_SETS[shape])]
         reps = DECODE_TIMING_REPS[shape]
         valid = torch.arange(seq, device="cuda") <= (
             seq - 1 if shape in DECODE_ALL_VALID else seq - 2)
         n_valid = int(valid.sum())
-        ms = kernel_time(f"gqa_decode {shape}", [
+        ms = kernel_time(f"gqa_decode {shape}"
+                         + ("" if dtype == torch.float32 else f" {dname}"), [
             lambda q=q, k=k, v=v: G.gqa_decode(q, k, v, valid)
             for q, k, v in sets], reps)
         plain_ms = time_ms([
@@ -3920,9 +4152,9 @@ def phase_decode_timing(torch, G, launches, errs):
             for q, k, v in sets], max(4, reps // 20))
         chosen = G.decode_splits(
             b * kvh, seq, torch.cuda.get_device_properties(0)
-            .multi_processor_count, G.decode_tile(hd, torch.float32),
-            ctas_per_sm=G.occupancy(0, False, hd, grp)[0])
-        for ranges in DECODE_SWEEP[shape]:
+            .multi_processor_count, G.decode_tile(hd, dtype),
+            ctas_per_sm=G.occupancy(0, dtype == torch.bfloat16, hd, grp)[0])
+        for ranges in DECODE_SWEEP[shape] if dtype == torch.float32 else ():
             r_ms = time_ms([
                 lambda q=q, k=k, v=v: G.gqa_decode(q, k, v, valid,
                                                    ranges=ranges)
@@ -3943,16 +4175,17 @@ def phase_decode_timing(torch, G, launches, errs):
             lib_err = max(float((call() - o).abs().max())
                           for call, o in zip(calls, outs))
             lib[label] = time_ms(calls, max(4, reps // 10))
-            print(f"[timing] gqa_decode {shape}: scaled_dot_product_"
+            print(f"[timing] gqa_decode {shape} {dname}: scaled_dot_product_"
                   f"attention ({label}) {lib[label]:.4f} ms, its output "
                   f"within {lib_err:.3g} of the kernel's")
         lib_label = min(lib, key=lib.get)
         lib_ms = lib[lib_label]
         del per_set, outs
-        nb, no = decode_bound(b, seq, n_valid, 4, kvh, grp, hd)
+        nb, no = decode_bound(b, seq, n_valid, elt, kvh, grp, hd)
         b_ms, b_by = bound(nb, no)
         print(f"[timing] gqa_decode {shape} (b={b}, S={seq}, kvh={kvh}, "
-              f"g={grp}, hd={hd}, {n_valid} valid, f32, {len(sets)} operand "
+              f"g={grp}, hd={hd}, {n_valid} valid, {dname}, {len(sets)} "
+              f"operand "
               f"sets in turn): {ms:.4f} ms "
               f"(plain {plain_ms:.4f} ms, fastest scaled_dot_product_"
               f"attention {lib_ms:.4f} ms, {lib_label}; bound {b_ms:.4f} ms "
@@ -4613,6 +4846,13 @@ def main() -> None:
     print(f"[whisper] phase_whisper: {whisper_s:.1f} s", flush=True)
     for name, n in whisper_launches.items():
         launches[name] += n
+    t0 = time.perf_counter()
+    prec_launches, prec_summary = phase_precision(
+        torch, Q, D, G, train, entries, (step_s["int8"], peak_gb["int8"]))
+    prec_s = time.perf_counter() - t0
+    print(f"[precision] phase_precision: {prec_s:.1f} s", flush=True)
+    for name, n in prec_launches.items():
+        launches[name] += n
     paper_launches, paper_errs = phase_paper(torch, Q, entries)
     launches["quantize_blocks"] += paper_launches["quantize_blocks"]
     for name, n in phase_paper_plan(torch, entries).items():
@@ -4621,6 +4861,10 @@ def main() -> None:
                                   paper_errs["quantize_blocks"])
     rows = phase_timing(torch, Q, D, BP, launches, errs, n_rows, leaf_rows)
     rows.append(phase_decode_timing(torch, G, launches, errs))
+    t0 = time.perf_counter()
+    phase_decode_timing(torch, G, launches, errs, torch.bfloat16,
+                        PREC_DECODE_SHAPES)
+    prec_s += time.perf_counter() - t0
     exchange_ms = phase_exchange_time(torch, train)
     for codec in step_s:
         print(f"[summary] {codec}: step {step_s[codec]:.4f} s, exchange "
@@ -4690,6 +4934,12 @@ def main() -> None:
               + ", ".join(f"{k} {v!r}" for k, v in z.items())
               + f"; card {smi}")
     print(f"[summary] phase_whisper {whisper_s:.1f} s; card {smi}")
+    for label, z in prec_summary.items():
+        print(f"[summary] precision {label}: "
+              + ", ".join(f"{k} {v!r}" for k, v in z.items())
+              + f"; card {smi}")
+    print(f"[summary] phase_precision (with #9 timed in bfloat16) "
+          f"{prec_s:.1f} s; card {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

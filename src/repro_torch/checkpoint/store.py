@@ -13,15 +13,24 @@ flattening order, ``core.tree``) and ``manifest``, a JSON object of
 ``step``, ``n_leaves``, ``treedef``, ``shapes`` and ``dtypes``, written to
 a temporary file and then renamed.  ``treedef`` is the port's own tree
 description (the reference's is a JAX treedef string), so parity with a
-reference checkpoint is by leaf order, shape and dtype.  A Python ``int``
+reference checkpoint is by leaf order, shape and dtype: the port loads a
+reference checkpoint (its treedef a ``PyTreeDef(...)`` string) by those,
+since both packages flatten a tree in the same order.  The reference's
+loader compares treedef strings, so it refuses the port's files.  A Python ``int``
 or ``float`` leaf (the step) is stored as a 32-bit scalar, the type the
-reference's state holds it in.
+reference's state holds it in.  A bfloat16 leaf is stored as the
+reference stores one (numpy has no bfloat16; the reference's arrays are
+``ml_dtypes.bfloat16``): an ``.npy`` member of descr ``'<V2'``, raw
+2-byte words, with ``"bfloat16"`` in the manifest's ``dtypes``.  The
+port writes and reads such members without ``ml_dtypes``, so either
+package loads the other's bfloat16 checkpoints bit for bit.
 """
 from __future__ import annotations
 
 import json
 import os
 import re
+import zipfile
 from typing import Any
 
 import numpy as np
@@ -32,9 +41,21 @@ from repro_torch.core import tree as T
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step"]
 
 
+#: the ``.npy`` descr and manifest name of a bfloat16 leaf (the
+#: reference's, through ``ml_dtypes``)
+BF16_DESCR, BF16_NAME = "<V2", "bfloat16"
+#: how the reference's treedef strings start
+JAX_TREEDEF = "PyTreeDef("
+
+
 def _to_numpy(leaf) -> np.ndarray:
+    """A leaf as numpy; a bfloat16 tensor as its raw 2-byte words
+    (``int16``)."""
     if torch.is_tensor(leaf):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy()
+        return leaf.numpy()
     if isinstance(leaf, bool):
         return np.asarray(leaf)
     if isinstance(leaf, int):
@@ -48,22 +69,48 @@ def _path(directory: str, step: int) -> str:
     return os.path.join(directory, f"step_{step:08d}.npz")
 
 
+def _is_bf16(leaf) -> bool:
+    return torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16
+
+
+def _write_npz(path: str, members: dict, bf16: set) -> None:
+    """``np.savez``'s layout (uncompressed zip of ``<key>.npy`` members),
+    with the members named in ``bf16`` written under the descr
+    BF16_DESCR."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, a in members.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                if key not in bf16:
+                    np.lib.format.write_array(f, np.asanyarray(a),
+                                              allow_pickle=False)
+                    continue
+                a = np.ascontiguousarray(a)
+                np.lib.format.write_array_header_1_0(f, {
+                    "descr": BF16_DESCR, "fortran_order": False,
+                    "shape": a.shape})
+                f.write(a.tobytes())
+
+
 def save_checkpoint(directory: str, step: int, tree: Any) -> str:
     """Write ``tree`` as ``<directory>/step_<step>.npz``; returns the
     path."""
     os.makedirs(directory, exist_ok=True)
     leaves, treedef = T.tree_flatten(tree)
     arrays = {f"leaf_{i}": _to_numpy(l) for i, l in enumerate(leaves)}
+    bf16 = {f"leaf_{i}" for i, l in enumerate(leaves) if _is_bf16(l)}
     manifest = {
         "step": step,
         "n_leaves": len(leaves),
         "treedef": repr(treedef),
         "shapes": [list(a.shape) for a in arrays.values()],
-        "dtypes": [str(a.dtype) for a in arrays.values()],
+        "dtypes": [BF16_NAME if k in bf16 else str(a.dtype)
+                   for k, a in arrays.items()],
     }
     path = _path(directory, step)
     tmp = path + ".tmp.npz"
-    np.savez(tmp, manifest=json.dumps(manifest), **arrays)
+    _write_npz(tmp, {"manifest": np.asarray(json.dumps(manifest)),
+                     **arrays}, bf16)
     os.replace(tmp, path)
     return path
 
@@ -94,22 +141,29 @@ def load_checkpoint(directory: str, template: Any, step: int | None = None,
         if manifest["n_leaves"] != len(leaves):
             raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                              f"template has {len(leaves)}")
-        if manifest["treedef"] != repr(treedef):
+        if manifest["treedef"] != repr(treedef) and not \
+                manifest["treedef"].startswith(JAX_TREEDEF):
             raise ValueError("checkpoint treedef does not match template")
         out = []
         for i, ref in enumerate(leaves):
             arr = z[f"leaf_{i}"]
+            have = str(arr.dtype)
+            if manifest["dtypes"][i] == BF16_NAME and arr.dtype.itemsize == 2:
+                # raw 2-byte words (numpy reads the '<V2' descr as 'V2')
+                have, arr = BF16_NAME, arr.view(np.int16)
             want = _to_numpy(ref) if not torch.is_tensor(ref) else None
             shape = tuple(ref.shape) if want is None else want.shape
             dtype = (str(ref.dtype).removeprefix("torch.") if want is None
                      else str(want.dtype))
-            if tuple(arr.shape) != shape or str(arr.dtype) != dtype:
-                raise ValueError(f"leaf {i}: {arr.dtype}{list(arr.shape)} != "
+            if tuple(arr.shape) != shape or have != dtype:
+                raise ValueError(f"leaf {i}: {have}{list(arr.shape)} != "
                                  f"template {dtype}{list(shape)}")
             if want is not None:
                 out.append(type(ref)(arr.item()))
             else:
                 # np.load reads an npz member into a fresh, writable array
-                out.append(torch.from_numpy(arr).to(
-                    ref.device if device is None else device))
+                t = torch.from_numpy(arr)
+                if have == BF16_NAME:
+                    t = t.view(torch.bfloat16)
+                out.append(t.to(ref.device if device is None else device))
     return T.tree_unflatten(treedef, out), step

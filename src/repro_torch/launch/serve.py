@@ -57,6 +57,19 @@ length is refused, as the reference asserts; it is not padded.
 whisper-small's decoder learns 32,768 positions, so a larger capacity
 (prompt + new tokens) is refused (ValueError); its own decoder context is
 448, as in the run above.
+
+``--compute-dtype bfloat16`` declares the weights and runs the model in
+bfloat16, and ``--cache-dtype`` sets the decode cache's dtype (the
+compute dtype when not given), the reference's ``compute_dtype`` and
+``cache_dtype``: the prefill's K and V (and a Mamba2 block's state,
+rounded to the compute dtype first) are cast into the cache once, and a
+decode step writes its K and V in the cache's dtype; the flash-decode
+kernel reads a bfloat16 cache as bfloat16.  The reference's production
+serving is bfloat16 for both::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chameleon-34b \\
+        --compute-dtype bfloat16 --cache-dtype bfloat16 --batch 4 \\
+        --prompt-len 1984 --new-tokens 64
 """
 from __future__ import annotations
 
@@ -92,26 +105,38 @@ class ServeSetup:
     defs: TF.ModelDefs
     device: torch.device
     serve_step: Any
+    cache_dtype: torch.dtype = torch.float32
+
+
+#: the CLI's names of the compute and cache dtypes
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_prefill_setup(cfg: ModelConfig, device=None, *,
+                        compute_dtype=torch.float32,
                         long_serve: bool = False) -> PrefillSetup:
-    """Prefill on ``device`` (``cuda`` unless ``device="cpu"``)."""
+    """Prefill on ``device`` (``cuda`` unless ``device="cpu"``) at
+    ``compute_dtype`` (the weights' dtype)."""
     dev = resolve_device(device)
-    defs = TF.build_defs(cfg)
+    defs = TF.build_defs(cfg, dtype=compute_dtype)
 
     @torch.inference_mode()
-    def prefill_step(params, batch, capacity=None):
+    def prefill_step(params, batch, capacity=None, cache_dtype=None):
         """The cache holds ``capacity`` positions (the prompt's length
-        when None)."""
+        when None) in ``cache_dtype`` (the compute dtype when None): the
+        prefill's K and V are cast into it once, as the reference's caller
+        casts its prefill's compute-dtype cache into the serve cache."""
         tokens, frames = batch["tokens"], batch.get("enc_frames")
         cache = TF.init_cache(cfg, tokens.shape[0],
                               capacity or tokens.shape[1],
+                              dtype=cache_dtype or compute_dtype,
                               device=tokens.device,
                               enc_len=None if frames is None
                               else frames.shape[1])
         logits, cache = TF.model_apply(params, defs, batch, mode="prefill",
-                                       cache=cache, long_serve=long_serve,
+                                       cache=cache,
+                                       compute_dtype=compute_dtype,
+                                       long_serve=long_serve,
                                        logits_from=tokens.shape[1] - 1)
         return sharded_greedy_sample(logits), cache
 
@@ -120,27 +145,31 @@ def build_prefill_setup(cfg: ModelConfig, device=None, *,
 
 
 def build_serve_setup(cfg: ModelConfig, *, device=None,
+                      compute_dtype=torch.float32, cache_dtype=None,
                       keep_logits: int = 0,
                       long_serve: bool = False) -> ServeSetup:
-    """Decode on ``device`` (``cuda`` unless ``device="cpu"``) against the
-    state's cache, whose capacity bounds the positions.  With
-    ``keep_logits`` > 0 each step also leaves the logits of the first
+    """Decode on ``device`` (``cuda`` unless ``device="cpu"``) at
+    ``compute_dtype`` against the state's cache, whose capacity bounds the
+    positions and whose dtype is ``cache_dtype`` (the compute dtype when
+    None, as in the reference; the setup records it for the prefill).
+    With ``keep_logits`` > 0 each step also leaves the logits of the first
     ``keep_logits`` sequences in ``state["logits"]`` (for checks against a
     full forward)."""
     dev = resolve_device(device)
-    defs = TF.build_defs(cfg)
+    defs = TF.build_defs(cfg, dtype=compute_dtype)
 
     @torch.inference_mode()
     def serve_step(state):
         ids, cache, logits = TF.greedy_decode_step(
             state["params"], defs, state["tokens"], state["cache"],
-            long_serve=long_serve)
+            compute_dtype=compute_dtype, long_serve=long_serve)
         out = {"params": state["params"], "cache": cache, "tokens": ids}
         if keep_logits:
             out["logits"] = logits[:keep_logits]
         return out
 
-    return ServeSetup(cfg=cfg, defs=defs, device=dev, serve_step=serve_step)
+    return ServeSetup(cfg=cfg, defs=defs, device=dev, serve_step=serve_step,
+                      cache_dtype=cache_dtype or compute_dtype)
 
 
 def main(argv=None) -> dict:
@@ -172,6 +201,13 @@ def main(argv=None) -> dict:
                     help="seed of the random weights and the prompts")
     ap.add_argument("--keep-logits", type=int, default=0,
                     help="return the logits of the first K sequences")
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=sorted(DTYPES),
+                    help="dtype of the weights and of the model's arithmetic "
+                         "(the reference's compute_dtype)")
+    ap.add_argument("--cache-dtype", default=None, choices=sorted(DTYPES),
+                    help="dtype of the decode cache (default: the compute "
+                         "dtype)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.new_tokens < 1:
@@ -192,12 +228,16 @@ def main(argv=None) -> dict:
         # the chunked scan's rule, before the weights are built
         mamba2.chunk_len(cfg, args.prompt_len)
     capacity = args.prompt_len + args.new_tokens
+    compute_dtype = DTYPES[args.compute_dtype]
     pre = build_prefill_setup(cfg, device=args.device,
+                              compute_dtype=compute_dtype,
                               long_serve=args.long_serve)
     dev = pre.device
     keep = min(args.keep_logits, args.batch)
-    serve = build_serve_setup(cfg, device=dev, keep_logits=keep,
-                              long_serve=args.long_serve)
+    serve = build_serve_setup(
+        cfg, device=dev, compute_dtype=compute_dtype,
+        cache_dtype=DTYPES[args.cache_dtype] if args.cache_dtype else None,
+        keep_logits=keep, long_serve=args.long_serve)
     params = init_params(pre.defs.storage, args.seed, dev)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
@@ -209,7 +249,8 @@ def main(argv=None) -> dict:
         batch["enc_frames"] = torch.as_tensor(frames, device=dev)
     print(f"arch={cfg.arch_id} layers={cfg.n_layers} device={dev} "
           f"batch={args.batch} prompt={args.prompt_len} +{args.new_tokens} "
-          f"tokens (capacity {capacity})"
+          f"tokens (capacity {capacity}) compute {args.compute_dtype} "
+          f"cache {str(serve.cache_dtype).removeprefix('torch.')}"
           + (" long-serve" if args.long_serve else ""), flush=True)
 
     def sync():
@@ -220,7 +261,8 @@ def main(argv=None) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     sync()
     t0 = time.perf_counter()
-    first_ids, cache = pre.prefill_step(params, batch, capacity)
+    first_ids, cache = pre.prefill_step(params, batch, capacity,
+                                        serve.cache_dtype)
     sync()
     prefill_s = time.perf_counter() - t0
     logits = []

@@ -55,6 +55,15 @@ consensus error, and the runtime's codec is swapped while the train state
 ``--wire-codec``); with ``--wire-codec adaptive`` the controller then
 moves the plan's hot slots through the ladder and pins the others.
 
+``--compute-dtype bfloat16`` declares the parameters and runs the model
+in bfloat16, as the reference's production configuration does (the
+optimizer's update is float32 arithmetic rounded once, the wire packs
+every leaf as float32, ``x_tilde`` and ``m_agg`` stay float32, and the
+new parameters come back in bfloat16); ``--remat full|dots|none`` picks
+what the backward recomputes (``models.transformer``: the default
+``full``, the reference trainer's ``remat=True``, keeps only each
+period's input; ``none`` keeps every activation).
+
 ``--periods P`` cuts the model's depth to P periods of its layer pattern
 and keeps every width (a full-width model that does not fit the card at
 full depth on several nodes).  For the mixture-of-experts archs
@@ -81,6 +90,9 @@ CLI (runs on ``cuda`` unless ``--device cpu``)::
         --periods 8 --nodes 4 --batch 16 --seq 512 --steps 5
     PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small \\
         --nodes 4 --batch 4 --seq 1536 --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+        --nodes 4 --batch 16 --seq 512 --steps 3 --compute-dtype bfloat16 \\
+        --remat dots
 """
 from __future__ import annotations
 
@@ -128,6 +140,14 @@ class TrainSetup:
     device: torch.device
     seed: int = 0            # consensus quantization-noise seed
     microbatches: int = 1    # gradient-accumulation slices per node
+    compute_dtype: torch.dtype = torch.float32
+    remat: bool | str = True  # True | "dots" | False (models.transformer)
+
+
+#: the CLI's names of the compute dtypes and of the ``remat`` choices (the
+#: reference's ``dryrun.py`` names)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+REMATS = {"full": True, "dots": "dots", "none": False}
 
 
 def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
@@ -153,14 +173,17 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                       membership: tuple | None = None,
                       hierarchy=None, telemetry: bool = False,
                       microbatches: int = 1, seed: int = 0,
+                      compute_dtype=torch.float32, remat: bool | str = True,
                       device=None) -> TrainSetup:
     """Everything static about a run.  ``wire_codec`` is a codec name or a
     ``mixed:`` plan spec; ``membership`` per-epoch masks of active ring
     elements (``MembershipSchedule.masks``), ``hierarchy`` a pod count,
     ``"pods=P"`` or a ``HierarchySpec``; ``telemetry`` turns on the
     exchange's telemetry metrics; ``microbatches`` splits each node's batch
-    for gradient accumulation.  ``device`` defaults to ``cuda`` (raising when
-    there is none); pass ``device="cpu"`` for the plain PyTorch path."""
+    for gradient accumulation.  ``compute_dtype`` and ``remat`` are the
+    reference's, with its defaults (float32, full recompute).  ``device``
+    defaults to ``cuda`` (raising when there is none); pass
+    ``device="cpu"`` for the plain PyTorch path."""
     dev = resolve_device(device)
     ccfg = ConsensusConfig(algorithm=algorithm, gamma=gamma,
                            quant_mode=quant_mode, fixed_step0=fixed_step0,
@@ -189,11 +212,13 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
         sched = cosine_warmup_schedule(lr, warmup, total_steps)
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
-    return TrainSetup(cfg=cfg, defs=TF.build_defs(cfg),
+    TF.check_remat(remat)
+    return TrainSetup(cfg=cfg, defs=TF.build_defs(cfg, dtype=compute_dtype),
                       consensus=ConsensusRuntime(ccfg, consensus_nodes),
                       optimizer=opt_by_name(optimizer), schedule=sched,
                       n_nodes=consensus_nodes, device=dev, seed=seed,
-                      microbatches=microbatches)
+                      microbatches=microbatches, compute_dtype=compute_dtype,
+                      remat=remat)
 
 
 def with_codec(setup: TrainSetup, name: str) -> TrainSetup:
@@ -255,7 +280,9 @@ def _node_grads(setup: TrainSetup, params: Any, batch: dict,
     losses = []
     for i in range(n):
         model = TF.Transformer(setup.defs,
-                               T.tree_map(lambda a: a[i], params))
+                               T.tree_map(lambda a: a[i], params),
+                               compute_dtype=setup.compute_dtype,
+                               remat=setup.remat)
         leaves = T.tree_leaves(model.tree())
         for j in range(m):
             lo = i * bn + j * bm
@@ -420,6 +447,14 @@ def main(argv=None, *, return_state: bool = False):
     ap.add_argument("--optimizer", default="sgd")
     ap.add_argument("--schedule", default="constant",
                     choices=["constant", "inverse_power", "cosine"])
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=sorted(DTYPES),
+                    help="dtype of the parameters and of the model's "
+                         "arithmetic (the reference's compute_dtype)")
+    ap.add_argument("--remat", default="full", choices=list(REMATS),
+                    help="what the backward recomputes: full (keep each "
+                         "period's input), dots (also the products without "
+                         "batch dimensions) or none")
     ap.add_argument("--microbatches", type=int, default=1,
                     help="gradient-accumulation slices of each node's "
                          "shard (its batch must divide evenly)")
@@ -543,7 +578,8 @@ def main(argv=None, *, return_state: bool = False):
         resync_retries=args.resync_retries, straggle_rate=args.straggle,
         straggle_seed=args.straggle_seed, membership=membership,
         hierarchy=hierarchy, telemetry=args.telemetry,
-        microbatches=args.microbatches)
+        microbatches=args.microbatches,
+        compute_dtype=DTYPES[args.compute_dtype], remat=REMATS[args.remat])
     if hierarchy is not None:
         print(f"[setup] {hierarchy.describe(args.nodes)}")
     if membership is not None:

@@ -11,8 +11,20 @@ attention without RoPE, bidirectional attention and the sinusoidal
 positions of the encoder.  ``transformer.build_defs`` refuses
 configurations outside that.  Layouts follow the reference at every public
 function: activations ``(b, s, d)``, grouped queries ``(b, s, kvh, g,
-hd)``, weights ``(d_in, d_out)``, KV caches ``(b, S, kvh, hd)``;
-everything is float32.
+hd)``, weights ``(d_in, d_out)``, KV caches ``(b, S, kvh, hd)``.
+
+Precision follows the reference's at its compute dtype (float32 or
+bfloat16, the parameters' dtype): activations and matrix products run in
+the compute dtype, one rounding per operation, while RMS-norm statistics,
+RoPE, attention scores, the softmax and its weighted sum run in float32
+(``chunked_attention``'s products take compute-dtype operands with
+float32 results, as the reference's ``preferred_element_type=float32``
+does), and the logits are float32.  Under ``jit`` XLA computes a
+compute-dtype matrix product whose only use is a cast to float32 as one
+product with a float32 result, never rounded to the compute dtype; the
+port does the same wherever the reference casts a product up
+(:func:`dot_f32`: the logits here, the MoE router, Mamba2's ``dt`` and
+gate).  At float32 all of this is the float32 arithmetic it always was.
 
 ``attention_forward`` runs in three modes, as the reference's does:
 ``train`` (the causal forward, ``chunked_attention``; bidirectional with
@@ -28,13 +40,14 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
 
-__all__ = ["rms_norm", "rope_freqs", "apply_rope", "sinusoidal_positions",
-           "chunked_attention",
+__all__ = ["widen", "dot_f32", "rms_norm", "rope_freqs", "apply_rope",
+           "sinusoidal_positions", "chunked_attention",
            "decode_attention_local", "combine_decode_partials",
            "attention_defs", "attention_forward", "mlp_defs", "mlp_forward",
            "embed_defs", "embed_lookup", "logits_local",
@@ -44,10 +57,27 @@ __all__ = ["rms_norm", "rope_freqs", "apply_rope", "sinusoidal_positions",
 NEG = -1e30
 
 
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 (exact from bfloat16), or as it is when it is
+    float32 or wider (float64 forwards are a measuring aid)."""
+    return x if x.dtype in (torch.float32, torch.float64) else x.float()
+
+
+def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with a float32 result from bfloat16 operands: they widen
+    to float32 exactly, so each product is exact and the sum is float32's,
+    what XLA computes for a bfloat16 product that is only ever cast to
+    float32.  At float32 it is ``x @ w``."""
+    return torch.matmul(widen(x), widen(w))
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """``x * rsqrt(mean(x^2) + eps) * (1 + w)``; weights initialise to 0."""
-    var = x.square().mean(dim=-1, keepdim=True)
-    return x * torch.rsqrt(var + eps) * (1.0 + w)
+    """``x * rsqrt(mean(x^2) + eps) * (1 + w)``; weights initialise to 0.
+    The variance is float32; the scale, ``1 + w`` and both products are in
+    ``x``'s dtype, each rounded (the reference's order)."""
+    var = widen(x).square().mean(dim=-1, keepdim=True)
+    scale = torch.rsqrt(var + eps).to(x.dtype)
+    return x * scale * (1.0 + w.to(x.dtype))
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -66,13 +96,15 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (b, s, h, hd); positions: (s,).  Rotates the two halves of each
-    head against each other (not interleaved pairs)."""
+    head against each other (not interleaved pairs), in float32, and
+    returns ``x``'s dtype."""
     freqs = rope_freqs(x.shape[-1], theta, device=x.device)
     ang = positions.to(torch.float32)[:, None] * freqs[None, :]
     ang = ang[None, :, None, :]                            # (1, s, 1, hd/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    x1, x2 = widen(x).chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
 
 
 def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
@@ -119,8 +151,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores scaled by ``1/sqrt(hd)``, softcapped, masked to -1e30 (causal:
     ``qpos >= kpos``; window: ``qpos - kpos < window``; positions count
     from ``q_offset`` and ``k_offset``), then the running max, denominator
-    and weighted sum; the output is ``acc / max(l, 1e-30)``.  Only one
-    block's scores exist at a time.
+    and weighted sum; the output is ``acc / max(l, 1e-30)`` in ``q``'s
+    dtype.  Only one block's scores exist at a time.
+
+    Both products take operands in the input dtype (``p`` rounded to it)
+    and give float32 results; the softmax statistics are float32.  When
+    autograd records and there is more than one query chunk, each query
+    chunk runs under ``torch.utils.checkpoint``, as the reference wraps it
+    in ``jax.checkpoint``: its backward recomputes the chunk's scores from
+    q, K and V instead of keeping every block's scores and probabilities
+    (the same bits either way).
 
     q: (b, sq, kvh, g, hd); k, v: (b, sk, kvh, hd) -> (b, sq, kvh, g, hd).
     """
@@ -129,14 +169,17 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / math.sqrt(hd)
     cq, ck = _divisor_chunk(sq, chunk_q), _divisor_chunk(sk, chunk_k)
     qh = q.permute(0, 2, 3, 1, 4)                          # (b,kvh,g,sq,hd)
-    kh = k.permute(0, 2, 3, 1).unsqueeze(2)                # (b,kvh,1,hd,sk)
-    vh = v.permute(0, 2, 1, 3).unsqueeze(2)                # (b,kvh,1,sk,hd)
+    # the operands widen to float32 exactly: products of the input dtype
+    # with float32 accumulation and results
+    kh = widen(k.permute(0, 2, 3, 1).unsqueeze(2))         # (b,kvh,1,hd,sk)
+    vh = widen(v.permute(0, 2, 1, 3).unsqueeze(2))         # (b,kvh,1,sk,hd)
     ar_q = torch.arange(cq, device=q.device)
     ar_k = torch.arange(ck, device=q.device)
-    outs = []
-    for q0 in range(0, sq, cq):
-        qi = qh[..., q0:q0 + cq, :]
+
+    def q_step(qi: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor,
+               q0: int) -> torch.Tensor:
         qpos = (q_offset + q0 + ar_q)[:, None]
+        qi = widen(qi)
         m = torch.full((b, kvh, g, cq), NEG, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros_like(m)
@@ -156,21 +199,31 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.matmul(p, vh[..., k0:k0 + ck,
-                                                             :])
+            pv = torch.matmul(widen(p.to(q.dtype)), vh[..., k0:k0 + ck, :])
+            acc = acc * corr[..., None] + pv
             m = m_new
-        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
-    return torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4)
+        return acc / torch.clamp_min(l, 1e-30)[..., None]
+
+    recompute = sq > cq and torch.is_grad_enabled()
+    outs = []
+    for q0 in range(0, sq, cq):
+        qi = qh[..., q0:q0 + cq, :]
+        outs.append(checkpoint(q_step, qi, kh, vh, q0, use_reentrant=False)
+                    if recompute else q_step(qi, kh, vh, q0))
+    return torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
-def attention_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+def attention_defs(cfg: ModelConfig, dtype=torch.float32
+                   ) -> dict[str, ParamDef]:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
-    out = {"wq": ParamDef((d, h * hd)), "wk": ParamDef((d, kvh * hd)),
-           "wv": ParamDef((d, kvh * hd)), "wo": ParamDef((h * hd, d))}
+    out = {"wq": ParamDef((d, h * hd), dtype=dtype),
+           "wk": ParamDef((d, kvh * hd), dtype=dtype),
+           "wv": ParamDef((d, kvh * hd), dtype=dtype),
+           "wo": ParamDef((h * hd, d), dtype=dtype)}
     if cfg.qk_norm:
-        out["q_norm"] = ParamDef((hd,), init="zeros")
-        out["k_norm"] = ParamDef((hd,), init="zeros")
+        out["q_norm"] = ParamDef((hd,), init="zeros", dtype=dtype)
+        out["k_norm"] = ParamDef((hd,), init="zeros", dtype=dtype)
     return out
 
 
@@ -283,13 +336,14 @@ def _attention_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     return out @ p["wo"], cache
 
 
-def mlp_defs(cfg: ModelConfig, d_ff: int | None = None
-             ) -> dict[str, ParamDef]:
+def mlp_defs(cfg: ModelConfig, d_ff: int | None = None,
+             dtype=torch.float32) -> dict[str, ParamDef]:
     """A gated MLP of width ``d_ff`` (``cfg.d_ff`` when None; deepseek's
     dense 'D' block passes its ``dense_d_ff``)."""
     d, ff = cfg.d_model, d_ff or cfg.d_ff
-    return {"w_gate": ParamDef((d, ff)), "w_up": ParamDef((d, ff)),
-            "w_down": ParamDef((ff, d))}
+    return {"w_gate": ParamDef((d, ff), dtype=dtype),
+            "w_up": ParamDef((d, ff), dtype=dtype),
+            "w_down": ParamDef((ff, d), dtype=dtype)}
 
 
 def mlp_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -299,27 +353,34 @@ def mlp_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         @ p["w_down"]
 
 
-def embed_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
-    out = {"table": ParamDef((cfg.vocab_size, cfg.d_model))}
+def embed_defs(cfg: ModelConfig, dtype=torch.float32
+               ) -> dict[str, ParamDef]:
+    out = {"table": ParamDef((cfg.vocab_size, cfg.d_model), dtype=dtype)}
     if not cfg.tie_embeddings:
-        out["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size))
+        out["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size),
+                                  dtype=dtype)
     return out
 
 
-def embed_lookup(p, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """ids (b, s) -> (b, s, d), times ``sqrt(d_model)`` rounded to float32
-    when the config scales its embeddings."""
+def embed_lookup(p, ids: torch.Tensor, cfg: ModelConfig,
+                 dtype: torch.dtype | None = None) -> torch.Tensor:
+    """ids (b, s) -> (b, s, d) in the table's dtype, times ``sqrt(d_model)``
+    rounded to the table's dtype when the config scales its embeddings
+    (gemma2-9b: 59.866 in float32, 59.75 in bfloat16), then cast to
+    ``dtype`` when given."""
     emb = p["table"][ids.long()]
     if cfg.embed_scale:
-        emb = emb * float(np.float32(math.sqrt(cfg.d_model)))
-    return emb
+        emb = emb * float(torch.tensor(math.sqrt(cfg.d_model),
+                                       dtype=emb.dtype))
+    return emb if dtype is None else emb.to(dtype)
 
 
 def logits_local(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """(b, s, d) -> (b, s, V) logits through the tied embedding table or
-    the ``unembed`` matrix, softcapped when the config says so."""
+    """(b, s, d) -> (b, s, V) float32 logits through the tied embedding
+    table or the ``unembed`` matrix (:func:`dot_f32`: the reference casts
+    this product to float32), softcapped when the config says so."""
     w = p["table"].t() if cfg.tie_embeddings else p["unembed"]
-    return _softcap(h @ w, cfg.final_softcap)
+    return _softcap(dot_f32(h, w), cfg.final_softcap)
 
 
 def sharded_softmax_xent(logits: torch.Tensor,
@@ -339,5 +400,5 @@ def sharded_greedy_sample(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def norm_def(cfg: ModelConfig) -> ParamDef:
-    return ParamDef((cfg.d_model,), init="zeros")
+def norm_def(cfg: ModelConfig, dtype=torch.float32) -> ParamDef:
+    return ParamDef((cfg.d_model,), init="zeros", dtype=dtype)

@@ -18,10 +18,20 @@ next chunk; the chunks run in a Python loop, as the reference's
 ``lax.scan``.  Decode runs the exact one-token recurrence.  Everything is
 plain PyTorch: the reference has no Pallas kernel here.
 
+Precision is the reference's at any compute dtype: the projections and
+the convs run in the compute dtype, ``dt`` and the gate ``z`` are float32
+products (``layers.dot_f32``: the reference casts them to float32 right
+away), the scan, the skip and the gated norm run in float32, and the norm's
+output is rounded to the compute dtype before the output projection.
+``a_log``, ``d_skip`` and ``dt_bias`` are float32 parameters at every
+compute dtype.
+
 The decode cache of one block is ``{"ssm": (b, h, hd, N), "conv": {"x":
 (b, k-1, d_inner), "b": (b, k-1, N), "c": (b, k-1, N)}}``: the recurrent
 state and the last ``k - 1`` raw (pre-conv) inputs of each conv.  Prefill
-returns it; a decode step writes it in place.
+returns it, the state rounded to the compute dtype (the reference's);
+a decode step reads the state in float32 and writes it in place in the
+cache's dtype.
 """
 from __future__ import annotations
 
@@ -29,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import dot_f32, widen
 from repro_torch.models.params import ParamDef
 
 __all__ = ["mamba_defs", "mamba_forward", "chunk_len"]
@@ -41,21 +51,27 @@ def _dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
     return d_in, hd, cfg.ssm_heads or d_in // hd, cfg.ssm_state
 
 
-def mamba_defs(cfg: ModelConfig) -> dict[str, ParamDef]:
+def mamba_defs(cfg: ModelConfig, dtype=torch.float32
+               ) -> dict[str, ParamDef]:
+    """The block's parameters in ``dtype``; ``a_log``, ``d_skip`` and
+    ``dt_bias`` are float32 at every dtype, as in the reference."""
     d = cfg.d_model
     d_in, _, h, n = _dims(cfg)
     k = cfg.ssm_conv
-    return {"w_z": ParamDef((d, d_in)), "w_x": ParamDef((d, d_in)),
-            "w_b": ParamDef((d, n)), "w_c": ParamDef((d, n)),
-            "w_dt": ParamDef((d, h)),
-            "conv_x": ParamDef((k, d_in), scale=0.5),
-            "conv_b": ParamDef((k, n), scale=0.5),
-            "conv_c": ParamDef((k, n), scale=0.5),
-            "a_log": ParamDef((h,), init="zeros"),
-            "d_skip": ParamDef((h,), init="ones"),
-            "dt_bias": ParamDef((h,), init="zeros"),
-            "norm_w": ParamDef((d_in,), init="zeros"),
-            "w_out": ParamDef((d_in, d))}
+    f32 = torch.float32
+    return {"w_z": ParamDef((d, d_in), dtype=dtype),
+            "w_x": ParamDef((d, d_in), dtype=dtype),
+            "w_b": ParamDef((d, n), dtype=dtype),
+            "w_c": ParamDef((d, n), dtype=dtype),
+            "w_dt": ParamDef((d, h), dtype=dtype),
+            "conv_x": ParamDef((k, d_in), scale=0.5, dtype=dtype),
+            "conv_b": ParamDef((k, n), scale=0.5, dtype=dtype),
+            "conv_c": ParamDef((k, n), scale=0.5, dtype=dtype),
+            "a_log": ParamDef((h,), init="zeros", dtype=f32),
+            "d_skip": ParamDef((h,), init="ones", dtype=f32),
+            "dt_bias": ParamDef((h,), init="zeros", dtype=f32),
+            "norm_w": ParamDef((d_in,), init="zeros", dtype=dtype),
+            "w_out": ParamDef((d_in, d), dtype=dtype)}
 
 
 def chunk_len(cfg: ModelConfig, s: int) -> int:
@@ -116,28 +132,30 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
     if mode == "decode" and (cache is None or s != 1):
         raise ValueError(f"decode takes one token and a cache, got {s} "
                          f"tokens and {'a' if cache else 'no'} cache")
-    z = x @ p["w_z"]
+    z = dot_f32(x, p["w_z"])                                    # float32
     xi = x @ p["w_x"]
     bb = x @ p["w_b"]
     cc = x @ p["w_c"]
-    dt = F.softplus(x @ p["w_dt"] + p["dt_bias"])               # (b, s, h)
+    dt = F.softplus(dot_f32(x, p["w_dt"]) + p["dt_bias"])       # (b, s, h)
     a = -torch.exp(p["a_log"])                                  # (h,)
 
     conv = cache["conv"] if mode == "decode" else None
     xi, ncx = _causal_conv(xi, p["conv_x"], conv["x"] if conv else None)
     bb, ncb = _causal_conv(bb, p["conv_b"], conv["b"] if conv else None)
     cc, ncc = _causal_conv(cc, p["conv_c"], conv["c"] if conv else None)
-    xh = xi.reshape(b, s, h, hd)
+    # the scan's operands in float32 (exact from the compute dtype)
+    xh = widen(xi.reshape(b, s, h, hd))
+    bb, cc = widen(bb), widen(cc)
 
     if mode == "decode":
         dt1 = dt[:, 0]                                          # (b, h)
         da = torch.exp(dt1 * a)
         dbx = ((dt1[:, :, None] * xh[:, 0])[..., None]
                * bb[:, 0][:, None, None, :])                    # (b,h,hd,n)
-        ssm = cache["ssm"] * da[..., None, None] + dbx
+        ssm = widen(cache["ssm"]) * da[..., None, None] + dbx
         y = torch.einsum("bn,bhpn->bhp", cc[:, 0], ssm)
         y = y + p["d_skip"][None, :, None] * xh[:, 0]
-        out = _finish(p, y.reshape(b, 1, d_in), z, cfg)
+        out = _finish(p, y.reshape(b, 1, d_in), z, x.dtype, cfg)
         cache["ssm"].copy_(ssm)
         for key, new in (("x", ncx), ("b", ncb), ("c", ncc)):
             cache["conv"][key].copy_(new)
@@ -151,7 +169,7 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
     ccq = cc.reshape(b, nc, q, n)
     dtc = dt.reshape(b, nc, q, h)
     dac = dtc * a                                               # (b,nc,q,h)
-    ssm = x.new_zeros((b, h, hd, n))
+    ssm = xh.new_zeros((b, h, hd, n))
     ys = []
     for c in range(nc):
         xq, bq, cq, dtq, daq = xc[:, c], bc[:, c], ccq[:, c], dtc[:, c], \
@@ -178,14 +196,18 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
         ys.append(y_diag + y_off)
     y = torch.stack(ys, dim=1).reshape(b, s, h, hd)
     y = y + p["d_skip"][None, None, :, None] * xh
-    out = _finish(p, y.reshape(b, s, d_in), z, cfg)
+    out = _finish(p, y.reshape(b, s, d_in), z, x.dtype, cfg)
     if mode == "prefill":
-        return out, {"ssm": ssm, "conv": {"x": ncx, "b": ncb, "c": ncc}}
+        return out, {"ssm": ssm.to(x.dtype),
+                     "conv": {"x": ncx, "b": ncb, "c": ncc}}
     return out, None
 
 
-def _finish(p, y: torch.Tensor, z: torch.Tensor,
+def _finish(p, y: torch.Tensor, z: torch.Tensor, dtype: torch.dtype,
             cfg: ModelConfig) -> torch.Tensor:
-    """Gate, RMS norm over the whole of d_inner with ``(1 + norm_w)``,
-    output projection."""
-    return rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps) @ p["w_out"]
+    """Gate, RMS norm over the whole of d_inner with ``(1 + norm_w)``, all
+    in float32, then rounded to ``dtype`` for the output projection."""
+    y = y * F.silu(z)
+    var = y.square().mean(dim=-1, keepdim=True)
+    y = y * torch.rsqrt(var + cfg.norm_eps) * (1.0 + widen(p["norm_w"]))
+    return y.to(dtype) @ p["w_out"]

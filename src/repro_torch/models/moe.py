@@ -10,7 +10,10 @@ padded and there is no psum.
 The semantics are the reference's, step by step (:func:`route`, then
 :func:`moe_forward`):
 
-* a float32 softmax over the router logits, and its top ``top_k``
+* the router logits as one product with a float32 result (the
+  reference casts the compute-dtype product to float32, which XLA
+  computes so: ``layers.dot_f32``), a float32 softmax over them, and its
+  top ``top_k``
   probabilities renormalised by ``max(sum, 1e-9)``; equal probabilities
   go to the lower expert id first, as ``lax.top_k`` takes them;
 * the Switch auxiliary loss ``E * sum_e f_e * P_e`` (``f_e`` the share of
@@ -20,11 +23,14 @@ The semantics are the reference's, step by step (:func:`route`, then
   token-major order, takes the next slot of its expert, and assignments
   past the capacity are dropped;
 * every expert's gated FFN on its ``(C, d)`` slots, empty ones included
-  (zero rows), so every expert weight gets a gradient;
+  (zero rows), so every expert weight gets a gradient, in the compute
+  dtype, its output scaled by the routing weight rounded to that dtype;
 * the weighted combine: each token's kept contributions added in
   ascending expert id, ``((0 + c_e1) + c_e2) + ...``, the order of the
-  reference's expert-major scatter-add.  The port forms that sum by
-  gathers, never by atomics, so it is the same on every run;
+  reference's expert-major scatter-add, in the experts' output dtype and
+  rounded at each add (XLA's CPU scatter-add keeps no excess precision in
+  bfloat16).  The port forms that sum by gathers, never by atomics, so
+  it is the same on every run;
 * the shared experts added after it.
 """
 from __future__ import annotations
@@ -35,24 +41,26 @@ import math
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _act
+from repro_torch.models.layers import _act, dot_f32
 from repro_torch.models.params import ParamDef
 
 __all__ = ["Routing", "moe_defs", "route", "moe_forward"]
 
 
-def moe_defs(cfg: ModelConfig) -> dict:
+def moe_defs(cfg: ModelConfig, dtype=torch.float32) -> dict:
     d, ffe, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
     if ffe <= 0 or cfg.top_k <= 0:
         raise ValueError(f"{cfg.arch_id}: an MoE block needs moe_d_ff > 0 "
                          f"and top_k > 0, got {ffe} and {cfg.top_k}")
-    out = {"router": ParamDef((d, e)), "w_gate": ParamDef((e, d, ffe)),
-           "w_up": ParamDef((e, d, ffe)), "w_down": ParamDef((e, ffe, d))}
+    out = {"router": ParamDef((d, e), dtype=dtype),
+           "w_gate": ParamDef((e, d, ffe), dtype=dtype),
+           "w_up": ParamDef((e, d, ffe), dtype=dtype),
+           "w_down": ParamDef((e, ffe, d), dtype=dtype)}
     if cfg.n_shared_experts > 0:
         ffs = cfg.n_shared_experts * ffe
-        out["shared"] = {"w_gate": ParamDef((d, ffs)),
-                         "w_up": ParamDef((d, ffs)),
-                         "w_down": ParamDef((ffs, d))}
+        out["shared"] = {"w_gate": ParamDef((d, ffs), dtype=dtype),
+                         "w_up": ParamDef((d, ffs), dtype=dtype),
+                         "w_down": ParamDef((ffs, d), dtype=dtype)}
     return out
 
 
@@ -78,7 +86,7 @@ def route(router: torch.Tensor, xf: torch.Tensor,
     """Top-k routing of tokens ``xf`` (t, d) with capacity-limited slots."""
     t = xf.shape[0]
     n_exp, k = cfg.n_experts, cfg.top_k
-    probs = torch.softmax((xf @ router).to(torch.float32), dim=-1)
+    probs = torch.softmax(dot_f32(xf, router), dim=-1)
     # a stable descending sort: among equal probabilities the lower expert
     # id comes first (torch.topk promises no order for ties)
     srt_p, srt_e = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -126,14 +134,14 @@ def moe_forward(p, x: torch.Tensor, cfg: ModelConfig
     used = torch.zeros(n_slots + 1, dtype=x.dtype,
                        device=x.device).index_put_(
         (slot,), torch.ones_like(tok, dtype=x.dtype))[:-1]
-    w_s = torch.zeros(n_slots + 1, dtype=torch.float32,
+    w_s = torch.zeros(n_slots + 1, dtype=r.top_p.dtype,
                       device=x.device).index_put(
         (slot,), r.top_p.reshape(-1))[:-1]
 
     xe = xf[tok_s].mul_(used[:, None]).view(n_exp, cap, d)
     h = _act(cfg.mlp_act, xe @ p["w_gate"]) * (xe @ p["w_up"])
     del xe          # without autograd, the slots' rows are freed here
-    ye = (h @ p["w_down"]) * w_s.view(n_exp, cap, 1)
+    ye = (h @ p["w_down"]) * w_s.to(x.dtype).view(n_exp, cap, 1)
     del h
 
     # each token's kept contributions, in ascending expert id

@@ -3,9 +3,11 @@
 Counterpart of ``repro.models.params`` on one device: a :class:`ParamDef`
 declares one tensor's logical per-node shape and initialiser.  There is no
 tensor or FSDP parallelism here, so the reference's ``tp_dim``/``fsdp_dim``
-have no counterpart; consensus nodes are a leading axis instead.  Every
-parameter is float32, the reference's storage type for the ported
-configuration.
+have no counterpart; consensus nodes are a leading axis instead.  A
+parameter's ``dtype`` is the model's compute dtype (float32 or bfloat16,
+``transformer.build_defs(cfg, dtype=)``), as in the reference, where the
+parameters are stored in the compute dtype; a few leaves are float32 at
+every compute dtype (Mamba2's ``a_log``, ``d_skip`` and ``dt_bias``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,13 @@ class ParamDef:
     shape: tuple[int, ...]
     init: str = "normal"            # normal | zeros | ones
     scale: float = 1.0              # stddev multiplier for 'normal'
+    dtype: torch.dtype = torch.float32
+
+#: float32 elements of one draw of a leaf stored in another dtype: the
+#: draw is made this many elements (whole slices of the leading axis) at a
+#: time and cast into the leaf, so that no float32 copy of a whole leaf
+#: ever exists (chameleon-34b's stacked ``w_gate`` would be 34.6 GB)
+DRAW_ELEMENTS = 1 << 26
 
 
 def _init_tensor(d: ParamDef, gen: torch.Generator, device,
@@ -37,17 +46,28 @@ def _init_tensor(d: ParamDef, gen: torch.Generator, device,
     """One leaf, with a leading axis of ``n_nodes`` identical replicas
     when given.  The draw is scaled in place and copied into the replicas,
     so no second copy of the leaf is ever allocated (deepseek-moe-16b's
-    stacked expert weights are 19.9 GB each)."""
+    stacked expert weights are 19.9 GB each).  A leaf of another dtype
+    than float32 is drawn in float32 and cast, as the reference's is,
+    slices of its leading axis at a time (``DRAW_ELEMENTS``)."""
     lead = () if n_nodes is None else (n_nodes,)
     if d.init == "zeros":
-        return torch.zeros(lead + d.shape, device=device)
+        return torch.zeros(lead + d.shape, dtype=d.dtype, device=device)
     if d.init == "ones":
-        return torch.ones(lead + d.shape, device=device)
+        return torch.ones(lead + d.shape, dtype=d.dtype, device=device)
     fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
-    x = torch.empty(lead + d.shape, device=device)
+    std = d.scale / math.sqrt(max(fan_in, 1))
+    x = torch.empty(lead + d.shape, dtype=d.dtype, device=device)
     first = x if n_nodes is None else x[0]
-    torch.randn(d.shape, generator=gen, out=first)
-    first.mul_(d.scale / math.sqrt(max(fan_in, 1)))
+    if d.dtype == torch.float32:
+        torch.randn(d.shape, generator=gen, out=first)
+        first.mul_(std)
+    else:
+        rows = max(1, DRAW_ELEMENTS // max(math.prod(d.shape[1:]), 1))
+        for r0 in range(0, d.shape[0], rows):
+            part = first[r0:r0 + rows]
+            draw = torch.randn(part.shape, generator=gen, device=device)
+            part.copy_(draw.mul_(std))
+            del draw
     if n_nodes is not None:
         x[1:] = first
     return x
@@ -70,7 +90,8 @@ def init_params(defs: Any, seed: int, device,
 
 def meta_params(defs: Any) -> Any:
     """Shape-only (``meta`` device) parameters: layouts without memory."""
-    return T.tree_map(lambda d: torch.empty(d.shape, device="meta"), defs)
+    return T.tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                            device="meta"), defs)
 
 
 def params_from_jax(tree_of_numpy: Any, defs: Any, device=None,
@@ -81,7 +102,10 @@ def params_from_jax(tree_of_numpy: Any, defs: Any, device=None,
 
     Both packages flatten in the same order and use the same layouts, so
     the carry is a checked leaf-for-leaf copy; with ``n_nodes`` the leaves
-    are replicated along a leading node axis."""
+    are replicated along a leading node axis.  Each leaf takes its
+    ParamDef's dtype; a bfloat16 leaf (numpy's ``ml_dtypes.bfloat16``,
+    which the port does not import) must be declared bfloat16, and goes
+    through float32, exactly, and back to bfloat16."""
     device = resolve_device(device)
     arrays, treedef = T.tree_flatten(tree_of_numpy)
     dleaves, dtreedef = T.tree_flatten(defs)
@@ -92,7 +116,9 @@ def params_from_jax(tree_of_numpy: Any, defs: Any, device=None,
     for a, d in zip(arrays, dleaves):
         if tuple(a.shape) != tuple(d.shape):
             raise ValueError(f"JAX leaf shape {a.shape} != {d.shape}")
-        x = torch.from_numpy(np.array(a, np.float32)).to(device)
+        if (str(a.dtype) == "bfloat16") != (d.dtype == torch.bfloat16):
+            raise ValueError(f"JAX leaf dtype {a.dtype} != {d.dtype}")
+        x = torch.from_numpy(np.array(a, np.float32)).to(device, d.dtype)
         if n_nodes is not None:
             x = x.unsqueeze(0).repeat((n_nodes,) + (1,) * x.dim())
         out.append(x)

@@ -16,11 +16,24 @@ reference's structure and names — ``embed/{table, unembed}``,
 tree per code ``j`` of the period whose leaves stack its ``n_periods``
 layers on a leading axis, and ``prelude[i]``, one unstacked tree per
 prelude layer — so the wire layout and the weight carry line up leaf for
-leaf.  The reference scans the stacked periods with ``lax.scan`` under
-remat; here a Python loop indexes them, and autograd keeps the
-activations (one node's fit on the card).  The MoE blocks' auxiliary
-losses are summed over the model and weighted into ``train_loss`` by
-``cfg.router_aux_weight``.
+leaf.  The reference scans the stacked periods with ``lax.scan``; here a
+Python loop indexes them.  The MoE blocks' auxiliary losses are summed
+over each period, then over the model (the reference's order), and
+weighted into ``train_loss`` by ``cfg.router_aux_weight``.
+
+The reference's precision and recompute options: ``build_defs(cfg,
+dtype=)`` declares the parameters in the compute dtype (float32 or
+bfloat16), ``model_apply``/``train_loss``/``greedy_decode_step`` take
+``compute_dtype`` (the embeddings, an encoder-decoder's frames and
+learned positions are cast to it; a prefill without a cache builds one of
+that dtype), and in train ``remat`` recomputes in the backward what the
+forward did not keep, as the reference's ``jax.checkpoint`` of its period
+body: ``True`` (the default) keeps only each period's input, ``"dots"``
+also the outputs of the matrix products without batch dimensions (the
+reference's ``dots_with_no_batch_dims_saveable``: ``aten.mm`` and
+``aten.addmm`` here), ``False`` keeps everything.  The prelude stays
+outside, as outside the reference's ``scan``.  Recompute repeats the same
+operations, so on the CPU every choice gives the same bits.
 
 An encoder-decoder config (whisper-small) adds, as the reference does,
 an encoder (``encoder/{layers[0], final_norm}``: 'A' blocks stacked over
@@ -52,10 +65,13 @@ serving).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core import tree as T
 from repro_torch.models import mamba2, moe
@@ -72,7 +88,8 @@ from repro_torch.models.layers import (attention_defs, attention_forward,
 from repro_torch.models.params import ParamDef
 
 __all__ = ["ModelDefs", "build_defs", "init_cache", "model_apply",
-           "train_loss", "greedy_decode_step", "Transformer", "POS_EMB_ROWS"]
+           "train_loss", "greedy_decode_step", "Transformer", "POS_EMB_ROWS",
+           "check_remat"]
 
 
 #: configuration features the reference supports and the port does not yet:
@@ -86,35 +103,49 @@ _UNPORTED = (
 #: positions a decoder (and its cache) can hold
 POS_EMB_ROWS = 32_768
 
+#: the compute dtypes of the reference the port runs, and float64: not a
+#: reference dtype, a measuring aid (a forward of the same weights in
+#: float64 measures how far each side's rounding takes it)
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
-def _block_defs(code: str, cfg: ModelConfig, cross: bool = False) -> dict:
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """``remat="dots"``: keep the outputs of matrix products without batch
+    dimensions, recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block_defs(code: str, cfg: ModelConfig, cross: bool = False,
+                dtype=torch.float32) -> dict:
     """One block: attention ('A', 'L', 'E', 'D') or Mamba2 ('M', 'X'),
     with ``cross`` a cross attention and its norm, then a dense MLP ('A',
     'L', and 'M' when ``d_ff > 0``), the routed experts ('E', 'X') or a
     dense MLP of width ``dense_d_ff`` ('D')."""
-    d = {"norm1": norm_def(cfg)}
+    d = {"norm1": norm_def(cfg, dtype)}
     if code in "ALED":
-        d["attn"] = attention_defs(cfg)
+        d["attn"] = attention_defs(cfg, dtype)
     elif code in "MX":
-        d["mamba"] = mamba2.mamba_defs(cfg)
+        d["mamba"] = mamba2.mamba_defs(cfg, dtype)
     else:
         raise ValueError(f"unknown block code {code!r}")
     if cross:
-        d["norm_cross"] = norm_def(cfg)
-        d["cross"] = attention_defs(cfg)
+        d["norm_cross"] = norm_def(cfg, dtype)
+        d["cross"] = attention_defs(cfg, dtype)
     if code in "EX":
-        d["norm2"] = norm_def(cfg)
-        d["moe"] = moe.moe_defs(cfg)
+        d["norm2"] = norm_def(cfg, dtype)
+        d["moe"] = moe.moe_defs(cfg, dtype)
     elif code == "D":
-        d["norm2"] = norm_def(cfg)
-        d["mlp"] = mlp_defs(cfg, d_ff=cfg.dense_d_ff)
+        d["norm2"] = norm_def(cfg, dtype)
+        d["mlp"] = mlp_defs(cfg, d_ff=cfg.dense_d_ff, dtype=dtype)
     elif code in "AL" or (code == "M" and cfg.d_ff > 0):
-        d["norm2"] = norm_def(cfg)
-        d["mlp"] = mlp_defs(cfg)
+        d["norm2"] = norm_def(cfg, dtype)
+        d["mlp"] = mlp_defs(cfg, dtype=dtype)
     if cfg.post_norms:
-        d["norm1_post"] = norm_def(cfg)
+        d["norm1_post"] = norm_def(cfg, dtype)
         if "norm2" in d:
-            d["norm2_post"] = norm_def(cfg)
+            d["norm2_post"] = norm_def(cfg, dtype)
     return d
 
 
@@ -130,27 +161,46 @@ class ModelDefs:
     storage: Any            # full tree of (layer-stacked) ParamDefs
 
 
-def build_defs(cfg: ModelConfig) -> ModelDefs:
+def _check_dtype(dtype) -> None:
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {dtype}")
+
+
+def check_remat(remat) -> None:
+    """ValueError unless ``remat`` is one of the reference's values: True
+    (full recompute of each period), "dots" (keep the products without
+    batch dimensions) or False (keep everything)."""
+    if not (remat is True or remat is False or remat == "dots"):
+        raise ValueError(f"remat must be True, 'dots' or False, got "
+                         f"{remat!r}")
+
+
+def build_defs(cfg: ModelConfig, dtype=torch.float32) -> ModelDefs:
+    """The parameter tree of ``cfg`` with its leaves declared in ``dtype``
+    (the compute dtype), as the reference's ``build_defs(cfg, ctx,
+    dtype)``."""
+    _check_dtype(dtype)
     missing = [what for what, used in _UNPORTED if used(cfg)]
     if missing:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(missing)} not yet ported")
     cross = cfg.is_encoder_decoder
-    storage = {"embed": embed_defs(cfg),
-               "layers": tuple(_stack_defs(_block_defs(c, cfg, cross),
+    storage = {"embed": embed_defs(cfg, dtype),
+               "layers": tuple(_stack_defs(_block_defs(c, cfg, cross, dtype),
                                            cfg.n_periods)
                                for c in cfg.period),
-               "final_norm": norm_def(cfg)}
+               "final_norm": norm_def(cfg, dtype)}
     if cfg.prelude:
-        storage["prelude"] = tuple(_block_defs(c, cfg, cross)
+        storage["prelude"] = tuple(_block_defs(c, cfg, cross, dtype)
                                    for c in cfg.prelude)
     if cross:
         storage["pos_emb"] = ParamDef((POS_EMB_ROWS, cfg.d_model),
-                                      scale=0.02)
+                                      scale=0.02, dtype=dtype)
         storage["encoder"] = {
-            "layers": (_stack_defs(_block_defs("A", cfg),
+            "layers": (_stack_defs(_block_defs("A", cfg, dtype=dtype),
                                    cfg.n_encoder_layers),),
-            "final_norm": norm_def(cfg)}
+            "final_norm": norm_def(cfg, dtype)}
     return ModelDefs(cfg=cfg, storage=storage)
 
 
@@ -260,7 +310,7 @@ def _cross_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
         valid = torch.ones(k.shape[1], dtype=torch.bool, device=x.device)
         out = combine_decode_partials(
             *decode_attention_local(q, k, v, valid)).reshape(b, s, -1)
-        return out @ p["wo"], cache
+        return out.to(x.dtype) @ p["wo"], cache
     t = enc_out.shape[1]
     k = (enc_out @ p["wk"]).reshape(b, t, kvh, hd)
     v = (enc_out @ p["wv"]).reshape(b, t, kvh, hd)
@@ -276,7 +326,8 @@ def _encoder_apply(params: Any, cfg: ModelConfig,
     without RoPE and the MLP, then the encoder's final norm."""
     enc = params["encoder"]
     x = frames + sinusoidal_positions(frames.shape[1], frames.shape[2],
-                                      device=frames.device)[None]
+                                      device=frames.device
+                                      )[None].to(frames.dtype)
     for layer in range(cfg.n_encoder_layers):
         p = T.tree_map(lambda a: a[layer], enc["layers"][0])
         a, _ = attention_forward(p["attn"], rms_norm(x, p["norm1"],
@@ -290,6 +341,7 @@ def _encoder_apply(params: Any, cfg: ModelConfig,
 
 def model_apply(params: Any, defs: ModelDefs, batch: dict, *,
                 mode: str = "train", cache: dict | None = None,
+                compute_dtype=torch.float32, remat=True,
                 long_serve: bool = False, logits_from: int = 0):
     """Forward of tokens ``(b, s)``.  Returns (float32 logits ``(b, s -
     logits_from, V)`` of the positions from ``logits_from`` on, cache):
@@ -313,22 +365,28 @@ def model_apply(params: Any, defs: ModelDefs, batch: dict, *,
     asserts).
 
     ``long_serve`` caps the 'A' blocks' attention at
-    ``cfg.long_context_window`` positions.
+    ``cfg.long_context_window`` positions.  ``compute_dtype`` and
+    ``remat`` (train only) are the reference's (module docstring).
     """
     logits, cache, _ = _apply(params, defs, batch, mode=mode,
-                              cache=cache, long_serve=long_serve,
+                              cache=cache, compute_dtype=compute_dtype,
+                              remat=remat, long_serve=long_serve,
                               logits_from=logits_from)
     return logits, cache
 
 
 def _apply(params: Any, defs: ModelDefs, batch: dict, *,
            mode: str = "train", cache: dict | None = None,
+           compute_dtype=torch.float32, remat=True,
            long_serve: bool = False, logits_from: int = 0):
     """:func:`model_apply`, returning (logits, cache, aux): the MoE blocks'
-    auxiliary losses summed over the layers, 0 without MoE blocks."""
+    auxiliary losses summed over each period and then over the periods,
+    0 without MoE blocks."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
+    _check_dtype(compute_dtype)
+    check_remat(remat)
     cfg = defs.cfg
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -342,7 +400,8 @@ def _apply(params: Any, defs: ModelDefs, batch: dict, *,
                              "come from the prefill's cache")
         pos = cache["len"]
     if mode == "prefill" and cache is None:
-        cache = init_cache(cfg, b, s, device=tokens.device,
+        cache = init_cache(cfg, b, s, dtype=compute_dtype,
+                           device=tokens.device,
                            enc_len=None if frames is None
                            else frames.shape[1])
     if mode == "prefill":
@@ -357,40 +416,62 @@ def _apply(params: Any, defs: ModelDefs, batch: dict, *,
                 for e in cache["layers"] + cache.get("prelude", ())):
             raise ValueError(f"{frames.shape[1]} frames do not fill the "
                              "cache's cross K/V")
-    x = embed_lookup(params["embed"], tokens, cfg)
+    x = embed_lookup(params["embed"], tokens, cfg, dtype=compute_dtype)
     enc_out = None
     if cfg.is_encoder_decoder:
         if frames is not None:
-            enc_out = _encoder_apply(params, cfg, frames)
-        x = x + params["pos_emb"][pos:pos + s][None]
-    # (code, parameters, cache entry) of every layer: the prelude's, then
-    # the periods' slices of the stacked trees
-    blocks = [(code, params["prelude"][i],
-               cache["prelude"][i] if cache is not None else None)
-              for i, code in enumerate(cfg.prelude)]
-    for layer in range(cfg.n_periods):
-        for j, code in enumerate(cfg.period):
-            p = T.tree_map(lambda a: a[layer], params["layers"][j])
-            blocks.append((code, p, T.tree_map(
-                lambda a: a[layer], cache["layers"][j])
-                if cache is not None else None))
-    aux = torch.zeros((), device=tokens.device)
-    for code, p, entry in blocks:
+            enc_out = _encoder_apply(params, cfg, frames.to(compute_dtype))
+        x = x + params["pos_emb"][pos:pos + s][None].to(x.dtype)
+    use_rope = not cfg.is_encoder_decoder
+
+    def run(code, p, entry, x):
+        """One block; in prefill its cache parts are written into
+        ``entry``: K and V fill the prompt's positions (the cross K/V all
+        the frames), a Mamba2 block's state and conv windows the whole of
+        theirs, each cast to the cache's dtype."""
         x, parts, a = _block_forward(
             code, p, x, cfg, mode=mode,
             cache=entry if mode == "decode" else None, pos=pos,
-            long_serve=long_serve, enc_out=enc_out,
-            use_rope=not cfg.is_encoder_decoder)
+            long_serve=long_serve, enc_out=enc_out, use_rope=use_rope)
         if mode == "prefill":
-            # K and V fill the prompt's positions (the cross K/V all the
-            # frames); a Mamba2 block's state and conv windows fill the
-            # whole of theirs
             for part, c in parts.items():
                 for dst, src in zip(T.tree_leaves(entry[part]),
                                     T.tree_leaves(c)):
                     dst[:, :src.shape[1]] = src
+        return x, a
+
+    def period(x, layer):
+        """The codes of period ``layer``: (x, their auxiliary losses
+        summed)."""
+        aux_p = torch.zeros((), device=tokens.device)
+        for j, code in enumerate(cfg.period):
+            p = T.tree_map(lambda a: a[layer], params["layers"][j])
+            entry = (T.tree_map(lambda a: a[layer], cache["layers"][j])
+                     if cache is not None else None)
+            x, a = run(code, p, entry, x)
+            if a is not None:
+                aux_p = aux_p + a
+        return x, aux_p
+
+    aux = torch.zeros((), device=tokens.device)
+    for i, code in enumerate(cfg.prelude):
+        x, a = run(code, params["prelude"][i],
+                   cache["prelude"][i] if cache is not None else None, x)
         if a is not None:
             aux = aux + a
+    recompute = mode == "train" and remat is not False \
+        and torch.is_grad_enabled()
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    _dots_saveable)
+                  if remat == "dots" else None)
+    for layer in range(cfg.n_periods):
+        if recompute:
+            x, aux_p = checkpoint(
+                period, x, layer, use_reentrant=False,
+                **({"context_fn": context_fn} if context_fn else {}))
+        else:
+            x, aux_p = period(x, layer)
+        aux = aux + aux_p
     x = rms_norm(x[:, logits_from:], params["final_norm"], cfg.norm_eps)
     logits = logits_local(params["embed"], x, cfg)
     if mode == "train":
@@ -404,22 +485,26 @@ def _apply(params: Any, defs: ModelDefs, batch: dict, *,
     return logits, cache, aux
 
 
-def train_loss(params: Any, defs: ModelDefs, batch: dict):
+def train_loss(params: Any, defs: ModelDefs, batch: dict,
+               compute_dtype=torch.float32, remat=True):
     """(loss, {"ce": ..., "aux": ...}): the cross-entropy plus
     ``cfg.router_aux_weight`` times the MoE blocks' auxiliary loss (0
     without MoE blocks, so loss == ce for dense models)."""
-    logits, _, aux = _apply(params, defs, batch)
+    logits, _, aux = _apply(params, defs, batch,
+                            compute_dtype=compute_dtype, remat=remat)
     ce = sharded_softmax_xent(logits, batch["labels"])
     return ce + defs.cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def greedy_decode_step(params: Any, defs: ModelDefs, tokens: torch.Tensor,
-                       cache: dict, long_serve: bool = False):
+                       cache: dict, compute_dtype=torch.float32,
+                       long_serve: bool = False):
     """One serving step: tokens ``(b, 1)`` -> (greedy next ids ``(b, 1)``
     int32, the cache advanced by one position, the step's logits ``(b,
     V)``).  The reference returns the first two."""
     logits, cache = model_apply(params, defs, {"tokens": tokens},
                                 mode="decode", cache=cache,
+                                compute_dtype=compute_dtype,
                                 long_serve=long_serve)
     return sharded_greedy_sample(logits[:, -1:, :]), cache, logits[:, -1]
 
@@ -460,11 +545,14 @@ class Transformer(nn.Module):
 
     Built from an existing tree, each parameter shares that tensor's
     storage, so a stacked multi-node tree can hand node ``i``'s slice to a
-    module without a copy.  ``forward(batch)`` returns ``train_loss``."""
+    module without a copy.  ``forward(batch)`` returns ``train_loss`` at
+    the module's ``compute_dtype`` and ``remat``."""
 
-    def __init__(self, defs: ModelDefs, params: Any):
+    def __init__(self, defs: ModelDefs, params: Any,
+                 compute_dtype=torch.float32, remat=True):
         super().__init__()
         self.defs = defs
+        self.compute_dtype, self.remat = compute_dtype, remat
         self.params = _Tree(params)
 
     def tree(self) -> Any:
@@ -472,4 +560,5 @@ class Transformer(nn.Module):
         return self.params.tree()
 
     def forward(self, batch: dict):
-        return train_loss(self.tree(), self.defs, batch)
+        return train_loss(self.tree(), self.defs, batch,
+                          compute_dtype=self.compute_dtype, remat=self.remat)

@@ -5,6 +5,17 @@ new parameter and state trees and leaves its inputs untouched.  Leaves may
 carry a leading consensus-node axis; every update is elementwise.
 ``Sgd`` is the paper-faithful choice (DGD/ADC-DGD are plain gradient
 descent); ``Momentum`` and ``Adam`` are the production extensions.
+
+Leaves of another dtype than float32 (bfloat16 parameters) follow the
+reference as XLA compiles it: a Python constant (``beta``,
+``weight_decay``) is weakly typed, so it is rounded to the leaf's dtype
+and each product or sum of such leaves is rounded; the learning rate is a
+float32 array, so the update ``p - lr * d`` is float32 arithmetic, which
+XLA contracts into one fused multiply-add, then rounded once to the
+leaf's dtype; and a bfloat16 result whose only use is that float32 update
+(the direction ``d``) is never rounded, because XLA drops a rounding that
+is followed by a cast back to float32.  Float32 leaves take the float32
+arithmetic they always did.
 """
 from __future__ import annotations
 
@@ -17,6 +28,19 @@ import torch
 from repro_torch.core import tree as T
 
 __all__ = ["Optimizer", "Sgd", "Momentum", "Adam", "by_name"]
+
+
+def _weak(c: float, like: torch.Tensor) -> float:
+    """A weakly typed Python constant as the reference's arithmetic sees it
+    beside ``like``: rounded to ``like``'s dtype."""
+    return float(torch.tensor(c, dtype=like.dtype))
+
+
+def _update(p: torch.Tensor, lr: float, d: torch.Tensor) -> torch.Tensor:
+    """``p - lr * d`` of a leaf stored in another dtype than float32, with
+    ``d`` float32: one float32 fused multiply-add (the float64 product of
+    two float32 values is exact), rounded to ``p``'s dtype."""
+    return (p.double() - lr * d.double()).float().to(p.dtype)
 
 
 def _map_n(fn, n_out: int, *trees):
@@ -52,9 +76,14 @@ class Sgd(Optimizer):
 
     def step(self, state, params, grads, lr):
         def upd(p, g):
+            if p.dtype == torch.float32:
+                if self.weight_decay:
+                    g = g + self.weight_decay * p
+                return (p - lr * g).to(p.dtype)
+            d = g.float()
             if self.weight_decay:
-                g = g + self.weight_decay * p
-            return (p - lr * g).to(p.dtype)
+                d = d + (_weak(self.weight_decay, p) * p).float()
+            return _update(p, lr, d)
         return T.tree_map(upd, params, grads), state
 
 
@@ -69,11 +98,21 @@ class Momentum(Optimizer):
 
     def step(self, state, params, grads, lr):
         def upd(p, g, m):
+            if p.dtype == torch.float32:
+                if self.weight_decay:
+                    g = g + self.weight_decay * p
+                m_new = self.beta * m + g
+                d = g + self.beta * m_new if self.nesterov else m_new
+                return (p - lr * d).to(p.dtype), m_new
+            # m keeps the parameters' dtype; d is float32 (module doc)
             if self.weight_decay:
-                g = g + self.weight_decay * p
-            m_new = self.beta * m + g
-            d = g + self.beta * m_new if self.nesterov else m_new
-            return (p - lr * d).to(p.dtype), m_new
+                g = g + _weak(self.weight_decay, p) * p
+            beta = _weak(self.beta, m)
+            m32 = (beta * m).float() + g.float()
+            m_new = m32.to(m.dtype)
+            d = (g.float() + (beta * m_new).float() if self.nesterov
+                 else m32)
+            return _update(p, lr, d), m_new
         new_p, new_m = _map_n(upd, 2, params, grads, state["m"])
         return new_p, {"m": new_m}
 

@@ -12,6 +12,7 @@ decode products into the sums as FMAs (ROADMAP Queue 3, hazard 5).
 The hand-written CUDA kernels themselves are held to their plain versions
 in ``test_torch_cuda.py`` (on a GPU) and by ``chip_smoke.py``.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

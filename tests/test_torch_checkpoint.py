@@ -13,6 +13,7 @@
     in the same order, shapes and dtypes.
   * ROADMAP hazard 21: the adaptive controller's state is not saved.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 
 import jax

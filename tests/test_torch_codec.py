@@ -16,6 +16,7 @@ payload bytes are exact, ``x_tilde``, ``m_agg`` and ``x_next`` agree within
 decode products into the sums as FMAs; ROADMAP Queue 3, hazards 4-5), the
 overflow fraction and ``wire_bytes_per_step`` are equal.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import math
 import os

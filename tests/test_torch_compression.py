@@ -15,6 +15,7 @@ Statistics (the port alone, mirroring ``tests/test_compression.py``):
 unbiasedness within 5 standard errors of a Monte-Carlo mean, the variance
 bound, the grid, the wire round trips and byte counts.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,7 @@ Contract checked:
   * the ``dgd``, ``allreduce`` and ``none`` baselines and the
     consensus-error metric agree with the reference on one step.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 import subprocess

@@ -13,6 +13,7 @@ flash-decode partials within the float32 tolerances of the CPU test
 (``test_torch_serve.py``) on the invariants ``acc / l`` and ``m + log l``,
 for bf16 inputs too (both sides widen them exactly to float32).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 import torch
@@ -981,3 +982,137 @@ def test_cuda_whisper_prefill_and_decode_match_cpu(cuda_device):
             {k: v for k, v in cache.items() if k != "len"})]
     for a, b in zip(out["cpu"], out[str(cuda_device)]):
         assert torch.allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+#: bfloat16 on the card against the CPU: both are bfloat16 forwards that
+#: round in other places (products sum in other orders), each within a few
+#: bfloat16 roundings of a float64 forward (tests/test_torch_precision.py),
+#: so values are held to this share of the largest one
+BF16_RTOL = 2.0 ** -5
+
+
+def _bf16_close(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    assert float((a - b).abs().max()) <= BF16_RTOL * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "gemma2-9b"])
+def test_cuda_bf16_prefill_and_decode_match_cpu(cuda_device, arch):
+    """Reduced ``arch`` at bfloat16 compute and cache, the same weights on
+    the card and on the CPU: prefill logits and caches, then 4
+    teacher-forced decode steps, #9 reading the bfloat16 cache once per
+    layer and step."""
+    from repro_torch.core import tree as T
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params
+    cfg = reduced(get_config(arch))
+    defs = TF.build_defs(cfg, dtype=torch.bfloat16)
+    params = init_params(defs.storage, 0, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 84)))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = T.tree_map(lambda a: a.to(dev), params)
+        pre = serve.build_prefill_setup(cfg, device=dev,
+                                        compute_dtype=torch.bfloat16)
+        first, cache = pre.prefill_step(p, {"tokens": tokens[:, :80].to(dev)},
+                                        84)
+        before = G.gqa_decode.launches
+        steps = []
+        with torch.inference_mode():
+            for t in range(80, 84):
+                lg, cache = TF.model_apply(
+                    p, defs, {"tokens": tokens[:, t:t + 1].to(dev)},
+                    mode="decode", cache=cache, compute_dtype=torch.bfloat16)
+                steps.append(lg)
+        leaves = T.tree_leaves({k: v for k, v in cache.items()
+                                if k != "len"})
+        assert {a.dtype for a in leaves} == {torch.bfloat16}
+        if dev != "cpu":
+            assert G.gqa_decode.launches - before == 4 * cfg.n_layers
+        out[str(dev)] = [first.cpu()] + [a.cpu() for a in steps + leaves]
+    for a, b in zip(out["cpu"][1:], out[str(cuda_device)][1:]):
+        _bf16_close(b, a)
+
+
+@pytest.mark.cuda
+def test_cuda_gqa_decode_on_a_bf16_model_cache(cuda_device):
+    """#9 on the bfloat16 K and V cache of a reduced prefill on the card
+    (its bfloat16 branch), against its plain version, within the decode
+    tolerances of the float32 tests (both widen bfloat16 exactly)."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params
+    cfg = reduced(get_config("smollm-135m"))
+    defs = TF.build_defs(cfg, dtype=torch.bfloat16)
+    params = init_params(defs.storage, 0, cuda_device)
+    pre = serve.build_prefill_setup(cfg, device=cuda_device,
+                                    compute_dtype=torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 96))).to(cuda_device)
+    _, cache = pre.prefill_step(params, {"tokens": tokens}, 128)
+    entry = cache["layers"][0]["attn"]
+    k, v = entry["k"][1], entry["v"][1]
+    assert k.dtype == v.dtype == torch.bfloat16
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn((4, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                     cfg.resolved_head_dim), generator=g,
+                    device=cuda_device)
+    valid = torch.arange(128, device=cuda_device) < 96
+    before = G.gqa_decode.launches
+    m, l, acc = G.gqa_decode(q, k, v, valid)
+    assert G.gqa_decode.launches == before + 1
+    pm, pl, pacc = G.gqa_decode_plain(q, k, v, valid)
+    assert torch.allclose(acc / l[..., None], pacc / pl[..., None],
+                          atol=1e-5, rtol=1e-5)
+    assert torch.allclose(m + torch.log(l), pm + torch.log(pl), atol=5e-5,
+                          rtol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [True, False], ids=["full", "none"])
+def test_cuda_bf16_train_step_matches_cpu(cuda_device, remat):
+    """A bfloat16 trainer step of reduced smollm-135m on 4 nodes, the same
+    weights, batch and quantization noise on the card and on the CPU: #1
+    and #2 once per node, losses within 1e-3, bfloat16 parameters within
+    BF16_RTOL of the CPU's and 2 grid steps, float32 shadows within 2
+    grid steps (a rounding may move a code: hazard 4's tests)."""
+    from repro_torch.core import tree as T
+    cfg = reduced(get_config("smollm-135m"))
+    batch = SyntheticLMDataset(cfg.vocab_size, 64, 8,
+                               n_shards=4).global_batch_arrays(0)
+    out = {}
+    base = None
+    for dev in ("cpu", cuda_device):
+        setup = train.build_train_setup(cfg, consensus_nodes=4, device=dev,
+                                        compute_dtype=torch.bfloat16,
+                                        remat=remat)
+        state = train.init_train_state(setup, 0, params=None if base is None
+                                       else T.tree_map(lambda a: a.to(dev),
+                                                       base))
+        base = state["params"]
+        rows = setup.consensus.state_layout(base).n_rows
+        noise = torch.rand((4, rows, BLOCK), generator=torch.Generator(
+            ).manual_seed(5)).to(dev)
+        before = (Q.quantize_payload.launches,
+                  D.dequant_combine_payload.launches)
+        state, metrics = train.train_step(setup, state, batch, noise=noise)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert (Q.quantize_payload.launches - before[0],
+                    D.dequant_combine_payload.launches - before[1]) == (4, 4)
+        assert {a.dtype for a in T.tree_leaves(state["params"])} == {
+            torch.bfloat16}
+        assert state["consensus"]["x_tilde"].dtype == torch.float32
+        out[str(dev)] = (metrics["loss"], T.tree_leaves(state["params"]),
+                         state["consensus"]["x_tilde"])
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert card[0] == pytest.approx(cpu[0], rel=1e-3)
+    # the gradients round apart, so a stochastic rounding may land on the
+    # other side of its threshold: an element of x_tilde (and the step it
+    # adds to a parameter) moves by a grid step (fixed_step0 at step 1)
+    grid = 2 * setup.consensus.cfg.fixed_step0
+    for a, b in zip(card[1], cpu[1]):
+        assert float((a.float().cpu() - b.float()).abs().max()) <= \
+            grid + BF16_RTOL * float(b.float().abs().max())
+    assert float((card[2].cpu() - cpu[2]).abs().max()) <= grid

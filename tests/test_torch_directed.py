@@ -29,6 +29,7 @@
   * The trainer's ``--topology directed-ring`` and ``--forward-weight`` on
     ``--reduced --device cpu``.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import math
 
 import jax

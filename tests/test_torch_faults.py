@@ -34,6 +34,7 @@ the JAX package.
     ``--resync-retries``, ``--straggle`` and ``--straggle-seed`` on
     ``--reduced --device cpu``.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import math
 import os

@@ -30,6 +30,7 @@
     and one combine per pod.
   * The trainer's ``--hierarchy`` on ``--reduced --device cpu``.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import numpy as np
 import pytest

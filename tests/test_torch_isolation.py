@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-entry points default to CUDA and refuse to run silently on the CPU, and
+"""The port stands alone: it imports neither JAX nor the JAX package nor
+``ml_dtypes`` (the card's machine has none of them), its entry points default to CUDA and refuse to run silently on the CPU, and
 its kernel modules import where there is no CUDA toolkit."""
+import torch_threads  # noqa: F401  (first: one torch thread)
 import ast
 import os
 import subprocess
@@ -15,6 +16,8 @@ from repro_torch.core import tree as T
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "src", "repro_torch")
+#: top-level packages the port must not import
+FOREIGN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _py_files():
@@ -25,7 +28,7 @@ def _py_files():
 
 
 def _jax_imports(path):
-    """Every import of ``jax``/``jaxlib``/``repro`` in a file, at any depth
+    """Every import of a FOREIGN package in a file, at any depth
     (imports inside functions count too)."""
     bad = []
     for node in ast.walk(ast.parse(open(path).read(), path)):
@@ -36,7 +39,7 @@ def _jax_imports(path):
         else:
             continue
         bad += [f"{os.path.relpath(path, REPO)}: {name}" for name in names
-                if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+                if name.split(".")[0] in FOREIGN]
     return bad
 
 
@@ -51,8 +54,8 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
 
 
 def test_fresh_import_pulls_in_no_jax():
-    """Import every port module in a fresh interpreter: neither ``jax``
-    nor ``repro`` may appear in ``sys.modules`` afterwards."""
+    """Import every port module in a fresh interpreter: no FOREIGN
+    package may appear in ``sys.modules`` afterwards."""
     mods = []
     for path in _py_files():
         rel = os.path.relpath(path, os.path.join(REPO, "src"))[:-3]
@@ -63,7 +66,7 @@ def test_fresh_import_pulls_in_no_jax():
         for m in {mods!r}:
             importlib.import_module(m)
         leaked = sorted(k for k in sys.modules
-                        if k.split(".")[0] in ("jax", "jaxlib", "repro"))
+                        if k.split(".")[0] in {FOREIGN!r})
         print("LEAKED", leaked)
     """)
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

@@ -29,6 +29,7 @@
     the epoch boundaries until the mask has clamped.
   * The trainer's ``--node-failures`` on ``--reduced --device cpu``.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 import subprocess

@@ -17,6 +17,7 @@ from a true division, so the port multiplies by ``f32(1/M)`` too.
   * The trainer's ``--microbatches`` and its refusal of a batch that does
     not split.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

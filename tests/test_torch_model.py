@@ -9,6 +9,7 @@ the reference's online softmax vs a plain one), so values agree to float32
 rounding, not bit for bit: ``LOSS_RTOL`` on the loss, ``GRAD_RTOL`` of each
 leaf's largest gradient on the gradients.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -29,6 +29,7 @@ The paper's claims on the port alone mirror ``tests/test_consensus_paper.py``
 there, identity ADC-DGD equals DGD and CEDAS at staleness 0 equals ADC-DGD
 bit for bit.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

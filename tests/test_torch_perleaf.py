@@ -27,6 +27,7 @@ In the port alone: per-leaf equals packed bit for bit over 5 exchanges
 for both algorithms, and the configurations the reference refuses are
 refused.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 import subprocess

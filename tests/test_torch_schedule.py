@@ -21,6 +21,7 @@ held to the JAX package.
     identity ADC-DGD is DGD under a schedule (bit for bit here), and
     ADC-DGD converges under periodic and i.i.d. random schedules.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import numpy as np
 import pytest

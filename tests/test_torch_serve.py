@@ -20,6 +20,7 @@ run float32 on the CPU but sum in other orders: logits agree within
 ``LOGIT_TOL`` (absolute and relative; the reference's own decode test
 allows 2e-3).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -25,6 +25,7 @@ windows.  Greedy tokens are equal.  The trainer is held to the
 reference's exchange-level runtime by the harness of
 ``test_torch_train.py``, within its grid-step bounds.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import json
 import os

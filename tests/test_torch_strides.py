@@ -28,6 +28,7 @@ Queue 3, hazard 4); wire bytes and collectives per step equal.
 And the trainer's ``--ring-strides`` / ``--schedule-period`` on
 ``--reduced --device cpu``.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import hashlib
 import json
 import math

@@ -25,6 +25,7 @@
     the churn epochs, on pods 2, on the strided per-leaf ring and with
     straggler deadlines; the recorder's schedule equals the reference's.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 import json
 import os

@@ -8,6 +8,7 @@ same message.  The directed rows of ``by_name`` build the reference's
 column-stochastic matrices (``tests/test_torch_directed.py`` holds the
 directed half in full).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import numpy as np
 import pytest
 

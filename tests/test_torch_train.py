@@ -17,6 +17,7 @@ one grid step.  Parameters and ``x_tilde`` may therefore differ by at most
 ``MAX_FRAC_OFF`` of the elements; everything else agrees to float32
 rounding, as do the losses (``LOSS_RTOL``).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import os
 import subprocess

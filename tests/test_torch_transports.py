@@ -24,6 +24,7 @@ equal.
 
 And the trainer's new flags on ``--reduced --device cpu``.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import json
 import math
 import os

@@ -26,6 +26,7 @@ fixtures.  The consensus exchange is model-agnostic and held to the
 reference's runtime in ``test_torch_train.py``; here the trainer runs its
 CLI on the CPU and its wire bytes are held to the reference's layout.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import dataclasses
 
 import jax

@@ -5,6 +5,7 @@ only) and must have the reference's slot paths, row starts and heights —
 the contract that makes the two packages' packed buffers and payloads
 line up row for row.
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np

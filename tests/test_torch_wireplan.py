@@ -10,6 +10,7 @@ prices and decides as the reference's; ``WirePlanCompressor`` and
 ``on_wire_plan`` step as the jitted reference (codes exact, state within
 STATE_ULPS).
 """
+import torch_threads  # noqa: F401  (first: one torch thread)
 import jax
 import jax.numpy as jnp
 import numpy as np
