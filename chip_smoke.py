@@ -61,8 +61,8 @@ Phases (any failure exits non-zero before the result line):
              launches per step of every plan and tier are also held to the
              written-out ``PLAN_STEP_LAUNCHES``;
              then the time-varying ring on the full smollm-135m x 5 nodes
-             (``--ring-strides 1,2 --schedule-period 2``, int8 fixed, 6
-             steps: stride 1 at steps 1-2 and 5-6, stride 2 at 3-4, the
+             (``--ring-strides 1,2 --schedule-period 2``, int8 fixed, 5
+             steps: stride 1 at steps 1-2 and 5, stride 2 at 3-4, the
              m_agg resync at 3 and 5) packed, pipelined over 4 units, async
              at staleness 0 and 1 and per-leaf, each counted on its own
              (launches per node and unit, or per leaf; the reference's wire
@@ -75,7 +75,7 @@ Phases (any failure exits non-zero before the result line):
              exchange time at a resync against steps without one;
              then the lossy and directed rings (``phase_faults``), each
              run counted and every exchange watched: 4 nodes on the
-             directed ring with push-sum, adaptive grid, loss seed 1, 6
+             directed ring with push-sum, adaptive grid, loss seed 1, 5
              steps at loss None, 0.0, 0.05 and 0.2 packed, then 0.2
              pipelined over 4 units, async at staleness 0 and per-leaf,
              the Gilbert-Elliott burst channel (p 0.1, r 0.9) with int8
@@ -107,11 +107,11 @@ Phases (any failure exits non-zero before the result line):
              and one combine per active node and unit, packed ==
              pipelined == async s0 bitwise, step 5 through the plain
              versions equal to the kernels; the hierarchy sweep (2 pods
-             of 2 nodes, 6 steps) packed, pipelined 4, async s1 and plan
+             of 2 nodes, 4 steps) packed, pipelined 4, async s1 and plan
              B: pod members bitwise replicas after every step, one launch
              per pod, 3 collectives per step packed, the outer payload
              plus the inner fp32 bytes; pods 4 == the flat ring and pods
-             1 == ``--algorithm allreduce`` bitwise (3 steps each); a
+             1 == ``--algorithm allreduce`` bitwise (2 steps each); a
              single all-active
              mask == no membership bitwise; the exchange timed flat, in
              the hole, at the two resyncs and at pods 2 (its inner mean
@@ -122,7 +122,7 @@ Phases (any failure exits non-zero before the result line):
              bitwise over 20 steps;
              then telemetry, checkpoints and gradient accumulation
              (``phase_telemetry``) on the same 4 nodes, each run counted:
-             ``--telemetry`` for 5 steps on packed, pipelined over 4 units
+             ``--telemetry`` for 4 steps on packed, pipelined over 4 units
              and async at staleness 1 beside the same run without it (the
              sink valid under ``core.telemetry.validate_file``, every
              exchange phase in the trace, the async in-flight span over
@@ -243,6 +243,28 @@ Phases (any failure exits non-zero before the result line):
              also beside a float64 forward), a plain-#9 step within
              BF16_STEP_TOL; #9 is also timed in bfloat16 at both decode
              shapes (phase 7);
+4g. analysis — the cost model (``phase_analysis``): the smollm-135m
+             trainer of phase 3 (4 nodes x 4 x 512, int8 packed, remat
+             none) counted once on ``meta`` by ``launch.dryrun`` and once
+             on the card, both under ``launch.op_cost.CostCounter``:
+             equal FLOPs, HBM bytes, launches per aten op and kernel
+             calls, #1 and #2 launched 4 times each; the state bytes the
+             dry run predicts against ``torch.cuda.memory_allocated()``
+             after the real setup is built (within ALLOC_ROUND bytes per
+             tensor); the counted TFLOP, 6ND, the useful ratio and the MFU
+             against the card's float32 peak from an uncounted step; the
+             dry runs of ANALYSIS_DRYRUNS (started after the build, one
+             process each, on the host's cores) with their three roofline
+             terms and ``fits``; ``measure_consensus_overhead`` on the
+             live 4-node state (PROBE_CALLS exchanges, the state bitwise
+             unchanged); the trainer CLI for 3 steps with its probe (the
+             earlier phases set it aside: ``_no_probe``); the examples at
+             reduced size: ``torch_serve_batched`` (#9 launched layers x
+             15 times, tokens equal to a run through the plain #9),
+             ``torch_decentralized_train`` (#1 / #2 launched 6 x 2 times
+             by ADC-DGD alone, wire bytes the static accounting) and
+             ``torch_quickstart`` (no kernel; ADC-DGD below direct
+             compression);
 5. parity  — reduced smollm-135m, 2 steps on the card and on the CPU from
              the same weights and quantization noise, for the int8, int4
              and top-k wires, the per-leaf transport, compressed_dgd
@@ -373,12 +395,13 @@ PLAN_STEP_LAUNCHES = {
 
 #: the time-varying ring (``phase_strides``): full smollm-135m on 5 nodes,
 #: so that stride 2 reaches other nodes than stride 1, at strides (1, 2)
-#: held 2 steps each: stride 1 at steps 1-2 and 5-6, stride 2 at 3-4, and
-#: the m_agg resync at steps 3 and 5
-STRIDE_NODES, STRIDE_STEPS, STRIDE_PERIOD = 5, 6, 2
+#: held 2 steps each: stride 1 at steps 1-2 and 5, stride 2 at 3-4, and
+#: the m_agg resync at steps 3 and 5 (5 steps: the second resync is the
+#: last, cut for the script's time)
+STRIDE_NODES, STRIDE_STEPS, STRIDE_PERIOD = 5, 5, 2
 STRIDE_ARGV = ("--ring-strides", "1,2", "--schedule-period",
                str(STRIDE_PERIOD))
-STRIDE_SEQ = [1, 1, 2, 2, 1, 1]
+STRIDE_SEQ = [1, 1, 2, 2, 1]
 RESYNC_STEPS = (3, 5)
 #: the reference's wire bytes per step there: the int8 payload plus the
 #: resync's fp32 x_tilde both ways, amortized over the period
@@ -1236,7 +1259,7 @@ def stride_probe(torch, Q, D, train):
 
 def phase_strides(torch, Q, D, train, entries):
     """The time-varying ring on the full smollm-135m x 5 nodes, strides
-    (1, 2) held 2 steps each, int8 fixed grid: 6 steps on each transport,
+    (1, 2) held 2 steps each, int8 fixed grid: 5 steps on each transport,
     each run counted on its own (launches as designed, the reference's
     wire bytes and collectives, the stride and resync of every step);
     packed == pipelined == async at staleness 0 bitwise; the watched probe
@@ -1315,12 +1338,12 @@ def phase_strides(torch, Q, D, train, entries):
 #: the lossy and directed rings (``phase_faults``) on the full smollm-135m
 #: x 4 nodes: the reference's packet-loss sweep (``benchmarks/
 #: consensus_step.py:171-174``: directed-ring push-sum on the adaptive
-#: grid, loss seed 1, rates None / 0.0 / 0.05 / 0.2; 6 of its 8 steps, cut
+#: grid, loss seed 1, rates None / 0.0 / 0.05 / 0.2; 5 of its 8 steps, cut
 #: for the script's time), its burst
 #: channel (``CHURN_BURST``, :202), the async transport's straggler
 #: deadlines, and the strided 5-node ring of ``phase_strides`` with one
 #: resync retry (some handshakes fail)
-FAULT_STEPS, LOSS_SEED, STRAGGLE = 6, 1, 0.2
+FAULT_STEPS, LOSS_SEED, STRAGGLE = 5, 1, 0.2
 LOSS_RATES = (None, 0.0, 0.05, 0.2)
 CHURN_BURST = "gilbert:p=0.1,r=0.9"
 FAULT_ARGV = ("--topology", "directed-ring", "--quant-mode", "adaptive",
@@ -1841,8 +1864,9 @@ CHURN_HOLE = (True, True, False, True)
 #: resync, 271,160,064 + 2 x 262,752 x 512 x 4 / 4
 CHURN_WIRE_BYTES = 540_218_112
 #: the reference's hierarchy sweep (``HIER_PODS``, ``HIER_GOSSIP_STEPS``,
-#: ``benchmarks/consensus_step.py:218-232``): 2 pods of 2 of the 4 nodes
-HIER_PODS, HIER_STEPS = 2, 6
+#: ``benchmarks/consensus_step.py:218-232``): 2 pods of 2 of the 4 nodes,
+#: 4 of its 6 steps (cut for the script's time)
+HIER_PODS, HIER_STEPS = 2, 4
 #: the paper path's membership (nodes 3 and 7 of 20 out for epochs 1-2
 #: and 2-3 of 50 steps) and pod counts
 PAPER_MEMBERSHIP, PAPER_EPOCH = "3@1:3;7@2:4", 50
@@ -1907,11 +1931,11 @@ def phase_elastic(torch, Q, D, train, entries):
     bytes, launches per active node, packed == pipelined == async s0
     bitwise, step 5 through the plain versions equal to the kernels, zero
     payloads and delivered bytes as the burst mask says for the active
-    receivers; (b) the hierarchy sweep, 6 steps: pods 2 packed, pipelined
+    receivers; (b) the hierarchy sweep, 4 steps: pods 2 packed, pipelined
     4, async s1 and plan B (members bitwise replicas after every step, 3
     collectives per step packed, the outer payload plus the inner fp32
     bytes), pods 4 == the flat ring and pods 1 == ``--algorithm
-    allreduce`` bitwise (3 steps each); then the exchange timed (``phase_elastic_timing``)
+    allreduce`` bitwise (2 steps each); then the exchange timed (``phase_elastic_timing``)
     and the paper path (``phase_paper_elastic``).  Returns (launches, step
     s, exchange ms, peak GB)."""
     from repro_torch.configs import get_config
@@ -2141,10 +2165,10 @@ def phase_elastic_timing(torch, train):
     return ms
 
 
-#: the telemetry phase: 5 steps of each transport with and without
+#: the telemetry phase: 4 steps of each transport with and without
 #: ``--telemetry``; the checkpoint resume (2 + 2 against 4 steps); 3 steps of
 #: ``--microbatches 2`` and of 1
-TEL_STEPS, CKPT_STEPS, MICRO_STEPS = 5, 4, 3
+TEL_STEPS, CKPT_STEPS, MICRO_STEPS = 4, 4, 3
 TEL_RUNS = {"packed": (),
             "pipelined 4": ("--wire-packing", "pipelined",
                             "--pipeline-chunks", str(PIPELINE_CHUNKS)),
@@ -2199,7 +2223,7 @@ def tel_trace_checks(label, sink, trace_path, hist):
 def phase_telemetry(torch, train, entries, main_int8):
     """Telemetry, checkpoints and gradient accumulation on the full
     smollm-135m x 4 nodes, int8 fixed grid, each trainer run counted:
-    (a) ``--telemetry`` for 5 steps on packed, pipelined 4 and async s1
+    (a) ``--telemetry`` for 4 steps on packed, pipelined 4 and async s1
     beside the same run without it: the sink valid, every phase in the
     trace, async's in-flight span over the next step's compute, shipped
     bytes = the int8 payload, losses and metrics of every step, final
@@ -3976,6 +4000,307 @@ def phase_precision(torch, Q, D, G, train, entries, main_int8):
     return launches, summary
 
 
+#: the dry runs ``phase_analysis`` prints: (arch, input shape), each a
+#: ``python -m repro_torch.launch.dryrun`` process started with the build
+#: (they need no card) and waited for in the phase
+ANALYSIS_DRYRUNS = (("smollm-135m", "train_4k"), ("smollm-135m", "decode_32k"),
+                    ("chameleon-34b", "decode_32k"))
+#: the caching allocator's rounding, per tensor: its bytes round up to 512
+#: B, and a block cut from a new segment keeps the segment's tail when that
+#: is under 1 MiB (the large pool splits a segment only above it)
+ALLOC_ROUND = (1 << 20) + 512
+#: the examples at reduced size: serve_batched's run, decentralized_train's
+#: steps and batch, quickstart's cut
+EX_SERVE = ("--arch", "smollm-135m", "--batch", "4", "--prompt-len", "32",
+            "--new-tokens", "16")
+EX_TRAIN_STEPS = 6
+EX_QUICKSTART = ("--steps", "300", "--gamma-steps", "100", "--trials", "3",
+                 "--schedule-steps", "300")
+#: probe calls per measurement: a warm one and the median's five
+PROBE_CALLS = 6
+_DRY_PROCS: list = []
+
+
+def start_dryruns(out_dir: str) -> None:
+    """Start ``ANALYSIS_DRYRUNS``, one process each, on the host's cores
+    beside the card's work; ``phase_analysis`` waits for them (and an
+    early exit kills them: ``stop_dryruns``)."""
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    for arch, shape in ANALYSIS_DRYRUNS:
+        log = open(os.path.join(out_dir, f"{arch}__{shape}.log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", out_dir, "--force"],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=HERE)
+        _DRY_PROCS.append((arch, shape, log, proc))
+
+
+def stop_dryruns() -> None:
+    for _, _, log, proc in _DRY_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def _example(name):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(HERE, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _zero(entries) -> None:
+    for entry in entries.values():
+        entry.launches = 0
+
+
+def _read(entries) -> dict:
+    return {name: entry.launches for name, entry in entries.items()}
+
+
+def phase_analysis(torch, G, train, entries, measure, out_dir, smi):
+    """The cost model against the card (``phase_analysis``): the
+    smollm-135m trainer at the smoke configuration priced on ``meta`` and
+    run on the card, both counted; its state bytes against the allocator;
+    the step's FLOPs against the model's and the card's peak; the dry runs
+    started with the build; the exchange probe on the live state; the
+    trainer CLI with its probe; the three examples at reduced size."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import ops
+    from repro_torch.launch import analysis, dryrun
+    from repro_torch.launch.op_cost import CostCounter
+    from repro_torch.models.config import InputShape
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in entries}
+    summary = {}
+    cfg = get_config("smollm-135m")
+    shape = InputShape("smoke", SEQ, 4 * NODES, "train")
+    kw = dict(nodes=NODES, remat="none")
+    meta_cost, meta_mem = dryrun.count_step(
+        dryrun.build_step(cfg, shape, "meta", **kw))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    real = dryrun.build_step(cfg, shape, "cuda", **kw)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    want = real.state_bytes + real.input_bytes
+    n_storages = len({t.untyped_storage()._cdata for t in T.tree_leaves(
+        [real.state]) if torch.is_tensor(t)}) + 3      # + tokens, labels, noise
+    if not want <= held <= want + ALLOC_ROUND * n_storages:
+        fail(f"analysis: the real setup holds {held} B on the card; the dry "
+             f"run predicts {real.state_bytes} B of state + "
+             f"{real.input_bytes} B of inputs, within {ALLOC_ROUND} B of "
+             f"rounding for each of {n_storages} tensors")
+    _zero(entries)
+    with CostCounter() as counter:
+        real.run()
+    torch.cuda.synchronize()
+    real_cost = counter.cost
+    step_launches = _read(entries)
+    kern = {"quantize_payload": NODES, "dequant_combine_payload": NODES}
+    if dict(real_cost.kernels) != kern or \
+            {n: v for n, v in step_launches.items() if v} != kern:
+        fail(f"analysis: the counted card step reported "
+             f"{dict(real_cost.kernels)} and launched {step_launches}, "
+             f"want {kern}")
+    if meta_cost.as_dict() != real_cost.as_dict():
+        diff = {k: (meta_cost.launches[k], real_cost.launches[k])
+                for k in set(meta_cost.launches) | set(real_cost.launches)
+                if meta_cost.launches[k] != real_cost.launches[k]}
+        fail(f"analysis: the meta dry run counts {meta_cost.flops} FLOPs, "
+             f"{meta_cost.hbm_bytes} B, {meta_cost.n_launches} launches; "
+             f"the card's step {real_cost.flops}, {real_cost.hbm_bytes}, "
+             f"{real_cost.n_launches}; launches (meta, card) differ: {diff}")
+    for name, n in step_launches.items():
+        launches[name] += n
+    times = []
+    _zero(entries)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real.run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    for name, n in _read(entries).items():
+        launches[name] += n
+    step_s = statistics.median(times[1:])
+    n_act = cfg.active_param_count()
+    mflops = analysis.model_flops_per_step(n_act, shape.global_batch * SEQ)
+    peak = analysis.H100.peak_flops["float32"]
+    print(f"[analysis] smollm-135m trainer, {NODES} nodes x 4 x {SEQ}, int8 "
+          f"packed, remat none: meta == card: {real_cost.flops / 1e12:.4f} "
+          f"TFLOP counted, {real_cost.hbm_bytes / 1e9:.4f} GB, "
+          f"{real_cost.n_launches} launches "
+          f"({sum(real_cost.launches.values())} aten ops of "
+          f"{len(real_cost.launches)} kinds + kernels "
+          f"{dict(real_cost.kernels)}); model FLOPs 6ND "
+          f"{mflops / 1e12:.4f} TFLOP (N {n_act}, D {shape.global_batch * SEQ})"
+          f", useful ratio {mflops / real_cost.flops:.4f}; step "
+          f"{step_s:.4f} s (median of steps 2-3, uncounted): MFU "
+          f"{mflops / (step_s * peak):.4f} of {peak / 1e12:.0f} TFLOP/s "
+          f"float32, counted FLOPs at {real_cost.flops / step_s / 1e12:.2f} "
+          f"TFLOP/s; state {real.state_bytes} B predicted, {held} B held with "
+          f"the inputs' {real.input_bytes} B (allocator rounding "
+          f"{held - want} B over {n_storages} tensors); meta account "
+          f"{ {k: v for k, v in meta_mem.items()} }; card {smi}", flush=True)
+    summary["trainer"] = {"tflop": real_cost.flops / 1e12,
+                          "gb": real_cost.hbm_bytes / 1e9,
+                          "launches": real_cost.n_launches,
+                          "model_tflop": mflops / 1e12,
+                          "useful": mflops / real_cost.flops,
+                          "step_s": step_s,
+                          "mfu": mflops / (step_s * peak),
+                          "state_bytes": real.state_bytes, "held": held}
+    # the exchange probe on the live state, which must stay bitwise
+    before = T.tree_map(lambda a: a.clone() if torch.is_tensor(a) else a,
+                        real.state)
+    _zero(entries)
+    over = measure(real.setup, real.state, step_s)
+    torch.cuda.synchronize()
+    probe = _read(entries)
+    for name, n in probe.items():
+        launches[name] += n
+    if {n: v for n, v in probe.items() if v} != {
+            k: PROBE_CALLS * v for k, v in kern.items()}:
+        fail(f"analysis: measure_consensus_overhead launched {probe}, want "
+             f"{PROBE_CALLS} exchanges of {kern}")
+    la, lb = T.tree_leaves(real.state), T.tree_leaves(before)
+    if not all(torch.equal(x, y) if torch.is_tensor(x) else x == y
+               for x, y in zip(la, lb)):
+        fail("analysis: the exchange probe changed the live train state")
+    print(f"[analysis] measure_consensus_overhead: {over}; the live state "
+          f"bitwise unchanged; card {smi}", flush=True)
+    summary["probe"] = over
+    del before, real, counter
+    torch.cuda.empty_cache()
+    # the trainer CLI with its probe: each printed step after the first
+    # reads it, measured once (no re-tier)
+    train.measure_consensus_overhead = measure
+    try:
+        _zero(entries)
+        hist = train.main(train_argv(3))
+    finally:
+        train.measure_consensus_overhead = _no_probe
+    cli = _read(entries)
+    for name, n in cli.items():
+        launches[name] += n
+    want_cli = {k: (3 + PROBE_CALLS) * v for k, v in kern.items()}
+    if {n: v for n, v in cli.items() if v} != want_cli or \
+            not all(math.isfinite(h["loss"]) for h in hist):
+        fail(f"analysis: the trainer CLI with its probe launched {cli}, "
+             f"want {want_cli} (3 steps and one probe measurement)")
+    print(f"[analysis] trainer CLI, 3 steps with the exchange probe: "
+          f"launches {want_cli} as counted", flush=True)
+    # the examples at reduced size
+    t0 = time.perf_counter()
+    mod = _example("torch_serve_batched")
+    _zero(entries)
+    res = mod.main([*EX_SERVE, "--device", "cuda"])
+    got = _read(entries)
+    red = reduced(cfg)
+    new = int(EX_SERVE[EX_SERVE.index("--new-tokens") + 1])
+    want_serve = {"gqa_decode": red.n_layers * (new - 1)}
+    if {n: v for n, v in got.items() if v} != want_serve:
+        fail(f"analysis: serve_batched launched {got}, want {want_serve}")
+    launches["gqa_decode"] += got["gqa_decode"]
+    saved, ops.gqa_decode = ops.gqa_decode, G.gqa_decode_plain
+    try:
+        plain = mod.main([*EX_SERVE, "--device", "cuda"])
+    finally:
+        ops.gqa_decode = saved
+    if not np.array_equal(res["tokens"], plain["tokens"]):
+        fail(f"analysis: serve_batched's tokens through #9 "
+             f"{res['tokens'].tolist()} differ from the plain #9's "
+             f"{plain['tokens'].tolist()}")
+    print(f"[analysis] example serve_batched (reduced smollm-135m, "
+          f"{' '.join(EX_SERVE)}): #9 launched {got['gqa_decode']} = "
+          f"{red.n_layers} layers x {new - 1} steps, tokens equal to the "
+          f"plain #9's; decode {res['decode_s_per_token'] * 1e3:.3f} ms per "
+          "token", flush=True)
+    mod = _example("torch_decentralized_train")
+    _zero(entries)
+    res = mod.main(["--steps", str(EX_TRAIN_STEPS), "--device", "cuda"])
+    got = _read(entries)
+    for name, n in got.items():
+        launches[name] += n
+    ex_kern = {k: EX_TRAIN_STEPS * mod.NODES for k in kern}
+    setup = train.build_train_setup(red, consensus_nodes=mod.NODES,
+                                    device="cuda")
+    from repro_torch.models.params import meta_params
+    layout = setup.consensus.state_layout(T.tree_map(
+        lambda a: a.expand((mod.NODES,) + a.shape),
+        meta_params(setup.defs.storage)))
+    wire = {"adc_dgd": 2 * layout.n_rows * PAYLOAD,
+            "dgd": 2 * 4 * layout.n_elements, "allreduce": 0}
+    if {n: v for n, v in got.items() if v} != ex_kern or \
+            {a: r["wire"] for a, r in res.items()} != wire:
+        fail(f"analysis: decentralized_train launched {got} (want "
+             f"{ex_kern}), wire bytes "
+             f"{ {a: r['wire'] for a, r in res.items()} } (want {wire})")
+    print(f"[analysis] example decentralized_train ({EX_TRAIN_STEPS} steps "
+          f"each, 2 nodes): launches {ex_kern}, wire bytes per step {wire}; "
+          + ", ".join(f"{a} loss {np.mean(r['losses'][-3:]):.4f} in "
+                      f"{r['dt']:.2f} s" for a, r in res.items()),
+          flush=True)
+    mod = _example("torch_quickstart")
+    _zero(entries)
+    res = mod.main([*EX_QUICKSTART, "--device", "cuda"])
+    got = _read(entries)
+    adc, direct = (res["compare"][k]["grad_norm"][-1] for k in (
+        "ADC-DGD (paper Alg. 2)     ", "DGD + direct compression   "))
+    if any(got.values()) or not adc < direct:
+        fail(f"analysis: quickstart launched {got} (RandomizedRounding "
+             f"reaches no kernel), ADC-DGD |grad| {adc} against direct "
+             f"compression's {direct}")
+    print(f"[analysis] example quickstart on the card: ADC-DGD |grad| "
+          f"{adc:.3e}, direct compression {direct:.3e}; examples "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # the dry runs started with the build
+    t0 = time.perf_counter()
+    for arch, shape_name, log, proc in _DRY_PROCS:
+        code = proc.wait(timeout=600)
+        log.close()
+        path = os.path.join(out_dir, f"{arch}__{shape_name}__h100x1__"
+                            "adc_int8__float32.json")
+        if code != 0 or not os.path.exists(path):
+            with open(log.name) as f:
+                fail(f"analysis: dry run {arch} {shape_name} exited {code}:"
+                     f"\n{f.read()[-3000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+        print(f"[analysis] dry run {arch} {shape_name} (meta, float32, "
+              f"{rec['count_s']:.1f} s to count): compute "
+              f"{rec['compute_s'] * 1e3:.3f} ms, memory "
+              f"{rec['memory_s'] * 1e3:.3f} ms, collective "
+              f"{rec['collective_s'] * 1e3:.3f} ms, dominant "
+              f"{rec['dominant']}, useful {rec['useful_flops_ratio']:.4f}, "
+              f"{rec['n_launches']} launches, peak estimate "
+              f"{rec['peak_bytes_estimate'] / 1e9:.2f} GB, fits "
+              f"{rec['fits']}; priced for {rec['hw']}; card {smi}",
+              flush=True)
+        summary[f"dry {arch} {shape_name}"] = {
+            k: rec[k] for k in ("compute_s", "memory_s", "collective_s",
+                                "fits", "count_s")}
+    wait_s = time.perf_counter() - t0
+    phase_s = time.perf_counter() - t_phase
+    print(f"[analysis] phase_analysis: {phase_s:.1f} s ({wait_s:.1f} s of "
+          f"it waiting for the dry runs); card {smi}", flush=True)
+    summary["phase_s"] = phase_s
+    return launches, summary
+
+
+def _no_probe(*args, **kwargs) -> dict:
+    """The trainer CLI's exchange probe set aside: the phases before
+    ``phase_analysis`` hold each run's launches to its steps' exactly, and
+    the probe's exchanges are counted there instead."""
+    return {}
+
+
 def phase_parity(torch, train):
     """The same two steps of reduced smollm-135m on the card and on the
     CPU (plain versions), from the same weights, batches and noise, for the
@@ -4766,10 +5091,17 @@ def main() -> None:
     from repro_torch.kernels import gqa_decode as G
     from repro_torch.kernels import quantize as Q
     from repro_torch.launch import serve, train
+    import atexit
+    import tempfile
+    measure = train.measure_consensus_overhead
+    train.measure_consensus_overhead = _no_probe
     t0 = time.perf_counter()
     report = _build.build_all()
     print(f"[setup] built {sorted(report)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    dry_dir = tempfile.mkdtemp(prefix="dryrun-")
+    atexit.register(stop_dryruns)
+    start_dryruns(dry_dir)
     entries = {"quantize_payload": Q.quantize_payload,
                "dequant_combine_payload": D.dequant_combine_payload,
                "subbyte_encode_payload": BP.subbyte_encode_payload,
@@ -4852,6 +5184,10 @@ def main() -> None:
     prec_s = time.perf_counter() - t0
     print(f"[precision] phase_precision: {prec_s:.1f} s", flush=True)
     for name, n in prec_launches.items():
+        launches[name] += n
+    an_launches, an_summary = phase_analysis(torch, G, train, entries,
+                                             measure, dry_dir, smi)
+    for name, n in an_launches.items():
         launches[name] += n
     paper_launches, paper_errs = phase_paper(torch, Q, entries)
     launches["quantize_blocks"] += paper_launches["quantize_blocks"]
@@ -4940,6 +5276,8 @@ def main() -> None:
               + f"; card {smi}")
     print(f"[summary] phase_precision (with #9 timed in bfloat16) "
           f"{prec_s:.1f} s; card {smi}")
+    for label, z in an_summary.items():
+        print(f"[summary] analysis {label}: {z!r}; card {smi}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,17 +8,21 @@ state-space family: mamba2-1.3b and the hybrid jamba-v0.1-52b; the
 encoder-decoder whisper-small) and raises ``KeyError`` for an unknown
 one; ``reduced(cfg)`` returns the same small same-family variant as the
 reference; ``shape_applicable`` says whether an architecture runs at an
-input shape.
+input shape, and ``input_specs(cfg, shape)`` gives ``meta``-device
+stand-ins for every model input of that shape (no allocation), the
+reference's ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
+import torch
+
 from repro_torch.models.config import InputShape, ModelConfig
 
-__all__ = ["ARCH_IDS", "PORTED", "get_config", "reduced",
-           "shape_applicable"]
+__all__ = ["ARCH_IDS", "PORTED", "get_config", "all_configs", "reduced",
+           "shape_applicable", "input_specs"]
 
 #: every architecture of the reference registry
 ARCH_IDS = ("jamba-v0.1-52b", "qwen3-0.6b", "chameleon-34b", "yi-9b",
@@ -41,6 +45,10 @@ def get_config(arch_id: str) -> ModelConfig:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCH_IDS)}")
     return importlib.import_module(
         f"repro_torch.configs.{PORTED[arch_id]}").CONFIG
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}
 
 
 def reduced(cfg: ModelConfig, d_model: int = 256) -> ModelConfig:
@@ -87,3 +95,27 @@ def shape_applicable(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:
         return False, ("pure full-attention architecture: long_500k requires "
                        "sub-quadratic attention (DESIGN.md section 5)")
     return True, ""
+
+
+def input_specs(cfg: ModelConfig,
+                shape: InputShape) -> dict[str, torch.Tensor]:
+    """Global-batch ``meta`` stand-ins of the inputs of ``shape``: tokens
+    (and for train labels) ``(b, s)`` int32; a decode step carries ONE new
+    token per sequence (the cache of ``seq_len`` lives in the serve
+    state); an audio-frames model outside decode adds its float32 frames
+    ``(b, encoder_frames, d_model)``."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def spec(*dims, dt=torch.int32):
+        return torch.empty(dims, dtype=dt, device="meta")
+
+    if shape.kind == "train":
+        specs = {"tokens": spec(b, s), "labels": spec(b, s)}
+    elif shape.kind == "prefill":
+        specs = {"tokens": spec(b, s)}
+    else:
+        specs = {"tokens": spec(b, 1)}
+    if cfg.frontend == "audio_frames" and shape.kind != "decode":
+        specs["enc_frames"] = spec(b, cfg.encoder_frames, cfg.d_model,
+                                   dt=torch.float32)
+    return specs

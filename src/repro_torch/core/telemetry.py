@@ -57,7 +57,7 @@ import torch
 __all__ = [
     "SCHEMA", "EVENT_KINDS", "SPAN_PHASES", "STEP_METRICS",
     "WireAccounting", "timing_gate", "validate_record", "Telemetry",
-    "SpanRecorder", "trace_mark", "set_trace_observer",
+    "SpanRecorder", "trace_mark", "trace_observer", "set_trace_observer",
 ]
 
 SCHEMA = "telemetry/v1"
@@ -376,6 +376,11 @@ class Telemetry:
 # ---------------------------------------------------------------------------
 
 _trace_observer: Callable | None = None
+
+
+def trace_observer() -> Callable | None:
+    """The installed observer of :func:`trace_mark` (None without one)."""
+    return _trace_observer
 
 
 def set_trace_observer(obs: Callable | None) -> None:

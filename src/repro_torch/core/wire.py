@@ -163,8 +163,12 @@ class WireLayout:
         for leaf, slot in zip(leaves, self.slots):
             start = slot.row_start * self.block
             out[..., start:start + slot.size] = leaf.reshape(lead + (-1,))
-            out[..., start + slot.size:start + slot.n_rows * self.block] = 0
-        out[..., self.n_data_rows * self.block:] = 0
+            # zero_(), not ``= 0``: a scalar assignment lowers to other ops
+            # on the meta device than on the CPU and the card, and a dry
+            # run counts the same ops as a real step (launch.op_cost)
+            out[..., start + slot.size:start + slot.n_rows * self.block] \
+                .zero_()
+        out[..., self.n_data_rows * self.block:].zero_()
         return out.view(lead + (self.n_rows, self.block))
 
     def unpack(self, packed: torch.Tensor, cast: bool = True) -> Any:

@@ -23,9 +23,11 @@ least significant byte first.
 
 Each entry point dispatches on the device of its operands: CPU tensors take
 the plain PyTorch version (``*_plain``), CUDA tensors launch the
-hand-written kernel in ``csrc/`` or raise.  ``<entry>.launches`` counts
-kernel launches.  Every transformation is row-local, so the static
-``row_offset``/``n_rows`` chunk view of the int8 kernels carries over.
+hand-written kernel in ``csrc/`` or raise, and ``meta`` tensors (a dry
+run) get empty outputs; every call reports its bytes to an active
+``launch.op_cost`` counter.  ``<entry>.launches`` counts kernel launches.
+Every transformation is row-local, so the static ``row_offset``/``n_rows``
+chunk view of the int8 kernels carries over.
 """
 from __future__ import annotations
 
@@ -35,9 +37,12 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.launch.op_cost import kernel_call
+
 from . import _build
 from .quantize import (BLOCK, _check_noise, _check_rows, _into,
-                       _noise_rows_ok, _out_rows, chunk_rows, chunk_view)
+                       _noise_rows_ok, _out_rows, chunk_rows, chunk_view,
+                       combine_bytes, encode_bytes, on_meta)
 from .ref import combine_core
 
 __all__ = [
@@ -356,9 +361,21 @@ def _encode(entry, source, plain, param, width, noise_cols, y, noise,
     n = chunk_view(n_full, n_rows, row_offset)
     _check_rows("y", y, BLOCK, n, n_full, (torch.float32, torch.bfloat16))
     _check_noise(entry.__name__, noise, noise_cols, n, n_full)
-    if y.device.type == "cpu" and noise.device.type == "cpu":
-        return _into(out, plain(y, noise, param, fixed_step, row_offset,
-                                n_rows))
+    # the kernels read BLOCK noise columns, top-k BLOCK + k of its 2 BLOCK
+    read = BLOCK + param if source == "topk_encode" else BLOCK
+    with kernel_call(entry.__name__, encode_bytes(y, n, read, width)):
+        if y.device.type == "cpu" and noise.device.type == "cpu":
+            return _into(out, plain(y, noise, param, fixed_step, row_offset,
+                                    n_rows))
+        if on_meta(y, noise):
+            return _out_rows(entry.__name__, out, (n, width), torch.uint8,
+                             y.device)
+        return _encode_launch(entry, source, param, width, y, noise,
+                              fixed_step, row_offset, n, out, align)
+
+
+def _encode_launch(entry, source, param, width, y, noise, fixed_step,
+                   row_offset, n, out, align):
     name = entry.__name__
     if y.device.type != "cuda" or noise.device != y.device:
         raise ValueError(f"{name}: y on {y.device}, noise on {noise.device}; "
@@ -393,10 +410,22 @@ def _combine(entry, source, plain, param, width, payloads, x_tilde, m_agg,
     for nm, a in (("x_tilde", x_tilde), ("m_agg", m_agg)):
         _check_rows(nm, a, BLOCK, n, n_full, (torch.float32,))
     operands = (*payloads, x_tilde, m_agg)
-    if all(a.device.type == "cpu" for a in operands):
-        return _into(out, plain(*payloads, x_tilde, m_agg, w_self, w_side,
-                                deamp, param, row_offset, n_rows))
+    with kernel_call(entry.__name__, combine_bytes(n, width)):
+        if all(a.device.type == "cpu" for a in operands):
+            return _into(out, plain(*payloads, x_tilde, m_agg, w_self,
+                                    w_side, deamp, param, row_offset,
+                                    n_rows))
+        if on_meta(*operands):
+            return _out_rows(entry.__name__, out or (None,) * 3,
+                             (n, BLOCK), torch.float32, x_tilde.device)
+        return _combine_launch(entry, source, param, operands, w_self,
+                               w_side, deamp, row_offset, n, out)
+
+
+def _combine_launch(entry, source, param, operands, w_self, w_side, deamp,
+                    row_offset, n, out):
     name = entry.__name__
+    x_tilde = operands[3]
     dev = x_tilde.device
     if dev.type != "cuda" or any(a.device != dev for a in operands):
         raise ValueError(f"{name}: operands on "

@@ -15,8 +15,10 @@ pairs of codes and scales, as the per-leaf reference transport ships them.
 Both dispatch on the device of their operands: CPU tensors take the plain
 PyTorch version, CUDA tensors launch the hand-written kernel
 (``csrc/dequant_combine_payload.cu``, ``csrc/dequant_combine_blocks.cu``)
-or raise.  ``dequant_combine_payload.launches`` and
-``dequant_combine.launches`` count kernel launches.
+or raise, ``meta`` tensors (a dry run) get empty outputs; every call
+reports its bytes to an active ``launch.op_cost`` counter.
+``dequant_combine_payload.launches`` and ``dequant_combine.launches``
+count kernel launches.
 """
 from __future__ import annotations
 
@@ -26,9 +28,12 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.launch.op_cost import kernel_call
+
 from . import _build, ref
 from .quantize import (BLOCK, SCALE_BYTES, _check_rows, _into, _out_rows,
-                       chunk_rows, chunk_view, unpack_payload)
+                       chunk_rows, chunk_view, combine_bytes, on_meta,
+                       unpack_payload)
 
 __all__ = ["dequant_combine_payload_plain", "dequant_combine_payload",
            "dequant_combine_plain", "dequant_combine"]
@@ -83,10 +88,21 @@ def dequant_combine_payload(payload_self, payload_left, payload_right,
     for name, a in (("x_tilde", x_tilde), ("m_agg", m_agg)):
         _check_rows(name, a, BLOCK, n, n_full, (torch.float32,))
     operands = (*pays, x_tilde, m_agg)
-    if all(a.device.type == "cpu" for a in operands):
-        return _into(out, dequant_combine_payload_plain(
-            *pays, x_tilde, m_agg, w_self, w_side, deamp, row_offset,
-            n_rows))
+    with kernel_call("dequant_combine_payload",
+                     combine_bytes(n, BLOCK + SCALE_BYTES)):
+        if all(a.device.type == "cpu" for a in operands):
+            return _into(out, dequant_combine_payload_plain(
+                *pays, x_tilde, m_agg, w_self, w_side, deamp, row_offset,
+                n_rows))
+        if on_meta(*operands):
+            return _out_rows("dequant_combine_payload", out or (None,) * 3,
+                             (n, BLOCK), torch.float32, x_tilde.device)
+        return _payload_launch(operands, w_self, w_side, deamp, row_offset,
+                               n, out)
+
+
+def _payload_launch(operands, w_self, w_side, deamp, row_offset, n, out):
+    x_tilde = operands[3]
     dev = x_tilde.device
     if dev.type != "cuda" or any(a.device != dev for a in operands):
         raise ValueError("dequant_combine_payload: operands on "
@@ -151,9 +167,19 @@ def dequant_combine(codes_self, scale_self, codes_left, scale_left,
         _check_rows(name, a, BLOCK, n, n, (torch.float32,))
     operands = (codes_self, scale_self, codes_left, scale_left, codes_right,
                 scale_right, x_tilde, m_agg)
-    if all(a.device.type == "cpu" for a in operands):
-        return dequant_combine_plain(*operands, w_self, w_side, deamp)
-    dev = x_tilde.device
+    with kernel_call("dequant_combine",
+                     combine_bytes(n, BLOCK + SCALE_BYTES)):
+        if all(a.device.type == "cpu" for a in operands):
+            return dequant_combine_plain(*operands, w_self, w_side, deamp)
+        if on_meta(*operands):
+            return tuple(torch.empty((n, BLOCK), dtype=torch.float32,
+                                     device=x_tilde.device)
+                         for _ in range(3))
+        return _blocks_launch(operands, w_self, w_side, deamp, n)
+
+
+def _blocks_launch(operands, w_self, w_side, deamp, n):
+    dev = operands[6].device
     if dev.type != "cuda" or any(a.device != dev for a in operands):
         raise ValueError("dequant_combine: operands on "
                          f"{sorted({str(a.device) for a in operands})}; all "

@@ -7,7 +7,9 @@ turns them into the attention output ``acc / l``.
 
 ``gqa_decode`` dispatches on the device of its operands: CPU tensors take
 the plain PyTorch version (``ref.gqa_decode_ref``), CUDA tensors launch the
-hand-written kernel ``csrc/gqa_decode.cu`` or raise.  Unlike the TPU
+hand-written kernel ``csrc/gqa_decode.cu`` or raise, and ``meta`` tensors
+(a dry run) get empty partials; every call reports its bytes and FLOPs to
+an active ``launch.op_cost`` counter (:func:`decode_cost`).  Unlike the TPU
 kernel it reads K and V in the cache's ``(b, S, kvh, hd)`` layout without a
 transposed copy and takes any S and any mask.  ``decode_splits`` cuts each
 (b, kv head) row's positions into the ranges the kernel's CTAs take; the
@@ -23,10 +25,12 @@ import math
 
 import torch
 
+from repro_torch.launch.op_cost import kernel_call
+
 from . import _build, ref
 
 __all__ = ["gqa_decode_plain", "gqa_decode", "decode_splits", "decode_tile",
-           "HEAD_DIMS", "MAX_GROUP"]
+           "decode_cost", "HEAD_DIMS", "MAX_GROUP"]
 
 #: head dims and queries per KV head the CUDA kernel is compiled for
 HEAD_DIMS = (64, 128, 256)
@@ -131,6 +135,19 @@ def _check(q, k, v, valid):
         raise TypeError(f"k is {k.dtype}, v is {v.dtype}")
 
 
+def decode_cost(q: torch.Tensor, k: torch.Tensor) -> tuple[int, int]:
+    """(bytes, matrix-product FLOPs) of one call over the whole cache, a
+    static count that does not read the mask: q as float32, every
+    position's K and V row and mask byte read once, ``m``, ``l`` and
+    ``acc`` written once; ``q . k`` and ``p v`` are ``2 hd`` FLOPs each per
+    query and position."""
+    b, kvh, g, hd = q.shape
+    seq = k.shape[1]
+    n_bytes = (b * kvh * g * hd * 4 + 2 * b * seq * kvh * hd * k.element_size()
+               + seq + b * kvh * g * (2 + hd) * 4)
+    return n_bytes, 4 * b * kvh * g * seq * hd
+
+
 def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                valid: torch.Tensor, softcap: float | None = None,
                ranges: int | None = None):
@@ -142,8 +159,21 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``decode_splits``); the CPU path ignores it."""
     _check(q, k, v, valid)
     operands = (q, k, v, valid)
-    if all(a.device.type == "cpu" for a in operands):
-        return gqa_decode_plain(q, k, v, valid, softcap=softcap)
+    with kernel_call("gqa_decode", *decode_cost(q, k)):
+        if all(a.device.type == "cpu" for a in operands):
+            return gqa_decode_plain(q, k, v, valid, softcap=softcap)
+        if all(a.device.type == "meta" for a in operands):
+            return (torch.empty(q.shape[:3], dtype=torch.float32,
+                                device=q.device),
+                    torch.empty(q.shape[:3], dtype=torch.float32,
+                                device=q.device),
+                    torch.empty(q.shape, dtype=torch.float32,
+                                device=q.device))
+        return _launch(q, k, v, valid, softcap, ranges)
+
+
+def _launch(q, k, v, valid, softcap, ranges):
+    operands = (q, k, v, valid)
     dev = k.device
     if dev.type != "cuda" or any(a.device != dev for a in operands):
         raise ValueError("gqa_decode: operands on "

@@ -10,7 +10,10 @@ transport and ``compressed_dgd`` ship them that way.
 
 Both dispatch on the device of their input: a CPU tensor takes the plain
 PyTorch version, a CUDA tensor launches the hand-written kernel
-(``csrc/quantize_payload.cu``, ``csrc/quantize_blocks.cu``) or raises.
+(``csrc/quantize_payload.cu``, ``csrc/quantize_blocks.cu``) or raises, and
+a ``meta`` tensor (asked for by a dry run, never a fallback) gets empty
+outputs of the kernel's shapes and dtypes.  Every call reports its bytes
+to an active ``launch.op_cost`` counter (:func:`encode_bytes`).
 ``quantize_payload.launches`` and ``quantize_blocks.launches`` count kernel
 launches.
 """
@@ -22,12 +25,15 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.launch.op_cost import kernel_call
+
 from . import _build, ref
 
 __all__ = ["BLOCK", "TILE_N", "SCALE_BYTES", "pack_payload",
            "unpack_payload", "chunk_view", "chunk_rows",
            "quantize_payload_plain", "quantize_payload",
-           "quantize_blocks_plain", "quantize_blocks"]
+           "quantize_blocks_plain", "quantize_blocks", "encode_bytes",
+           "combine_bytes", "on_meta"]
 
 TILE_N = 32      # row multiple of every packed buffer's height
 BLOCK = 512      # quantization block = payload row width in codes
@@ -72,6 +78,26 @@ def chunk_rows(a: torch.Tensor, row_offset: int, n: int) -> torch.Tensor:
     if a.shape[0] == n:
         return a
     return a[row_offset:row_offset + n]
+
+
+def encode_bytes(y: torch.Tensor, n: int, noise_cols: int,
+                 width: int) -> int:
+    """Least bytes of one encoder call on ``n`` rows: the rows of ``y``
+    and the ``noise_cols`` float32 noise columns it reads, and the ``(n,
+    width)`` payload it writes, each once."""
+    return n * (BLOCK * y.element_size() + noise_cols * 4 + width)
+
+
+def combine_bytes(n: int, width: int) -> int:
+    """Least bytes of one combine call on ``n`` rows: three payloads of
+    ``width`` bytes a row and two float32 shadows read, three float32
+    outputs written."""
+    return n * (3 * width + 5 * BLOCK * 4)
+
+
+def on_meta(*operands) -> bool:
+    """Whether every operand lies on the ``meta`` device: a dry run."""
+    return all(a.device.type == "meta" for a in operands)
 
 
 def _check_rows(name: str, a: torch.Tensor, width: int, n: int,
@@ -186,9 +212,20 @@ def quantize_payload(y: torch.Tensor, noise: torch.Tensor,
     n = chunk_view(n_full, n_rows, row_offset)
     _check_rows("y", y, BLOCK, n, n_full, (torch.float32, torch.bfloat16))
     _check_noise("quantize_payload", noise, BLOCK, n, n_full)
-    if y.device.type == "cpu" and noise.device.type == "cpu":
-        return _into(out, quantize_payload_plain(y, noise, fixed_step,
-                                                 row_offset, n_rows))
+    with kernel_call("quantize_payload", encode_bytes(
+            y, n, BLOCK, BLOCK + SCALE_BYTES)):
+        if y.device.type == "cpu" and noise.device.type == "cpu":
+            return _into(out, quantize_payload_plain(y, noise, fixed_step,
+                                                     row_offset, n_rows))
+        if on_meta(y, noise):
+            return _out_rows("quantize_payload", out,
+                             (n, BLOCK + SCALE_BYTES), torch.uint8,
+                             y.device)
+        return _quantize_payload_launch(y, noise, fixed_step, row_offset, n,
+                                        out)
+
+
+def _quantize_payload_launch(y, noise, fixed_step, row_offset, n, out):
     if y.device.type != "cuda" or noise.device != y.device:
         raise ValueError(f"quantize_payload: y on {y.device}, noise on "
                          f"{noise.device}; both must be on one CUDA device "
@@ -242,8 +279,19 @@ def quantize_blocks(y: torch.Tensor, noise: torch.Tensor,
     n = y.shape[0]
     _check_rows("y", y, BLOCK, n, n, (torch.float32, torch.bfloat16))
     _check_rows("noise", noise, BLOCK, n, n, (torch.float32,))
-    if y.device.type == "cpu" and noise.device.type == "cpu":
-        return quantize_blocks_plain(y, noise, fixed_step=fixed_step)
+    with kernel_call("quantize_blocks", encode_bytes(
+            y, n, BLOCK, BLOCK + SCALE_BYTES)):
+        if y.device.type == "cpu" and noise.device.type == "cpu":
+            return quantize_blocks_plain(y, noise, fixed_step=fixed_step)
+        if on_meta(y, noise):
+            return (torch.empty((n, BLOCK), dtype=torch.int8,
+                                device=y.device),
+                    torch.empty((n, 1), dtype=torch.float32,
+                                device=y.device))
+        return _quantize_blocks_launch(y, noise, fixed_step, n)
+
+
+def _quantize_blocks_launch(y, noise, fixed_step, n):
     if y.device.type != "cuda" or noise.device != y.device:
         raise ValueError(f"quantize_blocks: y on {y.device}, noise on "
                          f"{noise.device}; both must be on one CUDA device "

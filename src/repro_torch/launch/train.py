@@ -126,7 +126,8 @@ from repro_torch.optim.schedules import (constant_schedule,
                                          inverse_power_schedule)
 
 __all__ = ["TrainSetup", "build_train_setup", "with_codec",
-           "init_train_state", "train_step", "main"]
+           "init_train_state", "train_step", "build_exchange_probe",
+           "measure_consensus_overhead", "main"]
 
 
 @dataclasses.dataclass
@@ -319,9 +320,10 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
         x_next, cons, cmetrics = setup.consensus.exchange(
             state["params"], x_half, state["consensus"], k, seed=setup.seed,
             noise=noise)
-    metrics = {"loss": float(losses.mean()), "node_loss": losses, "lr": lr_k}
+    metrics = {"loss": _host(losses.mean()), "node_loss": losses,
+               "lr": lr_k}
     if auxes and setup.cfg.router_aux_weight:
-        metrics["aux"] = float(torch.stack(auxes).mean())
+        metrics["aux"] = _host(torch.stack(auxes).mean())
     rt = setup.consensus
     if rt.cfg.algorithm == "adc_dgd":
         metrics["codec"] = rt.wire_name
@@ -330,9 +332,85 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
         metrics["resync"] = (rt.cfg.algorithm == "adc_dgd"
                              and rt.resync_at(k))
     for name, v in cmetrics.items():
-        metrics[name] = float(v.mean()) if torch.is_tensor(v) else float(v)
+        metrics[name] = _host(v.mean()) if torch.is_tensor(v) else float(v)
     return ({"params": x_next, "opt": opt_state, "consensus": cons,
              "step": k}, metrics)
+
+
+def _host(v: torch.Tensor) -> float:
+    """A scalar metric read to the host; NaN on the ``meta`` device, which
+    holds no values (a dry run)."""
+    return float("nan") if v.is_meta else float(v)
+
+
+def build_exchange_probe(setup: TrainSetup):
+    """The consensus exchange alone (no forward or backward): the
+    numerator of the ``consensus_overhead_frac`` metric (exchange time /
+    step time).  ``probe(params, cons_state, k)`` runs the trainer's
+    ``ConsensusRuntime.exchange`` of step ``k`` with ``x_half = params``
+    and returns its ``(x_next, new consensus state, metrics)``.  Returns
+    None when the setup runs no ``adc_dgd`` exchange (another algorithm,
+    or one node).
+
+    The exchange writes its kernels' outputs into buffers it allocates and
+    never into the state it is given, so the probe runs on the live state
+    and leaves it bitwise as it was (no clone: a clone of the parameters
+    and shadows would not fit beside the largest trainers on one card).
+    It reads the same host masks as the step (keyed by step, stateless)
+    and restores the runtime's ``zero_payloads`` count and the telemetry's
+    span observer: a measurement, not a step of the run."""
+    rt = setup.consensus
+    if rt.cfg.algorithm != "adc_dgd" or setup.n_nodes <= 1:
+        return None
+
+    def probe(params, cons_state, k: int):
+        zero, obs = rt.zero_payloads, telemetry.trace_observer()
+        telemetry.set_trace_observer(None)
+        try:
+            return rt.exchange(params, params, cons_state, k,
+                               seed=setup.seed)
+        finally:
+            rt.zero_payloads = zero
+            telemetry.set_trace_observer(obs)
+
+    return probe
+
+
+def measure_consensus_overhead(setup: TrainSetup, state: dict,
+                               step_time_s: float | None,
+                               repeats: int = 5) -> dict:
+    """Time the exchange alone against the measured full-step time.
+
+    Returns ``{"consensus_exchange_s": median of ``repeats`` probe calls
+    after a warm one, each between two synchronizes}`` plus, when a step
+    time is given, ``{"consensus_overhead_frac": exchange / step}``, the
+    reference's keys; ``{}`` when the setup runs no ``adc_dgd`` exchange
+    (:func:`build_exchange_probe`).  The exchange of step ``state["step"]
+    + 1`` on the live state, which it leaves unchanged."""
+    probe = build_exchange_probe(setup)
+    if probe is None:
+        return {}
+    k = state["step"] + 1
+    dev = setup.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    times = []
+    for r in range(repeats + 1):                   # the first one warms
+        sync()
+        t = time.perf_counter()
+        out = probe(state["params"], state["consensus"], k)
+        sync()
+        del out
+        if r:
+            times.append(time.perf_counter() - t)
+    res = {"consensus_exchange_s": float(np.median(times))}
+    if step_time_s:
+        res["consensus_overhead_frac"] = (res["consensus_exchange_s"]
+                                          / step_time_s)
+    return res
 
 
 def main(argv=None, *, return_state: bool = False):
@@ -468,7 +546,12 @@ def main(argv=None, *, return_state: bool = False):
                          "<--telemetry-dir>/telemetry-<run id>.jsonl and a "
                          "Perfetto trace of measured exchange spans to "
                          "trace-<run id>.json; also turns on the "
-                         "exchange's telemetry metrics")
+                         "exchange's telemetry metrics.  The records' "
+                         "consensus_exchange_s / consensus_overhead_frac "
+                         "are each step's measured exchange window (its "
+                         "spans); the step lines of an adc_dgd run print "
+                         "the exchange probe's instead (the exchange "
+                         "alone, median of 5, against the median step)")
     ap.add_argument("--telemetry-dir", default="obs",
                     help="sink directory for --telemetry")
     ap.add_argument("--run-id", default=None,
@@ -619,6 +702,7 @@ def main(argv=None, *, return_state: bool = False):
     ds = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch,
                             n_shards=args.nodes, **ds_kw)
     history = []
+    overhead, overhead_setup = {}, None
     ep_res, ep_ovf, ep_ce = [], [], []
     step_times, exchange_s = [], []
     prev_epoch = 0
@@ -661,8 +745,22 @@ def main(argv=None, *, return_state: bool = False):
                               departed=ev.get("departed", []))
                     prev_epoch = e
         history.append(metrics)
+        shown = dict(metrics)
+        if step_times and args.algorithm == "adc_dgd":
+            # the exchange alone against the median step, on the live
+            # state; the probe is measured again only when the codec
+            # re-tier gave a new setup (the reference's rule)
+            if overhead_setup is not setup:
+                overhead = measure_consensus_overhead(
+                    setup, state, statistics.median(step_times))
+                overhead_setup = setup
+            elif overhead:
+                overhead["consensus_overhead_frac"] = (
+                    overhead["consensus_exchange_s"]
+                    / statistics.median(step_times))
+            shown.update(overhead)
         shown = " ".join(f"{k}={v}" if isinstance(v, (str, bool, int))
-                         else f"{k}={v:.4g}" for k, v in metrics.items()
+                         else f"{k}={v:.4g}" for k, v in shown.items()
                          if k not in ("loss", "node_loss"))
         print(f"step {step:5d} loss={metrics['loss']:.4f} {shown}",
               flush=True)

@@ -53,6 +53,34 @@ def test_chip_smoke_imports_neither_jax_nor_repro():
     assert not _jax_imports(os.path.join(REPO, "chip_smoke.py"))
 
 
+#: the port's examples: they import neither JAX nor the JAX package
+EXAMPLES = ("torch_quickstart.py", "torch_serve_batched.py",
+            "torch_decentralized_train.py")
+
+
+def test_examples_import_neither_jax_nor_repro():
+    for name in EXAMPLES:
+        path = os.path.join(REPO, "examples", name)
+        assert os.path.exists(path), name
+        assert not _jax_imports(path), name
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_default_to_cuda(name):
+    """Each example runs on ``cuda`` unless given ``--device cpu``: with
+    no card it raises before it computes anything."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name[:-3], os.path.join(REPO, "examples", name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if torch.cuda.is_available():
+        assert mod.resolve_device().type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main([])
+
+
 def test_fresh_import_pulls_in_no_jax():
     """Import every port module in a fresh interpreter: no FOREIGN
     package may appear in ``sys.modules`` afterwards."""
