@@ -18,7 +18,8 @@ Phases (any failure exits non-zero before the result line):
              1 ulp on each of the 11 leaves' padded rows; the flash-decode
              partials within the CPU test's float32 tolerances at the
              serve shape and at decode_32k's, for float32 and bf16 inputs
-             alike, with and without a softcap, on masks with a ragged
+             alike and for a float32 q over a bf16 cache (each kernel's
+             grid printed), with and without a softcap, on masks with a ragged
              frontier, masked tiles and random holes, and at long_500k
              with gemma2-9b's heads (b 1, S 524,288, kvh 8, g 2, hd 256,
              softcap 50; a frontier, holes and a 4,096-position window),
@@ -242,7 +243,9 @@ Phases (any failure exits non-zero before the result line):
              largest logit of a bfloat16 train-mode forward (smollm-135m's
              also beside a float64 forward), a plain-#9 step within
              BF16_STEP_TOL; #9 is also timed in bfloat16 at both decode
-             shapes (phase 7);
+             shapes, at decode_32k, long_500k and whisper-small's cross
+             attention, with a sweep of its ranges per row at the serve and
+             chameleon-34b shapes (phase 7);
 4g. analysis — the cost model (``phase_analysis``): the smollm-135m
              trainer of phase 3 (4 nodes x 4 x 512, int8 packed, remat
              none) counted once on ``meta`` by ``launch.dryrun`` and once
@@ -485,8 +488,9 @@ DECODE_ALL_VALID = ("whisper-small cross",)
 #: the flash-decode partials against their plain version, on acc / l and
 #: on m + log l (the reference's float32 kernel-test tolerances).  bf16
 #: K and V widen to float32 exactly on both sides, which then sum in
-#: float32, so bf16 inputs are held to the same bounds: only the order of
-#: summation differs
+#: float32 (the kernel's tensor cores multiply exact bfloat16 slices of q
+#: and p, each product exact in float32), so bf16 inputs are held to the
+#: same bounds: only the order and rounding of the sums differ
 DECODE_TOL = (1e-5, 5e-5)
 #: decode logits against a train-mode forward, and card against CPU in
 #: serving (the CPU test's tolerance, absolute and relative)
@@ -893,15 +897,28 @@ def decode_masks(torch, shape, seq):
     return masks
 
 
+#: the operand types #9 is held in: (name, q, K and V); a float32 q over a
+#: bfloat16 cache is float32 compute with ``--cache-dtype bfloat16``
+DECODE_DTYPES = (("f32", "float32", "float32"), ("bf16", "bfloat16",
+                                                 "bfloat16"),
+                 ("f32 q over bf16", "float32", "bfloat16"))
+
+
 def phase_decode_kernel(torch, G):
     """The flash-decode kernel against its plain version at each of
-    DECODE_SHAPES: float32 and bf16, with and without the shape's softcap,
-    on each of its masks."""
+    DECODE_SHAPES: float32, bf16, and a float32 q over a bf16 cache, with
+    and without the shape's softcap, on each of its masks; the grid each
+    kernel launches."""
     worst = 0.0
     for shape, (b, seq, kvh, grp, hd) in DECODE_SHAPES.items():
         masks = decode_masks(torch, shape, seq)
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v = decode_inputs(torch, b, seq, dt, seq, kvh, grp, hd)
+        grids = {}
+        for dname, qdt, kvdt in DECODE_DTYPES:
+            q, k, v = decode_inputs(torch, b, seq, getattr(torch, qdt), seq,
+                                    kvh, grp, hd)
+            if kvdt != qdt:                 # q stays the float32 draw
+                k, v = k.to(getattr(torch, kvdt)), v.to(getattr(torch, kvdt))
+            grids[dname] = G.decode_grid(q, k)
             tol, lse_tol = DECODE_TOL
             for cap in (None, DECODE_SOFTCAP[shape]):
                 for mask_name, valid in masks.items():
@@ -914,25 +931,21 @@ def phase_decode_kernel(torch, G):
                     lse_err = float((lse - wlse).abs().max())
                     if not (torch.allclose(o, wo, atol=tol, rtol=tol)
                             and lse_err <= lse_tol):
-                        fail(f"gqa_decode {shape} {dt} softcap={cap} "
+                        fail(f"gqa_decode {shape} {dname} softcap={cap} "
                              f"{mask_name}: |out diff| {err}, |lse diff| "
                              f"{lse_err} (tolerances {tol}, {lse_tol})")
                     worst = max(worst, err)
                     del got, want
             del q, k, v
             torch.cuda.empty_cache()
-        n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-        ctas, _ = G.occupancy(0, False, hd, grp)
-        rl, nr = G.decode_splits(b * kvh, seq, n_sms,
-                                 G.decode_tile(hd, torch.float32),
-                                 ctas_per_sm=ctas)
-        clusters = G.occupancy(0, False, hd, grp, nr)[1]
+        grid = "; ".join(
+            f"{d}: {nr} ranges of {rl} positions per row, {ctas} CTAs per "
+            f"SM, {cl} clusters of {nr} resident at once"
+            for d, (rl, nr, ctas, cl) in grids.items())
         print(f"[kernels] gqa_decode {shape} (b={b}, S={seq}, kvh={kvh}, "
               f"g={grp}, hd={hd}): within tolerance of the plain version "
-              f"(f32+bf16, softcap none+{DECODE_SOFTCAP[shape]:g}, "
-              f"{', '.join(masks)}); float32: {nr} ranges of {rl} "
-              f"positions per row, {ctas} CTAs per SM, {clusters} clusters "
-              f"of {nr} resident at once")
+              f"({', '.join(grids)}; softcap none+"
+              f"{DECODE_SOFTCAP[shape]:g}; {', '.join(masks)}); {grid}")
     return {"gqa_decode": worst}
 
 
@@ -3842,9 +3855,12 @@ PREC_SERVE = (
     ("smollm-135m", "smollm-135m", None, False, SERVE_BATCH, SERVE_PROMPT),
     ("chameleon-34b, 48 layers", "chameleon-34b", None, False, 4, 1984),
 )
-#: the #9 shapes the bfloat16 serve runs decode at, timed in bfloat16
-PREC_DECODE_SHAPES = {"serve": DECODE_SHAPES["serve"],
-                      "chameleon-34b": DECODE_SHAPES["chameleon-34b"]}
+#: the #9 shapes timed in bfloat16: those the bfloat16 serve runs decode
+#: at, then decode_32k and long_500k (one operand set: the cache outgrows
+#: the 50 MB L2) and whisper-small's cross attention
+PREC_DECODE_SHAPES = {name: DECODE_SHAPES[name] for name in (
+    "serve", "chameleon-34b", "decode_32k", "long_500k",
+    "whisper-small cross")}
 #: bfloat16 decode logits against a bfloat16 train-mode forward over the
 #: same tokens, as a share of the forward's largest logit: the two round in
 #: other places (a decode step's matrix-vector products, the prefill's
@@ -4371,12 +4387,13 @@ def phase_parity(torch, train):
               f"{FLOAT_ATOL} {frac_off!r}, losses {l_gpu} vs {l_cpu}")
 
 
-def decode_bound(b, seq, n_valid, elt, kvh=KVH, grp=GROUP, hd=HEAD_DIM):
-    """Least bytes and operations of one flash-decode call: q, each valid
-    position's K and V row once, the mask, and m, l, acc out; per valid
-    position and query 2 x hd for q . k, 2 x hd for p v and ~8 for the
-    scale, max, exp and rescale."""
-    n_bytes = (b * kvh * grp * hd * 4 + 2 * b * n_valid * kvh * hd * elt
+def decode_bound(b, seq, n_valid, elt, kvh=KVH, grp=GROUP, hd=HEAD_DIM,
+                 q_elt=4):
+    """Least bytes and operations of one flash-decode call: q (``q_elt``
+    bytes an element), each valid position's K and V row once, the mask,
+    and m, l, acc out; per valid position and query 2 x hd for q . k, 2 x
+    hd for p v and ~8 for the scale, max, exp and rescale."""
+    n_bytes = (b * kvh * grp * hd * q_elt + 2 * b * n_valid * kvh * hd * elt
                + seq + b * kvh * grp * (2 + hd) * 4)
     n_ops = b * kvh * n_valid * grp * (4 * hd + 8)
     return n_bytes, n_ops
@@ -4446,6 +4463,9 @@ DECODE_SWEEP = {"serve": (1, 2, 3, 4, 8), "decode_32k": (1, 2, 4),
                 "long_500k": (), "granite-moe-3b-a800m": (),
                 "deepseek-moe-16b": (), "jamba-v0.1-52b": (),
                 "whisper-small": (), "whisper-small cross": ()}
+#: the same for the bfloat16 kernel, whose grid (``decode_splits``: rows x
+#: ranges near 3/4 of the SMs) these sweeps chose
+BF16_DECODE_SWEEP = {"serve": (1, 2, 3, 4), "chameleon-34b": (2, 3, 4, 6, 8)}
 
 
 def phase_decode_timing(torch, G, launches, errs, dtype=None, shapes=None):
@@ -4459,6 +4479,7 @@ def phase_decode_timing(torch, G, launches, errs, dtype=None, shapes=None):
     ``sdpa_calls`` on the same inputs.  Returns the first shape's row."""
     dtype = dtype or torch.float32
     dname = {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+    sweep = DECODE_SWEEP if dtype == torch.float32 else BF16_DECODE_SWEEP
     elt = torch.empty((), dtype=dtype).element_size()
     row = None
     for shape, (b, seq, kvh, grp, hd) in (shapes or DECODE_SHAPES).items():
@@ -4475,17 +4496,14 @@ def phase_decode_timing(torch, G, launches, errs, dtype=None, shapes=None):
         plain_ms = time_ms([
             lambda q=q, k=k, v=v: G.gqa_decode_plain(q, k, v, valid)
             for q, k, v in sets], max(4, reps // 20))
-        chosen = G.decode_splits(
-            b * kvh, seq, torch.cuda.get_device_properties(0)
-            .multi_processor_count, G.decode_tile(hd, dtype),
-            ctas_per_sm=G.occupancy(0, dtype == torch.bfloat16, hd, grp)[0])
-        for ranges in DECODE_SWEEP[shape] if dtype == torch.float32 else ():
+        chosen = G.decode_grid(*sets[0][:2])
+        for ranges in sweep.get(shape, ()):
             r_ms = time_ms([
                 lambda q=q, k=k, v=v: G.gqa_decode(q, k, v, valid,
                                                    ranges=ranges)
                 for q, k, v in sets], reps)
-            print(f"[timing] gqa_decode {shape}, {ranges} ranges per row "
-                  f"(decode_splits chose {chosen[1]} of {chosen[0]} "
+            print(f"[timing] gqa_decode {shape} {dname}, {ranges} ranges per "
+                  f"row (decode_splits chose {chosen[1]} of {chosen[0]} "
                   f"positions): {r_ms:.4f} ms")
         outs = [decode_invariants(torch, *G.gqa_decode(q, k, v, valid))[0]
                 for q, k, v in sets]
@@ -4506,12 +4524,12 @@ def phase_decode_timing(torch, G, launches, errs, dtype=None, shapes=None):
         lib_label = min(lib, key=lib.get)
         lib_ms = lib[lib_label]
         del per_set, outs
-        nb, no = decode_bound(b, seq, n_valid, elt, kvh, grp, hd)
+        nb, no = decode_bound(b, seq, n_valid, elt, kvh, grp, hd, elt)
         b_ms, b_by = bound(nb, no)
         print(f"[timing] gqa_decode {shape} (b={b}, S={seq}, kvh={kvh}, "
               f"g={grp}, hd={hd}, {n_valid} valid, {dname}, {len(sets)} "
-              f"operand "
-              f"sets in turn): {ms:.4f} ms "
+              f"operand sets in turn; {chosen[1]} ranges of {chosen[0]} "
+              f"positions per row, {b * kvh * chosen[1]} CTAs): {ms:.4f} ms "
               f"(plain {plain_ms:.4f} ms, fastest scaled_dot_product_"
               f"attention {lib_ms:.4f} ms, {lib_label}; bound {b_ms:.4f} ms "
               f"by {b_by}: {nb / 1e9:.4f} GB, {no / 1e9:.4f} GFLOP, "
@@ -5115,7 +5133,10 @@ def main() -> None:
     errs = phase_kernels(torch, Q, D, n_rows)
     errs.update(phase_codec_kernels(torch, BP, n_rows))
     errs.update(phase_block_kernels(torch, Q, D, leaf_rows))
+    t0 = time.perf_counter()
     errs.update(phase_decode_kernel(torch, G))
+    print(f"[kernels] phase_decode_kernel: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     launches, step_s, peak_gb, first_loss = phase_main(torch, train,
                                                        entries)
     for name, n in phase_perleaf(torch, train, entries).items():
@@ -5200,7 +5221,11 @@ def main() -> None:
     t0 = time.perf_counter()
     phase_decode_timing(torch, G, launches, errs, torch.bfloat16,
                         PREC_DECODE_SHAPES)
-    prec_s += time.perf_counter() - t0
+    bf16_s = time.perf_counter() - t0
+    print(f"[timing] #9 in bfloat16 at {', '.join(PREC_DECODE_SHAPES)}, "
+          f"range sweeps at {', '.join(BF16_DECODE_SWEEP)}: {bf16_s:.1f} s",
+          flush=True)
+    prec_s += bf16_s
     exchange_ms = phase_exchange_time(torch, train)
     for codec in step_s:
         print(f"[summary] {codec}: step {step_s[codec]:.4f} s, exchange "

@@ -239,8 +239,30 @@ def _check_decode(q, k, v, valid, cap, ranges=None):
         assert torch.all(got[0] == -1e30)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,kvh,g,hd,S,cap", [
+#: the operand types #9 is held in: float32, bfloat16, and (q, K and V)
+#: a float32 q over a bfloat16 cache (float32 compute with
+#: ``--cache-dtype bfloat16``: the bfloat16 kernel reads q in three
+#: bfloat16 slices whose sum is q, so it keeps the float32 tolerances)
+DECODE_DTYPES = [torch.float32, torch.bfloat16,
+                 (torch.float32, torch.bfloat16)]
+
+
+def _decode_inputs(device, seed, b, kvh, g, hd, S, dtype, q_dtype=None):
+    """q (b, kvh, g, hd) in ``q_dtype`` (``dtype`` when None), k and v (b,
+    S, kvh, hd) in ``dtype``, from one generator: a float32 q over a
+    bfloat16 cache is the float32 draw itself, not bfloat16-representable.
+    ``dtype`` may be a (q dtype, cache dtype) pair of DECODE_DTYPES."""
+    if isinstance(dtype, tuple):
+        q_dtype, dtype = dtype
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=device).to(dt)
+                 for shape, dt in (((b, kvh, g, hd), q_dtype or dtype),
+                                   ((b, S, kvh, hd), dtype),
+                                   ((b, S, kvh, hd), dtype)))
+
+
+#: (b, kvh, g, hd, S, softcap) of the small-cache decode cases
+DECODE_CASES = [
     (2, 2, 4, 128, 1024, None), (1, 4, 1, 64, 512, 30.0),
     (2, 1, 7, 128, 2048, None), (1, 8, 2, 128, 512, None),
     (32, 3, 3, 64, 2048, None), (3, 3, 3, 64, 700, 30.0),
@@ -250,14 +272,22 @@ def _check_decode(q, k, v, valid, cap, ranges=None):
     (1, 8, 2, 256, 1024, 50.0),      # gemma2-9b's heads: hd 256, g 2
     (2, 2, 8, 256, 700, None),       # g = 8 at hd 256
     (1, 3, 3, 256, 37, None),        # hd 256, S below one tile
-    (2, 2, 3, 256, 513, 30.0)])      # hd 256, one past a tile boundary
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    (2, 2, 3, 256, 513, 30.0)]       # hd 256, one past a tile boundary
+#: (b, kvh, g, hd, S, softcap, window) of the dense zoo's decodes
+ZOO_CASES = [
+    (32, 8, 2, 128, 2048, None, None),       # qwen3-0.6b serving
+    (8, 4, 8, 128, 2048, None, None),        # yi-9b
+    (4, 8, 8, 128, 2048, None, None),        # chameleon-34b
+    (4, 8, 2, 256, 6144, 50.0, 4096),        # gemma2-9b, an 'L' block
+    (1, 8, 2, 256, 32896, 50.0, 32768)]      # gemma2-9b long-serve, 'A'
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kvh,g,hd,S,cap", DECODE_CASES)
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
 def test_cuda_gqa_decode_kernel_matches_plain(cuda_device, b, kvh, g, hd, S,
                                               cap, dtype):
-    gen = torch.Generator(device=cuda_device).manual_seed(S + g)
-    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
-               .to(dtype) for shape in ((b, kvh, g, hd), (b, S, kvh, hd),
-                                        (b, S, kvh, hd)))
+    q, k, v = _decode_inputs(cuda_device, S + g, b, kvh, g, hd, S, dtype)
     for valid in (torch.arange(S, device=cuda_device) < S - 37,
                   torch.arange(S, device=cuda_device) < 100,
                   torch.zeros(S, dtype=torch.bool, device=cuda_device),
@@ -266,21 +296,14 @@ def test_cuda_gqa_decode_kernel_matches_plain(cuda_device, b, kvh, g, hd, S,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,kvh,g,hd,S,cap,window", [
-    (32, 8, 2, 128, 2048, None, None),       # qwen3-0.6b serving
-    (8, 4, 8, 128, 2048, None, None),        # yi-9b
-    (4, 8, 8, 128, 2048, None, None),        # chameleon-34b
-    (4, 8, 2, 256, 6144, 50.0, 4096),        # gemma2-9b, an 'L' block
-    (1, 8, 2, 256, 32896, 50.0, 32768)])     # gemma2-9b long-serve, 'A'
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kvh,g,hd,S,cap,window", ZOO_CASES)
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
 def test_cuda_gqa_decode_zoo_heads(cuda_device, b, kvh, g, hd, S, cap,
                                    window, dtype):
     """#9 at the dense zoo's decode shapes, with the model's softcap and
     its decode window (``gpos > pos - window``) where it has one."""
-    gen = torch.Generator(device=cuda_device).manual_seed(S + g + hd)
-    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
-               .to(dtype) for shape in ((b, kvh, g, hd), (b, S, kvh, hd),
-                                        (b, S, kvh, hd)))
+    q, k, v = _decode_inputs(cuda_device, S + g + hd, b, kvh, g, hd, S,
+                             dtype)
     gpos = torch.arange(S, device=cuda_device)
     pos = S - 38
     masks = [gpos <= pos, _holes_mask(S, S + g, cuda_device)]
@@ -290,22 +313,107 @@ def test_cuda_gqa_decode_zoo_heads(cuda_device, b, kvh, g, hd, S, cap,
         _check_decode(q, k, v, valid, cap)
 
 
+def _plain_invariants(q, k, v, valid, cap=None, p_bf16=False):
+    """The plain version's acc / l and m + log l, with p rounded to one
+    bfloat16 before ``p v`` when ``p_bf16``: what a kernel that cut p to
+    one slice would compute."""
+    m, l, acc = G.gqa_decode_plain(q, k, v, valid, softcap=cap)
+    if p_bf16:
+        s = torch.einsum("bhgd,bkhd->bhgk", q.float(), k.float()) \
+            / q.shape[-1] ** 0.5
+        p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+        acc = torch.einsum("bhgk,bkhd->bhgd", p.bfloat16().float(),
+                           v.float())
+    return _decode_invariants(m, l, acc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,kvh,g,hd,S", [(4, 3, 3, 64, 700),
+                                          (2, 4, 8, 128, 1024)])
+def test_cuda_gqa_decode_f32_query_low_bits_matter(cuda_device, b, kvh, g,
+                                                   hd, S):
+    """A float32 q that bfloat16 cannot hold, over a bfloat16 cache: the
+    plain version of q cut to one bfloat16 lies outside the tolerance,
+    so only a kernel that keeps every bit of q (three slices) passes."""
+    q, k, v = _decode_inputs(cuda_device, 17 + hd, b, kvh, g, hd, S,
+                             torch.bfloat16, torch.float32)
+    q = q * 3.0
+    assert (q.bfloat16().float() != q).float().mean() > 0.9
+    valid = _holes_mask(S, hd, cuda_device)
+    o, lse = _plain_invariants(q, k, v, valid)
+    o1, lse1 = _plain_invariants(q.bfloat16(), k, v, valid)
+    assert not torch.allclose(o1, o, atol=1e-5, rtol=1e-5)
+    _check_decode(q, k, v, valid, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_cuda_gqa_decode_bf16_scores_over_many_binades(cuda_device,
+                                                       q_dtype):
+    """Scores from 0 down to about -80 (no softcap), so p spans ~115
+    binades: the plain version with p cut to one bfloat16 lies outside the
+    tolerance, so only a kernel that keeps every bit of p (three slices)
+    passes."""
+    b, kvh, g, hd, S = 2, 2, 4, 64, 1024
+    rng = np.random.default_rng(80)
+    q = np.zeros((b, kvh, g, hd), np.float32)
+    q[..., 0] = hd ** 0.5              # the score is k[..., 0], plus a bit
+    q[..., 1:] = rng.standard_normal((b, kvh, g, hd - 1)) * 0.01
+    k = rng.standard_normal((b, S, kvh, hd)).astype(np.float32) * 0.1
+    k[..., 0] = -rng.uniform(0.0, 80.0, (b, S, kvh))
+    v = rng.standard_normal((b, S, kvh, hd)).astype(np.float32)
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in (q, k, v))
+    q, k, v = q.to(q_dtype), k.bfloat16(), v.bfloat16()
+    valid = torch.arange(S, device=cuda_device) < S - 5
+    o, _ = _plain_invariants(q, k, v, valid)
+    o1, _ = _plain_invariants(q, k, v, valid, p_bf16=True)
+    assert not torch.allclose(o1, o, atol=1e-5, rtol=1e-5)
+    _check_decode(q, k, v, valid, None)
+    _check_decode(q, k, v, _holes_mask(S, 80, cuda_device), None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranges", [1, 2, 8, 16])
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_cuda_gqa_decode_bf16_merges_forced_ranges(cuda_device, q_dtype,
+                                                   ranges):
+    """The bfloat16 kernel at the serve shape (b 32, S 2,048, kvh 3, g 3,
+    hd 64) with each row forced into 1, 2, 8 or 16 ranges (a non-portable
+    cluster), merged inside the one launch."""
+    b, kvh, g, hd, S = 32, 3, 3, 64, 2048
+    n_sms = torch.cuda.get_device_properties(cuda_device) \
+        .multi_processor_count
+    assert G.decode_splits(b * kvh, S, n_sms, G.MMA_CHUNK, ranges,
+                           kv_bytes=4 * hd)[1] == ranges
+    q, k, v = _decode_inputs(cuda_device, 7 + ranges, b, kvh, g, hd, S,
+                             torch.bfloat16, q_dtype)
+    for cap in (None, 30.0):
+        for valid in (torch.arange(S, device=cuda_device) < 1990,
+                      _holes_mask(S, 6, cuda_device)):
+            _check_decode(q, k, v, valid, cap, ranges)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ranges", [None, 2, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_gqa_decode_merges_ranges_in_one_launch(cuda_device, dtype,
                                                      ranges):
     """At the serve shape (b 32, S 2,048, kvh 3, g 3, hd 64) the ranges of
-    a row (decode_splits's choice: 3 in float32; or 2, or a full cluster of
-    8) merge inside the one launch."""
+    a row (decode_splits's choice: 3 in float32, 1 in bfloat16, whose 96
+    rows are near 3/4 of the SMs already; or 2, or a full cluster of 8)
+    merge inside the one launch."""
     b, kvh, g, hd, S = 32, 3, 3, 64, 2048
     n_sms = torch.cuda.get_device_properties(cuda_device) \
         .multi_processor_count
+    bf16 = dtype == torch.bfloat16
     _, n_ranges = G.decode_splits(b * kvh, S, n_sms,
-                                  G.decode_tile(hd, dtype), ranges)
+                                  G.decode_tile(hd, dtype), ranges,
+                                  kv_bytes=4 * hd if bf16 else None)
     if ranges:
         assert n_ranges == ranges
-    elif dtype == torch.float32:
+    elif bf16:
+        assert n_ranges == 1
+    else:
         assert n_ranges > 1
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
@@ -368,26 +476,19 @@ def test_cuda_zoo_serve_launches_kernel_per_layer(cuda_device, arch, extra):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("cap", [None, 50.0])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", DECODE_DTYPES)
 def test_cuda_gqa_decode_half_million_positions_hd256(cuda_device, dtype,
                                                        cap):
     """The longest cache the reference serves (``long_500k``: 524,288
     positions) at gemma2-9b's heads (kvh 8, g 2, hd 256, softcap 50): 16
     ranges of 32,768 positions per row, merged over one non-portable
     cluster of 16 in the one launch.  K and V are 4.3 GB each in
-    float32.  Masks: a ragged frontier, random holes, and a 4,096-position
+    float32; float32, bfloat16 and a float32 q over the bfloat16 cache.
+    Masks: a ragged frontier, random holes, and a 4,096-position
     sliding window before the frontier."""
     b, kvh, g, hd, S = 1, 8, 2, 256, 524_288
-    n_sms = torch.cuda.get_device_properties(cuda_device) \
-        .multi_processor_count
-    ctas, _ = G.occupancy(cuda_device.index or 0,
-                          dtype == torch.bfloat16, hd, g)
-    assert G.decode_splits(b * kvh, S, n_sms, G.decode_tile(hd, dtype),
-                           ctas_per_sm=ctas) == (32768, 16)
-    gen = torch.Generator(device=cuda_device).manual_seed(524)
-    q, k, v = (torch.randn(shape, generator=gen, device=cuda_device)
-               .to(dtype) for shape in ((b, kvh, g, hd), (b, S, kvh, hd),
-                                        (b, S, kvh, hd)))
+    q, k, v = _decode_inputs(cuda_device, 524, b, kvh, g, hd, S, dtype)
+    assert G.decode_grid(q, k)[:2] == (32768, 16)
     pos = torch.arange(S, device=cuda_device)
     frontier = S - 37
     for valid in (pos < frontier, _holes_mask(S, 7, cuda_device),

@@ -172,7 +172,7 @@ def test_gqa_decode_mask_with_holes_matches_jax():
 @pytest.mark.parametrize("rows,seq,tile,want", [
     (96, 2048, 32, (704, 3)),        # smollm serve: b 32 x kvh 3, f32
     (384, 32768, 32, (16384, 2)),    # decode_32k: b 128 x kvh 3, f32
-    (96, 2048, 64, (2048, 1)),       # serve with a bf16 cache
+    (256, 2048, 16, (688, 3)),       # qwen3-0.6b serve: kvh 8, hd 128
     (3, 100, 32, (128, 1)),
     (2, 0, 32, (32, 1)),
     (1, 100_000, 16, (12512, 8)),    # ranges capped at one cluster
@@ -196,8 +196,16 @@ def test_decode_splits_cover_the_cache(rows, seq, tile, want):
 ])
 def test_decode_partition_covers_each_position_once(hd, dtype, rows, seq):
     tile = G.decode_tile(hd, dtype)
-    assert tile * hd * (4 if dtype == torch.float32 else 2) == 8192
-    range_len, n = G.decode_splits(rows, seq, 132, tile)
+    if dtype == torch.float32:
+        assert tile * hd * 4 == 8192
+        range_len, n = G.decode_splits(rows, seq, 132, tile)
+    else:
+        assert tile == G.MMA_CHUNK == 16
+        range_len, n = G.decode_splits(rows, seq, 132, tile, kv_bytes=4 * hd)
+    _assert_covers_once(seq, range_len, n, tile)
+
+
+def _assert_covers_once(seq, range_len, n, tile):
     count = np.zeros(seq, np.int64)
     for r in range(n):               # the positions CTA r of a row walks
         lo = r * range_len
@@ -207,6 +215,58 @@ def test_decode_partition_covers_each_position_once(hd, dtype, rows, seq):
             count[t:min(hi, t + tile)] += 1
     assert np.all(count == 1)
     assert n <= G.MAX_RANGES and range_len <= G.MAX_RANGE
+
+
+#: (b, S, kvh, g, hd) of the bfloat16 decodes, and the split pinned for
+#: each on 132 SMs: rows x ranges near 3/4 of the SMs, one CTA each
+#: (99 CTAs), at most 8 ranges unless the cache needs more
+BF16_SPLITS = {
+    "serve": ((32, 2048, 3, 3, 64), (2048, 1)),
+    "chameleon-34b": ((4, 2048, 8, 8, 128), (688, 3)),
+    "yi-9b": ((8, 2048, 4, 8, 128), (688, 3)),
+    "jamba-v0.1-52b": ((4, 2112, 8, 4, 128), (704, 3)),
+    "whisper-small cross": ((32, 1504, 12, 1, 64), (1504, 1)),
+    "decode_32k": ((128, 32768, 3, 3, 64), (32768, 1)),
+    "long_500k": ((1, 524_288, 8, 2, 256), (32768, 16)),
+}
+
+
+@pytest.mark.parametrize("shape", list(BF16_SPLITS))
+def test_decode_splits_bf16_grids(shape):
+    """The bfloat16 kernel's grid on a 132-SM card, sized by bytes: one
+    CTA per SM on at most 3/4 of them (or one range per row where the rows
+    alone exceed that), clusters of at most 8 unless MAX_RANGE forces more
+    (long_500k: 16), each position in one range, ranges within MAX_RANGES x
+    MAX_RANGE."""
+    (b, seq, kvh, g, hd), want = BF16_SPLITS[shape]
+    rows, n_sms = b * kvh, 132
+    tile = G.decode_tile(hd, torch.bfloat16)
+    got = G.decode_splits(rows, seq, n_sms, tile, kv_bytes=4 * hd)
+    assert got == want
+    range_len, n = got
+    forced = -(-seq // G.MAX_RANGE)
+    assert n == forced or rows * n <= max(rows, G.FILL * n_sms)
+    assert n <= max(G.PORTABLE_RANGES, forced)
+    assert range_len * rows * 4 * hd >= min(G.MIN_RANGE_BYTES,
+                                            seq * rows * 4 * hd)
+    assert n <= G.MAX_RANGES and range_len <= G.MAX_RANGE
+    assert range_len % tile == 0
+    _assert_covers_once(seq, range_len, n, tile)
+
+
+def test_decode_splits_bf16_keeps_clusters_resident():
+    """Where the card holds fewer clusters of n ranges than there are rows,
+    the bfloat16 split takes fewer ranges, down to what MAX_RANGE needs;
+    and it cuts no range below MIN_RANGE_BYTES."""
+    rows, seq, hd = 8, 32896, 256            # gemma2-9b long-serve
+    assert G.decode_splits(rows, seq, 132, 16, kv_bytes=4 * hd) == (4112, 8)
+    held = {8: 7, 7: 7, 6: 9}                # clusters resident, by size
+    assert G.decode_splits(rows, seq, 132, 16, kv_bytes=4 * hd,
+                           clusters=lambda n: held.get(n, 99)) == (5488, 6)
+    assert G.decode_splits(1, 524_288, 132, 16, kv_bytes=4 * hd,
+                           clusters=lambda n: 0) == (32768, 16)
+    # 256 positions of 512 B: two ranges of 64 KB, not eight of 16 KB
+    assert G.decode_splits(4, 256, 132, 16, kv_bytes=512) == (128, 2)
 
 
 def test_decode_splits_refuses_too_long_a_cache():
