@@ -76,7 +76,7 @@ Phases (any failure exits non-zero before the result line):
              exchange time at a resync against steps without one;
              then the lossy and directed rings (``phase_faults``), each
              run counted and every exchange watched: 4 nodes on the
-             directed ring with push-sum, adaptive grid, loss seed 1, 5
+             directed ring with push-sum, adaptive grid, loss seed 1, 4
              steps at loss None, 0.0, 0.05 and 0.2 packed, then 0.2
              pipelined over 4 units, async at staleness 0 and per-leaf,
              the Gilbert-Elliott burst channel (p 0.1, r 0.9) with int8
@@ -100,11 +100,12 @@ Phases (any failure exits non-zero before the result line):
              then elastic membership and the two-level hierarchy
              (``phase_elastic``), each run counted and watched: the
              reference's churn sweep on 4 nodes (node 2 out for the second
-             of 4-step epochs, 13 steps) packed, pipelined over 4 units,
-             async at staleness 0 and 1 and under the burst channel:
-             active nodes 4 / 3 / 4, node 2's parameters and shadows
-             frozen bitwise through steps 5-8, resyncs at steps 5 and 9
-             only, the reference's wire bytes (540,218,112), one encode
+             of 4-step epochs, 9 steps) packed, pipelined over 4 units,
+             async at staleness 0 and 1, and 13 steps under the burst
+             channel: active nodes 4 / 3 / 4, node 2's parameters and
+             shadows frozen bitwise through steps 5-8, resyncs at steps 5
+             and 9 only (none at 13, where the mask has clamped), the
+             reference's wire bytes (540,218,112), one encode
              and one combine per active node and unit, packed ==
              pipelined == async s0 bitwise, step 5 through the plain
              versions equal to the kernels; the hierarchy sweep (2 pods
@@ -137,10 +138,26 @@ Phases (any failure exits non-zero before the result line):
              without (within 0.2 ms) and the trainer's consensus_err
              metric alone; a 2-step ``--checkpoint-every 2``
              run loaded into a fresh state and run through steps 3-4,
-             bitwise equal to a 4-step run, packed and async at staleness
-             1, with the bytes and seconds of save and load; 3 steps of
+             bitwise equal to a 4-step run, async at staleness 1, with
+             the bytes and seconds of save and load; 3 steps of
              ``--microbatches 2`` beside 1, its gradient bitwise the two
              halves' gradients added and halved;
+             then the consensus ring over processes
+             (``phase_process_ring``): 4 ranks of a gloo group, all on
+             cuda:0, each training one node of the full smollm-135m
+             through ``train.main --process-ring`` for 5 steps of int8
+             packed, int8 pipelined over 4 units, int2 packed and dgd,
+             its payloads crossing loopback TCP through pinned host
+             buffers: one exchange per run on fixed inputs equal on every
+             rank to the stacked exchange's row (payload bytes of each
+             unit, x_tilde, m_agg, x_next, by fingerprint), each rank's
+             launches exact (#1 / #2 or #5 / #6 once per unit and step),
+             the per-node losses, parameters and shadows bitwise the
+             stacked run's (its int8 run twice first: within the parity
+             tolerances if those two differ), the stacked wire bytes;
+             step time, the exchange's split (quantize, device-to-host
+             copy, gloo transfer, host-to-device copy, dequant_combine,
+             glue), the loopback rate and each rank's peak memory;
 4. serve   — ``repro_torch.launch.serve.main`` on the full smollm-135m:
              32 prompts of 1,984 tokens and 64 new tokens (capacity 2,048,
              a 3.0 GB float32 KV cache): the flash-decode kernel launched
@@ -1351,12 +1368,12 @@ def phase_strides(torch, Q, D, train, entries):
 #: the lossy and directed rings (``phase_faults``) on the full smollm-135m
 #: x 4 nodes: the reference's packet-loss sweep (``benchmarks/
 #: consensus_step.py:171-174``: directed-ring push-sum on the adaptive
-#: grid, loss seed 1, rates None / 0.0 / 0.05 / 0.2; 5 of its 8 steps, cut
+#: grid, loss seed 1, rates None / 0.0 / 0.05 / 0.2; 4 of its 8 steps, cut
 #: for the script's time), its burst
 #: channel (``CHURN_BURST``, :202), the async transport's straggler
 #: deadlines, and the strided 5-node ring of ``phase_strides`` with one
 #: resync retry (some handshakes fail)
-FAULT_STEPS, LOSS_SEED, STRAGGLE = 5, 1, 0.2
+FAULT_STEPS, LOSS_SEED, STRAGGLE = 4, 1, 0.2
 LOSS_RATES = (None, 0.0, 0.05, 0.2)
 CHURN_BURST = "gilbert:p=0.1,r=0.9"
 FAULT_ARGV = ("--topology", "directed-ring", "--quant-mode", "adaptive",
@@ -1863,11 +1880,14 @@ def phase_paper_directed(torch, Q, entries):
 
 #: elastic membership (``phase_elastic``): the reference's churn sweep
 #: (``benchmarks/consensus_step.py:179-202``, ``CHURN_MASKS`` and
-#: ``CHURN_PERIOD``): node 2 out for schedule epoch 1 of 4-step epochs, 13
-#: of its 16 steps (cut for the script's time; step 13 still opens the
-#: clamped epoch): nodes 0, 1, 3 at steps 5-8, all four at the others; the
-#: resync at steps 5 and 9 (at 13 the mask has clamped, so none)
-CHURN_SPEC, CHURN_PERIOD, CHURN_STEPS = "2@1:2", 4, 13
+#: ``CHURN_PERIOD``): node 2 out for schedule epoch 1 of 4-step epochs,
+#: 13 of its 16 steps on one run (``CHURN_LONG_STEPS``: step 13 opens the
+#: epoch where the mask has clamped, and no resync runs there) and 9 on the
+#: others (cut for the script's time; step 9, the rejoin, is the last
+#: resync): nodes 0, 1, 3 at steps 5-8, all four at the others; the resync
+#: at steps 5 and 9
+CHURN_SPEC, CHURN_PERIOD, CHURN_STEPS = "2@1:2", 4, 9
+CHURN_LONG_STEPS = 13
 CHURN_ARGV = ("--node-failures", CHURN_SPEC, "--schedule-period",
               str(CHURN_PERIOD))
 CHURN_ACTIVE = [4] * 4 + [3] * 4 + [4] * 5
@@ -1937,9 +1957,9 @@ class ElasticWatch:
 def phase_elastic(torch, Q, D, train, entries):
     """Elastic membership and the two-level hierarchy on the full
     smollm-135m x 4 nodes, each run counted on its own and watched
-    (``ElasticWatch``, ``ExchangeWatch``): (a) the churn sweep, 13 steps
-    on packed, pipelined 4 units, async at staleness 0 and 1, and packed
-    under the burst channel: 4 / 3 / 4 active, node 2 frozen bitwise
+    (``ElasticWatch``, ``ExchangeWatch``): (a) the churn sweep, 9 steps
+    on packed, pipelined 4 units, async at staleness 0 and 1, and 13 on
+    packed under the burst channel: 4 / 3 / 4 active, node 2 frozen bitwise
     through steps 5-8, resyncs at 5 and 9 only, the reference's wire
     bytes, launches per active node, packed == pipelined == async s0
     bitwise, step 5 through the plain versions equal to the kernels, zero
@@ -1962,26 +1982,30 @@ def phase_elastic(torch, Q, D, train, entries):
     burst = faults.GilbertElliottLoss(p=0.1, r=0.9, seed=LOSS_SEED,
                                       n_nodes=NODES)
     masks = [CHURN_HOLE if 5 <= k <= 8 else (True,) * NODES
-             for k in range(1, CHURN_STEPS + 1)]
-    # (label, extra flags, transfer units, loss model, plain-check step)
-    runs = [("churn packed", (), 1, None, CHURN_RESYNCS[0]),
-            ("churn pipelined 4", pipelined, PIPELINE_CHUNKS, None, None),
+             for k in range(1, CHURN_LONG_STEPS + 1)]
+    # (label, extra flags, transfer units, loss model, plain-check step,
+    # steps): the burst run reaches the clamped mask's epoch
+    runs = [("churn packed", (), 1, None, CHURN_RESYNCS[0], CHURN_STEPS),
+            ("churn pipelined 4", pipelined, PIPELINE_CHUNKS, None, None,
+             CHURN_STEPS),
             ("churn async s0", ("--wire-packing", "async", "--staleness",
-                                "0"), 1, None, None),
+                                "0"), 1, None, None, CHURN_STEPS),
             ("churn async s1", ("--wire-packing", "async", "--staleness",
-                                "1"), 1, None, CHURN_RESYNCS[0]),
+                                "1"), 1, None, CHURN_RESYNCS[0],
+             CHURN_STEPS),
             ("churn burst", ("--link-loss-model", CHURN_BURST,
                              "--loss-seed", str(LOSS_SEED)), 1, burst,
-             None)]
-    for label, extra, units, model, plain in runs:
+             None, CHURN_LONG_STEPS)]
+    for label, extra, units, model, plain, steps in runs:
         with CardSampler() as card, ExchangeWatch(
                 torch, Q, D, plain) as watch, ElasticWatch(torch) as ew:
             (hist, state), launches, peak = run_counted(
                 torch, train, entries,
-                train_argv(CHURN_STEPS, *CHURN_ARGV, *extra),
+                train_argv(steps, *CHURN_ARGV, *extra),
                 return_state=True)
         peak_gb[label] = max(peak, watch.peak_gb)
-        per_node = units * sum(CHURN_ACTIVE)
+        active = CHURN_ACTIVE[:steps]
+        per_node = units * sum(active)
         want = {name: 0 for name in entries}
         want["quantize_payload"] = want["dequant_combine_payload"] = per_node
         losses = [h["loss"] for h in hist]
@@ -1992,7 +2016,7 @@ def phase_elastic(torch, Q, D, train, entries):
                [r["active"] for r in ew.steps][4])
         if launches != want or not all(math.isfinite(x) for x in losses) \
                 or abs(losses[0] - math.log(49152)) > 0.5 \
-                or got != (CHURN_ACTIVE, list(CHURN_RESYNCS),
+                or got != (active, list(CHURN_RESYNCS),
                            {CHURN_WIRE_BYTES}, True, [0, 1, 3]):
             fail(f"elastic {label}: launched {launches} (want {want}), "
                  f"losses {losses}, active / resyncs / wire bytes / frozen "
@@ -2023,7 +2047,7 @@ def phase_elastic(torch, Q, D, train, entries):
         if label in ("churn packed", "churn pipelined 4", "churn async s0"):
             finals[label] = host_state(state)
         del state
-        print(f"[elastic] {label}: {CHURN_STEPS} steps, active_nodes "
+        print(f"[elastic] {label}: {steps} steps, active_nodes "
               f"{got[0]}; node 2 frozen bitwise through steps 5-8; resyncs "
               f"at {got[1]}; launches {({n: v for n, v in launches.items() if v})} "
               f"(one per active node and unit); wire_bytes_per_step "
@@ -2179,9 +2203,10 @@ def phase_elastic_timing(torch, train):
 
 
 #: the telemetry phase: 4 steps of each transport with and without
-#: ``--telemetry``; the checkpoint resume (2 + 2 against 4 steps); 3 steps of
-#: ``--microbatches 2`` and of 1
-TEL_STEPS, CKPT_STEPS, MICRO_STEPS = 4, 4, 3
+#: ``--telemetry``; the checkpoint resume (2 + 2 against 4 steps: the async
+#: s1 run without telemetry); 3 steps of ``--microbatches 2`` and of 1
+TEL_STEPS, MICRO_STEPS = 4, 3
+CKPT_STEPS = TEL_STEPS
 TEL_RUNS = {"packed": (),
             "pipelined 4": ("--wire-packing", "pipelined",
                             "--pipeline-chunks", str(PIPELINE_CHUNKS)),
@@ -2246,8 +2271,9 @@ def phase_telemetry(torch, train, entries, main_int8):
     exchange with and without a recorder, and the trainer's
     ``consensus_err`` metric timed alone; (b) a 2-step run
     saving at step 2 (``--checkpoint-every 2``), loaded into a fresh state
-    of another seed and run through steps 3-4, bitwise equal to a 4-step
-    run, packed and async s1, with bytes and seconds of save and load; (c)
+    of another seed and run through steps 3-4, bitwise equal to the 4-step
+    async s1 run of (a) without telemetry, with bytes and seconds of save
+    and load; (c)
     ``--microbatches 2`` for 3 steps beside the main phase's int8 run
     (``main_int8``: its median step s, peak GB and step-1 loss), its
     gradient bitwise the two halves' gradients added and halved.  Returns
@@ -2314,6 +2340,9 @@ def phase_telemetry(torch, train, entries, main_int8):
         if label == "packed":
             trainer_split = {"trainer window": statistics.median(exch),
                              "trainer glue": glue}
+        if label == "async s1":
+            # (b)'s uninterrupted run: the same argv (CKPT_STEPS steps)
+            uninterrupted = off
         del on, off
     # the measured split of one packed exchange, and the recorder's cost
     setup = train.build_train_setup(get_config("smollm-135m"),
@@ -2399,14 +2428,15 @@ def phase_telemetry(torch, train, entries, main_int8):
 
     train.save_checkpoint = timed_save
     try:
-        for label, extra in (("packed", ()), ("async s1",
-                                               TEL_RUNS["async s1"])):
+        # async s1 only (packed cut for the script's time); its state
+        # holds every consensus entry packed's does
+        for label, extra in (("async s1", TEL_RUNS["async s1"]),):
             with tempfile.TemporaryDirectory() as tmp:
                 _, half, _, _ = counted(train_argv(
                     2, *extra, "--checkpoint-dir", tmp,
                     "--checkpoint-every", "2"))
                 del half
-                _, full, _, _ = counted(train_argv(CKPT_STEPS, *extra))
+                full = uninterrupted
                 setup = train.build_train_setup(
                     get_config("smollm-135m"), consensus_nodes=NODES,
                     lr=1e-2, quant_mode="fixed", device="cuda",
@@ -2444,7 +2474,7 @@ def phase_telemetry(torch, train, entries, main_int8):
                     "bitwise (params, every consensus entry)")
             print(f"[telemetry] {line}", flush=True)
             summary.append(line)
-            del state, full, setup
+            del state, full, setup, uninterrupted
             torch.cuda.empty_cache()
     finally:
         train.save_checkpoint = real_save
@@ -5088,6 +5118,380 @@ def phase_copy_time(torch) -> None:
           f"{ms_copy:.4f} ms per exchange (written in place: 0)")
 
 
+#: the consensus ring over processes (``phase_process_ring``): 4 ranks of a
+#: gloo group, every one on cuda:0 (NCCL refuses two ranks on one card),
+#: each training one node of the full smollm-135m, 5 steps per run
+RING_RANKS = NODES
+RING_DEVICE = "cuda:0"
+#: a rank that has not finished by then fails the phase
+RING_TIMEOUT_S = 600.0
+#: each run: its flags and the kernels one rank launches per step
+RING_RUNS = {
+    "int8 packed": ((), {"quantize_payload": 1,
+                         "dequant_combine_payload": 1}),
+    "int8 pipelined 4": (("--wire-packing", "pipelined", "--pipeline-chunks",
+                          str(PIPELINE_CHUNKS)),
+                         {"quantize_payload": PIPELINE_CHUNKS,
+                          "dequant_combine_payload": PIPELINE_CHUNKS}),
+    "int2 packed": (("--wire-codec", "int2"),
+                    {"subbyte_encode_payload": 1,
+                     "subbyte_decode_combine": 1}),
+    "dgd": (("--algorithm", "dgd"), {}),
+}
+#: the static wire bytes per node and step: the payloads' (``WIRE_BYTES``),
+#: and dgd's float32 parameters both ways (2 x 134,515,008 x 4)
+RING_WIRE_BYTES = {"int8 packed": WIRE_BYTES["int8"],
+                   "int8 pipelined 4": WIRE_BYTES["int8"],
+                   "int2 packed": WIRE_BYTES["int2"],
+                   "dgd": 1_076_120_064}
+#: the fingerprint's chunk of bytes (bounds its int64 temporaries)
+_FP_CHUNK = 1 << 26
+
+
+def fingerprint(torch, t) -> tuple[int, int]:
+    """Two 64-bit sums of ``t``'s bytes: plain, and each byte times an odd
+    weight (2 x its index + 1), wrapping.  Equal tensors give equal pairs;
+    any one byte that differs changes the second sum.  Integer sums on the
+    card are exact, so the pair is the same wherever it is taken."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    s0 = torch.zeros((), dtype=torch.int64, device=b.device)
+    s1 = torch.zeros((), dtype=torch.int64, device=b.device)
+    for i in range(0, b.numel(), _FP_CHUNK):
+        w = b[i:i + _FP_CHUNK].to(torch.int64)
+        s0 += w.sum()
+        idx = torch.arange(i, i + w.numel(), device=b.device,
+                           dtype=torch.int64)
+        s1 += (w * (2 * idx + 1)).sum()
+    return int(s0), int(s1)
+
+
+def ring_exchange_inputs(torch, train, n_local: int, first: int):
+    """The fixed inputs of ``ring_exchange``: smollm-135m's x0 from seed 0
+    and, for node i, ``x_half = x0 + 1e-3 * N(0, 1)`` drawn leaf by leaf
+    from a generator on the card seeded ``1000 + i``; nodes ``first`` to
+    ``first + n_local - 1``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.models.params import init_params
+    defs = train.build_train_setup(get_config("smollm-135m"),
+                                   consensus_nodes=RING_RANKS,
+                                   device="cuda").defs
+    x0 = init_params(defs.storage, 0, RING_DEVICE, n_nodes=n_local)
+    half = T.tree_map(torch.clone, x0)
+    for i in range(n_local):
+        g = torch.Generator(device=RING_DEVICE)
+        g.manual_seed(1000 + first + i)
+        for a in T.tree_leaves(half):
+            a[i].add_(torch.randn(a[i].shape, generator=g,
+                                  device=RING_DEVICE).mul_(1e-3))
+    return x0, half
+
+
+def ring_exchange(torch, train, flags, ctx=None) -> list:
+    """One exchange (step 1, noise seed 0) of the run with ``flags`` on the
+    fixed inputs: stacked (``ctx`` None) or this rank's node.  Per node:
+    the fingerprints of its payload bytes (each transfer unit), x_tilde,
+    m_agg and x_next (each leaf)."""
+    from repro_torch.core import tree as T
+    from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
+    kw = {"algorithm": "adc_dgd", "wire_codec": "int8",
+          "wire_packing": "packed", "pipeline_chunks": PIPELINE_CHUNKS}
+    for flag, value in zip(flags[::2], flags[1::2]):
+        kw[flag[2:].replace("-", "_")] = (int(value) if flag ==
+                                          "--pipeline-chunks" else value)
+    rt = ConsensusRuntime(ConsensusConfig(**kw), RING_RANKS, ctx=ctx)
+    first = 0 if ctx is None else ctx.rank
+    x0, half = ring_exchange_inputs(torch, train, rt.n_local, first)
+    pays, encode = [], rt._encode_unit
+
+    def recorded(*args, **kwargs):
+        out = encode(*args, **kwargs)
+        pays.append([None if p is None else fingerprint(torch, p)
+                     for p in out])
+        return out
+    rt._encode_unit = recorded
+    state = rt.init_state(x0)
+    x_next, state, _ = rt.exchange(x0, half, state, 1, seed=0)
+    return [{"payloads": [u[i] for u in pays],
+             "x_tilde": fingerprint(torch, state["x_tilde"][i])
+             if state else None,
+             "m_agg": fingerprint(torch, state["m_agg"][i])
+             if state else None,
+             "x_next": [fingerprint(torch, a[i])
+                        for a in T.tree_leaves(x_next)]}
+            for i in range(rt.n_local)]
+
+
+def ring_state_print(torch, state, n_local: int) -> list:
+    """Per node: the fingerprints of its final parameters (each leaf) and
+    shadows."""
+    from repro_torch.core import tree as T
+    cons = state["consensus"]
+    return [{"params": [fingerprint(torch, a[i])
+                        for a in T.tree_leaves(state["params"])],
+             **{k: fingerprint(torch, cons[k][i]) for k in sorted(cons)}}
+            for i in range(n_local)]
+
+
+def ring_split(trace_path: str, hist: list) -> dict:
+    """Median over steps 2-5 of one rank's exchange, in ms: the window
+    and its phases from the trace's CUDA-event spans, the staging copies
+    and the wire from the ring's own clocks (``train._wire_stats``): the
+    gloo transfer is what the launch and retire spans held besides the
+    copies (dgd, which marks no phase: the host's wait), the glue the
+    window less every phase (the consensus error's node sum, a metric, is
+    in it and also given apart); the wire from the first post to the last
+    wait's return, and the part of it the host waited."""
+    with open(trace_path) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X"]
+    steps = {}
+    for e in spans:
+        if e["name"].startswith("exchange step"):
+            steps[e["args"]["step"]] = {"window": e["dur"] / 1e3}
+    for e in spans:
+        ph = e["name"].split()[0]
+        if ph in ("quantize", "launch", "in_flight", "retire",
+                  "dequant_combine") and e["args"]["step"] in steps:
+            row = steps[e["args"]["step"]]
+            row[ph] = row.get(ph, 0.0) + e["dur"] / 1e3
+    rows = []
+    for k, h in enumerate(hist, start=1):
+        if k < 2 or k not in steps:
+            continue
+        r = steps[k]
+        d2h, h2d = h["wire_d2h_s"] * 1e3, h["wire_h2d_s"] * 1e3
+        waited = h["wire_wait_s"] * 1e3
+        if "launch" in r:
+            gloo = r["launch"] + r["retire"] - d2h - h2d
+            spans_sum = sum(r.get(p, 0.0) for p in (
+                "quantize", "launch", "retire", "dequant_combine"))
+        else:
+            # dgd marks no phase: its transfers are timed by the ring
+            gloo = waited
+            spans_sum = d2h + gloo + h2d
+        rows.append({"window": r["window"], "quantize": r.get("quantize", 0.0),
+                     "d2h": d2h, "gloo": gloo, "h2d": h2d,
+                     "dequant_combine": r.get("dequant_combine", 0.0),
+                     "glue": r["window"] - spans_sum,
+                     "in_flight": r.get("in_flight", 0.0),
+                     "wire_post_to_done": h["wire_s"] * 1e3,
+                     "wire_waited": waited,
+                     "consensus_err_wire": h["consensus_err_wire_s"] * 1e3})
+    if not rows:
+        return {}
+    return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+
+
+def ring_rank(keep_values: dict, out_dir: str) -> dict:
+    """One rank of ``phase_process_ring`` (started by ``launch.mesh.
+    run_ranks``, on cuda:0): the fixed-input exchange of every run, then
+    each run through ``train.main --process-ring`` with its launches
+    counted, its peak memory, its step lines' wire and its trace's split;
+    per node losses, and final state fingerprints (with the values saved
+    under ``out_dir`` where ``keep_values[label]``)."""
+    import tempfile
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import bitpack as BP
+    from repro_torch.kernels import dequant_combine as D
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_process_context
+    train.measure_consensus_overhead = _no_probe
+    entries = {"quantize_payload": Q.quantize_payload,
+               "dequant_combine_payload": D.dequant_combine_payload,
+               "subbyte_encode_payload": BP.subbyte_encode_payload,
+               "subbyte_decode_combine": BP.subbyte_decode_combine}
+    ctx = make_process_context(RING_DEVICE)
+    rank = ctx.rank
+    out = {"exchange": {}, "runs": {}}
+    for label, (flags, _) in RING_RUNS.items():
+        out["exchange"][label] = ring_exchange(torch, train, flags, ctx)[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for label, (flags, _) in RING_RUNS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            _zero(entries)
+            torch.cuda.reset_peak_memory_stats()
+            hist, state = train.main(
+                train_argv(STEPS, *flags, "--process-ring", "--device",
+                           RING_DEVICE, "--telemetry", "--telemetry-dir",
+                           tmp, "--run-id", "ring"), return_state=True)
+            launches = _read(entries)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            split = ring_split(os.path.join(tmp, f"trace-ring-rank{rank}"
+                                            ".json"), hist)
+        run = {"launches": launches, "peak_gb": peak, "split": split,
+               "losses": [h["node_loss"].tolist() for h in hist],
+               "loss": [h["loss"] for h in hist],
+               "step_s": [h["step_s"] for h in hist],
+               "wire": [{k: h[k] for k in (
+                   "wire_bytes_per_step", "wire_bytes_sent", "wire_s",
+                   "wire_wait_s", "wire_d2h_s", "wire_h2d_s",
+                   "consensus_err_wire_s")} for h in hist],
+               "state": ring_state_print(torch, state, 1)[0]}
+        if keep_values.get(label):
+            path = os.path.join(out_dir, f"{label}-rank{rank}.pt")
+            torch.save(host_state(state), path)
+            run["values"] = path
+        out["runs"][label] = run
+        del state, hist
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_process_ring(torch, train, entries):
+    """The consensus ring over processes on one card: 4 ranks of a gloo
+    group (``launch.mesh.run_ranks``), all on cuda:0, each holding one
+    node of the full smollm-135m (4 x 512 tokens, SGD lr 1e-2, fixed grid
+    1e-3), whose payloads cross loopback TCP staged through pinned host
+    memory.  First, stacked on this process: one exchange of each run on
+    fixed inputs, and each 5-step run (``RING_RUNS``: int8 packed, int8
+    pipelined over 4 units, int2 packed, dgd), the first one twice.  Then
+    the ranks: the same exchange on every rank, whose payload bytes (each unit), x_tilde,
+    m_agg and x_next must be bitwise equal to the stacked exchange's row
+    (fingerprints); and each run through ``train.main --process-ring``
+    counted on every rank (#1 / #2 or #5 / #6 once per unit and step, none
+    for dgd), whose per-node losses and final parameters and shadows must
+    equal the stacked run's bitwise where the two stacked int8 runs agreed
+    bit for bit, else within the parity tolerances (``MAX_GRID_STEPS``,
+    ``MAX_FRAC_OFF``, ``LOSS_RTOL``), and whose static wire bytes (and, on
+    a packed wire, the measured bytes sent) are the stacked accounting's.
+    Prints per run the median step, the exchange split (quantize, the
+    device-to-host copy, the gloo transfer, the host-to-device copy,
+    dequant_combine, glue), the wire bytes, the loopback rate and each
+    rank's peak memory.  Returns (the ranks' launches, summary lines)."""
+    import tempfile
+    from repro_torch.launch.mesh import run_ranks
+    t_phase = time.perf_counter()
+    want_ex = {label: ring_exchange(torch, train, flags)
+               for label, (flags, _) in RING_RUNS.items()}
+    stacked, same = {}, None
+    for label, (flags, _) in RING_RUNS.items():
+        h0, s0 = train.main(train_argv(STEPS, *flags), return_state=True)
+        if same is None:
+            # the stacked trainer twice: deterministic on this card?
+            h1, s1 = train.main(train_argv(STEPS, *flags), return_state=True)
+            same = same_state(torch, s0, s1) and all(
+                torch.equal(a["node_loss"], b["node_loss"])
+                for a, b in zip(h0, h1))
+            if not same:
+                print(f"[ring] stacked {label}: two runs differ (losses "
+                      f"{[h['loss'] for h in h0]} vs "
+                      f"{[h['loss'] for h in h1]}): the ranks are held to "
+                      "the parity tolerances", flush=True)
+            del h1, s1
+        stacked[label] = {
+            "same": same, "losses": [h["node_loss"].tolist() for h in h0],
+            "print": ring_state_print(torch, s0, RING_RANKS),
+            "wire": h0[-1]["wire_bytes_per_step"],
+            "step_s": statistics.median(h["step_s"] for h in h0[1:])}
+        if not same:
+            stacked[label]["values"] = host_state(s0)
+        del h0, s0
+    keep = {label: not same for label in RING_RUNS}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_ranks = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        ranks = run_ranks(ring_rank, RING_RANKS, keep, out_dir,
+                          timeout_s=RING_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t_ranks
+        launches = {name: 0 for name in entries}
+        summary = []
+        for label, (_, per_step) in RING_RUNS.items():
+            st = stacked[label]
+            for r, rank in enumerate(ranks):
+                got, want = rank["exchange"][label], want_ex[label][r]
+                if got != want:
+                    fail(f"ring {label}: rank {r}'s exchange differs from "
+                         f"the stacked row: {got} vs {want}")
+                run = rank["runs"][label]
+                want_l = {n: per_step.get(n, 0) * STEPS
+                          for n in run["launches"]}
+                if run["launches"] != want_l:
+                    fail(f"ring {label}: rank {r} launched "
+                         f"{run['launches']}, want {want_l}")
+                for name, n in run["launches"].items():
+                    launches[name] += n
+                wire = {w["wire_bytes_per_step"] for w in run["wire"]}
+                sent = {w["wire_bytes_sent"] for w in run["wire"]}
+                if wire != {st["wire"]} or st["wire"] != \
+                        RING_WIRE_BYTES[label] or sent != {st["wire"]}:
+                    fail(f"ring {label}: rank {r} wire bytes {wire}, sent "
+                         f"{sent}, stacked {st['wire']}, want "
+                         f"{RING_WIRE_BYTES[label]}")
+                if st["same"]:
+                    if (run["losses"] != st["losses"]
+                            or run["state"] != st["print"][r]):
+                        fail(f"ring {label}: rank {r} is not the stacked "
+                             f"run bitwise: losses {run['losses']} vs "
+                             f"{st['losses']}, state {run['state']} vs "
+                             f"{st['print'][r]}")
+                else:
+                    ring_within_tolerance(torch, label, r, run, st)
+            lead = ranks[0]["runs"][label]
+            step_s = statistics.median(lead["step_s"][1:])
+            sp = {k: statistics.median(rk["runs"][label]["split"][k]
+                                       for rk in ranks)
+                  for k in lead["split"]}
+            sent = lead["wire"][-1]["wire_bytes_sent"]
+            gbps = [rk["runs"][label]["wire"][k]["wire_bytes_sent"]
+                    / rk["runs"][label]["wire"][k]["wire_s"] / 1e9
+                    for rk in ranks for k in range(1, STEPS)]
+            peaks = [round(rk["runs"][label]["peak_gb"], 2) for rk in ranks]
+            line = (f"ring {label} ({RING_RANKS} ranks on {RING_DEVICE}, "
+                    f"gloo over loopback TCP): median step {step_s:.4f} s "
+                    f"(stacked {st['step_s']:.4f} s); exchange "
+                    + ", ".join(f"{k} {v:.3f} ms" for k, v in sp.items())
+                    + f" (median over ranks of each rank's median of steps "
+                    f"2-5); wire bytes per node and step {sent} (static "
+                    f"{st['wire']}); loopback {statistics.median(gbps):.3f}"
+                    f" GB/s sent per rank, "
+                    f"{RING_RANKS * statistics.median(gbps):.3f} GB/s over "
+                    f"the ring; peak memory per rank {peaks} GB; losses "
+                    f"{lead['loss']}; bitwise "
+                    f"{'equal to' if st['same'] else 'within tolerance of'}"
+                    " the stacked run")
+            print(f"[ring] {line}", flush=True)
+            summary.append(line)
+    total_s = time.perf_counter() - t_phase
+    summary.append(f"phase_process_ring {total_s:.1f} s ({ranks_s:.1f} s "
+                   f"of it the ranks, start-up included)")
+    print(f"[ring] phase_process_ring: {total_s:.1f} s, ranks "
+          f"{ranks_s:.1f} s", flush=True)
+    return launches, summary
+
+
+def ring_within_tolerance(torch, label, r, run, st) -> None:
+    """A rank's run against a stacked run that is not deterministic: its
+    per-node losses within LOSS_RTOL, its final parameters and x_tilde
+    within MAX_GRID_STEPS grid steps in at most MAX_FRAC_OFF of the
+    elements, the rest within FLOAT_ATOL."""
+    from repro_torch.core import tree as T
+    got = torch.load(run["values"], weights_only=False)
+    want = st["values"]
+    diffs = [(a[r:r + 1].double() - b.double()).abs() for a, b in zip(
+        T.tree_leaves(want["params"]), T.tree_leaves(got["params"]))]
+    if "x_tilde" in want["consensus"]:
+        diffs.append((want["consensus"]["x_tilde"][r:r + 1].double()
+                      - got["consensus"]["x_tilde"].double()).abs())
+    worst = max(float(d.max()) for d in diffs)
+    frac = (sum(int((d > FLOAT_ATOL).sum()) for d in diffs)
+            / sum(d.numel() for d in diffs))
+    loss_ok = all(math.isclose(a, b, rel_tol=LOSS_RTOL)
+                  for ga, wa in zip(run["losses"], st["losses"])
+                  for a, b in zip(ga, wa))
+    print(f"[ring] {label} rank {r} against the stacked run: largest "
+          f"difference {worst!r}, share off {frac!r}", flush=True)
+    if worst > MAX_GRID_STEPS * 1e-3 or frac > MAX_FRAC_OFF or not loss_ok:
+        fail(f"ring {label}: rank {r} outside the parity tolerances: "
+             f"{worst} (max {MAX_GRID_STEPS * 1e-3}), share {frac}, losses "
+             f"{run['losses']} vs {st['losses']}")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5168,6 +5572,9 @@ def main() -> None:
     print(f"[telemetry] phase_telemetry: {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name, n in tel_launches.items():
+        launches[name] += n
+    ring_launches, ring_summary = phase_process_ring(torch, train, entries)
+    for name, n in ring_launches.items():
         launches[name] += n
     serve_launches, _ = phase_serve(torch, serve, entries)
     launches["gqa_decode"] += serve_launches["gqa_decode"]
@@ -5274,6 +5681,8 @@ def main() -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in tel_split.items())
           + f"; card {smi}")
     for line in tel_summary:
+        print(f"[summary] {line}; card {smi}")
+    for line in ring_summary:
         print(f"[summary] {line}; card {smi}")
     for label, z in zoo_summary.items():
         print(f"[summary] zoo {label}: "

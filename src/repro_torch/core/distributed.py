@@ -98,6 +98,21 @@ representatives' rows alone, one launch per pod, and its results are
 copied to the members.  ``pods == n`` is the flat ring; ``pods == 1`` is
 the ``allreduce`` exchange.
 
+Process ring (``ctx``, ``models.sharding``): under a process context each
+rank holds one node, every tensor has a leading axis of 1, and the
+neighbours' payloads really cross the wire: each transfer unit's payload
+is posted to both ring neighbours in its ``launch`` (a device-to-host copy
+into a pinned buffer, then the gloo sends) and waited for in its
+``retire`` (then a host-to-device copy), so on the pipelined transport
+unit c's transfer is in flight while unit c+1 is encoded.  The node sums
+(``allreduce``, ``consensus_err``) go through ``ctx.node_group_sum`` in
+the stacked sum's rotation order, and each rank draws only its own
+noise, so a rank computes the stacked runtime's row bit for bit.  The
+process ring runs ``adc_dgd`` (packed and pipelined, any plan, fixed or
+adaptive grid), ``dgd``, ``allreduce`` and ``compressed_dgd`` at ring
+stride 1; every other option raises ``NotImplementedError`` naming the
+slice that ports it.
+
 Telemetry (``telemetry``, ``core.telemetry``): every ADC return path adds
 the reference's extra per-node metrics (``telemetry_metric_keys``), all
 read from ``wire_accounting``; off or on, the exchange computes the same
@@ -123,6 +138,7 @@ from repro_torch.core import wire, wireplan
 from repro_torch.core.f32 import over_power, recip
 from repro_torch.core.hierarchy import HierarchySpec
 from repro_torch.kernels import ops as kops
+from repro_torch.models.sharding import ParallelContext, local_context
 
 __all__ = ["ConsensusConfig", "ConsensusRuntime", "HierarchySpec", "Wiring",
            "noise_seed"]
@@ -450,15 +466,36 @@ class Wiring:
         return cls(stride, left, right, tuple(bool(b) for b in mask), m)
 
 
-def _ring_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the node axis in the reference's rotation order: node i
-    accumulates x_i + x_{i-1} + x_{i-2} + ... (one ppermute(+1) per term)."""
-    n = x.shape[0]
-    acc = x
-    for r in range(1, n):
-        idx = torch.tensor([(i - r) % n for i in range(n)], device=x.device)
-        acc = acc + x.index_select(0, idx)
-    return acc
+#: the slices of the work queue (ROADMAP Queue 1 item 5) that port what
+#: the process ring refuses
+_SLICE_ASYNC = ("the async and per-leaf transports over the process ring "
+                "(ROADMAP Queue 1 item 5b)")
+_SLICE_RING = ("ring strides with resync, faults, membership, hierarchy and "
+               "the directed ring with push-sum over ranks (ROADMAP Queue 1 "
+               "item 5c)")
+
+
+def _check_process_ring(cfg: ConsensusConfig) -> None:
+    """Raise ``NotImplementedError`` for an option the process ring does
+    not run yet, naming the slice that ports it."""
+    refused = []
+    if cfg.wire_packing in ("async", "per_leaf"):
+        refused.append((f"wire_packing={cfg.wire_packing!r}", _SLICE_ASYNC))
+    if tuple(cfg.ring_strides) != (1,):
+        refused.append((f"ring_strides={cfg.ring_strides}", _SLICE_RING))
+    if cfg.faults_enabled:
+        refused.append(("link loss and straggler deadlines", _SLICE_RING))
+    if cfg.membership is not None:
+        refused.append(("membership", _SLICE_RING))
+    if cfg.hierarchy is not None:
+        refused.append(("hierarchy", _SLICE_RING))
+    if cfg.topology != "ring" or cfg.push_sum_enabled:
+        refused.append(("the directed ring and push-sum", _SLICE_RING))
+    if refused:
+        what, slice_ = refused[0]
+        raise NotImplementedError(
+            f"{what} is not yet ported to the process ring: it comes with "
+            f"{slice_}")
 
 
 def _pipeline_schedule(n_units: int, launch, retire, inspect=None) -> list:
@@ -478,18 +515,31 @@ def _pipeline_schedule(n_units: int, launch, retire, inspect=None) -> list:
 
 
 class ConsensusRuntime:
-    """Stateless helper bound to (config, node count); the consensus state
-    lives in the caller's train state.  Parameter trees have a leading
-    node axis of size ``n_nodes`` on every leaf."""
+    """Stateless helper bound to (config, node count, context); the
+    consensus state lives in the caller's train state.  Parameter trees
+    have a leading node axis of size ``n_local`` on every leaf:
+    ``n_nodes`` stacked, 1 under a process context."""
 
     def __init__(self, config: ConsensusConfig, n_nodes: int,
-                 layout_spec: wireplan.PlanSpec | None = None):
+                 layout_spec: wireplan.PlanSpec | None = None,
+                 ctx: ParallelContext | None = None):
         """``layout_spec``: the plan whose codec groups place the leaves
         in the packed buffer (default this runtime's own).  An adaptive
         run over a mixed plan keeps its first plan's placement through
-        every tier, so its packed state keeps one row order."""
+        every tier, so its packed state keeps one row order.  ``ctx``: a
+        process context puts this runtime's node on its rank of a ring of
+        ``n_nodes`` ranks (default: every node stacked here)."""
         if n_nodes < 1:
             raise ValueError(f"n_nodes must be >= 1, got {n_nodes}")
+        self.ctx = local_context() if ctx is None else ctx
+        if self.ctx.process_ring:
+            if n_nodes != self.ctx.total_consensus_nodes:
+                raise ValueError(
+                    f"n_nodes={n_nodes}, but the process ring has "
+                    f"{self.ctx.total_consensus_nodes} ranks")
+            _check_process_ring(config)
+        #: nodes this process holds (the leading axis of its tensors)
+        self.n_local = 1 if self.ctx.process_ring else n_nodes
         hier = config.hierarchy
         #: nodes per ring element (a pod under hierarchy, else 1) and the
         #: ring's length: the loss model's receivers, the membership masks
@@ -811,11 +861,16 @@ class ConsensusRuntime:
         return ok[0] & ok[1]
 
     def _arrivals(self, pays: list, wiring: Wiring,
-                  keep: np.ndarray | None) -> tuple[list, list]:
+                  keep: np.ndarray | None, flight=None) -> tuple[list, list]:
         """Each element's (left, right) arrivals of one transfer unit: its
         neighbours' payloads, or one shared all-zero payload of their size
         where ``keep`` drops them (the senders' buffers are never written);
-        None for an inactive element."""
+        None for an inactive element.  Under a process context the two
+        payloads of ``flight`` (the unit's posted ring transfer), waited
+        for here."""
+        if flight is not None:
+            left, right = flight.wait()
+            return [left], [right]
         left = [None if j is None else pays[j] for j in wiring.left]
         right = [None if j is None else pays[j] for j in wiring.right]
         return self._drop(left, right, keep, wiring)
@@ -866,7 +921,7 @@ class ConsensusRuntime:
         keys = self.cfg.telemetry_metric_keys()
         if not keys:
             return
-        act = np.ones(self.ring_len, np.float32)
+        act = np.ones(self.n_local // self.pod_size, np.float32)
         act[wiring.inactive] = 0.0
         act = _node_values(act, saturated.device)
         metrics["wire_bytes_shipped"] = act * _f32(acct.shipped_payload)
@@ -886,7 +941,7 @@ class ConsensusRuntime:
 
     def _idle_telemetry(self, device) -> dict:
         """The ``telemetry`` extras of an exchange that sent nothing."""
-        return {k: torch.zeros(self.n_nodes, dtype=torch.float32,
+        return {k: torch.zeros(self.n_local, dtype=torch.float32,
                                device=device)
                 for k in self.cfg.telemetry_metric_keys()}
 
@@ -949,14 +1004,18 @@ class ConsensusRuntime:
         ``n`` ring elements (``BLOCK`` columns; ``2 * BLOCK`` when the plan
         holds top-k), one ``torch.Generator`` on ``device`` per element
         seeded from (seed, step, element): under hierarchy a pod's members
-        share their pod's draw."""
-        noise = torch.empty((self.ring_len, layout.n_rows,
+        share their pod's draw.  Under a process context ``(1, ...)``: the
+        rank's own element, the stacked draw's row ``rank`` (the
+        reference's ``_device_key``)."""
+        elems = ([self.ctx.rank] if self.ctx.process_ring
+                 else range(self.ring_len))
+        noise = torch.empty((len(elems), layout.n_rows,
                              self.noise_cols_for(layout)),
                             dtype=torch.float32, device=device)
-        for i in range(self.ring_len):
+        for row, i in enumerate(elems):
             g = torch.Generator(device=device)
             g.manual_seed(noise_seed(seed, step, i))
-            torch.rand(noise[i].shape, generator=g, out=noise[i])
+            torch.rand(noise[row].shape, generator=g, out=noise[row])
         return noise
 
     # -- the exchange ----------------------------------------------------
@@ -986,7 +1045,7 @@ class ConsensusRuntime:
         elif alg == "allreduce" or (hier and self.ring_len <= 1):
             # one pod of every node: its inner average is the whole
             # exchange, the allreduce's bit for bit; the shadows pass
-            x_next = _allreduce_mean_delta(x_prev, x_half)
+            x_next = _allreduce_mean_delta(x_prev, x_half, self.ctx)
             if hier:
                 metrics.update(self._idle_metrics(device))
         elif alg == "dgd":
@@ -1017,13 +1076,13 @@ class ConsensusRuntime:
                     (self.n_nodes,), float(wiring.n_active),
                     dtype=torch.float32, device=device)
         if self.cfg.track_consensus_error:
-            metrics["consensus_err"] = _consensus_error(x_next)
+            metrics["consensus_err"] = _consensus_error(x_next, self.ctx)
         return x_next, state, metrics
 
     def _idle_metrics(self, device) -> dict:
         """The ADC metrics of an exchange that ran no compressed wire (one
         pod): nothing clipped or sent, every arrival delivered."""
-        n = self.n_nodes
+        n = self.n_local
         zero = torch.zeros(n, dtype=torch.float32, device=device)
         out = {"overflow_frac": zero, "residual_norm": zero}
         if self.cfg.faults_enabled:
@@ -1196,7 +1255,7 @@ class ConsensusRuntime:
         masked ring has no edge from it) and its combine's results are
         discarded by the freeze, so both are skipped, and its shadows and
         parameters are kept bitwise."""
-        cfg, n = self.cfg, self.ring_len
+        cfg, n = self.cfg, self.n_local // self.pod_size
         plan = self.wire_plan_for(layout)
         units = plan.transfer_units(
             cfg.pipeline_chunks if cfg.wire_packing == "pipelined" else None)
@@ -1205,7 +1264,8 @@ class ConsensusRuntime:
         keep = self.keep_mask(step)
         resync = self.resync_at(step)
         ok = self.resync_ok(step)
-        nodes = wiring.active
+        ring = self.ctx.process_ring
+        nodes = [0] if ring else wiring.active
         y = self._numerator(x_half, state, layout)
         y.sub_(xt)                # the packed differential, built in place
         if noise is None:
@@ -1216,14 +1276,17 @@ class ConsensusRuntime:
         m_in = torch.empty_like(mb) if resync else mb
         last = len(units) - 1
         trailer = state["ps_w"].view(torch.uint8) if push else None
-        recv = {}
+        recv, flights = {}, {}
 
         def launch(c):
-            # the ring transfer is an index: the launch phase is empty
+            # stacked, the ring transfer is an index and the launch phase
+            # is empty; over processes it stages and posts the payload
             telemetry.trace_mark("quantize", c, rows=units[c].n_rows)
             pays = self._encode_unit(plan, units[c], y, noise, step_k, nodes,
                                      trailer=trailer if c == last else None)
             telemetry.trace_mark("launch", c, rows=units[c].n_rows)
+            if ring:
+                flights[c] = self.ctx.ring_start(pays[0], slot=("adc", c))
             telemetry.trace_end()
             return pays
 
@@ -1236,7 +1299,8 @@ class ConsensusRuntime:
                 self._keep_stale(m_in[:, rows], mb[:, rows], ok)
             if push and c == last:
                 recv["w"] = _trailer_weights(pays)
-            left, right = self._arrivals(pays, wiring, keep)
+            left, right = self._arrivals(pays, wiring, keep,
+                                         flights.pop(c, None))
             telemetry.trace_mark("dequant_combine", c,
                                  rows=units[c].n_rows)
             self._retire(plan, units[c], pays, left, right, xt, m_in, outs,
@@ -1503,12 +1567,11 @@ class ConsensusRuntime:
         self._telemetry_metrics(metrics, acct, clipped, resync, ok, wiring)
         return T.tree_unflatten(layout.treedef, new_x), new_state, metrics
 
-    def _cdgd_mix(self, x_own, sent, j, wiring):
-        """Node j's Eq. (5) mix: its own parameters uncompressed, its ring
-        neighbours' (``wiring``) as they arrive on the int8 wire (codes
-        times scales)."""
-        (c_l, s_l) = sent[wiring.left[j]]
-        (c_r, s_r) = sent[wiring.right[j]]
+    def _cdgd_mix(self, x_own, sent_l, sent_r):
+        """One node's Eq. (5) mix: its own parameters uncompressed, its
+        ring neighbours' ``(codes, scales)`` as they arrive on the int8
+        wire (codes times scales)."""
+        (c_l, s_l), (c_r, s_r) = sent_l, sent_r
         left = c_l.to(torch.float32) * s_l
         right = c_r.to(torch.float32) * s_r
         return (self.cfg.self_weight * x_own
@@ -1519,8 +1582,9 @@ class ConsensusRuntime:
         the packed int8 wire: per node one ``quantize_payload`` launch per
         chunk (one chunk unless pipelined) over the packed x_prev on the
         undecayed grid ``fixed_step0``; no combine kernel (there are no
-        shadows)."""
-        n = self.n_nodes
+        shadows).  Over processes the payload crosses the wire to both
+        ring neighbours."""
+        n = self.n_local
         xp = layout.pack(x_prev)
         step0 = float(np.float32(self.cfg.fixed_step0))
         bounds = self._chunks_for(layout).bounds
@@ -1528,9 +1592,15 @@ class ConsensusRuntime:
                                             row_offset=r0, n_rows=rows)
                       for r0, rows in bounds])
                 for j in range(n)]
-        sent = [kops.unpack_payload(p, layout.block) for p in pays]
-        mixed = torch.stack([self._cdgd_mix(xp[j], sent, j, wiring)
-                             for j in range(n)])
+        if self.ctx.process_ring:
+            left, right = (kops.unpack_payload(p, layout.block) for p in
+                           self.ctx.ring_start(pays[0], "cdgd").wait())
+            mixed = self._cdgd_mix(xp[0], left, right)[None]
+        else:
+            sent = [kops.unpack_payload(p, layout.block) for p in pays]
+            mixed = torch.stack([
+                self._cdgd_mix(xp[j], sent[wiring.left[j]],
+                               sent[wiring.right[j]]) for j in range(n)])
         return T.tree_map(
             lambda m, h, p: (m + (h.to(torch.float32)
                                   - p.to(torch.float32))).to(h.dtype),
@@ -1552,8 +1622,9 @@ class ConsensusRuntime:
             u = _rowpad(layout.leaf_rows(noise, i), full)
             sent = [kops.quantize_blocks(xb[j], u[j], fixed_step=step0)
                     for j in range(n)]
-            mixed = torch.stack([self._cdgd_mix(xb[j], sent, j, wiring)
-                                 for j in range(n)])
+            mixed = torch.stack([
+                self._cdgd_mix(xb[j], sent[wiring.left[j]],
+                               sent[wiring.right[j]]) for j in range(n)])
             mixed = mixed.reshape(n, -1)[:, :slot.size].reshape(h.shape)
             out.append((mixed + (h.to(torch.float32)
                                  - p.to(torch.float32))).to(h.dtype))
@@ -1562,21 +1633,33 @@ class ConsensusRuntime:
     def _dgd_exchange(self, x_prev, x_half, wiring):
         """Uncompressed DGD: mix the parameters with both ring neighbours
         (``wiring``), whose copies arrive cast to ``wire_dtype``, then add
-        the local optimizer delta."""
+        the local optimizer delta.  Over processes every leaf's transfer
+        is posted before the first is waited for."""
         w_self, w_side = self.cfg.self_weight, self.cfg.side_weight
         wire_dtype = self.cfg.wire_dtype
+        prev, treedef = T.tree_flatten(x_prev)
+        flights = None
+        if self.ctx.process_ring:
+            flights = [self.ctx.ring_start(p.to(wire_dtype), ("dgd", i))
+                       for i, p in enumerate(prev)]
 
-        def mix(h, p):
+        def mix(i, h, p):
             p32 = p.to(torch.float32)
-            send = p.to(wire_dtype)
-            left = send.index_select(0, torch.tensor(
-                wiring.left, device=p.device)).to(torch.float32)
-            right = send.index_select(0, torch.tensor(
-                wiring.right, device=p.device)).to(torch.float32)
+            if flights is None:
+                send = p.to(wire_dtype)
+                left = send.index_select(0, torch.tensor(
+                    wiring.left, device=p.device))
+                right = send.index_select(0, torch.tensor(
+                    wiring.right, device=p.device))
+            else:
+                left, right = flights[i].wait()
+            left, right = left.to(torch.float32), right.to(torch.float32)
             mixed = w_self * p32 + w_side * (left + right)
             return (mixed + (h.to(torch.float32) - p32)).to(h.dtype)
 
-        return T.tree_map(mix, x_half, x_prev)
+        return T.tree_unflatten(treedef, [
+            mix(i, h, p) for i, (h, p) in enumerate(
+                zip(T.tree_leaves(x_half), prev))])
 
 
 def _f32(v: float) -> float:
@@ -1643,36 +1726,55 @@ def _fma(a: torch.Tensor, b: float, c: torch.Tensor) -> torch.Tensor:
     return (c.to(torch.float64) + a.to(torch.float64) * b).to(torch.float32)
 
 
-def _allreduce_mean_delta(x_prev, x_half):
+def _ring_count(leaf: torch.Tensor, ctx: ParallelContext) -> int:
+    """The ring's node count: the stacked leading axis, or the ranks."""
+    return (ctx.total_consensus_nodes if ctx.process_ring
+            else leaf.shape[0])
+
+
+def _allreduce_mean_delta(x_prev, x_half,
+                          ctx: ParallelContext | None = None):
     """Synchronous data parallelism: every node steps by the node-mean of
-    the optimizer delta (the reference's rotation all-reduce).  The
-    reference's ``x + s / n`` compiles to one fused multiply-add with
-    float32(1/N)."""
-    inv_n = float(recip(T.tree_leaves(x_half)[0].shape[0]))
+    the optimizer delta (the reference's rotation all-reduce, in its
+    order: ``ctx.node_group_sum``).  The reference's ``x + s / n`` compiles
+    to one fused multiply-add with float32(1/N).  ``ctx`` defaults to the
+    stacked context."""
+    ctx = local_context() if ctx is None else ctx
+    prev, treedef = T.tree_flatten(x_prev)
+    half = T.tree_leaves(x_half)
+    inv_n = float(recip(_ring_count(half[0], ctx)))
+    sums = ctx.node_group_sums(((h - p).to(torch.float32)
+                                for p, h in zip(prev, half)), "allreduce")
+    return T.tree_unflatten(treedef, [
+        _fma(s, inv_n, p.to(torch.float32)).to(h.dtype)
+        for s, p, h in zip(sums, prev, half)])
 
-    def avg(p, h):
-        delta = (h - p).to(torch.float32)
-        return _fma(_ring_sum(delta), inv_n, p.to(torch.float32)).to(h.dtype)
 
-    return T.tree_map(avg, x_prev, x_half)
-
-
-def _consensus_error(params) -> torch.Tensor:
+def _consensus_error(params,
+                     ctx: ParallelContext | None = None) -> torch.Tensor:
     """(1/N) sum_i ||x_i - mean_nodes(x)||^2 over all leaves (a metric).
 
     In the reference's order: ``x - s / n`` is a fused multiply-add with
     float32(1/N); each node adds its leaves' sums of squares, the nodes'
     totals are added in node order, and the total is multiplied by
     float32(1/N).  Within a leaf the elements are added in PyTorch's order.
-    """
-    n = T.tree_leaves(params)[0].shape[0]
+    Over processes the nodes' totals are gathered to every rank; ``ctx``
+    defaults to the stacked context."""
+    ctx = local_context() if ctx is None else ctx
+    leaves = T.tree_leaves(params)
+    n = _ring_count(leaves[0], ctx)
     inv_n = float(recip(n))
     per_node = None
-    for x in T.tree_leaves(params):
+    # float32 one leaf at a time (stacked): a generator, as in
+    # ``_allreduce_mean_delta``
+    sums = ctx.node_group_sums((x.to(torch.float32) for x in leaves),
+                               "consensus_err")
+    for x, s in zip(leaves, sums):
         x = x.to(torch.float32)
-        d = _fma(_ring_sum(x), -inv_n, x)
-        e = (d * d).reshape(n, -1).sum(dim=1)
+        d = _fma(s, -inv_n, x)
+        e = (d * d).reshape(x.shape[0], -1).sum(dim=1)
         per_node = e if per_node is None else per_node + e
+    per_node = ctx.gather_nodes(per_node)
     total = per_node[0]
     for i in range(1, n):
         total = total + per_node[i]

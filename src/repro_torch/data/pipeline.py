@@ -11,8 +11,13 @@ distribution slice — the per-node local objective f_i of paper Problem (1) —
 while remaining exactly reproducible across restarts.
 
 Everything is generated with numpy on the host; the trainer copies each
-node's shard to the device.  For whisper the pipeline additionally emits
-synthetic encoder frames correlated with the target tokens.
+node's shard to the device.  ``node_rows`` is the counterpart of the
+reference's ``make_batch_specs`` (the global batch
+sharded over the node axis): node i of N takes rows ``i * B/N`` to ``(i +
+1) * B/N``, which is shard i of ``global_batch_arrays``, on the stacked
+axis and on a rank of the process ring alike.  For whisper the pipeline
+additionally emits synthetic encoder frames correlated with the target
+tokens.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["SyntheticLMDataset"]
+__all__ = ["SyntheticLMDataset", "node_rows"]
 
 
 @dataclasses.dataclass
@@ -81,3 +86,15 @@ class SyntheticLMDataset:
     def global_batch_arrays(self, step: int) -> dict[str, np.ndarray]:
         shards = [self.batch(step, s) for s in range(self.n_shards)]
         return {k: np.concatenate([sh[k] for sh in shards]) for k in shards[0]}
+
+
+def node_rows(global_batch: int, n_nodes: int, node: int) -> slice:
+    """The rows of the global batch that node ``node`` of ``n_nodes``
+    trains on."""
+    if global_batch % n_nodes:
+        raise ValueError(f"global batch {global_batch} does not split over "
+                         f"{n_nodes} nodes")
+    if not 0 <= node < n_nodes:
+        raise ValueError(f"node {node} outside the ring of {n_nodes}")
+    bn = global_batch // n_nodes
+    return slice(node * bn, (node + 1) * bn)

@@ -8,8 +8,21 @@ Counterpart of ``repro.launch.train``.  One training step k does, for the
     x_half     = optimizer step on every node (lr = schedule(k))
     x_next     = ConsensusRuntime.exchange(params, x_half, ...)  (ADC-DGD)
 
-The reference runs each node on its own device inside ``shard_map``; a
-ring over several cards is a later slice.
+The reference runs each node on its own device inside ``shard_map``.
+``--process-ring`` runs one node per process instead, each a rank of a
+gloo group started by ``python -m torch.distributed.run --nproc-per-node
+N`` (``launch.mesh``): the rank trains its node on its rows of the global
+batch, and the exchange's payloads cross the wire to its ring neighbours
+(``models.sharding.StagedRing``), so each rank computes the stacked
+trainer's row bit for bit; the ranks' losses and per-node metrics are
+gathered, and rank 0 prints the step lines, with the exchange's measured
+wire time (``wire_s``; ``wire_wait_s`` the part the host waited for,
+``wire_d2h_s`` / ``wire_h2d_s`` the staging copies) beside the static
+wire bytes.  ``--nodes`` must then equal the world size or be absent.
+The ranks run on ``cuda:<LOCAL_RANK>``, or all on the one ``--device``
+named (``cuda:0``, ``cpu``).  The async and per-leaf transports, ring
+strides, faults, membership, hierarchy, the directed ring and
+``--checkpoint-dir`` raise there: they are later slices.
 
 ``--algorithm compressed_dgd`` runs the paper's Eq. (5) negative control
 instead of ADC-DGD.  ``--wire-packing`` picks the transport: ``packed``
@@ -93,6 +106,9 @@ CLI (runs on ``cuda`` unless ``--device cpu``)::
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --nodes 4 --batch 16 --seq 512 --steps 3 --compute-dtype bfloat16 \\
         --remat dots
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --process-ring --device cuda:0 \\
+        --batch 16 --seq 512 --steps 5
 """
 from __future__ import annotations
 
@@ -117,9 +133,11 @@ from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
 from repro_torch.core.f32 import recip
 from repro_torch.core.hierarchy import HierarchySpec
 from repro_torch.core.topology import MembershipSchedule
+from repro_torch.data.pipeline import node_rows
 from repro_torch.models import transformer as TF
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import init_params, meta_params
+from repro_torch.models.sharding import ParallelContext
 from repro_torch.optim import by_name as opt_by_name
 from repro_torch.optim.schedules import (constant_schedule,
                                          cosine_warmup_schedule,
@@ -151,7 +169,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 REMATS = {"full": True, "dots": "dots", "none": False}
 
 
-def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
+def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int | None = None,
                       algorithm: str = "adc_dgd", gamma: float = 1.0,
                       quant_mode: str = "fixed", fixed_step0: float = 1e-3,
                       optimizer: str = "sgd", schedule: str = "constant",
@@ -175,7 +193,8 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
                       hierarchy=None, telemetry: bool = False,
                       microbatches: int = 1, seed: int = 0,
                       compute_dtype=torch.float32, remat: bool | str = True,
-                      device=None) -> TrainSetup:
+                      device=None,
+                      ctx: ParallelContext | None = None) -> TrainSetup:
     """Everything static about a run.  ``wire_codec`` is a codec name or a
     ``mixed:`` plan spec; ``membership`` per-epoch masks of active ring
     elements (``MembershipSchedule.masks``), ``hierarchy`` a pod count,
@@ -184,7 +203,21 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
     for gradient accumulation.  ``compute_dtype`` and ``remat`` are the
     reference's, with its defaults (float32, full recompute).  ``device``
     defaults to ``cuda`` (raising when there is none); pass
-    ``device="cpu"`` for the plain PyTorch path."""
+    ``device="cpu"`` for the plain PyTorch path.  ``consensus_nodes``
+    defaults to 4.  A process context ``ctx`` (``launch.mesh.
+    make_process_context``) runs this rank's node of a ring of its world
+    size (``consensus_nodes`` must then be that or None) on its
+    device."""
+    if ctx is not None and ctx.process_ring:
+        world = ctx.total_consensus_nodes
+        if consensus_nodes not in (None, world):
+            raise ValueError(f"consensus_nodes={consensus_nodes}, but the "
+                             f"process ring has {world} ranks")
+        consensus_nodes = world
+        if device is None:
+            device = ctx.device
+    elif consensus_nodes is None:
+        consensus_nodes = 4
     dev = resolve_device(device)
     ccfg = ConsensusConfig(algorithm=algorithm, gamma=gamma,
                            quant_mode=quant_mode, fixed_step0=fixed_step0,
@@ -215,7 +248,8 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int = 4,
         raise ValueError(f"unknown schedule {schedule!r}")
     TF.check_remat(remat)
     return TrainSetup(cfg=cfg, defs=TF.build_defs(cfg, dtype=compute_dtype),
-                      consensus=ConsensusRuntime(ccfg, consensus_nodes),
+                      consensus=ConsensusRuntime(ccfg, consensus_nodes,
+                                                 ctx=ctx),
                       optimizer=opt_by_name(optimizer), schedule=sched,
                       n_nodes=consensus_nodes, device=dev, seed=seed,
                       microbatches=microbatches, compute_dtype=compute_dtype,
@@ -231,7 +265,8 @@ def with_codec(setup: TrainSetup, name: str) -> TrainSetup:
     cfg = dataclasses.replace(rt.cfg, wire_codec=name)
     return dataclasses.replace(
         setup, consensus=ConsensusRuntime(cfg, setup.n_nodes,
-                                          layout_spec=rt.layout_spec))
+                                          layout_spec=rt.layout_spec,
+                                          ctx=rt.ctx))
 
 
 def init_train_state(setup: TrainSetup, seed: int = 0,
@@ -239,10 +274,11 @@ def init_train_state(setup: TrainSetup, seed: int = 0,
     """A fresh train state: every node starts from the same random x0
     (drawn from ``seed``), or from ``params`` (a stacked tree, e.g. from
     ``models.params.params_from_jax``) when given, which must lie on
-    ``setup.device``."""
+    ``setup.device``.  Under a process context the tree holds the rank's
+    one node (a leading axis of 1): a row of the stacked draw."""
     if params is None:
         params = init_params(setup.defs.storage, seed, setup.device,
-                             n_nodes=setup.n_nodes)
+                             n_nodes=setup.consensus.n_local)
     wrong = {str(a.device) for a in T.tree_leaves(params)
              if a.device.type != setup.device.type}
     if wrong:
@@ -260,17 +296,21 @@ def _node_grads(setup: TrainSetup, params: Any, batch: dict,
 
     Node i's ``Transformer`` shares its parameters' storage with slice i
     of the stacked tree, and only one microbatch's activations are alive
-    at a time.  With ``microbatches`` M > 1 node i's shard splits into M
-    slices: its gradient and loss are the first slice's, each later one's
-    added in order, times f32(1/M) (what the reference's ``g / M``
-    compiles to; exact at a power of two).  With M = 1 each node's
+    at a time.  Node i trains on its rows of the global batch
+    (``data.pipeline.node_rows``); under a process context the rank's one
+    node, on the rows of node ``rank``.  With ``microbatches`` M > 1 node
+    i's shard splits into M slices: its gradient and loss are the first
+    slice's, each later one's added in order, times f32(1/M) (what the
+    reference's ``g / M`` compiles to; exact at a power of two).  With M = 1 each node's
     auxiliary loss (the MoE router's, 0 for dense models) is appended to
     ``auxes`` when a list is given; the reference reports it only then."""
     n, m = setup.n_nodes, setup.microbatches
+    rt = setup.consensus
     b = batch["tokens"].shape[0]
     if b % n:
         raise ValueError(f"global batch {b} does not split over {n} nodes")
     bn = b // n
+    first = rt.ctx.rank if rt.ctx.process_ring else 0
     if bn % m:
         raise ValueError(f"node batch {bn} does not split into {m} "
                          "microbatches")
@@ -279,14 +319,15 @@ def _node_grads(setup: TrainSetup, params: Any, batch: dict,
     grads = T.tree_map(torch.empty_like, params)
     g_leaves = T.tree_leaves(grads)
     losses = []
-    for i in range(n):
+    for i in range(rt.n_local):
+        rows = node_rows(b, n, first + i)
         model = TF.Transformer(setup.defs,
                                T.tree_map(lambda a: a[i], params),
                                compute_dtype=setup.compute_dtype,
                                remat=setup.remat)
         leaves = T.tree_leaves(model.tree())
         for j in range(m):
-            lo = i * bn + j * bm
+            lo = rows.start + j * bm
             mb = {k: torch.as_tensor(v[lo:lo + bm], device=setup.device)
                   for k, v in batch.items()}
             loss_j, parts = model(mb)
@@ -308,9 +349,13 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
                noise: torch.Tensor | None = None) -> tuple[dict, dict]:
     """One decentralized step.  ``batch`` holds the global batch (numpy or
     tensors), split across nodes in order; ``noise`` optionally injects
-    the exchange's quantization noise.  Returns (new state, metrics)."""
+    the exchange's quantization noise.  Returns (new state, metrics).
+    Under a process context the nodes' losses and per-node metrics are
+    gathered from every rank, so each rank's metrics are the stacked
+    trainer's."""
     k = state["step"] + 1
     auxes = []
+    ctx = setup.consensus.ctx
     losses, grads = _node_grads(setup, state["params"], batch, auxes)
     lr_k = setup.schedule(k)
     x_half, opt_state = setup.optimizer.step(state["opt"], state["params"],
@@ -320,10 +365,11 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
         x_next, cons, cmetrics = setup.consensus.exchange(
             state["params"], x_half, state["consensus"], k, seed=setup.seed,
             noise=noise)
+    losses = ctx.gather_nodes(losses)
     metrics = {"loss": _host(losses.mean()), "node_loss": losses,
                "lr": lr_k}
     if auxes and setup.cfg.router_aux_weight:
-        metrics["aux"] = _host(torch.stack(auxes).mean())
+        metrics["aux"] = _host(ctx.gather_nodes(torch.stack(auxes)).mean())
     rt = setup.consensus
     if rt.cfg.algorithm == "adc_dgd":
         metrics["codec"] = rt.wire_name
@@ -332,6 +378,8 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
         metrics["resync"] = (rt.cfg.algorithm == "adc_dgd"
                              and rt.resync_at(k))
     for name, v in cmetrics.items():
+        if torch.is_tensor(v) and v.dim() == 1:
+            v = ctx.gather_nodes(v)        # the per-node vectors
         metrics[name] = _host(v.mean()) if torch.is_tensor(v) else float(v)
     return ({"params": x_next, "opt": opt_state, "consensus": cons,
              "step": k}, metrics)
@@ -430,7 +478,13 @@ def main(argv=None, *, return_state: bool = False):
                     choices=["adc_dgd", "dgd", "compressed_dgd", "allreduce",
                              "none"])
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--nodes", type=int, default=1)
+    ap.add_argument("--nodes", type=int, default=None,
+                    help="consensus nodes (default 1; under --process-ring "
+                         "the world size, which it must equal if given)")
+    ap.add_argument("--process-ring", action="store_true",
+                    help="one node per rank of a gloo group (start with "
+                         "python -m torch.distributed.run --nproc-per-node "
+                         "N); the payloads cross the wire between ranks")
     ap.add_argument("--batch", type=int, default=8,
                     help="global batch, split evenly over the nodes")
     ap.add_argument("--seq", type=int, default=128)
@@ -559,6 +613,23 @@ def main(argv=None, *, return_state: bool = False):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    ctx = None
+    if args.process_ring:
+        if args.checkpoint_dir:
+            raise SystemExit("--checkpoint-dir is not yet ported to the "
+                             "process ring (a later slice)")
+        from repro_torch.launch.mesh import make_process_context
+        ctx = make_process_context(args.device)
+        world = ctx.total_consensus_nodes
+        if args.nodes not in (None, world):
+            raise SystemExit(f"--nodes {args.nodes}: the process ring has "
+                             f"{world} ranks (--nodes must equal the world "
+                             "size or be absent)")
+        args.nodes = world
+    elif args.nodes is None:
+        args.nodes = 1
+    # rank 0 speaks for the ring
+    say = print if ctx is None or ctx.rank == 0 else (lambda *a, **k: None)
     # float32 products in full float32 (the reference's precision), never
     # TF32: PyTorch's default, stated here because the parity rests on it
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -662,11 +733,12 @@ def main(argv=None, *, return_state: bool = False):
         straggle_seed=args.straggle_seed, membership=membership,
         hierarchy=hierarchy, telemetry=args.telemetry,
         microbatches=args.microbatches,
-        compute_dtype=DTYPES[args.compute_dtype], remat=REMATS[args.remat])
+        compute_dtype=DTYPES[args.compute_dtype], remat=REMATS[args.remat],
+        ctx=ctx)
     if hierarchy is not None:
-        print(f"[setup] {hierarchy.describe(args.nodes)}")
+        say(f"[setup] {hierarchy.describe(args.nodes)}")
     if membership is not None:
-        print(f"[setup] membership over {len(membership[0])} ring elements,"
+        say(f"[setup] membership over {len(membership[0])} ring elements,"
               f" {len(membership)} epochs of {args.schedule_period} steps: "
               f"active {[sum(m) for m in membership]}")
     if adaptive:
@@ -684,16 +756,19 @@ def main(argv=None, *, return_state: bool = False):
             controller.plan = setup.consensus.wire_plan_for(layout)
         codec_name = spec_for(controller.initial(n_rows))
         setup = with_codec(setup, codec_name)
-        print(f"[codec] controller start: {codec_name} "
+        say(f"[codec] controller start: {codec_name} "
               f"(budget={ccfg.byte_budget})")
     state = init_train_state(setup, args.seed)
     tel = None
     if args.telemetry:
+        run_id = args.run_id or time.strftime("%Y%m%d-%H%M%S")
+        if ctx is not None:
+            run_id += f"-rank{ctx.rank}"
         tel = telemetry.Telemetry(
-            args.run_id or time.strftime("%Y%m%d-%H%M%S"),
+            run_id,
             out_dir=args.telemetry_dir, config=dict(vars(args)),
             git_sha=_git_sha(), spans=True, device=setup.device)
-        print(f"[telemetry] -> {tel.path}")
+        say(f"[telemetry] -> {tel.path}")
         _wire_plan_event(tel, setup, state, 0, hierarchy, args)
         if membership is not None:
             tel.event("membership_epoch", step=0, epoch=0,
@@ -712,10 +787,14 @@ def main(argv=None, *, return_state: bool = False):
         ts = time.perf_counter()
         if tel is not None:
             tel.spans.step_begin()
+        if ctx is not None:
+            ctx.ring.reset_stats()
         state, metrics = train_step(setup, state, batch)
         if setup.device.type == "cuda":
             torch.cuda.synchronize(setup.device)
         metrics["step_s"] = dur = time.perf_counter() - ts
+        if ctx is not None:
+            metrics.update(_wire_stats(ctx))
         if step >= 1:
             step_times.append(dur)
         if tel is not None:
@@ -762,7 +841,7 @@ def main(argv=None, *, return_state: bool = False):
         shown = " ".join(f"{k}={v}" if isinstance(v, (str, bool, int))
                          else f"{k}={v:.4g}" for k, v in shown.items()
                          if k not in ("loss", "node_loss"))
-        print(f"step {step:5d} loss={metrics['loss']:.4f} {shown}",
+        say(f"step {step:5d} loss={metrics['loss']:.4f} {shown}",
               flush=True)
         if (args.checkpoint_dir and args.checkpoint_every
                 and (step + 1) % args.checkpoint_every == 0):
@@ -788,7 +867,7 @@ def main(argv=None, *, return_state: bool = False):
                           overflow_frac=ovf, consensus_rms=ce,
                           candidates=controller.candidate_table(n_rows))
             if new != codec_name:
-                print(f"[codec] step {step + 1}: {codec_name} -> {new} "
+                say(f"[codec] step {step + 1}: {codec_name} -> {new} "
                       f"(residual_rms={res:.3g}, overflow={ovf:.3g}"
                       + (f", consensus_rms={ce:.3g}" if ce is not None
                          else "") + ")")
@@ -800,7 +879,7 @@ def main(argv=None, *, return_state: bool = False):
                     _wire_plan_event(tel, setup, state, step + 2,
                                      hierarchy, args)
             ep_res, ep_ovf, ep_ce = [], [], []
-    print(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
+    say(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
     if tel is not None:
         run_end = {"wall_s": time.time() - t0,
                    "steps_per_s": (1.0 / statistics.median(step_times)
@@ -812,8 +891,27 @@ def main(argv=None, *, return_state: bool = False):
                 / statistics.median(step_times))
         tel.event("run_end", step=args.steps, **run_end)
         tel.close()
-        print(f"[telemetry] wrote {tel.path} and {tel.trace_path}")
+        say(f"[telemetry] wrote {tel.path} and {tel.trace_path}")
     return (history, state) if return_state else history
+
+
+def _wire_stats(ctx: ParallelContext) -> dict:
+    """The measured wire of the exchange since the ring's stats were last
+    reset (``models.sharding.StagedRing``; call after a synchronize): the
+    host seconds from posting each kind of transfer to its last wait's
+    return, the part spent waiting, the staging copies and the bytes
+    sent.  The consensus error's node sum, a metric, is left out of these
+    and timed on its own (``consensus_err_wire_s``)."""
+    all_stats = ctx.ring.read_stats()
+    metric = all_stats.pop("consensus_err", None)
+    stats = list(all_stats.values())
+    return {"wire_s": sum(v["wire_s"] for v in stats),
+            "wire_wait_s": sum(v["wait_s"] for v in stats),
+            "wire_d2h_s": sum(v["d2h_s"] for v in stats),
+            "wire_h2d_s": sum(v["h2d_s"] for v in stats),
+            "wire_bytes_sent": sum(v["bytes_sent"] for v in stats),
+            "consensus_err_wire_s": 0.0 if metric is None
+            else metric["wire_s"]}
 
 
 def _git_sha() -> str | None:
