@@ -76,7 +76,7 @@ Phases (any failure exits non-zero before the result line):
              exchange time at a resync against steps without one;
              then the lossy and directed rings (``phase_faults``), each
              run counted and every exchange watched: 4 nodes on the
-             directed ring with push-sum, adaptive grid, loss seed 1, 4
+             directed ring with push-sum, adaptive grid, loss seed 1, 3
              steps at loss None, 0.0, 0.05 and 0.2 packed, then 0.2
              pipelined over 4 units, async at staleness 0 and per-leaf,
              the Gilbert-Elliott burst channel (p 0.1, r 0.9) with int8
@@ -143,21 +143,31 @@ Phases (any failure exits non-zero before the result line):
              ``--microbatches 2`` beside 1, its gradient bitwise the two
              halves' gradients added and halved;
              then the consensus ring over processes
-             (``phase_process_ring``): 4 ranks of a gloo group, all on
-             cuda:0, each training one node of the full smollm-135m
-             through ``train.main --process-ring`` for 5 steps of int8
-             packed, int8 pipelined over 4 units, int2 packed and dgd,
-             its payloads crossing loopback TCP through pinned host
-             buffers: one exchange per run on fixed inputs equal on every
-             rank to the stacked exchange's row (payload bytes of each
-             unit, x_tilde, m_agg, x_next, by fingerprint), each rank's
-             launches exact (#1 / #2 or #5 / #6 once per unit and step),
-             the per-node losses, parameters and shadows bitwise the
-             stacked run's (its int8 run twice first: within the parity
-             tolerances if those two differ), the stacked wire bytes;
-             step time, the exchange's split (quantize, device-to-host
-             copy, gloo transfer, host-to-device copy, dequant_combine,
-             glue), the loopback rate and each rank's peak memory;
+             (``phase_process_ring``): gloo ranks, all on cuda:0, each
+             training one node of the full smollm-135m through
+             ``train.main --process-ring``, its payloads crossing
+             loopback TCP through pinned host buffers: 4 ranks for 3
+             steps of int8 packed, int8 pipelined over 4 units, int2
+             packed, dgd and int8 async s1, and 3 of the directed
+             push-sum ring on the adaptive grid at loss 0.2, per-leaf
+             and async s1 with 20% stragglers; 5 ranks for 5 steps of
+             strides 1,2 (period 2) on async s1, resyncs at steps 3 and
+             5.  Each run mirrors a stacked run of an earlier phase,
+             whose fingerprints it kept (dgd's runs here): its
+             fixed-input exchange (step 1) equal on every rank to the
+             stacked exchange's row (payload bytes of each unit or leaf,
+             state, x_next, by fingerprint), each rank's launches exact
+             (#1 / #2, #5 / #6 once per unit and step, #3 / #4 once per
+             leaf), the per-node losses, parameters and consensus state
+             bitwise the stacked run's, the static wire bytes and the
+             measured bytes sent equal to the stacked accounting (a
+             resync's fp32 x_tilde apart, at its steps only), nothing in
+             flight after a run; step time, the exchange's split
+             (quantize, device-to-host copy, gloo transfer, host-to-device
+             copy, dequant_combine, glue), the loopback rate, each rank's
+             peak memory and the card's free memory, and per step the
+             async run's wait at the retire and its flight's
+             posted-to-landed beside int8 packed's wait;
 4. serve   — ``repro_torch.launch.serve.main`` on the full smollm-135m:
              32 prompts of 1,984 tokens and 64 new tokens (capacity 2,048,
              a 3.0 GB float32 KV cache): the flash-decode kernel launched
@@ -169,26 +179,28 @@ Phases (any failure exits non-zero before the result line):
              decode kernel's share of the step and the device's idle share;
 4b. zoo    — the dense model zoo at full width on random weights from
              seed 0 (``phase_zoo``), each model freed before the next:
-             ``serve.main`` on gemma2-9b (42 layers, 4 x 6,080 + 64
-             tokens), gemma2-9b ``--long-serve`` at 2 of its 21 periods (1
-             x 32,832 + 64: the 32,768 cap of its 'A' blocks bites),
-             yi-9b (48 layers, 8 x 1,984 + 64), chameleon-34b at 12 of
-             its 48 layers (4 x 1,984 + 64) and qwen3-0.6b (28 layers, 32
-             x 1,984 + 64), each counted: #9 launched layers x 63 times
+             ``serve.main`` on gemma2-9b at 10 of its 21 periods (20
+             layers, 4 x 6,080 + 64 tokens), gemma2-9b ``--long-serve``
+             at 2 periods (1 x 32,832 + 64: the 32,768 cap of its 'A'
+             blocks bites), yi-9b at 24 of its 48 layers (8 x 1,984 +
+             64), chameleon-34b at 6 of its 48 layers (4 x 1,984 + 64)
+             and qwen3-0.6b at 14 of its 28 layers (32 x 1,984 + 64),
+             each counted: #9 launched layers x 63 times
              and no other kernel, tokens in range, the decode logits of 2
              sequences within ZOO_LOGIT_TOL of a train-mode forward (and
              for long-serve, apart from the uncapped one), and one decode
              step through the plain #9 within SERVE_LOGIT_TOL of the
              kernel's; prefill seconds, decode ms per token and peak
              memory printed; then the trainer on full qwen3-0.6b, 3 nodes
-             x 4 x 512 tokens, int8 packed, 5 steps: #1 and #2 launched 15
+             x 4 x 512 tokens, int8 packed, 3 steps: #1 and #2 launched 9
              times each and nothing else, every call of them bitwise equal
              to its plain version on the same inputs
              (``KernelVsPlain``), the reference's 1,201,413,120 wire bytes
              per step, a finite loss near ln(151,936);
 4c. moe    — the mixture-of-experts family at full width (``phase_moe``),
              each model freed before the next: ``serve.main`` on
-             granite-moe-3b-a800m (32 layers, 32 x 1,984 + 64 tokens) and
+             granite-moe-3b-a800m at 16 of its 32 layers (32 x 1,984 + 64
+             tokens) and
              deepseek-moe-16b at full depth (its dense 'D' prelude and 27
              'E' periods, 2 x 1,984 + 64), each counted: #9 launched
              layers x 63 times (g 3 hd 64; g 1 hd 128) and no other kernel,
@@ -208,14 +220,14 @@ Phases (any failure exits non-zero before the result line):
              1.25 against a per-token loop (chosen experts and kept set
              equal, output within MOE_ORACLE_TOL, some assignments
              dropped); then the trainer on granite-moe-3b-a800m cut to 3
-             of 32 periods, 4 nodes x 4 x 512 tokens, int8 packed, 5
-             steps: #1 and #2 launched 20 times each and nothing else,
+             of 32 periods, 4 nodes x 4 x 512 tokens, int8 packed, 3
+             steps: #1 and #2 launched 12 times each and nothing else,
              every call bitwise equal to its plain version, the
              reference's 913,476,864 wire bytes per step, a finite loss
              near ln(49,155) + 0.01 aux and the ``aux`` metric;
 4d. ssm    — the state-space family at full width (``phase_ssm``), each
              model freed before the next: ``serve.main`` on mamba2-1.3b at
-             full depth (48 'M' layers) at 32 x 2,048 + 64 and 1 x 32,768
+             24 of its 48 'M' layers at 32 x 2,048 + 64 and 1 x 32,768
              + 64 (prompts a multiple of the 256-token chunk), counted: no
              kernel launched, decode logits within SSM_LOGIT_TOL of a
              train-mode forward (padded to a chunk multiple past the
@@ -246,8 +258,8 @@ Phases (any failure exits non-zero before the result line):
              (``phase_precision``; every trainer run of the earlier phases
              passes ``--remat none``, so their rows stay comparable): the
              smollm-135m trainer of phase 2 at ``--compute-dtype bfloat16``
-             and ``--remat`` full, dots and none, 3 steps each: #1 and #2
-             launched 12 times each, every call bitwise equal to its plain
+             and ``--remat`` full, dots and none, 2 steps each: #1 and #2
+             launched 8 times each, every call bitwise equal to its plain
              version, the reference's 271,160,064 wire bytes per step,
              bfloat16 parameters and float32 shadows after the run, the
              same first loss at every remat choice (later ones within
@@ -1014,8 +1026,12 @@ def phase_main(torch, train, entries):
     for codec, steps in (("int8", STEPS), ("int4", CODEC_STEPS),
                          ("int2", CODEC_STEPS), ("topk", CODEC_STEPS)):
         extra = () if codec == "int8" else ("--wire-codec", codec)
-        hist, launches, peak_gb[codec] = run_counted(
-            torch, train, entries, train_argv(steps, *extra))
+        (hist, state), launches, peak_gb[codec] = run_counted(
+            torch, train, entries, train_argv(steps, *extra),
+            return_state=True)
+        if codec == "int2":
+            keep_stacked(torch, "int2 packed", hist, state)
+        del state
         want = expected_launches(entries, [codec] * steps)
         if launches != want:
             fail(f"{codec} run launched {launches}, want {want} "
@@ -1114,6 +1130,12 @@ def same_state(torch, a, b) -> bool:
                     for k in ("x_tilde", "m_agg")))
 
 
+#: the plans' runs that the process ring mirrors, by their ring labels
+PLAN_RING_LABELS = {"int8 packed": "int8 packed",
+                    "int8 pipelined": "int8 pipelined 4",
+                    "int8 async s1": "int8 async s1"}
+
+
 def phase_plans(torch, Q, train, entries, n_rows):
     """Mixed wire plans and the pipelined and async transports on the full
     smollm-135m x 4 nodes, each run counted on its own: plan A packed and
@@ -1156,6 +1178,8 @@ def phase_plans(torch, Q, train, entries, n_rows):
         for name, n in launches.items():
             launches_total[name] += n
         step_s[label] = statistics.median(h["step_s"] for h in hist[1:])
+        if label in PLAN_RING_LABELS:
+            keep_stacked(torch, PLAN_RING_LABELS[label], hist, state)
         print(f"[plans] {label}: {CODEC_STEPS} steps, losses {losses}; "
               f"launches per step "
               f"{ {n: v for n, v in per_step.items() if v} }; "
@@ -1325,6 +1349,8 @@ def phase_strides(torch, Q, D, train, entries):
         for name, n in launches.items():
             launches_total[name] += n
         step_s[label] = statistics.median(h["step_s"] for h in hist[1:])
+        if label == "async s1":       # the process ring's 5-rank run
+            keep_stacked(torch, "strides async s1", hist, state)
         if label in ("packed", "pipelined", "async s0"):
             finals[label] = host_state(state)
         del state
@@ -1368,12 +1394,13 @@ def phase_strides(torch, Q, D, train, entries):
 #: the lossy and directed rings (``phase_faults``) on the full smollm-135m
 #: x 4 nodes: the reference's packet-loss sweep (``benchmarks/
 #: consensus_step.py:171-174``: directed-ring push-sum on the adaptive
-#: grid, loss seed 1, rates None / 0.0 / 0.05 / 0.2; 4 of its 8 steps, cut
-#: for the script's time), its burst
+#: grid, loss seed 1, rates None / 0.0 / 0.05 / 0.2; 3 of its 8 steps, cut
+#: for the script's time: 4 until the process ring's 5-rank group), its
+#: burst
 #: channel (``CHURN_BURST``, :202), the async transport's straggler
 #: deadlines, and the strided 5-node ring of ``phase_strides`` with one
 #: resync retry (some handshakes fail)
-FAULT_STEPS, LOSS_SEED, STRAGGLE = 4, 1, 0.2
+FAULT_STEPS, LOSS_SEED, STRAGGLE = 3, 1, 0.2
 LOSS_RATES = (None, 0.0, 0.05, 0.2)
 CHURN_BURST = "gilbert:p=0.1,r=0.9"
 FAULT_ARGV = ("--topology", "directed-ring", "--quant-mode", "adaptive",
@@ -1670,6 +1697,8 @@ def phase_faults(torch, Q, D, train, entries):
         for name, n in launches.items():
             launches_total[name] += n
         step_s[label] = statistics.median(h["step_s"] for h in hist[1:])
+        if label in RING_RUNS:        # the process ring mirrors it
+            keep_stacked(torch, label, hist, state)
         if "async s1" not in label and "burst" not in label:
             finals[label] = host_state(state)
         del state
@@ -2910,21 +2939,26 @@ def phase_serve_parity(torch):
 
 #: the dense model zoo (``phase_zoo``), each run at full width on random
 #: weights from seed 0: (label, arch, periods (None: the full depth),
-#: long-serve, sequences, prompt tokens); every run adds ZOO_NEW tokens
+#: long-serve, sequences, prompt tokens); every run adds ZOO_NEW tokens.
+#: Depths cut for the script's time (the process ring's 5-rank group;
+#: #9's shapes are per layer): gemma2-9b 10 of 21 periods, yi-9b 24 of 48
+#: layers and qwen3-0.6b 14 of 28 (full depth until then), chameleon-34b
+#: 6 of 48 (12 until then)
 ZOO_NEW = 64
 ZOO_SERVE = (
-    ("gemma2-9b", "gemma2-9b", None, False, 4, 6080),
+    ("gemma2-9b, 10 of 21 periods", "gemma2-9b", 10, False, 4, 6080),
     ("gemma2-9b long-serve, 2 of 21 periods", "gemma2-9b", 2, True, 1,
      32832),
-    ("yi-9b", "yi-9b", None, False, 8, 1984),
-    ("chameleon-34b, 12 of 48 layers", "chameleon-34b", 12, False, 4, 1984),
-    ("qwen3-0.6b", "qwen3-0.6b", None, False, 32, 1984),
+    ("yi-9b, 24 of 48 layers", "yi-9b", 24, False, 8, 1984),
+    ("chameleon-34b, 6 of 48 layers", "chameleon-34b", 6, False, 4, 1984),
+    ("qwen3-0.6b, 14 of 28 layers", "qwen3-0.6b", 14, False, 32, 1984),
 )
 #: the zoo trainer: full qwen3-0.6b on 3 nodes (4 x 512 tokens each), the
 #: int8 packed wire on the fixed grid, and the reference's wire bytes per
 #: node and step for its tree: 2 x 1,164,160 rows x 516
-#: (``tests/test_torch_zoo.py`` holds the rows to the reference's layout)
-ZOO_TRAIN_NODES, ZOO_TRAIN_STEPS = 3, 5
+#: (``tests/test_torch_zoo.py`` holds the rows to the reference's layout);
+#: 3 steps (5 until the process ring's 5-rank group, cut for time)
+ZOO_TRAIN_NODES, ZOO_TRAIN_STEPS = 3, 3
 #: a zoo run's decode logits against its train-mode forward (absolute and
 #: relative): both are float32, but a prefill's matrix products and a
 #: decode step's matrix-vector products sum in other orders, over up to 48
@@ -3307,11 +3341,12 @@ def phase_zoo(torch, Q, D, G, train, entries):
 
 #: the mixture-of-experts serve runs (``phase_moe``): (label, arch, periods
 #: (None: full depth), batch, prompt), each at full width with 64 new tokens
-#: and freed before the next.  granite-moe-3b-a800m: 32 layers, 13.5 GB of
-#: weights, an 8.6 GB cache; deepseek-moe-16b: its dense 'D' prelude and 27
-#: 'E' periods, 65.5 GB of weights
+#: and freed before the next.  granite-moe-3b-a800m: 16 of its 32 layers
+#: (all 32 until the process ring's 5-rank group, cut for time: 13.5 GB of
+#: weights, an 8.6 GB cache); deepseek-moe-16b: its dense 'D' prelude and
+#: 27 'E' periods, 65.5 GB of weights
 MOE_SERVE = (
-    ("granite-moe-3b-a800m", "granite-moe-3b-a800m", None, 32, 1984),
+    ("granite-moe-3b-a800m", "granite-moe-3b-a800m", 16, 32, 1984),
     ("deepseek-moe-16b", "deepseek-moe-16b", None, 2, 1984),
 )
 #: the MoE trainer: granite-moe-3b-a800m at full width cut to 3 of its 32
@@ -3319,7 +3354,8 @@ MOE_SERVE = (
 #: memory at 4 nodes, 3 peak at 69.4 GB), 4 nodes x 4 x 512 tokens, int8
 #: packed on the fixed grid; the reference's wire bytes per node and step
 #: for this tree, 2 x 885,152 rows x 516 (``tests/test_torch_moe.py``)
-MOE_TRAIN_PERIODS, MOE_TRAIN_NODES, MOE_TRAIN_STEPS = 3, 4, 5
+#: (3 steps: 5 until the process ring's 5-rank group, cut for time)
+MOE_TRAIN_PERIODS, MOE_TRAIN_NODES, MOE_TRAIN_STEPS = 3, 4, 3
 MOE_TRAIN_WIRE_BYTES = 913_476_864
 #: the routing oracle: one full-width MoE layer of each arch on this many
 #: tokens at capacity factor 1.25; every token is a standard normal draw
@@ -3781,10 +3817,13 @@ def phase_moe(torch, Q, D, G, train, entries):
 #: arch, periods (None: full depth), long-serve, batch, prompt).  Prompts
 #: are multiples of the scan's 256-token chunk (2,048, not the zoo's
 #: 1,984); 32,768 is prefill_32k's length (``src/repro/models/config.py:
-#: 164``), 128 chunks per layer, so the state crosses 127 chunk borders
+#: 164``), 128 chunks per layer, so the state crosses 127 chunk borders.
+#: mamba2-1.3b serves 24 of its 48 layers (all 48 until the process ring's
+#: 5-rank group, cut for the script's time)
 SSM_SERVE = (
-    ("mamba2-1.3b", "mamba2-1.3b", None, False, 32, 2048),
-    ("mamba2-1.3b, prefill_32k", "mamba2-1.3b", None, False, 1, 32768),
+    ("mamba2-1.3b, 24 of 48 layers", "mamba2-1.3b", 24, False, 32, 2048),
+    ("mamba2-1.3b, prefill_32k, 24 of 48 layers", "mamba2-1.3b", 24, False,
+     1, 32768),
 )
 #: mamba2-1.3b's decode logits against its train-mode forward (absolute
 #: and relative): the one-token recurrence and the chunked scan sum in
@@ -3810,8 +3849,9 @@ SSM_TRAIN_WIRE_BYTES = 624_318_720
 
 
 def phase_ssm(torch, Q, D, G, train, entries):
-    """The state-space family at full width: mamba2-1.3b served at full
-    depth (``SSM_SERVE``: no kernel launched, decode against a forward),
+    """The state-space family at full width: mamba2-1.3b served at 24 of
+    its 48 layers (``SSM_SERVE``: no kernel launched, decode against a
+    forward),
     jamba-v0.1-52b at 1 of 4 periods through ``moe_serve`` (#9 on its 'A'
     layer, drop shares, the no-drop check, the plain-#9 step), then the
     mamba2-1.3b trainer, each model freed before the next is built.
@@ -3879,7 +3919,8 @@ def phase_whisper(torch, Q, D, G, train, entries):
 #: smollm-135m as phase_serve serves it in float32, and chameleon-34b at
 #: all 48 layers (68.59 GB of bfloat16 weights and a 1.61 GB cache, where
 #: its 137 GB of float32 weights do not fit and the zoo serves 12 layers)
-PREC_TRAIN_STEPS = 3
+#: (2 steps: 3 until the process ring's 5-rank group, cut for time)
+PREC_TRAIN_STEPS = 2
 PREC_REMATS = ("full", "dots", "none")
 PREC_SERVE = (
     ("smollm-135m", "smollm-135m", None, False, SERVE_BATCH, SERVE_PROMPT),
@@ -5118,32 +5159,71 @@ def phase_copy_time(torch) -> None:
           f"{ms_copy:.4f} ms per exchange (written in place: 0)")
 
 
-#: the consensus ring over processes (``phase_process_ring``): 4 ranks of a
-#: gloo group, every one on cuda:0 (NCCL refuses two ranks on one card),
-#: each training one node of the full smollm-135m, 5 steps per run
-RING_RANKS = NODES
+#: the consensus ring over processes (``phase_process_ring``): gloo ranks,
+#: every one on cuda:0 (NCCL refuses two ranks on one card), each training
+#: one node of the full smollm-135m
 RING_DEVICE = "cuda:0"
 #: a rank that has not finished by then fails the phase
 RING_TIMEOUT_S = 600.0
-#: each run: its flags and the kernels one rank launches per step
+_PIPELINED = ("--wire-packing", "pipelined", "--pipeline-chunks",
+              str(PIPELINE_CHUNKS))
+_ASYNC_S1 = ("--wire-packing", "async", "--staleness", "1")
+_INT8 = {"quantize_payload": 1, "dequant_combine_payload": 1}
+#: each run of the 4-rank group: the argv of the stacked run it mirrors
+#: (run by an earlier phase, whose fingerprints ``keep_stacked`` kept: the
+#: plans' int8 packed, pipelined and async s1 runs, the main phase's int2,
+#: the fault sweep's per-leaf and straggler runs; dgd runs here), the
+#: kernels one rank launches per step, and the static wire bytes per node
+#: and step
 RING_RUNS = {
-    "int8 packed": ((), {"quantize_payload": 1,
-                         "dequant_combine_payload": 1}),
-    "int8 pipelined 4": (("--wire-packing", "pipelined", "--pipeline-chunks",
-                          str(PIPELINE_CHUNKS)),
-                         {"quantize_payload": PIPELINE_CHUNKS,
-                          "dequant_combine_payload": PIPELINE_CHUNKS}),
-    "int2 packed": (("--wire-codec", "int2"),
+    "int8 packed": (train_argv(CODEC_STEPS), _INT8, WIRE_BYTES["int8"]),
+    "int8 pipelined 4": (train_argv(CODEC_STEPS, *_PIPELINED),
+                         {k: PIPELINE_CHUNKS for k in _INT8},
+                         WIRE_BYTES["int8"]),
+    "int2 packed": (train_argv(CODEC_STEPS, "--wire-codec", "int2"),
                     {"subbyte_encode_payload": 1,
-                     "subbyte_decode_combine": 1}),
-    "dgd": (("--algorithm", "dgd"), {}),
+                     "subbyte_decode_combine": 1}, WIRE_BYTES["int2"]),
+    # 2 x 134,515,008 float32 parameters
+    "dgd": (train_argv(CODEC_STEPS, "--algorithm", "dgd"), {},
+            1_076_120_064),
+    "int8 async s1": (train_argv(CODEC_STEPS, *_ASYNC_S1), _INT8,
+                      WIRE_BYTES["int8"]),
+    # the directed push-sum ring on the adaptive grid at loss 0.2: the
+    # 4-byte weight per direction (the per-leaf transport's own transfer)
+    "directed loss 0.2 per-leaf": (
+        train_argv(FAULT_STEPS, *FAULT_ARGV, "--link-loss", "0.2",
+                   "--wire-packing", "per_leaf"),
+        {"quantize_blocks": N_LEAVES, "dequant_combine": N_LEAVES},
+        PER_LEAF_WIRE_BYTES + 8),
+    "directed loss 0.2 async s1 straggle": (
+        train_argv(FAULT_STEPS, *FAULT_ARGV, "--link-loss", "0.2",
+                   *_ASYNC_S1, "--straggle", str(STRAGGLE)), _INT8,
+        WIRE_BYTES["int8"] + 8),
 }
-#: the static wire bytes per node and step: the payloads' (``WIRE_BYTES``),
-#: and dgd's float32 parameters both ways (2 x 134,515,008 x 4)
-RING_WIRE_BYTES = {"int8 packed": WIRE_BYTES["int8"],
-                   "int8 pipelined 4": WIRE_BYTES["int8"],
-                   "int2 packed": WIRE_BYTES["int2"],
-                   "dgd": 1_076_120_064}
+#: the 5-rank group: strides (1, 2) held 2 steps each, async s1 (on 4
+#: ranks stride 2 would split the ring)
+RING5_RUNS = {
+    "strides async s1": (stride_argv(STRIDE_STEPS, *_ASYNC_S1), _INT8,
+                         STRIDE_WIRE_BYTES["packed"]),
+}
+#: a resync's fp32 x_tilde both ways, sent apart from the payloads
+RESYNC_BYTES = 2 * 262_752 * BLOCK * 4
+#: stacked runs' fingerprints by ring label (``keep_stacked``)
+STACKED = {}
+#: the ConsensusConfig fields of the trainer flags the ring runs use
+_CFG_FLAGS = {"--algorithm": ("algorithm", str),
+              "--wire-codec": ("wire_codec", str),
+              "--wire-packing": ("wire_packing", str),
+              "--pipeline-chunks": ("pipeline_chunks", int),
+              "--staleness": ("staleness", int),
+              "--quant-mode": ("quant_mode", str),
+              "--topology": ("topology", str),
+              "--link-loss": ("link_loss", float),
+              "--loss-seed": ("loss_seed", int),
+              "--straggle": ("straggle_rate", float),
+              "--ring-strides": ("ring_strides", lambda v: tuple(
+                  int(x) for x in v.split(","))),
+              "--schedule-period": ("schedule_period", int)}
 #: the fingerprint's chunk of bytes (bounds its int64 temporaries)
 _FP_CHUNK = 1 << 26
 
@@ -5165,17 +5245,33 @@ def fingerprint(torch, t) -> tuple[int, int]:
     return int(s0), int(s1)
 
 
-def ring_exchange_inputs(torch, train, n_local: int, first: int):
+def argv_value(argv, flag: str, default=None):
+    """The value of ``flag``'s last occurrence in ``argv`` (argparse's
+    rule), or ``default``."""
+    at = [i for i, a in enumerate(argv) if a == flag]
+    return argv[at[-1] + 1] if at else default
+
+
+def keep_stacked(torch, label: str, hist, state) -> None:
+    """A stacked run's per-step node losses, final state fingerprints per
+    node, static wire bytes and median step, kept under its ring label."""
+    STACKED[label] = {
+        "losses": [h["node_loss"].tolist() for h in hist],
+        "print": ring_state_print(torch, state, hist[0]["node_loss"].numel()),
+        "wire": hist[-1]["wire_bytes_per_step"],
+        "step_s": statistics.median(h["step_s"] for h in hist[1:])}
+
+
+def ring_exchange_inputs(torch, train, n: int, n_local: int, first: int):
     """The fixed inputs of ``ring_exchange``: smollm-135m's x0 from seed 0
     and, for node i, ``x_half = x0 + 1e-3 * N(0, 1)`` drawn leaf by leaf
     from a generator on the card seeded ``1000 + i``; nodes ``first`` to
-    ``first + n_local - 1``."""
+    ``first + n_local - 1`` of ``n``."""
     from repro_torch.configs import get_config
     from repro_torch.core import tree as T
     from repro_torch.models.params import init_params
     defs = train.build_train_setup(get_config("smollm-135m"),
-                                   consensus_nodes=RING_RANKS,
-                                   device="cuda").defs
+                                   consensus_nodes=n, device="cuda").defs
     x0 = init_params(defs.storage, 0, RING_DEVICE, n_nodes=n_local)
     half = T.tree_map(torch.clone, x0)
     for i in range(n_local):
@@ -5187,44 +5283,54 @@ def ring_exchange_inputs(torch, train, n_local: int, first: int):
     return x0, half
 
 
-def ring_exchange(torch, train, flags, ctx=None) -> list:
-    """One exchange (step 1, noise seed 0) of the run with ``flags`` on the
-    fixed inputs: stacked (``ctx`` None) or this rank's node.  Per node:
-    the fingerprints of its payload bytes (each transfer unit), x_tilde,
-    m_agg and x_next (each leaf)."""
+def ring_exchange(torch, train, argv, ctx=None) -> list:
+    """One exchange (step 1, noise seed 0) of the consensus of ``argv`` on
+    the fixed inputs: stacked (``ctx`` None) or this rank's node.  Per
+    node: the fingerprints of every payload it encoded (each unit; per
+    leaf the codes and scales), its state entries (the async flight
+    landed) and x_next (each leaf)."""
     from repro_torch.core import tree as T
     from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
-    kw = {"algorithm": "adc_dgd", "wire_codec": "int8",
-          "wire_packing": "packed", "pipeline_chunks": PIPELINE_CHUNKS}
-    for flag, value in zip(flags[::2], flags[1::2]):
-        kw[flag[2:].replace("-", "_")] = (int(value) if flag ==
-                                          "--pipeline-chunks" else value)
-    rt = ConsensusRuntime(ConsensusConfig(**kw), RING_RANKS, ctx=ctx)
-    first = 0 if ctx is None else ctx.rank
-    x0, half = ring_exchange_inputs(torch, train, rt.n_local, first)
+    from repro_torch.kernels import ops
+    kw = {"algorithm": "adc_dgd", "quant_mode": "fixed"}
+    for flag, (field, conv) in _CFG_FLAGS.items():
+        if flag in argv:
+            kw[field] = conv(argv_value(argv, flag))
+    n = int(argv_value(argv, "--nodes"))
+    rt = ConsensusRuntime(ConsensusConfig(**kw), n, ctx=ctx)
+    nl = rt.n_local
+    x0, half = ring_exchange_inputs(torch, train, n, nl,
+                                    0 if ctx is None else ctx.rank)
     pays, encode = [], rt._encode_unit
+    leaves, quantize = [], ops.quantize_blocks
 
     def recorded(*args, **kwargs):
         out = encode(*args, **kwargs)
         pays.append([None if p is None else fingerprint(torch, p)
                      for p in out])
         return out
-    rt._encode_unit = recorded
-    state = rt.init_state(x0)
-    x_next, state, _ = rt.exchange(x0, half, state, 1, seed=0)
+
+    def recorded_blocks(*args, **kwargs):
+        out = quantize(*args, **kwargs)
+        leaves.append([fingerprint(torch, t) for t in out])
+        return out
+    rt._encode_unit, ops.quantize_blocks = recorded, recorded_blocks
+    try:
+        x, state, _ = rt.exchange(x0, half, rt.init_state(x0), 1, seed=0)
+        rt.land()
+    finally:
+        ops.quantize_blocks = quantize
     return [{"payloads": [u[i] for u in pays],
-             "x_tilde": fingerprint(torch, state["x_tilde"][i])
-             if state else None,
-             "m_agg": fingerprint(torch, state["m_agg"][i])
-             if state else None,
-             "x_next": [fingerprint(torch, a[i])
-                        for a in T.tree_leaves(x_next)]}
-            for i in range(rt.n_local)]
+             "blocks": leaves[i::nl],
+             "state": {k: fingerprint(torch, state[k][i])
+                       for k in sorted(state)},
+             "x_next": [fingerprint(torch, a[i]) for a in T.tree_leaves(x)]}
+            for i in range(nl)]
 
 
 def ring_state_print(torch, state, n_local: int) -> list:
     """Per node: the fingerprints of its final parameters (each leaf) and
-    shadows."""
+    consensus state entries."""
     from repro_torch.core import tree as T
     cons = state["consensus"]
     return [{"params": [fingerprint(torch, a[i])
@@ -5234,14 +5340,17 @@ def ring_state_print(torch, state, n_local: int) -> list:
 
 
 def ring_split(trace_path: str, hist: list) -> dict:
-    """Median over steps 2-5 of one rank's exchange, in ms: the window
-    and its phases from the trace's CUDA-event spans, the staging copies
-    and the wire from the ring's own clocks (``train._wire_stats``): the
-    gloo transfer is what the launch and retire spans held besides the
-    copies (dgd, which marks no phase: the host's wait), the glue the
-    window less every phase (the consensus error's node sum, a metric, is
-    in it and also given apart); the wire from the first post to the last
-    wait's return, and the part of it the host waited."""
+    """Median over steps 2 to the last of one rank's exchange, in ms: the
+    window and its phases from the trace's CUDA-event spans, the staging
+    copies and the wire from the ring's own clocks (``train._wire_stats``):
+    the gloo transfer is what the launch and retire spans held besides the
+    copies (where no phase is marked, dgd and per-leaf, and where the
+    payload lands in the next step, async: the host's waits),
+    the glue the window less every phase (the consensus error's node sum,
+    a metric, is in it and also given apart); the wire from the first post
+    to the last wait's return (0 for the async payload, which lands in the
+    next step), the async flight's posted-to-landed, and the part of it
+    the host waited."""
     with open(trace_path) as f:
         spans = [e for e in json.load(f)["traceEvents"]
                  if e.get("ph") == "X"]
@@ -5262,12 +5371,11 @@ def ring_split(trace_path: str, hist: list) -> dict:
         r = steps[k]
         d2h, h2d = h["wire_d2h_s"] * 1e3, h["wire_h2d_s"] * 1e3
         waited = h["wire_wait_s"] * 1e3
-        if "launch" in r:
+        if "launch" in r and not h["wire_flight_s"]:
             gloo = r["launch"] + r["retire"] - d2h - h2d
             spans_sum = sum(r.get(p, 0.0) for p in (
                 "quantize", "launch", "retire", "dequant_combine"))
         else:
-            # dgd marks no phase: its transfers are timed by the ring
             gloo = waited
             spans_sum = d2h + gloo + h2d
         rows.append({"window": r["window"], "quantize": r.get("quantize", 0.0),
@@ -5276,6 +5384,7 @@ def ring_split(trace_path: str, hist: list) -> dict:
                      "glue": r["window"] - spans_sum,
                      "in_flight": r.get("in_flight", 0.0),
                      "wire_post_to_done": h["wire_s"] * 1e3,
+                     "wire_flight": h["wire_flight_s"] * 1e3,
                      "wire_waited": waited,
                      "consensus_err_wire": h["consensus_err_wire_s"] * 1e3})
     if not rows:
@@ -5283,13 +5392,20 @@ def ring_split(trace_path: str, hist: list) -> dict:
     return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
 
 
-def ring_rank(keep_values: dict, out_dir: str) -> dict:
+#: the per-step wire statistics a ring run keeps (``train._wire_stats``)
+RING_WIRE_KEYS = ("wire_bytes_per_step", "wire_bytes_sent",
+                  "wire_resync_bytes_sent", "wire_s", "wire_wait_s",
+                  "wire_flight_s", "wire_d2h_s", "wire_h2d_s",
+                  "consensus_err_wire_s")
+
+
+def ring_rank(runs: dict) -> dict:
     """One rank of ``phase_process_ring`` (started by ``launch.mesh.
     run_ranks``, on cuda:0): the fixed-input exchange of every run, then
     each run through ``train.main --process-ring`` with its launches
-    counted, its peak memory, its step lines' wire and its trace's split;
-    per node losses, and final state fingerprints (with the values saved
-    under ``out_dir`` where ``keep_values[label]``)."""
+    counted, its peak memory and the card's free memory after it, its step
+    lines' wire, its trace's split, the transfers left in flight after it;
+    per node losses and final state fingerprints."""
     import tempfile
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5299,197 +5415,202 @@ def ring_rank(keep_values: dict, out_dir: str) -> dict:
     from repro_torch.kernels import quantize as Q
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_process_context
+    from repro_torch.models.sharding import drain_rings
     train.measure_consensus_overhead = _no_probe
     entries = {"quantize_payload": Q.quantize_payload,
                "dequant_combine_payload": D.dequant_combine_payload,
                "subbyte_encode_payload": BP.subbyte_encode_payload,
-               "subbyte_decode_combine": BP.subbyte_decode_combine}
+               "subbyte_decode_combine": BP.subbyte_decode_combine,
+               "quantize_blocks": Q.quantize_blocks,
+               "dequant_combine": D.dequant_combine}
     ctx = make_process_context(RING_DEVICE)
     rank = ctx.rank
     out = {"exchange": {}, "runs": {}}
-    for label, (flags, _) in RING_RUNS.items():
-        out["exchange"][label] = ring_exchange(torch, train, flags, ctx)[0]
+    for label, (argv, _, _) in runs.items():
+        out["exchange"][label] = ring_exchange(torch, train, argv, ctx)[0]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    for label, (flags, _) in RING_RUNS.items():
+    for label, (argv, _, _) in runs.items():
         with tempfile.TemporaryDirectory() as tmp:
             _zero(entries)
             torch.cuda.reset_peak_memory_stats()
             hist, state = train.main(
-                train_argv(STEPS, *flags, "--process-ring", "--device",
-                           RING_DEVICE, "--telemetry", "--telemetry-dir",
-                           tmp, "--run-id", "ring"), return_state=True)
+                [*argv, "--process-ring", "--device", RING_DEVICE,
+                 "--telemetry", "--telemetry-dir", tmp, "--run-id", "ring"],
+                return_state=True)
             launches = _read(entries)
             peak = torch.cuda.max_memory_allocated() / 1e9
+            free = torch.cuda.mem_get_info()[0] / 1e9
+            pending = drain_rings()
             split = ring_split(os.path.join(tmp, f"trace-ring-rank{rank}"
                                             ".json"), hist)
-        run = {"launches": launches, "peak_gb": peak, "split": split,
-               "losses": [h["node_loss"].tolist() for h in hist],
-               "loss": [h["loss"] for h in hist],
-               "step_s": [h["step_s"] for h in hist],
-               "wire": [{k: h[k] for k in (
-                   "wire_bytes_per_step", "wire_bytes_sent", "wire_s",
-                   "wire_wait_s", "wire_d2h_s", "wire_h2d_s",
-                   "consensus_err_wire_s")} for h in hist],
-               "state": ring_state_print(torch, state, 1)[0]}
-        if keep_values.get(label):
-            path = os.path.join(out_dir, f"{label}-rank{rank}.pt")
-            torch.save(host_state(state), path)
-            run["values"] = path
-        out["runs"][label] = run
+        out["runs"][label] = {
+            "launches": launches, "peak_gb": peak, "free_gb": free,
+            "pending": pending, "split": split,
+            "losses": [h["node_loss"].tolist() for h in hist],
+            "loss": [h["loss"] for h in hist],
+            "step_s": [h["step_s"] for h in hist],
+            "wire": [{k: h[k] for k in RING_WIRE_KEYS} for h in hist],
+            "state": ring_state_print(torch, state, 1)[0]}
         del state, hist
         torch.cuda.empty_cache()
     return out
 
 
+def ring_check(label: str, spec, ranks: list, want_ex: list) -> None:
+    """Every rank of a run against the stacked one: the fixed-input
+    exchange's row, the launches, the static and measured wire bytes (a
+    resync's shadows apart, at the resync steps only), the per-node losses
+    and final state bitwise, nothing left in flight."""
+    argv, per_step, wire = spec
+    steps = int(argv_value(argv, "--steps"))
+    st = STACKED[label]
+    resync_steps = RESYNC_STEPS if "--ring-strides" in argv else ()
+    amortized = RESYNC_BYTES / STRIDE_PERIOD if resync_steps else 0.0
+    for r, rank in enumerate(ranks):
+        got, want = rank["exchange"][label], want_ex[r]
+        if got != want:
+            fail(f"ring {label}: rank {r}'s exchange differs from the "
+                 f"stacked row: {got} vs {want}")
+        run = rank["runs"][label]
+        want_l = {n: per_step.get(n, 0) * steps for n in run["launches"]}
+        if run["launches"] != want_l:
+            fail(f"ring {label}: rank {r} launched {run['launches']}, want "
+                 f"{want_l}")
+        static = {w["wire_bytes_per_step"] for w in run["wire"]}
+        sent = [w["wire_bytes_sent"] for w in run["wire"]]
+        resent = [w["wire_resync_bytes_sent"] for w in run["wire"]]
+        if (static != {st["wire"]} or st["wire"] != wire
+                or set(sent) != {wire - amortized}
+                or resent != [RESYNC_BYTES if k in resync_steps else 0
+                              for k in range(1, steps + 1)]):
+            fail(f"ring {label}: rank {r} wire bytes {static} (stacked "
+                 f"{st['wire']}, want {wire}), sent {sent} (want "
+                 f"{wire - amortized}), resync {resent}")
+        if run["losses"] != st["losses"] or run["state"] != st["print"][r]:
+            fail(f"ring {label}: rank {r} is not the stacked run bitwise: "
+                 f"losses {run['losses']} vs {st['losses']}, state "
+                 f"{run['state']} vs {st['print'][r]}")
+        if run["pending"]:
+            fail(f"ring {label}: rank {r} left {run['pending']} transfers "
+                 "in flight")
+
+
+def ring_line(label: str, spec, ranks: list) -> str:
+    """The summary of one ring run over its ranks."""
+    argv = spec[0]
+    n = len(ranks)
+    st = STACKED[label]
+    lead = ranks[0]["runs"][label]
+    step_s = statistics.median(lead["step_s"][1:])
+    sp = {k: statistics.median(rk["runs"][label]["split"][k] for rk in ranks)
+          for k in lead["split"]}
+    sent = lead["wire"][-1]["wire_bytes_sent"]
+
+    # the rate of the transfers the host posted and saw land in a step;
+    # an async payload lands unobserved while the host computes
+    gbps = [(w["wire_bytes_sent"] + w["wire_resync_bytes_sent"])
+            / w["wire_s"] / 1e9 for rk in ranks
+            for w in rk["runs"][label]["wire"][1:]
+            if w["wire_s"] and not w["wire_flight_s"]]
+    rate = (f"loopback {statistics.median(gbps):.3f} GB/s sent per rank"
+            if gbps else "loopback rate not measured (the payload lands "
+            "while the host computes)")
+    peaks = [round(rk["runs"][label]["peak_gb"], 2) for rk in ranks]
+    free = min(rk["runs"][label]["free_gb"] for rk in ranks)
+    return (f"ring {label} ({n} ranks on {RING_DEVICE}, gloo over loopback "
+            f"TCP, {argv_value(argv, '--steps')} steps): median step "
+            f"{step_s:.4f} s (stacked {st['step_s']:.4f} s); exchange "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in sp.items())
+            + f" (median over ranks of each rank's median of steps 2 on); "
+            f"wire bytes per node and step {sent} (static {st['wire']}); "
+            f"{rate}; "
+            f"peak memory per rank {peaks} GB, card free after the run "
+            f"{free:.2f} GB; losses {lead['loss']}; bitwise equal to the "
+            "stacked run")
+
+
 def phase_process_ring(torch, train, entries):
-    """The consensus ring over processes on one card: 4 ranks of a gloo
-    group (``launch.mesh.run_ranks``), all on cuda:0, each holding one
-    node of the full smollm-135m (4 x 512 tokens, SGD lr 1e-2, fixed grid
-    1e-3), whose payloads cross loopback TCP staged through pinned host
-    memory.  First, stacked on this process: one exchange of each run on
-    fixed inputs, and each 5-step run (``RING_RUNS``: int8 packed, int8
-    pipelined over 4 units, int2 packed, dgd), the first one twice.  Then
-    the ranks: the same exchange on every rank, whose payload bytes (each unit), x_tilde,
-    m_agg and x_next must be bitwise equal to the stacked exchange's row
-    (fingerprints); and each run through ``train.main --process-ring``
-    counted on every rank (#1 / #2 or #5 / #6 once per unit and step, none
-    for dgd), whose per-node losses and final parameters and shadows must
-    equal the stacked run's bitwise where the two stacked int8 runs agreed
-    bit for bit, else within the parity tolerances (``MAX_GRID_STEPS``,
-    ``MAX_FRAC_OFF``, ``LOSS_RTOL``), and whose static wire bytes (and, on
-    a packed wire, the measured bytes sent) are the stacked accounting's.
-    Prints per run the median step, the exchange split (quantize, the
-    device-to-host copy, the gloo transfer, the host-to-device copy,
-    dequant_combine, glue), the wire bytes, the loopback rate and each
-    rank's peak memory.  Returns (the ranks' launches, summary lines)."""
-    import tempfile
+    """The consensus ring over processes on one card: gloo ranks
+    (``launch.mesh.run_ranks``), all on cuda:0, each holding one node of
+    the full smollm-135m (4 x 512 tokens, SGD lr 1e-2), whose payloads
+    cross loopback TCP staged through pinned host memory.  4 ranks run
+    ``RING_RUNS`` (int8 packed, pipelined over 4 units, int2, dgd and
+    int8 async s1 for 3 steps; the directed push-sum ring on the adaptive
+    grid at loss 0.2 per-leaf, and async s1 with 20% stragglers, for 3
+    each),
+    5 ranks ``RING5_RUNS`` (strides 1,2 held 2 steps, async s1, 5 steps:
+    resyncs at steps 3 and 5).  Stacked, on this process: each run's
+    fixed-input exchange, and each run's fingerprints where no earlier
+    phase kept them (the phases that ran the same argv are deterministic:
+    they hold transports bitwise equal to one another).  On the ranks: the
+    same exchange, whose payload bytes, state and x_next must equal the
+    stacked row's (fingerprints), and each run through ``train.main
+    --process-ring`` (``ring_check``).  Prints per run the median step,
+    the exchange split, the wire bytes, the loopback rate, each rank's
+    peak memory and the card's free memory; per step of the async run the
+    wait at the retire and the flight's posted-to-landed beside int8
+    packed's wait.  Returns (the ranks' launches, summary lines)."""
     from repro_torch.launch.mesh import run_ranks
     t_phase = time.perf_counter()
-    want_ex = {label: ring_exchange(torch, train, flags)
-               for label, (flags, _) in RING_RUNS.items()}
-    stacked, same = {}, None
-    for label, (flags, _) in RING_RUNS.items():
-        h0, s0 = train.main(train_argv(STEPS, *flags), return_state=True)
-        if same is None:
-            # the stacked trainer twice: deterministic on this card?
-            h1, s1 = train.main(train_argv(STEPS, *flags), return_state=True)
-            same = same_state(torch, s0, s1) and all(
-                torch.equal(a["node_loss"], b["node_loss"])
-                for a, b in zip(h0, h1))
-            if not same:
-                print(f"[ring] stacked {label}: two runs differ (losses "
-                      f"{[h['loss'] for h in h0]} vs "
-                      f"{[h['loss'] for h in h1]}): the ranks are held to "
-                      "the parity tolerances", flush=True)
-            del h1, s1
-        stacked[label] = {
-            "same": same, "losses": [h["node_loss"].tolist() for h in h0],
-            "print": ring_state_print(torch, s0, RING_RANKS),
-            "wire": h0[-1]["wire_bytes_per_step"],
-            "step_s": statistics.median(h["step_s"] for h in h0[1:])}
-        if not same:
-            stacked[label]["values"] = host_state(s0)
-        del h0, s0
-    keep = {label: not same for label in RING_RUNS}
+    groups = ((RING_RUNS, NODES), (RING5_RUNS, STRIDE_NODES))
+    want_ex = {}
+    for runs, _ in groups:
+        for label, (argv, _, _) in runs.items():
+            want_ex[label] = ring_exchange(torch, train, argv)
+            if label not in STACKED:
+                hist, state = train.main(argv, return_state=True)
+                keep_stacked(torch, label, hist, state)
+                del hist, state
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    t_ranks = time.perf_counter()
-    with tempfile.TemporaryDirectory() as out_dir:
-        ranks = run_ranks(ring_rank, RING_RANKS, keep, out_dir,
-                          timeout_s=RING_TIMEOUT_S)
-        ranks_s = time.perf_counter() - t_ranks
-        launches = {name: 0 for name in entries}
-        summary = []
-        for label, (_, per_step) in RING_RUNS.items():
-            st = stacked[label]
-            for r, rank in enumerate(ranks):
-                got, want = rank["exchange"][label], want_ex[label][r]
-                if got != want:
-                    fail(f"ring {label}: rank {r}'s exchange differs from "
-                         f"the stacked row: {got} vs {want}")
-                run = rank["runs"][label]
-                want_l = {n: per_step.get(n, 0) * STEPS
-                          for n in run["launches"]}
-                if run["launches"] != want_l:
-                    fail(f"ring {label}: rank {r} launched "
-                         f"{run['launches']}, want {want_l}")
-                for name, n in run["launches"].items():
-                    launches[name] += n
-                wire = {w["wire_bytes_per_step"] for w in run["wire"]}
-                sent = {w["wire_bytes_sent"] for w in run["wire"]}
-                if wire != {st["wire"]} or st["wire"] != \
-                        RING_WIRE_BYTES[label] or sent != {st["wire"]}:
-                    fail(f"ring {label}: rank {r} wire bytes {wire}, sent "
-                         f"{sent}, stacked {st['wire']}, want "
-                         f"{RING_WIRE_BYTES[label]}")
-                if st["same"]:
-                    if (run["losses"] != st["losses"]
-                            or run["state"] != st["print"][r]):
-                        fail(f"ring {label}: rank {r} is not the stacked "
-                             f"run bitwise: losses {run['losses']} vs "
-                             f"{st['losses']}, state {run['state']} vs "
-                             f"{st['print'][r]}")
-                else:
-                    ring_within_tolerance(torch, label, r, run, st)
-            lead = ranks[0]["runs"][label]
-            step_s = statistics.median(lead["step_s"][1:])
-            sp = {k: statistics.median(rk["runs"][label]["split"][k]
-                                       for rk in ranks)
-                  for k in lead["split"]}
-            sent = lead["wire"][-1]["wire_bytes_sent"]
-            gbps = [rk["runs"][label]["wire"][k]["wire_bytes_sent"]
-                    / rk["runs"][label]["wire"][k]["wire_s"] / 1e9
-                    for rk in ranks for k in range(1, STEPS)]
-            peaks = [round(rk["runs"][label]["peak_gb"], 2) for rk in ranks]
-            line = (f"ring {label} ({RING_RANKS} ranks on {RING_DEVICE}, "
-                    f"gloo over loopback TCP): median step {step_s:.4f} s "
-                    f"(stacked {st['step_s']:.4f} s); exchange "
-                    + ", ".join(f"{k} {v:.3f} ms" for k, v in sp.items())
-                    + f" (median over ranks of each rank's median of steps "
-                    f"2-5); wire bytes per node and step {sent} (static "
-                    f"{st['wire']}); loopback {statistics.median(gbps):.3f}"
-                    f" GB/s sent per rank, "
-                    f"{RING_RANKS * statistics.median(gbps):.3f} GB/s over "
-                    f"the ring; peak memory per rank {peaks} GB; losses "
-                    f"{lead['loss']}; bitwise "
-                    f"{'equal to' if st['same'] else 'within tolerance of'}"
-                    " the stacked run")
+    launches = {name: 0 for name in entries}
+    summary, ranks_s = [], {}
+    for runs, n in groups:
+        t0 = time.perf_counter()
+        ranks = run_ranks(ring_rank, n, runs, timeout_s=RING_TIMEOUT_S)
+        ranks_s[n] = time.perf_counter() - t0
+        for label, spec in runs.items():
+            ring_check(label, spec, ranks, want_ex[label])
+            for rank in ranks:
+                for name, v in rank["runs"][label]["launches"].items():
+                    launches[name] += v
+            line = ring_line(label, spec, ranks)
             print(f"[ring] {line}", flush=True)
             summary.append(line)
+        if n == NODES:
+            line = ring_async_steps(ranks)
+            print(f"[ring] {line}", flush=True)
+            summary.append(line)
+        del ranks
     total_s = time.perf_counter() - t_phase
-    summary.append(f"phase_process_ring {total_s:.1f} s ({ranks_s:.1f} s "
-                   f"of it the ranks, start-up included)")
-    print(f"[ring] phase_process_ring: {total_s:.1f} s, ranks "
-          f"{ranks_s:.1f} s", flush=True)
+    summary.append(f"phase_process_ring {total_s:.1f} s (the 4 ranks "
+                   f"{ranks_s[NODES]:.1f} s, the 5 ranks "
+                   f"{ranks_s[STRIDE_NODES]:.1f} s, start-up included)")
+    print(f"[ring] {summary[-1]}", flush=True)
     return launches, summary
 
 
-def ring_within_tolerance(torch, label, r, run, st) -> None:
-    """A rank's run against a stacked run that is not deterministic: its
-    per-node losses within LOSS_RTOL, its final parameters and x_tilde
-    within MAX_GRID_STEPS grid steps in at most MAX_FRAC_OFF of the
-    elements, the rest within FLOAT_ATOL."""
-    from repro_torch.core import tree as T
-    got = torch.load(run["values"], weights_only=False)
-    want = st["values"]
-    diffs = [(a[r:r + 1].double() - b.double()).abs() for a, b in zip(
-        T.tree_leaves(want["params"]), T.tree_leaves(got["params"]))]
-    if "x_tilde" in want["consensus"]:
-        diffs.append((want["consensus"]["x_tilde"][r:r + 1].double()
-                      - got["consensus"]["x_tilde"].double()).abs())
-    worst = max(float(d.max()) for d in diffs)
-    frac = (sum(int((d > FLOAT_ATOL).sum()) for d in diffs)
-            / sum(d.numel() for d in diffs))
-    loss_ok = all(math.isclose(a, b, rel_tol=LOSS_RTOL)
-                  for ga, wa in zip(run["losses"], st["losses"])
-                  for a, b in zip(ga, wa))
-    print(f"[ring] {label} rank {r} against the stacked run: largest "
-          f"difference {worst!r}, share off {frac!r}", flush=True)
-    if worst > MAX_GRID_STEPS * 1e-3 or frac > MAX_FRAC_OFF or not loss_ok:
-        fail(f"ring {label}: rank {r} outside the parity tolerances: "
-             f"{worst} (max {MAX_GRID_STEPS * 1e-3}), share {frac}, losses "
-             f"{run['losses']} vs {st['losses']}")
+def ring_async_steps(ranks: list) -> str:
+    """Per step, medians over the ranks: int8 async s1's wait at the
+    retire, its flight's posted-to-landed and its step, beside int8
+    packed's wait and step."""
+    def med(label, key, k):
+        return statistics.median(
+            rk["runs"][label]["wire"][k][key] if key != "step_s"
+            else rk["runs"][label]["step_s"][k] for rk in ranks)
+    rows = []
+    a, p = "int8 async s1", "int8 packed"
+    for k in range(CODEC_STEPS):
+        rows.append(
+            f"step {k + 1}: async wait {med(a, 'wire_wait_s', k) * 1e3:.1f}"
+            f" ms, flight {med(a, 'wire_flight_s', k) * 1e3:.1f} ms, step "
+            f"{med(a, 'step_s', k):.4f} s; packed wait "
+            f"{med(p, 'wire_wait_s', k) * 1e3:.1f} ms, step "
+            f"{med(p, 'step_s', k):.4f} s")
+    return ("int8 async s1 against int8 packed on 4 ranks (the wait is the "
+            "host's time blocked at the retire; the flight is posted in the "
+            "step before): " + "; ".join(rows))
 
 
 def main() -> None:

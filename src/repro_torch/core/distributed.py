@@ -100,18 +100,29 @@ the ``allreduce`` exchange.
 
 Process ring (``ctx``, ``models.sharding``): under a process context each
 rank holds one node, every tensor has a leading axis of 1, and the
-neighbours' payloads really cross the wire: each transfer unit's payload
-is posted to both ring neighbours in its ``launch`` (a device-to-host copy
-into a pinned buffer, then the gloo sends) and waited for in its
-``retire`` (then a host-to-device copy), so on the pipelined transport
-unit c's transfer is in flight while unit c+1 is encoded.  The node sums
-(``allreduce``, ``consensus_err``) go through ``ctx.node_group_sum`` in
-the stacked sum's rotation order, and each rank draws only its own
-noise, so a rank computes the stacked runtime's row bit for bit.  The
-process ring runs ``adc_dgd`` (packed and pipelined, any plan, fixed or
-adaptive grid), ``dgd``, ``allreduce`` and ``compressed_dgd`` at ring
-stride 1; every other option raises ``NotImplementedError`` naming the
-slice that ports it.
+neighbours' payloads really cross the wire, at the stride of the step's
+epoch: each transfer unit's payload is posted to both ring neighbours in
+its ``launch`` (a device-to-host copy into a pinned buffer, then the gloo
+sends) and waited for in its ``retire`` (then a host-to-device copy), so
+on the pipelined transport unit c's transfer is in flight while unit c+1
+is encoded.  The per-leaf transport posts each leaf's codes and scales
+(two transfers to both neighbours: the reference's four ``ppermute``) in
+the leaf's launch, leaf i+1 before leaf i is retired.  The async
+transport posts step k's payload and returns: the transfer stays in
+flight across the step boundary, and its two arrivals join the state
+(``fly_up``, ``fly_dn``) only when it has landed (:meth:`ConsensusRuntime.
+land`), which step k+1's retire does first.  A resync moves the shadow
+over the ring (fp32 ``x_tilde`` at the new stride: per unit, per leaf, or
+the drained shadow on the async transport) and push-sum's fresh weights
+as a scalar transfer.  A fault is read at the receiver: every payload is
+still sent, and the rank reads an arrival its column of the host's keep
+mask drops (or whose straggler deadline it misses) as the zero payload.
+The node sums (``allreduce``, ``consensus_err``) go through ``ctx.
+node_group_sum`` in the stacked sum's rotation order, and each rank draws
+only its own noise, so a rank computes the stacked runtime's row bit for
+bit.  The process ring runs every algorithm, codec, transport, stride
+schedule, fault and topology of the stacked runtime; membership and
+hierarchy raise ``NotImplementedError`` naming the slice that ports them.
 
 Telemetry (``telemetry``, ``core.telemetry``): every ADC return path adds
 the reference's extra per-node metrics (``telemetry_metric_keys``), all
@@ -123,6 +134,7 @@ ends; an installed ``SpanRecorder`` times them with CUDA events.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any
@@ -466,36 +478,21 @@ class Wiring:
         return cls(stride, left, right, tuple(bool(b) for b in mask), m)
 
 
-#: the slices of the work queue (ROADMAP Queue 1 item 5) that port what
-#: the process ring refuses
-_SLICE_ASYNC = ("the async and per-leaf transports over the process ring "
-                "(ROADMAP Queue 1 item 5b)")
-_SLICE_RING = ("ring strides with resync, faults, membership, hierarchy and "
-               "the directed ring with push-sum over ranks (ROADMAP Queue 1 "
-               "item 5c)")
+#: the slice of the work queue that ports what the process ring refuses
+_SLICE_RING = ("membership, hierarchy and --checkpoint-dir over ranks "
+               "(ROADMAP Queue 1 item 5c, its remainder)")
 
 
 def _check_process_ring(cfg: ConsensusConfig) -> None:
     """Raise ``NotImplementedError`` for an option the process ring does
-    not run yet, naming the slice that ports it."""
-    refused = []
-    if cfg.wire_packing in ("async", "per_leaf"):
-        refused.append((f"wire_packing={cfg.wire_packing!r}", _SLICE_ASYNC))
-    if tuple(cfg.ring_strides) != (1,):
-        refused.append((f"ring_strides={cfg.ring_strides}", _SLICE_RING))
-    if cfg.faults_enabled:
-        refused.append(("link loss and straggler deadlines", _SLICE_RING))
-    if cfg.membership is not None:
-        refused.append(("membership", _SLICE_RING))
-    if cfg.hierarchy is not None:
-        refused.append(("hierarchy", _SLICE_RING))
-    if cfg.topology != "ring" or cfg.push_sum_enabled:
-        refused.append(("the directed ring and push-sum", _SLICE_RING))
-    if refused:
-        what, slice_ = refused[0]
-        raise NotImplementedError(
-            f"{what} is not yet ported to the process ring: it comes with "
-            f"{slice_}")
+    not run yet (membership, hierarchy), naming the slice that ports
+    it."""
+    for what, on in (("membership", cfg.membership is not None),
+                     ("hierarchy", cfg.hierarchy is not None)):
+        if on:
+            raise NotImplementedError(
+                f"{what} is not yet ported to the process ring: it comes "
+                f"with {_SLICE_RING}")
 
 
 def _pipeline_schedule(n_units: int, launch, retire, inspect=None) -> list:
@@ -583,8 +580,12 @@ class ConsensusRuntime:
         self.loss = config.loss_model_for(rl)
         self.straggler = config.straggler_model
         #: payloads read as the zero payload so far (one per dropped
-        #: arrival per transfer unit): what the exchange really did
+        #: arrival per transfer unit): what the exchange really did (a
+        #: rank counts its own arrivals)
         self.zero_payloads = 0
+        #: the async transport's flight over ranks that has not landed:
+        #: (flight, the state it completes, its two arrival tensors)
+        self._flight = None
 
     @property
     def wire_name(self) -> str:
@@ -630,7 +631,7 @@ class ConsensusRuntime:
         (1 - W_ii) x0."""
         if self.cfg.algorithm != "adc_dgd":
             return {}
-        n = self.n_nodes
+        n = self.n_local
         layout = self.state_layout(params)
         x_tilde = layout.pack(params)
         dev = x_tilde.device
@@ -647,6 +648,58 @@ class ConsensusRuntime:
             for key in wire.INFLIGHT_KEYS:
                 st[key] = wire.inflight_init(n, nbytes, dev, trailer)
         return st
+
+    # -- the async transport's flight over ranks -------------------------
+    @property
+    def in_flight(self) -> bool:
+        """Has the last exchange posted an async payload that has not
+        landed (:meth:`land`)?"""
+        return self._flight is not None
+
+    def land(self) -> None:
+        """Complete the consensus state of the async transport over ranks.
+
+        At staleness 1 an exchange on a process ring posts its payload to
+        both neighbours and returns the new state WITHOUT ``fly_up`` and
+        ``fly_dn``: their bytes are still on the wire.  This waits for that
+        flight (if it has not landed yet) and puts its two arrivals into
+        that same state dict.  Everything that reads the consensus state
+        calls it first: the next exchange's retire does, and so do the
+        trainer's end, the exchange probe and ``with_codec``; a state read
+        before it has no ``fly_up`` (a ``KeyError``, never a half-landed
+        buffer).  Each flight lands in tensors of its own step, which no
+        later transfer writes, so a caller may keep any state (of any
+        step) as long as it likes once it has landed.  A no-op stacked,
+        on the other transports, and when nothing is in flight."""
+        if self._flight is None:
+            return
+        flight, state, up, dn = self._flight
+        self._flight = None
+        flight.wait()
+        state["fly_up"], state["fly_dn"] = up, dn
+
+    @contextlib.contextmanager
+    def aside(self):
+        """A block of exchanges that are no step of the run (the trainer's
+        exchange probe): the live flight lands first, so the live state is
+        complete; the block's own flights land in tensors of their own
+        states (never the live state's) and the last of them lands before
+        the block ends, so the live state and the ring are left as they
+        were and the run's next retire finds nothing in flight."""
+        self.land()
+        try:
+            yield
+        finally:
+            self.land()
+
+    def _local(self, flags: np.ndarray | None) -> np.ndarray | None:
+        """Host flags over the ring elements (the last axis), cut to this
+        process's elements: under a process context the rank's own column
+        (the receiver reads its arrivals' fate there), else all of them."""
+        if flags is None or not self.ctx.process_ring:
+            return flags
+        r = self.ctx.rank
+        return flags[..., r:r + 1]
 
     # -- static accounting -------------------------------------------------
     def _payload_rows(self, layout: wire.WireLayout) -> tuple[int, int]:
@@ -811,12 +864,25 @@ class ConsensusRuntime:
         ``(n, rows, BLOCK)`` (added, then scaled, as the reference does),
         into ``out`` when given; inactive rows are left as they are.  On
         the directed ring it is ``f32(w_fwd) x_tilde[left] + f32(w_bwd)
-        x_tilde[right]``."""
-        wiring = self._wiring(stride, mask)
+        x_tilde[right]``.  Under a process context the neighbours' shadows
+        cross the ring at ``stride`` (the reference's ``_ring(xt,
+        +-stride)``), a transfer posted here."""
         out = torch.empty_like(xt) if out is None else out
+        if self.ctx.process_ring:
+            flight = self.ctx.ring_start(xt[0], ("resync", "x_tilde"),
+                                         stride)
+            return self._rebuild_into(out, [(0, *flight.wait())])
+        wiring = self._wiring(stride, mask)
+        return self._rebuild_into(out, [
+            (i, xt[wiring.left[i]], xt[wiring.right[i]])
+            for i in wiring.active])
+
+    def _rebuild_into(self, out: torch.Tensor, pairs) -> torch.Tensor:
+        """``rebuild_m_agg``'s arithmetic: ``out[i]`` from each ``(i,
+        x_tilde left, x_tilde right)`` of ``pairs``.  The exchanges over
+        ranks that post the shadows' transfer early pass its arrivals."""
         w_fwd, w_bwd = self.cfg.in_weights
-        for i in wiring.active:
-            left, right = xt[wiring.left[i]], xt[wiring.right[i]]
+        for i, left, right in pairs:
             if w_fwd != w_bwd:
                 torch.mul(left, _f32(w_fwd), out=out[i])
                 out[i].add_(right * _f32(w_bwd))
@@ -861,16 +927,12 @@ class ConsensusRuntime:
         return ok[0] & ok[1]
 
     def _arrivals(self, pays: list, wiring: Wiring,
-                  keep: np.ndarray | None, flight=None) -> tuple[list, list]:
+                  keep: np.ndarray | None) -> tuple[list, list]:
         """Each element's (left, right) arrivals of one transfer unit: its
         neighbours' payloads, or one shared all-zero payload of their size
         where ``keep`` drops them (the senders' buffers are never written);
-        None for an inactive element.  Under a process context the two
-        payloads of ``flight`` (the unit's posted ring transfer), waited
-        for here."""
-        if flight is not None:
-            left, right = flight.wait()
-            return [left], [right]
+        None for an inactive element.  Stacked only: over processes the
+        arrivals are a transfer's (``_drop`` of what it received)."""
         left = [None if j is None else pays[j] for j in wiring.left]
         right = [None if j is None else pays[j] for j in wiring.right]
         return self._drop(left, right, keep, wiring)
@@ -886,7 +948,7 @@ class ConsensusRuntime:
         drop[:, wiring.inactive] = False
         if not drop.any():
             return left, right
-        first = left[wiring.active[0]]
+        first = next(t for t in left if t is not None)
         zero = (tuple(torch.zeros_like(t) for t in first)
                 if isinstance(first, tuple) else torch.zeros_like(first))
         for side, row in ((left, drop[0]), (right, drop[1])):
@@ -945,23 +1007,33 @@ class ConsensusRuntime:
                                device=device)
                 for k in self.cfg.telemetry_metric_keys()}
 
-    def _neighbour_rows(self, t: torch.Tensor, wiring: Wiring):
+    def _neighbour_rows(self, t: torch.Tensor, wiring: Wiring,
+                        slot: Any = "weights"):
         """(rows left, rows right) of a small per-element tensor ``t``,
-        stacked (no index tensor is copied to the device)."""
+        stacked (no index tensor is copied to the device); under a process
+        context the neighbours' ``t`` at the wiring's stride, a transfer
+        on ``slot`` (copies: the slot's buffers are reused)."""
+        if self.ctx.process_ring:
+            left, right = self.ctx.ring_start(t, slot, wiring.stride).wait()
+            return left.clone(), right.clone()
         return _rows(t, list(wiring.left)), _rows(t, list(wiring.right))
 
     def _push_sum_update(self, ps_w, w_l, w_r, state, keep, resync, ok,
-                         wiring):
+                         wiring, fresh=None):
         """The push-sum weight step from the received weights ``w_l``,
         ``w_r`` ``(N, 1)``: dropped arrivals fall back to the last-seen
-        ``ps_nbr``; a resync refreshes both from the new neighbours unless
-        the node's handshake failed.  Returns (ps_new, ps_nbr_new)."""
+        ``ps_nbr``; a resync refreshes both from the new neighbours
+        (``fresh``, the neighbours' weights already received, or a
+        transfer of ``ps_w`` here) unless the node's handshake failed.
+        Returns (ps_new, ps_nbr_new)."""
         nbr = state["ps_nbr"]
         if keep is not None:
             w_l = _pick(keep[0], w_l, nbr[:, 0:1])
             w_r = _pick(keep[1], w_r, nbr[:, 1:2])
         if resync:
-            fresh_l, fresh_r = self._neighbour_rows(ps_w, wiring)
+            fresh_l, fresh_r = (fresh if fresh is not None else
+                                self._neighbour_rows(ps_w, wiring,
+                                                     ("resync", "w")))
             if ok is None:
                 w_l, w_r = fresh_l, fresh_r
             else:
@@ -1261,9 +1333,9 @@ class ConsensusRuntime:
             cfg.pipeline_chunks if cfg.wire_packing == "pipelined" else None)
         xt, mb = state["x_tilde"], state["m_agg"]
         push = cfg.push_sum_enabled
-        keep = self.keep_mask(step)
+        keep = self._local(self.keep_mask(step))
         resync = self.resync_at(step)
-        ok = self.resync_ok(step)
+        ok = self._local(self.resync_ok(step))
         ring = self.ctx.process_ring
         nodes = [0] if ring else wiring.active
         y = self._numerator(x_half, state, layout)
@@ -1276,17 +1348,23 @@ class ConsensusRuntime:
         m_in = torch.empty_like(mb) if resync else mb
         last = len(units) - 1
         trailer = state["ps_w"].view(torch.uint8) if push else None
-        recv, flights = {}, {}
+        stride = wiring.stride
+        recv, flights, shadows = {}, {}, {}
 
         def launch(c):
             # stacked, the ring transfer is an index and the launch phase
-            # is empty; over processes it stages and posts the payload
+            # is empty; over processes it stages and posts the payload (and
+            # at a resync the unit's x_tilde rows)
             telemetry.trace_mark("quantize", c, rows=units[c].n_rows)
             pays = self._encode_unit(plan, units[c], y, noise, step_k, nodes,
                                      trailer=trailer if c == last else None)
             telemetry.trace_mark("launch", c, rows=units[c].n_rows)
             if ring:
-                flights[c] = self.ctx.ring_start(pays[0], slot=("adc", c))
+                flights[c] = self.ctx.ring_start(pays[0], ("adc", c), stride)
+                if resync:
+                    shadows[c] = self.ctx.ring_start(
+                        xt[0, units[c].row_start:units[c].row_end],
+                        ("resync", c), stride)
             telemetry.trace_end()
             return pays
 
@@ -1294,13 +1372,23 @@ class ConsensusRuntime:
             telemetry.trace_mark("retire", c)
             if resync:
                 rows = slice(units[c].row_start, units[c].row_end)
-                self.rebuild_m_agg(xt[:, rows], wiring.stride,
-                                   out=m_in[:, rows], mask=wiring.mask)
+                if ring:        # the unit's shadows, posted at its launch
+                    self._rebuild_into(m_in[:, rows],
+                                       [(0, *shadows.pop(c).wait())])
+                else:
+                    self.rebuild_m_agg(xt[:, rows], stride,
+                                       out=m_in[:, rows], mask=wiring.mask)
                 self._keep_stale(m_in[:, rows], mb[:, rows], ok)
-            if push and c == last:
-                recv["w"] = _trailer_weights(pays)
-            left, right = self._arrivals(pays, wiring, keep,
-                                         flights.pop(c, None))
+            if ring:
+                got = flights.pop(c).wait()
+                if push and c == last:      # the trailers as they arrived
+                    recv["w"] = [_trailer_weights([p]) for p in got]
+                left, right = self._drop(got[:1], got[1:], keep, wiring)
+            else:
+                if push and c == last:
+                    recv["w"] = self._neighbour_rows(_trailer_weights(pays),
+                                                     wiring)
+                left, right = self._arrivals(pays, wiring, keep)
             telemetry.trace_mark("dequant_combine", c,
                                  rows=units[c].n_rows)
             self._retire(plan, units[c], pays, left, right, xt, m_in, outs,
@@ -1319,8 +1407,7 @@ class ConsensusRuntime:
         metrics = {}
         if push:
             ps_new, new_state["ps_nbr"] = self._push_sum_update(
-                state["ps_w"], *self._neighbour_rows(recv["w"], wiring),
-                state, keep, resync, ok, wiring)
+                state["ps_w"], *recv["w"], state, keep, resync, ok, wiring)
             new_state["ps_w"] = ps_new
             comb.div_(ps_new.view(-1, 1, 1))
             metrics["push_sum_weight"] = ps_new[:, 0]
@@ -1359,30 +1446,41 @@ class ConsensusRuntime:
         payloads.  Under a membership mask the compacted ring is no shift:
         ``fly_up`` and ``fly_dn`` are gathered from the neighbour table,
         and an inactive element launches and receives zero payloads (so a
-        rejoining one retires zeros, then resyncs)."""
+        rejoining one retires zeros, then resyncs).
+
+        Under a process context the rank's own payload is ``fly_self`` and
+        the launch posts it to both neighbours at the step's stride and
+        returns: the returned state has no ``fly_up`` / ``fly_dn`` until
+        the flight has landed (:meth:`land`, the first thing the next
+        retire does).  The arrivals land in tensors of their own step, so
+        nothing rewrites a state once it is complete.  At a resync the
+        drained ``x_tilde`` crosses the ring at the new stride."""
         if self.cfg.staleness == 0:
             x_next, ns, metrics = self._adc_exchange(
                 x_prev, x_half, state, step, seed, noise, layout, wiring)
             for key in wire.INFLIGHT_KEYS:
                 ns[key] = state[key]
             return x_next, ns, metrics
-        n = self.ring_len
+        ring = self.ctx.process_ring
+        n = self.n_local // self.pod_size
         plan = self.wire_plan_for(layout)
         unit = plan.transfer_units(None)[0]
         xt, mb = state["x_tilde"], state["m_agg"]
         push = self.cfg.push_sum_enabled
-        keep, meet = self.keep_mask(step - 1), self.deadline_mask(step - 1)
+        keep = self._local(self.keep_mask(step - 1))
+        meet = self._local(self.deadline_mask(step - 1))
         arrive = (keep if meet is None else
                   meet if keep is None else keep & meet)
         resync = self.resync_at(step)
-        ok = self.resync_ok(step)
-        nodes = wiring.active
+        ok = self._local(self.resync_ok(step))
+        nodes = [0] if ring else wiring.active
+        telemetry.trace_mark("retire", 0, mode="async")
+        self.land()               # over ranks: the flight step k-1 posted
         fly = [state["fly_self"][i] for i in range(n)]
         # fly_up[i] / fly_dn[i] arrived at element i from its upstream /
         # downstream neighbour of step k-1
         up = [state["fly_up"][i] for i in range(n)]
         dn = [state["fly_dn"][i] for i in range(n)]
-        telemetry.trace_mark("retire", 0, mode="async")
         left, right = self._drop(list(up), list(dn), arrive, wiring)
         outs = tuple(torch.empty_like(xt) for _ in range(3))
         telemetry.trace_mark("dequant_combine", 0, rows=unit.n_rows)
@@ -1414,22 +1512,28 @@ class ConsensusRuntime:
         width = plan.payload_bytes + (wireplan.PUSH_SUM_TRAILER_BYTES
                                       if push else 0)
         trailer = ps_new.view(torch.uint8) if push else None
-        r = wiring.stride % n if wiring.mask is None else 0
-        ring = torch.empty((n + 2 * r, width), dtype=torch.uint8,
-                           device=y.device)
-        own = ring[r:r + n]
+        r = 0 if ring or wiring.mask is not None else wiring.stride % n
+        buf = torch.empty((n + 2 * r, width), dtype=torch.uint8,
+                          device=y.device)
+        own = buf[r:r + n]
         telemetry.trace_mark("quantize", 0, rows=unit.n_rows, mode="async")
         pays = self._encode_unit(plan, unit, y, noise, step_k, nodes, own,
                                  trailer=trailer)
         del noise
         telemetry.trace_mark("launch", 0, rows=unit.n_rows,
                              buffers=wire.INFLIGHT_KEYS)
-        if wiring.mask is None:
+        flight = None
+        if ring:
+            # posted, not waited: it lands at the next retire
+            fly_up, fly_dn = torch.empty_like(own), torch.empty_like(own)
+            flight = self.ctx.ring_start(own[0], "async", wiring.stride,
+                                         into=[fly_up[0], fly_dn[0]])
+        elif wiring.mask is None:
             # ppermute(+s) hands element i element i-s's payload,
             # ppermute(-s) element i+s's
-            ring[:r].copy_(ring[n:n + r])
-            ring[n + r:].copy_(ring[r:2 * r])
-            fly_up, fly_dn = ring[:n], ring[2 * r:]
+            buf[:r].copy_(buf[n:n + r])
+            buf[n + r:].copy_(buf[r:2 * r])
+            fly_up, fly_dn = buf[:n], buf[2 * r:]
         else:
             for i in wiring.inactive:
                 own[i].zero_()
@@ -1460,8 +1564,11 @@ class ConsensusRuntime:
         self._telemetry_metrics(metrics, acct, clipped, resync, ok, wiring,
                                 retired)
         new_state.update({"x_tilde": xt_new, "m_agg": m_new,
-                          "fly_self": own, "fly_up": fly_up,
-                          "fly_dn": fly_dn})
+                          "fly_self": own})
+        if flight is None:
+            new_state.update({"fly_up": fly_up, "fly_dn": fly_dn})
+        else:
+            self._flight = (flight, new_state, fly_up, fly_dn)
         return x_next, new_state, metrics
 
     def _ratios(self, plan, layout):
@@ -1485,11 +1592,19 @@ class ConsensusRuntime:
         correction is the decoded arrivals' as on the packed path.  Each
         leaf is padded to its own TILE_N-aligned height; the noise is the
         packed path's buffer sliced per leaf, so the two transports give
-        the same bits."""
-        cfg, n = self.cfg, self.n_nodes
+        the same bits.
+
+        Under a process context the rank's node is the one node: each
+        leaf's codes and scales (and at a resync its padded ``x_tilde``)
+        are posted to both neighbours in the leaf's launch, and leaf i+1
+        is launched before leaf i is retired (the reference's pipeline
+        schedule); the arrivals are the transfers'."""
+        cfg, n = self.cfg, self.n_local
+        ring = self.ctx.process_ring
+        stride = wiring.stride
         resync = self.resync_at(step)
-        ok = self.resync_ok(step)
-        keep = self.keep_mask(step)
+        ok = self._local(self.resync_ok(step))
+        keep = self._local(self.keep_mask(step))
         push = cfg.push_sum_enabled
         w_fwd, w_bwd = cfg.in_weights
         c_dir = _f32(w_fwd - cfg.side_weight)
@@ -1500,27 +1615,30 @@ class ConsensusRuntime:
         metrics, new_state = {}, {}
         if push:
             ps_w = state["ps_w"]
+            # the neighbours' weights: every step, so a resync reuses them
+            fresh = self._neighbour_rows(ps_w, wiring)
             ps_new, new_state["ps_nbr"] = self._push_sum_update(
-                ps_w, *self._neighbour_rows(ps_w, wiring), state, keep,
-                resync, ok, wiring)
+                ps_w, *fresh, state, keep, resync, ok, wiring, fresh=fresh)
             new_state["ps_w"] = ps_new
             metrics["push_sum_weight"] = ps_new[:, 0]
         clipped = torch.zeros(n, dtype=torch.float32, device=xt.device)
         residual_sq = torch.zeros(n, dtype=torch.float32, device=xt.device)
         new_x, xt_rows, m_rows = [], [], []
-        for i, (slot, h, p) in enumerate(zip(layout.slots,
-                                              T.tree_leaves(x_half),
-                                              T.tree_leaves(x_prev))):
+        leaves = list(zip(layout.slots, T.tree_leaves(x_half),
+                          T.tree_leaves(x_prev)))
+
+        def launch(i):
+            nonlocal clipped, residual_sq
+            slot, h, _ = leaves[i]
             full = kops.padded_block_rows(slot.size)
             y = _blockify_nodes(h, full)
             if push:
                 y.mul_(ps_w.view(-1, 1, 1))
             xtb = _rowpad(layout.leaf_rows(xt, i), full)
             mbb = _rowpad(layout.leaf_rows(mb, i), full)
-            if resync:
-                built = self.rebuild_m_agg(xtb, wiring.stride)
-                self._keep_stale(built, mbb, ok)
-                mbb = built
+            shadow = (self.ctx.ring_start(xtb[0], ("resync", "leaf", i),
+                                          stride)
+                      if ring and resync else None)
             y.sub_(xtb)
             residual_sq += (y * y).sum(dim=(1, 2))
             u = _rowpad(layout.leaf_rows(noise, i), full)
@@ -1531,7 +1649,27 @@ class ConsensusRuntime:
                 clipped += torch.stack([
                     (c.to(torch.int16).abs() >= 127).sum(dtype=torch.float32)
                     for c, _ in sent])
-            left, right = self._arrivals(sent, wiring, keep)
+            flights = None
+            if ring:
+                flights = [self.ctx.ring_start(t, ("leaf", i, part), stride)
+                           for part, t in zip(("codes", "scales"), sent[0])]
+            return xtb, mbb, shadow, sent, flights
+
+        def retire(i, launched):
+            slot, h, p = leaves[i]
+            xtb, mbb, shadow, sent, flights = launched
+            if resync:
+                built = (self.rebuild_m_agg(xtb, stride) if shadow is None
+                         else self._rebuild_into(torch.empty_like(xtb),
+                                                 [(0, *shadow.wait())]))
+                self._keep_stale(built, mbb, ok)
+                mbb = built
+            if ring:
+                (c_l, c_r), (s_l, s_r) = (f.wait() for f in flights)
+                left, right = self._drop([(c_l, s_l)], [(c_r, s_r)], keep,
+                                         wiring)
+            else:
+                left, right = self._arrivals(sent, wiring, keep)
             outs = [kops.dequant_combine(
                         *sent[j], *left[j], *right[j], xtb[j], mbb[j],
                         cfg.self_weight, cfg.side_weight, 1.0)
@@ -1554,6 +1692,12 @@ class ConsensusRuntime:
             combined = comb.reshape(n, -1)[:, :slot.size].reshape(h.shape)
             new_x.append((combined + (h.to(torch.float32)
                                       - p.to(torch.float32))).to(h.dtype))
+
+        if ring:
+            _pipeline_schedule(len(leaves), launch, retire)
+        else:                  # one leaf at a time: the smallest peak
+            for i in range(len(leaves)):
+                retire(i, launch(i))
         inv_codes, inv_elems = self._ratios(self.wire_plan_for(layout),
                                             layout)
         new_state.update({"x_tilde": layout.from_leaf_rows(xt_rows),
@@ -1594,7 +1738,8 @@ class ConsensusRuntime:
                 for j in range(n)]
         if self.ctx.process_ring:
             left, right = (kops.unpack_payload(p, layout.block) for p in
-                           self.ctx.ring_start(pays[0], "cdgd").wait())
+                           self.ctx.ring_start(pays[0], "cdgd",
+                                               wiring.stride).wait())
             mixed = self._cdgd_mix(xp[0], left, right)[None]
         else:
             sent = [kops.unpack_payload(p, layout.block) for p in pays]
@@ -1610,8 +1755,9 @@ class ConsensusRuntime:
                                 wiring):
         """Per-leaf reference of :meth:`_cdgd_exchange_packed`: per leaf
         and node one ``quantize_blocks`` launch; the same bits given the
-        same noise buffer."""
-        n = self.n_nodes
+        same noise buffer.  Over processes each leaf's codes and scales
+        cross the wire to both ring neighbours (two transfers)."""
+        n = self.n_local
         step0 = float(np.float32(self.cfg.fixed_step0))
         out = []
         for i, (slot, h, p) in enumerate(zip(layout.slots,
@@ -1622,9 +1768,16 @@ class ConsensusRuntime:
             u = _rowpad(layout.leaf_rows(noise, i), full)
             sent = [kops.quantize_blocks(xb[j], u[j], fixed_step=step0)
                     for j in range(n)]
-            mixed = torch.stack([
-                self._cdgd_mix(xb[j], sent[wiring.left[j]],
-                               sent[wiring.right[j]]) for j in range(n)])
+            if self.ctx.process_ring:
+                flights = [self.ctx.ring_start(t, ("cdgd", i, part),
+                                               wiring.stride)
+                           for part, t in zip(("codes", "scales"), sent[0])]
+                (c_l, c_r), (s_l, s_r) = (f.wait() for f in flights)
+                mixed = self._cdgd_mix(xb[0], (c_l, s_l), (c_r, s_r))[None]
+            else:
+                mixed = torch.stack([
+                    self._cdgd_mix(xb[j], sent[wiring.left[j]],
+                                   sent[wiring.right[j]]) for j in range(n)])
             mixed = mixed.reshape(n, -1)[:, :slot.size].reshape(h.shape)
             out.append((mixed + (h.to(torch.float32)
                                  - p.to(torch.float32))).to(h.dtype))
@@ -1640,7 +1793,8 @@ class ConsensusRuntime:
         prev, treedef = T.tree_flatten(x_prev)
         flights = None
         if self.ctx.process_ring:
-            flights = [self.ctx.ring_start(p.to(wire_dtype), ("dgd", i))
+            flights = [self.ctx.ring_start(p.to(wire_dtype), ("dgd", i),
+                                           wiring.stride)
                        for i, p in enumerate(prev)]
 
         def mix(i, h, p):

@@ -16,7 +16,9 @@ Its device is ``cuda:<LOCAL_RANK>`` unless the caller names one device
 ranks on one card, so the group is gloo, and a CUDA payload is staged
 through pinned host memory.  ``run_ranks`` starts N ranks of a function
 from Python (tests, ``chip_smoke.py``) with a ``file://`` rendezvous in a
-temporary directory: no TCP port is chosen or held.
+temporary directory: no TCP port is chosen or held; a function that
+returns with a ring transfer still in flight fails its rank (the transfer
+is waited first, so the group is never torn down under it).
 
 The production meshes (16 x 16, 2 x 16 x 16) need tensor parallelism and
 FSDP over NCCL: not yet ported.
@@ -33,7 +35,8 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from repro_torch import resolve_device
-from repro_torch.models.sharding import ParallelContext, make_context
+from repro_torch.models.sharding import (ParallelContext, drain_rings,
+                                         make_context)
 
 __all__ = ["make_process_context", "run_ranks"]
 
@@ -89,6 +92,10 @@ def _rank_main(local_rank: int, fn, n: int, tmp: str, args: tuple,
         timeout=datetime.timedelta(seconds=timeout_s))
     try:
         result = fn(*args)
+        # a transfer left in flight would be cut by the teardown
+        if drain_rings():
+            raise RuntimeError(f"{getattr(fn, '__name__', fn)} returned "
+                               "with ring transfers still in flight")
         torch.save(result, os.path.join(tmp, f"rank{local_rank}.pt"))
     finally:
         dist.destroy_process_group()

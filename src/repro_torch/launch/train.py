@@ -16,13 +16,12 @@ batch, and the exchange's payloads cross the wire to its ring neighbours
 (``models.sharding.StagedRing``), so each rank computes the stacked
 trainer's row bit for bit; the ranks' losses and per-node metrics are
 gathered, and rank 0 prints the step lines, with the exchange's measured
-wire time (``wire_s``; ``wire_wait_s`` the part the host waited for,
-``wire_d2h_s`` / ``wire_h2d_s`` the staging copies) beside the static
-wire bytes.  ``--nodes`` must then equal the world size or be absent.
-The ranks run on ``cuda:<LOCAL_RANK>``, or all on the one ``--device``
-named (``cuda:0``, ``cpu``).  The async and per-leaf transports, ring
-strides, faults, membership, hierarchy, the directed ring and
-``--checkpoint-dir`` raise there: they are later slices.
+wire beside the static wire bytes (``_wire_stats``).  ``--nodes`` must
+then equal the world size or be absent.  The ranks run on
+``cuda:<LOCAL_RANK>``, or all on the one ``--device`` named (``cuda:0``,
+``cpu``).  Every transport, stride schedule, fault and topology runs
+there; membership (``--node-failures``), ``--hierarchy`` and
+``--checkpoint-dir`` raise: a later slice.
 
 ``--algorithm compressed_dgd`` runs the paper's Eq. (5) negative control
 instead of ADC-DGD.  ``--wire-packing`` picks the transport: ``packed``
@@ -262,6 +261,7 @@ def with_codec(setup: TrainSetup, name: str) -> TrainSetup:
     shadows are fp32 and no codec changes them, and the buffer keeps the
     setup's leaf placement (a tier change moves codecs, never rows)."""
     rt = setup.consensus
+    rt.land()              # the state is complete before a new runtime
     cfg = dataclasses.replace(rt.cfg, wire_codec=name)
     return dataclasses.replace(
         setup, consensus=ConsensusRuntime(cfg, setup.n_nodes,
@@ -406,7 +406,12 @@ def build_exchange_probe(setup: TrainSetup):
     and shadows would not fit beside the largest trainers on one card).
     It reads the same host masks as the step (keyed by step, stateless)
     and restores the runtime's ``zero_payloads`` count and the telemetry's
-    span observer: a measurement, not a step of the run."""
+    span observer: a measurement, not a step of the run.  On the async
+    transport over ranks the run's flight lands first and the probe's
+    exchange runs aside (``ConsensusRuntime.aside``): its own flight lands
+    in its own state before the probe returns (its wire is in the time),
+    so the live state and the run's next retire are as they were; the
+    step after the probe finds its flight landed (a wait of 0)."""
     rt = setup.consensus
     if rt.cfg.algorithm != "adc_dgd" or setup.n_nodes <= 1:
         return None
@@ -415,8 +420,9 @@ def build_exchange_probe(setup: TrainSetup):
         zero, obs = rt.zero_payloads, telemetry.trace_observer()
         telemetry.set_trace_observer(None)
         try:
-            return rt.exchange(params, params, cons_state, k,
-                               seed=setup.seed)
+            with rt.aside():
+                return rt.exchange(params, params, cons_state, k,
+                                   seed=setup.seed)
         finally:
             rt.zero_payloads = zero
             telemetry.set_trace_observer(obs)
@@ -617,7 +623,9 @@ def main(argv=None, *, return_state: bool = False):
     if args.process_ring:
         if args.checkpoint_dir:
             raise SystemExit("--checkpoint-dir is not yet ported to the "
-                             "process ring (a later slice)")
+                             "process ring: it comes with membership, "
+                             "hierarchy and --checkpoint-dir over ranks "
+                             "(ROADMAP Queue 1 item 5c, its remainder)")
         from repro_torch.launch.mesh import make_process_context
         ctx = make_process_context(args.device)
         world = ctx.total_consensus_nodes
@@ -879,6 +887,9 @@ def main(argv=None, *, return_state: bool = False):
                     _wire_plan_event(tel, setup, state, step + 2,
                                      hierarchy, args)
             ep_res, ep_ovf, ep_ce = [], [], []
+    # the async transport over ranks: the last step's flight lands, so the
+    # state is complete and nothing is on the wire when the run ends
+    setup.consensus.land()
     say(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
     if tel is not None:
         run_end = {"wall_s": time.time() - t0,
@@ -896,20 +907,40 @@ def main(argv=None, *, return_state: bool = False):
 
 
 def _wire_stats(ctx: ParallelContext) -> dict:
-    """The measured wire of the exchange since the ring's stats were last
-    reset (``models.sharding.StagedRing``; call after a synchronize): the
-    host seconds from posting each kind of transfer to its last wait's
-    return, the part spent waiting, the staging copies and the bytes
-    sent.  The consensus error's node sum, a metric, is left out of these
-    and timed on its own (``consensus_err_wire_s``)."""
+    """The measured wire of the step's exchange, from the ring's stats
+    since the step began (``models.sharding.StagedRing``; call after a
+    synchronize):
+
+    * ``wire_s``: per kind of transfer, host seconds from posting its
+      first transfer of the step to the return of the last wait of one
+      posted in the step, summed over kinds (on the async transport only
+      the resync's: its payload is waited in the next step);
+    * ``wire_wait_s``: the host's time blocked in the step's waits.  On
+      the async transport this is the retire's wait for the flight the
+      previous step posted (and at a resync the shadows' transfer): whether
+      the wire is hidden is read here, ~0 when it is;
+    * ``wire_flight_s``: posted-to-landed of the flight the step retired
+      (posted in the previous step, landed when its wait returned; 0 on
+      the other transports);
+    * ``wire_d2h_s`` / ``wire_h2d_s``: the staging copies, CUDA events;
+    * ``wire_bytes_sent``: the payload bytes the step posted (on the async
+      transport this step's launch), and ``wire_resync_bytes_sent`` apart:
+      a resync's fp32 shadows (and push-sum weights);
+    * ``consensus_err_wire_s``: the consensus error's node sum (a metric,
+      left out of the others)."""
     all_stats = ctx.ring.read_stats()
     metric = all_stats.pop("consensus_err", None)
+    resync = all_stats.get("resync")
     stats = list(all_stats.values())
     return {"wire_s": sum(v["wire_s"] for v in stats),
             "wire_wait_s": sum(v["wait_s"] for v in stats),
+            "wire_flight_s": sum(v["carried_s"] for v in stats),
             "wire_d2h_s": sum(v["d2h_s"] for v in stats),
             "wire_h2d_s": sum(v["h2d_s"] for v in stats),
-            "wire_bytes_sent": sum(v["bytes_sent"] for v in stats),
+            "wire_bytes_sent": sum(v["bytes_sent"] for k, v in
+                                   all_stats.items() if k != "resync"),
+            "wire_resync_bytes_sent": 0 if resync is None
+            else resync["bytes_sent"],
             "consensus_err_wire_s": 0.0 if metric is None
             else metric["wire_s"]}
 

@@ -14,8 +14,15 @@ with ``ppermute``.  The port has two contexts:
 On the gloo group a CUDA tensor crosses the wire staged through pinned
 host memory (:class:`StagedRing`): a device-to-host copy into a pinned
 send buffer, ``batch_isend_irecv`` to the peers, and a host-to-device copy
-into a preallocated device receive buffer.  Buffers are allocated once
-per (slot, shape, dtype), never per step.
+into a preallocated device receive buffer, or into the tensors the caller
+names (``into``: the async transport lands each flight in tensors of its
+own step, which no later transfer reuses).  Buffers are allocated once
+per (slot, shape, dtype), never per step.  A ring shift goes to the
+neighbours at any stride (``ring_start(..., stride=s)``: the time-varying
+ring).  A transfer may stay in flight across calls (the async transport
+posts one step's payload and waits for it in the next); every flight a
+rank posted is waited before its group is torn down (:func:`drain_rings`,
+called by ``launch.mesh.run_ranks``).
 
 Tensor parallelism (``tp``) and FSDP (``data_size > n_nodes``) need
 collectives across several cards (NCCL): not yet ported.
@@ -24,27 +31,36 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["ParallelContext", "StagedRing", "local_context", "make_context"]
+__all__ = ["ParallelContext", "StagedRing", "drain_rings", "local_context",
+           "make_context"]
 
 _TP_FSDP = ("tensor parallelism and FSDP are not yet ported: they need "
             "NCCL collectives across several cards (a later slice)")
 
 
+#: every StagedRing of this process (``drain_rings``)
+_RINGS: "weakref.WeakSet[StagedRing]" = weakref.WeakSet()
+
+
 class RingFlight:
     """One posted ring transfer: :meth:`wait` blocks until every message
     has landed and returns the received tensors on the sender's device,
-    in the order the transfer named its sources.  They are the slot's
-    receive buffers: the slot's next transfer overwrites them."""
+    in the order the transfer named its sources: the tensors the transfer
+    was given (``into``), else the slot's receive buffers, which the
+    slot's next transfer overwrites.  Waiting twice returns the same
+    tensors."""
 
-    def __init__(self, ring: "StagedRing", key, works, recv_host, recv_dev):
+    def __init__(self, ring: "StagedRing", key, works, recv_host, recv_dev,
+                 posted: float):
         self._ring, self._key, self._works = ring, key, works
-        self._stats = ring._kind_stats(key[0])
         self._recv_host, self._recv_dev = recv_host, recv_dev
+        self._posted, self._window = posted, ring._window
         self._out = None
 
     def wait(self) -> list[torch.Tensor]:
@@ -54,9 +70,15 @@ class RingFlight:
         for w in self._works:
             w.wait()
         t1 = time.perf_counter()
-        ring, stats = self._ring, self._stats
+        ring = self._ring
+        # the stats of the window the wait falls in (reset_stats may have
+        # opened a new one since the post)
+        stats = ring._kind_stats(self._key[0])
         stats["wait_s"] += t1 - t0
-        stats["last_done"] = t1
+        if self._window == ring._window:
+            stats["last_done"] = t1
+        else:                        # posted in an earlier window
+            stats["carried_s"] += t1 - self._posted
         if self._recv_dev is None:              # host tensors: no staging
             self._out = list(self._recv_host)
         else:
@@ -70,7 +92,7 @@ class RingFlight:
             ring._copied[self._key] = ev1
             ring._h2d.append((stats, ev0, ev1))
             self._out = list(self._recv_dev)
-        ring._pending.discard(self._key)
+        ring._pending.pop(self._key, None)
         return self._out
 
 
@@ -84,36 +106,55 @@ class StagedRing:
     ring neighbours are one rank, and its two messages are told apart by
     tag).  A CUDA ``x`` is copied into a pinned host buffer (the copy is
     waited for before the sends are posted), and the received bytes are
-    copied into device buffers of ``x``'s shape; a CPU ``x`` is sent as it
-    is.  Every buffer belongs to its ``(slot, shape, dtype)`` and is
-    allocated at its first use.
+    copied into device buffers of ``x``'s shape, or into ``into``; a CPU
+    ``x`` is sent as it is and received into host buffers, or straight
+    into ``into``.  Every buffer belongs to its ``(slot, shape, dtype)``
+    and is allocated at its first use.  Every rank must start the same
+    slots in the same order (a slot's tag is its rank of first use).
 
     ``stats`` accumulates per kind of transfer (the slot's name, or its
-    first item), until :meth:`reset_stats`: ``d2h_s`` and ``h2d_s`` (the
-    staging copies, CUDA events; :meth:`read_stats` adds them after a
-    synchronize), ``wire_s`` (host clock from posting the kind's first
-    transfer to the return of its last wait), ``wait_s`` (the time the
-    host spent blocked in the waits) and ``bytes_sent``."""
+    first item) over a window that :meth:`reset_stats` opens: ``d2h_s``
+    and ``h2d_s`` (the staging copies, CUDA events; :meth:`read_stats`
+    adds them after a synchronize), ``wire_s`` (host clock from posting
+    the kind's first transfer of the window to the return of the last wait
+    of a transfer posted in it), ``wait_s`` (the time the host spent
+    blocked in the window's waits), ``carried_s`` (posted-to-landed of the
+    transfers posted in an earlier window and waited in this one: the
+    async transport's flight) and ``bytes_sent`` (posted in the
+    window)."""
 
     def __init__(self, group, rank: int, size: int):
         self.group, self.rank, self.size = group, rank, size
         self._bufs: dict = {}
         self._tags: dict = {}
         self._copied: dict = {}
-        self._pending: set = set()
+        self._pending: dict = {}
         self._d2h: list = []
         self._h2d: list = []
+        self._window = 0
         self.reset_stats()
+        _RINGS.add(self)
 
     def reset_stats(self) -> None:
         self.stats: dict[str, dict] = {}
         self._d2h, self._h2d = [], []
+        self._window += 1
+
+    @property
+    def pending(self) -> int:
+        """Transfers posted and not yet waited."""
+        return len(self._pending)
+
+    def drain(self) -> None:
+        """Wait every transfer still in flight."""
+        for flight in list(self._pending.values()):
+            flight.wait()
 
     def _kind_stats(self, slot) -> dict:
         kind = slot[0] if isinstance(slot, tuple) else slot
         return self.stats.setdefault(kind, {
-            "d2h_s": 0.0, "h2d_s": 0.0, "wait_s": 0.0, "bytes_sent": 0,
-            "first_post": None, "last_done": None})
+            "d2h_s": 0.0, "h2d_s": 0.0, "wait_s": 0.0, "carried_s": 0.0,
+            "bytes_sent": 0, "first_post": None, "last_done": None})
 
     def read_stats(self) -> dict:
         """``{kind: stats}`` with the staging copies' CUDA event times
@@ -131,7 +172,7 @@ class StagedRing:
             out[kind] = v
         return out
 
-    def _buffers(self, key, x: torch.Tensor, n_recv: int):
+    def _buffers(self, key, x: torch.Tensor, n_recv: int, own_dev: bool):
         bufs = self._bufs.get(key)
         if bufs is None:
             if x.device.type == "cuda":
@@ -139,23 +180,32 @@ class StagedRing:
                 recv_host = [torch.empty(x.shape, dtype=x.dtype,
                                          pin_memory=True)
                              for _ in range(n_recv)]
-                recv_dev = [torch.empty_like(x) for _ in range(n_recv)]
             else:
-                send = None
-                recv_host = [torch.empty_like(x) for _ in range(n_recv)]
-                recv_dev = None
-            bufs = self._bufs[key] = (send, recv_host, recv_dev)
+                send, recv_host = None, None    # made when first needed
+            bufs = self._bufs[key] = [send, recv_host, None]
             self._tags[key] = len(self._tags)
+        if x.device.type == "cpu" and own_dev and bufs[1] is None:
+            bufs[1] = [torch.empty_like(x) for _ in range(n_recv)]
+        if x.device.type == "cuda" and own_dev and bufs[2] is None:
+            bufs[2] = [torch.empty_like(x) for _ in range(n_recv)]
         return bufs
 
     def start(self, x: torch.Tensor, sends: list[int], recvs: list[int],
-              slot: Any = 0) -> RingFlight:
+              slot: Any = 0, into: list | None = None) -> RingFlight:
         key = (slot, tuple(x.shape), x.dtype, x.device.type, len(sends),
                len(recvs))
         if key in self._pending:
             raise RuntimeError(f"ring slot {slot!r} is still in flight: "
                                "wait for it before reusing its buffers")
-        send, recv_host, recv_dev = self._buffers(key, x, len(recvs))
+        if into is not None and (
+                len(into) != len(recvs)
+                or any(t.shape != x.shape or t.dtype != x.dtype
+                       or t.device != x.device or not t.is_contiguous()
+                       for t in into)):
+            raise ValueError("into: one contiguous tensor of x's shape, "
+                             "dtype and device per source")
+        send, recv_host, recv_dev = self._buffers(key, x, len(recvs),
+                                                  into is None)
         x = x.contiguous()
         if send is not None:
             done = self._copied.pop(key, None)
@@ -168,8 +218,12 @@ class StagedRing:
             ev1.record()
             ev1.synchronize()                 # the bytes are on the host
             self._d2h.append((self._kind_stats(slot), ev0, ev1))
+            if into is not None:
+                recv_dev = list(into)
         else:
             send = x
+            if into is not None:
+                recv_host = list(into)
         base = self._tags[key] * self.size
         ops = [dist.P2POp(dist.isend, send, peer, self.group, tag=base + j)
                for j, peer in enumerate(sends)]
@@ -182,8 +236,19 @@ class StagedRing:
         if stats["first_post"] is None:
             stats["first_post"] = posted
         stats["bytes_sent"] += nbytes * len(sends)
-        self._pending.add(key)
-        return RingFlight(self, key, works, recv_host, recv_dev)
+        flight = RingFlight(self, key, works, recv_host, recv_dev, posted)
+        self._pending[key] = flight
+        return flight
+
+
+def drain_rings() -> int:
+    """Wait every transfer still in flight on every ring of this process
+    (before its group is torn down); returns how many there were."""
+    n = 0
+    for ring in list(_RINGS):
+        n += ring.pending
+        ring.drain()
+    return n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,14 +306,16 @@ class ParallelContext:
         n = self.total_consensus_nodes
         return (self.rank - shift) % n, (self.rank + shift) % n
 
-    def ring_start(self, x: torch.Tensor, slot: Any = 0) -> RingFlight:
-        """Post ``x`` to both ring neighbours at stride 1 and receive
+    def ring_start(self, x: torch.Tensor, slot: Any = 0, stride: int = 1,
+                   into: list | None = None) -> RingFlight:
+        """Post ``x`` to both ring neighbours at ``stride`` and receive
         theirs: ``wait()`` gives ``[left, right]``, the tensors of ranks
-        ``rank - 1`` (``ppermute(+1)``) and ``rank + 1``
-        (``ppermute(-1)``): the slot's receive buffers, valid until its
-        next transfer.  Process context only."""
-        left, right = self.neighbours(1)
-        return self.ring.start(x, [right, left], [left, right], slot)
+        ``rank - stride`` (``ppermute(+stride)``) and ``rank + stride``
+        (``ppermute(-stride)``): the two tensors of ``into`` when given,
+        else the slot's receive buffers, valid until its next transfer.
+        Process context only."""
+        left, right = self.neighbours(stride)
+        return self.ring.start(x, [right, left], [left, right], slot, into)
 
     def ppermute_ring(self, x: torch.Tensor, shift: int,
                       slot: Any = "ppermute") -> torch.Tensor:

@@ -17,7 +17,8 @@ bit for bit.  Held here, on the CPU:
 * 3 steps of the 4-rank trainer on reduced smollm-135m against the JAX
   composition that ``test_torch_train.py`` builds, at that file's
   tolerances, and bitwise against the stacked port trainer;
-* every option the process ring does not run raises, naming its slice;
+* every option the process ring does not run (membership, hierarchy)
+  raises, naming its slice (the others: ``test_torch_ring_transports.py``);
 * ``python -m torch.distributed.run --nproc-per-node 2 -m
   repro_torch.launch.train --process-ring --device cpu --reduced`` against
   the stacked CLI.
@@ -84,20 +85,13 @@ EXCHANGES = {
 }
 EXCHANGE_STEPS = 2
 
-#: what the process ring refuses, each with the slice that ports it
+#: what the process ring refuses, each with the slice that ports it (the
+#: async and per-leaf transports, strides, faults, the directed ring and
+#: push-sum run there: ``test_torch_ring_transports.py``)
 REFUSED = {
-    "async": (dict(wire_packing="async"), "5b"),
-    "async s0": (dict(wire_packing="async", staleness=0), "5b"),
-    "per_leaf": (dict(wire_packing="per_leaf"), "5b"),
-    "ring strides": (dict(ring_strides=(1, 3), schedule_period=2), "5c"),
-    "link loss": (dict(link_loss=0.1), "5c"),
-    "burst loss": (dict(link_loss_model="gilbert:p=0.1,r=0.9"), "5c"),
-    "stragglers": (dict(wire_packing="async", straggle_rate=0.1), "5b"),
     "membership": (dict(membership=((True,) * N, (True, False, True,
                                                     True))), "5c"),
     "hierarchy": (dict(hierarchy="pods=2"), "5c"),
-    "directed ring": (dict(topology="directed-ring"), "5c"),
-    "push-sum": (dict(push_sum=True), "5c"),
 }
 
 
