@@ -93,8 +93,8 @@ Phases (any failure exits non-zero before the result line):
              symmetric and directed, with and without loss, and with
              push-sum alone; then push-sum ADC-DGD int8, CHOCO and CEDAS
              on ``directed_erdos_renyi(20, 0.3, seed=1)`` and ADC-DGD
-             under ``DirectedErdosRenyiSchedule(20, 0.3, horizon=500,
-             seed=0)`` at P 2^22, 500 counted steps each (#3 once per
+             under ``DirectedErdosRenyiSchedule(20, 0.3, horizon=250,
+             seed=0)`` at P 2^22, 250 counted steps each (#3 once per
              step, weights positive and summing to 20, one message per
              directed edge), and kernel against plain trajectories;
              then elastic membership and the two-level hierarchy
@@ -119,7 +119,7 @@ Phases (any failure exits non-zero before the result line):
              the hole, at the two resyncs and at pods 2 (its inner mean
              apart); then ``run_elastic`` (with and without push-sum)
              and ``run_hierarchical`` (pods 5, 20, 1; pods 20 == ``run``
-             on ``ring(20)`` bitwise) at N 20, P 2^22, 500 counted steps
+             on ``ring(20)`` bitwise) at N 20, P 2^22, 250 counted steps
              each, and run_elastic through #3 and its plain version
              bitwise over 20 steps;
              then telemetry, checkpoints and gradient accumulation
@@ -150,7 +150,15 @@ Phases (any failure exits non-zero before the result line):
              steps of int8 packed, int8 pipelined over 4 units, int2
              packed, dgd and int8 async s1, and 3 of the directed
              push-sum ring on the adaptive grid at loss 0.2, per-leaf
-             and async s1 with 20% stragglers; 5 ranks for 5 steps of
+             and async s1 with 20% stragglers; 9 of the churn schedule
+             on async s1 (rank 2 out for steps 5-8: it launches and sends
+             nothing there; resyncs at 5 and 9; ``active_nodes`` 4, 3, 4),
+             4 of pods of 2 packed (each rank adds its partner's fp32
+             delta, then runs the outer exchange as its pod's replica),
+             and int8 async s1 also saving its last step with
+             ``--checkpoint-dir`` (one file, the stacked checkpoint's
+             size, each rank's rows loaded back equal to the stacked
+             fingerprints); 5 ranks for 5 steps of
              strides 1,2 (period 2) on async s1, resyncs at steps 3 and
              5.  Each run mirrors a stacked run of an earlier phase,
              whose fingerprints it kept (dgd's runs here): its
@@ -162,7 +170,8 @@ Phases (any failure exits non-zero before the result line):
              bitwise the stacked run's, the static wire bytes and the
              measured bytes sent equal to the stacked accounting (a
              resync's fp32 x_tilde apart, at its steps only), nothing in
-             flight after a run; step time, the exchange's split
+             flight after a run; step time, the inner sum's and the node
+             sum's wire time, the exchange's split
              (quantize, device-to-host copy, gloo transfer, host-to-device
              copy, dequant_combine, glue), the loopback rate, each rank's
              peak memory and the card's free memory, and per step the
@@ -179,12 +188,12 @@ Phases (any failure exits non-zero before the result line):
              decode kernel's share of the step and the device's idle share;
 4b. zoo    — the dense model zoo at full width on random weights from
              seed 0 (``phase_zoo``), each model freed before the next:
-             ``serve.main`` on gemma2-9b at 10 of its 21 periods (20
+             ``serve.main`` on gemma2-9b at 5 of its 21 periods (10
              layers, 4 x 6,080 + 64 tokens), gemma2-9b ``--long-serve``
              at 2 periods (1 x 32,832 + 64: the 32,768 cap of its 'A'
-             blocks bites), yi-9b at 24 of its 48 layers (8 x 1,984 +
-             64), chameleon-34b at 6 of its 48 layers (4 x 1,984 + 64)
-             and qwen3-0.6b at 14 of its 28 layers (32 x 1,984 + 64),
+             blocks bites), yi-9b at 12 of its 48 layers (8 x 1,984 +
+             64), chameleon-34b at 3 of its 48 layers (4 x 1,984 + 64)
+             and qwen3-0.6b at 7 of its 28 layers (32 x 1,984 + 64),
              each counted: #9 launched layers x 63 times
              and no other kernel, tokens in range, the decode logits of 2
              sequences within ZOO_LOGIT_TOL of a train-mode forward (and
@@ -199,7 +208,7 @@ Phases (any failure exits non-zero before the result line):
              per step, a finite loss near ln(151,936);
 4c. moe    — the mixture-of-experts family at full width (``phase_moe``),
              each model freed before the next: ``serve.main`` on
-             granite-moe-3b-a800m at 16 of its 32 layers (32 x 1,984 + 64
+             granite-moe-3b-a800m at 8 of its 32 layers (32 x 1,984 + 64
              tokens) and
              deepseek-moe-16b at full depth (its dense 'D' prelude and 27
              'E' periods, 2 x 1,984 + 64), each counted: #9 launched
@@ -227,7 +236,7 @@ Phases (any failure exits non-zero before the result line):
              near ln(49,155) + 0.01 aux and the ``aux`` metric;
 4d. ssm    — the state-space family at full width (``phase_ssm``), each
              model freed before the next: ``serve.main`` on mamba2-1.3b at
-             24 of its 48 'M' layers at 32 x 2,048 + 64 and 1 x 32,768
+             12 of its 48 'M' layers at 32 x 2,048 + 64 and 1 x 32,768
              + 64 (prompts a multiple of the 256-token chunk), counted: no
              kernel launched, decode logits within SSM_LOGIT_TOL of a
              train-mode forward (padded to a chunk multiple past the
@@ -316,7 +325,7 @@ Phases (any failure exits non-zero before the result line):
              ``Int8BlockQuantizer`` (163,840 rows, fixed and adaptive)
              with codes and scales equal to its plain version; identity
              ADC-DGD bitwise equal to DGD over 50 steps; then, each launch
-             counted, 500 steps each of ADC-DGD int8 fixed and adaptive,
+             counted, 250 steps each of ADC-DGD int8 fixed and adaptive,
              CompressedDGD int8 adaptive and DGD, and ADC-DGD int8 fixed
              and DGD under a periodic circle/torus schedule and an
              Erdős-Rényi schedule (the stack copied to the card once, the
@@ -531,6 +540,36 @@ SERVE_LOGIT_TOL = 1e-5
 #: step 1); every other element agrees to float32 rounding (FLOAT_ATOL on
 #: parameters of magnitude below 1)
 MAX_GRID_STEPS, MAX_FRAC_OFF, FLOAT_ATOL, LOSS_RTOL = 2.0, 1e-4, 1e-6, 1e-5
+
+
+#: wall seconds of each phase that ``main`` called itself, in call order
+PHASE_S = {}
+_PHASE_DEPTH = [0]
+
+
+def time_phases() -> None:
+    """Wrap every ``phase_*`` function of this module so that it prints
+    its wall seconds when it returns ("[time]"); the phases ``main`` calls
+    itself (not those a phase calls) are kept in ``PHASE_S``."""
+    import functools
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kw):
+            _PHASE_DEPTH[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                _PHASE_DEPTH[0] -= 1
+                s = time.perf_counter() - t0
+                if not _PHASE_DEPTH[0]:
+                    PHASE_S[name] = PHASE_S.get(name, 0.0) + s
+                print(f"[time] {name}: {s:.1f} s", flush=True)
+        return timed
+    g = globals()
+    for name in [n for n in g if n.startswith("phase_")]:
+        g[name] = wrap(name, g[name])
 
 
 def fail(msg: str) -> None:
@@ -1826,7 +1865,7 @@ def phase_paper_directed(torch, Q, entries):
     (``paper_circle_problem``'s data) on ``directed_erdos_renyi(20, 0.3,
     seed=1)``: ADC-DGD int8 fixed, CHOCO int8 adaptive (its first message
     is x itself) and CEDAS int8 fixed, and ADC-DGD under
-    ``DirectedErdosRenyiSchedule(20, 0.3, horizon=500, seed=0)``,
+    ``DirectedErdosRenyiSchedule(20, 0.3, horizon=PAPER_STEPS, seed=0)``,
     PAPER_STEPS steps each, counted; then ADC-DGD's kernel and plain
     trajectories over TRAJECTORY_STEPS, bitwise equal."""
     from repro_torch.core import compression as C
@@ -2075,6 +2114,8 @@ def phase_elastic(torch, Q, D, train, entries):
         step_s[label] = statistics.median(h["step_s"] for h in hist[1:])
         if label in ("churn packed", "churn pipelined 4", "churn async s0"):
             finals[label] = host_state(state)
+        if label in RING_RUNS:              # phase_process_ring mirrors it
+            keep_stacked(torch, label, hist, state)
         del state
         print(f"[elastic] {label}: {steps} steps, active_nodes "
               f"{got[0]}; node 2 frozen bitwise through steps 5-8; resyncs "
@@ -2146,6 +2187,8 @@ def phase_elastic(torch, Q, D, train, entries):
         step_s[label] = statistics.median(h["step_s"] for h in hist[1:])
         if label in ("pods=4", "flat", "pods=1", "allreduce"):
             finals[label] = host_state(state)
+        if label in RING_RUNS:              # phase_process_ring mirrors it
+            keep_stacked(torch, label, hist, state)
         del state
         print(f"[elastic] hierarchy {label}: {steps} steps; launches "
               f"{({n: v for n, v in launches.items() if v})}; "
@@ -2449,9 +2492,9 @@ def phase_telemetry(torch, train, entries, main_int8):
     saves = []
     real_save = train.save_checkpoint
 
-    def timed_save(directory, step, tree):
+    def timed_save(directory, step, tree, **kw):
         t0 = time.perf_counter()
-        path = real_save(directory, step, tree)
+        path = real_save(directory, step, tree, **kw)
         saves.append((time.perf_counter() - t0, os.path.getsize(path)))
         return path
 
@@ -2492,6 +2535,7 @@ def phase_telemetry(torch, train, entries, main_int8):
                                         full["consensus"][k])
                             for k in full["consensus"]))
             save_s, nbytes = saves[-1]
+            STACKED_CKPT.update(bytes=nbytes, save_s=save_s)
             if not same or step != 2:
                 fail(f"checkpoint {label}: steps 3-{CKPT_STEPS} resumed from "
                      f"the step-{step} checkpoint differ from the "
@@ -2940,18 +2984,19 @@ def phase_serve_parity(torch):
 #: the dense model zoo (``phase_zoo``), each run at full width on random
 #: weights from seed 0: (label, arch, periods (None: the full depth),
 #: long-serve, sequences, prompt tokens); every run adds ZOO_NEW tokens.
-#: Depths cut for the script's time (the process ring's 5-rank group;
-#: #9's shapes are per layer): gemma2-9b 10 of 21 periods, yi-9b 24 of 48
-#: layers and qwen3-0.6b 14 of 28 (full depth until then), chameleon-34b
-#: 6 of 48 (12 until then)
+#: Depths cut for the script's time (#9's shapes are per layer): gemma2-9b
+#: 5 of 21 periods, yi-9b 12 of 48 layers, qwen3-0.6b 7 of 28 and
+#: chameleon-34b 3 of 48 (full depth, and 12 layers of chameleon-34b,
+#: until the process ring's 5-rank group; half again when the ring ran
+#: membership, hierarchy and a checkpoint)
 ZOO_NEW = 64
 ZOO_SERVE = (
-    ("gemma2-9b, 10 of 21 periods", "gemma2-9b", 10, False, 4, 6080),
+    ("gemma2-9b, 5 of 21 periods", "gemma2-9b", 5, False, 4, 6080),
     ("gemma2-9b long-serve, 2 of 21 periods", "gemma2-9b", 2, True, 1,
      32832),
-    ("yi-9b, 24 of 48 layers", "yi-9b", 24, False, 8, 1984),
-    ("chameleon-34b, 6 of 48 layers", "chameleon-34b", 6, False, 4, 1984),
-    ("qwen3-0.6b, 14 of 28 layers", "qwen3-0.6b", 14, False, 32, 1984),
+    ("yi-9b, 12 of 48 layers", "yi-9b", 12, False, 8, 1984),
+    ("chameleon-34b, 3 of 48 layers", "chameleon-34b", 3, False, 4, 1984),
+    ("qwen3-0.6b, 7 of 28 layers", "qwen3-0.6b", 7, False, 32, 1984),
 )
 #: the zoo trainer: full qwen3-0.6b on 3 nodes (4 x 512 tokens each), the
 #: int8 packed wire on the fixed grid, and the reference's wire bytes per
@@ -3341,12 +3386,12 @@ def phase_zoo(torch, Q, D, G, train, entries):
 
 #: the mixture-of-experts serve runs (``phase_moe``): (label, arch, periods
 #: (None: full depth), batch, prompt), each at full width with 64 new tokens
-#: and freed before the next.  granite-moe-3b-a800m: 16 of its 32 layers
-#: (all 32 until the process ring's 5-rank group, cut for time: 13.5 GB of
-#: weights, an 8.6 GB cache); deepseek-moe-16b: its dense 'D' prelude and
+#: and freed before the next.  granite-moe-3b-a800m: 8 of its 32 layers
+#: (all 32 until the process ring's 5-rank group, 16 until it ran
+#: membership, hierarchy and a checkpoint, cut for time); deepseek-moe-16b: its dense 'D' prelude and
 #: 27 'E' periods, 65.5 GB of weights
 MOE_SERVE = (
-    ("granite-moe-3b-a800m", "granite-moe-3b-a800m", 16, 32, 1984),
+    ("granite-moe-3b-a800m", "granite-moe-3b-a800m", 8, 32, 1984),
     ("deepseek-moe-16b", "deepseek-moe-16b", None, 2, 1984),
 )
 #: the MoE trainer: granite-moe-3b-a800m at full width cut to 3 of its 32
@@ -3818,11 +3863,12 @@ def phase_moe(torch, Q, D, G, train, entries):
 #: are multiples of the scan's 256-token chunk (2,048, not the zoo's
 #: 1,984); 32,768 is prefill_32k's length (``src/repro/models/config.py:
 #: 164``), 128 chunks per layer, so the state crosses 127 chunk borders.
-#: mamba2-1.3b serves 24 of its 48 layers (all 48 until the process ring's
-#: 5-rank group, cut for the script's time)
+#: mamba2-1.3b serves 12 of its 48 layers (all 48 until the process ring's
+#: 5-rank group, 24 until it ran membership, hierarchy and a checkpoint,
+#: cut for the script's time)
 SSM_SERVE = (
-    ("mamba2-1.3b, 24 of 48 layers", "mamba2-1.3b", 24, False, 32, 2048),
-    ("mamba2-1.3b, prefill_32k, 24 of 48 layers", "mamba2-1.3b", 24, False,
+    ("mamba2-1.3b, 12 of 48 layers", "mamba2-1.3b", 12, False, 32, 2048),
+    ("mamba2-1.3b, prefill_32k, 12 of 48 layers", "mamba2-1.3b", 12, False,
      1, 32768),
 )
 #: mamba2-1.3b's decode logits against its train-mode forward (absolute
@@ -4756,8 +4802,11 @@ def phase_timing(torch, Q, D, BP, launches, errs, n_rows, leaf_rows):
 
 
 #: the paper's reference path on the card: Fig. 10's largest circle (n =
-#: 20) at P = 2^22 coordinates per node, StepSize(0.01, eta=0.5), gamma 1
-PAPER_NODES, PAPER_DIM, PAPER_STEPS = 20, 1 << 22, 500
+#: 20) at P = 2^22 coordinates per node, StepSize(0.01, eta=0.5), gamma 1;
+#: 250 steps (500 until the process ring ran membership, hierarchy and a
+#: checkpoint, cut for the script's time: the membership schedule's epochs
+#: of 50 steps all fall inside)
+PAPER_NODES, PAPER_DIM, PAPER_STEPS = 20, 1 << 22, 250
 IDENTITY_STEPS, TRAJECTORY_STEPS, PAPER_STEP0 = 50, 20, 10
 #: the Fig. 1 contrast the card must show: direct compression's iterate
 #: stays at least this many times farther from uncompressed DGD's
@@ -5165,16 +5214,33 @@ def phase_copy_time(torch) -> None:
 RING_DEVICE = "cuda:0"
 #: a rank that has not finished by then fails the phase
 RING_TIMEOUT_S = 600.0
+#: the ranks' caching allocator: segments that grow and shrink in place, so
+#: a rank reserves little beyond what it holds (5 ranks of the full model
+#: and this process share the card's 80 GB; with fixed segments each rank
+#: kept blocks it had freed, and the card ran out)
+RING_ALLOC_CONF = "expandable_segments:True"
 _PIPELINED = ("--wire-packing", "pipelined", "--pipeline-chunks",
               str(PIPELINE_CHUNKS))
 _ASYNC_S1 = ("--wire-packing", "async", "--staleness", "1")
 _INT8 = {"quantize_payload": 1, "dequant_combine_payload": 1}
+#: the hierarchy's inner level at pods of 2: one fp32 delta of smollm-135m's
+#: 134,515,008 parameters per member and step (``HierarchySpec.
+#: inner_bytes_per_step``)
+HIER_INNER_BYTES = 538_060_032
+#: the ring run that also saves its last step (``--checkpoint-dir``, added
+#: by ``ring_rank``; the save follows the step's timing and wire counts,
+#: and its bits are the run's: a separate run of the same argv until the
+#: script's time was cut)
+RING_CKPT = "int8 async s1"
+#: the stacked checkpoint of the same state (``phase_telemetry``'s async s1
+#: save: its bytes and seconds)
+STACKED_CKPT = {}
 #: each run of the 4-rank group: the argv of the stacked run it mirrors
 #: (run by an earlier phase, whose fingerprints ``keep_stacked`` kept: the
 #: plans' int8 packed, pipelined and async s1 runs, the main phase's int2,
-#: the fault sweep's per-leaf and straggler runs; dgd runs here), the
-#: kernels one rank launches per step, and the static wire bytes per node
-#: and step
+#: the fault sweep's per-leaf and straggler runs, the elastic phase's churn
+#: async s1 and pods=2 packed runs; dgd runs here), the kernels one active
+#: rank launches per step, and the static wire bytes per node and step
 RING_RUNS = {
     "int8 packed": (train_argv(CODEC_STEPS), _INT8, WIRE_BYTES["int8"]),
     "int8 pipelined 4": (train_argv(CODEC_STEPS, *_PIPELINED),
@@ -5199,6 +5265,15 @@ RING_RUNS = {
         train_argv(FAULT_STEPS, *FAULT_ARGV, "--link-loss", "0.2",
                    *_ASYNC_S1, "--straggle", str(STRAGGLE)), _INT8,
         WIRE_BYTES["int8"] + 8),
+    # elastic membership: rank 2 out for steps 5-8 (it launches and sends
+    # nothing there), resyncs at steps 5 and 9
+    "churn async s1": (train_argv(CHURN_STEPS, *CHURN_ARGV, *_ASYNC_S1),
+                       _INT8, CHURN_WIRE_BYTES),
+    # the pod ring: each member adds its pod's fp32 deltas (one to its
+    # partner), then runs the outer exchange as its pod's replica
+    "pods=2 packed": (train_argv(HIER_STEPS, "--hierarchy",
+                                 f"pods={HIER_PODS}"), _INT8,
+                      WIRE_BYTES["int8"] + HIER_INNER_BYTES),
 }
 #: the 5-rank group: strides (1, 2) held 2 steps each, async s1 (on 4
 #: ranks stride 2 would split the ring)
@@ -5223,7 +5298,8 @@ _CFG_FLAGS = {"--algorithm": ("algorithm", str),
               "--straggle": ("straggle_rate", float),
               "--ring-strides": ("ring_strides", lambda v: tuple(
                   int(x) for x in v.split(","))),
-              "--schedule-period": ("schedule_period", int)}
+              "--schedule-period": ("schedule_period", int),
+              "--hierarchy": ("hierarchy", str)}
 #: the fingerprint's chunk of bytes (bounds its int64 temporaries)
 _FP_CHUNK = 1 << 26
 
@@ -5292,13 +5368,17 @@ def ring_exchange(torch, train, argv, ctx=None) -> list:
     from repro_torch.core import tree as T
     from repro_torch.core.distributed import ConsensusConfig, ConsensusRuntime
     from repro_torch.kernels import ops
+    from repro_torch.core.topology import MembershipSchedule
     kw = {"algorithm": "adc_dgd", "quant_mode": "fixed"}
     for flag, (field, conv) in _CFG_FLAGS.items():
         if flag in argv:
             kw[field] = conv(argv_value(argv, flag))
     n = int(argv_value(argv, "--nodes"))
+    if "--node-failures" in argv:
+        kw["membership"] = MembershipSchedule.from_spec(
+            argv_value(argv, "--node-failures"), n).masks
     rt = ConsensusRuntime(ConsensusConfig(**kw), n, ctx=ctx)
-    nl = rt.n_local
+    nl, m = rt.n_local, rt.pod_size
     x0, half = ring_exchange_inputs(torch, train, n, nl,
                                     0 if ctx is None else ctx.rank)
     pays, encode = [], rt._encode_unit
@@ -5320,7 +5400,8 @@ def ring_exchange(torch, train, argv, ctx=None) -> list:
         rt.land()
     finally:
         ops.quantize_blocks = quantize
-    return [{"payloads": [u[i] for u in pays],
+    # a pod's members encode their pod's payload (stacked: once per pod)
+    return [{"payloads": [u[i // m] for u in pays],
              "blocks": leaves[i::nl],
              "state": {k: fingerprint(torch, state[k][i])
                        for k in sorted(state)},
@@ -5396,20 +5477,25 @@ def ring_split(trace_path: str, hist: list) -> dict:
 RING_WIRE_KEYS = ("wire_bytes_per_step", "wire_bytes_sent",
                   "wire_resync_bytes_sent", "wire_s", "wire_wait_s",
                   "wire_flight_s", "wire_d2h_s", "wire_h2d_s",
-                  "consensus_err_wire_s")
+                  "wire_inner_s", "consensus_err_wire_s")
 
 
-def ring_rank(runs: dict) -> dict:
+def ring_rank(runs: dict, ckpt_dir: str | None = None) -> dict:
     """One rank of ``phase_process_ring`` (started by ``launch.mesh.
-    run_ranks``, on cuda:0): the fixed-input exchange of every run, then
-    each run through ``train.main --process-ring`` with its launches
-    counted, its peak memory and the card's free memory after it, its step
-    lines' wire, its trace's split, the transfers left in flight after it;
-    per node losses and final state fingerprints."""
+    run_ranks``, on cuda:0): the fixed-input exchange of every run (once
+    per argv), then each run through ``train.main --process-ring`` with its
+    launches counted, its peak memory and the card's free memory after
+    it, its step lines' wire and ``active_nodes``, its trace's split, the
+    transfers left in flight after it; per node losses and final state
+    fingerprints.  ``RING_CKPT`` also saves its last step into
+    ``ckpt_dir`` (``--checkpoint-dir``, every rank's rows in one file):
+    the save's seconds, the file's bytes, and the fingerprints of this
+    rank's rows loaded back from it and the load's seconds."""
     import tempfile
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import checkpoint
     from repro_torch.kernels import bitpack as BP
     from repro_torch.kernels import dequant_combine as D
     from repro_torch.kernels import quantize as Q
@@ -5426,54 +5512,111 @@ def ring_rank(runs: dict) -> dict:
     ctx = make_process_context(RING_DEVICE)
     rank = ctx.rank
     out = {"exchange": {}, "runs": {}}
+    done = {}
     for label, (argv, _, _) in runs.items():
-        out["exchange"][label] = ring_exchange(torch, train, argv, ctx)[0]
+        key = tuple(argv)
+        if key not in done:
+            done[key] = ring_exchange(torch, train, argv, ctx)[0]
+        out["exchange"][label] = done[key]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    real_save, saves = train.save_checkpoint, []
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        path = real_save(*args, **kw)
+        saves.append(time.perf_counter() - t0)
+        return path
+    train.save_checkpoint = timed_save
     for label, (argv, _, _) in runs.items():
+        extra = []
+        if label == RING_CKPT:
+            extra = ["--checkpoint-dir", ckpt_dir, "--checkpoint-every",
+                     argv_value(argv, "--steps")]
         with tempfile.TemporaryDirectory() as tmp:
             _zero(entries)
             torch.cuda.reset_peak_memory_stats()
             hist, state = train.main(
-                [*argv, "--process-ring", "--device", RING_DEVICE,
+                [*argv, *extra, "--process-ring", "--device", RING_DEVICE,
                  "--telemetry", "--telemetry-dir", tmp, "--run-id", "ring"],
                 return_state=True)
             launches = _read(entries)
             peak = torch.cuda.max_memory_allocated() / 1e9
+            reserved = torch.cuda.max_memory_reserved() / 1e9
             free = torch.cuda.mem_get_info()[0] / 1e9
             pending = drain_rings()
             split = ring_split(os.path.join(tmp, f"trace-ring-rank{rank}"
                                             ".json"), hist)
         out["runs"][label] = {
-            "launches": launches, "peak_gb": peak, "free_gb": free,
+            "launches": launches, "peak_gb": peak,
+            "reserved_gb": reserved, "free_gb": free,
             "pending": pending, "split": split,
             "losses": [h["node_loss"].tolist() for h in hist],
             "loss": [h["loss"] for h in hist],
             "step_s": [h["step_s"] for h in hist],
             "wire": [{k: h[k] for k in RING_WIRE_KEYS} for h in hist],
+            "active_nodes": [h.get("active_nodes") for h in hist],
             "state": ring_state_print(torch, state, 1)[0]}
+        if label == RING_CKPT:
+            t0 = time.perf_counter()
+            loaded, step = checkpoint.load_checkpoint(ckpt_dir, state,
+                                                      ctx=ctx)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            path = os.path.join(ckpt_dir, f"step_{step:08d}.npz")
+            out["runs"][label]["ckpt"] = {
+                "save_s": saves[-1], "load_s": load_s, "step": step,
+                "bytes": os.path.getsize(path),
+                "loaded": ring_state_print(torch, loaded, 1)[0]}
+            del loaded
         del state, hist
         torch.cuda.empty_cache()
+    train.save_checkpoint = real_save
     return out
+
+
+def ring_plan(argv, wire: float, rank: int) -> list:
+    """Per step of ``argv``'s run, what rank ``rank`` must do: (active,
+    payload bytes sent, resync bytes sent).  Under ``--node-failures`` a
+    rank whose node is out sends nothing; a resync (the stride schedule's
+    at steps 3 and 5, the churn's at 5 and 9) moves the fp32 ``x_tilde``
+    both ways, apart from the static wire's amortized share."""
+    steps = int(argv_value(argv, "--steps"))
+    resync_steps, period = (), 1
+    if "--ring-strides" in argv:
+        resync_steps, period = RESYNC_STEPS, STRIDE_PERIOD
+    if "--node-failures" in argv:
+        resync_steps, period = CHURN_RESYNCS, CHURN_PERIOD
+    amortized = RESYNC_BYTES / period if resync_steps else 0.0
+    rows = []
+    for k in range(1, steps + 1):
+        active = ("--node-failures" not in argv
+                  or CHURN_HOLE[rank] or not 5 <= k <= 8)
+        rows.append((active, wire - amortized if active else 0,
+                     RESYNC_BYTES if active and k in resync_steps else 0))
+    return rows
 
 
 def ring_check(label: str, spec, ranks: list, want_ex: list) -> None:
     """Every rank of a run against the stacked one: the fixed-input
-    exchange's row, the launches, the static and measured wire bytes (a
-    resync's shadows apart, at the resync steps only), the per-node losses
-    and final state bitwise, nothing left in flight."""
+    exchange's row, the launches (per step the rank's node was active),
+    the static and measured wire bytes per step (nothing where the rank's
+    node was out, a resync's shadows apart, at the resync steps only), the
+    per-node losses and final state bitwise, ``active_nodes`` under
+    membership, nothing left in flight; for ``RING_CKPT`` the rows each
+    rank loads back from the one file equal the stacked fingerprints, and
+    the file is the stacked checkpoint's size."""
     argv, per_step, wire = spec
-    steps = int(argv_value(argv, "--steps"))
     st = STACKED[label]
-    resync_steps = RESYNC_STEPS if "--ring-strides" in argv else ()
-    amortized = RESYNC_BYTES / STRIDE_PERIOD if resync_steps else 0.0
     for r, rank in enumerate(ranks):
         got, want = rank["exchange"][label], want_ex[r]
         if got != want:
             fail(f"ring {label}: rank {r}'s exchange differs from the "
                  f"stacked row: {got} vs {want}")
         run = rank["runs"][label]
-        want_l = {n: per_step.get(n, 0) * steps for n in run["launches"]}
+        plan = ring_plan(argv, wire, r)
+        active = sum(a for a, _, _ in plan)
+        want_l = {n: per_step.get(n, 0) * active for n in run["launches"]}
         if run["launches"] != want_l:
             fail(f"ring {label}: rank {r} launched {run['launches']}, want "
                  f"{want_l}")
@@ -5481,12 +5624,15 @@ def ring_check(label: str, spec, ranks: list, want_ex: list) -> None:
         sent = [w["wire_bytes_sent"] for w in run["wire"]]
         resent = [w["wire_resync_bytes_sent"] for w in run["wire"]]
         if (static != {st["wire"]} or st["wire"] != wire
-                or set(sent) != {wire - amortized}
-                or resent != [RESYNC_BYTES if k in resync_steps else 0
-                              for k in range(1, steps + 1)]):
+                or sent != [b for _, b, _ in plan]
+                or resent != [b for _, _, b in plan]):
             fail(f"ring {label}: rank {r} wire bytes {static} (stacked "
-                 f"{st['wire']}, want {wire}), sent {sent} (want "
-                 f"{wire - amortized}), resync {resent}")
+                 f"{st['wire']}, want {wire}), sent {sent}, resync "
+                 f"{resent} (want {plan})")
+        if "--node-failures" in argv and run["active_nodes"] != \
+                CHURN_ACTIVE[:len(plan)]:
+            fail(f"ring {label}: rank {r} active_nodes "
+                 f"{run['active_nodes']}, want {CHURN_ACTIVE[:len(plan)]}")
         if run["losses"] != st["losses"] or run["state"] != st["print"][r]:
             fail(f"ring {label}: rank {r} is not the stacked run bitwise: "
                  f"losses {run['losses']} vs {st['losses']}, state "
@@ -5494,6 +5640,14 @@ def ring_check(label: str, spec, ranks: list, want_ex: list) -> None:
         if run["pending"]:
             fail(f"ring {label}: rank {r} left {run['pending']} transfers "
                  "in flight")
+        if label == RING_CKPT:
+            ck = run["ckpt"]
+            if ck["loaded"] != st["print"][r] or ck["step"] != len(plan) \
+                    or ck["bytes"] != STACKED_CKPT["bytes"]:
+                fail(f"ring {label}: rank {r} loaded {ck['loaded']} at step "
+                     f"{ck['step']} from {ck['bytes']} bytes, want "
+                     f"{st['print'][r]} from the stacked checkpoint's "
+                     f"{STACKED_CKPT['bytes']}")
 
 
 def ring_line(label: str, spec, ranks: list) -> str:
@@ -5517,15 +5671,36 @@ def ring_line(label: str, spec, ranks: list) -> str:
             if gbps else "loopback rate not measured (the payload lands "
             "while the host computes)")
     peaks = [round(rk["runs"][label]["peak_gb"], 2) for rk in ranks]
+    reserved = [round(rk["runs"][label]["reserved_gb"], 2) for rk in ranks]
     free = min(rk["runs"][label]["free_gb"] for rk in ranks)
+
+    def med_ms(key):
+        return 1e3 * statistics.median(w[key] for rk in ranks
+                                       for w in rk["runs"][label]["wire"][1:])
+    extra = ""
+    if "--node-failures" in argv:
+        extra += f"active_nodes {lead['active_nodes']}; "
+    if label == RING_CKPT:
+        ck = [rk["runs"][label]["ckpt"] for rk in ranks]
+        extra += (f"checkpoint of step {ck[0]['step']}: {ck[0]['bytes']} "
+                  f"bytes saved in {ck[0]['save_s']:.2f} s (the stacked "
+                  f"checkpoint of the same state {STACKED_CKPT['bytes']} "
+                  f"bytes in {STACKED_CKPT['save_s']:.2f} s), each rank's "
+                  f"rows loaded back in "
+                  f"{max(c['load_s'] for c in ck):.2f} s, the stacked "
+                  "fingerprints; ")
     return (f"ring {label} ({n} ranks on {RING_DEVICE}, gloo over loopback "
             f"TCP, {argv_value(argv, '--steps')} steps): median step "
-            f"{step_s:.4f} s (stacked {st['step_s']:.4f} s); exchange "
+            f"{step_s:.4f} s (stacked {st['step_s']:.4f} s); inner sum "
+            f"{med_ms('wire_inner_s'):.1f} ms, node sum "
+            f"{med_ms('consensus_err_wire_s'):.1f} ms (medians of steps 2 "
+            f"on over the ranks); {extra}exchange "
             + ", ".join(f"{k} {v:.3f} ms" for k, v in sp.items())
             + f" (median over ranks of each rank's median of steps 2 on); "
             f"wire bytes per node and step {sent} (static {st['wire']}); "
             f"{rate}; "
-            f"peak memory per rank {peaks} GB, card free after the run "
+            f"peak memory per rank {peaks} GB (reserved {reserved} GB), "
+            f"card free after the run "
             f"{free:.2f} GB; losses {lead['loss']}; bitwise equal to the "
             "stacked run")
 
@@ -5538,26 +5713,34 @@ def phase_process_ring(torch, train, entries):
     ``RING_RUNS`` (int8 packed, pipelined over 4 units, int2, dgd and
     int8 async s1 for 3 steps; the directed push-sum ring on the adaptive
     grid at loss 0.2 per-leaf, and async s1 with 20% stragglers, for 3
-    each),
+    each; the churn schedule on async s1, rank 2 out for steps 5-8, for 9;
+    pods of 2, packed, for 4; int8 async s1 also saves its last step
+    into one checkpoint, which each rank loads its rows back from),
     5 ranks ``RING5_RUNS`` (strides 1,2 held 2 steps, async s1, 5 steps:
     resyncs at steps 3 and 5).  Stacked, on this process: each run's
-    fixed-input exchange, and each run's fingerprints where no earlier
-    phase kept them (the phases that ran the same argv are deterministic:
-    they hold transports bitwise equal to one another).  On the ranks: the
-    same exchange, whose payload bytes, state and x_next must equal the
-    stacked row's (fingerprints), and each run through ``train.main
-    --process-ring`` (``ring_check``).  Prints per run the median step,
-    the exchange split, the wire bytes, the loopback rate, each rank's
-    peak memory and the card's free memory; per step of the async run the
-    wait at the retire and the flight's posted-to-landed beside int8
-    packed's wait.  Returns (the ranks' launches, summary lines)."""
+    fixed-input exchange (once per argv), and each run's fingerprints
+    where no earlier phase kept them (the phases that ran the same argv
+    are deterministic: they hold transports bitwise equal to one another;
+    a save does not change the bits).  On the ranks: the same exchange, whose payload bytes,
+    state and x_next must equal the stacked row's (fingerprints), and each
+    run through ``train.main --process-ring`` (``ring_check``).  Prints
+    per run the median step, the inner sum's and the node sum's wire, the
+    exchange split, the wire bytes, the loopback rate, each rank's peak
+    memory and the card's free memory; per step of the async run the wait
+    at the retire and the flight's posted-to-landed beside int8 packed's
+    wait.  Returns (the ranks' launches, summary lines)."""
+    import gc
+    import shutil
+    import tempfile
     from repro_torch.launch.mesh import run_ranks
     t_phase = time.perf_counter()
     groups = ((RING_RUNS, NODES), (RING5_RUNS, STRIDE_NODES))
-    want_ex = {}
+    want_ex, done = {}, {}
     for runs, _ in groups:
         for label, (argv, _, _) in runs.items():
-            want_ex[label] = ring_exchange(torch, train, argv)
+            if tuple(argv) not in done:
+                done[tuple(argv)] = ring_exchange(torch, train, argv)
+            want_ex[label] = done[tuple(argv)]
             if label not in STACKED:
                 hist, state = train.main(argv, return_state=True)
                 keep_stacked(torch, label, hist, state)
@@ -5566,9 +5749,30 @@ def phase_process_ring(torch, train, entries):
     torch.cuda.empty_cache()
     launches = {name: 0 for name in entries}
     summary, ranks_s = [], {}
+    ckpt_dir = tempfile.mkdtemp(prefix="ring-ckpt-")
     for runs, n in groups:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        line = (f"before the {n} ranks this process holds "
+                f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+                f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved; card "
+                f"free {torch.cuda.mem_get_info()[0] / 1e9:.2f} GB")
+        print(f"[ring] {line}", flush=True)
+        summary.append(line)
         t0 = time.perf_counter()
-        ranks = run_ranks(ring_rank, n, runs, timeout_s=RING_TIMEOUT_S)
+        # the ranks inherit the environment at their start
+        alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = RING_ALLOC_CONF
+        try:
+            ranks = run_ranks(ring_rank, n, runs, ckpt_dir,
+                              timeout_s=RING_TIMEOUT_S)
+        finally:
+            if alloc_conf is None:
+                del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
         ranks_s[n] = time.perf_counter() - t0
         for label, spec in runs.items():
             ring_check(label, spec, ranks, want_ex[label])
@@ -5638,7 +5842,8 @@ def main() -> None:
     import tempfile
     measure = train.measure_consensus_overhead
     train.measure_consensus_overhead = _no_probe
-    t0 = time.perf_counter()
+    time_phases()
+    t_main = t0 = time.perf_counter()
     report = _build.build_all()
     print(f"[setup] built {sorted(report)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -5833,6 +6038,12 @@ def main() -> None:
           f"{prec_s:.1f} s; card {smi}")
     for label, z in an_summary.items():
         print(f"[summary] analysis {label}: {z!r}; card {smi}")
+    total = time.perf_counter() - t_main
+    print(f"[time] {total:.1f} s from the build on: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in
+                      sorted(PHASE_S.items(), key=lambda kv: -kv[1]))
+          + f", outside the phases {total - sum(PHASE_S.values()):.1f}; "
+          f"card {smi}", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

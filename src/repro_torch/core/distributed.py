@@ -120,9 +120,20 @@ mask drops (or whose straggler deadline it misses) as the zero payload.
 The node sums (``allreduce``, ``consensus_err``) go through ``ctx.
 node_group_sum`` in the stacked sum's rotation order, and each rank draws
 only its own noise, so a rank computes the stacked runtime's row bit for
-bit.  The process ring runs every algorithm, codec, transport, stride
-schedule, fault and topology of the stacked runtime; membership and
-hierarchy raise ``NotImplementedError`` naming the slice that ports them.
+bit.  Every transfer takes its peers from the step's :class:`Wiring` seen
+from the rank (:class:`RingView`): under a membership mask an inactive
+rank encodes, sends and receives nothing and keeps its shadows and
+parameters bitwise (on the async transport it retires zero payloads of its
+own making, as the stacked masked gather hands it), and each resync moves
+the fp32 ``x_tilde`` over the new wiring.  Under hierarchy every member of
+pod p first adds the other members' fp32 deltas in member order
+(``ctx.pod_sums``: point-to-point transfers inside the pod), then runs the
+outer exchange as its pod's replica: member j talks to member j of the
+neighbouring pods, draws its pod's noise and reads its pod's column of the
+fault masks, so every member holds the stacked representative's bits.
+The process ring runs every algorithm, codec, transport, stride schedule,
+fault, topology, membership schedule and hierarchy of the stacked
+runtime.
 
 Telemetry (``telemetry``, ``core.telemetry``): every ADC return path adds
 the reference's extra per-node metrics (``telemetry_metric_keys``), all
@@ -152,8 +163,8 @@ from repro_torch.core.hierarchy import HierarchySpec
 from repro_torch.kernels import ops as kops
 from repro_torch.models.sharding import ParallelContext, local_context
 
-__all__ = ["ConsensusConfig", "ConsensusRuntime", "HierarchySpec", "Wiring",
-           "noise_seed"]
+__all__ = ["ConsensusConfig", "ConsensusRuntime", "HierarchySpec", "RingView",
+           "Wiring", "noise_seed"]
 
 ALGORITHMS = ("adc_dgd", "dgd", "compressed_dgd", "allreduce", "none")
 WIRE_PACKINGS = ("packed", "pipelined", "per_leaf", "async")
@@ -478,21 +489,46 @@ class Wiring:
         return cls(stride, left, right, tuple(bool(b) for b in mask), m)
 
 
-#: the slice of the work queue that ports what the process ring refuses
-_SLICE_RING = ("membership, hierarchy and --checkpoint-dir over ranks "
-               "(ROADMAP Queue 1 item 5c, its remainder)")
+@dataclasses.dataclass(frozen=True)
+class RingView:
+    """A :class:`Wiring` seen from this process's rows: ``elems[r]`` is
+    the ring element that local row r holds (every element stacked, where
+    rows are elements; over ranks the rank's one element, its pod under
+    hierarchy).  ``active`` / ``inactive`` index the local rows, ``cols``
+    cuts host flags over the elements to them, and ``peers`` are the
+    ranks a rank's transfers go to and come from: ``(left, right)``, the
+    members of its element's neighbours that share its position in their
+    pods, or None (stacked, or an inactive rank, which posts nothing)."""
 
+    wiring: Wiring
+    elems: tuple
+    peers: tuple | None
 
-def _check_process_ring(cfg: ConsensusConfig) -> None:
-    """Raise ``NotImplementedError`` for an option the process ring does
-    not run yet (membership, hierarchy), naming the slice that ports
-    it."""
-    for what, on in (("membership", cfg.membership is not None),
-                     ("hierarchy", cfg.hierarchy is not None)):
-        if on:
-            raise NotImplementedError(
-                f"{what} is not yet ported to the process ring: it comes "
-                f"with {_SLICE_RING}")
+    @property
+    def stride(self) -> int:
+        return self.wiring.stride
+
+    @property
+    def n(self) -> int:
+        """Local rows (ring elements this process holds)."""
+        return len(self.elems)
+
+    @property
+    def active(self) -> list[int]:
+        return [r for r, e in enumerate(self.elems)
+                if self.wiring.left[e] is not None]
+
+    @property
+    def inactive(self) -> list[int]:
+        return [r for r, e in enumerate(self.elems)
+                if self.wiring.left[e] is None]
+
+    def cols(self, flags: np.ndarray | None) -> np.ndarray | None:
+        """Host flags over the ring elements (the last axis) cut to the
+        local rows' elements; None passes."""
+        if flags is None or self.elems == tuple(range(flags.shape[-1])):
+            return flags
+        return flags[..., list(self.elems)]
 
 
 def _pipeline_schedule(n_units: int, launch, retire, inspect=None) -> list:
@@ -534,7 +570,6 @@ class ConsensusRuntime:
                 raise ValueError(
                     f"n_nodes={n_nodes}, but the process ring has "
                     f"{self.ctx.total_consensus_nodes} ranks")
-            _check_process_ring(config)
         #: nodes this process holds (the leading axis of its tensors)
         self.n_local = 1 if self.ctx.process_ring else n_nodes
         hier = config.hierarchy
@@ -570,6 +605,7 @@ class ConsensusRuntime:
         self.cfg = config
         self.n_nodes = n_nodes
         self._wirings: dict = {}
+        self._views: dict = {}
         #: the layout-independent plan recipe (a bare codec name is a
         #: uniform plan)
         self.plan_spec = wireplan.parse_spec(config.wire_codec)
@@ -691,15 +727,6 @@ class ConsensusRuntime:
             yield
         finally:
             self.land()
-
-    def _local(self, flags: np.ndarray | None) -> np.ndarray | None:
-        """Host flags over the ring elements (the last axis), cut to this
-        process's elements: under a process context the rank's own column
-        (the receiver reads its arrivals' fate there), else all of them."""
-        if flags is None or not self.ctx.process_ring:
-            return flags
-        r = self.ctx.rank
-        return flags[..., r:r + 1]
 
     # -- static accounting -------------------------------------------------
     def _payload_rows(self, layout: wire.WireLayout) -> tuple[int, int]:
@@ -841,6 +868,33 @@ class ConsensusRuntime:
         ring compacted by its membership mask."""
         return self._wiring(self.stride_at(step), self.mask_at(step))
 
+    def view(self, wiring: Wiring) -> RingView:
+        """``wiring`` seen from this process's rows (:class:`RingView`):
+        every element stacked; over ranks the rank's element ``rank // m``
+        (m the pod size), whose transfers go to member ``rank % m`` of its
+        left and right elements."""
+        v = self._views.get(wiring)
+        if v is None:
+            if not self.ctx.process_ring:
+                v = RingView(wiring, tuple(range(self.ring_len)), None)
+            else:
+                m = self.pod_size
+                e, j = divmod(self.ctx.rank, m)
+                left, right = wiring.left[e], wiring.right[e]
+                v = RingView(wiring, (e,), None if left is None
+                             else (left * m + j, right * m + j))
+            self._views[wiring] = v
+        return v
+
+    def _post(self, x: torch.Tensor, slot, view: RingView,
+              into: list | None = None):
+        """Post this rank's ``x`` to its two peers of ``view`` and receive
+        theirs (``ParallelContext.ring_start``).  An inactive rank has no
+        peers and must post nothing."""
+        if view.peers is None:
+            raise RuntimeError(f"an inactive rank posted {slot!r}")
+        return self.ctx.ring_start(x, slot, into=into, peers=view.peers)
+
     def resync_at(self, step: int) -> bool:
         """Does ``step`` open a re-wired epoch (every epoch but the first
         of a time-varying ring or membership), so that ``adc_dgd`` rebuilds
@@ -865,14 +919,17 @@ class ConsensusRuntime:
         into ``out`` when given; inactive rows are left as they are.  On
         the directed ring it is ``f32(w_fwd) x_tilde[left] + f32(w_bwd)
         x_tilde[right]``.  Under a process context the neighbours' shadows
-        cross the ring at ``stride`` (the reference's ``_ring(xt,
-        +-stride)``), a transfer posted here."""
+        cross the wiring (the reference's ``_ring(xt, +-stride)``), a
+        transfer posted here; an inactive rank posts nothing and leaves
+        ``out`` as it is."""
         out = torch.empty_like(xt) if out is None else out
+        view = self.view(self._wiring(stride, mask))
         if self.ctx.process_ring:
-            flight = self.ctx.ring_start(xt[0], ("resync", "x_tilde"),
-                                         stride)
+            if view.peers is None:
+                return out
+            flight = self._post(xt[0], ("resync", "x_tilde"), view)
             return self._rebuild_into(out, [(0, *flight.wait())])
-        wiring = self._wiring(stride, mask)
+        wiring = view.wiring
         return self._rebuild_into(out, [
             (i, xt[wiring.left[i]], xt[wiring.right[i]])
             for i in wiring.active])
@@ -926,26 +983,27 @@ class ConsensusRuntime:
                                          self.cfg.resync_retries)
         return ok[0] & ok[1]
 
-    def _arrivals(self, pays: list, wiring: Wiring,
+    def _arrivals(self, pays: list, view: RingView,
                   keep: np.ndarray | None) -> tuple[list, list]:
         """Each element's (left, right) arrivals of one transfer unit: its
         neighbours' payloads, or one shared all-zero payload of their size
         where ``keep`` drops them (the senders' buffers are never written);
         None for an inactive element.  Stacked only: over processes the
         arrivals are a transfer's (``_drop`` of what it received)."""
+        wiring = view.wiring
         left = [None if j is None else pays[j] for j in wiring.left]
         right = [None if j is None else pays[j] for j in wiring.right]
-        return self._drop(left, right, keep, wiring)
+        return self._drop(left, right, keep, view)
 
     def _drop(self, left: list, right: list, keep: np.ndarray | None,
-              wiring: Wiring) -> tuple[list, list]:
-        """Replace the arrivals ``keep`` ``(2, n)`` drops at active
-        elements by one shared zero payload of their shape (a tensor, or a
-        tuple of them); each is one zero payload read."""
+              view: RingView) -> tuple[list, list]:
+        """Replace the arrivals ``keep`` ``(2, n)`` (local rows) drops at
+        active rows by one shared zero payload of their shape (a tensor,
+        or a tuple of them); each is one zero payload read."""
         if keep is None:
             return left, right
         drop = ~keep
-        drop[:, wiring.inactive] = False
+        drop[:, view.inactive] = False
         if not drop.any():
             return left, right
         first = next(t for t in left if t is not None)
@@ -958,20 +1016,20 @@ class ConsensusRuntime:
         return left, right
 
     def _fault_metrics(self, metrics: dict, acct, flags, device,
-                       wiring: Wiring) -> torch.Tensor:
+                       view: RingView) -> torch.Tensor:
         """``wire_bytes_delivered`` (bytes per direction times surviving
-        directions, ``acct``) and ``delivered_frac`` per element, from the
-        ``(2, n)`` arrival flags; 0 at an inactive element.  Returns the
-        surviving directions per element."""
+        directions, ``acct``) and ``delivered_frac`` per local row, from
+        the ``(2, n)`` arrival flags; 0 at an inactive row.  Returns the
+        surviving directions per row."""
         delivered = flags.sum(axis=0)
-        delivered[wiring.inactive] = 0
+        delivered[view.inactive] = 0
         delivered = _node_values(delivered, device)
         metrics["wire_bytes_delivered"] = acct.delivered_bytes(delivered)
         metrics["delivered_frac"] = delivered / 2.0
         return delivered
 
     def _telemetry_metrics(self, metrics: dict, acct, saturated, resync,
-                           ok, wiring: Wiring, retired=None) -> None:
+                           ok, view: RingView, retired=None) -> None:
         """The ``telemetry`` extras per element, shared by every ADC return
         path, 0 at an inactive element: ``wire_bytes_shipped`` (payload
         bytes put on the ring), ``saturated_count`` (the clipped-code
@@ -983,8 +1041,8 @@ class ConsensusRuntime:
         keys = self.cfg.telemetry_metric_keys()
         if not keys:
             return
-        act = np.ones(self.n_local // self.pod_size, np.float32)
-        act[wiring.inactive] = 0.0
+        act = np.ones(view.n, np.float32)
+        act[view.inactive] = 0.0
         act = _node_values(act, saturated.device)
         metrics["wire_bytes_shipped"] = act * _f32(acct.shipped_payload)
         metrics["saturated_count"] = act * saturated
@@ -1007,19 +1065,20 @@ class ConsensusRuntime:
                                device=device)
                 for k in self.cfg.telemetry_metric_keys()}
 
-    def _neighbour_rows(self, t: torch.Tensor, wiring: Wiring,
+    def _neighbour_rows(self, t: torch.Tensor, view: RingView,
                         slot: Any = "weights"):
         """(rows left, rows right) of a small per-element tensor ``t``,
         stacked (no index tensor is copied to the device); under a process
-        context the neighbours' ``t`` at the wiring's stride, a transfer
-        on ``slot`` (copies: the slot's buffers are reused)."""
+        context the peers' ``t``, a transfer on ``slot`` (copies: the
+        slot's buffers are reused)."""
         if self.ctx.process_ring:
-            left, right = self.ctx.ring_start(t, slot, wiring.stride).wait()
+            left, right = self._post(t, slot, view).wait()
             return left.clone(), right.clone()
+        wiring = view.wiring
         return _rows(t, list(wiring.left)), _rows(t, list(wiring.right))
 
     def _push_sum_update(self, ps_w, w_l, w_r, state, keep, resync, ok,
-                         wiring, fresh=None):
+                         view, fresh=None):
         """The push-sum weight step from the received weights ``w_l``,
         ``w_r`` ``(N, 1)``: dropped arrivals fall back to the last-seen
         ``ps_nbr``; a resync refreshes both from the new neighbours
@@ -1032,7 +1091,7 @@ class ConsensusRuntime:
             w_r = _pick(keep[1], w_r, nbr[:, 1:2])
         if resync:
             fresh_l, fresh_r = (fresh if fresh is not None else
-                                self._neighbour_rows(ps_w, wiring,
+                                self._neighbour_rows(ps_w, view,
                                                      ("resync", "w")))
             if ok is None:
                 w_l, w_r = fresh_l, fresh_r
@@ -1077,9 +1136,9 @@ class ConsensusRuntime:
         holds top-k), one ``torch.Generator`` on ``device`` per element
         seeded from (seed, step, element): under hierarchy a pod's members
         share their pod's draw.  Under a process context ``(1, ...)``: the
-        rank's own element, the stacked draw's row ``rank`` (the
-        reference's ``_device_key``)."""
-        elems = ([self.ctx.rank] if self.ctx.process_ring
+        rank's own element (its pod's, ``rank // m``), the stacked draw's
+        row of that element (the reference's ``_device_key``)."""
+        elems = ([self.ctx.rank // self.pod_size] if self.ctx.process_ring
                  else range(self.ring_len))
         noise = torch.empty((len(elems), layout.n_rows,
                              self.noise_cols_for(layout)),
@@ -1104,6 +1163,7 @@ class ConsensusRuntime:
         alg = self.cfg.algorithm
         layout = self.state_layout(x_half)
         wiring = self.wiring_at(step)
+        view = self.view(wiring)
         metrics = {
             "collectives_per_step": self.collectives_per_step(
                 layout.n_leaves, layout=layout),
@@ -1121,14 +1181,14 @@ class ConsensusRuntime:
             if hier:
                 metrics.update(self._idle_metrics(device))
         elif alg == "dgd":
-            x_next = self._dgd_exchange(x_prev, x_half, wiring)
+            x_next = self._dgd_exchange(x_prev, x_half, view)
         elif alg == "compressed_dgd":
             if noise is None:
                 noise = self.make_noise(layout, step, seed, device)
             fn = (self._cdgd_exchange_per_leaf
                   if self.cfg.wire_packing == "per_leaf"
                   else self._cdgd_exchange_packed)
-            x_next = fn(x_prev, x_half, noise, layout, wiring)
+            x_next = fn(x_prev, x_half, noise, layout, view)
         else:
             fn = {"packed": self._adc_exchange,
                   "pipelined": self._adc_exchange,
@@ -1138,14 +1198,14 @@ class ConsensusRuntime:
             if self.pod_size > 1:
                 x_next, state, adc = self._pod_exchange(
                     fn, x_prev, x_half, state, step, seed, noise, layout,
-                    wiring)
+                    view)
             else:
                 x_next, state, adc = fn(x_prev, x_half, state, step, seed,
-                                        noise, layout, wiring)
+                                        noise, layout, view)
             metrics.update(adc)
             if self.cfg.membership is not None:
                 metrics["active_nodes"] = torch.full(
-                    (self.n_nodes,), float(wiring.n_active),
+                    (self.n_local,), float(wiring.n_active),
                     dtype=torch.float32, device=device)
         if self.cfg.track_consensus_error:
             metrics["consensus_err"] = _consensus_error(x_next, self.ctx)
@@ -1153,9 +1213,9 @@ class ConsensusRuntime:
 
     def _idle_metrics(self, device) -> dict:
         """The ADC metrics of an exchange that ran no compressed wire (one
-        pod): nothing clipped or sent, every arrival delivered."""
-        n = self.n_local
-        zero = torch.zeros(n, dtype=torch.float32, device=device)
+        pod): nothing clipped or sent, every arrival delivered, every node
+        of the ring active (the reference's ``total_consensus_nodes``)."""
+        zero = torch.zeros(self.n_local, dtype=torch.float32, device=device)
         out = {"overflow_frac": zero, "residual_norm": zero}
         if self.cfg.faults_enabled:
             out["wire_bytes_delivered"] = zero
@@ -1163,24 +1223,34 @@ class ConsensusRuntime:
         if self.cfg.straggle_rate is not None:
             out["deadline_miss_frac"] = zero
         if self.cfg.membership is not None:
-            out["active_nodes"] = torch.full_like(zero, float(n))
+            out["active_nodes"] = torch.full_like(zero, float(self.n_nodes))
         out.update(self._idle_telemetry(device))
         return out
 
     def _pod_exchange(self, fn, x_prev, x_half, state, step, seed, noise,
-                      layout, wiring):
+                      layout, view):
         """The two-level exchange: each pod's inner fp32 mean of the
         optimizer delta, then ``fn``, the outer exchange, on the pods'
         representatives (their first members) over the pod ring; its
         parameters, state and per-element metrics are copied to every
-        member, which the shared-x0 contract makes bitwise replicas."""
+        member, which the shared-x0 contract makes bitwise replicas.  Over
+        processes every member runs ``fn`` on its own rows as its pod's
+        replica (the copy to the members is implicit, as in the
+        reference's pod ``ppermute``): ``view`` sends member j's payloads
+        to member j of the neighbouring pods."""
         m = self.pod_size
+        if self.ctx.process_ring:
+            # an inactive pod is frozen whatever its mean: its members
+            # send nothing, not even to one another
+            if view.peers is not None:
+                x_half = self._pod_mean_delta(x_prev, x_half)
+            return fn(x_prev, x_half, state, step, seed, noise, layout, view)
         x_half = self._pod_mean_delta(x_prev, x_half)
         x_prev = T.tree_map(lambda a: a[::m], x_prev)
         state = {k: v[::m] for k, v in state.items()}
         x_next, state, adc = fn(x_prev, x_half, state, step, seed,
                                 None if noise is None else noise[::m],
-                                layout, wiring)
+                                layout, view)
 
         def grow(a):
             return a.repeat_interleave(m, dim=0)
@@ -1192,25 +1262,27 @@ class ConsensusRuntime:
     def _pod_mean_delta(self, x_prev, x_half):
         """The inner level for the pods' representatives: ``x_prev + s /
         m`` with ``s`` the sum of the pod's members' fp32 deltas, added in
-        member order.  The reference's ``s / m`` compiles to ``s *
-        f32(1/m)`` contracted with the add into one fused multiply-add
-        (``_fma``); at a pod size that is a power of two the product is
-        exact and the plain multiply-add gives the same bits."""
+        member order (``ctx.pod_sums``; over processes each member's own
+        pod, the representative's bits).  The reference's ``s / m``
+        compiles to ``s * f32(1/m)`` contracted with the add into one fused
+        multiply-add (``_fma``); at a pod size that is a power of two the
+        product is exact and the plain multiply-add gives the same
+        bits."""
         m = self.pod_size
         inv = float(recip(m))
-
-        def avg(xp, xh):
-            delta = (xh - xp).to(torch.float32)
-            s = delta[::m].clone()
-            for j in range(1, m):
-                s.add_(delta[j::m])
-            del delta
-            base = xp[::m].to(torch.float32)
+        ring = self.ctx.process_ring
+        prev, treedef = T.tree_flatten(x_prev)
+        half = T.tree_leaves(x_half)
+        sums = self.ctx.pod_sums(((h - p).to(torch.float32)
+                                  for p, h in zip(prev, half)), m, "pod")
+        out = []
+        for s, p, h in zip(sums, prev, half):
+            base = (p if ring else p[::m]).to(torch.float32)
             if inv * m == 1.0:
-                return s.mul_(inv).add_(base).to(xh.dtype)
-            return _fma(s, inv, base).to(xh.dtype)
-
-        return T.tree_map(avg, x_prev, x_half)
+                out.append(s.mul_(inv).add_(base).to(h.dtype))
+            else:
+                out.append(_fma(s, inv, base).to(h.dtype))
+        return T.tree_unflatten(treedef, out)
 
     def encode(self, y: torch.Tensor, noise: torch.Tensor, step: int,
                layout: wire.WireLayout) -> list[torch.Tensor]:
@@ -1278,7 +1350,7 @@ class ConsensusRuntime:
                                                unit.byte_start, unit)
 
     def _finish(self, x_prev, x_half, comb, y, clipped, plan, layout,
-                wiring):
+                view):
         """The gradient step applied per leaf while unpacking, and the
         overflow and residual metrics.  An inactive element keeps its
         ``x_prev`` bitwise and reads 0 in both metrics."""
@@ -1288,7 +1360,7 @@ class ConsensusRuntime:
             lambda c, h, p: (c + (h.to(torch.float32)
                                   - p.to(torch.float32))).to(h.dtype),
             layout.unpack(comb, cast=False), x_half, x_prev)
-        for i in wiring.inactive:
+        for i in view.inactive:
             residual[i] = 0.0
             for nx, p in zip(T.tree_leaves(x_next), T.tree_leaves(x_prev)):
                 nx[i].copy_(p[i])
@@ -1296,10 +1368,10 @@ class ConsensusRuntime:
                         "residual_norm": residual}
 
     @staticmethod
-    def _freeze(new: tuple, old: tuple, wiring: Wiring) -> None:
-        """An inactive element keeps its shadows: ``new[k][i] =
+    def _freeze(new: tuple, old: tuple, view: RingView) -> None:
+        """An inactive row keeps its shadows: ``new[k][i] =
         old[k][i]``."""
-        for i in wiring.inactive:
+        for i in view.inactive:
             for a, b in zip(new, old):
                 a[i].copy_(b[i])
 
@@ -1312,7 +1384,7 @@ class ConsensusRuntime:
         return y
 
     def _adc_exchange(self, x_prev, x_half, state, step, seed, noise,
-                      layout, wiring):
+                      layout, view):
         """Packed / pipelined exchange over the runtime's WirePlan: one
         transfer unit holding every codec run, or ``pipeline_chunks``
         single-run units taken in the reference's schedule.  Every codec is
@@ -1326,18 +1398,18 @@ class ConsensusRuntime:
         combine: nothing an inactive one would encode is delivered (the
         masked ring has no edge from it) and its combine's results are
         discarded by the freeze, so both are skipped, and its shadows and
-        parameters are kept bitwise."""
-        cfg, n = self.cfg, self.n_local // self.pod_size
+        parameters are kept bitwise; an inactive rank posts nothing."""
+        cfg, n = self.cfg, view.n
         plan = self.wire_plan_for(layout)
         units = plan.transfer_units(
             cfg.pipeline_chunks if cfg.wire_packing == "pipelined" else None)
         xt, mb = state["x_tilde"], state["m_agg"]
         push = cfg.push_sum_enabled
-        keep = self._local(self.keep_mask(step))
+        keep = view.cols(self.keep_mask(step))
         resync = self.resync_at(step)
-        ok = self._local(self.resync_ok(step))
+        ok = view.cols(self.resync_ok(step))
         ring = self.ctx.process_ring
-        nodes = [0] if ring else wiring.active
+        nodes = view.active
         y = self._numerator(x_half, state, layout)
         y.sub_(xt)                # the packed differential, built in place
         if noise is None:
@@ -1348,7 +1420,9 @@ class ConsensusRuntime:
         m_in = torch.empty_like(mb) if resync else mb
         last = len(units) - 1
         trailer = state["ps_w"].view(torch.uint8) if push else None
-        stride = wiring.stride
+        stride = view.stride
+        # over processes: does this rank post (an inactive one does not)?
+        post = ring and bool(nodes)
         recv, flights, shadows = {}, {}, {}
 
         def launch(c):
@@ -1359,12 +1433,12 @@ class ConsensusRuntime:
             pays = self._encode_unit(plan, units[c], y, noise, step_k, nodes,
                                      trailer=trailer if c == last else None)
             telemetry.trace_mark("launch", c, rows=units[c].n_rows)
-            if ring:
-                flights[c] = self.ctx.ring_start(pays[0], ("adc", c), stride)
+            if post:
+                flights[c] = self._post(pays[0], ("adc", c), view)
                 if resync:
-                    shadows[c] = self.ctx.ring_start(
+                    shadows[c] = self._post(
                         xt[0, units[c].row_start:units[c].row_end],
-                        ("resync", c), stride)
+                        ("resync", c), view)
             telemetry.trace_end()
             return pays
 
@@ -1372,23 +1446,26 @@ class ConsensusRuntime:
             telemetry.trace_mark("retire", c)
             if resync:
                 rows = slice(units[c].row_start, units[c].row_end)
-                if ring:        # the unit's shadows, posted at its launch
+                if post:        # the unit's shadows, posted at its launch
                     self._rebuild_into(m_in[:, rows],
                                        [(0, *shadows.pop(c).wait())])
-                else:
+                elif not ring:
                     self.rebuild_m_agg(xt[:, rows], stride,
-                                       out=m_in[:, rows], mask=wiring.mask)
+                                       out=m_in[:, rows],
+                                       mask=view.wiring.mask)
                 self._keep_stale(m_in[:, rows], mb[:, rows], ok)
-            if ring:
+            if post:
                 got = flights.pop(c).wait()
                 if push and c == last:      # the trailers as they arrived
                     recv["w"] = [_trailer_weights([p]) for p in got]
-                left, right = self._drop(got[:1], got[1:], keep, wiring)
+                left, right = self._drop(got[:1], got[1:], keep, view)
+            elif ring:                      # an inactive rank: no arrivals
+                left, right = [None], [None]
             else:
                 if push and c == last:
                     recv["w"] = self._neighbour_rows(_trailer_weights(pays),
-                                                     wiring)
-                left, right = self._arrivals(pays, wiring, keep)
+                                                     view)
+                left, right = self._arrivals(pays, view, keep)
             telemetry.trace_mark("dequant_combine", c,
                                  rows=units[c].n_rows)
             self._retire(plan, units[c], pays, left, right, xt, m_in, outs,
@@ -1401,27 +1478,27 @@ class ConsensusRuntime:
         _pipeline_schedule(len(units), launch, retire,
                            census if cfg.quant_mode == "fixed" else None)
         del noise
-        self._freeze(outs[:2], (xt, mb), wiring)
+        self._freeze(outs[:2], (xt, mb), view)
         new_state = {"x_tilde": outs[0], "m_agg": outs[1]}
         comb = outs[2]
         metrics = {}
         if push:
             ps_new, new_state["ps_nbr"] = self._push_sum_update(
-                state["ps_w"], *recv["w"], state, keep, resync, ok, wiring)
+                state["ps_w"], *recv["w"], state, keep, resync, ok, view)
             new_state["ps_w"] = ps_new
             comb.div_(ps_new.view(-1, 1, 1))
             metrics["push_sum_weight"] = ps_new[:, 0]
         x_next, m = self._finish(x_prev, x_half, comb, y, clipped, plan,
-                                 layout, wiring)
+                                 layout, view)
         metrics.update(m)
         acct = self.wire_accounting(layout.n_elements, layout)
         if keep is not None:
-            self._fault_metrics(metrics, acct, keep, y.device, wiring)
-        self._telemetry_metrics(metrics, acct, clipped, resync, ok, wiring)
+            self._fault_metrics(metrics, acct, keep, y.device, view)
+        self._telemetry_metrics(metrics, acct, clipped, resync, ok, view)
         return x_next, new_state, metrics
 
     def _adc_exchange_async(self, x_prev, x_half, state, step, seed, noise,
-                            layout, wiring):
+                            layout, view):
         """One-step-stale packed exchange.  ``staleness`` 1: RETIRE the
         payloads launched at step k-1 (zero bytes at step 1: a no-op
         gossip) into x_tilde / m_agg and the combine, then LAUNCH this
@@ -1454,26 +1531,30 @@ class ConsensusRuntime:
         the flight has landed (:meth:`land`, the first thing the next
         retire does).  The arrivals land in tensors of their own step, so
         nothing rewrites a state once it is complete.  At a resync the
-        drained ``x_tilde`` crosses the ring at the new stride."""
+        drained ``x_tilde`` crosses the new wiring.  An inactive rank posts
+        nothing: its state's three in-flight payloads are zeros of its own
+        making (the stacked masked gather's), so the step it rejoins
+        retires zeros, then resyncs."""
         if self.cfg.staleness == 0:
             x_next, ns, metrics = self._adc_exchange(
-                x_prev, x_half, state, step, seed, noise, layout, wiring)
+                x_prev, x_half, state, step, seed, noise, layout, view)
             for key in wire.INFLIGHT_KEYS:
                 ns[key] = state[key]
             return x_next, ns, metrics
         ring = self.ctx.process_ring
-        n = self.n_local // self.pod_size
+        wiring = view.wiring
+        n = view.n
         plan = self.wire_plan_for(layout)
         unit = plan.transfer_units(None)[0]
         xt, mb = state["x_tilde"], state["m_agg"]
         push = self.cfg.push_sum_enabled
-        keep = self._local(self.keep_mask(step - 1))
-        meet = self._local(self.deadline_mask(step - 1))
+        keep = view.cols(self.keep_mask(step - 1))
+        meet = view.cols(self.deadline_mask(step - 1))
         arrive = (keep if meet is None else
                   meet if keep is None else keep & meet)
         resync = self.resync_at(step)
-        ok = self._local(self.resync_ok(step))
-        nodes = [0] if ring else wiring.active
+        ok = view.cols(self.resync_ok(step))
+        nodes = view.active
         telemetry.trace_mark("retire", 0, mode="async")
         self.land()               # over ranks: the flight step k-1 posted
         fly = [state["fly_self"][i] for i in range(n)]
@@ -1481,7 +1562,7 @@ class ConsensusRuntime:
         # downstream neighbour of step k-1
         up = [state["fly_up"][i] for i in range(n)]
         dn = [state["fly_dn"][i] for i in range(n)]
-        left, right = self._drop(list(up), list(dn), arrive, wiring)
+        left, right = self._drop(list(up), list(dn), arrive, view)
         outs = tuple(torch.empty_like(xt) for _ in range(3))
         telemetry.trace_mark("dequant_combine", 0, rows=unit.n_rows)
         self._retire(plan, unit, fly, left, right, xt, mb, outs, nodes)
@@ -1493,13 +1574,13 @@ class ConsensusRuntime:
             self._keep_stale(m_drained, m_new, ok)
             comb.add_(m_drained - m_new)
             m_new = m_drained
-        self._freeze((xt_new, m_new), (xt, mb), wiring)
+        self._freeze((xt_new, m_new), (xt, mb), view)
         metrics = {}
         new_state = {}
         if push:
             ps_new, new_state["ps_nbr"] = self._push_sum_update(
                 state["ps_w"], _trailer_weights(up), _trailer_weights(dn),
-                state, arrive, resync, ok, wiring)
+                state, arrive, resync, ok, view)
             new_state["ps_w"] = ps_new
             comb.div_(ps_new.view(-1, 1, 1))
             metrics["push_sum_weight"] = ps_new[:, 0]
@@ -1524,10 +1605,15 @@ class ConsensusRuntime:
                              buffers=wire.INFLIGHT_KEYS)
         flight = None
         if ring:
-            # posted, not waited: it lands at the next retire
             fly_up, fly_dn = torch.empty_like(own), torch.empty_like(own)
-            flight = self.ctx.ring_start(own[0], "async", wiring.stride,
-                                         into=[fly_up[0], fly_dn[0]])
+            if view.peers is None:
+                # inactive: nothing posted, nothing to receive
+                for t in (own, fly_up, fly_dn):
+                    t.zero_()
+            else:
+                # posted, not waited: it lands at the next retire
+                flight = self._post(own[0], "async", view,
+                                    into=[fly_up[0], fly_dn[0]])
         elif wiring.mask is None:
             # ppermute(+s) hands element i element i-s's payload,
             # ppermute(-s) element i+s's
@@ -1535,7 +1621,7 @@ class ConsensusRuntime:
             buf[n + r:].copy_(buf[r:2 * r])
             fly_up, fly_dn = buf[:n], buf[2 * r:]
         else:
-            for i in wiring.inactive:
+            for i in view.inactive:
                 own[i].zero_()
             fly_up, fly_dn = torch.empty_like(own), torch.empty_like(own)
             for dst, src in ((fly_up, wiring.left), (fly_dn, wiring.right)):
@@ -1549,19 +1635,19 @@ class ConsensusRuntime:
         if self.cfg.quant_mode == "fixed":
             self._census(plan, unit, y, step_k, pays, clipped, nodes)
         x_next, m = self._finish(x_prev, x_half, comb, y, clipped, plan,
-                                 layout, wiring)
+                                 layout, view)
         metrics.update(m)
         acct = self.wire_accounting(layout.n_elements, layout)
         retired = None
         if arrive is not None:
             retired = self._fault_metrics(metrics, acct, arrive, y.device,
-                                          wiring)
+                                          view)
         if meet is not None:
             miss = (~meet).sum(axis=0)
-            miss[wiring.inactive] = 0
+            miss[view.inactive] = 0
             metrics["deadline_miss_frac"] = _node_values(miss,
                                                          y.device) / 2.0
-        self._telemetry_metrics(metrics, acct, clipped, resync, ok, wiring,
+        self._telemetry_metrics(metrics, acct, clipped, resync, ok, view,
                                 retired)
         new_state.update({"x_tilde": xt_new, "m_agg": m_new,
                           "fly_self": own})
@@ -1581,7 +1667,7 @@ class ConsensusRuntime:
         return inv_codes, inv_elems
 
     def _adc_exchange_per_leaf(self, x_prev, x_half, state, step, seed,
-                               noise, layout, wiring):
+                               noise, layout, view):
         """The per-leaf reference transport of :meth:`_adc_exchange`: per
         leaf and node one ``quantize_blocks`` launch, the codes and scales
         handed to both ring neighbours (zero codes and zero scales where a
@@ -1601,10 +1687,10 @@ class ConsensusRuntime:
         schedule); the arrivals are the transfers'."""
         cfg, n = self.cfg, self.n_local
         ring = self.ctx.process_ring
-        stride = wiring.stride
+        stride = view.stride
         resync = self.resync_at(step)
-        ok = self._local(self.resync_ok(step))
-        keep = self._local(self.keep_mask(step))
+        ok = view.cols(self.resync_ok(step))
+        keep = view.cols(self.keep_mask(step))
         push = cfg.push_sum_enabled
         w_fwd, w_bwd = cfg.in_weights
         c_dir = _f32(w_fwd - cfg.side_weight)
@@ -1616,9 +1702,9 @@ class ConsensusRuntime:
         if push:
             ps_w = state["ps_w"]
             # the neighbours' weights: every step, so a resync reuses them
-            fresh = self._neighbour_rows(ps_w, wiring)
+            fresh = self._neighbour_rows(ps_w, view)
             ps_new, new_state["ps_nbr"] = self._push_sum_update(
-                ps_w, *fresh, state, keep, resync, ok, wiring, fresh=fresh)
+                ps_w, *fresh, state, keep, resync, ok, view, fresh=fresh)
             new_state["ps_w"] = ps_new
             metrics["push_sum_weight"] = ps_new[:, 0]
         clipped = torch.zeros(n, dtype=torch.float32, device=xt.device)
@@ -1636,8 +1722,7 @@ class ConsensusRuntime:
                 y.mul_(ps_w.view(-1, 1, 1))
             xtb = _rowpad(layout.leaf_rows(xt, i), full)
             mbb = _rowpad(layout.leaf_rows(mb, i), full)
-            shadow = (self.ctx.ring_start(xtb[0], ("resync", "leaf", i),
-                                          stride)
+            shadow = (self._post(xtb[0], ("resync", "leaf", i), view)
                       if ring and resync else None)
             y.sub_(xtb)
             residual_sq += (y * y).sum(dim=(1, 2))
@@ -1651,7 +1736,7 @@ class ConsensusRuntime:
                     for c, _ in sent])
             flights = None
             if ring:
-                flights = [self.ctx.ring_start(t, ("leaf", i, part), stride)
+                flights = [self._post(t, ("leaf", i, part), view)
                            for part, t in zip(("codes", "scales"), sent[0])]
             return xtb, mbb, shadow, sent, flights
 
@@ -1667,9 +1752,9 @@ class ConsensusRuntime:
             if ring:
                 (c_l, c_r), (s_l, s_r) = (f.wait() for f in flights)
                 left, right = self._drop([(c_l, s_l)], [(c_r, s_r)], keep,
-                                         wiring)
+                                         view)
             else:
-                left, right = self._arrivals(sent, wiring, keep)
+                left, right = self._arrivals(sent, view, keep)
             outs = [kops.dequant_combine(
                         *sent[j], *left[j], *right[j], xtb[j], mbb[j],
                         cfg.self_weight, cfg.side_weight, 1.0)
@@ -1707,8 +1792,8 @@ class ConsensusRuntime:
                                                     * inv_elems)})
         acct = self.wire_accounting(layout.n_elements, layout)
         if keep is not None:
-            self._fault_metrics(metrics, acct, keep, xt.device, wiring)
-        self._telemetry_metrics(metrics, acct, clipped, resync, ok, wiring)
+            self._fault_metrics(metrics, acct, keep, xt.device, view)
+        self._telemetry_metrics(metrics, acct, clipped, resync, ok, view)
         return T.tree_unflatten(layout.treedef, new_x), new_state, metrics
 
     def _cdgd_mix(self, x_own, sent_l, sent_r):
@@ -1721,7 +1806,7 @@ class ConsensusRuntime:
         return (self.cfg.self_weight * x_own
                 + self.cfg.side_weight * (left + right))
 
-    def _cdgd_exchange_packed(self, x_prev, x_half, noise, layout, wiring):
+    def _cdgd_exchange_packed(self, x_prev, x_half, noise, layout, view):
         """Direct-compression DGD (paper Eq. (5), the negative control) on
         the packed int8 wire: per node one ``quantize_payload`` launch per
         chunk (one chunk unless pipelined) over the packed x_prev on the
@@ -1738,10 +1823,10 @@ class ConsensusRuntime:
                 for j in range(n)]
         if self.ctx.process_ring:
             left, right = (kops.unpack_payload(p, layout.block) for p in
-                           self.ctx.ring_start(pays[0], "cdgd",
-                                               wiring.stride).wait())
+                           self._post(pays[0], "cdgd", view).wait())
             mixed = self._cdgd_mix(xp[0], left, right)[None]
         else:
+            wiring = view.wiring
             sent = [kops.unpack_payload(p, layout.block) for p in pays]
             mixed = torch.stack([
                 self._cdgd_mix(xp[j], sent[wiring.left[j]],
@@ -1752,12 +1837,13 @@ class ConsensusRuntime:
             layout.unpack(mixed, cast=False), x_half, x_prev)
 
     def _cdgd_exchange_per_leaf(self, x_prev, x_half, noise, layout,
-                                wiring):
+                                view):
         """Per-leaf reference of :meth:`_cdgd_exchange_packed`: per leaf
         and node one ``quantize_blocks`` launch; the same bits given the
         same noise buffer.  Over processes each leaf's codes and scales
         cross the wire to both ring neighbours (two transfers)."""
         n = self.n_local
+        wiring = view.wiring
         step0 = float(np.float32(self.cfg.fixed_step0))
         out = []
         for i, (slot, h, p) in enumerate(zip(layout.slots,
@@ -1769,8 +1855,7 @@ class ConsensusRuntime:
             sent = [kops.quantize_blocks(xb[j], u[j], fixed_step=step0)
                     for j in range(n)]
             if self.ctx.process_ring:
-                flights = [self.ctx.ring_start(t, ("cdgd", i, part),
-                                               wiring.stride)
+                flights = [self._post(t, ("cdgd", i, part), view)
                            for part, t in zip(("codes", "scales"), sent[0])]
                 (c_l, c_r), (s_l, s_r) = (f.wait() for f in flights)
                 mixed = self._cdgd_mix(xb[0], (c_l, s_l), (c_r, s_r))[None]
@@ -1783,18 +1868,18 @@ class ConsensusRuntime:
                                  - p.to(torch.float32))).to(h.dtype))
         return T.tree_unflatten(layout.treedef, out)
 
-    def _dgd_exchange(self, x_prev, x_half, wiring):
+    def _dgd_exchange(self, x_prev, x_half, view):
         """Uncompressed DGD: mix the parameters with both ring neighbours
-        (``wiring``), whose copies arrive cast to ``wire_dtype``, then add
+        (``view``), whose copies arrive cast to ``wire_dtype``, then add
         the local optimizer delta.  Over processes every leaf's transfer
         is posted before the first is waited for."""
         w_self, w_side = self.cfg.self_weight, self.cfg.side_weight
         wire_dtype = self.cfg.wire_dtype
+        wiring = view.wiring
         prev, treedef = T.tree_flatten(x_prev)
         flights = None
         if self.ctx.process_ring:
-            flights = [self.ctx.ring_start(p.to(wire_dtype), ("dgd", i),
-                                           wiring.stride)
+            flights = [self._post(p.to(wire_dtype), ("dgd", i), view)
                        for i, p in enumerate(prev)]
 
         def mix(i, h, p):

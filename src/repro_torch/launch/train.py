@@ -19,9 +19,13 @@ gathered, and rank 0 prints the step lines, with the exchange's measured
 wire beside the static wire bytes (``_wire_stats``).  ``--nodes`` must
 then equal the world size or be absent.  The ranks run on
 ``cuda:<LOCAL_RANK>``, or all on the one ``--device`` named (``cuda:0``,
-``cpu``).  Every transport, stride schedule, fault and topology runs
-there; membership (``--node-failures``), ``--hierarchy`` and
-``--checkpoint-dir`` raise: a later slice.
+``cpu``).  Every transport, stride schedule, fault, topology, membership
+schedule (``--node-failures``: an inactive rank sends nothing) and
+``--hierarchy`` (each pod's members add their deltas over the group, then
+run the outer exchange as replicas) runs there, and ``--checkpoint-dir``
+writes one file, the global state, byte for byte the stacked run's
+(``checkpoint.save_checkpoint`` with the context: rank 0 gathers the
+ranks' rows leaf by leaf).
 
 ``--algorithm compressed_dgd`` runs the paper's Eq. (5) negative control
 instead of ADC-DGD.  ``--wire-packing`` picks the transport: ``packed``
@@ -50,8 +54,10 @@ pod ring, whose elements ``--node-failures`` then indexes).
 shard (the first slice's, then each later one's added in order, times
 f32(1/M), as the reference's compiled ``g / M``).  ``--checkpoint-dir``
 with ``--checkpoint-every E`` saves the whole train state after every E-th
-step (``repro_torch.checkpoint``); a run resumes through
-``load_checkpoint`` and :func:`train_step`.  ``--telemetry`` writes the
+step (``repro_torch.checkpoint``; on the async transport over ranks the
+step's flight lands first); a run resumes through ``load_checkpoint``
+(over ranks with the context: each rank reads its rows) and
+:func:`train_step`.  ``--telemetry`` writes the
 ``telemetry/v1`` sink ``<--telemetry-dir>/telemetry-<--run-id>.jsonl``
 (step records, host events) and the Perfetto trace ``trace-<run id>.json``
 whose exchange spans are measured on the device (``core.telemetry``), and
@@ -621,11 +627,6 @@ def main(argv=None, *, return_state: bool = False):
     args = ap.parse_args(argv)
     ctx = None
     if args.process_ring:
-        if args.checkpoint_dir:
-            raise SystemExit("--checkpoint-dir is not yet ported to the "
-                             "process ring: it comes with membership, "
-                             "hierarchy and --checkpoint-dir over ranks "
-                             "(ROADMAP Queue 1 item 5c, its remainder)")
         from repro_torch.launch.mesh import make_process_context
         ctx = make_process_context(args.device)
         world = ctx.total_consensus_nodes
@@ -853,7 +854,8 @@ def main(argv=None, *, return_state: bool = False):
               flush=True)
         if (args.checkpoint_dir and args.checkpoint_every
                 and (step + 1) % args.checkpoint_every == 0):
-            save_checkpoint(args.checkpoint_dir, step + 1, state)
+            setup.consensus.land()      # the async state, complete
+            save_checkpoint(args.checkpoint_dir, step + 1, state, ctx=ctx)
         if controller is None:
             continue
         ep_res.append(metrics["residual_norm"])
@@ -924,13 +926,17 @@ def _wire_stats(ctx: ParallelContext) -> dict:
       the other transports);
     * ``wire_d2h_s`` / ``wire_h2d_s``: the staging copies, CUDA events;
     * ``wire_bytes_sent``: the payload bytes the step posted (on the async
-      transport this step's launch), and ``wire_resync_bytes_sent`` apart:
-      a resync's fp32 shadows (and push-sum weights);
+      transport this step's launch; under hierarchy with the inner level's
+      fp32 deltas), and ``wire_resync_bytes_sent`` apart: a resync's fp32
+      shadows (and push-sum weights);
+    * ``wire_inner_s``: the hierarchy's inner level (the pod sum's
+      transfers, from the first post to the last wait; 0 without it);
     * ``consensus_err_wire_s``: the consensus error's node sum (a metric,
       left out of the others)."""
     all_stats = ctx.ring.read_stats()
     metric = all_stats.pop("consensus_err", None)
     resync = all_stats.get("resync")
+    inner = all_stats.get("pod")
     stats = list(all_stats.values())
     return {"wire_s": sum(v["wire_s"] for v in stats),
             "wire_wait_s": sum(v["wait_s"] for v in stats),
@@ -941,6 +947,7 @@ def _wire_stats(ctx: ParallelContext) -> dict:
                                    all_stats.items() if k != "resync"),
             "wire_resync_bytes_sent": 0 if resync is None
             else resync["bytes_sent"],
+            "wire_inner_s": 0.0 if inner is None else inner["wire_s"],
             "consensus_err_wire_s": 0.0 if metric is None
             else metric["wire_s"]}
 

@@ -19,10 +19,15 @@ names (``into``: the async transport lands each flight in tensors of its
 own step, which no later transfer reuses).  Buffers are allocated once
 per (slot, shape, dtype), never per step.  A ring shift goes to the
 neighbours at any stride (``ring_start(..., stride=s)``: the time-varying
-ring).  A transfer may stay in flight across calls (the async transport
-posts one step's payload and waits for it in the next); every flight a
-rank posted is waited before its group is torn down (:func:`drain_rings`,
-called by ``launch.mesh.run_ranks``).
+ring), or to the two peers the caller names (``ring_start(...,
+peers=(left, right))``: a ring compacted by a membership mask, or the pod
+ring under hierarchy, where member j of pod p talks to member j of the
+neighbouring pods).  :meth:`ParallelContext.pod_sums` adds a tensor over
+the ranks of one pod in member order (the hierarchy's inner level).  A
+transfer may stay in flight across calls (the async transport posts one
+step's payload and waits for it in the next); every flight a rank posted
+is waited before its group is torn down (:func:`drain_rings`, called by
+``launch.mesh.run_ranks``).
 
 Tensor parallelism (``tp``) and FSDP (``data_size > n_nodes``) need
 collectives across several cards (NCCL): not yet ported.
@@ -30,6 +35,7 @@ collectives across several cards (NCCL): not yet ported.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 import weakref
 from typing import Any
@@ -43,6 +49,9 @@ __all__ = ["ParallelContext", "StagedRing", "drain_rings", "local_context",
 _TP_FSDP = ("tensor parallelism and FSDP are not yet ported: they need "
             "NCCL collectives across several cards (a later slice)")
 
+
+#: gloo's tags are non-negative 32-bit ints
+_MAX_TAG = 2 ** 31 - 1
 
 #: every StagedRing of this process (``drain_rings``)
 _RINGS: "weakref.WeakSet[StagedRing]" = weakref.WeakSet()
@@ -101,16 +110,20 @@ class StagedRing:
 
     ``start(x, sends, recvs, slot)`` posts ``x`` to each rank of
     ``sends`` and a receive from each rank of ``recvs``; message ``j`` of a
-    transfer carries tag ``slot_index * size + j``, so two transfers in
-    flight at once never match each other's messages (at two ranks both
-    ring neighbours are one rank, and its two messages are told apart by
-    tag).  A CUDA ``x`` is copied into a pinned host buffer (the copy is
-    waited for before the sends are posted), and the received bytes are
-    copied into device buffers of ``x``'s shape, or into ``into``; a CPU
-    ``x`` is sent as it is and received into host buffers, or straight
-    into ``into``.  Every buffer belongs to its ``(slot, shape, dtype)``
-    and is allocated at its first use.  Every rank must start the same
-    slots in the same order (a slot's tag is its rank of first use).
+    transfer carries tag ``base + j``, so two transfers in flight at once
+    never match each other's messages (at two ranks both ring neighbours
+    are one rank, and its two messages are told apart by tag).  ``base``
+    is derived from the transfer's key (slot, shape, dtype, device type,
+    peer counts) alone (:meth:`tag`), never from the order of use, so the
+    ranks agree on it whatever slots each rank skipped before (a rank out
+    of the ring for an epoch of elastic membership makes none of its
+    transfers, and first uses the resync's slot epochs after the others).
+    A CUDA ``x`` is copied into a pinned host buffer (the copy is waited
+    for before the sends are posted), and the received bytes are copied
+    into device buffers of ``x``'s shape, or into ``into``; a CPU ``x`` is
+    sent as it is and received into host buffers, or straight into
+    ``into``.  Every buffer belongs to its ``(slot, shape, dtype)`` and is
+    allocated at its first use.
 
     ``stats`` accumulates per kind of transfer (the slot's name, or its
     first item) over a window that :meth:`reset_stats` opens: ``d2h_s``
@@ -127,6 +140,7 @@ class StagedRing:
         self.group, self.rank, self.size = group, rank, size
         self._bufs: dict = {}
         self._tags: dict = {}
+        self._tag_keys: dict = {}
         self._copied: dict = {}
         self._pending: dict = {}
         self._d2h: list = []
@@ -172,6 +186,24 @@ class StagedRing:
             out[kind] = v
         return out
 
+    def tag(self, key) -> int:
+        """The first tag of a transfer of ``key``: a multiple of ``size``
+        drawn from the SHA-1 of the key's ``repr`` (the same on every rank
+        and in every process), so the tags of its ``size - 1`` or fewer
+        messages stay below the next key's.  Two keys of this ring whose
+        tags collide raise (each rank sees the collision the same way)."""
+        tag = self._tags.get(key)
+        if tag is None:
+            digest = hashlib.sha1(repr(key).encode()).digest()
+            tag = (int.from_bytes(digest[:8], "little")
+                   % (_MAX_TAG // self.size)) * self.size
+            other = self._tag_keys.get(tag)
+            if other is not None:
+                raise RuntimeError(f"ring transfers {other!r} and {key!r} "
+                                   f"derive the same gloo tag {tag}")
+            self._tags[key], self._tag_keys[tag] = tag, key
+        return tag
+
     def _buffers(self, key, x: torch.Tensor, n_recv: int, own_dev: bool):
         bufs = self._bufs.get(key)
         if bufs is None:
@@ -183,7 +215,6 @@ class StagedRing:
             else:
                 send, recv_host = None, None    # made when first needed
             bufs = self._bufs[key] = [send, recv_host, None]
-            self._tags[key] = len(self._tags)
         if x.device.type == "cpu" and own_dev and bufs[1] is None:
             bufs[1] = [torch.empty_like(x) for _ in range(n_recv)]
         if x.device.type == "cuda" and own_dev and bufs[2] is None:
@@ -224,7 +255,7 @@ class StagedRing:
             send = x
             if into is not None:
                 recv_host = list(into)
-        base = self._tags[key] * self.size
+        base = self.tag(key)
         ops = [dist.P2POp(dist.isend, send, peer, self.group, tag=base + j)
                for j, peer in enumerate(sends)]
         ops += [dist.P2POp(dist.irecv, buf, peer, self.group, tag=base + j)
@@ -307,14 +338,17 @@ class ParallelContext:
         return (self.rank - shift) % n, (self.rank + shift) % n
 
     def ring_start(self, x: torch.Tensor, slot: Any = 0, stride: int = 1,
-                   into: list | None = None) -> RingFlight:
+                   into: list | None = None,
+                   peers: tuple[int, int] | None = None) -> RingFlight:
         """Post ``x`` to both ring neighbours at ``stride`` and receive
         theirs: ``wait()`` gives ``[left, right]``, the tensors of ranks
         ``rank - stride`` (``ppermute(+stride)``) and ``rank + stride``
         (``ppermute(-stride)``): the two tensors of ``into`` when given,
         else the slot's receive buffers, valid until its next transfer.
+        ``peers`` names the (left, right) ranks instead of the shift ring
+        (a compacted or pod ring, whose tables every rank reads alike).
         Process context only."""
-        left, right = self.neighbours(stride)
+        left, right = self.neighbours(stride) if peers is None else peers
         return self.ring.start(x, [right, left], [left, right], slot, into)
 
     def ppermute_ring(self, x: torch.Tensor, shift: int,
@@ -369,6 +403,37 @@ class ParallelContext:
             for t in flight.wait():    # x_{i-1}, x_{i-2}, ...: the rotation
                 acc = acc + t
             yield acc
+
+    def pod_sums(self, xs, m: int, slot: Any = "pod"):
+        """Yield, for each tensor of ``xs``, the sum over each pod of ``m``
+        consecutive nodes, added in member order (member 0, then 1, ...):
+        stacked, ``(N / m, ...)`` from ``(N, ...)``, one pod per row;
+        over processes ``(1, ...)``, this rank's pod, the same bits on
+        every member.  Over processes member j sends its tensor to the
+        other ``m - 1`` members (j + 1, j + 2, ... around the pod, on the
+        group's point-to-point transfers) and every transfer is posted
+        before the first sum."""
+        if not self.process_ring:
+            for x in xs:
+                s = x[::m].clone()
+                for j in range(1, m):
+                    s.add_(x[j::m])
+                yield s
+            return
+        base, me = self.rank - self.rank % m, self.rank % m
+        dsts = [base + (me + r) % m for r in range(1, m)]
+        srcs = [base + (me - r) % m for r in range(1, m)]
+        xs = list(xs)
+        flights = [self.ring.start(x, dsts, srcs, (slot, i))
+                   for i, x in enumerate(xs)]
+        for x, flight in zip(xs, flights):
+            parts = {me: x}
+            for r, t in enumerate(flight.wait(), start=1):
+                parts[(me - r) % m] = t
+            s = parts[0].clone()
+            for j in range(1, m):
+                s.add_(parts[j])
+            yield s
 
     def gather_nodes(self, x: torch.Tensor) -> torch.Tensor:
         """Every node's ``x`` stacked in node order, on ``x``'s device:

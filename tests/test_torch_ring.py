@@ -17,8 +17,9 @@ bit for bit.  Held here, on the CPU:
 * 3 steps of the 4-rank trainer on reduced smollm-135m against the JAX
   composition that ``test_torch_train.py`` builds, at that file's
   tolerances, and bitwise against the stacked port trainer;
-* every option the process ring does not run (membership, hierarchy)
-  raises, naming its slice (the others: ``test_torch_ring_transports.py``);
+* the CLI's ``--nodes`` must equal the world size (the transports, faults
+  and topologies over ranks: ``test_torch_ring_transports.py``; membership,
+  hierarchy and checkpoints: ``test_torch_ring_elastic.py``);
 * ``python -m torch.distributed.run --nproc-per-node 2 -m
   repro_torch.launch.train --process-ring --device cpu --reduced`` against
   the stacked CLI.
@@ -84,15 +85,6 @@ EXCHANGES = {
                                        pipeline_chunks=3),
 }
 EXCHANGE_STEPS = 2
-
-#: what the process ring refuses, each with the slice that ports it (the
-#: async and per-leaf transports, strides, faults, the directed ring and
-#: push-sum run there: ``test_torch_ring_transports.py``)
-REFUSED = {
-    "membership": (dict(membership=((True,) * N, (True, False, True,
-                                                    True))), "5c"),
-    "hierarchy": (dict(hierarchy="pods=2"), "5c"),
-}
 
 
 # ---- the ranks' work -------------------------------------------------------
@@ -181,15 +173,9 @@ def _run_exchanges(kw: dict, ctx=None) -> list:
 
 
 def _refusals(ctx) -> dict:
-    """Each refused option's ``NotImplementedError`` message (None if it
-    did not raise)."""
+    """The CLI's refusal of a ``--nodes`` other than the world size (None
+    if it did not raise)."""
     out = {}
-    for name, (kw, _) in REFUSED.items():
-        try:
-            ConsensusRuntime(ConsensusConfig(**kw), N, ctx=ctx)
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
     try:
         train.main(["--process-ring", "--device", "cpu", "--reduced",
                     "--nodes", str(N + 1), "--steps", "1"])
@@ -376,24 +362,9 @@ def test_pipelined_exchange_sends_every_unit(ring):
     assert units == [3] * EXCHANGE_STEPS
 
 
-@pytest.mark.parametrize("name", list(REFUSED))
-def test_refused_options_raise_on_the_ring(ring, name):
-    want = f"ROADMAP Queue 1 item {REFUSED[name][1]}"
-    for rank in ring["ranks"]:
-        msg = rank["refused"][name]
-        assert msg is not None and "not yet ported" in msg and want in msg, \
-            msg
-
-
 def test_cli_nodes_must_equal_world(ring):
     for rank in ring["ranks"]:
         assert "must equal the world size" in rank["refused"]["--nodes"]
-
-
-def test_refusals_stacked_are_unchanged():
-    # the stacked runtime still takes every option the ring refuses
-    for kw, _ in REFUSED.values():
-        ConsensusRuntime(ConsensusConfig(**kw), N)
 
 
 def test_ring_trainer_losses_match_jax(ring):
@@ -454,12 +425,6 @@ def test_process_context_needs_the_launcher(monkeypatch):
     monkeypatch.setenv("LOCAL_RANK", "0")
     with pytest.raises(ValueError, match="at least 2"):
         make_process_context("cpu")
-
-
-def test_cli_refuses_checkpoint_dir(tmp_path):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        train.main(["--process-ring", "--device", "cpu", "--reduced",
-                    "--checkpoint-dir", str(tmp_path)])
 
 
 CLI = ["--device", "cpu", "--reduced", "--steps", "2", "--batch", "4",

@@ -306,23 +306,32 @@ def _gap(a: torch.Tensor, b: np.ndarray) -> tuple[float, float]:
 
 
 def hold_to_reference(ctx, ref_dir: str, cases: list, steps: int) -> dict:
-    """This rank's exchanges of the reference harness's ``cases`` (label,
-    ConsensusConfig keywords), each step started from the reference's own
-    state, parameters, delta and noise as the harness starts the stacked
-    port, against the reference's outputs that the harness dumped under
-    ``ref_dir``: per step the gaps of x_next (per leaf), x_tilde and
-    m_agg, whether the push-sum weights and the metrics equal the
-    reference's, the payload's bytes against the reference's encode
-    (packed; on the async transport the launched payload and both arrivals
-    against the reference's, counting differing bytes)."""
+    """This rank's exchanges of a reference harness's ``cases`` (label,
+    ConsensusConfig keywords): the harness of ``test_torch_faults.py`` or
+    of ``test_torch_membership.py``, each patched to dump its per-step
+    outputs under ``ref_dir``.  Each step starts from the reference's own
+    parameters and state (the dump of the step before; x0 and the
+    runtime's initial state at step 1), delta and noise (one draw per
+    ring element, a pod's members sharing it), as the harness starts the
+    stacked port, and is held against the reference's outputs: per step
+    the gaps of x_next (per leaf), x_tilde and m_agg, whether the
+    push-sum weights and the metrics equal the reference's, the payload
+    against the reference's encode (packed: an inactive rank encodes
+    nothing; on the async transport the state's three payloads against
+    the reference's, counting differing bytes); with the membership
+    harness's ring permutations dumped, this rank's peers beside its
+    sources there; the digests of x_next (pod replicas), and where the
+    rank is inactive whether its parameters and shadows came out bitwise
+    as they went in."""
     wait_for(os.path.join(ref_dir, "DONE"),
              os.path.join(ref_dir, "FAILED"), 900)
     r, n = ctx.rank, ctx.total_consensus_nodes
     out = {}
     for label, kw in cases:
         rt = ConsensusRuntime(ConsensusConfig(**kw), n, ctx=ctx)
-        cfg = rt.cfg
+        cfg, m, rl = rt.cfg, rt.pod_size, rt.ring_len
         x0 = T.tree_map(lambda a: a[r:r + 1].clone(), ref_x0(n))
+        treedef = T.tree_flatten(x0)[1]
         layout = rt.state_layout(x0)
         plan = rt.wire_plan_for(layout)
         mkeys = (["overflow_frac", "residual_norm"]
@@ -330,7 +339,8 @@ def hold_to_reference(ctx, ref_dir: str, cases: list, steps: int) -> dict:
                  + (["wire_bytes_delivered", "delivered_frac"]
                     if cfg.faults_enabled else [])
                  + (["deadline_miss_frac"] if cfg.straggle_rate is not None
-                    else []))
+                    else [])
+                 + (["active_nodes"] if cfg.membership is not None else []))
         res = []
         prev, dump = x0, None
         stem = os.path.join(ref_dir, label.replace("/", "_"))
@@ -338,26 +348,32 @@ def hold_to_reference(ctx, ref_dir: str, cases: list, steps: int) -> dict:
             if dump is None:
                 state = rt.init_state(prev)
             else:
+                prev = T.tree_unflatten(treedef, [
+                    torch.from_numpy(np.array(dump[f"x{i}"][r:r + 1]))
+                    for i in range(len(T.tree_leaves(x0)))])
                 state = {key[2:]: torch.from_numpy(
                     np.array(dump[key][r:r + 1])) for key in dump
                     if key.startswith("s_")}
             half = T.tree_map(torch.add, prev, T.tree_map(
                 lambda a: a[r:r + 1].clone(), ref_delta(k, n)))
             nz = np.random.default_rng([2, k]).random(
-                (n, layout.n_rows, plan.noise_cols()), dtype=np.float32)
+                (rl, layout.n_rows, plan.noise_cols()),
+                dtype=np.float32)[r // m:r // m + 1]
             sent = []
             encode = rt._encode_unit
 
             def spy(*a, **kw2):
                 pays = encode(*a, **kw2)
-                sent.append(pays[0].clone())
+                if pays[0] is not None:
+                    sent.append(pays[0].clone())
                 return pays
             rt._encode_unit = spy
-            xn, st, m = rt.exchange(prev, half, state, k,
-                                    noise=torch.from_numpy(nz[r:r + 1]))
+            xn, st, mt = rt.exchange(prev, half, state, k,
+                                     noise=torch.from_numpy(nz))
             rt.land()
             del rt._encode_unit
             dump = np.load(f"{stem}-{k}.npz")
+            view = rt.view(rt.wiring_at(k))
             n_leaves = len(T.tree_leaves(xn))
             step = {"x": [_gap(a[0], dump[f"x{i}"][r]) for i, a in
                           enumerate(T.tree_leaves(xn))],
@@ -367,25 +383,37 @@ def hold_to_reference(ctx, ref_dir: str, cases: list, steps: int) -> dict:
                         st[key][0].numpy(), dump["s_" + key][r])
                         for key in ("ps_w", "ps_nbr")
                         if cfg.push_sum_enabled),
-                    "metrics": {}}
+                    "x_digest": [_h(a[0]) for a in T.tree_leaves(xn)],
+                    "active": bool(view.active), "metrics": {}}
             assert n_leaves == sum(key.startswith("x") for key in dump)
+            if "perm_up" in dump:
+                up = {int(t): int(s) for s, t in dump["perm_up"]}
+                dn = {int(t): int(s) for s, t in dump["perm_dn"]}
+                step["peers"] = [view.peers,
+                                 (up[r], dn[r]) if r in up else None]
             for key in mkeys:
-                got = m[key][0].numpy().astype(np.float32)
+                got = mt[key][0].numpy().astype(np.float32)
                 want = np.asarray(dump["m_" + key][r], np.float32)
                 step["metrics"][key] = bool(
                     np.allclose(got, want, rtol=1e-5, atol=0)
                     if key == "residual_norm" else np.array_equal(got, want))
+            if not view.active:
+                step["frozen"] = (
+                    all(torch.equal(a, b) for a, b in zip(
+                        T.tree_leaves(xn), T.tree_leaves(prev)))
+                    and all(torch.equal(st[key], state[key])
+                            for key in ("x_tilde", "m_agg")))
             if cfg.wire_packing == "async":
                 step["fly"] = [
                     (int((st[key][0].numpy() != dump["s_" + key][r]).sum()),
                      int(dump["s_" + key][r].size))
                     for key in ("fly_self", "fly_up", "fly_dn")]
             elif "pay" in dump:
-                got = torch.cat(sent).numpy() if sent else None
-                step["pay_equal"] = bool(
-                    got is not None and np.array_equal(got, dump["pay"][r]))
+                step["pay_equal"] = (
+                    not sent if not view.active else
+                    bool(np.array_equal(torch.cat(sent).numpy(),
+                                        dump["pay"][r])))
             res.append(step)
-            prev = T.tree_map(lambda a: a.clone(), xn)
         out[label] = res
     return out
 
