@@ -124,7 +124,7 @@ Phases (any failure exits non-zero before the result line):
              bitwise over 20 steps;
              then telemetry, checkpoints and gradient accumulation
              (``phase_telemetry``) on the same 4 nodes, each run counted:
-             ``--telemetry`` for 4 steps on packed, pipelined over 4 units
+             ``--telemetry`` for 3 steps on packed, pipelined over 4 units
              and async at staleness 1 beside the same run without it (the
              sink valid under ``core.telemetry.validate_file``, every
              exchange phase in the trace, the async in-flight span over
@@ -137,8 +137,8 @@ Phases (any failure exits non-zero before the result line):
              within 0.1 ms), the exchange with a span recorder against
              without (within 0.2 ms) and the trainer's consensus_err
              metric alone; a 2-step ``--checkpoint-every 2``
-             run loaded into a fresh state and run through steps 3-4,
-             bitwise equal to a 4-step run, async at staleness 1, with
+             run loaded into a fresh state and run through step 3,
+             bitwise equal to a 3-step run, async at staleness 1, with
              the bytes and seconds of save and load; 3 steps of
              ``--microbatches 2`` beside 1, its gradient bitwise the two
              halves' gradients added and halved;
@@ -176,7 +176,26 @@ Phases (any failure exits non-zero before the result line):
              copy, dequant_combine, glue), the loopback rate, each rank's
              peak memory and the card's free memory, and per step the
              async run's wait at the retire and its flight's
-             posted-to-landed beside int8 packed's wait;
+             posted-to-landed beside int8 packed's wait; then tensor
+             parallelism over ranks (``phase_tp``): 4 gloo ranks on
+             cuda:0, 2 nodes x tp 2 (rank r is node r // 2, model index
+             r % 2), first the memory account of the grid; qwen3-0.6b
+             at full width, 7 of 28 layers, trained through ``train.main
+             --model 2`` for 3 int8 packed steps (4 x 512 tokens): #1 and
+             #2 launched once per rank and step, the leaves replicated
+             over a node's ranks bitwise equal on both, each rank's
+             x_next, x_tilde and m_agg of every step bitwise the stacked
+             runtime's over the two nodes' shards of its model index (the
+             optimizer's outputs replayed), the step-1 losses within
+             1e-5 of a tp = 1 forward of the same weights at the padded
+             vocabulary; then on node 0's two ranks qwen3-0.6b (7 layers,
+             head-sharded: 4 kv heads a rank) and the full smollm-135m
+             (sequence-sharded: every head on each rank) served at tp 2,
+             4 prompts of 512 tokens and 16 new: the same tokens on both
+             ranks and at tp = 1, the decode logits within ZOO_LOGIT_TOL
+             of the tp = 1 serve's, #9 launched layers x 15 times a rank,
+             one decode step through the plain #9 within SERVE_LOGIT_TOL;
+             step time, ``tp_wire_s`` and ``tp_bytes_sent`` per rank;
 4. serve   — ``repro_torch.launch.serve.main`` on the full smollm-135m:
              32 prompts of 1,984 tokens and 64 new tokens (capacity 2,048,
              a 3.0 GB float32 KV cache): the flash-decode kernel launched
@@ -188,10 +207,10 @@ Phases (any failure exits non-zero before the result line):
              decode kernel's share of the step and the device's idle share;
 4b. zoo    — the dense model zoo at full width on random weights from
              seed 0 (``phase_zoo``), each model freed before the next:
-             ``serve.main`` on gemma2-9b at 5 of its 21 periods (10
+             ``serve.main`` on gemma2-9b at 3 of its 21 periods (6
              layers, 4 x 6,080 + 64 tokens), gemma2-9b ``--long-serve``
-             at 2 periods (1 x 32,832 + 64: the 32,768 cap of its 'A'
-             blocks bites), yi-9b at 12 of its 48 layers (8 x 1,984 +
+             at 1 period (1 x 32,832 + 64: the 32,768 cap of its 'A'
+             blocks bites), yi-9b at 6 of its 48 layers (8 x 1,984 +
              64), chameleon-34b at 3 of its 48 layers (4 x 1,984 + 64)
              and qwen3-0.6b at 7 of its 28 layers (32 x 1,984 + 64),
              each counted: #9 launched layers x 63 times
@@ -494,7 +513,9 @@ KVH, GROUP, HEAD_DIM = 3, 3, 64
 #: period (b 4, capacity 2,112, 8 KV heads of 128, g 4); whisper-small
 #: (``phase_whisper``: b 32, 12 KV heads of 64, g 1) its decoder's
 #: self-attention over its 448-position context and its cross attention
-#: over 1,504 frames, every one valid
+#: over 1,504 frames, every one valid; ``phase_tp``'s serves at tp 2 a
+#: rank's cache: qwen3-0.6b head-sharded (b 4, capacity 528, 4 of the 8 KV
+#: heads, g 2) and smollm-135m sequence-sharded (every head: 3 of 64, g 3)
 DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, KVH, GROUP,
                            HEAD_DIM),
                  "decode_32k": (128, 32768, KVH, GROUP, HEAD_DIM),
@@ -508,14 +529,17 @@ DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, KVH, GROUP,
                  "deepseek-moe-16b": (2, 2048, 16, 1, 128),
                  "jamba-v0.1-52b": (4, 2112, 8, 4, 128),
                  "whisper-small": (32, 448, 12, 1, 64),
-                 "whisper-small cross": (32, 1504, 12, 1, 64)}
+                 "whisper-small cross": (32, 1504, 12, 1, 64),
+                 "qwen3-0.6b tp2": (4, 528, 4, 2, 128),
+                 "smollm-135m tp2": (4, 528, 3, 3, 64)}
 #: the softcap each shape is also held with (gemma2-9b's own is 50)
 DECODE_SOFTCAP = {"serve": 30.0, "decode_32k": 30.0, "long_500k": 50.0,
                   "qwen3-0.6b": 30.0, "yi-9b": 30.0, "chameleon-34b": 30.0,
                   "gemma2-9b": 50.0, "gemma2-9b long-serve": 50.0,
                   "granite-moe-3b-a800m": 30.0, "deepseek-moe-16b": 30.0,
                   "jamba-v0.1-52b": 30.0, "whisper-small": 30.0,
-                  "whisper-small cross": 30.0}
+                  "whisper-small cross": 30.0,
+                  "qwen3-0.6b tp2": 30.0, "smollm-135m tp2": 30.0}
 #: the sliding window a shape's masks also take: gemma2-9b's 'L' blocks
 #: (4,096), and the long-serve cap of its 'A' blocks (32,768)
 DECODE_WINDOW = {"long_500k": 4096, "gemma2-9b": 4096,
@@ -2274,10 +2298,11 @@ def phase_elastic_timing(torch, train):
     return ms
 
 
-#: the telemetry phase: 4 steps of each transport with and without
-#: ``--telemetry``; the checkpoint resume (2 + 2 against 4 steps: the async
-#: s1 run without telemetry); 3 steps of ``--microbatches 2`` and of 1
-TEL_STEPS, MICRO_STEPS = 4, 3
+#: the telemetry phase: 3 steps of each transport with and without
+#: ``--telemetry`` (4 until tensor parallelism, cut for the script's
+#: time); the checkpoint resume (2 + 1 against 3 steps: the async s1 run
+#: without telemetry); 3 steps of ``--microbatches 2`` and of 1
+TEL_STEPS, MICRO_STEPS = 3, 3
 CKPT_STEPS = TEL_STEPS
 TEL_RUNS = {"packed": (),
             "pipelined 4": ("--wire-packing", "pipelined",
@@ -2333,7 +2358,7 @@ def tel_trace_checks(label, sink, trace_path, hist):
 def phase_telemetry(torch, train, entries, main_int8):
     """Telemetry, checkpoints and gradient accumulation on the full
     smollm-135m x 4 nodes, int8 fixed grid, each trainer run counted:
-    (a) ``--telemetry`` for 4 steps on packed, pipelined 4 and async s1
+    (a) ``--telemetry`` for 3 steps on packed, pipelined 4 and async s1
     beside the same run without it: the sink valid, every phase in the
     trace, async's in-flight span over the next step's compute, shipped
     bytes = the int8 payload, losses and metrics of every step, final
@@ -2343,7 +2368,7 @@ def phase_telemetry(torch, train, entries, main_int8):
     exchange with and without a recorder, and the trainer's
     ``consensus_err`` metric timed alone; (b) a 2-step run
     saving at step 2 (``--checkpoint-every 2``), loaded into a fresh state
-    of another seed and run through steps 3-4, bitwise equal to the 4-step
+    of another seed and run through step 3, bitwise equal to the 3-step
     async s1 run of (a) without telemetry, with bytes and seconds of save
     and load; (c)
     ``--microbatches 2`` for 3 steps beside the main phase's int8 run
@@ -2985,16 +3010,17 @@ def phase_serve_parity(torch):
 #: weights from seed 0: (label, arch, periods (None: the full depth),
 #: long-serve, sequences, prompt tokens); every run adds ZOO_NEW tokens.
 #: Depths cut for the script's time (#9's shapes are per layer): gemma2-9b
-#: 5 of 21 periods, yi-9b 12 of 48 layers, qwen3-0.6b 7 of 28 and
-#: chameleon-34b 3 of 48 (full depth, and 12 layers of chameleon-34b,
-#: until the process ring's 5-rank group; half again when the ring ran
-#: membership, hierarchy and a checkpoint)
+#: 3 of 21 periods (1 long-serve), yi-9b 6 of 48 layers, qwen3-0.6b 7 of
+#: 28 and chameleon-34b 3 of 48 (full depth, and 12 layers of
+#: chameleon-34b, until the process ring's 5-rank group; half again when
+#: the ring ran membership, hierarchy and a checkpoint; gemma2-9b and yi-9b
+#: halved again when tensor parallelism came, ``phase_tp``)
 ZOO_NEW = 64
 ZOO_SERVE = (
-    ("gemma2-9b, 5 of 21 periods", "gemma2-9b", 5, False, 4, 6080),
-    ("gemma2-9b long-serve, 2 of 21 periods", "gemma2-9b", 2, True, 1,
+    ("gemma2-9b, 3 of 21 periods", "gemma2-9b", 3, False, 4, 6080),
+    ("gemma2-9b long-serve, 1 of 21 periods", "gemma2-9b", 1, True, 1,
      32832),
-    ("yi-9b, 12 of 48 layers", "yi-9b", 12, False, 8, 1984),
+    ("yi-9b, 6 of 48 layers", "yi-9b", 6, False, 8, 1984),
     ("chameleon-34b, 3 of 48 layers", "chameleon-34b", 3, False, 4, 1984),
     ("qwen3-0.6b, 7 of 28 layers", "qwen3-0.6b", 7, False, 32, 1984),
 )
@@ -3386,12 +3412,13 @@ def phase_zoo(torch, Q, D, G, train, entries):
 
 #: the mixture-of-experts serve runs (``phase_moe``): (label, arch, periods
 #: (None: full depth), batch, prompt), each at full width with 64 new tokens
-#: and freed before the next.  granite-moe-3b-a800m: 8 of its 32 layers
+#: and freed before the next.  granite-moe-3b-a800m: 4 of its 32 layers
 #: (all 32 until the process ring's 5-rank group, 16 until it ran
-#: membership, hierarchy and a checkpoint, cut for time); deepseek-moe-16b: its dense 'D' prelude and
+#: membership, hierarchy and a checkpoint, 8 until tensor parallelism,
+#: cut for time); deepseek-moe-16b: its dense 'D' prelude and
 #: 27 'E' periods, 65.5 GB of weights
 MOE_SERVE = (
-    ("granite-moe-3b-a800m", "granite-moe-3b-a800m", 8, 32, 1984),
+    ("granite-moe-3b-a800m", "granite-moe-3b-a800m", 4, 32, 1984),
     ("deepseek-moe-16b", "deepseek-moe-16b", None, 2, 1984),
 )
 #: the MoE trainer: granite-moe-3b-a800m at full width cut to 3 of its 32
@@ -3863,12 +3890,12 @@ def phase_moe(torch, Q, D, G, train, entries):
 #: are multiples of the scan's 256-token chunk (2,048, not the zoo's
 #: 1,984); 32,768 is prefill_32k's length (``src/repro/models/config.py:
 #: 164``), 128 chunks per layer, so the state crosses 127 chunk borders.
-#: mamba2-1.3b serves 12 of its 48 layers (all 48 until the process ring's
+#: mamba2-1.3b serves 6 of its 48 layers (all 48 until the process ring's
 #: 5-rank group, 24 until it ran membership, hierarchy and a checkpoint,
-#: cut for the script's time)
+#: 12 until tensor parallelism, cut for the script's time)
 SSM_SERVE = (
-    ("mamba2-1.3b, 12 of 48 layers", "mamba2-1.3b", 12, False, 32, 2048),
-    ("mamba2-1.3b, prefill_32k, 12 of 48 layers", "mamba2-1.3b", 12, False,
+    ("mamba2-1.3b, 6 of 48 layers", "mamba2-1.3b", 6, False, 32, 2048),
+    ("mamba2-1.3b, prefill_32k, 6 of 48 layers", "mamba2-1.3b", 6, False,
      1, 32768),
 )
 #: mamba2-1.3b's decode logits against its train-mode forward (absolute
@@ -3895,7 +3922,7 @@ SSM_TRAIN_WIRE_BYTES = 624_318_720
 
 
 def phase_ssm(torch, Q, D, G, train, entries):
-    """The state-space family at full width: mamba2-1.3b served at 24 of
+    """The state-space family at full width: mamba2-1.3b served at 6 of
     its 48 layers (``SSM_SERVE``: no kernel launched, decode against a
     forward),
     jamba-v0.1-52b at 1 of 4 periods through ``moe_serve`` (#9 on its 'A'
@@ -4565,13 +4592,15 @@ DECODE_TIMING_SETS = {"serve": 4, "decode_32k": 1, "long_500k": 1,
                       "gemma2-9b": 1, "gemma2-9b long-serve": 1,
                       "granite-moe-3b-a800m": 1, "deepseek-moe-16b": 4,
                       "jamba-v0.1-52b": 4, "whisper-small": 4,
-                      "whisper-small cross": 4}
+                      "whisper-small cross": 4,
+                      "qwen3-0.6b tp2": 4, "smollm-135m tp2": 4}
 DECODE_TIMING_REPS = {"serve": 200, "decode_32k": 20, "long_500k": 20,
                       "qwen3-0.6b": 100, "yi-9b": 200, "chameleon-34b": 200,
                       "gemma2-9b": 100, "gemma2-9b long-serve": 100,
                       "granite-moe-3b-a800m": 100, "deepseek-moe-16b": 200,
                       "jamba-v0.1-52b": 200, "whisper-small": 200,
-                      "whisper-small cross": 200}
+                      "whisper-small cross": 200,
+                      "qwen3-0.6b tp2": 200, "smollm-135m tp2": 200}
 #: ranges per row the decode timing also tries (``gqa_decode(ranges=)``);
 #: long_500k's rows take 16 ranges at the least
 DECODE_SWEEP = {"serve": (1, 2, 3, 4, 8), "decode_32k": (1, 2, 4),
@@ -4579,7 +4608,8 @@ DECODE_SWEEP = {"serve": (1, 2, 3, 4, 8), "decode_32k": (1, 2, 4),
                 "gemma2-9b": (), "gemma2-9b long-serve": (),
                 "long_500k": (), "granite-moe-3b-a800m": (),
                 "deepseek-moe-16b": (), "jamba-v0.1-52b": (),
-                "whisper-small": (), "whisper-small cross": ()}
+                "whisper-small": (), "whisper-small cross": (),
+                "qwen3-0.6b tp2": (), "smollm-135m tp2": ()}
 #: the same for the bfloat16 kernel, whose grid (``decode_splits``: rows x
 #: ranges near 3/4 of the SMs) these sweeps chose
 BF16_DECODE_SWEEP = {"serve": (1, 2, 3, 4), "chameleon-34b": (2, 3, 4, 6, 8)}
@@ -5817,6 +5847,417 @@ def ring_async_steps(ranks: list) -> str:
             "step before): " + "; ".join(rows))
 
 
+#: tensor parallelism over ranks (``phase_tp``): 2 nodes x tp 2 gloo ranks
+#: on cuda:0.  The trainer: qwen3-0.6b at full width, 7 of 28 layers (the
+#: zoo's served depth), 4 x 512 tokens, 3 int8 packed steps on the fixed
+#: grid; serving on node 0's ranks: (label, arch, periods (None: the full
+#: depth), prompts, prompt tokens), TP_NEW tokens each
+TP, TP_NODES, TP_STEPS, TP_NEW = 2, 2, 3, 16
+TP_PERIODS = 7
+TP_TRAIN_ARGV = ("--arch", "qwen3-0.6b", "--periods", str(TP_PERIODS),
+                 "--model", str(TP), "--algorithm", "adc_dgd", "--batch",
+                 str(2 * TP_NODES), "--seq", "512", "--steps", str(TP_STEPS),
+                 "--quant-mode", "fixed", "--lr", "1e-2", "--device",
+                 "cuda:0", *NO_REMAT)
+TP_SERVE = (("qwen3-0.6b, 7 of 28 layers, head-sharded", "qwen3-0.6b",
+             TP_PERIODS, 4, 512),
+            ("smollm-135m, sequence-sharded", "smollm-135m", None, 4, 512))
+#: the step-1 loss at tp 2 against a tp = 1 forward of the same weights
+TP_LOSS_TOL = 1e-5
+TP_TIMEOUT_S = 600.0
+
+
+def _tp_cfg(arch, periods, tp=1):
+    """``arch`` cut to ``periods`` and, at ``tp`` > 1, its vocabulary
+    padded as the grid pads it (``padded_vocab``): the same function at
+    tp = 1 (ROADMAP hazard 60)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import padded_vocab
+    cfg = get_config(arch)
+    if periods:
+        cfg = dataclasses.replace(cfg, n_periods=periods)
+    return dataclasses.replace(cfg, vocab_size=padded_vocab(cfg, tp))
+
+
+def _tp_serve(torch, G, cfg, b, prompt, ctx=None, plain=False):
+    """Prefill ``b`` prompts of ``prompt`` tokens (from seed 0) and decode
+    TP_NEW - 1 more, on ``ctx``'s tp group (None: one device): (tokens
+    (b, TP_NEW), the decode logits (b, TP_NEW - 1, V or V / tp), #9's
+    launches, prefill s, decode s per step, and with ``plain`` the max
+    |diff| of one decode step through the plain #9)."""
+    from repro_torch.core import tree as T
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params
+    tp, m = (1, 0) if ctx is None else (ctx.tp, ctx.tp_rank)
+    pre = serve.build_prefill_setup(cfg, device="cuda:0", ctx=ctx)
+    srv = serve.build_serve_setup(cfg, device="cuda:0", ctx=ctx,
+                                  keep_logits=b)
+    params = init_params(pre.defs.storage, 0, "cuda:0", tp=tp, tp_rank=m)
+    real = get_real_vocab(cfg)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, real, (b, prompt), dtype=np.int32), device="cuda:0")
+    G.gqa_decode.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, cache = pre.prefill_step(params, {"tokens": prompts},
+                                  prompt + TP_NEW)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    state, toks, logits = {"params": params, "cache": cache,
+                           "tokens": ids}, [ids], []
+    for _ in range(TP_NEW - 1):
+        state = srv.serve_step(state)
+        toks.append(state["tokens"])
+        logits.append(state["logits"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = {"tokens": torch.cat(toks, dim=1).cpu(),
+           "logits": torch.stack(logits, dim=1).cpu(),
+           "launches": G.gqa_decode.launches, "prefill_s": t1 - t0,
+           "decode_s": (t2 - t1) / (TP_NEW - 1),
+           "kv": tuple(cache["layers"][0]["attn"]["k"].shape)}
+    del state, cache
+    if plain:
+        with torch.inference_mode():
+            first, cache = pre.prefill_step(params, {"tokens": prompts},
+                                            prompt + 1)
+            twin = {k: (v if k == "len" else T.tree_map(torch.clone, v))
+                    for k, v in cache.items()}
+            _, _, kern = TF.greedy_decode_step(params, srv.defs, first,
+                                               cache)
+            saved, ops.gqa_decode = ops.gqa_decode, G.gqa_decode_plain
+            try:
+                _, _, pl = TF.greedy_decode_step(params, srv.defs, first,
+                                                 twin)
+            finally:
+                ops.gqa_decode = saved
+        out["plain_err"] = float((kern - pl).abs().max())
+        del cache, twin, kern, pl
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def get_real_vocab(cfg) -> int:
+    """The registry's vocabulary of ``cfg``'s arch (before padding)."""
+    from repro_torch.configs import get_config
+    return get_config(cfg.arch_id).vocab_size
+
+
+def tp_rank() -> dict:
+    """One rank of ``phase_tp`` (``launch.mesh.run_ranks``, on cuda:0):
+    the trainer through ``train.main --model 2`` with every exchange's
+    x_half kept and its outputs fingerprinted, #1 / #2 counted; then the
+    stacked runtime's replay of the two nodes' exchanges of this model
+    index (one model index at a time: the other's ranks wait); then on
+    node 0 the two serves (``_tp_serve``)."""
+    import torch
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core import tree as T
+    from repro_torch.core.distributed import ConsensusRuntime
+    from repro_torch.kernels import dequant_combine as D
+    from repro_torch.kernels import gqa_decode as G
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as TF
+    train.measure_consensus_overhead = _no_probe
+    exchange, seen = ConsensusRuntime.exchange, []
+
+    def keep(self, x_prev, x_half, state, step, seed=0, noise=None):
+        if not seen:
+            seen.append({"rt": self, "x0": [a.clone() for a in
+                                            T.tree_leaves(x_prev)]})
+        half = [a.clone() for a in T.tree_leaves(x_half)]
+        x, st, m = exchange(self, x_prev, x_half, state, step, seed, noise)
+        seen.append({"step": step, "seed": seed, "half": half,
+                     "fp": [fingerprint(torch, a) for a in
+                            (*T.tree_leaves(x), st["x_tilde"],
+                             st["m_agg"])]})
+        return x, st, m
+    ConsensusRuntime.exchange = keep
+    Q.quantize_payload.launches = D.dequant_combine_payload.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist, state = train.main(list(TP_TRAIN_ARGV), return_state=True)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    ConsensusRuntime.exchange = exchange
+    # what the run leaves on the card (state, history and the replay's
+    # records) against its peak: the rest of the peak is the step's
+    records = sum(a.numel() * a.element_size() for rec in seen
+                  for a in rec.get("x0", []) + rec.get("half", []))
+    live_gb = torch.cuda.memory_allocated() / 1e9
+    out = {"launches": {"quantize_payload": Q.quantize_payload.launches,
+                        "dequant_combine_payload":
+                        D.dequant_combine_payload.launches},
+           "hist": [{k: v for k, v in h.items() if k != "node_loss"}
+                    for h in hist],
+           "node_loss": hist[0]["node_loss"].tolist(),
+           "train_s": train_s,
+           "train_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "train_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
+           "train_live_gb": live_gb, "records_gb": records / 1e9}
+    rt = seen[0]["rt"]
+    ctx = rt.ctx
+    out["node"], out["m"] = ctx.rank, ctx.tp_rank
+    defs = TF.build_defs(_tp_cfg("qwen3-0.6b", TP_PERIODS),
+                         ctx=ctx).storage
+    out["replicated"] = [fingerprint(torch, a) for d, a in zip(
+        T.tree_leaves(defs), T.tree_leaves(state["params"]))
+        if d.tp_dim is None]
+    del state, hist
+    torch.cuda.empty_cache()
+    treedef = T.tree_flatten(defs)[1]
+    x0, steps = seen[0]["x0"], seen[1:]
+    replay_ok = []
+    for turn in range(ctx.tp):
+        if ctx.tp_rank == turn:
+            def both(mine):           # this model index's two nodes' rows
+                other = ctx.ppermute_ring(mine, 1, slot="tp replay")
+                return torch.cat([mine, other] if ctx.rank == 0
+                                 else [other, mine])
+            srt = ConsensusRuntime(rt.cfg, rt.n_nodes)
+            x = T.tree_unflatten(treedef, [both(a) for a in x0])
+            st = srt.init_state(x)
+            r = ctx.rank
+            for rec in steps:
+                half = T.tree_unflatten(treedef, [both(a) for a in
+                                                  rec.pop("half")])
+                x, st, _ = srt.exchange(x, half, st, rec["step"],
+                                        seed=rec["seed"])
+                got = [fingerprint(torch, a[r:r + 1]) for a in
+                       (*T.tree_leaves(x), st["x_tilde"], st["m_agg"])]
+                replay_ok.append(got == rec["fp"])
+                del half
+            del x, st, srt
+            torch.cuda.empty_cache()
+        dist.barrier(group=ctx.group)
+    out["replay_ok"] = replay_ok
+    del seen[:], x0, steps
+    torch.cuda.empty_cache()
+    out["serve"] = {}
+    if ctx.rank == 0:
+        for label, arch, periods, b, prompt in TP_SERVE:
+            ctx.reset_tp_stats()
+            res = _tp_serve(torch, G, _tp_cfg(arch, periods, TP), b, prompt,
+                            ctx, plain=True)
+            res["tp_stats"] = ctx.tp_stats()
+            out["serve"][label] = res
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    dist.barrier(group=ctx.group)
+    return out
+
+
+def tp_memory_account(torch) -> str:
+    """The grid's memory before its first run (ROADMAP hazard 59): per
+    rank the trainer's tp-local weights, its float32 shadows x_tilde and
+    m_agg, the stacked replay's (both nodes' weights, x_half, shadows and
+    the exchange's temporaries, one model index at a time) and the
+    largest activation (the vocabulary shard's logits); the staged
+    buffers are pinned host memory, not the card's."""
+    import types
+    from repro_torch.core import tree as T
+    from repro_torch.core import wire
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import meta_params
+    cfg = _tp_cfg("qwen3-0.6b", TP_PERIODS)
+    defs = TF.build_defs(cfg, ctx=types.SimpleNamespace(tp=TP))
+    local = meta_params(defs.storage, tp=TP)
+    w = sum(a.numel() * 4 for a in T.tree_leaves(local))
+    rows = wire.WireLayout.for_tree(local).n_rows
+    shadows = 2 * rows * BLOCK * 4
+    logits = 2 * 512 * defs.storage["embed"]["table"].shape[0] // TP * 4
+    replay = 2 * (2 * w + 2 * shadows) + 4 * rows * BLOCK * 4 * 2
+    per_rank = 3 * w + shadows + 2 * logits + 4 * w      # + grads, x_half
+    return rows, (
+        f"tp-local weights {w / 1e9:.2f} GB a rank ({rows} payload rows), "
+        f"shadows {shadows / 1e9:.2f} GB, logits {logits / 1e9:.2f} GB; the "
+        f"trainer ~{per_rank / 1e9:.1f} GB a rank, {TP * TP_NODES} ranks "
+        f"~{TP * TP_NODES * per_rank / 1e9:.1f} GB; the replay "
+        f"~{replay / 1e9:.1f} GB on each of {TP_NODES} ranks at once")
+
+
+def tp_kernels(torch, rows: int) -> str:
+    """#1 and #2 at the trainer's tp-local packed rows, against their
+    plain versions (payload bytes equal, combine within 1 ulp) and timed
+    beside their byte bounds (the bytes ``phase_timing`` counts)."""
+    from repro_torch.kernels import dequant_combine as D
+    from repro_torch.kernels import quantize as Q
+    g = torch.Generator(device="cuda")
+    g.manual_seed(5)
+    y = torch.randn((rows, BLOCK), generator=g, device="cuda") * 0.05
+    u = torch.rand((rows, BLOCK), generator=g, device="cuda")
+    xt = torch.randn((rows, BLOCK), generator=g, device="cuda")
+    mb = torch.randn((rows, BLOCK), generator=g, device="cuda")
+    if not torch.equal(Q.quantize_payload(y, u, 1e-3),
+                       Q.quantize_payload_plain(y, u, 1e-3)):
+        fail(f"quantize_payload at {rows} tp-local rows differs from the "
+             "plain version")
+    pays = [Q.quantize_payload(y * (i + 1), u, 1e-3) for i in range(3)]
+    a = D.dequant_combine_payload(*pays, xt, mb, 0.5, 0.25, 1.0)
+    b = D.dequant_combine_payload_plain(*pays, xt, mb, 0.5, 0.25, 1.0)
+    ulp = max(ulp_diff(x, z) for x, z in zip(a, b))
+    if ulp > 1:
+        fail(f"dequant_combine_payload at {rows} tp-local rows differs from "
+             f"the plain version by {ulp} ulp")
+    rows_b = rows * BLOCK * 4
+    out = []
+    for name, fn, nbytes in (
+            ("quantize_payload", lambda: Q.quantize_payload(y, u, 1e-3),
+             2 * rows_b + rows * PAYLOAD),
+            ("dequant_combine_payload",
+             lambda: D.dequant_combine_payload(*pays, xt, mb, 0.5, 0.25, 1.0),
+             3 * rows * PAYLOAD + 5 * rows_b)):
+        ms = kernel_time(f"{name} at {rows} tp-local rows", fn)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out.append(f"{name} {ms:.4f} ms (bound {bound:.4f} ms, "
+                   f"{bound / ms:.0%})")
+    return (f"#1 / #2 at the trainer's {rows} tp-local rows: payload bytes "
+            f"equal to the plain version, combine within {ulp} ulp; "
+            + ", ".join(out))
+
+
+def phase_tp(torch, G, entries):
+    """Tensor parallelism over ranks on one card (the docstring's phase 3
+    ends with it).  The tp = 1 references run here first, on this
+    process: the two serves at the padded vocabulary and the trainer's
+    step-1 node losses (a forward of the same weights on each node's rows
+    of the trainer's first batch).  Returns (the ranks' launches, summary
+    lines)."""
+    import gc
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.data.pipeline import node_rows
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.params import init_params
+    t_phase = time.perf_counter()
+    rows, account = tp_memory_account(torch)
+    print(f"[tp] memory account: {account}", flush=True)
+    summary = [f"memory account (before the run): {account}",
+               tp_kernels(torch, rows)]
+    print(f"[tp] {summary[-1]}", flush=True)
+    ones = {label: _tp_serve(torch, G, _tp_cfg(arch, periods, TP), b, prompt)
+            for label, arch, periods, b, prompt in TP_SERVE}
+    cfg = _tp_cfg("qwen3-0.6b", TP_PERIODS, TP)
+    defs = TF.build_defs(cfg)
+    params = init_params(defs.storage, 0, "cuda:0")
+    ds = SyntheticLMDataset(get_real_vocab(cfg), 512, 2 * TP_NODES,
+                            n_shards=TP_NODES)
+    batch = ds.global_batch_arrays(0)
+    loss1 = []
+    with torch.no_grad():
+        for node in range(TP_NODES):
+            rows = node_rows(2 * TP_NODES, TP_NODES, node)
+            mb = {k: torch.as_tensor(v[rows], device="cuda:0")
+                  for k, v in batch.items()}
+            loss1.append(float(TF.train_loss(params, defs, mb,
+                                             remat=False)[0]))
+    del params
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = RING_ALLOC_CONF
+    t0 = time.perf_counter()
+    try:
+        ranks = run_ranks(tp_rank, TP * TP_NODES, timeout_s=TP_TIMEOUT_S)
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    ranks_s = time.perf_counter() - t0
+    launches = {name: 0 for name in entries}
+    for r, res in enumerate(ranks):
+        if (res["node"], res["m"]) != divmod(r, TP):
+            fail(f"phase_tp: rank {r} is node {res['node']}, model index "
+                 f"{res['m']}")
+        for name, n in res["launches"].items():
+            if n != TP_STEPS:
+                fail(f"phase_tp: rank {r} launched {name} {n} times in "
+                     f"{TP_STEPS} steps (want one a step)")
+            launches[name] += n
+        if len(res["replay_ok"]) != TP_STEPS or not all(res["replay_ok"]):
+            fail(f"phase_tp: rank {r}'s x_next / x_tilde / m_agg differ "
+                 f"from the stacked runtime's over its model index's shards "
+                 f"at steps {res['replay_ok']}")
+        if res["replicated"] != ranks[r - r % TP]["replicated"]:
+            fail(f"phase_tp: rank {r}'s replicated leaves differ from its "
+                 "node's model index 0's after the run")
+        got = res["node_loss"]
+        if any(abs(a - b) > TP_LOSS_TOL for a, b in zip(got, loss1)):
+            fail(f"phase_tp: step-1 node losses {got} at tp {TP}, {loss1} "
+                 "at tp = 1")
+    for label, arch, periods, b, prompt in TP_SERVE:
+        one, serve_ranks = ones[label], [res["serve"][label]
+                                         for res in ranks[:TP]]
+        layers = _tp_cfg(arch, periods).n_layers
+        for m, res in enumerate(serve_ranks):
+            if not torch.equal(res["tokens"], one["tokens"]):
+                fail(f"phase_tp: {label}: rank {m}'s tokens differ from the "
+                     "tp = 1 serve's")
+            if res["launches"] != layers * (TP_NEW - 1):
+                fail(f"phase_tp: {label}: #9 launched {res['launches']} "
+                     f"times on rank {m} (want {layers * (TP_NEW - 1)})")
+            if res["plain_err"] > SERVE_LOGIT_TOL:
+                fail(f"phase_tp: {label}: a decode step through the plain "
+                     f"#9 differs by {res['plain_err']} on rank {m}")
+        full = torch.cat([res["logits"] for res in serve_ranks], dim=-1)
+        err = float((full - one["logits"]).abs().max())
+        if not torch.allclose(full, one["logits"], atol=ZOO_LOGIT_TOL,
+                              rtol=ZOO_LOGIT_TOL):
+            fail(f"phase_tp: {label}: decode logits at tp {TP} differ from "
+                 f"tp = 1 by {err}")
+        launches["gqa_decode"] += sum(res["launches"] for res in serve_ranks)
+        line = (f"{label} at tp {TP}, {b} x {prompt} + {TP_NEW}: tokens equal "
+                f"on both ranks and at tp = 1, logits max |diff| {err:.3g} "
+                f"(tol {ZOO_LOGIT_TOL}), plain #9 "
+                + ", ".join(f"{res['plain_err']:.3g}" for res in serve_ranks)
+                + f"; kv cache a rank {serve_ranks[0]['kv']}; prefill "
+                + ", ".join(f"{res['prefill_s']:.3f}" for res in serve_ranks)
+                + f" s (tp = 1 {one['prefill_s']:.3f}), decode "
+                + ", ".join(f"{res['decode_s'] * 1e3:.2f}"
+                            for res in serve_ranks)
+                + f" ms a step (tp = 1 {one['decode_s'] * 1e3:.2f}); "
+                + "; ".join(f"rank {m} tp_wire_s "
+                            f"{res['tp_stats']['tp_wire_s']:.3f} tp_bytes_sent "
+                            f"{res['tp_stats']['tp_bytes_sent']}"
+                            for m, res in enumerate(serve_ranks)))
+        print(f"[tp] {line}", flush=True)
+        summary.append(line)
+    for r, res in enumerate(ranks):
+        h = res["hist"]
+        line = (f"trainer rank {r} (node {res['node']}, model index "
+                f"{res['m']}): step s "
+                + ", ".join(f"{x['step_s']:.3f}" for x in h)
+                + "; tp_wire_s " + ", ".join(f"{x['tp_wire_s']:.3f}"
+                                              for x in h)
+                + f"; tp_bytes_sent {h[-1]['tp_bytes_sent']}; wire_s "
+                + ", ".join(f"{x['wire_s']:.3f}" for x in h)
+                + f"; wire_bytes_sent {h[-1]['wire_bytes_sent']}; "
+                f"consensus_err_wire_s {h[-1]['consensus_err_wire_s']:.3f};"
+                f" losses " + ", ".join(f"{x['loss']:.5f}" for x in h)
+                + f"; peak {res['train_peak_gb']:.2f} GB (reserved "
+                f"{res['train_reserved_gb']:.2f}; held after the run "
+                f"{res['train_live_gb']:.2f}, of which the replay's records "
+                f"{res['records_gb']:.2f}), with the replay and serving "
+                f"{res['peak_gb']:.2f} GB")
+        print(f"[tp] {line}", flush=True)
+        summary.append(line)
+    line = (f"step-1 node losses {ranks[0]['node_loss']} at tp {TP}, "
+            f"{loss1} at tp = 1; replicated leaves bitwise equal on each "
+            f"node's ranks; every rank's exchanges bitwise the stacked "
+            f"runtime's; phase_tp {time.perf_counter() - t_phase:.1f} s "
+            f"(the ranks {ranks_s:.1f} s, start-up included)")
+    print(f"[tp] {line}", flush=True)
+    summary.append(line)
+    return launches, summary
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5901,6 +6342,9 @@ def main() -> None:
         launches[name] += n
     ring_launches, ring_summary = phase_process_ring(torch, train, entries)
     for name, n in ring_launches.items():
+        launches[name] += n
+    tp_launches, tp_summary = phase_tp(torch, G, entries)
+    for name, n in tp_launches.items():
         launches[name] += n
     serve_launches, _ = phase_serve(torch, serve, entries)
     launches["gqa_decode"] += serve_launches["gqa_decode"]
@@ -6010,6 +6454,8 @@ def main() -> None:
         print(f"[summary] {line}; card {smi}")
     for line in ring_summary:
         print(f"[summary] {line}; card {smi}")
+    for line in tp_summary:
+        print(f"[summary] tp {line}; card {smi}")
     for label, z in zoo_summary.items():
         print(f"[summary] zoo {label}: "
               + ", ".join(f"{k} {v!r}" for k, v in z.items())

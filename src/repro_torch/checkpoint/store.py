@@ -110,6 +110,10 @@ def _write_npz(path: str, members) -> None:
 
 
 def _ring(ctx) -> bool:
+    if ctx is not None and ctx.tp > 1:
+        raise NotImplementedError(
+            f"tp={ctx.tp}: checkpoints of a tensor-parallel grid are not yet "
+            "ported (ROADMAP Queue 1 item 5d)")
     return ctx is not None and ctx.process_ring
 
 

@@ -131,6 +131,17 @@ pod p first adds the other members' fp32 deltas in member order
 outer exchange as its pod's replica: member j talks to member j of the
 neighbouring pods, draws its pod's noise and reads its pod's column of the
 fault masks, so every member holds the stacked representative's bits.
+Over a tensor-parallel grid (``ctx.tp`` > 1) each rank holds its node's
+tp-local leaves: the packed buffer is built from them (the reference's
+``consensus_wire_layout`` of the local shard), the noise is seeded per
+node and never per model index (the reference's ``_device_key``), so a
+leaf replicated over the node's ranks receives the same bits on each, and
+every transfer goes to the rank of the neighbouring node that has the
+same model index; ``consensus_err`` is summed over the tp group as the
+reference sums it.  There the runtime runs the default config (``adc_dgd``
+packed int8 at stride 1, fixed or adaptive ``quant_mode``) and ``dgd``,
+``allreduce`` and ``none``; every other option raises
+``NotImplementedError`` (ROADMAP Queue 1 item 5d).
 The process ring runs every algorithm, codec, transport, stride schedule,
 fault, topology, membership schedule and hierarchy of the stacked
 runtime.
@@ -570,6 +581,8 @@ class ConsensusRuntime:
                 raise ValueError(
                     f"n_nodes={n_nodes}, but the process ring has "
                     f"{self.ctx.total_consensus_nodes} ranks")
+        if self.ctx.tp > 1:
+            check_tp(config, self.ctx.tp)
         #: nodes this process holds (the leading axis of its tensors)
         self.n_local = 1 if self.ctx.process_ring else n_nodes
         hier = config.hierarchy
@@ -1901,6 +1914,34 @@ class ConsensusRuntime:
                 zip(T.tree_leaves(x_half), prev))])
 
 
+def check_tp(config: ConsensusConfig, tp: int) -> None:
+    """``NotImplementedError`` unless ``config`` lies in the ported slice
+    of tensor parallelism (the runtime's docstring), naming what does
+    not."""
+    default = ConsensusConfig()
+    off = [name for name, bad in (
+        (f"algorithm {config.algorithm}",
+         config.algorithm not in ("adc_dgd", "dgd", "allreduce", "none")),
+        (f"the {config.wire_packing} transport",
+         config.wire_packing != "packed"),
+        (f"wire codec {config.wire_codec}", config.wire_codec != "int8"),
+        (f"ring strides {config.ring_strides}",
+         tuple(config.ring_strides) != (1,)),
+        (f"topology {config.topology}", config.topology != "ring"),
+        ("push-sum", config.push_sum_enabled),
+        ("link faults", config.faults_enabled),
+        ("stragglers", config.straggle_rate is not None),
+        ("membership", config.membership is not None),
+        ("hierarchy", config.hierarchy is not None),
+        ("telemetry", config.telemetry),
+        ("a byte budget", config.byte_budget != default.byte_budget)) if bad]
+    if off:
+        raise NotImplementedError(
+            f"tp={tp}: {', '.join(off)} on a tensor-parallel grid is not "
+            "yet ported (ROADMAP Queue 1 item 5d: TP with the ring "
+            "runtime's other options)")
+
+
 def _f32(v: float) -> float:
     """A Python float rounded to float32, as the reference's
     ``jnp.float32(v)`` constants are."""
@@ -1997,8 +2038,11 @@ def _consensus_error(params,
     float32(1/N); each node adds its leaves' sums of squares, the nodes'
     totals are added in node order, and the total is multiplied by
     float32(1/N).  Within a leaf the elements are added in PyTorch's order.
-    Over processes the nodes' totals are gathered to every rank; ``ctx``
-    defaults to the stacked context."""
+    Over processes the nodes' totals are gathered to every rank; over a
+    tensor-parallel grid each rank's total covers its shards, and the
+    model indices' sums over the nodes are added in model-index order (the
+    reference's ``psum`` over ``model``; a replicated leaf counts once per
+    rank, as there).  ``ctx`` defaults to the stacked context."""
     ctx = local_context() if ctx is None else ctx
     leaves = T.tree_leaves(params)
     n = _ring_count(leaves[0], ctx)
@@ -2013,8 +2057,11 @@ def _consensus_error(params,
         d = _fma(s, -inv_n, x)
         e = (d * d).reshape(x.shape[0], -1).sum(dim=1)
         per_node = e if per_node is None else per_node + e
-    per_node = ctx.gather_nodes(per_node)
-    total = per_node[0]
-    for i in range(1, n):
-        total = total + per_node[i]
+    per_node = ctx.gather_nodes(per_node, over_tp=True)
+    total = None
+    for m in range(ctx.tp):
+        part = per_node[m]
+        for i in range(1, n):
+            part = part + per_node[i * ctx.tp + m]
+        total = part if total is None else total + part
     return total * inv_n

@@ -17,8 +17,8 @@ would put on the ring of several cards, priced at ``link_bw``.
 instead.
 
 ``collective_bytes(hlo_text)`` of the reference is not ported: it reads the
-collectives of an SPMD HLO module, which a ring over several cards would
-have (ROADMAP Queue 1, item 5).
+collectives of an SPMD HLO module, which the port's grids do not compile
+to (ROADMAP Queue 1, item 5d-5).
 """
 from __future__ import annotations
 

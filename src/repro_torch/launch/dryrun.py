@@ -50,8 +50,11 @@ Usage (no card needed; the records price the H100 of ``analysis.HW``)::
     PYTHONPATH=src python -m repro_torch.launch.dryrun --shape train_4k \\
         --wire-packing per_leaf          # or --wire-codec int4, topk, ...
 
-``--mesh`` and ``--serve-layout`` of the reference wait for a ring over
-several cards (ROADMAP Queue 1, item 5).
+``--ssm-chunk`` and ``--tag-suffix`` are the reference's (an SSM
+config's chunk of the scan, which must divide the length; a suffix of
+each record's tag).  ``--mesh`` and ``--serve-layout`` of the reference
+wait for tensor parallelism and FSDP priced on ``meta`` (ROADMAP Queue 1,
+item 5d-5).
 """
 from __future__ import annotations
 
@@ -290,9 +293,14 @@ def run_combo(arch_id: str, shape_name: str, out_dir: str,
               skip_existing: bool = True, remat: str = "full",
               microbatches: int = 1, compute_dtype: str = "float32",
               wire_codec: str = "int8", wire_packing: str = "packed",
-              cfg=None) -> dict:
+              cfg=None, ssm_chunk: int | None = None,
+              tag_suffix: str = "") -> dict:
     """Price one combination on ``meta`` and write its record; ``cfg``
-    overrides the registry's config (e.g. a reduced one)."""
+    overrides the registry's config (e.g. a reduced one).  As the
+    reference's: ``ssm_chunk`` replaces an SSM config's chunk of the scan
+    (ValueError unless it is positive and, where the scan runs, divides
+    the length: hazard 30), and ``tag_suffix`` is appended to the tag (the
+    record's file name)."""
     from repro_torch.configs import get_config, shape_applicable
     from repro_torch.models.config import INPUT_SHAPES
 
@@ -300,7 +308,7 @@ def run_combo(arch_id: str, shape_name: str, out_dir: str,
     wire = "" if (wire_codec, wire_packing) == ("int8", "packed") else (
         f"__{wire_codec.replace(':', '-')}-{wire_packing}")
     tag = (f"{arch_id}__{shape_name}__{mesh_name}__{variant}__"
-           f"{compute_dtype}{wire}")
+           f"{compute_dtype}{wire}{tag_suffix}")
     path = os.path.join(out_dir, tag + ".json")
     if skip_existing and os.path.exists(path):
         print(f"[skip existing] {tag}")
@@ -308,6 +316,13 @@ def run_combo(arch_id: str, shape_name: str, out_dir: str,
             return json.load(f)
     cfg = cfg or get_config(arch_id)
     shape = INPUT_SHAPES[shape_name]
+    if ssm_chunk is not None and cfg.ssm_state:
+        if ssm_chunk < 1:
+            raise ValueError(f"ssm_chunk must be positive, got {ssm_chunk}")
+        cfg = dataclasses.replace(cfg, ssm_chunk=ssm_chunk)
+        if shape.kind != "decode":
+            from repro_torch.models.mamba2 import chunk_len
+            chunk_len(cfg, shape.seq_len)
     ok, why = shape_applicable(cfg, shape)
     os.makedirs(out_dir, exist_ok=True)
     if not ok:
@@ -371,6 +386,12 @@ def main(argv=None) -> list:
                          "| topk:k=<int> | a mixed: plan (the trainer's)")
     ap.add_argument("--wire-packing", default="packed",
                     choices=["packed", "pipelined", "async", "per_leaf"])
+    ap.add_argument("--ssm-chunk", type=int, default=None,
+                    help="replace an SSM config's chunk of the scan (it "
+                         "must divide the length)")
+    ap.add_argument("--tag-suffix", default="",
+                    help="appended to each record's tag (file name), for "
+                         "perf experiments")
     args = ap.parse_args(argv)
 
     archs = [args.arch] if args.arch else list(ARCH_IDS)
@@ -386,7 +407,8 @@ def main(argv=None) -> list:
                     microbatches=args.microbatches,
                     compute_dtype=args.compute_dtype,
                     wire_codec=args.wire_codec,
-                    wire_packing=args.wire_packing))
+                    wire_packing=args.wire_packing,
+                    ssm_chunk=args.ssm_chunk, tag_suffix=args.tag_suffix))
             except Exception as e:  # noqa: BLE001 — report and continue
                 failures.append((arch, shape, repr(e)))
                 print(f"[FAIL] {arch} {shape}: {e}")

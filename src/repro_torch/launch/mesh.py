@@ -3,13 +3,19 @@
 Counterpart of ``repro.launch.mesh``.  The reference builds a device mesh
 and runs one consensus node per device under ``shard_map``; the port runs
 one node per process and moves the ring payloads over a
-``torch.distributed`` gloo group (``models.sharding.StagedRing``).
+``torch.distributed`` gloo group (``models.sharding.StagedRing``).  With
+tensor parallelism each node is ``T`` processes: ``WORLD_SIZE = N x T``
+ranks, data-major as the reference's ``(data, model)`` mesh (rank ``r`` is
+node ``r // T``, model index ``r % T``), and each node's ``T`` ranks get a
+gloo group of their own for the tp collectives.
 
 ``make_process_context`` binds a process started by ``torch.distributed.
 run`` (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``) to its node::
 
     python -m torch.distributed.run --nproc-per-node 4 \\
         -m repro_torch.launch.train --process-ring ...
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --model 2 ...       # 2 nodes x tp 2
 
 Its device is ``cuda:<LOCAL_RANK>`` unless the caller names one device
 (``cuda:0``) that every rank then shares, or the CPU.  NCCL refuses two
@@ -20,8 +26,8 @@ temporary directory: no TCP port is chosen or held; a function that
 returns with a ring transfer still in flight fails its rank (the transfer
 is waited first, so the group is never torn down under it).
 
-The production meshes (16 x 16, 2 x 16 x 16) need tensor parallelism and
-FSDP over NCCL: not yet ported.
+The production meshes (16 x 16, 2 x 16 x 16) also need FSDP, and NCCL
+over several cards: not yet ported.
 """
 from __future__ import annotations
 
@@ -46,14 +52,16 @@ RANK_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
 GROUP_TIMEOUT_S = 600.0
 
 
-def make_process_context(device=None) -> ParallelContext:
-    """This process's node of the ring: a gloo group over ``WORLD_SIZE``
-    ranks (joined here unless the process already has its default group)
-    and the rank's device, ``cuda:<LOCAL_RANK>`` by default or ``device``
-    (one that every rank shares, such as ``cuda:0``, or ``cpu``).
-    ``GROUP_TIMEOUT_S`` bounds every wait on the group.  Raises when the
-    launcher's variables are missing or the world has fewer than two
-    ranks."""
+def make_process_context(device=None, tp: int = 1) -> ParallelContext:
+    """This process's place in the grid: a gloo group over ``WORLD_SIZE``
+    = ``N x tp`` ranks (joined here unless the process already has its
+    default group), its node ``RANK // tp`` and model index ``RANK % tp``
+    with a gloo group per node (every rank makes all ``N`` of them, in
+    node order), and the rank's device, ``cuda:<LOCAL_RANK>`` by default
+    or ``device`` (one that every rank shares, such as ``cuda:0``, or
+    ``cpu``).  ``GROUP_TIMEOUT_S`` bounds every wait on the groups.
+    Raises when the launcher's variables are missing, the world has fewer
+    than two ranks or is no multiple of ``tp``."""
     missing = [k for k in RANK_ENV if k not in os.environ]
     if missing:
         raise RuntimeError(
@@ -78,8 +86,19 @@ def make_process_context(device=None) -> ParallelContext:
             f"the default group is rank {dist.get_rank()} of "
             f"{dist.get_world_size()}, the environment says {rank} of "
             f"{world}")
-    return make_context(world, group=dist.group.WORLD, rank=rank,
-                        device=dev)
+    if tp < 1 or world % tp:
+        raise ValueError(f"WORLD_SIZE={world} is no multiple of tp={tp}")
+    node, m = divmod(rank, tp)    # data-major: the (data, model) mesh
+    tp_group = None
+    if tp > 1:
+        for n in range(world // tp):
+            g = dist.new_group(
+                list(range(n * tp, (n + 1) * tp)), backend="gloo",
+                timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
+            if n == node:
+                tp_group = g
+    return make_context(world // tp, tp=tp, group=dist.group.WORLD,
+                        rank=node, device=dev, tp_rank=m, tp_group=tp_group)
 
 
 def _rank_main(local_rank: int, fn, n: int, tmp: str, args: tuple,

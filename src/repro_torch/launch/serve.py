@@ -1,8 +1,18 @@
 """Serving: prefill a batch of prompts, then greedy decode token by token.
 
-Counterpart of ``repro.launch.serve`` on one device: no mesh, no FSDP, and
-no consensus nodes (serving uses one consensus-complete replica of the
-parameters, as in the reference).
+Counterpart of ``repro.launch.serve``: no FSDP and no consensus nodes
+(serving uses one consensus-complete replica of the parameters, as in the
+reference), on one device or tensor-parallel over ``T`` ranks (``ctx``, a
+process grid's context: the reference's ``(1, T)`` mesh, the batch on
+every rank).  At tp > 1 each rank holds its slice of the weights, prefill
+and decode run with the tp collectives (``models.layers``), the next
+token comes from ``sharded_greedy_sample`` over the ranks' vocabulary
+columns (ties to the lowest global id), and every rank returns the same
+tokens::
+
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.serve --model 2 --arch qwen3-0.6b \\
+        --device cuda:0 --batch 4 --prompt-len 512 --new-tokens 16
 
 ``build_prefill_setup`` carries ``prefill_step(params, batch, capacity)
 -> (first_ids, cache)``: the full-sequence forward over the prompts, whose
@@ -114,11 +124,12 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def build_prefill_setup(cfg: ModelConfig, device=None, *,
                         compute_dtype=torch.float32,
-                        long_serve: bool = False) -> PrefillSetup:
+                        long_serve: bool = False, ctx=None) -> PrefillSetup:
     """Prefill on ``device`` (``cuda`` unless ``device="cpu"``) at
-    ``compute_dtype`` (the weights' dtype)."""
+    ``compute_dtype`` (the weights' dtype); ``ctx`` a process grid's
+    context runs it over the rank's node group at its ``tp``."""
     dev = resolve_device(device)
-    defs = TF.build_defs(cfg, dtype=compute_dtype)
+    defs = TF.build_defs(cfg, dtype=compute_dtype, ctx=ctx)
 
     @torch.inference_mode()
     def prefill_step(params, batch, capacity=None, cache_dtype=None):
@@ -132,13 +143,13 @@ def build_prefill_setup(cfg: ModelConfig, device=None, *,
                               dtype=cache_dtype or compute_dtype,
                               device=tokens.device,
                               enc_len=None if frames is None
-                              else frames.shape[1])
+                              else frames.shape[1], tp=defs.tp)
         logits, cache = TF.model_apply(params, defs, batch, mode="prefill",
                                        cache=cache,
                                        compute_dtype=compute_dtype,
                                        long_serve=long_serve,
                                        logits_from=tokens.shape[1] - 1)
-        return sharded_greedy_sample(logits), cache
+        return sharded_greedy_sample(logits, defs.ctx), cache
 
     return PrefillSetup(cfg=cfg, defs=defs, device=dev,
                         prefill_step=prefill_step)
@@ -147,16 +158,17 @@ def build_prefill_setup(cfg: ModelConfig, device=None, *,
 def build_serve_setup(cfg: ModelConfig, *, device=None,
                       compute_dtype=torch.float32, cache_dtype=None,
                       keep_logits: int = 0,
-                      long_serve: bool = False) -> ServeSetup:
+                      long_serve: bool = False, ctx=None) -> ServeSetup:
     """Decode on ``device`` (``cuda`` unless ``device="cpu"``) at
     ``compute_dtype`` against the state's cache, whose capacity bounds the
     positions and whose dtype is ``cache_dtype`` (the compute dtype when
     None, as in the reference; the setup records it for the prefill).
     With ``keep_logits`` > 0 each step also leaves the logits of the first
     ``keep_logits`` sequences in ``state["logits"]`` (for checks against a
-    full forward)."""
+    full forward; at tp > 1 the rank's vocabulary columns).  ``ctx``: as
+    :func:`build_prefill_setup`."""
     dev = resolve_device(device)
-    defs = TF.build_defs(cfg, dtype=compute_dtype)
+    defs = TF.build_defs(cfg, dtype=compute_dtype, ctx=ctx)
 
     @torch.inference_mode()
     def serve_step(state):
@@ -208,10 +220,26 @@ def main(argv=None) -> dict:
     ap.add_argument("--cache-dtype", default=None, choices=sorted(DTYPES),
                     help="dtype of the decode cache (default: the compute "
                          "dtype)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel ranks (the reference's model "
+                         "axis): start WORLD_SIZE = model ranks with python "
+                         "-m torch.distributed.run")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     if args.new_tokens < 1:
         raise SystemExit("--new-tokens must be at least 1")
+    ctx = None
+    if args.model > 1:
+        from repro_torch.launch.mesh import make_process_context
+        ctx = make_process_context(args.device, tp=args.model)
+        if ctx.total_consensus_nodes != 1:
+            raise NotImplementedError(
+                f"--model {args.model} over {ctx.total_consensus_nodes} "
+                "nodes: serving with the batch split over a data axis is "
+                "not yet ported (ROADMAP Queue 1 item 5d); start WORLD_SIZE "
+                "= --model ranks")
+    say = print if ctx is None or ctx.global_rank == 0 else (
+        lambda *a, **k: None)
     # float32 products in full float32, never TF32 (as the trainer)
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(args.arch)
@@ -229,16 +257,18 @@ def main(argv=None) -> dict:
         mamba2.chunk_len(cfg, args.prompt_len)
     capacity = args.prompt_len + args.new_tokens
     compute_dtype = DTYPES[args.compute_dtype]
-    pre = build_prefill_setup(cfg, device=args.device,
+    pre = build_prefill_setup(cfg, device=args.device if ctx is None
+                              else ctx.device,
                               compute_dtype=compute_dtype,
-                              long_serve=args.long_serve)
+                              long_serve=args.long_serve, ctx=ctx)
     dev = pre.device
     keep = min(args.keep_logits, args.batch)
     serve = build_serve_setup(
         cfg, device=dev, compute_dtype=compute_dtype,
         cache_dtype=DTYPES[args.cache_dtype] if args.cache_dtype else None,
-        keep_logits=keep, long_serve=args.long_serve)
-    params = init_params(pre.defs.storage, args.seed, dev)
+        keep_logits=keep, long_serve=args.long_serve, ctx=ctx)
+    params = init_params(pre.defs.storage, args.seed, dev, tp=args.model,
+                         tp_rank=0 if ctx is None else ctx.tp_rank)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            dtype=np.int32)
@@ -247,11 +277,12 @@ def main(argv=None) -> dict:
         frames = rng.standard_normal(
             (args.batch, cfg.encoder_frames, cfg.d_model), dtype=np.float32)
         batch["enc_frames"] = torch.as_tensor(frames, device=dev)
-    print(f"arch={cfg.arch_id} layers={cfg.n_layers} device={dev} "
+    say(f"arch={cfg.arch_id} layers={cfg.n_layers} device={dev} "
           f"batch={args.batch} prompt={args.prompt_len} +{args.new_tokens} "
           f"tokens (capacity {capacity}) compute {args.compute_dtype} "
-          f"cache {str(serve.cache_dtype).removeprefix('torch.')}"
-          + (" long-serve" if args.long_serve else ""), flush=True)
+        f"cache {str(serve.cache_dtype).removeprefix('torch.')}"
+        + (" long-serve" if args.long_serve else "")
+        + (f" tp={args.model}" if ctx is not None else ""), flush=True)
 
     def sync():
         if dev.type == "cuda":
@@ -281,20 +312,23 @@ def main(argv=None) -> dict:
     gen = torch.cat(out, dim=1).cpu().numpy()
     peak = (torch.cuda.max_memory_allocated(dev) / 1e9
             if dev.type == "cuda" else None)
-    print(f"prefill: {prefill_s:.4f} s; decode: {steps} steps, "
-          f"{decode_s * 1e3:.3f} ms/token for the batch"
-          + (f"; peak memory {peak:.2f} GB" if peak is not None else ""))
+    say(f"prefill: {prefill_s:.4f} s; decode: {steps} steps, "
+        f"{decode_s * 1e3:.3f} ms/token for the batch"
+        + (f"; peak memory {peak:.2f} GB" if peak is not None else ""))
     for b in range(min(args.batch, 4)):
-        print(f"  seq {b}: {gen[b].tolist()}")
+        say(f"  seq {b}: {gen[b].tolist()}")
     result = {"prompts": prompts, "tokens": gen, "prefill_s": prefill_s,
               "decode_s_per_token": decode_s, "peak_gb": peak,
               "cache_len": state["cache"]["len"]}
     if "enc_frames" in batch:
         result["frames"] = frames
+    if ctx is not None:
+        result["tp_stats"] = ctx.tp_stats()
     if keep:
         result["logits"] = (torch.stack(logits, dim=1).cpu().numpy()
-                            if logits else np.zeros((keep, 0, cfg.vocab_size),
-                                                    np.float32))
+                            if logits else np.zeros(
+                                (keep, 0, pre.defs.storage["embed"]["table"]
+                                 .shape[0] // args.model), np.float32))
     return result
 
 

@@ -50,6 +50,22 @@ pods=P`` runs two-level consensus (each pod of nodes/P nodes averages its
 optimizer delta in fp32, then the pods run the compressed exchange on the
 pod ring, whose elements ``--node-failures`` then indexes).
 
+``--model T`` runs each node as ``T`` ranks of a tensor-parallel grid
+(the reference's ``model`` axis): ``python -m torch.distributed.run
+--nproc-per-node N*T`` starts ``N`` nodes of ``T`` ranks each, data-major
+(rank r is node ``r // T``, model index ``r % T``); each rank holds and
+computes its tp-local slice of every ``tp_dim`` leaf, runs the forward and
+backward with the tp collectives (``models.sharding``), trains its node
+on the node's rows of the global batch, and runs the consensus exchange
+on its tp-local leaves with the ranks of the neighbouring nodes that have
+its model index.  ``--data`` must equal ``--nodes`` (a larger data axis is
+FSDP: refused).  The step lines add ``tp_wire_s`` and ``tp_bytes_sent``
+(the tp collectives of rank 0, apart from the ring's ``wire_*``).  This
+slice runs the dense family in float32 with the default exchange (int8
+packed at stride 1, fixed or adaptive ``--quant-mode``) or ``--algorithm
+none | dgd | allreduce``; every other option raises (ROADMAP Queue 1 item
+5d).
+
 ``--microbatches M`` accumulates each node's gradient over M slices of its
 shard (the first slice's, then each later one's added in order, times
 f32(1/M), as the reference's compiled ``g / M``).  ``--checkpoint-dir``
@@ -114,6 +130,9 @@ CLI (runs on ``cuda`` unless ``--device cpu``)::
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
         -m repro_torch.launch.train --process-ring --device cuda:0 \\
         --batch 16 --seq 512 --steps 5
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 4 \\
+        -m repro_torch.launch.train --arch qwen3-0.6b --model 2 \\
+        --device cuda:0 --batch 4 --seq 512 --steps 3 --remat none
 """
 from __future__ import annotations
 
@@ -252,7 +271,12 @@ def build_train_setup(cfg: ModelConfig, *, consensus_nodes: int | None = None,
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
     TF.check_remat(remat)
-    return TrainSetup(cfg=cfg, defs=TF.build_defs(cfg, dtype=compute_dtype),
+    if ctx is not None and ctx.tp > 1 and microbatches != 1:
+        raise NotImplementedError(
+            f"tp={ctx.tp}: microbatches on a tensor-parallel grid are not "
+            "yet ported (ROADMAP Queue 1 item 5d)")
+    return TrainSetup(cfg=cfg, defs=TF.build_defs(cfg, dtype=compute_dtype,
+                                                  ctx=ctx),
                       consensus=ConsensusRuntime(ccfg, consensus_nodes,
                                                  ctx=ctx),
                       optimizer=opt_by_name(optimizer), schedule=sched,
@@ -281,10 +305,13 @@ def init_train_state(setup: TrainSetup, seed: int = 0,
     (drawn from ``seed``), or from ``params`` (a stacked tree, e.g. from
     ``models.params.params_from_jax``) when given, which must lie on
     ``setup.device``.  Under a process context the tree holds the rank's
-    one node (a leading axis of 1): a row of the stacked draw."""
+    one node (a leading axis of 1): a row of the stacked draw; over a
+    tensor-parallel grid its model index's slice of it."""
     if params is None:
         params = init_params(setup.defs.storage, seed, setup.device,
-                             n_nodes=setup.consensus.n_local)
+                             n_nodes=setup.consensus.n_local,
+                             tp=setup.defs.tp,
+                             tp_rank=setup.consensus.ctx.tp_rank)
     wrong = {str(a.device) for a in T.tree_leaves(params)
              if a.device.type != setup.device.type}
     if wrong:
@@ -358,7 +385,10 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
     the exchange's quantization noise.  Returns (new state, metrics).
     Under a process context the nodes' losses and per-node metrics are
     gathered from every rank, so each rank's metrics are the stacked
-    trainer's."""
+    trainer's.  Over a tensor-parallel grid a metric is meaned over
+    exactly the axes it varies on (the reference's ``mean_metric``): the
+    loss over the nodes, the exchange's per-rank metrics over every
+    rank."""
     k = state["step"] + 1
     auxes = []
     ctx = setup.consensus.ctx
@@ -375,7 +405,7 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
     metrics = {"loss": _host(losses.mean()), "node_loss": losses,
                "lr": lr_k}
     if auxes and setup.cfg.router_aux_weight:
-        metrics["aux"] = _host(ctx.gather_nodes(torch.stack(auxes)).mean())
+        metrics["aux"] = _host(ctx.mean_metric(torch.stack(auxes)))
     rt = setup.consensus
     if rt.cfg.algorithm == "adc_dgd":
         metrics["codec"] = rt.wire_name
@@ -384,9 +414,9 @@ def train_step(setup: TrainSetup, state: dict, batch: dict,
         metrics["resync"] = (rt.cfg.algorithm == "adc_dgd"
                              and rt.resync_at(k))
     for name, v in cmetrics.items():
-        if torch.is_tensor(v) and v.dim() == 1:
-            v = ctx.gather_nodes(v)        # the per-node vectors
-        metrics[name] = _host(v.mean()) if torch.is_tensor(v) else float(v)
+        # a per-node vector is each rank's own over a tp grid
+        metrics[name] = (_host(ctx.mean_metric(v, over_tp=True))
+                         if torch.is_tensor(v) else float(v))
     return ({"params": x_next, "opt": opt_state, "consensus": cons,
              "step": k}, metrics)
 
@@ -497,6 +527,13 @@ def main(argv=None, *, return_state: bool = False):
                     help="one node per rank of a gloo group (start with "
                          "python -m torch.distributed.run --nproc-per-node "
                          "N); the payloads cross the wire between ranks")
+    ap.add_argument("--model", type=int, default=1,
+                    help="tensor-parallel ranks per node (the reference's "
+                         "model axis): start WORLD_SIZE = nodes x model "
+                         "ranks with python -m torch.distributed.run")
+    ap.add_argument("--data", type=int, default=None,
+                    help="the data axis: must equal the nodes (a larger "
+                         "one is FSDP, not yet ported)")
     ap.add_argument("--batch", type=int, default=8,
                     help="global batch, split evenly over the nodes")
     ap.add_argument("--seq", type=int, default=128)
@@ -626,19 +663,47 @@ def main(argv=None, *, return_state: bool = False):
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     ctx = None
-    if args.process_ring:
+    if args.model < 1:
+        raise SystemExit(f"--model {args.model}: at least 1")
+    if args.model > 1:
+        # refused before the grid is joined, so that a launch fails at
+        # once and alike on every rank; the layers that own the options
+        # refuse them too, for callers of the library, but later (the
+        # checkpoint store only at its first save)
+        tp_off = [flag for flag, on in (
+            ("--checkpoint-dir", args.checkpoint_dir),
+            ("--microbatches", args.microbatches != 1),
+            ("--telemetry", args.telemetry),
+            ("--wire-codec adaptive", args.wire_codec == "adaptive"),
+            ("--wire-plan", args.wire_plan)) if on]
+        if tp_off:
+            raise NotImplementedError(
+                f"--model {args.model}: {', '.join(tp_off)} on a "
+                "tensor-parallel grid is not yet ported (ROADMAP Queue 1 "
+                "item 5d)")
+    if args.process_ring or args.model > 1:
         from repro_torch.launch.mesh import make_process_context
-        ctx = make_process_context(args.device)
+        ctx = make_process_context(args.device, tp=args.model)
         world = ctx.total_consensus_nodes
         if args.nodes not in (None, world):
             raise SystemExit(f"--nodes {args.nodes}: the process ring has "
-                             f"{world} ranks (--nodes must equal the world "
-                             "size or be absent)")
+                             f"{world} nodes of {args.model} ranks "
+                             "(--nodes must equal the world size over "
+                             "--model, or be absent)")
         args.nodes = world
     elif args.nodes is None:
         args.nodes = 1
+    if args.data is not None and args.data > args.nodes:
+        raise NotImplementedError(
+            f"--data {args.data} with {args.nodes} nodes: a data axis "
+            "larger than the nodes is FSDP, not yet ported (ROADMAP Queue 1 "
+            "item 5d)")
+    if args.data not in (None, args.nodes):
+        raise SystemExit(f"--data {args.data}: must equal --nodes "
+                         f"{args.nodes}")
     # rank 0 speaks for the ring
-    say = print if ctx is None or ctx.rank == 0 else (lambda *a, **k: None)
+    say = (print if ctx is None or ctx.global_rank == 0
+           else (lambda *a, **k: None))
     # float32 products in full float32 (the reference's precision), never
     # TF32: PyTorch's default, stated here because the parity rests on it
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -798,6 +863,7 @@ def main(argv=None, *, return_state: bool = False):
             tel.spans.step_begin()
         if ctx is not None:
             ctx.ring.reset_stats()
+            ctx.reset_tp_stats()
         state, metrics = train_step(setup, state, batch)
         if setup.device.type == "cuda":
             torch.cuda.synchronize(setup.device)
@@ -932,7 +998,11 @@ def _wire_stats(ctx: ParallelContext) -> dict:
     * ``wire_inner_s``: the hierarchy's inner level (the pod sum's
       transfers, from the first post to the last wait; 0 without it);
     * ``consensus_err_wire_s``: the consensus error's node sum (a metric,
-      left out of the others)."""
+      left out of the others);
+    * ``tp_wire_s`` / ``tp_bytes_sent`` (over a tensor-parallel grid):
+      the step's tp collectives of the forward and backward, host seconds
+      inside them and the bytes this rank's tensors owe its node's other
+      ranks (``models.sharding.TPComm``)."""
     all_stats = ctx.ring.read_stats()
     metric = all_stats.pop("consensus_err", None)
     resync = all_stats.get("resync")
@@ -949,7 +1019,8 @@ def _wire_stats(ctx: ParallelContext) -> dict:
             else resync["bytes_sent"],
             "wire_inner_s": 0.0 if inner is None else inner["wire_s"],
             "consensus_err_wire_s": 0.0 if metric is None
-            else metric["wire_s"]}
+            else metric["wire_s"],
+            **(ctx.tp_stats() if ctx.tp > 1 else {})}
 
 
 def _git_sha() -> str | None:

@@ -1,7 +1,6 @@
-"""Transformer layers on one device (tensor-parallel degree 1).
+"""Transformer layers, on one device or tensor-parallel over a node's ranks.
 
-Counterpart of ``repro.models.layers`` at tp = 1, where every collective
-of the reference is the identity, for the dense blocks of the ported
+Counterpart of ``repro.models.layers``, for the dense blocks of the ported
 configurations: gated MLPs (SwiGLU, or GeGLU with the tanh-approximate
 gelu; ``models.moe`` stacks them into experts), optional q/k norms,
 tied or untied embeddings, attention and final softcaps, the
@@ -26,6 +25,30 @@ port does the same wherever the reference casts a product up
 (:func:`dot_f32`: the logits here, the MoE router, Mamba2's ``dt`` and
 gate).  At float32 all of this is the float32 arithmetic it always was.
 
+Tensor parallelism (``ctx``, a ``models.sharding.ParallelContext``;
+the default is the one-device context, ``tp`` 1, where every collective
+is the identity and a rank's slice is the whole leaf) follows the
+reference's paths at their lines.  Each function takes a model index's
+parameters (``params.logical_shape_local``) and the replicated stream
+``(b, s, d)``, the same bits on every rank.  Attention
+is head-sharded when ``n_heads % tp == 0`` (q, o and, when ``n_kv_heads
+>= tp``, k and v split on the head dim; with fewer kv heads than ranks k
+and v are replicated and a rank slices the kv head ``(r * h_local) //
+(n_heads / n_kv_heads)`` its q heads use), else sequence-sharded (every
+projection replicated; in train and prefill each rank projects its
+``s / tp`` positions, all-gathers K and V, attends its queries and
+all-gathers the output; the prefill's cache holds every position and
+head on every rank, and decode runs every head on every rank without a
+sum).  The MLP splits ``d_ff``; the embedding table, the unembedding and
+the logits split the vocabulary, padded to a multiple of ``tp * 128``
+(:func:`padded_vocab`: the padded columns are drawn like the others and
+enter the softmax and the argmax, as in the reference).  A replicated
+tensor that enters rank-partial compute goes through ``ctx.copy_tp``
+(its backward sums the ranks' cotangents): the stream before each
+projection, and every replicated weight used on a rank's own heads or
+positions (a replicated kv projection, the q/k norms, all attention
+weights of the sequence-sharded path).
+
 ``attention_forward`` runs in three modes, as the reference's does:
 ``train`` (the causal forward, ``chunked_attention``; bidirectional with
 ``causal=False``), ``prefill`` (the same, returning the prompt's K and V,
@@ -45,13 +68,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.params import ParamDef
+from repro_torch.models.sharding import local_context
 
 __all__ = ["widen", "dot_f32", "rms_norm", "rope_freqs", "apply_rope",
            "sinusoidal_positions", "chunked_attention",
            "decode_attention_local", "combine_decode_partials",
            "attention_defs", "attention_forward", "mlp_defs", "mlp_forward",
            "embed_defs", "embed_lookup", "logits_local",
-           "sharded_softmax_xent", "sharded_greedy_sample", "norm_def"]
+           "sharded_softmax_xent", "sharded_greedy_sample", "norm_def",
+           "padded_vocab", "head_sharded"]
 
 #: score of a masked position (the reference's -1e30, not -inf)
 NEG = -1e30
@@ -213,14 +238,30 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
-def attention_defs(cfg: ModelConfig, dtype=torch.float32
+#: the default context: one device, tp 1
+ONE_DEVICE = local_context()
+
+
+def head_sharded(cfg: ModelConfig, tp: int) -> bool:
+    """The reference's attention strategy at ``tp``: heads split over the
+    ranks when they divide, else the sequence."""
+    return cfg.n_heads % max(tp, 1) == 0
+
+
+def attention_defs(cfg: ModelConfig, dtype=torch.float32, ctx=ONE_DEVICE
                    ) -> dict[str, ParamDef]:
+    """q, k, v, o (and the q/k norms) with the reference's ``tp_dim`` /
+    ``fsdp_dim`` at ``ctx.tp`` (reference ``attention_defs``)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
-    out = {"wq": ParamDef((d, h * hd), dtype=dtype),
-           "wk": ParamDef((d, kvh * hd), dtype=dtype),
-           "wv": ParamDef((d, kvh * hd), dtype=dtype),
-           "wo": ParamDef((h * hd, d), dtype=dtype)}
+    tp = ctx.tp
+    hs = head_sharded(cfg, tp)
+    kv_tp = 1 if hs and kvh >= tp else None
+    out = {"wq": ParamDef((d, h * hd), dtype=dtype, tp_dim=1 if hs else None),
+           "wk": ParamDef((d, kvh * hd), dtype=dtype, tp_dim=kv_tp),
+           "wv": ParamDef((d, kvh * hd), dtype=dtype, tp_dim=kv_tp),
+           "wo": ParamDef((h * hd, d), dtype=dtype, tp_dim=0 if hs else None,
+                          fsdp_dim=1)}
     if cfg.qk_norm:
         out["q_norm"] = ParamDef((hd,), init="zeros", dtype=dtype)
         out["k_norm"] = ParamDef((hd,), init="zeros", dtype=dtype)
@@ -252,16 +293,32 @@ def combine_decode_partials(m: torch.Tensor, l: torch.Tensor,
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
-                 pos: torch.Tensor | None):
+                 pos: torch.Tensor | None, ctx=ONE_DEVICE):
     """q (b, s, kvh, g, hd), k and v (b, s, kvh, hd) of ``x`` at positions
     ``pos``: projected, q and k normalised over ``hd`` when the config has
-    q/k norms, then rotated (not when ``pos`` is None)."""
+    q/k norms, then rotated (not when ``pos`` is None).  Head-sharded at
+    ``ctx.tp`` > 1: the rank's heads (``kvh`` its local kv heads, or the
+    one kv head its q heads use when there are fewer kv heads than ranks;
+    ``x`` and the replicated weights enter through ``ctx.copy_tp``)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    h, kvh = cfg.n_heads, cfg.n_kv_heads
+    tp = ctx.tp
+    h, kvh = cfg.n_heads // tp, cfg.n_kv_heads
+    wk, wv = p["wk"], p["wv"]
+    x = ctx.copy_tp(x)
+    if kvh >= tp:
+        kvh = kvh // tp
+    else:                  # replicated kv: the head this rank's q heads use
+        j = (ctx.tp_rank * h) // (cfg.n_heads // kvh)
+        wk = ctx.copy_tp(wk)[:, j * hd:(j + 1) * hd]
+        wv = ctx.copy_tp(wv)[:, j * hd:(j + 1) * hd]
+        kvh = 1
+    if cfg.qk_norm:
+        p = {**p, "q_norm": ctx.copy_tp(p["q_norm"]),
+             "k_norm": ctx.copy_tp(p["k_norm"])}
     q = (x @ p["wq"]).reshape(b, s, kvh, h // kvh, hd)
-    k = (x @ p["wk"]).reshape(b, s, kvh, hd)
-    v = (x @ p["wv"]).reshape(b, s, kvh, hd)
+    k = (x @ wk).reshape(b, s, kvh, hd)
+    v = (x @ wv).reshape(b, s, kvh, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -276,7 +333,8 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
                       mode: str = "train", cache: dict | None = None,
                       pos: int = 0, kind: str = "A",
                       window_override: int | None = None,
-                      use_rope: bool = True, causal: bool = True):
+                      use_rope: bool = True, causal: bool = True,
+                      ctx=ONE_DEVICE):
     """Self-attention, with RoPE unless ``use_rope`` is False (whisper's
     encoder and decoder), causal unless ``causal`` is False (whisper's
     encoder; train and prefill only).  ``kind`` 'L' attends within
@@ -293,25 +351,69 @@ def attention_forward(p, x: torch.Tensor, cfg: ModelConfig,
       k, v (b, S, kvh, hd)): its K and V are written at ``pos`` in place,
       positions ``<= pos`` (and ``> pos - window``) are valid, and the
       flash-decode kernel attends over them.  Returns the same cache.
+
+    At ``ctx.tp`` > 1 (module docstring) the output is the replicated
+    stream and the cache holds the rank's kv heads (head-sharded) or
+    every head (sequence-sharded: train and prefill need ``s % tp ==
+    0``).
     """
     b, s, _ = x.shape
     window = window_override if window_override is not None else (
         cfg.sliding_window if kind == "L" else None)
+    seq_sharded = not head_sharded(cfg, ctx.tp)
     if mode == "decode":
-        return _attention_decode(p, x, cfg, cache, pos, window, use_rope)
+        return _attention_decode(p, x, cfg, cache, pos, window, use_rope,
+                                 ONE_DEVICE if seq_sharded else ctx)
     if mode not in ("train", "prefill"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
+    if seq_sharded:
+        return _attention_seq_sharded(p, x, cfg, mode, window, use_rope,
+                                      causal, ctx)
     q, k, v = _project_qkv(p, x, cfg, torch.arange(s, device=x.device)
-                           if use_rope else None)
+                           if use_rope else None, ctx)
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             softcap=cfg.attn_softcap).reshape(b, s, -1)
-    return out @ p["wo"], ({"k": k, "v": v} if mode == "prefill" else None)
+    y = ctx.psum_tp(out @ p["wo"])
+    return y, ({"k": k, "v": v} if mode == "prefill" else None)
+
+
+def _attention_seq_sharded(p, x: torch.Tensor, cfg: ModelConfig, mode: str,
+                           window: int | None, use_rope: bool, causal: bool,
+                           ctx):
+    """The reference's sequence-sharded path (``n_heads % tp != 0``):
+    rank r projects positions ``[r * s_l, (r + 1) * s_l)`` with every
+    head, all-gathers K and V, attends its queries at their global
+    positions and all-gathers the output.  Every weight is replicated and
+    used on the rank's positions only, so each enters through
+    ``copy_tp``; the gathered K and V feed rank-partial compute again
+    (``copy_tp`` after ``ag_tp``: the reference's reduce-scatter
+    transpose).  The prefill's cache is the gathered K and V."""
+    b, s, _ = x.shape
+    tp, r = ctx.tp, ctx.tp_rank
+    if s % tp:
+        raise ValueError(f"sequence-sharded attention at tp={tp} needs the "
+                         f"sequence ({s}) to be a multiple of tp")
+    s_l = s // tp
+    p = {k: ctx.copy_tp(w) for k, w in p.items()}
+    x = ctx.copy_tp(x)[:, r * s_l:(r + 1) * s_l]
+    q, k, v = _project_qkv(p, x, cfg, r * s_l + torch.arange(
+        s_l, device=x.device) if use_rope else None)
+    k = ctx.ag_tp(k, 1)
+    v = ctx.ag_tp(v, 1)
+    out = chunked_attention(q, ctx.copy_tp(k), ctx.copy_tp(v),
+                            causal=causal, window=window,
+                            softcap=cfg.attn_softcap, q_offset=r * s_l)
+    y = ctx.ag_tp(out.reshape(b, s_l, -1) @ p["wo"], 1)
+    return y, ({"k": k, "v": v} if mode == "prefill" else None)
 
 
 def _attention_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict,
-                      pos: int, window: int | None, use_rope: bool = True):
-    """One-token decode against a KV cache (one device, no shards)."""
+                      pos: int, window: int | None, use_rope: bool = True,
+                      ctx=ONE_DEVICE):
+    """One-token decode against a KV cache that holds every position
+    (one device, or the rank's heads when ``ctx`` is head-sharded at tp >
+    1: the output is then summed over the ranks)."""
     if cache is None:
         raise ValueError("decode requires a cache")
     b, s, _ = x.shape
@@ -323,7 +425,7 @@ def _attention_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict,
                          f"{k_cache.shape[1]}")
     q, k_new, v_new = _project_qkv(
         p, x, cfg, torch.full((1,), pos, device=x.device) if use_rope
-        else None)
+        else None, ctx)
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
     gpos = torch.arange(k_cache.shape[1], device=x.device)
@@ -333,71 +435,111 @@ def _attention_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict,
     m, l, acc = decode_attention_local(q, k_cache, v_cache, valid,
                                        cfg.attn_softcap)
     out = combine_decode_partials(m, l, acc).reshape(b, 1, -1).to(x.dtype)
-    return out @ p["wo"], cache
+    return ctx.psum_tp(out @ p["wo"]), cache
 
 
 def mlp_defs(cfg: ModelConfig, d_ff: int | None = None,
-             dtype=torch.float32) -> dict[str, ParamDef]:
+             dtype=torch.float32, ctx=ONE_DEVICE) -> dict[str, ParamDef]:
     """A gated MLP of width ``d_ff`` (``cfg.d_ff`` when None; deepseek's
-    dense 'D' block passes its ``dense_d_ff``)."""
+    dense 'D' block passes its ``dense_d_ff``), split over ``ctx.tp``."""
     d, ff = cfg.d_model, d_ff or cfg.d_ff
-    return {"w_gate": ParamDef((d, ff), dtype=dtype),
-            "w_up": ParamDef((d, ff), dtype=dtype),
-            "w_down": ParamDef((ff, d), dtype=dtype)}
+    if ff % ctx.tp:
+        raise ValueError(f"d_ff {ff} does not split over tp={ctx.tp}")
+    return {"w_gate": ParamDef((d, ff), dtype=dtype, tp_dim=1),
+            "w_up": ParamDef((d, ff), dtype=dtype, tp_dim=1),
+            "w_down": ParamDef((ff, d), dtype=dtype, tp_dim=0, fsdp_dim=1)}
 
 
-def mlp_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_forward(p, x: torch.Tensor, cfg: ModelConfig,
+                ctx=ONE_DEVICE) -> torch.Tensor:
     """Gated MLP: ``(act(x W_gate) * x W_up) W_down`` with ``cfg.mlp_act``
-    (silu: SwiGLU; gelu: GeGLU)."""
-    return (_act(cfg.mlp_act, x @ p["w_gate"]) * (x @ p["w_up"])) \
-        @ p["w_down"]
+    (silu: SwiGLU; gelu: GeGLU); at ``ctx.tp`` > 1 on the rank's columns
+    of ``d_ff``, summed over the ranks."""
+    x = ctx.copy_tp(x)
+    return ctx.psum_tp((_act(cfg.mlp_act, x @ p["w_gate"])
+                        * (x @ p["w_up"])) @ p["w_down"])
 
 
-def embed_defs(cfg: ModelConfig, dtype=torch.float32
+def padded_vocab(cfg: ModelConfig, tp: int) -> int:
+    """The vocabulary rounded up to a multiple of ``tp * 128`` at ``tp`` >
+    1 (the reference's)."""
+    v = cfg.vocab_size
+    return int(math.ceil(v / (tp * 128)) * tp * 128) if tp > 1 else v
+
+
+def embed_defs(cfg: ModelConfig, dtype=torch.float32, ctx=ONE_DEVICE
                ) -> dict[str, ParamDef]:
-    out = {"table": ParamDef((cfg.vocab_size, cfg.d_model), dtype=dtype)}
+    v = padded_vocab(cfg, ctx.tp)
+    out = {"table": ParamDef((v, cfg.d_model), dtype=dtype, tp_dim=0,
+                             fsdp_dim=1)}
     if not cfg.tie_embeddings:
-        out["unembed"] = ParamDef((cfg.d_model, cfg.vocab_size),
-                                  dtype=dtype)
+        out["unembed"] = ParamDef((cfg.d_model, v), dtype=dtype, tp_dim=1)
     return out
 
 
 def embed_lookup(p, ids: torch.Tensor, cfg: ModelConfig,
-                 dtype: torch.dtype | None = None) -> torch.Tensor:
+                 dtype: torch.dtype | None = None,
+                 ctx=ONE_DEVICE) -> torch.Tensor:
     """ids (b, s) -> (b, s, d) in the table's dtype, times ``sqrt(d_model)``
     rounded to the table's dtype when the config scales its embeddings
     (gemma2-9b: 59.866 in float32, 59.75 in bfloat16), then cast to
-    ``dtype`` when given."""
-    emb = p["table"][ids.long()]
+    ``dtype`` when given.  At ``ctx.tp`` > 1 each rank looks up the ids
+    its rows hold (zero rows for the others) and the ranks' rows are
+    summed."""
+    table = p["table"]
+    v_l = table.shape[0]
+    local = ids.long() - ctx.tp_rank * v_l
+    ok = (local >= 0) & (local < v_l)
+    emb = ctx.psum_tp(table[local.clamp(0, v_l - 1)]
+                      * ok[..., None].to(table.dtype))
     if cfg.embed_scale:
         emb = emb * float(torch.tensor(math.sqrt(cfg.d_model),
                                        dtype=emb.dtype))
     return emb if dtype is None else emb.to(dtype)
 
 
-def logits_local(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def logits_local(p, h: torch.Tensor, cfg: ModelConfig,
+                 ctx=ONE_DEVICE) -> torch.Tensor:
     """(b, s, d) -> (b, s, V) float32 logits through the tied embedding
     table or the ``unembed`` matrix (:func:`dot_f32`: the reference casts
-    this product to float32), softcapped when the config says so."""
+    this product to float32), softcapped when the config says so; at
+    ``ctx.tp`` > 1 the rank's ``V / tp`` columns."""
+    h = ctx.copy_tp(h)
     w = p["table"].t() if cfg.tie_embeddings else p["unembed"]
     return _softcap(dot_f32(h, w), cfg.final_softcap)
 
 
-def sharded_softmax_xent(logits: torch.Tensor,
-                         targets: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy, in the reference's arithmetic at tp = 1 (the
-    max is detached: it only stabilises the exponent)."""
-    m = logits.amax(dim=-1).detach()
+def sharded_softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                         ctx=ONE_DEVICE) -> torch.Tensor:
+    """Mean cross-entropy, in the reference's arithmetic (the max is
+    detached: it only stabilises the exponent).  At ``ctx.tp`` > 1 the
+    logits are the rank's vocabulary columns: the max and the
+    denominator are reduced over the ranks, and the target's logit comes
+    from the rank that holds it."""
+    v_l = logits.shape[-1]
+    m = ctx.pmax_tp(logits.amax(dim=-1).detach())
     e = torch.exp(logits - m[..., None])
-    log_z = torch.log(e.sum(dim=-1)) + m
-    picked = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
-    return (log_z - picked).mean()
+    log_z = torch.log(ctx.psum_tp(e.sum(dim=-1))) + m
+    local = targets.long() - ctx.tp_rank * v_l
+    ok = (local >= 0) & (local < v_l)
+    picked = torch.gather(logits, -1,
+                          local.clamp(0, v_l - 1)[..., None])[..., 0]
+    return (log_z - ctx.psum_tp(picked * ok.to(picked.dtype))).mean()
 
 
-def sharded_greedy_sample(logits: torch.Tensor) -> torch.Tensor:
+def sharded_greedy_sample(logits: torch.Tensor,
+                          ctx=ONE_DEVICE) -> torch.Tensor:
     """Greedy next ids (b, s) int32 from (b, s, V) logits (the reference's
-    at tp = 1): ties go to the lowest id."""
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+    at tp = 1): ties go to the lowest id.  At ``ctx.tp`` > 1 the logits
+    are the rank's columns: each rank's maximum and its first global id,
+    then the lowest id among the ranks that hold the global maximum, the
+    same on every rank."""
+    v_l = logits.shape[-1]
+    loc_max = logits.amax(dim=-1)
+    loc_arg = torch.argmax(logits, dim=-1) + ctx.tp_rank * v_l
+    cand = torch.where(loc_max >= ctx.pmax_tp(loc_max), loc_arg,
+                       torch.iinfo(torch.int64).max)
+    return (-ctx.pmax_tp(-cand)).to(torch.int32)
 
 
 def norm_def(cfg: ModelConfig, dtype=torch.float32) -> ParamDef:

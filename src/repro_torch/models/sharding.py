@@ -29,8 +29,21 @@ step's payload and waits for it in the next); every flight a rank posted
 is waited before its group is torn down (:func:`drain_rings`, called by
 ``launch.mesh.run_ranks``).
 
-Tensor parallelism (``tp``) and FSDP (``data_size > n_nodes``) need
-collectives across several cards (NCCL): not yet ported.
+Tensor parallelism (``tp = T``) runs over a process grid of ``N x T``
+ranks, data-major as the reference's ``(data, model)`` mesh: rank ``r`` is
+consensus node ``r // T`` and model index ``r % T``.  ``rank`` is the
+node, ``tp_rank`` the model index, and ``tp_group`` the gloo group of the
+node's ``T`` ranks (:class:`TPComm`).  Every ring transfer goes to the
+rank of the neighbouring node that has the same model index (the
+reference's ``ppermute_node_ring``), so each model index runs its own ring
+over its shards.  The tensor-parallel collectives (:meth:`ParallelContext.
+psum_tp`, :meth:`~ParallelContext.copy_tp`, :meth:`~ParallelContext.
+ag_tp`, :meth:`~ParallelContext.pmax_tp`) are ``torch.autograd.Function``
+s whose backward is written out: a tensor is either replicated (the same
+bits on every rank of the node, its cotangent complete on each) or
+rank-partial (each rank its own part), and every collective states which
+it turns into which.  FSDP (``data_size > n_nodes``) and a stacked context
+with ``tp > 1`` are not yet ported.
 """
 from __future__ import annotations
 
@@ -43,11 +56,15 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-__all__ = ["ParallelContext", "StagedRing", "drain_rings", "local_context",
-           "make_context"]
+__all__ = ["ParallelContext", "StagedRing", "TPComm", "drain_rings",
+           "local_context", "make_context"]
 
-_TP_FSDP = ("tensor parallelism and FSDP are not yet ported: they need "
-            "NCCL collectives across several cards (a later slice)")
+_FSDP = ("FSDP (data_size > n_nodes) is not yet ported (ROADMAP Queue 1 "
+         "item 5d)")
+_STACKED_TP = ("tensor parallelism on a stacked context is not yet ported: "
+               "tp > 1 runs over a process grid of n_nodes x tp ranks "
+               "(launch.mesh.make_process_context(tp=...); ROADMAP Queue 1 "
+               "item 5d)")
 
 
 #: gloo's tags are non-negative 32-bit ints
@@ -282,14 +299,144 @@ def drain_rings() -> int:
     return n
 
 
+class TPComm:
+    """The collectives of one node's tensor-parallel group (``T`` gloo
+    ranks, ``index`` this one's model index).
+
+    :meth:`all_gather` gives every rank's tensor, in model-index order, on
+    the caller's device; a sum or a max is then taken in that order on
+    every rank, so each rank holds the same bits.  A CUDA tensor is staged
+    through pinned host memory, as :class:`StagedRing` stages ring
+    payloads: a device-to-host copy into a pinned send buffer, gloo's
+    ``all_gather`` into pinned receive buffers, and host-to-device copies
+    into new device tensors.  The pinned buffers belong to their ``(slot,
+    shape, dtype)`` and are allocated at their first use; a buffer's next
+    use waits for the last copy out of it.  Every dtype crosses as bytes,
+    bit for bit.
+
+    ``stats`` counts since :meth:`reset_stats`: ``wire_s`` (host seconds
+    inside the collectives, staging included), ``bytes_sent`` (the bytes
+    this rank's tensors owe the other ``T - 1`` ranks) and ``calls``."""
+
+    def __init__(self, group, index: int, size: int):
+        self.group, self.index, self.size = group, index, size
+        self._bufs: dict = {}
+        self._copied: dict = {}
+        self.reset_stats()
+
+    def reset_stats(self) -> None:
+        self.stats = {"wire_s": 0.0, "bytes_sent": 0, "calls": 0}
+
+    def all_gather(self, x: torch.Tensor, slot: str) -> list[torch.Tensor]:
+        t0 = time.perf_counter()
+        x = x.contiguous()
+        if x.device.type == "cuda":
+            key = (slot, tuple(x.shape), x.dtype)
+            bufs = self._bufs.get(key)
+            if bufs is None:
+                bufs = self._bufs[key] = [
+                    torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                    for _ in range(self.size + 1)]
+            done = self._copied.pop(key, None)
+            if done is not None:         # the last copies out have run
+                done.synchronize()
+            send, recv = bufs[0], bufs[1:]
+            send.copy_(x)                # synchronous: the bytes are here
+            dist.all_gather([_bytes(r) for r in recv], _bytes(send),
+                            group=self.group)
+            out = [torch.empty_like(x) for _ in recv]
+            for dev, host in zip(out, recv):
+                dev.copy_(host, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+            self._copied[key] = ev
+        else:
+            out = [torch.empty_like(x) for _ in range(self.size)]
+            dist.all_gather([_bytes(r) for r in out], _bytes(x),
+                            group=self.group)
+        st = self.stats
+        st["wire_s"] += time.perf_counter() - t0
+        st["bytes_sent"] += x.numel() * x.element_size() * (self.size - 1)
+        st["calls"] += 1
+        return out
+
+    def sum(self, x: torch.Tensor, slot: str) -> torch.Tensor:
+        """The sum over the group, added in model-index order."""
+        parts = self.all_gather(x, slot)
+        acc = parts[0]
+        for t in parts[1:]:
+            acc = acc + t
+        return acc
+
+    def max(self, x: torch.Tensor, slot: str) -> torch.Tensor:
+        parts = self.all_gather(x, slot)
+        acc = parts[0]
+        for t in parts[1:]:
+            acc = torch.maximum(acc, t)
+        return acc
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's storage as a flat uint8 view."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+class _PsumTP(torch.autograd.Function):
+    """Rank-partial -> replicated: the sum over the group.  The cotangent
+    of the replicated sum is complete on every rank, and each part enters
+    the sum once, so it passes to each part unchanged."""
+
+    @staticmethod
+    def forward(fctx, x, comm):
+        return comm.sum(x, "psum")
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+class _CopyTP(torch.autograd.Function):
+    """Replicated -> rank-partial: the identity.  Each rank's compute
+    downstream adds its own part of the cotangent, so the backward sums
+    the parts over the group (Megatron's ``f``)."""
+
+    @staticmethod
+    def forward(fctx, x, comm):
+        fctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.comm.sum(g, "copy"), None
+
+
+class _GatherTP(torch.autograd.Function):
+    """Rank-partial chunks -> replicated: the tiled all-gather along
+    ``dim``.  The replicated result's cotangent is complete on every rank,
+    so each rank takes its own chunk of it."""
+
+    @staticmethod
+    def forward(fctx, x, comm, dim):
+        fctx.comm, fctx.dim, fctx.n = comm, dim, x.shape[dim]
+        return torch.cat(comm.all_gather(x, "gather"), dim=dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return (g.narrow(fctx.dim, fctx.comm.index * fctx.n,
+                         fctx.n).contiguous(), None, None)
+
+
 @dataclasses.dataclass(frozen=True)
 class ParallelContext:
     """The node axis of the consensus ring: ``n_nodes`` consensus nodes on
     the data axis of ``data_size`` devices (``fsdp = data_size /
-    n_nodes``), ``pods`` times over.  ``group`` is the ``torch.
-    distributed`` group of a process context (None: every node stacked on
-    one device), ``rank`` this process's node and ``device`` its device;
-    ``ring`` is the group's :class:`StagedRing`."""
+    n_nodes``), ``pods`` times over, each node ``tp`` ranks wide.
+    ``group`` is the ``torch.distributed`` group of a process context
+    (None: every node stacked on one device), ``rank`` this process's
+    node, ``tp_rank`` its model index, ``tp_group`` the group of its
+    node's ``tp`` ranks, and ``device`` its device; ``ring`` is the
+    group's :class:`StagedRing` and ``tp_comm`` the node group's
+    :class:`TPComm`."""
 
     tp: int = 1
     data_size: int = 1
@@ -298,17 +445,33 @@ class ParallelContext:
     group: Any = None
     rank: int = 0
     device: torch.device | None = None
+    tp_rank: int = 0
+    tp_group: Any = None
     ring: StagedRing | None = dataclasses.field(default=None, compare=False,
                                                 repr=False)
+    tp_comm: TPComm | None = dataclasses.field(default=None, compare=False,
+                                               repr=False)
 
     def __post_init__(self):
-        if self.tp != 1 or self.fsdp != 1:
+        if self.fsdp != 1:
             raise NotImplementedError(
-                f"tp={self.tp}, data_size={self.data_size}, n_nodes="
-                f"{self.n_nodes}: {_TP_FSDP}")
+                f"data_size={self.data_size}, n_nodes={self.n_nodes}: "
+                f"{_FSDP}")
+        if self.tp > 1 and self.group is None:
+            raise NotImplementedError(f"tp={self.tp}: {_STACKED_TP}")
+        if not 0 <= self.tp_rank < self.tp:
+            raise ValueError(f"model index {self.tp_rank} outside tp="
+                             f"{self.tp}")
+        if self.tp > 1 and self.tp_comm is None:
+            if self.tp_group is None:
+                raise ValueError("a process grid with tp > 1 needs the "
+                                 "node's tp_group")
+            object.__setattr__(self, "tp_comm", TPComm(
+                self.tp_group, self.tp_rank, self.tp))
         if self.group is not None and self.ring is None:
             object.__setattr__(self, "ring", StagedRing(
-                self.group, self.rank, self.total_consensus_nodes))
+                self.group, self.global_rank,
+                self.total_consensus_nodes * self.tp))
 
     # -- the reference's node-axis sizes ----------------------------------
     @property
@@ -329,6 +492,53 @@ class ParallelContext:
         """One node per rank of ``group`` (else every node stacked)."""
         return self.group is not None
 
+    @property
+    def global_rank(self) -> int:
+        """This process's rank in ``group``: ``rank * tp + tp_rank``."""
+        return self.rank * self.tp + self.tp_rank
+
+    def grid_rank(self, node: int) -> int:
+        """The rank of ``node`` that has this process's model index."""
+        return node * self.tp + self.tp_rank
+
+    def _ranks(self, nodes) -> list[int]:
+        return [self.grid_rank(n) for n in nodes]
+
+    # -- tensor parallel (the node's tp group) ----------------------------
+    def psum_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum of the ranks' parts (rank-partial -> replicated)."""
+        return x if self.tp == 1 else _PsumTP.apply(x, self.tp_comm)
+
+    def copy_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated tensor entering rank-partial compute: the
+        identity, whose backward sums the ranks' cotangents."""
+        return x if self.tp == 1 else _CopyTP.apply(x, self.tp_comm)
+
+    def ag_tp(self, x: torch.Tensor, axis: int) -> torch.Tensor:
+        """Tiled all-gather of the ranks' chunks along ``axis``
+        (rank-partial -> replicated; backward: the rank's chunk).  A
+        gathered tensor that feeds rank-partial compute again goes through
+        :meth:`copy_tp`, which together make the reference's
+        reduce-scatter transpose."""
+        return x if self.tp == 1 else _GatherTP.apply(x, self.tp_comm, axis)
+
+    def pmax_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """Maximum over the group (no gradient: the reference's inputs
+        are stop-gradient or integers)."""
+        return x if self.tp == 1 else self.tp_comm.max(x.detach(), "pmax")
+
+    def reset_tp_stats(self) -> None:
+        if self.tp_comm is not None:
+            self.tp_comm.reset_stats()
+
+    def tp_stats(self) -> dict:
+        """``tp_wire_s`` and ``tp_bytes_sent`` of the tp collectives since
+        :meth:`reset_tp_stats` (0 at tp = 1)."""
+        st = (self.tp_comm.stats if self.tp_comm is not None
+              else {"wire_s": 0.0, "bytes_sent": 0})
+        return {"tp_wire_s": st["wire_s"],
+                "tp_bytes_sent": st["bytes_sent"]}
+
     # -- collectives over the node ring -----------------------------------
     def neighbours(self, shift: int = 1) -> tuple[int, int]:
         """(the rank whose tensor ``ppermute_ring(x, shift)`` delivers
@@ -348,7 +558,8 @@ class ParallelContext:
         ``peers`` names the (left, right) ranks instead of the shift ring
         (a compacted or pod ring, whose tables every rank reads alike).
         Process context only."""
-        left, right = self.neighbours(stride) if peers is None else peers
+        left, right = self._ranks(self.neighbours(stride) if peers is None
+                                  else peers)
         return self.ring.start(x, [right, left], [left, right], slot, into)
 
     def ppermute_ring(self, x: torch.Tensor, shift: int,
@@ -366,7 +577,7 @@ class ParallelContext:
             idx = torch.tensor([(i - shift) % n for i in range(n)],
                                device=x.device)
             return x.index_select(0, idx)
-        src, dst = self.neighbours(shift)
+        src, dst = self._ranks(self.neighbours(shift))
         # a copy: the receive buffer is the slot's, reused by its next use
         return self.ring.start(x, [dst], [src], slot).wait()[0].clone()
 
@@ -393,8 +604,8 @@ class ParallelContext:
                 yield acc
             return
         n = self.total_consensus_nodes
-        srcs = [(self.rank - r) % n for r in range(1, n)]
-        dsts = [(self.rank + r) % n for r in range(1, n)]
+        srcs = self._ranks((self.rank - r) % n for r in range(1, n))
+        dsts = self._ranks((self.rank + r) % n for r in range(1, n))
         xs = list(xs)
         flights = [self.ring.start(x, dsts, srcs, (slot, i))
                    for i, x in enumerate(xs)]
@@ -421,8 +632,8 @@ class ParallelContext:
                 yield s
             return
         base, me = self.rank - self.rank % m, self.rank % m
-        dsts = [base + (me + r) % m for r in range(1, m)]
-        srcs = [base + (me - r) % m for r in range(1, m)]
+        dsts = self._ranks(base + (me + r) % m for r in range(1, m))
+        srcs = self._ranks(base + (me - r) % m for r in range(1, m))
         xs = list(xs)
         flights = [self.ring.start(x, dsts, srcs, (slot, i))
                    for i, x in enumerate(xs)]
@@ -435,18 +646,33 @@ class ParallelContext:
                 s.add_(parts[j])
             yield s
 
-    def gather_nodes(self, x: torch.Tensor) -> torch.Tensor:
+    def mean_metric(self, x: torch.Tensor,
+                    over_tp: bool = False) -> torch.Tensor:
+        """The reference's ``mean_metric`` of a metric: per-node values
+        ``(n_local,)`` meaned over the nodes, and over the model indices
+        too with ``over_tp`` (a value each rank computed on its own
+        shards); a scalar, the same on every rank, as it is."""
+        return x if x.dim() == 0 else self.gather_nodes(x, over_tp).mean()
+
+    def gather_nodes(self, x: torch.Tensor,
+                     over_tp: bool = False) -> torch.Tensor:
         """Every node's ``x`` stacked in node order, on ``x``'s device:
         ``(total_consensus_nodes, *x.shape[1:])`` from each rank's
-        ``(1, ...)`` (small tensors: metrics).  Stacked, ``x`` itself."""
+        ``(1, ...)`` (small tensors: metrics), read from the ranks of this
+        model index; with ``over_tp`` every rank's, ``(total_consensus_nodes
+        * tp, ...)`` in rank order (a value that differs across the model
+        indices).  Stacked, ``x`` itself."""
         if not self.process_ring:
             return x
         host = x.detach().to("cpu").contiguous()
         # as bytes: every dtype crosses gloo bit for bit
         flat = host.reshape(-1).view(torch.uint8)
         parts = [torch.empty_like(flat)
-                 for _ in range(self.total_consensus_nodes)]
+                 for _ in range(self.total_consensus_nodes * self.tp)]
         dist.all_gather(parts, flat, group=self.group)
+        if not over_tp:
+            parts = [parts[r] for r in
+                     self._ranks(range(self.total_consensus_nodes))]
         return torch.cat([p.view(x.dtype).reshape(host.shape)
                           for p in parts]).to(x.device)
 
@@ -457,20 +683,22 @@ def local_context() -> ParallelContext:
 
 
 def make_context(n_nodes: int, *, tp: int = 1, data_size: int | None = None,
-                 group: Any = None, rank: int = 0,
-                 device=None) -> ParallelContext:
+                 group: Any = None, rank: int = 0, device=None,
+                 tp_rank: int = 0, tp_group: Any = None) -> ParallelContext:
     """A context of ``n_nodes`` consensus nodes; with ``group`` one node
-    per rank (``rank`` this process's).  ``tp > 1`` or ``data_size >
-    n_nodes`` (FSDP) raise ``NotImplementedError``."""
+    per ``tp`` ranks (``rank`` this process's node, ``tp_rank`` its model
+    index, ``tp_group`` its node's group).  ``data_size > n_nodes`` (FSDP)
+    and ``tp > 1`` without a group raise ``NotImplementedError``."""
     data_size = n_nodes if data_size is None else data_size
     if group is not None:
         size = dist.get_world_size(group)
-        if size != n_nodes:
-            raise ValueError(f"the group has {size} ranks, the ring "
-                             f"{n_nodes} nodes")
-        if not 0 <= rank < size:
-            raise ValueError(f"rank {rank} outside the group of {size}")
+        if size != n_nodes * tp:
+            raise ValueError(f"the group has {size} ranks, the grid "
+                             f"{n_nodes} nodes x tp {tp}")
+        if not 0 <= rank < n_nodes:
+            raise ValueError(f"node {rank} outside the ring of {n_nodes}")
     return ParallelContext(tp=tp, data_size=data_size, n_nodes=n_nodes,
                            group=group, rank=rank,
                            device=None if device is None
-                           else torch.device(device))
+                           else torch.device(device),
+                           tp_rank=tp_rank, tp_group=tp_group)

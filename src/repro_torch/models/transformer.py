@@ -61,6 +61,16 @@ decode step writes K and V, or the state and the shifted windows, into
 the cache in place.  With ``long_serve`` the 'A' blocks attend within
 ``cfg.long_context_window`` positions (the reference's long-context
 serving).
+
+Tensor parallelism: ``build_defs(cfg, ctx=)`` with a process grid's
+context at ``ctx.tp`` > 1 declares the reference's ``tp_dim`` of every
+leaf (and the padded vocabulary) and keeps the context in the
+:class:`ModelDefs`; the forward, the loss, the decode step and the cache
+then run on the rank's shards with the tp collectives of
+``models.layers``.  It covers the dense family ('A' and 'L' blocks; MoE,
+Mamba2 and encoder-decoder configs raise ``NotImplementedError``, ROADMAP
+Queue 1 item 5d) in float32.  ``init_cache`` holds the rank's kv heads
+(head-sharded) or all of them (sequence-sharded).
 """
 from __future__ import annotations
 
@@ -76,15 +86,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.core import tree as T
 from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (attention_defs, attention_forward,
-                                       chunked_attention,
+from repro_torch.models.layers import (ONE_DEVICE, attention_defs,
+                                       attention_forward, chunked_attention,
                                        combine_decode_partials,
                                        decode_attention_local, embed_defs,
                                        embed_lookup, logits_local, mlp_defs,
                                        mlp_forward, norm_def, rms_norm,
                                        sharded_greedy_sample,
                                        sharded_softmax_xent,
-                                       sinusoidal_positions)
+                                       sinusoidal_positions, head_sharded)
 from repro_torch.models.params import ParamDef
 
 __all__ = ["ModelDefs", "build_defs", "init_cache", "model_apply",
@@ -118,14 +128,14 @@ def _dots_saveable(ctx, op, *args, **kwargs):
 
 
 def _block_defs(code: str, cfg: ModelConfig, cross: bool = False,
-                dtype=torch.float32) -> dict:
+                dtype=torch.float32, ctx=ONE_DEVICE) -> dict:
     """One block: attention ('A', 'L', 'E', 'D') or Mamba2 ('M', 'X'),
     with ``cross`` a cross attention and its norm, then a dense MLP ('A',
     'L', and 'M' when ``d_ff > 0``), the routed experts ('E', 'X') or a
     dense MLP of width ``dense_d_ff`` ('D')."""
     d = {"norm1": norm_def(cfg, dtype)}
     if code in "ALED":
-        d["attn"] = attention_defs(cfg, dtype)
+        d["attn"] = attention_defs(cfg, dtype, ctx)
     elif code in "MX":
         d["mamba"] = mamba2.mamba_defs(cfg, dtype)
     else:
@@ -141,7 +151,7 @@ def _block_defs(code: str, cfg: ModelConfig, cross: bool = False,
         d["mlp"] = mlp_defs(cfg, d_ff=cfg.dense_d_ff, dtype=dtype)
     elif code in "AL" or (code == "M" and cfg.d_ff > 0):
         d["norm2"] = norm_def(cfg, dtype)
-        d["mlp"] = mlp_defs(cfg, dtype=dtype)
+        d["mlp"] = mlp_defs(cfg, dtype=dtype, ctx=ctx)
     if cfg.post_norms:
         d["norm1_post"] = norm_def(cfg, dtype)
         if "norm2" in d:
@@ -151,14 +161,23 @@ def _block_defs(code: str, cfg: ModelConfig, cross: bool = False,
 
 def _stack_defs(defs: Any, n: int) -> Any:
     """Add a leading stacking dim of size n to every ParamDef in the tree."""
-    return T.tree_map(lambda d: dataclasses.replace(d, shape=(n,) + d.shape),
-                      defs)
+    return T.tree_map(lambda d: dataclasses.replace(
+        d, shape=(n,) + d.shape,
+        tp_dim=None if d.tp_dim is None else d.tp_dim + 1,
+        fsdp_dim=d.fsdp_dim + 1), defs)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelDefs:
     cfg: ModelConfig
     storage: Any            # full tree of (layer-stacked) ParamDefs
+    #: the context the layers run in (a process grid's at tp > 1)
+    ctx: Any = dataclasses.field(default=ONE_DEVICE, compare=False,
+                                 repr=False)
+
+    @property
+    def tp(self) -> int:
+        return self.ctx.tp
 
 
 def _check_dtype(dtype) -> None:
@@ -176,18 +195,24 @@ def check_remat(remat) -> None:
                          f"{remat!r}")
 
 
-def build_defs(cfg: ModelConfig, dtype=torch.float32) -> ModelDefs:
+def build_defs(cfg: ModelConfig, dtype=torch.float32,
+               ctx=None) -> ModelDefs:
     """The parameter tree of ``cfg`` with its leaves declared in ``dtype``
     (the compute dtype), as the reference's ``build_defs(cfg, ctx,
-    dtype)``."""
+    dtype)``; ``ctx`` a process grid's context at tp > 1 (module
+    docstring), else None: one device."""
     _check_dtype(dtype)
     missing = [what for what, used in _UNPORTED if used(cfg)]
     if missing:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(missing)} not yet ported")
+    ctx = ONE_DEVICE if ctx is None or ctx.tp == 1 else ctx
+    if ctx.tp > 1:
+        check_tp(cfg, ctx.tp, dtype)
     cross = cfg.is_encoder_decoder
-    storage = {"embed": embed_defs(cfg, dtype),
-               "layers": tuple(_stack_defs(_block_defs(c, cfg, cross, dtype),
+    storage = {"embed": embed_defs(cfg, dtype, ctx),
+               "layers": tuple(_stack_defs(_block_defs(c, cfg, cross, dtype,
+                                                       ctx),
                                            cfg.n_periods)
                                for c in cfg.period),
                "final_norm": norm_def(cfg, dtype)}
@@ -201,18 +226,41 @@ def build_defs(cfg: ModelConfig, dtype=torch.float32) -> ModelDefs:
             "layers": (_stack_defs(_block_defs("A", cfg, dtype=dtype),
                                    cfg.n_encoder_layers),),
             "final_norm": norm_def(cfg, dtype)}
-    return ModelDefs(cfg=cfg, storage=storage)
+    return ModelDefs(cfg=cfg, storage=storage, ctx=ctx)
+
+
+def check_tp(cfg: ModelConfig, tp: int, dtype=torch.float32) -> None:
+    """``NotImplementedError`` unless ``cfg`` at ``tp`` > 1 lies in the
+    ported slice of tensor parallelism: the dense family ('A' and 'L'
+    blocks, no encoder) in float32 (the rest is ROADMAP Queue 1 item 5d);
+    ``ValueError`` when ``d_ff`` does not split over ``tp``."""
+    blocks = set(cfg.prelude + cfg.period)
+    if cfg.is_encoder_decoder or blocks - set("AL"):
+        raise NotImplementedError(
+            f"{cfg.arch_id} at tp={tp}: tensor parallelism covers the dense "
+            "transformer family; MoE, Mamba2 and encoder-decoder blocks "
+            "are not yet ported (ROADMAP Queue 1 item 5d)")
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"tp={tp} at {dtype}: tensor parallelism runs float32; other "
+            "compute dtypes are not yet ported (ROADMAP Queue 1 item 5d)")
+    if cfg.d_ff % tp:
+        raise ValueError(f"{cfg.arch_id}: d_ff {cfg.d_ff} does not split "
+                         f"over tp={tp}")
 
 
 def init_cache(cfg: ModelConfig, b: int, capacity: int,
                dtype=torch.float32, device=None,
-               enc_len: int | None = None) -> dict:
+               enc_len: int | None = None, tp: int = 1) -> dict:
     """Zeroed decode cache for ``b`` sequences of up to ``capacity``
     positions (before prefill); a Mamba2 block's entry does not grow with
     the positions.  An encoder-decoder's blocks also hold the cross K/V
     over ``enc_len`` frames (``cfg.encoder_frames`` when None), and its
     capacity is at most POS_EMB_ROWS (ValueError: the reference would read
-    fill values past its learned positions)."""
+    fill values past its learned positions).  At ``tp`` > 1 a rank's
+    attention cache holds its kv heads (head-sharded: ``kvh / tp``, or the
+    one kv head its q heads use when ``kvh < tp``) or every kv head
+    (sequence-sharded)."""
     if cfg.is_encoder_decoder and capacity > POS_EMB_ROWS:
         raise ValueError(f"a cache of {capacity} positions exceeds the "
                          f"{POS_EMB_ROWS} learned decoder positions")
@@ -228,7 +276,10 @@ def init_cache(cfg: ModelConfig, b: int, capacity: int,
                               "conv": {"x": zeros(*lead, b, k - 1, d_in),
                                        "b": zeros(*lead, b, k - 1, n),
                                        "c": zeros(*lead, b, k - 1, n)}}}
-        kv = (cfg.n_kv_heads, cfg.resolved_head_dim)
+        kvh = cfg.n_kv_heads
+        if tp > 1 and head_sharded(cfg, tp):
+            kvh = max(kvh // tp, 1)
+        kv = (kvh, cfg.resolved_head_dim)
         out = {"attn": {"k": zeros(*lead, b, capacity, *kv),
                         "v": zeros(*lead, b, capacity, *kv)}}
         if cfg.is_encoder_decoder:
@@ -247,7 +298,7 @@ def init_cache(cfg: ModelConfig, b: int, capacity: int,
 def _block_forward(code: str, p, x: torch.Tensor, cfg: ModelConfig, *,
                    mode: str, cache: dict | None, pos: int,
                    long_serve: bool, enc_out: torch.Tensor | None = None,
-                   use_rope: bool = True):
+                   use_rope: bool = True, ctx=ONE_DEVICE):
     """One block: pre-norm attention or Mamba2, then the cross attention
     when the block has one and there are frames (``enc_out``) or their
     cached K/V, then the MLP or experts when the block has them, each with
@@ -264,7 +315,7 @@ def _block_forward(code: str, p, x: torch.Tensor, cfg: ModelConfig, *,
                   else None)
         a, c = attention_forward(p["attn"], h, cfg, mode=mode, cache=c_in,
                                  pos=pos, kind=code, window_override=window,
-                                 use_rope=use_rope)
+                                 use_rope=use_rope, ctx=ctx)
     else:
         a, c = mamba2.mamba_forward(p["mamba"], h, cfg, mode=mode,
                                     cache=c_in)
@@ -286,7 +337,7 @@ def _block_forward(code: str, p, x: torch.Tensor, cfg: ModelConfig, *,
     if "moe" in p:
         f, aux = moe.moe_forward(p["moe"], h, cfg)
     else:
-        f = mlp_forward(p["mlp"], h, cfg)
+        f = mlp_forward(p["mlp"], h, cfg, ctx)
     if cfg.post_norms:
         f = rms_norm(f, p["norm2_post"], cfg.norm_eps)
     return x + f, parts, aux
@@ -387,7 +438,7 @@ def _apply(params: Any, defs: ModelDefs, batch: dict, *,
                          f"{mode!r}")
     _check_dtype(compute_dtype)
     check_remat(remat)
-    cfg = defs.cfg
+    cfg, ctx = defs.cfg, defs.ctx
     tokens = batch["tokens"]
     b, s = tokens.shape
     frames = batch.get("enc_frames") if cfg.is_encoder_decoder else None
@@ -403,7 +454,7 @@ def _apply(params: Any, defs: ModelDefs, batch: dict, *,
         cache = init_cache(cfg, b, s, dtype=compute_dtype,
                            device=tokens.device,
                            enc_len=None if frames is None
-                           else frames.shape[1])
+                           else frames.shape[1], tp=defs.tp)
     if mode == "prefill":
         cap = min((e["attn"]["k"].shape[-3] for e in
                    cache["layers"] + cache.get("prelude", ()) if "attn" in e),
@@ -416,7 +467,8 @@ def _apply(params: Any, defs: ModelDefs, batch: dict, *,
                 for e in cache["layers"] + cache.get("prelude", ())):
             raise ValueError(f"{frames.shape[1]} frames do not fill the "
                              "cache's cross K/V")
-    x = embed_lookup(params["embed"], tokens, cfg, dtype=compute_dtype)
+    x = embed_lookup(params["embed"], tokens, cfg, dtype=compute_dtype,
+                     ctx=ctx)
     enc_out = None
     if cfg.is_encoder_decoder:
         if frames is not None:
@@ -432,7 +484,8 @@ def _apply(params: Any, defs: ModelDefs, batch: dict, *,
         x, parts, a = _block_forward(
             code, p, x, cfg, mode=mode,
             cache=entry if mode == "decode" else None, pos=pos,
-            long_serve=long_serve, enc_out=enc_out, use_rope=use_rope)
+            long_serve=long_serve, enc_out=enc_out, use_rope=use_rope,
+            ctx=ctx)
         if mode == "prefill":
             for part, c in parts.items():
                 for dst, src in zip(T.tree_leaves(entry[part]),
@@ -473,7 +526,7 @@ def _apply(params: Any, defs: ModelDefs, batch: dict, *,
             x, aux_p = period(x, layer)
         aux = aux + aux_p
     x = rms_norm(x[:, logits_from:], params["final_norm"], cfg.norm_eps)
-    logits = logits_local(params["embed"], x, cfg)
+    logits = logits_local(params["embed"], x, cfg, ctx)
     if mode == "train":
         return logits, None, aux
     cache = {**cache, "len": pos + s}
@@ -492,7 +545,7 @@ def train_loss(params: Any, defs: ModelDefs, batch: dict,
     without MoE blocks, so loss == ce for dense models)."""
     logits, _, aux = _apply(params, defs, batch,
                             compute_dtype=compute_dtype, remat=remat)
-    ce = sharded_softmax_xent(logits, batch["labels"])
+    ce = sharded_softmax_xent(logits, batch["labels"], defs.ctx)
     return ce + defs.cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
 
@@ -501,12 +554,14 @@ def greedy_decode_step(params: Any, defs: ModelDefs, tokens: torch.Tensor,
                        long_serve: bool = False):
     """One serving step: tokens ``(b, 1)`` -> (greedy next ids ``(b, 1)``
     int32, the cache advanced by one position, the step's logits ``(b,
-    V)``).  The reference returns the first two."""
+    V)``; at tp > 1 the rank's vocabulary columns).  The reference
+    returns the first two."""
     logits, cache = model_apply(params, defs, {"tokens": tokens},
                                 mode="decode", cache=cache,
                                 compute_dtype=compute_dtype,
                                 long_serve=long_serve)
-    return sharded_greedy_sample(logits[:, -1:, :]), cache, logits[:, -1]
+    return (sharded_greedy_sample(logits[:, -1:, :], defs.ctx), cache,
+            logits[:, -1])
 
 
 class _Tree(nn.Module):

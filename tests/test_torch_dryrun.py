@@ -164,6 +164,41 @@ def test_main_prices_every_applicable_combo_and_counts_failures(
     assert exc.value.code == 1
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "smollm-135m"])
+def test_main_takes_the_ssm_chunk_and_tag_suffix(tmp_path, monkeypatch,
+                                                 arch):
+    """``--ssm-chunk`` replaces an SSM config's chunk as the reference's
+    ``run_combo`` does (other configs keep theirs), a chunk that does not
+    divide the length fails the combination (hazard 30), and
+    ``--tag-suffix`` ends the tag as it ends the reference's."""
+    from repro.configs import get_config as jget_config
+    real, seen = dryrun.build_step, []
+
+    def small(cfg, shape, device="meta", **kw):
+        seen.append(cfg.ssm_chunk)
+        cfg = dataclasses.replace(reduced(cfg), n_periods=1, vocab_size=128,
+                                  ssm_chunk=min(cfg.ssm_chunk, 32))
+        shape = dataclasses.replace(shape, seq_len=32, global_batch=4)
+        return real(cfg, shape, device, **kw)
+
+    monkeypatch.setattr(dryrun, "build_step", small)
+    recs = dryrun.main(["--out", str(tmp_path), "--arch", arch, "--shape",
+                        "train_4k", "--remat", "none", "--ssm-chunk", "128",
+                        "--tag-suffix", "__chunk128"])
+    jcfg = jget_config(arch)
+    want = (dataclasses.replace(jcfg, ssm_chunk=128) if jcfg.ssm_state
+            else jcfg).ssm_chunk
+    assert seen == [want] and recs[0]["hlo_flops_per_chip"] > 0
+    # the reference's tag is f"{arch}__{shape}__{mesh}__{variant}{suffix}"
+    assert os.listdir(tmp_path) == [
+        f"{arch}__train_4k__h100x1__adc_int8__float32__chunk128.json"]
+    if jcfg.ssm_state:
+        with pytest.raises(SystemExit) as exc:
+            dryrun.main(["--out", str(tmp_path), "--arch", arch, "--shape",
+                         "train_4k", "--ssm-chunk", "3000", "--force"])
+        assert exc.value.code == 1 and len(seen) == 1
+
+
 # -- the exchange probe ------------------------------------------------------
 
 def _trained(nodes=4, steps=2, **kw):

@@ -406,6 +406,9 @@ def test_ring_trainer_bitwise_stacked(ring, what):
 
 
 def test_context_refuses_tp_and_fsdp():
+    """FSDP and a stacked context with tp > 1 are refused; a process grid
+    with tp 2 places rank r at node r // 2, model index r % 2, and sends
+    its ring transfers to the ranks of its model index."""
     for kw in (dict(tp=2), dict(data_size=8)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             make_context(4, **kw)
@@ -413,6 +416,15 @@ def test_context_refuses_tp_and_fsdp():
         ParallelContext(tp=2)
     ctx = local_context()
     assert not ctx.process_ring and ctx.total_consensus_nodes == 1
+    for r in range(8):
+        node, m = r // 2, r % 2
+        grid = ParallelContext(tp=2, n_nodes=4, data_size=4, group=object(),
+                               rank=node, tp_rank=m, tp_group=object())
+        assert grid.global_rank == r
+        assert grid.ring.size == 8 and grid.tp_comm.index == m
+        left, right = grid.neighbours(1)
+        assert [grid.grid_rank(left), grid.grid_rank(right)] == [
+            ((node - 1) % 4) * 2 + m, ((node + 1) % 4) * 2 + m]
 
 
 def test_process_context_needs_the_launcher(monkeypatch):
