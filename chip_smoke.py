@@ -179,23 +179,34 @@ Phases (any failure exits non-zero before the result line):
              posted-to-landed beside int8 packed's wait; then tensor
              parallelism over ranks (``phase_tp``): 4 gloo ranks on
              cuda:0, 2 nodes x tp 2 (rank r is node r // 2, model index
-             r % 2), first the memory account of the grid; qwen3-0.6b
-             at full width, 7 of 28 layers, trained through ``train.main
-             --model 2`` for 3 int8 packed steps (4 x 512 tokens): #1 and
-             #2 launched once per rank and step, the leaves replicated
-             over a node's ranks bitwise equal on both, each rank's
-             x_next, x_tilde and m_agg of every step bitwise the stacked
-             runtime's over the two nodes' shards of its model index (the
-             optimizer's outputs replayed), the step-1 losses within
-             1e-5 of a tp = 1 forward of the same weights at the padded
-             vocabulary; then on node 0's two ranks qwen3-0.6b (7 layers,
-             head-sharded: 4 kv heads a rank) and the full smollm-135m
-             (sequence-sharded: every head on each rank) served at tp 2,
-             4 prompts of 512 tokens and 16 new: the same tokens on both
-             ranks and at tp = 1, the decode logits within ZOO_LOGIT_TOL
-             of the tp = 1 serve's, #9 launched layers x 15 times a rank,
-             one decode step through the plain #9 within SERVE_LOGIT_TOL;
-             step time, ``tp_wire_s`` and ``tp_bytes_sent`` per rank;
+             r % 2), first each trainer's memory account and #1 / #2 at
+             its tp-local rows against their plain versions; four
+             trainers at full width, one after another in the same ranks
+             through ``train.main --model 2``, 3 int8 packed steps each:
+             qwen3-0.6b (7 of 28 layers, 2 x 512 tokens a node),
+             granite-moe-3b-a800m (3 of 32, 4 x 512), mamba2-1.3b (6 of
+             48, 2 x 512) and whisper-small (4 + 4 layers, 1 x 1,536 and
+             its frames): #1 and #2 launched once per rank and step, the
+             leaves replicated over a node's ranks bitwise equal on both,
+             each rank's x_next, x_tilde and m_agg of every step bitwise
+             the stacked runtime's over the two nodes' shards of its
+             model index (the optimizer's outputs replayed), the step-1
+             losses within 1e-5 of a tp = 1 forward of the same weights
+             at the padded vocabulary (where granite's step-1 routing
+             chose other experts than tp = 1's for a token, which must be
+             a near tie, of a tp = 1 forward routed as tp 2 routed); then
+             at tp 2, node 0 and node 1 at once, 16 new tokens:
+             qwen3-0.6b (head-sharded), the full smollm-135m
+             (sequence-sharded) and mamba2-1.3b on node 0, whisper-small,
+             granite-moe-3b-a800m and deepseek-moe-16b (prelude + 2
+             periods) on node 1 (each MoE arch at its capacity factor):
+             the same tokens and drops on both ranks and at tp = 1 (where
+             an MoE arch routed a token apart, a near tie, against a tp =
+             1 serve routed as tp 2 routed), the decode logits within
+             ZOO_LOGIT_TOL of the tp = 1 serve's, #9 launched attention
+             layers x 15 times a rank (twice for whisper), one decode step
+             through the plain #9 within SERVE_LOGIT_TOL; step time,
+             ``tp_wire_s`` and ``tp_bytes_sent`` per rank;
 4. serve   — ``repro_torch.launch.serve.main`` on the full smollm-135m:
              32 prompts of 1,984 tokens and 64 new tokens (capacity 2,048,
              a 3.0 GB float32 KV cache): the flash-decode kernel launched
@@ -227,10 +238,10 @@ Phases (any failure exits non-zero before the result line):
              per step, a finite loss near ln(151,936);
 4c. moe    — the mixture-of-experts family at full width (``phase_moe``),
              each model freed before the next: ``serve.main`` on
-             granite-moe-3b-a800m at 8 of its 32 layers (32 x 1,984 + 64
+             granite-moe-3b-a800m at 4 of its 32 layers (32 x 1,984 + 64
              tokens) and
-             deepseek-moe-16b at full depth (its dense 'D' prelude and 27
-             'E' periods, 2 x 1,984 + 64), each counted: #9 launched
+             deepseek-moe-16b at its dense 'D' prelude and 13 of its 27
+             'E' periods (2 x 1,984 + 64), each counted: #9 launched
              layers x 63 times (g 3 hd 64; g 1 hd 128) and no other kernel,
              tokens in range, the share of routed assignments dropped at
              prefill and at the first decode step (``RouteWatch`` on
@@ -515,7 +526,10 @@ KVH, GROUP, HEAD_DIM = 3, 3, 64
 #: self-attention over its 448-position context and its cross attention
 #: over 1,504 frames, every one valid; ``phase_tp``'s serves at tp 2 a
 #: rank's cache: qwen3-0.6b head-sharded (b 4, capacity 528, 4 of the 8 KV
-#: heads, g 2) and smollm-135m sequence-sharded (every head: 3 of 64, g 3)
+#: heads, g 2) and smollm-135m sequence-sharded (every head: 3 of 64, g 3),
+#: granite-moe-3b-a800m (4 of its 8 KV heads, g 3), deepseek-moe-16b (8 of
+#: 16 of 128, g 1) and whisper-small's self (capacity 400) and cross (1,504
+#: frames) attention (6 of its 12 KV heads of 64, g 1)
 DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, KVH, GROUP,
                            HEAD_DIM),
                  "decode_32k": (128, 32768, KVH, GROUP, HEAD_DIM),
@@ -531,7 +545,11 @@ DECODE_SHAPES = {"serve": (SERVE_BATCH, SERVE_PROMPT + SERVE_NEW, KVH, GROUP,
                  "whisper-small": (32, 448, 12, 1, 64),
                  "whisper-small cross": (32, 1504, 12, 1, 64),
                  "qwen3-0.6b tp2": (4, 528, 4, 2, 128),
-                 "smollm-135m tp2": (4, 528, 3, 3, 64)}
+                 "smollm-135m tp2": (4, 528, 3, 3, 64),
+                 "granite-moe-3b-a800m tp2": (4, 528, 4, 3, 64),
+                 "deepseek-moe-16b tp2": (4, 528, 8, 1, 128),
+                 "whisper-small tp2": (4, 400, 6, 1, 64),
+                 "whisper-small cross tp2": (4, 1504, 6, 1, 64)}
 #: the softcap each shape is also held with (gemma2-9b's own is 50)
 DECODE_SOFTCAP = {"serve": 30.0, "decode_32k": 30.0, "long_500k": 50.0,
                   "qwen3-0.6b": 30.0, "yi-9b": 30.0, "chameleon-34b": 30.0,
@@ -539,14 +557,17 @@ DECODE_SOFTCAP = {"serve": 30.0, "decode_32k": 30.0, "long_500k": 50.0,
                   "granite-moe-3b-a800m": 30.0, "deepseek-moe-16b": 30.0,
                   "jamba-v0.1-52b": 30.0, "whisper-small": 30.0,
                   "whisper-small cross": 30.0,
-                  "qwen3-0.6b tp2": 30.0, "smollm-135m tp2": 30.0}
+                  "qwen3-0.6b tp2": 30.0, "smollm-135m tp2": 30.0,
+                  "granite-moe-3b-a800m tp2": 30.0,
+                  "deepseek-moe-16b tp2": 30.0, "whisper-small tp2": 30.0,
+                  "whisper-small cross tp2": 30.0}
 #: the sliding window a shape's masks also take: gemma2-9b's 'L' blocks
 #: (4,096), and the long-serve cap of its 'A' blocks (32,768)
 DECODE_WINDOW = {"long_500k": 4096, "gemma2-9b": 4096,
                  "gemma2-9b long-serve": 32768}
 #: the shapes a decode reads whole: a cross attention sees every frame, so
 #: they are also held, and timed, on an all-valid mask
-DECODE_ALL_VALID = ("whisper-small cross",)
+DECODE_ALL_VALID = ("whisper-small cross", "whisper-small cross tp2")
 #: the flash-decode partials against their plain version, on acc / l and
 #: on m + log l (the reference's float32 kernel-test tolerances).  bf16
 #: K and V widen to float32 exactly on both sides, which then sum in
@@ -3415,11 +3436,12 @@ def phase_zoo(torch, Q, D, G, train, entries):
 #: and freed before the next.  granite-moe-3b-a800m: 4 of its 32 layers
 #: (all 32 until the process ring's 5-rank group, 16 until it ran
 #: membership, hierarchy and a checkpoint, 8 until tensor parallelism,
-#: cut for time); deepseek-moe-16b: its dense 'D' prelude and
-#: 27 'E' periods, 65.5 GB of weights
+#: cut for time); deepseek-moe-16b: its dense 'D' prelude and 13 of its
+#: 27 'E' periods (all 27, 65.5 GB of weights, until tensor parallelism
+#: came to the MoE family and ``phase_tp`` served it too, cut for time)
 MOE_SERVE = (
     ("granite-moe-3b-a800m", "granite-moe-3b-a800m", 4, 32, 1984),
-    ("deepseek-moe-16b", "deepseek-moe-16b", None, 2, 1984),
+    ("deepseek-moe-16b", "deepseek-moe-16b", 13, 2, 1984),
 )
 #: the MoE trainer: granite-moe-3b-a800m at full width cut to 3 of its 32
 #: periods (1.81 GB of float32 per node; 4 periods ran out of the card's
@@ -3461,10 +3483,38 @@ class RouteWatch:
     ``dropped(t)`` sums them over the calls that routed ``t`` tokens:
     (assignments dropped, assignments).  With ``routes`` each call also
     leaves its tokens' chosen experts in ascending id and their margin:
-    the k-th largest probability less the next one."""
+    the k-th largest probability less the next one.  With ``force``,
+    another run's calls (``routes``), the i-th call routes its tokens to
+    the experts that the other run's i-th call chose (``moe.assign``, the
+    rest of the routing computed here); ``forced`` keeps per call the
+    tokens whose own choice was another, each with the smaller of the two
+    runs' margins."""
 
-    def __init__(self, limit=None, routes=False):
+    def __init__(self, limit=None, routes=False, force=None):
         self.limit, self.routes, self.calls = limit, routes, []
+        self.force, self.forced = force, []
+
+    def _forced(self, r, cfg):
+        import torch
+        from repro_torch.models import moe
+        want = self.force[len(self.forced)]
+        if want[0] != r.probs.shape[0]:
+            fail(f"RouteWatch: call {len(self.forced)} routes "
+                 f"{r.probs.shape[0]} tokens, the forced run's {want[0]}")
+        fe = want[3].to(r.probs.device)
+        srt = r.probs.sort(dim=-1, descending=True).values
+        own = srt[:, cfg.top_k - 1] - srt[:, cfg.top_k]
+        rows = (r.top_e.sort(dim=1).values != fe).any(dim=1).nonzero()
+        rows = rows.flatten().tolist()
+        self.forced.append([(j, min(float(own[j]), float(want[4][j])))
+                            for j in rows])
+        if not rows:
+            return r
+        # the forced experts in the router's order (descending probability)
+        pe = r.probs.gather(1, fe)
+        order = torch.argsort(pe, dim=1, descending=True, stable=True)
+        return moe.assign(r.probs, pe.gather(1, order), fe.gather(1, order),
+                          cfg)
 
     def __enter__(self):
         from repro_torch.models import moe
@@ -3472,6 +3522,8 @@ class RouteWatch:
 
         def spy(router, xf, cfg):
             r = real(router, xf, cfg)
+            if self.force is not None and len(self.forced) < len(self.force):
+                r = self._forced(r, cfg)
             if self.limit is None or len(self.calls) < self.limit:
                 call = (xf.shape[0], r.keep.numel(), (~r.keep).sum())
                 if self.routes:
@@ -3490,7 +3542,7 @@ class RouteWatch:
         return False
 
     def dropped(self, t: int) -> tuple[int, int]:
-        picked = [(n, d) for tt, n, d in self.calls if tt == t]
+        picked = [c[1:3] for c in self.calls if c[0] == t]
         return (int(sum(int(d) for _, d in picked)),
                 sum(n for n, _ in picked))
 
@@ -4593,14 +4645,20 @@ DECODE_TIMING_SETS = {"serve": 4, "decode_32k": 1, "long_500k": 1,
                       "granite-moe-3b-a800m": 1, "deepseek-moe-16b": 4,
                       "jamba-v0.1-52b": 4, "whisper-small": 4,
                       "whisper-small cross": 4,
-                      "qwen3-0.6b tp2": 4, "smollm-135m tp2": 4}
+                      "qwen3-0.6b tp2": 4, "smollm-135m tp2": 4,
+                      "granite-moe-3b-a800m tp2": 4,
+                      "deepseek-moe-16b tp2": 4, "whisper-small tp2": 4,
+                      "whisper-small cross tp2": 4}
 DECODE_TIMING_REPS = {"serve": 200, "decode_32k": 20, "long_500k": 20,
                       "qwen3-0.6b": 100, "yi-9b": 200, "chameleon-34b": 200,
                       "gemma2-9b": 100, "gemma2-9b long-serve": 100,
                       "granite-moe-3b-a800m": 100, "deepseek-moe-16b": 200,
                       "jamba-v0.1-52b": 200, "whisper-small": 200,
                       "whisper-small cross": 200,
-                      "qwen3-0.6b tp2": 200, "smollm-135m tp2": 200}
+                      "qwen3-0.6b tp2": 200, "smollm-135m tp2": 200,
+                      "granite-moe-3b-a800m tp2": 200,
+                      "deepseek-moe-16b tp2": 200, "whisper-small tp2": 200,
+                      "whisper-small cross tp2": 200}
 #: ranges per row the decode timing also tries (``gqa_decode(ranges=)``);
 #: long_500k's rows take 16 ranges at the least
 DECODE_SWEEP = {"serve": (1, 2, 3, 4, 8), "decode_32k": (1, 2, 4),
@@ -4609,7 +4667,9 @@ DECODE_SWEEP = {"serve": (1, 2, 3, 4, 8), "decode_32k": (1, 2, 4),
                 "long_500k": (), "granite-moe-3b-a800m": (),
                 "deepseek-moe-16b": (), "jamba-v0.1-52b": (),
                 "whisper-small": (), "whisper-small cross": (),
-                "qwen3-0.6b tp2": (), "smollm-135m tp2": ()}
+                "qwen3-0.6b tp2": (), "smollm-135m tp2": (),
+                "granite-moe-3b-a800m tp2": (), "deepseek-moe-16b tp2": (),
+                "whisper-small tp2": (), "whisper-small cross tp2": ()}
 #: the same for the bfloat16 kernel, whose grid (``decode_splits``: rows x
 #: ranges near 3/4 of the SMs) these sweeps chose
 BF16_DECODE_SWEEP = {"serve": (1, 2, 3, 4), "chameleon-34b": (2, 3, 4, 6, 8)}
@@ -5848,44 +5908,97 @@ def ring_async_steps(ranks: list) -> str:
 
 
 #: tensor parallelism over ranks (``phase_tp``): 2 nodes x tp 2 gloo ranks
-#: on cuda:0.  The trainer: qwen3-0.6b at full width, 7 of 28 layers (the
-#: zoo's served depth), 4 x 512 tokens, 3 int8 packed steps on the fixed
-#: grid; serving on node 0's ranks: (label, arch, periods (None: the full
-#: depth), prompts, prompt tokens), TP_NEW tokens each
+#: on cuda:0, TP_STEPS int8 packed steps of each trainer on the fixed
+#: grid, TP_NEW tokens each serve
 TP, TP_NODES, TP_STEPS, TP_NEW = 2, 2, 3, 16
-TP_PERIODS = 7
-TP_TRAIN_ARGV = ("--arch", "qwen3-0.6b", "--periods", str(TP_PERIODS),
-                 "--model", str(TP), "--algorithm", "adc_dgd", "--batch",
-                 str(2 * TP_NODES), "--seq", "512", "--steps", str(TP_STEPS),
-                 "--quant-mode", "fixed", "--lr", "1e-2", "--device",
-                 "cuda:0", *NO_REMAT)
-TP_SERVE = (("qwen3-0.6b, 7 of 28 layers, head-sharded", "qwen3-0.6b",
-             TP_PERIODS, 4, 512),
-            ("smollm-135m, sequence-sharded", "smollm-135m", None, 4, 512))
+#: the trainers, one after another in the same ranks, at full width:
+#: (label, arch, periods, encoder layers (None: the config's), sequences
+#: a node, tokens a sequence).  qwen3-0.6b at 7 of 28 layers (the zoo's
+#: served depth); granite-moe-3b-a800m at 3 of 32 (its trainer's depth on
+#: 4 nodes, ``phase_moe``); mamba2-1.3b at 6 of 48 (its served depth);
+#: whisper-small at 4 of 12 decoder and 4 of 12 encoder layers, one
+#: sequence of 1,536 tokens a node with its 1,504 frames (the data stub
+#: draws them from the first seq + 1 tokens, ROADMAP hazard 40)
+TP_TRAIN = (
+    ("qwen3-0.6b, 7 of 28 layers", "qwen3-0.6b", 7, None, 2, 512),
+    ("granite-moe-3b-a800m, 3 of 32 layers", "granite-moe-3b-a800m", 3,
+     None, 4, 512),
+    ("mamba2-1.3b, 6 of 48 layers", "mamba2-1.3b", 6, None, 2, 512),
+    ("whisper-small, 4 + 4 layers", "whisper-small", 4, 4, 1, 1536),
+)
+#: the serves at tp 2, each on one node's two ranks (the two nodes serve at
+#: once): (label, arch, periods (None: the full depth), encoder layers,
+#: prompts, prompt tokens, node).  An MoE arch serves at its own capacity
+#: factor: the drops each rank's routing sees are the node's (every rank
+#: routes every token), held to tp = 1's; where the routing at tp 2 chose
+#: other experts for a token than tp = 1's (a near tie, rounded apart),
+#: tp = 1 is served again routed as tp 2 routed (``RouteWatch(force=)``)
+#: and held to it in full
+TP_SERVE = (
+    ("qwen3-0.6b, 7 of 28 layers, head-sharded", "qwen3-0.6b", 7, None,
+     4, 512, 0),
+    ("smollm-135m, sequence-sharded", "smollm-135m", None, None, 4, 512, 0),
+    ("mamba2-1.3b, 6 of 48 layers", "mamba2-1.3b", 6, None, 4, 512, 0),
+    ("whisper-small, 4 + 4 layers", "whisper-small", 4, 4, 4, 384, 1),
+    ("granite-moe-3b-a800m, 3 of 32 layers", "granite-moe-3b-a800m", 3,
+     None, 4, 512, 1),
+    ("deepseek-moe-16b, prelude + 2 of 27 layers", "deepseek-moe-16b", 2,
+     None, 4, 512, 1),
+)
 #: the step-1 loss at tp 2 against a tp = 1 forward of the same weights
 TP_LOSS_TOL = 1e-5
 TP_TIMEOUT_S = 600.0
 
 
-def _tp_cfg(arch, periods, tp=1):
-    """``arch`` cut to ``periods`` and, at ``tp`` > 1, its vocabulary
-    padded as the grid pads it (``padded_vocab``): the same function at
-    tp = 1 (ROADMAP hazard 60)."""
+def _tp_cfg(arch, periods, tp=1, enc_layers=None):
+    """``arch`` cut to ``periods`` (and ``enc_layers`` encoder layers)
+    and, at ``tp`` > 1, its vocabulary padded as the grid pads it
+    (``padded_vocab``): the same function at tp = 1 (ROADMAP hazard 60)."""
     import dataclasses
-    from repro_torch.configs import get_config
+    from repro_torch.configs import cut_depth, get_config
     from repro_torch.models.layers import padded_vocab
-    cfg = get_config(arch)
-    if periods:
-        cfg = dataclasses.replace(cfg, n_periods=periods)
+    cfg = cut_depth(get_config(arch), periods, enc_layers)
     return dataclasses.replace(cfg, vocab_size=padded_vocab(cfg, tp))
 
 
-def _tp_serve(torch, G, cfg, b, prompt, ctx=None, plain=False):
-    """Prefill ``b`` prompts of ``prompt`` tokens (from seed 0) and decode
-    TP_NEW - 1 more, on ``ctx``'s tp group (None: one device): (tokens
-    (b, TP_NEW), the decode logits (b, TP_NEW - 1, V or V / tp), #9's
-    launches, prefill s, decode s per step, and with ``plain`` the max
-    |diff| of one decode step through the plain #9)."""
+def get_real_vocab(cfg) -> int:
+    """The registry's vocabulary of ``cfg``'s arch (before padding)."""
+    from repro_torch.configs import get_config
+    return get_config(cfg.arch_id).vocab_size
+
+
+def _tp_train_argv(arch, periods, enc_layers, per_node, seq):
+    return ("--arch", arch, "--periods", str(periods),
+            *(("--encoder-layers", str(enc_layers)) if enc_layers else ()),
+            "--model", str(TP), "--algorithm", "adc_dgd", "--batch",
+            str(per_node * TP_NODES), "--seq", str(seq), "--steps",
+            str(TP_STEPS), "--quant-mode", "fixed", "--lr", "1e-2",
+            "--device", "cuda:0", *NO_REMAT)
+
+
+def _n_moe(cfg) -> int:
+    return sum(c in "EX" for c in cfg.prelude + cfg.period * cfg.n_periods)
+
+
+def _host_routes(calls) -> list:
+    """A ``RouteWatch(routes=True)``'s calls with their tensors on the
+    host (a rank returns them)."""
+    return [tuple(c.cpu() if hasattr(c, "cpu") else c for c in call)
+            for call in calls]
+
+
+def _tp_serve(torch, G, cfg, b, prompt, ctx=None, plain=False,
+              force=None):
+    """Prefill ``b`` prompts of ``prompt`` tokens (from seed 0; an
+    encoder-decoder's frames after them) and decode TP_NEW - 1 more, on
+    ``ctx``'s tp group (None: one device): (tokens (b, TP_NEW), the decode
+    logits (b, TP_NEW - 1, V or V / tp), #9's launches, prefill s, decode
+    s per step, the cache shapes of the first layer, for an MoE config the
+    drops of the prefill's and the decode's routing and every routing
+    call's choices (routed as ``force``'s calls, when given: ``forced``),
+    with ``plain`` (where a layer attends) the max |diff| of one decode
+    step through the plain #9, and the serve's wall seconds)."""
+    t_serve = time.perf_counter()
     from repro_torch.core import tree as T
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -5896,34 +6009,48 @@ def _tp_serve(torch, G, cfg, b, prompt, ctx=None, plain=False):
     srv = serve.build_serve_setup(cfg, device="cuda:0", ctx=ctx,
                                   keep_logits=b)
     params = init_params(pre.defs.storage, 0, "cuda:0", tp=tp, tp_rank=m)
-    real = get_real_vocab(cfg)
-    prompts = torch.as_tensor(np.random.default_rng(0).integers(
-        0, real, (b, prompt), dtype=np.int32), device="cuda:0")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, get_real_vocab(cfg), (b, prompt), dtype=np.int32),
+        device="cuda:0")}
+    if cfg.is_encoder_decoder:
+        batch["enc_frames"] = torch.as_tensor(rng.standard_normal(
+            (b, cfg.encoder_frames, cfg.d_model), dtype=np.float32),
+            device="cuda:0")
     G.gqa_decode.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    ids, cache = pre.prefill_step(params, {"tokens": prompts},
-                                  prompt + TP_NEW)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    state, toks, logits = {"params": params, "cache": cache,
-                           "tokens": ids}, [ids], []
-    for _ in range(TP_NEW - 1):
-        state = srv.serve_step(state)
-        toks.append(state["tokens"])
-        logits.append(state["logits"])
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    if ctx is not None:
+        ctx.reset_tp_stats()
+    with RouteWatch(routes=bool(cfg.n_experts), force=force) as rw:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, cache = pre.prefill_step(params, batch, prompt + TP_NEW)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, toks, logits = {"params": params, "cache": cache,
+                               "tokens": ids}, [ids], []
+        for _ in range(TP_NEW - 1):
+            state = srv.serve_step(state)
+            toks.append(state["tokens"])
+            logits.append(state["logits"])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
     out = {"tokens": torch.cat(toks, dim=1).cpu(),
            "logits": torch.stack(logits, dim=1).cpu(),
            "launches": G.gqa_decode.launches, "prefill_s": t1 - t0,
            "decode_s": (t2 - t1) / (TP_NEW - 1),
-           "kv": tuple(cache["layers"][0]["attn"]["k"].shape)}
-    del state, cache
-    if plain:
+           "cache": {k: T.tree_map(lambda a: tuple(a.shape), v)
+                     for k, v in cache["layers"][0].items()}}
+    if ctx is not None:
+        out["tp_stats"] = ctx.tp_stats()
+    if cfg.n_experts:
+        out["drops"] = {"prefill": rw.dropped(b * prompt),
+                        "decode": rw.dropped(b)}
+        out["routes"] = _host_routes(rw.calls)
+        out["forced"] = rw.forced
+    del state, cache, rw
+    if plain and attention_layers(cfg):
         with torch.inference_mode():
-            first, cache = pre.prefill_step(params, {"tokens": prompts},
-                                            prompt + 1)
+            first, cache = pre.prefill_step(params, batch, prompt + 1)
             twin = {k: (v if k == "len" else T.tree_map(torch.clone, v))
                     for k, v in cache.items()}
             _, _, kern = TF.greedy_decode_step(params, srv.defs, first,
@@ -5938,33 +6065,73 @@ def _tp_serve(torch, G, cfg, b, prompt, ctx=None, plain=False):
         del cache, twin, kern, pl
     del params
     torch.cuda.empty_cache()
+    out["serve_s"] = time.perf_counter() - t_serve
     return out
 
 
-def get_real_vocab(cfg) -> int:
-    """The registry's vocabulary of ``cfg``'s arch (before padding)."""
-    from repro_torch.configs import get_config
-    return get_config(cfg.arch_id).vocab_size
+def tp_routes_differ(ours, theirs) -> bool:
+    """Whether two runs of the same tokens (``RouteWatch(routes=True)``
+    calls, which must pair up) routed a token to other experts."""
+    if len(ours) != len(theirs) or any(
+            a[0] != b[0] for a, b in zip(ours, theirs)):
+        fail(f"phase_tp: routing calls of {[c[0] for c in ours]} and "
+             f"{[c[0] for c in theirs]} tokens do not pair up")
+    return any(bool((a[3] != b[3]).any()) for a, b in zip(ours, theirs))
+
+
+def tp_forced_ties(label, forced) -> int:
+    """A forced run's tokens whose own choice was another
+    (``RouteWatch.forced``) must be near ties of both runs; returns their
+    count."""
+    wide = [(c, j, m) for c, rows in enumerate(forced) for j, m in rows
+            if m >= MOE_TIE_MARGIN]
+    if wide:
+        fail(f"phase_tp: {label}: the routing at tp {TP} differs from tp = "
+             f"1's at (call, token, margin) {wide[:8]}, not near ties "
+             f"(margin >= {MOE_TIE_MARGIN})")
+    return sum(len(rows) for rows in forced)
 
 
 def tp_rank() -> dict:
     """One rank of ``phase_tp`` (``launch.mesh.run_ranks``, on cuda:0):
-    the trainer through ``train.main --model 2`` with every exchange's
-    x_half kept and its outputs fingerprinted, #1 / #2 counted; then the
-    stacked runtime's replay of the two nodes' exchanges of this model
-    index (one model index at a time: the other's ranks wait); then on
-    node 0 the two serves (``_tp_serve``)."""
+    each trainer of TP_TRAIN (``tp_train``), then this rank's node's
+    serves of TP_SERVE (``_tp_serve``; node 1's at the same time as node
+    0's)."""
     import torch
     import torch.distributed as dist
     torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import gqa_decode as G
+    from repro_torch.launch import train
+    train.measure_consensus_overhead = _no_probe
+    t0 = time.perf_counter()
+    out = {"train": {}, "serve": {}}
+    for label, *run in TP_TRAIN:
+        out["train"][label], ctx = tp_train(torch, train, *run)
+    out["node"], out["m"] = ctx.rank, ctx.tp_rank
+    for label, arch, periods, enc, b, prompt, node in TP_SERVE:
+        if node == ctx.rank:
+            out["serve"][label] = _tp_serve(
+                torch, G, _tp_cfg(arch, periods, TP, enc), b, prompt, ctx,
+                plain=True)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["rank_s"] = time.perf_counter() - t0
+    dist.barrier(group=ctx.group)
+    return out
+
+
+def tp_train(torch, train, arch, periods, enc, per_node, seq):
+    """One trainer of ``tp_rank`` through ``train.main --model 2`` with
+    every exchange's x_half kept and its outputs fingerprinted, #1 / #2
+    counted, an MoE arch's step-1 routing kept; then the stacked runtime's
+    replay of the two nodes' exchanges of this model index (one model
+    index at a time: the other's ranks wait).  Returns (its results, the
+    rank's context)."""
+    import torch.distributed as dist
     from repro_torch.core import tree as T
     from repro_torch.core.distributed import ConsensusRuntime
     from repro_torch.kernels import dequant_combine as D
-    from repro_torch.kernels import gqa_decode as G
     from repro_torch.kernels import quantize as Q
-    from repro_torch.launch import train
     from repro_torch.models import transformer as TF
-    train.measure_consensus_overhead = _no_probe
     exchange, seen = ConsensusRuntime.exchange, []
 
     def keep(self, x_prev, x_half, state, step, seed=0, noise=None):
@@ -5978,39 +6145,45 @@ def tp_rank() -> dict:
                             (*T.tree_leaves(x), st["x_tilde"],
                              st["m_agg"])]})
         return x, st, m
+    cfg = _tp_cfg(arch, periods, 1, enc)
     ConsensusRuntime.exchange = keep
     Q.quantize_payload.launches = D.dequant_combine_payload.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    hist, state = train.main(list(TP_TRAIN_ARGV), return_state=True)
+    try:
+        with RouteWatch(limit=_n_moe(cfg), routes=True) as rw:
+            hist, state = train.main(
+                list(_tp_train_argv(arch, periods, enc, per_node, seq)),
+                return_state=True)
+    finally:
+        ConsensusRuntime.exchange = exchange
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    ConsensusRuntime.exchange = exchange
     # what the run leaves on the card (state, history and the replay's
     # records) against its peak: the rest of the peak is the step's
     records = sum(a.numel() * a.element_size() for rec in seen
                   for a in rec.get("x0", []) + rec.get("half", []))
-    live_gb = torch.cuda.memory_allocated() / 1e9
     out = {"launches": {"quantize_payload": Q.quantize_payload.launches,
                         "dequant_combine_payload":
                         D.dequant_combine_payload.launches},
            "hist": [{k: v for k, v in h.items() if k != "node_loss"}
                     for h in hist],
            "node_loss": hist[0]["node_loss"].tolist(),
+           "routes": _host_routes(rw.calls),
            "train_s": train_s,
            "train_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "train_reserved_gb": torch.cuda.max_memory_reserved() / 1e9,
-           "train_live_gb": live_gb, "records_gb": records / 1e9}
+           "train_live_gb": torch.cuda.memory_allocated() / 1e9,
+           "records_gb": records / 1e9}
     rt = seen[0]["rt"]
     ctx = rt.ctx
-    out["node"], out["m"] = ctx.rank, ctx.tp_rank
-    defs = TF.build_defs(_tp_cfg("qwen3-0.6b", TP_PERIODS),
-                         ctx=ctx).storage
+    defs = TF.build_defs(cfg, ctx=ctx).storage
     out["replicated"] = [fingerprint(torch, a) for d, a in zip(
         T.tree_leaves(defs), T.tree_leaves(state["params"]))
         if d.tp_dim is None]
     del state, hist
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     treedef = T.tree_flatten(defs)[1]
     x0, steps = seen[0]["x0"], seen[1:]
     replay_ok = []
@@ -6037,52 +6210,49 @@ def tp_rank() -> dict:
             torch.cuda.empty_cache()
         dist.barrier(group=ctx.group)
     out["replay_ok"] = replay_ok
+    out["replay_s"] = time.perf_counter() - t0
     del seen[:], x0, steps
     torch.cuda.empty_cache()
-    out["serve"] = {}
-    if ctx.rank == 0:
-        for label, arch, periods, b, prompt in TP_SERVE:
-            ctx.reset_tp_stats()
-            res = _tp_serve(torch, G, _tp_cfg(arch, periods, TP), b, prompt,
-                            ctx, plain=True)
-            res["tp_stats"] = ctx.tp_stats()
-            out["serve"][label] = res
-    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    dist.barrier(group=ctx.group)
-    return out
+    return out, ctx
 
 
-def tp_memory_account(torch) -> str:
-    """The grid's memory before its first run (ROADMAP hazard 59): per
-    rank the trainer's tp-local weights, its float32 shadows x_tilde and
-    m_agg, the stacked replay's (both nodes' weights, x_half, shadows and
-    the exchange's temporaries, one model index at a time) and the
-    largest activation (the vocabulary shard's logits); the staged
-    buffers are pinned host memory, not the card's."""
+def tp_memory_account(torch) -> list:
+    """The grid's memory before its first run (ROADMAP hazard 59), per
+    trainer: per rank its tp-local weights, its float32 shadows x_tilde
+    and m_agg, the stacked replay's (both nodes' weights, x_half, shadows
+    and the exchange's temporaries, one model index at a time) and the
+    largest activation (the vocabulary shard's logits); the staged buffers
+    are pinned host memory, not the card's.  Returns [(label, payload
+    rows a rank, the account)]."""
     import types
     from repro_torch.core import tree as T
     from repro_torch.core import wire
     from repro_torch.models import transformer as TF
     from repro_torch.models.params import meta_params
-    cfg = _tp_cfg("qwen3-0.6b", TP_PERIODS)
-    defs = TF.build_defs(cfg, ctx=types.SimpleNamespace(tp=TP))
-    local = meta_params(defs.storage, tp=TP)
-    w = sum(a.numel() * 4 for a in T.tree_leaves(local))
-    rows = wire.WireLayout.for_tree(local).n_rows
-    shadows = 2 * rows * BLOCK * 4
-    logits = 2 * 512 * defs.storage["embed"]["table"].shape[0] // TP * 4
-    replay = 2 * (2 * w + 2 * shadows) + 4 * rows * BLOCK * 4 * 2
-    per_rank = 3 * w + shadows + 2 * logits + 4 * w      # + grads, x_half
-    return rows, (
-        f"tp-local weights {w / 1e9:.2f} GB a rank ({rows} payload rows), "
-        f"shadows {shadows / 1e9:.2f} GB, logits {logits / 1e9:.2f} GB; the "
-        f"trainer ~{per_rank / 1e9:.1f} GB a rank, {TP * TP_NODES} ranks "
-        f"~{TP * TP_NODES * per_rank / 1e9:.1f} GB; the replay "
-        f"~{replay / 1e9:.1f} GB on each of {TP_NODES} ranks at once")
+    out = []
+    for label, arch, periods, enc, per_node, seq in TP_TRAIN:
+        cfg = _tp_cfg(arch, periods, 1, enc)
+        defs = TF.build_defs(cfg, ctx=types.SimpleNamespace(tp=TP))
+        local = meta_params(defs.storage, tp=TP)
+        w = sum(a.numel() * 4 for a in T.tree_leaves(local))
+        rows = wire.WireLayout.for_tree(local).n_rows
+        shadows = 2 * rows * BLOCK * 4
+        logits = (2 * per_node * seq
+                  * defs.storage["embed"]["table"].shape[0] // TP * 4)
+        replay = 2 * (2 * w + 2 * shadows) + 4 * rows * BLOCK * 4 * 2
+        per_rank = 3 * w + shadows + 2 * logits + 4 * w   # + grads, x_half
+        out.append((label, rows, (
+            f"{label}: tp-local weights {w / 1e9:.2f} GB a rank ({rows} "
+            f"payload rows), shadows {shadows / 1e9:.2f} GB, logits "
+            f"{logits / 1e9:.2f} GB; the trainer ~{per_rank / 1e9:.1f} GB a "
+            f"rank, {TP * TP_NODES} ranks ~"
+            f"{TP * TP_NODES * per_rank / 1e9:.1f} GB; the replay "
+            f"~{replay / 1e9:.1f} GB on each of {TP_NODES} ranks at once")))
+    return out
 
 
 def tp_kernels(torch, rows: int) -> str:
-    """#1 and #2 at the trainer's tp-local packed rows, against their
+    """#1 and #2 at a trainer's tp-local packed rows, against their
     plain versions (payload bytes equal, combine within 1 ulp) and timed
     beside their byte bounds (the bytes ``phase_timing`` counts)."""
     from repro_torch.kernels import dequant_combine as D
@@ -6106,60 +6276,230 @@ def tp_kernels(torch, rows: int) -> str:
              f"the plain version by {ulp} ulp")
     rows_b = rows * BLOCK * 4
     out = []
-    for name, fn, nbytes in (
+    for name, fn, plain, nbytes in (
             ("quantize_payload", lambda: Q.quantize_payload(y, u, 1e-3),
+             lambda: Q.quantize_payload_plain(y, u, 1e-3),
              2 * rows_b + rows * PAYLOAD),
             ("dequant_combine_payload",
              lambda: D.dequant_combine_payload(*pays, xt, mb, 0.5, 0.25, 1.0),
+             lambda: D.dequant_combine_payload_plain(*pays, xt, mb, 0.5,
+                                                     0.25, 1.0),
              3 * rows * PAYLOAD + 5 * rows_b)):
         ms = kernel_time(f"{name} at {rows} tp-local rows", fn)
+        plain_ms = time_ms(plain, 4)
         bound = nbytes / HBM_BYTES_PER_S * 1e3
-        out.append(f"{name} {ms:.4f} ms (bound {bound:.4f} ms, "
-                   f"{bound / ms:.0%})")
-    return (f"#1 / #2 at the trainer's {rows} tp-local rows: payload bytes "
+        out.append(f"{name} {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+                   f"{bound:.4f} ms, {bound / ms:.0%})")
+    del y, u, xt, mb, pays, a, b
+    torch.cuda.empty_cache()
+    return (f"#1 / #2 at {rows} tp-local rows: payload bytes "
             f"equal to the plain version, combine within {ulp} ulp; "
             + ", ".join(out))
 
 
-def phase_tp(torch, G, entries):
-    """Tensor parallelism over ranks on one card (the docstring's phase 3
-    ends with it).  The tp = 1 references run here first, on this
-    process: the two serves at the padded vocabulary and the trainer's
-    step-1 node losses (a forward of the same weights on each node's rows
-    of the trainer's first batch).  Returns (the ranks' launches, summary
-    lines)."""
+def _tp_ref_losses(torch, label, arch, periods, enc, per_node, seq,
+                   force=None):
+    """The tp = 1 reference of a trainer: the step-1 loss of each node (a
+    forward of the same weights at the padded vocabulary on the node's
+    rows of the trainer's first batch) and, for an MoE arch, each node's
+    routing; with ``force`` ({node: a tp 2 rank's step-1 routing}) only
+    those nodes, routed so (``RouteWatch(force=)``: ``forced``).  Dicts by
+    node."""
     import gc
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.data.pipeline import node_rows
-    from repro_torch.launch.mesh import run_ranks
     from repro_torch.models import transformer as TF
     from repro_torch.models.params import init_params
-    t_phase = time.perf_counter()
-    rows, account = tp_memory_account(torch)
-    print(f"[tp] memory account: {account}", flush=True)
-    summary = [f"memory account (before the run): {account}",
-               tp_kernels(torch, rows)]
-    print(f"[tp] {summary[-1]}", flush=True)
-    ones = {label: _tp_serve(torch, G, _tp_cfg(arch, periods, TP), b, prompt)
-            for label, arch, periods, b, prompt in TP_SERVE}
-    cfg = _tp_cfg("qwen3-0.6b", TP_PERIODS, TP)
+    cfg = _tp_cfg(arch, periods, TP, enc)
     defs = TF.build_defs(cfg)
     params = init_params(defs.storage, 0, "cuda:0")
-    ds = SyntheticLMDataset(get_real_vocab(cfg), 512, 2 * TP_NODES,
-                            n_shards=TP_NODES)
+    kw = (dict(enc_frames=cfg.encoder_frames, d_model=cfg.d_model)
+          if cfg.is_encoder_decoder else {})
+    ds = SyntheticLMDataset(get_real_vocab(cfg), seq, per_node * TP_NODES,
+                            n_shards=TP_NODES, **kw)
     batch = ds.global_batch_arrays(0)
-    loss1 = []
+    out = {"loss": {}, "routes": {}, "forced": {}}
     with torch.no_grad():
-        for node in range(TP_NODES):
-            rows = node_rows(2 * TP_NODES, TP_NODES, node)
+        for node in range(TP_NODES) if force is None else sorted(force):
+            rows = node_rows(per_node * TP_NODES, TP_NODES, node)
             mb = {k: torch.as_tensor(v[rows], device="cuda:0")
                   for k, v in batch.items()}
-            loss1.append(float(TF.train_loss(params, defs, mb,
-                                             remat=False)[0]))
+            with RouteWatch(routes=True, force=None if force is None
+                            else force[node]) as rw:
+                out["loss"][node] = float(TF.train_loss(params, defs, mb,
+                                                        remat=False)[0])
+            out["routes"][node] = _host_routes(rw.calls)
+            out["forced"][node] = rw.forced
     del params
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    return out
+
+
+def _tp_check_train(label, arch, periods, enc, per_node, seq, ranks, ref,
+                    rerun):
+    """A trainer's checks over the ranks: #1 / #2 once a step, every
+    exchange bitwise the stacked replay's, replicated leaves bitwise over
+    a node's ranks, the step-1 loss of the rank's node within TP_LOSS_TOL
+    of tp = 1's.  Where an MoE arch's step-1 routing at tp 2 chose other
+    experts than tp = 1's for a token of the node, the tokens must be
+    near ties, and the node's loss is held to ``rerun({node: routing})``,
+    tp = 1 routed as tp 2 routed.  Returns (the launches, the ranks'
+    lines)."""
+    cfg = _tp_cfg(arch, periods, 1, enc)
+    launches = {}
+    lines, flipped, want = [], {}, dict(ref["loss"])
+    for r, rank in enumerate(ranks):
+        res, node = rank["train"][label], r // TP
+        for name, n in res["launches"].items():
+            if n != TP_STEPS:
+                fail(f"phase_tp: {label}: rank {r} launched {name} {n} "
+                     f"times in {TP_STEPS} steps (want one a step)")
+            launches[name] = launches.get(name, 0) + n
+        if len(res["replay_ok"]) != TP_STEPS or not all(res["replay_ok"]):
+            fail(f"phase_tp: {label}: rank {r}'s x_next / x_tilde / m_agg "
+                 f"differ from the stacked runtime's over its model "
+                 f"index's shards at steps {res['replay_ok']}")
+        if res["replicated"] != ranks[r - r % TP]["train"][label][
+                "replicated"]:
+            fail(f"phase_tp: {label}: rank {r}'s replicated leaves differ "
+                 "from its node's model index 0's after the run")
+        if cfg.n_experts and node not in flipped and tp_routes_differ(
+                res["routes"], ref["routes"][node]):
+            again = rerun({node: res["routes"]})
+            flipped[node] = tp_forced_ties(label, again["forced"][node])
+            want[node] = again["loss"][node]
+        got = res["node_loss"][node]
+        if abs(got - want[node]) > TP_LOSS_TOL:
+            fail(f"phase_tp: {label}: rank {r}'s step-1 loss of node {node} "
+                 f"{got} at tp {TP}, {want[node]} at tp = 1"
+                 + (" routed as tp 2 routed" if node in flipped else ""))
+        h = res["hist"]
+        lines.append(
+            f"{label} trainer rank {r} (node {node}, model index {r % TP}):"
+            f" step s " + ", ".join(f"{x['step_s']:.3f}" for x in h)
+            + "; tp_wire_s " + ", ".join(f"{x['tp_wire_s']:.3f}" for x in h)
+            + f"; tp_bytes_sent {h[-1]['tp_bytes_sent']}; wire_s "
+            + ", ".join(f"{x['wire_s']:.3f}" for x in h)
+            + f"; wire_bytes_sent {h[-1]['wire_bytes_sent']}; "
+            f"consensus_err_wire_s {h[-1]['consensus_err_wire_s']:.3f}; "
+            f"losses " + ", ".join(f"{x['loss']:.5f}" for x in h)
+            + f"; peak {res['train_peak_gb']:.2f} GB (reserved "
+            f"{res['train_reserved_gb']:.2f}; held after the run "
+            f"{res['train_live_gb']:.2f}, of which the replay's records "
+            f"{res['records_gb']:.2f}); run {res['train_s']:.1f} s, replay "
+            f"{res['replay_s']:.1f} s")
+    lines.append(
+        f"{label}: step-1 node losses {ranks[0]['train'][label]['node_loss']}"
+        f" at tp {TP}, {want} at tp = 1"
+        + (f" (tokens routed apart at near ties, by node: {flipped}; "
+           f"those nodes held to tp = 1 routed as tp 2 routed; tp = 1's "
+           f"own losses {ref['loss']})" if flipped else
+           (", the same routing" if cfg.n_experts else ""))
+        + "; replicated leaves bitwise equal on each node's ranks; every "
+        "rank's exchanges bitwise the stacked runtime's")
+    return launches, lines
+
+
+def _tp_check_serve(torch, label, arch, periods, enc, b, prompt, node,
+                    ranks, one, rerun):
+    """A serve's checks over its node's two ranks: the same tokens (and an
+    MoE arch's drops) on both, #9 launched attention layers x (TP_NEW - 1)
+    times a rank (twice that for an encoder-decoder), one decode step
+    through the plain #9 within SERVE_LOGIT_TOL; against tp = 1 the
+    tokens, an MoE arch's drops of the prefill and of the decode equal and
+    the decode logits within ZOO_LOGIT_TOL.  Where an MoE arch's routing
+    at tp 2 chose other experts than tp = 1's for a token, the tokens must
+    be near ties, and tp = 1 is ``rerun(routing)``, routed as tp 2 routed.
+    Returns (#9's launches, the line)."""
+    cfg = _tp_cfg(arch, periods, TP, enc)
+    mine = [rank["serve"][label] for rank in ranks[node * TP:(node + 1) * TP]]
+    want = attention_layers(cfg) * (TP_NEW - 1) * (
+        2 if cfg.is_encoder_decoder else 1)
+    launches = 0
+    for m, res in enumerate(mine):
+        if not torch.equal(res["tokens"], mine[0]["tokens"]):
+            fail(f"phase_tp: {label}: rank {m}'s tokens differ from rank "
+                 "0's")
+        if res.get("drops") != mine[0].get("drops"):
+            fail(f"phase_tp: {label}: the ranks' routing dropped "
+                 f"{[r['drops'] for r in mine]}: every rank routes every "
+                 "token alike")
+        if res["launches"] != want:
+            fail(f"phase_tp: {label}: #9 launched {res['launches']} times "
+                 f"on rank {m} (want {want})")
+        launches += res["launches"]
+        if "plain_err" in res and res["plain_err"] > SERVE_LOGIT_TOL:
+            fail(f"phase_tp: {label}: a decode step through the plain #9 "
+                 f"differs by {res['plain_err']} on rank {m}")
+    note = ""
+    if cfg.n_experts:
+        drops = mine[0]["drops"]
+        if tp_routes_differ(mine[0]["routes"], one["routes"]):
+            own = one["drops"]
+            one = rerun(mine[0]["routes"])
+            n = tp_forced_ties(label, one["forced"])
+            note = (f" ({n} tokens routed apart at near ties; tp = 1 routed "
+                    f"as tp 2 routed, its own drops {own})")
+        if drops != one["drops"]:
+            fail(f"phase_tp: {label}: the routing at tp {TP} dropped "
+                 f"{drops} assignments, at tp = 1 {one['drops']}")
+        share = {k: d / n for k, (d, n) in drops.items()}
+        note = (f"; routed assignments dropped {drops} (shares {share}), "
+                f"the same at tp = 1{note}")
+    if not torch.equal(mine[0]["tokens"], one["tokens"]):
+        fail(f"phase_tp: {label}: the tokens at tp {TP} differ from tp = "
+             "1's")
+    full = torch.cat([res["logits"] for res in mine], dim=-1)
+    err = float((full - one["logits"]).abs().max())
+    if not torch.allclose(full, one["logits"], atol=ZOO_LOGIT_TOL,
+                          rtol=ZOO_LOGIT_TOL):
+        fail(f"phase_tp: {label}: the decode logits at tp {TP} differ from "
+             f"tp = 1's by {err}")
+    line = (f"{label} at tp {TP} on node {node}: served {b} x {prompt} + "
+            f"{TP_NEW}: tokens equal on both ranks and at tp = 1{note}, "
+            f"logits max |diff| {err:.3g} (tol {ZOO_LOGIT_TOL})"
+            + ("" if "plain_err" not in mine[0] else ", plain #9 "
+               + ", ".join(f"{res['plain_err']:.3g}" for res in mine))
+            + f"; #9 {want} launches a rank; cache a rank {mine[0]['cache']}"
+            "; prefill " + ", ".join(f"{res['prefill_s']:.3f}" for res in mine)
+            + f" s (tp = 1 {one['prefill_s']:.3f}), decode "
+            + ", ".join(f"{res['decode_s'] * 1e3:.2f}" for res in mine)
+            + f" ms a step (tp = 1 {one['decode_s'] * 1e3:.2f}); "
+            + "; ".join(f"rank {m} tp_wire_s "
+                        f"{res['tp_stats']['tp_wire_s']:.3f} tp_bytes_sent "
+                        f"{res['tp_stats']['tp_bytes_sent']}"
+                        for m, res in enumerate(mine))
+            + "; serve " + ", ".join(f"{res['serve_s']:.1f}" for res in mine)
+            + " s")
+    return launches, line
+
+
+def phase_tp(torch, G, entries):
+    """Tensor parallelism over ranks on one card (the docstring's phase 3
+    ends with it).  The memory account and #1 / #2 at each trainer's
+    tp-local rows first; then the tp = 1 references, on this process: the
+    serves at the padded vocabulary and each trainer's step-1 node
+    losses; then the ranks, and where an MoE arch's routing at tp 2 chose
+    other experts, the tp = 1 reference again, routed so.  Returns (the
+    ranks' launches, summary lines)."""
+    from repro_torch.launch.mesh import run_ranks
+    t_phase = time.perf_counter()
+    summary = []
+    for label, rows, account in tp_memory_account(torch):
+        summary.append(f"memory account (before the run): {account}")
+        print(f"[tp] {summary[-1]}", flush=True)
+        summary.append(f"{label}: {tp_kernels(torch, rows)}")
+        print(f"[tp] {summary[-1]}", flush=True)
+    ones = {label: _tp_serve(torch, G, _tp_cfg(arch, periods, TP, enc), b,
+                             prompt)
+            for label, arch, periods, enc, b, prompt, _ in TP_SERVE}
+    refs = {run[0]: _tp_ref_losses(torch, *run) for run in TP_TRAIN}
+    t_refs = time.perf_counter() - t_phase
+    free, total = torch.cuda.mem_get_info()
+    print(f"[tp] before the ranks: the card's free memory {free / 1e9:.2f} "
+          f"of {total / 1e9:.2f} GB", flush=True)
     alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = RING_ALLOC_CONF
     t0 = time.perf_counter()
@@ -6176,83 +6516,29 @@ def phase_tp(torch, G, entries):
         if (res["node"], res["m"]) != divmod(r, TP):
             fail(f"phase_tp: rank {r} is node {res['node']}, model index "
                  f"{res['m']}")
-        for name, n in res["launches"].items():
-            if n != TP_STEPS:
-                fail(f"phase_tp: rank {r} launched {name} {n} times in "
-                     f"{TP_STEPS} steps (want one a step)")
-            launches[name] += n
-        if len(res["replay_ok"]) != TP_STEPS or not all(res["replay_ok"]):
-            fail(f"phase_tp: rank {r}'s x_next / x_tilde / m_agg differ "
-                 f"from the stacked runtime's over its model index's shards "
-                 f"at steps {res['replay_ok']}")
-        if res["replicated"] != ranks[r - r % TP]["replicated"]:
-            fail(f"phase_tp: rank {r}'s replicated leaves differ from its "
-                 "node's model index 0's after the run")
-        got = res["node_loss"]
-        if any(abs(a - b) > TP_LOSS_TOL for a, b in zip(got, loss1)):
-            fail(f"phase_tp: step-1 node losses {got} at tp {TP}, {loss1} "
-                 "at tp = 1")
-    for label, arch, periods, b, prompt in TP_SERVE:
-        one, serve_ranks = ones[label], [res["serve"][label]
-                                         for res in ranks[:TP]]
-        layers = _tp_cfg(arch, periods).n_layers
-        for m, res in enumerate(serve_ranks):
-            if not torch.equal(res["tokens"], one["tokens"]):
-                fail(f"phase_tp: {label}: rank {m}'s tokens differ from the "
-                     "tp = 1 serve's")
-            if res["launches"] != layers * (TP_NEW - 1):
-                fail(f"phase_tp: {label}: #9 launched {res['launches']} "
-                     f"times on rank {m} (want {layers * (TP_NEW - 1)})")
-            if res["plain_err"] > SERVE_LOGIT_TOL:
-                fail(f"phase_tp: {label}: a decode step through the plain "
-                     f"#9 differs by {res['plain_err']} on rank {m}")
-        full = torch.cat([res["logits"] for res in serve_ranks], dim=-1)
-        err = float((full - one["logits"]).abs().max())
-        if not torch.allclose(full, one["logits"], atol=ZOO_LOGIT_TOL,
-                              rtol=ZOO_LOGIT_TOL):
-            fail(f"phase_tp: {label}: decode logits at tp {TP} differ from "
-                 f"tp = 1 by {err}")
-        launches["gqa_decode"] += sum(res["launches"] for res in serve_ranks)
-        line = (f"{label} at tp {TP}, {b} x {prompt} + {TP_NEW}: tokens equal "
-                f"on both ranks and at tp = 1, logits max |diff| {err:.3g} "
-                f"(tol {ZOO_LOGIT_TOL}), plain #9 "
-                + ", ".join(f"{res['plain_err']:.3g}" for res in serve_ranks)
-                + f"; kv cache a rank {serve_ranks[0]['kv']}; prefill "
-                + ", ".join(f"{res['prefill_s']:.3f}" for res in serve_ranks)
-                + f" s (tp = 1 {one['prefill_s']:.3f}), decode "
-                + ", ".join(f"{res['decode_s'] * 1e3:.2f}"
-                            for res in serve_ranks)
-                + f" ms a step (tp = 1 {one['decode_s'] * 1e3:.2f}); "
-                + "; ".join(f"rank {m} tp_wire_s "
-                            f"{res['tp_stats']['tp_wire_s']:.3f} tp_bytes_sent "
-                            f"{res['tp_stats']['tp_bytes_sent']}"
-                            for m, res in enumerate(serve_ranks)))
+    for run in TP_TRAIN:
+        n, lines = _tp_check_train(
+            *run, ranks, refs[run[0]],
+            lambda force, run=run: _tp_ref_losses(torch, *run, force=force))
+        for name, k in n.items():
+            launches[name] += k
+        for line in lines:
+            print(f"[tp] {line}", flush=True)
+        summary += lines
+    for run in TP_SERVE:
+        _, arch, periods, enc, b, prompt, _ = run
+        n, line = _tp_check_serve(
+            torch, *run, ranks, ones[run[0]],
+            lambda force, a=arch, p=periods, e=enc, b=b, q=prompt: _tp_serve(
+                torch, G, _tp_cfg(a, p, TP, e), b, q, force=force))
+        launches["gqa_decode"] += n
         print(f"[tp] {line}", flush=True)
         summary.append(line)
-    for r, res in enumerate(ranks):
-        h = res["hist"]
-        line = (f"trainer rank {r} (node {res['node']}, model index "
-                f"{res['m']}): step s "
-                + ", ".join(f"{x['step_s']:.3f}" for x in h)
-                + "; tp_wire_s " + ", ".join(f"{x['tp_wire_s']:.3f}"
-                                              for x in h)
-                + f"; tp_bytes_sent {h[-1]['tp_bytes_sent']}; wire_s "
-                + ", ".join(f"{x['wire_s']:.3f}" for x in h)
-                + f"; wire_bytes_sent {h[-1]['wire_bytes_sent']}; "
-                f"consensus_err_wire_s {h[-1]['consensus_err_wire_s']:.3f};"
-                f" losses " + ", ".join(f"{x['loss']:.5f}" for x in h)
-                + f"; peak {res['train_peak_gb']:.2f} GB (reserved "
-                f"{res['train_reserved_gb']:.2f}; held after the run "
-                f"{res['train_live_gb']:.2f}, of which the replay's records "
-                f"{res['records_gb']:.2f}), with the replay and serving "
-                f"{res['peak_gb']:.2f} GB")
-        print(f"[tp] {line}", flush=True)
-        summary.append(line)
-    line = (f"step-1 node losses {ranks[0]['node_loss']} at tp {TP}, "
-            f"{loss1} at tp = 1; replicated leaves bitwise equal on each "
-            f"node's ranks; every rank's exchanges bitwise the stacked "
-            f"runtime's; phase_tp {time.perf_counter() - t_phase:.1f} s "
-            f"(the ranks {ranks_s:.1f} s, start-up included)")
+    line = (f"peak per rank with the serves {[round(r['peak_gb'], 2) for r in ranks]}"
+            f" GB; phase_tp {time.perf_counter() - t_phase:.1f} s (the tp = 1 "
+            f"references and the account {t_refs:.1f} s, the ranks "
+            f"{ranks_s:.1f} s, start-up included; each rank's own "
+            f"{[round(r['rank_s'], 1) for r in ranks]} s)")
     print(f"[tp] {line}", flush=True)
     summary.append(line)
     return launches, summary

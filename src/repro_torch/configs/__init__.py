@@ -22,7 +22,7 @@ import torch
 from repro_torch.models.config import InputShape, ModelConfig
 
 __all__ = ["ARCH_IDS", "PORTED", "get_config", "all_configs", "reduced",
-           "shape_applicable", "input_specs"]
+           "cut_depth", "shape_applicable", "input_specs"]
 
 #: every architecture of the reference registry
 ARCH_IDS = ("jamba-v0.1-52b", "qwen3-0.6b", "chameleon-34b", "yi-9b",
@@ -87,6 +87,28 @@ def reduced(cfg: ModelConfig, d_model: int = 256) -> ModelConfig:
     if cfg.is_encoder_decoder:
         changes.update(n_encoder_layers=2, encoder_frames=32)
     return dataclasses.replace(cfg, **changes)
+
+
+def cut_depth(cfg: ModelConfig, periods: int | None = None,
+              encoder_layers: int | None = None) -> ModelConfig:
+    """``cfg`` cut to ``periods`` periods of its layer pattern and, for an
+    encoder-decoder, ``encoder_layers`` encoder layers, every width kept
+    (the CLIs' ``--periods`` and ``--encoder-layers``; None keeps a
+    depth).  ValueError outside ``[1, the config's depth]``, or for
+    encoder layers without an encoder."""
+    if periods is not None:
+        if not 1 <= periods <= cfg.n_periods:
+            raise ValueError(f"--periods must be in [1, {cfg.n_periods}]")
+        cfg = dataclasses.replace(cfg, n_periods=periods)
+    if encoder_layers is not None:
+        if not cfg.is_encoder_decoder:
+            raise ValueError(f"--encoder-layers: {cfg.arch_id} has no "
+                             "encoder")
+        if not 1 <= encoder_layers <= cfg.n_encoder_layers:
+            raise ValueError(f"--encoder-layers must be in [1, "
+                             f"{cfg.n_encoder_layers}]")
+        cfg = dataclasses.replace(cfg, n_encoder_layers=encoder_layers)
+    return cfg
 
 
 def shape_applicable(cfg: ModelConfig, shape: InputShape) -> tuple[bool, str]:

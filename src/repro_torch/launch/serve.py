@@ -8,11 +8,19 @@ every rank).  At tp > 1 each rank holds its slice of the weights, prefill
 and decode run with the tp collectives (``models.layers``), the next
 token comes from ``sharded_greedy_sample`` over the ranks' vocabulary
 columns (ties to the lowest global id), and every rank returns the same
-tokens::
+tokens.  Every architecture serves so in float32: an MoE rank runs its
+experts (every rank routes every token alike, so each sees the node's
+drops), a Mamba2 rank its SSM heads with their share of the state, and
+whisper's frames pass the encoder on every rank, whose cross cache holds
+the rank's kv heads::
 
     PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
         -m repro_torch.launch.serve --model 2 --arch qwen3-0.6b \\
         --device cuda:0 --batch 4 --prompt-len 512 --new-tokens 16
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \\
+        -m repro_torch.launch.serve --model 2 --arch whisper-small \\
+        --periods 4 --encoder-layers 4 --device cuda:0 --batch 4 \\
+        --prompt-len 384 --new-tokens 16
 
 ``build_prefill_setup`` carries ``prefill_step(params, batch, capacity)
 -> (first_ids, cache)``: the full-sequence forward over the prompts, whose
@@ -36,7 +44,7 @@ CLI (runs on ``cuda`` unless ``--device cpu``; weights are random from
 ``--seed`` and prompts are token ids drawn from it, then for an
 encoder-decoder the frames, standard normal float32 ``(batch,
 encoder_frames, d_model)`` from the same generator; ``--periods`` cuts
-the depth and keeps the widths)::
+the depth and keeps the widths, ``--encoder-layers`` an encoder's)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --batch 32 --prompt-len 1984 --new-tokens 64
@@ -193,7 +201,7 @@ def main(argv=None) -> dict:
     memory (GB, on the card) and, with ``--keep-logits K``, the logits of
     the first K sequences at each decode step ``(K, new_tokens - 1, V)``:
     step t fed new token t - 1 and predicted new token t."""
-    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs import cut_depth, get_config, reduced
     from repro_torch.models.params import init_params
 
     ap = argparse.ArgumentParser(description="batched greedy serving "
@@ -203,6 +211,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--periods", type=int, default=None,
                     help="cut the depth to this many periods of the layer "
                          "pattern (widths unchanged)")
+    ap.add_argument("--encoder-layers", type=int, default=None,
+                    help="cut an encoder-decoder's encoder to this many "
+                         "layers (widths unchanged)")
     ap.add_argument("--long-serve", action="store_true",
                     help="cap the attention of 'A' blocks at the config's "
                          "long_context_window (long-context serving)")
@@ -245,10 +256,10 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if args.periods is not None:
-        if not 1 <= args.periods <= cfg.n_periods:
-            raise SystemExit(f"--periods must be in [1, {cfg.n_periods}]")
-        cfg = dataclasses.replace(cfg, n_periods=args.periods)
+    try:
+        cfg = cut_depth(cfg, args.periods, args.encoder_layers)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     if args.long_serve and not cfg.long_context_window:
         raise SystemExit(f"--long-serve: {cfg.arch_id} has no "
                          "long_context_window")

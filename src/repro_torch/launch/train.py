@@ -61,7 +61,10 @@ on its tp-local leaves with the ranks of the neighbouring nodes that have
 its model index.  ``--data`` must equal ``--nodes`` (a larger data axis is
 FSDP: refused).  The step lines add ``tp_wire_s`` and ``tp_bytes_sent``
 (the tp collectives of rank 0, apart from the ring's ``wire_*``).  This
-slice runs the dense family in float32 with the default exchange (int8
+slice runs every architecture in float32 (the MoE archs with their expert
+axis split and padded, the Mamba2 blocks head-parallel, whisper's encoder
+and cross attention on the rank's heads; whisper's frames come from the
+data stub on every rank of a node alike) with the default exchange (int8
 packed at stride 1, fixed or adaptive ``--quant-mode``) or ``--algorithm
 none | dgd | allreduce``; every other option raises (ROADMAP Queue 1 item
 5d).
@@ -506,7 +509,7 @@ def measure_consensus_overhead(setup: TrainSetup, state: dict,
 def main(argv=None, *, return_state: bool = False):
     """Command-line entry point; returns the per-step metrics (and the
     final train state when ``return_state``)."""
-    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs import cut_depth, get_config, reduced
     from repro_torch.data import SyntheticLMDataset
 
     ap = argparse.ArgumentParser(description="decentralized LM training "
@@ -516,6 +519,9 @@ def main(argv=None, *, return_state: bool = False):
     ap.add_argument("--periods", type=int, default=None,
                     help="cut the depth to this many periods of the layer "
                          "pattern (widths unchanged), as serve's --periods")
+    ap.add_argument("--encoder-layers", type=int, default=None,
+                    help="cut an encoder-decoder's encoder to this many "
+                         "layers (widths unchanged)")
     ap.add_argument("--algorithm", default="adc_dgd",
                     choices=["adc_dgd", "dgd", "compressed_dgd", "allreduce",
                              "none"])
@@ -762,10 +768,10 @@ def main(argv=None, *, return_state: bool = False):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if args.periods is not None:
-        if not 1 <= args.periods <= cfg.n_periods:
-            raise SystemExit(f"--periods must be in [1, {cfg.n_periods}]")
-        cfg = dataclasses.replace(cfg, n_periods=args.periods)
+    try:
+        cfg = cut_depth(cfg, args.periods, args.encoder_layers)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
     ds_kw = {}
     if cfg.frontend == "audio_frames":
         if args.seq + 1 < cfg.encoder_frames:

@@ -1,6 +1,6 @@
 """Transformer layers, on one device or tensor-parallel over a node's ranks.
 
-Counterpart of ``repro.models.layers``, for the dense blocks of the ported
+Counterpart of ``repro.models.layers``, for the blocks of the ported
 configurations: gated MLPs (SwiGLU, or GeGLU with the tanh-approximate
 gelu; ``models.moe`` stacks them into experts), optional q/k norms,
 tied or untied embeddings, attention and final softcaps, the
@@ -47,7 +47,8 @@ tensor that enters rank-partial compute goes through ``ctx.copy_tp``
 (its backward sums the ranks' cotangents): the stream before each
 projection, and every replicated weight used on a rank's own heads or
 positions (a replicated kv projection, the q/k norms, all attention
-weights of the sequence-sharded path).
+weights of the sequence-sharded path).  :func:`kv_weights` gives a rank's
+k and v projections, to the self and the cross attention alike.
 
 ``attention_forward`` runs in three modes, as the reference's does:
 ``train`` (the causal forward, ``chunked_attention``; bidirectional with
@@ -76,7 +77,7 @@ __all__ = ["widen", "dot_f32", "rms_norm", "rope_freqs", "apply_rope",
            "attention_defs", "attention_forward", "mlp_defs", "mlp_forward",
            "embed_defs", "embed_lookup", "logits_local",
            "sharded_softmax_xent", "sharded_greedy_sample", "norm_def",
-           "padded_vocab", "head_sharded"]
+           "padded_vocab", "head_sharded", "kv_weights"]
 
 #: score of a masked position (the reference's -1e30, not -inf)
 NEG = -1e30
@@ -292,6 +293,20 @@ def combine_decode_partials(m: torch.Tensor, l: torch.Tensor,
     return acc / torch.clamp_min(l, 1e-30)[..., None]
 
 
+def kv_weights(p, cfg: ModelConfig, ctx=ONE_DEVICE):
+    """(wk, wv, kv heads) of the rank at ``ctx.tp``: its ``kvh / tp`` kv
+    heads' columns, or with fewer kv heads than ranks the replicated
+    projections (through ``ctx.copy_tp``) sliced to the one kv head ``(r *
+    h_local) // (n_heads / n_kv_heads)`` its q heads use."""
+    hd, tp = cfg.resolved_head_dim, ctx.tp
+    kvh = cfg.n_kv_heads
+    if kvh >= tp:
+        return p["wk"], p["wv"], kvh // tp
+    j = (ctx.tp_rank * (cfg.n_heads // tp)) // (cfg.n_heads // kvh)
+    return (ctx.copy_tp(p["wk"])[:, j * hd:(j + 1) * hd],
+            ctx.copy_tp(p["wv"])[:, j * hd:(j + 1) * hd], 1)
+
+
 def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
                  pos: torch.Tensor | None, ctx=ONE_DEVICE):
     """q (b, s, kvh, g, hd), k and v (b, s, kvh, hd) of ``x`` at positions
@@ -302,17 +317,9 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig,
     ``x`` and the replicated weights enter through ``ctx.copy_tp``)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    tp = ctx.tp
-    h, kvh = cfg.n_heads // tp, cfg.n_kv_heads
-    wk, wv = p["wk"], p["wv"]
+    h = cfg.n_heads // ctx.tp
     x = ctx.copy_tp(x)
-    if kvh >= tp:
-        kvh = kvh // tp
-    else:                  # replicated kv: the head this rank's q heads use
-        j = (ctx.tp_rank * h) // (cfg.n_heads // kvh)
-        wk = ctx.copy_tp(wk)[:, j * hd:(j + 1) * hd]
-        wv = ctx.copy_tp(wv)[:, j * hd:(j + 1) * hd]
-        kvh = 1
+    wk, wv, kvh = kv_weights(p, cfg, ctx)
     if cfg.qk_norm:
         p = {**p, "q_norm": ctx.copy_tp(p["q_norm"]),
              "k_norm": ctx.copy_tp(p["k_norm"])}

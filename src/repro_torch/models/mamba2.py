@@ -1,8 +1,7 @@
-"""Mamba2 (SSD, state-space duality, arXiv:2405.21060) block on one device.
+"""Mamba2 (SSD, state-space duality, arXiv:2405.21060) block, on one device
+or head-parallel over a node's ranks.
 
-Counterpart of ``repro.models.mamba2`` at tensor-parallel degree 1, where
-the reference's head slicing and the ``psum`` of its output projection are
-the identity.  Separate projections give the gate ``z``, the inner ``x``,
+Counterpart of ``repro.models.mamba2``.  Separate projections give the gate ``z``, the inner ``x``,
 one group of ``B`` and ``C`` (state width ``N``) and the per-head step
 ``dt``; ``x``, ``B`` and ``C`` each pass a depthwise causal conv of width
 ``ssm_conv`` and SiLU; then the selective scan, the skip ``D * x``, the
@@ -32,6 +31,21 @@ state and the last ``k - 1`` raw (pre-conv) inputs of each conv.  Prefill
 returns it, the state rounded to the compute dtype (the reference's);
 a decode step reads the state in float32 and writes it in place in the
 cache's dtype.
+
+Head parallelism (``ctx.tp`` > 1, the reference's): a rank runs ``h /
+tp`` heads and their ``d_inner / tp`` channels (``w_z``, ``w_x``, ``w_dt``
+and ``conv_x`` split on their channel axis, ``w_out`` on its rows), while
+``B`` and ``C`` (``w_b``, ``w_c``, ``conv_b``, ``conv_c``) are replicated
+compute; ``a_log``, ``d_skip`` and ``dt_bias`` are replicated and sliced
+to the rank's heads, ``norm_w`` to its channels.  The gated norm's
+variance is the sum of ``y * y`` over the ranks' channels over ``d_inner``
+(``psum_tp``, as the reference's), and the output projection is summed
+over the ranks.  Every replicated leaf feeds the rank's heads only, so
+each enters through ``ctx.copy_tp`` (its backward sums the ranks'
+cotangents), as do the stream and the summed variance.  ``h % tp != 0``
+raises ValueError, where the reference asserts.  The decode cache holds
+the rank's heads' state ``(b, h / tp, hd, N)`` and conv window ``(b, k-1,
+d_inner / tp)``; the ``b`` and ``c`` windows are whole on every rank.
 """
 from __future__ import annotations
 
@@ -39,39 +53,47 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import dot_f32, widen
+from repro_torch.models.layers import ONE_DEVICE, dot_f32, widen
 from repro_torch.models.params import ParamDef
 
 __all__ = ["mamba_defs", "mamba_forward", "chunk_len"]
 
 
-def _dims(cfg: ModelConfig) -> tuple[int, int, int, int]:
-    """(d_inner, head dim, heads, state width N)."""
+def _dims(cfg: ModelConfig, tp: int = 1) -> tuple[int, int, int, int]:
+    """(d_inner, head dim, heads, state width N), the widths a rank of
+    ``tp`` holds: ``d_inner / tp`` and ``heads / tp`` (ValueError unless
+    ``tp`` divides the heads)."""
     d_in, hd = cfg.d_inner, cfg.ssm_head_dim
-    return d_in, hd, cfg.ssm_heads or d_in // hd, cfg.ssm_state
+    h = cfg.ssm_heads or d_in // hd
+    if h % tp:
+        raise ValueError(f"{cfg.arch_id}: {h} SSM heads do not split over "
+                         f"tp={tp}")
+    return d_in // tp, hd, h // tp, cfg.ssm_state
 
 
-def mamba_defs(cfg: ModelConfig, dtype=torch.float32
+def mamba_defs(cfg: ModelConfig, dtype=torch.float32, ctx=ONE_DEVICE
                ) -> dict[str, ParamDef]:
-    """The block's parameters in ``dtype``; ``a_log``, ``d_skip`` and
-    ``dt_bias`` are float32 at every dtype, as in the reference."""
+    """The block's parameters in ``dtype`` with the reference's ``tp_dim``
+    at ``ctx.tp``; ``a_log``, ``d_skip`` and ``dt_bias`` are float32 at
+    every dtype, as in the reference."""
     d = cfg.d_model
+    _dims(cfg, ctx.tp)          # ValueError unless tp splits the heads
     d_in, _, h, n = _dims(cfg)
     k = cfg.ssm_conv
     f32 = torch.float32
-    return {"w_z": ParamDef((d, d_in), dtype=dtype),
-            "w_x": ParamDef((d, d_in), dtype=dtype),
+    return {"w_z": ParamDef((d, d_in), dtype=dtype, tp_dim=1),
+            "w_x": ParamDef((d, d_in), dtype=dtype, tp_dim=1),
             "w_b": ParamDef((d, n), dtype=dtype),
             "w_c": ParamDef((d, n), dtype=dtype),
-            "w_dt": ParamDef((d, h), dtype=dtype),
-            "conv_x": ParamDef((k, d_in), scale=0.5, dtype=dtype),
+            "w_dt": ParamDef((d, h), dtype=dtype, tp_dim=1),
+            "conv_x": ParamDef((k, d_in), scale=0.5, dtype=dtype, tp_dim=1),
             "conv_b": ParamDef((k, n), scale=0.5, dtype=dtype),
             "conv_c": ParamDef((k, n), scale=0.5, dtype=dtype),
             "a_log": ParamDef((h,), init="zeros", dtype=f32),
             "d_skip": ParamDef((h,), init="ones", dtype=f32),
             "dt_bias": ParamDef((h,), init="zeros", dtype=f32),
             "norm_w": ParamDef((d_in,), init="zeros", dtype=dtype),
-            "w_out": ParamDef((d_in, d), dtype=dtype)}
+            "w_out": ParamDef((d_in, d), dtype=dtype, tp_dim=0, fsdp_dim=1)}
 
 
 def chunk_len(cfg: ModelConfig, s: int) -> int:
@@ -114,9 +136,16 @@ def _segsum(a: torch.Tensor) -> torch.Tensor:
     return torch.where(ii[:, None] >= ii[None, :], diff, -torch.inf)
 
 
+def _local(ctx, w: torch.Tensor, n: int) -> torch.Tensor:
+    """The rank's ``n`` entries of the replicated vector ``w`` (its heads
+    or channels), through ``copy_tp``."""
+    return ctx.copy_tp(w)[ctx.tp_rank * n:(ctx.tp_rank + 1) * n]
+
+
 def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
-                  cache: dict | None = None):
-    """x: (b, s, d).  Returns (out (b, s, d), cache):
+                  cache: dict | None = None, ctx=ONE_DEVICE):
+    """x: (b, s, d), the same on every rank.  Returns (out (b, s, d),
+    cache), at ``ctx.tp`` > 1 on the rank's heads (module docstring):
 
     * ``train``: the chunked scan from a zero state; no cache;
     * ``prefill``: the same, and the block's decode cache (the final state
@@ -125,24 +154,30 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
       whose state and conv windows are overwritten in place.
     """
     b, s, _ = x.shape
-    d_in, hd, h, n = _dims(cfg)
+    d_in, hd, h, n = _dims(cfg, ctx.tp)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got "
                          f"{mode!r}")
     if mode == "decode" and (cache is None or s != 1):
         raise ValueError(f"decode takes one token and a cache, got {s} "
                          f"tokens and {'a' if cache else 'no'} cache")
+    # every replicated leaf feeds the rank's heads only (module docstring)
+    x = ctx.copy_tp(x)
+    rep = {key: ctx.copy_tp(p[key])
+           for key in ("w_b", "w_c", "conv_b", "conv_c")}
     z = dot_f32(x, p["w_z"])                                    # float32
     xi = x @ p["w_x"]
-    bb = x @ p["w_b"]
-    cc = x @ p["w_c"]
-    dt = F.softplus(dot_f32(x, p["w_dt"]) + p["dt_bias"])       # (b, s, h)
-    a = -torch.exp(p["a_log"])                                  # (h,)
+    bb = x @ rep["w_b"]
+    cc = x @ rep["w_c"]
+    dt = F.softplus(dot_f32(x, p["w_dt"])
+                    + _local(ctx, p["dt_bias"], h))              # (b, s, h)
+    a = -torch.exp(_local(ctx, p["a_log"], h))                  # (h,)
+    d_skip = _local(ctx, p["d_skip"], h)
 
     conv = cache["conv"] if mode == "decode" else None
     xi, ncx = _causal_conv(xi, p["conv_x"], conv["x"] if conv else None)
-    bb, ncb = _causal_conv(bb, p["conv_b"], conv["b"] if conv else None)
-    cc, ncc = _causal_conv(cc, p["conv_c"], conv["c"] if conv else None)
+    bb, ncb = _causal_conv(bb, rep["conv_b"], conv["b"] if conv else None)
+    cc, ncc = _causal_conv(cc, rep["conv_c"], conv["c"] if conv else None)
     # the scan's operands in float32 (exact from the compute dtype)
     xh = widen(xi.reshape(b, s, h, hd))
     bb, cc = widen(bb), widen(cc)
@@ -154,8 +189,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
                * bb[:, 0][:, None, None, :])                    # (b,h,hd,n)
         ssm = widen(cache["ssm"]) * da[..., None, None] + dbx
         y = torch.einsum("bn,bhpn->bhp", cc[:, 0], ssm)
-        y = y + p["d_skip"][None, :, None] * xh[:, 0]
-        out = _finish(p, y.reshape(b, 1, d_in), z, x.dtype, cfg)
+        y = y + d_skip[None, :, None] * xh[:, 0]
+        out = _finish(p, y.reshape(b, 1, d_in), z, x.dtype, cfg, ctx)
         cache["ssm"].copy_(ssm)
         for key, new in (("x", ncx), ("b", ncb), ("c", ncc)):
             cache["conv"][key].copy_(new)
@@ -195,8 +230,8 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
         ssm = ssm * total[..., None, None] + state_new
         ys.append(y_diag + y_off)
     y = torch.stack(ys, dim=1).reshape(b, s, h, hd)
-    y = y + p["d_skip"][None, None, :, None] * xh
-    out = _finish(p, y.reshape(b, s, d_in), z, x.dtype, cfg)
+    y = y + d_skip[None, None, :, None] * xh
+    out = _finish(p, y.reshape(b, s, d_in), z, x.dtype, cfg, ctx)
     if mode == "prefill":
         return out, {"ssm": ssm.to(x.dtype),
                      "conv": {"x": ncx, "b": ncb, "c": ncc}}
@@ -204,10 +239,17 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "train",
 
 
 def _finish(p, y: torch.Tensor, z: torch.Tensor, dtype: torch.dtype,
-            cfg: ModelConfig) -> torch.Tensor:
+            cfg: ModelConfig, ctx=ONE_DEVICE) -> torch.Tensor:
     """Gate, RMS norm over the whole of d_inner with ``(1 + norm_w)``, all
-    in float32, then rounded to ``dtype`` for the output projection."""
+    in float32, then rounded to ``dtype`` for the output projection.  At
+    ``ctx.tp`` > 1 ``y`` holds the rank's channels: the variance is the
+    ranks' summed squares over all of d_inner (reference ``_finish``) and
+    the projection is summed over the ranks."""
     y = y * F.silu(z)
-    var = y.square().mean(dim=-1, keepdim=True)
-    y = y * torch.rsqrt(var + cfg.norm_eps) * (1.0 + widen(p["norm_w"]))
-    return y.to(dtype) @ p["w_out"]
+    d_loc = y.shape[-1]
+    # the summed squares feed the rank's channels again: copy_tp
+    var = ctx.copy_tp(ctx.psum_tp(y.square().sum(dim=-1, keepdim=True))
+                      ) / (d_loc * ctx.tp)
+    y = y * torch.rsqrt(var + cfg.norm_eps) * (
+        1.0 + widen(_local(ctx, p["norm_w"], d_loc)))
+    return ctx.psum_tp(y.to(dtype) @ p["w_out"])

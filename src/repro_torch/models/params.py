@@ -7,7 +7,11 @@ node, None: replicated on each) and ``fsdp_dim`` (the dimension on which
 the reference's storage layout concatenates the nodes' replicas, which the
 weight carry reads).  A rank of a tensor-parallel grid holds
 :func:`logical_shape_local` of each leaf: its slice ``tp_rank`` of the tp
-dimension.  Consensus nodes are a leading axis.  A
+dimension.  The declared shapes are the grid's: a padded vocabulary
+(``layers.padded_vocab``) and a padded expert axis
+(``moe.padded_experts``, whose dead experts are drawn and carried like
+the others), so the carry copies the reference's padded leaves as they
+are.  Consensus nodes are a leading axis.  A
 parameter's ``dtype`` is the model's compute dtype (float32 or bfloat16,
 ``transformer.build_defs(cfg, dtype=)``), as in the reference, where the
 parameters are stored in the compute dtype; a few leaves are float32 at

@@ -64,13 +64,18 @@ serving).
 
 Tensor parallelism: ``build_defs(cfg, ctx=)`` with a process grid's
 context at ``ctx.tp`` > 1 declares the reference's ``tp_dim`` of every
-leaf (and the padded vocabulary) and keeps the context in the
-:class:`ModelDefs`; the forward, the loss, the decode step and the cache
-then run on the rank's shards with the tp collectives of
-``models.layers``.  It covers the dense family ('A' and 'L' blocks; MoE,
-Mamba2 and encoder-decoder configs raise ``NotImplementedError``, ROADMAP
-Queue 1 item 5d) in float32.  ``init_cache`` holds the rank's kv heads
-(head-sharded) or all of them (sequence-sharded).
+leaf (and the padded vocabulary and expert axis) and keeps the context in
+the :class:`ModelDefs`; the forward, the loss, the decode step and the
+cache then run on the rank's shards with the tp collectives of
+``models.layers``, the prelude and the encoder as the periods.  It covers
+every block ('A', 'L', 'E', 'D', 'M', 'X', whisper's encoder and cross
+attention: ``models.moe`` runs the rank's experts, ``models.mamba2`` its
+SSM heads) in float32; bfloat16 raises ``NotImplementedError`` (ROADMAP
+Queue 1 item 5d-2).  ``init_cache`` holds the rank's kv heads
+(head-sharded) or all of them (sequence-sharded), in the cross entries
+too, whose sequence-sharded form keeps every frame on each rank (sharding
+it over the frames is item 5d-4), and a Mamba2 block's state and ``x``
+window at the rank's heads and channels.
 """
 from __future__ import annotations
 
@@ -94,7 +99,8 @@ from repro_torch.models.layers import (ONE_DEVICE, attention_defs,
                                        mlp_forward, norm_def, rms_norm,
                                        sharded_greedy_sample,
                                        sharded_softmax_xent,
-                                       sinusoidal_positions, head_sharded)
+                                       sinusoidal_positions, head_sharded,
+                                       kv_weights)
 from repro_torch.models.params import ParamDef
 
 __all__ = ["ModelDefs", "build_defs", "init_cache", "model_apply",
@@ -137,18 +143,18 @@ def _block_defs(code: str, cfg: ModelConfig, cross: bool = False,
     if code in "ALED":
         d["attn"] = attention_defs(cfg, dtype, ctx)
     elif code in "MX":
-        d["mamba"] = mamba2.mamba_defs(cfg, dtype)
+        d["mamba"] = mamba2.mamba_defs(cfg, dtype, ctx)
     else:
         raise ValueError(f"unknown block code {code!r}")
     if cross:
         d["norm_cross"] = norm_def(cfg, dtype)
-        d["cross"] = attention_defs(cfg, dtype)
+        d["cross"] = attention_defs(cfg, dtype, ctx)
     if code in "EX":
         d["norm2"] = norm_def(cfg, dtype)
-        d["moe"] = moe.moe_defs(cfg, dtype)
+        d["moe"] = moe.moe_defs(cfg, dtype, ctx)
     elif code == "D":
         d["norm2"] = norm_def(cfg, dtype)
-        d["mlp"] = mlp_defs(cfg, d_ff=cfg.dense_d_ff, dtype=dtype)
+        d["mlp"] = mlp_defs(cfg, d_ff=cfg.dense_d_ff, dtype=dtype, ctx=ctx)
     elif code in "AL" or (code == "M" and cfg.d_ff > 0):
         d["norm2"] = norm_def(cfg, dtype)
         d["mlp"] = mlp_defs(cfg, dtype=dtype, ctx=ctx)
@@ -217,13 +223,14 @@ def build_defs(cfg: ModelConfig, dtype=torch.float32,
                                for c in cfg.period),
                "final_norm": norm_def(cfg, dtype)}
     if cfg.prelude:
-        storage["prelude"] = tuple(_block_defs(c, cfg, cross, dtype)
+        storage["prelude"] = tuple(_block_defs(c, cfg, cross, dtype, ctx)
                                    for c in cfg.prelude)
     if cross:
         storage["pos_emb"] = ParamDef((POS_EMB_ROWS, cfg.d_model),
                                       scale=0.02, dtype=dtype)
         storage["encoder"] = {
-            "layers": (_stack_defs(_block_defs("A", cfg, dtype=dtype),
+            "layers": (_stack_defs(_block_defs("A", cfg, dtype=dtype,
+                                               ctx=ctx),
                                    cfg.n_encoder_layers),),
             "final_norm": norm_def(cfg, dtype)}
     return ModelDefs(cfg=cfg, storage=storage, ctx=ctx)
@@ -231,22 +238,17 @@ def build_defs(cfg: ModelConfig, dtype=torch.float32,
 
 def check_tp(cfg: ModelConfig, tp: int, dtype=torch.float32) -> None:
     """``NotImplementedError`` unless ``cfg`` at ``tp`` > 1 lies in the
-    ported slice of tensor parallelism: the dense family ('A' and 'L'
-    blocks, no encoder) in float32 (the rest is ROADMAP Queue 1 item 5d);
-    ``ValueError`` when ``d_ff`` does not split over ``tp``."""
-    blocks = set(cfg.prelude + cfg.period)
-    if cfg.is_encoder_decoder or blocks - set("AL"):
-        raise NotImplementedError(
-            f"{cfg.arch_id} at tp={tp}: tensor parallelism covers the dense "
-            "transformer family; MoE, Mamba2 and encoder-decoder blocks "
-            "are not yet ported (ROADMAP Queue 1 item 5d)")
+    ported slice of tensor parallelism: every block family in float32
+    (other compute dtypes are ROADMAP Queue 1 item 5d-2).  The widths that
+    must split over ``tp`` raise ``ValueError`` where their leaves are
+    declared: a dense MLP's ``d_ff`` (``layers.mlp_defs``), the shared
+    experts' width (``moe.moe_defs``) and the SSM heads
+    (``mamba2.mamba_defs``)."""
     if dtype != torch.float32:
         raise NotImplementedError(
-            f"tp={tp} at {dtype}: tensor parallelism runs float32; other "
-            "compute dtypes are not yet ported (ROADMAP Queue 1 item 5d)")
-    if cfg.d_ff % tp:
-        raise ValueError(f"{cfg.arch_id}: d_ff {cfg.d_ff} does not split "
-                         f"over tp={tp}")
+            f"{cfg.arch_id} at tp={tp} in {dtype}: tensor parallelism runs "
+            "float32; other compute dtypes are not yet ported (ROADMAP "
+            "Queue 1 item 5d-2)")
 
 
 def init_cache(cfg: ModelConfig, b: int, capacity: int,
@@ -258,9 +260,10 @@ def init_cache(cfg: ModelConfig, b: int, capacity: int,
     over ``enc_len`` frames (``cfg.encoder_frames`` when None), and its
     capacity is at most POS_EMB_ROWS (ValueError: the reference would read
     fill values past its learned positions).  At ``tp`` > 1 a rank's
-    attention cache holds its kv heads (head-sharded: ``kvh / tp``, or the
-    one kv head its q heads use when ``kvh < tp``) or every kv head
-    (sequence-sharded)."""
+    attention and cross caches hold its kv heads (head-sharded: ``kvh /
+    tp``, or the one kv head its q heads use when ``kvh < tp``) or every
+    kv head (sequence-sharded), and a Mamba2 block's state and ``x``
+    window its heads and channels."""
     if cfg.is_encoder_decoder and capacity > POS_EMB_ROWS:
         raise ValueError(f"a cache of {capacity} positions exceeds the "
                          f"{POS_EMB_ROWS} learned decoder positions")
@@ -270,7 +273,7 @@ def init_cache(cfg: ModelConfig, b: int, capacity: int,
 
     def entry(code, *lead):
         if code in "MX":
-            d_in, hd, h, n = mamba2._dims(cfg)
+            d_in, hd, h, n = mamba2._dims(cfg, tp)
             k = cfg.ssm_conv
             return {"mamba": {"ssm": zeros(*lead, b, h, hd, n),
                               "conv": {"x": zeros(*lead, b, k - 1, d_in),
@@ -318,7 +321,7 @@ def _block_forward(code: str, p, x: torch.Tensor, cfg: ModelConfig, *,
                                  use_rope=use_rope, ctx=ctx)
     else:
         a, c = mamba2.mamba_forward(p["mamba"], h, cfg, mode=mode,
-                                    cache=c_in)
+                                    cache=c_in, ctx=ctx)
     if cfg.post_norms:
         a = rms_norm(a, p["norm1_post"], cfg.norm_eps)
     x = x + a
@@ -328,14 +331,14 @@ def _block_forward(code: str, p, x: torch.Tensor, cfg: ModelConfig, *,
         h = rms_norm(x, p["norm_cross"], cfg.norm_eps)
         a, parts["cross"] = _cross_attention(
             p["cross"], h, cfg, enc_out=enc_out,
-            cache=cache["cross"] if mode == "decode" else None)
+            cache=cache["cross"] if mode == "decode" else None, ctx=ctx)
         x = x + a
     aux = None
     if "norm2" not in p:
         return x, parts, aux
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if "moe" in p:
-        f, aux = moe.moe_forward(p["moe"], h, cfg)
+        f, aux = moe.moe_forward(p["moe"], h, cfg, ctx)
     else:
         f = mlp_forward(p["mlp"], h, cfg, ctx)
     if cfg.post_norms:
@@ -344,7 +347,8 @@ def _block_forward(code: str, p, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def _cross_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
-                     enc_out: torch.Tensor | None, cache: dict | None):
+                     enc_out: torch.Tensor | None, cache: dict | None,
+                     ctx=ONE_DEVICE):
     """Attention of the decoder stream ``x`` (b, s, d) over the encoder's
     frames: no RoPE, no q/k norm, no softcap, every frame visible.  With
     ``cache`` (decode) q attends over its K and V through the flash-decode
@@ -352,29 +356,47 @@ def _cross_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     from ``enc_out`` (b, T, d), attended in the reference's blocks
     (``min(512, s)`` x ``min(1024, T)``) and returned as the cache
     ``{"k", "v"}``, each (b, T, kvh, hd).  Returns (out (b, s, d),
-    cache)."""
+    cache).
+
+    Head-sharded at ``ctx.tp`` > 1 (reference ``_cross_attention``): q on
+    the rank's heads, K and V projected from the encoder's output on its
+    kv heads (so the cache it writes is their own projection, contiguous
+    for the flash-decode kernel), the output summed over the ranks.
+    Sequence-sharded (``n_heads % tp != 0``): every weight is replicated
+    and every rank computes every head over every frame, without a sum
+    (the reference's replicated compute; its cache keeps every frame on
+    each rank, where the reference's shards them, item 5d-4)."""
     b, s, _ = x.shape
-    hd, kvh = cfg.resolved_head_dim, cfg.n_kv_heads
-    q = (x @ p["wq"]).reshape(b, s, kvh, cfg.n_heads // kvh, hd)
+    hd = cfg.resolved_head_dim
+    if not head_sharded(cfg, ctx.tp):
+        ctx = ONE_DEVICE
+    tp = ctx.tp
+    h = cfg.n_heads // tp
+    x = ctx.copy_tp(x)
+    wk, wv, kvh = kv_weights(p, cfg, ctx)
+    q = (x @ p["wq"]).reshape(b, s, kvh, h // kvh, hd)
     if cache is not None:
         k, v = cache["k"], cache["v"]
         valid = torch.ones(k.shape[1], dtype=torch.bool, device=x.device)
         out = combine_decode_partials(
             *decode_attention_local(q, k, v, valid)).reshape(b, s, -1)
-        return out.to(x.dtype) @ p["wo"], cache
+        return ctx.psum_tp(out.to(x.dtype) @ p["wo"]), cache
     t = enc_out.shape[1]
-    k = (enc_out @ p["wk"]).reshape(b, t, kvh, hd)
-    v = (enc_out @ p["wv"]).reshape(b, t, kvh, hd)
+    enc_out = ctx.copy_tp(enc_out)
+    k = (enc_out @ wk).reshape(b, t, kvh, hd)
+    v = (enc_out @ wv).reshape(b, t, kvh, hd)
     out = chunked_attention(q, k, v, causal=False, chunk_q=min(512, s),
                             chunk_k=min(1024, t)).reshape(b, s, -1)
-    return out @ p["wo"], {"k": k, "v": v}
+    return ctx.psum_tp(out @ p["wo"]), {"k": k, "v": v}
 
 
-def _encoder_apply(params: Any, cfg: ModelConfig,
-                   frames: torch.Tensor) -> torch.Tensor:
+def _encoder_apply(params: Any, cfg: ModelConfig, frames: torch.Tensor,
+                   ctx=ONE_DEVICE) -> torch.Tensor:
     """The encoder over frames (b, T, d): sinusoidal positions added, then
     ``n_encoder_layers`` pre-norm blocks of bidirectional attention
-    without RoPE and the MLP, then the encoder's final norm."""
+    without RoPE and the MLP, then the encoder's final norm; at ``ctx.tp``
+    > 1 on the rank's heads (or frames, sequence-sharded) and ``d_ff``
+    columns, as the decoder's blocks."""
     enc = params["encoder"]
     x = frames + sinusoidal_positions(frames.shape[1], frames.shape[2],
                                       device=frames.device
@@ -383,10 +405,10 @@ def _encoder_apply(params: Any, cfg: ModelConfig,
         p = T.tree_map(lambda a: a[layer], enc["layers"][0])
         a, _ = attention_forward(p["attn"], rms_norm(x, p["norm1"],
                                                      cfg.norm_eps),
-                                 cfg, use_rope=False, causal=False)
+                                 cfg, use_rope=False, causal=False, ctx=ctx)
         x = x + a
         x = x + mlp_forward(p["mlp"], rms_norm(x, p["norm2"], cfg.norm_eps),
-                            cfg)
+                            cfg, ctx)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -472,7 +494,8 @@ def _apply(params: Any, defs: ModelDefs, batch: dict, *,
     enc_out = None
     if cfg.is_encoder_decoder:
         if frames is not None:
-            enc_out = _encoder_apply(params, cfg, frames.to(compute_dtype))
+            enc_out = _encoder_apply(params, cfg, frames.to(compute_dtype),
+                                     ctx)
         x = x + params["pos_emb"][pos:pos + s][None].to(x.dtype)
     use_rope = not cfg.is_encoder_decoder
 

@@ -8,12 +8,13 @@ projections, each rank slicing its one), and smollm-135m
 sequence-sharded at tp 3 (``n_heads % 3 != 0``; ``d_ff`` 384 so that 3
 divides it, which also pads the vocabulary from 1,024 to 1,152).  Every
 case runs on weights drawn here with numpy at the padded vocabulary
-(norms drawn too, so that their gradients are not trivial), and is held
+(norms drawn too, around their init, so that their gradients are not
+trivial), and is held
 
 * to the reference in one JAX subprocess on 8 host devices, started
   before the ranks and run beside them: the train-mode logits of each
-  node's rows against ``model_apply`` under ``shard_map`` on a ``(1, tp)``
-  mesh, the loss, every rank's gradient against ``jax.grad`` of
+  node's rows against ``model_apply`` of those rows alone under
+  ``shard_map`` on a ``(1, tp)`` mesh, the loss, every rank's gradient against ``jax.grad`` of
   ``train_loss`` and its parameters after one step against the
   reference's ``algorithm="none"`` train step, both on a ``(data=2,
   model=tp)`` mesh with 2 consensus nodes, and a prefill plus
@@ -36,6 +37,15 @@ Tolerances (float32 on both sides; the sums are split over the ranks in
 other places than in one matmul): ``LOGIT_TOL`` 1e-5 absolute on the
 logits and the loss, ``GRAD_RTOL`` relative to each leaf's largest
 gradient, ``PARAM_ATOL`` on the parameters after a step of lr 1e-2.
+
+The harness (:func:`make_inputs`, :func:`make_runs` and the ``check_*``
+functions) also serves the other families' files, ``test_torch_tp_moe.py``,
+``test_torch_tp_ssm.py`` and ``test_torch_tp_whisper.py``: an
+encoder-decoder's batch and prompts carry frames, a config with Mamba2
+blocks trains on ``torch_tp_work.seq_len`` tokens (a multiple of its scan
+chunk), and where the grid pads the expert axis the weights are drawn at
+the padded shapes and the port's tp = 1 run takes the live experts only
+(the dead ones sliced off; its gradient is compared with zeros on them).
 """
 import torch_threads  # noqa: F401  (first: one torch thread)
 import os
@@ -82,37 +92,53 @@ def _grid_defs(cfg, tp):
     return TF.build_defs(cfg, ctx=types.SimpleNamespace(tp=tp))
 
 
-def _draw(cfg, seed: int):
-    """Every leaf of ``cfg``'s full logical tree from numpy: the port's
-    init scale for the normal leaves, 0.1 * normal for the norms."""
+def _draw(cfg, seed: int, tp: int = 1):
+    """Every leaf of ``cfg``'s full logical tree at ``tp`` (the padded
+    expert axis) from numpy: the port's init scale for the normal leaves,
+    and for the leaves declared zeros or ones (the norms, Mamba2's
+    ``a_log``, ``d_skip`` and ``dt_bias``) that value plus 0.1 * normal,
+    so that their gradients are not trivial."""
     rng = np.random.default_rng(seed)
 
     def one(d):
         if d.init != "normal":
-            return (0.1 * rng.standard_normal(d.shape)).astype(np.float32)
+            return (float(d.init == "ones")
+                    + 0.1 * rng.standard_normal(d.shape)).astype(np.float32)
         fan = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         return (rng.standard_normal(d.shape) * d.scale
                 / np.sqrt(fan)).astype(np.float32)
-    return T.tree_map(one, TF.build_defs(cfg).storage)
+    return T.tree_map(one, _grid_defs(cfg, tp).storage)
 
 
-def _inputs():
+def make_inputs(specs, adc_names) -> list:
+    """The cases of ``specs`` ((name, arch, tp, config overrides), ...):
+    weights, a training batch, serve prompts and, for the names in
+    ``adc_names``, ``ADC_STEPS`` more batches, drawn with numpy; an
+    encoder-decoder's batches and prompts carry standard normal frames
+    ``(b, encoder_frames, d_model)``, drawn after the rest."""
     cases = []
-    for i, (name, arch, tp, ov) in enumerate(CASES):
+    for i, (name, arch, tp, ov) in enumerate(specs):
         case = {"name": name, "arch": arch, "tp": tp, "overrides": ov}
         cfg = W.config(case, tp)
         rng = np.random.default_rng(100 + i)
         real = W.config(case, 1).vocab_size
+        s = W.seq_len(cfg)
 
         def toks(shape):
             return rng.integers(0, real, shape, dtype=np.int32)
-        case.update(weights=_draw(cfg, i), batch={
-            "tokens": toks((W.B, W.S)), "labels": toks((W.B, W.S))},
-            prompts=toks((W.SERVE_B, W.PROMPT)), adc=name == ADC_CASE)
+        case.update(weights=_draw(cfg, i, tp), batch={
+            "tokens": toks((W.B, s)), "labels": toks((W.B, s))},
+            prompts=toks((W.SERVE_B, W.PROMPT)), adc=name in adc_names)
         if case["adc"]:
-            case["adc_batches"] = [{"tokens": toks((W.B, W.S)),
-                                    "labels": toks((W.B, W.S))}
+            case["adc_batches"] = [{"tokens": toks((W.B, s)),
+                                    "labels": toks((W.B, s))}
                                    for _ in range(W.ADC_STEPS)]
+        if cfg.is_encoder_decoder:
+            def frames(b):
+                return rng.standard_normal(
+                    (b, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+            case["batch"]["enc_frames"] = frames(W.B)
+            case["serve_frames"] = frames(W.SERVE_B)
         cases.append(case)
     return cases
 
@@ -134,6 +160,8 @@ inp = pickle.load(open(sys.argv[1], "rb"))
 W = inp["W"]
 isdef = lambda x: isinstance(x, ParamDef)
 out = {}
+def specs(batch, two, three):
+    return {k: three if v.ndim == 3 else two for k, v in batch.items()}
 for case in inp["cases"]:
     tp = case["tp"]
     cfg = dataclasses.replace(reduced(get_config(case["arch"])),
@@ -151,11 +179,12 @@ for case in inp["cases"]:
     params = jax.tree_util.tree_unflatten(td, [jnp.asarray(a) for a in storage])
     ctx = setup.ctx
     pspec = LT._param_specs(setup.defs.storage, ctx)
-    bspec = LT.batch_partition_spec(ctx, W["B"])
+    bspec = specs(batch, LT.batch_partition_spec(ctx, W["B"]),
+                  LT.batch_partition_spec(ctx, W["B"], extra_dims=2))
     def gfn(p, b):
         return jax.grad(lambda p: T.train_loss(p, setup.defs, b, ctx)[0])(p)
-    grads = jax.jit(shard_map_compat(gfn, mesh, in_specs=(pspec, {
-        "tokens": bspec, "labels": bspec}), out_specs=pspec))(params, batch)
+    grads = jax.jit(shard_map_compat(gfn, mesh, in_specs=(pspec, bspec),
+                                     out_specs=pspec))(params, batch)
     state = {"params": params, "opt": setup.optimizer.init(params),
              "consensus": {}, "step": jnp.zeros((), jnp.int32)}
     state = jax.device_put(state, setup.state_sharding)
@@ -172,14 +201,24 @@ for case in inp["cases"]:
     params1 = jax.tree_util.tree_unflatten(td, [jnp.asarray(a) for a in logical])
     pspec1 = LT._param_specs(defs1.storage, ctx1)
     lfn = lambda p, b: T.model_apply(p, defs1, b, ctx1, remat=False)[0]
-    res["logits"] = np.asarray(jax.jit(shard_map_compat(
-        lfn, mesh1, in_specs=(pspec1, {"tokens": P(None, None)}),
-        out_specs=P(None, None, "model"), check=False))(
-            params1, {"tokens": batch["tokens"]}))
+    fwd = {k: v for k, v in batch.items() if k != "labels"}
+    lfn = jax.jit(shard_map_compat(
+        lfn, mesh1, in_specs=(pspec1, specs(fwd, P(None, None),
+                                            P(None, None, None))),
+        out_specs=P(None, None, "model"), check=False))
+    # each node's rows on their own, as its ranks route them (an MoE
+    # layer's capacity counts the tokens routed together)
+    bn = W["B"] // 2
+    res["logits"] = np.concatenate([np.asarray(lfn(params1, {
+        k: v[i * bn:(i + 1) * bn] for k, v in fwd.items()}))
+        for i in range(2)])
     pre = build_prefill_setup(cfg, mesh1, global_batch=W["SERVE_B"],
                               seq_len=W["PROMPT"])
     pp = jax.device_put(params1, pre.params_sharding)
-    first, cache = pre.prefill_step(pp, {"tokens": jnp.asarray(case["prompts"])})
+    prompt = {"tokens": jnp.asarray(case["prompts"])}
+    if case.get("serve_frames") is not None:
+        prompt["enc_frames"] = jnp.asarray(case["serve_frames"])
+    first, cache = pre.prefill_step(pp, prompt)
     srv = build_serve_setup(cfg, mesh1, global_batch=W["SERVE_B"],
                             capacity=W["PROMPT"] + W["DECODE"])
     def pad_to(p, s):
@@ -200,18 +239,18 @@ pickle.dump(out, open(sys.argv[2], "wb"))
 '''
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """The reference (a subprocess, beside the ranks), the grids of 4, 6
-    and 8 ranks, and the port's tp = 1 runs."""
-    cases = _inputs()
+def make_runs(cases) -> dict:
+    """The reference (a subprocess, beside the ranks), a grid of
+    ``N_NODES x tp`` ranks for each tp of ``cases``, and the port's tp = 1
+    runs."""
     with tempfile.TemporaryDirectory(prefix="tp-") as tmp:
         inp, outp = os.path.join(tmp, "in.pkl"), os.path.join(tmp, "out.pkl")
         with open(inp, "wb") as f:
             pickle.dump({"W": {k: getattr(W, k) for k in (
                 "B", "LR", "SERVE_B", "PROMPT", "DECODE")},
-                "cases": [{**{k: c[k] for k in (
-                    "name", "arch", "tp", "overrides", "batch", "prompts")},
+                "cases": [{**{k: c.get(k) for k in (
+                    "name", "arch", "tp", "overrides", "batch", "prompts",
+                    "serve_frames")},
                     "vocab": W.config(c, c["tp"]).vocab_size,
                     "weights": T.tree_leaves(c["weights"])}
                     for c in cases]}, f)
@@ -239,24 +278,49 @@ def runs():
             "ref": ref, "ones": ones}
 
 
+@pytest.fixture(scope="module")
+def runs():
+    """The dense cases: grids of 4, 6 and 8 ranks."""
+    return make_runs(make_inputs(CASES, (ADC_CASE,)))
+
+
+def _live(a, d):
+    """The leaf ``a`` of the grid's (padded) tree cut to the tp = 1 shape
+    of ``d``: the live experts."""
+    return a[tuple(slice(0, n) for n in d.shape)]
+
+
 def _tp1(case) -> dict:
-    """The port at tp = 1 on the same config and weights, both nodes
-    stacked: gradients, one ``none`` step, the served tokens."""
+    """The port at tp = 1 on the same config and weights (the live
+    experts of a padded expert axis), both nodes stacked: gradients
+    (zero on the dead experts, at the grid's shapes), one ``none`` step,
+    the served tokens."""
     cfg = W.config(case, case["tp"])
     setup = W.setup_for(cfg)
-    params = params_from_jax(case["weights"], setup.defs.storage, "cpu",
+    weights = T.tree_map(_live, case["weights"], setup.defs.storage)
+    params = params_from_jax(weights, setup.defs.storage, "cpu",
                              n_nodes=W.N_NODES)
     losses, grads = train._node_grads(setup, params, case["batch"])
     pre = serve.build_prefill_setup(cfg, device="cpu")
     srv = serve.build_serve_setup(cfg, device="cpu")
-    p = params_from_jax(case["weights"], pre.defs.storage, "cpu")
-    ids, cache = pre.prefill_step(p, {"tokens": torch.as_tensor(
-        case["prompts"])}, W.PROMPT + W.DECODE)
+    p = params_from_jax(weights, pre.defs.storage, "cpu")
+    batch = {"tokens": torch.as_tensor(case["prompts"])}
+    if case.get("serve_frames") is not None:
+        batch["enc_frames"] = torch.as_tensor(case["serve_frames"])
+    ids, cache = pre.prefill_step(p, batch, W.PROMPT + W.DECODE)
     st, toks = {"params": p, "cache": cache, "tokens": ids}, [ids]
     for _ in range(W.DECODE):
         st = srv.serve_step(st)
         toks.append(st["tokens"])
-    return {"losses": losses, "grads": T.tree_leaves(grads),
+
+    def pad(g, w):
+        out = g.new_zeros(g.shape[:1] + w.shape)
+        out[(slice(None),) + tuple(slice(0, n) for n in g.shape[1:])] = g
+        return out
+    return {"losses": losses,
+            "grads": [pad(g, w) for g, w in zip(T.tree_leaves(grads),
+                                                 T.tree_leaves(
+                                                     case["weights"]))],
             "tokens": torch.cat(toks, dim=1).numpy()}
 
 
@@ -270,8 +334,9 @@ def _each_rank(runs, name):
         yield node, m, defs, res[name]
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_forward_matches_reference(runs, name):
+def check_forward(runs, name, tol=LOGIT_TOL):
+    """Each rank's logits of its node's rows within ``tol`` of the
+    reference's columns of the rank, the loss within ``LOGIT_TOL``."""
     ref = runs["ref"][name]
     bn = W.B // W.N_NODES
     for node, m, _, res in _each_rank(runs, name):
@@ -279,12 +344,11 @@ def test_forward_matches_reference(runs, name):
         want = ref["logits"][node * bn:(node + 1) * bn, :,
                              m * v_l:(m + 1) * v_l]
         np.testing.assert_allclose(res["logits"].numpy(), want,
-                                   atol=LOGIT_TOL, rtol=0)
+                                   atol=tol, rtol=0)
         assert abs(res["loss"] - ref["loss"]) <= LOGIT_TOL
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_gradient_and_step_match_reference(runs, name):
+def check_gradient_and_step(runs, name):
     """The reference's storage leaves (both nodes' replicas on each
     leaf's ``fsdp_dim``) carried to each rank by ``params_from_jax``."""
     ref = runs["ref"][name]
@@ -305,8 +369,7 @@ def test_gradient_and_step_match_reference(runs, name):
             assert (p1 - want1).abs().max() <= PARAM_ATOL
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_gradient_matches_tp1(runs, name):
+def check_gradient_tp1(runs, name):
     one = runs["ones"][name]
     tp = runs["cases"][name]["tp"]
     for node, m, defs, res in _each_rank(runs, name):
@@ -318,8 +381,7 @@ def test_gradient_matches_tp1(runs, name):
             assert err <= GRAD_RTOL, (name, node, m, d.shape, float(err))
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_replicated_leaves_bitwise_across_tp_ranks(runs, name):
+def check_replicated_bitwise(runs, name):
     by_node = {}
     for node, m, defs, res in _each_rank(runs, name):
         by_node.setdefault(node, []).append(res)
@@ -336,27 +398,34 @@ def test_replicated_leaves_bitwise_across_tp_ranks(runs, name):
     assert n_rep
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_serve_tokens_match_reference(runs, name):
+def check_serve_tokens(runs, name):
+    """Every rank's tokens are the reference's and the port's tp = 1
+    ones, and its cache has the shapes of ``init_cache`` at its tp."""
     ref, one = runs["ref"][name], runs["ones"][name]
-    tp = runs["cases"][name]["tp"]
+    case = runs["cases"][name]
+    tp = case["tp"]
     np.testing.assert_array_equal(ref["tokens"], one["tokens"])
-    cfg = W.config(runs["cases"][name], tp)
+    cfg = W.config(case, tp)
+    frames = case.get("serve_frames")
+    want = T.tree_map(lambda a: tuple(a.shape), {
+        k: v for k, v in TF.init_cache(
+            cfg, W.SERVE_B, W.PROMPT + W.DECODE, device="meta", tp=tp,
+            enc_len=None if frames is None else frames.shape[1]).items()
+        if k != "len"})
     for node, m, _, res in _each_rank(runs, name):
         np.testing.assert_array_equal(res["serve"]["tokens"], ref["tokens"])
-        kvh = TF.init_cache(cfg, 1, 1, tp=tp)["layers"][0]["attn"]["k"]
-        assert res["serve"]["kv_shape"][-2] == kvh.shape[-2]
+        assert res["serve"]["cache_shapes"] == want
 
 
-def test_adc_bitwise_stacked(runs):
+def check_adc(runs, name):
     """Each rank's exchange of every step against the stacked runtime
     over the model index's shards of both nodes."""
-    case = runs["cases"][ADC_CASE]
+    case = runs["cases"][name]
     tp = case["tp"]
     cfg = W.config(case, tp)
     ranks = runs["ranks"][tp]
     for m in range(tp):
-        mine = [res[ADC_CASE]["adc"] for r, res in enumerate(ranks)
+        mine = [res[name]["adc"] for r, res in enumerate(ranks)
                 if r % tp == m]
         rt = ConsensusRuntime(ConsensusConfig(), W.N_NODES)
 
@@ -388,19 +457,61 @@ def test_adc_bitwise_stacked(runs):
                 assert got["x_tilde"] == W.digest(
                     state["x_tilde"][node:node + 1])
                 assert got["m_agg"] == W.digest(state["m_agg"][node:node + 1])
-    steps = [res[ADC_CASE]["adc"]["steps"] for res in ranks]
+    steps = [res[name]["adc"]["steps"] for res in ranks]
     assert all(s[-1]["loss"] == steps[0][-1]["loss"] for s in steps)
     assert np.isfinite(steps[0][-1]["consensus_err"])
 
 
+@pytest.mark.parametrize("name", NAMES)
+def test_forward_matches_reference(runs, name):
+    check_forward(runs, name)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_gradient_and_step_match_reference(runs, name):
+    check_gradient_and_step(runs, name)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_gradient_matches_tp1(runs, name):
+    check_gradient_tp1(runs, name)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_replicated_leaves_bitwise_across_tp_ranks(runs, name):
+    check_replicated_bitwise(runs, name)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_serve_tokens_match_reference(runs, name):
+    check_serve_tokens(runs, name)
+
+
+def test_adc_bitwise_stacked(runs):
+    check_adc(runs, ADC_CASE)
+
+
 def test_refusals():
+    """What tensor parallelism still refuses: bfloat16 in every family
+    (item 5d-2), widths that do not split (a dense MLP's ``d_ff``, the
+    SSM heads; an MoE block's ``d_ff`` is not split, its experts are
+    padded), serving and training options of items 5d-2 and 5d-3."""
     cfg = W.config({"arch": "qwen3-0.6b"}, 2)
     grid = types.SimpleNamespace(tp=2)
-    for arch in ("granite-moe-3b-a800m", "mamba2-1.3b", "whisper-small"):
-        with pytest.raises(NotImplementedError, match="item 5d"):
-            TF.build_defs(W.config({"arch": arch}, 2), ctx=grid)
-    with pytest.raises(NotImplementedError, match="item 5d"):
-        TF.build_defs(cfg, dtype=torch.bfloat16, ctx=grid)
+    for arch in ("qwen3-0.6b", "granite-moe-3b-a800m", "deepseek-moe-16b",
+                 "mamba2-1.3b", "jamba-v0.1-52b", "whisper-small"):
+        TF.build_defs(W.config({"arch": arch}, 2), ctx=grid)
+        with pytest.raises(NotImplementedError, match="item 5d-2"):
+            TF.build_defs(W.config({"arch": arch}, 2), dtype=torch.bfloat16,
+                          ctx=grid)
+    grid3 = types.SimpleNamespace(tp=3)
+    with pytest.raises(ValueError, match="SSM heads"):
+        TF.build_defs(W.config({"arch": "mamba2-1.3b"}, 3), ctx=grid3)
+    with pytest.raises(ValueError, match="d_ff 512"):
+        TF.build_defs(W.config({"arch": "smollm-135m"}, 3), ctx=grid3)
+    with pytest.raises(ValueError, match="shared experts"):
+        TF.build_defs(W.config({"arch": "deepseek-moe-16b"}, 3), ctx=grid3)
+    TF.build_defs(W.config({"arch": "granite-moe-3b-a800m"}, 3), ctx=grid3)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ParallelContext(tp=2)
     with pytest.raises(NotImplementedError, match="FSDP"):

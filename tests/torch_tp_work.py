@@ -1,4 +1,6 @@
-"""The ranks' work of ``test_torch_tp.py``: a tensor-parallel grid.
+"""The ranks' work of ``test_torch_tp.py`` and of the family files beside
+it (``test_torch_tp_moe.py``, ``test_torch_tp_ssm.py``,
+``test_torch_tp_whisper.py``): a tensor-parallel grid.
 
 A module of its own, free of JAX: ``launch.mesh.run_ranks`` spawns each
 rank, which imports the module of the function it runs, so the ranks
@@ -7,7 +9,9 @@ helpers for the port's stacked (tp = 1) runs.
 
 Every rank of ``N_NODES x tp`` runs, for each case, on the weights the
 test drew with numpy (the full logical leaves of the config at the padded
-vocabulary, carried to the rank's slice by ``params_from_jax``): the
+vocabulary and expert axis, carried to the rank's slice by
+``params_from_jax``), on its batch (an encoder-decoder's with its frames,
+the serve prompts with theirs): the
 train-mode logits and loss of its node's rows, its gradient, one
 ``algorithm="none"`` step, a prefill and ``DECODE`` greedy decode steps
 over its node's tp group, and for the ADC cases ``ADC_STEPS`` trainer
@@ -31,6 +35,7 @@ from repro_torch.models.params import params_from_jax
 
 N_NODES = 2
 B, S, LR = 4, 48, 1e-2
+SSM_S = 64
 #: serving: prompts of PROMPT tokens (a multiple of every tp here), then
 #: DECODE greedy steps
 SERVE_B, PROMPT, DECODE = 2, 24, 6
@@ -45,6 +50,12 @@ def config(case: dict, tp: int):
     cfg = reduced(get_config(case["arch"]))
     cfg = dataclasses.replace(cfg, **case.get("overrides", {}))
     return dataclasses.replace(cfg, vocab_size=padded_vocab(cfg, tp))
+
+
+def seq_len(cfg) -> int:
+    """The training sequence of ``cfg``: ``S``, or with Mamba2 blocks
+    ``SSM_S``, a multiple of the reduced configs' scan chunk (32)."""
+    return SSM_S if set(cfg.prelude + cfg.period) & set("MX") else S
 
 
 def digest(t: torch.Tensor) -> str:
@@ -65,20 +76,24 @@ def _carry(weights, setup, ctx):
                            tp=setup.defs.tp, tp_rank=ctx.tp_rank)
 
 
-def _serve(cfg, weights, prompts, ctx) -> dict:
+def _serve(cfg, weights, prompts, frames, ctx) -> dict:
     pre = serve.build_prefill_setup(cfg, device="cpu", ctx=ctx)
     srv = serve.build_serve_setup(cfg, device="cpu", ctx=ctx, keep_logits=1)
     params = params_from_jax(weights, pre.defs.storage, "cpu",
                              tp=pre.defs.tp, tp_rank=ctx.tp_rank)
-    ids, cache = pre.prefill_step(params, {"tokens": torch.as_tensor(
-        prompts)}, PROMPT + DECODE)
+    batch = {"tokens": torch.as_tensor(prompts)}
+    if frames is not None:
+        batch["enc_frames"] = torch.as_tensor(frames)
+    ids, cache = pre.prefill_step(params, batch, PROMPT + DECODE)
     state = {"params": params, "cache": cache, "tokens": ids}
     out = [ids]
     for _ in range(DECODE):
         state = srv.serve_step(state)
         out.append(state["tokens"])
     return {"tokens": torch.cat(out, dim=1).numpy(),
-            "kv_shape": tuple(cache["layers"][0]["attn"]["k"].shape)}
+            "cache_shapes": T.tree_map(lambda a: tuple(a.shape),
+                                       {k: v for k, v in cache.items()
+                                        if k != "len"})}
 
 
 def _adc(cfg, weights, batches, ctx) -> dict:
@@ -144,7 +159,8 @@ def grid(tp: int, cases: list) -> dict:
                "grads": [g[0] for g in T.tree_leaves(grads)],
                "params1": [a[0] for a in T.tree_leaves(state["params"])],
                "tp_stats": tp_stats,
-               "serve": _serve(cfg, case["weights"], case["prompts"], ctx)}
+               "serve": _serve(cfg, case["weights"], case["prompts"],
+                               case.get("serve_frames"), ctx)}
         if case.get("adc"):
             res["adc"] = _adc(cfg, case["weights"], case["adc_batches"], ctx)
         out[case["name"]] = res
